@@ -8,7 +8,10 @@ nothing of ``deepspeed_tpu``. Every Pallas kernel on a ported path becomes a
 kernel written by hand for Hopper (``csrc/*.cu``, built by ``op_builder``).
 
 Slice 1 is serving: ``init_inference`` builds the continuous-batching
-``InferenceEngine`` over GPT-2. Training is a later slice.
+``InferenceEngine`` over GPT-2. Slice 2 is training: ``initialize`` builds
+the ``DeepSpeedEngine`` (forward/backward/step, ``train_batch``, bf16/fp16,
+AdamW, LR schedules, checkpoints) over the GPT-2 training forward with the
+flash-attention kernels K1/K2.
 """
 
 from deepspeed_tpu_torch.device import resolve_device
@@ -33,4 +36,32 @@ def init_inference(model, params=None, config=None, device=None):
     return InferenceEngine(model, params, config=config, device=device)
 
 
-__all__ = ["init_inference", "resolve_device"]
+def initialize(args=None, model=None, optimizer=None, model_parameters=None,
+               training_data=None, lr_scheduler=None, config_params=None,
+               device=None):
+    """Build the training engine (mirrors ``deepspeed_tpu.initialize``).
+
+    ``model`` is a ``torch.nn.Module`` whose forward returns the loss (the
+    port's ``GPT2LMHeadModel`` with labels); ``model_parameters`` may be a
+    flax parameter tree of numpy arrays to load into it. The ds_config comes
+    from ``config_params`` (a dict) or ``args.deepspeed_config`` (a JSON
+    file). ``device`` defaults to ``cuda``; without a GPU the call raises
+    unless ``device="cpu"`` is passed. ``training_data`` must be None until
+    the dataloader is ported.
+
+    Returns ``(engine, optimizer, None, lr_scheduler)``.
+    """
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize requires a model")
+    engine = DeepSpeedEngine(args, model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler,
+                             config_params=config_params, device=device)
+    return engine, engine.optimizer, engine.training_dataloader, \
+        engine.lr_scheduler
+
+
+__all__ = ["init_inference", "initialize", "resolve_device"]

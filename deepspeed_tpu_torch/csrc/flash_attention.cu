@@ -1,0 +1,1108 @@
+// Flash attention for training, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of deepspeed_tpu/ops/transformer/kernels/
+// attention.py:
+//   K1  `_fwd_kernel` (launched by `_flash_fwd_pallas`)
+//       -> fwd_mma_kernel (bf16), fwd_kernel (fp32, fp16)
+//   K2a `_bwd_fused_kernel` (by `_flash_bwd_fused_pallas`)
+//       -> dkdv_mma_kernel / dkdv_kernel with kDq = true (dq by atomics
+//          into an fp32 buffer)
+//   K2b `_bwd_dkv_kernel` and `_bwd_dq_kernel` (by `_flash_bwd_pallas`)
+//       -> dkdv_*kernel with kDq = false, then dq_mma_kernel / dq_kernel
+// The plain PyTorch versions they are held against are `mha_reference`
+// (with return_lse) and `flash_bwd_reference` in
+// deepspeed_tpu_torch/ops/transformer/kernels/attention.py.
+//
+// What they compute, per (b, h), q/k/v [T, 64]:
+//   s = scale * q k^T + mask[b] (additive, [T_kv], optional); causal keeps
+//   key j for query i iff j <= i (else -1e30, the JAX package's NEG_INF);
+//   forward:  o = softmax(s) v, lse = rowmax + log(rowsum) (fp32);
+//   backward: p = exp(min(s - lse, 0)), dv = p^T do,
+//             ds = p * (do v^T - delta), delta = rowsum(do * o) (given),
+//             dq = scale * ds k, dk = scale * ds^T q.
+// Scores, softmax statistics, p, ds and every accumulator are fp32; only the
+// loads and the stores use the input type (fp32, bf16 or fp16). Keeping ds
+// in fp32 matters under fp16 loss scaling, where do carries the scale.
+//
+// Bound on an H100 SXM. At T = 1024, D = 64 each (b, h) reads its q, k, v
+// once (and do for the backward) but does 4 * D flops per visible (query,
+// key) pair in the forward and 10 * D in the backward: about 250 and 360
+// flops per byte (bf16, causal), near the line where the tensor cores
+// (989 TFLOP/s) rather than memory (3.35 TB/s) set the least time.
+//
+// What the design does about it:
+//   - the [T, T] score matrix never reaches device memory: one 64 x 64 tile
+//     of scores at a time lives on chip;
+//   - the causal mask is a loop bound (tiles past the diagonal are never
+//     loaded or computed), the TPU kernel's kv_index clamp and @pl.when skip;
+//   - bf16, the training path's type, runs its products on the tensor cores
+//     (WMMA, fp32 accumulation; see the bf16 section below). fp32 and fp16
+//     run them as register-blocked fp32 FMAs on the CUDA cores (67 TFLOP/s):
+//     a thread of a 16 x 8 grid owns 4 rows x 8 strided columns, 2.7 FMAs
+//     per shared-memory load, rows padded to 65 floats (no bank conflicts).
+//     fp16 stays there because a loss-scaled dS, split into fp16 terms for
+//     the tensor cores, could overflow;
+//   - the backward keeps K_j and V_j, and the dk/dv accumulators, on chip
+//     for a whole sweep over the query tiles. The TPU kernel's full-length
+//     dk/dv accumulators (512 KiB at T = 1024) do not fit a block's 227 KB,
+//     so K2a turns the sweep around (one block per key tile) and adds dq
+//     into an fp32 buffer with atomics; K2b computes dq in a second kernel
+//     that sweeps the key tiles instead, with no atomics.
+// The ragged last tile (T not a multiple of 64) is guarded here, so no
+// shape falls back to a dense path on the card.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kD = 64;          // head width
+constexpr int kTile = 64;       // query rows / keys per tile
+constexpr int kLd = kD + 1;     // padded shared-memory row stride (floats)
+constexpr int kThreads = 128;   // a 16 x 8 grid of threads
+constexpr int kRows = 4;        // rows per thread: ty * 4 + i
+constexpr int kCols = 8;        // columns per thread: tx + 8 * m
+constexpr int kTileFloats = kTile * kLd;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half(x);
+}
+
+// Rows [row0, row0 + 64) of a contiguous [n, 64] matrix into shared memory
+// as fp32 times `mul`; rows at or past n read as zero.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int n, float mul) {
+  for (int e = threadIdx.x; e < kTile * kD; e += kThreads) {
+    const int r = e / kD, c = e % kD;
+    const int row = row0 + r;
+    dst[r * kLd + c] =
+        row < n ? to_float(src[(size_t)row * kD + c]) * mul : 0.f;
+  }
+}
+
+// Entries [row0, row0 + 64) of a [n] fp32 vector into shared memory.
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int row0, int n) {
+  if (threadIdx.x < kTile) {
+    const int row = row0 + threadIdx.x;
+    dst[threadIdx.x] = row < n ? src[row] : 0.f;
+  }
+}
+
+// out[i][m] = sum_d A[ty*4 + i][d] * B[tx + 8m][d]
+__device__ __forceinline__ void dot_tile(float (&out)[kRows][kCols],
+                                         const float* A, const float* B,
+                                         int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int m = 0; m < kCols; ++m) out[i][m] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kD; ++d) {
+    float a[kRows], b[kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) a[i] = A[(ty * kRows + i) * kLd + d];
+#pragma unroll
+    for (int m = 0; m < kCols; ++m) b[m] = B[(tx + 8 * m) * kLd + d];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int m = 0; m < kCols; ++m) out[i][m] = fmaf(a[i], b[m], out[i][m]);
+  }
+}
+
+// acc[i][c] += sum_k P[ty*4 + i][k] * B[k][tx + 8c]; with kTransP the
+// first operand is read transposed, P[k][ty*4 + i].
+template <bool kTransP>
+__device__ __forceinline__ void acc_tile(float (&acc)[kRows][kCols],
+                                         const float* P, const float* B,
+                                         int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < kTile; ++k) {
+    float a[kRows], b[kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      a[i] = kTransP ? P[k * kLd + ty * kRows + i]
+                     : P[(ty * kRows + i) * kLd + k];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) b[c] = B[k * kLd + tx + 8 * c];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
+  }
+}
+
+// Reductions over the 8 threads that share a row (consecutive lanes).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Masked score: the additive mask, then the causal cut (kNegInf, finite, as
+// the reference's `where`).
+__device__ __forceinline__ float masked(float s, const float* mask, int key,
+                                        int row, int causal) {
+  if (mask != nullptr) s += mask[key];
+  if (causal && key > row) s = kNegInf;
+  return s;
+}
+
+// Key tiles a query tile starting at q0 sees.
+__device__ __forceinline__ int key_tiles(int q0, int Tq, int Tk, int causal) {
+  int n = (Tk + kTile - 1) / kTile;
+  if (causal) {
+    const int last_row = min(q0 + kTile - 1, Tq - 1);
+    n = min(n, last_row / kTile + 1);
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------- K1
+// One block per (64-row query tile, h, b); online softmax over key tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ mask,
+               T* __restrict__ o, float* __restrict__ lse, int H, int Tq,
+               int Tk, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kTileFloats;
+  float* v_s = k_s + kTileFloats;
+  float* p_s = v_s + kTileFloats;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* qb = q + bh * Tq * kD;
+  const T* kb = k + bh * Tk * kD;
+  const T* vb = v + bh * Tk * kD;
+  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int q0 = blockIdx.x * kTile;
+  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+
+  load_tile(q_s, qb, q0, Tq, scale);
+  float m[kRows], l[kRows], acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's k_s, v_s, p_s are read
+    load_tile(k_s, kb, k0, Tk, 1.f);
+    load_tile(v_s, vb, k0, Tk, 1.f);
+    __syncthreads();
+    float s[kRows][kCols];
+    dot_tile(s, q_s, k_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty * kRows + i;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int mm = 0; mm < kCols; ++mm) {
+        const int key = k0 + tx + 8 * mm;
+        // Keys past T_kv are not keys: -inf, an exact 0 below. Key 0 is in
+        // range and finite for every row, so the running max is finite
+        // from the first tile on.
+        s[i][mm] = key < Tk ? masked(s[i][mm], mb, key, row, causal)
+                            : -INFINITY;
+        tmax = fmaxf(tmax, s[i][mm]);
+      }
+      const float m_new = fmaxf(m[i], row_max(tmax));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int mm = 0; mm < kCols; ++mm) {
+        const float p = expf(s[i][mm] - m_new);
+        psum += p;
+        p_s[(ty * kRows + i) * kLd + tx + 8 * mm] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    acc_tile<false>(acc, p_s, v_s, ty, tx);
+  }
+
+  T* ob = o + bh * Tq * kD;
+  float* lb = lse + bh * Tq;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty * kRows + i;
+    if (row < Tq) {
+      const float lv = fmaxf(l[i], 1e-30f);
+      const float inv = 1.f / lv;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        ob[(size_t)row * kD + tx + 8 * c] = from_float<T>(acc[i][c] * inv);
+      if (tx == 0) lb[row] = m[i] + logf(lv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K2
+// One block per (64-key tile, h, b): K_j, V_j and the dk/dv accumulators
+// stay on chip over the sweep of the query tiles that see them. With kDq
+// (K2a) the block also adds its share of dq into dq_acc (fp32, zeroed by
+// the caller) with atomics; without (K2b) dq_kernel computes dq.
+template <typename T, bool kDq>
+__global__ void __launch_bounds__(kThreads)
+    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ mask,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq_acc,
+                T* __restrict__ dk, T* __restrict__ dv, int H, int Tq, int Tk,
+                float scale, int causal) {
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + kTileFloats;
+  float* q_s = v_s + kTileFloats;
+  float* do_s = q_s + kTileFloats;
+  float* pt_s = do_s + kTileFloats;  // p^T: [key][query]
+  float* dst_s = pt_s + kTileFloats;  // ds^T: [key][query]
+  float* lse_s = dst_s + kTileFloats;
+  float* delta_s = lse_s + kTile;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* qb = q + bh * Tq * kD;
+  const T* dob = dout + bh * Tq * kD;
+  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int k0 = blockIdx.x * kTile;
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  // Causal: the first query that sees key k0 is row k0.
+  const int first_qt = causal ? k0 / kTile : 0;
+
+  load_tile(k_s, k + bh * Tk * kD, k0, Tk, 1.f);
+  load_tile(v_s, v + bh * Tk * kD, k0, Tk, 1.f);
+  float dk_acc[kRows][kCols], dv_acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's q_s, do_s, pt_s, dst_s are read
+    load_tile(q_s, qb, q0, Tq, scale);
+    load_tile(do_s, dob, q0, Tq, 1.f);
+    load_rows(lse_s, lse + bh * Tq, q0, Tq);
+    load_rows(delta_s, delta + bh * Tq, q0, Tq);
+    __syncthreads();
+    float st[kRows][kCols], dpt[kRows][kCols];
+    dot_tile(st, k_s, q_s, ty, tx);   // s^T[key][query]
+    dot_tile(dpt, v_s, do_s, ty, tx);  // (do v^T)^T[key][query]
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int key = k0 + ty * kRows + i;
+#pragma unroll
+      for (int mm = 0; mm < kCols; ++mm) {
+        const int r = tx + 8 * mm;
+        const int row = q0 + r;
+        float p = 0.f;
+        if (key < Tk && row < Tq) {
+          const float s = masked(st[i][mm], mb, key, row, causal);
+          p = expf(fminf(s - lse_s[r], 0.f));
+        }
+        pt_s[(ty * kRows + i) * kLd + r] = p;
+        dst_s[(ty * kRows + i) * kLd + r] = p * (dpt[i][mm] - delta_s[r]);
+      }
+    }
+    __syncthreads();
+    acc_tile<false>(dv_acc, pt_s, do_s, ty, tx);
+    acc_tile<false>(dk_acc, dst_s, q_s, ty, tx);
+    if (kDq) {
+      float dq[kRows][kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) dq[i][c] = 0.f;
+      acc_tile<true>(dq, dst_s, k_s, ty, tx);  // dq[query][c]
+      float* dqb = dq_acc + bh * Tq * kD;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int row = q0 + ty * kRows + i;
+        if (row < Tq) {
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            atomicAdd(&dqb[(size_t)row * kD + tx + 8 * c], dq[i][c] * scale);
+        }
+      }
+    }
+  }
+
+  T* dkb = dk + bh * Tk * kD;
+  T* dvb = dv + bh * Tk * kD;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int key = k0 + ty * kRows + i;
+    if (key < Tk) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        dkb[(size_t)key * kD + tx + 8 * c] = from_float<T>(dk_acc[i][c]);
+        dvb[(size_t)key * kD + tx + 8 * c] = from_float<T>(dv_acc[i][c]);
+      }
+    }
+  }
+}
+
+// K2b's second kernel: one block per (64-row query tile, h, b), sweeping the
+// key tiles the tile sees; dq accumulates in registers, no atomics.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ mask,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int H,
+              int Tq, int Tk, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + kTileFloats;
+  float* k_s = do_s + kTileFloats;
+  float* v_s = k_s + kTileFloats;
+  float* ds_s = v_s + kTileFloats;  // ds: [query][key]
+  float* lse_s = ds_s + kTileFloats;
+  float* delta_s = lse_s + kTile;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* kb = k + bh * Tk * kD;
+  const T* vb = v + bh * Tk * kD;
+  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int q0 = blockIdx.x * kTile;
+  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+
+  load_tile(q_s, q + bh * Tq * kD, q0, Tq, scale);
+  load_tile(do_s, dout + bh * Tq * kD, q0, Tq, 1.f);
+  load_rows(lse_s, lse + bh * Tq, q0, Tq);
+  load_rows(delta_s, delta + bh * Tq, q0, Tq);
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous tile's k_s, v_s, ds_s are read
+    load_tile(k_s, kb, k0, Tk, 1.f);
+    load_tile(v_s, vb, k0, Tk, 1.f);
+    __syncthreads();
+    float s[kRows][kCols], dp[kRows][kCols];
+    dot_tile(s, q_s, k_s, ty, tx);
+    dot_tile(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = ty * kRows + i;
+      const int row = q0 + r;
+#pragma unroll
+      for (int mm = 0; mm < kCols; ++mm) {
+        const int key = k0 + tx + 8 * mm;
+        float p = 0.f;
+        if (key < Tk && row < Tq) {
+          const float sm = masked(s[i][mm], mb, key, row, causal);
+          p = expf(fminf(sm - lse_s[r], 0.f));
+        }
+        ds_s[r * kLd + tx + 8 * mm] = p * (dp[i][mm] - delta_s[r]);
+      }
+    }
+    __syncthreads();
+    acc_tile<false>(acc, ds_s, k_s, ty, tx);
+  }
+
+  T* dqb = dq + bh * Tq * kD;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty * kRows + i;
+    if (row < Tq) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        dqb[(size_t)row * kD + tx + 8 * c] = from_float<T>(acc[i][c] * scale);
+    }
+  }
+}
+
+// ------------------------------------------------ bf16 on the tensor cores
+// The same three kernels for bf16 inputs, their products on the tensor
+// cores: mma.sync m16n8k16, bf16 operands, fp32 accumulation. A warp owns
+// 16 rows of the block's 64 (queries in K1 and dq_kernel, keys in K2's
+// dk/dv kernel), and every score, probability and accumulator stays in
+// registers: the accumulator layout of one product (thread (g, t) = (lane
+// / 4, lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of each
+// 8-column tile) is the left-operand layout of the next, so P and dS go
+// from the softmax arithmetic into the second product without touching
+// shared memory. A left operand computed here (P, dS) enters the product
+// as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi): 16 significant
+// bits, so those products keep fp32-level accuracy (2**-17 relative) at
+// twice the tensor-core work. q, k, v and dO are bf16 already: their
+// products are exact up to the fp32 accumulation. Shared-memory rows are
+// padded to 72 bf16, so the 32 lanes' 4-byte operand loads hit 32 banks;
+// operands needed column-wise (V, K, Q, dO as right operands over the
+// key or query axis) are staged transposed.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kLdh = kD + 8;  // bf16 row stride in shared memory
+constexpr int kTileH = kTile * kLdh;
+constexpr int kNT = kTile / 8;  // 8-column accumulator tiles per 64 columns
+constexpr int kKS = kD / 16;    // 16-deep steps over 64
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as two bf16 pairs, hi + lo.
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+// The left operand of a 16 x 16 step from accumulator tiles c0 (columns
+// 0-7) and c1 (columns 8-15), split hi/lo.
+__device__ __forceinline__ void frag_from_acc(const float (&c0)[4],
+                                              const float (&c1)[4],
+                                              uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);
+  split2(c0[2], c0[3], hi[1], lo[1]);
+  split2(c1[0], c1[1], hi[2], lo[2]);
+  split2(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// The left operand of step kk from 16 rows of a bf16 tile (stride kLdh),
+// row0 being the warp's first row.
+__device__ __forceinline__ void frag_from_smem(const bf16* s, int row0,
+                                               int kk, int g, int t,
+                                               uint32_t (&a)[4]) {
+  const bf16* p = s + (row0 + g) * kLdh + 16 * kk + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * kLdh);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * kLdh + 8);
+}
+
+// acc[n] += A times B for the 8-column tiles n of a 64-column B whose
+// columns are the rows of bt (a [64][kLdh] tile: B[k][n] = bt[n][k]),
+// over the 16-deep step kk.
+__device__ __forceinline__ void mma_row(float (&acc)[kNT][4],
+                                        const uint32_t (&a)[4],
+                                        const bf16* bt, int kk, int g,
+                                        int t) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const bf16* p = bt + (8 * n + g) * kLdh + 16 * kk + 2 * t;
+    mma16816(acc[n], a, ld32(p), ld32(p + 8));
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
+// Rows [row0, row0 + 64) of a contiguous [n, 64] bf16 matrix into shared
+// memory (row stride kLdh) in 16-byte vectors; rows at or past n are zero.
+__device__ __forceinline__ void load_tile_h(bf16* dst, const bf16* src,
+                                            int row0, int n) {
+  for (int e = threadIdx.x; e < kTile * (kD / 8); e += kThreads) {
+    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD +
+                                            c);
+    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = val;
+  }
+}
+
+// The same rows, transposed: dst[c][r] = src[row0 + r][c].
+__device__ __forceinline__ void load_tile_ht(bf16* dst, const bf16* src,
+                                             int row0, int n) {
+  for (int e = threadIdx.x; e < kTile * (kD / 8); e += kThreads) {
+    const int r = e % kTile, c = (e / kTile) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD +
+                                            c);
+    const bf16* el = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(c + i) * kLdh + r] = el[i];
+  }
+}
+
+// Store rows g and g + 8 (global rows row_a, row_b, each written when below
+// n) of 64 accumulator columns times mul, as bf16 pairs.
+__device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[kNT][4],
+                                           int row_a, int n, float mul_a,
+                                           float mul_b, int t) {
+#pragma unroll
+  for (int nd = 0; nd < kNT; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    if (row_a < n)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row_a * kD + c) =
+          __floats2bfloat162_rn(acc[nd][0] * mul_a, acc[nd][1] * mul_a);
+    if (row_a + 8 < n)
+      *reinterpret_cast<__nv_bfloat162*>(base + (size_t)(row_a + 8) * kD +
+                                         c) =
+          __floats2bfloat162_rn(acc[nd][2] * mul_b, acc[nd][3] * mul_b);
+  }
+}
+
+// K1 for bf16: one block per (64-row query tile, h, b), a warp per 16 rows;
+// S = Q K^T, the online softmax and O += P V all in registers.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ mask,
+                   T* __restrict__ o, float* __restrict__ lse, int H, int Tq,
+                   int Tk, float scale, int causal) {
+  static_assert(std::is_same<T, bf16>::value, "bf16 only");
+  __shared__ __align__(16) bf16 q_s[kTileH];
+  __shared__ __align__(16) bf16 k_s[kTileH];
+  __shared__ __align__(16) bf16 vt_s[kTileH];  // V^T [d][key]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* kb = k + bh * Tk * kD;
+  const T* vb = v + bh * Tk * kD;
+  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const int q0 = blockIdx.x * kTile;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+
+  load_tile_h(q_s, q + bh * Tq * kD, q0, Tq);
+  __syncthreads();
+  uint32_t qf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) frag_from_smem(q_s, r0, kk, g, t, qf[kk]);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[kNT][4];
+  zero(acc);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // every warp is done with the previous k_s, vt_s
+    load_tile_h(k_s, kb, k0, Tk);
+    load_tile_ht(vt_s, vb, k0, Tk);
+    __syncthreads();
+    float s[kNT][4];
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) mma_row(s, qf[kk], k_s, kk, g, t);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        // Keys past T_kv are not keys: -inf, an exact 0 below. Key 0 is in
+        // range for every row, so the running max is finite from tile 0.
+        const float x = key < Tk ? masked(s[n][e] * scale, mb, key,
+                                          row[e >> 1], causal)
+                                 : -INFINITY;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] *= alpha[e >> 1];
+        const float p = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t hi[4], lo[4];
+      frag_from_acc(s[2 * j], s[2 * j + 1], hi, lo);
+      mma_row(acc, hi, vt_s, j, g, t);
+      mma_row(acc, lo, vt_s, j, g, t);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float lv = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / lv;
+    if (t == 0 && row[r] < Tq) lse[bh * Tq + row[r]] = m[r] + logf(lv);
+  }
+  store_rows(o + bh * Tq * kD, acc, row[0], Tq, inv[0], inv[1], t);
+}
+
+// K2 for bf16: one block per 64-key tile, a warp per 16 keys, whose K and
+// V rows stay in registers as left operands. Per query tile: S^T = K Q^T
+// and dP^T = V dO^T, P^T and dS^T in fp32, then dV += P^T dO and
+// dK += dS^T Q into register accumulators held across the sweep. With kDq
+// (K2a) dS goes through shared memory (hi/lo, [query][key]) and each warp
+// adds its 16 query rows of dS K into dq_acc with atomics.
+template <typename T, bool kDq>
+__global__ void __launch_bounds__(kThreads)
+    dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ mask,
+                    const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dq_acc, T* __restrict__ dk,
+                    T* __restrict__ dv, int H, int Tq, int Tk, float scale,
+                    int causal) {
+  static_assert(std::is_same<T, bf16>::value, "bf16 only");
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // [query][d]
+  bf16* do_s = q_s + kTileH;                       // [query][d]
+  bf16* qt_s = do_s + kTileH;                      // [d][query]
+  bf16* dot_s = qt_s + kTileH;                     // [d][query]
+  float* lse_s = reinterpret_cast<float*>(dot_s + kTileH);
+  float* delta_s = lse_s + kTile;
+  bf16* kt_s = reinterpret_cast<bf16*>(delta_s + kTile);  // kDq: [d][key]
+  bf16* dsh_s = kt_s + kTileH;  // kDq: dS [query][key], hi and lo
+  bf16* dsl_s = dsh_s + kTileH;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* qb = q + bh * Tq * kD;
+  const T* dob = dout + bh * Tq * kD;
+  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const int k0 = blockIdx.x * kTile;
+  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const int n_qt = (Tq + kTile - 1) / kTile;
+  const int first_qt = causal ? k0 / kTile : 0;  // first query to see k0
+
+  // K and V rows of this warp as left operands (staged through q_s, do_s).
+  load_tile_h(q_s, k + bh * Tk * kD, k0, Tk);
+  load_tile_h(do_s, v + bh * Tk * kD, k0, Tk);
+  if (kDq) load_tile_ht(kt_s, k + bh * Tk * kD, k0, Tk);
+  __syncthreads();
+  uint32_t kf[kKS][4], vf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    frag_from_smem(q_s, r0, kk, g, t, kf[kk]);
+    frag_from_smem(do_s, r0, kk, g, t, vf[kk]);
+  }
+  float dk_acc[kNT][4], dv_acc[kNT][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int qt = first_qt; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // every warp is done with the previous tiles
+    load_tile_h(q_s, qb, q0, Tq);
+    load_tile_h(do_s, dob, q0, Tq);
+    load_tile_ht(qt_s, qb, q0, Tq);
+    load_tile_ht(dot_s, dob, q0, Tq);
+    load_rows(lse_s, lse + bh * Tq, q0, Tq);
+    load_rows(delta_s, delta + bh * Tq, q0, Tq);
+    __syncthreads();
+    float st[kNT][4], dpt[kNT][4];  // [key][query] tiles
+    zero(st);
+    zero(dpt);
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      mma_row(st, kf[kk], q_s, kk, g, t);
+      mma_row(dpt, vf[kk], do_s, kk, g, t);
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);  // query within the tile
+        const int kr = key[e >> 1];
+        float p = 0.f;
+        if (kr < Tk && q0 + c < Tq) {
+          const float x = masked(st[n][e] * scale, mb, kr, q0 + c, causal);
+          p = expf(fminf(x - lse_s[c], 0.f));
+        }
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - delta_s[c]);
+      }
+    if (kDq) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          const int kl = r0 + g + 8 * (e >> 1);  // key within the tile
+          const bf16 hi = __float2bfloat16(dpt[n][e]);
+          dsh_s[c * kLdh + kl] = hi;
+          dsl_s[c * kLdh + kl] = __float2bfloat16(dpt[n][e] -
+                                                  __bfloat162float(hi));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t hi[4], lo[4];
+      frag_from_acc(st[2 * j], st[2 * j + 1], hi, lo);
+      mma_row(dv_acc, hi, dot_s, j, g, t);
+      mma_row(dv_acc, lo, dot_s, j, g, t);
+      frag_from_acc(dpt[2 * j], dpt[2 * j + 1], hi, lo);
+      mma_row(dk_acc, hi, qt_s, j, g, t);
+      mma_row(dk_acc, lo, qt_s, j, g, t);
+    }
+    if (kDq) {
+      __syncthreads();  // every warp's dS columns are written
+      float dq[kNT][4];
+      zero(dq);
+#pragma unroll
+      for (int j = 0; j < kTile / 16; ++j) {
+        uint32_t hi[4], lo[4];
+        frag_from_smem(dsh_s, r0, j, g, t, hi);
+        frag_from_smem(dsl_s, r0, j, g, t, lo);
+        mma_row(dq, hi, kt_s, j, g, t);
+        mma_row(dq, lo, kt_s, j, g, t);
+      }
+      float* dqb = dq_acc + bh * Tq * kD;
+      const int qr = q0 + r0 + g;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = qr + 8 * (e >> 1);
+          if (r < Tq)
+            atomicAdd(&dqb[(size_t)r * kD + 8 * n + 2 * t + (e & 1)],
+                      dq[n][e] * scale);
+        }
+    }
+  }
+  store_rows(dk + bh * Tk * kD, dk_acc, key[0], Tk, scale, scale, t);
+  store_rows(dv + bh * Tk * kD, dv_acc, key[0], Tk, 1.f, 1.f, t);
+}
+
+// K2b's second kernel for bf16: one block per 64-row query tile, a warp per
+// 16 rows, Q and dO rows in registers. Per key tile: S = Q K^T and
+// dP = dO V^T, dS in fp32, dQ += dS K, all in registers.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ mask,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int H,
+                  int Tq, int Tk, float scale, int causal) {
+  static_assert(std::is_same<T, bf16>::value, "bf16 only");
+  __shared__ __align__(16) bf16 k_s[kTileH];   // [key][d]
+  __shared__ __align__(16) bf16 v_s[kTileH];   // [key][d]
+  __shared__ __align__(16) bf16 kt_s[kTileH];  // [d][key]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* kb = k + bh * Tk * kD;
+  const T* vb = v + bh * Tk * kD;
+  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const int q0 = blockIdx.x * kTile;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+
+  // Q and dO rows of this warp as left operands (staged through k_s, v_s).
+  load_tile_h(k_s, q + bh * Tq * kD, q0, Tq);
+  load_tile_h(v_s, dout + bh * Tq * kD, q0, Tq);
+  __syncthreads();
+  uint32_t qf[kKS][4], dof[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    frag_from_smem(k_s, r0, kk, g, t, qf[kk]);
+    frag_from_smem(v_s, r0, kk, g, t, dof[kk]);
+  }
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = row[r] < Tq ? lse[bh * Tq + row[r]] : 0.f;
+    delta_r[r] = row[r] < Tq ? delta[bh * Tq + row[r]] : 0.f;
+  }
+  float acc[kNT][4];
+  zero(acc);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // every warp is done with the previous tiles
+    load_tile_h(k_s, kb, k0, Tk);
+    load_tile_h(v_s, vb, k0, Tk);
+    load_tile_ht(kt_s, kb, k0, Tk);
+    __syncthreads();
+    float s[kNT][4], dp[kNT][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      mma_row(s, qf[kk], k_s, kk, g, t);
+      mma_row(dp, dof[kk], v_s, kk, g, t);
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        const int r = e >> 1;
+        float p = 0.f;
+        if (key < Tk && row[r] < Tq) {
+          const float x = masked(s[n][e] * scale, mb, key, row[r], causal);
+          p = expf(fminf(x - lse_r[r], 0.f));
+        }
+        s[n][e] = p * (dp[n][e] - delta_r[r]);
+      }
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      uint32_t hi[4], lo[4];
+      frag_from_acc(s[2 * j], s[2 * j + 1], hi, lo);
+      mma_row(acc, hi, kt_s, j, g, t);
+      mma_row(acc, lo, kt_s, j, g, t);
+    }
+  }
+  store_rows(dq + bh * Tq * kD, acc, row[0], Tq, scale, scale, t);
+}
+
+constexpr size_t kFwdSmem = 4 * kTileFloats * sizeof(float);
+constexpr size_t kDkdvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
+constexpr size_t kDqSmem = (5 * kTileFloats + 2 * kTile) * sizeof(float);
+// The bf16 K1 and dq kernels use static shared memory (27,648 B) only.
+constexpr size_t kFwdMmaSmem = 0;
+constexpr size_t kDqMmaSmem = 0;
+// bf16 K2: q, dO and their transposes, lse and delta; K2a adds K^T and dS
+// (hi, lo).
+constexpr size_t kDkdvMmaSmemSplit =
+    4 * kTileH * sizeof(bf16) + 2 * kTile * sizeof(float);
+constexpr size_t kDkdvMmaSmem = kDkdvMmaSmemSplit + 3 * kTileH * sizeof(bf16);
+
+template <typename T>
+constexpr bool kOnTensorCores = std::is_same<T, bf16>::value;
+
+bool shape_ok(int B, int H, int Tq, int Tk, int D) {
+  return D == kD && B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 && B <= 65535 &&
+         H <= 65535;
+}
+
+// Set the kernel's dynamic shared-memory limit and launch it; returns the
+// CUDA error (0 on success).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st,
+           Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
+               void* o, void* lse, int B, int H, int Tq, int Tk, float scale,
+               int causal, cudaStream_t st) {
+  const dim3 grid((Tq + kTile - 1) / kTile, H, B);
+  auto args = [&](auto kernel, size_t smem) {
+    return launch(kernel, smem, grid, st, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const float*>(mask), static_cast<T*>(o),
+                  static_cast<float*>(lse), H, Tq, Tk, scale, causal);
+  };
+  if constexpr (kOnTensorCores<T>) {
+    return args(fwd_mma_kernel<T>, kFwdMmaSmem);
+  } else {
+    return args(fwd_kernel<T>, kFwdSmem);
+  }
+}
+
+template <typename T>
+int launch_dkdv(const void* q, const void* k, const void* v, const void* mask,
+                const void* dout, const void* lse, const void* delta,
+                void* dq_acc, void* dk, void* dv, int B, int H, int Tq,
+                int Tk, float scale, int causal, int fused, cudaStream_t st) {
+  const dim3 grid((Tk + kTile - 1) / kTile, H, B);
+  auto args = [&](auto kernel, size_t smem) {
+    return launch(kernel, smem, grid, st, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const float*>(mask),
+                  static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  static_cast<float*>(dq_acc), static_cast<T*>(dk),
+                  static_cast<T*>(dv), H, Tq, Tk, scale, causal);
+  };
+  if constexpr (kOnTensorCores<T>) {
+    return fused ? args(dkdv_mma_kernel<T, true>, kDkdvMmaSmem)
+                 : args(dkdv_mma_kernel<T, false>, kDkdvMmaSmemSplit);
+  } else {
+    return fused ? args(dkdv_kernel<T, true>, kDkdvSmem)
+                 : args(dkdv_kernel<T, false>, kDkdvSmem);
+  }
+}
+
+template <typename T>
+int launch_dq(const void* q, const void* k, const void* v, const void* mask,
+              const void* dout, const void* lse, const void* delta, void* dq,
+              int B, int H, int Tq, int Tk, float scale, int causal,
+              cudaStream_t st) {
+  const dim3 grid((Tq + kTile - 1) / kTile, H, B);
+  auto args = [&](auto kernel, size_t smem) {
+    return launch(kernel, smem, grid, st, static_cast<const T*>(q),
+                  static_cast<const T*>(k), static_cast<const T*>(v),
+                  static_cast<const float*>(mask),
+                  static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta), static_cast<T*>(dq), H,
+                  Tq, Tk, scale, causal);
+  };
+  if constexpr (kOnTensorCores<T>) {
+    return args(dq_mma_kernel<T>, kDqMmaSmem);
+  } else {
+    return args(dq_kernel<T>, kDqSmem);
+  }
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16. Every tensor contiguous: q, o, dout, dq [B, H, Tq, 64];
+// k, v, dk, dv [B, H, Tk, 64]; lse, delta [B, H, Tq] fp32; mask [B, Tk]
+// fp32 or null. Each launches on `stream` and returns cudaGetLastError()
+// (0 on success); shapes the kernels do not take return
+// cudaErrorInvalidValue.
+
+// K1: o and lse.
+extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v,
+                            const void* mask, void* o, void* lse, int B, int H,
+                            int Tq, int Tk, int D, int dtype, float scale,
+                            int causal, void* stream) {
+  if (!shape_ok(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_fwd<float>(q, k, v, mask, o, lse, B, H, Tq, Tk, scale,
+                               causal, st);
+    case 1:
+      return launch_fwd<__nv_bfloat16>(q, k, v, mask, o, lse, B, H, Tq, Tk,
+                                       scale, causal, st);
+    case 2:
+      return launch_fwd<__half>(q, k, v, mask, o, lse, B, H, Tq, Tk, scale,
+                                causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2a (fused = 1): dk, dv, and dq added into dq_acc (fp32, zeroed by the
+// caller). K2b's first kernel (fused = 0): dk and dv only; dq_acc unused.
+extern "C" int ds_flash_bwd_dkdv(const void* q, const void* k, const void* v,
+                                 const void* mask, const void* dout,
+                                 const void* lse, const void* delta,
+                                 void* dq_acc, void* dk, void* dv, int B,
+                                 int H, int Tq, int Tk, int D, int dtype,
+                                 float scale, int causal, int fused,
+                                 void* stream) {
+  if (!shape_ok(B, H, Tq, Tk, D) || (fused && dq_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_dkdv<float>(q, k, v, mask, dout, lse, delta, dq_acc, dk,
+                                dv, B, H, Tq, Tk, scale, causal, fused, st);
+    case 1:
+      return launch_dkdv<__nv_bfloat16>(q, k, v, mask, dout, lse, delta,
+                                        dq_acc, dk, dv, B, H, Tq, Tk, scale,
+                                        causal, fused, st);
+    case 2:
+      return launch_dkdv<__half>(q, k, v, mask, dout, lse, delta, dq_acc, dk,
+                                 dv, B, H, Tq, Tk, scale, causal, fused, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2b's second kernel: dq in the input type.
+extern "C" int ds_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* mask, const void* dout,
+                               const void* lse, const void* delta, void* dq,
+                               int B, int H, int Tq, int Tk, int D, int dtype,
+                               float scale, int causal, void* stream) {
+  if (!shape_ok(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_dq<float>(q, k, v, mask, dout, lse, delta, dq, B, H, Tq,
+                              Tk, scale, causal, st);
+    case 1:
+      return launch_dq<__nv_bfloat16>(q, k, v, mask, dout, lse, delta, dq, B,
+                                      H, Tq, Tk, scale, causal, st);
+    case 2:
+      return launch_dq<__half>(q, k, v, mask, dout, lse, delta, dq, B, H, Tq,
+                               Tk, scale, causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

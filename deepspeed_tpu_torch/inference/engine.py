@@ -42,6 +42,7 @@ from deepspeed_tpu_torch.inference.kv_pool import (
     cache_view, fold_cache, harvest_snapshot, init_pool, max_active_frontier,
     pool_nbytes, slot_cache_view, write_slot_cache)
 from deepspeed_tpu_torch.inference.scheduler import Scheduler
+from deepspeed_tpu_torch.models.generation import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.ops.sampling import sample_rows as _sample_rows
@@ -164,7 +165,8 @@ class InferenceEngine(object):
         else:
             raise TypeError("model must be a GPT2LMHeadModel or GPT2Config, "
                             "got {}".format(type(model).__name__))
-        self._params = model
+        # The dense weights cast to the serving dtype once, here.
+        self._params = ServingWeights(model)
         self._adapter = GPT2Adapter.from_model(model).bind(config)
         self._gcfg = self._adapter.cache_spec()
         config.validate_against_model(self._gcfg.n_positions)

@@ -30,11 +30,13 @@ slices.
 """
 
 import collections
+import types
 
 import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm
 from deepspeed_tpu_torch.ops.sampling import sample_rows
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
 
@@ -65,17 +67,32 @@ def init_cache(cfg, batch, max_len, dtype=None, device=None):
             "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
 
 
-def _ln(x, p, eps):
-    """LayerNorm with fp32 statistics and affine part, cast back to x's
-    dtype (one fused op: the decode lane is launch-bound)."""
-    return F.layer_norm(x.float(), p.scale.shape, p.scale, p.bias,
-                        eps).to(x.dtype)
+class ServingWeights:
+    """A GPT-2 model's weights as the serving path reads them: the dense
+    kernels and biases cast to ``config.dtype`` once (the model holds them
+    in fp32 and would cast them at every call), ``wte``, ``wpe`` and the
+    LayerNorm parameters shared with the model. ``_forward`` reads this and
+    a ``GPT2LMHeadModel`` alike, with the same numbers."""
 
+    def __init__(self, model):
+        self.config = model.config
+        self.wte, self.wpe, self.ln_f = model.wte, model.wpe, model.ln_f
+        dt = model.config.dtype
 
-def _dense(x, p):
-    """``x @ kernel + bias`` as one GEMM with the bias in its epilogue."""
-    y = torch.addmm(p.bias, x.reshape(-1, x.shape[-1]), p.kernel)
-    return y.view(*x.shape[:-1], y.shape[-1])
+        def cast(p):
+            return types.SimpleNamespace(kernel=p.kernel.detach().to(dt),
+                                         bias=p.bias.detach().to(dt))
+
+        self._blocks = [types.SimpleNamespace(
+            ln_1=blk.ln_1, ln_2=blk.ln_2,
+            attn=types.SimpleNamespace(c_attn=cast(blk.attn.c_attn),
+                                       c_proj=cast(blk.attn.c_proj)),
+            mlp=types.SimpleNamespace(c_fc=cast(blk.mlp.c_fc),
+                                      c_proj=cast(blk.mlp.c_proj)))
+            for blk in model.blocks()]
+
+    def blocks(self):
+        return self._blocks
 
 
 def _forward(model, ids, cache, last_only=False):
@@ -104,8 +121,8 @@ def _forward(model, ids, cache, last_only=False):
     scale = 1.0 / float(hd) ** 0.5
     k_cache, v_cache = cache["k"], cache["v"]
     for i, blk in enumerate(model.blocks()):
-        h = _ln(x, blk.ln_1, cfg.layer_norm_epsilon)
-        q, k, v = _dense(h, blk.attn.c_attn).split(cfg.n_embd, dim=-1)
+        h = layer_norm(x, blk.ln_1, cfg.layer_norm_epsilon)
+        q, k, v = dense(h, blk.attn.c_attn).split(cfg.n_embd, dim=-1)
         q = q.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
         # Frontier write: plane[b, :, pos[b] + s, :] = new[b, s]; an index
         # past the plane raises instead of clamping.
@@ -114,13 +131,13 @@ def _forward(model, ids, cache, last_only=False):
         y = decode_attention.flash_decode_attention(
             q, k_cache[i], v_cache[i], pos, scale=scale)
         y = y.transpose(1, 2).reshape(B, S, cfg.n_embd)
-        x = x + _dense(y, blk.attn.c_proj)
-        h = _ln(x, blk.ln_2, cfg.layer_norm_epsilon)
-        h = F.gelu(_dense(h, blk.mlp.c_fc), approximate="tanh")
-        x = x + _dense(h, blk.mlp.c_proj)
+        x = x + dense(y, blk.attn.c_proj)
+        h = layer_norm(x, blk.ln_2, cfg.layer_norm_epsilon)
+        h = F.gelu(dense(h, blk.mlp.c_fc), approximate="tanh")
+        x = x + dense(h, blk.mlp.c_proj)
     if last_only:
         x = x[:, -1:]
-    x = _ln(x, model.ln_f, cfg.layer_norm_epsilon)
+    x = layer_norm(x, model.ln_f, cfg.layer_norm_epsilon)
     logits = torch.matmul(x.float(), model.wte.t())
     return logits, dict(cache, pos=pos + S)
 

@@ -1,5 +1,5 @@
-"""GPT-2 family in PyTorch: the config and the parameter holder the serving
-path reads.
+"""GPT-2 family in PyTorch: the config, the parameters and the training
+forward.
 
 Counterpart of ``deepspeed_tpu/models/gpt2.py``. Parameters keep the flax
 names and layouts, so the weight bridge is mechanical: ``wte``, ``wpe``,
@@ -8,24 +8,34 @@ names and layouts, so the weight bridge is mechanical: ``wte``, ``wpe``,
 ``x @ kernel + bias``, no transpose); a LayerNorm keeps ``scale`` and
 ``bias``.
 
-Precision: the flax model holds fp32 master weights and casts per call.
-Here the dense kernels and biases are cast to the serving dtype ONCE, when
-the module is built, which gives the same numbers. ``wte``, ``wpe`` and the
-LayerNorm parameters stay fp32: the tied LM head is an fp32 product against
-``wte``, LayerNorm runs its affine part in fp32, and an embedding row cast
-after the gather equals a row gathered from a cast table.
+Precision, as in flax: every parameter is held in fp32, and each call casts
+a dense layer's kernel and bias to ``config.dtype`` (flax's ``dtype=``).
+LayerNorm computes in fp32 and casts its output; the embedding is gathered
+and cast; the tied LM head's logits are fp32. The serving engine casts the
+dense weights once instead (``generation.ServingWeights``).
 
-The training forward (no cache, flash-attention kernel K1) belongs to the
-training slice; ``forward`` raises until then.
+Parameters are built with ``requires_grad=False``, as weights are data in
+flax; the training engine switches gradients on for what it trains.
+
+``forward`` is the training forward (no cache): pre-LN blocks whose
+attention is ``flash_attention`` (kernels K1/K2 on the card) or, with
+``use_flash_attention=False``, the dense einsum path. Serving goes through
+``models.generation``.
 """
 
 import dataclasses
+from typing import Any
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.models.heads import chunked_tied_softmax_xent
+from deepspeed_tpu_torch.ops.transformer.kernels.attention import (
+    flash_attention)
+from deepspeed_tpu_torch.runtime.utils import load_flax_tree
 
 
 @dataclasses.dataclass
@@ -38,6 +48,12 @@ class GPT2Config:
     dropout: float = 0.1
     layer_norm_epsilon: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # torch.utils.checkpoint around each block (flax's nn.remat).
+    remat: bool = False
+    # flash_attention (kernels K1/K2) or the dense einsum path.
+    use_flash_attention: bool = True
+    # Sequence parallelism: only None is ported (forward raises otherwise).
+    sequence_parallel_axis: Any = None
 
     @classmethod
     def gpt2_small(cls, **kw):
@@ -69,45 +85,96 @@ class GPT2Config:
         return wte + wpe + self.n_layer * per_block + 2 * self.n_embd
 
 
+def _param(*shape, device, fill=None):
+    t = torch.empty(*shape, device=device) if fill is None else \
+        torch.full(shape, fill, dtype=torch.float32, device=device)
+    return nn.Parameter(t, requires_grad=False)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense`` layout: ``kernel [in, out]``, ``y = x @ kernel +
-    bias``."""
+    bias``; fp32 parameters."""
 
-    def __init__(self, n_in, n_out, dtype, device):
+    def __init__(self, n_in, n_out, device):
         super().__init__()
-        self.kernel = nn.Parameter(
-            torch.empty(n_in, n_out, dtype=dtype, device=device),
-            requires_grad=False)
-        self.bias = nn.Parameter(
-            torch.zeros(n_out, dtype=dtype, device=device),
-            requires_grad=False)
+        self.kernel = _param(n_in, n_out, device=device)
+        self.bias = _param(n_out, device=device, fill=0.0)
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` parameters, kept fp32."""
+    """flax ``nn.LayerNorm`` parameters, fp32."""
 
     def __init__(self, n, device):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones(n, device=device),
-                                  requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(n, device=device),
-                                 requires_grad=False)
+        self.scale = _param(n, device=device, fill=1.0)
+        self.bias = _param(n, device=device, fill=0.0)
+
+
+def dense(x, p):
+    """``x @ kernel + bias`` in x's dtype, the weights cast to it (a no-op
+    when they already are), as one GEMM with the bias in its epilogue."""
+    y = torch.addmm(p.bias.to(x.dtype), x.reshape(-1, x.shape[-1]),
+                    p.kernel.to(x.dtype))
+    return y.view(*x.shape[:-1], y.shape[-1])
+
+
+def layer_norm(x, p, eps):
+    """LayerNorm with fp32 statistics and affine part, cast back to x's
+    dtype (flax's LayerNorm with ``dtype=``)."""
+    return F.layer_norm(x.float(), p.scale.shape, p.scale.float(),
+                        p.bias.float(), eps).to(x.dtype)
+
+
+def dropout(x, rate, generator):
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate). ``generator`` None means no dropout."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.empty(x.shape, device=x.device).bernoulli_(
+        1.0 - rate, generator=generator).bool()
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class _Attention(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         C = cfg.n_embd
-        self.c_attn = Dense(C, 3 * C, cfg.dtype, device)
-        self.c_proj = Dense(C, C, cfg.dtype, device)
+        self.c_attn = Dense(C, 3 * C, device)
+        self.c_proj = Dense(C, C, device)
+
+    def forward(self, x, cfg, gen):
+        B, T, C = x.shape
+        nh, hd = cfg.n_head, C // cfg.n_head
+        q, k, v = dense(x, self.c_attn).split(C, dim=-1)
+        q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2).contiguous()
+                   for t in (q, k, v))
+        if cfg.use_flash_attention:
+            # Attention-probability dropout moves to the context output:
+            # flash never materialises the probabilities.
+            y = dropout(flash_attention(q, k, v, causal=True), cfg.dropout,
+                        gen)
+        else:
+            att = torch.matmul(q, k.transpose(-1, -2)) / torch.tensor(
+                hd ** 0.5, dtype=x.dtype)
+            causal = torch.ones(T, T, dtype=torch.bool,
+                                device=x.device).tril()
+            att = torch.where(causal, att, torch.finfo(x.dtype).min)
+            att = torch.softmax(att.float(), dim=-1).to(x.dtype)
+            y = torch.matmul(dropout(att, cfg.dropout, gen), v)
+        y = y.transpose(1, 2).reshape(B, T, C)
+        return dropout(dense(y, self.c_proj), cfg.dropout, gen)
 
 
 class _MLP(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         C = cfg.n_embd
-        self.c_fc = Dense(C, 4 * C, cfg.dtype, device)
-        self.c_proj = Dense(4 * C, C, cfg.dtype, device)
+        self.c_fc = Dense(C, 4 * C, device)
+        self.c_proj = Dense(4 * C, C, device)
+
+    def forward(self, x, cfg, gen):
+        h = F.gelu(dense(x, self.c_fc), approximate="tanh")
+        return dropout(dense(h, self.c_proj), cfg.dropout, gen)
 
 
 class Block(nn.Module):
@@ -118,28 +185,36 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(cfg.n_embd, device)
         self.mlp = _MLP(cfg, device)
 
+    def forward(self, x, cfg, seed):
+        """Pre-LN block. ``seed`` (an int, or None for no dropout) seeds
+        this block's dropout generator, so a checkpointed block redraws the
+        same masks when it is recomputed."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        eps = cfg.layer_norm_epsilon
+        x = x + self.attn(layer_norm(x, self.ln_1, eps), cfg, gen)
+        return x + self.mlp(layer_norm(x, self.ln_2, eps), cfg, gen)
+
 
 class GPT2LMHeadModel(nn.Module):
-    """GPT-2's parameters under the flax names (module docstring).
+    """GPT-2 causal LM under the flax names (module docstring).
 
     ``GPT2LMHeadModel(config, device=None, seed=0)`` fills the weights from
     a ``torch.Generator`` seeded with ``seed``: N(0, 0.02) for ``wte`` and
     every dense kernel, N(0, 0.01) for ``wpe``, zero biases, unit LayerNorm
-    scales. Draws are made in fp32 on ``device``, then cast. ``seed=None``
-    leaves the dense weights uninitialised (``params_from_jax`` fills
-    them). ``device`` defaults to ``cuda`` and raises without a GPU unless
-    ``device="cpu"`` is passed (``device.resolve_device``)."""
+    scales, all fp32 on ``device``. ``seed=None`` leaves the dense weights
+    uninitialised (``params_from_jax`` fills them). ``device`` defaults to
+    ``cuda`` and raises without a GPU unless ``device="cpu"`` is passed
+    (``device.resolve_device``)."""
 
     def __init__(self, config, device=None, seed=0):
         super().__init__()
         cfg = self.config = config
         device = resolve_device(device)
-        self.wte = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.n_embd, device=device),
-            requires_grad=False)
-        self.wpe = nn.Parameter(
-            torch.empty(cfg.n_positions, cfg.n_embd, device=device),
-            requires_grad=False)
+        self.wte = _param(cfg.vocab_size, cfg.n_embd, device=device)
+        self.wpe = _param(cfg.n_positions, cfg.n_embd, device=device)
         for i in range(cfg.n_layer):
             self.add_module("h_{}".format(i), Block(cfg, device))
         self.ln_f = LayerNorm(cfg.n_embd, device)
@@ -158,15 +233,46 @@ class GPT2LMHeadModel(nn.Module):
                 [(blk_p, 0.02) for blk in self.blocks()
                  for blk_p in (blk.attn.c_attn.kernel, blk.attn.c_proj.kernel,
                                blk.mlp.c_fc.kernel, blk.mlp.c_proj.kernel)]:
-            w = torch.empty(p.shape, device=p.device)
-            w.normal_(0.0, std, generator=g)
-            p.copy_(w)
+            p.normal_(0.0, std, generator=g)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the GPT-2 training forward (no cache, flash-attention kernel K1) "
-            "belongs to the port's training slice (slice 2); serving goes "
-            "through models.generation")
+    def forward(self, input_ids, labels=None, deterministic=True,
+                generator=None):
+        """``input_ids`` [B, T] -> fp32 logits [B, T, V], or with ``labels``
+        the mean next-token loss (position t predicts ``labels[:, t+1]``,
+        the chunked tied-decoder head). Dropout runs when ``deterministic``
+        is False, its masks drawn from seeds taken from ``generator`` (a
+        CPU ``torch.Generator``; the engine passes its own)."""
+        cfg = self.config
+        if cfg.sequence_parallel_axis is not None:
+            raise NotImplementedError(
+                "sequence_parallel_axis={!r}: sequence parallelism comes with "
+                "the sequence-parallel slice (ROADMAP Queue 1)".format(
+                    cfg.sequence_parallel_axis))
+        B, T = input_ids.shape
+        if T > cfg.n_positions:
+            raise ValueError("sequence length {} exceeds n_positions={}"
+                             .format(T, cfg.n_positions))
+        train = not deterministic and cfg.dropout > 0.0
+        n_seeds = cfg.n_layer + 1
+        seeds = torch.randint(0, 2 ** 62, (n_seeds,), generator=generator
+                              ).tolist() if train else [None] * n_seeds
+        ids = input_ids.to(self.wte.device, torch.int64)
+        x = self.wte[ids].to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)[None]
+        if train:
+            g = torch.Generator(device=x.device)
+            g.manual_seed(seeds[-1])
+            x = dropout(x, cfg.dropout, g)
+        for blk, seed in zip(self.blocks(), seeds):
+            if cfg.remat:
+                x = checkpoint(blk, x, cfg, seed, use_reentrant=False)
+            else:
+                x = blk(x, cfg, seed)
+        x = layer_norm(x, self.ln_f, cfg.layer_norm_epsilon)
+        if labels is None:
+            return torch.matmul(x.float(), self.wte.float().t())
+        labels = labels.to(ids.device, torch.int64)
+        return chunked_tied_softmax_xent(x[:, :-1], self.wte, labels[:, 1:],
+                                         cfg.dtype)
 
 
 def params_from_jax(tree, config, device=None):
@@ -174,33 +280,9 @@ def params_from_jax(tree, config, device=None):
     leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``).
 
     Names and layouts carry over unchanged (flax ``Dense`` kernels stay
-    ``[in, out]``); dense kernels and biases are cast to ``config.dtype``
-    here, once, on ``device`` (default ``cuda``, as for
-    ``GPT2LMHeadModel``). Raises KeyError for a missing or unexpected
+    ``[in, out]``); every parameter is fp32 on ``device`` (default ``cuda``,
+    as for ``GPT2LMHeadModel``). Raises KeyError for a missing or unexpected
     parameter and ValueError for a shape that disagrees."""
-    flat = {}
-
-    def walk(node, prefix):
-        for key, val in node.items():
-            name = prefix + key
-            if isinstance(val, dict):
-                walk(val, name + ".")
-            else:
-                flat[name] = np.asarray(val)
-
-    walk(tree, "")
     model = GPT2LMHeadModel(config, device=device, seed=None)
-    own = dict(model.named_parameters())
-    missing, extra = set(own) - set(flat), set(flat) - set(own)
-    if missing or extra:
-        raise KeyError("flax tree does not match GPT-2 {}: missing {}, "
-                       "unexpected {}".format(config, sorted(missing),
-                                              sorted(extra)))
-    with torch.no_grad():
-        for name, p in own.items():
-            arr = flat[name]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError("{}: flax shape {} != {}".format(
-                    name, arr.shape, tuple(p.shape)))
-            p.copy_(torch.from_numpy(arr.astype(np.float32)).to(p.dtype))
+    load_flax_tree(model, tree)
     return model

@@ -10,12 +10,14 @@ PyTorch headers, so a build takes seconds, not minutes)::
 
 into ``build/deepspeed_tpu_torch/<hash>/`` at the root of the checkout, where
 ``<hash>`` covers the source and the flags, so an edited source builds anew
-and an unchanged one loads at once. ``build_all`` builds every source, one
-after another. Nothing builds at import: the first ``load`` builds.
+and an unchanged one loads at once. ``build_all`` builds every source, all
+``nvcc`` runs started together. Nothing builds at import: the first
+``load`` builds.
 The compiler's ``-Xptxas=-v`` report (registers, shared memory, spills) is
 kept beside each library as ``<name>.log``.
 """
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -89,14 +91,14 @@ def _build(name):
 
 
 def build_all():
-    """Build every source in ``csrc/`` that is not built yet. Returns
-    {name: seconds} for the sources this call compiled."""
-    times = {}
-    for name in sources():
-        seconds = _build(name)[1]
-        if seconds:
-            times[name] = seconds
-    return times
+    """Build every source in ``csrc/`` that is not built yet, one ``nvcc``
+    per source, all at once. Returns {name: seconds} for the sources this
+    call compiled; raises the first build's error."""
+    names = sources()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(_build, names))
+    return {name: seconds for name, (_, seconds) in zip(names, built)
+            if seconds}
 
 
 def build_log(name):

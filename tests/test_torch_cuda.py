@@ -1,5 +1,6 @@
-"""Kernel K3 on the card: the CUDA flash-decode kernel against its plain
-PyTorch version, and the wrapper's refusals on CUDA tensors.
+"""Kernels on the card: K3 (flash decode) and K1/K2a/K2b (flash attention
+for training) against their plain PyTorch versions, and the wrappers'
+refusals on CUDA tensors.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -9,6 +10,7 @@ imports no JAX, so it runs where JAX is not installed.
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention as da
 
 pytestmark = pytest.mark.cuda
@@ -81,3 +83,95 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda, bad):
         k = k.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         da.flash_decode_attention(q, k, v, p)
+
+
+# K1/K2 per-element limits, as in chip_smoke.py: |out - ref| <= rtol * |ref|
+# + ACC * mag, mag = the sum of |terms| the kernel accumulates
+# (attention.accumulated_magnitudes). Both sides compute in fp32 from the
+# same inputs, so they differ by the summation order (ACC, with room for
+# T = 256 terms and atomics) and one rounding of the output (rtol: one ulp
+# of bf16 / fp16, 0 for fp32).
+FLASH_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+              torch.float16: 2.0 ** -10}
+ACC = 1e-5
+
+
+def _flash_inputs(cuda, B, H, T, dtype, masked):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    q, k, v, do = (torch.randn(B, H, T, 64, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if masked:
+        mask = torch.zeros(B, T, device=cuda)
+        mask[0, T // 3:T // 2] = -1e9
+        mask[-1, :7] = -1e9
+    return q, k, v, do, mask
+
+
+def _within(out, ref, mag, rtol):
+    diff = (out.float() - ref.float()).abs()
+    return bool((diff <= rtol * ref.float().abs() + ACC * mag + 1e-30)
+                .all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case,T,causal,masked", [
+    ("causal", 256, True, False), ("mask", 192, False, True),
+    ("ragged", 200, True, True), ("one_tile", 64, True, False)])
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_flash_kernels_match_plain(cuda, dtype, case, T, causal, masked,
+                                   mode):
+    q, k, v, do, mask = _flash_inputs(cuda, 2, 3, T, dtype, masked)
+    before = dict(at.launches)
+    o, lse = at.flash_fwd(q, k, v, mask, causal)
+    ro, rlse = at.mha_reference(q, k, v, mask, causal, return_lse=True)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    grads = at.flash_bwd(q, k, v, mask, lse, delta, do, causal, mode=mode)
+    refs = at.flash_bwd_reference(q, k, v, mask, lse, delta, do, causal)
+    mags = at.accumulated_magnitudes(q, k, v, mask, lse, delta, do, causal)
+    torch.cuda.synchronize()
+    assert at.launches["flash_fwd"] == before["flash_fwd"] + 1
+    key = "flash_bwd_" + mode
+    assert at.launches[key] == before[key] + (1 if mode == "fused" else 2)
+    rtol = FLASH_RTOL[dtype]
+    assert bool(((lse - rlse).abs() <= 1e-5 * (1 + rlse.abs())).all())
+    assert _within(o, ro, mags[0], rtol)
+    for got, ref, mag in zip(grads, refs, mags[1:]):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert _within(got, ref, mag, rtol)
+
+
+def test_flash_attention_grads_match_autograd_fp32(cuda):
+    """End to end through the autograd Function. The mask leaves every row
+    a visible key: a fully masked row's lse (~ -1e9, fp32 ulp 64) loses the
+    log-sum bits, and its recomputed P, clamped as in the JAX package, is
+    not autograd's (the kernel-vs-plain test covers such rows)."""
+    q, k, v, do, _ = _flash_inputs(cuda, 2, 2, 130, torch.float32, False)
+    mask = torch.zeros(2, 130, device=cuda)
+    mask[:, 40:50] = -1e9
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = at.flash_attention(*leaves, mask=mask, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = at.mha_reference(*ref_leaves, mask=mask, causal=True)
+    want = torch.autograd.grad(ref, ref_leaves, do)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["fp64", "head_dim", "strided", "mask_shape"])
+def test_flash_wrapper_refuses_what_the_kernels_cannot_take(cuda, bad):
+    q, k, v, _, mask = _flash_inputs(cuda, 2, 2, 64, torch.float32, True)
+    if bad == "fp64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif bad == "head_dim":
+        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+    elif bad == "strided":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    else:
+        mask = mask[:, :10]
+    with pytest.raises((TypeError, ValueError)):
+        at.flash_fwd(q, k, v, mask, True)
