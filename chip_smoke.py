@@ -27,11 +27,13 @@ of which exits non-zero on failure:
    against their plain versions (``mha_reference`` /
    ``flash_bwd_reference``) on the card, at the training shape (B=8, H=16,
    T=1024, D=64, causal) in bf16 and fp16, fp32 at B=2 (also against
-   autograd through the dense reference), a non-causal case with an
-   additive mask, a ragged T=1000 and T=64; each element held to its own
-   limit (see FLASH_TOL); times the kernels, the plain versions and
-   torch's scaled_dot_product_attention (a yardstick only) beside the
-   bound;
+   autograd through the dense reference), the BERT-large shape (B=16,
+   H=16, T=512, D=64, bf16, non-causal, every other row padded as the BERT
+   batches are), a non-causal case with a random additive mask, a ragged
+   T=1000 and T=64; each element held to its own limit (see FLASH_TOL);
+   times the kernels, the plain versions and torch's
+   scaled_dot_product_attention (a yardstick only) beside the bound, at
+   the training and the BERT shapes;
 7. training at full width: GPT-2 medium, bf16, seeded weights, through
    initialize / train_batch on batches of 8 x 1024; the loss must be finite
    and fall; the kernels' launch counts are reset just before the counted
@@ -41,7 +43,26 @@ of which exits non-zero on failure:
 8. training consistency: fp32, full width, 2 layers, B=2, T=256: one
    train_batch on the card (kernels) against the port on the CPU (plain
    versions): loss, every gradient and every updated parameter;
-9. the kernels line, then the result line.
+9. K8/K10a/K10b/K11 vs plain: the fused layer's row kernels (LayerNorm,
+   dropout and its replay, bias + GELU) against their plain versions on
+   the card, at the BERT-large path's shapes, in bf16, fp16 and fp32; K8
+   and K11 each element held to its own limit (see ROW_TOL), the dropout
+   kernels equal to the plain version bit for bit; times the kernels, the
+   plain versions and one PyTorch call each (a yardstick only) beside the
+   bound;
+10. BERT-large pretraining at full width: bf16, seeded weights, batches of
+   16 x 512 with padded rows, through initialize and forward / backward /
+   step at dropout 0.1 (2 warm-up and 10 timed steps), 2 steps at dropout
+   0, then one train_batch; the loss must be finite and fall; the launch
+   counts of K1, K2a, K8, K10a, K10b and K11 are reset just before and read
+   just after, and must equal n_layer x steps x the kernel's sites per
+   layer, plus the embeddings' dropout once per step; then a profiler
+   window of 2 steps;
+11. BERT consistency: fp32, full width, 2 layers, B=2, T=128, dropout 0.1:
+   one step on the card (kernels) against the port on the CPU (plain
+   versions, the same dropout masks): loss, every gradient and every
+   updated parameter;
+12. the kernels line, then the result line.
 """
 
 import json
@@ -60,13 +81,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from deepspeed_tpu_torch import init_inference, initialize  # noqa: E402
 from deepspeed_tpu_torch.inference.kv_pool import plane_len_for  # noqa: E402
 from deepspeed_tpu_torch.models import (  # noqa: E402
-    GPT2Config, GPT2LMHeadModel)
+    BertConfig, BertForPreTraining, GPT2Config, GPT2LMHeadModel)
 from deepspeed_tpu_torch.models import generation  # noqa: E402
-from deepspeed_tpu_torch.op_builder import build_all, build_log  # noqa: E402
+from deepspeed_tpu_torch.op_builder import (  # noqa: E402
+    build_all, build_log, sources)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     attention as at)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     decode_attention as da)
+from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
+    dropout as dr)
+from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
+    gelu as ge)
+from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
+    layer_norm as ln)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # flop rate for each input type (bf16 on the tensor cores; fp32 outside
@@ -135,7 +163,52 @@ TRAIN_WARM, TRAIN_TIMED, TRAIN_SPLIT = 2, 10, 2
 # may round to neighbouring floats, e.g. around a LayerNorm scale of 1).
 GRAD_TOL = 1e-4
 
+# K8 and K11 against their plain versions: |out - ref| <= atol + rtol *
+# |ref| per element. Both compute in fp32 from the same inputs and differ in
+# summation order and FMA contraction (a few fp32 ulps of terms of order 1:
+# atol), then may round to neighbouring values of the output type (rtol:
+# one ulp, bf16 2**-7, fp16 2**-10; fp32 2**-20). mu and rstd: 1e-5
+# relative. The dropout kernels must equal their plain version exactly: the
+# same Philox bits, products and sums rounded as the plain version rounds
+# them (no FMA contraction).
+ROW_TOL = {torch.float32: (2e-6, 2.0 ** -20),
+           torch.bfloat16: (2e-6, 2.0 ** -7),
+           torch.float16: (2e-6, 2.0 ** -10)}
+# Arithmetic per element, for the operations bound (at the fp32 rate outside
+# the tensor cores): K8 about 8 (bias, residual, centre, square, sum,
+# scale, affine), K11 about 20 (bias, the cubic, tanh, the product), the
+# dropout about 30 (Philox-4x32-10: ten rounds of two 32-bit multiplies
+# with high words and four xors per four elements, the compare, two
+# products, the sums).
+ROW_OPS = {"layer_norm": 8, "bias_gelu": 20, "dropout_fwd": 30,
+           "dropout_bwd": 28}
+
+# The BERT cell: the JAX package's BERT-large measurement
+# (bench.py:_measure_bert, dense: batch 16 x 512, BERT-large, bf16, AdamW
+# 1e-4), at the published dropout 0.1 (BertConfig's default) so that the
+# dropout kernels run, with half the rows padded after 128-511 tokens.
+BERT_CONFIG = {"train_batch_size": 16,
+               "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+               "bf16": {"enabled": True}}
+BERT_B, BERT_T = 16, 512
+BERT_WARM, BERT_TIMED, BERT_DET = 2, 10, 2
+# Kernel launches per layer per step at dropout > 0 (and at dropout 0):
+# K8 the two post-LN LayerNorms (their bias + residual variant at dropout
+# 0), K10a/K10b the attention context, attention output and FF output
+# dropouts, K11 the FF1 epilogue, K1/K2a the attention.
+BERT_SITES = {"layer_norm_plain": (2, 0), "layer_norm_bias_residual": (0, 2),
+              "dropout_fwd": (3, 0), "dropout_bwd": (3, 0), "bias_gelu": (1, 1),
+              "flash_fwd": (1, 1), "flash_bwd_fused": (1, 1),
+              "flash_bwd_split": (0, 0)}
+# ... and per step at dropout > 0, outside the layers: K10a/K10b for the
+# embeddings' dropout.
+BERT_STEP_SITES = {"dropout_fwd": 1, "dropout_bwd": 1}
+
 PLANE = plane_len_for(SERVE["max_len"], SERVE["prefill_chunk"])
+
+# cuda_ms's spin before each timed launch: about 0.1 ms at the H100's
+# clock, longer than the host takes to enqueue a wrapper's launch.
+SPIN_CYCLES = 200_000
 
 
 def fail(msg):
@@ -150,13 +223,23 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=30, warmup=3):
+def cuda_ms(fn, reps=30, warmup=3, cold=False):
     """Median milliseconds of ``fn`` over ``reps`` launches, each bracketed
-    by CUDA events."""
+    by CUDA events. Each event pair and launch is enqueued behind a spin of
+    the card (``torch.cuda._sleep``), so the interval holds the kernel's
+    time, not the host's time to enqueue it. ``cold``: flush the 50 MB L2
+    cache before each launch by reading 128 MB (a flush by writing would
+    leave dirty lines for the timed kernel to write back); on the training
+    step a row kernel reads activations that the GEMMs in between have
+    pushed out of L2."""
+    scratch = torch.ones(32 * 2 ** 20, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            scratch.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -189,7 +272,7 @@ def phase_build():
         time.perf_counter() - t0,
         ", ".join("{} {:.2f} s".format(n, s) for n, s in built.items())
         or "cached"))
-    for name in ("decode_attention", "flash_attention"):
+    for name in sources():
         for line in _ptxas_summary(build_log(name)):
             print("ptxas {}: {}".format(name, line))
 
@@ -199,15 +282,19 @@ _TYPE_NAMES = {"f": "fp32", "__nv_bfloat16": "bf16", "__half": "fp16"}
 
 def _ptxas_summary(log):
     """One line per compiled kernel from nvcc's -Xptxas=-v report: the
-    kernel, its type (and K2's dq flag), registers, spill stores."""
+    kernel, its type (K2's dq flag, K8's vectors per lane), registers,
+    spill stores."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)I\d*"
-                      r"(\w+?)(Lb[01])?E", line)
+                      r"(\w+?)(Lb[01]|Li\d+E)?E", line)
         if m:
+            extra = m.group(3) or ""
+            extra = ", dq" if extra == "Lb1" else \
+                ", " + extra[2:-1] if extra.startswith("Li") else ""
             name = "{}<{}{}>".format(m.group(1),
                                       _TYPE_NAMES.get(m.group(2), m.group(2)),
-                                      ", dq" if m.group(3) == "Lb1" else "")
+                                      extra)
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -414,7 +501,7 @@ def _profile(step, window):
         "device_busy_ms_per_step": busy if kernels else "not measured",
         "device_busy_share": busy * window / wall_ms if kernels else None,
         "top_kernels_ms_per_step": [
-            {"name": k[:80], "ms": ms, "calls": n} for k, (ms, n) in top]}
+            {"name": k[:140], "ms": ms, "calls": n} for k, (ms, n) in top]}
 
 
 def _gap(model, ids):
@@ -458,7 +545,13 @@ def _flash_inputs(B, T, dtype, masked, seed):
     q, k, v, do = (torch.randn(B, 16, T, 64, device="cuda", generator=g)
                    .to(dtype) for _ in range(4))
     mask = None
-    if masked:  # about one key in ten dropped; key 0 kept, so no row is
+    if masked == "padding":  # the BERT batches' (_bert_batch): every
+        # other row padded after 128 .. T-1 keys
+        lens = torch.randint(128, T, (B,), device="cuda", generator=g)
+        drop = torch.arange(T, device="cuda")[None] >= lens[:, None]
+        drop[1::2] = False
+        mask = torch.where(drop, -1e9, 0.0)
+    elif masked:  # about one key in ten dropped; key 0 kept, so no row is
         # fully masked (such a row's lse, ~ -1e9 at an fp32 ulp of 64, loses
         # its log-sum bits in both packages)
         drop = torch.rand(B, T, device="cuda", generator=g) < 0.1
@@ -467,18 +560,20 @@ def _flash_inputs(B, T, dtype, masked, seed):
     return q, k, v, do, mask
 
 
-def _flash_bound(q, causal, backward):
+def _flash_bound(q, mask, causal, backward):
     """(bound ms, 'bytes' or 'operations'): every input read once, every
     output written once; 4 * D flops per visible (query, key) pair forward
-    (two products), 10 * D backward (five)."""
+    (two products), 10 * D backward (five). An additive mask hides no pair
+    from the kernels: they add it to every score."""
     B, H, T, D = q.shape
     pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
     plane = B * H * T * D * q.element_size()
     rows = B * H * T * 4
-    if backward:  # q, k, v, do, lse, delta in; dq, dk, dv out
-        flops, nbytes = 10 * D * pairs, 7 * plane + 2 * rows
-    else:  # q, k, v in; o, lse out
-        flops, nbytes = 4 * D * pairs, 4 * plane + rows
+    masks = 0 if mask is None else mask.numel() * mask.element_size()
+    if backward:  # q, k, v, do, lse, delta, mask in; dq, dk, dv out
+        flops, nbytes = 10 * D * pairs, 7 * plane + 2 * rows + masks
+    else:  # q, k, v, mask in; o, lse out
+        flops, nbytes = 4 * D * pairs, 4 * plane + rows + masks
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -528,7 +623,7 @@ def _flash_case(name, B, T, dtype, causal, masked, seed, timed=False):
         row["autograd_max_err_over_limit"] = _flash_vs_autograd(
             q, k, v, do, mask, causal, o, fused, split)
     if timed:
-        row.update(_flash_times(q, k, v, do, lse, delta, causal))
+        row.update(_flash_times(q, k, v, do, mask, lse, delta, causal))
     print("flash " + json.dumps(row))
     return row
 
@@ -549,47 +644,52 @@ def _flash_vs_autograd(q, k, v, do, mask, causal, o, fused, split):
     return worst
 
 
-def _flash_times(q, k, v, do, lse, delta, causal):
-    """CUDA-event medians at the training shape: the kernels, their plain
+def _flash_times(q, k, v, do, mask, lse, delta, causal):
+    """CUDA-event medians at a main path's shape: the kernels, their plain
     versions, torch's scaled_dot_product_attention (forward, and forward +
-    backward minus forward; a yardstick the port never calls), and the
-    bounds."""
+    backward minus forward, with the mask as an additive bias in q's dtype;
+    a yardstick the port never calls), and the bounds."""
     t = {
-        "K1_ms": cuda_ms(lambda: at.flash_fwd(q, k, v, None, causal)),
-        "K2a_ms": cuda_ms(lambda: at.flash_bwd(q, k, v, None, lse, delta, do,
+        "K1_ms": cuda_ms(lambda: at.flash_fwd(q, k, v, mask, causal)),
+        "K2a_ms": cuda_ms(lambda: at.flash_bwd(q, k, v, mask, lse, delta, do,
                                                causal, mode="fused")),
-        "K2b_ms": cuda_ms(lambda: at.flash_bwd(q, k, v, None, lse, delta, do,
+        "K2b_ms": cuda_ms(lambda: at.flash_bwd(q, k, v, mask, lse, delta, do,
                                                causal, mode="split")),
         "plain_fwd_ms": cuda_ms(
-            lambda: at.mha_reference(q, k, v, None, causal, return_lse=True)),
+            lambda: at.mha_reference(q, k, v, mask, causal, return_lse=True)),
         "plain_bwd_ms": cuda_ms(lambda: at.flash_bwd_reference(
-            q, k, v, None, lse, delta, do, causal)),
-        "library_fwd_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal)),
+            q, k, v, mask, lse, delta, do, causal)),
     }
+    bias = None if mask is None else mask.to(q.dtype)[:, None, None, :]
+    t["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias, is_causal=causal))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias,
+                                             is_causal=causal)
         torch.autograd.grad(out, leaves, do)
 
     t["library_bwd_ms"] = cuda_ms(fwd_bwd) - t["library_fwd_ms"]
-    t["bound_fwd_ms"], t["bound_fwd_by"] = _flash_bound(q, causal, False)
-    t["bound_bwd_ms"], t["bound_bwd_by"] = _flash_bound(q, causal, True)
+    t["bound_fwd_ms"], t["bound_fwd_by"] = _flash_bound(q, mask, causal,
+                                                        False)
+    t["bound_bwd_ms"], t["bound_bwd_by"] = _flash_bound(q, mask, causal, True)
     return t
 
 
 def phase_flash():
     """K1/K2a/K2b against their plain versions; returns the case rows, the
-    first being the timed training shape (bf16)."""
+    first two being the timed shapes (bf16) of GPT-2 training and of
+    BERT-large pretraining."""
     cases = [("train", 8, 1024, torch.bfloat16, True, False),
+             ("bert", BERT_B, BERT_T, torch.bfloat16, False, "padding"),
              ("train", 8, 1024, torch.float16, True, False),
              ("train_fp32", 2, 1024, torch.float32, True, False),
              ("noncausal_mask", 2, 1024, torch.bfloat16, False, True),
              ("ragged", 2, 1000, torch.bfloat16, True, False),
              ("ragged_fp32_mask", 2, 1000, torch.float32, True, True),
              ("one_tile", 8, 64, torch.bfloat16, True, False)]
-    return [_flash_case(*case, seed=i, timed=i == 0)
+    return [_flash_case(*case, seed=i, timed=i < 2)
             for i, case in enumerate(cases)]
 
 
@@ -645,22 +745,18 @@ def phase_train(card):
     return launches
 
 
-def phase_train_consistency():
-    """One fp32 train_batch on the card against the same on the CPU."""
-    cfg = GPT2Config(n_embd=1024, n_layer=2, n_head=16, dtype=torch.float32,
-                     dropout=0.0)
-    config = {"train_batch_size": 2,
-              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+def _card_vs_cpu(label, what, card_model, cpu_model, config, inputs):
+    """One fp32 forward/backward/step on the card against the same on the
+    CPU, both engines seeded alike (the same dropout seeds): the loss
+    within 1e-5 relative, every gradient within GRAD_TOL of its tensor's
+    max-abs, every updated parameter within the limit set out at
+    GRAD_TOL."""
     lr = config["optimizer"]["params"]["lr"]
-    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(2, 256))
-    cpu_model = GPT2LMHeadModel(cfg, device="cpu", seed=2)
-    card_model = GPT2LMHeadModel(cfg, device="cuda", seed=None)
-    card_model.load_state_dict(cpu_model.state_dict())
     runs = []
     for model, device in ((card_model, "cuda"), (cpu_model, "cpu")):
         engine, _, _, _ = initialize(model=model, config_params=config,
                                      device=device)
-        loss = engine(ids, ids)
+        loss = engine(*inputs)
         engine.backward(loss)
         grads = {n: p.grad.detach().cpu().clone()
                  for n, p in model.named_parameters()}
@@ -679,17 +775,333 @@ def phase_train_consistency():
             2.0 ** -22 * p_h[n].abs()
         param_ratio = max(param_ratio,
                           float(((p_c[n] - p_h[n]).abs() / limit).max()))
-    line = {"train_consistency": "fp32 width 1024, 2 layers, B2 T256",
-            "loss_card": loss_c, "loss_cpu": loss_h, "loss_rel_err": loss_err,
-            "grad_max_err_over_limit": grad_ratio,
+    line = {label: what, "loss_card": loss_c, "loss_cpu": loss_h,
+            "loss_rel_err": loss_err, "grad_max_err_over_limit": grad_ratio,
             "param_max_err_over_limit": param_ratio}
-    print("train_consistency " + json.dumps(line))
+    print(label + " " + json.dumps(line))
     if loss_err > 1e-5 or grad_ratio > 1.0 or param_ratio > 1.0:
-        fail("the card's training step disagrees with the CPU's")
+        fail("the card's training step disagrees with the CPU's ({})".format(
+            label))
 
 
-def _flash_kernel_rows(flash_rows, launches):
-    timed = flash_rows[0]
+def phase_train_consistency():
+    """One fp32 GPT-2 train step on the card against the same on the CPU."""
+    cfg = GPT2Config(n_embd=1024, n_layer=2, n_head=16, dtype=torch.float32,
+                     dropout=0.0)
+    config = {"train_batch_size": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(2, 256))
+    cpu_model = GPT2LMHeadModel(cfg, device="cpu", seed=2)
+    card_model = GPT2LMHeadModel(cfg, device="cuda", seed=None)
+    card_model.load_state_dict(cpu_model.state_dict())
+    _card_vs_cpu("train_consistency", "fp32 width 1024, 2 layers, B2 T256",
+                 card_model, cpu_model, config, (ids, ids))
+
+
+# ------------------------------------------- the fused layer's row kernels
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _row_bound(kernel, nbytes, n_elem):
+    """(bound ms, 'bytes' or 'operations'): the bytes moved (each input
+    read once, each output written once) over the HBM rate, or ROW_OPS per
+    element over the fp32 rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ROW_OPS[kernel] * n_elem / PEAK_FLOPS[torch.float32] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _row_inputs(dtype, seed):
+    """The row kernels' operands at the BERT-large path's shapes: hidden
+    activations [B*T, 1024], FF1 outputs [B*T, 4096], the attention
+    context [B, 16, T, 64]; the embeddings [B, T, 1024], fp32 in every
+    pass (their LayerNorm's output, as the model drops it); fp32
+    per-column parameters."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0, to=dtype):
+        return (shift + scale * torch.randn(*shape, device="cuda",
+                                            generator=g)).to(to)
+
+    rows = BERT_B * BERT_T
+    f32 = torch.float32
+    return {"x": randn(rows, 1024, scale=3.0, shift=0.5),
+            "res": randn(rows, 1024), "grad": randn(rows, 1024),
+            "ff": randn(rows, 4096, scale=3.0),
+            "ctx": randn(BERT_B, 16, BERT_T, 64),
+            "ctx_grad": randn(BERT_B, 16, BERT_T, 64),
+            "emb": randn(BERT_B, BERT_T, 1024, to=f32),
+            "gamma": randn(1024, scale=0.1, shift=1.0, to=f32),
+            "beta": randn(1024, scale=0.1, to=f32),
+            "bias": randn(1024, to=f32), "ff_bias": randn(4096, to=f32)}
+
+
+def _row_variants(t, seed):
+    """(variant, kernel, launch, plain version, PyTorch yardstick or None,
+    operands moved) for every variant the BERT path runs."""
+    x, res, gamma, beta, bias = (t[k] for k in ("x", "res", "gamma", "beta",
+                                                "bias"))
+    ff, ff_bias, ctx, emb = t["ff"], t["ff_bias"], t["ctx"], t["emb"]
+    dt = x.dtype
+    h = x.shape[-1]
+    rate = 0.1
+    return [
+        ("layer_norm_plain", "layer_norm",
+         lambda: ln.ln_fwd(x, gamma, beta),
+         lambda: ln.ln_fwd_reference(x, gamma, beta),
+         lambda: F.layer_norm(x, (h,), gamma.to(dt), beta.to(dt), 1e-12),
+         (x, gamma, beta)),
+        ("layer_norm_bias_residual", "layer_norm",
+         lambda: ln.ln_fwd(x, gamma, beta, bias, res),
+         lambda: ln.ln_fwd_reference(x, gamma, beta, bias, res),
+         lambda: F.layer_norm(x + bias.to(dt) + res, (h,), gamma.to(dt),
+                              beta.to(dt), 1e-12),
+         (x, res, gamma, beta, bias)),
+        ("bias_gelu", "bias_gelu",
+         lambda: ge.bias_gelu_fwd(ff, ff_bias),
+         lambda: ge.bias_gelu_reference(ff, ff_bias),
+         lambda: F.gelu(ff + ff_bias.to(dt), approximate="tanh"),
+         (ff, ff_bias)),
+        ("dropout_fwd_hidden", "dropout_fwd",
+         lambda: dr.dropout_fwd(x, bias, res, rate, seed),
+         lambda: dr.dropout_reference(x, rate, seed, bias, res),
+         lambda: F.dropout(x + bias.to(dt), rate) + res,
+         (x, bias, res)),
+        ("dropout_fwd_context", "dropout_fwd",
+         lambda: dr.dropout_fwd(ctx, None, None, rate, seed + 1),
+         lambda: dr.dropout_reference(ctx, rate, seed + 1),
+         lambda: F.dropout(ctx, rate), (ctx,)),
+        ("dropout_fwd_embeddings", "dropout_fwd",
+         lambda: dr.dropout_fwd(emb, None, None, rate, seed + 2),
+         lambda: dr.dropout_reference(emb, rate, seed + 2),
+         lambda: F.dropout(emb, rate), (emb,)),
+        ("dropout_bwd_hidden", "dropout_bwd",
+         lambda: dr.dropout_bwd(t["grad"], rate, seed),
+         lambda: dr.dropout_bwd_reference(t["grad"], rate, seed),
+         None, (t["grad"],)),
+        ("dropout_bwd_context", "dropout_bwd",
+         lambda: dr.dropout_bwd(t["ctx_grad"], rate, seed + 1),
+         lambda: dr.dropout_bwd_reference(t["ctx_grad"], rate, seed + 1),
+         None, (t["ctx_grad"],)),
+        ("dropout_bwd_embeddings", "dropout_bwd",
+         lambda: dr.dropout_bwd(emb, rate, seed + 2),
+         lambda: dr.dropout_bwd_reference(emb, rate, seed + 2),
+         None, (emb,)),
+    ]
+
+
+def _row_check(variant, kernel, out, ref, dtype):
+    """(max abs error, max error / limit) of one variant; fails the run if
+    a K8/K11 element is past its limit or a dropout output is not exact."""
+    if not isinstance(out, tuple):
+        out, ref = (out,), (ref,)
+    for o, r in zip(out, ref):
+        if o.shape != r.shape or o.dtype != r.dtype or \
+                not bool(torch.isfinite(o).all()):
+            fail("{} ({}) output of wrong shape or type, or not finite"
+                 .format(variant, dtype))
+    if kernel.startswith("dropout"):
+        err = float((out[0].float() - ref[0].float()).abs().max())
+        if err != 0.0:
+            fail("{} ({}) differs from its plain version (max abs {}): the "
+                 "masks or the rounding disagree".format(variant, dtype, err))
+        return err, 0.0
+    atol, rtol = ROW_TOL[dtype]
+    errs = [_err(out[0], ref[0], atol + rtol * ref[0].float().abs())]
+    if kernel == "layer_norm":  # mu and rstd, fp32
+        errs += [_err(o, r, 1e-5 * r.abs() + 1e-6)
+                 for o, r in zip(out[1:], ref[1:])]
+    worst = max(errs, key=lambda e: e[1])
+    if worst[1] > 1.0:
+        fail("{} ({}) disagrees with its plain version: error/limit {:.3f}"
+             .format(variant, dtype, worst[1]))
+    return max(e[0] for e in errs), worst[1]
+
+
+def phase_rows():
+    """K8, K10a, K10b and K11 against their plain versions in bf16, fp16
+    and fp32; CUDA-event medians (L2 flushed) of each bf16 variant, its
+    plain version and its PyTorch yardstick, beside the bound. Returns
+    {variant: row}."""
+    rows = {}
+    for i, dtype in enumerate((torch.bfloat16, torch.float16,
+                               torch.float32)):
+        t = _row_inputs(dtype, seed=10 + i)
+        seed = 2 ** 40 + i
+        for variant, kernel, run, plain, lib, moved in _row_variants(t, seed):
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            err, ratio = _row_check(variant, kernel, out, ref, dtype)
+            row = rows.setdefault(variant, {"kernel": kernel,
+                                            "max_abs_err": 0.0,
+                                            "max_err_over_limit": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["max_err_over_limit"] = max(row["max_err_over_limit"], ratio)
+            if dtype != torch.bfloat16:
+                continue
+            outs = out if isinstance(out, tuple) else (out,)
+            row["shape"] = "x {} {}".format(
+                list(moved[0].shape), str(moved[0].dtype).split(".")[-1])
+            row["ms"] = cuda_ms(run, cold=True)
+            row["plain_ms"] = cuda_ms(plain, cold=True)
+            row["library_ms"] = cuda_ms(lib, cold=True) if lib is not None \
+                else None
+            row["bound_ms"], row["bound_by"] = _row_bound(
+                kernel, _nbytes(*moved, *outs), moved[0].numel())
+        del t
+    for variant, row in rows.items():
+        print("rows {} {}".format(variant, json.dumps(row)))
+    return rows
+
+
+# ------------------------------------------------------------------- BERT
+
+
+def _bert_batch(cfg, B, T, seed, min_len):
+    """(ids, 1/0 mask, token types, MLM labels, NSP labels) on the card, as
+    bench.py:_measure_bert draws them, with every other row padded after
+    min_len..T-1 tokens: labels are the ids at 15% of the real positions
+    and -1 elsewhere, token types 0 on the first half and 1 on the
+    second."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, size=(B, T))
+    mask = np.ones((B, T), np.int64)
+    for row in range(0, B, 2):
+        mask[row, rng.randint(min_len, T):] = 0
+    types = np.zeros((B, T), np.int64)
+    types[:, T // 2:] = 1
+    labels = np.where((rng.rand(B, T) < 0.15) & (mask == 1), ids, -1)
+    nsp = rng.randint(0, 2, size=(B,))
+    return tuple(torch.from_numpy(a).to("cuda")
+                 for a in (ids, mask, types, labels, nsp))
+
+
+def _launch_counts():
+    return dict(at.launches, layer_norm_plain=ln.launches["plain"],
+                layer_norm_bias_residual=ln.launches["bias_residual"],
+                dropout_fwd=dr.launches["dropout_fwd"],
+                dropout_bwd=dr.launches["dropout_bwd"], bias_gelu=ge.launches)
+
+
+def _bert_launches(n_layer, n_drop, n_det):
+    """The launch counts of n_drop steps at dropout > 0 and n_det at
+    dropout 0: n_layer x steps x sites per layer, plus the per-step
+    sites."""
+    return {k: n_layer * (a * n_drop + b * n_det) +
+            BERT_STEP_SITES.get(k, 0) * n_drop
+            for k, (a, b) in BERT_SITES.items()}
+
+
+def _bert_step_flops(cfg, B, T):
+    """Model flops of one training step (forward + backward = 3 x
+    forward): 2 per weight per token for the encoder, the MLM transform
+    and the tied decoder, and 4 T h per token per layer for the scores and
+    the context products."""
+    h, inter, L = cfg.hidden_size, cfg.intermediate_size, \
+        cfg.num_hidden_layers
+    weights = L * (4 * h * h + 2 * h * inter) + h * h + cfg.vocab_size * h
+    return 3 * B * T * (2 * weights + 4 * L * T * h)
+
+
+def phase_bert(card):
+    """BERT-large pretraining through initialize and forward / backward /
+    step; returns the kernels' launch counts over the counted steps."""
+    cfg = BertConfig.bert_large(dtype=torch.bfloat16)
+    model = BertForPreTraining(cfg, device="cuda", seed=0)
+    engine, _, _, _ = initialize(model=model, config_params=BERT_CONFIG)
+    batch = _bert_batch(cfg, BERT_B, BERT_T, seed=0, min_len=128)
+
+    def step(**kwargs):
+        loss = engine(*batch, **kwargs)
+        engine.backward(loss)
+        engine.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(BERT_WARM)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (at, ln, dr, ge):
+        mod.reset_launches()
+    # Events between the timed steps: each step's span on the card's
+    # timeline (the spread the mean hides).
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(BERT_TIMED + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        losses.append(step())
+        mark.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    t1 = time.perf_counter()
+    losses += [step(deterministic=True) for _ in range(BERT_DET)]
+    torch.cuda.synchronize()
+    det_wall = time.perf_counter() - t1
+    losses.append(engine.train_batch(batch=batch))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail("non-finite BERT loss: {}".format(losses))
+    if not losses[BERT_WARM + BERT_TIMED - 1] < losses[0]:
+        fail("the BERT loss did not fall over the timed steps: {}".format(
+            losses))
+    want = _bert_launches(cfg.num_hidden_layers, BERT_TIMED + 1, BERT_DET)
+    if launches != want:
+        fail("BERT kernel launches {} != n_layer x steps x sites + the "
+             "embeddings' {}".format(launches, want))
+    tokens = BERT_B * BERT_T
+    step_s = wall / BERT_TIMED
+    print("bert_train " + json.dumps({
+        "train": "bert-large bf16 AdamW, dropout 0.1", "batch": BERT_B,
+        "seq": BERT_T, "timed_steps": BERT_TIMED,
+        "tokens_per_s": tokens / step_s,
+        "real_tokens_per_s": float(batch[1].sum()) / step_s,
+        "mean_step_ms": step_s * 1e3, "step_ms": step_ms,
+        "dropout0_step_ms": det_wall / BERT_DET * 1e3,
+        "model_tflops_per_s": _bert_step_flops(cfg, BERT_B, BERT_T) /
+        step_s / 1e12,
+        "peak_mem_bytes": peak, "first_loss": losses[0],
+        "last_loss": losses[-1], "losses": losses, "launches": launches,
+        "card": card}))
+    print("bert_profile " + json.dumps(_profile(step, 2)))
+    return launches
+
+
+def phase_bert_consistency():
+    """One fp32 BERT step at dropout 0.1 on the card against the same on
+    the CPU: the masks are one function of the seeds on both."""
+    cfg = BertConfig.bert_large(num_hidden_layers=2, dtype=torch.float32)
+    config = {"train_batch_size": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+    batch = _bert_batch(cfg, 2, 128, seed=3, min_len=32)
+    cpu_model = BertForPreTraining(cfg, device="cpu", seed=2)
+    card_model = BertForPreTraining(cfg, device="cuda", seed=None)
+    card_model.load_state_dict(cpu_model.state_dict())
+    for mod in (ln, dr, ge):
+        mod.reset_launches()
+    _card_vs_cpu("bert_consistency",
+                 "fp32 width 1024, 2 layers, B2 T128, dropout 0.1",
+                 card_model, cpu_model, config, batch)
+    counts, want = _launch_counts(), _bert_launches(2, 1, 0)
+    if not all(counts[k] == n for k, n in want.items()
+               if not k.startswith("flash")):
+        fail("the card's BERT step did not run the row kernels: {} (want "
+             "{})".format(counts, want))
+
+
+def _flash_kernel_rows(flash_rows, launches, bert_launches):
+    """K1/K2a/K2b: times at GPT-2 training's shape, launches from its run;
+    under "bert" the times at BERT-large's shape and the launches from the
+    BERT run."""
+    timed, bert = flash_rows[0], flash_rows[1]
     shape = "B8 H16 T1024 D64 bf16 causal"
     common = {"route": "cuda",
               "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
@@ -710,6 +1122,12 @@ def _flash_kernel_rows(flash_rows, launches):
         rows.append(dict(
             common, name=name, replaces=replaces,
             launches=launches[counter],
+            launches_bert=bert_launches[counter],
+            bert={"shape": "B16 H16 T512 D64 bf16 non-causal, padding mask",
+                  "launches": bert_launches[counter], "ms": bert[ms],
+                  "plain_ms": bert[plain], "library_ms": bert[lib],
+                  "bound_ms": bert["bound_{}_ms".format(way)],
+                  "bound_by": bert["bound_{}_by".format(way)]},
             max_abs_err=max(r[kernel]["max_abs_err"] for r in flash_rows),
             max_err_over_limit=max(r[kernel]["max_err_over_limit"]
                                    for r in flash_rows),
@@ -720,15 +1138,51 @@ def _flash_kernel_rows(flash_rows, launches):
     return rows
 
 
+def _row_kernel_rows(rows, launches):
+    """The kernels-line entries of K8, K10a, K10b and K11: times of the
+    variant the timed BERT steps run most (the others under "variants"),
+    errors over every variant and dtype, launches from the BERT run."""
+    kernels_py = "deepspeed_tpu/ops/transformer/kernels/"
+    specs = [("layer_norm", "layer_norm_plain", "layer_norm.py:34",
+              launches["layer_norm_plain"] +
+              launches["layer_norm_bias_residual"]),
+             ("dropout_fwd", "dropout_fwd_hidden", "dropout.py:30",
+              launches["dropout_fwd"]),
+             ("dropout_bwd", "dropout_bwd_hidden", "dropout.py:142",
+              launches["dropout_bwd"]),
+             ("bias_gelu", "bias_gelu", "gelu.py:34", launches["bias_gelu"])]
+    timed_keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by")
+    out = []
+    for name, main, replaces, n in specs:
+        mine = {v: r for v, r in rows.items() if r["kernel"] == name}
+        entry = {"name": name, "route": "cuda",
+                 "source": "deepspeed_tpu_torch/csrc/transformer_kernels.cu",
+                 "replaces": kernels_py + replaces, "launches": n,
+                 "max_abs_err": max(r["max_abs_err"] for r in mine.values()),
+                 "max_err_over_limit": max(r["max_err_over_limit"]
+                                           for r in mine.values())}
+        entry.update({k: mine[main][k] for k in timed_keys})
+        others = {v: {k: r[k] for k in timed_keys}
+                  for v, r in mine.items() if v != main}
+        if others:
+            entry["variants"] = others
+        out.append(entry)
+    return out
+
+
 def main():
     card = phase_env()
     phase_build()
     rows = phase_kernels()
     flash_rows = phase_flash()
+    row_rows = phase_rows()
     launches = phase_serve(card)
     phase_greedy()
     train_launches = phase_train(card)
     phase_train_consistency()
+    bert_launches = phase_bert(card)
+    phase_bert_consistency()
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -742,7 +1196,8 @@ def main():
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": "B16 H16 S1 T{} D64 bf16".format(PLANE)}]
-    kernels += _flash_kernel_rows(flash_rows, train_launches)
+    kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches)
+    kernels += _row_kernel_rows(row_rows, bert_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

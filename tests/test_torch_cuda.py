@@ -1,6 +1,7 @@
-"""Kernels on the card: K3 (flash decode) and K1/K2a/K2b (flash attention
-for training) against their plain PyTorch versions, and the wrappers'
-refusals on CUDA tensors.
+"""Kernels on the card: K3 (flash decode), K1/K2a/K2b (flash attention
+for training) and the fused layer's row kernels K8 (LayerNorm), K10a/K10b
+(dropout and its replay) and K11 (bias + GELU) against their plain PyTorch
+versions, and the wrappers' refusals on CUDA tensors.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -12,6 +13,9 @@ import torch
 
 from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention as da
+from deepspeed_tpu_torch.ops.transformer.kernels import dropout as dr
+from deepspeed_tpu_torch.ops.transformer.kernels import gelu as ge
+from deepspeed_tpu_torch.ops.transformer.kernels import layer_norm as ln
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +57,36 @@ def test_kernel_matches_plain(cuda, dtype, tol, S, pos):
     diff = (out.float() - ref.float()).abs()
     limit = atol + rtol * (ref.float().abs() + _spread(q, k, v, p))
     assert bool((diff <= limit).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 0.0)),
+                                       (torch.bfloat16, (2e-3, 2.0 ** -7))],
+                         ids=["fp32", "bf16"])
+def test_decode_kernel_at_the_serving_shape(cuda, dtype, tol):
+    """chip_smoke.py's first K3 case: 16 decode rows at the serving plane
+    (max_len 1024, prefill chunk 32), frontiers from 0 to the plane's end,
+    large finite garbage past each frontier."""
+    from deepspeed_tpu_torch.inference.kv_pool import plane_len_for
+    T = plane_len_for(1024, 32)
+    pos = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000, 1023,
+           T - 2, T - 1]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(0)
+    q = torch.randn(16, 16, 1, 64, device=cuda, generator=g).to(dtype)
+    k, v, garbage = (torch.randn(16, 16, T, 64, device=cuda, generator=g)
+                     for _ in range(3))
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    stale = (torch.arange(T, device=cuda)[None, :] > p[:, None].long()
+             )[:, None, :, None]
+    k = torch.where(stale, 3e4 * torch.sign(garbage), k).to(dtype)
+    v = torch.where(stale, -3e4 * torch.sign(garbage), v).to(dtype)
+    out = da.flash_decode_attention(q, k, v, p)
+    ref = da.decode_attention_reference(q, k, v, p)
+    torch.cuda.synchronize()
+    atol, rtol = tol
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= atol + rtol * (ref.float().abs()
+                                        + _spread(q, k, v, p))).all())
 
 
 def _spread(q, k, v, pos):
@@ -175,3 +209,135 @@ def test_flash_wrapper_refuses_what_the_kernels_cannot_take(cuda, bad):
         mask = mask[:, :10]
     with pytest.raises((TypeError, ValueError)):
         at.flash_fwd(q, k, v, mask, True)
+
+
+# K8 / K11 per-element limits, as in chip_smoke.py: |out - ref| <= atol +
+# rtol * |ref|. Kernel and plain version compute in fp32 from the same
+# inputs and differ in summation order and FMA contraction (a few fp32 ulps
+# of terms of order 1: atol), then may round to neighbouring values of the
+# output type (rtol: one ulp, bf16 2**-7, fp16 2**-10; fp32 2**-20).
+ROW_TOL = {torch.float32: (2e-6, 2.0 ** -20),
+           torch.bfloat16: (2e-6, 2.0 ** -7),
+           torch.float16: (2e-6, 2.0 ** -10)}
+ROW_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+ROW_IDS = ["fp32", "bf16", "fp16"]
+
+
+def _row_inputs(cuda, rows, cols, dtype, seed=2):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    x, res = (torch.randn(rows, cols, device=cuda, generator=g).to(dtype)
+              for _ in range(2))
+    gamma, beta, bias = (torch.randn(cols, device=cuda, generator=g)
+                         for _ in range(3))
+    return x, res, 1.0 + 0.1 * gamma, 0.1 * beta, bias
+
+
+def _row_within(out, ref, dtype):
+    atol, rtol = ROW_TOL[dtype]
+    diff = (out.float() - ref.float()).abs()
+    return bool((diff <= atol + rtol * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=ROW_IDS)
+@pytest.mark.parametrize("cols", [1024, 768, 64])
+@pytest.mark.parametrize("variant", ["plain", "residual", "bias_residual"])
+def test_layer_norm_kernel_matches_plain(cuda, dtype, cols, variant):
+    x, res, gamma, beta, bias = _row_inputs(cuda, 301, cols, dtype)
+    x = 2.0 + 3.0 * x.float()
+    x = x.to(dtype)
+    res = None if variant == "plain" else res
+    bias = bias if variant == "bias_residual" else None
+    key = "plain" if variant == "plain" else "bias_residual"
+    before = ln.launches[key]
+    out, mu, rstd = ln.ln_fwd(x, gamma, beta, bias, res, eps=1e-12)
+    rout, rmu, rrstd = ln.ln_fwd_reference(x, gamma, beta, bias, res, 1e-12)
+    torch.cuda.synchronize()
+    assert ln.launches[key] == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    assert mu.shape == rstd.shape == (301, 1)
+    assert _row_within(out, rout, dtype)
+    torch.testing.assert_close(mu, rmu, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=ROW_IDS)
+@pytest.mark.parametrize("cols", [4096, 64])
+def test_bias_gelu_kernel_matches_plain(cuda, dtype, cols):
+    x, _, _, _, bias = _row_inputs(cuda, 129, cols, dtype)
+    x = (3.0 * x.float()).to(dtype)
+    before = ge.launches
+    out = ge.bias_gelu_fwd(x, bias)
+    ref = ge.bias_gelu_reference(x, bias)
+    torch.cuda.synchronize()
+    assert ge.launches == before + 1
+    assert out.dtype == dtype and _row_within(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=ROW_IDS)
+@pytest.mark.parametrize("shape,fused", [((257, 1024), True),
+                                         ((3, 4, 33, 64), False)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_kernels_match_plain_bit_for_bit(cuda, dtype, shape, fused,
+                                                 rate):
+    """K10a and K10b draw the plain version's Philox mask and round as it
+    does: the outputs are equal, not close."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    x, res, grad = (torch.randn(*shape, device=cuda, generator=g).to(dtype)
+                    for _ in range(3))
+    bias = torch.randn(shape[-1], device=cuda, generator=g) if fused \
+        else None
+    res = res if fused else None
+    seed = 2 ** 40 + 12345
+    before = dict(dr.launches)
+    out = dr.dropout_fwd(x, bias, res, rate, seed)
+    dx = dr.dropout_bwd(grad, rate, seed)
+    ref = dr.dropout_reference(x, rate, seed, bias, res)
+    ref_dx = dr.dropout_bwd_reference(grad, rate, seed)
+    torch.cuda.synchronize()
+    assert dr.launches == {"dropout_fwd": before["dropout_fwd"] + 1,
+                           "dropout_bwd": before["dropout_bwd"] + 1}
+    assert torch.equal(out, ref) and torch.equal(dx, ref_dx)
+    keep = dr.dropout_mask(shape, rate, seed, cuda)
+    assert torch.equal(dx == 0, ~keep | (grad == 0))
+
+
+def test_row_kernel_autograd_functions_on_the_card(cuda):
+    """The layer's autograd Functions run their kernels forward (and K10b
+    backward) and agree with the plain path on the CPU."""
+    x, res, gamma, beta, bias = _row_inputs(cuda, 64, 256, torch.float32)
+    grad = torch.randn_like(x)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).clone().requires_grad_()
+                  for t in (x, res, gamma, beta, bias)]
+        tx, tr, tg, tb, tbias = leaves
+        y = dr.fused_bias_dropout_residual(tx, tbias, tr, 0.1, 77)
+        y = ln.fused_layer_norm(y, tg, tb)
+        y = ge.fused_bias_gelu(y, tbias)
+        y = dr.dropout(y, 0.2, 78)
+        y.backward(grad.to(dev))
+        outs.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["fp64", "wide_row", "strided", "res_dtype",
+                                 "odd_cols"])
+def test_row_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda, bad):
+    x, res, gamma, beta, bias = _row_inputs(cuda, 8, 1024, torch.float32)
+    if bad == "fp64":
+        x, res = x.double(), res.double()
+    elif bad == "wide_row":
+        x = torch.zeros(8, 2048, device=cuda)
+        res, gamma, beta = torch.zeros_like(x), x[0], x[0]
+    elif bad == "strided":
+        x = x.t().contiguous().t()
+    elif bad == "res_dtype":
+        res = res.half()
+    else:
+        x, res, gamma, beta = x[:, :1023].contiguous(), res[:, :1023]\
+            .contiguous(), gamma[:1023], beta[:1023]
+    with pytest.raises((TypeError, ValueError)):
+        ln.ln_fwd(x, gamma, beta, None, res)

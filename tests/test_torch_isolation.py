@@ -82,19 +82,27 @@ def test_entry_points_raise_without_cuda():
 
 
 @pytest.mark.parametrize("entry", ["model", "params_from_jax", "init_cache",
-                                   "init_pool"])
+                                   "init_pool", "bert", "bert_model",
+                                   "bert_params_from_jax",
+                                   "transformer_layer"])
 def test_state_builders_default_to_cuda(entry):
     """Every public builder of device state defaults to the GPU: without
     one it raises, and with ``device="cpu"`` it builds on the host."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
     from deepspeed_tpu_torch.inference import kv_pool
-    from deepspeed_tpu_torch.models import (GPT2Config, GPT2LMHeadModel,
-                                            generation, params_from_jax)
+    from deepspeed_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                            BertModel, GPT2Config,
+                                            GPT2LMHeadModel, bert, generation,
+                                            params_from_jax)
+    from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
     cfg = GPT2Config.tiny(dtype=torch.float32)
     gcfg = generation.as_gencfg(cfg)
+    bcfg = BertConfig.tiny(dtype=torch.float32)
     tree = {name: p.numpy() for name, p in
             GPT2LMHeadModel(cfg, device="cpu").named_parameters()}
+    btree = {name: p.numpy() for name, p in
+             BertForPreTraining(bcfg, device="cpu").named_parameters()}
     build = {
         "model": lambda **kw: GPT2LMHeadModel(cfg, **kw).wte,
         "params_from_jax": lambda **kw: params_from_jax(
@@ -102,6 +110,12 @@ def test_state_builders_default_to_cuda(entry):
         "init_cache": lambda **kw: generation.init_cache(gcfg, 2, 8,
                                                          **kw)["k"],
         "init_pool": lambda **kw: kv_pool.init_pool(gcfg, 2, 8, **kw)["k"],
+        "bert": lambda **kw: BertForPreTraining(bcfg, **kw).mlm_bias,
+        "bert_model": lambda **kw: BertModel(bcfg, **kw).pooler.kernel,
+        "bert_params_from_jax": lambda **kw: bert.params_from_jax(
+            _nest(btree), bcfg, **kw).mlm_bias,
+        "transformer_layer": lambda **kw: DeepSpeedTransformerLayer(
+            bcfg.ds_layer_config(), **kw).attn_qkvw,
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
