@@ -16,13 +16,33 @@ of which exits non-zero on failure:
    to its own limit (see TOL); times the kernel,
    the plain version and torch's scaled_dot_product_attention (a yardstick
    only: the port never calls it) with CUDA events, beside the bound;
+   then K4 (int8 plane), K5 (page arena) and K6 (int8 page arena) against
+   their plain versions at the same shapes, in bf16 and fp32, through a
+   shuffled block table whose unmapped logical pages point at a trash page,
+   with garbage in the trash page, in unmapped pages and past every
+   frontier (int8: TOL plus the score shift set out there); K5 must equal
+   K3 on the gathered plane, and K6 K4, bit for bit; times each kernel and
+   its plain
+   version beside the bound (no single PyTorch call computes paged or int8
+   decode attention: library_ms is null);
+   then the decode-kernel stress: K3, K4, K5 and K6 at the bf16 decode case
+   over STRESS_SEEDS fresh seeds each, every case held to its limit (and K5
+   = K3, K6 = K4 bit for bit); the count of cases over the limit per
+   kernel, and the worst element of any;
 4. serving at full width: GPT-2 medium, bf16, seeded weights, through
    init_inference; 24 requests of 64/256 prompt tokens and 96 new tokens;
-   the kernel's launch count is reset just before and read just after, and
-   must equal n_layer x (decode steps + prefill lanes) as the engine counted
-   them;
+   each serving path's kernel launch counts are reset just before it and
+   read just after, and its kernel's count must equal n_layer x (decode
+   steps + prefill lanes) as the engine counted them, the other decode
+   kernels' 0. Paths: the dense pool (K3); the slice's main path, the
+   paged int8 pool at 128-position pages (K6; every page returned after
+   the run); then two arms of 4 requests: paged alone (K5) and int8 alone
+   (K4). The dense and the paged int8 runs are each followed by a profiler
+   window;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
-   streams must equal the port's own generate() token for token;
+   streams must equal the port's own generate() token for token; the paged
+   engine's must equal the dense engine's exactly, and the paged int8
+   engine's the dense int8 engine's;
 6. K1/K2a/K2b vs plain: the flash-attention kernels of the training path
    against their plain versions (``mha_reference`` /
    ``flash_bwd_reference``) on the card, at the training shape (B=8, H=16,
@@ -79,7 +99,8 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deepspeed_tpu_torch import init_inference, initialize  # noqa: E402
-from deepspeed_tpu_torch.inference.kv_pool import plane_len_for  # noqa: E402
+from deepspeed_tpu_torch.inference.kv_pool import (  # noqa: E402
+    paged_plane_len, plane_len_for)
 from deepspeed_tpu_torch.models import (  # noqa: E402
     BertConfig, BertForPreTraining, GPT2Config, GPT2LMHeadModel)
 from deepspeed_tpu_torch.models import generation  # noqa: E402
@@ -120,6 +141,17 @@ N_REQUESTS, NEW_TOKENS, PROMPT_LENS = 24, 96, (64, 256)
 # about 0.05 at a 1000-key frontier, and the limit shrinks with it: one key
 # dropped at such a frontier exceeds it.
 TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-3, 2.0 ** -7)}
+# K4/K6 against their plain versions add the score shift. The kernels keep
+# k in fp32 (codes x scale) for the scores, as the TPU kernel does; the
+# plain version rounds k to q's dtype first, which moves score t by the
+# known d_t = scale * q . (k32_t - kq_t). A softmax whose scores move by d
+# moves its output by sum_t p_t d_t (v_t - out) to first order, and by at
+# most max_t d_t^2 (sum_t p_t |v_t| + |out|) beyond it; the limit adds both,
+# per element. In fp32 both dequantize alike (the same fp32 product), d is
+# 0, and K3's fp32 limit holds. (A worst-case term, 2**-8 of every |q_d
+# k_td|, would be some 10x looser than K3's bf16 limit: a CPU simulation at
+# the decode shape puts a dropped 32-key tile at a 1000-key frontier at
+# 1.7-5x that limit, and at 12-33x this one, a correct result at 0.5-0.6.)
 
 # Greedy consistency: the engine (16-row batches) and generate (1 row)
 # multiply through different GEMM shapes, so fp32 logits may differ in the
@@ -205,6 +237,24 @@ BERT_SITES = {"layer_norm_plain": (2, 0), "layer_norm_bias_residual": (0, 2),
 BERT_STEP_SITES = {"dropout_fwd": 1, "dropout_bwd": 1}
 
 PLANE = plane_len_for(SERVE["max_len"], SERVE["prefill_chunk"])
+# The paged pool of the slice's main path: the JAX package's default page
+# length; the logical plane is PLANE rounded up to whole pages (9 pages).
+PAGE_LEN = 128
+PAGED = {"paged_kv": True, "kv_page_len": PAGE_LEN}
+PAGED_PLANE = paged_plane_len(SERVE["max_len"], SERVE["prefill_chunk"],
+                              PAGE_LEN)
+# Serving paths: (line label, config beyond SERVE, the decode kernel that
+# serves it (a key of decode_attention.launches), requests, profiled).
+SERVE_PATHS = [("serve", {}, "decode", N_REQUESTS, True),
+               ("serve_paged_int8", dict(PAGED, int8_kv=True), "paged_q8",
+                N_REQUESTS, True),
+               ("serve_paged", PAGED, "paged", 4, False),
+               ("serve_int8", {"int8_kv": True}, "q8", 4, False)]
+# Fresh seeds per decode kernel in the stress run (ROADMAP Queue 3).
+STRESS_SEEDS = 200
+# The decode frontiers of phase 3: 0 to the plane's end, straddling tiles.
+DECODE_POS = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000, 1023,
+              PLANE - 2, PLANE - 1]
 
 # cuda_ms's spin before each timed launch: about 0.1 ms at the H100's
 # clock, longer than the host takes to enqueue a wrapper's launch.
@@ -282,16 +332,23 @@ _TYPE_NAMES = {"f": "fp32", "__nv_bfloat16": "bf16", "__half": "fp16"}
 
 def _ptxas_summary(log):
     """One line per compiled kernel from nvcc's -Xptxas=-v report: the
-    kernel, its type (K2's dq flag, K8's vectors per lane), registers,
-    spill stores."""
+    kernel, its type (K2's dq flag, K8's vectors per lane, the decode
+    kernel's int8 and paged flags), registers, spill stores."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)I\d*"
-                      r"(\w+?)(Lb[01]|Li\d+E)?E", line)
+                      r"(\w+?)((?:Lb[01]E|Li\d+E)*)E", line)
         if m:
-            extra = m.group(3) or ""
-            extra = ", dq" if extra == "Lb1" else \
-                ", " + extra[2:-1] if extra.startswith("Li") else ""
+            flags = re.findall(r"L([bi])(\d+)E", m.group(3))
+            if m.group(1) == "decode_attention_kernel":
+                extra = "".join(", " + what for what, (_, on) in
+                                zip(("int8", "paged"), flags) if on == "1")
+            elif flags == [("b", "1")]:
+                extra = ", dq"
+            elif flags and flags[0][0] == "i":
+                extra = ", " + flags[0][1]
+            else:
+                extra = ""
             name = "{}<{}{}>".format(m.group(1),
                                       _TYPE_NAMES.get(m.group(2), m.group(2)),
                                       extra)
@@ -307,12 +364,12 @@ def _ptxas_summary(log):
     return out
 
 
-def _case(B, S, frontiers, dtype, seed):
+def _case(B, S, frontiers, dtype, seed, T=PLANE):
     """q, k, v, pos on the card; positions past each row's frontier hold
     large finite garbage."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    H, D, T = 16, 64, PLANE
+    H, D = 16, 64
     q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
     k = torch.randn(B, H, T, D, device="cuda", generator=g)
     v = torch.randn(B, H, T, D, device="cuda", generator=g)
@@ -326,28 +383,33 @@ def _case(B, S, frontiers, dtype, seed):
     return q, k, v, pos
 
 
-def _spread(q, k, v, pos, scale):
-    """sqrt(sum_t p_t^2 v_t^2) per output element, fp32 probabilities
-    over each row's visible keys (the scale of the bf16 probability
-    rounding error; see TOL)."""
+def _probs(q, k, pos, scale):
+    """fp32 probabilities over each row's visible keys."""
     S, T = q.shape[2], k.shape[2]
     q_pos = pos.long()[:, None] + torch.arange(S, device=q.device)
     mask = torch.arange(T, device=q.device)[None, None, :] <= q_pos[:, :, None]
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
+    return torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
+
+
+def _spread(q, k, v, pos, scale):
+    """sqrt(sum_t p_t^2 v_t^2) per output element, fp32 probabilities
+    over each row's visible keys (the scale of the bf16 probability
+    rounding error; see TOL)."""
+    p = _probs(q, k, pos, scale)
     return torch.matmul(p * p, v.float() ** 2).sqrt()
 
 
-def _bound(q, k, pos):
-    """(bound ms, 'bytes' or 'operations') for one call: q, out and the
-    K/V rows up to each frontier read once; 4*D flops per visible key per
-    query row."""
+def _bound(q, pos, T, key_bytes, extra_bytes=0):
+    """(bound ms, 'bytes' or 'operations') for one call: q and out, the
+    ``key_bytes`` of each cached key (per head) up to each frontier and the
+    frontiers read once, plus ``extra_bytes`` (a block table's entries);
+    4*D flops per visible key per query row."""
     B, H, S, D = q.shape
-    T = k.shape[2]
     item = q.element_size()
     keys = np.minimum(pos.cpu().numpy().astype(np.int64) + S, T)
-    nbytes = 2 * B * H * S * D * item + 2 * int(keys.sum()) * H * D * item \
-        + 4 * B
+    nbytes = 2 * B * H * S * D * item + int(keys.sum()) * H * key_bytes \
+        + 4 * B + extra_bytes
     vis = np.minimum(pos.cpu().numpy()[:, None].astype(np.int64)
                      + np.arange(S)[None] + 1, T)
     flops = 4 * D * H * int(vis.sum())
@@ -359,8 +421,7 @@ def _bound(q, k, pos):
 def phase_kernels():
     """K3 against its plain version; returns the variant rows."""
     T = PLANE
-    decode_pos = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000,
-                  1023, T - 2, T - 1]
+    decode_pos = DECODE_POS
     cases = [("decode", 16, 1, decode_pos)]
     cases += [("prefill_lane", 1, 32, [p]) for p in (0, 31, 32, 500, T - 32)]
     rows = []
@@ -407,10 +468,221 @@ def phase_kernels():
                 row["library_ms"] = cuda_ms(
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask, scale=scale))
-                row["bound_ms"], row["bound_by"] = _bound(q, k, pos)
+                row["bound_ms"], row["bound_by"] = _bound(
+                    q, pos, T, 2 * q.shape[3] * q.element_size())
             rows.append(row)
             print("K3 " + json.dumps(row))
     return rows
+
+
+# ------------------------------------- K4, K5, K6: int8 and paged decode
+
+# (kernel, its name in the kernels line): the launches key, the table id.
+DECODE_VARIANTS = [("q8", "K4"), ("paged", "K5"), ("paged_q8", "K6")]
+DECODE_KEYS = [("decode", "K3")] + DECODE_VARIANTS
+
+
+def _q8_case(B, S, frontiers, dtype, seed, T=PLANE):
+    """``_case`` with k and v quantized (``quantize_kv`` of the planes in
+    ``dtype``, as the serving path quantizes): q, codes k, v, scales k, v,
+    pos."""
+    q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
+    (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
+    return q, kc, vc, ks, vs, pos
+
+
+def _paged(planes, pos, S, seed):
+    """Scatter logical planes ``[B, H, PAGED_PLANE, ...]`` (keys, codes or
+    scales) into page arenas through one shuffled block table: row b's
+    logical pages up to its frontier's page map to distinct shuffled pages,
+    the rest to the trash page 0. The trash page and 4 pages no row maps
+    hold large finite garbage. Returns (arenas, table)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7919)
+    B = pos.shape[0]
+    n_lp = PAGED_PLANE // PAGE_LEN
+    n_pages = B * n_lp + 5
+    tbl = torch.randperm(n_pages - 1, device="cuda",
+                         generator=g)[:B * n_lp].reshape(B, n_lp) + 1
+    last = (pos.long() + S - 1) // PAGE_LEN
+    mapped = torch.arange(n_lp, device="cuda")[None] <= last[:, None]
+    tbl = torch.where(mapped, tbl, 0).to(torch.int32).contiguous()
+    arenas = []
+    for plane in planes:
+        tail = tuple(plane.shape[3:])
+        shape = (n_pages, plane.shape[1], PAGE_LEN) + tail
+        if plane.dtype == torch.int8:
+            arena = torch.randint(-127, 128, shape, device="cuda",
+                                  generator=g, dtype=torch.int8)
+        elif not tail:  # a scale plane: large positive garbage
+            arena = 1e3 * (1.0 + torch.rand(shape, device="cuda",
+                                            generator=g))
+        else:
+            arena = (3e4 * torch.sign(torch.randn(
+                shape, device="cuda", generator=g))).to(plane.dtype)
+        rows = plane.reshape((B, plane.shape[1], n_lp, PAGE_LEN) + tail)
+        arena[tbl[mapped].long()] = rows.movedim(2, 1)[mapped]
+        arenas.append(arena.contiguous())
+    return arenas, tbl
+
+
+def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0):
+    """One case of decode kernel ``kind`` (a key of DECODE_KEYS) on the
+    card: launches of the kernel, its plain version and its dense twin
+    (K3 on the gathered plane for K5, K4 for K6), the fp32 planes its limit
+    is computed from, and what its bound counts."""
+    item = dtype.itemsize
+    if kind in ("decode", "q8"):
+        T, extra = PLANE, 0
+        if kind == "decode":
+            q, k, v, pos = _case(B, S, frontiers, dtype, seed)
+            ops, kv = (k, v), (k, v)
+        else:
+            q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed)
+            ops = (kc, vc, ks, vs)
+            kv = (da.dequantize_kv(kc, ks), da.dequantize_kv(vc, vs))
+        twin = None
+    else:
+        T = PAGED_PLANE
+        if kind == "paged":
+            q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
+            planes = (k, v)
+        else:
+            q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed, T)
+            planes = (kc, vc, ks, vs)
+        arenas, tbl = _paged(planes, pos, S, seed)
+        ops = tuple(arenas) + (tbl,)
+        g = [da.gather_pages(a, tbl) for a in arenas]
+        kv = g if kind == "paged" else \
+            (da.dequantize_kv(g[0], g[2]), da.dequantize_kv(g[1], g[3]))
+        dense = da.flash_decode_attention if kind == "paged" else \
+            da.flash_decode_attention_q8
+
+        def twin():
+            return dense(q, *g, pos, scale)
+        # The table entries up to each row's frontier page.
+        extra = 4 * int(((pos.long() + S - 1) // PAGE_LEN + 1).sum())
+    kernel, plain = {
+        "decode": (da.flash_decode_attention, da.decode_attention_reference),
+        "q8": (da.flash_decode_attention_q8,
+               da.decode_attention_q8_reference),
+        "paged": (da.flash_decode_attention_paged,
+                  da.decode_attention_paged_reference),
+        "paged_q8": (da.flash_decode_attention_paged_q8,
+                     da.decode_attention_paged_q8_reference)}[kind]
+    q8 = kind in ("q8", "paged_q8")
+    return {"q": q, "pos": pos, "T": T, "kv": kv, "q8": q8,
+            "key_bytes": 2 * 64 + 8 if q8 else 2 * 64 * item,
+            "extra": extra, "twin": twin,
+            "kernel": lambda: kernel(q, *ops, pos, scale),
+            "plain": lambda: plain(q, *ops, pos, scale)}
+
+
+def _decode_limit(c, ref, dtype, scale=1.0 / 8.0):
+    """Each element's limit: TOL's, plus for K4/K6 the score shift (see
+    TOL)."""
+    q, pos = c["q"], c["pos"]
+    k, v = (t.float() for t in c["kv"])
+    atol, rtol = TOL[dtype]
+    p = _probs(q, k, pos, scale)
+    limit = atol + rtol * (ref.float().abs()
+                           + torch.matmul(p * p, v ** 2).sqrt())
+    if c["q8"]:
+        v = v.to(dtype).float()  # both round v to q's dtype
+        out = ref.float()
+        d = torch.matmul(q.float(), (k - k.to(dtype).float())
+                         .transpose(-1, -2)) * scale
+        pd = p * d
+        d_max = (d.abs() * (p > 0)).amax(-1, keepdim=True)
+        limit = limit + (torch.matmul(pd, v)
+                         - out * pd.sum(-1, keepdim=True)).abs() \
+            + d_max ** 2 * (torch.matmul(p, v.abs()) + out.abs())
+    return limit
+
+
+def _decode_check(label, c, dtype, frontiers):
+    """Run one case: the kernel against its plain version (per element,
+    ``_decode_limit``) and against its dense twin (bit for bit). Returns
+    the row; a row over its limit or unequal to its twin carries the worst
+    element and ``"ok": False``."""
+    out, ref = c["kernel"](), c["plain"]()
+    twin = c["twin"]() if c["twin"] is not None else None
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        fail("{} output not finite or wrong shape ({})".format(label, dtype))
+    diff = (out.float() - ref.float()).abs()
+    limit = _decode_limit(c, ref, dtype)
+    ratio = float((diff / limit).max())
+    row = {"dtype": str(dtype).split(".")[-1], "max_abs_err": float(diff.max()),
+           "max_err_over_limit": ratio, "ok": ratio <= 1.0}
+    if twin is not None:
+        row["equal_to_dense_twin"] = bool(torch.equal(out, twin))
+        row["ok"] = row["ok"] and row["equal_to_dense_twin"]
+    if ratio > 1.0:
+        worst = int((diff / limit).flatten().argmax())
+        at_ = tuple(int(i) for i in np.unravel_index(worst, tuple(diff.shape)))
+        row["worst"] = {"index": list(at_), "frontier": frontiers[at_[0]],
+                        "out": float(out.float()[at_]),
+                        "ref": float(ref.float()[at_])}
+    return row
+
+
+def phase_decode_variants():
+    """K4, K5 and K6 against their plain versions at phase 3's cases, K5
+    and K6 also against their dense twins bit for bit; times at the decode
+    and the frontier-500 prefill case. Returns {kind: rows}."""
+    cases = [("decode", 16, 1, DECODE_POS)]
+    cases += [("prefill_lane", 1, 32, [p]) for p in (0, 31, 32, 500,
+                                                     PLANE - 32)]
+    rows = {}
+    for kind, label in DECODE_VARIANTS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, B, S, frontiers in cases:
+                c = _variant(kind, B, S, frontiers, dtype,
+                             seed=100 + len(rows.get(kind, [])))
+                row = dict(case=name, B=B, S=S, T=c["T"], pos=frontiers,
+                           **_decode_check(label, c, dtype, frontiers))
+                if not row["ok"]:
+                    print(label + " " + json.dumps(row))
+                    fail("{} disagrees with its plain version or its dense "
+                         "twin at {} {}".format(label, name, dtype))
+                if frontiers in ([500], DECODE_POS):
+                    row["ms"] = cuda_ms(c["kernel"])
+                    row["plain_ms"] = cuda_ms(c["plain"])
+                    row["bound_ms"], row["bound_by"] = _bound(
+                        c["q"], c["pos"], c["T"], c["key_bytes"], c["extra"])
+                    row["library_ms"] = None
+                rows.setdefault(kind, []).append(row)
+                print(label + " " + json.dumps(row))
+                del c
+    return rows
+
+
+def phase_stress():
+    """K3, K4, K5 and K6 at the bf16 decode case over STRESS_SEEDS fresh
+    seeds each; fails if any case is over its limit or unequal to its dense
+    twin, after printing every kernel's count."""
+    bad = False
+    for i, (kind, label) in enumerate(DECODE_KEYS):
+        over = unequal = 0
+        worst = {"max_err_over_limit": 0.0}
+        for n in range(STRESS_SEEDS):
+            seed = 10_000 * (i + 1) + n
+            c = _variant(kind, 16, 1, DECODE_POS, torch.bfloat16, seed)
+            row = _decode_check(label, c, torch.bfloat16, DECODE_POS)
+            del c
+            over += row["max_err_over_limit"] > 1.0
+            unequal += row.get("equal_to_dense_twin") is False
+            if row["max_err_over_limit"] >= worst["max_err_over_limit"]:
+                worst = dict(row, seed=seed)
+        bad = bad or over or unequal
+        print("stress " + json.dumps({
+            "kernel": label, "case": "decode bf16 B16 S1", "seeds":
+            STRESS_SEEDS, "over_limit": over, "unequal_to_dense_twin":
+            unequal, "worst": worst}))
+    if bad:
+        fail("a decode kernel disagreed with its plain version or its dense "
+             "twin in the stress run")
 
 
 def _prompts(n, vocab, seed):
@@ -418,12 +690,14 @@ def _prompts(n, vocab, seed):
     return [rng.randint(0, vocab, size=PROMPT_LENS[i % 2]) for i in range(n)]
 
 
-def phase_serve(card):
-    cfg = GPT2Config.gpt2_medium(dtype=torch.bfloat16)
-    model = GPT2LMHeadModel(cfg, device="cuda", seed=0)
-    engine = init_inference(model, config=SERVE)
+def phase_serve(card, model, label, extra, kernel, n_requests, profile):
+    """One serving path through init_inference: ``n_requests`` of the mix
+    under SERVE plus ``extra``; the decode kernels' launch counts are reset
+    just before the run and read just after. Returns ``kernel``'s count."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(SERVE, **extra))
     reqs = []
-    for i, p in enumerate(_prompts(N_REQUESTS, cfg.vocab_size, seed=0)):
+    for i, p in enumerate(_prompts(n_requests, cfg.vocab_size, seed=0)):
         sampled = i % 6 == 5
         reqs.append(engine.submit(
             p, max_new_tokens=NEW_TOKENS,
@@ -432,45 +706,62 @@ def phase_serve(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     da.reset_launches()
+    peak_pages = 0
     t0 = time.perf_counter()
-    engine.run()
+    while not engine.idle:
+        engine.step()
+        if engine.kv_page_stats() is not None:
+            peak_pages = max(peak_pages,
+                             engine.kv_page_stats()["pages_in_use"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = da.launches
+    launches = dict(da.launches)
     m = engine.metrics()
     for r in reqs:
         toks = np.asarray(r.tokens)
         if len(toks) != NEW_TOKENS or toks.min() < 0 or \
                 toks.max() >= cfg.vocab_size:
-            fail("request {} returned {} tokens (range {}..{})".format(
-                r.rid, len(toks), toks.min(), toks.max()))
-    want = cfg.n_layer * (m["decode_steps"] + m["prefill_lanes"])
-    if launches == 0 or launches != want:
-        fail("K3 launches {} != n_layer x (decode steps + prefill lanes) "
-             "= {}".format(launches, want))
-    line = {"serve": "gpt2-medium bf16", "requests": N_REQUESTS,
+            fail("{}: request {} returned {} tokens (range {}..{})".format(
+                label, r.rid, len(toks), toks.min(), toks.max()))
+    want = dict.fromkeys(launches, 0)
+    want[kernel] = cfg.n_layer * (m["decode_steps"] + m["prefill_lanes"])
+    if launches != want:
+        fail("{}: decode kernel launches {} != n_layer x (decode steps + "
+             "prefill lanes) of {} and none of the others: {}".format(
+                 label, launches, kernel, want))
+    line = {label: "gpt2-medium bf16", "requests": n_requests,
             "new_tokens": NEW_TOKENS, "wall_s": wall,
             "tokens_out": m["tokens_out"],
             "tokens_per_s": m["tokens_out"] / wall,
             "ttft_p50_ms": m["ttft_p50_ms"], "ttft_p99_ms": m["ttft_p99_ms"],
             "steps": m["chunks"], "mean_step_ms": wall / m["chunks"] * 1e3,
             "decode_steps": m["decode_steps"],
-            "prefill_lanes": m["prefill_lanes"], "k3_launches": launches,
+            "prefill_lanes": m["prefill_lanes"], "kernel": kernel,
+            "launches": launches, "kv_hbm_bytes": m["kv_hbm_bytes"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "card": card}
-    print("serve " + json.dumps(line))
-    phase_profile(engine, cfg)
-    return launches
+    stats = engine.kv_page_stats()
+    if stats is not None:
+        if stats["pages_in_use"] != 0:
+            fail("{}: {} pages still in use after the run".format(
+                label, stats["pages_in_use"]))
+        line.update(page_len=stats["page_len"],
+                    pages_total=stats["pages_total"],
+                    peak_pages_in_use=peak_pages)
+    print(label + " " + json.dumps(line))
+    if profile:
+        phase_profile(engine, cfg, label.replace("serve", "profile"))
+    return launches[kernel]
 
 
-def phase_profile(engine, cfg, warm=4, window=3):
+def phase_profile(engine, cfg, label, warm=4, window=3):
     """Where a mixed step's time goes: torch.profiler over ``window``
     steps of a full pool (16 fresh requests, ``warm`` steps in)."""
     for i, p in enumerate(_prompts(SERVE["max_slots"], cfg.vocab_size, 2)):
         engine.submit(p, max_new_tokens=48, seed=i)
     for _ in range(warm):
         engine.step()
-    print("profile " + json.dumps(_profile(engine.step, window)))
+    print(label + " " + json.dumps(_profile(engine.step, window)))
 
 
 def _profile(step, window):
@@ -537,6 +828,21 @@ def phase_greedy():
                 gap))
     print("greedy: {}/{} streams identical to generate()".format(
         exact, len(prompts)))
+    # K5 and K6 do K3's and K4's arithmetic: the paged engines' streams are
+    # the dense engines' exactly (no near-tie allowance).
+    for int8 in (False, True):
+        streams = []
+        for extra in ({}, PAGED):
+            eng = init_inference(model, config=dict(
+                SERVE, max_slots=4, int8_kv=int8, **extra))
+            streams.append(eng.generate(prompts, max_new_tokens=new))
+            del eng
+        if streams[0] != streams[1]:
+            fail("the paged{} engine's greedy streams differ from the dense "
+                 "one's".format(" int8" if int8 else ""))
+        print("greedy: paged{} streams identical to dense{} ({} x {} "
+              "tokens)".format(" int8" if int8 else "",
+                               " int8" if int8 else "", len(prompts), new))
 
 
 def _flash_inputs(B, T, dtype, masked, seed):
@@ -1171,13 +1477,57 @@ def _row_kernel_rows(rows, launches):
     return out
 
 
+def _decode_variant_rows(rows, launches):
+    """The kernels-line entries of K4, K5 and K6: times at the bf16 decode
+    case, errors over every case and dtype, launches from each one's
+    serving path (K6 the slice's main path, K5 and K4 its two arms)."""
+    specs = {"q8": ("decode_attention_q8", 312,
+                    "B16 H16 S1 T{} D64, int8 codes + fp32 scales, bf16 q"
+                    .format(PLANE)),
+             "paged": ("decode_attention_paged", 676,
+                       "B16 H16 S1, {} pages of {} (T{}) D64 bf16".format(
+                           PAGED_PLANE // PAGE_LEN, PAGE_LEN, PAGED_PLANE)),
+             "paged_q8": ("decode_attention_paged_q8", 682,
+                          "B16 H16 S1, {} pages of {} (T{}) D64, int8 codes "
+                          "+ fp32 scales, bf16 q".format(
+                              PAGED_PLANE // PAGE_LEN, PAGE_LEN,
+                              PAGED_PLANE))}
+    out = []
+    for kind, _ in DECODE_VARIANTS:
+        name, line, shape = specs[kind]
+        main_row = rows[kind][0]  # bf16 decode
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "deepspeed_tpu/ops/transformer/kernels/"
+                        "decode_attention.py:{}".format(line),
+            "launches": launches[kind],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[kind]),
+            "max_err_over_limit": max(r["max_err_over_limit"]
+                                      for r in rows[kind]),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "library_note": "no single PyTorch call computes int8 or paged "
+                            "decode attention",
+            "shape": shape})
+    return out
+
+
 def main():
     card = phase_env()
     phase_build()
     rows = phase_kernels()
+    variant_rows = phase_decode_variants()
+    phase_stress()
     flash_rows = phase_flash()
     row_rows = phase_rows()
-    launches = phase_serve(card)
+    model = GPT2LMHeadModel(GPT2Config.gpt2_medium(dtype=torch.bfloat16),
+                            device="cuda", seed=0)
+    serve_launches = {path[2]: phase_serve(card, model, *path)
+                      for path in SERVE_PATHS}
+    del model
+    launches = serve_launches["decode"]
     phase_greedy()
     train_launches = phase_train(card)
     phase_train_consistency()
@@ -1196,6 +1546,7 @@ def main():
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": "B16 H16 S1 T{} D64 bf16".format(PLANE)}]
+    kernels += _decode_variant_rows(variant_rows, serve_launches)
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches)
     kernels += _row_kernel_rows(row_rows, bert_launches)
     print(json.dumps({"kernels": kernels}))

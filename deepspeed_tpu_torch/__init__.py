@@ -11,7 +11,10 @@ Slice 1 is serving: ``init_inference`` builds the continuous-batching
 ``InferenceEngine`` over GPT-2. Slice 2 is training: ``initialize`` builds
 the ``DeepSpeedEngine`` (forward/backward/step, ``train_batch``, bf16/fp16,
 AdamW, LR schedules, checkpoints) over the GPT-2 training forward with the
-flash-attention kernels K1/K2.
+flash-attention kernels K1/K2. Slice 3 is BERT pretraining on the fused
+transformer layer (K8, K10a/K10b, K11). Slice 4 serves from a paged and/or
+int8 KV pool (``inference.paged_kv`` / ``int8_kv``) through the decode
+kernels K4-K6.
 """
 
 from deepspeed_tpu_torch.device import resolve_device

@@ -26,6 +26,17 @@ class GPT2Adapter(ModelAdapter):
     def cache_spec(self):
         return self.gcfg
 
+    def bind(self, config):
+        """Stamp the page length of a paged pool (``inference.paged_kv``)
+        into the cache spec; 0 for a dense pool."""
+        if config is None:
+            return self
+        page_len = int(config.kv_page_len) if config.paged_kv else 0
+        if page_len == self.gcfg.kv_page_len:
+            return self
+        return dataclasses.replace(
+            self, gcfg=self.gcfg._replace(kv_page_len=page_len))
+
     def init_cache(self, batch, max_len, dtype=None, device=None):
         return generation.init_cache(self.gcfg, batch, max_len, dtype, device)
 

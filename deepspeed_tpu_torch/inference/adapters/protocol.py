@@ -7,9 +7,11 @@ holds its weights in (for GPT-2, the port's ``GPT2LMHeadModel``).
 
 Contract kept from the JAX package: the cache is a dict with per-row
 frontier ``pos`` [B] and k/v planes ``[layers, B, heads, plane_len,
-head_dim]``; positions past a row's frontier may hold garbage that is
-masked or overwritten before the frontier reaches them; and row b's logits
-depend only on row b's tokens and frontier.
+head_dim]`` (or, paged, page arenas with a ``block_tbl``; int8 planes come
+with ``k_scale``/``v_scale``: see ``inference/kv_pool.py``); positions past
+a row's frontier may hold garbage that is masked or overwritten before the
+frontier reaches them; and row b's logits depend only on row b's tokens and
+frontier.
 
 Speculative verify and drafting (``verify_forward``, ``ngram_draft``,
 ``accept_counts``) come with the speculation slice.
@@ -23,7 +25,8 @@ class ModelAdapter:
 
     def cache_spec(self):
         """Shape/dtype spec of the KV cache (``n_layer / n_head / n_embd /
-        n_positions / dtype / layer_norm_epsilon``)."""
+        n_positions / dtype / layer_norm_epsilon / kv_page_len``, the last
+        > 0 when the engine serves a paged pool)."""
         raise NotImplementedError
 
     def init_cache(self, batch, max_len, dtype=None, device=None):

@@ -1,8 +1,9 @@
 """InferenceConfig: the serving engine's settings.
 
 Counterpart of ``deepspeed_tpu/inference/config.py``. The dataclass holds
-the settings this slice reads, with the JAX package's defaults: chunked
-prefill into a dense slotted pool, no speculation.
+the settings the port reads, with the JAX package's defaults: chunked
+prefill into a dense or paged slotted pool of fp or int8 planes, no
+speculation.
 
 ``from_dict`` parses a ds_config ``inference`` block written for the JAX
 package. A key of that package which switches or sizes a subsystem the port
@@ -16,10 +17,10 @@ import dataclasses
 from typing import Optional
 
 _FLEET = "the reliability and fleet slice (ROADMAP Queue 1)"
-_HIERARCHY = "the KV hierarchy slice (ROADMAP Queue 1)"
+_HIERARCHY = ("the prefix and offload tiers of the KV hierarchy (ROADMAP "
+              "Queue 1)")
 _SPEC = "the speculative decoding slice (ROADMAP Queue 1)"
 _TELEMETRY = "the telemetry slice (ROADMAP Queue 1)"
-_PAGED = "paged KV with kernel K5 (ROADMAP Queue 1)"
 
 # JAX-package key -> (values the port accepts, the slice that ports the
 # rest). The first accepted value is the JAX default.
@@ -45,7 +46,6 @@ _UNPORTED = {
     "recovery_backoff_s": ((0.0,), _FLEET),
     "replica_id": ((None,), _FLEET),
     "role": (("mixed",), _FLEET),
-    "int8_kv": ((False,), "int8 KV with kernels K4/K6 (ROADMAP Queue 1)"),
     "prefix_cache": ((False,), _HIERARCHY),
     "prefix_slots": ((8,), _HIERARCHY),
     "prefix_len": ((64,), _HIERARCHY),
@@ -56,9 +56,6 @@ _UNPORTED = {
     "sparse_decode": ((True,), "the long-context adapter slice "
                       "(ROADMAP Queue 1)"),
     "expert_parallel": ((True,), "the MoE adapter slice (ROADMAP Queue 1)"),
-    "paged_kv": ((False,), _PAGED),
-    "kv_page_len": ((128,), _PAGED),
-    "kv_pages": ((None,), _PAGED),
 }
 
 
@@ -73,13 +70,25 @@ class InferenceConfig:
     eos_token_id: Optional[int] = None
     max_new_tokens: int = 128
     prefill_chunk: int = 32
+    # Paged KV pool: a shared page arena plus per-slot block tables
+    # (inference/paging.py); kv_pages sizes the usable arena (None: as
+    # many pages as max_slots full rows need).
+    paged_kv: bool = False
+    kv_page_len: int = 128
+    kv_pages: Optional[int] = None
+    # int8 KV planes with fp32 per-(head, position) scales.
+    int8_kv: bool = False
 
     def __post_init__(self):
         for name in ("max_slots", "chunk_size", "max_queue", "prefill_chunk",
-                     "max_len"):
+                     "max_len", "kv_page_len"):
             if getattr(self, name) < 1:
                 raise ValueError("inference.{} must be >= 1, got {}".format(
                     name, getattr(self, name)))
+        if self.kv_pages is not None and self.kv_pages < 1:
+            raise ValueError("inference.kv_pages must be >= 1 (or None for "
+                             "dense-parity capacity), got "
+                             "{}".format(self.kv_pages))
 
     @classmethod
     def from_dict(cls, block):

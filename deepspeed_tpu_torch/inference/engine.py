@@ -1,8 +1,8 @@
 """InferenceEngine: continuous-batching serving over the slotted KV pool.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` on its default path:
-chunked prefill into a dense pool, no speculation. Every step is the JAX
-package's mixed step, run eagerly:
+Counterpart of ``deepspeed_tpu/inference/engine.py``: chunked prefill into a
+dense or paged pool of fp or int8 planes, no speculation. Every step is the
+JAX package's mixed step, run eagerly:
 
 - PREFILL LANE: when a slot is mid-prompt, append one ``prefill_chunk``
   slice of the oldest prefilling request at its cursor (the adapter's
@@ -26,8 +26,17 @@ Sampling draws from the counter-based generator of ``ops.sampling``, keyed
 on (request seed, absolute position): a sampled stream does not depend on
 slot placement or neighbours. Greedy streams equal ``generate``'s.
 
-Telemetry, perf x-ray, resilience and fault injection, the KV hierarchy,
-the pager and tensor parallelism are later slices.
+PAGED pool (``inference.paged_kv``): a host-side ``PageAllocator`` owns
+page lifetime. Admission is page-aware (the queue head reserves the pages
+its deepest frontier needs, or the round ends); before every step the pager
+maps each page the step can write, and the device block table is replaced
+by one blocking host-to-device copy of a snapshot of the host table when it
+changed; a completed request's pages return at harvest. int8 KV
+(``inference.int8_kv``) quantizes at the frontier write and attends through
+the int8 kernels.
+
+Telemetry, perf x-ray, resilience and fault injection, the prefix and
+offload tiers of the KV hierarchy and tensor parallelism are later slices.
 """
 
 import time
@@ -38,9 +47,13 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference.adapters import GPT2Adapter
 from deepspeed_tpu_torch.inference.config import InferenceConfig
+from deepspeed_tpu_torch.inference.kv_hierarchy import (KVHierarchy,
+                                                        spec_from_config)
 from deepspeed_tpu_torch.inference.kv_pool import (
     cache_view, fold_cache, harvest_snapshot, init_pool, max_active_frontier,
-    pool_nbytes, slot_cache_view, write_slot_cache)
+    paged_plane_len, plane_len_for, pool_nbytes, slot_cache_view,
+    write_slot_cache)
+from deepspeed_tpu_torch.inference.paging import PageAllocator
 from deepspeed_tpu_torch.inference.scheduler import Scheduler
 from deepspeed_tpu_torch.models.generation import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
@@ -174,8 +187,26 @@ class InferenceEngine(object):
         # An append of prefill_chunk positions from any admissible
         # frontier must stay inside the plane (kv_pool docstring).
         self._slack = config.prefill_chunk
-        self._pool = init_pool(self._gcfg, config.max_slots, config.max_len,
-                               slack=self._slack, device=self.device)
+        # Paged pool: the allocator owns page lifetime (module docstring);
+        # None keeps the dense slotted pool.
+        self._pager = None
+        if config.paged_kv:
+            plane_len = paged_plane_len(config.max_len, self._slack,
+                                        config.kv_page_len)
+            n_lp = plane_len // config.kv_page_len
+            self._pager = PageAllocator(
+                config.max_slots, n_lp, config.kv_pages or
+                config.max_slots * n_lp, config.kv_page_len)
+        else:
+            plane_len = plane_len_for(config.max_len, self._slack)
+        hspec = spec_from_config(config)
+        self._hier = KVHierarchy(hspec, self._gcfg, plane_len) \
+            if hspec.enabled else None
+        self._pool = init_pool(
+            self._gcfg, config.max_slots, config.max_len, slack=self._slack,
+            device=self.device, hier=hspec if hspec.enabled else None,
+            page_len=config.kv_page_len if self._pager else 0,
+            num_pages=self._pager.total_pages if self._pager else None)
         self._last_snap = None
         self.counters = dict.fromkeys(
             ("tokens_out", "prefill_tokens", "prefills", "prefill_lanes",
@@ -196,7 +227,8 @@ class InferenceEngine(object):
                top_k=None, eos_token_id=None, seed=0, spec_decode=None):
         """Queue one request; returns its Request handle. Raises
         scheduler.QueueFull past ``max_queue`` pending requests and
-        ValueError when the request cannot fit the pool."""
+        ValueError when the request cannot fit the pool (or, paged, when
+        the page arena could never hold it)."""
         if spec_decode:
             raise NotImplementedError("speculative decoding comes with the "
                                       "speculation slice (ROADMAP Queue 1)")
@@ -216,15 +248,108 @@ class InferenceEngine(object):
                 "prompt ({} tokens) + max_new_tokens ({}) exceeds "
                 "inference.max_len={}".format(prompt.size, max_new_tokens,
                                               self.config.max_len))
+        if self._pager is not None:
+            need = self._pages_required(prompt.size, max_new_tokens)
+            if need > self._pager.total_pages:
+                raise ValueError(
+                    "request needs {} KV pages (prompt {} + max_new {} + "
+                    "slack {} tokens at kv_page_len={}) but the page arena "
+                    "holds only {}; raise inference.kv_pages".format(
+                        need, prompt.size, max_new_tokens, self._slack,
+                        self.config.kv_page_len, self._pager.total_pages))
         if eos_token_id is None:
             eos_token_id = self.config.eos_token_id
         return self._scheduler.submit(
             prompt, int(max_new_tokens), float(temperature), int(top_k or 0),
             -1 if eos_token_id is None else int(eos_token_id), int(seed))
 
+    # ------------------------------------------------------ paged KV pool
+
+    def _pages_required(self, prompt_len, max_new_tokens):
+        """Pages covering the deepest frontier a request can reach: prompt
+        + budget + the plane slack, clamped to the per-row table width. The
+        admission gate reserves exactly this, so ``ensure_mapped`` cannot
+        fail mid-stream."""
+        return min(self._pager.pages_for(int(prompt_len)
+                                         + int(max_new_tokens) + self._slack),
+                   self._pager.pages_per_slot)
+
+    def _ensure_paged_mappings(self, pf, n_valid, p_done):
+        """Step-boundary page mapping: back every position the coming step
+        can WRITE and a later read can see, then, when the host table
+        changed, replace the device block table by one blocking
+        host-to-device copy of a snapshot the host never changes afterwards.
+        Writes past what is mapped land in the trash page (unmapped entries
+        are 0). The decode lane advances each active slot at most
+        ``chunk_size`` positions, the prefill lane ``n_valid`` at the
+        cursor."""
+        pager = self._pager
+        lookahead = self.config.chunk_size
+        if pf is not None:
+            upto = int(pf.cursor) + int(n_valid)
+            if p_done:
+                # The slot joins this step's decode lane right after its
+                # final slice: map its decode writes too.
+                upto += lookahead
+            pager.ensure_mapped(pf.slot, upto)
+        for slot, req in self._scheduler.running.items():
+            if req.phase != "decoding":
+                continue
+            pos = int(req.prompt.size) + len(req.tokens)
+            pager.ensure_mapped(slot, pos + lookahead)
+        if pager.dirty:
+            self._pool["block_tbl"] = torch.from_numpy(
+                pager.table.copy()).to(self.device)
+            pager.dirty = False
+
+    def kv_page_stats(self):
+        """Paged-capacity snapshot (None on a dense engine): total, free and
+        in-use pages, the page length, pages unpromised (free minus
+        outstanding reservations: the only number safe to admit against),
+        and the mean per-request reservation."""
+        pg = self._pager
+        if pg is None:
+            return None
+        reqs = list(self._scheduler.running.values())
+        if reqs:
+            mean_res = (sum(self._pages_required(r.prompt.size,
+                                                 r.max_new_tokens)
+                            for r in reqs) / float(len(reqs)))
+        else:
+            mean_res = float(pg.pages_per_slot)
+        return {"pages_total": pg.total_pages,
+                "pages_free": pg.pages_free(),
+                "pages_in_use": pg.pages_in_use(),
+                "pages_available": pg.available(),
+                "page_len": pg.page_len,
+                "mean_reservation_pages": mean_res}
+
     def _admit(self):
-        """One FIFO admission round into free slots."""
-        return self._scheduler.admissions()
+        """One FIFO admission round into free slots. On a paged engine
+        admission is PAGE-AWARE: the queue head must reserve its full
+        frontier bound in pages or the round stops (strict FIFO), every
+        admitted slot's mappings draw down its request's reservation, and
+        each admitted slot's device frontier is pinned to its cursor (0):
+        until its first prefill slice the slot is frozen in the decode lane
+        but still writes at its frontier, through its NEW table row, so a
+        stale frontier of the previous occupant must not steer that
+        write."""
+        pager = self._pager
+        if pager is None:
+            return self._scheduler.admissions()
+
+        def gate(req):
+            need = self._pages_required(req.prompt.size, req.max_new_tokens)
+            if not pager.can_reserve(need):
+                return False
+            pager.reserve(req.rid, need)
+            return True
+
+        pairs = self._scheduler.admissions(gate=gate)
+        for req, slot in pairs:
+            pager.bind_slot(slot, req.rid)
+            self._pool["pos"][slot] = int(req.cursor)
+        return pairs
 
     def step(self):
         """One step boundary: admit, run the prefill lane and the decode
@@ -238,7 +363,7 @@ class InferenceEngine(object):
         self._admit()
         sched = self._scheduler
         pf = sched.next_prefill()
-        lane, p_done = None, False
+        lane, p_done, n = None, False, 0
         if pf is not None:
             C = self.config.prefill_chunk
             cur = pf.cursor
@@ -248,6 +373,8 @@ class InferenceEngine(object):
             p_done = cur + n >= pf.prompt.size
             lane = (torch.from_numpy(ids).to(self.device), pf.slot, cur, n,
                     p_done, pf)
+        if self._pager is not None:
+            self._ensure_paged_mappings(pf, n, p_done)
         # Host facts for the sampler: only slots that can be active in the
         # decode lane (decoding, or finishing their prompt now) matter.
         live = [r for r in sched.running.values()
@@ -291,7 +418,13 @@ class InferenceEngine(object):
             self._complete(req, done)
 
     def _complete(self, req, done):
-        self._scheduler.complete(req.slot)
+        slot = req.slot
+        self._scheduler.complete(slot)
+        if self._pager is not None:
+            # The host row points at trash now; the device row is stale
+            # until the next step's rebind, which precedes any write.
+            self._pager.free_slot(slot)
+            self._pager.release_reservation(req.rid)
         self.counters["requests_completed"] += 1
         done.append(req)
 
@@ -315,7 +448,8 @@ class InferenceEngine(object):
 
     def metrics(self):
         """Serving counters since construction, with TTFT percentiles in
-        milliseconds (None before the first token)."""
+        milliseconds (None before the first token), the pool's layout and
+        bytes, and on a paged engine its page gauges."""
         c = dict(self.counters)
         wall = max(time.time() - self._t0, 1e-9)
         ttft = np.asarray(self._ttft) * 1e3
@@ -328,5 +462,16 @@ class InferenceEngine(object):
             queue_depth=len(self._scheduler.queue),
             max_active_frontier=(max_active_frontier(self._last_snap)
                                  if self._last_snap is not None else 0),
-            kv_pool_bytes=pool_nbytes(self._pool))
+            kv_pool_bytes=pool_nbytes(self._pool),
+            kv_hbm_bytes=pool_nbytes(self._pool),
+            paged_kv=self._pager is not None,
+            int8_kv=self._hier is not None and self._hier.spec.int8)
+        if self._hier is not None:
+            c.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),
+                     kv_bytes_per_slot_flat=self._hier.flat_bytes_per_slot())
+        if self._pager is not None:
+            pg = self._pager
+            c.update(kv_page_len=pg.page_len, kv_pages_total=pg.total_pages,
+                     kv_pages_in_use=pg.pages_in_use(),
+                     kv_pages_free=pg.pages_free())
         return c

@@ -102,13 +102,20 @@ class Scheduler(object):
     def free_slot_ids(self):
         return [s for s in range(self.num_slots) if s not in self.running]
 
-    def admissions(self):
+    def admissions(self, gate=None):
         """FIFO: pop (request, slot) pairs for every free slot while the
         queue lasts, moving each request into ``prefilling``. Called only
-        at step boundaries."""
+        at step boundaries.
+
+        ``gate``: optional callable(Request) -> bool consulted on the queue
+        HEAD before it pops (the paged engine's page reservation). A refused
+        head ENDS the round (strict FIFO: younger requests must not jump a
+        head that is waiting for pages to free)."""
         pairs = []
         for slot in self.free_slot_ids():
             if not self.queue:
+                break
+            if gate is not None and not gate(self.queue[0]):
                 break
             req = self.queue.popleft()
             req.slot = slot

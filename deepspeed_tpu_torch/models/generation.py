@@ -7,26 +7,37 @@ and the serving engine's prefill lane (``append_forward``) and decode lane
 outputs token-identical.
 
 The cache is a dict: ``k``/``v`` planes ``[layers, B, heads, T, head_dim]``
-and a per-row frontier ``pos`` [B] int32. Contracts kept from the JAX
-package:
+and a per-row frontier ``pos`` [B] int32. Two variants, dispatched on the
+cache's keys as the JAX package does (``inference/kv_pool.py``):
+
+- int8: ``k``/``v`` hold int8 codes and ``k_scale``/``v_scale`` [layers,
+  .., T] fp32 scales; the frontier write quantizes (``quantize_kv``) and
+  writes codes and scales;
+- paged: ``k``/``v`` (and the scales) are page arenas ``[layers, P, heads,
+  page_len, ...]`` and ``block_tbl`` [B, n_lp] int32 names each row's
+  pages; the frontier write scatters at (page, offset) through the table.
+
+Contracts kept from the JAX package:
 
 - ``pos`` is the PRE-write frontier: the k/v of positions
   ``pos .. pos+S-1`` are written into the planes BEFORE attention, and key
   ``t`` is visible to query row ``i`` iff ``t <= pos[b] + i``;
 - the frontier write is one indexed assignment on the device, with no host
-  sync, and it never clamps: an index past the plane raises (the pool's
+  sync, and it never clamps: an index past the plane (or, paged, past the
+  block table, where the JAX package clamps the page index) raises, as an
+  IndexError on the CPU and a device-side assert on the card (the pool's
   ``prefill_chunk`` slack keeps every admissible write in bounds);
-- attention is ``flash_decode_attention``: the hand-written kernel on a
-  CUDA tensor, its plain version on a CPU tensor;
+- attention is one of the four flash-decode kernels, by layout (K3 dense,
+  K4 int8, K5 paged, K6 paged int8): the hand-written kernel on a CUDA
+  tensor, its plain version on a CPU tensor;
 - GELU is tanh-approximate; the LM head is an fp32 product against
   ``wte``.
 
 In torch the planes are updated IN PLACE (JAX threads a new array through);
 the returned cache holds the same plane tensors and an advanced ``pos``.
 
-The int8, shared-prefix and paged cache layouts, and speculation
-(``verify_forward``, ``ngram_draft``, ``accept_counts``), wait for later
-slices.
+The shared-prefix cache layout and speculation (``verify_forward``,
+``ngram_draft``, ``accept_counts``) wait for later slices.
 """
 
 import collections
@@ -41,9 +52,13 @@ from deepspeed_tpu_torch.ops.sampling import sample_rows
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
 
 # Shape/dtype view of a GPT2Config: what the cache and the pool are sized
-# from (and what an adapter's ``cache_spec`` returns).
+# from (and what an adapter's ``cache_spec`` returns). ``kv_page_len`` > 0
+# names the page length of a paged pool (the adapter stamps it from the
+# engine's config); 0 is the dense pool.
 _GenCfg = collections.namedtuple(
-    "_GenCfg", "n_layer n_head n_embd n_positions dtype layer_norm_epsilon")
+    "_GenCfg",
+    "n_layer n_head n_embd n_positions dtype layer_norm_epsilon kv_page_len",
+    defaults=(0,))
 
 
 def as_gencfg(cfg):
@@ -99,12 +114,13 @@ def _forward(model, ids, cache, last_only=False):
     """ids [B, S], row b starting at ``cache['pos'][b]``; returns (fp32
     logits [B, S, V], cache with the planes written and ``pos + S``).
     ``last_only`` evaluates the LM head on the final position only."""
-    extra = set(cache) - {"k", "v", "pos"}
-    if extra or cache["k"].dtype == torch.int8:
+    extra = set(cache) - {"k", "v", "pos", "k_scale", "v_scale", "block_tbl"}
+    if extra:
         raise NotImplementedError(
-            "only the dense fp cache is ported; int8 (kernel K4), prefix and "
-            "paged (kernel K5) layouts come with later slices (cache keys "
-            "{}, k dtype {})".format(sorted(cache), cache["k"].dtype))
+            "the shared-prefix cache layout comes with a later slice (cache "
+            "keys {})".format(sorted(extra)))
+    int8 = cache["k"].dtype == torch.int8
+    paged = "block_tbl" in cache
     cfg = model.config
     B, S = ids.shape
     nh, hd = cfg.n_head, cfg.n_embd // cfg.n_head
@@ -118,18 +134,49 @@ def _forward(model, ids, cache, last_only=False):
     pe = model.wpe[q_pos.clamp(max=cfg.n_positions - 1)]
     x = model.wte[ids.to(torch.int64)].to(cfg.dtype) + pe.to(cfg.dtype)
     rows = torch.arange(B, device=dev)[:, None]
+    if paged:
+        # Position p of row b lives at (page tbl[b, p // page_len], offset
+        # p % page_len). No clamp on the page index: a position past the
+        # table raises, as one past a dense plane does.
+        tbl = cache["block_tbl"]
+        page_len = cache["k"].shape[3]
+        at = (tbl[rows, q_pos // page_len], slice(None), q_pos % page_len)
+    else:
+        at = (rows, slice(None), q_pos)
     scale = 1.0 / float(hd) ** 0.5
     k_cache, v_cache = cache["k"], cache["v"]
+    ks_cache, vs_cache = cache.get("k_scale"), cache.get("v_scale")
     for i, blk in enumerate(model.blocks()):
         h = layer_norm(x, blk.ln_1, cfg.layer_norm_epsilon)
         q, k, v = dense(h, blk.attn.c_attn).split(cfg.n_embd, dim=-1)
         q = q.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
-        # Frontier write: plane[b, :, pos[b] + s, :] = new[b, s]; an index
-        # past the plane raises instead of clamping.
-        k_cache[i][rows, :, q_pos, :] = k.reshape(B, S, nh, hd)
-        v_cache[i][rows, :, q_pos, :] = v.reshape(B, S, nh, hd)
-        y = decode_attention.flash_decode_attention(
-            q, k_cache[i], v_cache[i], pos, scale=scale)
+        k, v = k.reshape(B, S, nh, hd), v.reshape(B, S, nh, hd)
+        # Frontier write: plane[b, :, pos[b] + s, :] = new[b, s] (through
+        # the table when paged). Frozen rows of freed slots may write the
+        # same trash-page entry; nothing reads it unmasked.
+        if int8:
+            # One quantization of k and v together (per-row scales, so the
+            # same codes as two): half the eager launches.
+            codes, scales = decode_attention.quantize_kv(torch.stack((k, v)))
+            k_cache[i][at], v_cache[i][at] = codes[0], codes[1]
+            ks_cache[i][at], vs_cache[i][at] = scales[0], scales[1]
+        else:
+            k_cache[i][at] = k
+            v_cache[i][at] = v
+        if paged and int8:
+            y = decode_attention.flash_decode_attention_paged_q8(
+                q, k_cache[i], v_cache[i], ks_cache[i], vs_cache[i], tbl,
+                pos, scale=scale)
+        elif paged:
+            y = decode_attention.flash_decode_attention_paged(
+                q, k_cache[i], v_cache[i], tbl, pos, scale=scale)
+        elif int8:
+            y = decode_attention.flash_decode_attention_q8(
+                q, k_cache[i], v_cache[i], ks_cache[i], vs_cache[i], pos,
+                scale=scale)
+        else:
+            y = decode_attention.flash_decode_attention(
+                q, k_cache[i], v_cache[i], pos, scale=scale)
         y = y.transpose(1, 2).reshape(B, S, cfg.n_embd)
         x = x + dense(y, blk.attn.c_proj)
         h = layer_norm(x, blk.ln_2, cfg.layer_norm_epsilon)

@@ -1,42 +1,110 @@
-"""Flash-decode: length-aware fused cache attention for the slotted KV pool.
+"""Flash-decode: length-aware fused cache attention for the slotted KV pool,
+over dense or paged planes of fp or int8 keys.
 
 Counterpart of ``deepspeed_tpu/ops/transformer/kernels/decode_attention.py``.
 The query is ``S`` rows per slot (1 in decode, a prompt slice in the prefill
-lane), the keys are a pre-allocated ``[B, H, T, D]`` cache plane, and each
-row has its own frontier ``pos[b]``: its keys occupy ``0 .. pos[b]+S-1`` and
-everything past that is stale garbage a later write covers.
+lane), the keys are a pre-allocated cache, and each row has its own frontier
+``pos[b]``: its keys occupy ``0 .. pos[b]+S-1`` and everything past that is
+stale garbage a later write covers. The cache comes in four layouts, one
+kernel each (``csrc/decode_attention.cu``, one templated body):
 
-- ``decode_attention_reference``: the plain PyTorch version (einsum scores
-  over the whole plane, frontier mask, fp32 softmax). The CPU path and the
-  yardstick the kernel is held against.
-- ``flash_decode_attention``: the wrapper. On a CPU tensor it computes the
-  plain version; on a CUDA tensor it launches the hand-written kernel in
-  ``csrc/decode_attention.cu`` or raises. It never falls back.
+=====  =======================  ==========================================
+K3     dense fp plane           k, v ``[B, H, T, D]`` in q's dtype
+K4     dense int8 plane         k, v ``[B, H, T, D]`` int8 codes, k_scale,
+                                v_scale ``[B, H, T]`` fp32
+K5     paged fp arena           k, v ``[P, H, page_len, D]``, block_tbl
+                                ``[B, n_lp]`` int32
+K6     paged int8 arena         K5's arena of int8 codes, scales
+                                ``[P, H, page_len]`` fp32
+=====  =======================  ==========================================
 
-The kernel takes any plane length ``T`` (it guards the ragged last tile), so
-the port does not pad planes to the TPU kernel's 128-position quantum.
+In a paged layout, logical page ``j`` of row ``b`` lives in arena page
+``block_tbl[b, j]``; the row's logical plane is ``n_lp * page_len`` keys
+long. Page 0 is the trash page that freed rows and unmapped logical pages
+point at (``inference/paging.py``).
+
+- ``quantize_kv`` / ``dequantize_kv``: the int8 storage format, symmetric
+  per-(head, position) scales, bit for bit the JAX package's.
+- ``decode_attention_reference`` and its ``_q8``, ``_paged`` and
+  ``_paged_q8`` forms: the plain PyTorch versions. The int8 forms
+  dequantize to q's dtype, the paged forms gather each row's pages into its
+  logical plane, then all run the dense reference. They are the CPU path
+  and the yardsticks the kernels are held against.
+- ``flash_decode_attention`` and its ``_q8``, ``_paged`` and ``_paged_q8``
+  forms: the wrappers. On CPU tensors each computes its plain version; on
+  CUDA tensors it launches its kernel or raises. None falls back.
+
+The kernels take any plane length and any ``page_len >= 1`` (they guard
+the ragged last tile and address keys one by one), so the port neither pads
+planes to the TPU kernels' 128-position quantum nor falls back to a gather
+for pages of another size. The int8 kernels keep k in fp32 for the scores,
+as the TPU kernel does, where the plain version dequantizes it to q's dtype
+first: in bf16 the two differ by k's rounding.
 """
 
 import ctypes
 
 import torch
 
-# Query rows and head width the CUDA kernel takes (csrc/decode_attention.cu).
+# Query rows and head width the CUDA kernels take (csrc/decode_attention.cu).
 MAX_QUERY_ROWS = 64
 HEAD_DIM = 64
+# Block-table entries a CTA stages in shared memory (kMaxTableEntries).
+MAX_TABLE_ENTRIES = 49152
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the last reset; chip_smoke.py reads it to show the
-# serving path went through the kernel.
-launches = 0
+# Scale floor: all-zero rows (unwritten cache positions) quantize to zero
+# codes with this scale instead of dividing by zero.
+_Q8_EPS = 1e-8
 
-_fn = None
+# Kernel launches since the last reset, per kernel (K3 "decode", K4 "q8",
+# K5 "paged", K6 "paged_q8"); chip_smoke.py reads them to show the serving
+# path went through the kernel.
+launches = {"decode": 0, "q8": 0, "paged": 0, "paged_q8": 0}
+
+# C entry point and the ctypes argument types after the pointers, per kernel.
+_ENTRIES = {
+    "decode": ("ds_decode_attention", 5, 6),
+    "q8": ("ds_decode_attention_q8", 7, 6),
+    "paged": ("ds_decode_attention_paged", 6, 7),
+    "paged_q8": ("ds_decode_attention_paged_q8", 8, 7),
+}
+_fns = {}
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    for key in launches:
+        launches[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# int8 storage
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x):
+    """Quantize ``[..., D]`` k/v rows to int8 with per-row symmetric scales.
+    Returns ``(codes int8 [..., D], scale fp32 [...])``: the scale is
+    ``max(absmax / 127, 1e-8)``, the codes ``x / scale`` rounded half to
+    even and clipped to +-127, so ``codes * scale`` reconstructs x to within
+    scale / 2 per element."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / 127.0, min=_Q8_EPS)
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0)
+    return codes.to(torch.int8), scale
+
+
+def dequantize_kv(codes, scale, dtype=torch.float32):
+    """Inverse of ``quantize_kv``: ``codes [..., D]`` int8 with per-row
+    ``scale [...]`` back to ``dtype`` (the product in fp32, then cast)."""
+    return (codes.float() * scale[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
 
 
 def decode_attention_reference(q, k, v, pos, scale=None):
@@ -59,88 +127,237 @@ def decode_attention_reference(q, k, v, pos, scale=None):
     return torch.matmul(att, v)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def decode_attention_q8_reference(q, k, v, k_scale, v_scale, pos,
+                                  scale=None):
+    """int8 plane: dequantize k and v to q's dtype, then the dense
+    reference. k, v: [B, H, T, D] int8 codes; k_scale, v_scale: [B, H, T]
+    fp32."""
+    kf = dequantize_kv(k, k_scale, q.dtype)
+    vf = dequantize_kv(v, v_scale, q.dtype)
+    return decode_attention_reference(q, kf, vf, pos, scale=scale)
+
+
+def gather_pages(arena, block_tbl):
+    """Row-major logical planes ``[B, H, n_lp * page_len, ...]`` of a page
+    arena ``[P, H, page_len, ...]`` through ``block_tbl`` [B, n_lp],
+    contiguous as a dense plane is (the products that follow may round
+    differently on other strides)."""
+    B, n_lp = block_tbl.shape
+    g = arena[block_tbl.long()]                      # [B, n_lp, H, p, ...]
+    g = g.movedim(2, 1).contiguous()                 # [B, H, n_lp, p, ...]
+    return g.reshape((B, arena.shape[1], n_lp * arena.shape[2])
+                     + tuple(arena.shape[3:]))
+
+
+def decode_attention_paged_reference(q, k, v, block_tbl, pos, scale=None):
+    """Paged arena: gather each row's pages into its logical plane, then the
+    dense reference. k, v: [P, H, page_len, D]; block_tbl: [B, n_lp]."""
+    return decode_attention_reference(q, gather_pages(k, block_tbl),
+                                      gather_pages(v, block_tbl), pos,
+                                      scale=scale)
+
+
+def decode_attention_paged_q8_reference(q, k, v, k_scale, v_scale,
+                                        block_tbl, pos, scale=None):
+    """Paged int8 arena: gather codes and scales through the table,
+    dequantize, then the dense reference. k_scale, v_scale: [P, H,
+    page_len]."""
+    return decode_attention_q8_reference(
+        q, gather_pages(k, block_tbl), gather_pages(v, block_tbl),
+        gather_pages(k_scale, block_tbl), gather_pages(v_scale, block_tbl),
+        pos, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _kernel(kind):
+    fn = _fns.get(kind)
+    if fn is None:
         from deepspeed_tpu_torch.op_builder import load
-        fn = load("decode_attention").ds_decode_attention
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+        name, n_ptr, n_int = _ENTRIES[kind]
+        fn = getattr(load("decode_attention"), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
             [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[kind] = fn
+    return fn
 
 
-def _check(q, k, v, pos):
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or pos.dim() != 1:
-        raise ValueError("flash_decode_attention: q, k, v must be 4-D and pos "
-                         "1-D; got {}, {}, {}, {}".format(
-                             tuple(q.shape), tuple(k.shape), tuple(v.shape),
-                             tuple(pos.shape)))
+def _check_shapes(name, q, k, v, pos, scales=None, block_tbl=None):
+    """Shapes and dtypes every layout must agree on, for CPU and CUDA
+    tensors alike."""
+    dims = [(q, 4, "q"), (k, 4, "k"), (v, 4, "v"), (pos, 1, "pos")]
+    if scales is not None:
+        dims += [(scales[0], 3, "k_scale"), (scales[1], 3, "v_scale")]
+    if block_tbl is not None:
+        dims.append((block_tbl, 2, "block_tbl"))
+    for t, rank, what in dims:
+        if t.dim() != rank:
+            raise ValueError("{}: {} must be {}-D, got shape {}".format(
+                name, what, rank, tuple(t.shape)))
     B, H, S, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[1] != H or \
+    rows = block_tbl.shape[0] if block_tbl is not None else k.shape[0]
+    if k.shape != v.shape or rows != B or k.shape[1] != H or \
             k.shape[3] != D or pos.shape[0] != B:
-        raise ValueError("flash_decode_attention: shapes disagree: q {}, "
-                         "k {}, v {}, pos {}".format(tuple(q.shape), tuple(k.shape),
-                                               tuple(v.shape),
-                                               tuple(pos.shape)))
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_decode_attention: q, k, v dtypes differ: "
-                        "{}, {}, {}".format(q.dtype, k.dtype, v.dtype))
+        raise ValueError("{}: shapes disagree: q {}, k {}, v {}, pos {}{}"
+                         .format(name, tuple(q.shape), tuple(k.shape),
+                                 tuple(v.shape), tuple(pos.shape),
+                                 "" if block_tbl is None else
+                                 ", block_tbl {}".format(
+                                     tuple(block_tbl.shape))))
+    if scales is not None:
+        for what, s in zip(("k_scale", "v_scale"), scales):
+            if s.shape != k.shape[:3]:
+                raise ValueError("{}: {} must be {}, got {}".format(
+                    name, what, tuple(k.shape[:3]), tuple(s.shape)))
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError("{}: k and v must be int8 codes, got {}, {}"
+                            .format(name, k.dtype, v.dtype))
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("{}: q, k, v dtypes differ: {}, {}, {}".format(
+            name, q.dtype, k.dtype, v.dtype))
+
+
+def _check_cuda(name, q, k, v, pos, scales=(), block_tbl=None):
+    """What the kernels take, on CUDA tensors: all on q's device; q float32
+    or bfloat16, D == 64, S <= 64; int8 codes with float32 scales; int32 pos
+    and block table; contiguous; the operands read in 16-byte vectors (q, k,
+    v) 16-byte aligned, the ones read element by element (scales, pos,
+    table) aligned to their element."""
+    if q.device.type != "cuda":
+        raise ValueError("{}: unsupported device {}".format(name, q.device))
+    named = [("q", q), ("k", k), ("v", v), ("pos", pos)]
+    named += list(zip(("k_scale", "v_scale"), scales))
+    if block_tbl is not None:
+        named.append(("block_tbl", block_tbl))
+    for what, t in named:
+        if t.device != q.device:
+            raise ValueError("{}: {} on {}, q on {}".format(
+                name, what, t.device, q.device))
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError("{}: the kernel takes float32 or bfloat16 queries, "
+                        "got {}".format(name, q.dtype))
+    B, H, S, D = q.shape
+    if D != HEAD_DIM:
+        raise ValueError("{}: the kernel takes head_dim {}, got {}".format(
+            name, HEAD_DIM, D))
+    if S > MAX_QUERY_ROWS:
+        raise ValueError("{}: the kernel takes at most {} query rows, got {}"
+                         .format(name, MAX_QUERY_ROWS, S))
+    for what, t in named:
+        if what in ("pos", "block_tbl") and t.dtype != torch.int32:
+            raise TypeError("{}: {} must be int32, got {}".format(
+                name, what, t.dtype))
+        if what.endswith("scale") and t.dtype != torch.float32:
+            raise TypeError("{}: {} must be float32, got {}".format(
+                name, what, t.dtype))
+        if not t.is_contiguous():
+            raise ValueError("{}: {} must be contiguous".format(name, what))
+        align = 16 if what in ("q", "k", "v") else t.element_size()
+        if t.data_ptr() % align:
+            raise ValueError("{}: {} must be {}-byte aligned".format(
+                name, what, align))
+    if block_tbl is not None and block_tbl.shape[1] > MAX_TABLE_ENTRIES:
+        raise ValueError("{}: the kernel takes at most {} logical pages per "
+                         "row, got {}".format(name, MAX_TABLE_ENTRIES,
+                                              block_tbl.shape[1]))
+
+
+def _launch(kind, q, ptrs, ints, scale):
+    """Launch ``kind``'s kernel into a new output on the current stream;
+    raises if the C entry refuses or the launch fails, and counts it."""
+    out = torch.empty_like(q)
+    B, H, S, D = q.shape
+    err = _kernel(kind)(
+        q.data_ptr(), *[t.data_ptr() for t in ptrs], out.data_ptr(), B, H, S,
+        *ints, D, _DTYPE_CODE[q.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("decode_attention {} kernel launch failed: CUDA "
+                           "error {}".format(kind, err))
+    launches[kind] += 1
+    return out
+
+
+def _on_cpu(name, q, *tensors):
+    if q.device.type != "cpu":
+        return False
+    for t in tensors:
+        if t.device.type != "cpu":
+            raise ValueError("{}: q on CPU, an operand on {}".format(
+                name, t.device))
+    return True
 
 
 def flash_decode_attention(q, k, v, pos, scale=None):
-    """Length-aware fused cache attention over a dense KV plane.
+    """Kernel K3: length-aware fused cache attention over a dense plane.
 
     Same arguments and result as ``decode_attention_reference``. On CPU
     tensors it IS the reference. On CUDA tensors it launches the kernel
     (one CTA per (b, h), keys read only up to each row's frontier) on the
-    current stream, and raises for what the kernel does not take: dtype
-    other than float32/bfloat16, D != 64, S > 64, non-contiguous tensors,
-    pos not int32, or tensors on different devices."""
-    _check(q, k, v, pos)
-    B, H, S, D = q.shape
+    current stream, and raises for what the kernel does not take (see
+    ``_check_cuda``)."""
+    name = "flash_decode_attention"
+    _check_shapes(name, q, k, v, pos)
     if scale is None:
-        scale = 1.0 / D ** 0.5
-    if q.device.type == "cpu":
-        if k.device.type != "cpu" or v.device.type != "cpu":
-            raise ValueError("flash_decode_attention: q on CPU, k/v on "
-                             "{}".format(k.device))
+        scale = 1.0 / q.shape[3] ** 0.5
+    if _on_cpu(name, q, k, v):
         return decode_attention_reference(q, k, v, pos, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError("flash_decode_attention: unsupported device "
-                         "{}".format(q.device))
-    for name, t in (("k", k), ("v", v), ("pos", pos)):
-        if t.device != q.device:
-            raise ValueError("flash_decode_attention: {} on {}, q on "
-                             "{}".format(name, t.device, q.device))
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError("flash_decode_attention: the kernel takes float32 or "
-                        "bfloat16, got {}".format(q.dtype))
-    if D != HEAD_DIM:
-        raise ValueError("flash_decode_attention: the kernel takes head_dim "
-                         "{}, got {}".format(HEAD_DIM, D))
-    if S > MAX_QUERY_ROWS:
-        raise ValueError("flash_decode_attention: the kernel takes at most {} "
-                         "query rows, got {}".format(MAX_QUERY_ROWS, S))
-    if pos.dtype != torch.int32:
-        raise TypeError("flash_decode_attention: pos must be int32, got "
-                        "{}".format(pos.dtype))
-    for name, t in (("q", q), ("k", k), ("v", v), ("pos", pos)):
-        if not t.is_contiguous():
-            raise ValueError("flash_decode_attention: {} must be "
-                             "contiguous".format(name))
-        if t.data_ptr() % 16:
-            raise ValueError("flash_decode_attention: {} must be 16-byte "
-                             "aligned".format(name))
-    out = torch.empty_like(q)
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                    out.data_ptr(), B, H, S, k.shape[2], D,
-                    _DTYPE_CODE[q.dtype], float(scale),
-                    torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("decode_attention kernel launch failed: CUDA error "
-                           "{}".format(err))
-    global launches
-    launches += 1
-    return out
+    _check_cuda(name, q, k, v, pos)
+    return _launch("decode", q, (k, v, pos), (k.shape[2],), scale)
+
+
+def flash_decode_attention_q8(q, k, v, k_scale, v_scale, pos, scale=None):
+    """Kernel K4: ``flash_decode_attention`` over int8 codes ``[B, H, T,
+    D]`` with fp32 per-(head, position) scales ``[B, H, T]``, dequantized
+    while each tile is staged. On CPU tensors it is
+    ``decode_attention_q8_reference``."""
+    name = "flash_decode_attention_q8"
+    _check_shapes(name, q, k, v, pos, scales=(k_scale, v_scale))
+    if scale is None:
+        scale = 1.0 / q.shape[3] ** 0.5
+    if _on_cpu(name, q, k, v, k_scale, v_scale):
+        return decode_attention_q8_reference(q, k, v, k_scale, v_scale, pos,
+                                             scale=scale)
+    _check_cuda(name, q, k, v, pos, scales=(k_scale, v_scale))
+    return _launch("q8", q, (k, v, k_scale, v_scale, pos), (k.shape[2],),
+                   scale)
+
+
+def flash_decode_attention_paged(q, k, v, block_tbl, pos, scale=None):
+    """Kernel K5: block-table flash decode over a page arena ``[P, H,
+    page_len, D]``; row b's logical page j is arena page
+    ``block_tbl[b, j]``. Any ``page_len >= 1``. On CPU tensors it is
+    ``decode_attention_paged_reference``."""
+    name = "flash_decode_attention_paged"
+    _check_shapes(name, q, k, v, pos, block_tbl=block_tbl)
+    if scale is None:
+        scale = 1.0 / q.shape[3] ** 0.5
+    if _on_cpu(name, q, k, v, block_tbl):
+        return decode_attention_paged_reference(q, k, v, block_tbl, pos,
+                                                scale=scale)
+    _check_cuda(name, q, k, v, pos, block_tbl=block_tbl)
+    return _launch("paged", q, (k, v, block_tbl, pos),
+                   (block_tbl.shape[1], k.shape[2]), scale)
+
+
+def flash_decode_attention_paged_q8(q, k, v, k_scale, v_scale, block_tbl,
+                                    pos, scale=None):
+    """Kernel K6: ``flash_decode_attention_paged`` over int8 code arenas
+    with fp32 scale arenas ``[P, H, page_len]``, dequantized as K4 does. On
+    CPU tensors it is ``decode_attention_paged_q8_reference``."""
+    name = "flash_decode_attention_paged_q8"
+    _check_shapes(name, q, k, v, pos, scales=(k_scale, v_scale),
+                  block_tbl=block_tbl)
+    if scale is None:
+        scale = 1.0 / q.shape[3] ** 0.5
+    if _on_cpu(name, q, k, v, k_scale, v_scale, block_tbl):
+        return decode_attention_paged_q8_reference(
+            q, k, v, k_scale, v_scale, block_tbl, pos, scale=scale)
+    _check_cuda(name, q, k, v, pos, scales=(k_scale, v_scale),
+                block_tbl=block_tbl)
+    return _launch("paged_q8", q, (k, v, k_scale, v_scale, block_tbl, pos),
+                   (block_tbl.shape[1], k.shape[2]), scale)

@@ -1,7 +1,8 @@
-"""Kernels on the card: K3 (flash decode), K1/K2a/K2b (flash attention
-for training) and the fused layer's row kernels K8 (LayerNorm), K10a/K10b
-(dropout and its replay) and K11 (bias + GELU) against their plain PyTorch
-versions, and the wrappers' refusals on CUDA tensors.
+"""Kernels on the card: K3-K6 (flash decode over dense and paged, fp and
+int8 caches), K1/K2a/K2b (flash attention for training) and the fused
+layer's row kernels K8 (LayerNorm), K10a/K10b (dropout and its replay) and
+K11 (bias + GELU) against their plain PyTorch versions, and the wrappers'
+refusals on CUDA tensors.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -48,11 +49,11 @@ def _inputs(cuda, B, S, T, dtype, pos):
 @pytest.mark.parametrize("S,pos", [(1, [0, 31, 32, 199]), (32, [0, 100])])
 def test_kernel_matches_plain(cuda, dtype, tol, S, pos):
     q, k, v, p = _inputs(cuda, len(pos), S, 232, dtype, pos)
-    before = da.launches
+    before = da.launches["decode"]
     out = da.flash_decode_attention(q, k, v, p)
     ref = da.decode_attention_reference(q, k, v, p)
     torch.cuda.synchronize()
-    assert da.launches == before + 1
+    assert da.launches["decode"] == before + 1
     atol, rtol = tol
     diff = (out.float() - ref.float()).abs()
     limit = atol + rtol * (ref.float().abs() + _spread(q, k, v, p))
@@ -117,6 +118,135 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(cuda, bad):
         k = k.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         da.flash_decode_attention(q, k, v, p)
+
+
+# K4, K5, K6: each against its plain version with K3's limit, plus for the
+# int8 kernels chip_smoke.py's score shift (see its TOL: the kernels keep k
+# in fp32 where the plain version rounds it to q's dtype, which moves each
+# score by a known d_t); K5 equals K3 on the gathered plane and K6 equals K4
+# bit for bit.
+
+
+def _paged_operands(cuda, planes, pos, S, page_len, g):
+    """Scatter logical planes [B, H, T, ...] into an arena through a
+    shuffled table; logical pages past each row's frontier page point at
+    the trash page 0, which (with two pages no row maps) holds large finite
+    garbage."""
+    B, T = pos.shape[0], planes[0].shape[2]
+    n_lp = T // page_len
+    n_pages = B * n_lp + 3
+    tbl = torch.randperm(n_pages - 1, device=cuda, generator=g)[
+        :B * n_lp].reshape(B, n_lp) + 1
+    mapped = torch.arange(n_lp, device=cuda)[None] <= \
+        ((pos.long() + S - 1) // page_len)[:, None]
+    tbl = torch.where(mapped, tbl, 0).to(torch.int32).contiguous()
+    arenas = []
+    for plane in planes:
+        tail = tuple(plane.shape[3:])
+        shape = (n_pages, plane.shape[1], page_len) + tail
+        if plane.dtype == torch.int8:
+            arena = torch.randint(-127, 128, shape, device=cuda, generator=g,
+                                  dtype=torch.int8)
+        elif not tail:
+            arena = 1e3 * (1 + torch.rand(shape, device=cuda, generator=g))
+        else:
+            arena = torch.full(shape, 3e4, device=cuda).to(plane.dtype)
+        rows = plane.reshape((B, plane.shape[1], n_lp, page_len) + tail)
+        arena[tbl[mapped].long()] = rows.movedim(2, 1)[mapped]
+        arenas.append(arena.contiguous())
+    return arenas, tbl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,pos", [(1, [0, 6, 7, 40, 111]), (9, [0, 60])],
+                         ids=["decode", "rows9"])
+@pytest.mark.parametrize("kind,page_len", [("q8", 0), ("paged", 7),
+                                           ("paged", 128), ("paged_q8", 7),
+                                           ("paged_q8", 128)])
+def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
+                                            dtype):
+    T = 128 if page_len == 128 else 119   # 17 pages of 7; one of 128
+    q, k, v, p = _inputs(cuda, len(pos), S, T, dtype, pos)
+    stale = (torch.arange(T, device=cuda)[None] >
+             p[:, None].long() + S - 1)[:, None, :, None]
+    k = torch.where(stale, torch.full_like(k, 3e4), k)
+    v = torch.where(stale, torch.full_like(v, -3e4), v)
+    q8 = kind != "paged"
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    if q8:
+        (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
+        planes = (kc, vc, ks, vs)
+    else:
+        planes = (k, v)
+    if kind == "q8":
+        ops, dense = planes, planes
+    else:
+        arenas, tbl = _paged_operands(cuda, planes, p, S, page_len, g)
+        ops = tuple(arenas) + (tbl,)
+        dense = [da.gather_pages(a, tbl) for a in arenas]
+    kernel, plain, twin = {
+        "q8": (da.flash_decode_attention_q8,
+               da.decode_attention_q8_reference, None),
+        "paged": (da.flash_decode_attention_paged,
+                  da.decode_attention_paged_reference,
+                  da.flash_decode_attention),
+        "paged_q8": (da.flash_decode_attention_paged_q8,
+                     da.decode_attention_paged_q8_reference,
+                     da.flash_decode_attention_q8)}[kind]
+    before = da.launches[kind]
+    out = kernel(q, *ops, p)
+    ref = plain(q, *ops, p)
+    torch.cuda.synchronize()
+    assert da.launches[kind] == before + 1
+    if twin is not None:
+        assert torch.equal(out, twin(q, *dense, p))
+    kf, vf = (da.dequantize_kv(dense[0], dense[2]),
+              da.dequantize_kv(dense[1], dense[3])) if q8 else dense
+    atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-3, 2.0 ** -7)
+    limit = atol + rtol * (ref.float().abs() + _spread(q, kf, vf, p))
+    if q8:
+        qp = p.long()[:, None] + torch.arange(S, device=cuda)
+        mask = torch.arange(T, device=cuda)[None, None] <= qp[:, :, None]
+        sc = torch.matmul(q.float(), kf.transpose(-1, -2)) / 8.0
+        pr = torch.softmax(sc.masked_fill(~mask[:, None], float("-inf")), -1)
+        d = torch.matmul(q.float(), (kf - kf.to(dtype).float())
+                         .transpose(-1, -2)) / 8.0
+        vq, out = vf.to(dtype).float(), ref.float()
+        pd = pr * d
+        d_max = (d.abs() * (pr > 0)).amax(-1, keepdim=True)
+        limit = limit + (torch.matmul(pd, vq)
+                         - out * pd.sum(-1, keepdim=True)).abs() \
+            + d_max ** 2 * (torch.matmul(pr, vq.abs()) + out.abs())
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= limit).all())
+
+
+@pytest.mark.parametrize("bad", ["codes_fp", "scale_fp16", "tbl_int64",
+                                 "tbl_strided", "tbl_on_cpu"])
+def test_int8_and_paged_wrappers_refuse_what_the_kernels_cannot_take(cuda,
+                                                                      bad):
+    q, k, v, p = _inputs(cuda, 2, 1, 64, torch.float32, [0, 5])
+    (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
+    tbl = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    arena = torch.zeros(5, 4, 32, 64, device=cuda)
+    if bad == "codes_fp":
+        call = (da.flash_decode_attention_q8, (q, k, v, ks, vs, p))
+    elif bad == "scale_fp16":
+        call = (da.flash_decode_attention_q8, (q, kc, vc, ks.half(), vs, p))
+    else:
+        if bad == "tbl_int64":
+            tbl = tbl.long()
+        elif bad == "tbl_strided":
+            tbl = tbl.t().contiguous().t()
+        else:
+            tbl = tbl.cpu()
+        call = (da.flash_decode_attention_paged, (q, arena, arena, tbl, p))
+    before = dict(da.launches)
+    with pytest.raises((TypeError, ValueError)):
+        call[0](*call[1])
+    assert da.launches == before
 
 
 # K1/K2 per-element limits, as in chip_smoke.py: |out - ref| <= rtol * |ref|

@@ -107,12 +107,15 @@ def test_frontier_write_past_the_plane_raises():
 
 @pytest.mark.parametrize("layout", ["int8", "paged", "prefix"])
 def test_unported_cache_layouts_raise(layout):
+    """The shared-prefix layout is not ported: a ``pk`` plane raises, on a
+    dense fp cache and over the int8 and paged layouts alike."""
     _, _, port = models()
     cache = tgen.init_cache(tgen.as_gencfg(port.config), 1, 16,
                             device="cpu")
     if layout == "int8":
         cache["k"] = cache["k"].to(torch.int8)
-    else:
-        cache["block_tbl" if layout == "paged" else "pk"] = torch.zeros(1)
+    elif layout == "paged":
+        cache["block_tbl"] = torch.zeros(1, 1, dtype=torch.int32)
+    cache["pk"] = torch.zeros(1)
     with pytest.raises(NotImplementedError):
         tgen.decode_step(port, torch.zeros(1, dtype=torch.int64), cache)

@@ -8,7 +8,9 @@ package's, on the CPU.
   on the same weights;
 - a sampled request's stream depends only on its seed and positions, not
   on its slot or its neighbours; top_k=1 sampling is greedy;
-- every setting the port does not implement yet raises.
+- every setting the port does not implement yet raises (paged and int8 KV
+  are ported; the prefix and offload tiers and speculation are not, with
+  or without them).
 """
 
 import jax
@@ -149,12 +151,13 @@ def test_top_k_one_sampling_is_greedy():
 
 
 @pytest.mark.parametrize("setting", [
-    {"paged_kv": True}, {"int8_kv": True}, {"prefix_cache": True},
+    {"paged_kv": True, "prefix_cache": True},
+    {"int8_kv": True, "host_offload": True}, {"prefix_cache": True},
     {"host_offload": True}, {"spec_decode": True}, {"role": "prefill"},
     {"chunked_prefill": False}, {"fault_injection": True},
     {"use_flash_decode": False}, {"step_budget_s": 0.5},
     {"hbm_budget_bytes": 1 << 30}, {"telemetry": True, "trace_ring": 16},
-    {"prefill_buckets": [16, 64]}, {"kv_pages": 64}])
+    {"prefill_buckets": [16, 64]}, {"paged_kv": True, "spec_decode": True}])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         InferenceConfig.from_dict(setting)
