@@ -82,7 +82,29 @@ of which exits non-zero on failure:
    one step on the card (kernels) against the port on the CPU (plain
    versions, the same dropout masks): loss, every gradient and every
    updated parameter;
-12. the kernels line, then the result line.
+12. K7a/K7b vs plain: the block-sparse attention kernels (forward, fused
+   backward, split backward) against their plain versions
+   (``sparse_fwd_reference`` / ``sparse_bwd_reference``) on the card, each
+   element held to its own limit (see SPARSE_ACC): at the sparse BERT
+   path's shape (B=2, H=16, T=4096, D=64, bf16, the Fixed layout at block
+   64, bidirectional, every other row padded), the unidirectional Fixed
+   layout with the causal cut, fp32 at B=1 T=1024, blocks 16 and 32 on
+   random layouts with empty rows and columns (-1 LUT entries), the
+   key-padding mask and the bias in 'mul' mode, and fp16; times the
+   kernels, the plain versions and torch's scaled_dot_product_attention
+   with the layout expanded to a dense mask (a yardstick only) beside the
+   bound, at the path's shape;
+13. sparse BERT-large pretraining at full width: T=4096, batch 2, the Fixed
+   layout at block 64, bf16, seeded weights, through initialize and
+   forward / backward / step at dropout 0.1 (2 warm-up and 10 timed steps
+   with the fused backward, 2 with the split); the loss must be finite and
+   fall; the launch counts of K7a, K7b, K10a/K10b are reset just before
+   the counted steps and read just after (K1/K2, K8, K11 must be 0); then a
+   profiler window of 2 steps;
+14. sparse BERT consistency: fp32, full width, 2 layers, B=2, T=512, block
+   64, dropout 0.1: one step on the card (kernels) against the port on
+   the CPU (plain versions);
+15. the kernels line, then the result line.
 """
 
 import json
@@ -106,6 +128,10 @@ from deepspeed_tpu_torch.models import (  # noqa: E402
 from deepspeed_tpu_torch.models import generation  # noqa: E402
 from deepspeed_tpu_torch.op_builder import (  # noqa: E402
     build_all, build_log, sources)
+from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
+    FixedSparsityConfig)
+from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
+    kernels as sk)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     attention as at)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
@@ -187,7 +213,11 @@ TRAIN_WARM, TRAIN_TIMED, TRAIN_SPLIT = 2, 10, 2
 
 # Card-vs-CPU training step, fp32 on both sides: losses within 1e-5
 # relative; each gradient within GRAD_TOL of its tensor's max-abs (the
-# card's products and the kernels sum in another order than the CPU's).
+# card's products and the kernels sum in another order than the CPU's). A
+# tensor whose max-abs gradient is below GRAD_TOL of the model's largest is
+# zero in exact arithmetic and rounding noise on both sides (the plain BERT
+# layer's key bias: softmax ignores a shift of a row's scores): it is held
+# to GRAD_TOL of the largest gradient, and its update is all noise.
 # An updated parameter moves by lr * m / (sqrt(v) + eps), about lr * sign(g)
 # at step 1: where |g| is within summation noise of 0 its sign, and so the
 # update, may differ by up to 2 lr; elsewhere the update agrees to 1e-3 lr,
@@ -231,10 +261,32 @@ BERT_WARM, BERT_TIMED, BERT_DET = 2, 10, 2
 BERT_SITES = {"layer_norm_plain": (2, 0), "layer_norm_bias_residual": (0, 2),
               "dropout_fwd": (3, 0), "dropout_bwd": (3, 0), "bias_gelu": (1, 1),
               "flash_fwd": (1, 1), "flash_bwd_fused": (1, 1),
-              "flash_bwd_split": (0, 0)}
+              "flash_bwd_split": (0, 0), "sparse_fwd": (0, 0),
+              "sparse_bwd_fused": (0, 0), "sparse_bwd_split": (0, 0)}
 # ... and per step at dropout > 0, outside the layers: K10a/K10b for the
 # embeddings' dropout.
 BERT_STEP_SITES = {"dropout_fwd": 1, "dropout_bwd": 1}
+
+# The sparse BERT cell: the JAX package's sparse BERT measurement
+# (bench.py:_measure_bert(sparse=True), bench.py:848-857: BERT-large with
+# max_position_embeddings 4096, batch 2 x 4096, FixedSparsityConfig(
+# num_heads=16, block=64, attention="bidirectional"), bf16, AdamW 1e-4), at
+# the published dropout 0.1 (the JAX bench runs 0) so that K10a/K10b run,
+# with every other row padded after 1024-4095 tokens.
+SPARSE_BERT_CONFIG = {"train_batch_size": 2,
+                      "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+                      "bf16": {"enabled": True}}
+SPARSE_B, SPARSE_T, SPARSE_BLOCK = 2, 4096, 64
+SPARSE_WARM, SPARSE_TIMED, SPARSE_SPLIT = 2, 10, 2
+# K7a/K7b against their plain versions: FLASH_TOL's form, |out - ref| <=
+# rtol * |ref| + SPARSE_ACC * mag (mag: sk.accumulated_magnitudes). An
+# element sums at most 4096 terms here (a global key block's dk/dv over
+# every query of the sequence), so the order of the sums moves it by at
+# most 4096 * 2**-24 of mag; the bf16 kernels' P and dS enter the products
+# as hi + lo bf16 (2**-17 of each term). One 64-key block dropped from a
+# row of 19 moves an element by some 1/19 of mag, about 200 times the
+# limit.
+SPARSE_ACC = 2.0 ** -12
 
 PLANE = plane_len_for(SERVE["max_len"], SERVE["prefill_chunk"])
 # The paged pool of the slice's main path: the JAX package's default page
@@ -330,28 +382,47 @@ def phase_build():
 _TYPE_NAMES = {"f": "fp32", "__nv_bfloat16": "bf16", "__half": "fp16"}
 
 
+def _template_args(mangled):
+    """The template arguments at the start of a mangled argument list:
+    (type names, ints, bools) from ``f``, ``<n><name>``, ``Li<n>E`` and
+    ``Lb<0|1>E`` tokens, up to the closing ``E``."""
+    types, ints, bools = [], [], []
+    while mangled and mangled[0] != "E":
+        m = re.match(r"L([bi])(\d+)E|(\d+)|([a-z])", mangled)
+        if m is None:  # a token this report does not name
+            break
+        if m.group(1):
+            (ints if m.group(1) == "i" else bools).append(int(m.group(2)))
+            mangled = mangled[m.end():]
+        elif m.group(3):
+            n = int(m.group(3))
+            types.append(mangled[m.end():m.end() + n])
+            mangled = mangled[m.end() + n:]
+        else:
+            types.append(m.group(4))
+            mangled = mangled[1:]
+    return types, ints, bools
+
+
 def _ptxas_summary(log):
     """One line per compiled kernel from nvcc's -Xptxas=-v report: the
-    kernel, its type (K2's dq flag, K8's vectors per lane, the decode
-    kernel's int8 and paged flags), registers, spill stores."""
+    kernel, its type and template flags (K2's and K7b's dq flag, K8's
+    vectors per lane, the sparse kernels' block, the decode kernel's int8
+    and paged flags), registers, spill stores."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)I\d*"
-                      r"(\w+?)((?:Lb[01]E|Li\d+E)*)E", line)
+        m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)I(\w+)'",
+                      line)
         if m:
-            flags = re.findall(r"L([bi])(\d+)E", m.group(3))
+            types, ints, bools = _template_args(m.group(2))
+            args = [_TYPE_NAMES.get(t, t) for t in types] + \
+                [str(i) for i in ints]
             if m.group(1) == "decode_attention_kernel":
-                extra = "".join(", " + what for what, (_, on) in
-                                zip(("int8", "paged"), flags) if on == "1")
-            elif flags == [("b", "1")]:
-                extra = ", dq"
-            elif flags and flags[0][0] == "i":
-                extra = ", " + flags[0][1]
-            else:
-                extra = ""
-            name = "{}<{}{}>".format(m.group(1),
-                                      _TYPE_NAMES.get(m.group(2), m.group(2)),
-                                      extra)
+                args += [what for what, on in zip(("int8", "paged"), bools)
+                         if on]
+            elif bools == [1]:
+                args.append("dq")
+            name = "{}<{}>".format(m.group(1), ", ".join(args))
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -1072,18 +1143,23 @@ def _card_vs_cpu(label, what, card_model, cpu_model, config, inputs):
         runs.append((float(loss.detach()), grads, params))
     (loss_c, g_c, p_c), (loss_h, g_h, p_h) = runs
     loss_err = abs(loss_c - loss_h) / abs(loss_h)
-    grad_ratio = max(float((g_c[n] - g_h[n]).abs().max() /
-                           (GRAD_TOL * g_h[n].abs().max())) for n in g_h)
-    param_ratio = 0.0
-    for n in p_h:
-        noisy = g_h[n].abs() <= 10 * GRAD_TOL * g_h[n].abs().max()
+    largest = max(float(g.abs().max()) for g in g_h.values())
+    grad_ratio, param_ratio, worst = 0.0, 0.0, None
+    for n in g_h:
+        scale = float(g_h[n].abs().max())
+        if scale < GRAD_TOL * largest:
+            scale = largest
+        ratio = float((g_c[n] - g_h[n]).abs().max()) / (GRAD_TOL * scale)
+        if ratio >= grad_ratio:
+            grad_ratio, worst = ratio, n
+        noisy = g_h[n].abs() <= 10 * GRAD_TOL * scale
         limit = torch.where(noisy, 2.0 * lr, 1e-3 * lr) + \
             2.0 ** -22 * p_h[n].abs()
         param_ratio = max(param_ratio,
                           float(((p_c[n] - p_h[n]).abs() / limit).max()))
     line = {label: what, "loss_card": loss_c, "loss_cpu": loss_h,
             "loss_rel_err": loss_err, "grad_max_err_over_limit": grad_ratio,
-            "param_max_err_over_limit": param_ratio}
+            "worst_grad": worst, "param_max_err_over_limit": param_ratio}
     print(label + " " + json.dumps(line))
     if loss_err > 1e-5 or grad_ratio > 1.0 or param_ratio > 1.0:
         fail("the card's training step disagrees with the CPU's ({})".format(
@@ -1288,7 +1364,8 @@ def _bert_batch(cfg, B, T, seed, min_len):
 
 
 def _launch_counts():
-    return dict(at.launches, layer_norm_plain=ln.launches["plain"],
+    return dict(at.launches, **sk.launches,
+                layer_norm_plain=ln.launches["plain"],
                 layer_norm_bias_residual=ln.launches["bias_residual"],
                 dropout_fwd=dr.launches["dropout_fwd"],
                 dropout_bwd=dr.launches["dropout_bwd"], bias_gelu=ge.launches)
@@ -1303,15 +1380,16 @@ def _bert_launches(n_layer, n_drop, n_det):
             for k, (a, b) in BERT_SITES.items()}
 
 
-def _bert_step_flops(cfg, B, T):
+def _bert_step_flops(cfg, B, T, density=1.0):
     """Model flops of one training step (forward + backward = 3 x
     forward): 2 per weight per token for the encoder, the MLM transform
     and the tied decoder, and 4 T h per token per layer for the scores and
-    the context products."""
+    the context products, times the share of block pairs a sparse layout
+    lists (bench.py's density scaling)."""
     h, inter, L = cfg.hidden_size, cfg.intermediate_size, \
         cfg.num_hidden_layers
     weights = L * (4 * h * h + 2 * h * inter) + h * h + cfg.vocab_size * h
-    return 3 * B * T * (2 * weights + 4 * L * T * h)
+    return 3 * B * T * (2 * weights + 4 * L * T * h * density)
 
 
 def phase_bert(card):
@@ -1331,7 +1409,7 @@ def phase_bert(card):
     losses = [step() for _ in range(BERT_WARM)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (at, ln, dr, ge):
+    for mod in (at, ln, dr, ge, sk):
         mod.reset_launches()
     # Events between the timed steps: each step's span on the card's
     # timeline (the spread the mean hides).
@@ -1401,6 +1479,326 @@ def phase_bert_consistency():
                if not k.startswith("flash")):
         fail("the card's BERT step did not run the row kernels: {} (want "
              "{})".format(counts, want))
+
+
+# ------------------------------------------------------ block-sparse BERT
+
+
+def _sparse_layout(kind, block, T, seed):
+    """A [16, nb, nb] layout: the Fixed pattern (bidirectional or
+    unidirectional), or a random one with query block 1 (a row) and key
+    block 2 (a column) empty, so that both LUTs hold -1 entries."""
+    if kind in ("fixed", "fixed_uni"):
+        attention = "bidirectional" if kind == "fixed" else "unidirectional"
+        return FixedSparsityConfig(num_heads=16, block=block,
+                                   attention=attention).make_layout(T)
+    nb = T // block
+    layout = (np.random.RandomState(seed).rand(16, nb, nb) < 0.3).astype(
+        np.int64)
+    layout[:, 1] = 0
+    layout[:, :, 2] = 0
+    return layout
+
+
+def _sparse_inputs(B, T, dtype, kpm, bias, seed):
+    """q, k, v, dO [B, 16, T, 64] and the masks' keywords on the card. kpm
+    'padding': additive, every other row padded after 128 .. T-1 keys (as
+    the BERT batches); 'mul': 0/1, about one key in ten dropped. bias 'add':
+    N(0, 0.1); 'mul': 1 + U(0, 1) (the scores stay live)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v, do = (torch.randn(B, 16, T, 64, device="cuda", generator=g)
+                   .to(dtype) for _ in range(4))
+    kw = {}
+    if kpm == "padding":
+        lens = torch.randint(128, T, (B,), device="cuda", generator=g)
+        drop = torch.arange(T, device="cuda")[None] >= lens[:, None]
+        drop[1::2] = False
+        kw.update(kpm=torch.where(drop, -1e9, 0.0))
+    elif kpm == "mul":
+        kw.update(kpm=(torch.rand(B, T, device="cuda", generator=g) > 0.1)
+                  .float(), kpm_mode="mul")
+    if bias == "add":
+        kw.update(bias=0.1 * torch.randn(B, 16, T, T, device="cuda",
+                                         generator=g))
+    elif bias == "mul":
+        kw.update(bias=1.0 + torch.rand(B, 16, T, T, device="cuda",
+                                        generator=g), bias_mode="mul")
+    return q, k, v, do, kw
+
+
+def _sparse_bound(q, lowered, kw, backward):
+    """(bound ms, 'bytes' or 'operations'): every input read once, every
+    output written once (q, k, v, o or dO, dq, dk, dv, lse and delta, the
+    masks and one LUT); 4 * D flops per visible (query, key) pair forward,
+    10 * D backward, counting the pairs this layout lists (a causal cut
+    halves the diagonal blocks and drops those above it)."""
+    B, H, T, D = q.shape
+    blk = lowered.block
+    active = np.argwhere(lowered.layout != 0)  # (h, query block, key block)
+    if kw.get("causal"):
+        rel = active[:, 1] - active[:, 2]
+        pairs = int((rel > 0).sum()) * blk * blk + \
+            int((rel == 0).sum()) * blk * (blk + 1) // 2
+    else:
+        pairs = len(active) * blk * blk
+    pairs *= B
+    plane = B * H * T * D * q.element_size()
+    rows = B * H * T * 4
+    masks = _nbytes(kw.get("kpm"), kw.get("bias"))
+    if backward:
+        flops = 10 * D * pairs
+        nbytes = 7 * plane + 2 * rows + masks + lowered.bwd_lut.nbytes
+    else:
+        flops = 4 * D * pairs
+        nbytes = 4 * plane + rows + masks + lowered.fwd_lut.nbytes
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _sparse_times(q, k, v, do, lowered, lse, delta, kw):
+    """CUDA-event medians at the path's shape: the kernels, their plain
+    versions, torch's scaled_dot_product_attention with the layout
+    expanded to a dense additive mask plus the key-padding mask (forward,
+    and forward + backward minus forward; a yardstick the port never
+    calls), and the bounds."""
+    t = {
+        "K7a_ms": cuda_ms(lambda: sk.sparse_fwd(q, k, v, lowered, **kw)),
+        "K7b_fused_ms": cuda_ms(lambda: sk.sparse_bwd(
+            q, k, v, lowered, lse, delta, do, mode="fused", **kw)),
+        "K7b_split_ms": cuda_ms(lambda: sk.sparse_bwd(
+            q, k, v, lowered, lse, delta, do, mode="split", **kw)),
+        "plain_fwd_ms": cuda_ms(lambda: sk.sparse_fwd_reference(
+            q, k, v, lowered, **kw), reps=10),
+        "plain_bwd_ms": cuda_ms(lambda: sk.sparse_bwd_reference(
+            q, k, v, lowered, lse, delta, do, **kw), reps=10),
+    }
+    mask = torch.where(lowered.element_mask(q.shape[2], q.device)[None],
+                       0.0, float("-inf"))
+    if "kpm" in kw:
+        mask = mask + kw["kpm"][:, None, None, :]
+    mask = mask.to(q.dtype)
+    t["library_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), reps=10)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+        torch.autograd.grad(out, leaves, do)
+
+    t["library_bwd_ms"] = cuda_ms(fwd_bwd, reps=10) - t["library_fwd_ms"]
+    del mask, leaves
+    t["bound_fwd_ms"], t["bound_fwd_by"] = _sparse_bound(q, lowered, kw,
+                                                         False)
+    t["bound_bwd_ms"], t["bound_bwd_by"] = _sparse_bound(q, lowered, kw, True)
+    return t
+
+
+def _sparse_case(name, B, T, dtype, kind, block, causal, kpm, bias, seed,
+                 timed=False):
+    """K7a, K7b fused and K7b split on one input against their plain
+    versions; returns the case's row (errors, and with ``timed`` the
+    times)."""
+    q, k, v, do, kw = _sparse_inputs(B, T, dtype, kpm, bias, seed)
+    kw["causal"] = causal
+    lowered = sk.lower(_sparse_layout(kind, block, T, seed), block)
+    o, lse = sk.sparse_fwd(q, k, v, lowered, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    fused = sk.sparse_bwd(q, k, v, lowered, lse, delta, do, mode="fused",
+                          **kw)
+    split = sk.sparse_bwd(q, k, v, lowered, lse, delta, do, mode="split",
+                          **kw)
+    ro, rlse = sk.sparse_fwd_reference(q, k, v, lowered, **kw)
+    refs = sk.sparse_bwd_reference(q, k, v, lowered, lse, delta, do, **kw)
+    mags = sk.accumulated_magnitudes(q, k, v, lowered, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    rtol = FLASH_RTOL[dtype]
+    row = {"case": name, "dtype": str(dtype).split(".")[-1], "B": B,
+           "H": 16, "T": T, "layout": kind, "block": block,
+           "density": lowered.density, "causal": causal, "kpm": kpm,
+           "bias": bias}
+    outs = {"K7a": [(o, ro, rtol * ro.float().abs() + SPARSE_ACC * mags[0]),
+                    (lse, rlse, 1e-5 * (1 + rlse.abs()))]}
+    for kernel, grads in (("K7b_fused", fused), ("K7b_split", split)):
+        outs[kernel] = [(g, r, rtol * r.float().abs() + SPARSE_ACC * m)
+                        for g, r, m in zip(grads, refs, mags[1:])]
+    for kernel, triples in outs.items():
+        if not all(bool(torch.isfinite(x).all()) and x.shape == r.shape
+                   for x, r, _ in triples):
+            fail("{} output not finite or wrong shape at {}".format(kernel,
+                                                                    name))
+        errs = [_err(*t) for t in triples]
+        row[kernel] = {"max_abs_err": max(e[0] for e in errs),
+                       "max_err_over_limit": max(e[1] for e in errs)}
+        if row[kernel]["max_err_over_limit"] > 1.0:
+            print("sparse " + json.dumps(row))
+            fail("{} disagrees with its plain version at {}".format(kernel,
+                                                                    name))
+    del ro, rlse, refs, mags, fused, split
+    if timed:
+        row.update(_sparse_times(q, k, v, do, lowered, lse, delta, kw))
+    print("sparse " + json.dumps(row))
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_sparse():
+    """K7a/K7b against their plain versions; returns the case rows, the
+    first being the timed shape of the sparse BERT path."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("path", SPARSE_B, SPARSE_T, bf16, "fixed", SPARSE_BLOCK, False,
+         "padding", None),
+        ("fixed_uni_causal", 1, 2048, bf16, "fixed_uni", 64, True, None,
+         None),
+        ("fp32", 1, 1024, f32, "fixed", 64, False, "padding", "add"),
+        ("block16_random", 2, 1024, bf16, "random", 16, False, "padding",
+         None),
+        ("block32_random_causal", 2, 1024, bf16, "random", 32, True, None,
+         None),
+        ("mul_masks", 1, 1024, bf16, "fixed", 32, False, "mul", "mul"),
+        ("fp16_block16_bias", 1, 512, torch.float16, "random", 16, False,
+         "padding", "add"),
+    ]
+    return [_sparse_case(*case, seed=20 + i, timed=i == 0)
+            for i, case in enumerate(cases)]
+
+
+def _sparse_bert_config(**kw):
+    return BertConfig.bert_large(
+        use_fused_layer=False, sparse_attention_config=FixedSparsityConfig(
+            num_heads=16, block=SPARSE_BLOCK, attention="bidirectional"),
+        **kw)
+
+
+def phase_bert_sparse(card):
+    """Sparse BERT-large pretraining at T=4096 through initialize and
+    forward / backward / step; returns the kernels' launch counts over the
+    counted steps."""
+    cfg = _sparse_bert_config(max_position_embeddings=SPARSE_T,
+                              dtype=torch.bfloat16)
+    model = BertForPreTraining(cfg, device="cuda", seed=0)
+    engine, _, _, _ = initialize(model=model,
+                                 config_params=SPARSE_BERT_CONFIG)
+    batch = _bert_batch(cfg, SPARSE_B, SPARSE_T, seed=0,
+                        min_len=SPARSE_T // 4)
+
+    def step():
+        loss = engine(*batch)
+        engine.backward(loss)
+        engine.step()
+        return loss.detach()
+
+    losses = [step() for _ in range(SPARSE_WARM)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (at, ln, dr, ge, sk):
+        mod.reset_launches()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(SPARSE_TIMED + 1)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    for mark in marks[1:]:
+        losses.append(step())
+        mark.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        t1 = time.perf_counter()
+        losses += [step() for _ in range(SPARSE_SPLIT)]
+        torch.cuda.synchronize()
+        split_wall = time.perf_counter() - t1
+    finally:
+        del os.environ["DS_TPU_FLASH_BWD"]
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail("non-finite sparse BERT loss: {}".format(losses))
+    if not losses[SPARSE_WARM + SPARSE_TIMED - 1] < losses[0]:
+        fail("the sparse BERT loss did not fall over the timed steps: "
+             "{}".format(losses))
+    L, steps = cfg.num_hidden_layers, SPARSE_TIMED + SPARSE_SPLIT
+    want = {k: 0 for k in launches}
+    want.update(sparse_fwd=L * steps, sparse_bwd_fused=L * SPARSE_TIMED,
+                sparse_bwd_split=2 * L * SPARSE_SPLIT,
+                dropout_fwd=(3 * L + 1) * steps,
+                dropout_bwd=(3 * L + 1) * steps)
+    if launches != want:
+        fail("sparse BERT kernel launches {} != n_layer x steps x sites + "
+             "the embeddings' {}".format(launches, want))
+    density = sk.lower(cfg.sparse_attention_config.make_layout(SPARSE_T),
+                       SPARSE_BLOCK).density
+    tokens = SPARSE_B * SPARSE_T
+    step_s = wall / SPARSE_TIMED
+    print("bert_sparse_train " + json.dumps({
+        "train": "bert-large sparse (Fixed, block 64) bf16 AdamW, dropout "
+                 "0.1", "batch": SPARSE_B, "seq": SPARSE_T,
+        "density": density, "timed_steps": SPARSE_TIMED,
+        "tokens_per_s": tokens / step_s,
+        "real_tokens_per_s": float(batch[1].sum()) / step_s,
+        "mean_step_ms": step_s * 1e3, "step_ms": step_ms,
+        "split_bwd_step_ms": split_wall / SPARSE_SPLIT * 1e3,
+        "model_tflops_per_s": _bert_step_flops(cfg, SPARSE_B, SPARSE_T,
+                                               density) / step_s / 1e12,
+        "peak_mem_bytes": peak, "first_loss": losses[0],
+        "last_loss": losses[-1], "losses": losses, "launches": launches,
+        "card": card}))
+    print("bert_sparse_profile " + json.dumps(_profile(step, 2)))
+    return launches
+
+
+def phase_bert_sparse_consistency():
+    """One fp32 sparse BERT step at dropout 0.1 on the card (K7a, K7b
+    fused) against the same on the CPU (plain versions)."""
+    cfg = _sparse_bert_config(num_hidden_layers=2, dtype=torch.float32)
+    config = {"train_batch_size": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+    batch = _bert_batch(cfg, 2, 512, seed=4, min_len=128)
+    cpu_model = BertForPreTraining(cfg, device="cpu", seed=2)
+    card_model = BertForPreTraining(cfg, device="cuda", seed=None)
+    card_model.load_state_dict(cpu_model.state_dict())
+    sk.reset_launches()
+    _card_vs_cpu("bert_sparse_consistency",
+                 "fp32 width 1024, 2 layers, B2 T512, Fixed block 64, "
+                 "dropout 0.1", card_model, cpu_model, config, batch)
+    if sk.launches != {"sparse_fwd": 2, "sparse_bwd_fused": 2,
+                       "sparse_bwd_split": 0}:
+        fail("the card's sparse BERT step did not run K7a/K7b once per "
+             "layer: {}".format(sk.launches))
+
+
+def _sparse_kernel_rows(rows, launches):
+    """K7a and K7b fused / split: times at the sparse BERT path's shape,
+    errors over every case, launches from the sparse BERT run."""
+    timed = rows[0]
+    specs = [("block_sparse_attention_fwd", "K7a", "sparse_fwd", 133,
+              "K7a_ms", "plain_fwd_ms", "library_fwd_ms", "fwd"),
+             ("block_sparse_attention_bwd_fused", "K7b_fused",
+              "sparse_bwd_fused", 241, "K7b_fused_ms", "plain_bwd_ms",
+              "library_bwd_ms", "bwd"),
+             ("block_sparse_attention_bwd_split", "K7b_split",
+              "sparse_bwd_split", 208, "K7b_split_ms", "plain_bwd_ms",
+              "library_bwd_ms", "bwd")]
+    shape = ("B{} H16 T{} D64 bf16, Fixed layout block {} bidirectional "
+             "(density {:.3f}), additive padding mask".format(
+                 SPARSE_B, SPARSE_T, SPARSE_BLOCK, timed["density"]))
+    return [{"name": name, "route": "cuda",
+             "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
+             "replaces": "deepspeed_tpu/ops/sparse_attention/kernels.py:{}"
+                         .format(line),
+             "launches": launches[counter],
+             "max_abs_err": max(r[kernel]["max_abs_err"] for r in rows),
+             "max_err_over_limit": max(r[kernel]["max_err_over_limit"]
+                                       for r in rows),
+             "ms": timed[ms], "plain_ms": timed[plain],
+             "bound_ms": timed["bound_{}_ms".format(way)],
+             "bound_by": timed["bound_{}_by".format(way)],
+             "library_ms": timed[lib], "shape": shape}
+            for name, kernel, counter, line, ms, plain, lib, way in specs]
 
 
 def _flash_kernel_rows(flash_rows, launches, bert_launches):
@@ -1533,6 +1931,9 @@ def main():
     phase_train_consistency()
     bert_launches = phase_bert(card)
     phase_bert_consistency()
+    sparse_rows = phase_sparse()
+    sparse_launches = phase_bert_sparse(card)
+    phase_bert_sparse_consistency()
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -1549,6 +1950,7 @@ def main():
     kernels += _decode_variant_rows(variant_rows, serve_launches)
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches)
     kernels += _row_kernel_rows(row_rows, bert_launches)
+    kernels += _sparse_kernel_rows(sparse_rows, sparse_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ AdamW, LR schedules, checkpoints) over the GPT-2 training forward with the
 flash-attention kernels K1/K2. Slice 3 is BERT pretraining on the fused
 transformer layer (K8, K10a/K10b, K11). Slice 4 serves from a paged and/or
 int8 KV pool (``inference.paged_kv`` / ``int8_kv``) through the decode
-kernels K4-K6.
+kernels K4-K6. Slice 5 pretrains BERT on block-sparse attention
+(``ops.sparse_attention``, kernels K7a/K7b) at long sequences.
 """
 
 from deepspeed_tpu_torch.device import resolve_device

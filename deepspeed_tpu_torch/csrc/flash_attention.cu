@@ -59,6 +59,8 @@
 
 #include <type_traits>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int kD = 64;          // head width
@@ -69,27 +71,6 @@ constexpr int kRows = 4;        // rows per thread: ty * 4 + i
 constexpr int kCols = 8;        // columns per thread: tx + 8 * m
 constexpr int kTileFloats = kTile * kLd;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half(x);
-}
 
 // Rows [row0, row0 + 64) of a contiguous [n, 64] matrix into shared memory
 // as fp32 times `mul`; rows at or past n read as zero.
@@ -155,19 +136,6 @@ __device__ __forceinline__ void acc_tile(float (&acc)[kRows][kCols],
 #pragma unroll
       for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
   }
-}
-
-// Reductions over the 8 threads that share a row (consecutive lanes).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < 8; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // Masked score: the additive mask, then the causal cut (kNegInf, finite, as
@@ -481,50 +449,10 @@ __global__ void __launch_bounds__(kThreads)
 // operands needed column-wise (V, K, Q, dO as right operands over the
 // key or query axis) are staged transposed.
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kLdh = kD + 8;  // bf16 row stride in shared memory
 constexpr int kTileH = kTile * kLdh;
 constexpr int kNT = kTile / 8;  // 8-column accumulator tiles per 64 columns
 constexpr int kKS = kD / 16;    // 16-deep steps over 64
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as two bf16 pairs, hi + lo.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// The left operand of a 16 x 16 step from accumulator tiles c0 (columns
-// 0-7) and c1 (columns 8-15), split hi/lo.
-__device__ __forceinline__ void frag_from_acc(const float (&c0)[4],
-                                              const float (&c1)[4],
-                                              uint32_t (&hi)[4],
-                                              uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
 
 // The left operand of step kk from 16 rows of a bf16 tile (stride kLdh),
 // row0 being the warp's first row.

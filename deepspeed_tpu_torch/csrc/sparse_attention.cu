@@ -1,0 +1,1124 @@
+// Block-sparse flash attention, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention/kernels.py:
+//   K7a `_fwd_kernel` (launched from `_make_fn`'s forward)
+//       -> fwd_mma_kernel (bf16), fwd_kernel (fp32, fp16)
+//   K7b fused `_bwd_fused_kernel`
+//       -> dkdv_mma_kernel / dkdv_kernel with kDq = true (dq by atomics
+//          into an fp32 buffer)
+//   K7b split `_bwd_dkv_kernel` and `_bwd_dq_kernel`
+//       -> dkdv_*kernel with kDq = false, then dq_mma_kernel / dq_kernel
+// The plain PyTorch versions they are held against are
+// `sparse_fwd_reference` and `sparse_bwd_reference` in
+// deepspeed_tpu_torch/ops/sparse_attention/kernels.py.
+//
+// What they compute, per (b, h), q/k/v [T, 64], T a multiple of the layout's
+// block (16, 32 or 64). A lookup table (LUT) lists, for each query block, the
+// key blocks it attends to (the forward LUT, [H, nb, deg]), and for each key
+// block the query blocks that attend to it (the transposed LUT); -1 pads a
+// row. For a (query, key) pair of a listed block pair:
+//   s = scale * q.k; with a key-padding mask kpm[b, key] and a score bias
+//   bias[b, h, query, key] (each optional, each added or, in 'mul' mode,
+//   multiplied); causal keeps key <= query, else -1e30 (the JAX package's
+//   NEG_INF), as is every pair of an unlisted block;
+//   forward: online softmax from m = -1e30 with m_safe = max(m, -5e29) (so
+//     that a row with no visible key traps nothing), l clamped at 1e-30,
+//     o = sum p v / l (0 for a row with no visible key),
+//     lse = max(m, -5e29) + log l (fp32);
+//   backward: p = exp(s - lse), ds = p * (do.v - delta) * scale, times kpm
+//     and bias in 'mul' mode (the mask scales the score, so it scales its
+//     gradient), delta = rowsum(do * o) (given); dq = ds k, dk = ds^T q,
+//     dv = p^T do.
+// The forward scales the product q.k (the TPU kernel scales q first; for
+// bf16 inputs and scale = 1/8 the two are the same numbers). Scores,
+// softmax statistics, p, ds and every accumulator are fp32.
+//
+// Bound on an H100 SXM. At the sparse BERT-large path (B 2, H 16, T 4096,
+// block 64, the Fixed layout: 19 of 64 key blocks per query block) a
+// block pair costs 4 * 64 * 64 * 64 flops forward and 10 * 64^3 backward,
+// 1216 pairs per (b, h): 40.8 GFLOP forward, 0.041 ms at 989 TFLOP/s,
+// against 67 MB of q, k, v and o, 0.020 ms at 3.35 TB/s. Operations bound
+// it, as they do the dense flash kernels (csrc/flash_attention.cu).
+//
+// What the design does about it:
+//   - the [T, T] scores never exist: one block x block tile of scores at a
+//     time lives in registers (bf16) or shared memory (fp32, fp16);
+//   - the layout is a loop over the block's LUT row, staged in shared
+//     memory once; a -1 entry is skipped (in the TPU kernel it aliases block
+//     0 and adds exact zeros), so only listed blocks are loaded and computed;
+//   - bf16 runs its products on the tensor cores (mma.sync m16n8k16, fp32
+//     accumulation, P and dS entering the second product as hi + lo bf16),
+//     a warp per 16 rows of the block, as the dense kernels do; fp32 and
+//     fp16 run register-blocked FMAs on a 16 x 8 thread grid;
+//   - the TPU's fused backward scatters dk/dv into full-length fp32 VMEM
+//     over a sequential grid. Blocks here run in parallel, so the fused
+//     backward turns the sweep around: one CTA per key block walks the
+//     transposed LUT with dk/dv in registers and adds dq into an fp32
+//     buffer by atomics (one product of atomics per block pair; walking the
+//     forward LUT instead would need atomics for both dk and dv). The split
+//     backward adds a dq kernel over the forward LUT and uses no atomics.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kD = 64;  // head width
+constexpr float kNegInf = -1e30f;
+constexpr float kHalfNegInf = 0.5f * kNegInf;
+
+// The optional score masks of one (b, h).
+struct Masks {
+  const float* kpm;   // [T] of batch row b, or null
+  const float* bias;  // [T, T] of (b, h), or null
+  int T;
+  int causal, kpm_mul, bias_mul;
+};
+
+__device__ __forceinline__ Masks make_masks(const float* kpm,
+                                            const float* bias, int b,
+                                            size_t bh, int T, int causal,
+                                            int kpm_mul, int bias_mul) {
+  Masks mk;
+  mk.kpm = kpm != nullptr ? kpm + (size_t)b * T : nullptr;
+  mk.bias = bias != nullptr ? bias + bh * T * T : nullptr;
+  mk.T = T;
+  mk.causal = causal;
+  mk.kpm_mul = kpm_mul;
+  mk.bias_mul = bias_mul;
+  return mk;
+}
+
+// The score of (row, key) after the masks, in the TPU kernel's order: kpm,
+// bias, then the causal cut (the block is listed: the caller skips -1).
+__device__ __forceinline__ float masked(float s, const Masks& mk, int row,
+                                        int key) {
+  if (mk.kpm != nullptr) {
+    const float m = mk.kpm[key];
+    s = mk.kpm_mul ? s * m : s + m;
+  }
+  if (mk.bias != nullptr) {
+    const float bv = mk.bias[(size_t)row * mk.T + key];
+    s = mk.bias_mul ? s * bv : s + bv;
+  }
+  if (mk.causal && key > row) s = kNegInf;
+  return s;
+}
+
+// ds = p * (dp - delta) * scale, times the masks in 'mul' mode.
+__device__ __forceinline__ float score_grad(float p, float dp, float delta,
+                                            float scale, const Masks& mk,
+                                            int row, int key) {
+  float ds = p * (dp - delta) * scale;
+  if (mk.kpm != nullptr && mk.kpm_mul) ds *= mk.kpm[key];
+  if (mk.bias != nullptr && mk.bias_mul)
+    ds *= mk.bias[(size_t)row * mk.T + key];
+  return ds;
+}
+
+// The CTA's LUT row into shared memory.
+__device__ __forceinline__ void stage_lut(int* dst, const int* src, int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+}
+
+// ------------------------------------------------ bf16 on the tensor cores
+// mma.sync m16n8k16 (attention_common.cuh). Shared-memory rows of 64 bf16
+// are padded to 72, transposed tiles [64][block] to block + 8: the 32
+// lanes' 4-byte operand loads then hit 32 banks.
+
+constexpr int kLdh = kD + 8;
+constexpr int kNT = kD / 8;   // 8-column tiles over 64
+constexpr int kKS = kD / 16;  // 16-deep steps over 64
+
+// The left operand of step kk from 16 rows (from row0) of a bf16 tile of
+// row stride LD.
+template <int LD>
+__device__ __forceinline__ void frag_from_smem(const bf16* s, int row0,
+                                               int kk, int g, int t,
+                                               uint32_t (&a)[4]) {
+  const bf16* p = s + (row0 + g) * LD + 16 * kk + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * LD);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * LD + 8);
+}
+
+// acc[n] += A times B over the 16-deep step kk, for the NT 8-column tiles
+// of B, whose columns are the rows of bt (B[k][n] = bt[n][k], stride LD).
+template <int NT, int LD>
+__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
+                                        const uint32_t (&a)[4],
+                                        const bf16* bt, int kk, int g,
+                                        int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const bf16* p = bt + (8 * n + g) * LD + 16 * kk + 2 * t;
+    mma16816(acc[n], a, ld32(p), ld32(p + 8));
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
+// ROWS rows from row0 of a contiguous [*, 64] bf16 matrix into shared
+// memory (stride kLdh), 16 bytes a thread.
+template <int ROWS>
+__device__ __forceinline__ void load_h(bf16* dst, const bf16* src, int row0) {
+  for (int e = threadIdx.x; e < ROWS * (kD / 8); e += blockDim.x) {
+    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + r * kLdh + c) =
+        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD + c);
+  }
+}
+
+// The same rows transposed: dst[c][r] = src[row0 + r][c], stride ROWS + 8.
+template <int ROWS>
+__device__ __forceinline__ void load_ht(bf16* dst, const bf16* src,
+                                        int row0) {
+  for (int e = threadIdx.x; e < ROWS * (kD / 8); e += blockDim.x) {
+    const int r = e % ROWS, c = (e / ROWS) * 8;
+    const uint4 val =
+        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD + c);
+    const bf16* el = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[(c + i) * (ROWS + 8) + r] = el[i];
+  }
+}
+
+// Rows g and g + 8 (from row_a) of 64 accumulator columns times mul_a /
+// mul_b, as bf16 pairs.
+__device__ __forceinline__ void store_rows(bf16* base,
+                                           const float (&acc)[kNT][4],
+                                           int row_a, float mul_a,
+                                           float mul_b, int t) {
+#pragma unroll
+  for (int nd = 0; nd < kNT; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row_a * kD + c) =
+        __floats2bfloat162_rn(acc[nd][0] * mul_a, acc[nd][1] * mul_a);
+    *reinterpret_cast<__nv_bfloat162*>(base + (size_t)(row_a + 8) * kD + c) =
+        __floats2bfloat162_rn(acc[nd][2] * mul_b, acc[nd][3] * mul_b);
+  }
+}
+
+// K7a for bf16: one CTA per (query block, h, b), a warp per 16 of its BLK
+// rows; for each listed key block S = Q K^T, the online softmax and
+// O += P V, all in registers.
+template <int BLK>
+__global__ void __launch_bounds__(2 * BLK)
+    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const int* __restrict__ lut,
+                   int deg, const float* __restrict__ kpm,
+                   const float* __restrict__ bias, bf16* __restrict__ o,
+                   float* __restrict__ lse, int H, int T, float scale,
+                   int causal, int kpm_mul, int bias_mul) {
+  constexpr int kNK = BLK / 8, kLdT = BLK + 8;
+  __shared__ __align__(16) bf16 q_s[BLK * kLdh];
+  __shared__ __align__(16) bf16 k_s[BLK * kLdh];
+  __shared__ __align__(16) bf16 vt_s[kD * kLdT];  // V^T [d][key]
+  extern __shared__ int lut_s[];
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const bf16* kb = k + bh * T * kD;
+  const bf16* vb = v + bh * T * kD;
+  const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const int q0 = blockIdx.x * BLK;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+
+  stage_lut(lut_s, lut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
+  load_h<BLK>(q_s, q + bh * T * kD, q0);
+  __syncthreads();
+  uint32_t qf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk)
+    frag_from_smem<kLdh>(q_s, r0, kk, g, t, qf[kk]);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNT][4];
+  zero(acc);
+  for (int j = 0; j < deg; ++j) {
+    const int c = lut_s[j];
+    if (c < 0) continue;
+    const int k0 = c * BLK;
+    __syncthreads();  // every warp is done with the previous k_s, vt_s
+    load_h<BLK>(k_s, kb, k0);
+    load_ht<BLK>(vt_s, vb, k0);
+    __syncthreads();
+    float s[kNK][4];
+    zero(s);
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk)
+      mma_row<kNK, kLdh>(s, qf[kk], k_s, kk, g, t);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kNK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        const float x = masked(s[n][e] * scale, mk, row[e >> 1], key);
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_safe[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      m_safe[r] = fmaxf(m_new, kHalfNegInf);
+      alpha[r] = expf(m[r] - m_safe[r]);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int n = 0; n < kNK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m_safe[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int jj = 0; jj < BLK / 16; ++jj) {
+      uint32_t hi[4], lo[4];
+      frag_from_acc(s[2 * jj], s[2 * jj + 1], hi, lo);
+      mma_row<kNT, kLdT>(acc, hi, vt_s, jj, g, t);
+      mma_row<kNT, kLdT>(acc, lo, vt_s, jj, g, t);
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float lv = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / lv;
+    if (t == 0) lse[bh * T + row[r]] = fmaxf(m[r], kHalfNegInf) + logf(lv);
+  }
+  store_rows(o + bh * T * kD, acc, row[0], inv[0], inv[1], t);
+}
+
+// K7b for bf16: one CTA per (key block, h, b), a warp per 16 of its keys,
+// whose K and V rows stay in registers. For each query block of the
+// transposed LUT: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in fp32, then
+// dV += P^T dO and dK += dS^T Q in registers. With kDq (the fused backward)
+// dS goes through shared memory (hi/lo, [query][key]) and each warp adds its
+// 16 query rows of dS K into dq_acc with atomics.
+template <int BLK, bool kDq>
+__global__ void __launch_bounds__(2 * BLK)
+    dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ tlut,
+                    int deg, const float* __restrict__ kpm,
+                    const float* __restrict__ bias,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int T, float scale,
+                    int causal, int kpm_mul, int bias_mul) {
+  constexpr int kNK = BLK / 8, kLdT = BLK + 8;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // [query][d]
+  bf16* do_s = q_s + BLK * kLdh;                   // [query][d]
+  bf16* qt_s = do_s + BLK * kLdh;                  // [d][query]
+  bf16* dot_s = qt_s + kD * kLdT;                  // [d][query]
+  float* lse_s = reinterpret_cast<float*>(dot_s + kD * kLdT);
+  float* delta_s = lse_s + BLK;
+  bf16* kt_s = reinterpret_cast<bf16*>(delta_s + BLK);  // kDq: [d][key]
+  bf16* dsh_s = kt_s + kD * kLdT;  // kDq: dS [query][key], hi and lo
+  bf16* dsl_s = dsh_s + BLK * kLdT;
+  int* lut_s = reinterpret_cast<int*>(kDq ? dsl_s + BLK * kLdT : kt_s);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const bf16* qb = q + bh * T * kD;
+  const bf16* dob = dout + bh * T * kD;
+  const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const int k0 = blockIdx.x * BLK;
+  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+
+  stage_lut(lut_s, tlut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
+  // K and V rows of this warp as left operands (staged through q_s, do_s).
+  load_h<BLK>(q_s, k + bh * T * kD, k0);
+  load_h<BLK>(do_s, v + bh * T * kD, k0);
+  if (kDq) load_ht<BLK>(kt_s, k + bh * T * kD, k0);
+  __syncthreads();
+  uint32_t kf[kKS][4], vf[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    frag_from_smem<kLdh>(q_s, r0, kk, g, t, kf[kk]);
+    frag_from_smem<kLdh>(do_s, r0, kk, g, t, vf[kk]);
+  }
+  float dk_acc[kNT][4], dv_acc[kNT][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int j = 0; j < deg; ++j) {
+    const int r = lut_s[j];
+    if (r < 0) continue;
+    const int q0 = r * BLK;
+    __syncthreads();  // every warp is done with the previous tiles
+    load_h<BLK>(q_s, qb, q0);
+    load_h<BLK>(do_s, dob, q0);
+    load_ht<BLK>(qt_s, qb, q0);
+    load_ht<BLK>(dot_s, dob, q0);
+    if (threadIdx.x < BLK) {
+      lse_s[threadIdx.x] = lse[bh * T + q0 + threadIdx.x];
+      delta_s[threadIdx.x] = delta[bh * T + q0 + threadIdx.x];
+    }
+    __syncthreads();
+    float st[kNK][4], dpt[kNK][4];  // [key][query] tiles
+    zero(st);
+    zero(dpt);
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      mma_row<kNK, kLdh>(st, kf[kk], q_s, kk, g, t);
+      mma_row<kNK, kLdh>(dpt, vf[kk], do_s, kk, g, t);
+    }
+#pragma unroll
+    for (int n = 0; n < kNK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);  // query within the block
+        const int kr = key[e >> 1];
+        const float x = masked(st[n][e] * scale, mk, q0 + c, kr);
+        const float p = expf(x - lse_s[c]);
+        st[n][e] = p;
+        dpt[n][e] = score_grad(p, dpt[n][e], delta_s[c], scale, mk, q0 + c,
+                               kr);
+      }
+    if (kDq) {
+#pragma unroll
+      for (int n = 0; n < kNK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          const int kl = r0 + g + 8 * (e >> 1);  // key within the block
+          const bf16 hi = __float2bfloat16(dpt[n][e]);
+          dsh_s[c * kLdT + kl] = hi;
+          dsl_s[c * kLdT + kl] =
+              __float2bfloat16(dpt[n][e] - __bfloat162float(hi));
+        }
+    }
+#pragma unroll
+    for (int jq = 0; jq < BLK / 16; ++jq) {
+      uint32_t hi[4], lo[4];
+      frag_from_acc(st[2 * jq], st[2 * jq + 1], hi, lo);
+      mma_row<kNT, kLdT>(dv_acc, hi, dot_s, jq, g, t);
+      mma_row<kNT, kLdT>(dv_acc, lo, dot_s, jq, g, t);
+      frag_from_acc(dpt[2 * jq], dpt[2 * jq + 1], hi, lo);
+      mma_row<kNT, kLdT>(dk_acc, hi, qt_s, jq, g, t);
+      mma_row<kNT, kLdT>(dk_acc, lo, qt_s, jq, g, t);
+    }
+    if (kDq) {
+      __syncthreads();  // every warp's dS columns are written
+      float dq[kNT][4];
+      zero(dq);
+#pragma unroll
+      for (int jk = 0; jk < BLK / 16; ++jk) {
+        uint32_t hi[4], lo[4];
+        frag_from_smem<kLdT>(dsh_s, r0, jk, g, t, hi);
+        frag_from_smem<kLdT>(dsl_s, r0, jk, g, t, lo);
+        mma_row<kNT, kLdT>(dq, hi, kt_s, jk, g, t);
+        mma_row<kNT, kLdT>(dq, lo, kt_s, jk, g, t);
+      }
+      float* dqb = dq_acc + bh * T * kD;
+      const int qr = q0 + r0 + g;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          atomicAdd(&dqb[(size_t)(qr + 8 * (e >> 1)) * kD + 8 * n + 2 * t +
+                         (e & 1)],
+                    dq[n][e]);
+    }
+  }
+  store_rows(dk + bh * T * kD, dk_acc, key[0], 1.f, 1.f, t);
+  store_rows(dv + bh * T * kD, dv_acc, key[0], 1.f, 1.f, t);
+}
+
+// The split backward's dq for bf16: one CTA per query block, a warp per 16
+// rows, Q and dO rows in registers. For each listed key block: S = Q K^T
+// and dP = dO V^T, dS in fp32, dQ += dS K, all in registers.
+template <int BLK>
+__global__ void __launch_bounds__(2 * BLK)
+    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ lut,
+                  int deg, const float* __restrict__ kpm,
+                  const float* __restrict__ bias,
+                  const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int H, int T, float scale, int causal, int kpm_mul,
+                  int bias_mul) {
+  constexpr int kNK = BLK / 8, kLdT = BLK + 8;
+  __shared__ __align__(16) bf16 k_s[BLK * kLdh];   // [key][d]
+  __shared__ __align__(16) bf16 v_s[BLK * kLdh];   // [key][d]
+  __shared__ __align__(16) bf16 kt_s[kD * kLdT];   // [d][key]
+  extern __shared__ int lut_s[];
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const bf16* kb = k + bh * T * kD;
+  const bf16* vb = v + bh * T * kD;
+  const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  const int q0 = blockIdx.x * BLK;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+
+  stage_lut(lut_s, lut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
+  // Q and dO rows of this warp as left operands (staged through k_s, v_s).
+  load_h<BLK>(k_s, q + bh * T * kD, q0);
+  load_h<BLK>(v_s, dout + bh * T * kD, q0);
+  __syncthreads();
+  uint32_t qf[kKS][4], dof[kKS][4];
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    frag_from_smem<kLdh>(k_s, r0, kk, g, t, qf[kk]);
+    frag_from_smem<kLdh>(v_s, r0, kk, g, t, dof[kk]);
+  }
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = lse[bh * T + row[r]];
+    delta_r[r] = delta[bh * T + row[r]];
+  }
+  float acc[kNT][4];
+  zero(acc);
+  for (int j = 0; j < deg; ++j) {
+    const int c = lut_s[j];
+    if (c < 0) continue;
+    const int k0 = c * BLK;
+    __syncthreads();  // every warp is done with the previous tiles
+    load_h<BLK>(k_s, kb, k0);
+    load_h<BLK>(v_s, vb, k0);
+    load_ht<BLK>(kt_s, kb, k0);
+    __syncthreads();
+    float s[kNK][4], dp[kNK][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk) {
+      mma_row<kNK, kLdh>(s, qf[kk], k_s, kk, g, t);
+      mma_row<kNK, kLdh>(dp, dof[kk], v_s, kk, g, t);
+    }
+#pragma unroll
+    for (int n = 0; n < kNK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        const int r = e >> 1;
+        const float x = masked(s[n][e] * scale, mk, row[r], key);
+        const float p = expf(x - lse_r[r]);
+        s[n][e] = score_grad(p, dp[n][e], delta_r[r], scale, mk, row[r], key);
+      }
+#pragma unroll
+    for (int jk = 0; jk < BLK / 16; ++jk) {
+      uint32_t hi[4], lo[4];
+      frag_from_acc(s[2 * jk], s[2 * jk + 1], hi, lo);
+      mma_row<kNT, kLdT>(acc, hi, kt_s, jk, g, t);
+      mma_row<kNT, kLdT>(acc, lo, kt_s, jk, g, t);
+    }
+  }
+  store_rows(dq + bh * T * kD, acc, row[0], 1.f, 1.f, t);
+}
+
+// --------------------------------------------- fp32 and fp16 on the FMAs
+// A 16 x 8 grid of threads: thread (ty, tx) owns rows ty * R + i (R =
+// BLK / 16) and columns tx + 8 m of a block x block score tile, and columns
+// tx + 8 c of a [block, 64] accumulator. Shared-memory rows are padded to
+// 65 floats (no bank conflicts).
+
+constexpr int kThreadsF = 128;
+constexpr int kLd = kD + 1;
+
+// Rows [row0, row0 + ROWS) of a contiguous [*, 64] matrix into shared
+// memory as fp32 times mul.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_f(float* dst, const T* src, int row0,
+                                       float mul) {
+  for (int e = threadIdx.x; e < ROWS * kD; e += kThreadsF) {
+    const int r = e / kD, c = e % kD;
+    dst[r * kLd + c] = to_float(src[(size_t)(row0 + r) * kD + c]) * mul;
+  }
+}
+
+template <int ROWS>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0) {
+  if (threadIdx.x < ROWS) dst[threadIdx.x] = src[row0 + threadIdx.x];
+}
+
+// out[i][m] = sum_d A[ty R + i][d] * B[tx + 8m][d]
+template <int R, int C>
+__device__ __forceinline__ void dot_tile(float (&out)[R][C], const float* A,
+                                         const float* B, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int m = 0; m < C; ++m) out[i][m] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kD; ++d) {
+    float a[R], bv[C];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = A[(ty * R + i) * kLd + d];
+#pragma unroll
+    for (int m = 0; m < C; ++m) bv[m] = B[(tx + 8 * m) * kLd + d];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int m = 0; m < C; ++m) out[i][m] = fmaf(a[i], bv[m], out[i][m]);
+  }
+}
+
+// acc[i][c] += sum_k P[ty R + i][k] * B[k][tx + 8c] over k < DEPTH; with
+// kTransP the first operand is read transposed, P[k][ty R + i].
+template <int R, int DEPTH, bool kTransP>
+__device__ __forceinline__ void acc_tile(float (&acc)[R][8], const float* P,
+                                         const float* B, int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < DEPTH; ++k) {
+    float a[R], bv[8];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      a[i] = kTransP ? P[k * kLd + ty * R + i] : P[(ty * R + i) * kLd + k];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) bv[c] = B[k * kLd + tx + 8 * c];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(a[i], bv[c], acc[i][c]);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void zero_rows(float (&acc)[R][8]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+}
+
+template <typename T, int R>
+__device__ __forceinline__ void store_f(T* base, const float (&acc)[R][8],
+                                        int row0, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      base[(size_t)(row0 + ty * R + i) * kD + tx + 8 * c] =
+          from_float<T>(acc[i][c]);
+}
+
+// K7a on the FMAs; q is scaled as it is staged.
+template <typename T, int BLK>
+__global__ void __launch_bounds__(kThreadsF)
+    fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const int* __restrict__ lut, int deg,
+               const float* __restrict__ kpm, const float* __restrict__ bias,
+               T* __restrict__ o, float* __restrict__ lse, int H, int Tn,
+               float scale, int causal, int kpm_mul, int bias_mul) {
+  constexpr int R = BLK / 16, C = BLK / 8;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + BLK * kLd;
+  float* v_s = k_s + BLK * kLd;
+  float* p_s = v_s + BLK * kLd;
+  int* lut_s = reinterpret_cast<int*>(p_s + BLK * kLd);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* kb = k + bh * Tn * kD;
+  const T* vb = v + bh * Tn * kD;
+  const Masks mk =
+      make_masks(kpm, bias, b, bh, Tn, causal, kpm_mul, bias_mul);
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int q0 = blockIdx.x * BLK;
+
+  stage_lut(lut_s, lut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
+  load_f<BLK>(q_s, q + bh * Tn * kD, q0, scale);
+  float m[R], l[R], acc[R][8];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  zero_rows(acc);
+
+  for (int j = 0; j < deg; ++j) {
+    __syncthreads();  // lut_s staged; the previous tile's k_s, v_s, p_s read
+    const int c = lut_s[j];
+    if (c < 0) continue;
+    const int k0 = c * BLK;
+    load_f<BLK>(k_s, kb, k0, 1.f);
+    load_f<BLK>(v_s, vb, k0, 1.f);
+    __syncthreads();
+    float s[R][C];
+    dot_tile(s, q_s, k_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + ty * R + i;
+      float tmax = kNegInf;
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {
+        s[i][mm] = masked(s[i][mm], mk, row, k0 + tx + 8 * mm);
+        tmax = fmaxf(tmax, s[i][mm]);
+      }
+      const float m_new = fmaxf(m[i], row_max(tmax));
+      const float m_safe = fmaxf(m_new, kHalfNegInf);
+      const float alpha = expf(m[i] - m_safe);
+      float psum = 0.f;
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {
+        const float p = expf(s[i][mm] - m_safe);
+        psum += p;
+        p_s[(ty * R + i) * kLd + tx + 8 * mm] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) acc[i][cc] *= alpha;
+    }
+    __syncthreads();
+    acc_tile<R, BLK, false>(acc, p_s, v_s, ty, tx);
+  }
+
+  T* ob = o + bh * Tn * kD;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty * R + i;
+    const float lv = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / lv;
+#pragma unroll
+    for (int cc = 0; cc < 8; ++cc)
+      ob[(size_t)row * kD + tx + 8 * cc] = from_float<T>(acc[i][cc] * inv);
+    if (tx == 0) lse[bh * Tn + row] = fmaxf(m[i], kHalfNegInf) + logf(lv);
+  }
+}
+
+// K7b on the FMAs: one CTA per key block over the transposed LUT; with kDq
+// it adds dq into dq_acc by atomics.
+template <typename T, int BLK, bool kDq>
+__global__ void __launch_bounds__(kThreadsF)
+    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ tlut,
+                int deg, const float* __restrict__ kpm,
+                const float* __restrict__ bias, const T* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq_acc,
+                T* __restrict__ dk, T* __restrict__ dv, int H, int Tn,
+                float scale, int causal, int kpm_mul, int bias_mul) {
+  constexpr int R = BLK / 16, C = BLK / 8;
+  extern __shared__ float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + BLK * kLd;
+  float* q_s = v_s + BLK * kLd;
+  float* do_s = q_s + BLK * kLd;
+  float* pt_s = do_s + BLK * kLd;   // p^T: [key][query]
+  float* dst_s = pt_s + BLK * kLd;  // ds^T: [key][query]
+  float* lse_s = dst_s + BLK * kLd;
+  float* delta_s = lse_s + BLK;
+  int* lut_s = reinterpret_cast<int*>(delta_s + BLK);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* qb = q + bh * Tn * kD;
+  const T* dob = dout + bh * Tn * kD;
+  const Masks mk =
+      make_masks(kpm, bias, b, bh, Tn, causal, kpm_mul, bias_mul);
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int k0 = blockIdx.x * BLK;
+
+  stage_lut(lut_s, tlut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
+  load_f<BLK>(k_s, k + bh * Tn * kD, k0, 1.f);
+  load_f<BLK>(v_s, v + bh * Tn * kD, k0, 1.f);
+  float dk_acc[R][8], dv_acc[R][8];
+  zero_rows(dk_acc);
+  zero_rows(dv_acc);
+
+  for (int j = 0; j < deg; ++j) {
+    __syncthreads();  // lut_s staged; the previous tile's buffers read
+    const int r = lut_s[j];
+    if (r < 0) continue;
+    const int q0 = r * BLK;
+    load_f<BLK>(q_s, qb, q0, 1.f);
+    load_f<BLK>(do_s, dob, q0, 1.f);
+    load_vec<BLK>(lse_s, lse + bh * Tn, q0);
+    load_vec<BLK>(delta_s, delta + bh * Tn, q0);
+    __syncthreads();
+    float st[R][C], dpt[R][C];
+    dot_tile(st, k_s, q_s, ty, tx);   // s^T[key][query]
+    dot_tile(dpt, v_s, do_s, ty, tx);  // (do v^T)^T[key][query]
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int key = k0 + ty * R + i;
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {
+        const int qc = tx + 8 * mm;
+        const float x = masked(st[i][mm] * scale, mk, q0 + qc, key);
+        const float p = expf(x - lse_s[qc]);
+        pt_s[(ty * R + i) * kLd + qc] = p;
+        dst_s[(ty * R + i) * kLd + qc] =
+            score_grad(p, dpt[i][mm], delta_s[qc], scale, mk, q0 + qc, key);
+      }
+    }
+    __syncthreads();
+    acc_tile<R, BLK, false>(dv_acc, pt_s, do_s, ty, tx);
+    acc_tile<R, BLK, false>(dk_acc, dst_s, q_s, ty, tx);
+    if (kDq) {
+      float dq[R][8];
+      zero_rows(dq);
+      acc_tile<R, BLK, true>(dq, dst_s, k_s, ty, tx);  // dq[query][c]
+      float* dqb = dq_acc + bh * Tn * kD;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int cc = 0; cc < 8; ++cc)
+          atomicAdd(&dqb[(size_t)(q0 + ty * R + i) * kD + tx + 8 * cc],
+                    dq[i][cc]);
+    }
+  }
+  store_f(dk + bh * Tn * kD, dk_acc, k0, ty, tx);
+  store_f(dv + bh * Tn * kD, dv_acc, k0, ty, tx);
+}
+
+// The split backward's dq on the FMAs: one CTA per query block over the
+// forward LUT, no atomics.
+template <typename T, int BLK>
+__global__ void __launch_bounds__(kThreadsF)
+    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ lut, int deg,
+              const float* __restrict__ kpm, const float* __restrict__ bias,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dq, int H,
+              int Tn, float scale, int causal, int kpm_mul, int bias_mul) {
+  constexpr int R = BLK / 16, C = BLK / 8;
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + BLK * kLd;
+  float* k_s = do_s + BLK * kLd;
+  float* v_s = k_s + BLK * kLd;
+  float* ds_s = v_s + BLK * kLd;  // ds: [query][key]
+  float* lse_s = ds_s + BLK * kLd;
+  float* delta_s = lse_s + BLK;
+  int* lut_s = reinterpret_cast<int*>(delta_s + BLK);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const T* kb = k + bh * Tn * kD;
+  const T* vb = v + bh * Tn * kD;
+  const Masks mk =
+      make_masks(kpm, bias, b, bh, Tn, causal, kpm_mul, bias_mul);
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  const int q0 = blockIdx.x * BLK;
+
+  stage_lut(lut_s, lut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
+  load_f<BLK>(q_s, q + bh * Tn * kD, q0, 1.f);
+  load_f<BLK>(do_s, dout + bh * Tn * kD, q0, 1.f);
+  load_vec<BLK>(lse_s, lse + bh * Tn, q0);
+  load_vec<BLK>(delta_s, delta + bh * Tn, q0);
+  float acc[R][8];
+  zero_rows(acc);
+
+  for (int j = 0; j < deg; ++j) {
+    __syncthreads();  // lut_s staged; the previous tile's buffers read
+    const int c = lut_s[j];
+    if (c < 0) continue;
+    const int k0 = c * BLK;
+    load_f<BLK>(k_s, kb, k0, 1.f);
+    load_f<BLK>(v_s, vb, k0, 1.f);
+    __syncthreads();
+    float s[R][C], dp[R][C];
+    dot_tile(s, q_s, k_s, ty, tx);
+    dot_tile(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int rr = ty * R + i;
+#pragma unroll
+      for (int mm = 0; mm < C; ++mm) {
+        const int key = k0 + tx + 8 * mm;
+        const float x = masked(s[i][mm] * scale, mk, q0 + rr, key);
+        const float p = expf(x - lse_s[rr]);
+        ds_s[rr * kLd + tx + 8 * mm] =
+            score_grad(p, dp[i][mm], delta_s[rr], scale, mk, q0 + rr, key);
+      }
+    }
+    __syncthreads();
+    acc_tile<R, BLK, false>(acc, ds_s, k_s, ty, tx);
+  }
+  store_f(dq + bh * Tn * kD, acc, q0, ty, tx);
+}
+
+// ----------------------------------------------------------------- launch
+
+// Shared memory of each kernel, the LUT row (deg ints) included.
+template <int BLK>
+constexpr size_t mma_dkdv_smem(bool dq) {
+  return (2 * BLK * kLdh + 2 * kD * (BLK + 8)) * sizeof(bf16) +
+         2 * BLK * sizeof(float) +
+         (dq ? (kD * (BLK + 8) + 2 * BLK * (BLK + 8)) * sizeof(bf16) : 0);
+}
+// The FMA kernels: `tiles` [BLK, 65] fp32 tiles and `vecs` [BLK] rows.
+template <int BLK>
+constexpr size_t fma_smem(int tiles, int vecs) {
+  return (tiles * BLK * kLd + vecs * BLK) * sizeof(float);
+}
+
+// Set the kernel's dynamic shared-memory limit and launch it; returns the
+// CUDA error (0 on success).
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, int threads, size_t smem, dim3 grid,
+           cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const int* lut;
+  int deg;
+  const float *kpm, *bias, *lse, *delta;
+  void *o, *dq, *dk, *dv;
+  float *lse_out, *dq_acc;
+  int B, H, T;
+  float scale;
+  int causal, kpm_mul, bias_mul;
+  cudaStream_t st;
+};
+
+template <typename T, int BLK>
+int run_fwd(const Args& a) {
+  const dim3 grid(a.T / BLK, a.H, a.B);
+  const size_t lut = a.deg * sizeof(int);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch(fwd_mma_kernel<BLK>, 2 * BLK, lut, grid, a.st, q, k, v,
+                  a.lut, a.deg, a.kpm, a.bias, static_cast<T*>(a.o),
+                  a.lse_out, a.H, a.T, a.scale, a.causal, a.kpm_mul,
+                  a.bias_mul);
+  } else {
+    return launch(fwd_kernel<T, BLK>, kThreadsF, fma_smem<BLK>(4, 0) + lut,
+                  grid, a.st, q, k, v, a.lut, a.deg, a.kpm, a.bias,
+                  static_cast<T*>(a.o), a.lse_out, a.H, a.T, a.scale,
+                  a.causal, a.kpm_mul, a.bias_mul);
+  }
+}
+
+template <typename T, int BLK>
+int run_dkdv(const Args& a, int fused) {
+  const dim3 grid(a.T / BLK, a.H, a.B);
+  const size_t lut = a.deg * sizeof(int);
+  auto go = [&](auto kernel, int threads, size_t smem) {
+    return launch(kernel, threads, smem + lut, grid, a.st,
+                  static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                  static_cast<const T*>(a.v), a.lut, a.deg, a.kpm, a.bias,
+                  static_cast<const T*>(a.dout), a.lse, a.delta, a.dq_acc,
+                  static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.T,
+                  a.scale, a.causal, a.kpm_mul, a.bias_mul);
+  };
+  if constexpr (std::is_same<T, bf16>::value) {
+    return fused ? go(dkdv_mma_kernel<BLK, true>, 2 * BLK,
+                      mma_dkdv_smem<BLK>(true))
+                 : go(dkdv_mma_kernel<BLK, false>, 2 * BLK,
+                      mma_dkdv_smem<BLK>(false));
+  } else {
+    return fused ? go(dkdv_kernel<T, BLK, true>, kThreadsF,
+                      fma_smem<BLK>(6, 2))
+                 : go(dkdv_kernel<T, BLK, false>, kThreadsF,
+                      fma_smem<BLK>(6, 2));
+  }
+}
+
+template <typename T, int BLK>
+int run_dq(const Args& a) {
+  const dim3 grid(a.T / BLK, a.H, a.B);
+  const size_t lut = a.deg * sizeof(int);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch(dq_mma_kernel<BLK>, 2 * BLK, lut, grid, a.st, q, k, v,
+                  a.lut, a.deg, a.kpm, a.bias, dout, a.lse, a.delta,
+                  static_cast<T*>(a.dq), a.H, a.T, a.scale, a.causal,
+                  a.kpm_mul, a.bias_mul);
+  } else {
+    return launch(dq_kernel<T, BLK>, kThreadsF, fma_smem<BLK>(5, 2) + lut,
+                  grid, a.st, q, k, v, a.lut, a.deg, a.kpm, a.bias, dout,
+                  a.lse, a.delta, static_cast<T*>(a.dq), a.H, a.T, a.scale,
+                  a.causal, a.kpm_mul, a.bias_mul);
+  }
+}
+
+// Dispatch on (dtype, block): 0 = float32, 1 = bfloat16, 2 = float16;
+// blocks 16, 32, 64.
+template <template <typename, int> class Op>
+int dispatch(int dtype, int block, const Args& a, int extra) {
+#define DS_SPARSE_BLOCKS(T)                          \
+  switch (block) {                                   \
+    case 16:                                         \
+      return Op<T, 16>::run(a, extra);               \
+    case 32:                                         \
+      return Op<T, 32>::run(a, extra);               \
+    case 64:                                         \
+      return Op<T, 64>::run(a, extra);               \
+    default:                                         \
+      return (int)cudaErrorInvalidValue;             \
+  }
+  switch (dtype) {
+    case 0:
+      DS_SPARSE_BLOCKS(float)
+    case 1:
+      DS_SPARSE_BLOCKS(bf16)
+    case 2:
+      DS_SPARSE_BLOCKS(__half)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DS_SPARSE_BLOCKS
+}
+
+template <typename T, int BLK>
+struct FwdOp {
+  static int run(const Args& a, int) { return run_fwd<T, BLK>(a); }
+};
+template <typename T, int BLK>
+struct DkdvOp {
+  static int run(const Args& a, int fused) {
+    return run_dkdv<T, BLK>(a, fused);
+  }
+};
+template <typename T, int BLK>
+struct DqOp {
+  static int run(const Args& a, int) { return run_dq<T, BLK>(a); }
+};
+
+// The arguments every entry point takes.
+Args common_args(const void* q, const void* k, const void* v, const int* lut,
+                 int deg, const float* kpm, const float* bias, int B, int H,
+                 int T, float scale, int causal, int kpm_mul, int bias_mul,
+                 void* stream) {
+  Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.lut = lut;
+  a.deg = deg;
+  a.kpm = kpm;
+  a.bias = bias;
+  a.B = B;
+  a.H = H;
+  a.T = T;
+  a.scale = scale;
+  a.causal = causal;
+  a.kpm_mul = kpm_mul;
+  a.bias_mul = bias_mul;
+  a.st = reinterpret_cast<cudaStream_t>(stream);
+  return a;
+}
+
+bool shape_ok(int B, int H, int T, int D, int block, int deg) {
+  return D == kD && B >= 1 && H >= 1 && B <= 65535 && H <= 65535 &&
+         (block == 16 || block == 32 || block == 64) && T >= block &&
+         T % block == 0 && deg >= 1 && deg <= T / block;
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. Every tensor contiguous: q, k, v,
+// o, dout, dq, dk, dv [B, H, T, 64] of `dtype`; lse, delta [B, H, T] fp32;
+// lut [H, T / block, deg] int32 (-1 padded); kpm [B, T] and bias
+// [B, H, T, T] fp32 or null; kpm_mul / bias_mul 1 for 'mul' mode. Each
+// launches on `stream` and returns cudaGetLastError() (0 on success); what
+// the kernels do not take returns cudaErrorInvalidValue.
+
+// K7a: o and lse, over the forward LUT.
+extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v,
+                             const int* lut, int deg, const float* kpm,
+                             const float* bias, void* o, float* lse, int B,
+                             int H, int T, int D, int block, int dtype,
+                             float scale, int causal, int kpm_mul,
+                             int bias_mul, void* stream) {
+  if (!shape_ok(B, H, T, D, block, deg)) return (int)cudaErrorInvalidValue;
+  Args a = common_args(q, k, v, lut, deg, kpm, bias, B, H, T, scale, causal,
+                       kpm_mul, bias_mul, stream);
+  a.o = o;
+  a.lse_out = lse;
+  return dispatch<FwdOp>(dtype, block, a, 0);
+}
+
+// K7b fused (fused = 1): dk, dv over the transposed LUT, and dq added into
+// dq_acc (fp32, zeroed by the caller). The split backward's first kernel
+// (fused = 0): dk and dv only; dq_acc unused.
+extern "C" int ds_sparse_bwd_dkdv(const void* q, const void* k,
+                                  const void* v, const int* tlut, int deg,
+                                  const float* kpm, const float* bias,
+                                  const void* dout, const float* lse,
+                                  const float* delta, float* dq_acc,
+                                  void* dk, void* dv, int B, int H, int T,
+                                  int D, int block, int dtype, float scale,
+                                  int causal, int kpm_mul, int bias_mul,
+                                  int fused, void* stream) {
+  if (!shape_ok(B, H, T, D, block, deg) || (fused && dq_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a = common_args(q, k, v, tlut, deg, kpm, bias, B, H, T, scale,
+                       causal, kpm_mul, bias_mul, stream);
+  a.dout = dout;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq_acc = dq_acc;
+  a.dk = dk;
+  a.dv = dv;
+  return dispatch<DkdvOp>(dtype, block, a, fused);
+}
+
+// The split backward's second kernel: dq in the input type, over the
+// forward LUT.
+extern "C" int ds_sparse_bwd_dq(const void* q, const void* k, const void* v,
+                                const int* lut, int deg, const float* kpm,
+                                const float* bias, const void* dout,
+                                const float* lse, const float* delta,
+                                void* dq, int B, int H, int T, int D,
+                                int block, int dtype, float scale,
+                                int causal, int kpm_mul, int bias_mul,
+                                void* stream) {
+  if (!shape_ok(B, H, T, D, block, deg)) return (int)cudaErrorInvalidValue;
+  Args a = common_args(q, k, v, lut, deg, kpm, bias, B, H, T, scale, causal,
+                       kpm_mul, bias_mul, stream);
+  a.dout = dout;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq;
+  return dispatch<DqOp>(dtype, block, a, 0);
+}

@@ -22,9 +22,13 @@ JAX package uses flax's ``nn.Dropout``. The mask is a function of the seed,
 so a run on the card and one on the CPU draw the same masks. Every seed
 comes from the caller's ``torch.Generator``.
 
-Not on this path yet (ROADMAP Queue 1): ``sequence_parallel_axis`` (the
-sequence-parallel slice) and ``sparse_attention_config`` (the
-block-sparse-attention slice, kernels K7a/K7b) raise NotImplementedError.
+Sparse BERT: with ``sparse_attention_config`` (and ``use_fused_layer=False``)
+the plain layer's attention is ``sparse_self_attention`` (kernels K7a/K7b on
+the card) with the padding mask as an additive key-padding mask; the
+probabilities never exist, so the attention dropout moves to the context
+output, as in the JAX package. Not on this path yet (ROADMAP Queue 1):
+``sequence_parallel_axis`` (the sequence-parallel slice) raises
+NotImplementedError.
 """
 
 import dataclasses
@@ -37,6 +41,8 @@ from torch import nn
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.gpt2 import Dense, LayerNorm, dense, layer_norm
 from deepspeed_tpu_torch.models.heads import chunked_tied_softmax_xent
+from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
+    sparse_self_attention)
 from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.ops.transformer.kernels.dropout import dropout
@@ -61,7 +67,7 @@ class BertConfig:
     dtype: torch.dtype = torch.bfloat16
     pre_layer_norm: bool = False
     use_fused_layer: bool = True
-    # Only None is ported for these two (forward raises otherwise).
+    # Only None is ported for sequence parallelism (forward raises otherwise).
     sequence_parallel_axis: Any = None
     sequence_parallel_mode: str = "ring"
     sparse_attention_config: Any = None
@@ -151,7 +157,8 @@ class BertEmbeddings(nn.Module):
 
 class PlainBertLayer(nn.Module):
     """The stock post-LN BERT layer in plain torch (erf GELU, dense
-    attention): the ``use_fused_layer=False`` opt-out."""
+    attention, or block-sparse with ``sparse_attention_config``): the
+    ``use_fused_layer=False`` opt-out."""
 
     def __init__(self, config, device):
         super().__init__()
@@ -178,13 +185,20 @@ class PlainBertLayer(nn.Module):
 
         q, k, v = (heads(dense(x, getattr(self, n)))
                    for n in ("query", "key", "value"))
-        s = torch.matmul(q, k.transpose(-1, -2)) / float(hd) ** 0.5
-        if add_mask is not None:
-            s = s + add_mask[:, None, None, :].to(s.dtype)
-        p = torch.softmax(s.float(), dim=-1).to(dt)
-        p = dropout(p, cfg.attention_probs_dropout_prob, seeds[0],
-                    deterministic)
-        ctx = torch.matmul(p, v).transpose(1, 2).reshape(B, T, H)
+        if cfg.sparse_attention_config is not None:
+            ctx = sparse_self_attention(q, k, v, cfg.sparse_attention_config,
+                                        key_padding_mask=add_mask)
+            ctx = dropout(ctx, cfg.attention_probs_dropout_prob, seeds[0],
+                          deterministic)
+        else:
+            s = torch.matmul(q, k.transpose(-1, -2)) / float(hd) ** 0.5
+            if add_mask is not None:
+                s = s + add_mask[:, None, None, :].to(s.dtype)
+            p = torch.softmax(s.float(), dim=-1).to(dt)
+            p = dropout(p, cfg.attention_probs_dropout_prob, seeds[0],
+                        deterministic)
+            ctx = torch.matmul(p, v)
+        ctx = ctx.transpose(1, 2).reshape(B, T, H)
         a = dropout(dense(ctx, self.attn_out), cfg.hidden_dropout_prob,
                     seeds[1], deterministic)
         eps = cfg.layer_norm_eps
@@ -248,15 +262,25 @@ class BertModel(nn.Module):
         """(sequence output ``[B, T, H]``, pooled ``[B, H]``, the word
         table). ``attention_mask``: 1 keep / 0 pad, ``[B, T]``."""
         cfg = self.config
-        if cfg.sequence_parallel_axis is not None:
+        sp = cfg.sequence_parallel_axis
+        sparse = cfg.sparse_attention_config is not None
+        if sp is not None and cfg.use_fused_layer:
+            raise ValueError(
+                "sequence_parallel BERT requires use_fused_layer=False "
+                "(the plain encoder path carries the ring attention)")
+        if sparse and cfg.use_fused_layer:
+            raise ValueError(
+                "sparse_attention_config requires use_fused_layer=False "
+                "(the plain encoder path carries the block-sparse kernel)")
+        if sparse and sp is not None:
+            raise ValueError(
+                "sparse attention x sequence parallelism is not supported "
+                "(the block-sparse layout is over the full sequence)")
+        if sp is not None:
             raise NotImplementedError(
                 "sequence_parallel_axis={!r}: sequence-parallel BERT comes "
                 "with the sequence-parallel slice (ROADMAP Queue 1)".format(
-                    cfg.sequence_parallel_axis))
-        if cfg.sparse_attention_config is not None:
-            raise NotImplementedError(
-                "sparse_attention_config: block-sparse BERT comes with the "
-                "sparse-attention slice, kernels K7a/K7b (ROADMAP Queue 1)")
+                    sp))
         if not deterministic and generator is None:
             generator = torch.default_generator
         x, wte = self.embeddings(

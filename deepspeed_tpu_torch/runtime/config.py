@@ -31,7 +31,23 @@ from deepspeed_tpu_torch.runtime.constants import (
     GRADIENT_ACCUMULATION_STEPS_DEFAULT, GRADIENT_CLIPPING,
     GRADIENT_CLIPPING_DEFAULT, MAX_GRAD_NORM, OPTIMIZER, OPTIMIZER_PARAMS,
     OPTIMIZER_TYPE_DEFAULT, SCHEDULER, SCHEDULER_PARAMS,
-    SCHEDULER_TYPE_DEFAULT, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
+    SCHEDULER_TYPE_DEFAULT, SPARSE_ATTENTION, SPARSE_ATTENTION_TYPE,
+    SPARSE_ATTENTION_TYPE_DEFAULT, SPARSE_BIGBIRD_MODE, SPARSE_BLOCK,
+    SPARSE_BLOCK_DEFAULT, SPARSE_BSLONGFORMER_MODE, SPARSE_DENSE_MODE,
+    SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+    SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT, SPARSE_FIXED_MODE,
+    SPARSE_GLOBAL_BLOCK_END_INDICES, SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT,
+    SPARSE_GLOBAL_BLOCK_INDICES, SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT,
+    SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+    SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT, SPARSE_LOCAL_WINDOW_BLOCKS,
+    SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT, SPARSE_MODE, SPARSE_MODE_DEFAULT,
+    SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS,
+    SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT, SPARSE_NUM_GLOBAL_BLOCKS,
+    SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT, SPARSE_NUM_LOCAL_BLOCKS,
+    SPARSE_NUM_LOCAL_BLOCKS_DEFAULT, SPARSE_NUM_RANDOM_BLOCKS,
+    SPARSE_NUM_RANDOM_BLOCKS_DEFAULT, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+    SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT, SPARSE_VARIABLE_MODE,
+    STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
     TRAIN_BATCH_SIZE, TRAIN_BATCH_SIZE_DEFAULT,
     TRAIN_MICRO_BATCH_SIZE_PER_GPU, TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
     TYPE, ValidationMode)
@@ -109,6 +125,67 @@ _UNPORTED_SCALARS = {
     "memory_breakdown": (False, _TELEMETRY),
 }
 
+# Sparse-attention blocks: per sparsity mode, the keys that mode accepts
+# (the JAX package's table). The parsed dict is {mode, **{key:
+# value-or-default}}.
+_SPARSE_MODE_KEYS = {
+    SPARSE_DENSE_MODE: (SPARSE_BLOCK,),
+    SPARSE_FIXED_MODE: (
+        SPARSE_BLOCK, SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+        SPARSE_NUM_LOCAL_BLOCKS, SPARSE_NUM_GLOBAL_BLOCKS,
+        SPARSE_ATTENTION_TYPE, SPARSE_HORIZONTAL_GLOBAL_ATTENTION,
+        SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS),
+    SPARSE_VARIABLE_MODE: (
+        SPARSE_BLOCK, SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+        SPARSE_NUM_RANDOM_BLOCKS, SPARSE_LOCAL_WINDOW_BLOCKS,
+        SPARSE_GLOBAL_BLOCK_INDICES, SPARSE_GLOBAL_BLOCK_END_INDICES,
+        SPARSE_ATTENTION_TYPE, SPARSE_HORIZONTAL_GLOBAL_ATTENTION),
+    SPARSE_BIGBIRD_MODE: (
+        SPARSE_BLOCK, SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+        SPARSE_NUM_RANDOM_BLOCKS, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
+        SPARSE_NUM_GLOBAL_BLOCKS),
+    SPARSE_BSLONGFORMER_MODE: (
+        SPARSE_BLOCK, SPARSE_DIFFERENT_LAYOUT_PER_HEAD,
+        SPARSE_NUM_SLIDING_WINDOW_BLOCKS, SPARSE_GLOBAL_BLOCK_INDICES,
+        SPARSE_GLOBAL_BLOCK_END_INDICES),
+}
+
+_SPARSE_KEY_DEFAULTS = {
+    SPARSE_BLOCK: SPARSE_BLOCK_DEFAULT,
+    SPARSE_DIFFERENT_LAYOUT_PER_HEAD: SPARSE_DIFFERENT_LAYOUT_PER_HEAD_DEFAULT,
+    SPARSE_NUM_LOCAL_BLOCKS: SPARSE_NUM_LOCAL_BLOCKS_DEFAULT,
+    SPARSE_NUM_GLOBAL_BLOCKS: SPARSE_NUM_GLOBAL_BLOCKS_DEFAULT,
+    SPARSE_ATTENTION_TYPE: SPARSE_ATTENTION_TYPE_DEFAULT,
+    SPARSE_HORIZONTAL_GLOBAL_ATTENTION:
+        SPARSE_HORIZONTAL_GLOBAL_ATTENTION_DEFAULT,
+    SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS:
+        SPARSE_NUM_DIFFERENT_GLOBAL_PATTERNS_DEFAULT,
+    SPARSE_NUM_RANDOM_BLOCKS: SPARSE_NUM_RANDOM_BLOCKS_DEFAULT,
+    SPARSE_LOCAL_WINDOW_BLOCKS: SPARSE_LOCAL_WINDOW_BLOCKS_DEFAULT,
+    SPARSE_GLOBAL_BLOCK_INDICES: SPARSE_GLOBAL_BLOCK_INDICES_DEFAULT,
+    SPARSE_GLOBAL_BLOCK_END_INDICES: SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT,
+    SPARSE_NUM_SLIDING_WINDOW_BLOCKS:
+        SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT,
+}
+
+
+def parse_sparse_attention(param_dict):
+    """``sparse_attention`` block -> flat {mode, **fields} dict, or None."""
+    if SPARSE_ATTENTION not in param_dict:
+        return None
+    sparsity = param_dict[SPARSE_ATTENTION]
+    mode = get_scalar_param(sparsity, SPARSE_MODE, SPARSE_MODE_DEFAULT)
+    if mode not in _SPARSE_MODE_KEYS:
+        raise NotImplementedError(
+            "Given sparsity mode, {}, has not been implemented yet!".format(
+                mode))
+    parsed = {SPARSE_MODE: mode}
+    for key in _SPARSE_MODE_KEYS[mode]:
+        parsed[key] = get_scalar_param(sparsity, key,
+                                       _SPARSE_KEY_DEFAULTS[key])
+    return parsed
+
+
 _PIPELINE_DEFAULTS = {"stages": "auto", "partition": "best",
                       "seed_layers": False,
                       "activation_checkpoint_interval": 0}
@@ -145,9 +222,6 @@ def _check_ported(param_dict, zero):
     pipeline = param_dict.get("pipeline", {})
     if dict(_PIPELINE_DEFAULTS, **pipeline) != _PIPELINE_DEFAULTS:
         _refuse("'pipeline': {!r}".format(pipeline), _RUNTIME)
-    if "sparse_attention" in param_dict:
-        _refuse("'sparse_attention'", "the sparse-attention slice with "
-                "kernels K7a/K7b (ROADMAP Queue 1)")
     if param_dict.get("activation_checkpointing"):
         _refuse("'activation_checkpointing' (use GPT2Config(remat=True) for "
                 "per-block checkpointing)", _RUNTIME)
@@ -205,6 +279,7 @@ class DeepSpeedConfig(object):
         self.zero_enabled = self.zero_optimization_stage > 0
         _check_ported(param_dict, self.zero_config)
         self.inference = self._parse_inference(param_dict)
+        self.sparse_attention = parse_sparse_attention(param_dict)
 
         tag_mode = str(_read(param_dict, (CHECKPOINT,
                                           CHECKPOINT_TAG_VALIDATION),

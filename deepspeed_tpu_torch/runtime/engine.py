@@ -166,6 +166,9 @@ class DeepSpeedEngine(object):
     def gradient_clipping(self):
         return self._config.gradient_clipping
 
+    def sparse_attention(self):
+        return self._config.sparse_attention
+
     def _configure_optimizer(self, client_optimizer):
         self.optimizer = client_optimizer
         if client_optimizer is None and \

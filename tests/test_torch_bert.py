@@ -8,7 +8,11 @@ agrees within 1e-5 relative and every gradient within 1e-5 of its tensor's
 max-abs, for the fused layer and the plain one; so does a five-step engine
 loss trace, and checkpoints load across the packages. At dropout 0.1 the
 port's masks are its own (Philox), so the port is held to training
-behaviour: a finite loss that falls, and no dropout in ``eval()``.
+behaviour: a finite loss that falls, and no dropout in ``eval()``. Sparse
+BERT (the plain layer on block-sparse attention, T = 128 at blocks of 32)
+matches the JAX package's Pallas kernels in interpret mode in both backward
+modes: the loss within 1e-5 relative, every gradient within 1e-4 of its
+tensor's max-abs, and a three-step engine loss trace.
 """
 
 import dataclasses
@@ -45,18 +49,18 @@ def _close(got, want, tol=TOL, msg=""):
                                rtol=0, err_msg=msg)
 
 
-def _batch(n, seed, vocab=1024):
+def _batch(n, seed, vocab=1024, seq=SEQ):
     """(ids, mask, token types, MLM labels, NSP labels) as BERT pretraining
     feeds them: every other row padded after a random length, 15% of the
     real positions predicted, token type 1 on the second half."""
     rng = np.random.RandomState(seed)
-    ids = rng.randint(0, vocab, size=(n, SEQ))
-    mask = np.ones((n, SEQ), np.int64)
+    ids = rng.randint(0, vocab, size=(n, seq))
+    mask = np.ones((n, seq), np.int64)
     for row in range(0, n, 2):
-        mask[row, rng.randint(SEQ // 4, SEQ):] = 0
-    types = np.zeros((n, SEQ), np.int64)
-    types[:, SEQ // 2:] = 1
-    labels = np.where((rng.rand(n, SEQ) < 0.15) & (mask == 1), ids, -1)
+        mask[row, rng.randint(seq // 4, seq):] = 0
+    types = np.zeros((n, seq), np.int64)
+    types[:, seq // 2:] = 1
+    labels = np.where((rng.rand(n, seq) < 0.15) & (mask == 1), ids, -1)
     labels[:, 1] = ids[:, 1]  # at least one predicted position per row
     nsp = rng.randint(0, 2, size=(n,))
     return ids, mask, types, labels, nsp
@@ -175,11 +179,18 @@ def test_config_sizes_and_unported_paths():
         assert ours.num_params() == theirs.num_params()
     ids = torch.zeros(1, 8, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        BertForPreTraining(_port_config(sequence_parallel_axis="seq"),
+        BertForPreTraining(_port_config(sequence_parallel_axis="seq",
+                                        use_fused_layer=False),
                            device="cpu")(ids)
-    with pytest.raises(NotImplementedError, match="K7a/K7b"):
-        BertForPreTraining(_port_config(sparse_attention_config=object()),
-                           device="cpu")(ids)
+    # The JAX package's configuration errors, in its order.
+    for over, match in (({"sequence_parallel_axis": "seq"}, "sequence_par"),
+                        ({"sparse_attention_config": object()},
+                         "use_fused_layer=False"),
+                        ({"sparse_attention_config": object(),
+                          "sequence_parallel_axis": "seq",
+                          "use_fused_layer": False}, "sequence paral")):
+        with pytest.raises(ValueError, match=match):
+            BertForPreTraining(_port_config(**over), device="cpu")(ids)
     if not torch.cuda.is_available():  # the default device is the GPU
         with pytest.raises(RuntimeError, match="device='cpu'"):
             BertForPreTraining(_port_config())
@@ -287,3 +298,107 @@ def test_checkpoint_loads_across_packages(tmp_path, direction):
     want = [_step(src, i) for i in range(2, 4)]
     got = [_step(dst, i) for i in range(2, 4)]
     np.testing.assert_allclose(got, want, rtol=TOL)
+
+
+# Sparse BERT: the plain layer on block-sparse attention (kernels K7a/K7b on
+# the card, their plain versions here), at T = 128 with blocks of 32.
+SPARSE_SEQ = 128
+
+
+def _sparse_configs(**over):
+    from deepspeed_tpu.ops.sparse_attention import FixedSparsityConfig as JF
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig as TF)
+    kw = dict(use_fused_layer=False, **dict(NO_DROPOUT, **over))
+    return (JConfig.tiny(dtype=jnp.float32, sparse_attention_config=JF(
+                num_heads=4, block=32, num_local_blocks=2), **kw),
+            BertConfig.tiny(dtype=torch.float32, sparse_attention_config=TF(
+                num_heads=4, block=32, num_local_blocks=2), **kw))
+
+
+_SPARSE_PARAMS = {}
+
+
+def _sparse_jax_params():
+    if not _SPARSE_PARAMS:
+        jcfg, _ = _sparse_configs()
+        batch = [jnp.asarray(a) for a in _batch(2, 0, seq=SPARSE_SEQ)]
+        _SPARSE_PARAMS["p"] = _tree(JModel(jcfg).init(
+            jax.random.PRNGKey(0), *batch)["params"])
+    return jax.tree_util.tree_map(jnp.asarray, _SPARSE_PARAMS["p"])
+
+
+@pytest.mark.parametrize("bwd", ["fused", "split"])
+def test_sparse_pretraining_loss_and_every_grad_match_jax(monkeypatch, bwd):
+    """The loss within 1e-5 relative and every gradient within 1e-4 of its
+    tensor's max-abs, the JAX side on its Pallas kernels in interpret
+    mode (both backward modes), the port on the plain versions."""
+    monkeypatch.setenv("DS_TPU_FLASH_BWD", bwd)
+    jcfg, tcfg = _sparse_configs()
+    params = _sparse_jax_params()
+    batch = _batch(2, 1, seq=SPARSE_SEQ)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: JModel(jcfg).apply({"params": p},
+                                     *(jnp.asarray(a) for a in batch)))(
+        params)
+    model = params_from_jax(_tree(params), tcfg, device="cpu")
+    model.requires_grad_(True)
+    loss = model(*(torch.from_numpy(a) for a in batch))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=TOL)
+    want = _flat(_tree(jgrads))
+    got = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    assert set(got) == set(want)
+    largest = max(float(np.abs(w).max()) for w in want.values())
+    for name in want:
+        if name.endswith("key.bias"):  # zero in exact arithmetic, as above
+            for g in (got[name], want[name]):
+                assert float(np.abs(g).max()) < 1e-4 * largest, name
+            continue
+        _close(got[name], want[name], tol=1e-4, msg=name)
+
+
+def test_sparse_engine_three_step_loss_trace_matches_jax():
+    jcfg, tcfg = _sparse_configs()
+    params = _sparse_jax_params()
+    mesh = mesh_lib.build_mesh(num_dp=1, devices=jax.devices()[:1])
+    sparse_config = dict(CONFIG, sparse_attention={"mode": "fixed",
+                                                   "block": 32})
+    jeng = jds.initialize(model=JModel(jcfg), model_parameters=params,
+                          config_params=sparse_config, mesh=mesh)[0]
+    teng = tds.initialize(
+        model=BertForPreTraining(tcfg, device="cpu", seed=None),
+        model_parameters=_tree(params), config_params=sparse_config,
+        device="cpu")[0]
+    assert teng.sparse_attention() == jeng.sparse_attention()
+
+    def step(engine, seed):
+        ids, mask, types, labels, nsp = _batch(4, seed, seq=SPARSE_SEQ)
+        loss = engine(ids, mask, types, labels, nsp)
+        engine.backward(loss)
+        engine.step()
+        return float(loss.detach() if isinstance(loss, torch.Tensor)
+                     else loss)
+
+    jl = [step(jeng, 30 + i % 2) for i in range(3)]
+    tl = [step(teng, 30 + i % 2) for i in range(3)]
+    np.testing.assert_allclose(tl, jl, rtol=TOL)
+    assert jl[-1] < jl[0]
+
+
+def test_sparse_bert_trains_with_dropout_on_the_context():
+    """At dropout 0.1 the sparse layer's attention dropout is K10a's on the
+    context output: the loss is finite and falls, two training forwards
+    differ, and eval() is deterministic."""
+    _, tcfg = _sparse_configs(hidden_dropout_prob=0.1,
+                              attention_probs_dropout_prob=0.1)
+    engine = tds.initialize(
+        model=BertForPreTraining(tcfg, device="cpu", seed=0),
+        config_params=CONFIG, device="cpu")[0]
+    batch = _batch(4, 40, seq=SPARSE_SEQ)
+    losses = [float(engine.train_batch(batch=batch)) for _ in range(6)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    with torch.no_grad():
+        assert float(engine(*batch)) != float(engine(*batch))
+        engine.eval()
+        assert float(engine(*batch)) == float(engine(*batch))

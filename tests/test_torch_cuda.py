@@ -1,14 +1,15 @@
 """Kernels on the card: K3-K6 (flash decode over dense and paged, fp and
-int8 caches), K1/K2a/K2b (flash attention for training) and the fused
+int8 caches), K1/K2a/K2b (flash attention for training), the fused
 layer's row kernels K8 (LayerNorm), K10a/K10b (dropout and its replay) and
-K11 (bias + GELU) against their plain PyTorch versions, and the wrappers'
-refusals on CUDA tensors.
+K11 (bias + GELU), and K7a/K7b (block-sparse attention) against their plain
+PyTorch versions, and the wrappers' refusals on CUDA tensors.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
 imports no JAX, so it runs where JAX is not installed.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +18,7 @@ from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention as da
 from deepspeed_tpu_torch.ops.transformer.kernels import dropout as dr
 from deepspeed_tpu_torch.ops.transformer.kernels import gelu as ge
 from deepspeed_tpu_torch.ops.transformer.kernels import layer_norm as ln
+from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 
 pytestmark = pytest.mark.cuda
 
@@ -471,3 +473,114 @@ def test_row_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda, bad):
             .contiguous(), gamma[:1023], beta[:1023]
     with pytest.raises((TypeError, ValueError)):
         ln.ln_fwd(x, gamma, beta, None, res)
+
+
+# K7a/K7b against their plain versions: |out - ref| <= rtol * |ref| +
+# SPARSE_ACC * mag per element (mag: sk.accumulated_magnitudes), the form of
+# K1/K2's limit. An element sums at most T = 256 terms here (4096 on the
+# sparse BERT path, which sets SPARSE_ACC = 4096 * 2**-24); rtol is one
+# output ulp.
+SPARSE_ACC = 2.0 ** -12
+
+
+def _sparse_layout(block, T, H, kind, seed=0):
+    """A Fixed layout, or a random one with some query blocks (rows) and key
+    blocks (columns) empty, so both LUTs hold -1 entries."""
+    nb = T // block
+    if kind == "fixed":
+        from deepspeed_tpu_torch.ops.sparse_attention import (
+            FixedSparsityConfig)
+        return FixedSparsityConfig(num_heads=H, block=block,
+                                   num_local_blocks=2).make_layout(T)
+    rng = np.random.RandomState(seed)
+    layout = (rng.rand(H, nb, nb) < 0.4).astype(np.int64)
+    layout[:, 1] = 0
+    layout[:, :, 2] = 0
+    return layout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["fp32", "bf16",
+                                                        "fp16"])
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("case", ["fixed_kpm_add", "random_causal",
+                                  "random_mul_bias"])
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_sparse_kernels_match_plain(cuda, dtype, block, case, mode):
+    B, H, T = 2, 2, 256
+    g = torch.Generator(device=cuda)
+    g.manual_seed(block)
+    q, k, v, do = (torch.randn(B, H, T, 64, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    lowered = sk.lower(_sparse_layout(block, T, H, case.split("_")[0],
+                                      seed=block), block)
+    kw = dict(causal=case == "random_causal")
+    if case == "fixed_kpm_add":
+        kpm = torch.zeros(B, T, device=cuda)
+        kpm[1, T // 2 + 5:] = -1e9
+        kw.update(kpm=kpm)
+    if case == "random_mul_bias":
+        kw.update(kpm=(torch.rand(B, T, device=cuda, generator=g) > 0.1)
+                  .float(), kpm_mode="mul",
+                  bias=1.0 + torch.rand(B, H, T, T, device=cuda,
+                                        generator=g),
+                  bias_mode="mul")
+    before = dict(sk.launches)
+    o, lse = sk.sparse_fwd(q, k, v, lowered, **kw)
+    ro, rlse = sk.sparse_fwd_reference(q, k, v, lowered, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    grads = sk.sparse_bwd(q, k, v, lowered, lse, delta, do, mode=mode, **kw)
+    refs = sk.sparse_bwd_reference(q, k, v, lowered, lse, delta, do, **kw)
+    mags = sk.accumulated_magnitudes(q, k, v, lowered, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    assert sk.launches["sparse_fwd"] == before["sparse_fwd"] + 1
+    key = "sparse_bwd_" + mode
+    assert sk.launches[key] == before[key] + (1 if mode == "fused" else 2)
+    rtol = FLASH_RTOL[dtype]
+    assert bool(((lse - rlse).abs() <= 1e-5 * (1 + rlse.abs())).all())
+    for got, ref, mag in zip((o,) + tuple(grads), (ro,) + tuple(refs), mags):
+        assert got.dtype == dtype and got.shape == ref.shape
+        diff = (got.float() - ref.float()).abs()
+        assert bool((diff <= rtol * ref.float().abs() + SPARSE_ACC * mag
+                     + 1e-30).all())
+    if case != "fixed_kpm_add":  # rows of the empty query block
+        rows = slice(block, 2 * block)
+        assert bool((o[:, :, rows] == 0).all())
+
+
+def test_sparse_attention_grads_match_autograd_fp32(cuda):
+    """End to end through the autograd Function, with a learned bias: the
+    kernels against autograd through the dense reference."""
+    B, H, T, block = 2, 2, 128, 32
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    q, k, v, do = (torch.randn(B, H, T, 64, device=cuda, generator=g)
+                   for _ in range(4))
+    bias = 0.1 * torch.randn(B, H, T, T, device=cuda, generator=g)
+    layout = _sparse_layout(block, T, H, "fixed")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = sk.block_sparse_attention(*leaves[:3], layout, block,
+                                    attn_bias=leaves[3])
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    ref = sk.block_sparse_attention_reference(*ref_leaves[:3], layout, block,
+                                              attn_bias=ref_leaves[3])
+    want = torch.autograd.grad(ref, ref_leaves, do)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["fp64", "head_dim", "block", "strided"])
+def test_sparse_wrapper_refuses_what_the_kernels_cannot_take(cuda, bad):
+    q, k, v = (torch.randn(1, 2, 128, 64, device=cuda) for _ in range(3))
+    block = 8 if bad == "block" else 32
+    lowered = sk.lower(np.ones((2, 128 // block, 128 // block)), block)
+    if bad == "fp64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif bad == "head_dim":
+        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+    elif bad == "strided":
+        k = k.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises((TypeError, ValueError)):
+        sk.sparse_fwd(q, k, v, lowered)

@@ -1,7 +1,8 @@
 """The port's ds_config parser against the JAX package's, on the CPU.
 
 A config written for the JAX package parses to the same batch triangle,
-precision, clipping, optimizer, scheduler and loss-scale arguments. A key
+precision, clipping, optimizer, scheduler, loss-scale arguments and
+sparse-attention block. A key
 that switches on a subsystem the port does not have yet raises
 NotImplementedError (its default still parses), and the training entry
 point refuses the CPU unless asked for it.
@@ -64,7 +65,7 @@ def test_parses_as_the_jax_package_does(i):
     {"amp": {"enabled": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"sequence_parallel": {"enabled": True, "size": 2}},
-    {"sparse_attention": {"mode": "fixed"}},
+    {"memory_breakdown": True},
     {"tensorboard": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"elasticity": {"enabled": True}},
@@ -78,6 +79,37 @@ def test_unported_subsystems_raise(extra):
     cfg = dict({"train_batch_size": 8}, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):
         TConfig(None, param_dict=cfg)
+
+
+@pytest.mark.parametrize("block", [
+    {}, {"mode": "dense", "block": 32},
+    {"mode": "fixed", "block": 64, "num_local_blocks": 8,
+     "attention": "unidirectional", "different_layout_per_head": True,
+     "num_different_global_patterns": 2},
+    {"mode": "variable", "num_random_blocks": 2,
+     "local_window_blocks": [4, 8], "global_block_indices": [0, 3],
+     "global_block_end_indices": [2, 5], "horizontal_global_attention": True},
+    {"mode": "bigbird", "num_random_blocks": 3,
+     "num_sliding_window_blocks": 5, "num_global_blocks": 2},
+    {"mode": "bslongformer", "global_block_indices": [0]},
+    {"mode": "fixed", "unknown_key": 1},
+])
+def test_sparse_attention_block_parses_as_the_jax_package_does(block):
+    cfg = {"train_batch_size": 8, "sparse_attention": block}
+    want = JConfig(None, param_dict=dict(cfg), world_size=1).sparse_attention
+    assert TConfig(None, param_dict=dict(cfg)).sparse_attention == want
+    assert want["mode"] == block.get("mode", "fixed")
+
+
+def test_sparse_attention_unknown_mode_raises_like_the_jax_package():
+    cfg = {"train_batch_size": 8, "sparse_attention": {"mode": "strided"}}
+    with pytest.raises(NotImplementedError, match="strided") as want:
+        JConfig(None, param_dict=dict(cfg), world_size=1)
+    with pytest.raises(NotImplementedError) as got:
+        TConfig(None, param_dict=dict(cfg))
+    assert str(got.value) == str(want.value)
+    assert TConfig(None, param_dict={"train_batch_size": 8}) \
+        .sparse_attention is None
 
 
 def test_bad_configs_raise_like_the_jax_package():

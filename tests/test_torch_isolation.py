@@ -40,6 +40,10 @@ def test_import_loads_no_jax_module():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
     assert len(names) >= 25  # every module of slices 1 and 2 was imported
+    # ... and of the sparse-attention slice
+    assert {"deepspeed_tpu_torch.ops.sparse_attention." + m for m in (
+        "kernels", "sparsity_config", "sparse_self_attention",
+        "bert_sparse_self_attention", "sparse_attention_utils")} <= set(names)
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
@@ -84,7 +88,9 @@ def test_entry_points_raise_without_cuda():
 @pytest.mark.parametrize("entry", ["model", "params_from_jax", "init_cache",
                                    "init_pool", "bert", "bert_model",
                                    "bert_params_from_jax",
-                                   "transformer_layer"])
+                                   "transformer_layer", "sparse_bert",
+                                   "bert_sparse_self_attention",
+                                   "sparse_attention_layers"])
 def test_state_builders_default_to_cuda(entry):
     """Every public builder of device state defaults to the GPU: without
     one it raises, and with ``device="cpu"`` it builds on the host."""
@@ -95,6 +101,8 @@ def test_state_builders_default_to_cuda(entry):
                                             BertModel, GPT2Config,
                                             GPT2LMHeadModel, bert, generation,
                                             params_from_jax)
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BertSparseSelfAttention, FixedSparsityConfig, SparseAttentionUtils)
     from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
     cfg = GPT2Config.tiny(dtype=torch.float32)
     gcfg = generation.as_gencfg(cfg)
@@ -116,6 +124,15 @@ def test_state_builders_default_to_cuda(entry):
             _nest(btree), bcfg, **kw).mlm_bias,
         "transformer_layer": lambda **kw: DeepSpeedTransformerLayer(
             bcfg.ds_layer_config(), **kw).attn_qkvw,
+        "sparse_bert": lambda **kw: BertForPreTraining(BertConfig.tiny(
+            dtype=torch.float32, use_fused_layer=False,
+            sparse_attention_config=FixedSparsityConfig(4, block=32)),
+            **kw).mlm_bias,
+        "bert_sparse_self_attention": lambda **kw: BertSparseSelfAttention(
+            bcfg, **kw).query.kernel,
+        "sparse_attention_layers": lambda **kw: SparseAttentionUtils
+        .replace_self_attention_layer_with_sparse_self_attention_layer(
+            bcfg, [None], **kw)[0].value.kernel,
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
