@@ -28,7 +28,11 @@ of which exits non-zero on failure:
    then the decode-kernel stress: K3, K4, K5 and K6 at the bf16 decode case
    over STRESS_SEEDS fresh seeds each, every case held to its limit (and K5
    = K3, K6 = K4 bit for bit); the count of cases over the limit per
-   kernel, and the worst element of any;
+   kernel, and the worst element of any; then the poison run: K3's first
+   case repeated POISON_REPEATS times with its output buffer filled with
+   NaN or 1e4 before each launch, the keys and values of the frontier's
+   tile past the frontier set to 1e4 and every later tile to NaN, the last
+   POISON_CONCURRENT repeats beside K3 launches on a second stream;
 4. serving at full width: GPT-2 medium, bf16, seeded weights, through
    init_inference; 24 requests of 64/256 prompt tokens and 96 new tokens;
    each serving path's kernel launch counts are reset just before it and
@@ -69,7 +73,12 @@ of which exits non-zero on failure:
    and K11 each element held to its own limit (see ROW_TOL), the dropout
    kernels equal to the plain version bit for bit; times the kernels, the
    plain versions and one PyTorch call each (a yardstick only) beside the
-   bound;
+   bound; then K9 (the standalone attn_softmax): its launch count reset,
+   the op driven through its entry point (forward and backward at the BERT
+   and GPT-2 score shapes), the count read; K9 against its plain version
+   in every case of SOFTMAX_CASES (ROW_TOL), timed beside torch.softmax (a
+   yardstick only) and the bound at the first two; the op's gradient
+   through autograd on the card against the CPU;
 10. BERT-large pretraining at full width: bf16, seeded weights, batches of
    16 x 512 with padded rows, through initialize and forward / backward /
    step at dropout 0.1 (2 warm-up and 10 timed steps), 2 steps at dropout
@@ -142,6 +151,8 @@ from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     gelu as ge)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     layer_norm as ln)
+from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
+    softmax as sm)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # flop rate for each input type (bf16 on the tensor cores; fp32 outside
@@ -243,7 +254,7 @@ ROW_TOL = {torch.float32: (2e-6, 2.0 ** -20),
 # with high words and four xors per four elements, the compare, two
 # products, the sums).
 ROW_OPS = {"layer_norm": 8, "bias_gelu": 20, "dropout_fwd": 30,
-           "dropout_bwd": 28}
+           "dropout_bwd": 28, "attn_softmax": 10}
 
 # The BERT cell: the JAX package's BERT-large measurement
 # (bench.py:_measure_bert, dense: batch 16 x 512, BERT-large, bf16, AdamW
@@ -266,6 +277,26 @@ BERT_SITES = {"layer_norm_plain": (2, 0), "layer_norm_bias_residual": (0, 2),
 # ... and per step at dropout > 0, outside the layers: K10a/K10b for the
 # embeddings' dropout.
 BERT_STEP_SITES = {"dropout_fwd": 1, "dropout_bwd": 1}
+
+# K9 (the standalone attn_softmax op; no model path calls it, as in the JAX
+# package): (case, [B, H, T_q, T_k], dtype, causal, mask, timed). Timed:
+# BERT-large's score shape with its padding mask, GPT-2 medium's causal
+# scores; then a long row (T_k 4096: the CTA path), fp32 and fp16, a
+# ragged row and the longest the tests take. Each element held to ROW_TOL
+# (K9 computes in fp32 like K8/K11; one output ulp). The autograd check
+# runs the op's backward on the card against the CPU at SOFTMAX_AUTOGRAD.
+SOFTMAX_CASES = [
+    ("bert", (BERT_B, 16, BERT_T, BERT_T), torch.bfloat16, False, True, True),
+    ("gpt2", (TRAIN_B, 16, TRAIN_T, TRAIN_T), torch.bfloat16, True, False,
+     True),
+    ("long", (1, 16, 64, 4096), torch.bfloat16, False, True, False),
+    ("bert_fp32", (2, 16, BERT_T, BERT_T), torch.float32, False, True, False),
+    ("gpt2_fp16_mask", (2, 16, TRAIN_T, TRAIN_T), torch.float16, True, True,
+     False),
+    ("ragged_fp16", (2, 4, 33, 1001), torch.float16, False, True, False),
+    ("longest_fp32", (1, 2, 8, 8192), torch.float32, False, True, False)]
+SOFTMAX_SCALE = 0.125
+SOFTMAX_AUTOGRAD = (2, 4, 64, 200)
 
 # The sparse BERT cell: the JAX package's sparse BERT measurement
 # (bench.py:_measure_bert(sparse=True), bench.py:848-857: BERT-large with
@@ -304,13 +335,20 @@ SERVE_PATHS = [("serve", {}, "decode", N_REQUESTS, True),
                ("serve_int8", {"int8_kv": True}, "q8", 4, False)]
 # Fresh seeds per decode kernel in the stress run (ROADMAP Queue 3).
 STRESS_SEEDS = 200
+# The poison run: K3's one mismatch (phase 3's first case, bf16 decode,
+# seed 0) repeated with its output and the plane past each frontier
+# poisoned, the last POISON_CONCURRENT repeats beside launches on a second
+# stream.
+POISON_REPEATS, POISON_CONCURRENT = 300, 100
 # The decode frontiers of phase 3: 0 to the plane's end, straddling tiles.
 DECODE_POS = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000, 1023,
               PLANE - 2, PLANE - 1]
 
-# cuda_ms's spin before each timed launch: about 0.1 ms at the H100's
-# clock, longer than the host takes to enqueue a wrapper's launch.
-SPIN_CYCLES = 200_000
+# cuda_ms's spin before each timed launch: about 1 ms at the H100's
+# clock, longer than the host takes to enqueue what is timed (SDPA's
+# forward and backward through autograd takes longer than 0.1 ms to
+# enqueue; behind a shorter spin its time would include the host's).
+SPIN_CYCLES = 2_000_000
 
 
 def fail(msg):
@@ -411,18 +449,21 @@ def _ptxas_summary(log):
     and paged flags), registers, spill stores."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)I(\w+)'",
-                      line)
+        m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)(?:I(\w+))?"
+                      r"'?", line)
         if m:
-            types, ints, bools = _template_args(m.group(2))
+            types, ints, bools = _template_args(m.group(2) or "")
             args = [_TYPE_NAMES.get(t, t) for t in types] + \
                 [str(i) for i in ints]
             if m.group(1) == "decode_attention_kernel":
                 args += [what for what, on in zip(("int8", "paged"), bools)
                          if on]
+            elif m.group(1) == "softmax_row_kernel":
+                args.append("vec" if bools == [1] else "scalar")
             elif bools == [1]:
                 args.append("dq")
-            name = "{}<{}>".format(m.group(1), ", ".join(args))
+            name = m.group(1) + ("<{}>".format(", ".join(args)) if args
+                                 else "")
             spill = "?"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -751,9 +792,66 @@ def phase_stress():
             "kernel": label, "case": "decode bf16 B16 S1", "seeds":
             STRESS_SEEDS, "over_limit": over, "unequal_to_dense_twin":
             unequal, "worst": worst}))
+    if not _poison_run():
+        fail("K3 gave a non-finite output or one over its limit in the "
+             "poison run")
     if bad:
         fail("a decode kernel disagreed with its plain version or its dense "
              "twin in the stress run")
+
+
+def _poison_run():
+    """K3's one mismatch (once, at phase 3's first case) hunted with
+    sentinels: the case repeated POISON_REPEATS times, the output buffer
+    filled with NaN (even repeats) or 1e4 (odd) just before each launch
+    (the launch's output reuses the freed block: the caching allocator
+    hands a freed block of the same size back on the same stream; the
+    count of launches that landed there is printed), the keys and values of
+    the frontier's 32-key tile past the frontier set to 1e4 (the kernel
+    loads them and must weigh them 0) and of every later tile to NaN (the
+    kernel must never load them); the last POISON_CONCURRENT repeats run
+    beside K3 launches on a second stream. Returns True when every output
+    was finite and within its limit."""
+    dtype, scale = torch.bfloat16, 1.0 / 8.0
+    q, k, v, pos = _case(16, 1, DECODE_POS, dtype, seed=0)
+    ref = da.decode_attention_reference(q, k, v, pos, scale)
+    limit = _decode_limit({"q": q, "pos": pos, "kv": (k, v), "q8": False},
+                          ref, dtype, scale)
+    key = torch.arange(PLANE, device="cuda")[None]
+    past = key > pos.long()[:, None]
+    beyond = key >= (pos.long()[:, None] // 32 + 1) * 32
+    sentinel = torch.where(beyond, float("nan"), 1e4)[:, None, :, None]
+    k_p, v_p = (torch.where(past[:, None, :, None], sentinel, t.float())
+                .to(dtype) for t in (k, v))
+    side_case = _case(16, 1, DECODE_POS, dtype, seed=1)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    landed = non_finite = over = 0
+    worst = 0.0
+    for i in range(POISON_REPEATS):
+        if i >= POISON_REPEATS - POISON_CONCURRENT:
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(4):
+                    da.flash_decode_attention(*side_case, scale)
+        poison = torch.full_like(q, float("nan") if i % 2 == 0 else 1e4)
+        where = poison.data_ptr()
+        del poison
+        out = da.flash_decode_attention(q, k_p, v_p, pos, scale)
+        landed += out.data_ptr() == where
+        finite = bool(torch.isfinite(out).all())
+        non_finite += not finite
+        ratio = float(((out.float() - ref.float()).abs() / limit).max()) \
+            if finite else float("inf")
+        over += ratio > 1.0
+        worst = max(worst, ratio)
+    torch.cuda.synchronize()
+    print("stress " + json.dumps({
+        "kernel": "K3", "case": "poison: decode bf16 B16 S1 seed 0",
+        "repeats": POISON_REPEATS, "concurrent": POISON_CONCURRENT,
+        "out_poisoned": landed, "non_finite": non_finite,
+        "over_limit": over, "worst_err_over_limit": worst}))
+    return non_finite == 0 and over == 0
 
 
 def _prompts(n, vocab, seed):
@@ -1341,6 +1439,129 @@ def phase_rows():
     return rows
 
 
+def _softmax_inputs(shape, dtype, masked, seed):
+    """Scores of spread 3 and, with ``masked``, the BERT batches' padding
+    mask (every other batch row padded after 128 .. T_k - 1 keys; shorter
+    rows after 1 .. T_k - 1)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    B, _, _, t_k = shape
+    s = (3.0 * torch.randn(*shape, device="cuda", generator=g)).to(dtype)
+    mask = None
+    if masked:
+        lens = torch.randint(min(128, t_k - 1), t_k, (B,), device="cuda",
+                             generator=g)
+        drop = torch.arange(t_k, device="cuda")[None] >= lens[:, None]
+        drop[1::2] = False
+        mask = torch.where(drop, -1e9, 0.0)
+    return s, mask
+
+
+def phase_softmax():
+    """K9: the op through its entry point with its count reset just before
+    and read just after (the path's launches), then against its plain
+    version in every case, timed at the first two, and its gradient on the
+    card against the CPU. Returns (case rows, launches)."""
+    path = [_softmax_inputs(shape, dtype, masked, seed=40 + i) + (causal,)
+            for i, (_, shape, dtype, causal, masked, timed)
+            in enumerate(SOFTMAX_CASES) if timed]
+    torch.cuda.synchronize()
+    sm.reset_launches()
+    for s, mask, causal in path:
+        leaf = s.clone().requires_grad_()
+        p = sm.attn_softmax(leaf, mask, SOFTMAX_SCALE, causal)
+        p.backward(torch.ones_like(p))
+        if not bool(torch.isfinite(leaf.grad).all()):
+            fail("attn_softmax's gradient is not finite on the card")
+    torch.cuda.synchronize()
+    launches = sm.launches
+    if launches != len(path):
+        fail("attn_softmax launched K9 {} times for {} calls".format(
+            launches, len(path)))
+    del path, leaf, p
+    rows = []
+    for i, (name, shape, dtype, causal, masked, timed) in \
+            enumerate(SOFTMAX_CASES):
+        s, mask = _softmax_inputs(shape, dtype, masked, seed=40 + i)
+
+        def run():
+            return sm.softmax_fwd(s, mask, SOFTMAX_SCALE, causal)
+
+        def plain():
+            return sm.attn_softmax_reference(s, mask, SOFTMAX_SCALE, causal)
+
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != ref.dtype or \
+                not bool(torch.isfinite(out).all()):
+            fail("K9 output of wrong shape or type, or not finite at "
+                 "{}".format(name))
+        atol, rtol = ROW_TOL[dtype]
+        err, ratio = _err(out, ref, atol + rtol * ref.float().abs())
+        row = {"case": name, "shape": list(shape),
+               "dtype": str(dtype).split(".")[-1], "causal": causal,
+               "mask": "padding" if masked else None, "max_abs_err": err,
+               "max_err_over_limit": ratio}
+        if ratio > 1.0:
+            print("softmax " + json.dumps(row))
+            fail("K9 disagrees with its plain version at {}".format(name))
+        del out, ref
+        if timed:
+            row["ms"] = cuda_ms(run, cold=True)
+            row["plain_ms"] = cuda_ms(plain, cold=True)
+            row["library_ms"] = cuda_ms(lambda: torch.softmax(s, dim=-1),
+                                        cold=True)
+            row["bound_ms"], row["bound_by"] = _row_bound(
+                "attn_softmax", 2 * _nbytes(s) + _nbytes(mask), s.numel())
+        print("softmax " + json.dumps(row))
+        rows.append(row)
+        del s, mask
+    g = torch.Generator(device="cuda")
+    g.manual_seed(49)
+    s = torch.randn(*SOFTMAX_AUTOGRAD, device="cuda", generator=g)
+    grad = torch.randn(*SOFTMAX_AUTOGRAD, device="cuda", generator=g)
+    mask = torch.where(torch.rand(SOFTMAX_AUTOGRAD[0], SOFTMAX_AUTOGRAD[3],
+                                  device="cuda", generator=g) < 0.2, -1e9, 0.0)
+    got = []
+    for dev in ("cuda", "cpu"):
+        leaf = s.to(dev).clone().requires_grad_()
+        p = sm.attn_softmax(leaf, mask.to(dev), SOFTMAX_SCALE, True)
+        p.backward(grad.to(dev))
+        got.append((p.detach().cpu(), leaf.grad.cpu()))
+    ratio = max(_err(a, b, FLASH_AUTOGRAD_TOL * b.abs().max())[1]
+                for a, b in zip(*got))
+    print("softmax " + json.dumps({"case": "autograd card vs cpu",
+                                   "shape": list(SOFTMAX_AUTOGRAD),
+                                   "dtype": "float32", "causal": True,
+                                   "max_err_over_limit": ratio}))
+    if ratio > 1.0:
+        fail("attn_softmax on the card disagrees with the CPU through "
+             "autograd")
+    return rows, launches
+
+
+def _softmax_kernel_row(rows, launches):
+    """K9's kernels-line entry: times at BERT-large's score shape (GPT-2's
+    under "gpt2"), errors over every case, the phase's own launches."""
+    timed_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    bert, gpt2 = rows[0], rows[1]
+    entry = {"name": "attn_softmax", "route": "cuda",
+             "source": "deepspeed_tpu_torch/csrc/transformer_kernels.cu",
+             "replaces": "deepspeed_tpu/ops/transformer/kernels/"
+                         "softmax.py:24",
+             "launches": launches,
+             "launches_note": "the op's own entry point: no model path "
+                              "calls it, as in the JAX package",
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             "max_err_over_limit": max(r["max_err_over_limit"]
+                                       for r in rows),
+             "shape": "[16, 16, 512, 512] bf16, padding mask"}
+    entry.update({k: bert[k] for k in timed_keys})
+    entry["gpt2"] = dict({k: gpt2[k] for k in timed_keys},
+                         shape="[8, 16, 1024, 1024] bf16 causal")
+    return entry
+
+
 # ------------------------------------------------------------------- BERT
 
 
@@ -1920,6 +2141,7 @@ def main():
     phase_stress()
     flash_rows = phase_flash()
     row_rows = phase_rows()
+    softmax_rows, softmax_launches = phase_softmax()
     model = GPT2LMHeadModel(GPT2Config.gpt2_medium(dtype=torch.bfloat16),
                             device="cuda", seed=0)
     serve_launches = {path[2]: phase_serve(card, model, *path)
@@ -1950,6 +2172,7 @@ def main():
     kernels += _decode_variant_rows(variant_rows, serve_launches)
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches)
     kernels += _row_kernel_rows(row_rows, bert_launches)
+    kernels.append(_softmax_kernel_row(softmax_rows, softmax_launches))
     kernels += _sparse_kernel_rows(sparse_rows, sparse_launches)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,76 @@
+"""Time the port's flash-attention kernels (K1, K2a, K2b) of two checkouts
+on one card, in turns: A, B, B, A.
+
+    python3 compare_trees.py DIR_A DIR_B [--out FILE]
+
+Each DIR is the root of a checkout (for instance a ``git archive`` of the
+parent commit unpacked under ``build/``). Each turn runs in a fresh process
+from that checkout: it builds the checkout's kernels (``chip_smoke.
+phase_build``), then times K1, K2a and K2b, their plain versions and
+torch's scaled_dot_product_attention (``chip_smoke._flash_times``, CUDA-event
+medians) at GPT-2 medium training's shape (B=8, H=16, T=1024, D=64, bf16,
+causal) and at BERT-large's (B=16, T=512, non-causal, padding mask). Prints
+one JSON line per turn and, last, the card's name and power limit; with
+``--out``, writes the turns there as a JSON list.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+# Run inside each checkout: the same calls exist in every chip_smoke.py
+# since the flash kernels landed.
+_TURN = r"""
+import json, sys, torch
+import chip_smoke as c
+c.phase_env()
+c.phase_build()
+at = c.at
+out = {}
+for name, B, T, causal, masked, seed in (
+        ("gpt2", 8, 1024, True, False, 0),
+        ("bert", c.BERT_B, c.BERT_T, False, "padding", 1)):
+    q, k, v, do, mask = c._flash_inputs(B, T, torch.bfloat16, masked, seed)
+    o, lse = at.flash_fwd(q, k, v, mask, causal)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    out[name] = c._flash_times(q, k, v, do, mask, lse, delta, causal)
+print("TURN " + json.dumps(out))
+"""
+
+
+def _turn(tree):
+    tree = os.path.abspath(tree)
+    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=tree,
+                          env=dict(os.environ, PYTHONPATH=tree),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout + proc.stderr)
+        raise SystemExit("compare_trees: the turn in {} failed".format(tree))
+    line = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")][-1]
+    return json.loads(line[5:])
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("tree_a")
+    parser.add_argument("tree_b")
+    parser.add_argument("--out")
+    args = parser.parse_args()
+    turns = []
+    for label, tree in (("A", args.tree_a), ("B", args.tree_b),
+                        ("B", args.tree_b), ("A", args.tree_a)):
+        times = _turn(tree)
+        turns.append({"tree": label, "dir": tree, "times": times})
+        print(json.dumps(turns[-1]), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(turns, f, indent=1)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+
+
+if __name__ == "__main__":
+    main()

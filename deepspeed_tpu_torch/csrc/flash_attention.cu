@@ -3,9 +3,9 @@
 // Replaces the TPU kernels of deepspeed_tpu/ops/transformer/kernels/
 // attention.py:
 //   K1  `_fwd_kernel` (launched by `_flash_fwd_pallas`)
-//       -> fwd_mma_kernel (bf16), fwd_kernel (fp32, fp16)
+//       -> fwd_async_kernel (bf16), fwd_kernel (fp32, fp16)
 //   K2a `_bwd_fused_kernel` (by `_flash_bwd_fused_pallas`)
-//       -> dkdv_mma_kernel / dkdv_kernel with kDq = true (dq by atomics
+//       -> dkdv_async_kernel / dkdv_kernel with kDq = true (dq by atomics
 //          into an fp32 buffer)
 //   K2b `_bwd_dkv_kernel` and `_bwd_dq_kernel` (by `_flash_bwd_pallas`)
 //       -> dkdv_*kernel with kDq = false, then dq_mma_kernel / dq_kernel
@@ -36,7 +36,8 @@
 //   - the causal mask is a loop bound (tiles past the diagonal are never
 //     loaded or computed), the TPU kernel's kv_index clamp and @pl.when skip;
 //   - bf16, the training path's type, runs its products on the tensor cores
-//     (WMMA, fp32 accumulation; see the bf16 section below). fp32 and fp16
+//     (mma.sync, fp32 accumulation; see the bf16 sections below: operands
+//     by cp.async and ldmatrix, 128-row blocks). fp32 and fp16
 //     run them as register-blocked fp32 FMAs on the CUDA cores (67 TFLOP/s):
 //     a thread of a 16 x 8 grid owns 4 rows x 8 strided columns, 2.7 FMAs
 //     per shared-memory load, rows padded to 65 floats (no bank conflicts).
@@ -432,22 +433,23 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------ bf16 on the tensor cores
-// The same three kernels for bf16 inputs, their products on the tensor
-// cores: mma.sync m16n8k16, bf16 operands, fp32 accumulation. A warp owns
-// 16 rows of the block's 64 (queries in K1 and dq_kernel, keys in K2's
-// dk/dv kernel), and every score, probability and accumulator stays in
-// registers: the accumulator layout of one product (thread (g, t) = (lane
-// / 4, lane % 4) holds rows g and g + 8, columns 2t and 2t + 1 of each
-// 8-column tile) is the left-operand layout of the next, so P and dS go
+// The kernels for bf16 inputs run their products on the tensor cores:
+// mma.sync m16n8k16, bf16 operands, fp32 accumulation. A warp owns 16 rows
+// (queries in K1 and dq_mma_kernel, keys in K2's dk/dv kernel), and every
+// score, probability and accumulator stays in registers: the accumulator
+// layout of one product (thread (g, t) = (lane / 4, lane % 4) holds rows g
+// and g + 8, columns 2t and 2t + 1 of each 8-column tile) is the
+// left-operand layout of the next, so P and dS go
 // from the softmax arithmetic into the second product without touching
 // shared memory. A left operand computed here (P, dS) enters the product
 // as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi): 16 significant
 // bits, so those products keep fp32-level accuracy (2**-17 relative) at
 // twice the tensor-core work. q, k, v and dO are bf16 already: their
 // products are exact up to the fp32 accumulation. Shared-memory rows are
-// padded to 72 bf16, so the 32 lanes' 4-byte operand loads hit 32 banks;
-// operands needed column-wise (V, K, Q, dO as right operands over the
-// key or query axis) are staged transposed.
+// padded to 72 bf16, so the 32 lanes' 4-byte operand loads (and ldmatrix's
+// 16-byte rows) hit 32 banks. K1 and the dk/dv kernel are the Hopper
+// kernels of the next section; K2b's dq_mma_kernel, after them, still
+// stages synchronously and keeps K transposed.
 
 constexpr int kLdh = kD + 8;  // bf16 row stride in shared memory
 constexpr int kTileH = kTile * kLdh;
@@ -534,89 +536,305 @@ __device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[kNT][4
   }
 }
 
-// K1 for bf16: one block per (64-row query tile, h, b), a warp per 16 rows;
-// S = Q K^T, the online softmax and O += P V all in registers.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ mask,
-                   T* __restrict__ o, float* __restrict__ lse, int H, int Tq,
-                   int Tk, float scale, int causal) {
-  static_assert(std::is_same<T, bf16>::value, "bf16 only");
-  __shared__ __align__(16) bf16 q_s[kTileH];
-  __shared__ __align__(16) bf16 k_s[kTileH];
-  __shared__ __align__(16) bf16 vt_s[kTileH];  // V^T [d][key]
+// ------------------------------------ bf16 on the tensor cores, for Hopper
+// K1 and K2's dk/dv kernel (K2a fused, K2b's first kernel):
+//   - tiles are copied into shared memory with cp.async (16 bytes a thread,
+//     no registers on the way) into a two-stage ring, the next tile's copy
+//     issued before this tile's products, so the copy runs under them;
+//   - every operand comes out of shared memory through ldmatrix, from the
+//     tiles' natural [row][d] layout: ldmatrix.trans hands out the
+//     transposed fragments (V, dO and Q as right operands over the key or
+//     query axis, dS^T as the left operand of dQ), so nothing is staged
+//     transposed;
+//   - K2a adds dq once per 64-key block and query tile as float4 atomics
+//     (red.global.add.v4.f32 on sm_90): a lane pair trades one row's half,
+//     so each lane adds four neighbouring columns (a quarter of the
+//     operations of one scalar atomic per element);
+//   - the ragged and causal cuts are tested only on the tiles that cross
+//     them, the additive mask read from shared memory (K1) or registers
+//     (K2); the exponentials are ex2.approx of (x - m) * log2(e), the
+//     difference taken in natural units first: a row masked at -1e9
+//     everywhere (fp32 ulp 64) then gives exactly the plain version's
+//     probabilities (folding log2(e) into the scale rounds the two sides
+//     apart by up to 128, and timed no faster);
+//   - P and dS enter their products as hi + lo bf16 (one bf16 rounding of
+//     P, 2**-9 relative, would be some 30 times FLASH_ACC's limit), hi by
+//     truncation (one byte permute per pair) and lo = RN(x - hi): 2**-16
+//     relative, one conversion per pair instead of two.
+// Blocks of 64 rows (K1) and 64 keys (K2) of 4 warps timed faster on the
+// card than blocks of 128 (8 warps, or 4 warps of 32 rows); a three-stage
+// ring, and wgmma for S = Q K^T and S^T = K Q^T (A in registers, B from a
+// no-swizzle tile), timed no faster (PERF.md).
+
+constexpr int kWarps = 4;              // a warp per 16 rows (K1) or keys (K2)
+constexpr int kAsyncThreads = 32 * kWarps;
+constexpr int kStages = 2;             // the cp.async ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, or zeros when !full (src is then
+// any valid address and is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Plain: lane (g, t) gets row g, columns 2t and
+// 2t + 1 of each; trans: rows 2t and 2t + 1 of column g.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// 2**x (relative error about 2**-22; results below 2**-126 flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// (x0, x1) as two bf16 pairs, hi = x truncated to bf16 and lo = RN(x - hi)
+// (x - hi is exact in fp32).
+__device__ __forceinline__ void split2t(float x0, float x1, uint32_t& hi,
+                                        uint32_t& lo) {
+  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
+  hi = __byte_perm(b0, b1, 0x7632);
+  lo = bits(__floats2bfloat162_rn(x0 - __uint_as_float(b0 & 0xffff0000u),
+                                  x1 - __uint_as_float(b1 & 0xffff0000u)));
+}
+
+// The left operand of a 16 x 16 step from accumulator tiles c0 (columns
+// 0-7) and c1 (columns 8-15), split hi/lo by split2t.
+__device__ __forceinline__ void frag_from_acc_t(const float (&c0)[4],
+                                                const float (&c1)[4],
+                                                uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4]) {
+  split2t(c0[0], c0[1], hi[0], lo[0]);
+  split2t(c0[2], c0[3], hi[1], lo[1]);
+  split2t(c1[0], c1[1], hi[2], lo[2]);
+  split2t(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Rows [row0, row0 + kTile) of a contiguous [n, 64] bf16 matrix into shared
+// memory (row stride kLdh) by cp.async; rows at or past n are zeros.
+__device__ __forceinline__ void async_tile(bf16* dst, const bf16* src,
+                                           int row0, int n) {
+  for (int e = threadIdx.x; e < kTile * (kD / 8); e += kAsyncThreads) {
+    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
+    const bool in = row0 + r < n;
+    cp_async16(dst + r * kLdh + c,
+               in ? src + (size_t)(row0 + r) * kD + c : src, in);
+  }
+}
+
+// Entries [row0, row0 + 64) of an fp32 [n] vector into shared memory by
+// threads [tid0, tid0 + 64); entries at or past n are zeros.
+__device__ __forceinline__ void async_vec(float* dst, const float* src,
+                                          int row0, int n, int tid0) {
+  const int i = threadIdx.x - tid0;
+  if (i >= 0 && i < kTile) {
+    const bool in = row0 + i < n;
+    cp_async4(dst + i, in ? src + row0 + i : src, in);
+  }
+}
+
+// The left operand of step kk (16 columns from 16 * kk) for the 16 rows
+// from row0 of a bf16 tile (row stride kLdh).
+__device__ __forceinline__ void lhs_frag(uint32_t (&a)[4], const bf16* s,
+                                         int row0, int kk, int lane) {
+  ldsm4(a, s + (row0 + lane % 8 + 8 * ((lane / 8) % 2)) * kLdh + 16 * kk +
+               8 * (lane / 16));
+}
+
+// acc[n] += A B for the 8 n-tiles of a 64-column B whose columns are the
+// rows of bt (a [64][kLdh] tile: B[k][n] = bt[n][k]) over the 16-deep step
+// kk: acc = A bt^T.
+__device__ __forceinline__ void mma_nt(float (&acc)[kNT][4],
+                                       const uint32_t (&a)[4], const bf16* bt,
+                                       int kk, int lane) {
+#pragma unroll
+  for (int np = 0; np < kNT / 2; ++np) {
+    uint32_t b[4];
+    ldsm4(b, bt + (16 * np + lane % 8 + 8 * (lane / 16)) * kLdh + 16 * kk +
+                 8 * ((lane / 8) % 2));
+    mma16816(acc[2 * np], a, b[0], b[1]);
+    mma16816(acc[2 * np + 1], a, b[2], b[3]);
+  }
+}
+
+// acc[n] += (hi + lo) B for the 8 n-tiles of B = the rows [16 j, 16 j + 16)
+// of a [*][kLdh] tile (B[k][n] = bs[16 j + k][n], columns 0..63): acc = A bs
+// over the 16-deep step j, A as two bf16 terms.
+__device__ __forceinline__ void mma_nn2(float (&acc)[kNT][4],
+                                        const uint32_t (&hi)[4],
+                                        const uint32_t (&lo)[4],
+                                        const bf16* bs, int j, int lane) {
+#pragma unroll
+  for (int dp = 0; dp < kNT / 2; ++dp) {
+    uint32_t b[4];
+    ldsm4_t(b, bs + (16 * j + lane % 8 + 8 * ((lane / 8) % 2)) * kLdh +
+                   16 * dp + 8 * (lane / 16));
+    mma16816(acc[2 * dp], hi, b[0], b[1]);
+    mma16816(acc[2 * dp], lo, b[0], b[1]);
+    mma16816(acc[2 * dp + 1], hi, b[2], b[3]);
+    mma16816(acc[2 * dp + 1], lo, b[2], b[3]);
+  }
+}
+
+// K1 for bf16 on Hopper: one block per (64-row query tile, h, b), the
+// longest causal rows first; a warp per 16 rows; K/V tiles of 64 keys in
+// the cp.async ring; S = Q K^T, the online softmax and O += P V in
+// registers.
+constexpr size_t kFwdAsyncSmem =
+    (kTile * kLdh + kStages * 2 * kTileH) * sizeof(bf16) +
+    kStages * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kAsyncThreads, 3)
+    fwd_async_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const float* __restrict__ mask, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Tq, int Tk,
+                     float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_fwd);      // [64][kLdh]
+  bf16* kv_s = q_s + kTileH;                          // stages: K, V
+  float* m_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kTileH);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const T* kb = k + bh * Tk * kD;
-  const T* vb = v + bh * Tk * kD;
+  const bf16* kb = k + bh * Tk * kD;
+  const bf16* vb = v + bh * Tk * kD;
   const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, min(q0 + kTile - 1, Tq - 1) / kTile + 1);
 
-  load_tile_h(q_s, q + bh * Tq * kD, q0, Tq);
-  __syncthreads();
-  uint32_t qf[kKS][4];
+  auto issue = [&](int kt) {
+    bf16* ks = kv_s + (kt % kStages) * 2 * kTileH;
+    async_tile(ks, kb, kt * kTile, Tk);
+    async_tile(ks + kTileH, vb, kt * kTile, Tk);
+    if (mb != nullptr)
+      async_vec(m_s + (kt % kStages) * kTile, mb, kt * kTile, Tk, 0);
+  };
+  async_tile(q_s, q + bh * Tq * kD, q0, Tq);
 #pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) frag_from_smem(q_s, r0, kk, g, t, qf[kk]);
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) issue(i);
+    cp_async_commit();
+  }
 
+  uint32_t qf[kKS][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[kNT][4];
   zero(acc);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous k_s, vt_s
-    load_tile_h(k_s, kb, k0, Tk);
-    load_tile_ht(vt_s, vb, k0, Tk);
+    cp_async_wait<kStages - 2>();  // tile kt (and Q) have landed
+    // ... for every thread, and every warp is done with tile kt - 1, whose
+    // stage the next copy refills.
     __syncthreads();
-    float s[kNT][4];
-    zero(s);
+    if (kt + kStages - 1 < n_kt) issue(kt + kStages - 1);
+    cp_async_commit();
+    if (kt == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) mma_row(s, qf[kk], k_s, kk, g, t);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * t + (e & 1);
-        // Keys past T_kv are not keys: -inf, an exact 0 below. Key 0 is in
-        // range for every row, so the running max is finite from tile 0.
-        const float x = key < Tk ? masked(s[n][e] * scale, mb, key,
-                                          row[e >> 1], causal)
-                                 : -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
+      for (int kk = 0; kk < kKS; ++kk) lhs_frag(qf[kk], q_s, r0, kk, lane);
     }
+    const int k0 = kt * kTile;
+    const bf16* ks = kv_s + (kt % kStages) * 2 * kTileH;
+    const float* ms = m_s + (kt % kStages) * kTile;
+    // A warp whose rows all precede the tile sees none of it.
+    if (!causal || k0 <= q0 + r0 + 15) {
+      float s[kNT][4];
+      zero(s);
 #pragma unroll
-    for (int n = 0; n < kNT; ++n)
+      for (int kk = 0; kk < kKS; ++kk) mma_nt(s, qf[kk], ks, kk, lane);
+      // Only a tile that crosses T_kv or the warp's causal frontier tests
+      // its keys.
+      const bool edge =
+          k0 + kTile > Tk || (causal && k0 + kTile - 1 > q0 + r0);
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[n][e] *= alpha[e >> 1];
-        const float p = expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          float x = s[n][e] * scale;
+          if (mb != nullptr) x += ms[c];
+          if (edge) {
+            // Keys past T_kv are not keys: -inf, an exact 0 below. Key 0 is
+            // in range for every row, so the running max is finite from
+            // tile 0.
+            if (k0 + c >= Tk)
+              x = -INFINITY;
+            else if (causal && k0 + c > row[e >> 1])
+              x = kNegInf;
+          }
+          s[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        l[r] *= alpha[r];
       }
 #pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t hi[4], lo[4];
-      frag_from_acc(s[2 * j], s[2 * j + 1], hi, lo);
-      mma_row(acc, hi, vt_s, j, g, t);
-      mma_row(acc, lo, vt_s, j, g, t);
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[n][e] *= alpha[e >> 1];
+          const float p = ex2((s[n][e] - m[e >> 1]) * kLog2e);
+          s[n][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int j = 0; j < kTile / 16; ++j) {
+        uint32_t hi[4], lo[4];
+        frag_from_acc_t(s[2 * j], s[2 * j + 1], hi, lo);
+        mma_nn2(acc, hi, lo, ks + kTileH, j, lane);
+      }
     }
   }
 
@@ -632,140 +850,185 @@ __global__ void __launch_bounds__(kThreads)
   store_rows(o + bh * Tq * kD, acc, row[0], Tq, inv[0], inv[1], t);
 }
 
-// K2 for bf16: one block per 64-key tile, a warp per 16 keys, whose K and
-// V rows stay in registers as left operands. Per query tile: S^T = K Q^T
-// and dP^T = V dO^T, P^T and dS^T in fp32, then dV += P^T dO and
-// dK += dS^T Q into register accumulators held across the sweep. With kDq
-// (K2a) dS goes through shared memory (hi/lo, [query][key]) and each warp
-// adds its 16 query rows of dS K into dq_acc with atomics.
-template <typename T, bool kDq>
-__global__ void __launch_bounds__(kThreads)
-    dkdv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ mask,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    float* __restrict__ dq_acc, T* __restrict__ dk,
-                    T* __restrict__ dv, int H, int Tq, int Tk, float scale,
-                    int causal) {
-  static_assert(std::is_same<T, bf16>::value, "bf16 only");
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // [query][d]
-  bf16* do_s = q_s + kTileH;                       // [query][d]
-  bf16* qt_s = do_s + kTileH;                      // [d][query]
-  bf16* dot_s = qt_s + kTileH;                     // [d][query]
-  float* lse_s = reinterpret_cast<float*>(dot_s + kTileH);
-  float* delta_s = lse_s + kTile;
-  bf16* kt_s = reinterpret_cast<bf16*>(delta_s + kTile);  // kDq: [d][key]
-  bf16* dsh_s = kt_s + kTileH;  // kDq: dS [query][key], hi and lo
-  bf16* dsl_s = dsh_s + kTileH;
+// K2 for bf16 on Hopper: one block per 64-key tile, a warp per 16 keys,
+// whose K and V rows stay in registers as left operands. Per 64-row query
+// tile (Q, dO, lse and delta in the cp.async ring): S^T = K Q^T and dP^T =
+// V dO^T, P^T and dS^T in fp32, then dV += P^T dO and dK += dS^T Q into
+// register accumulators held across the sweep. With kDq (K2a) dS^T goes to
+// shared memory as hi and lo bf16 ([key][query]), and after a barrier each
+// warp computes 16 query rows of dS K over the block's 64 keys and adds
+// them into dq_acc as float4 atomics.
+template <bool kDq>
+constexpr size_t dkdv_async_smem() {
+  return ((kDq ? 3 : 2) * kTileH + kStages * 2 * kTileH) * sizeof(bf16) +
+         kStages * 2 * kTile * sizeof(float);
+}
+
+template <bool kDq>
+__global__ void __launch_bounds__(kAsyncThreads, 1)
+    dkdv_async_kernel(const bf16* __restrict__ q,
+                      const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ mask,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int H, int Tq, int Tk,
+                      float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_bwd);  // [64][kLdh] K
+  bf16* dsh_s = k_s + kTileH;  // V at the start, then dS^T hi
+  bf16* dsl_s = dsh_s + kTileH;                    // kDq: dS^T lo
+  bf16* st_s = kDq ? dsl_s + kTileH : dsl_s;       // stages: Q, dO
+  float* vec_s = reinterpret_cast<float*>(st_s + kStages * 2 * kTileH);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const T* qb = q + bh * Tq * kD;
-  const T* dob = dout + bh * Tq * kD;
-  const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
+  const bf16* qb = q + bh * Tq * kD;
+  const bf16* dob = dout + bh * Tq * kD;
+  const float* lb = lse + bh * Tq;
+  const float* db = delta + bh * Tq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16;
   const int k0 = blockIdx.x * kTile;
-  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
+  const int kw = k0 + r0;  // the warp's first key
+  const int key[2] = {kw + g, kw + g + 8};
+  float mval[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    mval[r] = mask != nullptr && key[r] < Tk ? mask[(size_t)b * Tk + key[r]]
+                                             : 0.f;
   const int n_qt = (Tq + kTile - 1) / kTile;
   const int first_qt = causal ? k0 / kTile : 0;  // first query to see k0
 
-  // K and V rows of this warp as left operands (staged through q_s, do_s).
-  load_tile_h(q_s, k + bh * Tk * kD, k0, Tk);
-  load_tile_h(do_s, v + bh * Tk * kD, k0, Tk);
-  if (kDq) load_tile_ht(kt_s, k + bh * Tk * kD, k0, Tk);
-  __syncthreads();
-  uint32_t kf[kKS][4], vf[kKS][4];
+  auto issue = [&](int qt) {
+    const int st = (qt - first_qt) % kStages;
+    bf16* qs = st_s + st * 2 * kTileH;
+    async_tile(qs, qb, qt * kTile, Tq);
+    async_tile(qs + kTileH, dob, qt * kTile, Tq);
+    float* vs = vec_s + st * 2 * kTile;
+    async_vec(vs, lb, qt * kTile, Tq, 0);
+    async_vec(vs + kTile, db, qt * kTile, Tq, kTile);
+  };
+  async_tile(k_s, k + bh * Tk * kD, k0, Tk);
+  async_tile(dsh_s, v + bh * Tk * kD, k0, Tk);
 #pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) {
-    frag_from_smem(q_s, r0, kk, g, t, kf[kk]);
-    frag_from_smem(do_s, r0, kk, g, t, vf[kk]);
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (first_qt + i < n_qt) issue(first_qt + i);
+    cp_async_commit();
   }
+
+  uint32_t kf[kKS][4], vf[kKS][4];
   float dk_acc[kNT][4], dv_acc[kNT][4];
   zero(dk_acc);
   zero(dv_acc);
-
   for (int qt = first_qt; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // every warp is done with the previous tiles
-    load_tile_h(q_s, qb, q0, Tq);
-    load_tile_h(do_s, dob, q0, Tq);
-    load_tile_ht(qt_s, qb, q0, Tq);
-    load_tile_ht(dot_s, dob, q0, Tq);
-    load_rows(lse_s, lse + bh * Tq, q0, Tq);
-    load_rows(delta_s, delta + bh * Tq, q0, Tq);
+    cp_async_wait<kStages - 2>();  // tile qt (and K, V) have landed
+    // ... for every thread, and every warp is done with tile qt - 1: its
+    // stage (refilled next) and dS^T (rewritten below).
     __syncthreads();
-    float st[kNT][4], dpt[kNT][4];  // [key][query] tiles
-    zero(st);
-    zero(dpt);
+    if (qt + kStages - 1 < n_qt) issue(qt + kStages - 1);
+    cp_async_commit();
+    if (qt == first_qt) {
 #pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-      mma_row(st, kf[kk], q_s, kk, g, t);
-      mma_row(dpt, vf[kk], do_s, kk, g, t);
-    }
-#pragma unroll
-    for (int n = 0; n < kNT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);  // query within the tile
-        const int kr = key[e >> 1];
-        float p = 0.f;
-        if (kr < Tk && q0 + c < Tq) {
-          const float x = masked(st[n][e] * scale, mb, kr, q0 + c, causal);
-          p = expf(fminf(x - lse_s[c], 0.f));
-        }
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - delta_s[c]);
+      for (int kk = 0; kk < kKS; ++kk) {
+        lhs_frag(kf[kk], k_s, r0, kk, lane);
+        lhs_frag(vf[kk], dsh_s, r0, kk, lane);
       }
-    if (kDq) {
+      __syncthreads();  // V is read: dsh_s holds dS^T from here on
+    }
+    const int q0 = qt * kTile;
+    const int st = (qt - first_qt) % kStages;
+    const bf16* qs = st_s + st * 2 * kTileH;
+    const bf16* dos = qs + kTileH;
+    const float* lse_s = vec_s + st * 2 * kTile;
+    const float* delta_s = lse_s + kTile;
+    float pt[kNT][4], dst[kNT][4];  // [key][query] tiles
+    zero(pt);
+    zero(dst);
+    // A warp whose keys all follow the tile's last query sees none of it.
+    if (!causal || kw <= q0 + kTile - 1) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        mma_nt(pt, kf[kk], qs, kk, lane);
+        mma_nt(dst, vf[kk], dos, kk, lane);
+      }
+      // Only a tile that crosses T_q, T_kv or the causal frontier tests
+      // its pairs.
+      const bool edge = q0 + kTile > Tq || kw + 16 > Tk ||
+                        (causal && kw + 15 > q0);
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = 8 * n + 2 * t + (e & 1);
-          const int kl = r0 + g + 8 * (e >> 1);  // key within the tile
-          const bf16 hi = __float2bfloat16(dpt[n][e]);
-          dsh_s[c * kLdh + kl] = hi;
-          dsl_s[c * kLdh + kl] = __float2bfloat16(dpt[n][e] -
-                                                  __bfloat162float(hi));
+          const int c = 8 * n + 2 * t + (e & 1);  // query within the tile
+          const int kr = key[e >> 1];
+          const float x = pt[n][e] * scale + mval[e >> 1];
+          float p = ex2(fminf(x - lse_s[c], 0.f) * kLog2e);
+          if (edge && (kr >= Tk || q0 + c >= Tq || (causal && kr > q0 + c)))
+            p = 0.f;
+          pt[n][e] = p;
+          dst[n][e] = p * (dst[n][e] - delta_s[c]);
         }
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t hi[4], lo[4];
-      frag_from_acc(st[2 * j], st[2 * j + 1], hi, lo);
-      mma_row(dv_acc, hi, dot_s, j, g, t);
-      mma_row(dv_acc, lo, dot_s, j, g, t);
-      frag_from_acc(dpt[2 * j], dpt[2 * j + 1], hi, lo);
-      mma_row(dk_acc, hi, qt_s, j, g, t);
-      mma_row(dk_acc, lo, qt_s, j, g, t);
-    }
-    if (kDq) {
-      __syncthreads();  // every warp's dS columns are written
-      float dq[kNT][4];
-      zero(dq);
 #pragma unroll
       for (int j = 0; j < kTile / 16; ++j) {
         uint32_t hi[4], lo[4];
-        frag_from_smem(dsh_s, r0, j, g, t, hi);
-        frag_from_smem(dsl_s, r0, j, g, t, lo);
-        mma_row(dq, hi, kt_s, j, g, t);
-        mma_row(dq, lo, kt_s, j, g, t);
+        frag_from_acc_t(pt[2 * j], pt[2 * j + 1], hi, lo);
+        mma_nn2(dv_acc, hi, lo, dos, j, lane);
+        frag_from_acc_t(dst[2 * j], dst[2 * j + 1], hi, lo);
+        mma_nn2(dk_acc, hi, lo, qs, j, lane);
       }
-      float* dqb = dq_acc + bh * Tq * kD;
-      const int qr = q0 + r0 + g;
+    }
+    if (kDq) {
+      // dS^T as bf16 pairs: lane (g, t) holds keys g and g + 8, queries 2t
+      // and 2t + 1 of each n-tile (zeros for a warp that sees no pair).
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = qr + 8 * (e >> 1);
-          if (r < Tq)
-            atomicAdd(&dqb[(size_t)r * kD + 8 * n + 2 * t + (e & 1)],
-                      dq[n][e] * scale);
+        for (int r = 0; r < 2; ++r) {
+          uint32_t hi, lo;
+          split2t(dst[n][2 * r], dst[n][2 * r + 1], hi, lo);
+          const int off = (r0 + g + 8 * r) * kLdh + 8 * n + 2 * t;
+          *reinterpret_cast<uint32_t*>(dsh_s + off) = hi;
+          *reinterpret_cast<uint32_t*>(dsl_s + off) = lo;
         }
+      __syncthreads();  // every warp's dS^T rows are written
+      // dq rows [q0 + r0, q0 + r0 + 16): dS K over the block's 64 keys, dS
+      // read transposed out of dS^T.
+      float dq[kNT][4];
+      zero(dq);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t ahi[4], alo[4];
+        const int a_off = (16 * kk + lane % 8 + 8 * (lane / 16)) * kLdh + r0 +
+                          8 * ((lane / 8) % 2);
+        ldsm4_t(ahi, dsh_s + a_off);
+        ldsm4_t(alo, dsl_s + a_off);
+        mma_nn2(dq, ahi, alo, k_s, kk, lane);
+      }
+      // Lanes t and t ^ 1 trade halves: the even lane adds row g, the odd
+      // lane row g + 8, each four neighbouring columns from 8 n + 2 (t & 2).
+      float* dqb = dq_acc + bh * Tq * kD;
+      const bool odd = t & 1;
+      const int row = q0 + r0 + g + (odd ? 8 : 0);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const float s0 = odd ? dq[n][0] : dq[n][2];
+        const float s1 = odd ? dq[n][1] : dq[n][3];
+        const float x0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+        const float x1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+        const float4 val =
+            odd ? make_float4(x0 * scale, x1 * scale, dq[n][2] * scale,
+                              dq[n][3] * scale)
+                : make_float4(dq[n][0] * scale, dq[n][1] * scale, x0 * scale,
+                              x1 * scale);
+        if (row < Tq)
+          atomicAdd(reinterpret_cast<float4*>(dqb + (size_t)row * kD + 8 * n +
+                                              2 * (t & 2)),
+                    val);
+      }
     }
   }
   store_rows(dk + bh * Tk * kD, dk_acc, key[0], Tk, scale, scale, t);
@@ -859,15 +1122,8 @@ __global__ void __launch_bounds__(kThreads)
 constexpr size_t kFwdSmem = 4 * kTileFloats * sizeof(float);
 constexpr size_t kDkdvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
 constexpr size_t kDqSmem = (5 * kTileFloats + 2 * kTile) * sizeof(float);
-// The bf16 K1 and dq kernels use static shared memory (27,648 B) only.
-constexpr size_t kFwdMmaSmem = 0;
+// The bf16 dq kernel uses static shared memory (27,648 B) only.
 constexpr size_t kDqMmaSmem = 0;
-// bf16 K2: q, dO and their transposes, lse and delta; K2a adds K^T and dS
-// (hi, lo).
-constexpr size_t kDkdvMmaSmemSplit =
-    4 * kTileH * sizeof(bf16) + 2 * kTile * sizeof(float);
-constexpr size_t kDkdvMmaSmem = kDkdvMmaSmemSplit + 3 * kTileH * sizeof(bf16);
-
 template <typename T>
 constexpr bool kOnTensorCores = std::is_same<T, bf16>::value;
 
@@ -879,12 +1135,12 @@ bool shape_ok(int B, int H, int Tq, int Tk, int D) {
 // Set the kernel's dynamic shared-memory limit and launch it; returns the
 // CUDA error (0 on success).
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, dim3 grid, cudaStream_t st,
-           Args... args) {
+int launch(Kernel kernel, size_t smem, dim3 grid, int threads,
+           cudaStream_t st, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, st>>>(args...);
+  kernel<<<grid, threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -893,16 +1149,18 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* mask,
                void* o, void* lse, int B, int H, int Tq, int Tk, float scale,
                int causal, cudaStream_t st) {
   const dim3 grid((Tq + kTile - 1) / kTile, H, B);
-  auto args = [&](auto kernel, size_t smem) {
-    return launch(kernel, smem, grid, st, static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const float*>(mask), static_cast<T*>(o),
-                  static_cast<float*>(lse), H, Tq, Tk, scale, causal);
-  };
   if constexpr (kOnTensorCores<T>) {
-    return args(fwd_mma_kernel<T>, kFwdMmaSmem);
+    return launch(fwd_async_kernel, kFwdAsyncSmem, grid, kAsyncThreads, st,
+                  static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v),
+                  static_cast<const float*>(mask), static_cast<bf16*>(o),
+                  static_cast<float*>(lse), H, Tq, Tk, scale, causal);
   } else {
-    return args(fwd_kernel<T>, kFwdSmem);
+    return launch(fwd_kernel<T>, kFwdSmem, grid, kThreads, st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const float*>(mask),
+                  static_cast<T*>(o), static_cast<float*>(lse), H, Tq, Tk,
+                  scale, causal);
   }
 }
 
@@ -911,23 +1169,26 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* mask,
                 const void* dout, const void* lse, const void* delta,
                 void* dq_acc, void* dk, void* dv, int B, int H, int Tq,
                 int Tk, float scale, int causal, int fused, cudaStream_t st) {
+  using E = std::conditional_t<kOnTensorCores<T>, bf16, T>;
   const dim3 grid((Tk + kTile - 1) / kTile, H, B);
-  auto args = [&](auto kernel, size_t smem) {
-    return launch(kernel, smem, grid, st, static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v),
+  auto args = [&](auto kernel, size_t smem, int threads) {
+    return launch(kernel, smem, grid, threads, st, static_cast<const E*>(q),
+                  static_cast<const E*>(k), static_cast<const E*>(v),
                   static_cast<const float*>(mask),
-                  static_cast<const T*>(dout),
+                  static_cast<const E*>(dout),
                   static_cast<const float*>(lse),
                   static_cast<const float*>(delta),
-                  static_cast<float*>(dq_acc), static_cast<T*>(dk),
-                  static_cast<T*>(dv), H, Tq, Tk, scale, causal);
+                  static_cast<float*>(dq_acc), static_cast<E*>(dk),
+                  static_cast<E*>(dv), H, Tq, Tk, scale, causal);
   };
   if constexpr (kOnTensorCores<T>) {
-    return fused ? args(dkdv_mma_kernel<T, true>, kDkdvMmaSmem)
-                 : args(dkdv_mma_kernel<T, false>, kDkdvMmaSmemSplit);
+    return fused ? args(dkdv_async_kernel<true>, dkdv_async_smem<true>(),
+                        kAsyncThreads)
+                 : args(dkdv_async_kernel<false>, dkdv_async_smem<false>(),
+                        kAsyncThreads);
   } else {
-    return fused ? args(dkdv_kernel<T, true>, kDkdvSmem)
-                 : args(dkdv_kernel<T, false>, kDkdvSmem);
+    return fused ? args(dkdv_kernel<T, true>, kDkdvSmem, kThreads)
+                 : args(dkdv_kernel<T, false>, kDkdvSmem, kThreads);
   }
 }
 
@@ -938,7 +1199,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* mask,
               cudaStream_t st) {
   const dim3 grid((Tq + kTile - 1) / kTile, H, B);
   auto args = [&](auto kernel, size_t smem) {
-    return launch(kernel, smem, grid, st, static_cast<const T*>(q),
+    return launch(kernel, smem, grid, kThreads, st, static_cast<const T*>(q),
                   static_cast<const T*>(k), static_cast<const T*>(v),
                   static_cast<const float*>(mask),
                   static_cast<const T*>(dout),

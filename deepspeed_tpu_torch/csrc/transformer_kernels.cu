@@ -1,16 +1,18 @@
 // Row kernels of the fused transformer layer, for Hopper (sm_90a):
-// LayerNorm (K8), dropout forward (K10a) and backward (K10b), bias + GELU
-// (K11).
+// LayerNorm (K8), scale + mask + softmax over attention scores (K9),
+// dropout forward (K10a) and backward (K10b), bias + GELU (K11).
 //
 // Replace the TPU kernels (deepspeed_tpu/ops/transformer/kernels/):
 //   K8   layer_norm.py `_ln_fwd_kernel` (launched by `_ln_fwd`);
+//   K9   softmax.py `_softmax_kernel` (launched by `_softmax_fwd`);
 //   K10a dropout.py `_dropout_kernel` (launched by `_dropout_fwd`);
 //   K10b dropout.py `_mask_kernel` (launched by `_regen_mask_tpu`), here
 //        fused with the product it feeds: dx = g * keep * scale;
 //   K11  gelu.py `_bias_gelu_kernel` (launched by `_bias_gelu_fwd`).
 // Their plain PyTorch versions, which these are held against on the card,
-// are `ln_fwd_reference`, `dropout_reference` / `dropout_bwd_reference` and
-// `bias_gelu_reference` in deepspeed_tpu_torch/ops/transformer/kernels/.
+// are `ln_fwd_reference`, `attn_softmax_reference`, `dropout_reference` /
+// `dropout_bwd_reference` and `bias_gelu_reference` in
+// deepspeed_tpu_torch/ops/transformer/kernels/.
 //
 // Bound on an H100 SXM: memory. Each kernel reads its inputs once and
 // writes its outputs once, doing a few tens of operations per element
@@ -24,6 +26,17 @@
 //     passes (mean, then the mean of squared deviations: the variance is
 //     two-pass as in the TPU kernel), so x is read once; mu and rstd are
 //     written for the backward;
+//   - K9: each score read once, each probability written once (at
+//     BERT-large's [16, 16, 512, 512] bf16 scores, 268 MB: 0.080 ms). A row
+//     of up to 2048 16-bit or 1024 fp32 keys, a whole number of 16-byte
+//     vectors, is one warp's, held in registers between the max, the sum
+//     and the store; a longer or ragged row (any T_k up to kSoftmaxMaxKeys)
+//     is one CTA's, staged once in shared memory as fp32 scores. The
+//     arithmetic is the plain version's: fp32 s * scale, + mask, the causal
+//     `where` to -1e30, exp(s - max), products and sums rounded apart
+//     (__fmul_rn / __fadd_rn: no FMA contraction); the division by the sum
+//     is a product with its reciprocal (within an fp32 ulp of it: one
+//     instruction, not a dozen, per element);
 //   - K10a/K10b: the mask is a counter-based function of (seed, flat
 //     element index): Philox-4x32-10 with key (seed low, seed high) and
 //     counter (index / 4 as a 64-bit pair, 0, 0), whose four outputs are the
@@ -211,6 +224,201 @@ int launch_layer_norm(const void* x, const void* res, const void* bias,
     return (int)cudaErrorInvalidValue;
   }
 #undef DS_LN
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K9
+
+constexpr int kSmWarps = 4;            // rows per block on the warp path
+constexpr int kSmRowThreads = 256;     // threads per row on the CTA path
+constexpr int kSmWarpVecs = 8;         // vectors per lane on the warp path
+constexpr int kSoftmaxMaxKeys = 32768; // the CTA path's fp32 row: 128 KB
+constexpr float kSmNegInf = -1e30f;    // the JAX package's NEG_INF
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The masked, scaled score of key `key` (already widened to fp32): x *
+// scale, plus the row's additive mask value m, then the causal cut, as the
+// TPU kernel orders them.
+__device__ __forceinline__ float sm_score(float x, bool masked, float m,
+                                          int key, int query, float scale,
+                                          int causal) {
+  x = __fmul_rn(x, scale);
+  if (masked) x = __fadd_rn(x, m);
+  if (causal && key > query) x = kSmNegInf;
+  return x;
+}
+
+// One warp per row of Tk = nvec 16-byte vectors (nvec <= 32 * kVecs); lane
+// l holds vectors l, l + 32, ... of its row.
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kSmWarps * 32)
+    softmax_warp_kernel(const T* __restrict__ s, const float* __restrict__ mask,
+                        T* __restrict__ out, long long rows, int HTq, int Tq,
+                        int Tk, float scale, int causal) {
+  constexpr int VN = Vec<T>::n;
+  const long long row = (long long)blockIdx.x * kSmWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // uniform across the warp
+  const int nvec = Tk / VN;
+  const int query = (int)(row % Tq);
+  const float* mrow =
+      mask != nullptr ? mask + (size_t)(row / HTq) * Tk : nullptr;
+  const size_t base = (size_t)row * Tk;
+  float x[kVecs][VN];
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int v = lane + i * 32;
+    if (v < nvec) {
+      load16(s + base + v * VN, x[i]);
+      float mv[VN];  // the mask's VN values: float4 loads (Tk % VN == 0)
+      if (mrow != nullptr) load_f32<VN>(mrow + v * VN, mv);
+#pragma unroll
+      for (int j = 0; j < VN; ++j) {
+        x[i][j] = sm_score(x[i][j], mrow != nullptr, mv[j], v * VN + j,
+                           query, scale, causal);
+        mx = fmaxf(mx, x[i][j]);
+      }
+    }
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    if (lane + i * 32 < nvec) {
+#pragma unroll
+      for (int j = 0; j < VN; ++j) {
+        x[i][j] = expf(x[i][j] - mx);
+        sum += x[i][j];
+      }
+    }
+  }
+  const float inv = __frcp_rn(warp_sum(sum));
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int v = lane + i * 32;
+    if (v < nvec) {
+#pragma unroll
+      for (int j = 0; j < VN; ++j) x[i][j] = __fmul_rn(x[i][j], inv);
+      store16(out + base + v * VN, x[i]);
+    }
+  }
+}
+
+// The block's reduction of one value per thread (max or sum); every thread
+// gets the result. red holds kSmRowThreads / 32 floats.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  v = kMax ? warp_max(v) : warp_sum(v);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // red is free (an earlier reduction has been read)
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < kSmRowThreads / 32 ? red[lane] : (kMax ? -INFINITY : 0.f);
+  return kMax ? warp_max(v) : warp_sum(v);
+}
+
+// One CTA per row of any Tk <= kSoftmaxMaxKeys: the row's scores staged in
+// shared memory as fp32 (read from device memory once), then the max, the
+// exponentials in place, the sum, the store. kVec: 16-byte loads and
+// stores (Tk a whole number of vectors), else one element per access.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSmRowThreads)
+    softmax_row_kernel(const T* __restrict__ s, const float* __restrict__ mask,
+                       T* __restrict__ out, int HTq, int Tq, int Tk,
+                       float scale, int causal) {
+  extern __shared__ float row_s[];  // [Tk]
+  __shared__ float red[kSmRowThreads / 32];
+  constexpr int VN = kVec ? Vec<T>::n : 1;
+  const long long row = blockIdx.x;
+  const int query = (int)(row % Tq);
+  const float* mrow =
+      mask != nullptr ? mask + (size_t)(row / HTq) * Tk : nullptr;
+  const size_t base = (size_t)row * Tk;
+  float mx = -INFINITY;
+  for (int c = threadIdx.x * VN; c < Tk; c += kSmRowThreads * VN) {
+    float x[VN];
+    if (kVec) {
+      load16(s + base + c, x);
+    } else {
+      x[0] = to_f(s[base + c]);
+    }
+#pragma unroll
+    for (int j = 0; j < VN; ++j) {
+      const float mv = mrow != nullptr ? mrow[c + j] : 0.f;
+      x[j] = sm_score(x[j], mrow != nullptr, mv, c + j, query, scale, causal);
+      mx = fmaxf(mx, x[j]);
+      row_s[c + j] = x[j];
+    }
+  }
+  mx = block_reduce<true>(mx, red);
+  float sum = 0.f;
+  for (int c = threadIdx.x * VN; c < Tk; c += kSmRowThreads * VN) {
+#pragma unroll
+    for (int j = 0; j < VN; ++j) {
+      const float e = expf(row_s[c + j] - mx);
+      row_s[c + j] = e;
+      sum += e;
+    }
+  }
+  const float inv = __frcp_rn(block_reduce<false>(sum, red));
+  for (int c = threadIdx.x * VN; c < Tk; c += kSmRowThreads * VN) {
+    float x[VN];
+#pragma unroll
+    for (int j = 0; j < VN; ++j) x[j] = __fmul_rn(row_s[c + j], inv);
+    if (kVec) {
+      store16(out + base + c, x);
+    } else {
+      out[base + c] = from_f<T>(x[0]);
+    }
+  }
+}
+
+template <typename T>
+int softmax_impl(const void* s, const void* mask, void* out, int B, int H,
+                 int Tq, int Tk, float scale, int causal, cudaStream_t st) {
+  constexpr int VN = Vec<T>::n;
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || Tk > kSoftmaxMaxKeys)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * H * Tq;
+  const bool vec = Tk % VN == 0;
+  const int per_lane = (Tk / VN + 31) / 32;
+  const T* sp = static_cast<const T*>(s);
+  const float* mp = static_cast<const float*>(mask);
+  T* op = static_cast<T*>(out);
+  if (vec && per_lane <= kSmWarpVecs) {
+    const long long blocks = (rows + kSmWarps - 1) / kSmWarps;
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+#define DS_SM(K)                                                          \
+  softmax_warp_kernel<T, K><<<(unsigned)blocks, kSmWarps * 32, 0, st>>>( \
+      sp, mp, op, rows, H * Tq, Tq, Tk, scale, causal)
+    if (per_lane <= 1) {
+      DS_SM(1);
+    } else if (per_lane <= 2) {
+      DS_SM(2);
+    } else if (per_lane <= 4) {
+      DS_SM(4);
+    } else {
+      DS_SM(8);
+    }
+#undef DS_SM
+    return (int)cudaGetLastError();
+  }
+  if (rows > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)Tk * sizeof(float);
+  auto kernel =
+      vec ? softmax_row_kernel<T, true> : softmax_row_kernel<T, false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)rows, kSmRowThreads, smem, st>>>(sp, mp, op, H * Tq, Tq,
+                                                      Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -416,6 +624,26 @@ extern "C" int ds_layer_norm_fwd(const void* x, const void* res,
     case 2:
       return layer_norm_impl<__half>(x, res, bias, gamma, beta, out, mu, rstd,
                                      rows, cols, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K9: s, out [B, H, Tq, Tk] of `dtype`; mask [B, Tk] fp32 or null;
+// causal (0/1) cuts key > query to -1e30. Any Tk from 1 to 32768.
+extern "C" int ds_attn_softmax_fwd(const void* s, const void* mask, void* out,
+                                   int B, int H, int Tq, int Tk, int dtype,
+                                   float scale, int causal, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return softmax_impl<float>(s, mask, out, B, H, Tq, Tk, scale, causal,
+                                 st);
+    case 1:
+      return softmax_impl<__nv_bfloat16>(s, mask, out, B, H, Tq, Tk, scale,
+                                         causal, st);
+    case 2:
+      return softmax_impl<__half>(s, mask, out, B, H, Tq, Tk, scale, causal,
+                                  st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-"""The ctypes binding of ``csrc/transformer_kernels.cu`` (kernels K8, K10a,
-K10b and K11) and the checks their wrappers share.
+"""The ctypes binding of ``csrc/transformer_kernels.cu`` (kernels K8, K9,
+K10a, K10b and K11) and the checks their wrappers share.
 
 The library is built and loaded at the first launch (``op_builder.load``),
 never at import. ``cuda_operands`` decides, from the tensors alone, whether
@@ -19,6 +19,8 @@ _U, _F = ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     # x, res, bias, gamma, beta, out, mu, rstd, rows, cols, dtype, eps, stream
     "ds_layer_norm_fwd": [_P] * 8 + [_I, _I, _I, _F, _P],
+    # s, mask, out, B, H, Tq, Tk, dtype, scale, causal, stream
+    "ds_attn_softmax_fwd": [_P] * 3 + [_I] * 5 + [_F, _I, _P],
     # x, bias, out, n, cols, dtype, stream
     "ds_bias_gelu_fwd": [_P] * 3 + [_LL, _I, _I, _P],
     # x, bias, res, out, n, cols, dtype, threshold, scale, k0, k1, stream
@@ -54,7 +56,7 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def cuda_operands(what, x, others=(), vectors=()):
+def cuda_operands(what, x, others=(), vectors=(), whole_vectors=True):
     """False when ``x`` lies on the CPU (the caller computes the plain
     version); True when it lies on a CUDA device and the kernel takes it.
 
@@ -62,8 +64,9 @@ def cuda_operands(what, x, others=(), vectors=()):
     ``vectors`` further per-column tensors (or None), which the caller
     hands the kernel as contiguous fp32. Raises ValueError or TypeError for
     mixed devices, an unsupported device or dtype, a non-contiguous or
-    misaligned tensor, or a last dimension that is not a whole number of
-    16-byte vectors."""
+    misaligned tensor, or (with ``whole_vectors``, for kernels that read
+    rows only in 16-byte vectors) a last dimension that is not a whole
+    number of 16-byte vectors."""
     tensors = [t for t in (x,) + tuple(others) + tuple(vectors)
                if t is not None]
     for t in tensors:
@@ -87,7 +90,7 @@ def cuda_operands(what, x, others=(), vectors=()):
     if x.dtype not in DTYPE_CODE:
         raise TypeError("{}: the kernel takes float32, bfloat16 or float16, "
                         "got {}".format(what, x.dtype))
-    if x.numel() == 0 or (cols * x.element_size()) % 16:
+    if x.numel() == 0 or (whole_vectors and (cols * x.element_size()) % 16):
         raise ValueError("{}: the kernel takes a non-empty tensor whose last "
                          "dimension is a multiple of 16 bytes, got shape "
                          "{} {}".format(what, tuple(x.shape), x.dtype))

@@ -1,8 +1,9 @@
 """Kernels on the card: K3-K6 (flash decode over dense and paged, fp and
 int8 caches), K1/K2a/K2b (flash attention for training), the fused
 layer's row kernels K8 (LayerNorm), K10a/K10b (dropout and its replay) and
-K11 (bias + GELU), and K7a/K7b (block-sparse attention) against their plain
-PyTorch versions, and the wrappers' refusals on CUDA tensors.
+K11 (bias + GELU), the standalone softmax K9, and K7a/K7b (block-sparse
+attention) against their plain PyTorch versions, and the wrappers' refusals
+on CUDA tensors.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -18,6 +19,7 @@ from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention as da
 from deepspeed_tpu_torch.ops.transformer.kernels import dropout as dr
 from deepspeed_tpu_torch.ops.transformer.kernels import gelu as ge
 from deepspeed_tpu_torch.ops.transformer.kernels import layer_norm as ln
+from deepspeed_tpu_torch.ops.transformer.kernels import softmax as sm
 from deepspeed_tpu_torch.ops.sparse_attention import kernels as sk
 
 pytestmark = pytest.mark.cuda
@@ -268,7 +270,12 @@ def _flash_inputs(cuda, B, H, T, dtype, masked):
     q, k, v, do = (torch.randn(B, H, T, 64, device=cuda, generator=g)
                    .to(dtype) for _ in range(4))
     mask = None
-    if masked:
+    if masked == "padding":  # the BERT batches': every other row padded
+        lens = torch.randint(T // 4, T, (B,), device=cuda, generator=g)
+        drop = torch.arange(T, device=cuda)[None] >= lens[:, None]
+        drop[1::2] = False
+        mask = torch.where(drop, -1e9, 0.0)
+    elif masked:
         mask = torch.zeros(B, T, device=cuda)
         mask[0, T // 3:T // 2] = -1e9
         mask[-1, :7] = -1e9
@@ -283,9 +290,16 @@ def _within(out, ref, mag, rtol):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
+# The bf16 kernels take 128 query rows (K1) or keys (K2) per block: T = 64,
+# 192 and 1000 end inside a block, causal and not, with the padding mask.
 @pytest.mark.parametrize("case,T,causal,masked", [
     ("causal", 256, True, False), ("mask", 192, False, True),
-    ("ragged", 200, True, True), ("one_tile", 64, True, False)])
+    ("ragged", 200, True, True), ("one_tile", 64, True, False),
+    ("pad64", 64, False, "padding"), ("pad64_causal", 64, True, "padding"),
+    ("pad192", 192, False, "padding"),
+    ("pad192_causal", 192, True, "padding"),
+    ("pad1000", 1000, False, "padding"),
+    ("pad1000_causal", 1000, True, "padding")])
 @pytest.mark.parametrize("mode", ["fused", "split"])
 def test_flash_kernels_match_plain(cuda, dtype, case, T, causal, masked,
                                    mode):
@@ -473,6 +487,83 @@ def test_row_kernel_wrappers_refuse_what_the_kernels_cannot_take(cuda, bad):
             .contiguous(), gamma[:1023], beta[:1023]
     with pytest.raises((TypeError, ValueError)):
         ln.ln_fwd(x, gamma, beta, None, res)
+
+
+# K9: (B, H, T_q, T_k, causal, masked). T_k = 1, 130 (bf16/fp16 rows of 260
+# bytes: the CTA path's element loads), 777 (ragged in every dtype), 1000
+# and 512 (the warp path), 4096 and 8192 (the CTA path's vector loads).
+SOFTMAX_CASES = [(2, 3, 5, 1, False, False), (2, 3, 17, 1000, False, True),
+                 (2, 2, 64, 512, False, True), (1, 2, 9, 4096, False, True),
+                 (1, 1, 4, 8192, False, True), (2, 3, 130, 130, True, True),
+                 (1, 2, 256, 256, True, False), (2, 2, 7, 777, False, True)]
+
+
+@pytest.mark.parametrize("dtype", ROW_DTYPES, ids=ROW_IDS)
+@pytest.mark.parametrize("B,H,t_q,t_k,causal,masked", SOFTMAX_CASES,
+                         ids=["tk{}{}".format(c[3], "_causal" if c[4] else "")
+                              for c in SOFTMAX_CASES])
+def test_softmax_kernel_matches_plain(cuda, dtype, B, H, t_q, t_k, causal,
+                                      masked):
+    """K9 within one output ulp of its plain version (ROW_TOL), a row
+    masked at every key included."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    s = (3.0 * torch.randn(B, H, t_q, t_k, device=cuda, generator=g)) \
+        .to(dtype)
+    mask = None
+    if masked:
+        lens = torch.randint(1, t_k + 1, (B,), device=cuda, generator=g)
+        mask = torch.where(torch.arange(t_k, device=cuda)[None]
+                           >= lens[:, None], -1e9, 0.0)
+        mask[-1] = -1e9
+    before = sm.launches
+    out = sm.softmax_fwd(s, mask, 0.125, causal)
+    ref = sm.attn_softmax_reference(s, mask, 0.125, causal)
+    torch.cuda.synchronize()
+    assert sm.launches == before + 1
+    assert out.dtype == dtype and out.shape == s.shape
+    assert bool(torch.isfinite(out).all())
+    assert _row_within(out, ref, dtype)
+
+
+def test_softmax_autograd_on_the_card_matches_the_cpu(cuda):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    s = torch.randn(2, 3, 40, 72, device=cuda, generator=g)
+    grad = torch.randn(2, 3, 40, 72, device=cuda, generator=g)
+    mask = torch.zeros(2, 72, device=cuda)
+    mask[0, 50:] = -1e9
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        leaf = s.to(dev).clone().requires_grad_()
+        p = sm.attn_softmax(leaf, mask.to(dev), 0.125, False)
+        p.backward(grad.to(dev))
+        outs.append((p.detach().cpu(), leaf.grad.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["fp64", "strided", "too_long", "mask_shape",
+                                 "mask_device", "rank"])
+def test_softmax_wrapper_refuses_what_the_kernel_cannot_take(cuda, bad):
+    s = torch.zeros(2, 2, 8, 64, device=cuda)
+    mask = torch.zeros(2, 64, device=cuda)
+    if bad == "fp64":
+        s = s.double()
+    elif bad == "strided":
+        s = s.transpose(2, 3)
+        mask = torch.zeros(2, 8, device=cuda)
+    elif bad == "too_long":
+        s = torch.zeros(1, 1, 1, sm.MAX_KEYS + 1, device=cuda)
+        mask = None
+    elif bad == "mask_shape":
+        mask = mask[:, :10]
+    elif bad == "mask_device":
+        mask = mask.cpu()
+    else:
+        s = s[0]
+    with pytest.raises((TypeError, ValueError)):
+        sm.softmax_fwd(s, mask, 0.125, False)
 
 
 # K7a/K7b against their plain versions: |out - ref| <= rtol * |ref| +
