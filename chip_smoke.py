@@ -55,9 +55,9 @@ of which exits non-zero on failure:
    H=16, T=512, D=64, bf16, non-causal, every other row padded as the BERT
    batches are), a non-causal case with a random additive mask, a ragged
    T=1000 and T=64; each element held to its own limit (see FLASH_TOL);
-   times the kernels, the plain versions and torch's
-   scaled_dot_product_attention (a yardstick only) beside the bound, at
-   the training and the BERT shapes;
+   times the kernels (K2b's two kernels also apart), the plain versions and
+   torch's scaled_dot_product_attention (a yardstick only) beside the
+   bound, at the training and the BERT shapes;
 7. training at full width: GPT-2 medium, bf16, seeded weights, through
    initialize / train_batch on batches of 8 x 1024; the loss must be finite
    and fall; the kernels' launch counts are reset just before the counted
@@ -102,7 +102,11 @@ of which exits non-zero on failure:
    key-padding mask and the bias in 'mul' mode, and fp16; times the
    kernels, the plain versions and torch's scaled_dot_product_attention
    with the layout expanded to a dense mask (a yardstick only) beside the
-   bound, at the path's shape;
+   bound, at the path's shape; then the split-default shape (B=1, H=16,
+   T=8192, D=64, bf16), where the wrappers pick the split backward
+   themselves: K2b (causal) and K7b split (Fixed, block 64, padding mask)
+   once each against their plain versions (see LONG_ACC), then timed
+   beside SDPA's backward and the bound;
 13. sparse BERT-large pretraining at full width: T=4096, batch 2, the Fixed
    layout at block 64, bf16, seeded weights, through initialize and
    forward / backward / step at dropout 0.1 (2 warm-up and 10 timed steps
@@ -318,6 +322,12 @@ SPARSE_WARM, SPARSE_TIMED, SPARSE_SPLIT = 2, 10, 2
 # row of 19 moves an element by some 1/19 of mag, about 200 times the
 # limit.
 SPARSE_ACC = 2.0 ** -12
+# The split-default shape (phase 12): T = 8192, where the fused backward's
+# resident set is over the 6 MiB budget. An element there sums up to 8192
+# terms (a key's dk/dv over every query), so the order of the sums moves it
+# by at most 8192 * 2**-24 of mag: FLASH_TOL's form at n = 8192.
+SPLIT_DEFAULT_T = 8192
+LONG_ACC = 2.0 ** -11
 
 PLANE = plane_len_for(SERVE["max_len"], SERVE["prefill_chunk"])
 # The paged pool of the slice's main path: the JAX package's default page
@@ -1120,10 +1130,11 @@ def _flash_vs_autograd(q, k, v, do, mask, causal, o, fused, split):
 
 
 def _flash_times(q, k, v, do, mask, lse, delta, causal):
-    """CUDA-event medians at a main path's shape: the kernels, their plain
-    versions, torch's scaled_dot_product_attention (forward, and forward +
-    backward minus forward, with the mask as an additive bias in q's dtype;
-    a yardstick the port never calls), and the bounds."""
+    """CUDA-event medians at a main path's shape: the kernels (K2b's two
+    also apart), their plain versions, torch's scaled_dot_product_attention
+    (forward, and forward + backward minus forward, with the mask as an
+    additive bias in q's dtype; a yardstick the port never calls), and the
+    bounds."""
     t = {
         "K1_ms": cuda_ms(lambda: at.flash_fwd(q, k, v, mask, causal)),
         "K2a_ms": cuda_ms(lambda: at.flash_bwd(q, k, v, mask, lse, delta, do,
@@ -1146,6 +1157,9 @@ def _flash_times(q, k, v, do, mask, lse, delta, causal):
         torch.autograd.grad(out, leaves, do)
 
     t["library_bwd_ms"] = cuda_ms(fwd_bwd) - t["library_fwd_ms"]
+    dkdv, dq, _ = at._bwd_kernels(q, k, v, mask, lse, delta, do, causal,
+                                  1.0 / q.shape[-1] ** 0.5)
+    t["K2b_dkdv_ms"], t["K2b_dq_ms"] = cuda_ms(dkdv), cuda_ms(dq)
     t["bound_fwd_ms"], t["bound_fwd_by"] = _flash_bound(q, mask, causal,
                                                         False)
     t["bound_bwd_ms"], t["bound_bwd_by"] = _flash_bound(q, mask, causal, True)
@@ -1886,6 +1900,110 @@ def phase_sparse():
             for i, case in enumerate(cases)]
 
 
+def phase_split_default():
+    """K2b and K7b split at a shape where ``_bwd_mode`` picks the split
+    backward by default (B=1, H=16, T=8192, D=64, bf16: the fused resident
+    set, T x 64 x 16 bytes, is over 6 MiB): flash causal, and sparse on the
+    Fixed layout at block 64 with the padding mask. Each backward runs once
+    through its wrapper in the default mode and is held against its plain
+    version (LONG_ACC); then the kernel, SDPA's backward (the yardstick) and
+    the bound are timed. Returns {"K2b": row, "K7b_split": row}."""
+    B, T = 1, SPLIT_DEFAULT_T
+    if at._bwd_mode(T, 64, torch.bfloat16) != "split":
+        fail("_bwd_mode does not pick the split backward at T={}".format(T))
+    rows = {}
+    q, k, v, do, _ = _flash_inputs(B, T, torch.bfloat16, False, 30)
+    o, lse = at.flash_fwd(q, k, v, None, True)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    before = at.launches["flash_bwd_split"]
+    grads = at.flash_bwd(q, k, v, None, lse, delta, do, True)
+    if at.launches["flash_bwd_split"] != before + 2:
+        fail("the default flash backward at T={} did not run K2b".format(T))
+    refs = at.flash_bwd_reference(q, k, v, None, lse, delta, do, True)
+    mags = at.accumulated_magnitudes(q, k, v, None, lse, delta, do,
+                                     True)[1:]
+    rows["K2b"] = _long_check("K2b", grads, refs, mags)
+    del refs, mags, grads
+    torch.cuda.empty_cache()
+    rows["K2b"].update(_split_default_times(
+        lambda: at.flash_bwd(q, k, v, None, lse, delta, do, True),
+        q, k, v, do, None, True, _flash_bound(q, None, True, True)))
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+
+    q, k, v, do, kw = _sparse_inputs(B, T, torch.bfloat16, "padding", None,
+                                     31)
+    lowered = sk.lower(_sparse_layout("fixed", SPARSE_BLOCK, T, 31),
+                       SPARSE_BLOCK)
+    o, lse = sk.sparse_fwd(q, k, v, lowered, **kw)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    before = sk.launches["sparse_bwd_split"]
+    grads = sk.sparse_bwd(q, k, v, lowered, lse, delta, do, **kw)
+    if sk.launches["sparse_bwd_split"] != before + 2:
+        fail("the default sparse backward at T={} did not run K7b "
+             "split".format(T))
+    refs = sk.sparse_bwd_reference(q, k, v, lowered, lse, delta, do, **kw)
+    mags = sk.accumulated_magnitudes(q, k, v, lowered, lse, delta, do,
+                                     **kw)[1:]
+    rows["K7b_split"] = _long_check("K7b_split", grads, refs, mags)
+    del refs, mags, grads
+    torch.cuda.empty_cache()
+    mask = torch.where(lowered.element_mask(T, q.device)[None], 0.0,
+                       float("-inf"))
+    mask = (mask + kw["kpm"][:, None, None, :]).to(q.dtype)
+    rows["K7b_split"].update(_split_default_times(
+        lambda: sk.sparse_bwd(q, k, v, lowered, lse, delta, do, **kw),
+        q, k, v, do, mask, False, _sparse_bound(q, lowered, kw, True)))
+    rows["K7b_split"]["density"] = lowered.density
+    del mask
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        print("split_default " + json.dumps(dict(row, kernel=name)))
+    return rows
+
+
+def _long_check(kernel, grads, refs, mags):
+    """(dq, dk, dv) against the plain version at LONG_ACC, each output held
+    to its own accumulated magnitudes (``mags``: dq's, dk's, dv's); fails
+    above 1."""
+    torch.cuda.synchronize()
+    errs = []
+    for g, r, m in zip(grads, refs, mags):
+        if not (bool(torch.isfinite(g).all()) and g.shape == r.shape):
+            fail("{} output not finite or wrong shape at T={}".format(
+                kernel, SPLIT_DEFAULT_T))
+        errs.append(_err(g, r, FLASH_RTOL[g.dtype] * r.float().abs() +
+                         LONG_ACC * m))
+    row = {"shape": "B1 H16 T{} D64 bf16".format(SPLIT_DEFAULT_T),
+           "max_abs_err": max(e[0] for e in errs),
+           "max_err_over_limit": max(e[1] for e in errs),
+           "err_over_limit": dict(zip(("dq", "dk", "dv"),
+                                      (e[1] for e in errs)))}
+    if row["max_err_over_limit"] > 1.0:
+        print("split_default " + json.dumps(dict(row, kernel=kernel)))
+        fail("{} disagrees with its plain version at T={}".format(
+            kernel, SPLIT_DEFAULT_T))
+    return row
+
+
+def _split_default_times(kernel, q, k, v, do, mask, causal, bound):
+    """The kernel's and SDPA's backward (forward + backward - forward, the
+    mask as an additive bias) in ms, and the bound."""
+    t = {"ms": cuda_ms(kernel, reps=10)}
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal), reps=10)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             is_causal=causal)
+        torch.autograd.grad(out, leaves, do)
+
+    t["library_ms"] = cuda_ms(fwd_bwd, reps=10) - fwd
+    t["bound_ms"], t["bound_by"] = bound
+    return t
+
+
 def _sparse_bert_config(**kw):
     return BertConfig.bert_large(
         use_fused_layer=False, sparse_attention_config=FixedSparsityConfig(
@@ -1992,9 +2110,10 @@ def phase_bert_sparse_consistency():
              "layer: {}".format(sk.launches))
 
 
-def _sparse_kernel_rows(rows, launches):
+def _sparse_kernel_rows(rows, launches, split_rows):
     """K7a and K7b fused / split: times at the sparse BERT path's shape,
-    errors over every case, launches from the sparse BERT run."""
+    errors over every case, launches from the sparse BERT run; K7b split's
+    entry carries the split-default shape's under "split_default"."""
     timed = rows[0]
     specs = [("block_sparse_attention_fwd", "K7a", "sparse_fwd", 133,
               "K7a_ms", "plain_fwd_ms", "library_fwd_ms", "fwd"),
@@ -2007,8 +2126,8 @@ def _sparse_kernel_rows(rows, launches):
     shape = ("B{} H16 T{} D64 bf16, Fixed layout block {} bidirectional "
              "(density {:.3f}), additive padding mask".format(
                  SPARSE_B, SPARSE_T, SPARSE_BLOCK, timed["density"]))
-    return [{"name": name, "route": "cuda",
-             "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
+    out = [{"name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
              "replaces": "deepspeed_tpu/ops/sparse_attention/kernels.py:{}"
                          .format(line),
              "launches": launches[counter],
@@ -2019,13 +2138,16 @@ def _sparse_kernel_rows(rows, launches):
              "bound_ms": timed["bound_{}_ms".format(way)],
              "bound_by": timed["bound_{}_by".format(way)],
              "library_ms": timed[lib], "shape": shape}
-            for name, kernel, counter, line, ms, plain, lib, way in specs]
+           for name, kernel, counter, line, ms, plain, lib, way in specs]
+    out[2]["split_default"] = split_rows["K7b_split"]
+    return out
 
 
-def _flash_kernel_rows(flash_rows, launches, bert_launches):
+def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows):
     """K1/K2a/K2b: times at GPT-2 training's shape, launches from its run;
     under "bert" the times at BERT-large's shape and the launches from the
-    BERT run."""
+    BERT run; K2b's entry also gives its two kernels' own times (dkdv_ms,
+    dq_ms) and the split-default shape's under "split_default"."""
     timed, bert = flash_rows[0], flash_rows[1]
     shape = "B8 H16 T1024 D64 bf16 causal"
     common = {"route": "cuda",
@@ -2060,6 +2182,10 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches):
             bound_ms=timed["bound_{}_ms".format(way)],
             bound_by=timed["bound_{}_by".format(way)],
             library_ms=timed[lib]))
+    k2b = rows[2]
+    k2b.update(dkdv_ms=timed["K2b_dkdv_ms"], dq_ms=timed["K2b_dq_ms"],
+               split_default=split_rows["K2b"])
+    k2b["bert"].update(dkdv_ms=bert["K2b_dkdv_ms"], dq_ms=bert["K2b_dq_ms"])
     return rows
 
 
@@ -2154,6 +2280,7 @@ def main():
     bert_launches = phase_bert(card)
     phase_bert_consistency()
     sparse_rows = phase_sparse()
+    split_rows = phase_split_default()
     sparse_launches = phase_bert_sparse(card)
     phase_bert_sparse_consistency()
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
@@ -2170,10 +2297,11 @@ def main():
         "library_ms": main_row["library_ms"],
         "shape": "B16 H16 S1 T{} D64 bf16".format(PLANE)}]
     kernels += _decode_variant_rows(variant_rows, serve_launches)
-    kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches)
+    kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
+                                  split_rows)
     kernels += _row_kernel_rows(row_rows, bert_launches)
     kernels.append(_softmax_kernel_row(softmax_rows, softmax_launches))
-    kernels += _sparse_kernel_rows(sparse_rows, sparse_launches)
+    kernels += _sparse_kernel_rows(sparse_rows, sparse_launches, split_rows)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,27 @@
-"""Time the port's flash-attention kernels (K1, K2a, K2b) of two checkouts
-on one card, in turns: A, B, B, A.
+"""Time the port's flash-attention kernels (K1, K2a, K2b) and block-sparse
+attention kernels (K7a, K7b) of two checkouts on one card, in turns: A, B,
+B, A.
 
     python3 compare_trees.py DIR_A DIR_B [--out FILE]
 
 Each DIR is the root of a checkout (for instance a ``git archive`` of the
 parent commit unpacked under ``build/``). Each turn runs in a fresh process
 from that checkout: it builds the checkout's kernels (``chip_smoke.
-phase_build``), then times K1, K2a and K2b, their plain versions and
-torch's scaled_dot_product_attention (``chip_smoke._flash_times``, CUDA-event
-medians) at GPT-2 medium training's shape (B=8, H=16, T=1024, D=64, bf16,
-causal) and at BERT-large's (B=16, T=512, non-causal, padding mask). Prints
-one JSON line per turn and, last, the card's name and power limit; with
-``--out``, writes the turns there as a JSON list.
+phase_build``), then times, with that checkout's ``chip_smoke`` (CUDA-event
+medians):
+
+- K1, K2a and K2b, their plain versions and torch's
+  scaled_dot_product_attention (``_flash_times``) at GPT-2 medium
+  training's shape (B=8, H=16, T=1024, D=64, bf16, causal) and at
+  BERT-large's (B=16, T=512, non-causal, padding mask), and K2b's dq kernel
+  alone (``dq_ms``, launched through the same C entry point in both trees);
+- K7a, K7b fused and K7b split, their plain versions and SDPA with the
+  layout as a dense mask (``_sparse_times``) at the sparse BERT path's
+  shape (B=2, H=16, T=4096, D=64, bf16, the Fixed layout at block 64,
+  padding mask; ``_sparse_inputs``, ``_sparse_layout``, ``lower``).
+
+Prints one JSON line per turn and, last, the card's name and power limit;
+with ``--out``, writes the turns there as a JSON list.
 """
 
 import argparse
@@ -27,7 +37,21 @@ import json, sys, torch
 import chip_smoke as c
 c.phase_env()
 c.phase_build()
-at = c.at
+at, sk = c.at, c.sk
+
+
+# K2b's dq kernel on its own, launched here through its C entry point (the
+# same in both trees) so that both trees are timed by the same code.
+def dq_kernel(q, k, v, do, mask, lse, delta, causal):
+    B, H, T, D = q.shape
+    dq = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), at._ptr(mask),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, H, T, T, D, at._DTYPE_CODE[q.dtype], D ** -0.5, int(causal),
+            at._stream(q))
+    return lambda: at._raise_on(at._kernel("ds_flash_bwd_dq")(*args), "dq")
+
+
 out = {}
 for name, B, T, causal, masked, seed in (
         ("gpt2", 8, 1024, True, False, 0),
@@ -36,6 +60,17 @@ for name, B, T, causal, masked, seed in (
     o, lse = at.flash_fwd(q, k, v, mask, causal)
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
     out[name] = c._flash_times(q, k, v, do, mask, lse, delta, causal)
+    out[name]["dq_ms"] = c.cuda_ms(dq_kernel(q, k, v, do, mask, lse, delta,
+                                             causal))
+    del q, k, v, do, mask, o, lse, delta
+q, k, v, do, kw = c._sparse_inputs(c.SPARSE_B, c.SPARSE_T, torch.bfloat16,
+                                   "padding", None, 20)
+kw["causal"] = False
+lowered = sk.lower(c._sparse_layout("fixed", c.SPARSE_BLOCK, c.SPARSE_T, 20),
+                   c.SPARSE_BLOCK)
+o, lse = sk.sparse_fwd(q, k, v, lowered, **kw)
+delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+out["sparse"] = c._sparse_times(q, k, v, do, lowered, lse, delta, kw)
 print("TURN " + json.dumps(out))
 """
 

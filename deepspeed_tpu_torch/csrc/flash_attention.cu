@@ -8,7 +8,7 @@
 //       -> dkdv_async_kernel / dkdv_kernel with kDq = true (dq by atomics
 //          into an fp32 buffer)
 //   K2b `_bwd_dkv_kernel` and `_bwd_dq_kernel` (by `_flash_bwd_pallas`)
-//       -> dkdv_*kernel with kDq = false, then dq_mma_kernel / dq_kernel
+//       -> dkdv_*kernel with kDq = false, then dq_async_kernel / dq_kernel
 // The plain PyTorch versions they are held against are `mha_reference`
 // (with return_lse) and `flash_bwd_reference` in
 // deepspeed_tpu_torch/ops/transformer/kernels/attention.py.
@@ -37,7 +37,7 @@
 //     loaded or computed), the TPU kernel's kv_index clamp and @pl.when skip;
 //   - bf16, the training path's type, runs its products on the tensor cores
 //     (mma.sync, fp32 accumulation; see the bf16 sections below: operands
-//     by cp.async and ldmatrix, 128-row blocks). fp32 and fp16
+//     by cp.async and ldmatrix, 64-row blocks). fp32 and fp16
 //     run them as register-blocked fp32 FMAs on the CUDA cores (67 TFLOP/s):
 //     a thread of a 16 x 8 grid owns 4 rows x 8 strided columns, 2.7 FMAs
 //     per shared-memory load, rows padded to 65 floats (no bank conflicts).
@@ -435,7 +435,7 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------ bf16 on the tensor cores
 // The kernels for bf16 inputs run their products on the tensor cores:
 // mma.sync m16n8k16, bf16 operands, fp32 accumulation. A warp owns 16 rows
-// (queries in K1 and dq_mma_kernel, keys in K2's dk/dv kernel), and every
+// (queries in K1 and K2b's dq kernel, keys in K2's dk/dv kernel), and every
 // score, probability and accumulator stays in registers: the accumulator
 // layout of one product (thread (g, t) = (lane / 4, lane % 4) holds rows g
 // and g + 8, columns 2t and 2t + 1 of each 8-column tile) is the
@@ -447,76 +447,12 @@ __global__ void __launch_bounds__(kThreads)
 // twice the tensor-core work. q, k, v and dO are bf16 already: their
 // products are exact up to the fp32 accumulation. Shared-memory rows are
 // padded to 72 bf16, so the 32 lanes' 4-byte operand loads (and ldmatrix's
-// 16-byte rows) hit 32 banks. K1 and the dk/dv kernel are the Hopper
-// kernels of the next section; K2b's dq_mma_kernel, after them, still
-// stages synchronously and keeps K transposed.
+// 16-byte rows) hit 32 banks.
 
 constexpr int kLdh = kD + 8;  // bf16 row stride in shared memory
 constexpr int kTileH = kTile * kLdh;
 constexpr int kNT = kTile / 8;  // 8-column accumulator tiles per 64 columns
 constexpr int kKS = kD / 16;    // 16-deep steps over 64
-
-// The left operand of step kk from 16 rows of a bf16 tile (stride kLdh),
-// row0 being the warp's first row.
-__device__ __forceinline__ void frag_from_smem(const bf16* s, int row0,
-                                               int kk, int g, int t,
-                                               uint32_t (&a)[4]) {
-  const bf16* p = s + (row0 + g) * kLdh + 16 * kk + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * kLdh);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * kLdh + 8);
-}
-
-// acc[n] += A times B for the 8-column tiles n of a 64-column B whose
-// columns are the rows of bt (a [64][kLdh] tile: B[k][n] = bt[n][k]),
-// over the 16-deep step kk.
-__device__ __forceinline__ void mma_row(float (&acc)[kNT][4],
-                                        const uint32_t (&a)[4],
-                                        const bf16* bt, int kk, int g,
-                                        int t) {
-#pragma unroll
-  for (int n = 0; n < kNT; ++n) {
-    const bf16* p = bt + (8 * n + g) * kLdh + 16 * kk + 2 * t;
-    mma16816(acc[n], a, ld32(p), ld32(p + 8));
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kNT][4]) {
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-}
-
-// Rows [row0, row0 + 64) of a contiguous [n, 64] bf16 matrix into shared
-// memory (row stride kLdh) in 16-byte vectors; rows at or past n are zero.
-__device__ __forceinline__ void load_tile_h(bf16* dst, const bf16* src,
-                                            int row0, int n) {
-  for (int e = threadIdx.x; e < kTile * (kD / 8); e += kThreads) {
-    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = val;
-  }
-}
-
-// The same rows, transposed: dst[c][r] = src[row0 + r][c].
-__device__ __forceinline__ void load_tile_ht(bf16* dst, const bf16* src,
-                                             int row0, int n) {
-  for (int e = threadIdx.x; e < kTile * (kD / 8); e += kThreads) {
-    const int r = e % kTile, c = (e / kTile) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD +
-                                            c);
-    const bf16* el = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * kLdh + r] = el[i];
-  }
-}
 
 // Store rows g and g + 8 (global rows row_a, row_b, each written when below
 // n) of 64 accumulator columns times mul, as bf16 pairs.
@@ -537,15 +473,16 @@ __device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[kNT][4
 }
 
 // ------------------------------------ bf16 on the tensor cores, for Hopper
-// K1 and K2's dk/dv kernel (K2a fused, K2b's first kernel):
+// K1, K2's dk/dv kernel (K2a fused, K2b's first kernel) and K2b's dq
+// kernel (the operand path is in attention_common.cuh):
 //   - tiles are copied into shared memory with cp.async (16 bytes a thread,
 //     no registers on the way) into a two-stage ring, the next tile's copy
 //     issued before this tile's products, so the copy runs under them;
 //   - every operand comes out of shared memory through ldmatrix, from the
 //     tiles' natural [row][d] layout: ldmatrix.trans hands out the
 //     transposed fragments (V, dO and Q as right operands over the key or
-//     query axis, dS^T as the left operand of dQ), so nothing is staged
-//     transposed;
+//     query axis, K as the right operand of dQ = dS K, dS^T as the left
+//     operand of K2a's dQ), so nothing is staged transposed;
 //   - K2a adds dq once per 64-key block and query tile as float4 atomics
 //     (red.global.add.v4.f32 on sm_90): a lane pair trades one row's half,
 //     so each lane adds four neighbouring columns (a quarter of the
@@ -569,86 +506,6 @@ __device__ __forceinline__ void store_rows(bf16* base, const float (&acc)[kNT][4
 constexpr int kWarps = 4;              // a warp per 16 rows (K1) or keys (K2)
 constexpr int kAsyncThreads = 32 * kWarps;
 constexpr int kStages = 2;             // the cp.async ring
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, or zeros when !full (src is then
-// any valid address and is not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. Plain: lane (g, t) gets row g, columns 2t and
-// 2t + 1 of each; trans: rows 2t and 2t + 1 of column g.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// 2**x (relative error about 2**-22; results below 2**-126 flush to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// (x0, x1) as two bf16 pairs, hi = x truncated to bf16 and lo = RN(x - hi)
-// (x - hi is exact in fp32).
-__device__ __forceinline__ void split2t(float x0, float x1, uint32_t& hi,
-                                        uint32_t& lo) {
-  const uint32_t b0 = __float_as_uint(x0), b1 = __float_as_uint(x1);
-  hi = __byte_perm(b0, b1, 0x7632);
-  lo = bits(__floats2bfloat162_rn(x0 - __uint_as_float(b0 & 0xffff0000u),
-                                  x1 - __uint_as_float(b1 & 0xffff0000u)));
-}
-
-// The left operand of a 16 x 16 step from accumulator tiles c0 (columns
-// 0-7) and c1 (columns 8-15), split hi/lo by split2t.
-__device__ __forceinline__ void frag_from_acc_t(const float (&c0)[4],
-                                                const float (&c1)[4],
-                                                uint32_t (&hi)[4],
-                                                uint32_t (&lo)[4]) {
-  split2t(c0[0], c0[1], hi[0], lo[0]);
-  split2t(c0[2], c0[3], hi[1], lo[1]);
-  split2t(c1[0], c1[1], hi[2], lo[2]);
-  split2t(c1[2], c1[3], hi[3], lo[3]);
-}
 
 // Rows [row0, row0 + kTile) of a contiguous [n, 64] bf16 matrix into shared
 // memory (row stride kLdh) by cp.async; rows at or past n are zeros.
@@ -670,49 +527,6 @@ __device__ __forceinline__ void async_vec(float* dst, const float* src,
   if (i >= 0 && i < kTile) {
     const bool in = row0 + i < n;
     cp_async4(dst + i, in ? src + row0 + i : src, in);
-  }
-}
-
-// The left operand of step kk (16 columns from 16 * kk) for the 16 rows
-// from row0 of a bf16 tile (row stride kLdh).
-__device__ __forceinline__ void lhs_frag(uint32_t (&a)[4], const bf16* s,
-                                         int row0, int kk, int lane) {
-  ldsm4(a, s + (row0 + lane % 8 + 8 * ((lane / 8) % 2)) * kLdh + 16 * kk +
-               8 * (lane / 16));
-}
-
-// acc[n] += A B for the 8 n-tiles of a 64-column B whose columns are the
-// rows of bt (a [64][kLdh] tile: B[k][n] = bt[n][k]) over the 16-deep step
-// kk: acc = A bt^T.
-__device__ __forceinline__ void mma_nt(float (&acc)[kNT][4],
-                                       const uint32_t (&a)[4], const bf16* bt,
-                                       int kk, int lane) {
-#pragma unroll
-  for (int np = 0; np < kNT / 2; ++np) {
-    uint32_t b[4];
-    ldsm4(b, bt + (16 * np + lane % 8 + 8 * (lane / 16)) * kLdh + 16 * kk +
-                 8 * ((lane / 8) % 2));
-    mma16816(acc[2 * np], a, b[0], b[1]);
-    mma16816(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// acc[n] += (hi + lo) B for the 8 n-tiles of B = the rows [16 j, 16 j + 16)
-// of a [*][kLdh] tile (B[k][n] = bs[16 j + k][n], columns 0..63): acc = A bs
-// over the 16-deep step j, A as two bf16 terms.
-__device__ __forceinline__ void mma_nn2(float (&acc)[kNT][4],
-                                        const uint32_t (&hi)[4],
-                                        const uint32_t (&lo)[4],
-                                        const bf16* bs, int j, int lane) {
-#pragma unroll
-  for (int dp = 0; dp < kNT / 2; ++dp) {
-    uint32_t b[4];
-    ldsm4_t(b, bs + (16 * j + lane % 8 + 8 * ((lane / 8) % 2)) * kLdh +
-                   16 * dp + 8 * (lane / 16));
-    mma16816(acc[2 * dp], hi, b[0], b[1]);
-    mma16816(acc[2 * dp], lo, b[0], b[1]);
-    mma16816(acc[2 * dp + 1], hi, b[2], b[3]);
-    mma16816(acc[2 * dp + 1], lo, b[2], b[3]);
   }
 }
 
@@ -775,7 +589,7 @@ __global__ void __launch_bounds__(kAsyncThreads, 3)
     cp_async_commit();
     if (kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < kKS; ++kk) lhs_frag(qf[kk], q_s, r0, kk, lane);
+      for (int kk = 0; kk < kKS; ++kk) lhs_frag<kLdh>(qf[kk], q_s, r0, kk, lane);
     }
     const int k0 = kt * kTile;
     const bf16* ks = kv_s + (kt % kStages) * 2 * kTileH;
@@ -785,7 +599,7 @@ __global__ void __launch_bounds__(kAsyncThreads, 3)
       float s[kNT][4];
       zero(s);
 #pragma unroll
-      for (int kk = 0; kk < kKS; ++kk) mma_nt(s, qf[kk], ks, kk, lane);
+      for (int kk = 0; kk < kKS; ++kk) mma_nt<kLdh>(s, qf[kk], ks, kk, lane);
       // Only a tile that crosses T_kv or the warp's causal frontier tests
       // its keys.
       const bool edge =
@@ -833,7 +647,7 @@ __global__ void __launch_bounds__(kAsyncThreads, 3)
       for (int j = 0; j < kTile / 16; ++j) {
         uint32_t hi[4], lo[4];
         frag_from_acc_t(s[2 * j], s[2 * j + 1], hi, lo);
-        mma_nn2(acc, hi, lo, ks + kTileH, j, lane);
+        mma_nn2<kLdh>(acc, hi, lo, ks + kTileH, j, lane);
       }
     }
   }
@@ -934,8 +748,8 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
     if (qt == first_qt) {
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
-        lhs_frag(kf[kk], k_s, r0, kk, lane);
-        lhs_frag(vf[kk], dsh_s, r0, kk, lane);
+        lhs_frag<kLdh>(kf[kk], k_s, r0, kk, lane);
+        lhs_frag<kLdh>(vf[kk], dsh_s, r0, kk, lane);
       }
       __syncthreads();  // V is read: dsh_s holds dS^T from here on
     }
@@ -952,8 +766,8 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
     if (!causal || kw <= q0 + kTile - 1) {
 #pragma unroll
       for (int kk = 0; kk < kKS; ++kk) {
-        mma_nt(pt, kf[kk], qs, kk, lane);
-        mma_nt(dst, vf[kk], dos, kk, lane);
+        mma_nt<kLdh>(pt, kf[kk], qs, kk, lane);
+        mma_nt<kLdh>(dst, vf[kk], dos, kk, lane);
       }
       // Only a tile that crosses T_q, T_kv or the causal frontier tests
       // its pairs.
@@ -976,9 +790,9 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
       for (int j = 0; j < kTile / 16; ++j) {
         uint32_t hi[4], lo[4];
         frag_from_acc_t(pt[2 * j], pt[2 * j + 1], hi, lo);
-        mma_nn2(dv_acc, hi, lo, dos, j, lane);
+        mma_nn2<kLdh>(dv_acc, hi, lo, dos, j, lane);
         frag_from_acc_t(dst[2 * j], dst[2 * j + 1], hi, lo);
-        mma_nn2(dk_acc, hi, lo, qs, j, lane);
+        mma_nn2<kLdh>(dk_acc, hi, lo, qs, j, lane);
       }
     }
     if (kDq) {
@@ -1002,75 +816,71 @@ __global__ void __launch_bounds__(kAsyncThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
         uint32_t ahi[4], alo[4];
-        const int a_off = (16 * kk + lane % 8 + 8 * (lane / 16)) * kLdh + r0 +
-                          8 * ((lane / 8) % 2);
-        ldsm4_t(ahi, dsh_s + a_off);
-        ldsm4_t(alo, dsl_s + a_off);
-        mma_nn2(dq, ahi, alo, k_s, kk, lane);
+        lhs_frag_t<kLdh>(ahi, dsh_s, r0, kk, lane);
+        lhs_frag_t<kLdh>(alo, dsl_s, r0, kk, lane);
+        mma_nn2<kLdh>(dq, ahi, alo, k_s, kk, lane);
       }
-      // Lanes t and t ^ 1 trade halves: the even lane adds row g, the odd
-      // lane row g + 8, each four neighbouring columns from 8 n + 2 (t & 2).
-      float* dqb = dq_acc + bh * Tq * kD;
-      const bool odd = t & 1;
-      const int row = q0 + r0 + g + (odd ? 8 : 0);
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const float s0 = odd ? dq[n][0] : dq[n][2];
-        const float s1 = odd ? dq[n][1] : dq[n][3];
-        const float x0 = __shfl_xor_sync(0xffffffffu, s0, 1);
-        const float x1 = __shfl_xor_sync(0xffffffffu, s1, 1);
-        const float4 val =
-            odd ? make_float4(x0 * scale, x1 * scale, dq[n][2] * scale,
-                              dq[n][3] * scale)
-                : make_float4(dq[n][0] * scale, dq[n][1] * scale, x0 * scale,
-                              x1 * scale);
-        if (row < Tq)
-          atomicAdd(reinterpret_cast<float4*>(dqb + (size_t)row * kD + 8 * n +
-                                              2 * (t & 2)),
-                    val);
-      }
+      const int row = q0 + r0 + g;
+      atomic_add_rows(dq_acc + bh * Tq * kD, dq, row, kD, scale, row < Tq,
+                      row + 8 < Tq, t);
     }
   }
   store_rows(dk + bh * Tk * kD, dk_acc, key[0], Tk, scale, scale, t);
   store_rows(dv + bh * Tk * kD, dv_acc, key[0], Tk, 1.f, 1.f, t);
 }
 
-// K2b's second kernel for bf16: one block per 64-row query tile, a warp per
-// 16 rows, Q and dO rows in registers. Per key tile: S = Q K^T and
-// dP = dO V^T, dS in fp32, dQ += dS K, all in registers.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ mask,
-                  const T* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq, int H,
-                  int Tq, int Tk, float scale, int causal) {
-  static_assert(std::is_same<T, bf16>::value, "bf16 only");
-  __shared__ __align__(16) bf16 k_s[kTileH];   // [key][d]
-  __shared__ __align__(16) bf16 v_s[kTileH];   // [key][d]
-  __shared__ __align__(16) bf16 kt_s[kTileH];  // [d][key]
+// K2b's second kernel for bf16 on Hopper: one block per 64-row query tile,
+// the longest causal rows first, a warp per 16 rows whose Q and dO rows stay
+// in registers as left operands. Per 64-key tile (K, V and the mask slice
+// in the cp.async ring): S = Q K^T and dP = dO V^T, dS = P (dP - delta) in
+// fp32, then dQ += dS K with K's fragments by ldmatrix.trans from the same
+// K tile, all in registers; no atomics. Three blocks share an SM (168
+// registers a thread, a few bytes spilled): timed faster than two at 219
+// registers, and than passes of 32 keys (PERF.md).
+constexpr size_t kDqAsyncSmem =
+    (2 * kTileH + kStages * 2 * kTileH) * sizeof(bf16) +
+    kStages * kTile * sizeof(float);
+
+__global__ void __launch_bounds__(kAsyncThreads, 3)
+    dq_async_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v,
+                    const float* __restrict__ mask,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int Tq, int Tk, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_dq[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_dq);  // [64][kLdh] Q
+  bf16* do_s = q_s + kTileH;                     // dO
+  bf16* kv_s = do_s + kTileH;                    // stages: K, V
+  float* m_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kTileH);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const T* kb = k + bh * Tk * kD;
-  const T* vb = v + bh * Tk * kD;
+  const bf16* kb = k + bh * Tk * kD;
+  const bf16* vb = v + bh * Tk * kD;
   const float* mb = mask != nullptr ? mask + (size_t)b * Tk : nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const int n_kt = key_tiles(q0, Tq, Tk, causal);
+  int n_kt = (Tk + kTile - 1) / kTile;
+  if (causal) n_kt = min(n_kt, min(q0 + kTile - 1, Tq - 1) / kTile + 1);
 
-  // Q and dO rows of this warp as left operands (staged through k_s, v_s).
-  load_tile_h(k_s, q + bh * Tq * kD, q0, Tq);
-  load_tile_h(v_s, dout + bh * Tq * kD, q0, Tq);
-  __syncthreads();
-  uint32_t qf[kKS][4], dof[kKS][4];
+  auto issue = [&](int kt) {
+    bf16* ks = kv_s + (kt % kStages) * 2 * kTileH;
+    async_tile(ks, kb, kt * kTile, Tk);
+    async_tile(ks + kTileH, vb, kt * kTile, Tk);
+    if (mb != nullptr)
+      async_vec(m_s + (kt % kStages) * kTile, mb, kt * kTile, Tk, 0);
+  };
+  async_tile(q_s, q + bh * Tq * kD, q0, Tq);
+  async_tile(do_s, dout + bh * Tq * kD, q0, Tq);
 #pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) {
-    frag_from_smem(k_s, r0, kk, g, t, qf[kk]);
-    frag_from_smem(v_s, r0, kk, g, t, dof[kk]);
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_kt) issue(i);
+    cp_async_commit();
   }
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -1078,42 +888,60 @@ __global__ void __launch_bounds__(kThreads)
     lse_r[r] = row[r] < Tq ? lse[bh * Tq + row[r]] : 0.f;
     delta_r[r] = row[r] < Tq ? delta[bh * Tq + row[r]] : 0.f;
   }
+
+  uint32_t qf[kKS][4], dof[kKS][4];
   float acc[kNT][4];
   zero(acc);
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous tiles
-    load_tile_h(k_s, kb, k0, Tk);
-    load_tile_h(v_s, vb, k0, Tk);
-    load_tile_ht(kt_s, kb, k0, Tk);
+    cp_async_wait<kStages - 2>();  // tile kt (and Q, dO) have landed
+    // ... for every thread, and every warp is done with tile kt - 1, whose
+    // stage the next copy refills.
     __syncthreads();
+    if (kt + kStages - 1 < n_kt) issue(kt + kStages - 1);
+    cp_async_commit();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        lhs_frag<kLdh>(qf[kk], q_s, r0, kk, lane);
+        lhs_frag<kLdh>(dof[kk], do_s, r0, kk, lane);
+      }
+    }
+    const int k0 = kt * kTile;
+    const bf16* ks = kv_s + (kt % kStages) * 2 * kTileH;
+    const float* ms = m_s + (kt % kStages) * kTile;
+    // A warp whose rows all precede the tile sees none of it.
+    if (causal && k0 > q0 + r0 + 15) continue;
+    // Only a tile that crosses T_q, T_kv or the warp's causal frontier
+    // tests its pairs.
+    const bool edge = q0 + r0 + 16 > Tq || k0 + kTile > Tk ||
+                      (causal && k0 + kTile - 1 > q0 + r0);
     float s[kNT][4], dp[kNT][4];
     zero(s);
     zero(dp);
 #pragma unroll
     for (int kk = 0; kk < kKS; ++kk) {
-      mma_row(s, qf[kk], k_s, kk, g, t);
-      mma_row(dp, dof[kk], v_s, kk, g, t);
+      mma_nt<kLdh>(s, qf[kk], ks, kk, lane);
+      mma_nt<kLdh>(dp, dof[kk], ks + kTileH, kk, lane);
     }
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        const int c = 8 * n + 2 * t + (e & 1);  // key within the tile
         const int r = e >> 1;
-        float p = 0.f;
-        if (key < Tk && row[r] < Tq) {
-          const float x = masked(s[n][e] * scale, mb, key, row[r], causal);
-          p = expf(fminf(x - lse_r[r], 0.f));
-        }
+        float x = s[n][e] * scale;
+        if (mb != nullptr) x += ms[c];
+        float p = ex2(fminf(x - lse_r[r], 0.f) * kLog2e);
+        if (edge &&
+            (k0 + c >= Tk || row[r] >= Tq || (causal && k0 + c > row[r])))
+          p = 0.f;
         s[n][e] = p * (dp[n][e] - delta_r[r]);
       }
 #pragma unroll
     for (int j = 0; j < kTile / 16; ++j) {
       uint32_t hi[4], lo[4];
-      frag_from_acc(s[2 * j], s[2 * j + 1], hi, lo);
-      mma_row(acc, hi, kt_s, j, g, t);
-      mma_row(acc, lo, kt_s, j, g, t);
+      frag_from_acc_t(s[2 * j], s[2 * j + 1], hi, lo);
+      mma_nn2<kLdh>(acc, hi, lo, ks, j, lane);
     }
   }
   store_rows(dq + bh * Tq * kD, acc, row[0], Tq, scale, scale, t);
@@ -1122,8 +950,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr size_t kFwdSmem = 4 * kTileFloats * sizeof(float);
 constexpr size_t kDkdvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
 constexpr size_t kDqSmem = (5 * kTileFloats + 2 * kTile) * sizeof(float);
-// The bf16 dq kernel uses static shared memory (27,648 B) only.
-constexpr size_t kDqMmaSmem = 0;
 template <typename T>
 constexpr bool kOnTensorCores = std::is_same<T, bf16>::value;
 
@@ -1197,20 +1023,21 @@ int launch_dq(const void* q, const void* k, const void* v, const void* mask,
               const void* dout, const void* lse, const void* delta, void* dq,
               int B, int H, int Tq, int Tk, float scale, int causal,
               cudaStream_t st) {
+  using E = std::conditional_t<kOnTensorCores<T>, bf16, T>;
   const dim3 grid((Tq + kTile - 1) / kTile, H, B);
-  auto args = [&](auto kernel, size_t smem) {
-    return launch(kernel, smem, grid, kThreads, st, static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v),
+  auto args = [&](auto kernel, size_t smem, int threads) {
+    return launch(kernel, smem, grid, threads, st, static_cast<const E*>(q),
+                  static_cast<const E*>(k), static_cast<const E*>(v),
                   static_cast<const float*>(mask),
-                  static_cast<const T*>(dout),
+                  static_cast<const E*>(dout),
                   static_cast<const float*>(lse),
-                  static_cast<const float*>(delta), static_cast<T*>(dq), H,
+                  static_cast<const float*>(delta), static_cast<E*>(dq), H,
                   Tq, Tk, scale, causal);
   };
   if constexpr (kOnTensorCores<T>) {
-    return args(dq_mma_kernel<T>, kDqMmaSmem);
+    return args(dq_async_kernel, kDqAsyncSmem, kAsyncThreads);
   } else {
-    return args(dq_kernel<T>, kDqSmem);
+    return args(dq_kernel<T>, kDqSmem, kThreads);
   }
 }
 

@@ -4,10 +4,10 @@
 //   K7a `_fwd_kernel` (launched from `_make_fn`'s forward)
 //       -> fwd_mma_kernel (bf16), fwd_kernel (fp32, fp16)
 //   K7b fused `_bwd_fused_kernel`
-//       -> dkdv_mma_kernel / dkdv_kernel with kDq = true (dq by atomics
-//          into an fp32 buffer)
+//       -> dkdv_async_kernel (bf16) / dkdv_kernel with kDq = true (dq by
+//          atomics into an fp32 buffer)
 //   K7b split `_bwd_dkv_kernel` and `_bwd_dq_kernel`
-//       -> dkdv_*kernel with kDq = false, then dq_mma_kernel / dq_kernel
+//       -> dkdv_*kernel with kDq = false, then dq_async_kernel / dq_kernel
 // The plain PyTorch versions they are held against are
 // `sparse_fwd_reference` and `sparse_bwd_reference` in
 // deepspeed_tpu_torch/ops/sparse_attention/kernels.py.
@@ -43,13 +43,17 @@
 // What the design does about it:
 //   - the [T, T] scores never exist: one block x block tile of scores at a
 //     time lives in registers (bf16) or shared memory (fp32, fp16);
-//   - the layout is a loop over the block's LUT row, staged in shared
-//     memory once; a -1 entry is skipped (in the TPU kernel it aliases block
-//     0 and adds exact zeros), so only listed blocks are loaded and computed;
+//   - the layout is a loop over the block's LUT row; a -1 entry is skipped,
+//     or in the bf16 backward never reached, as a row's -1 padding is at its
+//     end (in the TPU kernel it aliases block 0 and adds exact zeros), so
+//     only listed blocks are loaded and computed;
 //   - bf16 runs its products on the tensor cores (mma.sync m16n8k16, fp32
 //     accumulation, P and dS entering the second product as hi + lo bf16),
-//     a warp per 16 rows of the block, as the dense kernels do; fp32 and
-//     fp16 run register-blocked FMAs on a 16 x 8 thread grid;
+//     a warp per 16 rows of the block, as the dense kernels do; its backward
+//     kernels stage tiles by cp.async and take every operand by ldmatrix
+//     (the Hopper section below), and the dk/dv kernel issues its key
+//     blocks by LUT count, largest first; fp32 and fp16 run register-blocked
+//     FMAs on a 16 x 8 thread grid;
 //   - the TPU's fused backward scatters dk/dv into full-length fp32 VMEM
 //     over a sequential grid. Blocks here run in parallel, so the fused
 //     backward turns the sweep around: one CTA per key block walks the
@@ -123,6 +127,36 @@ __device__ __forceinline__ float score_grad(float p, float dp, float delta,
   return ds;
 }
 
+// The same two for the Hopper backward kernels, which take the key's padding
+// mask entry kpm_v from registers or shared memory. Kept apart from masked
+// and score_grad: building those on these cost K7a two registers a thread
+// and a tenth of its time (PERF.md). The score of a listed pair from
+// s = q.k: times scale, then kpm_v, the bias (its entry returned in bv for
+// the 'mul' gradient) and, where `cut`, the causal cut.
+__device__ __forceinline__ float pair_score(float s, float scale, float kpm_v,
+                                            const Masks& mk, int row, int key,
+                                            bool cut, float& bv) {
+  float x = s * scale;
+  if (mk.kpm != nullptr) x = mk.kpm_mul ? x * kpm_v : x + kpm_v;
+  if (mk.bias != nullptr) {
+    bv = mk.bias[(size_t)row * mk.T + key];
+    x = mk.bias_mul ? x * bv : x + bv;
+  }
+  if (cut && key > row) x = kNegInf;
+  return x;
+}
+
+// ds = p * (dp - delta) * scale, times kpm_v and the bias entry bv in 'mul'
+// mode (the mask scales the score, so it scales its gradient).
+__device__ __forceinline__ float pair_grad(float p, float dp, float delta,
+                                           float scale, float kpm_v, float bv,
+                                           const Masks& mk) {
+  float ds = p * (dp - delta) * scale;
+  if (mk.kpm != nullptr && mk.kpm_mul) ds *= kpm_v;
+  if (mk.bias != nullptr && mk.bias_mul) ds *= bv;
+  return ds;
+}
+
 // The CTA's LUT row into shared memory.
 __device__ __forceinline__ void stage_lut(int* dst, const int* src, int n) {
   for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
@@ -162,14 +196,6 @@ __device__ __forceinline__ void mma_row(float (&acc)[NT][4],
     const bf16* p = bt + (8 * n + g) * LD + 16 * kk + 2 * t;
     mma16816(acc[n], a, ld32(p), ld32(p + 8));
   }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 }
 
 // ROWS rows from row0 of a contiguous [*, 64] bf16 matrix into shared
@@ -319,170 +345,284 @@ __global__ void __launch_bounds__(2 * BLK)
   store_rows(o + bh * T * kD, acc, row[0], inv[0], inv[1], t);
 }
 
-// K7b for bf16: one CTA per (key block, h, b), a warp per 16 of its keys,
-// whose K and V rows stay in registers. For each query block of the
-// transposed LUT: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in fp32, then
-// dV += P^T dO and dK += dS^T Q in registers. With kDq (the fused backward)
-// dS goes through shared memory (hi/lo, [query][key]) and each warp adds its
-// 16 query rows of dS K into dq_acc with atomics.
+// ----------------------------- K7b for bf16 on the tensor cores, for Hopper
+// The split and fused backward on the dense kernels' operand path
+// (attention_common.cuh):
+//   - a CTA walks its LUT row to its count (build_luts pads each row at its
+//     end), and the next listed block's tiles (Q and dO with lse and delta
+//     for the dk/dv kernel; K and V with the key-padding mask slice for the
+//     dq kernel) are copied by cp.async into a two-stage ring while this
+//     block's products run;
+//   - every operand comes out of the tiles' natural [row][d] layout by
+//     ldmatrix (.trans for Q, dO and K as right operands over the block's
+//     rows, and for dS^T as the left operand of the fused dQ), so nothing
+//     is staged transposed;
+//   - the dk/dv kernel's CTA owns its keys, so it reads their key-padding
+//     mask entries into registers once;
+//   - p = ex2((x - lse) * log2(e)), the difference taken in natural units
+//     first (a row padded at -1e9 everywhere keeps the plain version's
+//     probabilities); P and dS enter their products as hi + lo bf16, hi by
+//     truncation;
+//   - the fused backward writes dS^T as hi/lo bf16 pairs with 32-bit stores
+//     and adds dq as float4 atomics after a lane-pair exchange;
+//   - the dk/dv kernel's grid walks the layout's backward schedule (kernels.
+//     py, `build_schedule`): one (h, key block, count) item per CTA, the
+//     largest counts first (reading the count with the item timed faster
+//     than a CTA counting its row, as the dq kernel must; PERF.md). The Fixed layout's transposed LUT
+//     holds rows of 4 and of 64 query blocks; issued in key-block order, the
+//     long rows would start last and stretch the kernel's tail. Cutting the
+//     long rows into chunks whose dk/dv partials a last chunk sums timed
+//     slower than ordering alone (PERF.md): at 255 registers a thread two
+//     CTAs fit an SM, and ordered rows already fill those slots evenly.
+// Tiles are [BLK][kLdh] bf16, a warp per 16 of the block's rows (2 * BLK
+// threads); the causal cut is tested only by a warp whose rows cross the
+// diagonal.
+
+constexpr int kStages = 2;     // the cp.async ring
+constexpr int kSchedCols = 3;  // a schedule item: h, key block, count
+
+// The number of listed blocks in a LUT row of deg entries (build_luts pads
+// each row with -1 at its end), counted by the whole CTA; every thread
+// gets it.
+__device__ __forceinline__ int row_count(const int* __restrict__ lrow,
+                                         int deg) {
+  int count = 0;
+  for (int e0 = 0; e0 < deg; e0 += blockDim.x) {
+    const int e = e0 + threadIdx.x;
+    count += __syncthreads_count(e < deg && __ldg(lrow + e) >= 0);
+  }
+  return count;
+}
+
+// BLK rows from row0 of a contiguous [*, 64] bf16 matrix into shared memory
+// (row stride kLdh) by cp.async, 16 bytes a thread.
+template <int BLK>
+__device__ __forceinline__ void async_rows(bf16* dst, const bf16* src,
+                                           int row0) {
+  for (int e = threadIdx.x; e < BLK * (kD / 8); e += 2 * BLK) {
+    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
+    cp_async16(dst + r * kLdh + c, src + (size_t)(row0 + r) * kD + c, true);
+  }
+}
+
+// Entries [row0, row0 + BLK) of an fp32 vector into shared memory by the
+// threads [tid0, tid0 + BLK).
+template <int BLK>
+__device__ __forceinline__ void async_vec(float* dst, const float* src,
+                                          int row0, int tid0) {
+  const int i = threadIdx.x - tid0;
+  if (i >= 0 && i < BLK) cp_async4(dst + i, src + row0 + i, true);
+}
+
+// K7b's dk/dv kernel: one CTA per schedule item (h, key block kb, and the
+// count of query blocks kb's transposed LUT row lists) and batch row; a
+// warp per 16 of the block's keys, whose K and V rows stay in registers as
+// left operands. Per listed query block: S^T = K Q^T and dP^T = V dO^T,
+// P^T and dS^T in fp32, then dV += P^T dO and dK += dS^T Q into register
+// accumulators. With kDq (the fused backward) dS^T goes to shared memory
+// as hi and lo bf16 ([key][query]), and each warp adds 16 query rows of
+// dS K into dq_acc.
+template <int BLK, bool kDq>
+constexpr size_t dkdv_async_smem() {
+  return ((kDq ? 3 : 2) * BLK * kLdh + kStages * 2 * BLK * kLdh) *
+             sizeof(bf16) +
+         kStages * 2 * BLK * sizeof(float);
+}
+
 template <int BLK, bool kDq>
 __global__ void __launch_bounds__(2 * BLK)
-    dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ tlut,
-                    int deg, const float* __restrict__ kpm,
-                    const float* __restrict__ bias,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    float* __restrict__ dq_acc, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int H, int T, float scale,
-                    int causal, int kpm_mul, int bias_mul) {
-  constexpr int kNK = BLK / 8, kLdT = BLK + 8;
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_mma);  // [query][d]
-  bf16* do_s = q_s + BLK * kLdh;                   // [query][d]
-  bf16* qt_s = do_s + BLK * kLdh;                  // [d][query]
-  bf16* dot_s = qt_s + kD * kLdT;                  // [d][query]
-  float* lse_s = reinterpret_cast<float*>(dot_s + kD * kLdT);
-  float* delta_s = lse_s + BLK;
-  bf16* kt_s = reinterpret_cast<bf16*>(delta_s + BLK);  // kDq: [d][key]
-  bf16* dsh_s = kt_s + kD * kLdT;  // kDq: dS [query][key], hi and lo
-  bf16* dsl_s = dsh_s + BLK * kLdT;
-  int* lut_s = reinterpret_cast<int*>(kDq ? dsl_s + BLK * kLdT : kt_s);
+    dkdv_async_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const int* __restrict__ tlut, int deg,
+                      const int* __restrict__ sched,
+                      const float* __restrict__ kpm,
+                      const float* __restrict__ bias,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq_acc, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                      int T, float scale, int causal, int kpm_mul,
+                      int bias_mul) {
+  constexpr int kNK = BLK / 8;  // n-tiles over the query block
+  constexpr int kTileB = BLK * kLdh;
+  extern __shared__ __align__(16) unsigned char smem_bwd[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_bwd);  // [BLK][kLdh] K
+  bf16* dsh_s = k_s + kTileB;                      // V at the start, then
+                                                   // dS^T hi
+  bf16* dsl_s = dsh_s + kTileB;                    // kDq: dS^T lo
+  bf16* st_s = kDq ? dsl_s + kTileB : dsl_s;       // stages: Q, dO
+  float* vec_s = reinterpret_cast<float*>(st_s + kStages * 2 * kTileB);
 
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int* item = sched + (size_t)blockIdx.x * kSchedCols;
+  const int h = item[0], kb = item[1], count = item[2];
+  const int b = blockIdx.y;
   const size_t bh = (size_t)b * H + h;
+  const int* lrow = tlut + ((size_t)h * (T / BLK) + kb) * deg;
   const bf16* qb = q + bh * T * kD;
   const bf16* dob = dout + bh * T * kD;
+  const float* lb = lse + bh * T;
+  const float* db = delta + bh * T;
   const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int r0 = warp * 16;
-  const int k0 = blockIdx.x * BLK;
-  const int key[2] = {k0 + r0 + g, k0 + r0 + g + 8};
-
-  stage_lut(lut_s, tlut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
-  // K and V rows of this warp as left operands (staged through q_s, do_s).
-  load_h<BLK>(q_s, k + bh * T * kD, k0);
-  load_h<BLK>(do_s, v + bh * T * kD, k0);
-  if (kDq) load_ht<BLK>(kt_s, k + bh * T * kD, k0);
-  __syncthreads();
-  uint32_t kf[kKS][4], vf[kKS][4];
-#pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) {
-    frag_from_smem<kLdh>(q_s, r0, kk, g, t, kf[kk]);
-    frag_from_smem<kLdh>(do_s, r0, kk, g, t, vf[kk]);
+  const int k0 = kb * BLK;
+  const int kw = k0 + r0;  // the warp's first key
+  const int key[2] = {kw + g, kw + g + 8};
+  float kpm_r[2] = {0.f, 0.f};
+  if (mk.kpm != nullptr) {
+    kpm_r[0] = mk.kpm[key[0]];
+    kpm_r[1] = mk.kpm[key[1]];
   }
+
+  auto issue = [&](int j) {
+    const int st = j % kStages;
+    const int q0 = __ldg(lrow + j) * BLK;
+    bf16* qs = st_s + st * 2 * kTileB;
+    async_rows<BLK>(qs, qb, q0);
+    async_rows<BLK>(qs + kTileB, dob, q0);
+    float* vs = vec_s + st * 2 * BLK;
+    async_vec<BLK>(vs, lb, q0, 0);
+    async_vec<BLK>(vs + BLK, db, q0, BLK);
+  };
+  if (count > 0) {
+    async_rows<BLK>(k_s, k + bh * T * kD, k0);
+    async_rows<BLK>(dsh_s, v + bh * T * kD, k0);
+  }
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < count) issue(i);
+    cp_async_commit();
+  }
+
+  uint32_t kf[kKS][4], vf[kKS][4];
   float dk_acc[kNT][4], dv_acc[kNT][4];
   zero(dk_acc);
   zero(dv_acc);
-
-  for (int j = 0; j < deg; ++j) {
-    const int r = lut_s[j];
-    if (r < 0) continue;
-    const int q0 = r * BLK;
-    __syncthreads();  // every warp is done with the previous tiles
-    load_h<BLK>(q_s, qb, q0);
-    load_h<BLK>(do_s, dob, q0);
-    load_ht<BLK>(qt_s, qb, q0);
-    load_ht<BLK>(dot_s, dob, q0);
-    if (threadIdx.x < BLK) {
-      lse_s[threadIdx.x] = lse[bh * T + q0 + threadIdx.x];
-      delta_s[threadIdx.x] = delta[bh * T + q0 + threadIdx.x];
-    }
+  for (int j = 0; j < count; ++j) {
+    cp_async_wait<kStages - 2>();  // block j (and K, V) have landed
+    // ... for every thread, and every warp is done with block j - 1: its
+    // stage (refilled next) and dS^T (rewritten below).
     __syncthreads();
-    float st[kNK][4], dpt[kNK][4];  // [key][query] tiles
-    zero(st);
-    zero(dpt);
+    if (j + kStages - 1 < count) issue(j + kStages - 1);
+    cp_async_commit();
+    if (j == 0) {
 #pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-      mma_row<kNK, kLdh>(st, kf[kk], q_s, kk, g, t);
-      mma_row<kNK, kLdh>(dpt, vf[kk], do_s, kk, g, t);
-    }
-#pragma unroll
-    for (int n = 0; n < kNK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * t + (e & 1);  // query within the block
-        const int kr = key[e >> 1];
-        const float x = masked(st[n][e] * scale, mk, q0 + c, kr);
-        const float p = expf(x - lse_s[c]);
-        st[n][e] = p;
-        dpt[n][e] = score_grad(p, dpt[n][e], delta_s[c], scale, mk, q0 + c,
-                               kr);
+      for (int kk = 0; kk < kKS; ++kk) {
+        lhs_frag<kLdh>(kf[kk], k_s, r0, kk, lane);
+        lhs_frag<kLdh>(vf[kk], dsh_s, r0, kk, lane);
       }
-    if (kDq) {
+      if (kDq) __syncthreads();  // V is read: dsh_s holds dS^T from here on
+    }
+    const int q0 = __ldg(lrow + j) * BLK;
+    const int st = j % kStages;
+    const bf16* qs = st_s + st * 2 * kTileB;
+    const bf16* dos = qs + kTileB;
+    const float* lse_s = vec_s + st * 2 * BLK;
+    const float* delta_s = lse_s + BLK;
+    float pt[kNK][4], dst[kNK][4];  // [key][query] tiles
+    zero(pt);
+    zero(dst);
+    // Causal: a warp whose keys all follow the block's last query sees none
+    // of it; only a warp whose keys cross the diagonal tests its pairs.
+    if (!causal || kw <= q0 + BLK - 1) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        mma_nt<kLdh>(pt, kf[kk], qs, kk, lane);
+        mma_nt<kLdh>(dst, vf[kk], dos, kk, lane);
+      }
+      const bool cut = causal && kw + 15 > q0;
 #pragma unroll
       for (int n = 0; n < kNK; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = 8 * n + 2 * t + (e & 1);
-          const int kl = r0 + g + 8 * (e >> 1);  // key within the block
-          const bf16 hi = __float2bfloat16(dpt[n][e]);
-          dsh_s[c * kLdT + kl] = hi;
-          dsl_s[c * kLdT + kl] =
-              __float2bfloat16(dpt[n][e] - __bfloat162float(hi));
+          const int c = 8 * n + 2 * t + (e & 1);  // query within the block
+          const int r = e >> 1;
+          float bv = 0.f;
+          const float x = pair_score(pt[n][e], scale, kpm_r[r], mk, q0 + c,
+                                     key[r], cut, bv);
+          const float p = ex2((x - lse_s[c]) * kLog2e);
+          pt[n][e] = p;
+          dst[n][e] = pair_grad(p, dst[n][e], delta_s[c], scale, kpm_r[r], bv,
+                                mk);
         }
-    }
 #pragma unroll
-    for (int jq = 0; jq < BLK / 16; ++jq) {
-      uint32_t hi[4], lo[4];
-      frag_from_acc(st[2 * jq], st[2 * jq + 1], hi, lo);
-      mma_row<kNT, kLdT>(dv_acc, hi, dot_s, jq, g, t);
-      mma_row<kNT, kLdT>(dv_acc, lo, dot_s, jq, g, t);
-      frag_from_acc(dpt[2 * jq], dpt[2 * jq + 1], hi, lo);
-      mma_row<kNT, kLdT>(dk_acc, hi, qt_s, jq, g, t);
-      mma_row<kNT, kLdT>(dk_acc, lo, qt_s, jq, g, t);
+      for (int jq = 0; jq < BLK / 16; ++jq) {
+        uint32_t hi[4], lo[4];
+        frag_from_acc_t(pt[2 * jq], pt[2 * jq + 1], hi, lo);
+        mma_nn2<kLdh>(dv_acc, hi, lo, dos, jq, lane);
+        frag_from_acc_t(dst[2 * jq], dst[2 * jq + 1], hi, lo);
+        mma_nn2<kLdh>(dk_acc, hi, lo, qs, jq, lane);
+      }
     }
     if (kDq) {
-      __syncthreads();  // every warp's dS columns are written
+      // dS^T as bf16 pairs: lane (g, t) holds keys g and g + 8, queries 2t
+      // and 2t + 1 of each n-tile (zeros for a warp that sees no pair).
+#pragma unroll
+      for (int n = 0; n < kNK; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t hi, lo;
+          split2t(dst[n][2 * r], dst[n][2 * r + 1], hi, lo);
+          const int off = (r0 + g + 8 * r) * kLdh + 8 * n + 2 * t;
+          *reinterpret_cast<uint32_t*>(dsh_s + off) = hi;
+          *reinterpret_cast<uint32_t*>(dsl_s + off) = lo;
+        }
+      __syncthreads();  // every warp's dS^T rows are written
+      // dq rows [q0 + r0, q0 + r0 + 16): dS K over the block's keys, dS read
+      // transposed out of dS^T.
       float dq[kNT][4];
       zero(dq);
 #pragma unroll
-      for (int jk = 0; jk < BLK / 16; ++jk) {
-        uint32_t hi[4], lo[4];
-        frag_from_smem<kLdT>(dsh_s, r0, jk, g, t, hi);
-        frag_from_smem<kLdT>(dsl_s, r0, jk, g, t, lo);
-        mma_row<kNT, kLdT>(dq, hi, kt_s, jk, g, t);
-        mma_row<kNT, kLdT>(dq, lo, kt_s, jk, g, t);
+      for (int kk = 0; kk < BLK / 16; ++kk) {
+        uint32_t ahi[4], alo[4];
+        lhs_frag_t<kLdh>(ahi, dsh_s, r0, kk, lane);
+        lhs_frag_t<kLdh>(alo, dsl_s, r0, kk, lane);
+        mma_nn2<kLdh>(dq, ahi, alo, k_s, kk, lane);
       }
-      float* dqb = dq_acc + bh * T * kD;
-      const int qr = q0 + r0 + g;
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          atomicAdd(&dqb[(size_t)(qr + 8 * (e >> 1)) * kD + 8 * n + 2 * t +
-                         (e & 1)],
-                    dq[n][e]);
+      atomic_add_rows(dq_acc + bh * T * kD, dq, q0 + r0 + g, kD, 1.f, true,
+                      true, t);
     }
   }
+
   store_rows(dk + bh * T * kD, dk_acc, key[0], 1.f, 1.f, t);
   store_rows(dv + bh * T * kD, dv_acc, key[0], 1.f, 1.f, t);
 }
 
-// The split backward's dq for bf16: one CTA per query block, a warp per 16
-// rows, Q and dO rows in registers. For each listed key block: S = Q K^T
-// and dP = dO V^T, dS in fp32, dQ += dS K, all in registers.
+// The split backward's dq kernel: one CTA per (query block, h, b), a warp
+// per 16 of its rows, whose Q and dO rows stay in registers as left
+// operands. It walks the forward LUT row to its count; per listed key block
+// (K, V and the key-padding mask slice in the cp.async ring): S = Q K^T and
+// dP = dO V^T, dS in fp32, then dQ += dS K with K's fragments by
+// ldmatrix.trans from the same K tile; no atomics.
+template <int BLK>
+constexpr size_t dq_async_smem() {
+  return (2 + kStages * 2) * BLK * kLdh * sizeof(bf16) +
+         kStages * BLK * sizeof(float);
+}
+
 template <int BLK>
 __global__ void __launch_bounds__(2 * BLK)
-    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const int* __restrict__ lut,
-                  int deg, const float* __restrict__ kpm,
-                  const float* __restrict__ bias,
-                  const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq,
-                  int H, int T, float scale, int causal, int kpm_mul,
-                  int bias_mul) {
-  constexpr int kNK = BLK / 8, kLdT = BLK + 8;
-  __shared__ __align__(16) bf16 k_s[BLK * kLdh];   // [key][d]
-  __shared__ __align__(16) bf16 v_s[BLK * kLdh];   // [key][d]
-  __shared__ __align__(16) bf16 kt_s[kD * kLdT];   // [d][key]
-  extern __shared__ int lut_s[];
+    dq_async_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ lut,
+                    int deg, const float* __restrict__ kpm,
+                    const float* __restrict__ bias,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int H, int T, float scale, int causal, int kpm_mul,
+                    int bias_mul) {
+  constexpr int kNK = BLK / 8;  // n-tiles over the key block
+  constexpr int kTileB = BLK * kLdh;
+  extern __shared__ __align__(16) unsigned char smem_dq[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_dq);  // [BLK][kLdh] Q
+  bf16* do_s = q_s + kTileB;                     // dO
+  bf16* kv_s = do_s + kTileB;                    // stages: K, V
+  float* m_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kTileB);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const int* lrow = lut + ((size_t)h * gridDim.x + blockIdx.x) * deg;
   const bf16* kb = k + bh * T * kD;
   const bf16* vb = v + bh * T * kD;
   const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
@@ -491,61 +631,79 @@ __global__ void __launch_bounds__(2 * BLK)
   const int r0 = warp * 16;
   const int q0 = blockIdx.x * BLK;
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int count = row_count(lrow, deg);
 
-  stage_lut(lut_s, lut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
-  // Q and dO rows of this warp as left operands (staged through k_s, v_s).
-  load_h<BLK>(k_s, q + bh * T * kD, q0);
-  load_h<BLK>(v_s, dout + bh * T * kD, q0);
-  __syncthreads();
+  auto issue = [&](int j) {
+    const int st = j % kStages;
+    const int k0 = __ldg(lrow + j) * BLK;
+    bf16* ks = kv_s + st * 2 * kTileB;
+    async_rows<BLK>(ks, kb, k0);
+    async_rows<BLK>(ks + kTileB, vb, k0);
+    if (mk.kpm != nullptr) async_vec<BLK>(m_s + st * BLK, mk.kpm, k0, 0);
+  };
+  async_rows<BLK>(q_s, q + bh * T * kD, q0);
+  async_rows<BLK>(do_s, dout + bh * T * kD, q0);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < count) issue(i);
+    cp_async_commit();
+  }
+  const float lse_r[2] = {lse[bh * T + row[0]], lse[bh * T + row[1]]};
+  const float delta_r[2] = {delta[bh * T + row[0]], delta[bh * T + row[1]]};
+
   uint32_t qf[kKS][4], dof[kKS][4];
-#pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) {
-    frag_from_smem<kLdh>(k_s, r0, kk, g, t, qf[kk]);
-    frag_from_smem<kLdh>(v_s, r0, kk, g, t, dof[kk]);
-  }
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = lse[bh * T + row[r]];
-    delta_r[r] = delta[bh * T + row[r]];
-  }
   float acc[kNT][4];
   zero(acc);
-  for (int j = 0; j < deg; ++j) {
-    const int c = lut_s[j];
-    if (c < 0) continue;
-    const int k0 = c * BLK;
-    __syncthreads();  // every warp is done with the previous tiles
-    load_h<BLK>(k_s, kb, k0);
-    load_h<BLK>(v_s, vb, k0);
-    load_ht<BLK>(kt_s, kb, k0);
+  for (int j = 0; j < count; ++j) {
+    cp_async_wait<kStages - 2>();  // block j (and Q, dO) have landed
+    // ... for every thread, and every warp is done with block j - 1, whose
+    // stage the next copy refills.
     __syncthreads();
+    if (j + kStages - 1 < count) issue(j + kStages - 1);
+    cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk) {
+        lhs_frag<kLdh>(qf[kk], q_s, r0, kk, lane);
+        lhs_frag<kLdh>(dof[kk], do_s, r0, kk, lane);
+      }
+    }
+    const int k0 = __ldg(lrow + j) * BLK;
+    const int st = j % kStages;
+    const bf16* ks = kv_s + st * 2 * kTileB;
+    const float* ms = m_s + st * BLK;
+    // Causal: a warp whose rows all precede the block sees none of it.
+    if (causal && k0 > q0 + r0 + 15) continue;
     float s[kNK][4], dp[kNK][4];
     zero(s);
     zero(dp);
 #pragma unroll
     for (int kk = 0; kk < kKS; ++kk) {
-      mma_row<kNK, kLdh>(s, qf[kk], k_s, kk, g, t);
-      mma_row<kNK, kLdh>(dp, dof[kk], v_s, kk, g, t);
+      mma_nt<kLdh>(s, qf[kk], ks, kk, lane);
+      mma_nt<kLdh>(dp, dof[kk], ks + kTileB, kk, lane);
     }
+    const bool cut = causal && k0 + BLK - 1 > q0 + r0;
 #pragma unroll
     for (int n = 0; n < kNK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * t + (e & 1);
+        const int c = 8 * n + 2 * t + (e & 1);  // key within the block
         const int r = e >> 1;
-        const float x = masked(s[n][e] * scale, mk, row[r], key);
-        const float p = expf(x - lse_r[r]);
-        s[n][e] = score_grad(p, dp[n][e], delta_r[r], scale, mk, row[r], key);
+        const float kpm_v = mk.kpm != nullptr ? ms[c] : 0.f;
+        float bv = 0.f;
+        const float x = pair_score(s[n][e], scale, kpm_v, mk, row[r], k0 + c,
+                                   cut, bv);
+        const float p = ex2((x - lse_r[r]) * kLog2e);
+        s[n][e] = pair_grad(p, dp[n][e], delta_r[r], scale, kpm_v, bv, mk);
       }
 #pragma unroll
     for (int jk = 0; jk < BLK / 16; ++jk) {
       uint32_t hi[4], lo[4];
-      frag_from_acc(s[2 * jk], s[2 * jk + 1], hi, lo);
-      mma_row<kNT, kLdT>(acc, hi, kt_s, jk, g, t);
-      mma_row<kNT, kLdT>(acc, lo, kt_s, jk, g, t);
+      frag_from_acc_t(s[2 * jk], s[2 * jk + 1], hi, lo);
+      mma_nn2<kLdh>(acc, hi, lo, ks, jk, lane);
     }
   }
+  cp_async_wait<0>();  // a row with no listed block leaves Q, dO in flight
   store_rows(dq + bh * T * kD, acc, row[0], 1.f, 1.f, t);
 }
 
@@ -877,13 +1035,6 @@ __global__ void __launch_bounds__(kThreadsF)
 
 // ----------------------------------------------------------------- launch
 
-// Shared memory of each kernel, the LUT row (deg ints) included.
-template <int BLK>
-constexpr size_t mma_dkdv_smem(bool dq) {
-  return (2 * BLK * kLdh + 2 * kD * (BLK + 8)) * sizeof(bf16) +
-         2 * BLK * sizeof(float) +
-         (dq ? (kD * (BLK + 8) + 2 * BLK * (BLK + 8)) * sizeof(bf16) : 0);
-}
 // The FMA kernels: `tiles` [BLK, 65] fp32 tiles and `vecs` [BLK] rows.
 template <int BLK>
 constexpr size_t fma_smem(int tiles, int vecs) {
@@ -904,8 +1055,8 @@ int launch(Kernel kernel, int threads, size_t smem, dim3 grid,
 
 struct Args {
   const void *q, *k, *v, *dout;
-  const int* lut;
-  int deg;
+  const int *lut, *sched;
+  int deg, n_items;
   const float *kpm, *bias, *lse, *delta;
   void *o, *dq, *dk, *dv;
   float *lse_out, *dq_acc;
@@ -937,26 +1088,34 @@ int run_fwd(const Args& a) {
 
 template <typename T, int BLK>
 int run_dkdv(const Args& a, int fused) {
-  const dim3 grid(a.T / BLK, a.H, a.B);
-  const size_t lut = a.deg * sizeof(int);
-  auto go = [&](auto kernel, int threads, size_t smem) {
-    return launch(kernel, threads, smem + lut, grid, a.st,
-                  static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), a.lut, a.deg, a.kpm, a.bias,
-                  static_cast<const T*>(a.dout), a.lse, a.delta, a.dq_acc,
-                  static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.T,
-                  a.scale, a.causal, a.kpm_mul, a.bias_mul);
-  };
   if constexpr (std::is_same<T, bf16>::value) {
-    return fused ? go(dkdv_mma_kernel<BLK, true>, 2 * BLK,
-                      mma_dkdv_smem<BLK>(true))
-                 : go(dkdv_mma_kernel<BLK, false>, 2 * BLK,
-                      mma_dkdv_smem<BLK>(false));
+    const dim3 grid(a.n_items, a.B);
+    auto go = [&](auto kernel, size_t smem) {
+      return launch(kernel, 2 * BLK, smem, grid, a.st,
+                    static_cast<const bf16*>(a.q),
+                    static_cast<const bf16*>(a.k),
+                    static_cast<const bf16*>(a.v), a.lut, a.deg, a.sched,
+                    a.kpm, a.bias, static_cast<const bf16*>(a.dout), a.lse,
+                    a.delta, a.dq_acc, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.H,
+                    a.T, a.scale, a.causal, a.kpm_mul, a.bias_mul);
+    };
+    return fused ? go(dkdv_async_kernel<BLK, true>,
+                      dkdv_async_smem<BLK, true>())
+                 : go(dkdv_async_kernel<BLK, false>,
+                      dkdv_async_smem<BLK, false>());
   } else {
-    return fused ? go(dkdv_kernel<T, BLK, true>, kThreadsF,
-                      fma_smem<BLK>(6, 2))
-                 : go(dkdv_kernel<T, BLK, false>, kThreadsF,
-                      fma_smem<BLK>(6, 2));
+    const dim3 grid(a.T / BLK, a.H, a.B);
+    const size_t smem = fma_smem<BLK>(6, 2) + a.deg * sizeof(int);
+    auto go = [&](auto kernel) {
+      return launch(kernel, kThreadsF, smem, grid, a.st,
+                    static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                    static_cast<const T*>(a.v), a.lut, a.deg, a.kpm, a.bias,
+                    static_cast<const T*>(a.dout), a.lse, a.delta, a.dq_acc,
+                    static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.T,
+                    a.scale, a.causal, a.kpm_mul, a.bias_mul);
+    };
+    return fused ? go(dkdv_kernel<T, BLK, true>)
+                 : go(dkdv_kernel<T, BLK, false>);
   }
 }
 
@@ -969,10 +1128,10 @@ int run_dq(const Args& a) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch(dq_mma_kernel<BLK>, 2 * BLK, lut, grid, a.st, q, k, v,
-                  a.lut, a.deg, a.kpm, a.bias, dout, a.lse, a.delta,
-                  static_cast<T*>(a.dq), a.H, a.T, a.scale, a.causal,
-                  a.kpm_mul, a.bias_mul);
+    return launch(dq_async_kernel<BLK>, 2 * BLK, dq_async_smem<BLK>(), grid,
+                  a.st, q, k, v, a.lut, a.deg, a.kpm, a.bias, dout, a.lse,
+                  a.delta, static_cast<T*>(a.dq), a.H, a.T, a.scale,
+                  a.causal, a.kpm_mul, a.bias_mul);
   } else {
     return launch(dq_kernel<T, BLK>, kThreadsF, fma_smem<BLK>(5, 2) + lut,
                   grid, a.st, q, k, v, a.lut, a.deg, a.kpm, a.bias, dout,
@@ -1080,9 +1239,13 @@ extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v,
 
 // K7b fused (fused = 1): dk, dv over the transposed LUT, and dq added into
 // dq_acc (fp32, zeroed by the caller). The split backward's first kernel
-// (fused = 0): dk and dv only; dq_acc unused.
+// (fused = 0): dk and dv only; dq_acc unused. bf16 walks the backward
+// schedule sched [n_items, 3] int32 (h, key block, count; kernels.py
+// `build_schedule`); fp32 and fp16 walk the LUT's rows in order
+// and ignore it.
 extern "C" int ds_sparse_bwd_dkdv(const void* q, const void* k,
                                   const void* v, const int* tlut, int deg,
+                                  const int* sched, int n_items,
                                   const float* kpm, const float* bias,
                                   const void* dout, const float* lse,
                                   const float* delta, float* dq_acc,
@@ -1090,10 +1253,13 @@ extern "C" int ds_sparse_bwd_dkdv(const void* q, const void* k,
                                   int D, int block, int dtype, float scale,
                                   int causal, int kpm_mul, int bias_mul,
                                   int fused, void* stream) {
-  if (!shape_ok(B, H, T, D, block, deg) || (fused && dq_acc == nullptr))
+  if (!shape_ok(B, H, T, D, block, deg) || (fused && dq_acc == nullptr) ||
+      (dtype == 1 && (sched == nullptr || n_items < 1)))
     return (int)cudaErrorInvalidValue;
   Args a = common_args(q, k, v, tlut, deg, kpm, bias, B, H, T, scale,
                        causal, kpm_mul, bias_mul, stream);
+  a.sched = sched;
+  a.n_items = n_items;
   a.dout = dout;
   a.lse = lse;
   a.delta = delta;

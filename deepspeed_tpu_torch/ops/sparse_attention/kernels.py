@@ -10,6 +10,9 @@ walk those tables, so only listed blocks are loaded and computed and the
 
 - ``build_luts``: the numpy lowering (the JAX package's fallback path; its
   C++ OpenMP op waits, ROADMAP Queue 1).
+- ``build_schedule``: the order in which K7b's bf16 dk/dv kernel takes the
+  transposed LUT's rows, largest first (the port's own; the TPU walks its
+  grid in order and needs none).
 - ``block_sparse_attention_reference``: the JAX package's dense ground truth
   (the layout expanded to an element mask, ordinary softmax attention).
 - ``sparse_fwd_reference`` / ``sparse_bwd_reference``: the kernels' plain
@@ -26,8 +29,8 @@ walk those tables, so only listed blocks are loaded and computed and the
   JAX package's ``_finish_bwd`` does: a zero gradient for the key-padding
   mask, and the bias gradient rebuilt densely one head at a time.
 
-Each lowered layout is cached with its LUTs on each device, so a training
-step uploads no table.
+Each lowered layout is cached with its LUTs and schedule on each device, so
+a training step uploads no table.
 """
 
 import ctypes
@@ -76,14 +79,30 @@ def build_luts(layout):
     return rows_to_lut(layout), rows_to_lut(layout.transpose(0, 2, 1))
 
 
+def build_schedule(bwd_lut):
+    """The order in which K7b's bf16 dk/dv kernel takes the rows of
+    ``bwd_lut``: an int32 ``[n_items, 3]`` array of (h, key block, count)
+    items, one CTA each, the count being the row's listed query blocks,
+    sorted by count, largest first (stable, so ties keep (h, key block)
+    order). Every row is one item, an empty one too (its dk and dv are
+    zeros)."""
+    h, nb, _ = bwd_lut.shape
+    counts = (bwd_lut >= 0).sum(-1).astype(np.int32).reshape(-1)
+    heads, keys = np.divmod(np.arange(h * nb, dtype=np.int32), nb)
+    sched = np.stack([heads, keys, counts], axis=1)
+    return sched[np.argsort(-counts, kind="stable")]
+
+
 class LoweredLayout:
     """One layout lowered for the kernels: the layout, its block, the two
-    LUTs (numpy) and their int32 copies on each device they were used on."""
+    LUTs and K7b's backward schedule (numpy), and their int32 copies on
+    each device they were used on."""
 
     def __init__(self, layout, block):
         self.layout = np.asarray(layout)
         self.block = int(block)
         self.fwd_lut, self.bwd_lut = build_luts(self.layout)
+        self.bwd_schedule = build_schedule(self.bwd_lut)
         self._on = {}
 
     @property
@@ -92,12 +111,13 @@ class LoweredLayout:
         return float((self.layout != 0).sum()) / self.layout.size
 
     def luts(self, device):
-        """(fwd_lut, bwd_lut) as contiguous int32 tensors on ``device``,
-        uploaded once."""
+        """(fwd_lut, bwd_lut, bwd_schedule) as contiguous int32 tensors on
+        ``device``, uploaded once."""
         key = str(device)
         if key not in self._on:
-            self._on[key] = tuple(torch.from_numpy(lut).to(device)
-                                  for lut in (self.fwd_lut, self.bwd_lut))
+            self._on[key] = tuple(
+                torch.from_numpy(a).to(device)
+                for a in (self.fwd_lut, self.bwd_lut, self.bwd_schedule))
         return self._on[key]
 
     def element_mask(self, t, device):
@@ -235,16 +255,16 @@ def _kernel(name):
     if fn is None:
         from deepspeed_tpu_torch.op_builder import load
         fn = getattr(load("sparse_attention"), name)
-        # q, k, v, lut, deg, kpm, bias, <outputs or dout, lse, delta, ...>,
-        # B, H, T, D, block, dtype, scale, causal, kpm_mul, bias_mul
-        # [, fused], stream
+        # q, k, v, lut, deg, [sched, n_items,] kpm, bias, <outputs or dout,
+        # lse, delta, ...>, B, H, T, D, block, dtype, scale, causal, kpm_mul,
+        # bias_mul [, fused], stream
         p, i = ctypes.c_void_p, ctypes.c_int
-        head = [p, p, p, p, i, p, p]
+        head = [p, p, p, p, i]
         tail = [i] * 6 + [ctypes.c_float, i, i, i]
         fn.argtypes = {
-            "ds_sparse_fwd": head + [p, p] + tail + [p],
-            "ds_sparse_bwd_dkdv": head + [p] * 6 + tail + [i, p],
-            "ds_sparse_bwd_dq": head + [p] * 4 + tail + [p],
+            "ds_sparse_fwd": head + [p] * 4 + tail + [p],
+            "ds_sparse_bwd_dkdv": head + [p, i] + [p] * 8 + tail + [i, p],
+            "ds_sparse_bwd_dq": head + [p] * 6 + tail + [p],
         }[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -373,14 +393,15 @@ def sparse_bwd(q, k, v, lowered, lse, delta, do, scale=None, causal=False,
     if mode not in ("fused", "split"):
         raise ValueError("block-sparse attention: mode must be 'fused' or "
                          "'split', got {!r}".format(mode))
-    fwd_lut, bwd_lut = lowered.luts(q.device)
+    fwd_lut, bwd_lut, sched = lowered.luts(q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     masks = (_ptr(kpm32), _ptr(bias32))
     saved = (do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     flags = _flags(q, lowered, scale, causal, kpm_mode, bias_mode)
-    tlut = (bwd_lut.data_ptr(), bwd_lut.shape[2])
+    tlut = (bwd_lut.data_ptr(), bwd_lut.shape[2], sched.data_ptr(),
+            sched.shape[0])
     if mode == "fused":
         dq32 = torch.zeros(B, H, T, D, dtype=torch.float32, device=q.device)
         err = _kernel("ds_sparse_bwd_dkdv")(

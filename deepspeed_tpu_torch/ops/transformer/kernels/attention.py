@@ -256,29 +256,43 @@ def flash_bwd(q, k, v, mask, lse, delta, do, causal=False, scale=None,
     if mode not in ("fused", "split"):
         raise ValueError("flash attention: mode must be 'fused' or 'split', "
                          "got {!r}".format(mode))
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    dims = (B, H, Tq, Tk, D, _DTYPE_CODE[q.dtype], float(scale),
-            int(bool(causal)))
+    dkdv, dq_only, (dq, dk, dv) = _bwd_kernels(q, k, v, mask, lse, delta,
+                                               do, causal, scale)
     if mode == "fused":
         dq32 = torch.zeros(B, H, Tq, D, dtype=torch.float32, device=q.device)
-        err = _kernel("ds_flash_bwd_dkdv")(
-            *args, dq32.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims, 1,
-            _stream(q))
-        _raise_on(err, "fused backward")
+        dkdv(dq32)
         launches["flash_bwd_fused"] += 1
         return dq32.to(q.dtype), dk, dv
-    dq = torch.empty_like(q)
-    err = _kernel("ds_flash_bwd_dkdv")(
-        *args, None, dk.data_ptr(), dv.data_ptr(), *dims, 0, _stream(q))
-    _raise_on(err, "split backward (dk, dv)")
+    dkdv()
     launches["flash_bwd_split"] += 1
-    err = _kernel("ds_flash_bwd_dq")(*args, dq.data_ptr(), *dims, _stream(q))
-    _raise_on(err, "split backward (dq)")
+    dq_only()
     launches["flash_bwd_split"] += 1
     return dq, dk, dv
+
+
+def _bwd_kernels(q, k, v, mask, lse, delta, do, causal, scale):
+    """K2's kernels as two callables and the (dq, dk, dv) they write: the
+    dk/dv kernel (given an fp32 dq accumulator, K2a, which adds dq into it;
+    else K2b's first kernel) and K2b's dq kernel. Each raises on a launch
+    error and counts nothing (``chip_smoke`` times K2b's two apart)."""
+    B, H, Tq, D = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    dims = (B, H, Tq, k.shape[2], D, _DTYPE_CODE[q.dtype], float(scale),
+            int(bool(causal)))
+
+    def dkdv(dq32=None):
+        _raise_on(_kernel("ds_flash_bwd_dkdv")(
+            *args, _ptr(dq32), dk.data_ptr(), dv.data_ptr(), *dims,
+            int(dq32 is not None), _stream(q)),
+            "split backward (dk, dv)" if dq32 is None else "fused backward")
+
+    def dq_only():
+        _raise_on(_kernel("ds_flash_bwd_dq")(
+            *args, dq.data_ptr(), *dims, _stream(q)), "split backward (dq)")
+
+    return dkdv, dq_only, (dq, dk, dv)
 
 
 def _raise_on(err, what):

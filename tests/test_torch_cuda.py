@@ -1,9 +1,9 @@
 """Kernels on the card: K3-K6 (flash decode over dense and paged, fp and
-int8 caches), K1/K2a/K2b (flash attention for training), the fused
-layer's row kernels K8 (LayerNorm), K10a/K10b (dropout and its replay) and
-K11 (bias + GELU), the standalone softmax K9, and K7a/K7b (block-sparse
-attention) against their plain PyTorch versions, and the wrappers' refusals
-on CUDA tensors.
+int8 caches), K1/K2a/K2b (flash attention for training), the fused layer's
+row kernels K8 (LayerNorm), K10a/K10b (dropout and its replay) and K11
+(bias + GELU), the standalone softmax K9, and K7a/K7b (block-sparse
+attention, K7b also over layouts of uneven transposed degree) against their
+plain PyTorch versions, and the wrappers' refusals on CUDA tensors.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -288,6 +288,12 @@ def _within(out, ref, mag, rtol):
                 .all())
 
 
+# The "_wide" cases of the test below run at more batch rows and heads:
+# K2b's dq kernel issues the ragged T's last query tile (40 rows) first,
+# and 448 is a masked non-causal T that is not a multiple of 128.
+FLASH_WIDE = (3, 5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 # The bf16 kernels take 128 query rows (K1) or keys (K2) per block: T = 64,
@@ -299,11 +305,14 @@ def _within(out, ref, mag, rtol):
     ("pad192", 192, False, "padding"),
     ("pad192_causal", 192, True, "padding"),
     ("pad1000", 1000, False, "padding"),
-    ("pad1000_causal", 1000, True, "padding")])
+    ("pad1000_causal", 1000, True, "padding"),
+    ("ragged_wide", 1000, True, False), ("one_tile_wide", 64, True, False),
+    ("mask448_wide", 448, False, True)])
 @pytest.mark.parametrize("mode", ["fused", "split"])
 def test_flash_kernels_match_plain(cuda, dtype, case, T, causal, masked,
                                    mode):
-    q, k, v, do, mask = _flash_inputs(cuda, 2, 3, T, dtype, masked)
+    B, H = FLASH_WIDE if case.endswith("_wide") else (2, 3)
+    q, k, v, do, mask = _flash_inputs(cuda, B, H, T, dtype, masked)
     before = dict(at.launches)
     o, lse = at.flash_fwd(q, k, v, mask, causal)
     ro, rlse = at.mha_reference(q, k, v, mask, causal, return_lse=True)
@@ -637,6 +646,62 @@ def test_sparse_kernels_match_plain(cuda, dtype, block, case, mode):
     if case != "fixed_kpm_add":  # rows of the empty query block
         rows = slice(block, 2 * block)
         assert bool((o[:, :, rows] == 0).all())
+
+
+def _global_rows_layout(H, nb):
+    """A band of three blocks per query block plus two key blocks (0 and
+    nb // 3) that every query block lists: the transposed LUT's rows hold
+    nb entries there and at most 5 elsewhere, against a forward degree of
+    at most 5."""
+    layout = np.zeros((H, nb, nb), dtype=np.int64)
+    for i in range(nb):
+        layout[:, i, max(i - 1, 0):i + 2] = 1
+    layout[:, :, [0, nb // 3]] = 1
+    return layout
+
+
+# K7b's bf16 dk/dv kernel walks the layout's backward schedule, the largest
+# LUT rows first: the sparse BERT path's Fixed layout (transposed rows of 4
+# and of 64 query blocks against forward rows of 19, here at H=2 and B=1)
+# and layouts whose longest transposed rows are six times their forward
+# degree, at every block; both backward modes, against the plain versions
+# at SPARSE_ACC.
+@pytest.mark.parametrize("case,block,T", [
+    ("path_fixed", 64, 4096), ("global_rows", 16, 512),
+    ("global_rows", 32, 1024), ("global_rows", 64, 2048)])
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_sparse_backward_over_the_degree_schedule(cuda, case, block, T,
+                                                  mode):
+    B, H = (1, 2) if case == "path_fixed" else (2, 2)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(T + block)
+    q, k, v, do = (torch.randn(B, H, T, 64, device=cuda, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    if case == "path_fixed":
+        from deepspeed_tpu_torch.ops.sparse_attention import (
+            FixedSparsityConfig)
+        layout = FixedSparsityConfig(num_heads=H, block=block).make_layout(T)
+    else:
+        layout = _global_rows_layout(H, T // block)
+    lowered = sk.lower(layout, block)
+    # Some transposed rows are longer than any forward row.
+    assert (lowered.bwd_lut >= 0).sum(-1).max() > \
+        (lowered.fwd_lut >= 0).sum(-1).max()
+    kpm = torch.zeros(B, T, device=cuda)
+    kpm[0, T // 2 + 3:] = -1e9
+    o, lse = sk.sparse_fwd(q, k, v, lowered, kpm=kpm)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    grads = sk.sparse_bwd(q, k, v, lowered, lse, delta, do, kpm=kpm,
+                          mode=mode)
+    refs = sk.sparse_bwd_reference(q, k, v, lowered, lse, delta, do, kpm=kpm)
+    mags = sk.accumulated_magnitudes(q, k, v, lowered, lse, delta, do,
+                                     kpm=kpm)[1:]
+    torch.cuda.synchronize()
+    rtol = FLASH_RTOL[torch.bfloat16]
+    for got, ref, mag in zip(grads, refs, mags):
+        diff = (got.float() - ref.float()).abs()
+        assert bool((diff <= rtol * ref.float().abs() + SPARSE_ACC * mag
+                     + 1e-30).all())
 
 
 def test_sparse_attention_grads_match_autograd_fp32(cuda):

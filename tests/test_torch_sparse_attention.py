@@ -260,6 +260,57 @@ def test_plain_versions_edges():
         _close(x.numpy(), y.numpy(), GRAD_TOL)
 
 
+def _schedule_layout(kind, block):
+    """The layouts the backward schedule is tested on: the sparse BERT
+    path's Fixed layout at T = 4096 (transposed rows of 4 and of 64 query
+    blocks), a random one with an empty query block (row) and key block
+    (column), and the causal Fixed-uni one."""
+    if kind == "fixed_path":
+        return T.FixedSparsityConfig(num_heads=16, block=block).make_layout(
+            4096)
+    if kind == "fixed_uni":
+        return T.FixedSparsityConfig(
+            num_heads=4, block=block, num_local_blocks=2,
+            attention="unidirectional").make_layout(32 * block)
+    rng = np.random.RandomState(block)
+    layout = (rng.rand(4, 24, 24) < 0.3).astype(np.int64)
+    layout[:, 5] = 0
+    layout[:, :, 7] = 0
+    return layout
+
+
+@pytest.mark.parametrize("kind,block", [("fixed_path", 64)] + [
+    (kind, block) for kind in ("random", "fixed_uni")
+    for block in (16, 32, 64)])
+def test_backward_schedule_covers_each_listed_pair_once(kind, block):
+    """K7b's schedule: every (h, query block, key block) pair of the layout
+    in exactly one item and no other pair, every key block in some item
+    (an empty one writes zeros), counts largest first; the LUTs it indexes
+    stay the JAX package's."""
+    layout = _schedule_layout(kind, block)
+    lowered = TK.lower(layout, block)
+    for got, want in zip((lowered.fwd_lut, lowered.bwd_lut),
+                         J.build_luts(layout)):
+        np.testing.assert_array_equal(got, want)
+    sched = lowered.bwd_schedule
+    assert sched.dtype == np.int32 and sched.shape[1] == 3
+    rows = lowered.bwd_lut[sched[:, 0], sched[:, 1]]
+    counts = sched[:, 2]
+    assert (np.diff(counts) <= 0).all()
+    seen = np.zeros(layout.shape, dtype=np.int64)
+    for (h, kb, count), row in zip(sched, rows):
+        assert (row[:count] >= 0).all() and (row[count:] < 0).all()
+        seen[h, row[:count], kb] += 1
+    np.testing.assert_array_equal(seen, (layout != 0).astype(np.int64))
+    heads, keys = layout.shape[0], layout.shape[2]
+    covered = {(int(h), int(kb)) for h, kb in sched[:, :2]}
+    assert covered == {(h, kb) for h in range(heads) for kb in range(keys)}
+    if kind == "fixed_path":
+        assert sorted(set(counts.tolist())) == [4, 64]
+    if kind == "random":
+        assert (counts == 0).any()  # the empty key block's item
+
+
 def test_wrappers_check_shapes_and_count_only_kernel_launches():
     layout = _config(T, "Fixed").make_layout(64)
     q, k, v = map(torch.from_numpy, _qkv())
