@@ -10,21 +10,25 @@ of which exits non-zero on failure:
    versions; no CUDA device means exit 1 with no result;
 2. build: every kernel in deepspeed_tpu_torch/csrc with nvcc, one process
    per source, started together; the ptxas report of each kernel;
-3. kernel vs plain: K3 (flash-decode attention) against its plain PyTorch
-   version on the card, bf16 and fp32, at the serving path's shapes, with
-   ragged frontiers and large finite garbage past them, each element held
-   to its own limit (see TOL); times the kernel,
+3. kernel vs plain: K3 (flash-decode attention: a split kernel per
+   da.SPLIT_KEYS keys of each row, then a combine launch) against its
+   plain PyTorch version on the card, bf16 and fp32, at the serving path's
+   shapes (the prefill lane also with rows just before, at and after a
+   split boundary), with ragged frontiers and large finite garbage past
+   them, each element held to its own limit (see TOL); times the kernel,
    the plain version and torch's scaled_dot_product_attention (a yardstick
-   only: the port never calls it) with CUDA events, beside the bound;
+   only: the port never calls it) with CUDA events, beside the bound; the
+   combine kernel alone against its plain version on the plain partials of
+   the decode case (COMBINE_RTOL), and timed there;
    then K4 (int8 plane), K5 (page arena) and K6 (int8 page arena) against
    their plain versions at the same shapes, in bf16 and fp32, through a
    shuffled block table whose unmapped logical pages point at a trash page,
    with garbage in the trash page, in unmapped pages and past every
-   frontier (int8: TOL plus the score shift set out there); K5 must equal
+   frontier (int8: TOL plus the score shift set out there), K5 and K6 also
+   at pages of ODD_PAGE_LEN, which do not divide the split; K5 must equal
    K3 on the gathered plane, and K6 K4, bit for bit; times each kernel and
-   its plain
-   version beside the bound (no single PyTorch call computes paged or int8
-   decode attention: library_ms is null);
+   its plain version beside the bound (no single PyTorch call computes
+   paged or int8 decode attention: library_ms is null);
    then the decode-kernel stress: K3, K4, K5 and K6 at the bf16 decode case
    over STRESS_SEEDS fresh seeds each, every case held to its limit (and K5
    = K3, K6 = K4 bit for bit); the count of cases over the limit per
@@ -353,6 +357,18 @@ POISON_REPEATS, POISON_CONCURRENT = 300, 100
 # The decode frontiers of phase 3: 0 to the plane's end, straddling tiles.
 DECODE_POS = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000, 1023,
               PLANE - 2, PLANE - 1]
+# The prefill lane's frontiers (B1 S32): its first rows, 500 (timed), the
+# plane's end, and the 32 rows starting just before, at and after a split
+# boundary (the kernels cut each row every da.SPLIT_KEYS keys).
+PREFILL_POS = [0, 31, 32, 500, PLANE - 32, da.SPLIT_KEYS - 1, da.SPLIT_KEYS,
+               da.SPLIT_KEYS + 1]
+# A page length that does not divide da.SPLIT_KEYS: pages straddle the
+# splits (phase 3's paged cases at the decode and prefill shapes).
+ODD_PAGE_LEN = 48
+# The combine kernel against its plain version on the same partials (fp32
+# out): both merge the splits in split order in fp32 and differ in exp's
+# last bits and FMA contraction, a few fp32 ulps of the row's largest term.
+COMBINE_RTOL = 1e-6
 
 # cuda_ms's spin before each timed launch: about 1 ms at the H100's
 # clock, longer than the host takes to enqueue what is timed (SDPA's
@@ -455,8 +471,8 @@ def _template_args(mangled):
 def _ptxas_summary(log):
     """One line per compiled kernel from nvcc's -Xptxas=-v report: the
     kernel, its type and template flags (K2's and K7b's dq flag, K8's
-    vectors per lane, the sparse kernels' block, the decode kernel's int8
-    and paged flags), registers, spill stores."""
+    vectors per lane, the sparse kernels' block, the decode split kernel's
+    int8 and paged flags), registers, spill stores."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"entry function '\S*?\d+([a-z_]+_kernel)(?:I(\w+))?"
@@ -465,7 +481,7 @@ def _ptxas_summary(log):
             types, ints, bools = _template_args(m.group(2) or "")
             args = [_TYPE_NAMES.get(t, t) for t in types] + \
                 [str(i) for i in ints]
-            if m.group(1) == "decode_attention_kernel":
+            if m.group(1) == "decode_split_kernel":
                 args += [what for what, on in zip(("int8", "paged"), bools)
                          if on]
             elif m.group(1) == "softmax_row_kernel":
@@ -545,7 +561,7 @@ def phase_kernels():
     T = PLANE
     decode_pos = DECODE_POS
     cases = [("decode", 16, 1, decode_pos)]
-    cases += [("prefill_lane", 1, 32, [p]) for p in (0, 31, 32, 500, T - 32)]
+    cases += [("prefill_lane", 1, 32, [p]) for p in PREFILL_POS]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, S, frontiers in cases:
@@ -594,7 +610,46 @@ def phase_kernels():
                     q, pos, T, 2 * q.shape[3] * q.element_size())
             rows.append(row)
             print("K3 " + json.dumps(row))
+    rows[0]["combine"] = _combine_check()
     return rows
+
+
+def _combine_check():
+    """The combine kernel (``da.combine_partials``) against its plain
+    version on the plain partials of the bf16 decode case, the splits that
+    hold no key of a row filled with NaN (the kernel must not read them),
+    fp32 out,
+    each element within COMBINE_RTOL of its row's largest |value|; timed
+    at that case with a bf16 output, beside the bound of the partials it
+    reads and the output it writes."""
+    q, k, v, pos = _case(16, 1, DECODE_POS, torch.bfloat16, seed=0)
+    S = q.shape[2]
+    part = da.decode_partials_reference(q, k, v, pos, scale=1.0 / 8.0)
+    run = da._splits_run(pos, S, PLANE, da.SPLIT_KEYS)
+    unused = torch.arange(part.shape[0], device="cuda")[:, None, None] >= \
+        run[None]
+    part.masked_fill_(unused[:, :, None, :, None], float("nan"))
+    out = da.combine_partials(part, pos, PLANE, torch.float32)
+    ref = da.combine_partials_reference(part, pos, PLANE, torch.float32)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        fail("the combine kernel's output is not finite or of wrong shape")
+    diff = (out - ref).abs()
+    limit = COMBINE_RTOL * ref.abs().amax(dim=-1, keepdim=True)
+    row = {"case": "decode B16 H16 S1 T{} partials".format(PLANE),
+           "splits_run": int(run.sum()), "max_abs_err": float(diff.max()),
+           "rtol_of_row_max": COMBINE_RTOL,
+           "max_err_over_limit": float((diff / limit).max())}
+    if row["max_err_over_limit"] > 1.0:
+        print("combine " + json.dumps(row))
+        fail("the combine kernel disagrees with its plain version")
+    row["ms"] = cuda_ms(lambda: da.combine_partials(part, pos, PLANE,
+                                                    torch.bfloat16))
+    B, H, _, D = q.shape
+    nbytes = int(run.sum()) * H * (D + 2) * 4 + B * H * S * D * 2 + 4 * B
+    row["bound_ms"] = nbytes / HBM_BYTES_S * 1e3
+    print("combine " + json.dumps(row))
+    return row
 
 
 # ------------------------------------- K4, K5, K6: int8 and paged decode
@@ -613,26 +668,27 @@ def _q8_case(B, S, frontiers, dtype, seed, T=PLANE):
     return q, kc, vc, ks, vs, pos
 
 
-def _paged(planes, pos, S, seed):
-    """Scatter logical planes ``[B, H, PAGED_PLANE, ...]`` (keys, codes or
-    scales) into page arenas through one shuffled block table: row b's
+def _paged(planes, pos, S, seed, page_len=PAGE_LEN):
+    """Scatter logical planes ``[B, H, T, ...]`` (keys, codes or scales; T
+    a multiple of ``page_len``) into page arenas of ``page_len`` positions
+    through one shuffled block table: row b's
     logical pages up to its frontier's page map to distinct shuffled pages,
     the rest to the trash page 0. The trash page and 4 pages no row maps
     hold large finite garbage. Returns (arenas, table)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 7919)
     B = pos.shape[0]
-    n_lp = PAGED_PLANE // PAGE_LEN
+    n_lp = planes[0].shape[2] // page_len
     n_pages = B * n_lp + 5
     tbl = torch.randperm(n_pages - 1, device="cuda",
                          generator=g)[:B * n_lp].reshape(B, n_lp) + 1
-    last = (pos.long() + S - 1) // PAGE_LEN
+    last = (pos.long() + S - 1) // page_len
     mapped = torch.arange(n_lp, device="cuda")[None] <= last[:, None]
     tbl = torch.where(mapped, tbl, 0).to(torch.int32).contiguous()
     arenas = []
     for plane in planes:
         tail = tuple(plane.shape[3:])
-        shape = (n_pages, plane.shape[1], PAGE_LEN) + tail
+        shape = (n_pages, plane.shape[1], page_len) + tail
         if plane.dtype == torch.int8:
             arena = torch.randint(-127, 128, shape, device="cuda",
                                   generator=g, dtype=torch.int8)
@@ -642,17 +698,19 @@ def _paged(planes, pos, S, seed):
         else:
             arena = (3e4 * torch.sign(torch.randn(
                 shape, device="cuda", generator=g))).to(plane.dtype)
-        rows = plane.reshape((B, plane.shape[1], n_lp, PAGE_LEN) + tail)
+        rows = plane.reshape((B, plane.shape[1], n_lp, page_len) + tail)
         arena[tbl[mapped].long()] = rows.movedim(2, 1)[mapped]
         arenas.append(arena.contiguous())
     return arenas, tbl
 
 
-def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0):
+def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
+             page_len=PAGE_LEN):
     """One case of decode kernel ``kind`` (a key of DECODE_KEYS) on the
     card: launches of the kernel, its plain version and its dense twin
     (K3 on the gathered plane for K5, K4 for K6), the fp32 planes its limit
-    is computed from, and what its bound counts."""
+    is computed from, and what its bound counts. Paged kinds use pages of
+    ``page_len`` positions."""
     item = dtype.itemsize
     if kind in ("decode", "q8"):
         T, extra = PLANE, 0
@@ -665,14 +723,15 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0):
             kv = (da.dequantize_kv(kc, ks), da.dequantize_kv(vc, vs))
         twin = None
     else:
-        T = PAGED_PLANE
+        T = paged_plane_len(SERVE["max_len"], SERVE["prefill_chunk"],
+                            page_len)
         if kind == "paged":
             q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
             planes = (k, v)
         else:
             q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed, T)
             planes = (kc, vc, ks, vs)
-        arenas, tbl = _paged(planes, pos, S, seed)
+        arenas, tbl = _paged(planes, pos, S, seed, page_len)
         ops = tuple(arenas) + (tbl,)
         g = [da.gather_pages(a, tbl) for a in arenas]
         kv = g if kind == "paged" else \
@@ -683,7 +742,7 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0):
         def twin():
             return dense(q, *g, pos, scale)
         # The table entries up to each row's frontier page.
-        extra = 4 * int(((pos.long() + S - 1) // PAGE_LEN + 1).sum())
+        extra = 4 * int(((pos.long() + S - 1) // page_len + 1).sum())
     kernel, plain = {
         "decode": (da.flash_decode_attention, da.decode_attention_reference),
         "q8": (da.flash_decode_attention_q8,
@@ -751,24 +810,33 @@ def _decode_check(label, c, dtype, frontiers):
 
 def phase_decode_variants():
     """K4, K5 and K6 against their plain versions at phase 3's cases, K5
-    and K6 also against their dense twins bit for bit; times at the decode
-    and the frontier-500 prefill case. Returns {kind: rows}."""
-    cases = [("decode", 16, 1, DECODE_POS)]
-    cases += [("prefill_lane", 1, 32, [p]) for p in (0, 31, 32, 500,
-                                                     PLANE - 32)]
+    and K6 also against their dense twins bit for bit, K5 and K6 also at
+    pages of ODD_PAGE_LEN (the decode case and the prefill lane across a
+    split boundary); times at the decode and the frontier-500 prefill case
+    (pages of PAGE_LEN). Returns {kind: rows}."""
+    cases = [("decode", 16, 1, DECODE_POS, PAGE_LEN)]
+    cases += [("prefill_lane", 1, 32, [p], PAGE_LEN) for p in PREFILL_POS]
+    odd = [("decode_pages{}".format(ODD_PAGE_LEN), 16, 1, DECODE_POS,
+            ODD_PAGE_LEN)]
+    odd += [("prefill_lane_pages{}".format(ODD_PAGE_LEN), 1, 32,
+             [da.SPLIT_KEYS + d], ODD_PAGE_LEN) for d in (-1, 0, 1)]
     rows = {}
     for kind, label in DECODE_VARIANTS:
         for dtype in (torch.bfloat16, torch.float32):
-            for name, B, S, frontiers in cases:
+            for name, B, S, frontiers, page_len in \
+                    cases + (odd if kind != "q8" else []):
                 c = _variant(kind, B, S, frontiers, dtype,
-                             seed=100 + len(rows.get(kind, [])))
+                             seed=100 + len(rows.get(kind, [])),
+                             page_len=page_len)
                 row = dict(case=name, B=B, S=S, T=c["T"], pos=frontiers,
                            **_decode_check(label, c, dtype, frontiers))
+                if kind != "q8":
+                    row["page_len"] = page_len
                 if not row["ok"]:
                     print(label + " " + json.dumps(row))
                     fail("{} disagrees with its plain version or its dense "
                          "twin at {} {}".format(label, name, dtype))
-                if frontiers in ([500], DECODE_POS):
+                if frontiers in ([500], DECODE_POS) and page_len == PAGE_LEN:
                     row["ms"] = cuda_ms(c["kernel"])
                     row["plain_ms"] = cuda_ms(c["plain"])
                     row["bound_ms"], row["bound_by"] = _bound(
@@ -943,9 +1011,24 @@ def phase_profile(engine, cfg, label, warm=4, window=3):
     print(label + " " + json.dumps(_profile(engine.step, window)))
 
 
+def _union_ms(spans):
+    """Total length in ms of the union of (start, end) spans in us."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def _profile(step, window):
     """torch.profiler over ``window`` calls of ``step``: device time by
-    kernel name per call and the device's busy share of the wall clock."""
+    kernel name per call and the device's busy share of the wall clock.
+    Kernels may overlap (the decode kernels' combine is launched as the
+    split kernel's programmatic dependent and its span includes its wait),
+    so the sum of kernel times overstates busy time: the union of the
+    kernels' spans is reported beside it, also for the decode kernels
+    alone."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -966,12 +1049,25 @@ def _profile(step, window):
             kernels[evt.key] = (dev_us / 1e3 / window, evt.count // window)
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return {
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    union = _union_ms(sp[1:] for sp in spans) / window
+    decode = _union_ms(sp[1:] for sp in spans
+                       if "decode_split_kernel" in sp[0]
+                       or "decode_combine_kernel" in sp[0]) / window
+    out = {
         "window_steps": window, "step_ms": wall_ms / window,
         "device_busy_ms_per_step": busy if kernels else "not measured",
         "device_busy_share": busy * window / wall_ms if kernels else None,
+        "device_busy_union_ms_per_step": union if spans else "not measured",
+        "device_busy_union_share": union * window / wall_ms if spans
+        else None,
         "top_kernels_ms_per_step": [
             {"name": k[:140], "ms": ms, "calls": n} for k, (ms, n) in top]}
+    if decode:
+        out["decode_attention_union_ms_per_step"] = decode
+    return out
 
 
 def _gap(model, ids):
@@ -2295,7 +2391,10 @@ def main():
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "shape": "B16 H16 S1 T{} D64 bf16".format(PLANE)}]
+        "shape": "B16 H16 S1 T{} D64 bf16".format(PLANE),
+        "split_keys": da.SPLIT_KEYS,
+        "combine": {key: main_row["combine"][key] for key in (
+            "ms", "bound_ms", "max_abs_err", "max_err_over_limit")}}]
     kernels += _decode_variant_rows(variant_rows, serve_launches)
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
                                   split_rows)

@@ -1,6 +1,6 @@
-"""Time the port's flash-attention kernels (K1, K2a, K2b) and block-sparse
-attention kernels (K7a, K7b) of two checkouts on one card, in turns: A, B,
-B, A.
+"""Time the port's flash-decode kernels (K3-K6), flash-attention kernels
+(K1, K2a, K2b) and block-sparse attention kernels (K7a, K7b) of two
+checkouts on one card, in turns: A, B, B, A.
 
     python3 compare_trees.py DIR_A DIR_B [--out FILE]
 
@@ -10,6 +10,12 @@ from that checkout: it builds the checkout's kernels (``chip_smoke.
 phase_build``), then times, with that checkout's ``chip_smoke`` (CUDA-event
 medians):
 
+- K3, K4, K5 and K6 (``_variant``: the dense, int8, paged and paged int8
+  cases of the serving path, pages of 128), K3's plain version and torch's
+  scaled_dot_product_attention with a bool mask (K3's yardstick, on
+  ``_case``'s planes) at the serving decode case (B=16, H=16, S=1,
+  frontiers ``DECODE_POS``, bf16) and the prefill lane's (B=1, S=32,
+  frontier 500);
 - K1, K2a and K2b, their plain versions and torch's
   scaled_dot_product_attention (``_flash_times``) at GPT-2 medium
   training's shape (B=8, H=16, T=1024, D=64, bf16, causal) and at
@@ -34,10 +40,11 @@ import sys
 # since the flash kernels landed.
 _TURN = r"""
 import json, sys, torch
+import torch.nn.functional as F
 import chip_smoke as c
 c.phase_env()
 c.phase_build()
-at, sk = c.at, c.sk
+at, sk, da = c.at, c.sk, c.da
 
 
 # K2b's dq kernel on its own, launched here through its C entry point (the
@@ -52,7 +59,27 @@ def dq_kernel(q, k, v, do, mask, lse, delta, causal):
     return lambda: at._raise_on(at._kernel("ds_flash_bwd_dq")(*args), "dq")
 
 
-out = {}
+# K3-K6, K3's plain version and SDPA with a bool mask, bf16.
+def decode_times(B, S, frontiers):
+    row = {}
+    for kind, label in (("decode", "K3"), ("q8", "K4"), ("paged", "K5"),
+                        ("paged_q8", "K6")):
+        case = c._variant(kind, B, S, frontiers, torch.bfloat16, seed=0)
+        row[label] = c.cuda_ms(case["kernel"])
+        if kind == "decode":
+            row["K3_plain"] = c.cuda_ms(case["plain"])
+        del case
+    q, k, v, pos = c._case(B, S, frontiers, torch.bfloat16, seed=0)
+    key = torch.arange(k.shape[2], device="cuda")
+    row_pos = pos.long()[:, None] + torch.arange(S, device="cuda")[None]
+    mask = (key[None, None, :] <= row_pos[:, :, None])[:, None]
+    row["sdpa_bool_mask"] = c.cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=0.125))
+    return row
+
+
+out = {"decode": decode_times(16, 1, c.DECODE_POS),
+       "prefill_lane": decode_times(1, 32, [500])}
 for name, B, T, causal, masked, seed in (
         ("gpt2", 8, 1024, True, False, 0),
         ("bert", c.BERT_B, c.BERT_T, False, "padding", 1)):

@@ -33,6 +33,13 @@ point at (``inference/paging.py``).
 - ``flash_decode_attention`` and its ``_q8``, ``_paged`` and ``_paged_q8``
   forms: the wrappers. On CPU tensors each computes its plain version; on
   CUDA tensors it launches its kernel or raises. None falls back.
+- ``split_plan``, ``decode_partials_reference`` and
+  ``combine_partials_reference``: how the kernels cut a row (flash-decoding:
+  ``SPLIT_KEYS`` keys per CTA, each writing its partial softmax state, then
+  one combine launch that merges the splits in split order), in plain
+  PyTorch. ``combine_partials`` runs the combine kernel alone (on CPU
+  tensors, its plain version); the wrappers launch it after the split
+  kernel, as part of their one counted call.
 
 The kernels take any plane length and any ``page_len >= 1`` (they guard
 the ragged last tile and address keys one by one), so the port neither pads
@@ -49,8 +56,9 @@ import torch
 # Query rows and head width the CUDA kernels take (csrc/decode_attention.cu).
 MAX_QUERY_ROWS = 64
 HEAD_DIM = 64
-# Block-table entries a CTA stages in shared memory (kMaxTableEntries).
-MAX_TABLE_ENTRIES = 49152
+# Keys per split: the share of a row one CTA covers (kSplitKeys; the
+# library is checked against it when it loads).
+SPLIT_KEYS = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -63,12 +71,12 @@ _Q8_EPS = 1e-8
 # path went through the kernel.
 launches = {"decode": 0, "q8": 0, "paged": 0, "paged_q8": 0}
 
-# C entry point and the ctypes argument types after the pointers, per kernel.
+# C entry point, its pointer arguments and the ints after them, per kernel.
 _ENTRIES = {
-    "decode": ("ds_decode_attention", 5, 6),
-    "q8": ("ds_decode_attention_q8", 7, 6),
-    "paged": ("ds_decode_attention_paged", 6, 7),
-    "paged_q8": ("ds_decode_attention_paged_q8", 8, 7),
+    "decode": ("ds_decode_attention", 6, 6),
+    "q8": ("ds_decode_attention_q8", 8, 6),
+    "paged": ("ds_decode_attention_paged", 7, 7),
+    "paged_q8": ("ds_decode_attention_paged_q8", 9, 7),
 }
 _fns = {}
 
@@ -169,18 +177,112 @@ def decode_attention_paged_q8_reference(q, k, v, k_scale, v_scale,
 
 
 # ---------------------------------------------------------------------------
+# The kernels' split over the key length, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def split_plan(T, S, split_keys=SPLIT_KEYS):
+    """How the kernels cut a plane of ``T`` keys for ``S`` query rows: the
+    logical key range ``[s * L, min((s + 1) * L, T))`` of each split ``s``
+    (L = ``split_keys``) and the shape ``(n_split, S, D + 2)`` of one (b,
+    h)'s partials. A paged plane is cut as its gathered dense twin is
+    (``T = n_lp * page_len``): the plan sees logical positions only."""
+    n_split = -(-T // split_keys)
+    bounds = tuple((s * split_keys, min((s + 1) * split_keys, T))
+                   for s in range(n_split))
+    return {"bounds": bounds, "partial_shape": (n_split, S, HEAD_DIM + 2)}
+
+
+def _splits_run(pos, S, T, split_keys):
+    """[B, S] splits that hold a key of each query row: those starting at
+    or before the row's last key (split 0 always)."""
+    rows = pos.long()[:, None] + torch.arange(S, device=pos.device)
+    return torch.clamp(torch.clamp(rows, max=T - 1), min=0) // split_keys + 1
+
+
+def decode_partials_reference(q, k, v, pos, scale=None,
+                              split_keys=SPLIT_KEYS):
+    """The split kernel's partials: fp32 ``[n_split, B, H, S, D + 2]``
+    holding, for split s and query row i over the keys of split s visible
+    to i, the unnormalised value sum ``[..., :D]`` = sum_t exp(s_t - m) v_t,
+    the max score ``m`` at ``[..., D]`` and the sum ``l`` = sum_t exp(s_t -
+    m) at ``[..., D + 1]`` (m = -inf, l = 0, sum 0 where no key is
+    visible). Scores ``(scale * q) . k`` in fp32; k and v as given (the
+    int8 and paged forms dequantize or gather first)."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    scale = scale if scale is not None else 1.0 / D ** 0.5
+    dev = q.device
+    qf = q.float() * scale
+    q_pos = pos.to(dev, torch.int64)[:, None] + torch.arange(S, device=dev)
+    out = []
+    for lo, hi in split_plan(T, S, split_keys)["bounds"]:
+        key = torch.arange(lo, hi, device=dev)
+        vis = (key[None, None, :] <= q_pos[:, :, None])[:, None]
+        s = torch.matmul(qf, k[:, :, lo:hi].float().transpose(-1, -2))
+        s = s.masked_fill(~vis, float("-inf"))
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(vis, torch.exp(s - torch.where(
+            torch.isinf(m), torch.zeros_like(m), m)), torch.zeros_like(s))
+        acc = torch.matmul(p, v[:, :, lo:hi].float())
+        out.append(torch.cat([acc, m, p.sum(dim=-1, keepdim=True)], dim=-1))
+    return torch.stack(out)
+
+
+def combine_partials_reference(partials, pos, T, dtype,
+                               split_keys=SPLIT_KEYS):
+    """The combine kernel's result: each (b, h, row)'s partials of the
+    splits that hold a key of the row (``_splits_run``; the others are
+    never read) merged in split order: ``m = max_s m_s``, ``w_s = exp(m_s -
+    m)`` (0 where m_s = -inf), out = sum_s w_s acc_s / sum_s w_s l_s, cast
+    to ``dtype``. partials: fp32 ``[n_split, B, H, S, D + 2]``."""
+    n_split, B, H, S, P = partials.shape
+    D = P - 2
+    run = _splits_run(pos.to(partials.device), S, T, split_keys)
+    live = (torch.arange(n_split, device=partials.device)[:, None, None]
+            < run[None])[:, :, None, :]                     # [n, B, 1, S]
+    ms = torch.where(live, partials[..., D], float("-inf"))
+    m = ms.amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(partials[0, ..., :D])
+    for s in range(n_split):
+        w = torch.where(torch.isinf(ms[s]), torch.zeros_like(m),
+                        torch.exp(ms[s] - m))
+        w = torch.where(live[s], w, torch.zeros_like(w))
+        l = l + w * torch.where(live[s], partials[s, ..., D + 1], 0.0)
+        acc = acc + w[..., None] * torch.where(live[s][..., None],
+                                               partials[s, ..., :D], 0.0)
+    return (acc / l[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
+
+
+def _library():
+    """The built library, checked to split rows as SPLIT_KEYS says."""
+    from deepspeed_tpu_torch.op_builder import load
+    lib = load("decode_attention")
+    if lib.ds_decode_split_keys() != SPLIT_KEYS:
+        raise RuntimeError("decode_attention: the library splits rows every "
+                           "{} keys, SPLIT_KEYS is {}".format(
+                               lib.ds_decode_split_keys(), SPLIT_KEYS))
+    return lib
 
 
 def _kernel(kind):
     fn = _fns.get(kind)
     if fn is None:
-        from deepspeed_tpu_torch.op_builder import load
-        name, n_ptr, n_int = _ENTRIES[kind]
-        fn = getattr(load("decode_attention"), name)
+        if kind == "combine":
+            name, n_ptr, n_int = "ds_decode_combine", 3, 6
+            tail = [ctypes.c_void_p]
+        else:
+            name, n_ptr, n_int = _ENTRIES[kind]
+            tail = [ctypes.c_float, ctypes.c_void_p]
+        fn = getattr(_library(), name)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
-            [ctypes.c_float, ctypes.c_void_p]
+            tail
         fn.restype = ctypes.c_int
         _fns[kind] = fn
     return fn
@@ -260,21 +362,32 @@ def _check_cuda(name, q, k, v, pos, scales=(), block_tbl=None):
         if t.data_ptr() % align:
             raise ValueError("{}: {} must be {}-byte aligned".format(
                 name, what, align))
-    if block_tbl is not None and block_tbl.shape[1] > MAX_TABLE_ENTRIES:
-        raise ValueError("{}: the kernel takes at most {} logical pages per "
-                         "row, got {}".format(name, MAX_TABLE_ENTRIES,
-                                              block_tbl.shape[1]))
 
 
-def _launch(kind, q, ptrs, ints, scale):
-    """Launch ``kind``'s kernel into a new output on the current stream;
-    raises if the C entry refuses or the launch fails, and counts it."""
+def _workspace(q, T):
+    """The partials of one call, fresh on the current stream (two streams'
+    calls never share one)."""
+    B, H, S, _ = q.shape
+    n_split = split_plan(T, S)["partial_shape"][0]
+    return torch.empty((n_split, B, H, S, HEAD_DIM + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _launch(kind, q, ptrs, ints, T, scale):
+    """Launch ``kind``'s split kernel and the combine into a new output on
+    the current stream; raises if the C entry refuses or a launch fails,
+    and counts the call once. ``T``: the (logical) plane length."""
     out = torch.empty_like(q)
+    work = _workspace(q, T)
     B, H, S, D = q.shape
     err = _kernel(kind)(
-        q.data_ptr(), *[t.data_ptr() for t in ptrs], out.data_ptr(), B, H, S,
-        *ints, D, _DTYPE_CODE[q.dtype], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), *[t.data_ptr() for t in ptrs], work.data_ptr(),
+        out.data_ptr(), B, H, S, *ints, D, _DTYPE_CODE[q.dtype], float(scale),
+        _stream(q))
     if err != 0:
         raise RuntimeError("decode_attention {} kernel launch failed: CUDA "
                            "error {}".format(kind, err))
@@ -297,7 +410,8 @@ def flash_decode_attention(q, k, v, pos, scale=None):
 
     Same arguments and result as ``decode_attention_reference``. On CPU
     tensors it IS the reference. On CUDA tensors it launches the kernel
-    (one CTA per (b, h), keys read only up to each row's frontier) on the
+    (a CTA per SPLIT_KEYS keys and 4 query rows of each (b, h), keys read
+    only up to each row's frontier, then the combine of the splits) on the
     current stream, and raises for what the kernel does not take (see
     ``_check_cuda``)."""
     name = "flash_decode_attention"
@@ -307,13 +421,14 @@ def flash_decode_attention(q, k, v, pos, scale=None):
     if _on_cpu(name, q, k, v):
         return decode_attention_reference(q, k, v, pos, scale=scale)
     _check_cuda(name, q, k, v, pos)
-    return _launch("decode", q, (k, v, pos), (k.shape[2],), scale)
+    return _launch("decode", q, (k, v, pos), (k.shape[2],), k.shape[2],
+                   scale)
 
 
 def flash_decode_attention_q8(q, k, v, k_scale, v_scale, pos, scale=None):
     """Kernel K4: ``flash_decode_attention`` over int8 codes ``[B, H, T,
     D]`` with fp32 per-(head, position) scales ``[B, H, T]``, dequantized
-    while each tile is staged. On CPU tensors it is
+    in registers while scoring. On CPU tensors it is
     ``decode_attention_q8_reference``."""
     name = "flash_decode_attention_q8"
     _check_shapes(name, q, k, v, pos, scales=(k_scale, v_scale))
@@ -324,7 +439,7 @@ def flash_decode_attention_q8(q, k, v, k_scale, v_scale, pos, scale=None):
                                              scale=scale)
     _check_cuda(name, q, k, v, pos, scales=(k_scale, v_scale))
     return _launch("q8", q, (k, v, k_scale, v_scale, pos), (k.shape[2],),
-                   scale)
+                   k.shape[2], scale)
 
 
 def flash_decode_attention_paged(q, k, v, block_tbl, pos, scale=None):
@@ -341,7 +456,8 @@ def flash_decode_attention_paged(q, k, v, block_tbl, pos, scale=None):
                                                 scale=scale)
     _check_cuda(name, q, k, v, pos, block_tbl=block_tbl)
     return _launch("paged", q, (k, v, block_tbl, pos),
-                   (block_tbl.shape[1], k.shape[2]), scale)
+                   (block_tbl.shape[1], k.shape[2]),
+                   block_tbl.shape[1] * k.shape[2], scale)
 
 
 def flash_decode_attention_paged_q8(q, k, v, k_scale, v_scale, block_tbl,
@@ -360,4 +476,38 @@ def flash_decode_attention_paged_q8(q, k, v, k_scale, v_scale, block_tbl,
     _check_cuda(name, q, k, v, pos, scales=(k_scale, v_scale),
                 block_tbl=block_tbl)
     return _launch("paged_q8", q, (k, v, k_scale, v_scale, block_tbl, pos),
-                   (block_tbl.shape[1], k.shape[2]), scale)
+                   (block_tbl.shape[1], k.shape[2]),
+                   block_tbl.shape[1] * k.shape[2], scale)
+
+
+def combine_partials(partials, pos, T, dtype):
+    """The combine kernel alone: ``partials`` fp32 ``[n_split, B, H, S, D +
+    2]`` as ``decode_partials_reference`` lays them out, ``pos`` [B] int32,
+    ``T`` the plane length; returns ``[B, H, S, D]`` in ``dtype``. On CPU
+    tensors it is ``combine_partials_reference``; on CUDA tensors it
+    launches the kernel the four wrappers launch after their split kernel
+    (there counted as part of their call)."""
+    name = "combine_partials"
+    n_split, B, H, S, P = partials.shape
+    if partials.dtype != torch.float32 or P != HEAD_DIM + 2 or \
+            pos.shape != (B,) or \
+            n_split != split_plan(T, S)["partial_shape"][0]:
+        raise ValueError("{}: partials {} {} do not fit pos {} and T {}"
+                         .format(name, tuple(partials.shape), partials.dtype,
+                                 tuple(pos.shape), T))
+    if _on_cpu(name, partials, pos):
+        return combine_partials_reference(partials, pos, T, dtype)
+    if pos.device != partials.device or pos.dtype != torch.int32 or \
+            dtype not in _DTYPE_CODE or not partials.is_contiguous():
+        raise ValueError("{}: the kernel takes contiguous partials, int32 pos "
+                         "on their device and a float32 or bfloat16 output"
+                         .format(name))
+    out = torch.empty((B, H, S, HEAD_DIM), dtype=dtype,
+                      device=partials.device)
+    err = _kernel("combine")(partials.data_ptr(), pos.data_ptr(),
+                             out.data_ptr(), B, H, S, T, HEAD_DIM,
+                             _DTYPE_CODE[dtype], _stream(out))
+    if err != 0:
+        raise RuntimeError("decode_attention combine kernel launch failed: "
+                           "CUDA error {}".format(err))
+    return out

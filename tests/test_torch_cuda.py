@@ -161,22 +161,17 @@ def _paged_operands(cuda, planes, pos, S, page_len, g):
     return arenas, tbl
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-@pytest.mark.parametrize("S,pos", [(1, [0, 6, 7, 40, 111]), (9, [0, 60])],
-                         ids=["decode", "rows9"])
-@pytest.mark.parametrize("kind,page_len", [("q8", 0), ("paged", 7),
-                                           ("paged", 128), ("paged_q8", 7),
-                                           ("paged_q8", 128)])
-def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
-                                            dtype):
-    T = 128 if page_len == 128 else 119   # 17 pages of 7; one of 128
+def _variant_case(cuda, kind, page_len, S, pos, dtype, T):
+    """One call of decode kernel ``kind`` (``page_len`` for the paged
+    kinds) at frontiers ``pos`` over a plane of T keys, stale keys past
+    each frontier: (kernel out, plain out, dense twin's out or None,
+    per-element limit). The launch counts one."""
     q, k, v, p = _inputs(cuda, len(pos), S, T, dtype, pos)
     stale = (torch.arange(T, device=cuda)[None] >
              p[:, None].long() + S - 1)[:, None, :, None]
     k = torch.where(stale, torch.full_like(k, 3e4), k)
     v = torch.where(stale, torch.full_like(v, -3e4), v)
-    q8 = kind != "paged"
+    q8 = kind in ("q8", "paged_q8")
     g = torch.Generator(device=cuda)
     g.manual_seed(2)
     if q8:
@@ -184,13 +179,15 @@ def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
         planes = (kc, vc, ks, vs)
     else:
         planes = (k, v)
-    if kind == "q8":
+    if kind in ("decode", "q8"):
         ops, dense = planes, planes
     else:
         arenas, tbl = _paged_operands(cuda, planes, p, S, page_len, g)
         ops = tuple(arenas) + (tbl,)
         dense = [da.gather_pages(a, tbl) for a in arenas]
     kernel, plain, twin = {
+        "decode": (da.flash_decode_attention, da.decode_attention_reference,
+                   None),
         "q8": (da.flash_decode_attention_q8,
                da.decode_attention_q8_reference, None),
         "paged": (da.flash_decode_attention_paged,
@@ -202,10 +199,9 @@ def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
     before = da.launches[kind]
     out = kernel(q, *ops, p)
     ref = plain(q, *ops, p)
+    twin_out = twin(q, *dense, p) if twin is not None else None
     torch.cuda.synchronize()
     assert da.launches[kind] == before + 1
-    if twin is not None:
-        assert torch.equal(out, twin(q, *dense, p))
     kf, vf = (da.dequantize_kv(dense[0], dense[2]),
               da.dequantize_kv(dense[1], dense[3])) if q8 else dense
     atol, rtol = (1e-5, 0.0) if dtype == torch.float32 else (2e-3, 2.0 ** -7)
@@ -217,14 +213,124 @@ def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
         pr = torch.softmax(sc.masked_fill(~mask[:, None], float("-inf")), -1)
         d = torch.matmul(q.float(), (kf - kf.to(dtype).float())
                          .transpose(-1, -2)) / 8.0
-        vq, out = vf.to(dtype).float(), ref.float()
+        vq, o = vf.to(dtype).float(), ref.float()
         pd = pr * d
         d_max = (d.abs() * (pr > 0)).amax(-1, keepdim=True)
         limit = limit + (torch.matmul(pd, vq)
-                         - out * pd.sum(-1, keepdim=True)).abs() \
-            + d_max ** 2 * (torch.matmul(pr, vq.abs()) + out.abs())
+                         - o * pd.sum(-1, keepdim=True)).abs() \
+            + d_max ** 2 * (torch.matmul(pr, vq.abs()) + o.abs())
+    return out, ref, twin_out, limit
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S,pos", [(1, [0, 6, 7, 40, 111]), (9, [0, 60])],
+                         ids=["decode", "rows9"])
+@pytest.mark.parametrize("kind,page_len", [("q8", 0), ("paged", 7),
+                                           ("paged", 128), ("paged_q8", 7),
+                                           ("paged_q8", 128)])
+def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
+                                            dtype):
+    T = 128 if page_len == 128 else 119   # 17 pages of 7; one of 128
+    out, ref, twin, limit = _variant_case(cuda, kind, page_len, S, pos,
+                                          dtype, T)
+    if twin is not None:
+        assert torch.equal(out, twin)
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= limit).all())
+
+
+# The split over the key length: each kernel cuts a row every SPLIT_KEYS
+# keys (L) and merges the splits in a second launch. Frontiers just before,
+# at and after the first boundary, at the second, and at the plane's last
+# key (plus, at B = 16, frontiers in every other split), over a plane of
+# 4.5 L keys (the last split ragged) in pages of 48, which do not divide L.
+SPLIT_L = da.SPLIT_KEYS
+SPLIT_PLANE = 4 * SPLIT_L + SPLIT_L // 2
+
+
+def _straddling(S, B):
+    last = SPLIT_PLANE - S
+    edge = [SPLIT_L - 1, SPLIT_L, SPLIT_L + 1, 2 * SPLIT_L, last]
+    if B == 1:
+        return [[p] for p in edge]
+    more = [0, 5, SPLIT_L // 2, 2 * SPLIT_L - 1, 2 * SPLIT_L + 1,
+            3 * SPLIT_L - 1, 3 * SPLIT_L, 3 * SPLIT_L + 1, 4 * SPLIT_L,
+            4 * SPLIT_L + 1, last - 1]
+    return [[min(p, last) for p in edge + more]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("S", [1, 32, 64])
+@pytest.mark.parametrize("kind", ["decode", "q8", "paged", "paged_q8"])
+def test_decode_kernels_across_split_boundaries(cuda, kind, S, B, dtype):
+    for pos in _straddling(S, B):
+        out, ref, twin, limit = _variant_case(cuda, kind, 48, S, pos, dtype,
+                                              SPLIT_PLANE)
+        assert bool(torch.isfinite(out).all())
+        assert bool(((out.float() - ref.float()).abs() <= limit).all()), pos
+        if twin is not None:
+            assert torch.equal(out, twin), pos
+
+
+@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("page_len", [48, 96, 128])
+@pytest.mark.parametrize("kind", ["paged", "paged_q8"])
+def test_paged_kernels_equal_their_dense_twins_across_splits(cuda, kind,
+                                                             page_len, S):
+    """K5 == K3 and K6 == K4 on the gathered plane, bit for bit, where the
+    pages do not line up with the splits (48, 96) and where they do."""
+    T = 5 * 384  # whole pages of 48, 96 and 128
+    pos = [SPLIT_L - 1, SPLIT_L, SPLIT_L + 1, 2 * SPLIT_L, 3 * SPLIT_L - 1,
+           700, 1000, T - S]
+    out, _, twin, _ = _variant_case(cuda, kind, page_len, S, pos,
+                                    torch.bfloat16, T)
+    assert torch.equal(out, twin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [1, 32])
+def test_combine_kernel_matches_plain(cuda, S, dtype):
+    """The combine kernel alone on plain partials, NaN in every split that
+    holds no key of a row: |out - ref| <= rtol |ref| + 1e-6
+    of the row's max-abs (both merge in split order in fp32 and differ in
+    exp's last bits; rtol one bf16 ulp where the output is bf16)."""
+    pos = [0, SPLIT_L - 1, SPLIT_L, 2 * SPLIT_L + 1, SPLIT_PLANE - S]
+    q, k, v, p = _inputs(cuda, len(pos), S, SPLIT_PLANE, torch.float32, pos)
+    part = da.decode_partials_reference(q, k, v, p)
+    run = da._splits_run(p, S, SPLIT_PLANE, SPLIT_L)
+    unused = torch.arange(part.shape[0], device=cuda)[:, None, None] >= \
+        run[None]
+    part.masked_fill_(unused[:, :, None, :, None], float("nan"))
+    out = da.combine_partials(part, p, SPLIT_PLANE, dtype)
+    ref = da.combine_partials_reference(part, p, SPLIT_PLANE, torch.float32)
+    torch.cuda.synchronize()
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    limit = rtol * ref.abs() + 1e-6 * ref.abs().amax(-1, keepdim=True)
+    assert bool(((out.float() - ref).abs() <= limit).all())
+
+
+def test_decode_kernel_on_two_streams_at_once(cuda):
+    """K3 launched on two streams at once (each call its own workspace):
+    every result equals the same call's result alone."""
+    cases = [_inputs(cuda, 16, 1, 1056, torch.bfloat16,
+                     [(37 * i + 500 * n) % 1056 for i in range(16)])
+             for n in range(2)]
+    alone = [da.flash_decode_attention(*c) for c in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(20):
+        for n, st in enumerate(streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs[n].append(da.flash_decode_attention(*cases[n]))
+    torch.cuda.synchronize()
+    for n in range(2):
+        assert all(torch.equal(o, alone[n]) for o in outs[n])
 
 
 @pytest.mark.parametrize("bad", ["codes_fp", "scale_fp16", "tbl_int64",

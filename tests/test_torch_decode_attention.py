@@ -108,3 +108,131 @@ def test_wrapper_rejects_malformed_input(bad):
         q = q[0]
     with pytest.raises((ValueError, TypeError)):
         tda.flash_decode_attention(q, k, v, pos)
+
+
+# ------------------------------------------- the kernels' split over keys
+
+# The plain split-and-combine (partials over [s L, (s + 1) L), merged in
+# split order) at each split length, against the dense reference and the
+# JAX package's decode attention (its Pallas kernel in interpret mode), in
+# fp32: each output within 1e-5 of its max-abs. A plane of 640 keys (5 of
+# the JAX kernel's 128-key blocks) holds two splits of 256; the frontiers
+# put rows just before, at and after the split boundaries L and 2 L, and at
+# the plane's end.
+SPLIT_T = 640
+SPLIT_RTOL = 1e-5
+
+
+def _split_frontiers(L, s):
+    if s == 1:
+        return [L - 1, L, L + 1, 2 * L, SPLIT_T - 1]
+    return [L - s, L - 1, L + 1, 2 * L - s // 2, SPLIT_T - s]
+
+
+def _split_inputs(s, frontiers, seed):
+    rng = np.random.RandomState(seed)
+    pos = np.asarray(frontiers, np.int32)
+    b = pos.size
+    q = rng.randn(b, 2, s, D).astype(np.float32)
+    k = rng.randn(b, 2, SPLIT_T, D).astype(np.float32)
+    v = rng.randn(b, 2, SPLIT_T, D).astype(np.float32)
+    stale = (np.arange(SPLIT_T)[None] > pos[:, None] + s - 1)[:, None, :,
+                                                             None]
+    return (q, np.where(stale, 3e4, k).astype(np.float32),
+            np.where(stale, -3e4, v).astype(np.float32), pos)
+
+
+_JAX_SPLIT_CACHE = {}
+
+
+def _jax_decode(layout, s, frontiers, q, k, v, pos):
+    """The JAX kernel's result (interpret mode), once per input set."""
+    key = (layout, s, tuple(frontiers))
+    if key not in _JAX_SPLIT_CACHE:
+        if layout == "dense":
+            want = jda.flash_decode_attention(
+                *[jnp.asarray(a) for a in (q, k, v, pos)], block_k=128)
+        else:
+            from tests.test_torch_paged_kv import paged_layout
+            ak, av, tbl = paged_layout(k, v, 128, seed=s)
+            want = jda.flash_decode_attention_paged(
+                *[jnp.asarray(a) for a in (q, ak, av, tbl, pos)])
+        _JAX_SPLIT_CACHE[key] = np.asarray(want)
+    return _JAX_SPLIT_CACHE[key]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("s", [1, 32])
+@pytest.mark.parametrize("L", [32, 128, 256])
+def test_split_and_combine_matches_reference_and_jax_kernel(L, s, layout):
+    frontiers = _split_frontiers(L, s)
+    q, k, v, pos = _split_inputs(s, frontiers, seed=L + s)
+    tq, tk, tv, tpos = (torch.from_numpy(a) for a in (q, k, v, pos))
+    if layout == "paged":
+        from tests.test_torch_paged_kv import paged_layout
+        ak, av, tbl = (torch.from_numpy(a)
+                       for a in paged_layout(k, v, 128, seed=s))
+        tk, tv = tda.gather_pages(ak, tbl), tda.gather_pages(av, tbl)
+    part = tda.decode_partials_reference(tq, tk, tv, tpos, split_keys=L)
+    assert part.shape == (-(-SPLIT_T // L), len(frontiers), 2, s, D + 2)
+    got = tda.combine_partials_reference(part, tpos, SPLIT_T, torch.float32,
+                                         split_keys=L).numpy()
+    for want in (tda.decode_attention_reference(tq, tk, tv, tpos).numpy(),
+                 _jax_decode(layout, s, frontiers, q, k, v, pos)):
+        np.testing.assert_allclose(
+            got, want, rtol=0, atol=SPLIT_RTOL * float(np.abs(want).max()))
+
+
+def test_combine_reads_only_the_splits_the_kernel_runs():
+    """Partials of splits starting past a row's last key may be left
+    unwritten by the kernel: NaN there must not reach the result."""
+    q, k, v, pos = (torch.from_numpy(a)
+                    for a in _split_inputs(1, [0, 127, 128, 300, 639], 7))
+    part = tda.decode_partials_reference(q, k, v, pos)
+    want = tda.combine_partials_reference(part, pos, SPLIT_T, torch.float32)
+    run = tda._splits_run(pos, 1, SPLIT_T, tda.SPLIT_KEYS)
+    assert run.tolist() == [[1], [1], [2], [3], [5]]
+    unused = torch.arange(part.shape[0])[:, None, None] >= run[None]
+    part.masked_fill_(unused[:, :, None, :, None], float("nan"))
+    got = tda.combine_partials(part, pos, SPLIT_T, torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("T,S", [(1, 1), (127, 1), (128, 32), (129, 64),
+                                 (1056, 1), (1152, 32)])
+def test_split_plan_is_a_function_of_plane_length_and_rows(T, S):
+    plan = tda.split_plan(T, S)
+    bounds = plan["bounds"]
+    assert bounds[0][0] == 0 and bounds[-1][1] == T
+    assert all(hi - lo <= tda.SPLIT_KEYS and lo == i * tda.SPLIT_KEYS
+               for i, (lo, hi) in enumerate(bounds))
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert plan["partial_shape"] == (len(bounds), S, tda.HEAD_DIM + 2)
+    assert tda.split_plan(T, S) == plan
+
+
+@pytest.mark.parametrize("page_len", [1, 7, 48, 128])
+def test_split_plan_of_a_paged_row_is_its_dense_twins(page_len):
+    """The wrapper plans a paged call from n_lp * page_len, which is the
+    length of the gathered dense plane: the same splits, the same
+    workspace."""
+    n_lp, S = -(-300 // page_len), 32
+    arena = torch.zeros(n_lp + 1, 2, page_len, D)
+    tbl = torch.arange(1, n_lp + 1, dtype=torch.int32)[None]
+    dense = tda.gather_pages(arena, tbl)
+    q = torch.zeros(1, 2, S, D)
+    assert dense.shape[2] == n_lp * page_len
+    assert tda.split_plan(n_lp * page_len, S) == \
+        tda.split_plan(dense.shape[2], S)
+    assert tda._workspace(q, n_lp * page_len).shape == \
+        tda._workspace(q, dense.shape[2]).shape
+
+
+def test_split_keys_match_the_kernel_source():
+    import os
+    import re
+    src = os.path.join(os.path.dirname(tda.__file__), "..", "..", "..",
+                       "csrc", "decode_attention.cu")
+    with open(src) as f:
+        m = re.search(r"constexpr int kSplitKeys = (\d+);", f.read())
+    assert m and int(m.group(1)) == tda.SPLIT_KEYS
