@@ -101,7 +101,11 @@ of which exits non-zero on failure:
    element held to its own limit (see SPARSE_ACC): at the sparse BERT
    path's shape (B=2, H=16, T=4096, D=64, bf16, the Fixed layout at block
    64, bidirectional, every other row padded), the unidirectional Fixed
-   layout with the causal cut, fp32 at B=1 T=1024, blocks 16 and 32 on
+   layout with the causal cut, BigBird with two global blocks (K7a's
+   block-64 kernel runs pairs of query blocks with equal LUT rows and
+   single blocks in one launch; each block-64 case prints its pair and
+   single item counts: the path's layout is all pairs, the causal one all
+   single blocks), fp32 at B=1 T=1024, blocks 16 and 32 on
    random layouts with empty rows and columns (-1 LUT entries), the
    key-padding mask and the bias in 'mul' mode, and fp16; times the
    kernels, the plain versions and torch's scaled_dot_product_attention
@@ -146,7 +150,7 @@ from deepspeed_tpu_torch.models import generation  # noqa: E402
 from deepspeed_tpu_torch.op_builder import (  # noqa: E402
     build_all, build_log, sources)
 from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
-    FixedSparsityConfig)
+    BigBirdSparsityConfig, FixedSparsityConfig)
 from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
     kernels as sk)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
@@ -1817,12 +1821,19 @@ def phase_bert_consistency():
 
 def _sparse_layout(kind, block, T, seed):
     """A [16, nb, nb] layout: the Fixed pattern (bidirectional or
-    unidirectional), or a random one with query block 1 (a row) and key
-    block 2 (a column) empty, so that both LUTs hold -1 entries."""
+    unidirectional), BigBird with two global blocks (their equal rows pair
+    in K7a's block-64 schedule, the sliding-window rows stay single), or a
+    random one with query block 1 (a row) and key block 2 (a column) empty,
+    so that both LUTs hold -1 entries."""
     if kind in ("fixed", "fixed_uni"):
         attention = "bidirectional" if kind == "fixed" else "unidirectional"
         return FixedSparsityConfig(num_heads=16, block=block,
                                    attention=attention).make_layout(T)
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=16, block=block,
+                                     num_global_blocks=2,
+                                     num_random_blocks=1,
+                                     seed=seed).make_layout(T)
     nb = T // block
     layout = (np.random.RandomState(seed).rand(16, nb, nb) < 0.3).astype(
         np.int64)
@@ -1949,6 +1960,12 @@ def _sparse_case(name, B, T, dtype, kind, block, causal, kpm, bias, seed,
            "H": 16, "T": T, "layout": kind, "block": block,
            "density": lowered.density, "causal": causal, "kpm": kpm,
            "bias": bias}
+    if block == 64 and dtype == torch.bfloat16:
+        # K7a's wgmma kernel: one CTA per item, a pair of query blocks with
+        # equal LUT rows or a single block.
+        pairs = int((lowered.fwd_schedule[:, 2] >= 0).sum())
+        row["fwd_items"] = {"pairs": pairs,
+                            "singles": len(lowered.fwd_schedule) - pairs}
     outs = {"K7a": [(o, ro, rtol * ro.float().abs() + SPARSE_ACC * mags[0]),
                     (lse, rlse, 1e-5 * (1 + rlse.abs()))]}
     for kernel, grads in (("K7b_fused", fused), ("K7b_split", split)):
@@ -1983,6 +2000,8 @@ def phase_sparse():
          "padding", None),
         ("fixed_uni_causal", 1, 2048, bf16, "fixed_uni", 64, True, None,
          None),
+        ("bigbird_pairs_and_singles", 2, 2048, bf16, "bigbird", 64, False,
+         "padding", None),
         ("fp32", 1, 1024, f32, "fixed", 64, False, "padding", "add"),
         ("block16_random", 2, 1024, bf16, "random", 16, False, "padding",
          None),
@@ -1992,8 +2011,15 @@ def phase_sparse():
         ("fp16_block16_bias", 1, 512, torch.float16, "random", 16, False,
          "padding", "add"),
     ]
-    return [_sparse_case(*case, seed=20 + i, timed=i == 0)
+    rows = [_sparse_case(*case, seed=20 + i, timed=i == 0)
             for i, case in enumerate(cases)]
+    items = {r["case"]: r["fwd_items"] for r in rows if "fwd_items" in r}
+    if not (items["path"]["singles"] == 0
+            and items["fixed_uni_causal"]["pairs"] == 0
+            and min(items["bigbird_pairs_and_singles"].values()) > 0):
+        fail("K7a's block-64 cases do not hold all pairs, all single "
+             "blocks, and both in one launch: {}".format(items))
+    return rows
 
 
 def phase_split_default():
@@ -2235,6 +2261,13 @@ def _sparse_kernel_rows(rows, launches, split_rows):
              "bound_by": timed["bound_{}_by".format(way)],
              "library_ms": timed[lib], "shape": shape}
            for name, kernel, counter, line, ms, plain, lib, way in specs]
+    out[0]["design"] = (
+        "block 64 bf16: fwd_wgmma_kernel, one CTA per pair of query blocks "
+        "with equal LUT rows (forward schedule), a TMA producer warpgroup "
+        "and two wgmma consumer warpgroups sharing each swizzled K/V tile; "
+        "blocks 16/32 bf16: fwd_async_kernel (cp.async ring, ldmatrix, "
+        "mma.sync); fp32/fp16: fwd_kernel (FMA)")
+    out[0]["fwd_items"] = timed["fwd_items"]
     out[2]["split_default"] = split_rows["K7b_split"]
     return out
 

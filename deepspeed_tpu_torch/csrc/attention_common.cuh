@@ -66,33 +66,8 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as two bf16 pairs, hi + lo.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
-// The left operand of a 16 x 16 step from accumulator tiles c0 (columns
-// 0-7) and c1 (columns 8-15), split hi/lo.
-__device__ __forceinline__ void frag_from_acc(const float (&c0)[4],
-                                              const float (&c1)[4],
-                                              uint32_t (&hi)[4],
-                                              uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
 }
 
 // ------------------------------------------------ the Hopper operand path

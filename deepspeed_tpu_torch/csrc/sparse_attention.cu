@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention/kernels.py:
 //   K7a `_fwd_kernel` (launched from `_make_fn`'s forward)
-//       -> fwd_mma_kernel (bf16), fwd_kernel (fp32, fp16)
+//       -> fwd_wgmma_kernel (bf16, block 64), fwd_async_kernel (bf16,
+//          blocks 16 and 32), fwd_kernel (fp32, fp16)
 //   K7b fused `_bwd_fused_kernel`
 //       -> dkdv_async_kernel (bf16) / dkdv_kernel with kDq = true (dq by
 //          atomics into an fp32 buffer)
@@ -44,16 +45,22 @@
 //   - the [T, T] scores never exist: one block x block tile of scores at a
 //     time lives in registers (bf16) or shared memory (fp32, fp16);
 //   - the layout is a loop over the block's LUT row; a -1 entry is skipped,
-//     or in the bf16 backward never reached, as a row's -1 padding is at its
+//     or in the bf16 kernels never reached, as a row's -1 padding is at its
 //     end (in the TPU kernel it aliases block 0 and adds exact zeros), so
 //     only listed blocks are loaded and computed;
-//   - bf16 runs its products on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulation, P and dS entering the second product as hi + lo bf16),
-//     a warp per 16 rows of the block, as the dense kernels do; its backward
-//     kernels stage tiles by cp.async and take every operand by ldmatrix
-//     (the Hopper section below), and the dk/dv kernel issues its key
-//     blocks by LUT count, largest first; fp32 and fp16 run register-blocked
-//     FMAs on a 16 x 8 thread grid;
+//   - bf16 runs its products on the tensor cores with fp32 accumulation, P
+//     and dS entering the second product as hi + lo bf16. K7a at block 64
+//     (the sparse BERT path) is warp-specialised on wgmma: a producer
+//     warpgroup keeps a TMA ring of swizzled K/V tiles in flight, and two
+//     consumer warpgroups serve two query blocks whose LUT rows are equal
+//     (the forward schedule pairs them), so each K/V tile read feeds 128
+//     rows, and take turns at the tensor cores, so one consumer's softmax
+//     runs under the other's products (fwd_wgmma_kernel). The other bf16
+//     kernels run mma.sync m16n8k16, a warp per 16 rows of the block, on
+//     tiles staged by cp.async with every operand taken by ldmatrix (the
+//     section below);
+//     K7b's dk/dv kernel issues its key blocks by LUT count, largest first;
+//     fp32 and fp16 run register-blocked FMAs on a 16 x 8 thread grid;
 //   - the TPU's fused backward scatters dk/dv into full-length fp32 VMEM
 //     over a sequential grid. Blocks here run in parallel, so the fused
 //     backward turns the sweep around: one CTA per key block walks the
@@ -62,6 +69,7 @@
 //     forward LUT instead would need atomics for both dk and dv). The split
 //     backward adds a dq kernel over the forward LUT and uses no atomics.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -127,12 +135,11 @@ __device__ __forceinline__ float score_grad(float p, float dp, float delta,
   return ds;
 }
 
-// The same two for the Hopper backward kernels, which take the key's padding
-// mask entry kpm_v from registers or shared memory. Kept apart from masked
-// and score_grad: building those on these cost K7a two registers a thread
-// and a tenth of its time (PERF.md). The score of a listed pair from
-// s = q.k: times scale, then kpm_v, the bias (its entry returned in bv for
-// the 'mul' gradient) and, where `cut`, the causal cut.
+// The same two for the tensor-core kernels, which take the key's padding
+// mask entry kpm_v from registers or shared memory (masked and score_grad
+// serve the FMA kernels). The score of a listed pair from s = q.k: times
+// scale, then kpm_v, the bias (its entry returned in bv for the 'mul'
+// gradient) and, where `cut`, the causal cut.
 __device__ __forceinline__ float pair_score(float s, float scale, float kpm_v,
                                             const Masks& mk, int row, int key,
                                             bool cut, float& bv) {
@@ -163,65 +170,17 @@ __device__ __forceinline__ void stage_lut(int* dst, const int* src, int n) {
 }
 
 // ------------------------------------------------ bf16 on the tensor cores
-// mma.sync m16n8k16 (attention_common.cuh). Shared-memory rows of 64 bf16
-// are padded to 72, transposed tiles [64][block] to block + 8: the 32
-// lanes' 4-byte operand loads then hit 32 banks.
+// mma.sync m16n8k16 and the Hopper operand path (attention_common.cuh):
+// tiles are copied by cp.async into shared memory in their natural [row][d]
+// layout, rows of 64 bf16 padded to 72 (every ldmatrix row then starts 16
+// bytes further round the 32 banks), and every operand comes out of them by
+// ldmatrix (.trans where a tile is read across its rows). K7a at block 64
+// runs on wgmma instead (fwd_wgmma_kernel below).
 
 constexpr int kLdh = kD + 8;
 constexpr int kNT = kD / 8;   // 8-column tiles over 64
 constexpr int kKS = kD / 16;  // 16-deep steps over 64
-
-// The left operand of step kk from 16 rows (from row0) of a bf16 tile of
-// row stride LD.
-template <int LD>
-__device__ __forceinline__ void frag_from_smem(const bf16* s, int row0,
-                                               int kk, int g, int t,
-                                               uint32_t (&a)[4]) {
-  const bf16* p = s + (row0 + g) * LD + 16 * kk + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// acc[n] += A times B over the 16-deep step kk, for the NT 8-column tiles
-// of B, whose columns are the rows of bt (B[k][n] = bt[n][k], stride LD).
-template <int NT, int LD>
-__device__ __forceinline__ void mma_row(float (&acc)[NT][4],
-                                        const uint32_t (&a)[4],
-                                        const bf16* bt, int kk, int g,
-                                        int t) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const bf16* p = bt + (8 * n + g) * LD + 16 * kk + 2 * t;
-    mma16816(acc[n], a, ld32(p), ld32(p + 8));
-  }
-}
-
-// ROWS rows from row0 of a contiguous [*, 64] bf16 matrix into shared
-// memory (stride kLdh), 16 bytes a thread.
-template <int ROWS>
-__device__ __forceinline__ void load_h(bf16* dst, const bf16* src, int row0) {
-  for (int e = threadIdx.x; e < ROWS * (kD / 8); e += blockDim.x) {
-    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD + c);
-  }
-}
-
-// The same rows transposed: dst[c][r] = src[row0 + r][c], stride ROWS + 8.
-template <int ROWS>
-__device__ __forceinline__ void load_ht(bf16* dst, const bf16* src,
-                                        int row0) {
-  for (int e = threadIdx.x; e < ROWS * (kD / 8); e += blockDim.x) {
-    const int r = e % ROWS, c = (e / ROWS) * 8;
-    const uint4 val =
-        *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * kD + c);
-    const bf16* el = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(c + i) * (ROWS + 8) + r] = el[i];
-  }
-}
+constexpr int kStages = 2;    // the cp.async ring
 
 // Rows g and g + 8 (from row_a) of 64 accumulator columns times mul_a /
 // mul_b, as bf16 pairs.
@@ -239,25 +198,129 @@ __device__ __forceinline__ void store_rows(bf16* base,
   }
 }
 
-// K7a for bf16: one CTA per (query block, h, b), a warp per 16 of its BLK
-// rows; for each listed key block S = Q K^T, the online softmax and
-// O += P V, all in registers.
+// The number of listed blocks in a LUT row of deg entries (build_luts pads
+// each row with -1 at its end), counted by the whole CTA; every thread
+// gets it.
+__device__ __forceinline__ int row_count(const int* __restrict__ lrow,
+                                         int deg) {
+  int count = 0;
+  for (int e0 = 0; e0 < deg; e0 += blockDim.x) {
+    const int e = e0 + threadIdx.x;
+    count += __syncthreads_count(e < deg && __ldg(lrow + e) >= 0);
+  }
+  return count;
+}
+
+// BLK rows from row0 of a contiguous [*, 64] bf16 matrix into shared memory
+// (row stride kLdh) by cp.async, 16 bytes a thread.
+template <int BLK>
+__device__ __forceinline__ void async_rows(bf16* dst, const bf16* src,
+                                           int row0) {
+  for (int e = threadIdx.x; e < BLK * (kD / 8); e += 2 * BLK) {
+    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
+    cp_async16(dst + r * kLdh + c, src + (size_t)(row0 + r) * kD + c, true);
+  }
+}
+
+// Entries [row0, row0 + BLK) of an fp32 vector into shared memory by the
+// threads [tid0, tid0 + BLK).
+template <int BLK>
+__device__ __forceinline__ void async_vec(float* dst, const float* src,
+                                          int row0, int tid0) {
+  const int i = threadIdx.x - tid0;
+  if (i >= 0 && i < BLK) cp_async4(dst + i, src + row0 + i, true);
+}
+
+// The online softmax's step for one tile of scores s (rows g and g + 8 of
+// a warp's 16, n-tiles over the tile's keys, already masked): the row
+// maxima over the 4 lanes of a row, m updated, alpha = the factor that
+// rescales the running sums, and s turned into p, whose partial row sums
+// are returned in rs. The exponentials are ex2 of the difference taken in
+// natural units, then scaled by log2(e): a row padded at -1e9 everywhere
+// (fp32 ulp 64) keeps the plain version's probabilities. m starts at
+// -1e30 and the shift is max(m, -5e29), so a row with no visible key yet
+// gets p = 0 and alpha = 0.
+template <int NK>
+__device__ __forceinline__ void softmax_step(float (&s)[NK][4], float (&m)[2],
+                                             float (&alpha)[2],
+                                             float (&rs)[2]) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+  float m_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    m_safe[r] = fmaxf(m_new, kHalfNegInf);
+    alpha[r] = ex2((m[r] - m_safe[r]) * kLog2e);
+    m[r] = m_new;
+    rs[r] = 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2((s[n][e] - m_safe[e >> 1]) * kLog2e);
+      s[n][e] = p;
+      rs[e >> 1] += p;
+    }
+}
+
+// The end of K7a for rows g and g + 8 (row_a, row_a + 8) of a warp: o = acc
+// / l (0 for a row with no visible key: l is clamped at 1e-30) and lse =
+// max(m, -5e29) + log l, from the lane-partial sums l.
+__device__ __forceinline__ void fwd_epilogue(bf16* ob, float* lb,
+                                             const float (&acc)[kNT][4],
+                                             const float (&m)[2],
+                                             float (&l)[2], int row_a,
+                                             int t) {
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float lv = fmaxf(l[r], 1e-30f);
+    inv[r] = 1.f / lv;
+    if (t == 0) lb[row_a + 8 * r] = fmaxf(m[r], kHalfNegInf) + logf(lv);
+  }
+  store_rows(ob, acc, row_a, inv[0], inv[1], t);
+}
+
+// K7a for bf16 at blocks 16 and 32: one CTA per (query block, h, b), a warp
+// per 16 of its rows, whose Q fragments stay in registers. It walks the LUT
+// row to its count; per listed key block (K, V and the key-padding mask
+// slice in the cp.async ring, the next block's copy issued before this
+// block's products): S = Q K^T, the masks (pair_score, the mask entries
+// from shared memory), the online softmax, and O += P V with P as hi + lo
+// bf16 and V's fragments by ldmatrix.trans from its natural tile.
+template <int BLK>
+constexpr size_t fwd_async_smem() {
+  return (1 + kStages * 2) * BLK * kLdh * sizeof(bf16) +
+         kStages * BLK * sizeof(float);
+}
+
 template <int BLK>
 __global__ void __launch_bounds__(2 * BLK)
-    fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ lut,
-                   int deg, const float* __restrict__ kpm,
-                   const float* __restrict__ bias, bf16* __restrict__ o,
-                   float* __restrict__ lse, int H, int T, float scale,
-                   int causal, int kpm_mul, int bias_mul) {
-  constexpr int kNK = BLK / 8, kLdT = BLK + 8;
-  __shared__ __align__(16) bf16 q_s[BLK * kLdh];
-  __shared__ __align__(16) bf16 k_s[BLK * kLdh];
-  __shared__ __align__(16) bf16 vt_s[kD * kLdT];  // V^T [d][key]
-  extern __shared__ int lut_s[];
+    fwd_async_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const int* __restrict__ lut,
+                     int deg, const float* __restrict__ kpm,
+                     const float* __restrict__ bias, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int T, float scale,
+                     int causal, int kpm_mul, int bias_mul) {
+  constexpr int kNK = BLK / 8;  // n-tiles over the key block
+  constexpr int kTileB = BLK * kLdh;
+  extern __shared__ __align__(16) unsigned char smem_fwd[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_fwd);  // [BLK][kLdh] Q
+  bf16* kv_s = q_s + kTileB;                      // stages: K, V
+  float* m_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kTileB);
 
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
+  const int* lrow = lut + ((size_t)h * gridDim.x + blockIdx.x) * deg;
   const bf16* kb = k + bh * T * kD;
   const bf16* vb = v + bh * T * kD;
   const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
@@ -266,83 +329,466 @@ __global__ void __launch_bounds__(2 * BLK)
   const int r0 = warp * 16;
   const int q0 = blockIdx.x * BLK;
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int count = row_count(lrow, deg);
 
-  stage_lut(lut_s, lut + ((size_t)h * gridDim.x + blockIdx.x) * deg, deg);
-  load_h<BLK>(q_s, q + bh * T * kD, q0);
-  __syncthreads();
-  uint32_t qf[kKS][4];
+  auto issue = [&](int j) {
+    const int st = j % kStages;
+    const int k0 = __ldg(lrow + j) * BLK;
+    bf16* ks = kv_s + st * 2 * kTileB;
+    async_rows<BLK>(ks, kb, k0);
+    async_rows<BLK>(ks + kTileB, vb, k0);
+    if (mk.kpm != nullptr) async_vec<BLK>(m_s + st * BLK, mk.kpm, k0, 0);
+  };
+  async_rows<BLK>(q_s, q + bh * T * kD, q0);
 #pragma unroll
-  for (int kk = 0; kk < kKS; ++kk)
-    frag_from_smem<kLdh>(q_s, r0, kk, g, t, qf[kk]);
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < count) issue(i);
+    cp_async_commit();
+  }
 
+  uint32_t qf[kKS][4];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   float acc[kNT][4];
   zero(acc);
-  for (int j = 0; j < deg; ++j) {
-    const int c = lut_s[j];
-    if (c < 0) continue;
-    const int k0 = c * BLK;
-    __syncthreads();  // every warp is done with the previous k_s, vt_s
-    load_h<BLK>(k_s, kb, k0);
-    load_ht<BLK>(vt_s, vb, k0);
+  for (int j = 0; j < count; ++j) {
+    cp_async_wait<kStages - 2>();  // block j (and Q) have landed
+    // ... for every thread, and every warp is done with block j - 1, whose
+    // stage the next copy refills.
     __syncthreads();
+    if (j + kStages - 1 < count) issue(j + kStages - 1);
+    cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKS; ++kk)
+        lhs_frag<kLdh>(qf[kk], q_s, r0, kk, lane);
+    }
+    const int k0 = __ldg(lrow + j) * BLK;
+    const int st = j % kStages;
+    const bf16* ks = kv_s + st * 2 * kTileB;
+    const float* ms = m_s + st * BLK;
+    // Causal: a warp whose rows all precede the block sees none of it (its
+    // scores would all be cut, and add exact zeros).
+    if (causal && k0 > q0 + r0 + 15) continue;
     float s[kNK][4];
     zero(s);
 #pragma unroll
-    for (int kk = 0; kk < kKS; ++kk)
-      mma_row<kNK, kLdh>(s, qf[kk], k_s, kk, g, t);
-    float mx[2] = {kNegInf, kNegInf};
+    for (int kk = 0; kk < kKS; ++kk) mma_nt<kLdh>(s, qf[kk], ks, kk, lane);
+    const bool cut = causal && k0 + BLK - 1 > q0 + r0;
 #pragma unroll
     for (int n = 0; n < kNK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * t + (e & 1);
-        const float x = masked(s[n][e] * scale, mk, row[e >> 1], key);
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        const int c = 8 * n + 2 * t + (e & 1);  // key within the block
+        const float kpm_v = mk.kpm != nullptr ? ms[c] : 0.f;
+        float bv = 0.f;
+        s[n][e] = pair_score(s[n][e], scale, kpm_v, mk, row[e >> 1], k0 + c,
+                             cut, bv);
       }
-    float alpha[2], m_safe[2];
+    float alpha[2], rs[2];
+    softmax_step(s, m, alpha, rs);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_safe[r] = fmaxf(m_new, kHalfNegInf);
-      alpha[r] = expf(m[r] - m_safe[r]);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
 #pragma unroll
     for (int n = 0; n < kNT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
 #pragma unroll
-    for (int n = 0; n < kNK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m_safe[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
     for (int jj = 0; jj < BLK / 16; ++jj) {
       uint32_t hi[4], lo[4];
-      frag_from_acc(s[2 * jj], s[2 * jj + 1], hi, lo);
-      mma_row<kNT, kLdT>(acc, hi, vt_s, jj, g, t);
-      mma_row<kNT, kLdT>(acc, lo, vt_s, jj, g, t);
+      frag_from_acc_t(s[2 * jj], s[2 * jj + 1], hi, lo);
+      mma_nn2<kLdh>(acc, hi, lo, ks + kTileB, jj, lane);
     }
   }
+  cp_async_wait<0>();  // a row with no listed block leaves Q in flight
+  fwd_epilogue(o + bh * T * kD, lse + bh * T, acc, m, l, row[0], t);
+}
 
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float lv = fmaxf(l[r], 1e-30f);
-    inv[r] = 1.f / lv;
-    if (t == 0) lse[bh * T + row[r]] = fmaxf(m[r], kHalfNegInf) + logf(lv);
+// ------------------------------------- K7a for bf16 at block 64 on wgmma
+// fwd_wgmma_kernel: one CTA per item of the layout's forward schedule
+// (kernels.py `build_fwd_schedule`: h, query block a, query block b or -1,
+// count; the two blocks' LUT rows are equal) and batch row, 384 threads:
+//   - warpgroup 0 is the producer: it gives up its registers (setmaxnreg
+//     24) and one thread keeps a ring of kWgStages K/V tiles in flight by
+//     TMA, 128-byte swizzled (the tensor maps are built in the C entry
+//     point), with each key block's 64 key-padding entries copied beside
+//     them (cp.async.bulk); completion goes through mbarriers (full: the
+//     bytes landed; empty: every consumer warp is done with the stage);
+//   - warpgroups 1 and 2 are the consumers (setmaxnreg 240), 64 query rows
+//     each (blocks a and b; an unpaired item runs one). They share every
+//     K/V tile, so a pair reads the layout's tiles once for 128 rows;
+//   - S = Q K^T is wgmma.m64n64k16 with Q and K both K-major swizzled
+//     tiles in shared memory; O += P V takes P from registers (hi + lo
+//     bf16, the accumulator layout of S is the left-operand layout) and V
+//     as a transposed (MN-major) swizzled B: no tile is staged transposed;
+//   - per tile j, S_j's product is issued, then P_{j-1} V_{j-1}; the
+//     warpgroup waits for S_j alone (wait_group 1), runs the masks and the
+//     online softmax step, waits for P_{j-1} V_{j-1}, rescales O, releases
+//     tile j - 1's stage and splits P_j. (The compiler schedules that
+//     second wait ahead of the softmax's exponentials; forcing it after
+//     them, by a branch on their sum, timed slower.)
+//   - the two consumers take turns issuing their products (named barriers
+//     1 and 2), so one warpgroup's softmax runs while the other's products
+//     hold the tensor cores.
+// The softmax (FP32, ALU and ex2 work at two consumer warps per SM
+// sub-partition) bounds it, not the products: a clock64 phase profile and
+// timing-only cuts put most of each tile's time in the masks and the
+// softmax (PERF.md).
+constexpr int kWgThreads = 128;                // a warpgroup
+constexpr int kWgStages = 8;                   // the TMA ring
+constexpr int kSwTile = 64 * kD;               // a 64 x 64 bf16 tile
+constexpr uint32_t kSwTileBytes = kSwTile * 2;  // 8 KB, 128-byte rows
+constexpr int kFwdItemCols = 4;  // a schedule item: h, a, b or -1, count
+
+// Shared memory: 1 KB of slack to align the swizzled tiles at 1024 bytes,
+// two Q tiles, the K and V stages, the mask stages and the barriers (full
+// and empty per stage, one for Q). At 8 stages a CTA takes 147 KB, so one
+// CTA runs on an SM: the consumers' setmaxnreg then always finds the
+// registers the producer gave up.
+constexpr size_t fwd_wgmma_smem() {
+  return 1024 + (2 + 2 * kWgStages) * kSwTileBytes +
+         kWgStages * 64 * sizeof(float) +
+         (2 * kWgStages + 1) * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive, and expect `bytes` more from asynchronous copies in this phase.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
-  store_rows(o + bh * T * kD, acc, row[0], inv[0], inv[1], t);
+}
+
+// The 64 x 64 tile of rows [row, row + 64) of (b, h) = plane bh from a
+// [B * H, T, 64] tensor map into dst (1024-byte aligned), completing on bar.
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
+                                         int row, int bh, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(bh),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The wgmma descriptor of a 128-byte-swizzled bf16 tile whose 128-byte
+// rows start at smem address addr (a 1024-byte-aligned tile plus a step's
+// offset): 8-row groups 1024 bytes apart (the stride offset). The leading
+// offset is not read at these widths: a K-major operand's 16-deep step and
+// a 64-wide MN-major one each lie within one swizzled row. A K-major
+// operand steps 16 deep by adding 32 bytes (2 in the address field); the
+// MN-major V steps 16 keys by adding 16 rows (2048 bytes, 128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The accumulators are written asynchronously: keep the compiler from
+// moving their reads or writes across a wgmma wait.
+__device__ __forceinline__ void fence_acc(float (&d)[kNT][4]) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+#define DS_WGMMA_D                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define DS_WGMMA_OUT(d)                                                      \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),                \
+      "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),            \
+      "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),            \
+      "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),            \
+      "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),            \
+      "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),            \
+      "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),            \
+      "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+
+// d (= or +=, by `accumulate`) A B for a 64 x 16 A and a 16 x 64 B, both
+// K-major tiles in shared memory. Thread (warp w, g, t) of the warpgroup
+// holds rows 16 w + g and 16 w + g + 8 of d in mma.sync's layout: d[n][e]
+// is column 8 n + 2 t + (e & 1) of row g + 8 (e >> 1).
+__device__ __forceinline__ void wgmma_ss(float (&d)[kNT][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_WGMMA_D
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DS_WGMMA_OUT(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for A from registers (mma.sync's left-operand layout, rows 16 w
+// .. 16 w + 15 in warp w) and an MN-major (transposed) B in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[kNT][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_WGMMA_D
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DS_WGMMA_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef DS_WGMMA_D
+#undef DS_WGMMA_OUT
+
+// O += (P hi + P lo) V over the tile's 64 keys, V MN-major at v_tile.
+__device__ __forceinline__ void wgmma_pv(float (&acc)[kNT][4],
+                                         const uint32_t (&p_hi)[kKS][4],
+                                         const uint32_t (&p_lo)[kKS][4],
+                                         const bf16* v_tile) {
+  const uint64_t vd = sw128_desc(smem_u32(v_tile));
+#pragma unroll
+  for (int kk = 0; kk < kKS; ++kk) {
+    wgmma_rs(acc, p_hi[kk], vd + 128 * kk);
+    wgmma_rs(acc, p_lo[kk], vd + 128 * kk);
+  }
+  wgmma_commit();
+}
+
+// Named barriers 1 and 2 (0 is __syncthreads): a consumer waits for its
+// turn on its own barrier and hands the turn over on the other's, each
+// barrier counting both consumers' 256 threads.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const int* __restrict__ lut, int deg,
+                     const int* __restrict__ sched,
+                     const float* __restrict__ kpm,
+                     const float* __restrict__ bias, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int T, float scale,
+                     int causal, int kpm_mul, int bias_mul) {
+  extern __shared__ unsigned char smem_wg[];
+  const uint32_t raw = smem_u32(smem_wg);
+  bf16* q_s = reinterpret_cast<bf16*>(smem_wg +
+                                      (((raw + 1023u) & ~1023u) - raw));
+  bf16* k_s = q_s + 2 * kSwTile;         // stages: K
+  bf16* v_s = k_s + kWgStages * kSwTile;  // stages: V
+  float* kpm_s = reinterpret_cast<float*>(v_s + kWgStages * kSwTile);
+  uint64_t* full = reinterpret_cast<uint64_t*>(kpm_s + kWgStages * 64);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* q_bar = empty + kWgStages;
+
+  const int* item = sched + (size_t)blockIdx.x * kFwdItemCols;
+  const int h = item[0], qa = item[1], qb = item[2], count = item[3];
+  const int b = blockIdx.y;
+  const int n_cons = qb >= 0 ? 2 : 1;
+  const int bh = b * H + h;
+  const int* lrow = lut + ((size_t)h * (T / 64) + qa) * deg;
+  const Masks mk = make_masks(kpm, bias, b, bh, T, causal, kpm_mul, bias_mul);
+  const int wg = threadIdx.x / kWgThreads;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4 * n_cons);  // every consumer warp
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0 && count > 0) {
+      mbar_arrive_tx(q_bar, n_cons * kSwTileBytes);
+      tma_tile(q_s, &q_map, qa * 64, bh, q_bar);
+      if (qb >= 0) tma_tile(q_s + kSwTile, &q_map, qb * 64, bh, q_bar);
+      const uint32_t kpm_bytes = mk.kpm != nullptr ? 64 * sizeof(float) : 0;
+      for (int j = 0; j < count; ++j) {
+        const int st = j % kWgStages;
+        // Tile j - kWgStages, the stage's last, is released.
+        if (j >= kWgStages) mbar_wait(empty + st, (j / kWgStages - 1) & 1);
+        const int k0 = __ldg(lrow + j) * 64;
+        mbar_arrive_tx(full + st, 2 * kSwTileBytes + kpm_bytes);
+        tma_tile(k_s + st * kSwTile, &k_map, k0, bh, full + st);
+        tma_tile(v_s + st * kSwTile, &v_map, k0, bh, full + st);
+        if (kpm_bytes)
+          bulk_copy(kpm_s + st * 64, mk.kpm + k0, kpm_bytes, full + st);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int c = wg - 1;  // the consumer: query block a or b
+  if (c >= n_cons) return;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = (c == 0 ? qa : qb) * 64, r0 = 16 * warp;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const uint64_t q_desc = sw128_desc(smem_u32(q_s + c * kSwTile));
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kNT][4], s[kNT][4];
+  uint32_t p_hi[kKS][4], p_lo[kKS][4];  // P of the tile before
+  zero(acc);
+  // S of tile j (key block k0), waited for: the masks and the softmax
+  // step; alpha and the partial row sums rs for O and l, which the caller
+  // rescales.
+  auto scores = [&](int j, int k0, float (&alpha)[2], float (&rs)[2]) {
+    const float* ms = kpm_s + (j % kWgStages) * 64;
+    const bool cut = causal && k0 + 63 > q0 + r0;
+    if (mk.bias == nullptr && !mk.kpm_mul && !cut) {
+      // The sparse BERT path's case, one FMA a score: s * scale + kpm.
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const float2 kv =
+            mk.kpm != nullptr
+                ? *reinterpret_cast<const float2*>(ms + 8 * n + 2 * t)
+                : make_float2(0.f, 0.f);
+        s[n][0] = fmaf(s[n][0], scale, kv.x);
+        s[n][1] = fmaf(s[n][1], scale, kv.y);
+        s[n][2] = fmaf(s[n][2], scale, kv.x);
+        s[n][3] = fmaf(s[n][3], scale, kv.y);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kc = 8 * n + 2 * t + (e & 1);  // key within the block
+          const float kpm_v = mk.kpm != nullptr ? ms[kc] : 0.f;
+          float bv = 0.f;
+          s[n][e] = pair_score(s[n][e], scale, kpm_v, mk, row[e >> 1],
+                               k0 + kc, cut, bv);
+        }
+    }
+    softmax_step(s, m, alpha, rs);
+  };
+  // S_j = Q K_j^T into s, issued after tile j's bytes landed.
+  auto issue_s = [&](int j) {
+    const int st = j % kWgStages;
+    mbar_wait(full + st, (j / kWgStages) & 1);
+    const uint64_t k_desc = sw128_desc(smem_u32(k_s + st * kSwTile));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk)
+      wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    wgmma_commit();
+  };
+  // l and O rescaled by alpha and tile j's P split hi/lo (O is settled).
+  auto fold = [&](const float (&alpha)[2], const float (&rs)[2]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    // Once the rows' maxima settle, alpha is 1 for the whole warp.
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kKS; ++kk)
+      frag_from_acc_t(s[2 * kk], s[2 * kk + 1], p_hi[kk], p_lo[kk]);
+  };
+  // Turns: consumer 0 issues first; each hands the turn over after its
+  // issue, consumer 1 not after its last (consumer 0 waits for no more).
+  const bool turns = n_cons == 2;
+  auto take_turn = [&]() {
+    if (turns) bar_sync(1 + c);
+  };
+  auto pass_turn = [&](int j) {
+    if (turns && !(c == 1 && j == count - 1)) bar_arrive(2 - c);
+  };
+
+  if (count > 0) {
+    if (turns && c == 1) bar_arrive(1);
+    mbar_wait(q_bar, 0);
+    float alpha[2], rs[2];
+    int k0 = __ldg(lrow) * 64;  // each tile's key block, read before its S
+    take_turn();
+    issue_s(0);
+    pass_turn(0);
+    wgmma_wait<0>();
+    fence_acc(s);
+    scores(0, k0, alpha, rs);
+    fold(alpha, rs);
+    // Tile j's S and tile j - 1's P V are issued together. No wgmma is
+    // issued under a branch, so no accumulator is copied while in flight.
+    for (int j = 1; j < count; ++j) {
+      k0 = __ldg(lrow + j) * 64;
+      take_turn();
+      issue_s(j);
+      wgmma_pv(acc, p_hi, p_lo, v_s + ((j - 1) % kWgStages) * kSwTile);
+      pass_turn(j);
+      wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may still run
+      fence_acc(s);
+      scores(j, k0, alpha, rs);
+      wgmma_wait<0>();  // P_{j-1} V_{j-1} is done: O is settled
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + (j - 1) % kWgStages);
+      fold(alpha, rs);
+    }
+    wgmma_fence();
+    wgmma_pv(acc, p_hi, p_lo, v_s + ((count - 1) % kWgStages) * kSwTile);
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+  fwd_epilogue(o + (size_t)bh * T * kD, lse + (size_t)bh * T, acc, m, l,
+               row[0], t);
 }
 
 // ----------------------------- K7b for bf16 on the tensor cores, for Hopper
@@ -378,41 +824,7 @@ __global__ void __launch_bounds__(2 * BLK)
 // threads); the causal cut is tested only by a warp whose rows cross the
 // diagonal.
 
-constexpr int kStages = 2;     // the cp.async ring
 constexpr int kSchedCols = 3;  // a schedule item: h, key block, count
-
-// The number of listed blocks in a LUT row of deg entries (build_luts pads
-// each row with -1 at its end), counted by the whole CTA; every thread
-// gets it.
-__device__ __forceinline__ int row_count(const int* __restrict__ lrow,
-                                         int deg) {
-  int count = 0;
-  for (int e0 = 0; e0 < deg; e0 += blockDim.x) {
-    const int e = e0 + threadIdx.x;
-    count += __syncthreads_count(e < deg && __ldg(lrow + e) >= 0);
-  }
-  return count;
-}
-
-// BLK rows from row0 of a contiguous [*, 64] bf16 matrix into shared memory
-// (row stride kLdh) by cp.async, 16 bytes a thread.
-template <int BLK>
-__device__ __forceinline__ void async_rows(bf16* dst, const bf16* src,
-                                           int row0) {
-  for (int e = threadIdx.x; e < BLK * (kD / 8); e += 2 * BLK) {
-    const int r = e / (kD / 8), c = (e % (kD / 8)) * 8;
-    cp_async16(dst + r * kLdh + c, src + (size_t)(row0 + r) * kD + c, true);
-  }
-}
-
-// Entries [row0, row0 + BLK) of an fp32 vector into shared memory by the
-// threads [tid0, tid0 + BLK).
-template <int BLK>
-__device__ __forceinline__ void async_vec(float* dst, const float* src,
-                                          int row0, int tid0) {
-  const int i = threadIdx.x - tid0;
-  if (i >= 0 && i < BLK) cp_async4(dst + i, src + row0 + i, true);
-}
 
 // K7b's dk/dv kernel: one CTA per schedule item (h, key block kb, and the
 // count of query blocks kb's transposed LUT row lists) and batch row; a
@@ -1066,23 +1478,84 @@ struct Args {
   cudaStream_t st;
 };
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (so the
+// library links against nothing beyond the runtime); null when the driver
+// has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous [BH, T, 64] bf16 tensor as a TMA map of 64 x 64 tiles,
+// 128-byte swizzled (the layout fwd_wgmma_kernel's descriptors read).
+bool tile_map(CUtensorMap* map, const void* base, int BH, int T) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {kD * sizeof(bf16),
+                                 (cuuint64_t)T * kD * sizeof(bf16)};
+  const cuuint32_t box[3] = {(cuuint32_t)kD, 64, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int BLK>
 int run_fwd(const Args& a) {
-  const dim3 grid(a.T / BLK, a.H, a.B);
-  const size_t lut = a.deg * sizeof(int);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  if constexpr (std::is_same<T, bf16>::value) {
-    return launch(fwd_mma_kernel<BLK>, 2 * BLK, lut, grid, a.st, q, k, v,
-                  a.lut, a.deg, a.kpm, a.bias, static_cast<T*>(a.o),
+  const dim3 grid(a.T / BLK, a.H, a.B);
+  if constexpr (std::is_same<T, bf16>::value && BLK == 64) {
+    CUtensorMap q_map, k_map, v_map;
+    if (a.sched == nullptr || a.n_items < 1 ||
+        (size_t)a.B * a.H > 0x7fffffff ||
+        !tile_map(&q_map, q, a.B * a.H, a.T) ||
+        !tile_map(&k_map, k, a.B * a.H, a.T) ||
+        !tile_map(&v_map, v, a.B * a.H, a.T))
+      return (int)cudaErrorInvalidValue;
+    return launch(fwd_wgmma_kernel, 3 * kWgThreads, fwd_wgmma_smem(),
+                  dim3(a.n_items, a.B), a.st, q_map, k_map, v_map, a.lut,
+                  a.deg, a.sched, a.kpm, a.bias, static_cast<T*>(a.o),
                   a.lse_out, a.H, a.T, a.scale, a.causal, a.kpm_mul,
                   a.bias_mul);
-  } else {
-    return launch(fwd_kernel<T, BLK>, kThreadsF, fma_smem<BLK>(4, 0) + lut,
-                  grid, a.st, q, k, v, a.lut, a.deg, a.kpm, a.bias,
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    return launch(fwd_async_kernel<BLK>, 2 * BLK, fwd_async_smem<BLK>(), grid,
+                  a.st, q, k, v, a.lut, a.deg, a.kpm, a.bias,
                   static_cast<T*>(a.o), a.lse_out, a.H, a.T, a.scale,
                   a.causal, a.kpm_mul, a.bias_mul);
+  } else {
+    return launch(fwd_kernel<T, BLK>, kThreadsF,
+                  fma_smem<BLK>(4, 0) + a.deg * sizeof(int), grid, a.st, q, k,
+                  v, a.lut, a.deg, a.kpm, a.bias, static_cast<T*>(a.o),
+                  a.lse_out, a.H, a.T, a.scale, a.causal, a.kpm_mul,
+                  a.bias_mul);
   }
 }
 
@@ -1222,9 +1695,13 @@ bool shape_ok(int B, int H, int T, int D, int block, int deg) {
 // launches on `stream` and returns cudaGetLastError() (0 on success); what
 // the kernels do not take returns cudaErrorInvalidValue.
 
-// K7a: o and lse, over the forward LUT.
+// K7a: o and lse, over the forward LUT. bf16 at block 64 walks the forward
+// schedule sched [n_items, 4] int32 (h, query block a, query block b or -1,
+// count; kernels.py `build_fwd_schedule`); the other types and blocks take
+// one CTA per query block and ignore it.
 extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v,
-                             const int* lut, int deg, const float* kpm,
+                             const int* lut, int deg, const int* sched,
+                             int n_items, const float* kpm,
                              const float* bias, void* o, float* lse, int B,
                              int H, int T, int D, int block, int dtype,
                              float scale, int causal, int kpm_mul,
@@ -1232,6 +1709,8 @@ extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v,
   if (!shape_ok(B, H, T, D, block, deg)) return (int)cudaErrorInvalidValue;
   Args a = common_args(q, k, v, lut, deg, kpm, bias, B, H, T, scale, causal,
                        kpm_mul, bias_mul, stream);
+  a.sched = sched;
+  a.n_items = n_items;
   a.o = o;
   a.lse_out = lse;
   return dispatch<FwdOp>(dtype, block, a, 0);

@@ -13,6 +13,10 @@ walk those tables, so only listed blocks are loaded and computed and the
 - ``build_schedule``: the order in which K7b's bf16 dk/dv kernel takes the
   transposed LUT's rows, largest first (the port's own; the TPU walks its
   grid in order and needs none).
+- ``build_fwd_schedule``: K7a's bf16 block-64 items, two query blocks of
+  equal LUT rows each where a head has them, largest first (the port's
+  own: one CTA serves both blocks, so each key tile it reads feeds twice
+  the rows).
 - ``block_sparse_attention_reference``: the JAX package's dense ground truth
   (the layout expanded to an element mask, ordinary softmax attention).
 - ``sparse_fwd_reference`` / ``sparse_bwd_reference``: the kernels' plain
@@ -29,7 +33,7 @@ walk those tables, so only listed blocks are loaded and computed and the
   JAX package's ``_finish_bwd`` does: a zero gradient for the key-padding
   mask, and the bias gradient rebuilt densely one head at a time.
 
-Each lowered layout is cached with its LUTs and schedule on each device, so
+Each lowered layout is cached with its LUTs and schedules on each device, so
 a training step uploads no table.
 """
 
@@ -93,16 +97,44 @@ def build_schedule(bwd_lut):
     return sched[np.argsort(-counts, kind="stable")]
 
 
+def build_fwd_schedule(fwd_lut):
+    """The items of K7a's bf16 block-64 kernel over ``fwd_lut``: an int32
+    ``[n_items, 4]`` array of (h, query block a, query block b or -1,
+    count), one CTA each. Within a head, two query blocks pair only when
+    their LUT rows are equal entry for entry (first with second, third with
+    fourth, in query-block order, among the blocks that share a row); a
+    block left over is an item alone (b = -1). count is the row's listed
+    key blocks. Items are sorted by count, largest first (stable, so ties
+    keep (h, a) order). Every (h, query block) is in exactly one item."""
+    h, nb, _ = fwd_lut.shape
+    counts = (fwd_lut >= 0).sum(-1).astype(np.int32)
+    items = []
+    for hi in range(h):
+        waiting = {}  # row bytes -> the query block waiting for its pair
+        for i in range(nb):
+            key = fwd_lut[hi, i].tobytes()
+            a = waiting.pop(key, None)
+            if a is None:
+                waiting[key] = i
+            else:
+                items.append((hi, a, i, counts[hi, i]))
+        items.extend((hi, a, -1, counts[hi, a]) for a in waiting.values())
+    sched = np.array(sorted(items, key=lambda it: it[:2]),
+                     dtype=np.int32).reshape(-1, 4)
+    return sched[np.argsort(-sched[:, 3], kind="stable")]
+
+
 class LoweredLayout:
     """One layout lowered for the kernels: the layout, its block, the two
-    LUTs and K7b's backward schedule (numpy), and their int32 copies on
-    each device they were used on."""
+    LUTs, K7b's backward schedule and K7a's forward schedule (numpy), and
+    their int32 copies on each device they were used on."""
 
     def __init__(self, layout, block):
         self.layout = np.asarray(layout)
         self.block = int(block)
         self.fwd_lut, self.bwd_lut = build_luts(self.layout)
         self.bwd_schedule = build_schedule(self.bwd_lut)
+        self.fwd_schedule = build_fwd_schedule(self.fwd_lut)
         self._on = {}
 
     @property
@@ -111,13 +143,14 @@ class LoweredLayout:
         return float((self.layout != 0).sum()) / self.layout.size
 
     def luts(self, device):
-        """(fwd_lut, bwd_lut, bwd_schedule) as contiguous int32 tensors on
-        ``device``, uploaded once."""
+        """(fwd_lut, bwd_lut, bwd_schedule, fwd_schedule) as contiguous
+        int32 tensors on ``device``, uploaded once."""
         key = str(device)
         if key not in self._on:
             self._on[key] = tuple(
                 torch.from_numpy(a).to(device)
-                for a in (self.fwd_lut, self.bwd_lut, self.bwd_schedule))
+                for a in (self.fwd_lut, self.bwd_lut, self.bwd_schedule,
+                          self.fwd_schedule))
         return self._on[key]
 
     def element_mask(self, t, device):
@@ -262,7 +295,7 @@ def _kernel(name):
         head = [p, p, p, p, i]
         tail = [i] * 6 + [ctypes.c_float, i, i, i]
         fn.argtypes = {
-            "ds_sparse_fwd": head + [p] * 4 + tail + [p],
+            "ds_sparse_fwd": head + [p, i] + [p] * 4 + tail + [p],
             "ds_sparse_bwd_dkdv": head + [p, i] + [p] * 8 + tail + [i, p],
             "ds_sparse_bwd_dq": head + [p] * 6 + tail + [p],
         }[name]
@@ -323,8 +356,14 @@ def _check(q, k, v, lowered, kpm, bias, extra=()):
         if t.data_ptr() % 16:
             raise ValueError("block-sparse attention: {} must be 16-byte "
                              "aligned".format(name))
-    return tuple(None if t is None else t.float().contiguous()
+    # The forward's block-64 kernel copies 64 mask entries at a time as one
+    # 256-byte bulk copy, which needs a 16-byte-aligned start.
+    return tuple(None if t is None else _aligned(t.float().contiguous())
                  for t in (kpm, bias))
+
+
+def _aligned(t):
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _flags(q, lowered, scale, causal, kpm_mode, bias_mode):
@@ -344,21 +383,22 @@ def sparse_fwd(q, k, v, lowered, scale=None, causal=False, kpm=None,
                kpm_mode="add", bias=None, bias_mode="add"):
     """K7a: (o in q's dtype, lse ``[B, H, T, 1]`` fp32) for a
     ``LoweredLayout``. On CPU tensors the plain version; on CUDA tensors the
-    kernel, or an error for what it does not take (dtype other than
-    fp32/bf16/fp16, D != 64, block not 16/32/64, non-contiguous tensors,
-    mixed devices)."""
+    kernel (bf16 at block 64: one CTA per item of ``fwd_schedule``), or an
+    error for what it does not take (dtype other than fp32/bf16/fp16, D !=
+    64, block not 16/32/64, non-contiguous tensors, mixed devices)."""
     kpm32, bias32 = _check(q, k, v, lowered, kpm, bias)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return sparse_fwd_reference(q, k, v, lowered, scale, causal, kpm,
                                     kpm_mode, bias, bias_mode)
     B, H, T, _ = q.shape
-    lut = lowered.luts(q.device)[0]
+    lut, _, _, sched = lowered.luts(q.device)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, T, 1, dtype=torch.float32, device=q.device)
     err = _kernel("ds_sparse_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
-        lut.shape[2], _ptr(kpm32), _ptr(bias32), o.data_ptr(),
+        lut.shape[2], sched.data_ptr(), sched.shape[0], _ptr(kpm32),
+        _ptr(bias32), o.data_ptr(),
         lse.data_ptr(), *_flags(q, lowered, scale, causal, kpm_mode,
                                 bias_mode), _stream(q))
     _raise_on(err, "forward")
@@ -393,7 +433,7 @@ def sparse_bwd(q, k, v, lowered, lse, delta, do, scale=None, causal=False,
     if mode not in ("fused", "split"):
         raise ValueError("block-sparse attention: mode must be 'fused' or "
                          "'split', got {!r}".format(mode))
-    fwd_lut, bwd_lut, sched = lowered.luts(q.device)
+    fwd_lut, bwd_lut, sched, _ = lowered.luts(q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr())

@@ -690,14 +690,18 @@ SPARSE_ACC = 2.0 ** -12
 
 
 def _sparse_layout(block, T, H, kind, seed=0):
-    """A Fixed layout, or a random one with some query blocks (rows) and key
-    blocks (columns) empty, so both LUTs hold -1 entries."""
+    """A Fixed layout (bidirectional, or unidirectional for 'fixeduni'), or
+    a random one with some query blocks (rows) and key blocks (columns)
+    empty, so both LUTs hold -1 entries."""
     nb = T // block
-    if kind == "fixed":
+    if kind in ("fixed", "mixed", "fixeduni"):
         from deepspeed_tpu_torch.ops.sparse_attention import (
             FixedSparsityConfig)
+        attention = "unidirectional" if kind == "fixeduni" else \
+            "bidirectional"
         return FixedSparsityConfig(num_heads=H, block=block,
-                                   num_local_blocks=2).make_layout(T)
+                                   num_local_blocks=2,
+                                   attention=attention).make_layout(T)
     rng = np.random.RandomState(seed)
     layout = (rng.rand(H, nb, nb) < 0.4).astype(np.int64)
     layout[:, 1] = 0
@@ -710,18 +714,30 @@ def _sparse_layout(block, T, H, kind, seed=0):
                                                         "fp16"])
 @pytest.mark.parametrize("block", [16, 32, 64])
 @pytest.mark.parametrize("case", ["fixed_kpm_add", "random_causal",
-                                  "random_mul_bias"])
+                                  "random_mul_bias", "mixed_kpm_add",
+                                  "fixeduni_causal"])
 @pytest.mark.parametrize("mode", ["fused", "split"])
 def test_sparse_kernels_match_plain(cuda, dtype, block, case, mode):
-    B, H, T = 2, 2, 256
+    # At block 64 bf16, K7a runs over the forward schedule (items counted
+    # over both heads): 'fixed' is all pairs of query blocks, 'fixeduni'
+    # all single blocks, 'random' one pair of equal rows and five single
+    # blocks, and 'mixed' (5 query blocks: Fixed windows of 2, the last cut
+    # short) two pairs and a single block per head, in one launch.
+    B, H = 2, 2
+    T = 320 if case.startswith("mixed") else 256
     g = torch.Generator(device=cuda)
     g.manual_seed(block)
     q, k, v, do = (torch.randn(B, H, T, 64, device=cuda, generator=g)
                    .to(dtype) for _ in range(4))
     lowered = sk.lower(_sparse_layout(block, T, H, case.split("_")[0],
                                       seed=block), block)
-    kw = dict(causal=case == "random_causal")
-    if case == "fixed_kpm_add":
+    if block == 64 and dtype == torch.bfloat16:
+        paired = (lowered.fwd_schedule[:, 2] >= 0).sum()
+        assert (paired, len(lowered.fwd_schedule)) == {
+            "fixed": (4, 4), "random": (1, 7), "mixed": (4, 6),
+            "fixeduni": (0, 8)}[case.split("_")[0]]
+    kw = dict(causal=case.endswith("_causal"))
+    if case.endswith("_kpm_add"):
         kpm = torch.zeros(B, T, device=cuda)
         kpm[1, T // 2 + 5:] = -1e9
         kw.update(kpm=kpm)
@@ -749,7 +765,7 @@ def test_sparse_kernels_match_plain(cuda, dtype, block, case, mode):
         diff = (got.float() - ref.float()).abs()
         assert bool((diff <= rtol * ref.float().abs() + SPARSE_ACC * mag
                      + 1e-30).all())
-    if case != "fixed_kpm_add":  # rows of the empty query block
+    if case.startswith("random"):  # rows of the empty query block
         rows = slice(block, 2 * block)
         assert bool((o[:, :, rows] == 0).all())
 
@@ -808,6 +824,28 @@ def test_sparse_backward_over_the_degree_schedule(cuda, case, block, T,
         diff = (got.float() - ref.float()).abs()
         assert bool((diff <= rtol * ref.float().abs() + SPARSE_ACC * mag
                      + 1e-30).all())
+
+
+def test_sparse_forward_takes_an_unaligned_padding_mask(cuda):
+    """K7a's block-64 kernel copies the key-padding mask 256 bytes at a
+    time, which needs a 16-byte-aligned start: the wrapper copies a mask
+    that starts elsewhere, and the result is the aligned mask's."""
+    B, H, T, block = 2, 2, 512, 64
+    g = torch.Generator(device=cuda)
+    g.manual_seed(11)
+    q, k, v = (torch.randn(B, H, T, 64, device=cuda, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    lowered = sk.lower(_sparse_layout(block, T, H, "fixed"), block)
+    kpm = torch.zeros(B, T, device=cuda)
+    kpm[1, 300:] = -1e9
+    flat = torch.empty(B * T + 1, device=cuda)
+    unaligned = flat[1:].view(B, T)
+    unaligned.copy_(kpm)
+    assert unaligned.data_ptr() % 16 != 0 and unaligned.is_contiguous()
+    o, lse = sk.sparse_fwd(q, k, v, lowered, kpm=kpm)
+    o2, lse2 = sk.sparse_fwd(q, k, v, lowered, kpm=unaligned)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_sparse_attention_grads_match_autograd_fp32(cuda):

@@ -311,6 +311,146 @@ def test_backward_schedule_covers_each_listed_pair_once(kind, block):
         assert (counts == 0).any()  # the empty key block's item
 
 
+def _fwd_schedule_layout(kind, block):
+    """The layouts the forward schedule is tested on, 16 query blocks (the
+    path's Fixed layout: 64 at T = 4096): Fixed (windows of 4 equal rows),
+    Fixed-uni (no two rows equal), random (with an empty query block),
+    BigBird with two global blocks (a pair of equal global rows beside
+    single sliding-window rows) and Fixed with a different global pattern
+    per head."""
+    seq = 16 * block
+    if kind == "fixed_path":
+        return T.FixedSparsityConfig(num_heads=16, block=block).make_layout(
+            4096)
+    if kind == "fixed":
+        return T.FixedSparsityConfig(num_heads=4, block=block).make_layout(
+            seq)
+    if kind == "fixed_uni":
+        return T.FixedSparsityConfig(
+            num_heads=4, block=block,
+            attention="unidirectional").make_layout(seq)
+    if kind == "bigbird":
+        return T.BigBirdSparsityConfig(
+            num_heads=4, block=block, num_global_blocks=2,
+            num_random_blocks=1, seed=5).make_layout(seq)
+    if kind == "per_head":
+        return T.FixedSparsityConfig(
+            num_heads=4, block=block, num_local_blocks=4,
+            different_layout_per_head=True,
+            num_different_global_patterns=4).make_layout(seq)
+    rng = np.random.RandomState(block)
+    layout = (rng.rand(4, 16, 16) < 0.3).astype(np.int64)
+    layout[:, 5] = 0
+    return layout
+
+
+FWD_SCHEDULE_KINDS = ("fixed", "fixed_uni", "random", "bigbird", "per_head")
+
+
+@pytest.mark.parametrize("kind,block", [("fixed_path", 64)] + [
+    (kind, block) for kind in FWD_SCHEDULE_KINDS for block in (16, 32, 64)])
+def test_forward_schedule_pairs_equal_rows_once_each(kind, block):
+    """K7a's block-64 schedule: every (h, query block) in exactly one item;
+    a pair only of two query blocks of one head whose LUT rows are equal;
+    count the row's listed key blocks; counts largest first; the same
+    schedule from the same LUT; every item a pair on the sparse BERT
+    path's Fixed layout."""
+    layout = _fwd_schedule_layout(kind, block)
+    lut = TK.build_luts(layout)[0]
+    sched = TK.build_fwd_schedule(lut)
+    np.testing.assert_array_equal(sched, TK.build_fwd_schedule(lut.copy()))
+    np.testing.assert_array_equal(sched, TK.lower(layout, block)
+                                  .fwd_schedule)
+    assert sched.dtype == np.int32 and sched.shape[1] == 4
+    assert (np.diff(sched[:, 3]) <= 0).all()
+    heads, nb = lut.shape[:2]
+    seen = np.zeros((heads, nb), dtype=np.int64)
+    for h, a, b, count in sched:
+        assert count == (lut[h, a] >= 0).sum()
+        assert (lut[h, a, :count] >= 0).all() and (lut[h, a, count:] < 0).all()
+        seen[h, a] += 1
+        if b >= 0:
+            assert b != a
+            np.testing.assert_array_equal(lut[h, a], lut[h, b])
+            seen[h, b] += 1
+    np.testing.assert_array_equal(seen, np.ones((heads, nb), np.int64))
+    paired = int((sched[:, 2] >= 0).sum())
+    if kind in ("fixed_path", "fixed", "per_head"):
+        assert paired == len(sched) == heads * nb // 2
+    if kind == "fixed_uni":
+        assert paired == 0
+    if kind == "bigbird":
+        assert 0 < paired < len(sched)
+
+
+def _fwd_by_schedule(q, k, v, lowered, causal, kpm):
+    """The forward walked as K7a's block-64 kernel walks it: per schedule
+    item, for each of its query blocks, the first query block's LUT row up
+    to the item's count, an online softmax over the listed key blocks (m
+    from NEG_INF, shifted by max(m, NEG_INF / 2), l clamped at 1e-30), o =
+    acc / l and lse = max(m, NEG_INF / 2) + log l."""
+    _, _, t, d = q.shape
+    blk = lowered.block
+    scale = d ** -0.5
+    neg = torch.tensor(TK.NEG_INF)
+    o = torch.full_like(q, float("nan"))
+    lse = torch.full(q.shape[:3] + (1,), float("nan"))
+    for h, a, b, count in lowered.fwd_schedule.tolist():
+        keys = lowered.fwd_lut[h, a, :count].tolist()
+        for qb in [a] + ([b] if b >= 0 else []):
+            rows = torch.arange(qb * blk, (qb + 1) * blk)
+            m = torch.full((q.shape[0], blk), TK.NEG_INF)
+            l = torch.zeros(q.shape[0], blk)
+            acc = torch.zeros(q.shape[0], blk, d)
+            for kb in keys:
+                cols = torch.arange(kb * blk, (kb + 1) * blk)
+                s = q[:, h, rows] @ k[:, h, cols].transpose(-1, -2) * scale
+                if kpm is not None:
+                    s = s + kpm[:, None, cols]
+                if causal:
+                    s = torch.where(cols[None] > rows[:, None], neg, s)
+                m_new = torch.maximum(m, s.amax(-1))
+                shift = torch.clamp(m_new, min=0.5 * TK.NEG_INF)
+                alpha = torch.exp(m - shift)
+                p = torch.exp(s - shift[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + p @ v[:, h, cols]
+                m = m_new
+            lv = torch.clamp(l, min=1e-30)
+            o[:, h, rows] = acc / lv[..., None]
+            lse[:, h, rows, 0] = torch.clamp(m, min=0.5 * TK.NEG_INF) + \
+                torch.log(lv)
+    return o, lse
+
+
+@pytest.mark.parametrize("kind,causal", [("fixed", False), ("bigbird", False),
+                                         ("per_head", False),
+                                         ("fixed_uni", True),
+                                         ("random", False)])
+def test_forward_over_the_schedule_matches_reference_and_jax(kind, causal):
+    """The plain forward taken item by item over the block-64 schedule
+    (pairs and single blocks, an empty query block, a key-padding mask)
+    against ``sparse_fwd_reference`` and the JAX kernel in interpret mode,
+    within 1e-5 of max-abs in fp32."""
+    block = 64
+    layout = _fwd_schedule_layout(kind, block)[:, :8, :8]
+    seq = 8 * block
+    q, k, v = _qkv(b=2, h=4, t=seq, seed=7)
+    kpm = np.zeros((2, seq), np.float32)
+    kpm[1, 300:] = -1e9
+    tq, tk, tv, tkpm = map(torch.from_numpy, (q, k, v, kpm))
+    lowered = TK.lower(layout, block)
+    o, lse = _fwd_by_schedule(tq, tk, tv, lowered, causal, tkpm)
+    ro, rlse = TK.sparse_fwd_reference(tq, tk, tv, lowered, causal=causal,
+                                       kpm=tkpm)
+    _close(o.numpy(), ro.numpy(), FWD_TOL)
+    _close(lse.numpy(), rlse.numpy(), FWD_TOL)
+    want = J.block_sparse_attention(*map(jnp.asarray, (q, k, v)), layout,
+                                    block, causal=causal,
+                                    key_padding_mask=jnp.asarray(kpm))
+    _close(o.numpy(), want, FWD_TOL)
+
+
 def test_wrappers_check_shapes_and_count_only_kernel_launches():
     layout = _config(T, "Fixed").make_layout(64)
     q, k, v = map(torch.from_numpy, _qkv())
