@@ -25,8 +25,11 @@ of which exits non-zero on failure:
    shuffled block table whose unmapped logical pages point at a trash page,
    with garbage in the trash page, in unmapped pages and past every
    frontier (int8: TOL plus the score shift set out there), K5 and K6 also
-   at pages of ODD_PAGE_LEN, which do not divide the split; K5 must equal
-   K3 on the gathered plane, and K6 K4, bit for bit; times each kernel and
+   at pages of ODD_PAGE_LEN, which do not divide the split, and at the
+   dense pools' prefill lane as the engine builds it (slot_cache_view of a
+   pool of SERVE's slots, every slot's plane filled: one page of PLANE
+   positions per slot and the table [[LANE_SLOT]]); K5 must equal K3 on the
+   gathered plane, and K6 K4, bit for bit; times each kernel and
    its plain version beside the bound (no single PyTorch call computes
    paged or int8 decode attention: library_ms is null);
    then the decode-kernel stress: K3, K4, K5 and K6 at the bf16 decode case
@@ -39,14 +42,23 @@ of which exits non-zero on failure:
    POISON_CONCURRENT repeats beside K3 launches on a second stream;
 4. serving at full width: GPT-2 medium, bf16, seeded weights, through
    init_inference; 24 requests of 64/256 prompt tokens and 96 new tokens;
-   each serving path's kernel launch counts are reset just before it and
-   read just after, and its kernel's count must equal n_layer x (decode
-   steps + prefill lanes) as the engine counted them, the other decode
-   kernels' 0. Paths: the dense pool (K3); the slice's main path, the
-   paged int8 pool at 128-position pages (K6; every page returned after
-   the run); then two arms of 4 requests: paged alone (K5) and int8 alone
-   (K4). The dense and the paged int8 runs are each followed by a profiler
-   window;
+   each step is its key's program (prefill lane present, any row samples,
+   any row filters top-k), captured as a CUDA graph at the key's first
+   step and replayed at every later one; each serving path's kernel launch
+   counts are reset just before it and read just after (replays add the
+   launches their graph holds), and must equal n_layer x decode steps for
+   the decode lane's kernel plus n_layer x prefill lanes for the prefill
+   lane's (which reaches its slot through a one-row block table: the paged
+   kernels), the other decode kernels' 0; compile_count (one graph per
+   key met) must be at most 8 and graph_replays the steps less
+   compile_count. Paths: the dense pool (K3; its prefill lane
+   K5); the slice's main path, the paged int8 pool at 128-position pages
+   (K6; every page returned after the run); then two arms of 4 requests:
+   paged alone (K5) and int8 alone (K4; its prefill lane K6). The dense
+   and the paged int8 runs are each followed by a profiler window; then a
+   graph-served engine against the same step program run eagerly, dense
+   and paged int8: every step's harvest and the pool after
+   GRAPH_CHECK_STEPS steps, bit for bit;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
@@ -142,8 +154,11 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deepspeed_tpu_torch import init_inference, initialize  # noqa: E402
+from deepspeed_tpu_torch.inference import InferenceEngine  # noqa: E402
+from deepspeed_tpu_torch.inference.kv_hierarchy import (  # noqa: E402
+    HierarchySpec)
 from deepspeed_tpu_torch.inference.kv_pool import (  # noqa: E402
-    paged_plane_len, plane_len_for)
+    init_pool, paged_plane_len, plane_len_for, slot_cache_view)
 from deepspeed_tpu_torch.models import (  # noqa: E402
     BertConfig, BertForPreTraining, GPT2Config, GPT2LMHeadModel)
 from deepspeed_tpu_torch.models import generation  # noqa: E402
@@ -344,13 +359,21 @@ PAGE_LEN = 128
 PAGED = {"paged_kv": True, "kv_page_len": PAGE_LEN}
 PAGED_PLANE = paged_plane_len(SERVE["max_len"], SERVE["prefill_chunk"],
                               PAGE_LEN)
-# Serving paths: (line label, config beyond SERVE, the decode kernel that
-# serves it (a key of decode_attention.launches), requests, profiled).
-SERVE_PATHS = [("serve", {}, "decode", N_REQUESTS, True),
+# Serving paths: (line label, config beyond SERVE, the kernel of its decode
+# lane, the kernel of its prefill lane (keys of decode_attention.launches),
+# requests, profiled). The prefill lane reaches its slot through a one-row
+# block table in every layout, so over dense planes it runs the paged
+# kernels (K5 for K3's planes, K6 for K4's).
+SERVE_PATHS = [("serve", {}, "decode", "paged", N_REQUESTS, True),
                ("serve_paged_int8", dict(PAGED, int8_kv=True), "paged_q8",
-                N_REQUESTS, True),
-               ("serve_paged", PAGED, "paged", 4, False),
-               ("serve_int8", {"int8_kv": True}, "q8", 4, False)]
+                "paged_q8", N_REQUESTS, True),
+               ("serve_paged", PAGED, "paged", "paged", 4, False),
+               ("serve_int8", {"int8_kv": True}, "q8", "paged_q8", 4, False)]
+# The step program's keys: (prefill lane present, any row samples, any row
+# filters top-k); an engine captures one CUDA graph per key it meets.
+MAX_PROGRAMS = 8
+# Graph-served against eager: requests and the steps compared.
+GRAPH_CHECK_REQUESTS, GRAPH_CHECK_STEPS = 8, 12
 # Fresh seeds per decode kernel in the stress run (ROADMAP Queue 3).
 STRESS_SEEDS = 200
 # The poison run: K3's one mismatch (phase 3's first case, bf16 decode,
@@ -369,6 +392,9 @@ PREFILL_POS = [0, 31, 32, 500, PLANE - 32, da.SPLIT_KEYS - 1, da.SPLIT_KEYS,
 # A page length that does not divide da.SPLIT_KEYS: pages straddle the
 # splits (phase 3's paged cases at the decode and prefill shapes).
 ODD_PAGE_LEN = 48
+# The dense pools' prefill lane in phase 3: the slot it reaches through
+# slot_cache_view's one-row table (not 0, so a wrong row shows).
+LANE_SLOT = 5
 # The combine kernel against its plain version on the same partials (fp32
 # out): both merge the splits in split order in fp32 and differ in exp's
 # last bits and FMA contraction, a few fp32 ulps of the row's largest term.
@@ -763,6 +789,55 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
             "plain": lambda: plain(q, *ops, pos, scale)}
 
 
+def _lane_variant(kind, frontier, dtype, seed, scale=1.0 / 8.0):
+    """The dense pools' prefill lane as the engine runs it: one layer of a
+    pool of SERVE's slots (``init_pool``; int8 codes and scales for
+    ``kind`` "paged_q8"), every slot's plane filled (garbage past each
+    frontier), viewed by ``slot_cache_view`` at slot LANE_SLOT: the planes
+    as an arena of one PLANE-long page per slot and the table
+    [[LANE_SLOT]]. K5 (K6) there against its plain version, and against K3
+    (K4) on the slot's own plane bit for bit. The ``_variant`` dict."""
+    slots, S = SERVE["max_slots"], SERVE["prefill_chunk"]
+    q8 = kind == "paged_q8"
+    gcfg = generation.as_gencfg(GPT2Config(n_layer=1, n_head=16,
+                                           n_embd=1024, dtype=dtype))
+    pool = init_pool(gcfg, slots, SERVE["max_len"], slack=S, device="cuda",
+                     hier=HierarchySpec(int8=q8))
+    q, k, v, pos = _case(slots, S, [frontier] * slots, dtype, seed)
+    if q8:
+        (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
+        for name, t in (("k", kc), ("v", vc), ("k_scale", ks),
+                        ("v_scale", vs)):
+            pool[name][0].copy_(t)
+    else:
+        pool["k"][0].copy_(k)
+        pool["v"][0].copy_(v)
+    at = slice(LANE_SLOT, LANE_SLOT + 1)
+    q, pos = q[at].contiguous(), pos[at]
+    view = slot_cache_view(pool, torch.tensor([LANE_SLOT], device="cuda"),
+                           pos)
+    names = ("k", "v", "k_scale", "v_scale") if q8 else ("k", "v")
+    arenas = [view[name][0] for name in names]
+    tbl = view["block_tbl"]
+    own = [a[at] for a in arenas]  # the slot's own plane
+    if q8:
+        kernel, plain, dense = (da.flash_decode_attention_paged_q8,
+                                da.decode_attention_paged_q8_reference,
+                                da.flash_decode_attention_q8)
+        kv = (da.dequantize_kv(own[0], own[2]),
+              da.dequantize_kv(own[1], own[3]))
+    else:
+        kernel, plain, dense = (da.flash_decode_attention_paged,
+                                da.decode_attention_paged_reference,
+                                da.flash_decode_attention)
+        kv = own
+    return {"q": q, "pos": pos, "T": PLANE, "kv": kv, "q8": q8,
+            "key_bytes": 2 * 64 + 8 if q8 else 2 * 64 * dtype.itemsize,
+            "extra": 4, "twin": lambda: dense(q, *own, pos, scale),
+            "kernel": lambda: kernel(q, *arenas, tbl, pos, scale),
+            "plain": lambda: plain(q, *arenas, tbl, pos, scale)}
+
+
 def _decode_limit(c, ref, dtype, scale=1.0 / 8.0):
     """Each element's limit: TOL's, plus for K4/K6 the score shift (see
     TOL)."""
@@ -816,8 +891,9 @@ def phase_decode_variants():
     """K4, K5 and K6 against their plain versions at phase 3's cases, K5
     and K6 also against their dense twins bit for bit, K5 and K6 also at
     pages of ODD_PAGE_LEN (the decode case and the prefill lane across a
-    split boundary); times at the decode and the frontier-500 prefill case
-    (pages of PAGE_LEN). Returns {kind: rows}."""
+    split boundary) and at the dense pools' prefill lane (``_lane_variant``,
+    PREFILL_POS); times at the decode and the frontier-500 prefill cases.
+    Returns {kind: rows}."""
     cases = [("decode", 16, 1, DECODE_POS, PAGE_LEN)]
     cases += [("prefill_lane", 1, 32, [p], PAGE_LEN) for p in PREFILL_POS]
     odd = [("decode_pages{}".format(ODD_PAGE_LEN), 16, 1, DECODE_POS,
@@ -847,6 +923,29 @@ def phase_decode_variants():
                         c["q"], c["pos"], c["T"], c["key_bytes"], c["extra"])
                     row["library_ms"] = None
                 rows.setdefault(kind, []).append(row)
+                print(label + " " + json.dumps(row))
+                del c
+        if kind == "q8":
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            for p in PREFILL_POS:
+                c = _lane_variant(kind, p, dtype,
+                                  seed=100 + len(rows[kind]))
+                row = dict(case="dense_prefill_lane_slot{}".format(LANE_SLOT),
+                           B=1, S=SERVE["prefill_chunk"], T=PLANE, pos=[p],
+                           page_len=PLANE, slots=SERVE["max_slots"],
+                           **_decode_check(label, c, dtype, [p]))
+                if not row["ok"]:
+                    print(label + " " + json.dumps(row))
+                    fail("{} disagrees with its plain version or its dense "
+                         "twin at the dense prefill lane {} {}".format(
+                             label, p, dtype))
+                if p == 500:
+                    row["ms"] = cuda_ms(c["kernel"])
+                    row["plain_ms"] = cuda_ms(c["plain"])
+                    row["bound_ms"], row["bound_by"] = _bound(
+                        c["q"], c["pos"], c["T"], c["key_bytes"], c["extra"])
+                rows[kind].append(row)
                 print(label + " " + json.dumps(row))
                 del c
     return rows
@@ -941,10 +1040,13 @@ def _prompts(n, vocab, seed):
     return [rng.randint(0, vocab, size=PROMPT_LENS[i % 2]) for i in range(n)]
 
 
-def phase_serve(card, model, label, extra, kernel, n_requests, profile):
+def phase_serve(card, model, label, extra, kernel, lane_kernel, n_requests,
+                profile):
     """One serving path through init_inference: ``n_requests`` of the mix
     under SERVE plus ``extra``; the decode kernels' launch counts are reset
-    just before the run and read just after. Returns ``kernel``'s count."""
+    just before the run and read just after. The step programs: one CUDA
+    graph per key met, captured at its first step, every later step a
+    replay. Returns the launch counts."""
     cfg = model.config
     engine = init_inference(model, config=dict(SERVE, **extra))
     reqs = []
@@ -975,11 +1077,19 @@ def phase_serve(card, model, label, extra, kernel, n_requests, profile):
             fail("{}: request {} returned {} tokens (range {}..{})".format(
                 label, r.rid, len(toks), toks.min(), toks.max()))
     want = dict.fromkeys(launches, 0)
-    want[kernel] = cfg.n_layer * (m["decode_steps"] + m["prefill_lanes"])
+    want[kernel] += cfg.n_layer * m["decode_steps"]
+    want[lane_kernel] += cfg.n_layer * m["prefill_lanes"]
     if launches != want:
-        fail("{}: decode kernel launches {} != n_layer x (decode steps + "
-             "prefill lanes) of {} and none of the others: {}".format(
-                 label, launches, kernel, want))
+        fail("{}: decode kernel launches {} != n_layer x decode steps of {} "
+             "plus n_layer x prefill lanes of {}, none of the others: {}"
+             .format(label, launches, kernel, lane_kernel, want))
+    met = sorted(engine._programs)
+    if m["compile_count"] > MAX_PROGRAMS or \
+            m["graph_replays"] != m["chunks"] - m["compile_count"]:
+        fail("{}: {} steps met keys {}: compile_count {} (at most {}) and "
+             "graph_replays {} (should be {})".format(
+                 label, m["chunks"], met, m["compile_count"], MAX_PROGRAMS,
+                 m["graph_replays"], m["chunks"] - m["compile_count"]))
     line = {label: "gpt2-medium bf16", "requests": n_requests,
             "new_tokens": NEW_TOKENS, "wall_s": wall,
             "tokens_out": m["tokens_out"],
@@ -988,7 +1098,13 @@ def phase_serve(card, model, label, extra, kernel, n_requests, profile):
             "steps": m["chunks"], "mean_step_ms": wall / m["chunks"] * 1e3,
             "decode_steps": m["decode_steps"],
             "prefill_lanes": m["prefill_lanes"], "kernel": kernel,
-            "launches": launches, "kv_hbm_bytes": m["kv_hbm_bytes"],
+            "lane_kernel": lane_kernel, "launches": launches,
+            "compile_count": m["compile_count"],
+            "graph_replays": m["graph_replays"],
+            "program_keys": [list(k) for k in met],
+            "capture_ms": m["capture_ms"],
+            "graph_pool_bytes": m["graph_pool_bytes"],
+            "kv_hbm_bytes": m["kv_hbm_bytes"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "card": card}
     stats = engine.kv_page_stats()
@@ -1002,7 +1118,65 @@ def phase_serve(card, model, label, extra, kernel, n_requests, profile):
     print(label + " " + json.dumps(line))
     if profile:
         phase_profile(engine, cfg, label.replace("serve", "profile"))
-    return launches[kernel]
+    return launches
+
+
+class _EagerEngine(InferenceEngine):
+    """The engine with every step's program run eagerly: what a
+    graph-served engine is held to."""
+
+    def _run_program(self, key):
+        self._program(*key)
+
+
+def phase_graph_vs_eager(model):
+    """A graph-served engine against the same step program run eagerly, at
+    full width, dense and paged int8: GRAPH_CHECK_STEPS steps of one mix
+    (every third request sampled, one with top-k) must give the same
+    harvest (tokens, validity, first tokens, per-slot fields) at every step,
+    and the same pool (planes, scales, table, per-slot fields) after them,
+    bit for bit."""
+    cfg = model.config
+    prompts = _prompts(GRAPH_CHECK_REQUESTS, cfg.vocab_size, seed=3)
+    for label, extra in (("dense", {}),
+                         ("paged_int8", dict(PAGED, int8_kv=True))):
+        runs = []
+        for engine in (init_inference(model, config=dict(SERVE, **extra)),
+                       _EagerEngine(model, config=dict(SERVE, **extra))):
+            for i, p in enumerate(prompts):
+                kw = {"temperature": 0.8, "seed": i,
+                      "top_k": 50 if i == 2 else None} if i % 3 == 2 else {}
+                engine.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+            snaps = []
+            for _ in range(GRAPH_CHECK_STEPS):
+                engine.step()
+                snaps.append(engine._last_snap)
+            torch.cuda.synchronize()
+            runs.append((engine, snaps))
+        (graphed, got), (eager, want) = runs
+        for step, (a, b) in enumerate(zip(got, want)):
+            for name in a:
+                if not np.array_equal(a[name], b[name]):
+                    fail("graph_vs_eager {}: step {}: {} differs".format(
+                        label, step, name))
+        for name, t in graphed._pool.items():
+            if not torch.equal(t, eager._pool[name]):
+                fail("graph_vs_eager {}: pool {} differs after {} steps"
+                     .format(label, name, GRAPH_CHECK_STEPS))
+        m = graphed.metrics()
+        if m["compile_count"] > MAX_PROGRAMS or \
+                m["graph_replays"] != GRAPH_CHECK_STEPS - m["compile_count"]:
+            fail("graph_vs_eager {}: compile_count {}, graph_replays {}, "
+                 "keys {}".format(label, m["compile_count"],
+                                  m["graph_replays"],
+                                  sorted(graphed._programs)))
+        print("graph_vs_eager " + json.dumps({
+            "layout": label, "steps": GRAPH_CHECK_STEPS,
+            "compile_count": m["compile_count"],
+            "graph_replays": m["graph_replays"],
+            "tokens_compared": int(sum(s["valid"].sum() for s in got)),
+            "identical": True}))
+        del graphed, eager, runs
 
 
 def phase_profile(engine, cfg, label, warm=4, window=3):
@@ -2399,9 +2573,15 @@ def main():
     softmax_rows, softmax_launches = phase_softmax()
     model = GPT2LMHeadModel(GPT2Config.gpt2_medium(dtype=torch.bfloat16),
                             device="cuda", seed=0)
-    serve_launches = {path[2]: phase_serve(card, model, *path)
-                      for path in SERVE_PATHS}
+    serve = {path[0]: phase_serve(card, model, *path)
+             for path in SERVE_PATHS}
+    phase_graph_vs_eager(model)
     del model
+    # Each decode kernel's launches on its own path's decode and prefill
+    # lanes: K3 dense, K6 paged int8 (the slice's main path), K5 and K4
+    # their arms.
+    serve_launches = {path[2]: serve[path[0]][path[2]]
+                      for path in SERVE_PATHS}
     launches = serve_launches["decode"]
     phase_greedy()
     train_launches = phase_train(card)

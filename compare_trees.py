@@ -2,7 +2,7 @@
 (K1, K2a, K2b) and block-sparse attention kernels (K7a, K7b) of two
 checkouts on one card, in turns: A, B, B, A.
 
-    python3 compare_trees.py DIR_A DIR_B [--out FILE]
+    python3 compare_trees.py DIR_A DIR_B [--out FILE] [--serving]
 
 Each DIR is the root of a checkout (for instance a ``git archive`` of the
 parent commit unpacked under ``build/``). Each turn runs in a fresh process
@@ -25,6 +25,13 @@ medians):
   layout as a dense mask (``_sparse_times``) at the sparse BERT path's
   shape (B=2, H=16, T=4096, D=64, bf16, the Fixed layout at block 64,
   padding mask; ``_sparse_inputs``, ``_sparse_layout``, ``lower``).
+
+With ``--serving`` each turn instead builds the checkout's flash-decode
+library, then serves GPT-2 medium (bf16, seeded weights) with that
+checkout's ``chip_smoke.phase_serve`` on its first two serving paths (the
+dense pool and the paged int8 pool, each followed by its profiler window),
+and returns their ``serve*`` and ``profile*`` lines: the engine's step as
+each checkout runs it (eager, or replayed CUDA graphs).
 
 Prints one JSON line per turn and, last, the card's name and power limit;
 with ``--out``, writes the turns there as a JSON list.
@@ -102,14 +109,41 @@ print("TURN " + json.dumps(out))
 """
 
 
-def _turn(tree):
+# The serving turn: the lines phase_serve and phase_profile print.
+_SERVE_TURN = r"""
+import json, torch
+import chip_smoke as c
+from deepspeed_tpu_torch.op_builder import load
+card = c.phase_env()
+load("decode_attention")
+model = c.GPT2LMHeadModel(c.GPT2Config.gpt2_medium(dtype=torch.bfloat16),
+                          device="cuda", seed=0)
+for path in c.SERVE_PATHS[:2]:
+    c.phase_serve(card, model, *path)
+"""
+
+
+def _serve_lines(stdout):
+    """The ``serve*`` and ``profile*`` lines of a serving turn, by label."""
+    out = {}
+    for line in stdout.splitlines():
+        label, _, rest = line.partition(" ")
+        if label.startswith(("serve", "profile")) and rest.startswith("{"):
+            out[label] = json.loads(rest)
+    return out
+
+
+def _turn(tree, serving=False):
     tree = os.path.abspath(tree)
-    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=tree,
+    code = _SERVE_TURN if serving else _TURN
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                           env=dict(os.environ, PYTHONPATH=tree),
                           capture_output=True, text=True)
     if proc.returncode != 0:
         sys.stderr.write(proc.stdout + proc.stderr)
         raise SystemExit("compare_trees: the turn in {} failed".format(tree))
+    if serving:
+        return _serve_lines(proc.stdout)
     line = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")][-1]
     return json.loads(line[5:])
 
@@ -119,11 +153,12 @@ def main():
     parser.add_argument("tree_a")
     parser.add_argument("tree_b")
     parser.add_argument("--out")
+    parser.add_argument("--serving", action="store_true")
     args = parser.parse_args()
     turns = []
     for label, tree in (("A", args.tree_a), ("B", args.tree_b),
                         ("B", args.tree_b), ("A", args.tree_a)):
-        times = _turn(tree)
+        times = _turn(tree, args.serving)
         turns.append({"tree": label, "dir": tree, "times": times})
         print(json.dumps(turns[-1]), flush=True)
     if args.out:

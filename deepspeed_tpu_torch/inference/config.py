@@ -5,6 +5,10 @@ the settings the port reads, with the JAX package's defaults: chunked
 prefill into a dense or paged slotted pool of fp or int8 planes, no
 speculation.
 
+There is no switch for the step's CUDA graphs, as the JAX package has
+none for its jit: on the card the engine always captures its step
+program, one graph per key (``inference/engine.py``).
+
 ``from_dict`` parses a ds_config ``inference`` block written for the JAX
 package. A key of that package which switches or sizes a subsystem the port
 does not have yet parses only at its JAX default (or at the value that

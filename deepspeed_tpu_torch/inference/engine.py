@@ -2,25 +2,47 @@
 
 Counterpart of ``deepspeed_tpu/inference/engine.py``: chunked prefill into a
 dense or paged pool of fp or int8 planes, no speculation. Every step is the
-JAX package's mixed step, run eagerly:
+JAX package's mixed step, ``_mixed_step_program``, in which every
+per-request fact is a tensor:
 
 - PREFILL LANE: when a slot is mid-prompt, append one ``prefill_chunk``
   slice of the oldest prefilling request at its cursor (the adapter's
   ``prefill_append``, k/v written in place at the frontier). When the slice
-  is the prompt's last, sample the request's first token and install its
-  decode state on the device; it starts decoding in this step's decode
-  lane.
+  is the prompt's last (``done``), sample the request's first token and
+  install its decode state on the device; it starts decoding in this
+  step's decode lane. The slot, frontier, slice length and the request's
+  budget, EOS and sampling parameters are read from the step's input
+  buffer, never from Python values.
 - DECODE LANE: advance every slot ``chunk_size`` tokens with the adapter's
   ``decode_step``. Inactive slots flow through frozen: their frontier is
   pinned and their emissions masked, so occupancy never changes a shape.
 
-Tokens and validity stay on the device across the decode lane. The step
-ends with ONE device-to-host transfer (``kv_pool.harvest_snapshot``) of the
-emitted tokens, their validity, the first token and the per-slot state;
-there is no ``.item()`` or ``.tolist()`` on a device tensor inside the
-lane. Whether the prefill lane runs, and whether any row samples or
-filters top-k, is read from the host-side request records (the JAX
-program decides the same with ``lax.cond``).
+ONE PROGRAM PER KEY, CAPTURED ON THE CARD. The JAX engine jits the step
+once (``compile_count`` 1 whatever the prompt mix); its ``lax.cond``
+branches are data. The port's program branches on three host facts, its
+KEY: whether the prefill lane runs, whether any row that can emit samples,
+and whether any filters top-k (``ops.sampling.sample_rows`` skips the
+[R, V] sort and draw when none does). The pool's layout is fixed per
+engine, so an engine has at most 8 programs. On a CUDA device the first
+step that meets a key runs the program eagerly (that step's work, and the
+warm-up: cuBLAS, the kernel library), and the engine then captures the
+program as a ``torch.cuda.CUDAGraph``; every later step with that key
+replays the graph. All graphs share one memory pool, since replays run one
+after another on one stream. On the CPU (tests) the same program runs
+eagerly at every step and the keys are recorded alike. ``compile_count``
+is the number of programs (graphs captured, on the card), cumulative;
+``graph_replays`` counts the steps a program met before served. There is
+no switch: a capture or replay that fails raises.
+
+Static addresses: the pool's tensors are updated in place and never
+rebound; the step's inputs (the slice, the lane's facts, the frontiers of
+slots admitted this step) are packed on the host into one pinned buffer
+and copied to one static device buffer per step (``kv_pool.step_inputs``);
+the program writes what the host reads into one static harvest buffer
+(``kv_pool.step_harvest``), copied back in ONE device-to-host transfer
+after the step. A paged engine's block table is copied in place from a
+pinned snapshot before the step when the host table changed. There is no
+``.item()`` or ``.tolist()`` on a device tensor inside the program.
 
 Sampling draws from the counter-based generator of ``ops.sampling``, keyed
 on (request seed, absolute position): a sampled stream does not depend on
@@ -29,11 +51,12 @@ slot placement or neighbours. Greedy streams equal ``generate``'s.
 PAGED pool (``inference.paged_kv``): a host-side ``PageAllocator`` owns
 page lifetime. Admission is page-aware (the queue head reserves the pages
 its deepest frontier needs, or the round ends); before every step the pager
-maps each page the step can write, and the device block table is replaced
-by one blocking host-to-device copy of a snapshot of the host table when it
-changed; a completed request's pages return at harvest. int8 KV
-(``inference.int8_kv``) quantizes at the frontier write and attends through
-the int8 kernels.
+maps each page the step can write. int8 KV (``inference.int8_kv``)
+quantizes at the frontier write and attends through the int8 kernels.
+The prefill lane reaches its slot through a one-row block table in both
+layouts (``kv_pool.slot_cache_view``), so on the card it runs the paged
+kernels: K5 over a dense pool, K6 over a dense int8 pool; the decode lane
+runs K3/K4 over dense planes and K5/K6 over paged ones.
 
 Telemetry, perf x-ray, resilience and fault injection, the prefix and
 offload tiers of the KV hierarchy and tensor parallelism are later slices.
@@ -50,99 +73,125 @@ from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.kv_hierarchy import (KVHierarchy,
                                                         spec_from_config)
 from deepspeed_tpu_torch.inference.kv_pool import (
-    cache_view, fold_cache, harvest_snapshot, init_pool, max_active_frontier,
+    cache_view, clear_step_inputs, init_pool, max_active_frontier,
     paged_plane_len, plane_len_for, pool_nbytes, slot_cache_view,
-    write_slot_cache)
+    step_harvest, step_inputs)
 from deepspeed_tpu_torch.inference.paging import PageAllocator
 from deepspeed_tpu_torch.inference.scheduler import Scheduler
 from deepspeed_tpu_torch.models.generation import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.ops.sampling import sample_rows as _sample_rows
+from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
 
 
-def _decode_chunk_program(params, adapter, chunk, pool, any_sample,
+def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
                           any_top_k):
-    """Advance every ACTIVE slot ``chunk`` tokens. Returns (pool', tokens
-    [chunk, slots], valid [chunk, slots]): valid[t, s] marks slot s active
-    at step t, i.e. tokens[t, s] belongs to its request (else -1). Frozen
-    slots still run ``decode_step``; their frontier is pinned, so their
-    writes land at their own frozen frontier, where a later admission
-    overwrites them before any mask can see them."""
-    toks, valid = [], []
-    for _ in range(chunk):
-        was_active = pool["active"]
-        old_pos = pool["pos"]
+    """Advance every ACTIVE slot ``chunk`` tokens, in place. Writes
+    ``harvest['toks'][t]`` (slot s's token at step t, -1 where frozen) and
+    ``harvest['valid'][t]`` (slot s active at step t). Frozen slots still
+    run ``decode_step``; their frontier is pinned, so their writes land at
+    their own frozen frontier, where a later admission overwrites them
+    before any mask can see them."""
+    for t in range(chunk):
+        # ``active`` and ``pos`` alias the pool's fields: every value below
+        # is computed from them before the in-place updates at the end.
+        active, pos = pool["active"], pool["pos"]
         logits, cache = adapter.decode_step(params, pool["last_tok"],
                                             cache_view(pool))
         nxt = _sample_rows(logits, pool["temp"], pool["top_k"], pool["seed"],
                            cache["pos"], any_sample, any_top_k)
-        nxt = torch.where(was_active, nxt, pool["last_tok"])
+        nxt = torch.where(active, nxt, pool["last_tok"])
         hit_eos = (pool["eos"] >= 0) & (nxt == pool["eos"])
-        remaining = torch.where(was_active, pool["remaining"] - 1,
+        remaining = torch.where(active, pool["remaining"] - 1,
                                 pool["remaining"])
-        pool = dict(fold_cache(pool, cache),
-                    pos=torch.where(was_active, cache["pos"], old_pos),
-                    last_tok=nxt,
-                    active=was_active & ~hit_eos & (remaining > 0),
-                    remaining=remaining)
-        toks.append(torch.where(was_active, nxt, torch.full_like(nxt, -1)))
-        valid.append(was_active)
-    return pool, torch.stack(toks), torch.stack(valid)
+        new_pos = torch.where(active, cache["pos"], pos)
+        new_active = active & ~hit_eos & (remaining > 0)
+        harvest["toks"][t].copy_(torch.where(active, nxt, -1))
+        harvest["valid"][t].copy_(active)
+        pos.copy_(new_pos)
+        pool["last_tok"].copy_(nxt)
+        pool["remaining"].copy_(remaining)
+        active.copy_(new_active)
 
 
-def _prefill_lane(params, adapter, pool, ids, slot, frontier, n_valid,
-                  p_done, req):
-    """Append ``ids`` [1, C] (``n_valid`` leading columns real) into
-    ``slot`` at ``frontier``. On the prompt's final slice (``p_done``),
-    sample the first token at position ``frontier + n_valid`` and install
-    the request's decode state. Returns (pool', first token [1] or None).
-    ``slot``, ``frontier``, ``n_valid`` and ``p_done`` are host values."""
-    dev = ids.device
-    cache = slot_cache_view(
-        pool, slot, torch.tensor([frontier], dtype=torch.int32, device=dev))
-    logits, cache = adapter.prefill_append(
-        params, ids, cache,
-        n_valid=torch.tensor([n_valid], dtype=torch.int32, device=dev))
-    pool = write_slot_cache(pool, slot, cache)
-    pool["pos"][slot] = frontier + n_valid
-    if not p_done:
-        return pool, None
-    first = _sample_rows(
-        logits[0, n_valid - 1][None],
-        torch.tensor([req.temperature], dtype=torch.float32, device=dev),
-        torch.tensor([req.top_k], dtype=torch.int32, device=dev),
-        torch.tensor([req.seed], dtype=torch.int64, device=dev),
-        torch.tensor([frontier + n_valid], device=dev),
-        any_sample=req.temperature > 0, any_top_k=req.top_k > 0)
+def _prefill_lane(params, adapter, pool, inp, any_sample, any_top_k):
+    """The JAX lane: append ``inp['ids']`` [1, C] (``inp['n_valid']``
+    leading columns real) into slot ``inp['slot']`` at ``inp['frontier']``
+    and advance its frontier. On the prompt's final slice (``inp['done']``)
+    install the first token, sampled at position ``frontier + n_valid``,
+    and the request's decode state; otherwise every field but ``pos``
+    keeps its value (``torch.where`` on the slot's row). Every fact is a
+    tensor of ``inp`` (``kv_pool.step_inputs``); returns the first token
+    [1] (-1 unless ``done``)."""
+    ids, slot, done = inp["ids"], inp["slot"], inp["done"]
+    frontier, n_valid = inp["frontier"], inp["n_valid"]
+    C = ids.shape[1]
+    cache = slot_cache_view(pool, slot, frontier)
+    logits, cache = adapter.prefill_append(params, ids, cache,
+                                           n_valid=n_valid)
+    # The prompt's true last row (pad rows sit past it).
+    last = logits[0].index_select(0, (n_valid.long() - 1).clamp(0, C - 1))
+    first = _sample_rows(last, inp["temp"], inp["top_k"], inp["seed"],
+                         frontier + n_valid, any_sample, any_top_k)
     # The first token counts against the budget: a request can finish at
     # admission (max_new == 1, or its first token IS its EOS).
-    if req.max_new_tokens <= 1:
-        pool["active"][slot] = False
-    elif req.eos_token_id >= 0:
-        pool["active"][slot] = first[0] != req.eos_token_id
+    finished = (inp["max_new"] <= 1) | ((inp["eos"] >= 0) &
+                                        (first == inp["eos"]))
+    for name, val in (("last_tok", first), ("active", done & ~finished),
+                      ("remaining", inp["max_new"] - 1), ("eos", inp["eos"]),
+                      ("temp", inp["temp"]), ("top_k", inp["top_k"]),
+                      ("seed", inp["seed"])):
+        field = pool[name]
+        field.index_copy_(0, slot, torch.where(
+            done, val.to(field.dtype), field.index_select(0, slot)))
+    pool["pos"].index_copy_(0, slot, cache["pos"])
+    return torch.where(done, first, -1)
+
+
+def _mixed_step_program(params, adapter, chunk, pool, inp, harvest, lane,
+                        any_sample, any_top_k):
+    """One serving step on the pool in place: pin the frontiers of slots
+    admitted this step (paged pools), the prefill lane when ``lane``, then
+    the decode lane; fill ``harvest`` (``kv_pool.step_harvest``'s device
+    views). ``inp`` are ``kv_pool.step_inputs``' device views. ``lane``,
+    ``any_sample`` and ``any_top_k`` are the program's key; every other
+    fact is a tensor."""
+    if "block_tbl" in pool:
+        pool["pos"].copy_(torch.where(inp["pin"] >= 0, inp["pin"],
+                                      pool["pos"]))
+    if lane:
+        harvest["first"].copy_(_prefill_lane(params, adapter, pool, inp,
+                                             any_sample, any_top_k))
     else:
-        pool["active"][slot] = True
-    pool["last_tok"][slot] = first[0]
-    pool["remaining"][slot] = req.max_new_tokens - 1
-    pool["eos"][slot] = req.eos_token_id
-    pool["temp"][slot] = req.temperature
-    pool["top_k"][slot] = req.top_k
-    pool["seed"][slot] = req.seed
-    return pool, first
+        harvest["first"].fill_(-1)
+    _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
+                          any_top_k)
+    for name, field in harvest.items():
+        if name in pool:
+            field.copy_(pool[name])
 
 
-def _mixed_step_program(params, adapter, chunk, pool, lane, any_sample,
-                        any_top_k):
-    """One serving step: the prefill lane when ``lane`` (the
-    ``_prefill_lane`` arguments after ``pool``) is not None, then the
-    decode lane. Returns (pool', first token [1] or None, tokens, valid)."""
-    first = None
-    if lane is not None:
-        pool, first = _prefill_lane(params, adapter, pool, *lane)
-    pool, toks, valid = _decode_chunk_program(params, adapter, chunk, pool,
-                                              any_sample, any_top_k)
-    return pool, first, toks, valid
+class _StepGraph(object):
+    """One step program captured as a CUDA graph, with the decode-kernel
+    launches it holds. Capture records launches without running them, so
+    the counts the wrappers took while it was recorded are handed back, and
+    every replay adds them: ``decode_attention.launches`` counts kernels
+    run, not kernels recorded."""
+
+    def __init__(self, program, pool):
+        before = dict(decode_attention.launches)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            program()
+        self.launches = {kind: decode_attention.launches[kind] - n
+                         for kind, n in before.items()}
+        decode_attention.launches.update(before)
+
+    def replay(self):
+        self.graph.replay()
+        for kind, n in self.launches.items():
+            decode_attention.launches[kind] += n
 
 
 class InferenceEngine(object):
@@ -207,6 +256,24 @@ class InferenceEngine(object):
             device=self.device, hier=hspec if hspec.enabled else None,
             page_len=config.kv_page_len if self._pager else 0,
             num_pages=self._pager.total_pages if self._pager else None)
+        self._inputs = step_inputs(config.max_slots, config.prefill_chunk,
+                                   self.device)
+        self._harvest = step_harvest(config.max_slots, config.chunk_size,
+                                     self.device)
+        # The pinned host snapshot the device block table is copied from.
+        self._table = None
+        if self._pager is not None:
+            self._table = torch.zeros(
+                tuple(self._pool["block_tbl"].shape), dtype=torch.int32,
+                pin_memory=self.device.type == "cuda")
+        # Program cache (module docstring): key -> _StepGraph on the card,
+        # None on the CPU.
+        self._programs = {}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.device.type == "cuda" else None)
+        self.graph_replays = 0
+        self._capture_s = 0.0
+        self._graph_pool_bytes = 0
         self._last_snap = None
         self.counters = dict.fromkeys(
             ("tokens_out", "prefill_tokens", "prefills", "prefill_lanes",
@@ -277,12 +344,12 @@ class InferenceEngine(object):
     def _ensure_paged_mappings(self, pf, n_valid, p_done):
         """Step-boundary page mapping: back every position the coming step
         can WRITE and a later read can see, then, when the host table
-        changed, replace the device block table by one blocking
-        host-to-device copy of a snapshot the host never changes afterwards.
-        Writes past what is mapped land in the trash page (unmapped entries
-        are 0). The decode lane advances each active slot at most
-        ``chunk_size`` positions, the prefill lane ``n_valid`` at the
-        cursor."""
+        changed, copy it into the pool's device block table in place, on
+        the step's stream, from a pinned snapshot the host does not write
+        again until the step's harvest. Writes past what is mapped land in
+        the trash page (unmapped entries are 0). The decode lane advances
+        each active slot at most ``chunk_size`` positions, the prefill lane
+        ``n_valid`` at the cursor."""
         pager = self._pager
         lookahead = self.config.chunk_size
         if pf is not None:
@@ -298,8 +365,8 @@ class InferenceEngine(object):
             pos = int(req.prompt.size) + len(req.tokens)
             pager.ensure_mapped(slot, pos + lookahead)
         if pager.dirty:
-            self._pool["block_tbl"] = torch.from_numpy(
-                pager.table.copy()).to(self.device)
+            self._table.numpy()[...] = pager.table
+            self._pool["block_tbl"].copy_(self._table, non_blocking=True)
             pager.dirty = False
 
     def kv_page_stats(self):
@@ -329,11 +396,11 @@ class InferenceEngine(object):
         admission is PAGE-AWARE: the queue head must reserve its full
         frontier bound in pages or the round stops (strict FIFO), every
         admitted slot's mappings draw down its request's reservation, and
-        each admitted slot's device frontier is pinned to its cursor (0):
-        until its first prefill slice the slot is frozen in the decode lane
-        but still writes at its frontier, through its NEW table row, so a
-        stale frontier of the previous occupant must not steer that
-        write."""
+        each admitted slot's device frontier is pinned to its cursor (0) by
+        the step program (the ``pin`` input): until its first prefill
+        slice the slot is frozen in the decode lane but still writes at its
+        frontier, through its NEW table row, so a stale frontier of the
+        previous occupant must not steer that write."""
         pager = self._pager
         if pager is None:
             return self._scheduler.admissions()
@@ -348,45 +415,86 @@ class InferenceEngine(object):
         pairs = self._scheduler.admissions(gate=gate)
         for req, slot in pairs:
             pager.bind_slot(slot, req.rid)
-            self._pool["pos"][slot] = int(req.cursor)
+            self._inputs.host["pin"][slot] = req.cursor
         return pairs
 
     def step(self):
-        """One step boundary: admit, run the prefill lane and the decode
-        lane, harvest in one transfer, evict finished slots. Returns the
-        requests completed during this step."""
+        """One step boundary: admit, run the step's program (the prefill
+        lane and the decode lane), harvest in one transfer, evict finished
+        slots. Returns the requests completed during this step."""
         with torch.no_grad():
             return self._step_chunked()
+
+    @property
+    def compile_count(self):
+        """Programs this engine has built, one per key met (module
+        docstring): CUDA graphs captured on the card, keys recorded on the
+        CPU. At most 8, cumulative; a step with a key met before adds
+        nothing."""
+        return len(self._programs)
+
+    def _program(self, lane, any_sample, any_top_k):
+        _mixed_step_program(self._params, self._adapter,
+                            self.config.chunk_size, self._pool,
+                            self._inputs.dev, self._harvest.dev, lane,
+                            any_sample, any_top_k)
+
+    def _run_program(self, key):
+        """Run the step's program for ``key``: replay its graph (on the CPU,
+        run it) when the key was met before; else run it eagerly and, on
+        the card, capture it for the steps to come."""
+        if key in self._programs:
+            graph = self._programs[key]
+            if graph is None:
+                self._program(*key)
+            else:
+                graph.replay()
+            self.graph_replays += 1
+            return
+        self._program(*key)
+        graph = None
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            graph = _StepGraph(lambda: self._program(*key), self._graph_pool)
+            torch.cuda.synchronize(self.device)
+            self._capture_s += time.perf_counter() - t0
+            # The pool grows only at a capture (replays allocate nothing).
+            self._graph_pool_bytes = sum(
+                seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) == tuple(self._graph_pool))
+        self._programs[key] = graph
 
     def _step_chunked(self):
         done = []
         self._admit()
         sched = self._scheduler
         pf = sched.next_prefill()
-        lane, p_done, n = None, False, 0
+        inp = self._inputs.host
+        p_done, n = False, 0
         if pf is not None:
             C = self.config.prefill_chunk
             cur = pf.cursor
             n = int(min(C, pf.prompt.size - cur))
-            ids = np.zeros((1, C), np.int64)
-            ids[0, :n] = pf.prompt[cur:cur + n]
             p_done = cur + n >= pf.prompt.size
-            lane = (torch.from_numpy(ids).to(self.device), pf.slot, cur, n,
-                    p_done, pf)
+            inp["ids"][0, :n] = pf.prompt[cur:cur + n]
+            inp["slot"][0], inp["frontier"][0] = pf.slot, cur
+            inp["n_valid"][0], inp["done"][0] = n, p_done
+            inp["max_new"][0], inp["eos"][0] = (pf.max_new_tokens,
+                                                pf.eos_token_id)
+            inp["temp"][0], inp["top_k"][0] = pf.temperature, pf.top_k
+            inp["seed"][0] = pf.seed
         if self._pager is not None:
             self._ensure_paged_mappings(pf, n, p_done)
         # Host facts for the sampler: only slots that can be active in the
         # decode lane (decoding, or finishing their prompt now) matter.
         live = [r for r in sched.running.values()
                 if r.phase == "decoding" or (r is pf and p_done)]
-        self._pool, first, toks, valid = _mixed_step_program(
-            self._params, self._adapter, self.config.chunk_size, self._pool,
-            lane, any(r.temperature > 0 for r in live),
-            any(r.top_k > 0 for r in live))
-        extra = {"toks": toks, "valid": valid}
-        if first is not None:
-            extra["first"] = first
-        snap = harvest_snapshot(self._pool, **extra)  # the one D2H copy
+        key = (pf is not None, any(r.temperature > 0 for r in live),
+               any(r.top_k > 0 for r in live))
+        self._inputs.upload()
+        self._run_program(key)
+        snap = self._harvest.read()  # the one D2H copy
+        clear_step_inputs(self._inputs)
         self._last_snap = snap
         self.counters["chunks"] += 1
         if pf is not None:
@@ -449,7 +557,9 @@ class InferenceEngine(object):
     def metrics(self):
         """Serving counters since construction, with TTFT percentiles in
         milliseconds (None before the first token), the pool's layout and
-        bytes, and on a paged engine its page gauges."""
+        bytes, the step programs (``compile_count``, ``graph_replays``, the
+        time spent capturing graphs and the bytes of their memory pool, 0
+        on the CPU), and on a paged engine its page gauges."""
         c = dict(self.counters)
         wall = max(time.time() - self._t0, 1e-9)
         ttft = np.asarray(self._ttft) * 1e3
@@ -465,7 +575,11 @@ class InferenceEngine(object):
             kv_pool_bytes=pool_nbytes(self._pool),
             kv_hbm_bytes=pool_nbytes(self._pool),
             paged_kv=self._pager is not None,
-            int8_kv=self._hier is not None and self._hier.spec.int8)
+            int8_kv=self._hier is not None and self._hier.spec.int8,
+            compile_count=self.compile_count,
+            graph_replays=self.graph_replays,
+            capture_ms=self._capture_s * 1e3,
+            graph_pool_bytes=self._graph_pool_bytes)
         if self._hier is not None:
             c.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),
                      kv_bytes_per_slot_flat=self._hier.flat_bytes_per_slot())

@@ -36,8 +36,13 @@ clamp. Unlike the TPU pool, the plane is not padded to a block quantum: the
 CUDA kernels take any length. A paged row's logical plane is that length
 rounded up to whole pages.
 
-In torch the views below alias the pool's own planes: the forward writes
-k/v in place, so folding a cache back into the pool only rebinds names.
+STATIC ADDRESSES. Every tensor of the pool is allocated once and updated
+in place, never rebound: the forward writes k/v (and scales) into the
+planes, and the step program writes the per-slot fields with ``copy_`` /
+``index_copy_``. A step program captured as a CUDA graph on the card
+replays against these addresses. The views below alias the pool's own
+planes, and the step's inputs and harvest live in ``PackedBuffer``s of
+their own fixed addresses (``step_inputs``, ``step_harvest``).
 """
 
 import numpy as np
@@ -116,32 +121,101 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
     return pool
 
 
-def harvest_snapshot(pool, **extra):
-    """ONE device-to-host transfer of the per-slot fields the host reads
-    (``pos`` / ``active`` / ``last_tok``) plus any ``extra`` integer or
-    bool tensors (the engine passes the step's tokens and validity). All
-    are packed into one int64 buffer and copied once. Returns a dict of
-    numpy arrays in their original shapes (bool stays bool)."""
-    named = [(n, pool[n]) for n in _HARVEST] + list(extra.items())
-    flat = torch.cat([t.reshape(-1).to(torch.int64) for _, t in named])
-    host = flat.cpu().numpy()
-    snap, at = {}, 0
-    for name, t in named:
-        n = t.numel()
-        arr = host[at:at + n].reshape(tuple(t.shape))
-        snap[name] = arr.astype(bool) if t.dtype == torch.bool else arr
-        at += n
-    return snap
+class PackedBuffer:
+    """Named tensors packed into ONE byte buffer on the device and one on
+    the host, each field at an 8-byte aligned offset, so that moving all of
+    them between the two is a single copy. The host buffer is pinned when
+    the device is a GPU. ``fields``: (name, torch dtype, shape) triples.
+
+    ``dev[name]`` are views of the device buffer at fixed addresses (a
+    captured step program reads and writes them); ``host[name]`` are numpy
+    views of the host buffer. ``upload`` copies host to device on the
+    current stream without waiting: the caller must not write the host
+    buffer again until the stream has passed the copy (the engine writes it
+    only after the step's blocking ``read``). ``read`` copies device to host,
+    waits for it and returns copies of the fields as numpy arrays."""
+
+    def __init__(self, fields, device):
+        device = torch.device(device)
+        layout, at = [], 0
+        for name, dtype, shape in fields:
+            shape = tuple(int(n) for n in shape)
+            nbytes = int(np.prod(shape, dtype=np.int64)) * \
+                torch.empty((), dtype=dtype).element_size()
+            layout.append((name, at, nbytes, dtype, shape))
+            at += -(-nbytes // 8) * 8
+        self._host = torch.zeros(max(at, 8), dtype=torch.uint8,
+                                 pin_memory=device.type == "cuda")
+        self._dev = torch.zeros(max(at, 8), dtype=torch.uint8, device=device)
+        host_np = self._host.numpy()
+        self.dev, self.host = {}, {}
+        for name, off, nbytes, dtype, shape in layout:
+            self.dev[name] = self._dev[off:off + nbytes].view(dtype).view(
+                shape)
+            np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+            self.host[name] = host_np[off:off + nbytes].view(
+                np_dtype).reshape(shape)
+
+    def upload(self):
+        self._dev.copy_(self._host, non_blocking=True)
+
+    def read(self):
+        self._host.copy_(self._dev)
+        return {name: self.host[name].copy() for name in self.host}
+
+
+def step_inputs(num_slots, prefill_chunk, device):
+    """The mixed step's inputs (the JAX program's traced arguments) as a
+    ``PackedBuffer``: the prefill slice ``ids`` [1, C] and the lane's
+    ``slot``, ``frontier``, ``n_valid``, ``done``, ``max_new``, ``eos``,
+    ``temp``, ``top_k`` and ``seed`` ([1] each, in the dtype of the pool
+    field they feed), plus ``pin`` [slots] int32: the frontier each slot
+    admitted this step is pinned to (-1: none; paged pools). Filled with
+    the idle lane's values."""
+    buf = PackedBuffer(
+        [("ids", torch.int64, (1, prefill_chunk)),
+         ("slot", torch.int64, (1,)), ("frontier", torch.int32, (1,)),
+         ("n_valid", torch.int32, (1,)), ("done", torch.bool, (1,)),
+         ("max_new", torch.int32, (1,)), ("eos", torch.int64, (1,)),
+         ("temp", torch.float32, (1,)), ("top_k", torch.int32, (1,)),
+         ("seed", torch.int64, (1,)), ("pin", torch.int32, (num_slots,))],
+        device)
+    clear_step_inputs(buf)
+    return buf
+
+
+def clear_step_inputs(buf):
+    """Host side: the idle lane, no pins."""
+    for name in buf.host:
+        buf.host[name][...] = 0
+    buf.host["max_new"][0] = 1
+    buf.host["eos"][0] = -1
+    buf.host["pin"][:] = -1
+
+
+def step_harvest(num_slots, chunk, device):
+    """What the host reads after a step, as a ``PackedBuffer`` the step
+    program fills and the host copies back in ONE device-to-host transfer:
+    the per-slot ``pos`` / ``active`` / ``last_tok`` [slots] (the pool
+    fields of the same names), the decode lane's ``toks`` and ``valid``
+    [chunk, slots] and the prefill lane's ``first`` token [1] (-1 unless
+    the lane finished a prompt)."""
+    fields = [(name, dt, (num_slots,)) for name, dt, _ in _SLOT_FIELDS
+              if name in _HARVEST]
+    fields += [("toks", torch.int64, (chunk, num_slots)),
+               ("valid", torch.bool, (chunk, num_slots)),
+               ("first", torch.int64, (1,))]
+    return PackedBuffer(fields, device)
 
 
 def max_active_frontier(snap):
-    """Largest frontier among active slots, from a ``harvest_snapshot``."""
+    """Largest frontier among active slots, from a ``step_harvest`` read."""
     pos, active = snap["pos"], snap["active"]
     return int((pos * active).max()) if pos.size else 0
 
 
 def free_slots(snap):
-    """Indices of inactive slots, from a ``harvest_snapshot``."""
+    """Indices of inactive slots, from a ``step_harvest`` read."""
     return [int(i) for i in np.flatnonzero(~snap["active"])]
 
 
@@ -166,44 +240,25 @@ def cache_view(pool):
 
 
 def slot_cache_view(pool, slot, pos):
-    """One slot as a batch-1 cache dict for the prefill lane. ``slot`` is a
-    host int; ``pos`` is the [1]-shaped int32 frontier. Dense: ``k``/``v``
-    (and scales) are VIEWS of the pool along the slot axis (``[layers, 1,
-    heads, T, head_dim]``), so the forward's frontier write updates the
-    pool in place. Paged: the arenas whole and the slot's row of the block
-    table (``[1, n_lp]``), through which the forward scatters its
-    writes."""
+    """One slot as a batch-1 cache dict for the prefill lane, as the JAX
+    ``slot_cache_view(pool, p_slot, pos)``. ``slot`` is a [1] (or 0-d)
+    integer tensor on the pool's device, so the step program does not
+    depend on its value (a host int is taken too); ``pos`` is the
+    [1]-shaped int32 frontier. Both layouts pass their planes (and scale
+    planes) whole with a ``[1, n_lp]`` int32 block table through which the
+    forward scatters its writes and the paged kernels read: paged, the
+    slot's row of the pool's table; dense, the table ``[[slot]]`` over the
+    planes seen as an arena of ``slots`` pages of ``plane_len`` positions
+    (``[layers, slots, heads, plane_len, head_dim]`` is that arena's
+    layout), so no view is cut at a host-known slot."""
+    slot = torch.as_tensor(slot, device=pool["pos"].device).reshape(1)
     if "block_tbl" in pool:
-        cache = {"k": pool["k"], "v": pool["v"], "pos": pos,
-                 "block_tbl": pool["block_tbl"][slot:slot + 1]}
-        for name in _SCALES:
-            if name in pool:
-                cache[name] = pool[name]
-        return cache
-    cache = {"pos": pos}
-    for name in ("k", "v") + _SCALES:
-        if name in pool:
-            cache[name] = pool[name][:, slot:slot + 1]
-    return cache
-
-
-def write_slot_cache(pool, slot, cache):
-    """Fold a ``slot_cache_view`` cache back into the pool. Its planes (or
-    arenas) are the pool's own, already written in place, so nothing is
-    copied; the function checks that and returns the pool."""
-    want = pool["k"] if "block_tbl" in pool else pool["k"][:, slot:slot + 1]
-    if cache["k"].data_ptr() != want.data_ptr():
-        raise ValueError("cache is not a view of slot {}".format(slot))
-    return pool
-
-
-def fold_cache(pool, cache):
-    """Fold a full-batch ``cache_view`` cache back into the pool after a
-    decode step: the planes and scale planes (written in place) rebind;
-    ``pos`` stays with the caller, which pins frozen slots, and the block
-    table stays host-owned."""
-    upd = {"k": cache["k"], "v": cache["v"]}
+        tbl = pool["block_tbl"].index_select(0, slot)
+    else:
+        tbl = slot.to(torch.int32).view(1, 1)
+    cache = {"k": pool["k"], "v": pool["v"], "pos": pos, "block_tbl": tbl}
     for name in _SCALES:
         if name in pool:
-            upd[name] = cache[name]
-    return dict(pool, **upd)
+            cache[name] = pool[name]
+    return cache
+

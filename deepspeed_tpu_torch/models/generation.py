@@ -16,12 +16,18 @@ cache's keys as the JAX package does (``inference/kv_pool.py``):
 - paged: ``k``/``v`` (and the scales) are page arenas ``[layers, P, heads,
   page_len, ...]`` and ``block_tbl`` [B, n_lp] int32 names each row's
   pages; the frontier write scatters at (page, offset) through the table.
+  The serving engine's prefill lane passes a dense pool in this form too
+  (its planes as an arena of one page per slot, the table ``[[slot]]``:
+  ``inference/kv_pool.slot_cache_view``), so the lane's slot is a tensor.
 
 Contracts kept from the JAX package:
 
 - ``pos`` is the PRE-write frontier: the k/v of positions
   ``pos .. pos+S-1`` are written into the planes BEFORE attention, and key
   ``t`` is visible to query row ``i`` iff ``t <= pos[b] + i``;
+- no host value steers a forward: ``pos``, ``n_valid`` and the block
+  table are tensors, so one captured program serves every frontier, slice
+  length and slot;
 - the frontier write is one indexed assignment on the device, with no host
   sync, and it never clamps: an index past the plane (or, paged, past the
   block table, where the JAX package clamps the page index) raises, as an

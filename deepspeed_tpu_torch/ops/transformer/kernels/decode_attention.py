@@ -41,6 +41,14 @@ point at (``inference/paging.py``).
   tensors, its plain version); the wrappers launch it after the split
   kernel, as part of their one counted call.
 
+The wrappers are safe to capture in a CUDA graph (the serving engine
+captures its step): their checks read shapes, dtypes and addresses on the
+host only, the workspace and the output are ``torch.empty`` (inside a
+capture, from the graph's memory pool), nothing synchronises the device,
+and the launches (the combine as the split kernel's programmatic
+dependent, ``cudaFuncSetAttribute`` for the fp32 kernels' shared memory)
+are legal under stream capture.
+
 The kernels take any plane length and any ``page_len >= 1`` (they guard
 the ragged last tile and address keys one by one), so the port neither pads
 planes to the TPU kernels' 128-position quantum nor falls back to a gather
@@ -68,7 +76,10 @@ _Q8_EPS = 1e-8
 
 # Kernel launches since the last reset, per kernel (K3 "decode", K4 "q8",
 # K5 "paged", K6 "paged_q8"); chip_smoke.py reads them to show the serving
-# path went through the kernel.
+# path went through the kernel. A wrapper called while a CUDA graph is
+# captured counts the launch it records; the serving engine hands such
+# counts back after the capture and adds them again at every replay
+# (inference/engine.py), so the counts stay kernels run.
 launches = {"decode": 0, "q8": 0, "paged": 0, "paged_q8": 0}
 
 # C entry point, its pointer arguments and the ints after them, per kernel.

@@ -3,17 +3,22 @@ int8 caches), K1/K2a/K2b (flash attention for training), the fused layer's
 row kernels K8 (LayerNorm), K10a/K10b (dropout and its replay) and K11
 (bias + GELU), the standalone softmax K9, and K7a/K7b (block-sparse
 attention, K7b also over layouts of uneven transposed degree) against their
-plain PyTorch versions, and the wrappers' refusals on CUDA tensors.
+plain PyTorch versions, and the wrappers' refusals on CUDA tensors; then
+the serving step in CUDA graphs: K3-K6 replayed in a captured graph, a
+graph-served engine against the same step program run eagerly (bit for
+bit, dense and paged int8), and a capture that fails raising.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
 imports no JAX, so it runs where JAX is not installed.
 """
 
+
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.inference import InferenceEngine
 from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention as da
 from deepspeed_tpu_torch.ops.transformer.kernels import dropout as dr
@@ -884,3 +889,156 @@ def test_sparse_wrapper_refuses_what_the_kernels_cannot_take(cuda, bad):
         k = k.transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises((TypeError, ValueError)):
         sk.sparse_fwd(q, k, v, lowered)
+
+
+# ---------------------------------------------- the serving step in graphs
+
+GRAPH_WRAPPERS = {"decode": da.flash_decode_attention,
+                  "q8": da.flash_decode_attention_q8,
+                  "paged": da.flash_decode_attention_paged,
+                  "paged_q8": da.flash_decode_attention_paged_q8}
+
+
+def _graph_operands(cuda, kind, dtype, S, seed, B=4, H=4, page_len=48,
+                    n_lp=6):
+    """Arguments of ``kind``'s wrapper: B rows over a plane of n_lp x
+    page_len keys (paged: a shuffled arena with the trash page), ragged
+    frontiers."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    T = n_lp * page_len
+    q = torch.randn(B, H, S, 64, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, H, T, 64, device=cuda, generator=g)
+            for _ in range(2))
+    pos = torch.randint(0, T - S + 1, (B,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    if kind.endswith("q8"):
+        (k, v), scales = da.quantize_kv(torch.stack((k, v)))
+        scales = list(scales)
+    else:
+        k, v, scales = k.to(dtype), v.to(dtype), []
+    planes = [k, v] + scales
+    tbl = []
+    if kind.startswith("paged"):
+        idx = torch.randperm(B * n_lp, device=cuda, generator=g) + 1
+
+        def arena(plane):
+            pages = plane.reshape((B, H, n_lp, page_len) + plane.shape[3:])
+            pages = pages.movedim(2, 1).reshape(
+                (B * n_lp, H, page_len) + plane.shape[3:])
+            out = torch.zeros((B * n_lp + 1,) + pages.shape[1:],
+                              dtype=plane.dtype, device=cuda)
+            out[idx] = pages
+            return out
+
+        planes = [arena(p) for p in planes]
+        tbl = [idx.view(B, n_lp).to(torch.int32)]
+    return [q] + planes + tbl + [pos]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("kind", ["decode", "q8", "paged", "paged_q8"])
+def test_decode_kernels_replay_in_a_cuda_graph(cuda, kind, S, dtype):
+    """K3-K6 (the split kernel, its combine chained as a programmatic
+    dependent, the workspace from the graph's pool; fp32 with more than 48
+    KB of shared memory) captured once and replayed on new operands
+    copied into the captured tensors: bit for bit the eager launch."""
+    fn = GRAPH_WRAPPERS[kind]
+    static = _graph_operands(cuda, kind, dtype, S, seed=0)
+    fn(*static)  # warm-up: loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = da.launches[kind]
+    with torch.cuda.graph(graph):
+        out = fn(*static)
+    assert da.launches[kind] == before + 1  # the wrapper counts at capture
+    for seed in (1, 2):
+        for dst, src in zip(static, _graph_operands(cuda, kind, dtype, S,
+                                                    seed)):
+            dst.copy_(src)
+        graph.replay()
+        want = fn(*static)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+class _EagerEngine(InferenceEngine):
+    """The engine with every step's program run eagerly: what a
+    graph-served engine is held to, bit for bit."""
+
+    def _run_program(self, key):
+        self._program(*key)
+
+
+SMALL_SERVE = {"max_slots": 4, "max_len": 160, "chunk_size": 4,
+               "prefill_chunk": 16}
+
+
+def _small_gpt2(cuda):
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    cfg = GPT2Config(n_embd=256, n_layer=2, n_head=4, vocab_size=1024,
+                     n_positions=256, dtype=torch.bfloat16)
+    return GPT2LMHeadModel(cfg, device=cuda, seed=0)
+
+
+def _serve(engine, prompts):
+    """Serve ``prompts`` (every third sampled, one with top-k) and return
+    the harvest of every step and the launch counts."""
+    for i, p in enumerate(prompts):
+        kw = {"temperature": 0.8, "seed": i, "top_k": 20 if i == 2 else None
+              } if i % 3 == 2 else {}
+        engine.submit(p, max_new_tokens=24, **kw)
+    da.reset_launches()
+    snaps = []
+    while not engine.idle:
+        engine.step()
+        snaps.append(engine._last_snap)
+    torch.cuda.synchronize()
+    return snaps, dict(da.launches)
+
+
+@pytest.mark.parametrize("extra", [{}, {"paged_kv": True, "kv_page_len": 32,
+                                        "int8_kv": True}],
+                         ids=["dense", "paged_int8"])
+def test_graph_served_engine_equals_the_eager_program(cuda, extra):
+    model = _small_gpt2(cuda)
+    config = dict(SMALL_SERVE, **extra)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, 1024, size=n) for n in (5, 40, 17, 70, 9, 33)]
+    graphed = InferenceEngine(model, config=config)
+    eager = _EagerEngine(model, config=config)
+    got, got_launches = _serve(graphed, prompts)
+    want, want_launches = _serve(eager, prompts)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys()
+        for name in a:
+            assert np.array_equal(a[name], b[name]), name
+    for name, t in graphed._pool.items():
+        assert torch.equal(t, eager._pool[name]), name
+    # Replays count their launches: the same counts as the eager run.
+    assert got_launches == want_launches and sum(got_launches.values()) > 0
+    m = graphed.metrics()
+    assert 0 < m["compile_count"] <= 8
+    assert m["graph_replays"] == len(got) - m["compile_count"] > 0
+    assert m["graph_pool_bytes"] > 0 and m["capture_ms"] > 0
+    if extra:
+        assert graphed.kv_page_stats()["pages_in_use"] == 0
+
+
+def test_a_failed_capture_raises(cuda):
+    """No fallback: a step program that cannot be captured (here, a host
+    sync inside it, legal eagerly) fails the step; it never runs on as an
+    eager step. Last in the file: the failed capture is left behind."""
+    class Syncing(InferenceEngine):
+        def _program(self, *key):
+            super()._program(*key)
+            self._pool["pos"].sum().item()
+
+    eng = Syncing(_small_gpt2(cuda), config=SMALL_SERVE)
+    eng.submit(np.arange(5), max_new_tokens=8)
+    with pytest.raises(RuntimeError):
+        eng.step()
+    assert eng.compile_count == 0

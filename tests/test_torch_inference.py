@@ -180,14 +180,25 @@ def test_pool_views_alias_the_planes_and_harvest_unpacks():
     gcfg = GPT2Config.tiny(dtype=torch.float32)
     pool = kv_pool.init_pool(as_gencfg(gcfg), 3, 16, slack=4, device="cpu")
     assert pool["k"].shape == (gcfg.n_layer, 3, gcfg.n_head, 20, 16)
-    view = kv_pool.slot_cache_view(pool, 1,
+    # The planes whole, seen as an arena of one page per slot, and the
+    # one-row table [[slot]]; the slot may be a device tensor.
+    view = kv_pool.slot_cache_view(pool, torch.tensor([1]),
                                    torch.tensor([0], dtype=torch.int32))
-    view["k"][0, 0, 0, 5] = 7.0
-    assert pool["k"][0, 1, 0, 5, 0] == 7.0  # a view, written in place
-    assert kv_pool.write_slot_cache(pool, 1, view) is pool
+    assert view["k"] is pool["k"] and view["block_tbl"].tolist() == [[1]]
+    assert view["block_tbl"].dtype == torch.int32
+    view["k"][0, view["block_tbl"][0, 0], 0, 5] = 7.0
+    assert pool["k"][0, 1, 0, 5, 0] == 7.0  # the slot's plane, in place
     pool["pos"][2], pool["active"][2], pool["last_tok"][0] = 9, True, 42
     toks = torch.arange(6).reshape(2, 3)
-    snap = kv_pool.harvest_snapshot(pool, toks=toks, valid=toks > 2)
+    # Fill the step's harvest buffer as the step program does; one copy.
+    harvest = kv_pool.step_harvest(3, 2, "cpu")
+    for name in ("pos", "active", "last_tok"):
+        harvest.dev[name].copy_(pool[name])
+    harvest.dev["toks"].copy_(toks)
+    harvest.dev["valid"].copy_(toks > 2)
+    harvest.dev["first"].fill_(-1)
+    snap = harvest.read()
+    assert snap["first"].tolist() == [-1]
     assert snap["pos"].tolist() == [0, 0, 9]
     assert snap["last_tok"].tolist() == [42, 0, 0]
     assert snap["toks"].tolist() == toks.tolist()

@@ -207,7 +207,6 @@ def test_paged_pool_layout_and_views():
                                    torch.tensor([0], dtype=torch.int32))
     assert view["k"] is pool["k"]
     assert view["block_tbl"].tolist() == [[4, 2, 7]]
-    assert kv_pool.write_slot_cache(pool, 1, view) is pool
     assert kv_pool.cache_view(pool)["block_tbl"] is pool["block_tbl"]
     small = kv_pool.init_pool(gcfg, 3, 20, slack=4, device="cpu",
                               page_len=8, num_pages=4)
