@@ -13,18 +13,21 @@ of which exits non-zero on failure:
 3. kernel vs plain: K3 (flash-decode attention: a split kernel per
    da.SPLIT_KEYS keys of each row, then a combine launch) against its
    plain PyTorch version on the card, bf16 and fp32, at the serving path's
-   shapes (the prefill lane also with rows just before, at and after a
-   split boundary), with ragged frontiers and large finite garbage past
-   them, each element held to its own limit (see TOL); times the kernel,
+   shapes (the decode lane S1, the speculative verify lane B16 S5 at
+   VERIFY_POS, whose row groups of 4 and 1 stop in different splits at
+   frontiers 124-127, the prefill lane S32 also with rows just before, at
+   and after a split boundary), with ragged frontiers and large finite
+   garbage past them, each element held to its own limit (see TOL); times
+   the kernel,
    the plain version and torch's scaled_dot_product_attention (a yardstick
    only: the port never calls it) with CUDA events, beside the bound; the
    combine kernel alone against its plain version on the plain partials of
    the decode case (COMBINE_RTOL), and timed there;
    then K4 (int8 plane), K5 (page arena) and K6 (int8 page arena) against
-   their plain versions at the same shapes, in bf16 and fp32, through a
-   shuffled block table whose unmapped logical pages point at a trash page,
-   with garbage in the trash page, in unmapped pages and past every
-   frontier (int8: TOL plus the score shift set out there), K5 and K6 also
+   their plain versions at the same shapes (the verify lane too), in bf16
+   and fp32, through a shuffled block table whose unmapped logical pages
+   point at a trash page, with garbage in the trash page, in unmapped
+   pages and past every frontier (int8: TOL plus the score shift set out there), K5 and K6 also
    at pages of ODD_PAGE_LEN, which do not divide the split, and at the
    dense pools' prefill lane as the engine builds it (slot_cache_view of a
    pool of SERVE's slots, every slot's plane filled: one page of PLANE
@@ -55,14 +58,28 @@ of which exits non-zero on failure:
    K5); the slice's main path, the paged int8 pool at 128-position pages
    (K6; every page returned after the run); then two arms of 4 requests:
    paged alone (K5) and int8 alone (K4; its prefill lane K6). The dense
-   and the paged int8 runs are each followed by a profiler window; then a
-   graph-served engine against the same step program run eagerly, dense
-   and paged int8: every step's harvest and the pool after
-   GRAPH_CHECK_STEPS steps, bit for bit;
+   and the paged int8 runs are each followed by a profiler window; then
+   speculative decoding (SPEC: spec_k 4, spec_ngram 3) on the JAX bench's
+   stream for it (each request tiles its own random 8-token phrase; every
+   fourth opts out), with the same checks and each path's accept
+   statistics: the dense pool (K3 at S5 in the verify lane; profiled), the
+   same stream with speculation off (its program keys must be the
+   speculating run's), the paged int8 pool (K6), and 4-request arms paged
+   (K5) and int8 (K4); then a graph-served engine against the same step
+   program run eagerly, dense and paged int8, without and with
+   speculation: every step's harvest and the whole pool (the token ring
+   too) after GRAPH_CHECK_STEPS steps, bit for bit (a speculating paged
+   pool may differ only where no read sees: page 0, and ring entries past
+   a row's frontier);
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
-   engine's the dense int8 engine's;
+   engine's the dense int8 engine's; with speculation, on tiled and
+   random prompts, the streams against generate() and the spec-off
+   engine, a request whose budget ends inside a verify that accepted
+   drafts, and one whose EOS is an accepted draft with accepted tokens
+   after it, searched for over generated candidates (a mismatch is
+   allowed only at a top-1/top-2 gap below NEAR_TIE);
 6. K1/K2a/K2b vs plain: the flash-attention kernels of the training path
    against their plain versions (``mha_reference`` /
    ``flash_bwd_reference``) on the card, at the training shape (B=8, H=16,
@@ -222,6 +239,10 @@ TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-3, 2.0 ** -7)}
 # last bits. A token mismatch is tolerated only where the reference's
 # top-1/top-2 logit gap is below this.
 NEAR_TIE = 1e-4
+# Phase 5's search for an EOS inside an accepted draft (_eos_case): random
+# base prompts, the greedy span generated from each, the new tokens of each
+# candidate request, candidates served at once and at most in all.
+EOS_BASES, EOS_SPAN, EOS_NEW, EOS_BATCH, EOS_TRIES = 48, 128, 24, 4, 16
 
 # K1/K2 against their plain versions: each element must satisfy
 # |out - ref| <= rtol * |ref| + FLASH_ACC * mag, where mag is the sum of
@@ -369,6 +390,26 @@ SERVE_PATHS = [("serve", {}, "decode", "paged", N_REQUESTS, True),
                 "paged_q8", N_REQUESTS, True),
                ("serve_paged", PAGED, "paged", "paged", 4, False),
                ("serve_int8", {"int8_kv": True}, "q8", "paged_q8", 4, False)]
+# Speculative decoding, as the JAX package's serving benchmark runs it
+# (bench.py _measure_serving: spec_decode on, spec_k 4, spec_ngram 3), on
+# that benchmark's stream for it: request i tiles its own random
+# SPEC_PHRASE-token phrase to PROMPT_LENS[i % 2] tokens (bench.py:1098-1103).
+# Every fourth request opts out (submit(spec_decode=False)).
+SPEC = {"spec_decode": True, "spec_k": 4, "spec_ngram": 3}
+SPEC_PHRASE = 8
+VERIFY_S = SPEC["spec_k"] + 1
+# Serving paths with speculation, on the tiled stream, as SERVE_PATHS: the
+# dense pool (K3 at S = VERIFY_S), the same stream with speculation off
+# (the JAX bench's --no-spec-decode A/B; both profiled), the paged int8
+# pool (K6), and two 4-request arms: paged (K5) and int8 (K4).
+SPEC_PATHS = [("serve_spec", SPEC, "decode", "paged", N_REQUESTS, True),
+              ("serve_spec_off", {}, "decode", "paged", N_REQUESTS, True),
+              ("serve_paged_int8_spec", dict(PAGED, int8_kv=True, **SPEC),
+               "paged_q8", "paged_q8", N_REQUESTS, False),
+              ("serve_paged_spec", dict(PAGED, **SPEC), "paged", "paged", 4,
+               False),
+              ("serve_int8_spec", dict(SPEC, int8_kv=True), "q8", "paged_q8",
+               4, False)]
 # The step program's keys: (prefill lane present, any row samples, any row
 # filters top-k); an engine captures one CUDA graph per key it meets.
 MAX_PROGRAMS = 8
@@ -389,6 +430,13 @@ DECODE_POS = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000, 1023,
 # boundary (the kernels cut each row every da.SPLIT_KEYS keys).
 PREFILL_POS = [0, 31, 32, 500, PLANE - 32, da.SPLIT_KEYS - 1, da.SPLIT_KEYS,
                da.SPLIT_KEYS + 1]
+# The verify lane's frontiers (B16 S5): its first rows; 123-127, where the
+# split kernel's row group of 4 (rows 0-3) and of 1 (row 4) stop in
+# different splits at 124-127; the same around the second split boundary;
+# 500 and 1000; and the plane's end (PLANE - 5: the deepest frontier at
+# which 5 rows fit the plane).
+VERIFY_POS = [0, 1, 63, 123, 124, 125, 126, 127, 128, 2 * da.SPLIT_KEYS - 4,
+              2 * da.SPLIT_KEYS - 3, 500, 700, 1000, PLANE - 6, PLANE - 5]
 # A page length that does not divide da.SPLIT_KEYS: pages straddle the
 # splits (phase 3's paged cases at the decode and prefill shapes).
 ODD_PAGE_LEN = 48
@@ -590,7 +638,8 @@ def phase_kernels():
     """K3 against its plain version; returns the variant rows."""
     T = PLANE
     decode_pos = DECODE_POS
-    cases = [("decode", 16, 1, decode_pos)]
+    cases = [("decode", 16, 1, decode_pos),
+             ("verify", 16, VERIFY_S, VERIFY_POS)]
     cases += [("prefill_lane", 1, 32, [p]) for p in PREFILL_POS]
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -624,7 +673,7 @@ def phase_kernels():
                                 "ref": float(ref.float()[at_])}
                 print(json.dumps(row))
                 fail("K3 disagrees with its plain version")
-            if frontiers in ([500], decode_pos):
+            if frontiers in ([500], decode_pos, VERIFY_POS):
                 mask = torch.arange(T, device="cuda")[None, None, :] <= \
                     (pos[:, None, None].long()
                      + torch.arange(S, device="cuda")[None, :, None])
@@ -890,13 +939,16 @@ def _decode_check(label, c, dtype, frontiers):
 def phase_decode_variants():
     """K4, K5 and K6 against their plain versions at phase 3's cases, K5
     and K6 also against their dense twins bit for bit, K5 and K6 also at
-    pages of ODD_PAGE_LEN (the decode case and the prefill lane across a
-    split boundary) and at the dense pools' prefill lane (``_lane_variant``,
-    PREFILL_POS); times at the decode and the frontier-500 prefill cases.
-    Returns {kind: rows}."""
-    cases = [("decode", 16, 1, DECODE_POS, PAGE_LEN)]
+    pages of ODD_PAGE_LEN (the decode and verify cases and the prefill lane
+    across a split boundary) and at the dense pools' prefill lane
+    (``_lane_variant``, PREFILL_POS); times at the decode, verify and the
+    frontier-500 prefill cases. Returns {kind: rows}."""
+    cases = [("decode", 16, 1, DECODE_POS, PAGE_LEN),
+             ("verify", 16, VERIFY_S, VERIFY_POS, PAGE_LEN)]
     cases += [("prefill_lane", 1, 32, [p], PAGE_LEN) for p in PREFILL_POS]
     odd = [("decode_pages{}".format(ODD_PAGE_LEN), 16, 1, DECODE_POS,
+            ODD_PAGE_LEN),
+           ("verify_pages{}".format(ODD_PAGE_LEN), 16, VERIFY_S, VERIFY_POS,
             ODD_PAGE_LEN)]
     odd += [("prefill_lane_pages{}".format(ODD_PAGE_LEN), 1, 32,
              [da.SPLIT_KEYS + d], ODD_PAGE_LEN) for d in (-1, 0, 1)]
@@ -916,7 +968,8 @@ def phase_decode_variants():
                     print(label + " " + json.dumps(row))
                     fail("{} disagrees with its plain version or its dense "
                          "twin at {} {}".format(label, name, dtype))
-                if frontiers in ([500], DECODE_POS) and page_len == PAGE_LEN:
+                if frontiers in ([500], DECODE_POS, VERIFY_POS) and \
+                        page_len == PAGE_LEN:
                     row["ms"] = cuda_ms(c["kernel"])
                     row["plain_ms"] = cuda_ms(c["plain"])
                     row["bound_ms"], row["bound_by"] = _bound(
@@ -1040,22 +1093,43 @@ def _prompts(n, vocab, seed):
     return [rng.randint(0, vocab, size=PROMPT_LENS[i % 2]) for i in range(n)]
 
 
+def _tiled_prompts(n, vocab, seed):
+    """The speculation stream (SPEC): request i tiles its own random
+    SPEC_PHRASE-token phrase to PROMPT_LENS[i % 2] tokens."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        size = PROMPT_LENS[i % 2]
+        phrase = rng.randint(0, vocab, size=SPEC_PHRASE)
+        out.append(np.tile(phrase, -(-size // SPEC_PHRASE))[:size])
+    return out
+
+
+_SPEC_KEYS = ("spec_k", "spec_ngram", "accepted_per_step_mean",
+              "accepted_per_step_p50", "accepted_per_step_p99",
+              "draft_accept_rate")
+
+
 def phase_serve(card, model, label, extra, kernel, lane_kernel, n_requests,
-                profile):
+                profile, tiled=False):
     """One serving path through init_inference: ``n_requests`` of the mix
-    under SERVE plus ``extra``; the decode kernels' launch counts are reset
-    just before the run and read just after. The step programs: one CUDA
-    graph per key met, captured at its first step, every later step a
-    replay. Returns the launch counts."""
+    under SERVE plus ``extra`` (``tiled``: the speculation stream, every
+    fourth request opted out of speculation); the decode kernels' launch
+    counts are reset just before the run and read just after. The step
+    programs: one CUDA graph per key met, captured at its first step, every
+    later step a replay. Returns the launch counts and the path's line."""
     cfg = model.config
     engine = init_inference(model, config=dict(SERVE, **extra))
     reqs = []
-    for i, p in enumerate(_prompts(n_requests, cfg.vocab_size, seed=0)):
+    prompts = (_tiled_prompts if tiled else _prompts)(
+        n_requests, cfg.vocab_size, seed=0)
+    for i, p in enumerate(prompts):
         sampled = i % 6 == 5
         reqs.append(engine.submit(
             p, max_new_tokens=NEW_TOKENS,
             temperature=0.8 if sampled else 0.0,
-            top_k=50 if sampled else None, seed=i))
+            top_k=50 if sampled else None, seed=i,
+            spec_decode=False if tiled and i % 4 == 0 else None))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     da.reset_launches()
@@ -1107,6 +1181,11 @@ def phase_serve(card, model, label, extra, kernel, lane_kernel, n_requests,
             "kv_hbm_bytes": m["kv_hbm_bytes"],
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "card": card}
+    if tiled:
+        line.update(stream="tiled {}-token phrases, every fourth request "
+                    "opted out".format(SPEC_PHRASE),
+                    spec_decode=m["spec_decode"],
+                    **{key: m[key] for key in _SPEC_KEYS if key in m})
     stats = engine.kv_page_stats()
     if stats is not None:
         if stats["pages_in_use"] != 0:
@@ -1117,8 +1196,9 @@ def phase_serve(card, model, label, extra, kernel, lane_kernel, n_requests,
                     peak_pages_in_use=peak_pages)
     print(label + " " + json.dumps(line))
     if profile:
-        phase_profile(engine, cfg, label.replace("serve", "profile"))
-    return launches
+        phase_profile(engine, cfg, label.replace("serve", "profile"),
+                      tiled=tiled)
+    return launches, line
 
 
 class _EagerEngine(InferenceEngine):
@@ -1131,21 +1211,36 @@ class _EagerEngine(InferenceEngine):
 
 def phase_graph_vs_eager(model):
     """A graph-served engine against the same step program run eagerly, at
-    full width, dense and paged int8: GRAPH_CHECK_STEPS steps of one mix
-    (every third request sampled, one with top-k) must give the same
-    harvest (tokens, validity, first tokens, per-slot fields) at every step,
-    and the same pool (planes, scales, table, per-slot fields) after them,
-    bit for bit."""
+    full width, dense and paged int8, each without and with speculation
+    (SPEC, on the tiled stream, every fourth request from the second
+    opted out): GRAPH_CHECK_STEPS steps of one mix (every third request
+    sampled, one with top-k) must give the same harvest (tokens, validity,
+    first tokens, per-slot fields) at every step, and the same pool
+    (planes, scales, table, per-slot fields, token ring) after them, bit
+    for bit. One exception, printed under "pool_differs": a speculating
+    paged pool may differ where no read sees, in its trash page (page 0)
+    and in token-ring entries past a row's frontier. The frozen rows of
+    freed slots write their spec_k + 1 verify positions into the trash
+    page together, a CUDA indexed write with repeated indices keeps any
+    one of the values, and those rows read that page back: their choices,
+    written to the ring past their frontier, may differ too."""
     cfg = model.config
-    prompts = _prompts(GRAPH_CHECK_REQUESTS, cfg.vocab_size, seed=3)
     for label, extra in (("dense", {}),
-                         ("paged_int8", dict(PAGED, int8_kv=True))):
+                         ("paged_int8", dict(PAGED, int8_kv=True)),
+                         ("dense_spec", SPEC),
+                         ("paged_int8_spec", dict(PAGED, int8_kv=True,
+                                                  **SPEC))):
+        spec = "spec_decode" in extra
+        prompts = (_tiled_prompts if spec else _prompts)(
+            GRAPH_CHECK_REQUESTS, cfg.vocab_size, seed=3)
         runs = []
         for engine in (init_inference(model, config=dict(SERVE, **extra)),
                        _EagerEngine(model, config=dict(SERVE, **extra))):
             for i, p in enumerate(prompts):
                 kw = {"temperature": 0.8, "seed": i,
                       "top_k": 50 if i == 2 else None} if i % 3 == 2 else {}
+                if spec and i % 4 == 1:
+                    kw["spec_decode"] = False
                 engine.submit(p, max_new_tokens=NEW_TOKENS, **kw)
             snaps = []
             for _ in range(GRAPH_CHECK_STEPS):
@@ -1159,10 +1254,7 @@ def phase_graph_vs_eager(model):
                 if not np.array_equal(a[name], b[name]):
                     fail("graph_vs_eager {}: step {}: {} differs".format(
                         label, step, name))
-        for name, t in graphed._pool.items():
-            if not torch.equal(t, eager._pool[name]):
-                fail("graph_vs_eager {}: pool {} differs after {} steps"
-                     .format(label, name, GRAPH_CHECK_STEPS))
+        pool_diffs = _pool_diffs(graphed, eager, spec, label)
         m = graphed.metrics()
         if m["compile_count"] > MAX_PROGRAMS or \
                 m["graph_replays"] != GRAPH_CHECK_STEPS - m["compile_count"]:
@@ -1171,18 +1263,51 @@ def phase_graph_vs_eager(model):
                                   m["graph_replays"],
                                   sorted(graphed._programs)))
         print("graph_vs_eager " + json.dumps({
-            "layout": label, "steps": GRAPH_CHECK_STEPS,
+            "layout": label, "spec_decode": spec,
+            "accepted_per_step_mean": m.get("accepted_per_step_mean"),
+            "steps": GRAPH_CHECK_STEPS,
             "compile_count": m["compile_count"],
             "graph_replays": m["graph_replays"],
             "tokens_compared": int(sum(s["valid"].sum() for s in got)),
-            "identical": True}))
+            "harvests_identical": True, "pool_differs": pool_diffs}))
         del graphed, eager, runs
 
 
-def phase_profile(engine, cfg, label, warm=4, window=3):
+def _pool_diffs(graphed, eager, spec, label):
+    """Compare two engines' pools in full: per tensor that differs, the
+    number of differing elements and, for k/v and scales, the pages they
+    lie in. Only a speculating paged pool may differ, and only where no
+    read sees (``phase_graph_vs_eager``): page 0 of k/v and scales, and
+    token-ring entries past a row's frontier. Anything else fails,
+    printing the first differing indices."""
+    out = {}
+    pos = graphed._pool["pos"].long()
+    paged = spec and "block_tbl" in graphed._pool
+    for name, t in graphed._pool.items():
+        idx = (t != eager._pool[name]).nonzero()
+        if not len(idx):
+            continue
+        out[name] = {"elements": len(idx)}
+        if name in ("k", "v", "k_scale", "v_scale"):
+            out[name]["pages"] = sorted(set(idx[:, 1].tolist()))
+            unread = paged and out[name]["pages"] == [0]
+        else:
+            unread = paged and name == "toks" and bool(
+                (idx[:, 1] > pos[idx[:, 0]]).all())
+        if not unread:
+            fail("graph_vs_eager {}: pool {} differs after {} steps at {} "
+                 "elements, first {}".format(label, name, GRAPH_CHECK_STEPS,
+                                             len(idx), idx[:8].tolist()))
+    return out
+
+
+def phase_profile(engine, cfg, label, warm=4, window=3, tiled=False):
     """Where a mixed step's time goes: torch.profiler over ``window``
-    steps of a full pool (16 fresh requests, ``warm`` steps in)."""
-    for i, p in enumerate(_prompts(SERVE["max_slots"], cfg.vocab_size, 2)):
+    steps of a full pool (16 fresh requests, ``warm`` steps in; ``tiled``:
+    the speculation stream's prompts)."""
+    prompts = (_tiled_prompts if tiled else _prompts)(
+        SERVE["max_slots"], cfg.vocab_size, 2)
+    for i, p in enumerate(prompts):
         engine.submit(p, max_new_tokens=48, seed=i)
     for _ in range(warm):
         engine.step()
@@ -1258,6 +1383,41 @@ def _gap(model, ids):
     return float(top[0] - top[1])
 
 
+def _held_to(model, prompt, got, ref, what):
+    """Phase 5's rule: ``got`` equals ``ref``, or first differs from it
+    where ``ref``'s top-1/top-2 fp32 logit gap is below NEAR_TIE (printed;
+    a clear argmax fails). True when equal."""
+    if got == ref:
+        return True
+    j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+             min(len(got), len(ref)))
+    gap = _gap(model, np.concatenate([prompt, ref[:j]]))
+    print("greedy: {}: divergence at token {}, top-1/top-2 gap {:.3e}".format(
+        what, j, gap))
+    if gap >= NEAR_TIE:
+        fail("greedy {}: streams differ at a clear argmax (gap {:.3e})".format(
+            what, gap))
+    return False
+
+
+def _spec_groups(engine, prompts, new):
+    """Serve ``prompts`` greedily, step by step; each request's tokens and,
+    per verify that emitted for it (one of a step's chunk_size), the tokens
+    it accepted."""
+    reqs = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    groups = {r.rid: [] for r in reqs}
+    while not engine.idle:
+        slots = {r.slot: r for r in reqs if r.slot is not None}
+        engine.step()
+        snap = engine._last_snap
+        for slot, r in slots.items():
+            for toks, valid in zip(snap["toks"][:, slot],
+                                   snap["valid"][:, slot]):
+                if valid.any():
+                    groups[r.rid].append(toks[valid].tolist())
+    return [r.tokens for r in reqs], [groups[r.rid] for r in reqs]
+
+
 def phase_greedy():
     cfg = GPT2Config(n_embd=1024, n_layer=4, n_head=16, dtype=torch.float32)
     model = GPT2LMHeadModel(cfg, device="cuda", seed=1)
@@ -1269,16 +1429,7 @@ def phase_greedy():
     for p, got in zip(prompts, outs):
         ref = generation.generate(model, p[None], new,
                                   temperature=0.0)[0].tolist()
-        if got == ref:
-            exact += 1
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
-        gap = _gap(model, np.concatenate([p, ref[:j]]))
-        print("greedy: divergence at token {}, top-1/top-2 gap {:.3e}".format(
-            j, gap))
-        if gap >= NEAR_TIE:
-            fail("greedy streams differ at a clear argmax (gap {:.3e})".format(
-                gap))
+        exact += _held_to(model, p, got, ref, "engine vs generate()")
     print("greedy: {}/{} streams identical to generate()".format(
         exact, len(prompts)))
     # K5 and K6 do K3's and K4's arithmetic: the paged engines' streams are
@@ -1296,6 +1447,162 @@ def phase_greedy():
         print("greedy: paged{} streams identical to dense{} ({} x {} "
               "tokens)".format(" int8" if int8 else "",
                                " int8" if int8 else "", len(prompts), new))
+    _greedy_spec(model, new)
+
+
+def _greedy_spec(model, new):
+    """Phase 5 with speculation (SPEC) on tiled and on random prompts (the
+    latter phase 5's own): the spec engine's greedy streams against
+    generate() and against the spec-off engine under the gap rule (a
+    verify computes a position's logits in a GEMM of slots x (spec_k + 1)
+    rows, the plain step in one of slots rows). Then, against the first
+    run's streams cut there, a request whose budget ends inside a verify
+    that accepted more than two tokens; and a request whose EOS is an
+    accepted draft with accepted tokens after it (``_eos_case``)."""
+    cfg = model.config
+    prompts = _tiled_prompts(4, cfg.vocab_size, seed=1) + \
+        _prompts(4, cfg.vocab_size, seed=1)
+    spec = init_inference(model, config=dict(SERVE, max_slots=4, **SPEC))
+    streams, groups = _spec_groups(spec, prompts, new)
+    m = spec.metrics()
+    off = init_inference(model, config=dict(SERVE, max_slots=4)).generate(
+        prompts, max_new_tokens=new)
+    vs_gen = vs_off = 0
+    for p, got, plain in zip(prompts, streams, off):
+        ref = generation.generate(model, p[None], new,
+                                  temperature=0.0)[0].tolist()
+        vs_gen += _held_to(model, p, got, ref, "spec vs generate()")
+        vs_off += _held_to(model, p, got, plain, "spec vs spec off")
+    cut_case = None
+    for r, gs in enumerate(groups):
+        at = 1  # the first token comes from the prefill lane
+        for g in gs:
+            if cut_case is None and len(g) > 2:
+                cut_case = (r, at, len(g))
+            at += len(g)
+    if cut_case is None:
+        fail("greedy spec: no verify accepted more than two tokens")
+    r_c, i_c, n_c = cut_case
+    eng = init_inference(model, config=dict(SERVE, max_slots=4, **SPEC))
+    b = eng.submit(prompts[r_c], max_new_tokens=i_c + 1)
+    eng.run()
+    _held_to(model, prompts[r_c], b.tokens, streams[r_c][:i_c + 1],
+             "spec budget inside an accepted draft")
+    if len(b.tokens) != i_c + 1:
+        fail("greedy spec: the budget case did not stop there ({} tokens "
+             "of {})".format(len(b.tokens), i_c + 1))
+    print("greedy_spec " + json.dumps({
+        "streams": len(prompts), "new_tokens": new,
+        "identical_to_generate": vs_gen, "identical_to_spec_off": vs_off,
+        "accepted_per_step_mean": m["accepted_per_step_mean"],
+        "draft_accept_rate": m["draft_accept_rate"],
+        "eos_case": _eos_case(model, eng),
+        "budget_case": {"request": r_c, "token": i_c, "verify_accepted": n_c,
+                        "tokens": len(b.tokens)}}))
+
+
+def _accepts(seq, n, k):
+    """Per frontier p of ``seq`` (a prompt and its greedy continuation, one
+    list), the tokens a greedy verify there accepts: 1 plus the length of
+    the draft prefix that ``seq`` goes on with. The draft is the n-gram
+    rule of ``generation.ngram_draft`` on ``seq[:p + 1]``, here in plain
+    Python: the k tokens after the most recent earlier end of the trailing
+    n-gram, clipped to p; seq[p] k times without one. None where seq ends
+    within k tokens of p."""
+    last, acc = {}, [None] * len(seq)
+    for p in range(n - 1, len(seq)):
+        gram = tuple(seq[p - n + 1:p + 1])
+        j = last.get(gram)
+        last[gram] = p
+        if p + k >= len(seq):
+            continue
+        draft = ([seq[min(j + 1 + a, p)] for a in range(k)]
+                 if j is not None else [seq[p]] * k)
+        a = 0
+        while a < k and draft[a] == seq[p + 1 + a]:
+            a += 1
+        acc[p] = a + 1
+    return acc
+
+
+def _eos_candidates(prompt, stream, new, n, k):
+    """Requests whose greedy stream holds an accepted draft token with
+    accepted tokens after it that is the stream's first of its kind (an EOS
+    there cuts the accepted prefix). The request ``prompt + stream[:cut]``
+    continues greedily with ``stream[cut:]``, so its verifies follow from
+    ``_accepts``: returns (lane in its verify, cut, index in the request's
+    stream, tokens that verify accepted) for each such token of the
+    request's ``new``."""
+    seq = list(prompt) + list(stream)
+    acc = _accepts(seq, n, k)
+    out = []
+    for cut in range(len(stream) - new - k):
+        start = len(prompt) + cut  # the prefill lane's first token
+        p, at = start, 1
+        while at < new:
+            a = min(acc[p], new - at)
+            out += [(lane, cut, at + lane, a) for lane in range(a - 1)
+                    if seq[p + 1 + lane] not in seq[start:p + 1 + lane]]
+            p, at = p + a, at + a
+    return out
+
+
+def _eos_case(model, eng):
+    """A request whose EOS is an accepted draft with accepted tokens after
+    it, so the EOS cuts the accepted prefix. On random weights greedy
+    streams mostly repeat a token, so a new token seldom sits inside an
+    accepted run: the case is searched for. EOS_BASES random prompts are
+    continued EOS_SPAN tokens by generate(); every cut of each continuation
+    is a candidate request (the base prompt plus the continuation up to the
+    cut), its verifies simulated by ``_eos_candidates``. The candidates are
+    served, EOS_BATCH at a time (at most EOS_TRIES), on the spec engine
+    ``eng`` until one's own verifies hold such a token (a draft lane before
+    the last it accepted, its first occurrence in the stream); that token
+    is the EOS of a second run, which must stop right after it and equal
+    the first run's stream up to it. Fails if no candidate has one."""
+    cfg = model.config
+    k, n = SPEC["spec_k"], SPEC["spec_ngram"]
+    rng = np.random.RandomState(11)
+    bases = rng.randint(0, cfg.vocab_size, size=(EOS_BASES, PROMPT_LENS[0]))
+    spans = generation.generate(model, bases, EOS_SPAN,
+                                temperature=0.0).tolist()
+    sims = sorted((-lane, r, cut) for r, (p, s) in enumerate(zip(bases, spans))
+                  for lane, cut, _, _ in _eos_candidates(p, s, EOS_NEW, n, k))
+    picks = list(dict.fromkeys((r, cut) for _, r, cut in sims))[:EOS_TRIES]
+    found, served = None, 0
+    for at in range(0, len(picks), EOS_BATCH):
+        batch = picks[at:at + EOS_BATCH]
+        prompts = [np.concatenate([bases[r], spans[r][:cut]])
+                   for r, cut in batch]
+        streams, groups = _spec_groups(eng, prompts, EOS_NEW)
+        served += len(batch)
+        for (r, cut), p, s, gs in zip(batch, prompts, streams, groups):
+            _held_to(model, p, s, spans[r][cut:cut + EOS_NEW],
+                     "spec EOS candidate vs generate()")
+            i = 1  # the first token comes from the prefill lane
+            for g in gs:
+                for lane in range(len(g) - 1):
+                    if s.index(s[i + lane]) == i + lane and (
+                            found is None or lane > found[3]):
+                        found = (p, s, i + lane, lane, len(g))
+                i += len(g)
+        if found is not None:
+            break
+    if found is None:
+        fail("greedy spec: none of {} candidate requests ({} simulated) "
+             "emitted a new token inside an accepted run".format(
+                 served, len(sims)))
+    p, s, i, lane, acc = found
+    eos = s[i]
+    req = eng.submit(p, max_new_tokens=EOS_NEW, eos_token_id=eos)
+    eng.run()
+    _held_to(model, p, req.tokens, s[:i + 1], "spec EOS in a verify")
+    if len(req.tokens) != i + 1 or req.tokens[-1] != eos:
+        fail("greedy spec: the EOS case did not stop at the EOS ({} tokens, "
+             "EOS {} at {})".format(len(req.tokens), eos, i))
+    return {"candidates_simulated": len(sims), "candidates_served": served,
+            "token": i, "lane_in_verify": lane, "verify_accepted": acc,
+            "cuts_the_accepted_prefix": True, "tokens": len(req.tokens)}
 
 
 def _flash_inputs(B, T, dtype, masked, seed):
@@ -2525,10 +2832,37 @@ def _row_kernel_rows(rows, launches):
     return out
 
 
-def _decode_variant_rows(rows, launches):
+def _spec_launches(line, path, n_layer):
+    """A speculating serve path's launches of its decode kernel, from its
+    line (``phase_serve`` has checked them against the counts): n_layer
+    per verify step at S = VERIFY_S, and n_layer per prefill lane at S =
+    prefill_chunk where the lane runs the same kernel (paged pools)."""
+    return {"launches": n_layer * line["decode_steps"],
+            "prefill_lane_launches": (n_layer * line["prefill_lanes"]
+                                      if path[3] == path[2] else 0)}
+
+
+def _verify_row(rows, shape, launches):
+    """A decode kernel at the verify lane's shape (the bf16 B16 S VERIFY_S
+    case of ``rows``): its times and bound, and from the serving path with
+    speculation its launches at that shape and, apart, those of the path's
+    prefill lanes (``_spec_launches``), under "verify" in the kernel's
+    entry."""
+    row = next(r for r in rows if r["case"] == "verify"
+               and r["dtype"] == "bfloat16" and "ms" in r)
+    out = {key: row.get(key) for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "max_abs_err", "max_err_over_limit")}
+    out.update(shape=shape, pos=row["pos"], **launches)
+    return out
+
+
+def _decode_variant_rows(rows, launches, verify_launches):
     """The kernels-line entries of K4, K5 and K6: times at the bf16 decode
     case, errors over every case and dtype, launches from each one's
-    serving path (K6 the slice's main path, K5 and K4 its two arms)."""
+    serving path (K6 the slice's main path, K5 and K4 its two arms); under
+    "verify" the same at the verify lane's shape, with the launches of the
+    speculating paths."""
     specs = {"q8": ("decode_attention_q8", 312,
                     "B16 H16 S1 T{} D64, int8 codes + fp32 scales, bf16 q"
                     .format(PLANE)),
@@ -2558,7 +2892,9 @@ def _decode_variant_rows(rows, launches):
             "bound_by": main_row["bound_by"], "library_ms": None,
             "library_note": "no single PyTorch call computes int8 or paged "
                             "decode attention",
-            "shape": shape})
+            "shape": shape,
+            "verify": _verify_row(rows[kind], shape.replace(
+                "S1", "S{}".format(VERIFY_S)), verify_launches[kind])})
     return out
 
 
@@ -2573,15 +2909,26 @@ def main():
     softmax_rows, softmax_launches = phase_softmax()
     model = GPT2LMHeadModel(GPT2Config.gpt2_medium(dtype=torch.bfloat16),
                             device="cuda", seed=0)
-    serve = {path[0]: phase_serve(card, model, *path)
+    serve = {path[0]: phase_serve(card, model, *path)[0]
              for path in SERVE_PATHS}
+    spec = {path[0]: phase_serve(card, model, *path, tiled=True)
+            for path in SPEC_PATHS}
+    on, off = spec["serve_spec"][1], spec["serve_spec_off"][1]
+    if on["program_keys"] != off["program_keys"]:
+        fail("serve_spec met the keys {} and serve_spec_off {}: speculation "
+             "must not add a program".format(on["program_keys"],
+                                             off["program_keys"]))
     phase_graph_vs_eager(model)
+    n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill
     # lanes: K3 dense, K6 paged int8 (the slice's main path), K5 and K4
-    # their arms.
+    # their arms; with speculation (S = VERIFY_S), the same from SPEC_PATHS.
     serve_launches = {path[2]: serve[path[0]][path[2]]
                       for path in SERVE_PATHS}
+    verify_launches = {path[2]: _spec_launches(spec[path[0]][1], path,
+                                               n_layer)
+                       for path in SPEC_PATHS if path[1]}
     launches = serve_launches["decode"]
     phase_greedy()
     train_launches = phase_train(card)
@@ -2605,10 +2952,13 @@ def main():
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": "B16 H16 S1 T{} D64 bf16".format(PLANE),
+        "verify": _verify_row(rows, "B16 H16 S{} T{} D64 bf16".format(
+            VERIFY_S, PLANE), verify_launches["decode"]),
         "split_keys": da.SPLIT_KEYS,
         "combine": {key: main_row["combine"][key] for key in (
             "ms", "bound_ms", "max_abs_err", "max_err_over_limit")}}]
-    kernels += _decode_variant_rows(variant_rows, serve_launches)
+    kernels += _decode_variant_rows(variant_rows, serve_launches,
+                                    verify_launches)
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
                                   split_rows)
     kernels += _row_kernel_rows(row_rows, bert_launches)

@@ -45,3 +45,12 @@ class GPT2Adapter(ModelAdapter):
 
     def decode_step(self, params, tok, cache):
         return generation.decode_step(params, tok, cache)
+
+    def verify_forward(self, params, ids, cache):
+        return generation.verify_forward(params, ids, cache)
+
+    def ngram_draft(self, toks, pos, n, k):
+        return generation.ngram_draft(toks, pos, n, k)
+
+    def accept_counts(self, draft, choices, ok=None):
+        return generation.accept_counts(draft, choices, ok=ok)

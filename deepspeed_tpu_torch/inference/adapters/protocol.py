@@ -13,8 +13,10 @@ a row's frontier may hold garbage that is masked or overwritten before the
 frontier reaches them; and row b's logits depend only on row b's tokens and
 frontier.
 
-Speculative verify and drafting (``verify_forward``, ``ngram_draft``,
-``accept_counts``) come with the speculation slice.
+Speculation adds three methods: ``verify_forward`` scores a slot's frontier
+token and its drafts in one forward without moving the frontier,
+``ngram_draft`` drafts from the slot's own tokens, and ``accept_counts``
+applies the accept rule.
 """
 
 
@@ -43,6 +45,23 @@ class ModelAdapter:
     def decode_step(self, params, tok, cache):
         """Feed ``tok`` [B] at each row's frontier. Returns (fp32 logits
         [B, V], advanced cache)."""
+        raise NotImplementedError
+
+    def verify_forward(self, params, ids, cache):
+        """Score ``ids`` [B, S] at each row's frontier, writing their k/v,
+        WITHOUT advancing it. Returns (fp32 logits [B, S, V], cache with
+        ``pos`` unchanged)."""
+        raise NotImplementedError
+
+    def ngram_draft(self, toks, pos, n, k):
+        """Draft ``k`` tokens per row from the token ring ``toks`` [B, T]
+        up to each frontier ``pos`` [B] by ``n``-gram lookup. Returns
+        int64 [B, k]."""
+        raise NotImplementedError
+
+    def accept_counts(self, draft, choices, ok=None):
+        """Tokens accepted per row, 1..K+1, from drafts [B, K] and the
+        model's choices [B, K+1]; ``ok`` vetoes agreement."""
         raise NotImplementedError
 
     def bind(self, config):

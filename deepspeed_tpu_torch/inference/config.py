@@ -2,8 +2,9 @@
 
 Counterpart of ``deepspeed_tpu/inference/config.py``. The dataclass holds
 the settings the port reads, with the JAX package's defaults: chunked
-prefill into a dense or paged slotted pool of fp or int8 planes, no
-speculation.
+prefill into a dense or paged slotted pool of fp or int8 planes, and
+speculative decoding (``spec_decode``, ``spec_k``, ``spec_ngram``; see
+``resolved_spec_decode``).
 
 There is no switch for the step's CUDA graphs, as the JAX package has
 none for its jit: on the card the engine always captures its step
@@ -18,12 +19,12 @@ another path. A key neither package knows raises ValueError.
 """
 
 import dataclasses
+import os
 from typing import Optional
 
 _FLEET = "the reliability and fleet slice (ROADMAP Queue 1)"
 _HIERARCHY = ("the prefix and offload tiers of the KV hierarchy (ROADMAP "
               "Queue 1)")
-_SPEC = "the speculative decoding slice (ROADMAP Queue 1)"
 _TELEMETRY = "the telemetry slice (ROADMAP Queue 1)"
 
 # JAX-package key -> (values the port accepts, the slice that ports the
@@ -36,9 +37,6 @@ _UNPORTED = {
     "use_flash_decode": ((None, True), "no slice: the port's one attention "
                          "path is kernel K3 on the GPU and its plain version "
                          "on the CPU"),
-    "spec_decode": ((None, False), _SPEC),
-    "spec_k": ((4,), _SPEC),
-    "spec_ngram": ((3,), _SPEC),
     # The port has no telemetry: switching it off asks for what it does.
     "telemetry": ((True, False), _TELEMETRY),
     "trace_ring": ((4096,), _TELEMETRY),
@@ -82,10 +80,17 @@ class InferenceConfig:
     kv_pages: Optional[int] = None
     # int8 KV planes with fp32 per-(head, position) scales.
     int8_kv: bool = False
+    # Speculative decoding: each decode step drafts spec_k tokens by
+    # spec_ngram-gram lookup over the slot's own tokens and verifies them
+    # in one forward of spec_k + 1 query rows. None defers to the
+    # environment (resolved_spec_decode).
+    spec_decode: Optional[bool] = None
+    spec_k: int = 4
+    spec_ngram: int = 3
 
     def __post_init__(self):
         for name in ("max_slots", "chunk_size", "max_queue", "prefill_chunk",
-                     "max_len", "kv_page_len"):
+                     "max_len", "kv_page_len", "spec_k", "spec_ngram"):
             if getattr(self, name) < 1:
                 raise ValueError("inference.{} must be >= 1, got {}".format(
                     name, getattr(self, name)))
@@ -111,6 +116,19 @@ class InferenceConfig:
                     "inference.{}={!r} is not ported yet: {}".format(
                         name, block[name], where))
         return cls(**{k: v for k, v in block.items() if k in fields})
+
+    def resolved_spec_decode(self):
+        """The effective speculation switch, as the JAX config resolves it:
+        the explicit field wins; None defers to the ``DS_TPU_SPEC_DECODE``
+        environment variable (any value but ``0`` / ``false`` turns it on);
+        the default is off. The JAX config applies the variable only where
+        chunked prefill is on, and the port serves only that path."""
+        if self.spec_decode is not None:
+            return bool(self.spec_decode)
+        env = os.environ.get("DS_TPU_SPEC_DECODE", "")
+        if env:
+            return env not in ("0", "false")
+        return False
 
     def validate_against_model(self, n_positions):
         if self.max_len > n_positions:

@@ -1,9 +1,9 @@
 """InferenceEngine: continuous-batching serving over the slotted KV pool.
 
 Counterpart of ``deepspeed_tpu/inference/engine.py``: chunked prefill into a
-dense or paged pool of fp or int8 planes, no speculation. Every step is the
-JAX package's mixed step, ``_mixed_step_program``, in which every
-per-request fact is a tensor:
+dense or paged pool of fp or int8 planes, with or without speculative
+decoding. Every step is the JAX package's mixed step,
+``_mixed_step_program``, in which every per-request fact is a tensor:
 
 - PREFILL LANE: when a slot is mid-prompt, append one ``prefill_chunk``
   slice of the oldest prefilling request at its cursor (the adapter's
@@ -16,6 +16,23 @@ per-request fact is a tensor:
 - DECODE LANE: advance every slot ``chunk_size`` tokens with the adapter's
   ``decode_step``. Inactive slots flow through frozen: their frontier is
   pinned and their emissions masked, so occupancy never changes a shape.
+
+SPECULATIVE DECODING (``inference.spec_decode``; prompt-lookup drafting,
+no draft model) swaps the decode lane's body for a draft/verify step
+(``_spec_decode_chunk_program``): each slot drafts ``spec_k`` tokens by
+``spec_ngram``-gram lookup over its own token ring (``kv_pool``), one
+``verify_forward`` scores its frontier token and the drafts (``spec_k + 1``
+query rows through K3-K6) without moving the frontier, and the longest
+draft prefix that agrees with the model's own choices is accepted with the
+choice after it: 1..spec_k+1 tokens per slot per step. Rollback is not
+moving the frontier: rejected positions hold k/v and ring entries past it,
+masked or overwritten before it gets there. Every choice is drawn at its
+own (seed, position), so greedy and sampled streams are those of the plain
+decode lane. Speculation is an engine-lifetime fact, like the JAX static
+argument: it sizes the plane slack (``max(prefill_chunk, spec_k + 1)``),
+the ring and the harvest, and it is not part of the program key. A request
+that opts out (``submit(spec_decode=False)``) rides the same program: its
+slot's ``spec`` field vetoes agreement, so it emits one token per step.
 
 ONE PROGRAM PER KEY, CAPTURED ON THE CARD. The JAX engine jits the step
 once (``compile_count`` 1 whatever the prompt mix); its ``lax.cond``
@@ -60,6 +77,8 @@ runs K3/K4 over dense planes and K5/K6 over paged ones.
 
 Telemetry, perf x-ray, resilience and fault injection, the prefix and
 offload tiers of the KV hierarchy and tensor parallelism are later slices.
+The accept statistics of ``metrics()`` are cumulative (the port has no
+telemetry window yet).
 """
 
 import time
@@ -73,9 +92,9 @@ from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.kv_hierarchy import (KVHierarchy,
                                                         spec_from_config)
 from deepspeed_tpu_torch.inference.kv_pool import (
-    cache_view, clear_step_inputs, init_pool, max_active_frontier,
-    paged_plane_len, plane_len_for, pool_nbytes, slot_cache_view,
-    step_harvest, step_inputs)
+    HARVEST_FIELDS, cache_view, clear_step_inputs, init_pool,
+    max_active_frontier, paged_plane_len, plane_len_for, pool_nbytes,
+    slot_cache_view, step_harvest, step_inputs)
 from deepspeed_tpu_torch.inference.paging import PageAllocator
 from deepspeed_tpu_torch.inference.scheduler import Scheduler
 from deepspeed_tpu_torch.models.generation import ServingWeights
@@ -88,11 +107,11 @@ from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
 def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
                           any_top_k):
     """Advance every ACTIVE slot ``chunk`` tokens, in place. Writes
-    ``harvest['toks'][t]`` (slot s's token at step t, -1 where frozen) and
-    ``harvest['valid'][t]`` (slot s active at step t). Frozen slots still
-    run ``decode_step``; their frontier is pinned, so their writes land at
-    their own frozen frontier, where a later admission overwrites them
-    before any mask can see them."""
+    ``harvest['toks'][t]`` [slots, 1] (slot s's token at step t, -1 where
+    frozen) and ``harvest['valid'][t]`` (slot s active at step t). Frozen
+    slots still run ``decode_step``; their frontier is pinned, so their
+    writes land at their own frozen frontier, where a later admission
+    overwrites them before any mask can see them."""
     for t in range(chunk):
         # ``active`` and ``pos`` alias the pool's fields: every value below
         # is computed from them before the in-place updates at the end.
@@ -107,10 +126,75 @@ def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
                                 pool["remaining"])
         new_pos = torch.where(active, cache["pos"], pos)
         new_active = active & ~hit_eos & (remaining > 0)
-        harvest["toks"][t].copy_(torch.where(active, nxt, -1))
-        harvest["valid"][t].copy_(active)
+        harvest["toks"][t].copy_(torch.where(active, nxt, -1)[:, None])
+        harvest["valid"][t].copy_(active[:, None])
         pos.copy_(new_pos)
         pool["last_tok"].copy_(nxt)
+        pool["remaining"].copy_(remaining)
+        active.copy_(new_active)
+
+
+def _spec_decode_chunk_program(params, adapter, chunk, spec_k, spec_ngram,
+                               pool, harvest, any_sample, any_top_k):
+    """The decode lane with speculation (module docstring): ``chunk``
+    draft/verify steps, in place. Per slot and step: draft ``spec_k``
+    tokens from the ring, score ``[last_tok, draft]`` in one
+    ``verify_forward`` at the frontier, draw the model's choice at every
+    position ``pos + 1 + i`` with the sampler the plain lane uses, accept
+    the agreeing draft prefix plus one (vetoed where ``spec`` is False),
+    clamp to the budget, cut after an EOS inside the accepted prefix, and
+    advance the frontier by the accepted count. All ``spec_k + 1`` choices
+    land in the ring at ``pos + 1`` (frozen rows too; entries past the new
+    frontier are stale-rule garbage). Writes ``harvest['toks'][t]`` [slots,
+    spec_k + 1] (-1 where not emitted) and ``harvest['valid'][t]``."""
+    kp1 = spec_k + 1
+    ring = pool["toks"]
+    dev = ring.device
+    lanes = torch.arange(kp1, device=dev)[None]
+    rows = torch.arange(ring.shape[0], device=dev)[:, None]
+    for t in range(chunk):
+        # ``active`` and ``pos`` alias the pool's fields: every value below
+        # is computed from them before the in-place updates at the end.
+        active, pos = pool["active"], pool["pos"]
+        draft = adapter.ngram_draft(ring, pos, spec_ngram, spec_k)
+        ids = torch.cat([pool["last_tok"][:, None], draft], dim=1)
+        logits, _ = adapter.verify_forward(params, ids, cache_view(pool))
+        R = ids.shape[0]
+        # choices[:, i]: the model's pick for position pos + 1 + i, each
+        # row's sampling parameters repeated over its lanes.
+        at = pos.to(torch.int64)[:, None] + 1 + lanes
+
+        def per_lane(x):
+            return x[:, None].expand(R, kp1).reshape(-1)
+
+        choices = _sample_rows(
+            logits.reshape(R * kp1, -1), per_lane(pool["temp"]),
+            per_lane(pool["top_k"]), per_lane(pool["seed"]), at.reshape(-1),
+            any_sample, any_top_k).reshape(R, kp1)
+        n_acc = adapter.accept_counts(draft, choices,
+                                      ok=pool["spec"][:, None])
+        # The budget clamp first (at least 1, so a frozen row's gather
+        # stays in range), then EOS truncation inside the accepted prefix:
+        # emit the EOS, then stop, as the plain lane does.
+        n_acc = torch.minimum(n_acc, pool["remaining"].clamp(min=1).long())
+        eos = pool["eos"][:, None]
+        is_eos = (eos >= 0) & (choices == eos) & (lanes < n_acc[:, None])
+        hit_eos = is_eos.any(dim=1)
+        n_acc = torch.where(hit_eos, is_eos.to(torch.int32).argmax(dim=1) + 1,
+                            n_acc)
+        last = choices.gather(1, (n_acc - 1)[:, None])[:, 0]
+        remaining = torch.where(active, pool["remaining"] - n_acc,
+                                pool["remaining"])
+        new_pos = torch.where(active, pos + n_acc, pos)
+        new_last = torch.where(active, last, pool["last_tok"])
+        new_active = active & ~hit_eos & (remaining > 0)
+        ok = active[:, None] & (lanes < n_acc[:, None])
+        harvest["toks"][t].copy_(torch.where(ok, choices, -1))
+        harvest["valid"][t].copy_(ok)
+        # No clamp: an entry past the ring raises (the slack covers it).
+        ring[rows, at] = choices
+        pos.copy_(new_pos)
+        pool["last_tok"].copy_(new_last)
         pool["remaining"].copy_(remaining)
         active.copy_(new_active)
 
@@ -121,7 +205,10 @@ def _prefill_lane(params, adapter, pool, inp, any_sample, any_top_k):
     and advance its frontier. On the prompt's final slice (``inp['done']``)
     install the first token, sampled at position ``frontier + n_valid``,
     and the request's decode state; otherwise every field but ``pos``
-    keeps its value (``torch.where`` on the slot's row). Every fact is a
+    keeps its value (``torch.where`` on the slot's row). On a speculating
+    engine the lane keeps the slot's token ring: the slice at the frontier
+    (pad columns land past the advanced frontier, stale-rule garbage) and,
+    when ``done``, the first token at the new frontier. Every fact is a
     tensor of ``inp`` (``kv_pool.step_inputs``); returns the first token
     [1] (-1 unless ``done``)."""
     ids, slot, done = inp["ids"], inp["slot"], inp["done"]
@@ -141,22 +228,29 @@ def _prefill_lane(params, adapter, pool, inp, any_sample, any_top_k):
     for name, val in (("last_tok", first), ("active", done & ~finished),
                       ("remaining", inp["max_new"] - 1), ("eos", inp["eos"]),
                       ("temp", inp["temp"]), ("top_k", inp["top_k"]),
-                      ("seed", inp["seed"])):
+                      ("seed", inp["seed"]), ("spec", inp["spec"])):
         field = pool[name]
         field.index_copy_(0, slot, torch.where(
             done, val.to(field.dtype), field.index_select(0, slot)))
     pool["pos"].index_copy_(0, slot, cache["pos"])
+    if "toks" in pool:
+        ring = pool["toks"]
+        ring[slot, frontier.long() + torch.arange(C, device=ids.device)] = \
+            ids[0]
+        at = (frontier + n_valid).long()
+        ring[slot, at] = torch.where(done, first, ring[slot, at])
     return torch.where(done, first, -1)
 
 
-def _mixed_step_program(params, adapter, chunk, pool, inp, harvest, lane,
-                        any_sample, any_top_k):
+def _mixed_step_program(params, adapter, chunk, spec, pool, inp, harvest,
+                        lane, any_sample, any_top_k):
     """One serving step on the pool in place: pin the frontiers of slots
     admitted this step (paged pools), the prefill lane when ``lane``, then
-    the decode lane; fill ``harvest`` (``kv_pool.step_harvest``'s device
-    views). ``inp`` are ``kv_pool.step_inputs``' device views. ``lane``,
-    ``any_sample`` and ``any_top_k`` are the program's key; every other
-    fact is a tensor."""
+    the decode lane, speculative when ``spec`` (the engine-lifetime
+    ``(spec_k, spec_ngram)``, or None); fill ``harvest``
+    (``kv_pool.step_harvest``'s device views). ``inp`` are
+    ``kv_pool.step_inputs``' device views. ``lane``, ``any_sample`` and
+    ``any_top_k`` are the program's key; every other fact is a tensor."""
     if "block_tbl" in pool:
         pool["pos"].copy_(torch.where(inp["pin"] >= 0, inp["pin"],
                                       pool["pos"]))
@@ -165,11 +259,14 @@ def _mixed_step_program(params, adapter, chunk, pool, inp, harvest, lane,
                                              any_sample, any_top_k))
     else:
         harvest["first"].fill_(-1)
-    _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
-                          any_top_k)
-    for name, field in harvest.items():
-        if name in pool:
-            field.copy_(pool[name])
+    if spec is None:
+        _decode_chunk_program(params, adapter, chunk, pool, harvest,
+                              any_sample, any_top_k)
+    else:
+        _spec_decode_chunk_program(params, adapter, chunk, spec[0], spec[1],
+                                   pool, harvest, any_sample, any_top_k)
+    for name in HARVEST_FIELDS:
+        harvest[name].copy_(pool[name])
 
 
 class _StepGraph(object):
@@ -233,9 +330,15 @@ class InferenceEngine(object):
         self._gcfg = self._adapter.cache_spec()
         config.validate_against_model(self._gcfg.n_positions)
         self._scheduler = Scheduler(config.max_slots, config.max_queue)
-        # An append of prefill_chunk positions from any admissible
+        # Engine-lifetime speculation: (spec_k, spec_ngram), or None.
+        self._spec = ((config.spec_k, config.spec_ngram)
+                      if config.resolved_spec_decode() else None)
+        # An append of prefill_chunk positions, and a verify's spec_k + 1
+        # k/v writes and ring writes one past them, from any admissible
         # frontier must stay inside the plane (kv_pool docstring).
         self._slack = config.prefill_chunk
+        if self._spec is not None:
+            self._slack = max(self._slack, config.spec_k + 1)
         # Paged pool: the allocator owns page lifetime (module docstring);
         # None keeps the dense slotted pool.
         self._pager = None
@@ -255,11 +358,13 @@ class InferenceEngine(object):
             self._gcfg, config.max_slots, config.max_len, slack=self._slack,
             device=self.device, hier=hspec if hspec.enabled else None,
             page_len=config.kv_page_len if self._pager else 0,
-            num_pages=self._pager.total_pages if self._pager else None)
+            num_pages=self._pager.total_pages if self._pager else None,
+            ring=self._spec is not None)
         self._inputs = step_inputs(config.max_slots, config.prefill_chunk,
                                    self.device)
+        lanes = config.spec_k + 1 if self._spec is not None else 1
         self._harvest = step_harvest(config.max_slots, config.chunk_size,
-                                     self.device)
+                                     self.device, lanes=lanes)
         # The pinned host snapshot the device block table is copied from.
         self._table = None
         if self._pager is not None:
@@ -279,6 +384,10 @@ class InferenceEngine(object):
             ("tokens_out", "prefill_tokens", "prefills", "prefill_lanes",
              "chunks", "requests_completed"), 0)
         self._ttft = []
+        # Tokens emitted per occupied slot-step (index 1..lanes; index 0
+        # stays empty: an occupied step emits at least one token), the
+        # source of a speculating engine's accept statistics in metrics().
+        self._accept_hist = np.zeros(lanes + 1, np.int64)
         self._t0 = time.time()
 
     @property
@@ -295,10 +404,16 @@ class InferenceEngine(object):
         """Queue one request; returns its Request handle. Raises
         scheduler.QueueFull past ``max_queue`` pending requests and
         ValueError when the request cannot fit the pool (or, paged, when
-        the page arena could never hold it)."""
-        if spec_decode:
-            raise NotImplementedError("speculative decoding comes with the "
-                                      "speculation slice (ROADMAP Queue 1)")
+        the page arena could never hold it). ``spec_decode``: None inherits
+        the engine's setting, False opts the request out (it rides the same
+        program and emits one token per step), True demands a speculating
+        engine."""
+        if spec_decode and self._spec is None:
+            raise ValueError(
+                "submit(spec_decode=True) on an engine without speculation; "
+                "enable inference.spec_decode (or DS_TPU_SPEC_DECODE) at "
+                "engine construction: it sizes the plane slack, the token "
+                "ring and the step program")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -328,7 +443,8 @@ class InferenceEngine(object):
             eos_token_id = self.config.eos_token_id
         return self._scheduler.submit(
             prompt, int(max_new_tokens), float(temperature), int(top_k or 0),
-            -1 if eos_token_id is None else int(eos_token_id), int(seed))
+            -1 if eos_token_id is None else int(eos_token_id), int(seed),
+            spec=self._spec is not None and spec_decode is not False)
 
     # ------------------------------------------------------ paged KV pool
 
@@ -348,22 +464,33 @@ class InferenceEngine(object):
         the step's stream, from a pinned snapshot the host does not write
         again until the step's harvest. Writes past what is mapped land in
         the trash page (unmapped entries are 0). The decode lane advances
-        each active slot at most ``chunk_size`` positions, the prefill lane
-        ``n_valid`` at the cursor."""
+        each active slot at most ``chunk_size`` positions (``chunk_size *
+        (spec_k + 1)`` when speculating), the prefill lane ``n_valid`` at
+        the cursor. No request reads a position at or past its own bound
+        (prompt + budget; the slack above it is what its reservation
+        covers), so the mapping stops there: it never draws past the
+        reservation."""
         pager = self._pager
         lookahead = self.config.chunk_size
+        if self._spec is not None:
+            lookahead *= self._spec[0] + 1
+
+        def bound(req):
+            return int(req.prompt.size) + int(req.max_new_tokens) + \
+                self._slack
+
         if pf is not None:
             upto = int(pf.cursor) + int(n_valid)
             if p_done:
                 # The slot joins this step's decode lane right after its
                 # final slice: map its decode writes too.
                 upto += lookahead
-            pager.ensure_mapped(pf.slot, upto)
+            pager.ensure_mapped(pf.slot, min(upto, bound(pf)))
         for slot, req in self._scheduler.running.items():
             if req.phase != "decoding":
                 continue
             pos = int(req.prompt.size) + len(req.tokens)
-            pager.ensure_mapped(slot, pos + lookahead)
+            pager.ensure_mapped(slot, min(pos + lookahead, bound(req)))
         if pager.dirty:
             self._table.numpy()[...] = pager.table
             self._pool["block_tbl"].copy_(self._table, non_blocking=True)
@@ -435,7 +562,7 @@ class InferenceEngine(object):
 
     def _program(self, lane, any_sample, any_top_k):
         _mixed_step_program(self._params, self._adapter,
-                            self.config.chunk_size, self._pool,
+                            self.config.chunk_size, self._spec, self._pool,
                             self._inputs.dev, self._harvest.dev, lane,
                             any_sample, any_top_k)
 
@@ -482,7 +609,7 @@ class InferenceEngine(object):
             inp["max_new"][0], inp["eos"][0] = (pf.max_new_tokens,
                                                 pf.eos_token_id)
             inp["temp"][0], inp["top_k"][0] = pf.temperature, pf.top_k
-            inp["seed"][0] = pf.seed
+            inp["seed"][0], inp["spec"][0] = pf.seed, pf.spec
         if self._pager is not None:
             self._ensure_paged_mappings(pf, n, p_done)
         # Host facts for the sampler: only slots that can be active in the
@@ -504,9 +631,14 @@ class InferenceEngine(object):
                 self.counters["prefills"] += 1
                 self._harvest_first(pf, int(snap["first"][0]), done)
         toks, valid, active = snap["toks"], snap["valid"], snap["active"]
+        per_step = valid.sum(axis=2)
+        self._accept_hist += np.bincount(per_step[per_step > 0],
+                                         minlength=self._accept_hist.size)
         for slot, req in list(sched.running.items()):
             if req.phase != "decoding":
                 continue
+            # A boolean mask flattens row-major: (step, lane) order is
+            # emission order.
             emitted = toks[:, slot][valid[:, slot]].tolist()
             req.tokens.extend(emitted)
             self.counters["tokens_out"] += len(emitted)
@@ -559,7 +691,11 @@ class InferenceEngine(object):
         milliseconds (None before the first token), the pool's layout and
         bytes, the step programs (``compile_count``, ``graph_replays``, the
         time spent capturing graphs and the bytes of their memory pool, 0
-        on the CPU), and on a paged engine its page gauges."""
+        on the CPU), on a paged engine its page gauges, and on a
+        speculating engine its accept statistics over every occupied
+        slot-step since construction: tokens accepted per step (mean, p50,
+        p99) and the accepted share of the drafted tokens (the first token
+        of each step is not drafted)."""
         c = dict(self.counters)
         wall = max(time.time() - self._t0, 1e-9)
         ttft = np.asarray(self._ttft) * 1e3
@@ -579,7 +715,8 @@ class InferenceEngine(object):
             compile_count=self.compile_count,
             graph_replays=self.graph_replays,
             capture_ms=self._capture_s * 1e3,
-            graph_pool_bytes=self._graph_pool_bytes)
+            graph_pool_bytes=self._graph_pool_bytes,
+            spec_decode=self._spec is not None)
         if self._hier is not None:
             c.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),
                      kv_bytes_per_slot_flat=self._hier.flat_bytes_per_slot())
@@ -588,4 +725,19 @@ class InferenceEngine(object):
             c.update(kv_page_len=pg.page_len, kv_pages_total=pg.total_pages,
                      kv_pages_in_use=pg.pages_in_use(),
                      kv_pages_free=pg.pages_free())
+        if self._spec is not None:
+            hist = self._accept_hist
+            n = int(hist.sum())
+            acc = np.repeat(np.arange(hist.size), hist)
+            k = self.config.spec_k
+            c.update(
+                spec_k=k, spec_ngram=self.config.spec_ngram,
+                accepted_per_step_mean=(round(float(acc.mean()), 4)
+                                        if n else None),
+                accepted_per_step_p50=(float(np.percentile(acc, 50))
+                                       if n else None),
+                accepted_per_step_p99=(float(np.percentile(acc, 99))
+                                       if n else None),
+                draft_accept_rate=(round(float((acc - 1).sum()) / (k * n), 4)
+                                   if n else None))
         return c

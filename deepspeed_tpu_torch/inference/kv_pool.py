@@ -10,7 +10,18 @@ paged layouts, with fp or int8 planes. Per-slot state, all on the device:
                  masked);
 - ``remaining``  new tokens the request may still emit;
 - ``eos``        per-request EOS id (-1: none);
-- ``temp`` / ``top_k`` / ``seed``  per-request sampling parameters.
+- ``temp`` / ``top_k`` / ``seed``  per-request sampling parameters;
+- ``spec``       the request speculates (on an engine that does: the
+                 accept rule vetoes draft agreement where False, so
+                 requests that opt out ride the same program).
+
+A speculating engine's pool adds the TOKEN RING ``toks`` [slots,
+plane_len] int64: position p holds the token the row placed there (prompt
+tokens as the prefill lane appends them, then every emitted token). It
+obeys the stale rule below: entries up to ``pos[b]`` are valid
+(``toks[b, pos[b]]`` is the frontier token ``last_tok[b]``), entries past
+it are garbage that a later write covers before the frontier reaches them,
+and the drafter matches only n-grams ending strictly below the frontier.
 
 The DENSE layout holds one ``[layers, slots, heads, plane_len, head_dim]``
 k/v pair. The PAGED layout (``page_len > 0``) holds a shared page arena
@@ -30,11 +41,13 @@ paged layout a freed row's table points at the trash page, so its frozen
 frontier writes land there.
 
 ``plane_len`` is ``max_len`` plus ``slack`` (the engine passes
-``prefill_chunk``): an append of up to ``prefill_chunk`` positions from any
-admissible frontier stays in bounds, so the frontier write never has to
-clamp. Unlike the TPU pool, the plane is not padded to a block quantum: the
-CUDA kernels take any length. A paged row's logical plane is that length
-rounded up to whole pages.
+``max(prefill_chunk, spec_k + 1)``, ``prefill_chunk`` without speculation):
+an append of up to ``prefill_chunk`` positions, and a verify's ``spec_k +
+1`` k/v writes and ring writes one past them, from any admissible frontier
+(as deep as ``max_len - 1``) stay in bounds, so no write has to clamp: an
+index past the plane raises. Unlike the TPU pool, the plane is not padded
+to a block quantum: the CUDA kernels take any length. A paged row's
+logical plane is that length rounded up to whole pages.
 
 STATIC ADDRESSES. Every tensor of the pool is allocated once and updated
 in place, never rebound: the forward writes k/v (and scales) into the
@@ -60,10 +73,11 @@ _SLOT_FIELDS = (
     ("temp", torch.float32, 0.0),
     ("top_k", torch.int32, 0),
     ("seed", torch.int64, 0),
+    ("spec", torch.bool, False),
 )
 
 # Fields the host reads at every harvest.
-_HARVEST = ("pos", "active", "last_tok")
+HARVEST_FIELDS = ("pos", "active", "last_tok")
 
 
 def plane_len_for(max_len, slack=0):
@@ -82,7 +96,7 @@ def paged_plane_len(max_len, slack, page_len):
 
 
 def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
-              hier=None, page_len=0, num_pages=None):
+              hier=None, page_len=0, num_pages=None, ring=False):
     """Zeroed pool dict for ``num_slots`` sequences of up to ``max_len``
     positions under generation config ``gcfg``
     (``models.generation.as_gencfg``), on ``device`` (default ``cuda``;
@@ -93,7 +107,9 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
     ``k_scale``/``v_scale`` planes. ``page_len > 0`` selects the paged
     layout: an arena of ``num_pages`` usable pages (None: as many as
     ``num_slots`` full rows need) plus the trash page, and a zeroed
-    ``block_tbl`` (every row on the trash page)."""
+    ``block_tbl`` (every row on the trash page). ``ring`` adds the token
+    ring ``toks`` of a speculating engine, as long as a row's plane (the
+    logical plane when paged)."""
     dtype = dtype or gcfg.dtype
     device = resolve_device(device)
     hd = gcfg.n_embd // gcfg.n_head
@@ -116,6 +132,10 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
                                       device=device)
         pool["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
                                       device=device)
+    if ring:
+        pool["toks"] = torch.zeros(
+            (num_slots, n_lp * page_len if page_len else shape[3]),
+            dtype=torch.int64, device=device)
     for name, dt, fill in _SLOT_FIELDS:
         pool[name] = torch.full((num_slots,), fill, dtype=dt, device=device)
     return pool
@@ -168,17 +188,18 @@ def step_inputs(num_slots, prefill_chunk, device):
     """The mixed step's inputs (the JAX program's traced arguments) as a
     ``PackedBuffer``: the prefill slice ``ids`` [1, C] and the lane's
     ``slot``, ``frontier``, ``n_valid``, ``done``, ``max_new``, ``eos``,
-    ``temp``, ``top_k`` and ``seed`` ([1] each, in the dtype of the pool
-    field they feed), plus ``pin`` [slots] int32: the frontier each slot
-    admitted this step is pinned to (-1: none; paged pools). Filled with
-    the idle lane's values."""
+    ``temp``, ``top_k``, ``seed`` and ``spec`` ([1] each, in the dtype of
+    the pool field they feed), plus ``pin`` [slots] int32: the frontier
+    each slot admitted this step is pinned to (-1: none; paged pools).
+    Filled with the idle lane's values."""
     buf = PackedBuffer(
         [("ids", torch.int64, (1, prefill_chunk)),
          ("slot", torch.int64, (1,)), ("frontier", torch.int32, (1,)),
          ("n_valid", torch.int32, (1,)), ("done", torch.bool, (1,)),
          ("max_new", torch.int32, (1,)), ("eos", torch.int64, (1,)),
          ("temp", torch.float32, (1,)), ("top_k", torch.int32, (1,)),
-         ("seed", torch.int64, (1,)), ("pin", torch.int32, (num_slots,))],
+         ("seed", torch.int64, (1,)), ("spec", torch.bool, (1,)),
+         ("pin", torch.int32, (num_slots,))],
         device)
     clear_step_inputs(buf)
     return buf
@@ -193,17 +214,20 @@ def clear_step_inputs(buf):
     buf.host["pin"][:] = -1
 
 
-def step_harvest(num_slots, chunk, device):
+def step_harvest(num_slots, chunk, device, lanes=1):
     """What the host reads after a step, as a ``PackedBuffer`` the step
     program fills and the host copies back in ONE device-to-host transfer:
     the per-slot ``pos`` / ``active`` / ``last_tok`` [slots] (the pool
     fields of the same names), the decode lane's ``toks`` and ``valid``
-    [chunk, slots] and the prefill lane's ``first`` token [1] (-1 unless
-    the lane finished a prompt)."""
+    [chunk, slots, lanes] (``valid[t, s, i]`` marks ``toks[t, s, i]`` an
+    emission of slot s at step t, so row-major (step, lane) order is
+    emission order; lanes is 1 for the plain lane, spec_k + 1 on a
+    speculating engine) and the prefill lane's ``first`` token [1] (-1
+    unless the lane finished a prompt)."""
     fields = [(name, dt, (num_slots,)) for name, dt, _ in _SLOT_FIELDS
-              if name in _HARVEST]
-    fields += [("toks", torch.int64, (chunk, num_slots)),
-               ("valid", torch.bool, (chunk, num_slots)),
+              if name in HARVEST_FIELDS]
+    emit = (chunk, num_slots, lanes)
+    fields += [("toks", torch.int64, emit), ("valid", torch.bool, emit),
                ("first", torch.int64, (1,))]
     return PackedBuffer(fields, device)
 
@@ -221,7 +245,8 @@ def free_slots(snap):
 
 def pool_nbytes(pool):
     """Device bytes held by the pool: the k/v planes dominate; the scale
-    planes, the block table and the per-slot fields count too."""
+    planes, the block table, the token ring and the per-slot fields count
+    too."""
     return int(sum(t.numel() * t.element_size() for t in pool.values()))
 
 

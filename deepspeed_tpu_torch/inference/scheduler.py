@@ -37,12 +37,12 @@ class Request(object):
     """One generation request and its accumulated output."""
 
     __slots__ = ("rid", "prompt", "max_new_tokens", "temperature", "top_k",
-                 "eos_token_id", "seed", "tokens", "slot", "phase", "cursor",
-                 "submit_time", "admit_time", "first_token_time",
+                 "eos_token_id", "seed", "spec", "tokens", "slot", "phase",
+                 "cursor", "submit_time", "admit_time", "first_token_time",
                  "finish_time")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, top_k,
-                 eos_token_id, seed):
+                 eos_token_id, seed, spec=False):
         self.rid = rid
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
@@ -50,6 +50,10 @@ class Request(object):
         self.top_k = top_k
         self.eos_token_id = eos_token_id
         self.seed = seed
+        # Speculates in the decode lane: the slot's ``spec`` field, which
+        # vetoes draft agreement when False. A decode step may then emit
+        # 1..spec_k+1 tokens for the slot.
+        self.spec = spec
         self.tokens = []
         self.slot = None
         self.phase = "queued"
@@ -87,7 +91,7 @@ class Scheduler(object):
         return round(min(max(1.0 / rate, 0.0), RETRY_AFTER_CAP_S), 4)
 
     def submit(self, prompt, max_new_tokens, temperature, top_k,
-               eos_token_id, seed):
+               eos_token_id, seed, spec=False):
         if len(self.queue) >= self.max_queue:
             hint = self.retry_after_s()
             raise QueueFull(
@@ -95,7 +99,7 @@ class Scheduler(object):
                 "inference.max_queue".format(len(self.queue)),
                 queue_depth=len(self.queue), retry_after_s=hint)
         req = Request(next(self._ids), prompt, max_new_tokens, temperature,
-                      top_k, eos_token_id, seed)
+                      top_k, eos_token_id, seed, spec)
         self.queue.append(req)
         return req
 

@@ -2,9 +2,9 @@
 
 Counterpart of ``deepspeed_tpu/models/generation.py``. One forward
 (``_forward``) serves every caller: ``generate``'s prefill and decode loop,
-and the serving engine's prefill lane (``append_forward``) and decode lane
-(``decode_step``), which is what keeps single-shot and continuous-batching
-outputs token-identical.
+and the serving engine's prefill lane (``append_forward``), decode lane
+(``decode_step``) and speculative verify (``verify_forward``), which is
+what keeps single-shot and continuous-batching outputs token-identical.
 
 The cache is a dict: ``k``/``v`` planes ``[layers, B, heads, T, head_dim]``
 and a per-row frontier ``pos`` [B] int32. Two variants, dispatched on the
@@ -42,8 +42,9 @@ Contracts kept from the JAX package:
 In torch the planes are updated IN PLACE (JAX threads a new array through);
 the returned cache holds the same plane tensors and an advanced ``pos``.
 
-The shared-prefix cache layout and speculation (``verify_forward``,
-``ngram_draft``, ``accept_counts``) wait for later slices.
+Speculation's other two primitives, ``ngram_draft`` and ``accept_counts``,
+are plain tensor code on the device with no host sync, so a captured step
+program holds them. The shared-prefix cache layout waits for a later slice.
 """
 
 import collections
@@ -229,6 +230,63 @@ def decode_step(model, tok, cache):
     cache)."""
     logits, cache = _forward(model, tok[:, None], cache)
     return logits[:, 0], cache
+
+
+def verify_forward(model, ids, cache):
+    """Score ``ids`` [B, S] at each row's frontier WITHOUT advancing it:
+    the speculative verify. Row b's ids are [last_tok, draft_0 ..
+    draft_{S-2}], so ``logits[b, i]`` is the model's distribution for
+    position ``pos[b] + i + 1``, what ``decode_step`` would give after the
+    first i drafts. The k/v of all S positions are written (an accepted
+    draft's k/v depend only on its token and position, fixed at draft
+    time); ``pos`` is returned unchanged, and the caller advances it by the
+    accepted count only: rejected positions sit past the frontier, masked
+    or overwritten before it reaches them. The plane needs S - 1 positions
+    of slack past the last admissible frontier (the write never clamps)."""
+    pos0 = cache["pos"]
+    logits, cache = _forward(model, ids, cache)
+    return logits, dict(cache, pos=pos0)
+
+
+def ngram_draft(toks, pos, n, k):
+    """Prompt-lookup drafting: for each row, the ``k`` tokens that followed
+    the MOST RECENT earlier occurrence of the row's trailing ``n``-gram in
+    its own context ``toks[b, :pos[b] + 1]`` (the frontier token sits at
+    ``pos[b]``). ``toks`` [B, T] is the token ring (entries past a row's
+    frontier are garbage: candidates end strictly below the frontier, so
+    they are never matched), ``pos`` [B] the frontiers; ``n`` and ``k`` are
+    host ints. A row with no match drafts its frontier token ``k`` times;
+    the continuation gather is clipped to ``[0, pos[b]]``, so a match just
+    below the frontier drafts from the valid suffix it overlaps. Returns
+    int64 [B, k]. Device work only: ``n`` shifted compares over the ring
+    (``torch.roll``, whose wraparound only reaches j < n - 1, which the
+    window excludes)."""
+    T = toks.shape[1]
+    dev = toks.device
+    p = pos.to(torch.int64)[:, None]
+    idx = torch.arange(T, device=dev)[None]
+    last = toks.gather(1, p.clamp(0, T - 1))
+    match = (idx >= n - 1) & (idx < p)
+    for i in range(n):
+        match = match & (torch.roll(toks, i, dims=1)
+                         == toks.gather(1, (p - i).clamp(0, T - 1)))
+    j = torch.where(match, idx, -1).amax(dim=1, keepdim=True)
+    cont = torch.minimum((j + 1 + torch.arange(k, device=dev)[None])
+                         .clamp(min=0), p.clamp(min=0))
+    return torch.where(j >= 0, toks.gather(1, cont), last).to(torch.int64)
+
+
+def accept_counts(draft, choices, ok=None):
+    """The speculative accept rule: drafts [B, K] against the model's own
+    choices [B, K+1] from a verify (``choices[:, i]`` is its pick at
+    position ``pos + i + 1``). Returns int64 [B] in ``1..K+1``: the
+    always-correct first choice plus the length of the longest prefix on
+    which draft and choice agree. ``ok`` [B, 1] or [B, K] (optional) vetoes
+    agreement (False forces 1: the slots that do not speculate)."""
+    agree = draft == choices[:, :draft.shape[1]]
+    if ok is not None:
+        agree = agree & ok
+    return 1 + torch.cumprod(agree.to(torch.int64), dim=1).sum(dim=1)
 
 
 @torch.no_grad()

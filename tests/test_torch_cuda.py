@@ -6,7 +6,8 @@ attention, K7b also over layouts of uneven transposed degree) against their
 plain PyTorch versions, and the wrappers' refusals on CUDA tensors; then
 the serving step in CUDA graphs: K3-K6 replayed in a captured graph, a
 graph-served engine against the same step program run eagerly (bit for
-bit, dense and paged int8), and a capture that fails raising.
+bit, dense and paged int8, with and without speculation, whose verify
+lane runs K3-K6 at S = spec_k + 1), and a capture that fails raising.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -229,8 +230,9 @@ def _variant_case(cuda, kind, page_len, S, pos, dtype, T):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("S,pos", [(1, [0, 6, 7, 40, 111]), (9, [0, 60])],
-                         ids=["decode", "rows9"])
+@pytest.mark.parametrize("S,pos", [(1, [0, 6, 7, 40, 111]), (9, [0, 60]),
+                                   (5, [0, 3, 4, 60, 114])],
+                         ids=["decode", "rows9", "verify5"])
 @pytest.mark.parametrize("kind,page_len", [("q8", 0), ("paged", 7),
                                            ("paged", 128), ("paged_q8", 7),
                                            ("paged_q8", 128)])
@@ -250,6 +252,9 @@ def test_int8_and_paged_kernels_match_plain(cuda, kind, page_len, S, pos,
 # at and after the first boundary, at the second, and at the plane's last
 # key (plus, at B = 16, frontiers in every other split), over a plane of
 # 4.5 L keys (the last split ragged) in pages of 48, which do not divide L.
+# With S > 1, also frontiers whose last rows reach the next split while the
+# first rows do not (at S = 5: the row groups of 4 and 1 stop in different
+# splits).
 SPLIT_L = da.SPLIT_KEYS
 SPLIT_PLANE = 4 * SPLIT_L + SPLIT_L // 2
 
@@ -257,6 +262,9 @@ SPLIT_PLANE = 4 * SPLIT_L + SPLIT_L // 2
 def _straddling(S, B):
     last = SPLIT_PLANE - S
     edge = [SPLIT_L - 1, SPLIT_L, SPLIT_L + 1, 2 * SPLIT_L, last]
+    if S > 1:
+        edge += [SPLIT_L - S + 1, SPLIT_L - S + 2, SPLIT_L - 2,
+                 2 * SPLIT_L - S + 1]
     if B == 1:
         return [[p] for p in edge]
     more = [0, 5, SPLIT_L // 2, 2 * SPLIT_L - 1, 2 * SPLIT_L + 1,
@@ -268,7 +276,7 @@ def _straddling(S, B):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B", [1, 16])
-@pytest.mark.parametrize("S", [1, 32, 64])
+@pytest.mark.parametrize("S", [1, 5, 32, 64])
 @pytest.mark.parametrize("kind", ["decode", "q8", "paged", "paged_q8"])
 def test_decode_kernels_across_split_boundaries(cuda, kind, S, B, dtype):
     for pos in _straddling(S, B):
@@ -280,7 +288,7 @@ def test_decode_kernels_across_split_boundaries(cuda, kind, S, B, dtype):
             assert torch.equal(out, twin), pos
 
 
-@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("S", [1, 5, 32])
 @pytest.mark.parametrize("page_len", [48, 96, 128])
 @pytest.mark.parametrize("kind", ["paged", "paged_q8"])
 def test_paged_kernels_equal_their_dense_twins_across_splits(cuda, kind,
@@ -289,7 +297,7 @@ def test_paged_kernels_equal_their_dense_twins_across_splits(cuda, kind,
     pages do not line up with the splits (48, 96) and where they do."""
     T = 5 * 384  # whole pages of 48, 96 and 128
     pos = [SPLIT_L - 1, SPLIT_L, SPLIT_L + 1, 2 * SPLIT_L, 3 * SPLIT_L - 1,
-           700, 1000, T - S]
+           700, 1000, T - S, SPLIT_L - 4, 2 * SPLIT_L - 3]
     out, _, twin, _ = _variant_case(cuda, kind, page_len, S, pos,
                                     torch.bfloat16, T)
     assert torch.equal(out, twin)
@@ -938,7 +946,7 @@ def _graph_operands(cuda, kind, dtype, S, seed, B=4, H=4, page_len=48,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("S", [1, 32])
+@pytest.mark.parametrize("S", [1, 5, 32])
 @pytest.mark.parametrize("kind", ["decode", "q8", "paged", "paged_q8"])
 def test_decode_kernels_replay_in_a_cuda_graph(cuda, kind, S, dtype):
     """K3-K6 (the split kernel, its combine chained as a programmatic
@@ -984,11 +992,14 @@ def _small_gpt2(cuda):
 
 
 def _serve(engine, prompts):
-    """Serve ``prompts`` (every third sampled, one with top-k) and return
-    the harvest of every step and the launch counts."""
+    """Serve ``prompts`` (every third sampled, one with top-k; on a
+    speculating engine the fifth opts out) and return the harvest of every
+    step and the launch counts."""
     for i, p in enumerate(prompts):
         kw = {"temperature": 0.8, "seed": i, "top_k": 20 if i == 2 else None
               } if i % 3 == 2 else {}
+        if i == 4 and engine.config.spec_decode:
+            kw["spec_decode"] = False
         engine.submit(p, max_new_tokens=24, **kw)
     da.reset_launches()
     snaps = []
@@ -999,9 +1010,43 @@ def _serve(engine, prompts):
     return snaps, dict(da.launches)
 
 
-@pytest.mark.parametrize("extra", [{}, {"paged_kv": True, "kv_page_len": 32,
-                                        "int8_kv": True}],
-                         ids=["dense", "paged_int8"])
+def _unread_diffs(graphed, eager, spec):
+    """Compare two engines' pools in full, printing the indices of every
+    element that differs. Only a speculating paged pool may differ, and
+    only where no read sees: its trash page (page 0 of k/v and scales) and
+    token-ring entries past a row's frontier. The frozen rows of freed
+    slots write their spec_k + 1 verify positions into the trash page
+    together, a CUDA indexed write with repeated indices keeps any one of
+    the values, and those rows read that page back: their choices, which
+    land in the ring past their frontier, may differ too. Anything else
+    fails."""
+    pos = graphed._pool["pos"].long()
+    bad = {}
+    for name, t in graphed._pool.items():
+        idx = (t != eager._pool[name]).nonzero()
+        if not len(idx):
+            continue
+        print("pool {}: {} elements differ, first {}{}".format(
+            name, len(idx), idx[:4].tolist(),
+            "" if name != "toks" else ", frontiers of those rows {}".format(
+                pos[idx[:4, 0]].tolist())))
+        paged = spec and "block_tbl" in graphed._pool
+        if name in ("k", "v", "k_scale", "v_scale"):
+            unread = paged and bool((idx[:, 1] == 0).all())
+        else:
+            unread = paged and name == "toks" and bool(
+                (idx[:, 1] > pos[idx[:, 0]]).all())
+        if not unread:
+            bad[name] = idx[:8].tolist()
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"paged_kv": True, "kv_page_len": 32, "int8_kv": True},
+    {"spec_decode": True, "spec_k": 4},
+    {"paged_kv": True, "kv_page_len": 32, "int8_kv": True,
+     "spec_decode": True, "spec_k": 4}],
+    ids=["dense", "paged_int8", "dense_spec", "paged_int8_spec"])
 def test_graph_served_engine_equals_the_eager_program(cuda, extra):
     model = _small_gpt2(cuda)
     config = dict(SMALL_SERVE, **extra)
@@ -1016,16 +1061,17 @@ def test_graph_served_engine_equals_the_eager_program(cuda, extra):
         assert a.keys() == b.keys()
         for name in a:
             assert np.array_equal(a[name], b[name]), name
-    for name, t in graphed._pool.items():
-        assert torch.equal(t, eager._pool[name]), name
+    _unread_diffs(graphed, eager, "spec_decode" in extra)
     # Replays count their launches: the same counts as the eager run.
     assert got_launches == want_launches and sum(got_launches.values()) > 0
     m = graphed.metrics()
     assert 0 < m["compile_count"] <= 8
     assert m["graph_replays"] == len(got) - m["compile_count"] > 0
     assert m["graph_pool_bytes"] > 0 and m["capture_ms"] > 0
-    if extra:
+    if "paged_kv" in extra:
         assert graphed.kv_page_stats()["pages_in_use"] == 0
+    if "spec_decode" in extra:
+        assert "toks" in graphed._pool and m["accepted_per_step_mean"] >= 1
 
 
 def test_a_failed_capture_raises(cuda):

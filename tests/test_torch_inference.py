@@ -9,7 +9,7 @@ package's, on the CPU.
 - a sampled request's stream depends only on its seed and positions, not
   on its slot or its neighbours; top_k=1 sampling is greedy;
 - every setting the port does not implement yet raises (paged and int8 KV
-  are ported; the prefix and offload tiers and speculation are not, with
+  and speculation are ported; the prefix and offload tiers are not, with
   or without them).
 """
 
@@ -153,11 +153,13 @@ def test_top_k_one_sampling_is_greedy():
 @pytest.mark.parametrize("setting", [
     {"paged_kv": True, "prefix_cache": True},
     {"int8_kv": True, "host_offload": True}, {"prefix_cache": True},
-    {"host_offload": True}, {"spec_decode": True}, {"role": "prefill"},
+    {"host_offload": True}, {"spec_decode": True, "chunked_prefill": False},
+    {"role": "prefill"},
     {"chunked_prefill": False}, {"fault_injection": True},
     {"use_flash_decode": False}, {"step_budget_s": 0.5},
     {"hbm_budget_bytes": 1 << 30}, {"telemetry": True, "trace_ring": 16},
-    {"prefill_buckets": [16, 64]}, {"paged_kv": True, "spec_decode": True}])
+    {"prefill_buckets": [16, 64]}, {"spec_decode": True,
+                                    "prefix_cache": True}])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         InferenceConfig.from_dict(setting)
@@ -189,7 +191,7 @@ def test_pool_views_alias_the_planes_and_harvest_unpacks():
     view["k"][0, view["block_tbl"][0, 0], 0, 5] = 7.0
     assert pool["k"][0, 1, 0, 5, 0] == 7.0  # the slot's plane, in place
     pool["pos"][2], pool["active"][2], pool["last_tok"][0] = 9, True, 42
-    toks = torch.arange(6).reshape(2, 3)
+    toks = torch.arange(6).reshape(2, 3, 1)  # [chunk, slots, lanes]
     # Fill the step's harvest buffer as the step program does; one copy.
     harvest = kv_pool.step_harvest(3, 2, "cpu")
     for name in ("pos", "active", "last_tok"):
@@ -214,5 +216,5 @@ def test_submit_rejects_what_the_pool_cannot_hold():
         eng.submit(np.zeros(60, np.int32), max_new_tokens=8)
     with pytest.raises(ValueError, match="token ids"):
         eng.submit(np.array([3, 1024]), max_new_tokens=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="spec_decode"):
         eng.submit(np.zeros(4, np.int32), spec_decode=True)
