@@ -71,6 +71,26 @@ of which exits non-zero on failure:
    too) after GRAPH_CHECK_STEPS steps, bit for bit (a speculating paged
    pool may differ only where no read sees: page 0, and ring entries past
    a row's frontier);
+4a. telemetry on the serving path (phase_telemetry): the dense serve
+   path's stream on two engines, telemetry on and off, each warmed by the
+   stream (its captures inside the warm-up, whose TTFT is reported for the
+   requests whose first token came in a capturing step apart from the
+   rest), then marked warm and served in turns A B B A: equal streams,
+   programs and K3/K5 launch counts, recompiles 0, the lifecycle and step
+   spans, the trace file through validate_trace, every Prometheus counter
+   moving by its metrics() window value; a fresh engine captures its keys
+   while a thread scrapes its PrometheusEndpoint every 5 ms (streams equal
+   the unscraped engine's); a profile_window capture holds K3 and the
+   ``inference/mixed_step`` scope; the host time inside telemetry calls,
+   timed call by call on a fifth turn, must stay under 5% of the median
+   step (the on/off step difference is reported, not gated);
+4b. the sustained-load harness (phase_sustained): GPT-2 medium over a
+   dense int8 pool (K4, prefill lane K6) driven open loop by loadgen's
+   SustainedRunner with the JAX bench's sustained workload (96 Poisson
+   arrivals at 12/s), its report (goodput, SLO attainment, TTFT/ITL and
+   queue-wait percentiles, the windows' queue depth), a saturation sweep
+   and the gate's A/A self-check; fails on a lost request, a recompile
+   after warm-up or a non-finite number;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
@@ -97,6 +117,13 @@ of which exits non-zero on failure:
    steps and read just after, and must equal n_layer x steps (K2b: two per
    layer, in the steps run with the split backward); then a profiler
    window of 2 steps;
+7a. the training breakdown (phase_train_breakdown): the same setting for
+   4 steps with wall_clock_breakdown and memory_breakdown on, off and off
+   again, from one seed (K2a's dq atomics make its runs differ from step
+   2 on: their first losses must be equal), then on and off with the
+   split backward (K2b, no atomics): those losses equal bit for bit; each
+   phase's median ms, the allocator's MA/Max_MA, and whether tensorboard
+   imports;
 8. training consistency: fp32, full width, 2 layers, B=2, T=256: one
    train_batch on the card (kernels) against the port on the CPU (plain
    versions): loss, every gradient and every updated parameter;
@@ -157,12 +184,19 @@ of which exits non-zero on failure:
 15. the kernels line, then the result line.
 """
 
+import collections
+import gc
 import json
+import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -176,6 +210,9 @@ from deepspeed_tpu_torch.inference.kv_hierarchy import (  # noqa: E402
     HierarchySpec)
 from deepspeed_tpu_torch.inference.kv_pool import (  # noqa: E402
     init_pool, paged_plane_len, plane_len_for, slot_cache_view)
+from deepspeed_tpu_torch.loadgen import (  # noqa: E402
+    SLO, SustainedRunner, WorkloadSpec, build_report, regression_gate,
+    saturation_sweep)
 from deepspeed_tpu_torch.models import (  # noqa: E402
     BertConfig, BertForPreTraining, GPT2Config, GPT2LMHeadModel)
 from deepspeed_tpu_torch.models import generation  # noqa: E402
@@ -197,6 +234,9 @@ from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     layer_norm as ln)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     softmax as sm)
+from deepspeed_tpu_torch.telemetry import (  # noqa: E402
+    PROFILE_DIR_ENV, PrometheusEndpoint, TensorBoardScalarWriter,
+    profile_window, validate_trace)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and the
 # flop rate for each input type (bf16 on the tensor cores; fp32 outside
@@ -453,6 +493,37 @@ COMBINE_RTOL = 1e-6
 # forward and backward through autograd takes longer than 0.1 ms to
 # enqueue; behind a shorter spin its time would include the host's).
 SPIN_CYCLES = 2_000_000
+
+# Telemetry on the serving path (phase_telemetry): the spans every served
+# request and step must leave, the Prometheus scrape interval of the
+# capture check, its requests, and the bound on the host time spent in
+# telemetry calls, as a share of the median step (the JAX package's 5%).
+TELEMETRY_SPANS = ("request/queued", "request/prefill", "request/decode",
+                   "request", "step/mixed", "step/harvest")
+SCRAPE_EVERY_S, SCRAPE_REQUESTS = 0.005, 4
+TELEMETRY_HOST_SHARE = 0.05
+# The sustained-load run (phase_sustained): the JAX package's TPU setting
+# of ``bench.py --sustained`` (bench.py:1346-1360) less the prefix and
+# offload tiers, which the port does not have yet: a dense int8 pool
+# (K4 in the decode lane, K6 in the prefill lane). The sweep's rates are
+# cut to what this engine sustains (PERF.md).
+SUSTAINED_SERVE = {"max_slots": 16, "max_len": 1024, "chunk_size": 16,
+                   "max_queue": 128, "int8_kv": True}
+SUSTAINED_LOAD = dict(arrival="poisson", rate=12.0, n_requests=96,
+                      prompt_dist="lognormal", prompt_mean=64,
+                      prompt_max=256, output_dist="lognormal",
+                      output_mean=96, output_min=8, output_max=256,
+                      prefix_pool=4, prefix_tokens=32, vocab_size=50257,
+                      seed=17)
+SUSTAINED_WINDOW_S = 2.0
+SUSTAINED_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
+SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 16
+# The training breakdown (phase_train_breakdown): phase_train's setting,
+# steps with the timers on and off from one seed, fused and split.
+BREAKDOWN_STEPS = 4
+BREAKDOWN = {"wall_clock_breakdown": True, "memory_breakdown": True,
+             "steps_per_print": 1}
+BREAKDOWN_TIMERS = ("forward", "backward", "backward_inner", "step")
 
 
 def fail(msg):
@@ -1371,6 +1442,574 @@ def _profile(step, window):
     if decode:
         out["decode_attention_union_ms_per_step"] = decode
     return out
+
+
+def _parse_prom(text):
+    """Prometheus text -> ({name: kind}, {(name, labels): value}), with
+    no help from the exporter's own formatting; raises on a line it
+    cannot read."""
+    kinds, samples = {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            _, _, name, kind = line.split()
+            kinds[name] = kind
+            continue
+        head, val = line.rsplit(" ", 1)
+        name, labels = head, ()
+        if "{" in head:
+            name, rest = head.split("{", 1)
+            labels = tuple(sorted(
+                (kv.split("=", 1)[0], kv.split("=", 1)[1].strip('"'))
+                for kv in rest.rstrip("}").split(",")))
+        samples[(name, labels)] = float(val)
+    return kinds, samples
+
+
+def _pct(vals, p):
+    """Nearest-rank percentile (the registry's and the report's rule)."""
+    if not vals:
+        return None
+    s = sorted(vals)
+    return s[min(int(len(s) * p / 100.0), len(s) - 1)]
+
+
+class _HostClock(object):
+    """Seconds the host spends inside the serving engine's telemetry
+    calls, by kind, each call timed with perf_counter. ``instrument``
+    wraps the engine's span recorder, profiler scopes, timers, counters,
+    histograms, recompile detector and adapter hook; a call made from
+    inside another timed call counts once, in the outer one."""
+
+    def __init__(self):
+        self.s = collections.Counter()
+        self._depth = 0
+
+    def _call(self, kind, fn, *args, **kwargs):
+        if self._depth:
+            return fn(*args, **kwargs)
+        self._depth += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.s[kind] += time.perf_counter() - t0
+            self._depth -= 1
+
+    def wrap(self, kind, fn):
+        return lambda *a, **k: self._call(kind, fn, *a, **k)
+
+    def scope(self, kind, make):
+        """A context-manager factory whose construction, enter and exit
+        are timed (not the body)."""
+        clock = self
+
+        class _Scope(object):
+            def __init__(self, args, kwargs):
+                self.cm = clock._call(kind, make, *args, **kwargs)
+
+            def __enter__(self):
+                return clock._call(kind, self.cm.__enter__)
+
+            def __exit__(self, *exc):
+                return clock._call(kind, self.cm.__exit__, *exc)
+
+        return lambda *a, **k: _Scope(a, k)
+
+    def proxy(self, kind, obj, methods):
+        """``obj`` with ``methods`` timed; other attributes pass."""
+        clock = self
+
+        class _Proxy(object):
+            def __getattr__(self, name):
+                attr = getattr(obj, name)
+                return clock.wrap(kind, attr) if name in methods else attr
+
+        return _Proxy()
+
+    def instrument(self, engine):
+        tracer = engine.tracer  # the scheduler holds the same recorder
+        tracer.span = self.wrap("spans", tracer.span)
+        tracer.instant = self.wrap("spans", tracer.instant)
+        tracer.timed = self.scope("spans", tracer.timed)
+        engine._annotate = self.scope("annotate", engine._annotate)
+        timers, proxies = engine.timers, {}
+
+        def timer(name):
+            if name not in proxies:
+                proxies[name] = self.proxy("timers", timers(name),
+                                           ("start", "stop"))
+            return proxies[name]
+
+        engine.timers = timer
+        bank, clock = engine.counters, self
+
+        class _Bank(object):
+            def __getitem__(self, name):
+                return clock._call("counters", bank.__getitem__, name)
+
+            def __setitem__(self, name, value):
+                clock._call("counters", bank.__setitem__, name, value)
+
+            def window(self, name):
+                return clock._call("counters", bank.window, name)
+
+        engine.counters = _Bank()
+        engine._lane_steps = self.proxy("counters", engine._lane_steps,
+                                        ("inc",))
+        for name in ("_ttft_hist", "_itl_hist"):
+            setattr(engine, name, self.proxy(
+                "histograms", getattr(engine, name), ("observe",)))
+        sched = engine._scheduler
+        sched._queue_wait = self.proxy("histograms", sched._queue_wait,
+                                       ("observe",))
+        engine.recompile_detector = self.proxy(
+            "recompiles", engine.recompile_detector, ("observe",))
+        engine._adapter = self.proxy("adapter", engine._adapter,
+                                     ("observe",))
+
+
+def _serve_turn(engine, prompts, sampled_at=lambda i: i % 6 == 5):
+    """Serve ``prompts`` to the end on ``engine``, the requests for which
+    ``sampled_at(i)`` holds sampled with top-k 50 (phase_serve's stream:
+    every sixth). Returns the per-step host ms, the streams, the tokens
+    out, each request's TTFT (s) with whether its first token came in a
+    step that captured a graph and whether it waited through one, and
+    each capturing step (its ms, the requests still waiting)."""
+    reqs = []
+    for i, p in enumerate(prompts):
+        sampled = sampled_at(i)
+        reqs.append(engine.submit(
+            p, max_new_tokens=NEW_TOKENS,
+            temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else None, seed=i))
+    step_ms, captures, in_capture, delayed = [], [], set(), set()
+    while not engine.idle:
+        before = engine.compile_count
+        waiting = {r.rid for r in reqs if r.first_token_time is None}
+        t0 = time.perf_counter()
+        engine.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if engine.compile_count > before:
+            first = {r.rid for r in reqs
+                     if r.rid in waiting and r.first_token_time is not None}
+            in_capture |= first
+            delayed |= waiting - first
+            captures.append({"step": len(step_ms) - 1,
+                             "step_ms": step_ms[-1],
+                             "requests_waiting": len(waiting)})
+    ttft = [(r.first_token_time - r.submit_time, r.rid in in_capture,
+             r.rid in delayed) for r in reqs]
+    return {"step_ms": step_ms, "streams": [r.tokens for r in reqs],
+            "tokens": sum(len(r.tokens) for r in reqs), "ttft": ttft,
+            "captures": captures}
+
+
+def _ttft_split(turn):
+    """TTFT p50/p99 (ms) of a turn's requests: all, those whose first
+    token came in a capturing step, those that waited through a capture
+    for it, and the rest."""
+    def stats(rows):
+        ms = [t * 1e3 for t, _, _ in rows]
+        return {"n": len(ms), "p50_ms": _pct(ms, 50), "p99_ms": _pct(ms, 99)}
+
+    rows = turn["ttft"]
+    return {"all": stats(rows),
+            "first_token_in_capturing_step": stats([r for r in rows if r[1]]),
+            "waited_through_a_capture": stats([r for r in rows if r[2]]),
+            "no_capture": stats([r for r in rows if not r[1] and not r[2]]),
+            "captures": turn["captures"]}
+
+
+def _scraped_serve(model, prompts, sampled_at):
+    """A fresh engine serves ``prompts`` while a thread scrapes its
+    PrometheusEndpoint every SCRAPE_EVERY_S: the streams, the scrape
+    count and the keys captured."""
+    engine = init_inference(model, config=dict(SERVE))
+    endpoint = PrometheusEndpoint(engine.telemetry, port=0)
+    url = "http://{}:{}/metrics".format(endpoint.host, endpoint.port)
+    scrapes, errors, stop = [0], [], threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            try:
+                urllib.request.urlopen(url, timeout=30).read()
+                scrapes[0] += 1
+            except OSError as e:
+                errors.append(repr(e))
+            time.sleep(SCRAPE_EVERY_S)
+
+    thread = threading.Thread(target=scrape, name="smoke-scraper")
+    try:
+        thread.start()
+        streams = _serve_turn(engine, prompts, sampled_at)["streams"]
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+        endpoint.close()
+    if thread.is_alive() or errors:
+        fail("telemetry: scrape during capture: thread alive {}, errors "
+             "{}".format(thread.is_alive(), errors[:3]))
+    return streams, scrapes[0], sorted(engine._programs)
+
+
+def _profile_check(engine, cfg):
+    """Three steps of a full pool under profile_window with
+    DS_TPU_PROFILE_DIR set: the exported trace must hold K3's kernel and
+    the engine's ``inference/mixed_step`` scope."""
+    base = tempfile.mkdtemp(prefix="ds_tpu_profile_")
+    old = os.environ.get(PROFILE_DIR_ENV)
+    os.environ[PROFILE_DIR_ENV] = base
+    try:
+        for i, p in enumerate(_prompts(SERVE["max_slots"], cfg.vocab_size,
+                                       2)):
+            engine.submit(p, max_new_tokens=48, seed=i)
+        for _ in range(4):
+            engine.step()
+        with profile_window("serve") as path:
+            for _ in range(3):
+                engine.step()
+        traces = [os.path.join(path, f) for f in os.listdir(path or base)
+                  if f.endswith(".json")] if path else []
+        if len(traces) != 1:
+            fail("telemetry: profile_window wrote {} traces under {}".format(
+                len(traces), path))
+        with open(traces[0]) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        engine.run()
+    finally:
+        if old is None:
+            del os.environ[PROFILE_DIR_ENV]
+        else:
+            os.environ[PROFILE_DIR_ENV] = old
+        shutil.rmtree(base, ignore_errors=True)
+    k3 = sorted(n for n in names if "decode_split_kernel" in n)
+    if not k3 or "inference/mixed_step" not in names:
+        fail("telemetry: the profile_window trace lacks K3 ({}) or the "
+             "inference/mixed_step scope".format(k3[:2]))
+    return {"event_names": len(names), "k3_kernels": [n[:100] for n in k3]}
+
+
+def phase_telemetry(card, model):
+    """Telemetry on the serving path (GPT-2 medium bf16, SERVE's dense
+    pool, the 24-request stream of phase_serve; K3 and K5): two engines,
+    telemetry on and off, each warmed by serving the stream once (every
+    key met), then marked warm, then the stream in turns A B B A (A on).
+    Checks: the four turns' streams equal; programs equal on and off;
+    recompiles 0; the on-engine's spans, its trace file
+    (validate_trace), its Prometheus text against metrics() over one
+    window; a fresh engine scraped every 5 ms while it captures; a
+    profile_window trace; and the host time inside telemetry calls,
+    timed call by call on a fifth turn, under TELEMETRY_HOST_SHARE of the
+    median step. Reports the TTFT of the warm-up (captures inside it) by
+    capturing step and the rest."""
+    cfg = model.config
+    prompts = _prompts(N_REQUESTS, cfg.vocab_size, seed=0)
+    engines = {True: init_inference(model, config=dict(SERVE)),
+               False: init_inference(model, config=dict(SERVE,
+                                                        telemetry=False))}
+    warm_ttft, warm_streams = {}, {}
+    for on, engine in engines.items():
+        warm = _serve_turn(engine, prompts)
+        warm_streams[on] = warm["streams"]
+        warm_ttft[on] = dict(_ttft_split(warm),
+                             capture_ms=engine.metrics()["capture_ms"])
+        engine.recompile_detector.mark_warm()
+        engine.metrics(reset=True)
+    want = warm_streams[True]
+    if warm_streams[False] != want:
+        fail("telemetry: the warm-up streams differ on and off")
+    turns = []
+    prom_check = None
+    for turn, on in zip("ABBA", (True, False, False, True)):
+        engine = engines[on]
+        last = len(turns) == 3
+        text0 = engine.prometheus() if last else None
+        torch.cuda.synchronize()
+        da.reset_launches()
+        served = _serve_turn(engine, prompts)
+        step_ms, got = served["step_ms"], served["streams"]
+        launches = dict(da.launches)
+        m = engine.metrics(reset=True)
+        if got != want:
+            fail("telemetry: turn {} (telemetry {}) served other streams "
+                 "than the warm-up".format(len(turns), on))
+        expect = dict.fromkeys(launches, 0)
+        expect["decode"] += cfg.n_layer * m["decode_steps"]
+        expect["paged"] += cfg.n_layer * m["prefill_lanes"]
+        if launches != expect:
+            fail("telemetry: turn {} launches {} != {}".format(
+                len(turns), launches, expect))
+        if m["recompiles"] != 0:
+            fail("telemetry: {} recompiles after mark_warm (telemetry "
+                 "{}); keys {}".format(m["recompiles"], on,
+                                       sorted(engine._programs)))
+        if last:
+            prom_check = _prometheus_window(engine, text0, m)
+        turns.append({"turn": turn, "telemetry": on,
+                      "median_step_ms": float(np.median(step_ms)),
+                      "steps": len(step_ms),
+                      "ttft_p50_ms": m["ttft_p50_ms"],
+                      "ttft_p99_ms": m["ttft_p99_ms"],
+                      "inter_token_p99_ms": m["inter_token_p99_ms"],
+                      "queue_wait_p99_ms": m["queue_wait_p99_ms"],
+                      "tokens_per_sec": served["tokens"] / sum(step_ms)
+                      * 1e3})
+    on, off = engines[True], engines[False]
+    keys = [list(k) for k in sorted(on._programs)]
+    if sorted(on._programs) != sorted(off._programs) or \
+            on.compile_count != off.compile_count:
+        fail("telemetry: programs on {} and off {}".format(
+            sorted(on._programs), sorted(off._programs)))
+    counts = on.tracer.span_counts()
+    missing = [n for n in TELEMETRY_SPANS if not counts.get(n)]
+    if missing or off.tracer.span_counts():
+        fail("telemetry: spans {} missing on, {} recorded off".format(
+            missing, off.tracer.span_counts()))
+    trace_dir = tempfile.mkdtemp(prefix="ds_tpu_trace_")
+    try:
+        with open(on.write_trace(os.path.join(trace_dir, "t.json"))) as f:
+            n_events = validate_trace(json.load(f))
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    # A fresh engine captures its keys under a 5 ms scrape; the warm
+    # on-engine serves the same requests unscraped.
+    sub, sampled_at = prompts[:SCRAPE_REQUESTS], lambda i: i == 2
+    scraped, n_scrapes, scraped_keys = _scraped_serve(model, sub, sampled_at)
+    unscraped = _serve_turn(on, sub, sampled_at)["streams"]
+    if scraped != unscraped:
+        fail("telemetry: the scraped engine's streams differ from the "
+             "unscraped engine's")
+    # The host time inside telemetry calls, call by call, on a fifth
+    # turn of the on-engine; then the profiler window (a profiler session
+    # can leave the process's launches slower: it goes last).
+    clock = _HostClock()
+    clock.instrument(on)
+    step_ms = _serve_turn(on, prompts)["step_ms"]
+    host_us = {k: v * 1e6 / len(step_ms) for k, v in clock.s.items()}
+    profile = _profile_check(on, cfg)
+    per_step_us = sum(host_us.values())
+    median_on = float(np.median([t["median_step_ms"] for t in turns
+                                 if t["telemetry"]]))
+    median_off = float(np.median([t["median_step_ms"] for t in turns
+                                  if not t["telemetry"]]))
+    snap = on.telemetry_snapshot()
+    # The timing wrappers refer back to the engine: free it now.
+    del on, engines
+    gc.collect()
+    line = {"telemetry": "gpt2-medium bf16 dense", "requests": N_REQUESTS,
+            "turns": turns, "median_step_ms_on": median_on,
+            "median_step_ms_off": median_off,
+            "on_minus_off_ms": median_on - median_off,
+            "host_us_per_step": per_step_us,
+            "host_us_per_step_by_kind": host_us,
+            "host_share_of_median_step": per_step_us / 1e3 / median_on,
+            "instrumented_turn_median_step_ms": float(np.median(step_ms)),
+            "warmup_ttft_on": warm_ttft[True],
+            "warmup_ttft_off": warm_ttft[False],
+            "program_keys": keys, "compile_count": len(keys),
+            "recompiles": 0,
+            "span_counts": snap["span_counts"],
+            "spans_dropped": snap["spans_dropped"],
+            "trace_events": n_events, "prometheus": prom_check,
+            "scrape": {"requests": len(sub), "scrapes": n_scrapes,
+                       "program_keys": [list(k) for k in scraped_keys]},
+            "profile_window": profile, "card": card}
+    print("telemetry " + json.dumps(line))
+    if per_step_us / 1e3 > TELEMETRY_HOST_SHARE * median_on:
+        fail("telemetry: {:.1f} us per step in telemetry calls is over "
+             "{:.0%} of the median step ({:.2f} ms)".format(
+                 per_step_us, TELEMETRY_HOST_SHARE, median_on))
+    return line
+
+
+def _prometheus_window(engine, before, m):
+    """Every counter of ``engine.prometheus()`` that metrics() reports
+    must have moved by the window's metrics() value since ``before``."""
+    kinds0, s0 = _parse_prom(before)
+    kinds1, s1 = _parse_prom(engine.prometheus())
+    checked = {}
+    for name, kind in kinds1.items():
+        if kind != "counter":
+            continue
+        key = name[len("ds_tpu_"):-len("_total")]
+        if key not in m:
+            continue
+        lbl = (("engine", "inference"),)
+        moved = s1[(name, lbl)] - s0.get((name, lbl), 0.0)
+        if moved != m[key]:
+            fail("telemetry: Prometheus {} moved {} over the window, "
+                 "metrics() says {}".format(name, moved, m[key]))
+        checked[key] = m[key]
+    if "tokens_out" not in checked or "chunks" not in checked:
+        fail("telemetry: Prometheus lacks the engine's counters: {}".format(
+            sorted(kinds1)))
+    return {"families": len(kinds1), "counters_checked": checked}
+
+
+def phase_sustained(card, model):
+    """The sustained-load harness on the card (SUSTAINED_SERVE,
+    SUSTAINED_LOAD): GPT-2 medium bf16 over a dense int8 pool (K4, its
+    prefill lane K6), warmed by two short requests that outlive their
+    prefill step (compile_count 2: both greedy keys), then marked warm;
+    the open-loop run, its report, the saturation sweep at SWEEP_RATES
+    and the gate's A/A self-check. Fails on an accepted request left
+    incomplete, a recompile, or a non-finite number."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(SUSTAINED_SERVE))
+    chunk = SUSTAINED_SERVE["chunk_size"]
+    engine.generate([np.arange(1, 9), np.arange(9, 17)],
+                    max_new_tokens=2 * chunk)
+    if engine.compile_count != 2:
+        fail("sustained: the warm-up met keys {}".format(
+            sorted(engine._programs)))
+    engine.recompile_detector.mark_warm()
+    engine.metrics(reset=True)
+
+    def run(spec):
+        c0 = engine.counters["chunks"]
+        lanes0 = engine._lane_steps.value
+        da.reset_launches()
+        t0 = time.perf_counter()
+        res = SustainedRunner(engine, spec, window_seconds=SUSTAINED_WINDOW_S,
+                              max_steps=500_000).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(da.launches)
+        decode_steps = (engine.counters["chunks"] - c0) * chunk
+        lanes = engine._lane_steps.value - lanes0
+        expect = dict.fromkeys(launches, 0)
+        expect["q8"] += cfg.n_layer * decode_steps
+        expect["paged_q8"] += cfg.n_layer * int(lanes)
+        if launches != expect:
+            fail("sustained: launches {} != {}".format(launches, expect))
+        if res.requests_lost or res.completed != res.submitted:
+            fail("sustained: {} accepted, {} completed, {} lost".format(
+                res.submitted, res.completed, res.requests_lost))
+        rep = build_report(spec, res, SUSTAINED_SLO, platform="gpu",
+                           extra={"model": "gpt2-medium bf16",
+                                  "serve_cfg": dict(SUSTAINED_SERVE),
+                                  "card": card})
+        waits = [r.admit_time - r.submit_time
+                 for r in (engine.find_request(s["rid"])
+                           for s in res.samples if not s["shed"])]
+        return rep, {"launches": launches, "wall_s": wall,
+                     "queue_wait_p99_ms": _pct(waits, 99) * 1e3}
+
+    spec = WorkloadSpec(**SUSTAINED_LOAD)
+    report, facts = run(spec)
+    sweep = saturation_sweep(
+        lambda rate: run(WorkloadSpec(**dict(
+            SUSTAINED_LOAD, rate=rate, n_requests=SWEEP_REQUESTS,
+            seed=int(rate) + 1000)))[0], SWEEP_RATES)
+    gate = regression_gate(report, report)
+    recompiles = engine.metrics()["recompiles"]
+    agg = report["aggregate"]
+    line = {"sustained": "gpt2-medium bf16, dense int8 pool",
+            "serve_cfg": SUSTAINED_SERVE,
+            "workload": {k: SUSTAINED_LOAD[k] for k in (
+                "arrival", "rate", "n_requests", "prompt_mean",
+                "output_mean", "prefix_pool", "seed")},
+            "wall_s": agg["wall_s"], "submitted": agg["submitted"],
+            "completed": agg["completed"], "shed": agg["shed"],
+            "tokens_out": agg["tokens_out"],
+            "tokens_per_sec": agg["tokens_per_sec"],
+            "goodput_tokens_per_sec": agg["goodput_tokens_per_sec"],
+            "slo": SUSTAINED_SLO.to_json(),
+            "slo_attainment": agg["slo_attainment"],
+            "ttft_p50_ms": agg["ttft_p50_ms"],
+            "ttft_p99_ms": agg["ttft_p99_ms"],
+            "itl_p50_ms": agg["itl_p50_ms"], "itl_p99_ms": agg["itl_p99_ms"],
+            "queue_wait_p99_ms": facts["queue_wait_p99_ms"],
+            "queue_depth_per_window": [
+                w["queue_depth"] for w in report["timeseries"]["windows"]],
+            "ttft_p99_ms_per_window": [
+                w["ttft_p99_ms"] for w in report["timeseries"]["windows"]],
+            "windows": len(report["timeseries"]["windows"]),
+            "max_sustainable_rate": sweep["max_sustainable_rate"],
+            "sweep": sweep["rates"], "gate_self_check": gate["pass"],
+            "recompiles": recompiles, "launches": facts["launches"],
+            "card": card}
+    print("sustained " + json.dumps(line))
+    if recompiles or not gate["pass"]:
+        fail("sustained: {} recompiles; gate A/A pass {}".format(
+            recompiles, gate["pass"]))
+    numbers = [v for v in (agg["tokens_per_sec"],
+                           agg["goodput_tokens_per_sec"], agg["ttft_p50_ms"],
+                           agg["ttft_p99_ms"], agg["itl_p50_ms"],
+                           agg["itl_p99_ms"], facts["queue_wait_p99_ms"])]
+    if not all(v is not None and math.isfinite(v) for v in numbers):
+        fail("sustained: a number is missing or not finite: {}".format(
+            numbers))
+    return line
+
+
+def _breakdown_run(cfg, ids, extra):
+    """BREAKDOWN_STEPS forward/backward/step of phase_train's setting from
+    seed 0 with ``extra`` in the ds_config: the losses, the registry
+    snapshot and the allocator's MA/Max_MA."""
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=0)
+    engine, _, _, _ = initialize(model=model, config_params=dict(
+        TRAIN_CONFIG, **extra))
+    losses = []
+    for _ in range(BREAKDOWN_STEPS):
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    return losses, engine.telemetry.snapshot(), engine.timers.memory_usage()
+
+
+def phase_train_breakdown(card):
+    """phase_train's setting (K1, K2a) for BREAKDOWN_STEPS steps with
+    wall_clock_breakdown and memory_breakdown on (steps_per_print 1),
+    off, and off again, from seed 0 on one batch; then on and off with
+    the split backward (K2b). K2a adds dq by float atomics, whose order
+    varies from run to run, so its runs are held to their first loss
+    (the forward on equal weights) and the repeat shows the run-to-run
+    spread; K2b has no atomics, so with it the losses on and off must be
+    equal bit for bit. Reports each phase's median ms (the
+    ``timer_seconds`` histograms), the allocator's MA/Max_MA and whether
+    TensorBoardScalarWriter finds tensorboard on this machine."""
+    cfg = GPT2Config.gpt2_medium(dtype=torch.bfloat16, dropout=0.0)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(TRAIN_B, TRAIN_T))).to("cuda")
+    runs = {label: _breakdown_run(cfg, ids, extra) for label, extra in (
+        ("off", {}), ("on", BREAKDOWN), ("off_again", {}))}
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        for label, extra in (("split_off", {}), ("split_on", BREAKDOWN)):
+            runs[label] = _breakdown_run(cfg, ids, extra)
+    finally:
+        del os.environ["DS_TPU_FLASH_BWD"]
+    snap = runs["on"][1]
+    phases = {name: snap["timer_seconds{timer=" + name + "}"]["p50"] * 1e3
+              for name in BREAKDOWN_TIMERS}
+    tb_dir = tempfile.mkdtemp(prefix="ds_tpu_tb_")
+    try:
+        tb_available = TensorBoardScalarWriter(tb_dir).available
+    finally:
+        shutil.rmtree(tb_dir, ignore_errors=True)
+    print("train_breakdown " + json.dumps({
+        "train_breakdown": "gpt2-medium bf16 AdamW", "batch": TRAIN_B,
+        "seq": TRAIN_T, "steps": BREAKDOWN_STEPS,
+        "phase_p50_ms": phases, "memory": runs["on"][2],
+        "losses": {label: run[0] for label, run in runs.items()},
+        "fused_off_repeats_bit_for_bit":
+            runs["off_again"][0] == runs["off"][0],
+        "split_on_equals_off_bit_for_bit":
+            runs["split_on"][0] == runs["split_off"][0],
+        "samples_per_sec": snap["samples_per_sec"],
+        "tensorboard_available": tb_available, "card": card}))
+    if runs["split_on"][0] != runs["split_off"][0] or \
+            runs["on"][0][0] != runs["off"][0][0]:
+        fail("train_breakdown: losses with the breakdown on differ from "
+             "off: split {} vs {}, fused first {} vs {}".format(
+                 runs["split_on"][0], runs["split_off"][0], runs["on"][0][0],
+                 runs["off"][0][0]))
 
 
 def _gap(model, ids):
@@ -2919,6 +3558,8 @@ def main():
              "must not add a program".format(on["program_keys"],
                                              off["program_keys"]))
     phase_graph_vs_eager(model)
+    phase_telemetry(card, model)
+    phase_sustained(card, model)
     n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill
@@ -2932,6 +3573,7 @@ def main():
     launches = serve_launches["decode"]
     phase_greedy()
     train_launches = phase_train(card)
+    phase_train_breakdown(card)
     phase_train_consistency()
     bert_launches = phase_bert(card)
     phase_bert_consistency()

@@ -13,6 +13,9 @@ a row's frontier may hold garbage that is masked or overwritten before the
 frontier reaches them; and row b's logits depend only on row b's tokens and
 frontier.
 
+``observe`` publishes an adapter's own gauges after each step's harvest
+(a no-op for GPT-2, as in the JAX package).
+
 Speculation adds three methods: ``verify_forward`` scores a slot's frontier
 token and its drafts in one forward without moving the frontier,
 ``ngram_draft`` drafts from the slot's own tokens, and ``accept_counts``
@@ -68,3 +71,10 @@ class ModelAdapter:
         """The adapter specialised to an engine's InferenceConfig; ``self``
         when nothing changes."""
         return self
+
+    def observe(self, snap, registry):
+        """Publish adapter gauges from a step's harvest (the host copy of
+        the pool's per-slot fields) into a telemetry MetricsRegistry.
+        Called once per engine step, after the harvest: host-only, no
+        device read. GPT-2 has none."""
+        return None

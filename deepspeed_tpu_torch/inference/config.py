@@ -2,9 +2,11 @@
 
 Counterpart of ``deepspeed_tpu/inference/config.py``. The dataclass holds
 the settings the port reads, with the JAX package's defaults: chunked
-prefill into a dense or paged slotted pool of fp or int8 planes, and
+prefill into a dense or paged slotted pool of fp or int8 planes,
 speculative decoding (``spec_decode``, ``spec_k``, ``spec_ngram``; see
-``resolved_spec_decode``).
+``resolved_spec_decode``), and telemetry (``telemetry``: trace spans and
+profiler scopes on top of the always-on metrics registry; ``trace_ring``:
+the span ring's capacity).
 
 There is no switch for the step's CUDA graphs, as the JAX package has
 none for its jit: on the card the engine always captures its step
@@ -25,7 +27,7 @@ from typing import Optional
 _FLEET = "the reliability and fleet slice (ROADMAP Queue 1)"
 _HIERARCHY = ("the prefix and offload tiers of the KV hierarchy (ROADMAP "
               "Queue 1)")
-_TELEMETRY = "the telemetry slice (ROADMAP Queue 1)"
+_XRAY = "the perf x-ray slice (ROADMAP Queue 1 item 7)"
 
 # JAX-package key -> (values the port accepts, the slice that ports the
 # rest). The first accepted value is the JAX default.
@@ -37,11 +39,9 @@ _UNPORTED = {
     "use_flash_decode": ((None, True), "no slice: the port's one attention "
                          "path is kernel K3 on the GPU and its plain version "
                          "on the CPU"),
-    # The port has no telemetry: switching it off asks for what it does.
-    "telemetry": ((True, False), _TELEMETRY),
-    "trace_ring": ((4096,), _TELEMETRY),
-    "perf_xray": ((True, False), _TELEMETRY),
-    "xray_sample_every": ((64,), _TELEMETRY),
+    # The port has no perf x-ray: switching it off asks for what it does.
+    "perf_xray": ((True, False), _XRAY),
+    "xray_sample_every": ((64,), _XRAY),
     "fault_injection": ((False,), _FLEET),
     "step_budget_s": ((None,), _FLEET),
     "recovery_max_retries": ((2,), _FLEET),
@@ -87,10 +87,15 @@ class InferenceConfig:
     spec_decode: Optional[bool] = None
     spec_k: int = 4
     spec_ngram: int = 3
+    # Trace spans and profiler scopes (the metrics registry is always
+    # on), and the span ring's capacity in events.
+    telemetry: bool = True
+    trace_ring: int = 4096
 
     def __post_init__(self):
         for name in ("max_slots", "chunk_size", "max_queue", "prefill_chunk",
-                     "max_len", "kv_page_len", "spec_k", "spec_ngram"):
+                     "max_len", "kv_page_len", "spec_k", "spec_ngram",
+                     "trace_ring"):
             if getattr(self, name) < 1:
                 raise ValueError("inference.{} must be >= 1, got {}".format(
                     name, getattr(self, name)))

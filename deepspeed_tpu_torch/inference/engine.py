@@ -75,12 +75,39 @@ layouts (``kv_pool.slot_cache_view``), so on the card it runs the paged
 kernels: K5 over a dense pool, K6 over a dense int8 pool; the decode lane
 runs K3/K4 over dense planes and K5/K6 over paged ones.
 
-Telemetry, perf x-ray, resilience and fault injection, the prefix and
-offload tiers of the KV hierarchy and tensor parallelism are later slices.
-The accept statistics of ``metrics()`` are cumulative (the port has no
-telemetry window yet).
+TELEMETRY, as in the JAX engine. The counters, gauges and latency
+histograms live in one ``MetricsRegistry`` (``self.telemetry``), always
+on: ``metrics(reset=True)`` reads them as a window and opens the next
+(the accept statistics and the wall clock too), and ``prometheus()`` and
+``telemetry_snapshot()`` read the same registry. ``inference.telemetry``
+(default on) adds a ``SpanRecorder`` ring of ``trace_ring`` events and
+the profiler scopes (``telemetry.annotate``): the scheduler's request
+lifecycle, and per step a ``step/mixed`` span around the program
+(``captured=True`` on a step that captures its key's graph: the capture
+lies inside the span), a ``step/harvest`` span around the one D2H read,
+``request/chunk`` instants per emitting slot and ``spec/verify``
+instants on a speculating engine; ``write_trace`` dumps the ring.
+``step/mixed`` measures the LAUNCH of a replayed graph, not its device
+work: that lands in ``step/harvest``, which waits for the D2H copy (the
+JAX spans split the same way: dispatch is asynchronous there too). The
+``inference/decode`` timer spans the step from the H2D upload to the
+harvest, synchronizing outside every capture. Every gauge reads host
+state only, so a scrape from another thread (``PrometheusEndpoint``)
+makes no CUDA call that could disturb a capture.
+
+The ``RecompileDetector`` watches the program cache: after
+``recompile_detector.mark_warm()``, a key met for the first time counts
+in ``recompiles``, and the warning names the key. Warm-up is the
+caller's, as on the JAX legacy path: the engine does not mark itself
+warm after its first step (the JAX mixed step does: it has one program),
+so the caller meets every key its traffic will meet before
+``mark_warm()``.
+
+Perf x-ray, resilience and fault injection, the prefix and offload tiers
+of the KV hierarchy and tensor parallelism are later slices.
 """
 
+import contextlib
 import time
 
 import numpy as np
@@ -102,6 +129,85 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.ops.sampling import sample_rows as _sample_rows
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
+from deepspeed_tpu_torch.telemetry import (MetricsRegistry, NullRecorder,
+                                           RecompileDetector, SpanRecorder,
+                                           annotate, prometheus_digest,
+                                           prometheus_text)
+from deepspeed_tpu_torch.telemetry.registry import Counter
+from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
+
+# The telemetry-off profiler scope: free.
+_NULL_CTX = contextlib.nullcontext()
+
+# The JAX engine's counters that the port's features drive.
+_COUNTERS = ("tokens_out", "chunks", "prefills", "prefill_tokens",
+             "requests_completed", "occupied_slot_steps", "slot_steps")
+
+
+class _CounterBank(object):
+    """Dict-shaped view over registry counters: ``bank["tokens_out"] +=
+    n`` while the values live in the telemetry registry, ONE source of
+    truth for metrics() and Prometheus. Reads return ints; monotonicity
+    is enforced by the underlying Counter. (The JAX engine's class.)"""
+
+    __slots__ = ("_c",)
+
+    def __init__(self, registry, names):
+        self._c = {n: registry.counter(n) for n in names}
+
+    def __getitem__(self, name):
+        return int(self._c[name].value)
+
+    def __setitem__(self, name, value):
+        c = self._c[name]
+        c.inc(value - c.value)
+
+    def __contains__(self, name):
+        return name in self._c
+
+    def __iter__(self):
+        return iter(self._c)
+
+    def keys(self):
+        return self._c.keys()
+
+    def items(self):
+        return [(n, int(c.value)) for n, c in self._c.items()]
+
+    def window(self, name):
+        """Value accumulated since the last metrics(reset=True)."""
+        return int(self._c[name].window_value)
+
+
+class _ProgramCache(dict):
+    """Program key -> ``_StepGraph`` on the card, None on the CPU: one
+    program per key met. ``_cache_size`` is what the RecompileDetector
+    reads; ``describe`` names the key added last in its warning."""
+
+    newest = None
+
+    def __setitem__(self, key, program):
+        self.newest = key
+        super().__setitem__(key, program)
+
+    def _cache_size(self):
+        return len(self)
+
+    def describe(self, label):
+        return "key (prefill lane, any row samples, any row top-k) = " \
+            "{}".format(self.newest)
+
+
+def _live_tokens(scheduler):
+    """Tokens resident across running requests: the numerator of the
+    page-fragmentation gauge."""
+    total = 0
+    for r in list(scheduler.running.values()):
+        if r.phase == "prefilling":
+            total += int(r.cursor)
+        else:
+            total += int(r.prompt.size) + len(r.tokens)
+    return total
 
 
 def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
@@ -329,7 +435,15 @@ class InferenceEngine(object):
         self._adapter = GPT2Adapter.from_model(model).bind(config)
         self._gcfg = self._adapter.cache_spec()
         config.validate_against_model(self._gcfg.n_positions)
-        self._scheduler = Scheduler(config.max_slots, config.max_queue)
+        # Telemetry (module docstring): the registry is always real, the
+        # spans and profiler scopes follow ``config.telemetry``.
+        self.telemetry = MetricsRegistry(engine="inference")
+        self.tracer = (SpanRecorder(capacity=config.trace_ring)
+                       if config.telemetry else NullRecorder())
+        self._scheduler = Scheduler(
+            config.max_slots, config.max_queue,
+            tracer=self.tracer if config.telemetry else None,
+            registry=self.telemetry)
         # Engine-lifetime speculation: (spec_k, spec_ngram), or None.
         self._spec = ((config.spec_k, config.spec_ngram)
                       if config.resolved_spec_decode() else None)
@@ -371,24 +485,70 @@ class InferenceEngine(object):
             self._table = torch.zeros(
                 tuple(self._pool["block_tbl"].shape), dtype=torch.int32,
                 pin_memory=self.device.type == "cuda")
-        # Program cache (module docstring): key -> _StepGraph on the card,
-        # None on the CPU.
-        self._programs = {}
+        # Program cache (module docstring). graph_replays, capture time
+        # and the graph pool's bytes are cumulative, like compile_count.
+        self._programs = _ProgramCache()
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda" else None)
         self.graph_replays = 0
         self._capture_s = 0.0
         self._graph_pool_bytes = 0
+        # The last step's harvest (host arrays): gauges and metrics()
+        # read it rather than the device.
         self._last_snap = None
-        self.counters = dict.fromkeys(
-            ("tokens_out", "prefill_tokens", "prefills", "prefill_lanes",
-             "chunks", "requests_completed"), 0)
-        self._ttft = []
+        self.recompile_detector = RecompileDetector(
+            self.telemetry, describe=self._programs.describe)
+        self.recompile_detector.watch("mixed_step", self._programs)
+        self.timers = SynchronizedWallClockTimer(registry=self.telemetry)
+        self.counters = _CounterBank(self.telemetry, _COUNTERS)
+        # Steps that carried a prefill lane: the port's own count (the
+        # JAX engine keeps none), windowed with the registry, not
+        # exported.
+        self._lane_steps = Counter("prefill_lanes", {})
+        self._register_gauges()
+        self._ttft_hist = self.telemetry.histogram("ttft_seconds")
+        self._itl_hist = self.telemetry.histogram("inter_token_seconds")
+        self._qwait_hist = self.telemetry.histogram("queue_wait_seconds")
         # Tokens emitted per occupied slot-step (index 1..lanes; index 0
         # stays empty: an occupied step emits at least one token), the
-        # source of a speculating engine's accept statistics in metrics().
+        # source of a speculating engine's accept statistics in metrics();
+        # ``_accept_base`` is the window floor metrics(reset=True) moves.
         self._accept_hist = np.zeros(lanes + 1, np.int64)
-        self._t0 = time.time()
+        self._accept_base = np.zeros_like(self._accept_hist)
+        self._window_t0 = time.time()
+
+    def _register_gauges(self):
+        """The live gauges, sampled at read (scrape) time. Each reads host
+        state only (module docstring); the pool's bytes are fixed at
+        construction (its tensors are never rebound). No gauge refers to
+        the engine itself, so an engine dropped is freed at once, pool
+        and graphs with it, without waiting for the cycle collector."""
+        reg, sched, tracer = self.telemetry, self._scheduler, self.tracer
+        reg.gauge("queue_depth").set_fn(lambda: len(sched.queue))
+        reg.gauge("slots_running").set_fn(lambda: len(sched.running))
+        reg.gauge("slots_prefilling").set_fn(
+            lambda: sum(1 for r in list(sched.running.values())
+                        if r.phase == "prefilling"))
+        reg.gauge("slot_occupancy").set_fn(sched.occupancy)
+        nbytes = pool_nbytes(self._pool)
+        reg.gauge("kv_pool_bytes").set(nbytes)
+        reg.gauge("kv_hbm_bytes").set(nbytes)
+        if self._pager is not None:
+            pg = self._pager
+            reg.gauge("kv_pages_in_use").set_fn(pg.pages_in_use)
+            reg.gauge("kv_pages_free").set_fn(pg.pages_free)
+            reg.gauge("kv_page_fragmentation").set_fn(
+                lambda: pg.fragmentation(_live_tokens(sched)))
+        reg.gauge("trace_spans_dropped").set_fn(lambda: tracer.dropped)
+
+    def _annotate(self, name):
+        """A profiler scope, or a free no-op with telemetry off."""
+        if not self.config.telemetry:
+            return _NULL_CTX
+        return annotate(name)
+
+    def _live_tokens(self):
+        return _live_tokens(self._scheduler)
 
     @property
     def adapter(self):
@@ -618,22 +778,43 @@ class InferenceEngine(object):
                 if r.phase == "decoding" or (r is pf and p_done)]
         key = (pf is not None, any(r.temperature > 0 for r in live),
                any(r.top_k > 0 for r in live))
+        # The timer synchronizes at both edges, outside the capture.
+        decode_timer = self.timers("inference/decode")
+        decode_timer.start()
         self._inputs.upload()
-        self._run_program(key)
-        snap = self._harvest.read()  # the one D2H copy
+        captures = key not in self._programs and self.device.type == "cuda"
+        with self.tracer.timed("step/mixed", prefill_tokens=n,
+                               captured=captures), \
+                self._annotate("inference/mixed_step"):
+            self._run_program(key)
+        with self.tracer.timed("step/harvest"), \
+                self._annotate("inference/harvest"):
+            snap = self._harvest.read()  # the one D2H copy
+        self._adapter.observe(snap, self.telemetry)
+        decode_timer.stop()
         clear_step_inputs(self._inputs)
         self._last_snap = snap
         self.counters["chunks"] += 1
+        toks, valid, active = snap["toks"], snap["valid"], snap["active"]
+        per_step = valid.sum(axis=2)
+        occupied = per_step > 0
+        n_occ = int(occupied.sum())
+        self.counters["occupied_slot_steps"] += n_occ
+        self.counters["slot_steps"] += occupied.size
+        self._accept_hist += np.bincount(per_step[occupied],
+                                         minlength=self._accept_hist.size)
+        if self._spec is not None and n_occ:
+            # This step's verifies (one per occupied slot-step), the
+            # tokens they drafted and the emissions they produced.
+            self.tracer.instant("spec/verify", verifies=n_occ,
+                                drafted=n_occ * self.config.spec_k,
+                                accepted=int(valid.sum()))
         if pf is not None:
-            self.counters["prefill_lanes"] += 1
+            self._lane_steps.inc()
             self.counters["prefill_tokens"] += n
             if sched.advance_prefill(pf, n):
                 self.counters["prefills"] += 1
                 self._harvest_first(pf, int(snap["first"][0]), done)
-        toks, valid, active = snap["toks"], snap["valid"], snap["active"]
-        per_step = valid.sum(axis=2)
-        self._accept_hist += np.bincount(per_step[per_step > 0],
-                                         minlength=self._accept_hist.size)
         for slot, req in list(sched.running.items()):
             if req.phase != "decoding":
                 continue
@@ -642,8 +823,14 @@ class InferenceEngine(object):
             emitted = toks[:, slot][valid[:, slot]].tolist()
             req.tokens.extend(emitted)
             self.counters["tokens_out"] += len(emitted)
+            if emitted:
+                self.tracer.instant(
+                    "request/chunk", tid=req.trace.tid, rid=req.rid,
+                    hop=req.trace.hop(), emitted=len(emitted),
+                    tokens=len(req.tokens))
             if not active[slot]:
                 self._complete(req, done)
+        self.recompile_detector.observe()
         return done
 
     def _harvest_first(self, req, first, done):
@@ -651,13 +838,15 @@ class InferenceEngine(object):
         step's device sync."""
         req.tokens.append(first)
         req.first_token_time = time.time()
-        self._ttft.append(req.first_token_time - req.submit_time)
+        self._ttft_hist.observe(req.first_token_time - req.submit_time)
         self.counters["tokens_out"] += 1
         if req.max_new_tokens <= 1 or \
                 (req.eos_token_id >= 0 and first == req.eos_token_id):
             self._complete(req, done)
 
     def _complete(self, req, done):
+        """Evict ``req``'s slot and observe its mean inter-token gap
+        ((finish - first) / (tokens - 1)) into ``inter_token_seconds``."""
         slot = req.slot
         self._scheduler.complete(slot)
         if self._pager is not None:
@@ -666,6 +855,9 @@ class InferenceEngine(object):
             self._pager.free_slot(slot)
             self._pager.release_reservation(req.rid)
         self.counters["requests_completed"] += 1
+        if req.first_token_time is not None and len(req.tokens) > 1:
+            self._itl_hist.observe((req.finish_time - req.first_token_time)
+                                   / (len(req.tokens) - 1))
         done.append(req)
 
     def run(self, max_steps=None):
@@ -686,51 +878,100 @@ class InferenceEngine(object):
         self.run()
         return [r.tokens for r in reqs]
 
-    def metrics(self):
-        """Serving counters since construction, with TTFT percentiles in
-        milliseconds (None before the first token), the pool's layout and
-        bytes, the step programs (``compile_count``, ``graph_replays``, the
-        time spent capturing graphs and the bytes of their memory pool, 0
-        on the CPU), on a paged engine its page gauges, and on a
-        speculating engine its accept statistics over every occupied
-        slot-step since construction: tokens accepted per step (mean, p50,
-        p99) and the accepted share of the drafted tokens (the first token
-        of each step is not drafted)."""
-        c = dict(self.counters)
-        wall = max(time.time() - self._t0, 1e-9)
-        ttft = np.asarray(self._ttft) * 1e3
-        c.update(
-            decode_steps=c["chunks"] * self.config.chunk_size,
-            tokens_per_sec=c["tokens_out"] / wall,
-            ttft_p50_ms=float(np.percentile(ttft, 50)) if ttft.size else None,
-            ttft_p99_ms=float(np.percentile(ttft, 99)) if ttft.size else None,
-            running=len(self._scheduler.running),
-            queue_depth=len(self._scheduler.queue),
-            max_active_frontier=(max_active_frontier(self._last_snap)
-                                 if self._last_snap is not None else 0),
-            kv_pool_bytes=pool_nbytes(self._pool),
-            kv_hbm_bytes=pool_nbytes(self._pool),
-            paged_kv=self._pager is not None,
-            int8_kv=self._hier is not None and self._hier.spec.int8,
-            compile_count=self.compile_count,
-            graph_replays=self.graph_replays,
-            capture_ms=self._capture_s * 1e3,
-            graph_pool_bytes=self._graph_pool_bytes,
-            spec_decode=self._spec is not None)
+
+    def _latency_percentiles(self):
+        """TTFT / inter-token / queue-wait percentiles (milliseconds; None
+        before the first observation) from the registry's histograms,
+        windowed like everything else in metrics(), and the series
+        Prometheus exports as summary quantiles. TTFT is submit -> first
+        harvested token; queue wait submit -> admit; inter-token the mean
+        gap per completed request."""
+        def pct(h, p):
+            v = h.percentile(p)
+            return round(v * 1e3, 3) if v is not None else None
+
+        return {
+            "ttft_p50_ms": pct(self._ttft_hist, 50),
+            "ttft_p99_ms": pct(self._ttft_hist, 99),
+            "inter_token_p50_ms": pct(self._itl_hist, 50),
+            "inter_token_p99_ms": pct(self._itl_hist, 99),
+            "queue_wait_p50_ms": pct(self._qwait_hist, 50),
+            "queue_wait_p99_ms": pct(self._qwait_hist, 99),
+        }
+
+    def metrics(self, reset=False):
+        """Serving metrics over the current window: since construction,
+        or since the last ``metrics(reset=True)``, which opens a new
+        window after reading (counters, latency and phase histograms,
+        accept statistics and the wall clock all restart), as the JAX
+        engine's. The keys are the JAX engine's that the port's features
+        have, plus the port's own: ``prefill_lanes`` and ``decode_steps``
+        (windowed), and the step programs' cumulative facts
+        (``compile_count``, ``recompiles``, ``graph_replays``,
+        ``capture_ms`` and ``graph_pool_bytes``, 0 on the CPU). The pool's
+        layout and bytes; on a paged engine its page gauges; on a
+        speculating engine the accept statistics over the window's
+        occupied slot-steps: tokens accepted per step (mean, p50, p99) and
+        the accepted share of the drafted tokens (the first token of each
+        step is not drafted). ``prefill_seconds`` is 0, as on the JAX
+        chunked path: the prefill lane rides the mixed step, which
+        ``decode_seconds`` times."""
+        now = time.time()
+        wall = max(now - self._window_t0, 1e-9)
+        c = self.counters
+        gauge = self.telemetry.gauge
+        nbytes = pool_nbytes(self._pool)
+        m = {
+            "tokens_out": c.window("tokens_out"),
+            "requests_completed": c.window("requests_completed"),
+            "prefills": c.window("prefills"),
+            "prefill_tokens": c.window("prefill_tokens"),
+            "chunks": c.window("chunks"),
+            "prefill_lanes": int(self._lane_steps.window_value),
+            "decode_steps": c.window("chunks") * self.config.chunk_size,
+            "tokens_per_sec": c.window("tokens_out") / wall,
+            "slot_occupancy": (c.window("occupied_slot_steps") /
+                               max(c.window("slot_steps"), 1)),
+            "slot_occupancy_now": gauge("slot_occupancy").value,
+            "queue_depth": int(gauge("queue_depth").value),
+            "running": len(self._scheduler.running),
+            "slots_prefilling": int(gauge("slots_prefilling").value),
+            "compile_count": self.compile_count,
+            "recompiles": int(self.recompile_detector.recompiles.value),
+            "graph_replays": self.graph_replays,
+            "capture_ms": self._capture_s * 1e3,
+            "graph_pool_bytes": self._graph_pool_bytes,
+            "prefill_seconds": self.timers(
+                "inference/prefill").elapsed(reset=reset),
+            "decode_seconds": self.timers(
+                "inference/decode").elapsed(reset=reset),
+            "adapter": self._adapter.name,
+            "chunked_prefill": True,
+            "prefill_chunk": self.config.prefill_chunk,
+            "max_active_frontier": (max_active_frontier(self._last_snap)
+                                    if self._last_snap is not None else 0),
+            "spec_decode": self._spec is not None,
+            "paged_kv": self._pager is not None,
+            "int8_kv": self._hier is not None and self._hier.spec.int8,
+            "kv_pool_bytes": nbytes,
+            "kv_hbm_bytes": nbytes,
+        }
         if self._hier is not None:
-            c.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),
+            m.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),
                      kv_bytes_per_slot_flat=self._hier.flat_bytes_per_slot())
         if self._pager is not None:
             pg = self._pager
-            c.update(kv_page_len=pg.page_len, kv_pages_total=pg.total_pages,
+            m.update(kv_page_len=pg.page_len, kv_pages_total=pg.total_pages,
                      kv_pages_in_use=pg.pages_in_use(),
-                     kv_pages_free=pg.pages_free())
+                     kv_pages_free=pg.pages_free(),
+                     kv_page_fragmentation=round(
+                         pg.fragmentation(_live_tokens(self._scheduler)), 4))
         if self._spec is not None:
-            hist = self._accept_hist
+            hist = self._accept_hist - self._accept_base
             n = int(hist.sum())
             acc = np.repeat(np.arange(hist.size), hist)
             k = self.config.spec_k
-            c.update(
+            m.update(
                 spec_k=k, spec_ngram=self.config.spec_ngram,
                 accepted_per_step_mean=(round(float(acc.mean()), 4)
                                         if n else None),
@@ -740,4 +981,58 @@ class InferenceEngine(object):
                                        if n else None),
                 draft_accept_rate=(round(float((acc - 1).sum()) / (k * n), 4)
                                    if n else None))
-        return c
+        m.update(self._latency_percentiles())
+        if reset:
+            self.telemetry.reset_window()
+            self._lane_steps.reset_window()
+            self._accept_base = self._accept_hist.copy()
+            self._window_t0 = now
+        return m
+
+    # ---------------------------------------------------------- telemetry
+
+    def prometheus(self):
+        """Prometheus text exposition of this engine's registry. Serve it
+        with ``telemetry.PrometheusEndpoint(engine.telemetry)``; the
+        engine never opens a socket itself."""
+        return prometheus_text(self.telemetry)
+
+    def telemetry_snapshot(self):
+        """The compact observability fingerprint: the Prometheus text's
+        sha256 and sample-line count, exact span counts per name (they
+        survive the ring's wraparound), and the cumulative compile and
+        recompile facts. ``xray_programs`` is 0: the port has no perf
+        x-ray yet."""
+        sha, lines = prometheus_digest(self.telemetry)
+        return {
+            "prometheus_sha256": sha,
+            "prometheus_lines": lines,
+            "span_counts": self.tracer.span_counts(),
+            "spans_dropped": self.tracer.dropped,
+            "compile_count": self.compile_count,
+            "recompiles": int(self.recompile_detector.recompiles.value),
+            "xray_programs": 0,
+        }
+
+    def write_trace(self, path):
+        """Dump the span ring as a Chrome trace-event JSON file (Perfetto
+        / chrome://tracing). Raises with telemetry off: an empty file
+        would read as 'nothing happened'."""
+        return self.tracer.write_chrome_trace(path)
+
+    def trace_recorders(self):
+        """This engine's span recorders as the label -> recorder map
+        ``telemetry.merged_trace`` takes: one ring."""
+        return {"engine": self.tracer}
+
+    def find_request(self, rid):
+        """The Request for ``rid`` wherever it lives (queued, running or
+        completed); None when unknown."""
+        s = self._scheduler
+        req = s.completed.get(rid)
+        if req is not None:
+            return req
+        for r in list(s.running.values()) + list(s.queue):
+            if r.rid == rid:
+                return r
+        return None

@@ -7,14 +7,26 @@ queue, admission of queued requests into free slots at step boundaries, a
 ``prefill_chunk`` tokens at a time, and completion bookkeeping.
 
 Phases: ``queued -> prefilling -> decoding -> done``. Host offload
-(``swapped``), disaggregated handoff and adoption, deadlines, cancellation,
-recovery requeue and trace spans come with later slices; the entry points
-that would start them raise NotImplementedError.
+(``swapped``), disaggregated handoff and adoption, deadlines, cancellation
+and recovery requeue come with later slices; the entry points that would
+start them raise NotImplementedError.
+
+Timestamps are stamped here (submit / admit / finish; the engine stamps
+the first token at its harvest). The optional ``tracer``
+(telemetry.SpanRecorder) turns them into per-request Chrome trace events
+on the request's own track (``tid``, its ``TraceContext``'s): a
+``request/submitted`` instant, a ``request/queued`` span (submit ->
+admit), a ``request/prefill`` span (admit -> first token sampled), a
+``request/decode`` span (first token -> finish) and a whole-lifetime
+``request`` span, as the JAX scheduler records them. The optional
+``registry`` gets the ``queue_wait_seconds`` histogram (submit -> admit).
 """
 
 import collections
 import itertools
 import time
+
+from deepspeed_tpu_torch.telemetry.distributed import TraceContext
 
 # Ceiling on the retry_after_s hint (a cold completions window would
 # otherwise give an absurd estimate).
@@ -39,11 +51,16 @@ class Request(object):
     __slots__ = ("rid", "prompt", "max_new_tokens", "temperature", "top_k",
                  "eos_token_id", "seed", "spec", "tokens", "slot", "phase",
                  "cursor", "submit_time", "admit_time", "first_token_time",
-                 "finish_time")
+                 "finish_time", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, top_k,
-                 eos_token_id, seed, spec=False):
+                 eos_token_id, seed, spec=False, trace=None):
         self.rid = rid
+        # Propagated trace identity: the Chrome tid every lifecycle event
+        # rides and the hop counter (telemetry/distributed.py). A bare
+        # engine mints a local one, so tid == rid.
+        self.trace = trace if trace is not None \
+            else TraceContext(rid, origin="local")
         self.prompt = prompt
         self.max_new_tokens = max_new_tokens
         self.temperature = temperature
@@ -72,13 +89,18 @@ class Request(object):
 class Scheduler(object):
     """FIFO admission over a fixed slot set."""
 
-    def __init__(self, num_slots, max_queue):
+    def __init__(self, num_slots, max_queue, tracer=None, registry=None):
         self.num_slots = num_slots
         self.max_queue = max_queue
         self.queue = collections.deque()
         self.running = {}           # slot -> Request (prefilling | decoding)
         self.completed = {}         # rid -> Request
         self._ids = itertools.count()
+        # Telemetry is additive (module docstring): without a tracer or a
+        # registry the scheduler behaves exactly as before.
+        self.tracer = tracer
+        self._queue_wait = (registry.histogram("queue_wait_seconds")
+                            if registry is not None else None)
         self._finish_times = collections.deque(maxlen=32)
 
     def retry_after_s(self):
@@ -101,6 +123,10 @@ class Scheduler(object):
         req = Request(next(self._ids), prompt, max_new_tokens, temperature,
                       top_k, eos_token_id, seed, spec)
         self.queue.append(req)
+        if self.tracer is not None:
+            self.tracer.instant("request/submitted", tid=req.trace.tid,
+                                rid=req.rid, hop=req.trace.hop(),
+                                queue_depth=len(self.queue))
         return req
 
     def free_slot_ids(self):
@@ -128,6 +154,13 @@ class Scheduler(object):
             req.admit_time = time.time()
             self.running[slot] = req
             pairs.append((req, slot))
+            if self._queue_wait is not None:
+                self._queue_wait.observe(req.admit_time - req.submit_time)
+            if self.tracer is not None:
+                self.tracer.span("request/queued", req.submit_time,
+                                 req.admit_time, tid=req.trace.tid,
+                                 rid=req.rid, hop=req.trace.hop(), slot=slot,
+                                 prompt_tokens=int(req.prompt.size))
         return pairs
 
     def next_prefill(self):
@@ -143,6 +176,11 @@ class Scheduler(object):
         req.cursor += n
         if req.cursor >= req.prompt.size:
             req.phase = "decoding"
+            if self.tracer is not None:
+                self.tracer.span("request/prefill", req.admit_time,
+                                 tid=req.trace.tid, rid=req.rid,
+                                 hop=req.trace.hop(), slot=req.slot,
+                                 prompt_tokens=int(req.prompt.size))
             return True
         return False
 
@@ -155,6 +193,16 @@ class Scheduler(object):
         req.slot = None
         self.completed[req.rid] = req
         self._finish_times.append(req.finish_time)
+        if self.tracer is not None:
+            if req.first_token_time is not None:
+                self.tracer.span("request/decode", req.first_token_time,
+                                 req.finish_time, tid=req.trace.tid,
+                                 rid=req.rid, hop=req.trace.hop(),
+                                 tokens=len(req.tokens))
+            self.tracer.span("request", req.submit_time, req.finish_time,
+                             tid=req.trace.tid, rid=req.rid,
+                             hop=req.trace.hop(),
+                             tokens=len(req.tokens), phase="done")
         return req
 
     def swap_out(self, req):

@@ -4,9 +4,11 @@ Counterpart of ``deepspeed_tpu/runtime/config.py`` for the training path:
 the batch triangle (any two of train_batch_size /
 train_micro_batch_size_per_gpu / gradient_accumulation_steps imply the
 third), ``optimizer``, ``scheduler``, ``fp16`` (with the dynamic loss-scale
-arguments), ``bf16``, ``gradient_clipping``, ``steps_per_print`` and the
-checkpoint tag validation mode. Every scalar is one row of ``_SCHEMA``, read
-by one reader, as in the JAX package.
+arguments), ``bf16``, ``gradient_clipping``, ``steps_per_print``, the
+timers and telemetry (``wall_clock_breakdown``, ``memory_breakdown``, the
+``tensorboard`` block) and the checkpoint tag validation mode. Every
+scalar is one row of ``_SCHEMA``, read by one reader, as in the JAX
+package.
 
 A ds_config written for the JAX package parses unchanged. A key that
 switches on a subsystem the port does not have yet parses only at its
@@ -47,8 +49,13 @@ from deepspeed_tpu_torch.runtime.constants import (
     SPARSE_NUM_LOCAL_BLOCKS_DEFAULT, SPARSE_NUM_RANDOM_BLOCKS,
     SPARSE_NUM_RANDOM_BLOCKS_DEFAULT, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
     SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT, SPARSE_VARIABLE_MODE,
-    STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT,
-    TRAIN_BATCH_SIZE, TRAIN_BATCH_SIZE_DEFAULT,
+    MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT, STEPS_PER_PRINT,
+    STEPS_PER_PRINT_DEFAULT, TENSORBOARD, TENSORBOARD_ENABLED,
+    TENSORBOARD_ENABLED_DEFAULT, TENSORBOARD_JOB_NAME,
+    TENSORBOARD_JOB_NAME_DEFAULT, TENSORBOARD_OUTPUT_PATH,
+    TENSORBOARD_OUTPUT_PATH_DEFAULT, TRAIN_BATCH_SIZE,
+    TRAIN_BATCH_SIZE_DEFAULT, WALL_CLOCK_BREAKDOWN,
+    WALL_CLOCK_BREAKDOWN_DEFAULT,
     TRAIN_MICRO_BATCH_SIZE_PER_GPU, TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
     TYPE, ValidationMode)
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
@@ -62,7 +69,6 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 
 _ZERO = "ZeRO (ROADMAP Queue 1)"
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
-_TELEMETRY = "timers and telemetry (ROADMAP Queue 1)"
 _TOOLING = "the tooling slice (ROADMAP Queue 1)"
 
 # Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
@@ -71,7 +77,6 @@ _UNPORTED_BLOCKS = {
            + _RUNTIME,
     "progressive_layer_drop": _RUNTIME,
     "sequence_parallel": "the sequence-parallel slice (ROADMAP Queue 1)",
-    "tensorboard": _TELEMETRY,
     "flops_profiler": _TOOLING,
     "elasticity": _TOOLING,
 }
@@ -107,6 +112,15 @@ _SCHEMA = (
      BFLOAT16_ENABLED_DEFAULT),
     ("loss_scale", (FP16, FP16_LOSS_SCALE), FP16_LOSS_SCALE_DEFAULT,
      "fp16_enabled"),
+    ("wall_clock_breakdown", (WALL_CLOCK_BREAKDOWN,),
+     WALL_CLOCK_BREAKDOWN_DEFAULT),
+    ("memory_breakdown", (MEMORY_BREAKDOWN,), MEMORY_BREAKDOWN_DEFAULT),
+    ("tensorboard_enabled", (TENSORBOARD, TENSORBOARD_ENABLED),
+     TENSORBOARD_ENABLED_DEFAULT),
+    ("tensorboard_output_path", (TENSORBOARD, TENSORBOARD_OUTPUT_PATH),
+     TENSORBOARD_OUTPUT_PATH_DEFAULT, "tensorboard_enabled"),
+    ("tensorboard_job_name", (TENSORBOARD, TENSORBOARD_JOB_NAME),
+     TENSORBOARD_JOB_NAME_DEFAULT, "tensorboard_enabled"),
 )
 
 # fp16 sub-keys that, when any is present, become the dynamic loss
@@ -118,12 +132,6 @@ _DYNAMIC_SCALE_ARGS = (
     ("DELAYED_SHIFT", FP16_HYSTERESIS, FP16_HYSTERESIS_DEFAULT),
     ("MIN_LOSS_SCALE", FP16_MIN_LOSS_SCALE, FP16_MIN_LOSS_SCALE_DEFAULT),
 )
-
-# Top-level switches of subsystems the port lacks, with their defaults.
-_UNPORTED_SCALARS = {
-    "wall_clock_breakdown": (False, _TELEMETRY),
-    "memory_breakdown": (False, _TELEMETRY),
-}
 
 # Sparse-attention blocks: per sparsity mode, the keys that mode accepts
 # (the JAX package's table). The parsed dict is {mode, **{key:
@@ -212,9 +220,6 @@ def _check_ported(param_dict, zero):
     for block, where in _UNPORTED_BLOCKS.items():
         if _read(param_dict, (block, "enabled"), False):
             _refuse("'{}.enabled': true".format(block), where)
-    for key, (default, where) in _UNPORTED_SCALARS.items():
-        if param_dict.get(key, default) != default:
-            _refuse("'{}': {!r}".format(key, param_dict[key]), where)
     if zero.stage:
         _refuse("zero_optimization stage {}".format(zero.stage), _ZERO)
     if zero.cpu_offload:

@@ -28,6 +28,19 @@ STEPS_PER_PRINT_DEFAULT = 10
 GRADIENT_CLIPPING = "gradient_clipping"
 GRADIENT_CLIPPING_DEFAULT = 0.0
 
+# Timers and telemetry
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+
 # FP16 (dynamic loss scaling) and bf16
 FP16 = "fp16"
 FP16_ENABLED = "enabled"

@@ -21,15 +21,30 @@ checkpoints in the JAX package's layout and format.
 - Checkpoints: ``<dir>/<tag>/mp_rank_00_model_states.pt``, a pickle of
   numpy arrays under the flax names, plus the ``latest`` file; a checkpoint
   of either package loads in the other.
+- Telemetry, as in the JAX engine: one ``MetricsRegistry``
+  (``self.telemetry``) with the ``global_steps``, ``global_samples``,
+  ``skipped_steps`` and ``lr`` gauges and the throughput timer's
+  ``samples_per_sec``; ``wall_clock_breakdown`` times forward, backward
+  (``backward_inner``: the autograd call alone) and step, each interval
+  bracketed by ``torch.cuda.synchronize()`` and observed into the
+  ``timer_seconds`` histograms, and logs them every ``steps_per_print``
+  steps (with ``memory_breakdown``, the allocator's current and peak
+  bytes); the ``tensorboard`` block writes per-step scalars and the
+  registry through ``telemetry.TensorBoardScalarWriter``, a warn-once
+  no-op where the ``tensorboard`` package is missing. The throughput
+  timer synchronizes only when its timing begins and at each
+  ``steps_per_print`` report, not at every step as the JAX (and the
+  reference's) timer does (``utils/timer.ThroughputTimer``).
 
 Not on this path yet (ROADMAP Queue 1): the dataloader (``training_data``),
-ZeRO and offload, Lamb and 1-bit Adam, pipeline, timers and telemetry.
+ZeRO and offload, Lamb and 1-bit Adam, pipeline.
 """
 
 import inspect
 import logging
 import os
 import pickle
+import weakref
 
 import numpy as np
 import torch
@@ -45,6 +60,10 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_,
                                                ensure_directory_exists,
                                                flax_tree, has_overflow,
                                                load_flax_tree)
+from deepspeed_tpu_torch.telemetry import (MetricsRegistry,
+                                           TensorBoardScalarWriter)
+from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 logger = logging.getLogger(__name__)
 
@@ -94,6 +113,27 @@ class DeepSpeedEngine(object):
         self.training = True
         self.training_dataloader = None
         self._config = self._configure_with_arguments(args, config_params)
+        self._tb_writer = None
+        self._last_loss = None
+        # Telemetry (module docstring): the phase timers observe into the
+        # registry, and the gauges read the engine's state at scrape time.
+        self.telemetry = MetricsRegistry(engine="training")
+        self.timers = SynchronizedWallClockTimer(registry=self.telemetry)
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu(), num_workers=1,
+            steps_per_output=self.steps_per_print(), monitor_memory=False,
+            registry=self.telemetry)
+        # Through a weak reference: a dropped engine (its parameters and
+        # optimizer state) is freed at once, not by the cycle collector.
+        ref = weakref.ref(self)
+        self.telemetry.gauge("global_steps").set_fn(
+            lambda: ref().global_steps)
+        self.telemetry.gauge("global_samples").set_fn(
+            lambda: ref().global_samples)
+        self.telemetry.gauge("skipped_steps").set_fn(
+            lambda: ref().skipped_steps)
+        self.telemetry.gauge("lr").set_fn(
+            lambda: (ref().get_lr() if ref().optimizer else [0.0])[0])
 
         if self.fp16_enabled():
             self.compute_dtype = torch.float16
@@ -169,6 +209,89 @@ class DeepSpeedEngine(object):
     def sparse_attention(self):
         return self._config.sparse_attention
 
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
+
+    def memory_breakdown(self):
+        return self._config.memory_breakdown
+
+    def tensorboard_enabled(self):
+        return self._config.tensorboard_enabled
+
+    def tensorboard_output_path(self):
+        return self._config.tensorboard_output_path
+
+    def tensorboard_job_name(self):
+        return self._config.tensorboard_job_name
+
+    def _tensorboard_log_dir(self, name="DeepSpeedJobName", base=None):
+        """Event-file directory: ``<output_path>/<job_name>``, or under
+        ``base`` (default ``~/tensorboard``) and the $DLWS/DLTS job id."""
+        if self.tensorboard_output_path():
+            return os.path.join(self.tensorboard_output_path(),
+                                self.tensorboard_job_name() or name)
+        summary_writer_dir_name = (self.tensorboard_job_name() or name)
+        if base is None:
+            base = os.path.join(os.path.expanduser("~"), "tensorboard")
+        if "DLWS_JOB_ID" in os.environ:
+            infra_job_id = os.environ["DLWS_JOB_ID"]
+        elif "DLTS_JOB_ID" in os.environ:
+            infra_job_id = os.environ["DLTS_JOB_ID"]
+        else:
+            infra_job_id = "unknown-job-id"
+        return os.path.join(base, infra_job_id, summary_writer_dir_name)
+
+    def _scalar_writer(self, name="DeepSpeedJobName", base=None):
+        """The lazy ``telemetry.TensorBoardScalarWriter`` behind the
+        ``tensorboard`` block: a warn-once no-op without the tensorboard
+        package, so training never stops over an exporter."""
+        if self._tb_writer is None:
+            self._tb_writer = TensorBoardScalarWriter(
+                self._tensorboard_log_dir(name=name, base=base))
+        return self._tb_writer
+
+    def get_summary_writer(self, name="DeepSpeedJobName", base=None):
+        """The raw SummaryWriter (the reference's API); raises where the
+        tensorboard package is unavailable."""
+        writer = self._scalar_writer(name=name, base=base)._get()
+        if writer is None:
+            raise RuntimeError(
+                "tensorboard is unavailable (torch.utils.tensorboard "
+                "failed to import or the log dir is unwritable)")
+        return writer
+
+    def _tensorboard_step_events(self):
+        """Per-step scalars (train loss, lr and the loss scale at each
+        boundary step, against global_samples) and the registry snapshot
+        (phase-timer percentiles, samples/sec, the step gauges) under
+        ``telemetry/``."""
+        if not self.tensorboard_enabled():
+            return
+        tb = self._scalar_writer()
+        if not tb.available:  # warned once inside the writer
+            return
+        if self._last_loss is not None:
+            tb.add_scalar("Train/Samples/train_loss", float(self._last_loss),
+                          self.global_samples)
+        if self.optimizer is not None:
+            tb.add_scalar("Train/Samples/lr", self.get_lr()[0],
+                          self.global_samples)
+        if self.loss_scaler is not None:
+            tb.add_scalar("Train/Samples/loss_scale",
+                          self.loss_scaler.loss_scale, self.global_samples)
+        tb.publish(self.telemetry, self.global_samples)
+        tb.flush()
+
+    def _report_progress(self, step):
+        """The ``steps_per_print`` line, read from the telemetry registry:
+        the gauges Prometheus and TensorBoard export."""
+        snap = self.telemetry.snapshot()
+        logger.info("step={}, skipped={}, lr={}, mom={}, samples={}, "
+                    "samples/sec={:.2f}".format(
+                        step, self.skipped_steps, self.get_lr(),
+                        self.get_mom(), int(snap.get("global_samples", 0)),
+                        snap.get("samples_per_sec", 0.0)))
+
     def _configure_optimizer(self, client_optimizer):
         self.optimizer = client_optimizer
         if client_optimizer is None and \
@@ -233,17 +356,24 @@ class DeepSpeedEngine(object):
         """Run the module on ``inputs`` (numpy arrays or tensors, moved to
         the engine's device) and return its loss. While training, dropout
         is on and the graph is kept for ``backward``."""
+        if self.wall_clock_breakdown():
+            self.timers("forward_microstep").start()
+            self.timers("forward").start()
         inputs = tuple(self._to_device(x) for x in inputs)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
         if not self.training:
             with torch.no_grad():
                 out = self._run_module(inputs, kwargs)
-            return out[0] if isinstance(out, tuple) else out
-        if self._takes_deterministic:
-            kwargs.setdefault("deterministic", False)
-        if self._takes_generator:
-            kwargs.setdefault("generator", self._generator)
-        out = self._run_module(inputs, kwargs)
+        else:
+            self.tput_timer.start()
+            if self._takes_deterministic:
+                kwargs.setdefault("deterministic", False)
+            if self._takes_generator:
+                kwargs.setdefault("generator", self._generator)
+            out = self._run_module(inputs, kwargs)
+        if self.wall_clock_breakdown():
+            self.timers("forward").stop()
+            self.timers("forward_microstep").stop()
         return out[0] if isinstance(out, tuple) else out
 
     # ----------------------------------------------------------- backward
@@ -254,8 +384,18 @@ class DeepSpeedEngine(object):
         if not loss.requires_grad:
             raise RuntimeError("backward() needs the loss of a training "
                                "forward()")
+        self._last_loss = loss.detach()
+        breakdown = self.wall_clock_breakdown()
+        if breakdown:
+            self.timers("backward_microstep").start()
+            self.timers("backward").start()
+            self.timers("backward_inner").start()
         scale = self.loss_scaler.loss_scale if self.loss_scaler else 1.0
         (loss * (scale / self.gradient_accumulation_steps())).backward()
+        if breakdown:
+            self.timers("backward_inner").stop()
+            self.timers("backward").stop()
+            self.timers("backward_microstep").stop()
         return loss
 
     # --------------------------------------------------------------- step
@@ -306,20 +446,32 @@ class DeepSpeedEngine(object):
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step(**(lr_kwargs or {}))
             if (self.global_steps + 1) % self.steps_per_print() == 0:
-                logger.info("step={}, skipped={}, lr={}, mom={}".format(
-                    self.global_steps + 1, self.skipped_steps, self.get_lr(),
-                    self.get_mom()))
+                self._report_progress(self.global_steps + 1)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.zero_grad()
+        self._tensorboard_step_events()
 
     def step(self, lr_kwargs=None):
         """The weight update, at gradient-accumulation boundaries."""
         if self.optimizer is None:
             raise RuntimeError("must provide an optimizer during init in "
                                "order to use step")
-        if self.is_gradient_accumulation_boundary():
+        breakdown = self.wall_clock_breakdown()
+        if breakdown:
+            self.timers("step_microstep").start()
+            self.timers("step").start()
+        boundary = self.is_gradient_accumulation_boundary()
+        if boundary:
             self._take_model_step(lr_kwargs)
+        self.tput_timer.stop()
+        if breakdown:
+            self.timers("step").stop()
+            self.timers("step_microstep").stop()
+            if boundary and self.global_steps % self.steps_per_print() == 0:
+                self.timers.log(["forward_microstep", "backward_microstep",
+                                 "step_microstep"],
+                                memory_breakdown=self.memory_breakdown())
         self.micro_steps += 1
 
     def train_batch(self, batch=None, data_iter=None):

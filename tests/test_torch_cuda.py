@@ -7,7 +7,11 @@ plain PyTorch versions, and the wrappers' refusals on CUDA tensors; then
 the serving step in CUDA graphs: K3-K6 replayed in a captured graph, a
 graph-served engine against the same step program run eagerly (bit for
 bit, dense and paged int8, with and without speculation, whose verify
-lane runs K3-K6 at S = spec_k + 1), and a capture that fails raising.
+lane runs K3-K6 at S = spec_k + 1), and a capture that fails raising;
+then telemetry on the card: a Prometheus scrape thread during a fresh
+engine's captures, telemetry on and off serving the same streams and
+programs, a ``profile_window`` trace holding a decode kernel, and a
+timer that covers queued device work.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -1072,6 +1076,122 @@ def test_graph_served_engine_equals_the_eager_program(cuda, extra):
         assert graphed.kv_page_stats()["pages_in_use"] == 0
     if "spec_decode" in extra:
         assert "toks" in graphed._pool and m["accepted_per_step_mean"] >= 1
+
+
+def _telemetry_prompts():
+    rng = np.random.RandomState(11)
+    return [rng.randint(0, 1024, size=n) for n in (5, 40, 17, 70)]
+
+
+def _generate(engine, prompts):
+    """Serve ``prompts`` (the third sampled with top-k) to the end; the
+    streams in submission order."""
+    reqs = [engine.submit(p, max_new_tokens=24, **(
+        {"temperature": 0.8, "top_k": 20, "seed": 3} if i == 2 else {}))
+        for i, p in enumerate(prompts)]
+    engine.run()
+    return [r.tokens for r in reqs]
+
+
+def test_scrape_during_captures_keeps_streams(cuda):
+    """A thread scrapes a PrometheusEndpoint every 5 ms while a fresh
+    engine captures its keys: every gauge is host-only, so every capture
+    succeeds and the streams equal an unscraped engine's."""
+    import threading
+    import time
+    import urllib.request
+
+    from deepspeed_tpu_torch.telemetry import PrometheusEndpoint
+
+    model = _small_gpt2(cuda)
+    want = _generate(InferenceEngine(model, config=SMALL_SERVE),
+                     _telemetry_prompts())
+    eng = InferenceEngine(model, config=SMALL_SERVE)
+    ep = PrometheusEndpoint(eng.telemetry, port=0)
+    url = "http://{}:{}/metrics".format(ep.host, ep.port)
+    scrapes, errors, stop = [0], [], threading.Event()
+
+    def scrape():
+        while not stop.is_set():
+            try:
+                urllib.request.urlopen(url, timeout=30).read()
+                scrapes[0] += 1
+            except Exception as e:  # noqa: BLE001 - collected for assert
+                errors.append(e)
+            time.sleep(0.005)
+
+    t = threading.Thread(target=scrape)
+    try:
+        t.start()
+        got = _generate(eng, _telemetry_prompts())
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        ep.close()
+    assert not t.is_alive() and errors == [] and scrapes[0] > 0
+    assert got == want
+    assert eng.compile_count >= 3 and eng.metrics()["graph_pool_bytes"] > 0
+
+
+def test_telemetry_off_serves_the_same_streams_and_programs(cuda, tmp_path):
+    from deepspeed_tpu_torch.telemetry import validate_trace
+
+    model = _small_gpt2(cuda)
+    on = InferenceEngine(model, config=SMALL_SERVE)
+    off = InferenceEngine(model, config=dict(SMALL_SERVE, telemetry=False))
+    assert _generate(on, _telemetry_prompts()) == \
+        _generate(off, _telemetry_prompts())
+    assert sorted(on._programs) == sorted(off._programs)
+    assert on.compile_count == off.compile_count
+    import json
+    doc = json.loads(open(on.write_trace(str(tmp_path / "t.json"))).read())
+    assert validate_trace(doc) > 0
+    steps = [e for e in doc["traceEvents"] if e["name"] == "step/mixed"]
+    # One capturing step per key, the capture inside its span.
+    assert sum(e["args"]["captured"] for e in steps) == on.compile_count
+    assert off.tracer.span_counts() == {}
+
+
+def test_profile_window_holds_a_decode_kernel(cuda, tmp_path, monkeypatch):
+    import json
+
+    from deepspeed_tpu_torch.telemetry import profile_window
+
+    eng = InferenceEngine(_small_gpt2(cuda), config=SMALL_SERVE)
+    _generate(eng, _telemetry_prompts())  # captures the keys
+    for p in _telemetry_prompts():
+        eng.submit(p, max_new_tokens=24)
+    eng.step()
+    eng.step()
+    monkeypatch.setenv("DS_TPU_PROFILE_DIR", str(tmp_path))
+    with profile_window("serve") as path:
+        for _ in range(3):
+            eng.step()
+    assert path == str(tmp_path / "serve")
+    (trace,) = (tmp_path / "serve").glob("trace.*.json")
+    names = [e.get("name", "") for e in
+             json.loads(trace.read_text())["traceEvents"]]
+    assert "inference/mixed_step" in names
+    assert any("decode_split_kernel" in n for n in names)
+
+
+def test_training_timer_covers_queued_device_work(cuda):
+    """A timer's stop synchronizes: its interval holds a device spin
+    queued inside it, which the host enqueues in microseconds."""
+    from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
+
+    torch.zeros(1, device=cuda)  # CUDA initialized
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    timers = SynchronizedWallClockTimer()
+    timers("spin").start()
+    a.record()
+    torch.cuda._sleep(100_000_000)
+    b.record()
+    timers("spin").stop()
+    device_s = a.elapsed_time(b) / 1e3
+    assert device_s > 0.01
+    assert timers("spin").elapsed(reset=False) >= 0.9 * device_s
 
 
 def test_a_failed_capture_raises(cuda):

@@ -1,8 +1,8 @@
 """The port's ds_config parser against the JAX package's, on the CPU.
 
 A config written for the JAX package parses to the same batch triangle,
-precision, clipping, optimizer, scheduler, loss-scale arguments and
-sparse-attention block. A key
+precision, clipping, optimizer, scheduler, loss-scale arguments, timer and
+tensorboard switches and sparse-attention block. A key
 that switches on a subsystem the port does not have yet raises
 NotImplementedError (its default still parses), and the training entry
 point refuses the CPU unless asked for it.
@@ -25,7 +25,9 @@ FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
           "optimizer_name", "optimizer_params", "scheduler_name",
           "scheduler_params", "zero_enabled",
           "checkpoint_tag_validation_enabled",
-          "checkpoint_tag_validation_fail")
+          "checkpoint_tag_validation_fail", "wall_clock_breakdown",
+          "memory_breakdown", "tensorboard_enabled",
+          "tensorboard_output_path", "tensorboard_job_name")
 
 CONFIGS = [
     {"train_batch_size": 8},
@@ -47,6 +49,10 @@ CONFIGS = [
      "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
      "zero_optimization": False, "amp": {"enabled": False},
      "activation_checkpointing": {}},
+    {"train_batch_size": 8, "wall_clock_breakdown": True,
+     "memory_breakdown": True, "steps_per_print": 1,
+     "tensorboard": {"enabled": True, "output_path": "runs",
+                     "job_name": "gpt2"}},
 ]
 
 
@@ -65,15 +71,15 @@ def test_parses_as_the_jax_package_does(i):
     {"amp": {"enabled": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"sequence_parallel": {"enabled": True, "size": 2}},
-    {"memory_breakdown": True},
-    {"tensorboard": {"enabled": True}},
+    {"zero_optimization": {"stage": 2}},
+    {"zero_optimization": {"stage": 3}},
     {"flops_profiler": {"enabled": True}},
     {"elasticity": {"enabled": True}},
     {"activation_checkpointing": {"partition_activations": True}},
     {"pipeline": {"stages": 2}},
     {"optimizer": {"type": "Lamb", "params": {"lr": 1e-3}}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
-    {"wall_clock_breakdown": True},
+    {"activation_checkpointing": {"contiguous_memory_optimization": True}},
 ])
 def test_unported_subsystems_raise(extra):
     cfg = dict({"train_batch_size": 8}, **extra)

@@ -8,9 +8,9 @@ package's, on the CPU.
   on the same weights;
 - a sampled request's stream depends only on its seed and positions, not
   on its slot or its neighbours; top_k=1 sampling is greedy;
-- every setting the port does not implement yet raises (paged and int8 KV
-  and speculation are ported; the prefix and offload tiers are not, with
-  or without them).
+- every setting the port does not implement yet raises (paged and int8 KV,
+  speculation and telemetry are ported; the prefix and offload tiers and
+  the perf x-ray are not, with or without them).
 """
 
 import jax
@@ -157,7 +157,8 @@ def test_top_k_one_sampling_is_greedy():
     {"role": "prefill"},
     {"chunked_prefill": False}, {"fault_injection": True},
     {"use_flash_decode": False}, {"step_budget_s": 0.5},
-    {"hbm_budget_bytes": 1 << 30}, {"telemetry": True, "trace_ring": 16},
+    {"hbm_budget_bytes": 1 << 30},
+    {"telemetry": True, "trace_ring": 16, "xray_sample_every": 16},
     {"prefill_buckets": [16, 64]}, {"spec_decode": True,
                                     "prefix_cache": True}])
 def test_unported_settings_raise(setting):

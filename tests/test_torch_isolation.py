@@ -44,6 +44,13 @@ def test_import_loads_no_jax_module():
     assert {"deepspeed_tpu_torch.ops.sparse_attention." + m for m in (
         "kernels", "sparsity_config", "sparse_self_attention",
         "bert_sparse_self_attention", "sparse_attention_utils")} <= set(names)
+    # ... and of the telemetry slice
+    assert {"deepspeed_tpu_torch." + m for m in (
+        "telemetry.registry", "telemetry.tracing", "telemetry.distributed",
+        "telemetry.timeseries", "telemetry.exporters",
+        "telemetry.instrumentation", "loadgen.workload", "loadgen.slo",
+        "loadgen.report", "loadgen.runner", "utils.logging",
+        "utils.timer")} <= set(names)
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
