@@ -91,6 +91,41 @@ of which exits non-zero on failure:
    queue-wait percentiles, the windows' queue depth), a saturation sweep
    and the gate's A/A self-check; fails on a lost request, a recompile
    after warm-up or a non-finite number;
+4c. crash-only resilience (phase_resilience), GPT-2 medium bf16 on SERVE
+   with fault injection on: (i) the recovery invariant: a mixed stream
+   of 16 requests (64/256 prompt tokens, 96 new; every fourth opted out
+   of speculation, every third sampled, one with top-k) on the dense
+   speculating pool (K3 at S5, prefill lane K5) and the paged int8 pool
+   (K6), fault-free, then with a raise and with a nan fault fired at the
+   first step after a request decodes: no request lost, replays equal
+   to the recovery log's count, compile_count unchanged and no recompile
+   after mark_warm(), no pool tensor rebound (data_ptr), every page
+   returned, healthy, the decode kernels' launches n_layer x decode steps
+   and prefill lanes plus the faulted step's own (a nan step ran its
+   program, a raise step none), and every stream equal to the fault-free
+   run's under phase 5's gap rule (sampled ones over the Gumbel-max
+   scores; the replay re-derives the delivered tokens through the decode
+   lane, so the streams should be equal outright), with the tokens
+   matched and the requests whose re-derivation disagreed (replayed from
+   prompt + delivered tokens instead); (ii) after a recovery, a
+   graph-served engine against the same program run eagerly, as in
+   phase_graph_vs_eager, bit for bit; (iii) a 1.0 s stall under a 0.5 s
+   step budget: degraded, then healthy after one clean step (the
+   warm-up's stalls, from its captures, are reported); (iv) at
+   recovery_max_retries 1 a 10-step raise ends in EngineDeadError from
+   InjectedFault, after which submit, step, drain and undrain refuse;
+   (v) on paged int8 engines, a decoding request cancelled keeps its
+   tokens, the other streams equal the uncancelled run's, every page
+   comes back; drain() with queued work settles idle and refuses
+   submit() until undrain(); one ``resilience`` line;
+4d. chaos (phase_chaos): the JAX ``bench.py --chaos`` TPU setting, a
+   dense bf16 pool (K3, prefill lane K5) under 64 Poisson arrivals at
+   12/s through loadgen's SustainedRunner with one raise armed after
+   1 s: fails unless the fault fired, the engine recovered, healthy,
+   with no request lost, a finite recovery time, no capture after
+   warm-up and exact K3/K5 launch counts; the ``chaos`` line carries
+   the report's chaos section (recovery time, SLO attainment during and
+   outside recovery), TTFT p50/p99 and tokens/s;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
@@ -205,7 +240,9 @@ import torch.nn.functional as F
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deepspeed_tpu_torch import init_inference, initialize  # noqa: E402
-from deepspeed_tpu_torch.inference import InferenceEngine  # noqa: E402
+from deepspeed_tpu_torch.inference import (  # noqa: E402
+    EngineDeadError, EngineDraining, Fault, FaultPlan, InferenceEngine,
+    InjectedFault)
 from deepspeed_tpu_torch.inference.kv_hierarchy import (  # noqa: E402
     HierarchySpec)
 from deepspeed_tpu_torch.inference.kv_pool import (  # noqa: E402
@@ -218,6 +255,8 @@ from deepspeed_tpu_torch.models import (  # noqa: E402
 from deepspeed_tpu_torch.models import generation  # noqa: E402
 from deepspeed_tpu_torch.op_builder import (  # noqa: E402
     build_all, build_log, sources)
+from deepspeed_tpu_torch.ops.sampling import (  # noqa: E402
+    positional_uniform)
 from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
     BigBirdSparsityConfig, FixedSparsityConfig)
 from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
@@ -518,6 +557,34 @@ SUSTAINED_LOAD = dict(arrival="poisson", rate=12.0, n_requests=96,
 SUSTAINED_WINDOW_S = 2.0
 SUSTAINED_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
 SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 16
+# Crash-only resilience (phase_resilience): the recovery invariant's mixed
+# stream at full width on SERVE with fault injection on: RESILIENCE_REQUESTS
+# requests of PROMPT_LENS prompt and NEW_TOKENS new tokens, every fourth
+# opted out of speculation, every third sampled (the first of those with
+# top-k), on the dense speculating pool (K3 at S5, prefill lane K5) and the
+# paged int8 pool (K6); each fault kind fires at the first step after a
+# request starts decoding.
+RESILIENCE_POOLS = [("dense_spec", SPEC, "decode", "paged"),
+                    ("paged_int8", dict(PAGED, int8_kv=True), "paged_q8",
+                     "paged_q8")]
+RESILIENCE_KINDS = ("raise", "nan")
+RESILIENCE_REQUESTS = 16
+# Detection: a stall of STALL_S under a watchdog budget of STALL_BUDGET_S.
+# Bounds: a raise lasting DEAD_FAULT_STEPS steps at recovery_max_retries 1.
+STALL_S, STALL_BUDGET_S = 1.0, 0.5
+DEAD_FAULT_STEPS = 10
+# The chaos run (phase_chaos): the JAX package's TPU setting of
+# ``bench.py --chaos`` (bench.py:1504-1513): a dense bf16 pool (K3, prefill
+# lane K5), 64 Poisson arrivals at 12/s, one raise two steps after the
+# plan is armed at CHAOS_AFTER_S.
+CHAOS_SERVE = {"max_slots": 16, "max_len": 1024, "chunk_size": 16,
+               "max_queue": 128, "fault_injection": True}
+CHAOS_LOAD = dict(arrival="poisson", rate=12.0, n_requests=64,
+                  prompt_dist="lognormal", prompt_mean=64, prompt_max=256,
+                  output_dist="lognormal", output_mean=96, output_min=8,
+                  output_max=256, vocab_size=50257, seed=23)
+CHAOS_WINDOW_S, CHAOS_AFTER_S = 2.0, 1.0
+CHAOS_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
 # The training breakdown (phase_train_breakdown): phase_train's setting,
 # steps with the timers on and off from one seed, fused and split.
 BREAKDOWN_STEPS = 4
@@ -1946,6 +2013,437 @@ def phase_sustained(card, model):
     return line
 
 
+def _resilience_submit(engine, prompts):
+    """The recovery invariant's mixed stream (RESILIENCE_POOLS): every
+    fourth request opted out of speculation, every third sampled, the
+    first of those with top-k. Returns the requests and each one's
+    sampling parameters (None for greedy) for the gap rule."""
+    reqs, sampling = [], []
+    for i, p in enumerate(prompts):
+        kw = {"spec_decode": False} if i % 4 == 0 else {}
+        samp = None
+        if i % 3 == 2:
+            samp = (0.8, 50 if i == 2 else 0, i)
+            kw.update(temperature=samp[0], top_k=samp[1] or None,
+                      seed=samp[2])
+        reqs.append(engine.submit(p, max_new_tokens=NEW_TOKENS, **kw))
+        sampling.append(samp)
+    return reqs, sampling
+
+
+def _resilience_run(engine, prompts, kind, label):
+    """The mixed stream on ``engine`` to idle; with ``kind``, a fault of
+    that kind armed once a request decodes, firing at the next step. The
+    decode kernels' launches and the engine's counters are read over the
+    run. Returns the requests, their sampling, and the run's facts."""
+    engine.metrics(reset=True)
+    replays0 = engine.graph_replays
+    log0 = len(engine.recovery_log)
+    addrs = {name: t.data_ptr() for name, t in engine._pool.items()}
+    torch.cuda.synchronize()
+    da.reset_launches()
+    t0 = time.perf_counter()
+    reqs, sampling = _resilience_submit(engine, prompts)
+    fault_lane, delivered = False, 0
+    if kind is not None:
+        while not any(r.phase == "decoding" for r in reqs):
+            engine.step()
+        # Every request holds a slot by now (RESILIENCE_REQUESTS <= the
+        # slots), so the faulted step has a prefill lane iff one prefills;
+        # it delivers no token.
+        fault_lane = any(r.phase == "prefilling" for r in reqs)
+        delivered = sum(len(r.tokens) for r in reqs)
+        engine.inject_faults(FaultPlan(faults=(Fault(kind, step=0),)))
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(da.launches)
+    m = engine.metrics()
+    lost = [r.rid for r in reqs if r.phase != "done" or
+            len(r.tokens) != NEW_TOKENS]
+    if lost:
+        fail("resilience {} {}: requests {} lost or short".format(
+            label, kind, lost))
+    moved = [name for name, t in engine._pool.items()
+             if t.data_ptr() != addrs[name]]
+    if moved:
+        fail("resilience {} {}: pool tensors rebound: {}".format(
+            label, kind, moved))
+    # A nan step ran its program (its harvest was discarded, uncounted);
+    # a raise step ran none.
+    ran = kind == "nan"
+    return reqs, sampling, {
+        "wall_s": wall, "launches": launches, "metrics": m,
+        "recoveries": engine.recovery_log[log0:],
+        "programs_run": engine.graph_replays - replays0,
+        "tokens_delivered_before_fault": delivered,
+        "extra_decode_steps": engine.config.chunk_size if ran else 0,
+        "extra_lanes": int(ran and fault_lane)}
+
+
+def _resilience_invariant(model, label, extra, kernel, lane_kernel):
+    """Part (i) of phase_resilience on one pool: a fault-free run of the
+    mixed stream (it meets the keys; then mark_warm()), then one run per
+    fault kind on the same engine, each held to the fault-free run."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(
+        SERVE, fault_injection=True, **extra))
+    prompts = _tiled_prompts(RESILIENCE_REQUESTS, cfg.vocab_size, seed=7)
+    ref, sampling, clean = _resilience_run(engine, prompts, None, label)
+    engine.recompile_detector.mark_warm()
+    programs = engine.compile_count
+    out = {}
+    for kind in RESILIENCE_KINDS:
+        reqs, _, facts = _resilience_run(engine, prompts, kind, label)
+        m, recs = facts["metrics"], facts["recoveries"]
+        what = "resilience {} {}".format(label, kind)
+        if len(recs) != 1 or sum(r.replays for r in reqs) != \
+                recs[0]["replayed"] or m["recoveries"] != 1 or \
+                m["faults_injected"] != 1:
+            fail("{}: recoveries {}, replays {}, metrics {}".format(
+                what, recs, [r.replays for r in reqs],
+                {k: m[k] for k in ("recoveries", "faults_injected",
+                                   "requests_replayed")}))
+        if engine.compile_count != programs or m["recompiles"] or \
+                facts["programs_run"] != m["chunks"] + (kind == "nan"):
+            fail("{}: compile_count {} (fault-free {}), recompiles {}, "
+                 "programs replayed {} over {} harvested steps".format(
+                     what, engine.compile_count, programs, m["recompiles"],
+                     facts["programs_run"], m["chunks"]))
+        stats = engine.kv_page_stats()
+        if (stats is not None and stats["pages_in_use"]) or \
+                engine.health != "healthy":
+            fail("{}: pages {} in use, health {}".format(
+                what, stats and stats["pages_in_use"], engine.health))
+        want = dict.fromkeys(facts["launches"], 0)
+        want[kernel] += cfg.n_layer * (m["decode_steps"] +
+                                       facts["extra_decode_steps"])
+        want[lane_kernel] += cfg.n_layer * (m["prefill_lanes"] +
+                                            facts["extra_lanes"])
+        if facts["launches"] != want:
+            fail("{}: decode kernel launches {} != {}".format(
+                what, facts["launches"], want))
+        matched = []
+        for p, got, want_r, samp in zip(prompts, reqs, ref, sampling):
+            _held_to(model, p, got.tokens, want_r.tokens,
+                     "{} request {}".format(what, got.rid), samp)
+            matched.append(next((i for i, (a, b) in enumerate(
+                zip(got.tokens, want_r.tokens)) if a != b), NEW_TOKENS))
+        out[kind] = {
+            "recovery_ms": recs[0]["duration_s"] * 1e3,
+            "error": recs[0]["error"].split(":")[0],
+            "replayed": recs[0]["replayed"],
+            "tokens_delivered_before_fault":
+                facts["tokens_delivered_before_fault"],
+            "replay_fallbacks": sum(r.folded > 0 for r in reqs),
+            "tokens_matched": matched,
+            "streams_identical": sum(t == NEW_TOKENS for t in matched),
+            "launches": facts["launches"], "steps": m["chunks"],
+            "wall_s": facts["wall_s"]}
+    line = {"pool": label, "kernel": kernel, "lane_kernel": lane_kernel,
+            "fault_free": {"steps": clean["metrics"]["chunks"],
+                           "wall_s": clean["wall_s"]},
+            "compile_count": programs,
+            "program_keys": [list(k) for k in sorted(engine._programs)],
+            "kinds": out}
+    del engine
+    return line
+
+
+def _recovered_graph_vs_eager(model, label, extra):
+    """Part (ii): a graph-served engine and the same program run eagerly
+    through the same history (phase_graph_vs_eager's mix, a raise fault
+    once a request decodes, the recovery), then GRAPH_CHECK_STEPS more
+    steps: every harvest, and the pool after them, bit for bit (with that
+    phase's trash-page exception for a speculating paged pool)."""
+    cfg = model.config
+    spec = "spec_decode" in extra
+    prompts = (_tiled_prompts if spec else _prompts)(
+        GRAPH_CHECK_REQUESTS, cfg.vocab_size, seed=3)
+    conf = dict(SERVE, fault_injection=True, **extra)
+    runs = []
+    for engine in (init_inference(model, config=conf),
+                   _EagerEngine(model, config=conf)):
+        reqs = []
+        for i, p in enumerate(prompts):
+            kw = {"temperature": 0.8, "seed": i,
+                  "top_k": 50 if i == 2 else None} if i % 3 == 2 else {}
+            if spec and i % 4 == 1:
+                kw["spec_decode"] = False
+            reqs.append(engine.submit(p, max_new_tokens=NEW_TOKENS, **kw))
+        while not any(r.phase == "decoding" for r in reqs):
+            engine.step()
+        engine.inject_faults(FaultPlan(faults=(Fault("raise", step=0),)))
+        engine.step()
+        if len(engine.recovery_log) != 1:
+            fail("graph_vs_eager after recovery {}: no recovery".format(
+                label))
+        snaps = []
+        for _ in range(GRAPH_CHECK_STEPS):
+            engine.step()
+            snaps.append(engine._last_snap)
+        torch.cuda.synchronize()
+        runs.append((engine, snaps))
+    (graphed, got), (eager, want) = runs
+    for step, (a, b) in enumerate(zip(got, want)):
+        for name in a:
+            if not np.array_equal(a[name], b[name]):
+                fail("graph_vs_eager after recovery {}: step {}: {} "
+                     "differs".format(label, step, name))
+    diffs = _pool_diffs(graphed, eager, spec, label)
+    m = graphed.metrics()
+    if graphed.graph_replays != m["chunks"] - graphed.compile_count:
+        fail("graph_vs_eager after recovery {}: graph_replays {} over {} "
+             "steps, compile_count {}".format(
+                 label, graphed.graph_replays, m["chunks"],
+                 graphed.compile_count))
+    return {"layout": label, "steps": GRAPH_CHECK_STEPS,
+            "replayed": graphed.recovery_log[0]["replayed"],
+            "compile_count": graphed.compile_count,
+            "tokens_compared": int(sum(s["valid"].sum() for s in got)),
+            "harvests_identical": True, "pool_differs": diffs}
+
+
+def _resilience_detection(model):
+    """Part (iii): a STALL_S stall under a STALL_BUDGET_S watchdog on the
+    dense pool gives ``degraded``, one clean step ``healthy``, and counts
+    a stall. The warm-up's captures may trip the budget themselves: their
+    stalls are reported, not failed."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(
+        SERVE, fault_injection=True, step_budget_s=STALL_BUDGET_S))
+    chunk = SERVE["chunk_size"]
+    engine.generate([np.arange(1, 9), np.arange(9, 17)],
+                    max_new_tokens=2 * chunk)
+    warm = engine.metrics(reset=True)
+    engine.generate([np.arange(1, 9)], max_new_tokens=chunk)
+    healthy_after_warm = engine.health
+    prompts = _prompts(2, cfg.vocab_size, seed=11)
+    reqs = [engine.submit(p, max_new_tokens=2 * chunk) for p in prompts]
+    engine.inject_faults(FaultPlan(faults=(
+        Fault("stall", step=0, stall_s=STALL_S),)))
+    t0 = time.perf_counter()
+    engine.step()
+    stalled_s = time.perf_counter() - t0
+    after_stall = engine.health
+    engine.step()
+    after_clean = engine.health
+    engine.run()
+    m = engine.metrics()
+    if after_stall != "degraded" or after_clean != "healthy" or \
+            m["step_stalls"] < 1 or not all(r.done for r in reqs):
+        fail("resilience detection: health {} after the stall, {} after "
+             "a clean step, {} stalls".format(after_stall, after_clean,
+                                              m["step_stalls"]))
+    engine.close()
+    return {"budget_s": STALL_BUDGET_S, "stall_s": STALL_S,
+            "stalled_step_s": stalled_s, "step_stalls": m["step_stalls"],
+            "warmup_step_stalls": warm["step_stalls"],
+            "warmup_capture_ms": warm["capture_ms"],
+            "health_after_warmup": healthy_after_warm,
+            "health_after_stall": after_stall,
+            "health_after_clean_step": after_clean}
+
+
+def _resilience_bounds(model):
+    """Part (iv): at recovery_max_retries 1, a raise lasting
+    DEAD_FAULT_STEPS steps ends the engine: EngineDeadError chained to
+    InjectedFault, then submit, step, drain and undrain refuse; close()
+    twice is fine."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(
+        SERVE, fault_injection=True, recovery_max_retries=1))
+    p = _prompts(1, cfg.vocab_size, seed=13)[0]
+    engine.submit(p, max_new_tokens=8)
+    engine.inject_faults(FaultPlan(faults=(
+        Fault("raise", step=0, duration_steps=DEAD_FAULT_STEPS),)))
+    try:
+        engine.run()
+        fail("resilience bounds: a persistent fault did not end the engine")
+    except EngineDeadError as exc:
+        cause = type(exc.__cause__).__name__
+        if not isinstance(exc.__cause__, InjectedFault):
+            fail("resilience bounds: EngineDeadError from {}".format(cause))
+    refused = []
+    for name, call in (("submit", lambda: engine.submit(p)),
+                       ("step", engine.step), ("drain", engine.drain),
+                       ("undrain", engine.undrain)):
+        try:
+            call()
+        except EngineDeadError:
+            refused.append(name)
+    if len(refused) != 4 or engine.health != "dead":
+        fail("resilience bounds: a dead engine accepted {}".format(
+            sorted({"submit", "step", "drain", "undrain"} - set(refused))))
+    engine.close()
+    engine.close()
+    return {"max_retries": 1, "fault_steps": DEAD_FAULT_STEPS,
+            "cause": cause, "recoveries": len(engine.recovery_log),
+            "refused": refused, "health": engine.health}
+
+
+def _resilience_cancel_drain(model):
+    """Part (v): on graph-served paged int8 engines (K6), cancel one
+    decoding request: it keeps its tokens and stops emitting, the other
+    streams equal the run without the cancel (gap rule), every page comes
+    back. Then drain() with queued work settles idle under ``draining``,
+    submit() raises EngineDraining, undrain() reopens."""
+    cfg = model.config
+    conf = dict(SERVE, int8_kv=True, **PAGED)
+    prompts = _prompts(GRAPH_CHECK_REQUESTS, cfg.vocab_size, seed=17)
+    streams = []
+    for cancel in (False, True):
+        engine = init_inference(model, config=conf)
+        reqs = [engine.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        victim = reqs[0]
+        while len(victim.tokens) < 2:
+            engine.step()
+        kept = None
+        if cancel:
+            if not engine.cancel(victim) or engine.cancel(victim):
+                fail("resilience cancel: cancel() did not return True, "
+                     "then False")
+            kept = list(victim.tokens)
+        engine.run()
+        if cancel and (victim.tokens != kept or victim.phase != "cancelled"):
+            fail("resilience cancel: the cancelled request went on "
+                 "emitting ({} -> {} tokens)".format(len(kept),
+                                                     len(victim.tokens)))
+        stats = engine.kv_page_stats()
+        if stats["pages_in_use"] or engine._pager.outstanding():
+            fail("resilience cancel: {} pages in use, {} reserved".format(
+                stats["pages_in_use"], engine._pager.outstanding()))
+        streams.append([r.tokens for r in reqs])
+        if not cancel:
+            del engine
+    identical = 0
+    for i, (p, a, b) in enumerate(zip(prompts[1:], streams[0][1:],
+                                      streams[1][1:])):
+        identical += _held_to(model, p, b, a,
+                              "cancel: request {}".format(i + 1))
+    # Drain with queued work on the engine that served the cancel.
+    queued = [engine.submit(p, max_new_tokens=NEW_TOKENS // 4)
+              for p in prompts + prompts]
+    done = engine.drain()
+    health = engine.health
+    try:
+        engine.submit(prompts[0])
+        fail("resilience drain: submit() accepted while draining")
+    except EngineDraining:
+        pass
+    if not engine.idle or health != "draining" or \
+            {r.rid for r in done} != {r.rid for r in queued}:
+        fail("resilience drain: idle {}, health {}, {} of {} done".format(
+            engine.idle, health, len(done), len(queued)))
+    engine.undrain()
+    again = engine.submit(prompts[0], max_new_tokens=4)
+    engine.run()
+    if not again.done or engine.health != "healthy":
+        fail("resilience drain: undrain() did not reopen the engine")
+    return {"cancelled_after_tokens": len(streams[1][0]),
+            "streams_identical_to_uncancelled": identical,
+            "others": len(prompts) - 1, "drained": len(done),
+            "health_while_drained": health}
+
+
+def phase_resilience(card, model):
+    """Crash-only resilience on the serving path at full width (module
+    docstring, phase 4c): (i) the recovery invariant on each of
+    RESILIENCE_POOLS and RESILIENCE_KINDS; (ii) a recovered graph-served
+    engine against the eager program; (iii) stall detection; (iv) the
+    retry bound; (v) cancel and drain. Prints one ``resilience`` line."""
+    pools = [_resilience_invariant(model, *pool) for pool in RESILIENCE_POOLS]
+    gve = [_recovered_graph_vs_eager(model, label, extra)
+           for label, extra, _, _ in RESILIENCE_POOLS]
+    line = {"resilience": "gpt2-medium bf16", "serve_cfg": SERVE,
+            "requests": RESILIENCE_REQUESTS, "new_tokens": NEW_TOKENS,
+            "pools": pools, "graph_vs_eager_after_recovery": gve,
+            "detection": _resilience_detection(model),
+            "bounds": _resilience_bounds(model),
+            "cancel_drain": _resilience_cancel_drain(model), "card": card}
+    print("resilience " + json.dumps(line))
+    return line
+
+
+def phase_chaos(card, model):
+    """The chaos run (CHAOS_SERVE, CHAOS_LOAD): GPT-2 medium bf16 over a
+    dense pool (K3, prefill lane K5), warmed on both greedy keys, marked
+    warm, then driven open loop by loadgen's SustainedRunner with one
+    raise fault armed at CHAOS_AFTER_S. Fails unless the fault fired, the
+    engine recovered, no request was lost, the recovery time is finite,
+    the engine ends healthy, no graph was captured after warm-up, and the
+    decode kernels' launches are n_layer x the run's decode steps (K3)
+    and prefill lanes (K5). Prints the report's ``chaos`` section."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(CHAOS_SERVE))
+    chunk = CHAOS_SERVE["chunk_size"]
+    engine.generate([np.arange(1, 9), np.arange(9, 17)],
+                    max_new_tokens=2 * chunk)
+    if engine.compile_count != 2:
+        fail("chaos: the warm-up met keys {}".format(sorted(engine._programs)))
+    engine.recompile_detector.mark_warm()
+    engine.metrics(reset=True)
+    spec = WorkloadSpec(**CHAOS_LOAD)
+    plan = FaultPlan(faults=(Fault("raise", step=2),))
+    c0, lanes0 = engine.counters["chunks"], engine._lane_steps.value
+    torch.cuda.synchronize()
+    da.reset_launches()
+    res = SustainedRunner(engine, spec, window_seconds=CHAOS_WINDOW_S,
+                          max_steps=500_000, chaos_plan=plan,
+                          chaos_after_s=CHAOS_AFTER_S).run()
+    torch.cuda.synchronize()
+    launches = dict(da.launches)
+    want = dict.fromkeys(launches, 0)
+    want["decode"] += cfg.n_layer * (engine.counters["chunks"] - c0) * chunk
+    want["paged"] += cfg.n_layer * int(engine._lane_steps.value - lanes0)
+    report = build_report(spec, res, CHAOS_SLO, platform="gpu",
+                          extra={"model": "gpt2-medium bf16",
+                                 "serve_cfg": dict(CHAOS_SERVE),
+                                 "card": card})
+    chaos, agg = report["chaos"], report["aggregate"]
+    post = engine.metrics()
+    line = {"chaos": "gpt2-medium bf16, dense pool",
+            "serve_cfg": CHAOS_SERVE,
+            "workload": {k: CHAOS_LOAD[k] for k in (
+                "arrival", "rate", "n_requests", "prompt_mean",
+                "output_mean", "seed")},
+            "fault": {"kind": "raise", "step": 2,
+                      "armed_after_s": CHAOS_AFTER_S},
+            "recovery_time_s": chaos["recovery_time_s"],
+            "recoveries": chaos["recoveries"],
+            "faults_injected": chaos["faults_injected"],
+            "requests_lost": chaos["requests_lost"],
+            "requests_replayed": sum(r["replayed"] for r in res.recovery),
+            "recovery_intervals": chaos["recovery_intervals"],
+            "requests_during_recovery": chaos["requests_during_recovery"],
+            "slo": CHAOS_SLO.to_json(),
+            "slo_attainment_during_recovery":
+                chaos["slo_attainment_during_recovery"],
+            "slo_attainment_outside_recovery":
+                chaos["slo_attainment_outside_recovery"],
+            "slo_attainment": agg["slo_attainment"],
+            "ttft_p50_ms": agg["ttft_p50_ms"],
+            "ttft_p99_ms": agg["ttft_p99_ms"],
+            "itl_p99_ms": agg["itl_p99_ms"],
+            "tokens_per_sec": agg["tokens_per_sec"],
+            "submitted": agg["submitted"], "completed": agg["completed"],
+            "shed": agg["shed"], "wall_s": agg["wall_s"],
+            "compile_count": post["compile_count"],
+            "recompiles": post["recompiles"], "health": engine.health,
+            "launches": launches, "card": card}
+    print("chaos " + json.dumps(line))
+    if chaos["faults_injected"] < 1 or chaos["recoveries"] < 1 or \
+            chaos["requests_lost"] or \
+            not math.isfinite(chaos["recovery_time_s"]) or \
+            engine.health != "healthy" or not engine.idle or \
+            post["compile_count"] != 2 or post["recompiles"]:
+        fail("chaos: the recovery invariant does not hold (line above)")
+    if launches != want:
+        fail("chaos: launches {} != {}".format(launches, want))
+    return line
+
+
 def _breakdown_run(cfg, ids, extra):
     """BREAKDOWN_STEPS forward/backward/step of phase_train's setting from
     seed 0 with ``extra`` in the ds_config: the losses, the registry
@@ -2012,25 +2510,40 @@ def phase_train_breakdown(card):
                  runs["off"][0][0]))
 
 
-def _gap(model, ids):
-    """Top-1 minus top-2 fp32 logit for the token after ``ids``."""
+def _gap(model, ids, sampling=None):
+    """Top-1 minus top-2 fp32 logit for the token after ``ids``; with
+    ``sampling`` (temperature, top_k, seed), of the scores the Gumbel-max
+    draw compares there (``ops.sampling.sample_rows``: the top-k filtered
+    logits over the temperature plus the Gumbel noise of (seed, position
+    len(ids)))."""
     cache = generation.init_cache(generation.as_gencfg(model.config), 1,
                                   len(ids), device="cuda")
     logits, _ = generation.prefill_forward(
         model, torch.as_tensor(ids, device="cuda")[None], cache)
-    top = torch.topk(logits[0, -1], 2).values
+    scores = logits[0, -1].float()
+    if sampling is not None:
+        temp, top_k, seed = sampling
+        if top_k > 0:
+            kth = torch.topk(scores, top_k).values[-1]
+            scores = scores.masked_fill(scores < kth, float("-inf"))
+        u = positional_uniform(
+            torch.tensor([seed], device="cuda"),
+            torch.tensor([len(ids)], device="cuda"), scores.numel())[0]
+        scores = scores / max(temp, 1e-6) - torch.log(-torch.log(u))
+    top = torch.topk(scores, 2).values
     return float(top[0] - top[1])
 
 
-def _held_to(model, prompt, got, ref, what):
+def _held_to(model, prompt, got, ref, what, sampling=None):
     """Phase 5's rule: ``got`` equals ``ref``, or first differs from it
-    where ``ref``'s top-1/top-2 fp32 logit gap is below NEAR_TIE (printed;
-    a clear argmax fails). True when equal."""
+    where ``ref``'s top-1/top-2 gap is below NEAR_TIE (printed; a clear
+    choice fails): of the fp32 logits, or with ``sampling`` of the
+    Gumbel-max scores (``_gap``). True when equal."""
     if got == ref:
         return True
     j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
              min(len(got), len(ref)))
-    gap = _gap(model, np.concatenate([prompt, ref[:j]]))
+    gap = _gap(model, np.concatenate([prompt, ref[:j]]), sampling)
     print("greedy: {}: divergence at token {}, top-1/top-2 gap {:.3e}".format(
         what, j, gap))
     if gap >= NEAR_TIE:
@@ -3560,6 +4073,8 @@ def main():
     phase_graph_vs_eager(model)
     phase_telemetry(card, model)
     phase_sustained(card, model)
+    phase_resilience(card, model)
+    phase_chaos(card, model)
     n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill

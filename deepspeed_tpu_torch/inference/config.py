@@ -4,9 +4,14 @@ Counterpart of ``deepspeed_tpu/inference/config.py``. The dataclass holds
 the settings the port reads, with the JAX package's defaults: chunked
 prefill into a dense or paged slotted pool of fp or int8 planes,
 speculative decoding (``spec_decode``, ``spec_k``, ``spec_ngram``; see
-``resolved_spec_decode``), and telemetry (``telemetry``: trace spans and
+``resolved_spec_decode``), telemetry (``telemetry``: trace spans and
 profiler scopes on top of the always-on metrics registry; ``trace_ring``:
-the span ring's capacity).
+the span ring's capacity), and crash-only resilience
+(``fault_injection``: the switch that lets ``engine.inject_faults`` arm a
+plan; ``step_budget_s``: the step watchdog's budget, None for none;
+``recovery_max_retries``: consecutive fatal steps recovered before the
+engine is dead; ``recovery_backoff_s``: the sleep before the n-th
+consecutive recovery, times n).
 
 There is no switch for the step's CUDA graphs, as the JAX package has
 none for its jit: on the card the engine always captures its step
@@ -42,10 +47,6 @@ _UNPORTED = {
     # The port has no perf x-ray: switching it off asks for what it does.
     "perf_xray": ((True, False), _XRAY),
     "xray_sample_every": ((64,), _XRAY),
-    "fault_injection": ((False,), _FLEET),
-    "step_budget_s": ((None,), _FLEET),
-    "recovery_max_retries": ((2,), _FLEET),
-    "recovery_backoff_s": ((0.0,), _FLEET),
     "replica_id": ((None,), _FLEET),
     "role": (("mixed",), _FLEET),
     "prefix_cache": ((False,), _HIERARCHY),
@@ -91,6 +92,13 @@ class InferenceConfig:
     # on), and the span ring's capacity in events.
     telemetry: bool = True
     trace_ring: int = 4096
+    # Crash-only resilience (inference/resilience.py): the fault-injection
+    # switch, the step watchdog's budget in seconds (None: no watchdog),
+    # and the bounds on recovery (consecutive retries, linear backoff).
+    fault_injection: bool = False
+    step_budget_s: Optional[float] = None
+    recovery_max_retries: int = 2
+    recovery_backoff_s: float = 0.0
 
     def __post_init__(self):
         for name in ("max_slots", "chunk_size", "max_queue", "prefill_chunk",
@@ -103,6 +111,16 @@ class InferenceConfig:
             raise ValueError("inference.kv_pages must be >= 1 (or None for "
                              "dense-parity capacity), got "
                              "{}".format(self.kv_pages))
+        if self.step_budget_s is not None and self.step_budget_s <= 0:
+            raise ValueError("inference.step_budget_s must be > 0 (or None "
+                             "to disable the watchdog), got "
+                             "{}".format(self.step_budget_s))
+        if self.recovery_max_retries < 0:
+            raise ValueError("inference.recovery_max_retries must be >= 0, "
+                             "got {}".format(self.recovery_max_retries))
+        if self.recovery_backoff_s < 0:
+            raise ValueError("inference.recovery_backoff_s must be >= 0, "
+                             "got {}".format(self.recovery_backoff_s))
 
     @classmethod
     def from_dict(cls, block):

@@ -103,8 +103,35 @@ warm after its first step (the JAX mixed step does: it has one program),
 so the caller meets every key its traffic will meet before
 ``mark_warm()``.
 
-Perf x-ray, resilience and fault injection, the prefix and offload tiers
-of the KV hierarchy and tensor parallelism are later slices.
+CRASH-ONLY RESILIENCE, as in the JAX engine (``inference/resilience.py``,
+``inference/faults.py``). Device state is disposable; the scheduler's
+request records are the only truth. ``step()`` runs inside a watchdog
+(``step_budget_s``: a timer thread that counts ``step_stalls`` and marks
+the engine ``degraded``, touching neither the device nor the engine) and
+catches ``fatal_step_errors()``: an injected fault, the harvest's
+numerics check (``NumericsError``: a negative token in a valid lane,
+caught before any token reaches a request), a CUDA error or a device
+allocation failure. Recovery (``_recover``) drains the stream, resets
+the pool IN PLACE to ``init_pool``'s values (``kv_pool.reset_pool``;
+the page allocator and the step's host inputs too), requeues every
+in-flight request at the queue's front and replays it: its prompt is
+prefilled again and its decode lane re-derives the tokens it delivered
+(checked, not delivered twice) before it emits new ones. Every draw is
+keyed on (seed, position) and a row's arithmetic does not depend on its
+slot or neighbours, so the replayed stream is the original one, bit for
+bit (``_replay_requests``).
+The captured graphs hold the pool's, the inputs' and the harvest's
+addresses, and none of them moves, so recovery captures no graph:
+``compile_count`` does not change. ``recovery_max_retries`` consecutive
+failures, or a fatal error while the device is being drained or reset
+(a sticky CUDA error: one process cannot clear it), end in ``dead``
+(``EngineDeadError``). ``cancel``, ``drain`` / ``undrain`` /
+``close_admissions``, queue-side deadlines (``submit(deadline_ms=)``),
+``run(timeout_s=)``, ``health`` and ``inject_faults`` follow the JAX
+engine.
+
+Perf x-ray, the prefix and offload tiers of the KV hierarchy and tensor
+parallelism are later slices.
 """
 
 import contextlib
@@ -118,11 +145,18 @@ from deepspeed_tpu_torch.inference.adapters import GPT2Adapter
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.kv_hierarchy import (KVHierarchy,
                                                         spec_from_config)
+from deepspeed_tpu_torch.inference.faults import FaultInjector
 from deepspeed_tpu_torch.inference.kv_pool import (
     HARVEST_FIELDS, cache_view, clear_step_inputs, init_pool,
     max_active_frontier, paged_plane_len, plane_len_for, pool_nbytes,
-    slot_cache_view, step_harvest, step_inputs)
+    reset_pool, slot_cache_view, step_harvest, step_inputs)
 from deepspeed_tpu_torch.inference.paging import PageAllocator
+from deepspeed_tpu_torch.inference.resilience import (EngineDeadError,
+                                                      EngineDraining,
+                                                      HealthState,
+                                                      NumericsError,
+                                                      StepWatchdog,
+                                                      fatal_step_errors)
 from deepspeed_tpu_torch.inference.scheduler import Scheduler
 from deepspeed_tpu_torch.models.generation import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
@@ -134,6 +168,7 @@ from deepspeed_tpu_torch.telemetry import (MetricsRegistry, NullRecorder,
                                            annotate, prometheus_digest,
                                            prometheus_text)
 from deepspeed_tpu_torch.telemetry.registry import Counter
+from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
 
 # The telemetry-off profiler scope: free.
@@ -141,7 +176,9 @@ _NULL_CTX = contextlib.nullcontext()
 
 # The JAX engine's counters that the port's features drive.
 _COUNTERS = ("tokens_out", "chunks", "prefills", "prefill_tokens",
-             "requests_completed", "occupied_slot_steps", "slot_steps")
+             "requests_completed", "occupied_slot_steps", "slot_steps",
+             "faults_injected", "recoveries", "requests_replayed",
+             "deadline_sheds", "step_stalls")
 
 
 class _CounterBank(object):
@@ -208,6 +245,25 @@ def _live_tokens(scheduler):
         else:
             total += int(r.prompt.size) + len(r.tokens)
     return total
+
+
+def _on_stall(counters, health, scheduler):
+    """The watchdog's trip handler (JAX ``InferenceEngine._on_stall``). It
+    runs on the TIMER THREAD while the step may still be executing, even
+    inside a graph capture, so it signals only: a counter, a log line and
+    the health state, and no CUDA call. It closes over the counter bank,
+    the health machine and the scheduler, never the engine, so an engine
+    dropped is freed at once (the watchdog would otherwise hold a bound
+    method of the engine)."""
+    def trip(budget_s):
+        counters["step_stalls"] += 1
+        logger.warning(
+            "inference.watchdog: step still running past its %.3fs budget "
+            "— device stall? (%d running, %d queued; health -> degraded)",
+            budget_s, len(scheduler.running), len(scheduler.queue))
+        if health.state == "healthy":
+            health.to("degraded")
+    return trip
 
 
 def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
@@ -384,12 +440,23 @@ class _StepGraph(object):
 
     def __init__(self, program, pool):
         before = dict(decode_attention.launches)
+        stream = torch.cuda.current_stream()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool):
-            program()
-        self.launches = {kind: decode_attention.launches[kind] - n
-                         for kind, n in before.items()}
-        decode_attention.launches.update(before)
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                program()
+            self.launches = {kind: decode_attention.launches[kind] - n
+                             for kind, n in before.items()}
+        finally:
+            # On an error inside the block, torch.cuda.graph's exit still
+            # ends the capture; if the error invalidated it, that
+            # capture_end raises the CUDA error in turn and the exit never
+            # leaves its capture stream, which stays current. Restore the
+            # caller's stream and the launch counts; the half-built graph
+            # is dropped with this object, and the engine's key stays out
+            # of its programs, so the key's next step captures it again.
+            torch.cuda.set_stream(stream)
+            decode_attention.launches.update(before)
 
     def replay(self):
         self.graph.replay()
@@ -506,6 +573,23 @@ class InferenceEngine(object):
         # exported.
         self._lane_steps = Counter("prefill_lanes", {})
         self._register_gauges()
+        # Resilience (module docstring): the health machine (its live
+        # ``health_state`` gauge), the step watchdog, the recovery
+        # bookkeeping. The fault injector stays None until
+        # inject_faults() arms one: every hook is one ``is not None``
+        # test when off.
+        self._health = HealthState(self.telemetry)
+        self._watchdog = StepWatchdog(
+            config.step_budget_s,
+            _on_stall(self.counters, self._health, self._scheduler))
+        self._injector = None
+        self._fatal = fatal_step_errors()
+        self._recovery_streak = 0
+        self._recovery_seconds = self.telemetry.histogram("recovery_seconds")
+        # One record per recovery (absolute t_start/t_end, duration,
+        # error, requests replayed, attempt): the chaos loadgen's
+        # SLO-impact windows.
+        self.recovery_log = []
         self._ttft_hist = self.telemetry.histogram("ttft_seconds")
         self._itl_hist = self.telemetry.histogram("inter_token_seconds")
         self._qwait_hist = self.telemetry.histogram("queue_wait_seconds")
@@ -560,14 +644,32 @@ class InferenceEngine(object):
         return self._scheduler.idle
 
     def submit(self, prompt, max_new_tokens=None, temperature=0.0,
-               top_k=None, eos_token_id=None, seed=0, spec_decode=None):
+               top_k=None, eos_token_id=None, seed=0, spec_decode=None,
+               deadline_ms=None):
         """Queue one request; returns its Request handle. Raises
-        scheduler.QueueFull past ``max_queue`` pending requests and
-        ValueError when the request cannot fit the pool (or, paged, when
-        the page arena could never hold it). ``spec_decode``: None inherits
-        the engine's setting, False opts the request out (it rides the same
-        program and emits one token per step), True demands a speculating
-        engine."""
+        scheduler.QueueFull past ``max_queue`` pending requests (or while
+        an injected ``admission_block`` fault is active),
+        resilience.EngineDraining during drain() (re-route, not retry),
+        resilience.EngineDeadError on a dead engine, and ValueError when
+        the request cannot fit the pool (or, paged, when the page arena
+        could never hold it). ``spec_decode``: None inherits the engine's
+        setting, False opts the request out (it rides the same program
+        and emits one token per step), True demands a speculating engine.
+        ``deadline_ms``: queue-side expiry budget; a request still QUEUED
+        deadline_ms after submit is shed as ``expired`` (counted in
+        ``deadline_sheds``); once admitted, it always finishes."""
+        if not self._health.accepting:
+            if self._health.state == "dead":
+                raise EngineDeadError(
+                    "submit() on a dead engine (recovery retries "
+                    "exhausted) — fail over to another replica")
+            raise EngineDraining(
+                "submit() while draining: admissions are closed while "
+                "in-flight work finishes; re-route this request "
+                "(undrain() reopens)")
+        if self._injector is not None and self._injector.admission_blocked():
+            raise self._scheduler.queue_full_error(
+                "admission blocked by injected fault (admission_block)")
         if spec_decode and self._spec is None:
             raise ValueError(
                 "submit(spec_decode=True) on an engine without speculation; "
@@ -601,10 +703,40 @@ class InferenceEngine(object):
                         self.config.kv_page_len, self._pager.total_pages))
         if eos_token_id is None:
             eos_token_id = self.config.eos_token_id
+        deadline = None
+        if deadline_ms is not None:
+            if deadline_ms <= 0:
+                raise ValueError("deadline_ms must be > 0, got "
+                                 "{}".format(deadline_ms))
+            deadline = time.time() + deadline_ms / 1e3
         return self._scheduler.submit(
             prompt, int(max_new_tokens), float(temperature), int(top_k or 0),
             -1 if eos_token_id is None else int(eos_token_id), int(seed),
-            spec=self._spec is not None and spec_decode is not False)
+            spec=self._spec is not None and spec_decode is not False,
+            deadline=deadline)
+
+    def cancel(self, req):
+        """Evict ``req`` wherever it lives: queued, mid-prefill or
+        decoding. Frees its slot for the next admission round (on a paged
+        engine its pages and its reservation too); tokens emitted so far
+        stay on the request. Returns False when it had already finished.
+        A decoding slot is frozen on the device by clearing its
+        ``active`` flag in place, an eager write on the step's stream at
+        the address the captured graphs read (the JAX engine rebinds
+        the pool instead, which a graph would not see)."""
+        was_decoding = req.phase == "decoding" and req.slot is not None
+        had_slot = req.slot is not None and \
+            req.phase in ("prefilling", "decoding")
+        slot = req.slot
+        if not self._scheduler.cancel(req):
+            return False
+        if self._pager is not None:
+            if had_slot:
+                self._pager.free_slot(slot)
+            self._pager.release_reservation(req.rid)
+        if was_decoding:
+            self._pool["active"][slot] = False
+        return True
 
     # ------------------------------------------------------ paged KV pool
 
@@ -708,9 +840,211 @@ class InferenceEngine(object):
     def step(self):
         """One step boundary: admit, run the step's program (the prefill
         lane and the decode lane), harvest in one transfer, evict finished
-        slots. Returns the requests completed during this step."""
+        slots. Returns the requests completed during this step.
+
+        The RESILIENCE envelope (module docstring) wraps the boundary: the
+        watchdog times it, an injected stall burns its time inside the
+        guard so the watchdog sees it, and a fatal step error lands in
+        ``_recover()`` instead of the caller's lap. A clean step resets
+        the recovery streak and returns ``degraded`` to ``healthy``."""
+        if self._health.state == "dead":
+            raise EngineDeadError(
+                "step() on a dead engine (recovery retries exhausted)")
+        inj = self._injector
+        stall = inj.stall_seconds() if inj is not None else 0.0
+        try:
+            with torch.no_grad(), self._watchdog:
+                if stall > 0:
+                    time.sleep(stall)
+                done = self._step_chunked()
+        except self._fatal as exc:
+            done = self._recover(exc)
+        else:
+            self._recovery_streak = 0
+            if (self._health.state == "degraded" and stall == 0
+                    and not self._watchdog.tripped):
+                self._health.to("healthy")
+        finally:
+            if inj is not None:
+                inj.advance()
+        return done
+
+    # --------------------------------------------------------- resilience
+
+    @property
+    def health(self):
+        """Current health state (``healthy/degraded/draining/dead``); the
+        ``health_state`` gauge exports its index live."""
+        return self._health.state
+
+    def inject_faults(self, plan):
+        """Arm a faults.FaultPlan; steps count from here, so a plan armed
+        mid-run (the loadgen chaos mode) fires relative to the arming
+        point. Requires ``inference.fault_injection=True`` and replaces
+        any previous injector. Returns the armed FaultInjector."""
+        if not self.config.fault_injection:
+            raise ValueError(
+                "inject_faults() requires inference.fault_injection=True "
+                "at engine construction — chaos must be switched on "
+                "explicitly, never ambient")
+        self._injector = FaultInjector(plan, registry=self.telemetry)
+        return self._injector
+
+    def _check_harvest(self, toks, valid):
+        """Harvest validity: every VALID lane must hold a real token id
+        (>= 0; no draw over finite logits gives a negative). A violation
+        means the device returned garbage and raises NumericsError BEFORE
+        any token reaches a request: the whole step's harvest is
+        discarded and recovery replays it."""
+        if valid.any() and int(toks[valid].min()) < 0:
+            raise NumericsError(
+                "harvest validity check failed: negative token id in a "
+                "valid lane — device returned garbage (NaN logits?); "
+                "discarding this step's harvest and recovering")
+
+    def _replay_requests(self, reqs):
+        """Mark requeued requests for replay. A request that had
+        delivered tokens re-prefills its prompt (the same slices as
+        before, so the same k/v) and its decode lane re-derives the
+        delivered tokens, each checked against the delivered one and not
+        delivered again (``_take``), before it emits new ones: every draw
+        is keyed on (seed, position) and a row's arithmetic does not
+        depend on its slot or its neighbours, so the replayed stream is
+        the original one, bit for bit, on the card too. (The JAX engine
+        re-prefills prompt + delivered tokens with the budget less those:
+        exact on the CPU, but on the card the prefill lane's GEMMs round
+        the delivered tokens' k/v differently from the decode lane's, so
+        the stream may part at a near tie. A request whose re-derivation
+        disagrees takes that replay instead, ``_resync_failed``.) Prompt
+        and budget are unchanged, so the max_len bound, the plane slack
+        and a paged request's reservation are too. Mid-prefill requests
+        replay their prompt."""
+        for req in reqs:
+            req.resync = req.folded if len(req.tokens) > req.folded \
+                else None
+
+    def _take(self, req, emitted):
+        """The tokens among ``emitted`` (one step's, in order) to deliver
+        to ``req``: while a replayed request re-derives its delivered
+        tokens (``resync``), each emission must equal the delivered token
+        at its index, and is not delivered again. None on a mismatch."""
+        at = req.resync
+        if at is None:
+            return emitted
+        n = min(len(emitted), len(req.tokens) - at)
+        if emitted[:n] != req.tokens[at:at + n]:
+            return None
+        at += n
+        req.resync = at if at < len(req.tokens) else None
+        return emitted[n:]
+
+    def _resync_failed(self, req):
+        """A replayed request's device stream disagreed with the tokens it
+        had delivered: the device did not reproduce its own arithmetic.
+        That request alone takes the JAX engine's replay: out of its slot
+        (frozen in place, its pages returned) to the queue's front, to
+        re-prefill prompt + every delivered token with the budget less
+        those, so what it emits next follows what the client holds."""
+        slot = req.slot
+        logger.warning(
+            "inference.replay: request %d re-derived a token that differs "
+            "from the one it delivered; replaying it from prompt + its %d "
+            "delivered tokens", req.rid, len(req.tokens))
+        self._scheduler.requeue(req)
+        if self._pager is not None:
+            self._pager.free_slot(slot)
+            self._pager.release_reservation(req.rid)
+        self._pool["active"][slot] = False
+        new = req.tokens[req.folded:]
+        req.prompt = np.concatenate([req.prompt, np.asarray(new, np.int64)])
+        req.max_new_tokens -= len(new)
+        req.folded = len(req.tokens)
+        req.resync = None
+        self.counters["requests_replayed"] += 1
+
+    def _reset_device_state(self):
+        """The in-place rebuild. First drain the stream: a step that
+        faulted never reached its blocking harvest read, and its
+        non-blocking copies (the pinned block-table snapshot, the packed
+        inputs) may still be in flight from host buffers the next step
+        writes. Then reset the pool to init_pool's values in place, the
+        page allocator to zero knowledge (its ``dirty`` flag uploads the
+        zeroed table before the next step) and the step's host inputs to
+        the idle lane. ``self._programs`` is untouched: every address a
+        graph holds is unchanged."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         with torch.no_grad():
-            return self._step_chunked()
+            reset_pool(self._pool, self._hier.spec if self._hier else None)
+        if self._pager is not None:
+            self._pager.reset()
+        clear_step_inputs(self._inputs)
+        self._last_snap = None  # it described the pool just reset
+
+    def _recover(self, exc):
+        """Crash-only recovery from a fatal step error (JAX
+        ``InferenceEngine._recover``): device state is presumed LOST, so
+        reset it in place (``_reset_device_state``; no graph is captured
+        again), requeue every in-flight request ahead of the queue and
+        mark each for replay (``_replay_requests``). Never runs inside a
+        capture: an error raised while a key is captured leaves
+        ``_StepGraph`` first, which ends the capture, restores the
+        caller's stream and the launch counts and drops the half-captured
+        graph; the key stays out of ``_programs``, so its next step
+        captures it again. Bounded: ``recovery_max_retries`` CONSECUTIVE failures (a
+        clean step resets the streak) end in ``dead`` with
+        EngineDeadError; so does a fatal error while the device is
+        drained or reset, since a CUDA error that outlives the drain is
+        sticky to the process and no reset can clear it."""
+        t0 = time.time()
+        self._recovery_streak += 1
+        in_flight = len(self._scheduler.running)
+        if self._recovery_streak > self.config.recovery_max_retries:
+            self._health.to("dead")
+            raise EngineDeadError(
+                "inference engine dead: {} consecutive step failures "
+                "exceeded recovery_max_retries={} ({} requests were in "
+                "flight); last error: {}: {}".format(
+                    self._recovery_streak,
+                    self.config.recovery_max_retries, in_flight,
+                    type(exc).__name__, exc)) from exc
+        if self._health.state == "healthy":
+            self._health.to("degraded")
+        logger.warning(
+            "inference.recover: fatal step error (%s: %s) — resetting "
+            "device state in place, replaying %d in-flight request(s) "
+            "(attempt %d/%d)", type(exc).__name__, exc, in_flight,
+            self._recovery_streak, self.config.recovery_max_retries)
+        if self.config.recovery_backoff_s:
+            time.sleep(self.config.recovery_backoff_s *
+                       self._recovery_streak)
+        try:
+            self._reset_device_state()
+        except self._fatal as err:
+            self._health.to("dead")
+            raise EngineDeadError(
+                "inference engine dead: the device could not be reset "
+                "after {}: {} ({}: {}); a CUDA error that outlives the "
+                "stream's drain is sticky to the process — fail over to "
+                "another replica".format(type(exc).__name__, exc,
+                                         type(err).__name__, err)) from err
+        replayed = self._scheduler.requeue_running()
+        self._replay_requests(replayed)
+        self.counters["recoveries"] += 1
+        self.counters["requests_replayed"] += len(replayed)
+        t1 = time.time()
+        self._recovery_seconds.observe(t1 - t0)
+        self.recovery_log.append({
+            "t_start": t0, "t_end": t1,
+            "duration_s": round(t1 - t0, 6),
+            "error": "{}: {}".format(type(exc).__name__, exc),
+            "replayed": len(replayed),
+            "attempt": self._recovery_streak,
+        })
+        self.tracer.span("engine/recovery", t0, t1,
+                         replayed=len(replayed),
+                         error=type(exc).__name__)
+        return []
 
     @property
     def compile_count(self):
@@ -772,6 +1106,10 @@ class InferenceEngine(object):
             inp["seed"][0], inp["spec"][0] = pf.seed, pf.spec
         if self._pager is not None:
             self._ensure_paged_mappings(pf, n, p_done)
+        if self._injector is not None:
+            # A "raise" fault fires HERE, in place of the program: device
+            # state is presumed lost, as after a CUDA error out of it.
+            self._injector.maybe_raise()
         # Host facts for the sampler: only slots that can be active in the
         # decode lane (decoding, or finishing their prompt now) matter.
         live = [r for r in sched.running.values()
@@ -794,8 +1132,13 @@ class InferenceEngine(object):
         decode_timer.stop()
         clear_step_inputs(self._inputs)
         self._last_snap = snap
-        self.counters["chunks"] += 1
         toks, valid, active = snap["toks"], snap["valid"], snap["active"]
+        if self._injector is not None:
+            toks = self._injector.corrupt_harvest(toks, valid)
+        # Numerics gate: after the device sync, before any token reaches
+        # a request (a garbage harvest is discarded whole).
+        self._check_harvest(toks, valid)
+        self.counters["chunks"] += 1
         per_step = valid.sum(axis=2)
         occupied = per_step > 0
         n_occ = int(occupied.sum())
@@ -820,7 +1163,10 @@ class InferenceEngine(object):
                 continue
             # A boolean mask flattens row-major: (step, lane) order is
             # emission order.
-            emitted = toks[:, slot][valid[:, slot]].tolist()
+            emitted = self._take(req, toks[:, slot][valid[:, slot]].tolist())
+            if emitted is None:
+                self._resync_failed(req)
+                continue
             req.tokens.extend(emitted)
             self.counters["tokens_out"] += len(emitted)
             if emitted:
@@ -835,10 +1181,19 @@ class InferenceEngine(object):
 
     def _harvest_first(self, req, first, done):
         """Record a request's first token; TTFT is stamped here, after the
-        step's device sync."""
+        step's device sync, once: a request replayed after a fallback
+        (``_resync_failed``) takes its "first" token m + 1 here, appended
+        like any emission, while TTFT stays the original first token's."""
+        new = self._take(req, [first])
+        if new is None:
+            self._resync_failed(req)
+            return
+        if not new:
+            return  # a replay re-derived the first token it delivered
         req.tokens.append(first)
-        req.first_token_time = time.time()
-        self._ttft_hist.observe(req.first_token_time - req.submit_time)
+        if req.first_token_time is None:
+            req.first_token_time = time.time()
+            self._ttft_hist.observe(req.first_token_time - req.submit_time)
         self.counters["tokens_out"] += 1
         if req.max_new_tokens <= 1 or \
                 (req.eos_token_id >= 0 and first == req.eos_token_id):
@@ -860,16 +1215,62 @@ class InferenceEngine(object):
                                    / (len(req.tokens) - 1))
         done.append(req)
 
-    def run(self, max_steps=None):
-        """Step until queue and slots drain (or ``max_steps``); returns the
-        completed requests in completion order."""
+    def run(self, max_steps=None, timeout_s=None):
+        """Step until queue and slots drain; returns the completed
+        requests in completion order. ``max_steps`` bounds iterations,
+        ``timeout_s`` wall clock (checked after each step: a stalled
+        device makes "N more steps" a meaningless promise). Either limit
+        logs the in-flight count and returns what completed; it never
+        raises."""
         out, steps = [], 0
+        t0 = time.time()
         while not self._scheduler.idle:
             out.extend(self.step())
             steps += 1
             if max_steps is not None and steps >= max_steps:
+                logger.warning("inference.run: stopping after %d steps with "
+                               "%d requests still in flight", steps,
+                               len(self._scheduler.running) +
+                               len(self._scheduler.queue))
+                break
+            if timeout_s is not None and time.time() - t0 >= timeout_s:
+                logger.warning("inference.run: timeout after %.3fs "
+                               "(%d steps) with %d requests still in "
+                               "flight", time.time() - t0, steps,
+                               len(self._scheduler.running) +
+                               len(self._scheduler.queue))
                 break
         return out
+
+    def drain(self, max_steps=None, timeout_s=None):
+        """Graceful drain: CLOSE admissions (submit() raises
+        EngineDraining; health -> ``draining``), finish every accepted
+        request, queued ones included, and settle to ``idle``. Returns
+        the requests completed during the drain. Admissions stay closed
+        until ``undrain()``. The bounds pass through to run()."""
+        if self._health.state == "dead":
+            raise EngineDeadError("drain() on a dead engine")
+        self._health.to("draining")
+        return self.run(max_steps=max_steps, timeout_s=timeout_s)
+
+    def undrain(self):
+        """Reopen admissions after a drain (health -> ``healthy``).
+        Raises EngineDeadError if the engine died in the meantime."""
+        self._health.to("healthy")
+
+    def close_admissions(self):
+        """Close admissions WITHOUT stepping (health -> ``draining``;
+        submit() raises EngineDraining); ``undrain()`` reopens."""
+        if self._health.state == "dead":
+            raise EngineDeadError("close_admissions() on a dead engine")
+        self._health.to("draining")
+
+    def close(self):
+        """Release host-side resources: stop any armed watchdog timer.
+        Idempotent; the engine stays readable (metrics, completed
+        requests) but must not step again. Device memory is freed when
+        the engine is dropped."""
+        self._watchdog.stop()
 
     def generate(self, prompts, **kw):
         """Submit every prompt, run to completion, return token lists in
@@ -955,6 +1356,14 @@ class InferenceEngine(object):
             "int8_kv": self._hier is not None and self._hier.spec.int8,
             "kv_pool_bytes": nbytes,
             "kv_hbm_bytes": nbytes,
+            # Resilience: health is a state fact (never windowed); the
+            # counters window like everything else.
+            "health": self._health.state,
+            "faults_injected": c.window("faults_injected"),
+            "recoveries": c.window("recoveries"),
+            "requests_replayed": c.window("requests_replayed"),
+            "deadline_sheds": c.window("deadline_sheds"),
+            "step_stalls": c.window("step_stalls"),
         }
         if self._hier is not None:
             m.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),

@@ -50,7 +50,7 @@ to a block quantum: the CUDA kernels take any length. A paged row's
 logical plane is that length rounded up to whole pages.
 
 STATIC ADDRESSES. Every tensor of the pool is allocated once and updated
-in place, never rebound: the forward writes k/v (and scales) into the
+in place, never rebound (crash recovery too: ``reset_pool``): the forward writes k/v (and scales) into the
 planes, and the step program writes the per-slot fields with ``copy_`` /
 ``index_copy_``. A step program captured as a CUDA graph on the card
 replays against these addresses. The views below alias the pool's own
@@ -63,7 +63,8 @@ import torch
 
 from deepspeed_tpu_torch.device import resolve_device
 
-# Per-slot fields: (name, dtype, initial value).
+# Per-slot fields: (name, dtype, initial value). Every other tensor of the
+# pool (planes, scales, block table, token ring) starts at zero.
 _SLOT_FIELDS = (
     ("pos", torch.int32, 0),
     ("last_tok", torch.int64, 0),
@@ -75,6 +76,8 @@ _SLOT_FIELDS = (
     ("seed", torch.int64, 0),
     ("spec", torch.bool, False),
 )
+
+_FILLS = {name: fill for name, _, fill in _SLOT_FIELDS}
 
 # Fields the host reads at every harvest.
 HARVEST_FIELDS = ("pos", "active", "last_tok")
@@ -120,25 +123,45 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
         n_lp = paged_plane_len(max_len, slack, page_len) // page_len
         usable = num_pages if num_pages is not None else num_slots * n_lp
         shape = (gcfg.n_layer, usable + 1, gcfg.n_head, page_len, hd)
-        pool["block_tbl"] = torch.zeros((num_slots, n_lp), dtype=torch.int32,
+        pool["block_tbl"] = torch.empty((num_slots, n_lp), dtype=torch.int32,
                                         device=device)
     else:
         shape = (gcfg.n_layer, num_slots, gcfg.n_head,
                  plane_len_for(max_len, slack), hd)
-    pool["k"] = torch.zeros(shape, dtype=kv_dtype, device=device)
-    pool["v"] = torch.zeros(shape, dtype=kv_dtype, device=device)
+    pool["k"] = torch.empty(shape, dtype=kv_dtype, device=device)
+    pool["v"] = torch.empty(shape, dtype=kv_dtype, device=device)
     if int8:
-        pool["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+        pool["k_scale"] = torch.empty(shape[:-1], dtype=torch.float32,
                                       device=device)
-        pool["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+        pool["v_scale"] = torch.empty(shape[:-1], dtype=torch.float32,
                                       device=device)
     if ring:
-        pool["toks"] = torch.zeros(
+        pool["toks"] = torch.empty(
             (num_slots, n_lp * page_len if page_len else shape[3]),
             dtype=torch.int64, device=device)
-    for name, dt, fill in _SLOT_FIELDS:
-        pool[name] = torch.full((num_slots,), fill, dtype=dt, device=device)
+    for name, dt, _ in _SLOT_FIELDS:
+        pool[name] = torch.empty((num_slots,), dtype=dt, device=device)
+    reset_pool(pool, hier)
     return pool
+
+
+def reset_pool(pool, hier=None):
+    """Refill every tensor of ``pool`` IN PLACE with the values
+    ``init_pool`` gives it: planes, scale planes, block table and token
+    ring zero, the per-slot fields their ``_SLOT_FIELDS`` fills. Nothing
+    is rebound, so every address a captured step program holds stays
+    valid (the engine's crash recovery; ``init_pool`` allocates, then
+    calls this, so the two cannot drift). On the card each fill is a
+    kernel on the current stream. ``hier``: the ``HierarchySpec`` the
+    pool was built under, checked against its layout (int8 planes carry
+    scale planes)."""
+    if hier is not None and bool(hier.int8) != ("k_scale" in pool):
+        raise ValueError("reset_pool: the pool {} scale planes but the "
+                         "hierarchy spec has int8={}".format(
+                             "has" if "k_scale" in pool else "lacks",
+                             hier.int8))
+    for name, t in pool.items():
+        t.fill_(_FILLS.get(name, 0))
 
 
 class PackedBuffer:

@@ -6,10 +6,18 @@ queue, admission of queued requests into free slots at step boundaries, a
 ``prefilling`` phase that walks a cursor through the prompt
 ``prefill_chunk`` tokens at a time, and completion bookkeeping.
 
-Phases: ``queued -> prefilling -> decoding -> done``. Host offload
-(``swapped``), disaggregated handoff and adoption, deadlines, cancellation
-and recovery requeue come with later slices; the entry points that would
-start them raise NotImplementedError.
+Phases: ``queued -> prefilling -> decoding -> done``, or ``cancelled``
+from any live phase, or ``expired`` from ``queued`` when a request's
+deadline passes before admission. Host offload (``swapped``) and
+disaggregated handoff and adoption come with later slices; the entry
+points that would start them raise NotImplementedError.
+
+Recovery (``inference/engine.py``, ``InferenceEngine._recover``) adds one
+move: after a fatal step error the engine calls ``requeue_running()``:
+every in-flight request returns to the FRONT of the queue in rid
+(= admission) order, to be re-admitted and replayed against the reset
+pool. The request records here are the durable truth that makes the
+device state disposable.
 
 Timestamps are stamped here (submit / admit / finish; the engine stamps
 the first token at its harvest). The optional ``tracer``
@@ -34,15 +42,28 @@ RETRY_AFTER_CAP_S = 60.0
 
 
 class QueueFull(RuntimeError):
-    """Raised by ``submit`` when the queue holds ``max_queue`` requests.
-    Carries ``queue_depth`` and a ``retry_after_s`` hint from the recent
+    """Raised by ``submit`` when the queue holds ``max_queue`` requests,
+    and by the engine for admission-pressure sheds (an injected
+    ``admission_block`` fault). STRUCTURED, as the JAX package's: the
+    queue depth at rejection, a ``retry_after_s`` hint from the recent
     completions rate (None before two completions), clamped to
-    [0, RETRY_AFTER_CAP_S]."""
+    [0, RETRY_AFTER_CAP_S]; the ``replica_id`` of the rejecting engine
+    (None outside a fleet); ``swap_eligible`` (False until the KV
+    hierarchy's host offload can free a slot); the rejected submission's
+    ``priority`` and ``tenant`` (None for untagged traffic); and
+    ``reason``, the shed's cause (``queue_full`` here)."""
 
-    def __init__(self, message, queue_depth=None, retry_after_s=None):
+    def __init__(self, message, queue_depth=None, retry_after_s=None,
+                 replica_id=None, swap_eligible=False, priority=None,
+                 tenant=None, reason=None):
         super().__init__(message)
         self.queue_depth = queue_depth
         self.retry_after_s = retry_after_s
+        self.replica_id = replica_id
+        self.swap_eligible = swap_eligible
+        self.priority = priority
+        self.tenant = tenant
+        self.reason = reason
 
 
 class Request(object):
@@ -51,10 +72,11 @@ class Request(object):
     __slots__ = ("rid", "prompt", "max_new_tokens", "temperature", "top_k",
                  "eos_token_id", "seed", "spec", "tokens", "slot", "phase",
                  "cursor", "submit_time", "admit_time", "first_token_time",
-                 "finish_time", "trace")
+                 "finish_time", "deadline", "replays", "resync", "folded",
+                 "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, top_k,
-                 eos_token_id, seed, spec=False, trace=None):
+                 eos_token_id, seed, spec=False, deadline=None, trace=None):
         self.rid = rid
         # Propagated trace identity: the Chrome tid every lifecycle event
         # rides and the hop counter (telemetry/distributed.py). A bare
@@ -80,6 +102,20 @@ class Request(object):
         self.admit_time = None
         self.first_token_time = None
         self.finish_time = None
+        # Absolute wall-clock expiry (None: no deadline), checked
+        # QUEUE-side at each admission round: a request whose deadline
+        # passes before it reaches a slot is shed as ``expired``; once
+        # admitted, it finishes (mid-stream abandonment is cancel()'s).
+        self.deadline = deadline
+        # Times recovery re-admitted this request (replay). The emitted
+        # stream stays one stream across replays: tokens only grow.
+        self.replays = 0
+        # Replay bookkeeping (InferenceEngine._replay_requests): the index
+        # in ``tokens`` of the next delivered token the device re-derives
+        # after a replay (None: in step, new tokens are delivered), and
+        # how many delivered tokens were folded into ``prompt``.
+        self.resync = None
+        self.folded = 0
 
     @property
     def done(self):
@@ -89,9 +125,13 @@ class Request(object):
 class Scheduler(object):
     """FIFO admission over a fixed slot set."""
 
-    def __init__(self, num_slots, max_queue, tracer=None, registry=None):
+    def __init__(self, num_slots, max_queue, tracer=None, registry=None,
+                 replica_id=None):
         self.num_slots = num_slots
         self.max_queue = max_queue
+        # Stamped into every QueueFull this scheduler raises (None for a
+        # standalone engine).
+        self.replica_id = replica_id
         self.queue = collections.deque()
         self.running = {}           # slot -> Request (prefilling | decoding)
         self.completed = {}         # rid -> Request
@@ -101,27 +141,52 @@ class Scheduler(object):
         self.tracer = tracer
         self._queue_wait = (registry.histogram("queue_wait_seconds")
                             if registry is not None else None)
+        self._deadline_sheds = (registry.counter("deadline_sheds")
+                                if registry is not None else None)
         self._finish_times = collections.deque(maxlen=32)
+        # True once any queued request carries a deadline: admissions()
+        # skips the expiry scan entirely on deadline-free workloads.
+        self._has_deadlines = False
 
     def retry_after_s(self):
         """Seconds until one queue position plausibly frees, from the
-        recent completions rate; None below two completions."""
+        recent completions rate; None below two completions. (The JAX
+        scheduler can read a priority class's own completions first; the
+        port has no classes until the front door.)"""
         times = self._finish_times
         if len(times) < 2 or times[-1] <= times[0]:
             return None
         rate = (len(times) - 1) / (times[-1] - times[0])
         return round(min(max(1.0 / rate, 0.0), RETRY_AFTER_CAP_S), 4)
 
+    def queue_full_error(self, reason=None, priority=None, tenant=None,
+                         cause=None, retry_after_s=None):
+        """The structured QueueFull for the CURRENT queue state, also
+        built by the engine for admission-pressure sheds, so every shed
+        carries the same backpressure fields. ``reason`` is the message
+        (default: the queue-full text); ``priority`` and ``tenant`` are
+        stamped on the error; ``cause`` overrides the structured
+        ``reason`` field (default ``queue_full``) and ``retry_after_s``
+        the completions-rate hint."""
+        depth = len(self.queue)
+        hint = retry_after_s if retry_after_s is not None \
+            else self.retry_after_s()
+        msg = reason or ("inference queue is full ({} pending); retry "
+                         "later or raise inference.max_queue".format(depth))
+        if hint is not None:
+            msg += " (retry_after_s hint: {})".format(hint)
+        return QueueFull(msg, queue_depth=depth, retry_after_s=hint,
+                         replica_id=self.replica_id, priority=priority,
+                         tenant=tenant, reason=cause or "queue_full")
+
     def submit(self, prompt, max_new_tokens, temperature, top_k,
-               eos_token_id, seed, spec=False):
+               eos_token_id, seed, spec=False, deadline=None):
         if len(self.queue) >= self.max_queue:
-            hint = self.retry_after_s()
-            raise QueueFull(
-                "inference queue is full ({} pending); retry later or raise "
-                "inference.max_queue".format(len(self.queue)),
-                queue_depth=len(self.queue), retry_after_s=hint)
+            raise self.queue_full_error()
         req = Request(next(self._ids), prompt, max_new_tokens, temperature,
-                      top_k, eos_token_id, seed, spec)
+                      top_k, eos_token_id, seed, spec, deadline=deadline)
+        if deadline is not None:
+            self._has_deadlines = True
         self.queue.append(req)
         if self.tracer is not None:
             self.tracer.instant("request/submitted", tid=req.trace.tid,
@@ -132,15 +197,47 @@ class Scheduler(object):
     def free_slot_ids(self):
         return [s for s in range(self.num_slots) if s not in self.running]
 
+    def expire_deadlines(self, now=None):
+        """QUEUE-side deadline expiry: shed every queued request whose
+        deadline has passed (phase ``expired``, counted in
+        ``deadline_sheds``). Runs at each admission round: a deadline is
+        a promise about WAITING, checked at the only point waiting can
+        end. Returns the expired requests. Free on deadline-free
+        workloads (one bool test)."""
+        if not self._has_deadlines:
+            return []
+        now = time.time() if now is None else now
+        expired = [r for r in self.queue
+                   if r.deadline is not None and now >= r.deadline]
+        for req in expired:
+            self.queue.remove(req)
+            req.phase = "expired"
+            req.finish_time = now
+            self.completed[req.rid] = req
+            if self._deadline_sheds is not None:
+                self._deadline_sheds.inc()
+            if self.tracer is not None:
+                self.tracer.instant("request/expired", tid=req.trace.tid,
+                                    rid=req.rid, hop=req.trace.hop(),
+                                    waited_s=round(now - req.submit_time, 4))
+                self.tracer.span("request", req.submit_time, req.finish_time,
+                                 tid=req.trace.tid, rid=req.rid,
+                                 hop=req.trace.hop(), tokens=0,
+                                 phase="expired")
+        return expired
+
     def admissions(self, gate=None):
         """FIFO: pop (request, slot) pairs for every free slot while the
         queue lasts, moving each request into ``prefilling``. Called only
-        at step boundaries.
+        at step boundaries. Expired-deadline requests are shed first; a
+        replayed request (recovery re-admission) keeps its FIRST
+        admit_time, so queue wait is observed once per request.
 
         ``gate``: optional callable(Request) -> bool consulted on the queue
         HEAD before it pops (the paged engine's page reservation). A refused
         head ENDS the round (strict FIFO: younger requests must not jump a
         head that is waiting for pages to free)."""
+        self.expire_deadlines()
         pairs = []
         for slot in self.free_slot_ids():
             if not self.queue:
@@ -148,12 +245,15 @@ class Scheduler(object):
             if gate is not None and not gate(self.queue[0]):
                 break
             req = self.queue.popleft()
+            first_admission = req.admit_time is None
             req.slot = slot
             req.phase = "prefilling"
             req.cursor = 0
-            req.admit_time = time.time()
             self.running[slot] = req
             pairs.append((req, slot))
+            if not first_admission:
+                continue  # replay re-admission: stats already stamped
+            req.admit_time = time.time()
             if self._queue_wait is not None:
                 self._queue_wait.observe(req.admit_time - req.submit_time)
             if self.tracer is not None:
@@ -204,6 +304,63 @@ class Scheduler(object):
                              hop=req.trace.hop(),
                              tokens=len(req.tokens), phase="done")
         return req
+
+    def cancel(self, req):
+        """Evict ``req`` wherever it lives: queued, mid-prefill or
+        decoding. Its slot (if any) frees for the next admission round;
+        tokens emitted so far stay on the request. Returns True when the
+        request was live (False: already finished). The caller owns any
+        device-side deactivation (the engine clears a decoding slot's
+        ``active`` flag; a prefilling slot is frozen in the decode lane
+        and its frontier is overwritten at re-admission)."""
+        if req.done:
+            return False
+        if req.phase == "queued":
+            self.queue.remove(req)
+        else:
+            self.running.pop(req.slot)
+            req.slot = None
+        req.phase = "cancelled"
+        req.finish_time = time.time()
+        self.completed[req.rid] = req
+        if self.tracer is not None:
+            self.tracer.instant("request/cancelled", tid=req.trace.tid,
+                                rid=req.rid, hop=req.trace.hop(),
+                                tokens=len(req.tokens))
+            self.tracer.span("request", req.submit_time, req.finish_time,
+                             tid=req.trace.tid, rid=req.rid,
+                             hop=req.trace.hop(),
+                             tokens=len(req.tokens), phase="cancelled")
+        return True
+
+    def requeue(self, req):
+        """Pull one in-flight request out of its slot and push it onto the
+        FRONT of the queue with ``cursor`` 0 and one more ``replays``
+        (the ``request/replayed`` instant). The slot frees for the next
+        admission round; the caller owns its device side."""
+        self.running.pop(req.slot)
+        req.slot = None
+        req.phase = "queued"
+        req.cursor = 0
+        req.replays += 1
+        self.queue.appendleft(req)
+        if self.tracer is not None:
+            self.tracer.instant("request/replayed", tid=req.trace.tid,
+                                rid=req.rid, hop=req.trace.hop(),
+                                replay=req.replays, tokens=len(req.tokens))
+
+    def requeue_running(self):
+        """Crash-only recovery: pull EVERY in-flight request out of its
+        slot and push all of them back onto the FRONT of the queue in rid
+        (= admission) order, ahead of never-admitted work (``requeue``).
+        The engine then marks each for replay
+        (``InferenceEngine._replay_requests``): every draw is keyed on
+        (seed, absolute position), so the replayed stream continues the
+        original one. Returns the requeued requests in rid order."""
+        reqs = sorted(self.running.values(), key=lambda r: r.rid)
+        for req in reversed(reqs):
+            self.requeue(req)
+        return reqs
 
     def swap_out(self, req):
         raise NotImplementedError("host offload comes with the KV hierarchy "

@@ -1,10 +1,9 @@
 """Open-loop sustained-load driver.
 
 Counterpart of ``deepspeed_tpu/loadgen/runner.py``, driving the port's
-``InferenceEngine`` through ``submit`` / ``step`` / ``idle``. Chaos mode
-needs the resilience slice (fault injection and recovery), which the
-port does not have yet: ``chaos_plan`` raises NotImplementedError, and
-so does ``alerts`` (the SLO alert manager comes with a later slice).
+``InferenceEngine`` through ``submit`` / ``step`` / ``idle``. ``alerts``
+raises NotImplementedError (the SLO alert manager comes with a later
+slice), and so does ``chaos_replica`` (replica chaos needs the fleet).
 
 OPEN loop means arrivals follow the workload's schedule, not the
 engine's pace: ``run()`` calls ``engine.submit()`` the moment each
@@ -23,9 +22,16 @@ into per-window curves; one sample record per request (submitted or
 shed) carries the per-request view. ``loadgen/report.py`` folds both
 into the SLO report.
 
-``requests_lost`` (accepted requests that reached no terminal phase by
-the run's end) is reported on every run: the report's ``chaos`` section
-carries it, with zero recoveries on the port.
+CHAOS mode (``chaos_plan``, an ``inference.faults.FaultPlan``): the runner
+arms the plan on the engine (``engine.inject_faults``) once
+``chaos_after_s`` seconds of the run have passed; the plan's steps count
+from there. The engine must be built with ``inference.fault_injection``.
+The run then records the engine's recoveries in run-relative seconds
+(``recovery``), the faults that fired (``faults_injected``) and
+``requests_lost``: accepted requests that reached no terminal phase by
+the run's end, which the recovery invariant demands be 0 (reported on
+every run). Chaos runs use the real clock: the engine stamps its
+recoveries with ``time.time()``.
 """
 
 import dataclasses
@@ -165,17 +171,20 @@ class SustainedRunner(object):
         self._clock = clock
         self._sleep = sleep
         self.max_steps = max_steps
-        # The JAX runner's chaos and alert arguments stay in the
-        # signature; both features wait for their slices.
-        if chaos_plan is not None:
+        # Chaos mode (module docstring): arm ``chaos_plan`` once
+        # ``chaos_after_s`` run seconds pass. The JAX runner's
+        # ``chaos_replica`` (one replica of a fleet) and ``alerts`` stay
+        # in the signature; both wait for their slices.
+        if chaos_replica is not None:
             raise NotImplementedError(
-                "SustainedRunner(chaos_plan=...): chaos mode needs fault "
-                "injection and recovery, which come with the resilience "
-                "slice (ROADMAP Queue 1 item 3)")
+                "SustainedRunner(chaos_replica=...): replica chaos needs "
+                "the fleet slice (ROADMAP Queue 1 item 6)")
         if alerts is not None:
             raise NotImplementedError(
                 "SustainedRunner(alerts=...): SLO alerting comes with the "
                 "alerts slice (ROADMAP Queue 1 item 7)")
+        self.chaos_plan = chaos_plan
+        self.chaos_after_s = chaos_after_s
         self.collector = collector or TimeseriesCollector(
             engine.telemetry, window_seconds=window_seconds,
             capacity=max_windows, clock=clock)
@@ -187,6 +196,7 @@ class SustainedRunner(object):
         t0 = self._clock()
         self.collector.start(t0)
         i, steps, shed = 0, 0, 0
+        injector = None
         recoveries_at_start = len(getattr(self.engine, "recovery_log", []))
         counters = getattr(self.engine, "counters", None)
 
@@ -209,6 +219,9 @@ class SustainedRunner(object):
             "swap_outs", "swap_ins")}
         while i < len(pending) or not self.engine.idle:
             now = self._clock() - t0
+            if (self.chaos_plan is not None and injector is None
+                    and now >= self.chaos_after_s):
+                injector = self.engine.inject_faults(self.chaos_plan)
             # Submit everything whose arrival time has passed — open
             # loop: the schedule, not the backlog, decides.
             while i < len(pending) and pending[i].arrival_s <= now:

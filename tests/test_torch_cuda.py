@@ -1196,8 +1196,15 @@ def test_training_timer_covers_queued_device_work(cuda):
 
 def test_a_failed_capture_raises(cuda):
     """No fallback: a step program that cannot be captured (here, a host
-    sync inside it, legal eagerly) fails the step; it never runs on as an
-    eager step. Last in the file: the failed capture is left behind."""
+    sync inside it, legal eagerly) never runs on as an eager step. The
+    capture's CUDA error is a fatal step error where torch raises it as
+    ``torch.AcceleratorError``: the step recovers, and a later step meets
+    the key again and fails again, until the retries are spent or the
+    device cannot be reset and the engine is dead (EngineDeadError, a
+    RuntimeError); where torch raises a bare RuntimeError, the first step
+    raises it. Either way no graph is kept and the caller's stream is
+    current again. Last in the
+    file: the failed capture is left behind."""
     class Syncing(InferenceEngine):
         def _program(self, *key):
             super()._program(*key)
@@ -1205,6 +1212,11 @@ def test_a_failed_capture_raises(cuda):
 
     eng = Syncing(_small_gpt2(cuda), config=SMALL_SERVE)
     eng.submit(np.arange(5), max_new_tokens=8)
+    stream = torch.cuda.current_stream()
     with pytest.raises(RuntimeError):
-        eng.step()
+        eng.run(max_steps=10)
     assert eng.compile_count == 0
+    assert torch.cuda.current_stream() == stream
+    # recovery_max_retries is 2 by default; a capture error the drain
+    # cannot clear ends the engine before the retries are spent.
+    assert len(eng.recovery_log) <= 2

@@ -155,8 +155,8 @@ def test_top_k_one_sampling_is_greedy():
     {"int8_kv": True, "host_offload": True}, {"prefix_cache": True},
     {"host_offload": True}, {"spec_decode": True, "chunked_prefill": False},
     {"role": "prefill"},
-    {"chunked_prefill": False}, {"fault_injection": True},
-    {"use_flash_decode": False}, {"step_budget_s": 0.5},
+    {"chunked_prefill": False}, {"replica_id": 1},
+    {"use_flash_decode": False}, {"sparse_decode": False},
     {"hbm_budget_bytes": 1 << 30},
     {"telemetry": True, "trace_ring": 16, "xray_sample_every": 16},
     {"prefill_buckets": [16, 64]}, {"spec_decode": True,

@@ -11,8 +11,9 @@
   under an injected clock: every accepted request completes, sheds are
   sample rows, the windows carry the engine's registry, and the report
   over the run equals the JAX ``build_report`` of the same result.
-  ``chaos_plan`` and ``alerts`` raise: chaos needs the resilience
-  slice, alerting the alerts slice.
+  ``alerts`` and ``chaos_replica`` raise: alerting needs the alerts
+  slice, replica chaos the fleet. Chaos mode on one engine is held in
+  ``tests/test_torch_resilience.py``.
 
 No test here asserts a wall-clock bound: the clock is injected.
 """
@@ -274,13 +275,17 @@ def test_runner_records_queuefull_as_shed_samples_and_pages():
     assert rep["paged"]["pages_peak"] == res.kv_pages_peak
 
 
-def test_runner_refuses_chaos_mode_and_alerts():
+def test_runner_refuses_alerts():
     engine = port_engine()
-    with pytest.raises(NotImplementedError, match="resilience"):
-        tl.SustainedRunner(engine, PRESETS["poisson"](tl),
-                           chaos_plan=object())
     with pytest.raises(NotImplementedError, match="alerts"):
         tl.SustainedRunner(engine, PRESETS["poisson"](tl), alerts=object())
+
+
+def test_runner_refuses_replica_chaos():
+    engine = port_engine(fault_injection=True)
+    with pytest.raises(NotImplementedError, match="fleet"):
+        tl.SustainedRunner(engine, PRESETS["poisson"](tl),
+                           chaos_plan=object(), chaos_replica=0)
 
 
 def test_run_result_fields_equal_jax():

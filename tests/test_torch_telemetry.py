@@ -500,15 +500,19 @@ WINDOW_KEYS = ("tokens_out", "requests_completed", "prefills",
                "kv_pages_in_use", "kv_pages_free", "kv_page_fragmentation",
                "spec_k", "spec_ngram", "accepted_per_step_mean",
                "accepted_per_step_p50", "accepted_per_step_p99",
-               "draft_accept_rate", "int8_kv")
+               "draft_accept_rate", "int8_kv", "health", "faults_injected",
+               "recoveries", "requests_replayed", "deadline_sheds",
+               "step_stalls")
+# The resilience families: the port must export each, of the JAX
+# engine's kind.
+RESILIENCE = {"faults_injected", "recoveries", "requests_replayed",
+              "deadline_sheds", "step_stalls", "health_state",
+              "recovery_seconds"}
 # Prometheus families only the JAX engine exports, by the slice that
-# brings them (ROADMAP Queue 1): resilience (item 3), the prefix and
-# offload tiers of the KV hierarchy and its gauges (item 4), the fleet,
-# disaggregated handoff and the front door (item 6).
+# brings them (ROADMAP Queue 1): the prefix and offload tiers of the KV
+# hierarchy and its gauges (item 4), the fleet, disaggregated handoff and
+# the front door (item 6).
 JAX_ONLY = {
-    "resilience": {"faults_injected", "recoveries", "requests_replayed",
-                   "deadline_sheds", "step_stalls", "health_state",
-                   "recovery_seconds"},
     "kv_hierarchy": {"prefix_hits", "prefix_misses", "prefix_inserts",
                      "prefix_evictions", "swap_outs", "swap_ins"},
     "kv_hierarchy_gauges": {"prefix_hit_rate", "kv_bytes_aliased",
@@ -572,6 +576,7 @@ def test_engine_streams_counters_spans_and_windows_equal_jax(layout):
     assert set(tk) <= set(jk)
     assert all(tk[n] == jk[n] for n in tk)
     assert set(jk) - set(tk) <= set().union(*JAX_ONLY.values())
+    assert RESILIENCE <= set(tk)
 
 
 def test_engine_trace_file_validates_and_rides_request_tracks(tmp_path):
@@ -641,15 +646,25 @@ def test_new_key_after_mark_warm_counts_one_recompile():
         "(False, True, False)")
 
 
-@pytest.mark.parametrize("extra", [{}, {"paged_kv": True, "kv_page_len": 8}])
+@pytest.mark.parametrize("extra", [
+    {}, {"paged_kv": True, "kv_page_len": 8},
+    {"fault_injection": True, "step_budget_s": 30.0}])
 def test_dropped_engine_is_freed_without_the_cycle_collector(extra):
-    """No gauge or detector refers back to the engine: dropping the last
-    reference frees it (and on the card its pool and graphs) at once."""
+    """No gauge, detector or watchdog refers back to the engine: dropping
+    the last reference frees it (and on the card its pool and graphs) at
+    once."""
     import gc
     import weakref
 
     eng = port_engine(**extra)
+    if extra.get("fault_injection"):
+        # A recovery on the way: the injector and the recovery path
+        # must not leave a reference back either.
+        from deepspeed_tpu_torch.inference import Fault, FaultPlan
+        eng.inject_faults(FaultPlan(faults=(Fault("raise", step=1),)))
     eng.generate(prompts([5]), max_new_tokens=6)
+    if extra.get("fault_injection"):
+        assert eng.metrics()["recoveries"] == 1
     eng.prometheus()
     ref = weakref.ref(eng)
     gc.disable()
