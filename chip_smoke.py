@@ -126,6 +126,33 @@ of which exits non-zero on failure:
    warm-up and exact K3/K5 launch counts; the ``chaos`` line carries
    the report's chaos section (recovery time, SLO attainment during and
    outside recovery), TTFT p50/p99 and tokens/s;
+4e. the KV hierarchy (phase_hierarchy), GPT-2 medium bf16 on SERVE with
+   the prefix cache (8 rows of 64, matches of at least 8) and host
+   offload (8 swap slots): 48 requests over 4 shared 48-token system
+   prompts with tails of 16-208 tokens, 96 new tokens, every sixth
+   sampled (more requests than slots, so sessions swap): (i) dense bf16
+   with the tiers on and off: every stream held to the other by phase 5's
+   gap rule (sampled ones over the Gumbel-max scores; the count of
+   bit-equal streams printed), hits, inserts, swap-outs and swap-ins each
+   at least 1, fewer prefill lanes, exact K3/K5 launches, every capture a
+   key met for the first time, no pool tensor rebound; (iii) once every
+   slot is busy, a decoding slot captured, scribbled over and restored on
+   the live pool: the whole pool byte for byte; (iv) on the same engine, a
+   raise once a session is swapped out: nothing lost, the streams held to
+   the fault-free run's, compile_count unchanged, no recompile; (ii) the
+   JAX bench default (paged int8 at pages of 128, speculation; K6, its
+   round trip too) against dense int8 with the same tiers (K4, prefill
+   lane K6): token for token; (v) graph against eager over
+   HIER_GRAPH_STEPS steps of HIER_GRAPH_REQUESTS requests with hits,
+   swap-outs and swap-ins, dense and
+   paged int8 with speculation, bit for bit; (vi) swap-out and swap-in
+   ms p50/p99, bytes and GB/s (CUDA events around the copies), TTFT and
+   admit-to-first-token p50 of hits and misses; one ``hierarchy`` line;
+4f. the sustained run with the JAX ``bench.py --sustained`` TPU setting
+   in full (phase_sustained_hier: dense int8 with the prefix cache and
+   host offload; K4, prefill lane K6) under phase_sustained's arrivals:
+   hit rate, swaps, TTFT p50/p99, goodput, attainment, effective slots;
+   fails on a lost request, a recompile or launches off the run's steps;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
@@ -216,7 +243,8 @@ of which exits non-zero on failure:
 14. sparse BERT consistency: fp32, full width, 2 layers, B=2, T=512, block
    64, dropout 0.1: one step on the card (kernels) against the port on
    the CPU (plain versions);
-15. the kernels line, then the result line.
+15. the kernels line (each decode kernel's entry also carries its
+   launches in the hierarchy phase's runs), then the result line.
 """
 
 import collections
@@ -244,7 +272,8 @@ from deepspeed_tpu_torch.inference import (  # noqa: E402
     EngineDeadError, EngineDraining, Fault, FaultPlan, InferenceEngine,
     InjectedFault)
 from deepspeed_tpu_torch.inference.kv_hierarchy import (  # noqa: E402
-    HierarchySpec)
+    HierarchySpec, capture_slot, capture_slot_paged, restore_slot,
+    restore_slot_paged)
 from deepspeed_tpu_torch.inference.kv_pool import (  # noqa: E402
     init_pool, paged_plane_len, plane_len_for, slot_cache_view)
 from deepspeed_tpu_torch.loadgen import (  # noqa: E402
@@ -543,7 +572,7 @@ SCRAPE_EVERY_S, SCRAPE_REQUESTS = 0.005, 4
 TELEMETRY_HOST_SHARE = 0.05
 # The sustained-load run (phase_sustained): the JAX package's TPU setting
 # of ``bench.py --sustained`` (bench.py:1346-1360) less the prefix and
-# offload tiers, which the port does not have yet: a dense int8 pool
+# offload tiers (phase_sustained_hier runs it in full): a dense int8 pool
 # (K4 in the decode lane, K6 in the prefill lane). The sweep's rates are
 # cut to what this engine sustains (PERF.md).
 SUSTAINED_SERVE = {"max_slots": 16, "max_len": 1024, "chunk_size": 16,
@@ -557,6 +586,23 @@ SUSTAINED_LOAD = dict(arrival="poisson", rate=12.0, n_requests=96,
 SUSTAINED_WINDOW_S = 2.0
 SUSTAINED_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
 SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 16
+# The KV hierarchy (phase_hierarchy): SERVE plus the JAX package's
+# defaults of the prefix tier (8 rows of 64 positions, matches of at least
+# 8) and host offload (8 swapped sessions); HIER_REQUESTS requests over
+# HIER_PROMPTS shared HIER_SYSTEM-token system prompts with random tails of
+# HIER_TAILS tokens, NEW_TOKENS each, every sixth sampled: more requests
+# than slots, so sessions swap. (v) serves the first HIER_GRAPH_REQUESTS
+# of the stream for HIER_GRAPH_STEPS steps: one waits for a slot, so one
+# session swaps out and, once a slot frees (step 16 of the dense run),
+# back in.
+HIER = {"prefix_cache": True, "prefix_slots": 8, "prefix_len": 64,
+        "min_prefix_len": 8, "host_offload": True, "swap_slots": 8}
+HIER_REQUESTS, HIER_PROMPTS, HIER_SYSTEM, HIER_TAILS = 48, 4, 48, (16, 208)
+HIER_GRAPH_REQUESTS, HIER_GRAPH_STEPS = 17, 24
+# The sustained run with the whole JAX TPU setting (bench.py:1350-1352):
+# SUSTAINED_SERVE with the prefix cache and host offload.
+SUSTAINED_HIER_SERVE = dict(SUSTAINED_SERVE, prefix_cache=True,
+                            host_offload=True)
 # Crash-only resilience (phase_resilience): the recovery invariant's mixed
 # stream at full width on SERVE with fault injection on: RESILIENCE_REQUESTS
 # requests of PROMPT_LENS prompt and NEW_TOKENS new tokens, every fourth
@@ -2444,6 +2490,454 @@ def phase_chaos(card, model):
     return line
 
 
+def _hier_prompts(vocab, seed):
+    """The hierarchy stream: HIER_REQUESTS prompts, request i the shared
+    HIER_SYSTEM-token system prompt i % HIER_PROMPTS followed by its own
+    random tail of HIER_TAILS tokens."""
+    rng = np.random.RandomState(seed)
+    systems = [rng.randint(0, vocab, size=HIER_SYSTEM)
+               for _ in range(HIER_PROMPTS)]
+    return [np.concatenate([systems[i % HIER_PROMPTS], rng.randint(
+        0, vocab, size=rng.randint(HIER_TAILS[0], HIER_TAILS[1] + 1))])
+        for i in range(HIER_REQUESTS)]
+
+
+class _HierProbe(object):
+    """Watches one engine's hierarchy: which admissions hit the prefix
+    store, and every swap-out capture and swap-in restore with its bytes
+    and its device time (CUDA events around the copies; a capture waits
+    for its copies, a restore is timed after the step that waited)."""
+
+    def __init__(self, engine):
+        self.hits, self.captures, self.restores = {}, [], []
+        hier, probe = engine._hier, self
+        on_admit = hier.on_admit
+        capture = engine._capture_slot_record
+        restore = engine._restore_slot_record
+
+        def admit(pool, req, slot):
+            on_admit(pool, req, slot)
+            probe.hits[req.rid] = req.cursor > 0
+
+        def timed(kind, fn, *args):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record()
+            out = fn(*args)
+            marks[1].record()
+            rec = out if kind is probe.captures else args[2]
+            kind.append((marks, sum(v.nbytes for v in rec.values()),
+                         out is not False))
+            return out
+
+        hier.on_admit = admit
+        engine._capture_slot_record = lambda slot: timed(
+            probe.captures, capture, slot)
+        engine._restore_slot_record = lambda slot, req, rec: timed(
+            probe.restores, restore, slot, req, rec)
+
+    def transfers(self):
+        """ms p50/p99, bytes per record and GB/s (median bytes over
+        median ms) of the swap-outs and swap-ins that ran."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, rows in (("swap_out", self.captures),
+                           ("swap_in", self.restores)):
+            ms = [a.elapsed_time(b) for (a, b), _, ran in rows if ran]
+            nbytes = [n for _, n, ran in rows if ran]
+            med = _pct(ms, 50)
+            out[name] = {"n": len(ms), "ms_p50": med,
+                         "ms_p99": _pct(ms, 99),
+                         "bytes_p50": _pct(nbytes, 50),
+                         "gb_per_s": (_pct(nbytes, 50) / med / 1e6
+                                      if ms and med else None)}
+        return out
+
+
+def _hier_submit(engine, prompts):
+    """Submit the hierarchy stream, every sixth request sampled (top-k
+    50); returns the requests and each one's sampling (None: greedy)."""
+    reqs, sampling = [], []
+    for i, p in enumerate(prompts):
+        samp = (0.8, 50, i) if i % 6 == 5 else None
+        kw = {} if samp is None else {"temperature": samp[0],
+                                      "top_k": samp[1], "seed": samp[2]}
+        reqs.append(engine.submit(p, max_new_tokens=NEW_TOKENS, **kw))
+        sampling.append(samp)
+    return reqs, sampling
+
+
+def _hier_run(engine, prompts, label, kernel, lane_kernel, fault=False,
+              roundtrip=False):
+    """The hierarchy stream to idle on ``engine``: the decode kernels'
+    launches and the counters over the run, the pool's addresses before
+    and after; ``fault``: a raise armed once a session is swapped out;
+    ``roundtrip``: the byte-exact capture/restore check on the live pool
+    once every slot is busy (``_roundtrip``). Fails on a lost request,
+    launches off n_layer x decode steps (``kernel``) and prefill lanes
+    (``lane_kernel``), a rebound pool tensor or a graph captured for a key
+    met before."""
+    cfg = engine._params.config
+    engine.metrics(reset=True)
+    replays0, programs0 = engine.graph_replays, engine.compile_count
+    addrs = {name: t.data_ptr() for name, t in engine._pool.items()}
+    met, new_keys, run_program = set(), set(), engine._run_program
+
+    def run(key):
+        # The keys this run's steps met, and those met for the first time.
+        met.add(key)
+        if key not in engine._programs:
+            new_keys.add(key)
+        run_program(key)
+
+    engine._run_program = run
+    torch.cuda.synchronize()
+    da.reset_launches()
+    t0 = time.perf_counter()
+    reqs, sampling = _hier_submit(engine, prompts)
+    checked, swapped_at_fault = None, None
+    while not engine.idle:
+        sched = engine._scheduler
+        if fault and sched.swapped and swapped_at_fault is None:
+            swapped_at_fault = len(sched.swapped)
+            engine.inject_faults(FaultPlan(faults=(Fault("raise",
+                                                         step=0),)))
+        if roundtrip and checked is None and \
+                len(sched.running) == SERVE["max_slots"] and \
+                any(r.phase == "decoding" for r in sched.running.values()):
+            checked = _roundtrip(engine, label)
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del engine._run_program
+    launches = dict(da.launches)
+    m = engine.metrics()
+    lost = [r.rid for r in reqs
+            if r.phase != "done" or len(r.tokens) != NEW_TOKENS]
+    if lost:
+        fail("hierarchy {}: requests {} lost or short".format(label, lost))
+    want = dict.fromkeys(launches, 0)
+    want[kernel] += cfg.n_layer * m["decode_steps"]
+    want[lane_kernel] += cfg.n_layer * m["prefill_lanes"]
+    if launches != want:
+        fail("hierarchy {}: decode kernel launches {} != {}".format(
+            label, launches, want))
+    moved = [n for n, t in engine._pool.items() if t.data_ptr() != addrs[n]]
+    replays = engine.graph_replays - replays0
+    new = engine.compile_count - programs0
+    # Every capture is a key met for the first time: no hit, swap, copy
+    # or recovery captured a graph or added a key.
+    if moved or new != len(new_keys) or replays + new != m["chunks"] or \
+            not met <= set(engine._programs) or \
+            m["compile_count"] > MAX_PROGRAMS:
+        fail("hierarchy {}: pool tensors rebound {}, {} steps = {} replays "
+             "+ {} captures, keys met {} (new {}), programs {}".format(
+                 label, moved, m["chunks"], replays, new, sorted(met),
+                 sorted(new_keys), sorted(engine._programs)))
+    if roundtrip and not checked:
+        fail("hierarchy {}: the round trip never ran".format(label))
+    if fault and swapped_at_fault is None:
+        fail("hierarchy {}: no session was ever swapped out".format(label))
+    return reqs, sampling, {"wall_s": wall, "launches": launches,
+                            "metrics": m, "captures": new,
+                            "keys_met": [list(k) for k in sorted(met)],
+                            "roundtrip": checked,
+                            "swapped_at_fault": swapped_at_fault}
+
+
+def _roundtrip(engine, label):
+    """(iii): capture a decoding slot's record, scribble over its
+    footprint (planes or live pages, scales, ring, every per-slot field),
+    restore it in place; the whole pool must equal a copy taken before,
+    byte for byte, and the run goes on. Returns what was checked."""
+    pool = engine._pool
+    req = next(r for r in engine._scheduler.running.values()
+               if r.phase == "decoding")
+    slot, pager = req.slot, engine._pager
+    pages = pager.row_pages(slot) if pager is not None else None
+    before = {name: t.clone() for name, t in pool.items()}
+    record = capture_slot(pool, slot) if pages is None else \
+        capture_slot_paged(pool, slot, pages)
+    at = slot if pages is None else pages
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in pool:
+            pool[name][:, at] = 0
+    for name in ("pos", "last_tok", "active", "remaining", "eos", "temp",
+                 "top_k", "seed", "spec", "toks"):
+        if name in pool:
+            pool[name][slot] = 0
+    if pages is None:
+        restore_slot(pool, slot, record)
+    else:
+        restore_slot_paged(pool, slot, record, pages)
+    torch.cuda.synchronize()
+    differ = [name for name, t in pool.items()
+              if not torch.equal(t, before[name])]
+    if differ:
+        fail("hierarchy {}: capture/restore of slot {} changed {}".format(
+            label, slot, differ))
+    del before
+    torch.cuda.empty_cache()
+    return {"slot": slot, "pages": len(pages) if pages else None,
+            "record_bytes": sum(v.nbytes for v in record.values()),
+            "pool_tensors_equal": len(pool)}
+
+
+def _held_streams(model, prompts, got, ref, sampling, what):
+    """Phase 5's rule over two runs' requests (sampled ones over their
+    Gumbel-max scores); returns how many are bit-equal."""
+    return sum(_held_to(model, p, a.tokens, b.tokens,
+                        "{} request {}".format(what, a.rid), samp)
+               for p, a, b, samp in zip(prompts, got, ref, sampling))
+
+
+def _ttft_hit_miss(reqs, probe):
+    """TTFT p50 of the requests whose admission hit the prefix store and
+    of those that missed, and of the part of it spent in a slot (admit ->
+    first token: the prefill lanes), which queue waits do not blur."""
+    out = {}
+    for hit, name in ((True, "hit"), (False, "miss")):
+        rs = [r for r in reqs if probe.hits.get(r.rid, False) == hit]
+        out[name] = {
+            "n": len(rs),
+            "ttft_p50_ms": _pct([(r.first_token_time - r.submit_time) * 1e3
+                                 for r in rs], 50),
+            "admit_to_first_p50_ms": _pct(
+                [(r.first_token_time - r.admit_time) * 1e3 for r in rs],
+                50)}
+    return out
+
+
+def _hier_facts(m):
+    return {key: m[key] for key in (
+        "prefix_hits", "prefix_misses", "prefix_inserts", "prefix_evictions",
+        "prefix_hit_rate", "swap_outs", "swap_ins", "effective_slots",
+        "kv_bytes_per_slot", "prefix_store_bytes", "steps", "chunks",
+        "prefill_lanes", "decode_steps", "compile_count") if key in m}
+
+
+def phase_hierarchy(card, model):
+    """The KV hierarchy on the serving path at full width (HIER on SERVE,
+    the stream of ``_hier_prompts``): (i) dense bf16 with the tiers on and
+    off, (ii) the JAX bench default (paged int8 + prefix + offload +
+    speculation) against dense int8 with the same tiers, (iii) the
+    capture/restore round trip on both live pools, (iv) a raise while
+    sessions are swapped out, (v) graph against eager after hits and
+    swaps; prints one ``hierarchy`` line with the swap and TTFT timings
+    (vi)."""
+    cfg = model.config
+    prompts = _hier_prompts(cfg.vocab_size, seed=5)
+    line = {"hierarchy": "gpt2-medium bf16", "serve_cfg": dict(SERVE, **HIER),
+            "stream": "{} requests over {} shared {}-token system prompts, "
+                      "tails {}-{}, {} new tokens, every sixth sampled"
+                      .format(HIER_REQUESTS, HIER_PROMPTS, HIER_SYSTEM,
+                              HIER_TAILS[0], HIER_TAILS[1], NEW_TOKENS),
+            "card": card}
+    # (i) dense bf16, the tiers on and off.
+    off = init_inference(model, config=dict(SERVE))
+    ref, sampling, f_off = _hier_run(off, prompts, "dense_off", "decode",
+                                     "paged")
+    del off
+    on = init_inference(model, config=dict(SERVE, fault_injection=True,
+                                           **HIER))
+    probe = _HierProbe(on)
+    got, _, f_on = _hier_run(on, prompts, "dense", "decode", "paged",
+                             roundtrip=True)
+    m_on, m_off = f_on["metrics"], f_off["metrics"]
+    equal = _held_streams(model, prompts, got, ref, sampling, "dense")
+    if min(m_on[k] for k in ("swap_outs", "swap_ins", "prefix_hits",
+                             "prefix_inserts")) < 1 or \
+            m_on["prefill_lanes"] >= m_off["prefill_lanes"]:
+        fail("hierarchy dense: {} against {} prefill lanes off".format(
+            _hier_facts(m_on), m_off["prefill_lanes"]))
+    line["dense"] = dict(
+        _hier_facts(m_on), wall_s=f_on["wall_s"],
+        wall_s_off=f_off["wall_s"], prefill_lanes_off=m_off["prefill_lanes"],
+        steps_off=m_off["chunks"], launches=f_on["launches"],
+        launches_off=f_off["launches"],
+        keys_met=f_on["keys_met"], keys_met_off=f_off["keys_met"],
+        compile_count_off=m_off["compile_count"],
+        streams_bit_equal=equal, streams=len(got),
+        ttft_p50_ms=m_on["ttft_p50_ms"], ttft_p50_ms_off=m_off["ttft_p50_ms"],
+        ttft=_ttft_hit_miss(got, probe), transfers=probe.transfers(),
+        roundtrip=f_on["roundtrip"])
+    # (iv) a raise while sessions are swapped out, on the same engine.
+    on.recompile_detector.mark_warm()
+    programs = on.compile_count
+    again, _, f_fault = _hier_run(on, prompts, "dense_fault", "decode",
+                                  "paged", fault=True)
+    m_f = f_fault["metrics"]
+    if len(on.recovery_log) != 1 or m_f["recoveries"] != 1 or \
+            on.compile_count != programs or m_f["recompiles"] or \
+            on.health != "healthy":
+        fail("hierarchy dense_fault: recoveries {}, compile_count {} "
+             "(before {}), recompiles {}, health {}".format(
+                 on.recovery_log, on.compile_count, programs,
+                 m_f["recompiles"], on.health))
+    line["fault"] = {
+        "replayed": on.recovery_log[0]["replayed"],
+        "recovery_ms": on.recovery_log[0]["duration_s"] * 1e3,
+        "swapped_at_fault": f_fault["swapped_at_fault"],
+        "launches": f_fault["launches"],
+        "streams_bit_equal": _held_streams(model, prompts, again, got,
+                                           sampling, "dense_fault"),
+        "compile_count": on.compile_count, **_hier_facts(m_f)}
+    del on, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (ii) the JAX bench default against dense int8 with the same tiers.
+    streams = {}
+    for label, extra, kernel in (("paged_int8_spec", PAGED, "paged_q8"),
+                                 ("dense_int8_spec", {}, "q8")):
+        engine = init_inference(model, config=dict(
+            SERVE, int8_kv=True, **SPEC, **HIER, **extra))
+        probe = _HierProbe(engine)
+        reqs, _, facts = _hier_run(engine, prompts, label, kernel,
+                                   "paged_q8", roundtrip=extra == PAGED)
+        streams[label] = [r.tokens for r in reqs]
+        stats = engine.kv_page_stats()
+        line[label] = dict(_hier_facts(facts["metrics"]),
+                           wall_s=facts["wall_s"],
+                           launches=facts["launches"],
+                           accepted_per_step_mean=facts["metrics"][
+                               "accepted_per_step_mean"],
+                           keys_met=facts["keys_met"],
+                           transfers=probe.transfers(),
+                           roundtrip=facts["roundtrip"])
+        if stats is not None:
+            line[label]["pages_in_use_after"] = stats["pages_in_use"]
+        del engine, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+    differ = [i for i, (a, b) in enumerate(zip(streams["paged_int8_spec"],
+                                               streams["dense_int8_spec"]))
+              if a != b]
+    line["paged_int8_equals_dense_int8"] = not differ
+    if differ:
+        print("hierarchy " + json.dumps(line))
+        fail("hierarchy: paged int8 differs from dense int8 in requests "
+             "{}".format(differ))
+    # (v) graph against eager after hits and swaps.
+    line["graph_vs_eager"] = [_hier_graph_vs_eager(model, prompts, label,
+                                                   extra)
+                              for label, extra in (
+                                  ("dense", {}),
+                                  ("paged_int8_spec", dict(
+                                      PAGED, int8_kv=True, **SPEC)))]
+    print("hierarchy " + json.dumps(line))
+    return line
+
+
+def _hier_graph_vs_eager(model, prompts, label, extra):
+    """(v): a graph-served hierarchy engine and the same program run
+    eagerly, HIER_GRAPH_STEPS steps of the hierarchy stream's first
+    HIER_GRAPH_REQUESTS requests: every harvest
+    and, after them, the whole pool bit for bit (phase_graph_vs_eager's
+    exception for a speculating paged pool); the run must have hit the
+    prefix store, swapped a session out and back in."""
+    config = dict(SERVE, **HIER, **extra)
+    runs = []
+    for engine in (init_inference(model, config=config),
+                   _EagerEngine(model, config=config)):
+        _hier_submit(engine, prompts[:HIER_GRAPH_REQUESTS])
+        snaps = []
+        for _ in range(HIER_GRAPH_STEPS):
+            engine.step()
+            snaps.append(engine._last_snap)
+        torch.cuda.synchronize()
+        runs.append((engine, snaps))
+    (graphed, got), (eager, want) = runs
+    for step, (a, b) in enumerate(zip(got, want)):
+        for name in a:
+            if not np.array_equal(a[name], b[name]):
+                fail("hierarchy graph_vs_eager {}: step {}: {} differs"
+                     .format(label, step, name))
+    diffs = _pool_diffs(graphed, eager, "spec_decode" in extra,
+                        "hierarchy " + label)
+    m = graphed.metrics()
+    if min(m["prefix_hits"], m["swap_outs"], m["swap_ins"]) < 1 or \
+            m["graph_replays"] != HIER_GRAPH_STEPS - m["compile_count"]:
+        fail("hierarchy graph_vs_eager {}: {} in {} steps, graph_replays "
+             "{}".format(label, _hier_facts(m), HIER_GRAPH_STEPS,
+                         m["graph_replays"]))
+    out = {"layout": label, "steps": HIER_GRAPH_STEPS,
+           "requests": HIER_GRAPH_REQUESTS,
+           "prefix_hits": m["prefix_hits"], "swap_outs": m["swap_outs"],
+           "swap_ins": m["swap_ins"], "compile_count": m["compile_count"],
+           "harvests_identical": True, "pool_differs": diffs}
+    del graphed, eager, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sustained_hier(card, model):
+    """The JAX ``bench.py --sustained`` TPU setting in full
+    (SUSTAINED_HIER_SERVE: the dense int8 pool with the prefix cache and
+    host offload; K4, prefill lane K6) under the sustained run's arrivals
+    (SUSTAINED_LOAD), warmed as phase_sustained's, then marked warm. Fails
+    on a lost request, a recompile, launches off the run's decode steps
+    and lanes, or a non-finite number."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(SUSTAINED_HIER_SERVE))
+    chunk = SUSTAINED_HIER_SERVE["chunk_size"]
+    engine.generate([np.arange(1, 9), np.arange(9, 17)],
+                    max_new_tokens=2 * chunk)
+    engine.recompile_detector.mark_warm()
+    engine.metrics(reset=True)
+    c0, lanes0 = engine.counters["chunks"], engine._lane_steps.value
+    torch.cuda.synchronize()
+    da.reset_launches()
+    spec = WorkloadSpec(**SUSTAINED_LOAD)
+    res = SustainedRunner(engine, spec, window_seconds=SUSTAINED_WINDOW_S,
+                          max_steps=500_000).run()
+    torch.cuda.synchronize()
+    launches = dict(da.launches)
+    want = dict.fromkeys(launches, 0)
+    want["q8"] += cfg.n_layer * (engine.counters["chunks"] - c0) * chunk
+    want["paged_q8"] += cfg.n_layer * int(engine._lane_steps.value - lanes0)
+    m = engine.metrics()
+    agg = build_report(spec, res, SUSTAINED_SLO, platform="gpu",
+                       extra={"card": card})["aggregate"]
+    line = {"sustained_hier": "gpt2-medium bf16, dense int8 pool, prefix "
+                              "cache and host offload",
+            "serve_cfg": SUSTAINED_HIER_SERVE,
+            "workload": {k: SUSTAINED_LOAD[k] for k in (
+                "arrival", "rate", "n_requests", "prompt_mean",
+                "output_mean", "prefix_pool", "prefix_tokens", "seed")},
+            "submitted": agg["submitted"], "completed": agg["completed"],
+            "shed": agg["shed"], "requests_lost": res.requests_lost,
+            "wall_s": agg["wall_s"], "tokens_per_sec": agg["tokens_per_sec"],
+            "goodput_tokens_per_sec": agg["goodput_tokens_per_sec"],
+            "slo": SUSTAINED_SLO.to_json(),
+            "slo_attainment": agg["slo_attainment"],
+            "ttft_p50_ms": agg["ttft_p50_ms"],
+            "ttft_p99_ms": agg["ttft_p99_ms"],
+            "itl_p50_ms": agg["itl_p50_ms"], "itl_p99_ms": agg["itl_p99_ms"],
+            "prefix_hit_rate": (res.prefix_hits / float(
+                res.prefix_hits + res.prefix_misses) if
+                res.prefix_hits + res.prefix_misses else None),
+            "prefix_hits": res.prefix_hits,
+            "prefix_misses": res.prefix_misses,
+            "swap_outs": res.swap_outs, "swap_ins": res.swap_ins,
+            "effective_slots": m["effective_slots"],
+            "compile_count": m["compile_count"],
+            "recompiles": m["recompiles"], "launches": launches,
+            "card": card}
+    print("sustained_hier " + json.dumps(line))
+    if res.requests_lost or res.completed != res.submitted or \
+            m["recompiles"] or not engine.idle:
+        fail("sustained_hier: a request was lost or a key recompiled "
+             "(line above)")
+    if launches != want:
+        fail("sustained_hier: launches {} != {}".format(launches, want))
+    numbers = (agg["tokens_per_sec"], agg["goodput_tokens_per_sec"],
+               agg["ttft_p50_ms"], agg["ttft_p99_ms"], agg["itl_p99_ms"])
+    if not all(v is not None and math.isfinite(v) for v in numbers):
+        fail("sustained_hier: a number is missing or not finite: {}".format(
+            numbers))
+    return line
+
+
 def _breakdown_run(cfg, ids, extra):
     """BREAKDOWN_STEPS forward/backward/step of phase_train's setting from
     seed 0 with ``extra`` in the ds_config: the losses, the registry
@@ -4075,6 +4569,8 @@ def main():
     phase_sustained(card, model)
     phase_resilience(card, model)
     phase_chaos(card, model)
+    hier = phase_hierarchy(card, model)
+    phase_sustained_hier(card, model)
     n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill
@@ -4116,6 +4612,12 @@ def main():
             "ms", "bound_ms", "max_abs_err", "max_err_over_limit")}}]
     kernels += _decode_variant_rows(variant_rows, serve_launches,
                                     verify_launches)
+    for row, kind in zip(kernels, ("decode", "q8", "paged", "paged_q8")):
+        # The hierarchy phase's runs of each decode kernel (its decode and
+        # prefill lanes), beside the main path's count.
+        row["hierarchy_launches"] = {
+            label: hier[label]["launches"][kind] for label in (
+                "dense", "paged_int8_spec", "dense_int8_spec")}
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
                                   split_rows)
     kernels += _row_kernel_rows(row_rows, bert_launches)

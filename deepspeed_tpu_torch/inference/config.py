@@ -2,8 +2,11 @@
 
 Counterpart of ``deepspeed_tpu/inference/config.py``. The dataclass holds
 the settings the port reads, with the JAX package's defaults: chunked
-prefill into a dense or paged slotted pool of fp or int8 planes,
-speculative decoding (``spec_decode``, ``spec_k``, ``spec_ngram``; see
+prefill into a dense or paged slotted pool of fp or int8 planes, the
+rest of the KV hierarchy (``prefix_cache``, ``prefix_slots``,
+``prefix_len``, ``min_prefix_len``: the shared-prefix cache;
+``host_offload``, ``swap_slots``: host offload; ``hbm_budget_bytes``: the
+budget of the ``effective_slots`` gauge), speculative decoding (``spec_decode``, ``spec_k``, ``spec_ngram``; see
 ``resolved_spec_decode``), telemetry (``telemetry``: trace spans and
 profiler scopes on top of the always-on metrics registry; ``trace_ring``:
 the span ring's capacity), and crash-only resilience
@@ -30,8 +33,6 @@ import os
 from typing import Optional
 
 _FLEET = "the reliability and fleet slice (ROADMAP Queue 1)"
-_HIERARCHY = ("the prefix and offload tiers of the KV hierarchy (ROADMAP "
-              "Queue 1)")
 _XRAY = "the perf x-ray slice (ROADMAP Queue 1 item 7)"
 
 # JAX-package key -> (values the port accepts, the slice that ports the
@@ -49,13 +50,6 @@ _UNPORTED = {
     "xray_sample_every": ((64,), _XRAY),
     "replica_id": ((None,), _FLEET),
     "role": (("mixed",), _FLEET),
-    "prefix_cache": ((False,), _HIERARCHY),
-    "prefix_slots": ((8,), _HIERARCHY),
-    "prefix_len": ((64,), _HIERARCHY),
-    "min_prefix_len": ((8,), _HIERARCHY),
-    "host_offload": ((False,), _HIERARCHY),
-    "swap_slots": ((8,), _HIERARCHY),
-    "hbm_budget_bytes": ((None,), _HIERARCHY),
     "sparse_decode": ((True,), "the long-context adapter slice "
                       "(ROADMAP Queue 1)"),
     "expert_parallel": ((True,), "the MoE adapter slice (ROADMAP Queue 1)"),
@@ -81,6 +75,24 @@ class InferenceConfig:
     kv_pages: Optional[int] = None
     # int8 KV planes with fp32 per-(head, position) scales.
     int8_kv: bool = False
+    # Shared-prefix cache (inference/kv_hierarchy): a host-side radix trie
+    # over prompt token ids finds a shared prefix at admission; the slot
+    # starts its prefill past the matched span. prefix_slots rows of up to
+    # prefix_len positions (dense pools; a paged pool shares arena pages
+    # and has no length cap), LRU-evicted when no live request pins them;
+    # a match shorter than min_prefix_len is a miss.
+    prefix_cache: bool = False
+    prefix_slots: int = 8
+    prefix_len: int = 64
+    min_prefix_len: int = 8
+    # Host offload: an idle decoding session's slot swaps to host memory
+    # under slot pressure and resumes first when a slot frees (the
+    # scheduler's ``swapped`` phase); at most swap_slots sessions swapped.
+    host_offload: bool = False
+    swap_slots: int = 8
+    # The device budget effective_slots divides (None: the flat fp pool's
+    # own footprint).
+    hbm_budget_bytes: Optional[int] = None
     # Speculative decoding: each decode step drafts spec_k tokens by
     # spec_ngram-gram lookup over the slot's own tokens and verifies them
     # in one forward of spec_k + 1 query rows. None defers to the
@@ -121,6 +133,27 @@ class InferenceConfig:
         if self.recovery_backoff_s < 0:
             raise ValueError("inference.recovery_backoff_s must be >= 0, "
                              "got {}".format(self.recovery_backoff_s))
+        if self.prefix_slots < 1:
+            raise ValueError("inference.prefix_slots must be >= 1, got "
+                             "{}".format(self.prefix_slots))
+        if self.min_prefix_len < 1:
+            raise ValueError("inference.min_prefix_len must be >= 1, got "
+                             "{}".format(self.min_prefix_len))
+        if self.prefix_len < self.min_prefix_len:
+            raise ValueError(
+                "inference.prefix_len={} must be >= min_prefix_len={}"
+                .format(self.prefix_len, self.min_prefix_len))
+        if self.prefix_len > self.max_len:
+            raise ValueError(
+                "inference.prefix_len={} exceeds max_len={}".format(
+                    self.prefix_len, self.max_len))
+        if self.swap_slots < 1:
+            raise ValueError("inference.swap_slots must be >= 1, got "
+                             "{}".format(self.swap_slots))
+        if self.hbm_budget_bytes is not None and self.hbm_budget_bytes <= 0:
+            raise ValueError(
+                "inference.hbm_budget_bytes must be > 0 (or None for the "
+                "flat-pool baseline), got {}".format(self.hbm_budget_bytes))
 
     @classmethod
     def from_dict(cls, block):

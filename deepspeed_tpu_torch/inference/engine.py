@@ -130,8 +130,27 @@ failures, or a fatal error while the device is being drained or reset
 ``run(timeout_s=)``, ``health`` and ``inject_faults`` follow the JAX
 engine.
 
-Perf x-ray, the prefix and offload tiers of the KV hierarchy and tensor
-parallelism are later slices.
+THE KV HIERARCHY (``inference/kv_hierarchy``), as in the JAX engine: the
+shared-prefix cache (``prefix_cache``) and host offload
+(``host_offload``) beside int8 planes, on dense and paged pools, with or
+without speculation. Every hierarchy operation is an eager in-place write
+on the step's stream between steps, outside every captured graph: it adds
+no program key and captures nothing. A step resumes swapped sessions into
+free slots first (``_swap_in_ready``), then admits (``_admit``, with the
+hierarchy's ``on_admit`` per admitted request: a trie hit copies the
+stored prefix span into the slot's plane on a dense pool, or shares its
+pages on a paged one, and starts the prefill past it), then, under slot
+pressure, swaps one decoding victim out to host memory and admits again
+(``_maybe_swap_out``). A finished prompt publishes a missed prefix
+(``on_prefill_done``); completion and cancel unpin (``on_release``);
+recovery drops all of it (``reset``), and swapped sessions replay like
+running ones. A full queue sheds with ``QueueFull`` triaged as the JAX
+engine does (``_augment_queue_full``: ``reason == "pages"`` with the
+page-release hint when a paged queue head waits for pages;
+``swap_eligible`` with an armed swap when offload can free a slot).
+
+Perf x-ray, the fleet (prefix-row transport, handoff, preemption) and
+tensor parallelism are later slices.
 """
 
 import contextlib
@@ -144,6 +163,11 @@ from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference.adapters import GPT2Adapter
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.kv_hierarchy import (KVHierarchy,
+                                                        capture_slot,
+                                                        capture_slot_paged,
+                                                        pick_swap_victim,
+                                                        restore_slot,
+                                                        restore_slot_paged,
                                                         spec_from_config)
 from deepspeed_tpu_torch.inference.faults import FaultInjector
 from deepspeed_tpu_torch.inference.kv_pool import (
@@ -157,7 +181,7 @@ from deepspeed_tpu_torch.inference.resilience import (EngineDeadError,
                                                       NumericsError,
                                                       StepWatchdog,
                                                       fatal_step_errors)
-from deepspeed_tpu_torch.inference.scheduler import Scheduler
+from deepspeed_tpu_torch.inference.scheduler import QueueFull, Scheduler
 from deepspeed_tpu_torch.models.generation import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
@@ -178,7 +202,10 @@ _NULL_CTX = contextlib.nullcontext()
 _COUNTERS = ("tokens_out", "chunks", "prefills", "prefill_tokens",
              "requests_completed", "occupied_slot_steps", "slot_steps",
              "faults_injected", "recoveries", "requests_replayed",
-             "deadline_sheds", "step_stalls")
+             "deadline_sheds", "step_stalls",
+             # The KV hierarchy's: zero forever on an engine without it.
+             "prefix_hits", "prefix_misses", "prefix_inserts",
+             "prefix_evictions", "swap_outs", "swap_ins")
 
 
 class _CounterBank(object):
@@ -405,15 +432,17 @@ def _prefill_lane(params, adapter, pool, inp, any_sample, any_top_k):
 
 
 def _mixed_step_program(params, adapter, chunk, spec, pool, inp, harvest,
-                        lane, any_sample, any_top_k):
+                        lane, any_sample, any_top_k, pin=False):
     """One serving step on the pool in place: pin the frontiers of slots
-    admitted this step (paged pools), the prefill lane when ``lane``, then
-    the decode lane, speculative when ``spec`` (the engine-lifetime
-    ``(spec_k, spec_ngram)``, or None); fill ``harvest``
-    (``kv_pool.step_harvest``'s device views). ``inp`` are
+    admitted this step (when ``pin``), the prefill lane when ``lane``,
+    then the decode lane, speculative when ``spec``
+    (the engine-lifetime ``(spec_k, spec_ngram)``, or None); fill
+    ``harvest`` (``kv_pool.step_harvest``'s device views). ``inp`` are
     ``kv_pool.step_inputs``' device views. ``lane``, ``any_sample`` and
-    ``any_top_k`` are the program's key; every other fact is a tensor."""
-    if "block_tbl" in pool:
+    ``any_top_k`` are the program's key; ``pin`` is an engine-lifetime
+    fact (paged pools and pools with the prefix tier pin) and every other
+    fact is a tensor."""
+    if pin:
         pool["pos"].copy_(torch.where(inp["pin"] >= 0, inp["pin"],
                                       pool["pos"]))
     if lane:
@@ -532,9 +561,22 @@ class InferenceEngine(object):
                 config.max_slots * n_lp, config.kv_page_len)
         else:
             plane_len = plane_len_for(config.max_len, self._slack)
+        # The KV hierarchy (inference/kv_hierarchy): None when every tier
+        # is off. Its hooks run between steps as eager in-place writes.
         hspec = spec_from_config(config)
-        self._hier = KVHierarchy(hspec, self._gcfg, plane_len) \
+        self._hier = KVHierarchy(
+            hspec, self._gcfg, plane_len, config.max_slots,
+            config.hbm_budget_bytes, pager=self._pager) \
             if hspec.enabled else None
+        # Admitted slots' frontiers are pinned to their cursors by the step
+        # program (``_admit``): a paged slot's frozen write goes through
+        # its new table row, and a prefix hit's copied span must stay
+        # clear of it. An engine-lifetime fact, not part of the key.
+        self._pin = self._pager is not None or hspec.prefix
+        self._last_swap_out_s = None
+        # Records restored this step: their host buffers must outlive the
+        # copies issued from them, which the step's harvest read waits for.
+        self._restored = []
         self._pool = init_pool(
             self._gcfg, config.max_slots, config.max_len, slack=self._slack,
             device=self.device, hier=hspec if hspec.enabled else None,
@@ -568,6 +610,10 @@ class InferenceEngine(object):
         self.recompile_detector.watch("mixed_step", self._programs)
         self.timers = SynchronizedWallClockTimer(registry=self.telemetry)
         self.counters = _CounterBank(self.telemetry, _COUNTERS)
+        if self._hier is not None:
+            # The hierarchy counts its hits, misses, inserts and evictions
+            # into the same registry counters.
+            self._hier.counters = self.counters
         # Steps that carried a prefill lane: the port's own count (the
         # JAX engine keeps none), windowed with the registry, not
         # exported.
@@ -624,6 +670,15 @@ class InferenceEngine(object):
             reg.gauge("kv_page_fragmentation").set_fn(
                 lambda: pg.fragmentation(_live_tokens(sched)))
         reg.gauge("trace_spans_dropped").set_fn(lambda: tracer.dropped)
+        if self._hier is not None:
+            h = self._hier
+            reg.gauge("prefix_hit_rate").set_fn(h.hit_rate)
+            reg.gauge("kv_bytes_aliased").set_fn(h.bytes_aliased_live)
+            reg.gauge("kv_bytes_per_slot").set_fn(h.bytes_per_slot)
+            reg.gauge("effective_slots").set_fn(h.effective_slots)
+            reg.gauge("slots_swapped").set_fn(lambda: len(sched.swapped))
+            self._swap_out_hist = reg.histogram("swap_out_seconds")
+            self._swap_in_hist = reg.histogram("swap_in_seconds")
 
     def _annotate(self, name):
         """A profiler scope, or a free no-op with telemetry off."""
@@ -709,11 +764,50 @@ class InferenceEngine(object):
                 raise ValueError("deadline_ms must be > 0, got "
                                  "{}".format(deadline_ms))
             deadline = time.time() + deadline_ms / 1e3
-        return self._scheduler.submit(
-            prompt, int(max_new_tokens), float(temperature), int(top_k or 0),
-            -1 if eos_token_id is None else int(eos_token_id), int(seed),
-            spec=self._spec is not None and spec_decode is not False,
-            deadline=deadline)
+        try:
+            return self._scheduler.submit(
+                prompt, int(max_new_tokens), float(temperature),
+                int(top_k or 0),
+                -1 if eos_token_id is None else int(eos_token_id), int(seed),
+                spec=self._spec is not None and spec_decode is not False,
+                deadline=deadline)
+        except QueueFull as exc:
+            raise self._augment_queue_full(exc) from None
+
+    def _augment_queue_full(self, exc):
+        """Backpressure triage (the JAX engine's). On a paged engine whose
+        queue HEAD is blocked on page capacity, not merely on slots, the
+        shed is a ``pages`` shed, and its ``retry_after_s`` is the
+        page-release-rate hint, the cadence capacity will appear on. With
+        host offload, when a decoding session could be swapped out and the
+        swap store has room, the shed is ``swap_eligible`` and the swap is
+        ARMED (the next step evicts a victim), so the caller should retry
+        here rather than fail over; with a swap already in flight,
+        ``retry_after_s`` is the expected swap-out time instead."""
+        sched = self._scheduler
+        if self._pager is not None and sched.queue:
+            head = sched.queue[0]
+            need = self._pages_required(head.prompt.size,
+                                        head.max_new_tokens)
+            if not self._pager.can_reserve(need):
+                exc.reason = "pages"
+                exc.retry_after_s = round(self._pager.retry_after_s(
+                    need - self._pager.available()), 4)
+        hier = self._hier
+        if hier is None or not hier.spec.offload:
+            return exc
+        victims = any(r.phase == "decoding" for r in sched.running.values())
+        if not victims or not hier.swap_capacity_left():
+            return exc
+        in_flight = hier.swap_requested or bool(sched.swapped)
+        hier.swap_requested = True
+        exc.swap_eligible = True
+        if in_flight:
+            exc.retry_after_s = self._expected_swap_out_s()
+        return exc
+
+    def _expected_swap_out_s(self):
+        return self._last_swap_out_s if self._last_swap_out_s else 0.05
 
     def cancel(self, req):
         """Evict ``req`` wherever it lives: queued, mid-prefill or
@@ -734,6 +828,10 @@ class InferenceEngine(object):
             if had_slot:
                 self._pager.free_slot(slot)
             self._pager.release_reservation(req.rid)
+        if self._hier is not None:
+            # Unpin any prefix row and drop a swapped session's host
+            # record (a swapped cancel has no slot to deactivate).
+            self._hier.on_release(req)
         if was_decoding:
             self._pool["active"][slot] = False
         return True
@@ -811,31 +909,150 @@ class InferenceEngine(object):
                 "mean_reservation_pages": mean_res}
 
     def _admit(self):
-        """One FIFO admission round into free slots. On a paged engine
-        admission is PAGE-AWARE: the queue head must reserve its full
-        frontier bound in pages or the round stops (strict FIFO), every
-        admitted slot's mappings draw down its request's reservation, and
-        each admitted slot's device frontier is pinned to its cursor (0) by
-        the step program (the ``pin`` input): until its first prefill
-        slice the slot is frozen in the decode lane but still writes at its
-        frontier, through its NEW table row, so a stale frontier of the
-        previous occupant must not steer that write."""
+        """One FIFO admission round into free slots, with the hierarchy's
+        admission hook per admitted pair (the prefix-trie probe: a hit
+        copies or shares the stored span and advances the cursor past it).
+        On a paged engine admission is PAGE-AWARE: the queue head must
+        reserve its full frontier bound in pages or the round stops
+        (strict FIFO), and every admitted slot's mappings draw down its
+        request's reservation. On a paged pool, and on any pool with the
+        prefix tier, each admitted slot's device frontier is pinned to its
+        cursor, AFTER the hook moved it, by the step program (the ``pin``
+        input): until its first prefill slice the slot is frozen in the
+        decode lane but still writes at its frontier, so a stale frontier
+        of the previous occupant must not steer that write into its new
+        table row (paged) or into the prefix span copied into its plane
+        (dense)."""
         pager = self._pager
-        if pager is None:
-            return self._scheduler.admissions()
-
-        def gate(req):
-            need = self._pages_required(req.prompt.size, req.max_new_tokens)
-            if not pager.can_reserve(need):
-                return False
-            pager.reserve(req.rid, need)
-            return True
+        gate = None
+        if pager is not None:
+            def gate(req):
+                need = self._pages_required(req.prompt.size,
+                                            req.max_new_tokens)
+                if not pager.can_reserve(need):
+                    return False
+                pager.reserve(req.rid, need)
+                return True
 
         pairs = self._scheduler.admissions(gate=gate)
         for req, slot in pairs:
-            pager.bind_slot(slot, req.rid)
-            self._inputs.host["pin"][slot] = req.cursor
+            if pager is not None:
+                pager.bind_slot(slot, req.rid)
+            if self._hier is not None:
+                self._hier.on_admit(self._pool, req, slot)
+            if self._pin:
+                self._inputs.host["pin"][slot] = req.cursor
         return pairs
+
+    # ---------------------------------------------------------- offload
+
+    def _capture_slot_record(self, slot):
+        """A slot's host record: its live pages on a paged pool, its plane
+        slices on a dense one (``kv_hierarchy.offload``)."""
+        if self._pager is not None:
+            return capture_slot_paged(self._pool, slot,
+                                      self._pager.row_pages(slot))
+        return capture_slot(self._pool, slot)
+
+    def _restore_slot_record(self, slot, req, record):
+        """Restore a record into ``slot`` in place. Paged: claim fresh
+        pages for the record's stack plus a reservation for the request's
+        residual growth, point the row at them and write them; False when
+        the arena cannot cover both now (the caller defers: capacity
+        appears on page-release cadence). The record is held until the
+        step's harvest, past the copies issued from it."""
+        self._restored.append(record)
+        if self._pager is None:
+            restore_slot(self._pool, slot, record)
+            return True
+        pager = self._pager
+        n_pages = int(record["k"].shape[1])
+        extra = max(0, self._pages_required(req.prompt.size,
+                                            req.max_new_tokens) - n_pages)
+        if pager.available() < n_pages + extra:
+            return False
+        pages = pager.alloc_pages(n_pages)
+        pager.install_row(slot, pages)
+        if extra:
+            pager.reserve(req.rid, extra)
+        pager.bind_slot(slot, req.rid)
+        restore_slot_paged(self._pool, slot, record, pages)
+        return True
+
+    def _swap_in_ready(self):
+        """RESUME-FIRST: pour free slots into the oldest swapped sessions
+        before fresh admissions see them. Returns the resumed rids (this
+        round's swap-out exclusions)."""
+        sched, resumed = self._scheduler, []
+        while True:
+            req = sched.next_swap_in()
+            free = sched.free_slot_ids()
+            if req is None or not free:
+                break
+            t0 = time.time()
+            slot = free[0]
+            record = self._hier.swap_store.pop(req.rid)
+            if not self._restore_slot_record(slot, req, record):
+                # The arena cannot back the record and its residual
+                # reservation yet: put it back and wait for pages.
+                self._hier.swap_store.put(req.rid, record)
+                break
+            sched.swap_in(req, slot)
+            self.counters["swap_ins"] += 1
+            self._swap_in_hist.observe(time.time() - t0)
+            resumed.append(req.rid)
+        return resumed
+
+    def _pick_swap_victim(self, exclude):
+        """The decoding session that can best afford to wait
+        (``kv_hierarchy.offload.pick_swap_victim``), sessions resumed this
+        round excluded (no same-step thrash). A paged pool scores by the
+        live pages a victim frees, not its residual budget."""
+        cands = [r for r in self._scheduler.running.values()
+                 if r.phase == "decoding" and r.rid not in exclude]
+        if self._pager is not None:
+            live = {r.rid: len(self._pager.row_pages(r.slot)) for r in cands}
+            return pick_swap_victim(cands, live_pages=live,
+                                    page_len=self._pager.page_len)
+        return pick_swap_victim(cands)
+
+    def _maybe_swap_out(self, resumed):
+        """Swap-out policy: under slot pressure (queued work, no free slot)
+        or an armed request from ``submit``, capture ONE victim to host
+        memory, free its slot and admit again, so the queue head lands in
+        it THIS step. One swap per step bounds the transfer a step
+        absorbs. The capture is the step's one blocking read besides the
+        harvest; it happens BEFORE the slot is deactivated (the record
+        restores ``active``), and then ``active[slot]`` is cleared in place
+        on the stream. A paged victim's pages and reservation are freed
+        before the second admission, so the table uploads once for
+        both."""
+        hier, sched = self._hier, self._scheduler
+        pressure = bool(sched.queue) and not sched.free_slot_ids()
+        if not (pressure or hier.swap_requested):
+            return
+        hier.swap_requested = False
+        if not hier.swap_capacity_left():
+            return
+        victim = self._pick_swap_victim(set(resumed))
+        if victim is None:
+            return
+        t0 = time.time()
+        slot = victim.slot
+        hier.swap_store.put(victim.rid, self._capture_slot_record(slot))
+        self._pool["active"][slot] = False
+        if self._pager is not None:
+            # The record IS the session now: its pages free (shared prefix
+            # pages live on under their other references) and its
+            # reservation drops; swap-in reserves the residual again.
+            self._pager.free_slot(slot)
+            self._pager.release_reservation(victim.rid)
+        sched.swap_out(victim)
+        self.counters["swap_outs"] += 1
+        self._last_swap_out_s = time.time() - t0
+        self._swap_out_hist.observe(self._last_swap_out_s)
+        if sched.queue:
+            self._admit()
 
     def step(self):
         """One step boundary: admit, run the step's program (the prefill
@@ -954,6 +1171,9 @@ class InferenceEngine(object):
         if self._pager is not None:
             self._pager.free_slot(slot)
             self._pager.release_reservation(req.rid)
+        if self._hier is not None:
+            # Its next admission probes the trie for the longer prompt.
+            self._hier.on_release(req)
         self._pool["active"][slot] = False
         new = req.tokens[req.folded:]
         req.prompt = np.concatenate([req.prompt, np.asarray(new, np.int64)])
@@ -978,7 +1198,13 @@ class InferenceEngine(object):
             reset_pool(self._pool, self._hier.spec if self._hier else None)
         if self._pager is not None:
             self._pager.reset()
+        if self._hier is not None:
+            # The trie, row pins and swap records described the pool just
+            # reset (requeue_running pulls swapped sessions back into the
+            # queue too); replay re-earns every hit and insert.
+            self._hier.reset()
         clear_step_inputs(self._inputs)
+        self._restored.clear()  # the drain above ran their copies
         self._last_snap = None  # it described the pool just reset
 
     def _recover(self, exc):
@@ -998,7 +1224,8 @@ class InferenceEngine(object):
         sticky to the process and no reset can clear it."""
         t0 = time.time()
         self._recovery_streak += 1
-        in_flight = len(self._scheduler.running)
+        in_flight = len(self._scheduler.running) + \
+            len(self._scheduler.swapped)
         if self._recovery_streak > self.config.recovery_max_retries:
             self._health.to("dead")
             raise EngineDeadError(
@@ -1058,7 +1285,7 @@ class InferenceEngine(object):
         _mixed_step_program(self._params, self._adapter,
                             self.config.chunk_size, self._spec, self._pool,
                             self._inputs.dev, self._harvest.dev, lane,
-                            any_sample, any_top_k)
+                            any_sample, any_top_k, pin=self._pin)
 
     def _run_program(self, key):
         """Run the step's program for ``key``: replay its graph (on the CPU,
@@ -1087,7 +1314,13 @@ class InferenceEngine(object):
 
     def _step_chunked(self):
         done = []
+        # The JAX step order: resume swapped sessions first, then admit,
+        # then (under slot pressure) swap one victim out and admit again.
+        offload = self._hier is not None and self._hier.spec.offload
+        resumed = self._swap_in_ready() if offload else []
         self._admit()
+        if offload:
+            self._maybe_swap_out(resumed)
         sched = self._scheduler
         pf = sched.next_prefill()
         inp = self._inputs.host
@@ -1131,6 +1364,9 @@ class InferenceEngine(object):
         self._adapter.observe(snap, self.telemetry)
         decode_timer.stop()
         clear_step_inputs(self._inputs)
+        # The read waited for the stream: every copy issued from a
+        # restored record has run.
+        self._restored.clear()
         self._last_snap = snap
         toks, valid, active = snap["toks"], snap["valid"], snap["active"]
         if self._injector is not None:
@@ -1157,7 +1393,12 @@ class InferenceEngine(object):
             self.counters["prefill_tokens"] += n
             if sched.advance_prefill(pf, n):
                 self.counters["prefills"] += 1
+                if self._hier is not None:
+                    # The slot's plane now holds the whole prompt's k/v:
+                    # publish a missed prefix into the store.
+                    self._hier.on_prefill_done(self._pool, pf)
                 self._harvest_first(pf, int(snap["first"][0]), done)
+        harvest_t = time.time()
         for slot, req in list(sched.running.items()):
             if req.phase != "decoding":
                 continue
@@ -1170,6 +1411,9 @@ class InferenceEngine(object):
             req.tokens.extend(emitted)
             self.counters["tokens_out"] += len(emitted)
             if emitted:
+                # The progress stamp the swap-victim policy reads: a
+                # session that stops emitting goes stale.
+                req.last_touch = harvest_t
                 self.tracer.instant(
                     "request/chunk", tid=req.trace.tid, rid=req.rid,
                     hop=req.trace.hop(), emitted=len(emitted),
@@ -1209,6 +1453,8 @@ class InferenceEngine(object):
             # until the next step's rebind, which precedes any write.
             self._pager.free_slot(slot)
             self._pager.release_reservation(req.rid)
+        if self._hier is not None:
+            self._hier.on_release(req)
         self.counters["requests_completed"] += 1
         if req.first_token_time is not None and len(req.tokens) > 1:
             self._itl_hist.observe((req.finish_time - req.first_token_time)
@@ -1310,7 +1556,10 @@ class InferenceEngine(object):
         (windowed), and the step programs' cumulative facts
         (``compile_count``, ``recompiles``, ``graph_replays``,
         ``capture_ms`` and ``graph_pool_bytes``, 0 on the CPU). The pool's
-        layout and bytes; on a paged engine its page gauges; on a
+        layout and bytes; with the KV hierarchy its tier switches, its
+        counters (hits, misses, inserts, evictions, swaps), the hit rate,
+        the byte accounting, ``effective_slots`` and ``slots_swapped``, as
+        the JAX engine's; on a paged engine its page gauges; on a
         speculating engine the accept statistics over the window's
         occupied slot-steps: tokens accepted per step (mean, p50, p99) and
         the accepted share of the drafted tokens (the first token of each
@@ -1366,8 +1615,25 @@ class InferenceEngine(object):
             "step_stalls": c.window("step_stalls"),
         }
         if self._hier is not None:
-            m.update(kv_bytes_per_slot=self._hier.bytes_per_slot(),
-                     kv_bytes_per_slot_flat=self._hier.flat_bytes_per_slot())
+            h = self._hier
+            # The tier switches and the capacity story: what a slot costs,
+            # what aliasing saves, how many sessions the budget carries.
+            m.update(
+                prefix_cache=h.spec.prefix, host_offload=h.spec.offload,
+                prefix_hits=c.window("prefix_hits"),
+                prefix_misses=c.window("prefix_misses"),
+                prefix_inserts=c.window("prefix_inserts"),
+                prefix_evictions=c.window("prefix_evictions"),
+                prefix_hit_rate=round(h.hit_rate(), 4),
+                kv_bytes_per_slot=h.bytes_per_slot(),
+                kv_bytes_per_slot_flat=h.flat_bytes_per_slot(),
+                kv_bytes_aliased=h.bytes_aliased_live(),
+                prefix_bytes_aliased_total=h.bytes_aliased_total(),
+                prefix_store_bytes=h.prefix_store_bytes(),
+                effective_slots=h.effective_slots(),
+                swap_outs=c.window("swap_outs"),
+                swap_ins=c.window("swap_ins"),
+                slots_swapped=len(self._scheduler.swapped))
         if self._pager is not None:
             pg = self._pager
             m.update(kv_page_len=pg.page_len, kv_pages_total=pg.total_pages,
@@ -1441,7 +1707,8 @@ class InferenceEngine(object):
         req = s.completed.get(rid)
         if req is not None:
             return req
-        for r in list(s.running.values()) + list(s.queue):
+        for r in (list(s.running.values()) + list(s.swapped.values()) +
+                  list(s.queue)):
             if r.rid == rid:
                 return r
         return None

@@ -1,15 +1,52 @@
 """deepspeed_tpu_torch.inference.kv_hierarchy: the KV memory tiers.
 
-Counterpart of ``deepspeed_tpu/inference/kv_hierarchy/``, int8 tier only:
-the k/v planes hold int8 codes with fp32 per-(head, position) scales
-(``ops/transformer/kernels/decode_attention.quantize_kv``), attended by
-kernels K4 (dense) and K6 (paged). The shared-prefix cache and host
-offload come with a later slice: the config keys that switch them on raise
-NotImplementedError.
+Counterpart of ``deepspeed_tpu/inference/kv_hierarchy/``. Three tiers
+behind the slot-pool contract (no program added by any tier, greedy
+streams unchanged, crash-only recovery intact):
+
+- **Shared-prefix cache** (prefix_cache.py): a host-side radix trie over
+  prompt token ids finds a shared prefix at admission. On a dense pool the
+  matched span of the stored prefix row (``pk``/``pv`` planes) is COPIED
+  into the slot's own plane at admission, in place, and prefill starts past
+  it; the JAX package selects per position between the two planes at every
+  decode step instead, and the slot's plane after the copy is elementwise
+  what that select reads. On a paged pool the row's full pages are shared
+  into the slot's block table (the straddle page copy-on-write).
+- **int8 KV** (quant.py; kernels K4 and K6): int8 codes with fp32
+  per-(head, position) scales.
+- **Host offload** (offload.py): idle sessions' slots swap to host memory
+  as captured records and restore on resume, driven by the scheduler's
+  ``swapped`` phase. Every transfer is an eager op outside the captured
+  step programs.
+
+``hierarchy.py`` ties them together: ``HierarchySpec`` (the pool-shape
+contract ``init_pool`` consumes), ``spec_from_config`` and the
+``KVHierarchy`` the engine drives (on_admit / on_prefill_done /
+on_release / reset, the swap store, the byte accounting). Everything
+host-side here is derived state: ``reset()`` drops it all and the request
+records rebuild the streams. The fleet's pieces (prefix-row transport,
+the prefix directory, handoff adoption) come with the fleet slice.
 """
 
 from deepspeed_tpu_torch.inference.kv_hierarchy.hierarchy import (  # noqa: F401
     HierarchySpec,
     KVHierarchy,
     spec_from_config,
+)
+from deepspeed_tpu_torch.inference.kv_hierarchy.offload import (  # noqa: F401
+    HostSwapStore,
+    capture_slot,
+    capture_slot_paged,
+    pick_swap_victim,
+    record_nbytes,
+    restore_slot,
+    restore_slot_paged,
+)
+from deepspeed_tpu_torch.inference.kv_hierarchy.prefix_cache import (  # noqa: F401,E501
+    PrefixStore,
+    RadixTrie,
+)
+from deepspeed_tpu_torch.inference.kv_hierarchy.quant import (  # noqa: F401
+    dequantize_kv,
+    quantize_kv,
 )

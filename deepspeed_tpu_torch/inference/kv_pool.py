@@ -34,6 +34,12 @@ int8 codes and the pool gains fp32 ``k_scale``/``v_scale`` planes of the
 same shape without the head dimension, written by the same frontier writes
 as the codes.
 
+Under the shared-prefix tier (``hier.prefix``) a dense pool also holds
+the prefix rows ``pk``/``pv`` (and their scales under int8): at a prefix
+hit the hierarchy copies a row's span into the admitted slot's own plane,
+so no step program reads them. A paged pool shares the row's arena pages
+instead.
+
 Stale-cache rule: a freed slot's k/v are never cleared. A later request
 writes position ``p`` before any query's mask (``k_pos <= q_pos``) can
 reach it, so stale keys are overwritten or masked, never attended. In the
@@ -64,7 +70,8 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 
 # Per-slot fields: (name, dtype, initial value). Every other tensor of the
-# pool (planes, scales, block table, token ring) starts at zero.
+# pool (planes, scales, prefix rows, block table, token ring) starts at
+# zero.
 _SLOT_FIELDS = (
     ("pos", torch.int32, 0),
     ("last_tok", torch.int64, 0),
@@ -107,7 +114,11 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
 
     ``hier`` (a ``kv_hierarchy.HierarchySpec``, or None for the flat pool):
     under ``hier.int8`` the planes hold int8 codes and the pool gains fp32
-    ``k_scale``/``v_scale`` planes. ``page_len > 0`` selects the paged
+    ``k_scale``/``v_scale`` planes; under ``hier.prefix`` a dense pool
+    gains the shared-prefix rows ``pk``/``pv`` ``[layers, prefix_slots,
+    heads, prefix_len, head_dim]`` (and ``pk_scale``/``pv_scale`` under
+    int8), read and written only by the hierarchy's eager copies
+    (``kv_hierarchy.hierarchy``). ``page_len > 0`` selects the paged
     layout: an arena of ``num_pages`` usable pages (None: as many as
     ``num_slots`` full rows need) plus the trash page, and a zeroed
     ``block_tbl`` (every row on the trash page). ``ring`` adds the token
@@ -135,6 +146,18 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
                                       device=device)
         pool["v_scale"] = torch.empty(shape[:-1], dtype=torch.float32,
                                       device=device)
+    if hier is not None and hier.prefix and not page_len:
+        # The shared-prefix rows of a dense pool (the JAX layout); a paged
+        # pool's prefix rows are refcounted arena pages instead.
+        p_shape = (gcfg.n_layer, hier.prefix_slots, gcfg.n_head,
+                   hier.prefix_len, hd)
+        pool["pk"] = torch.empty(p_shape, dtype=kv_dtype, device=device)
+        pool["pv"] = torch.empty(p_shape, dtype=kv_dtype, device=device)
+        if int8:
+            pool["pk_scale"] = torch.empty(p_shape[:-1], dtype=torch.float32,
+                                           device=device)
+            pool["pv_scale"] = torch.empty(p_shape[:-1], dtype=torch.float32,
+                                           device=device)
     if ring:
         pool["toks"] = torch.empty(
             (num_slots, n_lp * page_len if page_len else shape[3]),
@@ -147,8 +170,8 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
 
 def reset_pool(pool, hier=None):
     """Refill every tensor of ``pool`` IN PLACE with the values
-    ``init_pool`` gives it: planes, scale planes, block table and token
-    ring zero, the per-slot fields their ``_SLOT_FIELDS`` fills. Nothing
+    ``init_pool`` gives it: planes, scale planes, prefix rows, block
+    table and token ring zero, the per-slot fields their ``_SLOT_FIELDS`` fills. Nothing
     is rebound, so every address a captured step program holds stays
     valid (the engine's crash recovery; ``init_pool`` allocates, then
     calls this, so the two cannot drift). On the card each fill is a
@@ -213,8 +236,8 @@ def step_inputs(num_slots, prefill_chunk, device):
     ``slot``, ``frontier``, ``n_valid``, ``done``, ``max_new``, ``eos``,
     ``temp``, ``top_k``, ``seed`` and ``spec`` ([1] each, in the dtype of
     the pool field they feed), plus ``pin`` [slots] int32: the frontier
-    each slot admitted this step is pinned to (-1: none; paged pools).
-    Filled with the idle lane's values."""
+    each slot admitted this step is pinned to (-1: none; paged pools and
+    pools with the prefix tier). Filled with the idle lane's values."""
     buf = PackedBuffer(
         [("ids", torch.int64, (1, prefill_chunk)),
          ("slot", torch.int64, (1,)), ("frontier", torch.int32, (1,)),
@@ -268,8 +291,8 @@ def free_slots(snap):
 
 def pool_nbytes(pool):
     """Device bytes held by the pool: the k/v planes dominate; the scale
-    planes, the block table, the token ring and the per-slot fields count
-    too."""
+    planes, the prefix rows, the block table, the token ring and the
+    per-slot fields count too."""
     return int(sum(t.numel() * t.element_size() for t in pool.values()))
 
 

@@ -12,10 +12,12 @@ pair:
   reserved TRASH page: a freed slot's table row is zeroed, so the frozen
   slot's pinned-frontier writes (the mixed step keeps running every slot)
   land in a page nothing ever reads unmasked;
-- per-page REFCOUNTS: a shared-prefix cache installs the same physical page
-  into several slots' rows, and a page returns to the free list only when
-  its last reference drops (``install_shared`` / ``cow_page``; no ported
-  path calls them yet, the prefix tier will);
+- per-page REFCOUNTS: the shared-prefix cache installs the same physical
+  page into several slots' rows (``install_shared``; the straddle page
+  copied on write, ``cow_page``) and pins its rows' pages (``incref``), and
+  a page returns to the free list only when its last reference drops; a
+  swap-in claims pages outside any reservation (``alloc_pages``,
+  ``install_row``);
 - a RESERVATION ledger: admission reserves ``ceil((prompt + max_new +
   slack) / page_len)`` pages per request up front, so ``ensure_mapped`` can
   never fail mid-decode -- the page-aware admission gate is

@@ -8,14 +8,16 @@ queue, admission of queued requests into free slots at step boundaries, a
 
 Phases: ``queued -> prefilling -> decoding -> done``, or ``cancelled``
 from any live phase, or ``expired`` from ``queued`` when a request's
-deadline passes before admission. Host offload (``swapped``) and
-disaggregated handoff and adoption come with later slices; the entry
-points that would start them raise NotImplementedError.
+deadline passes before admission. Host offload (the KV hierarchy) adds
+``decoding -> swapped -> decoding``: a swapped session holds no slot (its
+device state is a host record the engine keeps) and resumes ahead of
+fresh admissions. Disaggregated handoff and adoption come with the fleet
+slice; the entry points that would start them raise NotImplementedError.
 
 Recovery (``inference/engine.py``, ``InferenceEngine._recover``) adds one
 move: after a fatal step error the engine calls ``requeue_running()``:
-every in-flight request returns to the FRONT of the queue in rid
-(= admission) order, to be re-admitted and replayed against the reset
+every in-flight request, swapped ones included, returns to the FRONT of
+the queue in rid (= admission) order, to be re-admitted and replayed against the reset
 pool. The request records here are the durable truth that makes the
 device state disposable.
 
@@ -73,7 +75,7 @@ class Request(object):
                  "eos_token_id", "seed", "spec", "tokens", "slot", "phase",
                  "cursor", "submit_time", "admit_time", "first_token_time",
                  "finish_time", "deadline", "replays", "resync", "folded",
-                 "trace")
+                 "last_touch", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, top_k,
                  eos_token_id, seed, spec=False, deadline=None, trace=None):
@@ -116,6 +118,11 @@ class Request(object):
         # how many delivered tokens were folded into ``prompt``.
         self.resync = None
         self.folded = 0
+        # Wall clock of the request's last progress (submit, then each
+        # step that emitted it tokens; the engine stamps it at harvest):
+        # the swap-victim policy prefers a stale session
+        # (kv_hierarchy.offload.pick_swap_victim).
+        self.last_touch = self.submit_time
 
     @property
     def done(self):
@@ -134,6 +141,11 @@ class Scheduler(object):
         self.replica_id = replica_id
         self.queue = collections.deque()
         self.running = {}           # slot -> Request (prefilling | decoding)
+        # rid -> Request in the ``swapped`` phase: mid-decode but holding
+        # NO slot (its device state is a host record). Insertion order is
+        # swap-out order, so next_swap_in() resumes the longest-waiting
+        # session first.
+        self.swapped = {}
         self.completed = {}         # rid -> Request
         self._ids = itertools.count()
         # Telemetry is additive (module docstring): without a tracer or a
@@ -317,6 +329,9 @@ class Scheduler(object):
             return False
         if req.phase == "queued":
             self.queue.remove(req)
+        elif req.phase == "swapped":
+            # Slotless; the host record is the engine's to drop.
+            self.swapped.pop(req.rid)
         else:
             self.running.pop(req.slot)
             req.slot = None
@@ -334,11 +349,15 @@ class Scheduler(object):
         return True
 
     def requeue(self, req):
-        """Pull one in-flight request out of its slot and push it onto the
-        FRONT of the queue with ``cursor`` 0 and one more ``replays``
-        (the ``request/replayed`` instant). The slot frees for the next
-        admission round; the caller owns its device side."""
-        self.running.pop(req.slot)
+        """Pull one in-flight request out of its slot (or out of the
+        swapped phase) and push it onto the FRONT of the queue with
+        ``cursor`` 0 and one more ``replays`` (the ``request/replayed``
+        instant). The slot frees for the next admission round; the caller
+        owns its device side."""
+        if req.phase == "swapped":
+            self.swapped.pop(req.rid)
+        else:
+            self.running.pop(req.slot)
         req.slot = None
         req.phase = "queued"
         req.cursor = 0
@@ -351,24 +370,59 @@ class Scheduler(object):
 
     def requeue_running(self):
         """Crash-only recovery: pull EVERY in-flight request out of its
-        slot and push all of them back onto the FRONT of the queue in rid
+        slot, and every SWAPPED session out of the swapped phase (its host
+        record described a pool that was just reset; the engine drops it),
+        and push all of them back onto the FRONT of the queue in rid
         (= admission) order, ahead of never-admitted work (``requeue``).
         The engine then marks each for replay
         (``InferenceEngine._replay_requests``): every draw is keyed on
         (seed, absolute position), so the replayed stream continues the
         original one. Returns the requeued requests in rid order."""
-        reqs = sorted(self.running.values(), key=lambda r: r.rid)
+        reqs = sorted(list(self.running.values()) +
+                      list(self.swapped.values()), key=lambda r: r.rid)
         for req in reversed(reqs):
             self.requeue(req)
         return reqs
 
+    # ------------------------------------------------------ host offload
+
     def swap_out(self, req):
-        raise NotImplementedError("host offload comes with the KV hierarchy "
-                                  "slice (ROADMAP Queue 1)")
+        """Move a DECODING request out of its slot into the ``swapped``
+        phase. The engine owns the device side (capture the slot to the
+        host store, then deactivate it); this records only that the
+        session is paused and slotless."""
+        assert req.phase == "decoding", req.phase
+        self.running.pop(req.slot)
+        req.slot = None
+        req.phase = "swapped"
+        self.swapped[req.rid] = req
+        if self.tracer is not None:
+            self.tracer.instant("request/swapped_out", tid=req.trace.tid,
+                                rid=req.rid, hop=req.trace.hop(),
+                                tokens=len(req.tokens))
+
+    def next_swap_in(self, skip=()):
+        """The longest-swapped session, or None: resume-first fairness (a
+        swapped session outranks fresh admissions for the next free slot,
+        so swaps time-slice the slot set instead of starving whoever lost
+        the first eviction). ``skip``: rids to pass over."""
+        for rid, req in self.swapped.items():
+            if rid not in skip:
+                return req
+        return None
 
     def swap_in(self, req, slot):
-        raise NotImplementedError("host offload comes with the KV hierarchy "
-                                  "slice (ROADMAP Queue 1)")
+        """Resume a swapped request into ``slot`` (need not be the slot it
+        was captured from: the record carries every positional fact). The
+        engine restores the device state before the next program call."""
+        self.swapped.pop(req.rid)
+        req.slot = slot
+        req.phase = "decoding"
+        self.running[slot] = req
+        if self.tracer is not None:
+            self.tracer.instant("request/swapped_in", tid=req.trace.tid,
+                                rid=req.rid, hop=req.trace.hop(), slot=slot,
+                                tokens=len(req.tokens))
 
     def begin_handoff(self, req):
         raise NotImplementedError("disaggregated handoff comes with the "
@@ -382,7 +436,7 @@ class Scheduler(object):
 
     @property
     def idle(self):
-        return not self.queue and not self.running
+        return not self.queue and not self.running and not self.swapped
 
     def occupancy(self):
         return len(self.running) / float(self.num_slots)

@@ -124,8 +124,10 @@ def _forward(model, ids, cache, last_only=False):
     extra = set(cache) - {"k", "v", "pos", "k_scale", "v_scale", "block_tbl"}
     if extra:
         raise NotImplementedError(
-            "the shared-prefix cache layout comes with a later slice (cache "
-            "keys {})".format(sorted(extra)))
+            "the forward reads only the k/v planes, their scales and a block "
+            "table: a shared prefix reaches it copied into the slot's own "
+            "plane or shared through the table (cache keys {})".format(
+                sorted(extra)))
     int8 = cache["k"].dtype == torch.int8
     paged = "block_tbl" in cache
     cfg = model.config

@@ -11,7 +11,10 @@ lane runs K3-K6 at S = spec_k + 1), and a capture that fails raising;
 then telemetry on the card: a Prometheus scrape thread during a fresh
 engine's captures, telemetry on and off serving the same streams and
 programs, a ``profile_window`` trace holding a decode kernel, and a
-timer that covers queued device work.
+timer that covers queued device work; then the KV hierarchy's prefix
+cache and host offload on the card: the tiers on against off, paged int8
+against dense int8, the capture/restore round trip on a live pool and a
+raise while sessions are swapped out.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -1192,6 +1195,178 @@ def test_training_timer_covers_queued_device_work(cuda):
     device_s = a.elapsed_time(b) / 1e3
     assert device_s > 0.01
     assert timers("spin").elapsed(reset=False) >= 0.9 * device_s
+
+
+# The KV hierarchy on the card: SMALL_SERVE with the prefix cache and host
+# offload, a stream of HIER_N requests over two shared 24-token system
+# prompts (more requests than slots, so sessions swap), every fifth sampled.
+HIER = {"prefix_cache": True, "prefix_slots": 4, "prefix_len": 32,
+        "min_prefix_len": 4, "host_offload": True, "swap_slots": 4}
+HIER_N = 10
+HIER_LAYOUTS = {"dense": {}, "int8": {"int8_kv": True},
+                "paged_int8_spec": {"paged_kv": True, "kv_page_len": 32,
+                                    "int8_kv": True, "spec_decode": True,
+                                    "spec_k": 4}}
+
+
+def _hier_prompts():
+    rng = np.random.RandomState(8)
+    systems = [rng.randint(0, 1024, size=24) for _ in range(2)]
+    return [np.concatenate([systems[i % 2],
+                            rng.randint(0, 1024, size=4 + 4 * i)])
+            for i in range(HIER_N)]
+
+
+def _hier_serve(engine, fault_once_swapped=False, roundtrip=None):
+    """Serve the hierarchy stream to idle; ``fault_once_swapped`` arms a
+    raise once a session is swapped out, ``roundtrip(engine)`` runs once
+    every slot is busy and one decodes. Returns the streams, the launches
+    and the pool's addresses before."""
+    from deepspeed_tpu_torch.inference import Fault, FaultPlan
+    addrs = {n: t.data_ptr() for n, t in engine._pool.items()}
+    reqs = []
+    for i, p in enumerate(_hier_prompts()):
+        kw = {"temperature": 0.8, "seed": i, "top_k": 20} if i % 5 == 4 \
+            else {}
+        reqs.append(engine.submit(p, max_new_tokens=24, **kw))
+    da.reset_launches()
+    armed = False
+    while not engine.idle:
+        sched = engine._scheduler
+        if fault_once_swapped and sched.swapped and not armed:
+            engine.inject_faults(FaultPlan(faults=(Fault("raise",
+                                                         step=0),)))
+            armed = True
+        if roundtrip is not None and \
+                len(sched.running) == SMALL_SERVE["max_slots"] and \
+                any(r.phase == "decoding" for r in sched.running.values()):
+            roundtrip(engine)
+            roundtrip = None
+        engine.step()
+    torch.cuda.synchronize()
+    assert all(r.phase == "done" and len(r.tokens) == 24 for r in reqs)
+    assert {n: t.data_ptr() for n, t in engine._pool.items()} == addrs
+    assert not fault_once_swapped or armed
+    return [r.tokens for r in reqs], dict(da.launches)
+
+
+def _exact_launches(engine, launches):
+    """K3-K6 launches: n_layer per decode step of the decode lane's kernel
+    and per prefill lane of the lane's (hits, swaps and restores launch
+    none)."""
+    m = engine.metrics()
+    paged, int8 = engine._pager is not None, "k_scale" in engine._pool
+    kernel = {(False, False): "decode", (False, True): "q8",
+              (True, False): "paged", (True, True): "paged_q8"}[paged, int8]
+    lane = "paged_q8" if int8 else "paged"
+    want = dict.fromkeys(launches, 0)
+    n_layer = engine._params.config.n_layer
+    want[kernel] += n_layer * m["decode_steps"]
+    want[lane] += n_layer * m["prefill_lanes"]
+    assert launches == want
+
+
+@pytest.mark.parametrize("layout", sorted(HIER_LAYOUTS))
+def test_hierarchy_streams_equal_the_tiers_off(cuda, layout):
+    """(i): the tiers on against off on the same layout: the same streams,
+    hits and swaps fired, exact launches with fewer prefill lanes, no key
+    added, no pool tensor rebound, every page returned but the stored
+    prefix rows'."""
+    model = _small_gpt2(cuda)
+    config = dict(SMALL_SERVE, **HIER_LAYOUTS[layout])
+    off = InferenceEngine(model, config=config)
+    want, _ = _hier_serve(off)
+    on = InferenceEngine(model, config=dict(config, **HIER))
+    got, launches = _hier_serve(on)
+    assert got == want
+    m = on.metrics()
+    assert min(m["prefix_hits"], m["prefix_inserts"], m["swap_outs"],
+               m["swap_ins"]) >= 1
+    _exact_launches(on, launches)
+    assert m["prefill_lanes"] < off.metrics()["prefill_lanes"]
+    assert m["graph_replays"] == m["chunks"] - m["compile_count"] and \
+        m["compile_count"] <= 8
+    if on._pager is not None:
+        pages = sum(len(p) for p, _ in on._hier.store.payload.values())
+        assert on.kv_page_stats()["pages_in_use"] == pages
+
+
+def test_paged_int8_hierarchy_equals_dense_int8(cuda):
+    """(ii): paged int8 + prefix + offload + speculation against dense int8
+    with the same tiers, token for token (K6 equals K4 on the gathered
+    plane)."""
+    model = _small_gpt2(cuda)
+    paged = HIER_LAYOUTS["paged_int8_spec"]
+    dense = {k: v for k, v in paged.items()
+             if k not in ("paged_kv", "kv_page_len")}
+    got, _ = _hier_serve(InferenceEngine(model, config=dict(
+        SMALL_SERVE, **HIER, **paged)))
+    want, _ = _hier_serve(InferenceEngine(model, config=dict(
+        SMALL_SERVE, **HIER, **dense)))
+    assert got == want
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged_int8_spec"])
+def test_capture_restore_is_byte_exact_on_the_card(cuda, layout):
+    """(iii): on a running engine's own pool, capture a decoding slot,
+    scribble over its footprint, restore in place: the whole pool equals
+    a copy taken before, byte for byte; the run then ends in the streams
+    of an engine never touched."""
+    from deepspeed_tpu_torch.inference.kv_hierarchy import (
+        capture_slot, capture_slot_paged, restore_slot, restore_slot_paged)
+    model = _small_gpt2(cuda)
+    config = dict(SMALL_SERVE, **HIER, **HIER_LAYOUTS[layout])
+    checked = []
+
+    def roundtrip(engine):
+        pool = engine._pool
+        req = next(r for r in engine._scheduler.running.values()
+                   if r.phase == "decoding")
+        slot = req.slot
+        pages = engine._pager.row_pages(slot) if engine._pager else None
+        before = {n: t.clone() for n, t in pool.items()}
+        rec = capture_slot(pool, slot) if pages is None else \
+            capture_slot_paged(pool, slot, pages)
+        assert all(not v.is_cuda and v.is_pinned() for v in rec.values())
+        at = slot if pages is None else pages
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name in pool:
+                pool[name][:, at] = 3
+        for name in ("pos", "last_tok", "active", "remaining", "toks"):
+            if name in pool:
+                pool[name][slot] = 0
+        if pages is None:
+            restore_slot(pool, slot, rec)
+        else:
+            restore_slot_paged(pool, slot, rec, pages)
+        torch.cuda.synchronize()
+        checked.append([n for n, t in pool.items()
+                        if not torch.equal(t, before[n])])
+
+    got, _ = _hier_serve(InferenceEngine(model, config=config),
+                         roundtrip=roundtrip)
+    assert checked == [[]]
+    want, _ = _hier_serve(InferenceEngine(model, config=config))
+    assert got == want
+
+
+def test_raise_while_swapped_replays_the_streams(cuda):
+    """(iv): a raise fault while sessions are swapped out: recovery resets
+    the pool in place and replays every session, the swapped ones
+    included; the streams equal the fault-free run's, no request is lost,
+    compile_count does not move, no key is met anew."""
+    model = _small_gpt2(cuda)
+    engine = InferenceEngine(model, config=dict(SMALL_SERVE, **HIER,
+                                                fault_injection=True))
+    want, _ = _hier_serve(engine)
+    engine.recompile_detector.mark_warm()
+    programs = engine.compile_count
+    got, _ = _hier_serve(engine, fault_once_swapped=True)
+    assert got == want
+    m = engine.metrics()
+    assert len(engine.recovery_log) == 1 and m["recoveries"] == 1
+    assert engine.compile_count == programs and m["recompiles"] == 0
+    assert engine.health == "healthy"
 
 
 def test_a_failed_capture_raises(cuda):

@@ -8,9 +8,10 @@ package's, on the CPU.
   on the same weights;
 - a sampled request's stream depends only on its seed and positions, not
   on its slot or its neighbours; top_k=1 sampling is greedy;
-- every setting the port does not implement yet raises (paged and int8 KV,
-  speculation and telemetry are ported; the prefix and offload tiers and
-  the perf x-ray are not, with or without them).
+- every setting the port does not implement yet raises (the perf x-ray,
+  the fleet, the legacy bucket path); the KV hierarchy's settings (prefix
+  cache, host offload, the capacity budget) build engines that report
+  them.
 """
 
 import jax
@@ -151,19 +152,42 @@ def test_top_k_one_sampling_is_greedy():
 
 
 @pytest.mark.parametrize("setting", [
-    {"paged_kv": True, "prefix_cache": True},
-    {"int8_kv": True, "host_offload": True}, {"prefix_cache": True},
-    {"host_offload": True}, {"spec_decode": True, "chunked_prefill": False},
+    {"spec_decode": True, "chunked_prefill": False},
     {"role": "prefill"},
     {"chunked_prefill": False}, {"replica_id": 1},
     {"use_flash_decode": False}, {"sparse_decode": False},
-    {"hbm_budget_bytes": 1 << 30},
     {"telemetry": True, "trace_ring": 16, "xray_sample_every": 16},
-    {"prefill_buckets": [16, 64]}, {"spec_decode": True,
-                                    "prefix_cache": True}])
+    {"prefill_buckets": [16, 64]}])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         InferenceConfig.from_dict(setting)
+
+
+@pytest.mark.parametrize("setting", [
+    {"paged_kv": True, "prefix_cache": True},
+    {"int8_kv": True, "host_offload": True}, {"prefix_cache": True},
+    {"host_offload": True}, {"hbm_budget_bytes": 1 << 30},
+    {"spec_decode": True, "prefix_cache": True}],
+    ids=["paged_prefix", "int8_offload", "prefix", "offload", "budget",
+         "spec_prefix"])
+def test_hierarchy_settings_build_engines(setting):
+    """The KV hierarchy's settings parse and build a CPU engine whose
+    metrics() report the tiers that are on. A budget alone turns no tier
+    on: as in the JAX engine, metrics() then has no hierarchy keys."""
+    cfg = InferenceConfig.from_dict(dict(SERVE, **setting))
+    eng = port_engine(**setting)
+    assert eng.config == cfg
+    m = eng.metrics()
+    if setting == {"hbm_budget_bytes": 1 << 30}:
+        assert cfg.hbm_budget_bytes == 1 << 30 and "prefix_cache" not in m
+        assert not eng.metrics()["int8_kv"] and eng._hier is None
+        return
+    assert m["prefix_cache"] == bool(setting.get("prefix_cache"))
+    assert m["host_offload"] == bool(setting.get("host_offload"))
+    assert m["int8_kv"] == bool(setting.get("int8_kv"))
+    assert m["paged_kv"] == bool(setting.get("paged_kv"))
+    assert m["spec_decode"] == bool(setting.get("spec_decode"))
+    assert m["prefix_hits"] == m["swap_outs"] == m["slots_swapped"] == 0
 
 
 def test_jax_default_block_parses_and_unknown_keys_raise():

@@ -143,7 +143,7 @@ def test_int8_pool_layout_and_byte_accounting():
     assert view["block_tbl"].tolist() == [[2]]
     view["k_scale"][0, view["block_tbl"][0, 0], 1, 3] = 5.0
     assert pool["k_scale"][0, 2, 1, 3] == 5.0   # the slot's plane, in place
-    acct = KVHierarchy(hier, gcfg, 20)
+    acct = KVHierarchy(hier, gcfg, 20, 3)
     per_pos = gcfg.n_layer * gcfg.n_head * (2 * 16 + 8)
     assert acct.bytes_per_slot() == per_pos * 20
     assert acct.flat_bytes_per_slot() == \

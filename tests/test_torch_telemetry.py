@@ -487,10 +487,14 @@ def test_import_without_extras():
 
 LAYOUTS = {"dense": {}, "paged": {"paged_kv": True, "kv_page_len": 8},
            "int8": {"int8_kv": True},
-           "spec": {"spec_decode": True, "spec_k": 2}}
+           "spec": {"spec_decode": True, "spec_k": 2},
+           "hierarchy": {"int8_kv": True, "prefix_cache": True,
+                         "host_offload": True, "min_prefix_len": 4}}
 # The JAX engine's counters that the port's features drive.
 COUNTERS = ("tokens_out", "prefills", "prefill_tokens", "chunks",
-            "requests_completed", "occupied_slot_steps", "slot_steps")
+            "requests_completed", "occupied_slot_steps", "slot_steps",
+            "prefix_hits", "prefix_misses", "prefix_inserts",
+            "prefix_evictions", "swap_outs", "swap_ins")
 # metrics() keys of a window that count work (times differ by host).
 WINDOW_KEYS = ("tokens_out", "requests_completed", "prefills",
                "prefill_tokens", "chunks", "slot_occupancy", "queue_depth",
@@ -502,23 +506,30 @@ WINDOW_KEYS = ("tokens_out", "requests_completed", "prefills",
                "accepted_per_step_p50", "accepted_per_step_p99",
                "draft_accept_rate", "int8_kv", "health", "faults_injected",
                "recoveries", "requests_replayed", "deadline_sheds",
-               "step_stalls")
+               "step_stalls", "prefix_cache", "host_offload", "prefix_hits",
+               "prefix_misses", "prefix_inserts", "prefix_evictions",
+               "prefix_hit_rate", "kv_bytes_per_slot",
+               "kv_bytes_per_slot_flat", "kv_bytes_aliased",
+               "prefix_bytes_aliased_total", "prefix_store_bytes",
+               "effective_slots", "swap_outs", "swap_ins", "slots_swapped")
 # The resilience families: the port must export each, of the JAX
 # engine's kind.
 RESILIENCE = {"faults_injected", "recoveries", "requests_replayed",
               "deadline_sheds", "step_stalls", "health_state",
               "recovery_seconds"}
+# The KV hierarchy's families: the counters on every engine, the gauges
+# and histograms where the JAX engine has them (any tier on); the port
+# must export each, of the JAX engine's kind.
+KV_HIERARCHY = {"prefix_hits", "prefix_misses", "prefix_inserts",
+                "prefix_evictions", "swap_outs", "swap_ins"}
+KV_HIERARCHY_GAUGES = {"prefix_hit_rate", "kv_bytes_aliased",
+                       "kv_bytes_per_slot", "effective_slots",
+                       "slots_swapped", "swap_out_seconds",
+                       "swap_in_seconds"}
 # Prometheus families only the JAX engine exports, by the slice that
-# brings them (ROADMAP Queue 1): the prefix and offload tiers of the KV
-# hierarchy and its gauges (item 4), the fleet, disaggregated handoff and
-# the front door (item 6).
+# brings them (ROADMAP Queue 1): the fleet, disaggregated handoff and the
+# front door (item 6).
 JAX_ONLY = {
-    "kv_hierarchy": {"prefix_hits", "prefix_misses", "prefix_inserts",
-                     "prefix_evictions", "swap_outs", "swap_ins"},
-    "kv_hierarchy_gauges": {"prefix_hit_rate", "kv_bytes_aliased",
-                            "kv_bytes_per_slot", "effective_slots",
-                            "slots_swapped", "swap_out_seconds",
-                            "swap_in_seconds"},
     "fleet": {"prefix_adoptions", "prefix_bytes_shipped", "affinity_routed",
               "handoffs", "handoffs_in", "handoff_fallbacks",
               "handoff_bytes_shipped", "handoff_latency_seconds",
@@ -577,6 +588,10 @@ def test_engine_streams_counters_spans_and_windows_equal_jax(layout):
     assert all(tk[n] == jk[n] for n in tk)
     assert set(jk) - set(tk) <= set().union(*JAX_ONLY.values())
     assert RESILIENCE <= set(tk)
+    assert KV_HIERARCHY <= set(tk)
+    assert KV_HIERARCHY_GAUGES & set(jk) <= set(tk)
+    if layout in ("int8", "hierarchy"):
+        assert KV_HIERARCHY_GAUGES <= set(tk)
 
 
 def test_engine_trace_file_validates_and_rides_request_tracks(tmp_path):
@@ -648,7 +663,9 @@ def test_new_key_after_mark_warm_counts_one_recompile():
 
 @pytest.mark.parametrize("extra", [
     {}, {"paged_kv": True, "kv_page_len": 8},
-    {"fault_injection": True, "step_budget_s": 30.0}])
+    {"fault_injection": True, "step_budget_s": 30.0},
+    {"paged_kv": True, "kv_page_len": 8, "prefix_cache": True,
+     "host_offload": True, "max_slots": 1}])
 def test_dropped_engine_is_freed_without_the_cycle_collector(extra):
     """No gauge, detector or watchdog refers back to the engine: dropping
     the last reference frees it (and on the card its pool and graphs) at
@@ -662,6 +679,13 @@ def test_dropped_engine_is_freed_without_the_cycle_collector(extra):
         # must not leave a reference back either.
         from deepspeed_tpu_torch.inference import Fault, FaultPlan
         eng.inject_faults(FaultPlan(faults=(Fault("raise", step=1),)))
+    if extra.get("host_offload"):
+        # The hierarchy's gauges and hooks too, after hits and swaps.
+        head = prompts([9])[0]
+        eng.generate([np.concatenate([head, t]) for t in prompts([2, 3])],
+                     max_new_tokens=12)
+        assert eng.metrics()["swap_outs"] >= 1
+        assert eng.metrics()["prefix_hits"] >= 1
     eng.generate(prompts([5]), max_new_tokens=6)
     if extra.get("fault_injection"):
         assert eng.metrics()["recoveries"] == 1
