@@ -34,7 +34,11 @@ of which exits non-zero on failure:
    positions per slot and the table [[LANE_SLOT]]); K5 must equal K3 on the
    gathered plane, and K6 K4, bit for bit; times each kernel and
    its plain version beside the bound (no single PyTorch call computes
-   paged or int8 decode attention: library_ms is null);
+   paged or int8 decode attention: library_ms is null); then the fleet
+   phases' shapes (FLEET_SERVE: 8 slots, a plane of 528 positions):
+   K3 in the decode lane (S1) and the verify lane (S3), K5 in the dense
+   pools' prefill lane (S16), K6 in the paged int8 pass's decode, verify
+   and prefill lanes, bf16, against their plain versions and dense twins;
    then the decode-kernel stress: K3, K4, K5 and K6 at the bf16 decode case
    over STRESS_SEEDS fresh seeds each, every case held to its limit (and K5
    = K3, K6 = K4 bit for bit); the count of cases over the limit per
@@ -153,6 +157,33 @@ of which exits non-zero on failure:
    host offload; K4, prefill lane K6) under phase_sustained's arrivals:
    hit rate, swaps, TTFT p50/p99, goodput, attainment, effective slots;
    fails on a lost request, a recompile or launches off the run's steps;
+4g. the serving fleet (phase_fleet): the JAX ``bench.py --fleet-smoke``
+   TPU setting (FLEET_SERVE: 8 slots, max_len 512, chunk 8, prefill
+   chunk 16, speculation at spec_k 2, the prefix cache) on 24 requests
+   over two shared 24-token templates, 48 new tokens: (i) one warm engine
+   (the reference, and the tokens/s a fleet is compared with); (ii) two
+   replicas on the card, each on its own stream and thread, affinity
+   off, fault-free, then FLEET_SHIPMENTS prefix rows shipped replica to
+   replica, timed and byte-equal; (iii) two replicas, affinity on: once
+   replica 0 owns a request with tokens delivered, a raise kills it
+   (recovery_max_retries 0) while the second half arrives: none lost,
+   every stream held to (i) by phase 5's rule (sampled ones over the
+   Gumbel-max scores), the warm survivor captures nothing and rebinds no
+   pool tensor, each replica's own K3/K5 launches n_layer x its steps,
+   the fleet healthy, the autopsy's failover arrow from replica0 to
+   another replica with no hop gap; (iv) the first 8 requests on paged
+   int8 pools (K6) with a prefill-role and a mixed replica (handoffs
+   captured page by page, a prefix-page shipment byte-equal); one
+   ``fleet`` line with each transfer's ms and GB/s;
+4h. disaggregated serving (phase_disagg): the JAX ``bench.py --disagg``
+   TPU setting (DISAGG_SERVE, DISAGG_LOAD: 64 Poisson arrivals at 12/s,
+   lognormal prompts of mean 192), one prefill and two decode replicas
+   against the same three all mixed, each warmed on one thread (every
+   replica meets its keys) and driven open loop by SustainedRunner on
+   the stepping threads: none lost or shed, no fallback, no prefill lane
+   on a decode replica, no capture after warm-up, launches exact per
+   replica, every greedy stream held to one engine's by phase 5's rule;
+   the ITL and TTFT A/B is reported, not gated; one ``disagg`` line;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
@@ -244,7 +275,9 @@ of which exits non-zero on failure:
    64, dropout 0.1: one step on the card (kernels) against the port on
    the CPU (plain versions);
 15. the kernels line (each decode kernel's entry also carries its
-   launches in the hierarchy phase's runs), then the result line.
+   launches in the hierarchy phase's runs, per replica in the fleet
+   phases' runs, and its rows at the fleet's shapes), then the result
+   line.
 """
 
 import collections
@@ -270,10 +303,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from deepspeed_tpu_torch import init_inference, initialize  # noqa: E402
 from deepspeed_tpu_torch.inference import (  # noqa: E402
     EngineDeadError, EngineDraining, Fault, FaultPlan, InferenceEngine,
-    InjectedFault)
+    InjectedFault, ServingFleet)
 from deepspeed_tpu_torch.inference.kv_hierarchy import (  # noqa: E402
-    HierarchySpec, capture_slot, capture_slot_paged, restore_slot,
-    restore_slot_paged)
+    HierarchySpec, capture_slot, capture_slot_paged, record_nbytes,
+    restore_slot, restore_slot_paged)
 from deepspeed_tpu_torch.inference.kv_pool import (  # noqa: E402
     init_pool, paged_plane_len, plane_len_for, slot_cache_view)
 from deepspeed_tpu_torch.loadgen import (  # noqa: E402
@@ -631,6 +664,55 @@ CHAOS_LOAD = dict(arrival="poisson", rate=12.0, n_requests=64,
                   output_max=256, vocab_size=50257, seed=23)
 CHAOS_WINDOW_S, CHAOS_AFTER_S = 2.0, 1.0
 CHAOS_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
+# The serving fleet (phase_fleet): the JAX ``bench.py --fleet-smoke`` TPU
+# setting (bench.py:1663-1672): 2 replicas of 8 slots, max_len 512, chunk 8,
+# prefill_chunk 16, speculation (spec_k 2, spec_ngram 2), the prefix cache
+# (8 rows of 64, matches of 8); FLEET_REQUESTS requests over two shared
+# FLEET_TEMPLATE-token templates, FLEET_NEW new tokens each; the kill run
+# with fault injection and recovery_max_retries 0; a short pass of the first
+# FLEET_PAGED_REQUESTS on paged int8 pools (K6). A replica meets FLEET_KEYS.
+FLEET_SERVE = {"max_slots": 8, "max_len": 512, "chunk_size": 8,
+               "prefill_chunk": 16, "max_queue": 64, "spec_decode": True,
+               "spec_k": 2, "spec_ngram": 2, "prefix_cache": True,
+               "prefix_slots": 8, "prefix_len": 64, "min_prefix_len": 8}
+FLEET_CHAOS = {"fault_injection": True, "recovery_max_retries": 0}
+FLEET_PAGED = {"paged_kv": True, "kv_page_len": 128, "int8_kv": True}
+FLEET_REQUESTS, FLEET_NEW, FLEET_TEMPLATE = 24, 48, 24
+FLEET_PAGED_REQUESTS = 8
+# One engine and the fault-free fleet each serve the stream this many times
+# back to back (each wave drained before the next), so their tokens/s is
+# read over some seconds and its spread over the waves shows.
+FLEET_WAVES = 6
+# Prefix rows shipped one replica to the other, timed (phase_fleet (ii)).
+FLEET_SHIPMENTS = 8
+FLEET_KEYS = [(False, False, False), (False, True, False),
+              (True, False, False), (True, True, False)]
+# The fleet's kernel shapes (phase_decode_variants): its plane, its verify
+# lane's rows, and frontiers at the splits and the plane's end.
+FLEET_PLANE = plane_len_for(FLEET_SERVE["max_len"],
+                            FLEET_SERVE["prefill_chunk"])
+FLEET_VERIFY_S = FLEET_SERVE["spec_k"] + 1
+FLEET_DECODE_POS = [0, 1, 127, 128, 255, 256, 500, FLEET_PLANE - 1]
+FLEET_VERIFY_POS = [0, 125, 126, 127, 253, 254, 500,
+                    FLEET_PLANE - FLEET_VERIFY_S]
+FLEET_LANE_POS = [0, 127, 128, 500, FLEET_PLANE - FLEET_SERVE[
+    "prefill_chunk"]]
+# Disaggregated serving (phase_disagg): the JAX ``bench.py --disagg`` TPU
+# setting (bench.py:1908-1915): 1 prefill + 2 decode replicas against the
+# same 3 all mixed, 64 Poisson arrivals at 12/s, lognormal prompts (mean
+# 192, max 384), 48 new tokens, seed 23; SLO TTFT p99 2 s, ITL p99 200 ms.
+DISAGG_SERVE = {"max_slots": 8, "max_len": 512, "chunk_size": 8,
+                "prefill_chunk": 16, "max_queue": 128}
+DISAGG_ROLES = ("prefill", "decode", "decode")
+DISAGG_LOAD = dict(arrival="poisson", rate=12.0, n_requests=64,
+                   prompt_dist="lognormal", prompt_mean=192, prompt_max=384,
+                   output_dist="fixed", output_mean=48, output_max=48,
+                   vocab_size=50257, seed=23)
+DISAGG_WINDOW_S = 2.0
+# After the timed A/B, this many of the stream's prompts go through the
+# disaggregated fleet again, untimed, with the transports timed.
+DISAGG_PROBE_REQUESTS = 8
+DISAGG_SLO = SLO(ttft_p99_ms=2000.0, itl_p99_ms=200.0)
 # The training breakdown (phase_train_breakdown): phase_train's setting,
 # steps with the timers on and off from one seed, fused and split.
 BREAKDOWN_STEPS = 4
@@ -968,25 +1050,27 @@ def _paged(planes, pos, S, seed, page_len=PAGE_LEN):
 
 
 def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
-             page_len=PAGE_LEN):
+             page_len=PAGE_LEN, serve=SERVE):
     """One case of decode kernel ``kind`` (a key of DECODE_KEYS) on the
     card: launches of the kernel, its plain version and its dense twin
     (K3 on the gathered plane for K5, K4 for K6), the fp32 planes its limit
     is computed from, and what its bound counts. Paged kinds use pages of
-    ``page_len`` positions."""
+    ``page_len`` positions; the plane is the one ``serve``'s max_len and
+    prefill_chunk give."""
     item = dtype.itemsize
     if kind in ("decode", "q8"):
-        T, extra = PLANE, 0
+        T, extra = plane_len_for(serve["max_len"], serve["prefill_chunk"]), 0
         if kind == "decode":
-            q, k, v, pos = _case(B, S, frontiers, dtype, seed)
+            q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
             ops, kv = (k, v), (k, v)
         else:
-            q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed)
+            q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed,
+                                              T)
             ops = (kc, vc, ks, vs)
             kv = (da.dequantize_kv(kc, ks), da.dequantize_kv(vc, vs))
         twin = None
     else:
-        T = paged_plane_len(SERVE["max_len"], SERVE["prefill_chunk"],
+        T = paged_plane_len(serve["max_len"], serve["prefill_chunk"],
                             page_len)
         if kind == "paged":
             q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
@@ -1022,21 +1106,23 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
             "plain": lambda: plain(q, *ops, pos, scale)}
 
 
-def _lane_variant(kind, frontier, dtype, seed, scale=1.0 / 8.0):
+def _lane_variant(kind, frontier, dtype, seed, scale=1.0 / 8.0,
+                  serve=SERVE):
     """The dense pools' prefill lane as the engine runs it: one layer of a
-    pool of SERVE's slots (``init_pool``; int8 codes and scales for
+    pool of ``serve``'s slots (``init_pool``; int8 codes and scales for
     ``kind`` "paged_q8"), every slot's plane filled (garbage past each
     frontier), viewed by ``slot_cache_view`` at slot LANE_SLOT: the planes
-    as an arena of one PLANE-long page per slot and the table
+    as an arena of one plane-long page per slot and the table
     [[LANE_SLOT]]. K5 (K6) there against its plain version, and against K3
     (K4) on the slot's own plane bit for bit. The ``_variant`` dict."""
-    slots, S = SERVE["max_slots"], SERVE["prefill_chunk"]
+    slots, S = serve["max_slots"], serve["prefill_chunk"]
+    T = plane_len_for(serve["max_len"], S)
     q8 = kind == "paged_q8"
     gcfg = generation.as_gencfg(GPT2Config(n_layer=1, n_head=16,
                                            n_embd=1024, dtype=dtype))
-    pool = init_pool(gcfg, slots, SERVE["max_len"], slack=S, device="cuda",
+    pool = init_pool(gcfg, slots, serve["max_len"], slack=S, device="cuda",
                      hier=HierarchySpec(int8=q8))
-    q, k, v, pos = _case(slots, S, [frontier] * slots, dtype, seed)
+    q, k, v, pos = _case(slots, S, [frontier] * slots, dtype, seed, T)
     if q8:
         (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
         for name, t in (("k", kc), ("v", vc), ("k_scale", ks),
@@ -1064,7 +1150,7 @@ def _lane_variant(kind, frontier, dtype, seed, scale=1.0 / 8.0):
                                 da.decode_attention_paged_reference,
                                 da.flash_decode_attention)
         kv = own
-    return {"q": q, "pos": pos, "T": PLANE, "kv": kv, "q8": q8,
+    return {"q": q, "pos": pos, "T": T, "kv": kv, "q8": q8,
             "key_bytes": 2 * 64 + 8 if q8 else 2 * 64 * dtype.itemsize,
             "extra": 4, "twin": lambda: dense(q, *own, pos, scale),
             "kernel": lambda: kernel(q, *arenas, tbl, pos, scale),
@@ -1185,7 +1271,58 @@ def phase_decode_variants():
                 rows[kind].append(row)
                 print(label + " " + json.dumps(row))
                 del c
+    rows["fleet_shapes"] = _fleet_shape_rows()
     return rows
+
+
+def _fleet_shape_rows():
+    """The decode kernels at the fleet phases' shapes (FLEET_SERVE: 8
+    slots, a plane of FLEET_PLANE positions, verify at S FLEET_VERIFY_S,
+    prefill lanes of 16), bf16, against their plain versions (and K5/K6
+    against their dense twins): K3 in the decode and verify lanes, K5 in
+    the dense pools' prefill lane, K6 in the paged int8 pass's decode,
+    verify and prefill lanes; timed at frontier 500 (the lane) and at the
+    decode and verify frontier sets. Returns {kind: rows}."""
+    B, S_lane = FLEET_SERVE["max_slots"], FLEET_SERVE["prefill_chunk"]
+    dtype = torch.bfloat16
+    cases = [("decode", "K3", "fleet_decode", B, 1, FLEET_DECODE_POS),
+             ("decode", "K3", "fleet_verify", B, FLEET_VERIFY_S,
+              FLEET_VERIFY_POS),
+             ("paged_q8", "K6", "fleet_paged_decode", B, 1,
+              FLEET_DECODE_POS),
+             ("paged_q8", "K6", "fleet_paged_verify", B, FLEET_VERIFY_S,
+              FLEET_VERIFY_POS)]
+    cases += [("paged_q8", "K6", "fleet_paged_prefill_lane", 1, S_lane, [p])
+              for p in FLEET_LANE_POS]
+    out = {}
+    for seed, (kind, label, name, Bc, S, frontiers) in enumerate(cases):
+        c = _variant(kind, Bc, S, frontiers, dtype, seed=300 + seed,
+                     page_len=FLEET_PAGED["kv_page_len"], serve=FLEET_SERVE)
+        out.setdefault(kind, []).append(_fleet_shape_row(
+            label, name, c, dtype, frontiers, S))
+    for seed, p in enumerate(FLEET_LANE_POS):
+        c = _lane_variant("paged", p, dtype, seed=400 + seed,
+                          serve=FLEET_SERVE)
+        out.setdefault("paged", []).append(_fleet_shape_row(
+            "K5", "fleet_dense_prefill_lane_slot{}".format(LANE_SLOT), c,
+            dtype, [p], S_lane))
+    return out
+
+
+def _fleet_shape_row(label, name, c, dtype, frontiers, S):
+    row = dict(case=name, B=int(c["q"].shape[0]), S=S, T=c["T"],
+               pos=frontiers, **_decode_check(label, c, dtype, frontiers))
+    if not row["ok"]:
+        print(label + " " + json.dumps(row))
+        fail("{} disagrees with its plain version or its dense twin at the "
+             "fleet's shape {}".format(label, name))
+    if len(frontiers) > 1 or frontiers == [500]:
+        row["ms"] = cuda_ms(c["kernel"])
+        row["plain_ms"] = cuda_ms(c["plain"])
+        row["bound_ms"], row["bound_by"] = _bound(
+            c["q"], c["pos"], c["T"], c["key_bytes"], c["extra"])
+    print(label + " " + json.dumps(row))
+    return row
 
 
 def phase_stress():
@@ -2938,6 +3075,721 @@ def phase_sustained_hier(card, model):
     return line
 
 
+# ------------------------------------------------------------ the fleet
+
+
+def _fleet_requests(vocab):
+    """The JAX ``--fleet-smoke`` stream (bench.py:1690-1704): request i is
+    one of two shared FLEET_TEMPLATE-token templates with a 4-8 token
+    tail, FLEET_NEW new tokens, greedy and sampled (temperature 0.7)
+    alternating, every third opted out of speculation."""
+    rng = np.random.RandomState(11)
+    templates = rng.randint(0, vocab, size=(2, FLEET_TEMPLATE))
+    return [{"prompt": np.concatenate([templates[i % 2], rng.randint(
+                0, vocab, size=4 + i % 5)]),
+             "max_new_tokens": FLEET_NEW,
+             "temperature": 0.0 if i % 2 == 0 else 0.7,
+             "seed": 1000 + i, "spec_decode": i % 3 != 0}
+            for i in range(FLEET_REQUESTS)]
+
+
+def _fleet_submit(target, reqs):
+    return [target.submit(r["prompt"], max_new_tokens=r["max_new_tokens"],
+                          temperature=r["temperature"], seed=r["seed"],
+                          spec_decode=r["spec_decode"]) for r in reqs]
+
+
+def _fleet_sampling(r):
+    """``_held_to``'s sampling argument for one request of the stream."""
+    return (r["temperature"], 0, r["seed"]) if r["temperature"] > 0 else None
+
+
+def _warm_keys(engine, vocab):
+    """Let ``engine`` meet every key of the fleet streams (prefill lane or
+    not, any row sampling or not) on two requests of its own: a long
+    greedy one and a shorter sampled one admitted with it, neither
+    speculating (so each step emits chunk_size tokens and the order of
+    the keys is fixed). Then mark it warm."""
+    rng = np.random.RandomState(29)
+    engine.submit(rng.randint(0, vocab, size=20), max_new_tokens=48,
+                  spec_decode=False)
+    engine.submit(rng.randint(0, vocab, size=20), max_new_tokens=20,
+                  temperature=0.7, seed=5, spec_decode=False)
+    engine.run()
+    if sorted(engine._programs) != FLEET_KEYS:
+        fail("fleet: the warm-up met keys {}".format(sorted(engine._programs)))
+    engine.recompile_detector.mark_warm()
+
+
+class _Observed(object):
+    """A histogram that also keeps every value it observes in ``sink``."""
+
+    def __init__(self, hist, sink):
+        self._hist, self._sink = hist, sink
+
+    def observe(self, value):
+        self._sink.append(value)
+        self._hist.observe(value)
+
+    def __getattr__(self, name):
+        return getattr(self._hist, name)
+
+
+class _FleetProbe(object):
+    """Times the fleet's transports on every replica: a prefix row's
+    capture (``export_prefix``: host clock, it waits for its copies) and
+    restore (``adopt_prefix``: CUDA events on the acceptor's stream), a
+    step's handoff capture (``_capture_handoffs``: host clock over its one
+    synchronization) and a handoff's restore (``adopt_handoff``: CUDA
+    events on the acceptor's stream), each with its bytes. Put only on
+    untimed runs: its wrappers run on the side that ships."""
+
+    def __init__(self, fleet):
+        self.exports, self.adopts = [], []
+        self.captures, self.restores = [], []
+        # Capture to adoption, seconds, as the donor's histogram observes
+        # it (the runner's collector windows the histogram itself).
+        self.latency = []
+        for rep in fleet.replicas:
+            self._wrap(rep.engine)
+
+    def _wrap(self, eng):
+        probe = self
+        export, adopt = eng.export_prefix, eng.adopt_prefix
+        capture, adopt_h = eng._capture_handoffs, eng.adopt_handoff
+        eng._handoff_latency_hist = _Observed(eng._handoff_latency_hist,
+                                              probe.latency)
+
+        def timed_export(tokens):
+            t0 = time.perf_counter()
+            out = export(tokens)
+            if out is not None:
+                probe.exports.append(((time.perf_counter() - t0) * 1e3,
+                                      sum(v.nbytes for v in out[1].values())))
+            return out
+
+        def on_stream(fn, *args):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            marks[0].record(eng._stream)
+            out = fn(*args)
+            marks[1].record(eng._stream)
+            return out, marks
+
+        def timed_adopt(tokens, record):
+            ok, marks = on_stream(adopt, tokens, record)
+            if ok:
+                probe.adopts.append((marks, sum(v.nbytes
+                                                for v in record.values())))
+            return ok
+
+        def timed_capture():
+            n0 = eng.counters["handoff_bytes_shipped"]
+            h0 = eng.counters["handoffs"]
+            t0 = time.perf_counter()
+            capture()
+            if eng.counters["handoffs"] > h0:
+                probe.captures.append((
+                    (time.perf_counter() - t0) * 1e3,
+                    eng.counters["handoff_bytes_shipped"] - n0,
+                    eng.counters["handoffs"] - h0))
+
+        def timed_adopt_handoff(spec, record):
+            req, marks = on_stream(adopt_h, spec, record)
+            if req is not None:
+                probe.restores.append((marks, sum(v.nbytes
+                                                  for v in record.values())))
+            return req
+
+        eng.export_prefix, eng.adopt_prefix = timed_export, timed_adopt
+        eng._capture_handoffs = timed_capture
+        eng.adopt_handoff = timed_adopt_handoff
+
+    @staticmethod
+    def _summary(ms, nbytes):
+        med_ms, med_b = _pct(ms, 50), _pct(nbytes, 50)
+        return {"n": len(ms), "ms_p50": med_ms, "ms_p99": _pct(ms, 99),
+                "bytes_p50": med_b,
+                "gb_per_s": med_b / med_ms / 1e6 if ms and med_ms else None}
+
+    def report(self):
+        """Per transport: count, ms p50/p99, bytes p50, GB/s (median bytes
+        over median ms); a prefix row's and a handoff's shipment as the
+        sum of its two medians."""
+        torch.cuda.synchronize()
+        out = {}
+        for name, rows in (("prefix_adopt", self.adopts),
+                           ("handoff_restore", self.restores)):
+            out[name] = self._summary([a.elapsed_time(b) for (a, b), _
+                                       in rows], [n for _, n in rows])
+        out["prefix_export"] = self._summary([t for t, _ in self.exports],
+                                             [n for _, n in self.exports])
+        per = [(t / k, n / k) for t, n, k in self.captures]
+        out["handoff_capture"] = dict(
+            self._summary([t for t, _ in per], [n for _, n in per]),
+            steps=len(self.captures))
+        out["handoff_latency_ms"] = {
+            "n": len(self.latency),
+            "p50": _ms(_pct(self.latency, 50)),
+            "p99": _ms(_pct(self.latency, 99))}
+        for ship, a, b in (("prefix_shipment", "prefix_export",
+                            "prefix_adopt"),
+                           ("handoff_shipment", "handoff_capture",
+                            "handoff_restore")):
+            if out[a]["n"] and out[b]["n"]:
+                ms = out[a]["ms_p50"] + out[b]["ms_p50"]
+                out[ship] = {"ms_p50": ms, "gb_per_s":
+                             out[b]["bytes_p50"] / ms / 1e6}
+        return out
+
+
+def _launch_marks(fleet):
+    """Zero each replica's own launch counts and note its steps and prefill
+    lanes so far: ``_exact_replica_launches`` counts from here."""
+    marks = []
+    for rep in fleet.replicas:
+        eng = rep.engine
+        for kind in eng.launches:
+            eng.launches[kind] = 0
+        marks.append((eng.counters["chunks"], eng._lane_steps.value))
+    return marks
+
+
+def _exact_replica_launches(fleet, marks, kernel, lane_kernel, label):
+    """Each replica's own decode-kernel launches since ``_launch_marks``:
+    n_layer x chunk_size per step of its decode lane (``kernel``; a
+    speculating lane verifies once per decode step) and n_layer per
+    prefill lane (``lane_kernel``), the others 0. A dead replica's faulted
+    step ran no program. Returns {replica: launches}."""
+    out = {}
+    for rep, (c0, lanes0) in zip(fleet.replicas, marks):
+        eng = rep.engine
+        n_layer = eng._params.config.n_layer
+        want = dict.fromkeys(eng.launches, 0)
+        want[kernel] += n_layer * (eng.counters["chunks"] - c0) * \
+            eng.config.chunk_size
+        want[lane_kernel] += n_layer * int(eng._lane_steps.value - lanes0)
+        if eng.launches != want:
+            fail("{}: replica {} launched {}, its steps say {}".format(
+                label, rep.rid, eng.launches, want))
+        out[rep.rid] = dict(eng.launches)
+    return out
+
+
+def _held_fleet(model, reqs, got, ref, what):
+    """Phase 5's rule over every stream (sampled ones over their
+    Gumbel-max scores); returns how many are bit-equal."""
+    return sum(_held_to(model, r["prompt"], g, w,
+                        "{} request {}".format(what, i), _fleet_sampling(r))
+               for i, (r, g, w) in enumerate(zip(reqs, got, ref)))
+
+
+def _ms(seconds):
+    return None if seconds is None else seconds * 1e3
+
+
+def _fleet_lost(frs, new):
+    return [i for i, fr in enumerate(frs)
+            if fr.phase != "done" or len(fr.tokens) != new]
+
+
+def _fleet_unharmed(fleet, label):
+    """The facts of a fleet run with no fault injected: no failover, every
+    replica alive, the fleet healthy. The fleet fails a replica over on
+    any error out of its step and the survivors finish its streams, so
+    the streams alone would not show such a death: fail on it here."""
+    facts = {"failovers": fleet.failovers,
+             "all_alive": all(rep.alive for rep in fleet.replicas),
+             "fleet_health": fleet.health}
+    if facts != {"failovers": 0, "all_alive": True,
+                 "fleet_health": "healthy"}:
+        fail("{}: a replica failed with no fault injected: {}; causes {}"
+             .format(label, facts, {rep.rid: repr(rep.cause)
+                                    for rep in fleet.replicas}))
+    return facts
+
+
+def _serve_waves(submit, settle, reqs):
+    """FLEET_WAVES times: submit the stream, settle it. Returns the
+    handles wave by wave and each wave's wall clock, synchronized."""
+    waves, walls = [], []
+    for _ in range(FLEET_WAVES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves.append(submit(reqs))
+        settle()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return waves, walls
+
+
+def _wave_rates(walls):
+    tokens = FLEET_REQUESTS * FLEET_NEW
+    return {"waves": len(walls), "wall_s": sum(walls), "wave_wall_s": walls,
+            "tokens_per_sec": tokens * len(walls) / sum(walls),
+            "wave_tokens_per_sec_min": tokens / max(walls),
+            "wave_tokens_per_sec_max": tokens / min(walls)}
+
+
+def phase_fleet(card, model):
+    """The JAX ``--fleet-smoke`` TPU setting (FLEET_SERVE, the stream of
+    ``_fleet_requests``) at full width: (i) one engine, warm, serves the
+    stream FLEET_WAVES times back to back (its first wave is the
+    reference every stream is held to; the waves' tokens/s is what a
+    fleet is compared with); (ii) two replicas, prefix affinity off,
+    fault-free, the same waves, then the prefix-row transport timed
+    alone; (iii) two replicas, affinity on: once
+    replica 0 owns a request with tokens delivered, a ``raise`` kills it
+    (recovery_max_retries 0) while the second half of the stream arrives;
+    (iv) a short pass on a paged int8 fleet with a prefill-role replica
+    (K6; prefix pages shipped, handoffs captured page by page), and an
+    explicit prefix-page adoption checked byte for byte. Fails on a lost
+    request, a stream off its reference by phase 5's rule, a capture on a
+    warm replica, a rebound pool tensor on the survivor, per-replica
+    launches off their steps, a replica failed in a run with no fault
+    injected (or in the kill run, of anything but the injected fault), an
+    unhealthy fleet at exit, or an autopsy whose failover arrow does not
+    cross replicas. One ``fleet`` line."""
+    vocab = model.config.vocab_size
+    reqs = _fleet_requests(vocab)
+    line = {"fleet": "gpt2-medium bf16, 2 replicas on one card",
+            "serve_cfg": FLEET_SERVE, "card": card,
+            "stream": "{} requests, 2 shared {}-token templates + 4-8 token "
+                      "tails, {} new tokens, greedy / sampled alternating, "
+                      "every third without speculation".format(
+                          FLEET_REQUESTS, FLEET_TEMPLATE, FLEET_NEW)}
+    # (i) one engine.
+    eng = InferenceEngine(model, config=dict(FLEET_SERVE))
+    _warm_keys(eng, vocab)
+    waves, walls = _serve_waves(lambda rs: _fleet_submit(eng, rs), eng.run,
+                                reqs)
+    ref = [h.tokens for h in waves[0]]
+    if any(len(t) != FLEET_NEW for t in ref):
+        fail("fleet: the single engine's streams are short")
+    line["single_engine"] = dict(_wave_rates(walls), streams_bit_equal=sum(
+        _held_fleet(model, reqs, [h.tokens for h in wave], ref,
+                    "one engine, wave {}".format(k))
+        for k, wave in enumerate(waves[1:], 1)))
+    del eng, waves
+    # (ii) two replicas, affinity off, fault-free.
+    fleet = ServingFleet(model, n_replicas=2, config=dict(FLEET_SERVE),
+                         prefix_affinity=False, start=False,
+                         window_seconds=2.0)
+    try:
+        for rep in fleet.replicas:
+            _warm_keys(rep.engine, vocab)
+        fleet.metrics(reset=True)
+        fleet.start()
+
+        def settle():
+            if not fleet.wait_idle(timeout_s=300.0):
+                fail("fleet affinity off: did not settle")
+
+        waves, walls = _serve_waves(lambda rs: _fleet_submit(fleet, rs),
+                                    settle, reqs)
+        frs = [fr for wave in waves for fr in wave]
+        if _fleet_lost(frs, FLEET_NEW):
+            fail("fleet affinity off: lost {}".format(_fleet_lost(
+                frs, FLEET_NEW)))
+        m = fleet.metrics()
+        line["affinity_off"] = dict(
+            _wave_rates(walls),
+            speedup_over_one_engine=line["single_engine"]["wall_s"]
+            / sum(walls),
+            fleet_prefix_hit_rate=fleet.prefix_hit_rate(),
+            prefill_tokens=fleet.counters["prefill_tokens"],
+            owners=[fr.replica_id for fr in waves[0]],
+            recompiles=[r["recompiles"] for r in m["replicas"].values()],
+            streams_bit_equal=sum(
+                _held_fleet(model, reqs, [fr.tokens for fr in wave], ref,
+                            "fleet affinity off, wave {}".format(k))
+                for k, wave in enumerate(waves)),
+            **_fleet_unharmed(fleet, "fleet affinity off"))
+        if any(line["affinity_off"]["recompiles"]):
+            fail("fleet affinity off: a warm replica captured a program")
+        line["row_shipment"] = _ship_rows(fleet, [int(t) for t in reqs[0][
+            "prompt"][:FLEET_TEMPLATE]])
+    finally:
+        fleet.close()
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["kill"] = _fleet_kill(model, reqs, ref, vocab)
+    line["paged_int8"] = _fleet_paged(model, reqs, vocab)
+    print("fleet " + json.dumps(line))
+    return line
+
+
+def _ship_rows(fleet, template):
+    """The prefix-row transport alone, timed: FLEET_SHIPMENTS times, the
+    replica holding ``template``'s row exports it and the other, its store
+    emptied first (derived state; the engine is idle), adopts it; each
+    adopted row re-exported must equal the record byte for byte. Under
+    each replica's lock in turn, as the fleet ships."""
+    probe = _FleetProbe(fleet)
+    reps = fleet.replicas
+    with reps[0].lock:
+        first = reps[0].engine.export_prefix(template)
+    src, dst = (reps[0], reps[1]) if first is not None else \
+        (reps[1], reps[0])
+    equal = 0
+    for _ in range(FLEET_SHIPMENTS):
+        with src.lock:
+            out = src.engine.export_prefix(template)
+        if out is None:
+            fail("fleet: no replica holds the template's prefix row")
+        matched, record = out
+        with dst.lock:
+            dst.engine._hier.store.reset()
+            if not dst.engine.adopt_prefix(matched, record):
+                fail("fleet: the acceptor refused a prefix row")
+            back = dst.engine.export_prefix(list(matched))
+        equal += back is not None and all(
+            torch.equal(back[1][n], record[n]) for n in record)
+    facts = dict(probe.report(), tokens=len(matched),
+                 byte_equal=equal, shipments=FLEET_SHIPMENTS)
+    for key in ("handoff_restore", "handoff_capture", "handoff_latency_ms"):
+        del facts[key]
+    if equal != FLEET_SHIPMENTS:
+        fail("fleet: a shipped prefix row differs from its record")
+    return facts
+
+
+def _fleet_kill(model, reqs, ref, vocab):
+    """(iii) of phase_fleet."""
+    fleet = ServingFleet(model, n_replicas=2, config=dict(
+        FLEET_SERVE, **FLEET_CHAOS), start=False, window_seconds=2.0)
+    try:
+        for rep in fleet.replicas:
+            _warm_keys(rep.engine, vocab)
+        survivor = fleet.replicas[1].engine
+        programs = survivor.compile_count
+        addrs = {n: t.data_ptr() for n, t in survivor._pool.items()}
+        fleet.metrics(reset=True)
+        marks = _launch_marks(fleet)
+        half = FLEET_REQUESTS // 2
+        fleet.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wave1 = _fleet_submit(fleet, reqs[:half])
+        deadline = time.time() + 120.0
+        while not any(fr.replica_id == 0 and fr.tokens and not fr.done
+                      for fr in wave1):
+            if time.time() > deadline:
+                fail("fleet: replica 0 never owned a request mid-stream")
+            time.sleep(0.001)
+        at_kill = [{"fid": fr.fid, "tokens_delivered": len(fr.tokens)}
+                   for fr in wave1 if fr.replica_id == 0 and not fr.done]
+        fleet.inject_faults(FaultPlan(faults=(Fault("raise", step=0),)),
+                            replica=0)
+        frs = wave1 + _fleet_submit(fleet, reqs[half:])
+        if not fleet.wait_idle(timeout_s=300.0):
+            fail("fleet kill: did not settle")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lost = _fleet_lost(frs, FLEET_NEW)
+        m = fleet.metrics()
+        agg = m["fleet"]
+        moved = [fr for fr in frs if fr.failovers > 0]
+        facts = {
+            "wall_s": wall, "tokens_per_sec": FLEET_REQUESTS * FLEET_NEW
+            / wall, "requests_lost": len(lost), "mid_stream_at_kill": at_kill,
+            "failovers": fleet.failovers, "moved": len(moved),
+            "dead_replicas": [r.rid for r in fleet.replicas if not r.alive],
+            "fleet_health_at_exit": fleet.health,
+            "fleet_prefix_hit_rate": fleet.prefix_hit_rate(),
+            "prefix_hits": agg["prefix_hits"],
+            "prefix_misses": agg["prefix_misses"],
+            "prefix_adoptions": agg["prefix_adoptions"],
+            "prefix_bytes_shipped": agg["prefix_bytes_shipped"],
+            "affinity_routed": agg["affinity_routed"],
+            "prefill_tokens": fleet.counters["prefill_tokens"],
+            "survivor_compile_count": survivor.compile_count,
+            "survivor_recompiles": m["replicas"][1]["recompiles"],
+            "replayed_resyncs": survivor.counters["requests_replayed"],
+            "causes": {rep.rid: repr(rep.cause) for rep in fleet.replicas}}
+        if lost:
+            fail("fleet kill: lost {}".format(lost))
+        facts["launches"] = _exact_replica_launches(
+            fleet, marks, "decode", "paged", "fleet kill")
+        facts["streams_bit_equal"] = _held_fleet(
+            model, reqs, [fr.tokens for fr in frs], ref, "fleet kill")
+        moved_addrs = [n for n, t in survivor._pool.items()
+                       if t.data_ptr() != addrs[n]]
+        # Replica 0 died of the injected fault (recovery_max_retries 0),
+        # and nothing else failed a replica.
+        cause = fleet.replicas[0].cause
+        if not isinstance(cause, EngineDeadError) or \
+                not isinstance(cause.__cause__, InjectedFault) or \
+                any(rep.cause is not None for rep in fleet.replicas[1:]):
+            print("fleet " + json.dumps(facts))
+            fail("fleet kill: a replica failed of something other than the "
+                 "injected fault: {}".format(facts["causes"]))
+        if not moved or fleet.failovers < 1 or \
+                facts["dead_replicas"] != [0] or fleet.health != "healthy" \
+                or survivor.compile_count != programs or \
+                facts["survivor_recompiles"] or moved_addrs:
+            print("fleet " + json.dumps(facts))
+            fail("fleet kill: the failover invariant does not hold (moved "
+                 "{}, pool tensors rebound {})".format(len(moved),
+                                                      moved_addrs))
+        tree = fleet.explain(moved[0])
+        names = [h["name"] for h in tree["hops"]]
+        sites = {h["name"]: h["site"] for h in tree["hops"]}
+        facts["autopsy"] = {"hops": len(names), "failover_out": sites.get(
+            "request/failover_out"), "failover_in": sites.get(
+            "request/failover_in"), "hop_gaps": tree["hop_gaps"],
+            "terminal": tree["terminal"]}
+        if sites.get("request/failover_out") != "replica0" or \
+                sites.get("request/failover_in") in (None, "replica0") or \
+                tree["hop_gaps"] or \
+                not tree["terminal"].get("lost_then_replayed"):
+            print("fleet " + json.dumps(facts))
+            fail("fleet kill: the autopsy's failover arrow does not cross "
+                 "replicas")
+        return facts
+    finally:
+        fleet.close()
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _fleet_paged(model, reqs, vocab):
+    """(iv) of phase_fleet: the first FLEET_PAGED_REQUESTS of the stream
+    on paged int8 pools with a prefill-role and a mixed replica, stepped
+    on this thread (submit, two fleet steps, next), against one paged
+    int8 engine; then an explicit prefix-page adoption, re-exported byte
+    for byte."""
+    cfg = dict(FLEET_SERVE, **FLEET_PAGED)
+    reqs = reqs[:FLEET_PAGED_REQUESTS]
+    eng = InferenceEngine(model, config=dict(cfg))
+    handles = _fleet_submit(eng, reqs)
+    eng.run()
+    ref = [h.tokens for h in handles]
+    del eng, handles
+    fleet = ServingFleet(model, n_replicas=2, config=cfg,
+                         roles=("prefill", "mixed"), start=False,
+                         window_seconds=2.0)
+    try:
+        probe = _FleetProbe(fleet)
+        marks = _launch_marks(fleet)
+        frs = []
+        for r in reqs:
+            frs += _fleet_submit(fleet, [r])
+            fleet.step()
+            fleet.step()
+        if not fleet.wait_idle(timeout_s=300.0):
+            fail("fleet paged int8: did not settle")
+        if _fleet_lost(frs, FLEET_NEW):
+            fail("fleet paged int8: lost {}".format(_fleet_lost(
+                frs, FLEET_NEW)))
+        agg = fleet.metrics()["fleet"]
+        facts = {"roles": ["prefill", "mixed"],
+                 "requests": FLEET_PAGED_REQUESTS,
+                 "handoffs": agg["handoffs"],
+                 "handoffs_in": agg["handoffs_in"],
+                 "handoff_fallbacks": agg["handoff_fallbacks"],
+                 "prefix_adoptions": agg["prefix_adoptions"],
+                 "affinity_routed": agg["affinity_routed"],
+                 "fleet_prefix_hit_rate": fleet.prefix_hit_rate(),
+                 "launches": _exact_replica_launches(
+                     fleet, marks, "paged_q8", "paged_q8",
+                     "fleet paged int8"),
+                 "streams_bit_equal": _held_fleet(
+                     model, reqs, [fr.tokens for fr in frs], ref,
+                     "fleet paged int8"),
+                 **_fleet_unharmed(fleet, "fleet paged int8")}
+        if agg["handoffs"] < 1 or agg["handoffs"] != agg["handoffs_in"] \
+                or agg["handoff_fallbacks"]:
+            fail("fleet paged int8: handoffs {}".format(facts))
+        # An explicit shipment of a template's prefix pages, from the
+        # replica that holds it to one that does not (or, when both do,
+        # each re-exported), byte for byte.
+        template = [int(t) for t in reqs[0]["prompt"][:FLEET_TEMPLATE]]
+        engines = [rep.engine for rep in fleet.replicas]
+        held = [e.export_prefix(template) for e in engines]
+        donor = next(i for i, h in enumerate(held) if h is not None)
+        matched, record = held[donor]
+        acceptor = engines[1 - donor]
+        if held[1 - donor] is None:
+            if not acceptor.adopt_prefix(matched, record):
+                fail("fleet paged int8: the acceptor refused the pages")
+        back = acceptor.export_prefix(list(matched))
+        same = back is not None and tuple(back[0]) == tuple(matched) and \
+            all(torch.equal(back[1][n], record[n]) for n in record)
+        facts["page_shipment"] = {
+            "tokens": len(matched), "bytes": record_nbytes(record),
+            "int8": record["pk"].dtype == torch.int8,
+            "adopted": held[1 - donor] is None, "byte_equal": same}
+        facts["transfers"] = probe.report()
+        if not same:
+            fail("fleet paged int8: shipped prefix pages differ")
+        return facts
+    finally:
+        fleet.close()
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _disagg_side(card, model, roles, spec, reqs):
+    """One side of phase_disagg: a 3-replica fleet (``roles``; None all
+    mixed) warmed on this thread by six requests of the stream's mean
+    prompt length (every replica meets its keys: a prefill replica the
+    lane key, a decode replica the lane-free one, a mixed replica both),
+    marked warm, then driven open loop by loadgen's SustainedRunner on
+    the stepping threads; a disaggregated side then times its handoffs
+    on an untimed pass (``_probe_handoffs``). Fails if a replica failed.
+    Returns (line, the streams in submission order)."""
+    vocab = model.config.vocab_size
+    fleet = ServingFleet(model, n_replicas=3, config=dict(DISAGG_SERVE),
+                         roles=roles, start=False,
+                         window_seconds=DISAGG_WINDOW_S)
+    label = "disagg" if roles else "mixed"
+    try:
+        rng = np.random.RandomState(7)
+        for i in range(6):
+            fleet.submit(rng.randint(0, vocab, size=DISAGG_LOAD[
+                "prompt_mean"]), max_new_tokens=DISAGG_LOAD["output_mean"])
+        if not fleet.wait_idle(timeout_s=300.0):
+            fail("{}: the warm-up did not settle".format(label))
+        want = {"prefill": [(True, False, False)],
+                "decode": [(False, False, False)],
+                "mixed": [(False, False, False), (True, False, False)]}
+        for rep in fleet.replicas:
+            if sorted(rep.engine._programs) != want[rep.engine.role]:
+                fail("{}: replica {} ({}) met keys {} in the warm-up".format(
+                    label, rep.rid, rep.engine.role,
+                    sorted(rep.engine._programs)))
+            rep.engine.recompile_detector.mark_warm()
+        fleet.metrics(reset=True)
+        marks = _launch_marks(fleet)
+        handles = []
+        submit = fleet.submit
+
+        def recording(prompt, **kw):
+            fr = submit(prompt, **kw)
+            handles.append((tuple(int(t) for t in prompt), fr))
+            return fr
+
+        fleet.submit = recording
+        fleet.start()
+        res = SustainedRunner(fleet, spec, window_seconds=DISAGG_WINDOW_S,
+                              max_steps=5_000_000).run()
+        torch.cuda.synchronize()
+        report = build_report(spec, res, DISAGG_SLO, platform="gpu",
+                              extra={"model": "gpt2-medium bf16",
+                                     "roles": list(roles or ()),
+                                     "card": card})
+        agg, m = report["aggregate"], fleet.metrics()
+        line = {
+            "roles": [rep.engine.role for rep in fleet.replicas],
+            "submitted": agg["submitted"], "completed": agg["completed"],
+            "shed": agg["shed"], "requests_lost": res.requests_lost,
+            "wall_s": agg["wall_s"], "tokens_per_sec": agg["tokens_per_sec"],
+            "ttft_p50_ms": agg["ttft_p50_ms"],
+            "ttft_p99_ms": agg["ttft_p99_ms"],
+            "itl_p50_ms": agg["itl_p50_ms"], "itl_p99_ms": agg["itl_p99_ms"],
+            "slo_attainment": agg["slo_attainment"],
+            "disagg": report["disagg"],
+            "prefill_lanes": [r["prefill_lanes"]
+                              for r in m["replicas"].values()],
+            "recompiles": [r["recompiles"] for r in m["replicas"].values()],
+            "compile_counts": fleet.compile_counts}
+        line["launches"] = _exact_replica_launches(fleet, marks, "decode",
+                                                   "paged", label)
+        line.update(_fleet_unharmed(fleet, label))
+        decode_lanes = [r for rep, r in zip(fleet.replicas,
+                                            line["prefill_lanes"])
+                        if rep.engine.role == "decode"]
+        if res.requests_lost or agg["shed"] or \
+                agg["completed"] != DISAGG_LOAD["n_requests"] or \
+                any(line["recompiles"]) or any(decode_lanes) or \
+                report["disagg"]["handoff_fallbacks"] or \
+                (roles and report["disagg"]["handoffs"] < 1):
+            print("disagg " + json.dumps(line))
+            fail("{}: zero lost, no fallback, no capture after warm-up and "
+                 "no prefill lane on a decode replica do not all hold".format(
+                     label))
+        got = {prompt: fr.tokens for prompt, fr in handles}
+        if roles:
+            line["transfers"] = _probe_handoffs(model, fleet, reqs, got,
+                                                label)
+        return line, [got.get(tuple(int(t) for t in r)) for r in reqs]
+    finally:
+        fleet.close()
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _probe_handoffs(model, fleet, reqs, got, label):
+    """After the timed run, untimed: the first DISAGG_PROBE_REQUESTS
+    prompts again through the same fleet with the transports timed
+    (``_FleetProbe``), so the A/B's two sides run the same code. Each
+    stream is held by phase 5's rule to the timed run's on the same
+    prompt; every prompt hands off, none falls back, no replica fails."""
+    probe = _FleetProbe(fleet)
+    h0 = fleet.counters["handoffs"]
+    prompts = reqs[:DISAGG_PROBE_REQUESTS]
+    frs = [fleet.submit(p, max_new_tokens=DISAGG_LOAD["output_mean"])
+           for p in prompts]
+    if not fleet.wait_idle(timeout_s=300.0):
+        fail("{}: the handoff probe did not settle".format(label))
+    handoffs = fleet.counters["handoffs"] - h0
+    if _fleet_lost(frs, DISAGG_LOAD["output_mean"]) or \
+            handoffs != DISAGG_PROBE_REQUESTS or \
+            fleet.counters["handoff_fallbacks"]:
+        fail("{}: the handoff probe lost {} or handed off {} of {}".format(
+            label, _fleet_lost(frs, DISAGG_LOAD["output_mean"]), handoffs,
+            DISAGG_PROBE_REQUESTS))
+    equal = sum(_held_to(model, p, fr.tokens, got[tuple(int(t) for t in p)],
+                         "{} handoff probe {}".format(label, i))
+                for i, (p, fr) in enumerate(zip(prompts, frs)))
+    _fleet_unharmed(fleet, label + " handoff probe")
+    return dict(probe.report(), requests=DISAGG_PROBE_REQUESTS,
+                streams_bit_equal=equal)
+
+
+def phase_disagg(card, model):
+    """The JAX ``--disagg`` TPU setting (bench.py:1908-1915; DISAGG_SERVE,
+    DISAGG_LOAD): one prefill and two decode replicas against the same
+    three replicas all mixed, each side warmed then driven open loop; the
+    greedy streams of both sides held by phase 5's rule to one engine's on
+    the same prompts. The A/B is reported, not gated: on one card the
+    three replicas share the SMs and the host, so it answers another
+    question than on three chips. One ``disagg`` line."""
+    spec = WorkloadSpec(**DISAGG_LOAD)
+    reqs = [r.prompt for r in spec.requests()]
+    eng = InferenceEngine(model, config=dict(DISAGG_SERVE))
+    handles = [eng.submit(p, max_new_tokens=DISAGG_LOAD["output_mean"])
+               for p in reqs]
+    eng.run()
+    ref = [h.tokens for h in handles]
+    del eng, handles
+    line = {"disagg": "gpt2-medium bf16, 3 replicas on one card",
+            "serve_cfg": DISAGG_SERVE, "card": card,
+            "workload": {k: DISAGG_LOAD[k] for k in (
+                "arrival", "rate", "n_requests", "prompt_dist",
+                "prompt_mean", "prompt_max", "output_mean", "seed")},
+            "slo": DISAGG_SLO.to_json()}
+    for side, roles in (("disagg", DISAGG_ROLES), ("mixed", None)):
+        facts, got = _disagg_side(card, model, roles, spec, reqs)
+        if any(g is None for g in got):
+            fail("{}: a stream is missing".format(side))
+        facts["streams_bit_equal"] = sum(
+            _held_to(model, p, g, w, "{} request {}".format(side, i))
+            for i, (p, g, w) in enumerate(zip(reqs, got, ref)))
+        line[side] = facts
+    d, x = line["disagg"], line["mixed"]
+    line["itl_p99_ratio_disagg_over_mixed"] = (
+        d["itl_p99_ms"] / x["itl_p99_ms"] if x["itl_p99_ms"] else None)
+    line["ttft_p99_ratio_disagg_over_mixed"] = (
+        d["ttft_p99_ms"] / x["ttft_p99_ms"] if x["ttft_p99_ms"] else None)
+    print("disagg " + json.dumps(line))
+    return line
+
+
 def _breakdown_run(cfg, ids, extra):
     """BREAKDOWN_STEPS forward/backward/step of phase_train's setting from
     seed 0 with ``extra`` in the ds_config: the losses, the registry
@@ -4571,6 +5423,8 @@ def main():
     phase_chaos(card, model)
     hier = phase_hierarchy(card, model)
     phase_sustained_hier(card, model)
+    fleet = phase_fleet(card, model)
+    disagg = phase_disagg(card, model)
     n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill
@@ -4618,6 +5472,23 @@ def main():
         row["hierarchy_launches"] = {
             label: hier[label]["launches"][kind] for label in (
                 "dense", "paged_int8_spec", "dense_int8_spec")}
+        # The fleet phases' runs, per replica, and the kernel at the
+        # fleet's shapes.
+        row["fleet_launches"] = {
+            "kill": {r: n[kind] for r, n in
+                     fleet["kill"]["launches"].items()},
+            "paged_int8": {r: n[kind] for r, n in
+                           fleet["paged_int8"]["launches"].items()},
+            "disagg": {r: n[kind] for r, n in
+                       disagg["disagg"]["launches"].items()},
+            "mixed": {r: n[kind] for r, n in
+                      disagg["mixed"]["launches"].items()}}
+        if kind in variant_rows["fleet_shapes"]:
+            row["fleet_shapes"] = [
+                {key: r.get(key) for key in (
+                    "case", "B", "S", "T", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "max_abs_err", "max_err_over_limit")}
+                for r in variant_rows["fleet_shapes"][kind]]
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
                                   split_rows)
     kernels += _row_kernel_rows(row_rows, bert_launches)

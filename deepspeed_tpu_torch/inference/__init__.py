@@ -1,14 +1,18 @@
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.engine import InferenceEngine
 from deepspeed_tpu_torch.inference.faults import Fault, FaultPlan, InjectedFault
+from deepspeed_tpu_torch.inference.fleet import FleetRequest, ServingFleet
+from deepspeed_tpu_torch.inference.kv_hierarchy import PrefixDirectory
 from deepspeed_tpu_torch.inference.resilience import (HEALTH_STATES,
                                                       EngineDeadError,
                                                       EngineDraining,
                                                       NumericsError)
+from deepspeed_tpu_torch.inference.router import CircuitBreaker, Router
 from deepspeed_tpu_torch.inference.scheduler import (QueueFull, Request,
                                                      Scheduler)
 
 __all__ = ["InferenceConfig", "InferenceEngine", "Fault", "FaultPlan",
-           "InjectedFault", "HEALTH_STATES", "EngineDeadError",
-           "EngineDraining", "NumericsError", "QueueFull", "Request",
-           "Scheduler"]
+           "InjectedFault", "FleetRequest", "ServingFleet",
+           "PrefixDirectory", "HEALTH_STATES", "EngineDeadError",
+           "EngineDraining", "NumericsError", "CircuitBreaker", "Router",
+           "QueueFull", "Request", "Scheduler"]

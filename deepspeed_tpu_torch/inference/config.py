@@ -14,7 +14,11 @@ the span ring's capacity), and crash-only resilience
 plan; ``step_budget_s``: the step watchdog's budget, None for none;
 ``recovery_max_retries``: consecutive fatal steps recovered before the
 engine is dead; ``recovery_backoff_s``: the sleep before the n-th
-consecutive recovery, times n).
+consecutive recovery, times n), and the serving fleet's per-replica
+facts (``replica_id``: the replica's index, stamped into its metrics'
+``replica`` label and its QueueFull errors, None outside a fleet;
+``role``: ``mixed``, ``prefill`` or ``decode``, see
+``inference/fleet.py``).
 
 There is no switch for the step's CUDA graphs, as the JAX package has
 none for its jit: on the card the engine always captures its step
@@ -32,7 +36,6 @@ import dataclasses
 import os
 from typing import Optional
 
-_FLEET = "the reliability and fleet slice (ROADMAP Queue 1)"
 _XRAY = "the perf x-ray slice (ROADMAP Queue 1 item 7)"
 
 # JAX-package key -> (values the port accepts, the slice that ports the
@@ -48,8 +51,6 @@ _UNPORTED = {
     # The port has no perf x-ray: switching it off asks for what it does.
     "perf_xray": ((True, False), _XRAY),
     "xray_sample_every": ((64,), _XRAY),
-    "replica_id": ((None,), _FLEET),
-    "role": (("mixed",), _FLEET),
     "sparse_decode": ((True,), "the long-context adapter slice "
                       "(ROADMAP Queue 1)"),
     "expert_parallel": ((True,), "the MoE adapter slice (ROADMAP Queue 1)"),
@@ -111,6 +112,14 @@ class InferenceConfig:
     step_budget_s: Optional[float] = None
     recovery_max_retries: int = 2
     recovery_backoff_s: float = 0.0
+    # The serving fleet (inference/fleet.py): this replica's index (None
+    # outside a fleet) and its role in disaggregated serving. A
+    # ``prefill`` replica hands every finished prompt to a decode-capable
+    # peer; a ``decode`` replica takes only those handoffs (it never runs
+    # a prefill lane); ``mixed`` does both. Every role runs the same step
+    # programs.
+    replica_id: Optional[int] = None
+    role: str = "mixed"
 
     def __post_init__(self):
         for name in ("max_slots", "chunk_size", "max_queue", "prefill_chunk",
@@ -150,6 +159,14 @@ class InferenceConfig:
         if self.swap_slots < 1:
             raise ValueError("inference.swap_slots must be >= 1, got "
                              "{}".format(self.swap_slots))
+        if self.replica_id is not None and self.replica_id < 0:
+            raise ValueError("inference.replica_id must be >= 0 (or None "
+                             "outside a fleet), got "
+                             "{}".format(self.replica_id))
+        if self.role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                "inference.role must be one of 'mixed'/'prefill'/'decode', "
+                "got {!r}".format(self.role))
         if self.hbm_budget_bytes is not None and self.hbm_budget_bytes <= 0:
             raise ValueError(
                 "inference.hbm_budget_bytes must be > 0 (or None for the "

@@ -149,11 +149,42 @@ engine does (``_augment_queue_full``: ``reason == "pages"`` with the
 page-release hint when a paged queue head waits for pages;
 ``swap_eligible`` with an armed swap when offload can free a slot).
 
-Perf x-ray, the fleet (prefix-row transport, handoff, preemption) and
-tensor parallelism are later slices.
+ONE STREAM PER ENGINE. Every device operation of an engine, eager or
+replayed, runs on the engine's own CUDA stream: ``step`` (the hierarchy
+hooks and recovery inside it), ``cancel``, ``preempt`` and the fleet's
+transports enter it themselves, so a lone engine runs on its own stream
+too and several engines on one card (``inference/fleet.py``) never
+queue behind, or synchronize with, one another: every wait is a wait on
+the engine's stream, never on the device. A capture names the stream,
+runs with ``capture_error_mode="thread_local"`` (another thread's
+allocation cannot invalidate it) and holds the process-wide
+``_CAPTURE_LOCK``, as does the eager first run of a key before it
+(first launches, workspace allocations). Each engine counts the decode
+kernels it runs in its own ``launches`` (``decode_attention
+.counting_into``): exact while other replicas step on other threads.
+One CUDA context serves every engine of the process, so a sticky CUDA
+error (an illegal address) ends them all: a replica's failure is its
+own only for the faults recovery can clear.
+
+THE FLEET'S ENGINE SIDE (``inference/fleet.py``), as in the JAX
+engine: ``replica_id`` labels the engine's metrics; a ``prefill``-role
+engine captures every request still decoding after a step's harvest in
+one synchronization (``_capture_handoffs``) into its outbox
+(``take_handoffs``), and a decode-capable peer installs one straight
+into the ``decoding`` phase (``adopt_handoff``); ``export_prefix`` /
+``adopt_prefix`` ship a shared-prefix row between replicas;
+``preempt`` / ``release_preempted`` park a decoding session in the
+``swapped`` phase and hold it there. Every write is eager, in place and
+outside the graphs: no new key and no capture. A request re-homed on
+another engine (a failover, a handoff's fallback) arrives with its
+original prompt and budget and the tokens it delivered, and replays as
+after a recovery (``_take``).
+
+Perf x-ray and tensor parallelism are later slices.
 """
 
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -162,13 +193,11 @@ import torch
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference.adapters import GPT2Adapter
 from deepspeed_tpu_torch.inference.config import InferenceConfig
-from deepspeed_tpu_torch.inference.kv_hierarchy import (KVHierarchy,
-                                                        capture_slot,
-                                                        capture_slot_paged,
-                                                        pick_swap_victim,
-                                                        restore_slot,
-                                                        restore_slot_paged,
-                                                        spec_from_config)
+from deepspeed_tpu_torch.inference.kv_hierarchy import (
+    KVHierarchy, capture_prefix_pages, capture_prefix_row, capture_slot,
+    capture_slot_paged, capture_slots, capture_slots_paged, pick_swap_victim,
+    record_nbytes, restore_prefix_pages, restore_prefix_row, restore_slot,
+    restore_slot_paged, spec_from_config)
 from deepspeed_tpu_torch.inference.faults import FaultInjector
 from deepspeed_tpu_torch.inference.kv_pool import (
     HARVEST_FIELDS, cache_view, clear_step_inputs, init_pool,
@@ -195,8 +224,12 @@ from deepspeed_tpu_torch.telemetry.registry import Counter
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.timer import SynchronizedWallClockTimer
 
-# The telemetry-off profiler scope: free.
+# The telemetry-off profiler scope, and a CPU engine's stream: free.
 _NULL_CTX = contextlib.nullcontext()
+
+# Serializes CUDA graph captures (and the eager first run of a key before
+# one) across every engine of the process (module docstring).
+_CAPTURE_LOCK = threading.Lock()
 
 # The JAX engine's counters that the port's features drive.
 _COUNTERS = ("tokens_out", "chunks", "prefills", "prefill_tokens",
@@ -205,7 +238,12 @@ _COUNTERS = ("tokens_out", "chunks", "prefills", "prefill_tokens",
              "deadline_sheds", "step_stalls",
              # The KV hierarchy's: zero forever on an engine without it.
              "prefix_hits", "prefix_misses", "prefix_inserts",
-             "prefix_evictions", "swap_outs", "swap_ins")
+             "prefix_evictions", "swap_outs", "swap_ins",
+             # Preemption, prefix adoption and disaggregated handoff: zero
+             # forever outside a fleet (the fleet counts affinity_routed).
+             "preemptions", "preempt_resumes", "prefix_adoptions",
+             "prefix_bytes_shipped", "affinity_routed", "handoffs",
+             "handoffs_in", "handoff_fallbacks", "handoff_bytes_shipped")
 
 
 class _CounterBank(object):
@@ -260,6 +298,10 @@ class _ProgramCache(dict):
     def describe(self, label):
         return "key (prefill lane, any row samples, any row top-k) = " \
             "{}".format(self.newest)
+
+
+def _no_sync():
+    """A CPU engine's timer edge: there is no queue to wait for."""
 
 
 def _live_tokens(scheduler):
@@ -461,36 +503,39 @@ def _mixed_step_program(params, adapter, chunk, spec, pool, inp, harvest,
 
 
 class _StepGraph(object):
-    """One step program captured as a CUDA graph, with the decode-kernel
-    launches it holds. Capture records launches without running them, so
-    the counts the wrappers took while it was recorded are handed back, and
-    every replay adds them: ``decode_attention.launches`` counts kernels
-    run, not kernels recorded."""
+    """One step program captured as a CUDA graph on ``stream`` (the
+    engine's), with the decode-kernel launches it holds. The capture
+    records launches without running them (``decode_attention
+    .recording``: they land in this graph's tally, not in any count), and
+    every replay adds the tally: the counts are kernels run. The caller
+    holds ``_CAPTURE_LOCK``.
 
-    def __init__(self, program, pool):
-        before = dict(decode_attention.launches)
-        stream = torch.cuda.current_stream()
+    The capture is begun and ended by hand rather than through
+    ``torch.cuda.graph``, whose entry synchronizes the whole device and
+    empties the caching allocator: with other engines stepping on the
+    card, the wait before the capture is on ``stream`` alone. On an error
+    inside the capture, ``capture_end`` still runs (and raises the CUDA
+    error in turn when the capture was invalidated); the stream context
+    restores the caller's stream either way, the half-built graph is
+    dropped with this object, and the engine's key stays out of its
+    programs, so the key's next step captures it again."""
+
+    def __init__(self, program, pool, stream):
         self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool):
+        stream.synchronize()
+        with decode_attention.recording() as tally, \
+                torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
+            try:
                 program()
-            self.launches = {kind: decode_attention.launches[kind] - n
-                             for kind, n in before.items()}
-        finally:
-            # On an error inside the block, torch.cuda.graph's exit still
-            # ends the capture; if the error invalidated it, that
-            # capture_end raises the CUDA error in turn and the exit never
-            # leaves its capture stream, which stays current. Restore the
-            # caller's stream and the launch counts; the half-built graph
-            # is dropped with this object, and the engine's key stays out
-            # of its programs, so the key's next step captures it again.
-            torch.cuda.set_stream(stream)
-            decode_attention.launches.update(before)
+            finally:
+                self.graph.capture_end()
+        self.launches = dict(tally)
 
     def replay(self):
         self.graph.replay()
-        for kind, n in self.launches.items():
-            decode_attention.launches[kind] += n
+        decode_attention.add_launches(self.launches)
 
 
 class InferenceEngine(object):
@@ -500,19 +545,33 @@ class InferenceEngine(object):
     the module is moved to ``device``), or a ``GPT2Config`` with ``params``,
     a flax GPT-2 parameter tree of numpy arrays. ``config`` is an
     ``InferenceConfig``, a dict, or None. ``device`` defaults to ``cuda``;
-    without a GPU the engine raises unless ``device="cpu"`` is passed."""
+    without a GPU the engine raises unless ``device="cpu"`` is passed.
+    ``weights``: the ``ServingWeights`` of ``model`` to serve from (the
+    fleet's replicas on one card share one; None builds them)."""
 
-    def __init__(self, model, params=None, config=None, device=None):
+    def __init__(self, model, params=None, config=None, device=None,
+                 weights=None):
         if config is None:
             config = InferenceConfig()
         elif isinstance(config, dict):
             config = InferenceConfig.from_dict(config)
         self.config = config
         self.device = resolve_device(device)
+        # The engine's own stream (module docstring), None on the CPU. It
+        # waits once for the caller's stream, where the weights were made;
+        # everything below is allocated and filled on it.
+        self._stream = None
         if self.device.type == "cuda":
             # The LM head is an fp32 [B, C] x [C, V] product; it must not
             # drop to TF32 (this is PyTorch's default; set so it holds).
             torch.backends.cuda.matmul.allow_tf32 = False
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            self._build(model, params, config, weights)
+
+    def _build(self, model, params, config, weights):
+        """The rest of construction, on the engine's stream."""
         if isinstance(model, GPT2LMHeadModel):
             if params is not None:
                 raise ValueError("pass params only with a GPT2Config: a "
@@ -527,19 +586,23 @@ class InferenceEngine(object):
             raise TypeError("model must be a GPT2LMHeadModel or GPT2Config, "
                             "got {}".format(type(model).__name__))
         # The dense weights cast to the serving dtype once, here.
-        self._params = ServingWeights(model)
+        self._params = weights if weights is not None \
+            else ServingWeights(model)
         self._adapter = GPT2Adapter.from_model(model).bind(config)
         self._gcfg = self._adapter.cache_spec()
         config.validate_against_model(self._gcfg.n_positions)
         # Telemetry (module docstring): the registry is always real, the
         # spans and profiler scopes follow ``config.telemetry``.
-        self.telemetry = MetricsRegistry(engine="inference")
+        labels = {"engine": "inference"}
+        if config.replica_id is not None:
+            labels["replica"] = str(config.replica_id)
+        self.telemetry = MetricsRegistry(**labels)
         self.tracer = (SpanRecorder(capacity=config.trace_ring)
                        if config.telemetry else NullRecorder())
         self._scheduler = Scheduler(
             config.max_slots, config.max_queue,
             tracer=self.tracer if config.telemetry else None,
-            registry=self.telemetry)
+            registry=self.telemetry, replica_id=config.replica_id)
         # Engine-lifetime speculation: (spec_k, spec_ngram), or None.
         self._spec = ((config.spec_k, config.spec_ngram)
                       if config.resolved_spec_decode() else None)
@@ -608,8 +671,14 @@ class InferenceEngine(object):
         self.recompile_detector = RecompileDetector(
             self.telemetry, describe=self._programs.describe)
         self.recompile_detector.watch("mixed_step", self._programs)
-        self.timers = SynchronizedWallClockTimer(registry=self.telemetry)
+        # The timers' edges wait on this engine's stream alone.
+        self.timers = SynchronizedWallClockTimer(
+            registry=self.telemetry,
+            sync=(self._stream.synchronize if self._stream is not None
+                  else _no_sync))
         self.counters = _CounterBank(self.telemetry, _COUNTERS)
+        # The decode kernels this engine ran (module docstring).
+        self.launches = dict.fromkeys(decode_attention.launches, 0)
         if self._hier is not None:
             # The hierarchy counts its hits, misses, inserts and evictions
             # into the same registry counters.
@@ -646,6 +715,21 @@ class InferenceEngine(object):
         self._accept_hist = np.zeros(lanes + 1, np.int64)
         self._accept_base = np.zeros_like(self._accept_hist)
         self._window_t0 = time.time()
+        # Disaggregated serving (inference/fleet.py): the role is a
+        # routing and capture contract, not a program variant. The outbox
+        # holds (request, record, capture time) between a prefill-role
+        # step's capture and the fleet's pump; the donor's histogram
+        # observes capture -> adoption.
+        self.role = config.role
+        self._handoff_enabled = config.role == "prefill"
+        self._handoff_outbox = []
+        self._handoff_latency_hist = self.telemetry.histogram(
+            "handoff_latency_seconds")
+        # Preemption: rids held in the swapped phase (resume-first swap-in
+        # skips them until released), and rids whose swap-in counts as a
+        # preempt_resume.
+        self._preempt_hold = set()
+        self._preempted_rids = set()
 
     def _register_gauges(self):
         """The live gauges, sampled at read (scrape) time. Each reads host
@@ -680,6 +764,19 @@ class InferenceEngine(object):
             self._swap_out_hist = reg.histogram("swap_out_seconds")
             self._swap_in_hist = reg.histogram("swap_in_seconds")
 
+    def _on_stream(self):
+        """This engine's stream as the current one (module docstring); free
+        on the CPU."""
+        if self._stream is None:
+            return _NULL_CTX
+        return torch.cuda.stream(self._stream)
+
+    def _sync(self):
+        """Wait for the work queued on this engine's stream (never for the
+        whole device)."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
     def _annotate(self, name):
         """A profiler scope, or a free no-op with telemetry off."""
         if not self.config.telemetry:
@@ -700,7 +797,7 @@ class InferenceEngine(object):
 
     def submit(self, prompt, max_new_tokens=None, temperature=0.0,
                top_k=None, eos_token_id=None, seed=0, spec_decode=None,
-               deadline_ms=None):
+               deadline_ms=None, priority=None, tenant=None, trace=None):
         """Queue one request; returns its Request handle. Raises
         scheduler.QueueFull past ``max_queue`` pending requests (or while
         an injected ``admission_block`` fault is active),
@@ -712,7 +809,10 @@ class InferenceEngine(object):
         and emits one token per step), True demands a speculating engine.
         ``deadline_ms``: queue-side expiry budget; a request still QUEUED
         deadline_ms after submit is shed as ``expired`` (counted in
-        ``deadline_sheds``); once admitted, it always finishes."""
+        ``deadline_sheds``); once admitted, it always finishes.
+        ``priority`` / ``tenant``: the submission's class and tenant
+        (carried on the request and its QueueFull); ``trace``: the
+        TraceContext a fleet minted (None: a local one)."""
         if not self._health.accepting:
             if self._health.state == "dead":
                 raise EngineDeadError(
@@ -724,7 +824,8 @@ class InferenceEngine(object):
                 "(undrain() reopens)")
         if self._injector is not None and self._injector.admission_blocked():
             raise self._scheduler.queue_full_error(
-                "admission blocked by injected fault (admission_block)")
+                "admission blocked by injected fault (admission_block)",
+                priority=priority, tenant=tenant)
         if spec_decode and self._spec is None:
             raise ValueError(
                 "submit(spec_decode=True) on an engine without speculation; "
@@ -770,7 +871,8 @@ class InferenceEngine(object):
                 int(top_k or 0),
                 -1 if eos_token_id is None else int(eos_token_id), int(seed),
                 spec=self._spec is not None and spec_decode is not False,
-                deadline=deadline)
+                deadline=deadline, priority=priority, tenant=tenant,
+                trace=trace)
         except QueueFull as exc:
             raise self._augment_queue_full(exc) from None
 
@@ -832,8 +934,12 @@ class InferenceEngine(object):
             # Unpin any prefix row and drop a swapped session's host
             # record (a swapped cancel has no slot to deactivate).
             self._hier.on_release(req)
+        # A cancelled session cannot stay in the preemption ledgers.
+        self._preempt_hold.discard(req.rid)
+        self._preempted_rids.discard(req.rid)
         if was_decoding:
-            self._pool["active"][slot] = False
+            with self._on_stream():
+                self._pool["active"][slot] = False
         return True
 
     # ------------------------------------------------------ paged KV pool
@@ -985,7 +1091,7 @@ class InferenceEngine(object):
         round's swap-out exclusions)."""
         sched, resumed = self._scheduler, []
         while True:
-            req = sched.next_swap_in()
+            req = sched.next_swap_in(skip=self._preempt_hold)
             free = sched.free_slot_ids()
             if req is None or not free:
                 break
@@ -999,6 +1105,9 @@ class InferenceEngine(object):
                 break
             sched.swap_in(req, slot)
             self.counters["swap_ins"] += 1
+            if req.rid in self._preempted_rids:
+                self._preempted_rids.discard(req.rid)
+                self.counters["preempt_resumes"] += 1
             self._swap_in_hist.observe(time.time() - t0)
             resumed.append(req.rid)
         return resumed
@@ -1069,21 +1178,24 @@ class InferenceEngine(object):
                 "step() on a dead engine (recovery retries exhausted)")
         inj = self._injector
         stall = inj.stall_seconds() if inj is not None else 0.0
-        try:
-            with torch.no_grad(), self._watchdog:
-                if stall > 0:
-                    time.sleep(stall)
-                done = self._step_chunked()
-        except self._fatal as exc:
-            done = self._recover(exc)
-        else:
-            self._recovery_streak = 0
-            if (self._health.state == "degraded" and stall == 0
-                    and not self._watchdog.tripped):
-                self._health.to("healthy")
-        finally:
-            if inj is not None:
-                inj.advance()
+        # The engine's stream and launch counts (module docstring) cover
+        # the step and its recovery.
+        with self._on_stream(), decode_attention.counting_into(self.launches):
+            try:
+                with torch.no_grad(), self._watchdog:
+                    if stall > 0:
+                        time.sleep(stall)
+                    done = self._step_chunked()
+            except self._fatal as exc:
+                done = self._recover(exc)
+            else:
+                self._recovery_streak = 0
+                if (self._health.state == "degraded" and stall == 0
+                        and not self._watchdog.tripped):
+                    self._health.to("healthy")
+            finally:
+                if inj is not None:
+                    inj.advance()
         return done
 
     # --------------------------------------------------------- resilience
@@ -1191,9 +1303,9 @@ class InferenceEngine(object):
         page allocator to zero knowledge (its ``dirty`` flag uploads the
         zeroed table before the next step) and the step's host inputs to
         the idle lane. ``self._programs`` is untouched: every address a
-        graph holds is unchanged."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        graph holds is unchanged. The drain waits on this engine's stream
+        alone: other engines on the card keep running."""
+        self._sync()
         with torch.no_grad():
             reset_pool(self._pool, self._hier.spec if self._hier else None)
         if self._pager is not None:
@@ -1257,6 +1369,10 @@ class InferenceEngine(object):
                                          type(err).__name__, err)) from err
         replayed = self._scheduler.requeue_running()
         self._replay_requests(replayed)
+        # The preemption ledgers described swapped sessions now queued:
+        # they replay through admission, not through a swap-in.
+        self._preempt_hold.clear()
+        self._preempted_rids.clear()
         self.counters["recoveries"] += 1
         self.counters["requests_replayed"] += len(replayed)
         t1 = time.time()
@@ -1290,7 +1406,8 @@ class InferenceEngine(object):
     def _run_program(self, key):
         """Run the step's program for ``key``: replay its graph (on the CPU,
         run it) when the key was met before; else run it eagerly and, on
-        the card, capture it for the steps to come."""
+        the card, capture it on the engine's stream for the steps to come,
+        both under ``_CAPTURE_LOCK`` (module docstring)."""
         if key in self._programs:
             graph = self._programs[key]
             if graph is None:
@@ -1299,12 +1416,16 @@ class InferenceEngine(object):
                 graph.replay()
             self.graph_replays += 1
             return
-        self._program(*key)
-        graph = None
-        if self.device.type == "cuda":
+        if self.device.type != "cuda":
+            self._program(*key)
+            self._programs[key] = None
+            return
+        with _CAPTURE_LOCK:
+            self._program(*key)
             t0 = time.perf_counter()
-            graph = _StepGraph(lambda: self._program(*key), self._graph_pool)
-            torch.cuda.synchronize(self.device)
+            graph = _StepGraph(lambda: self._program(*key), self._graph_pool,
+                               self._stream)
+            self._sync()
             self._capture_s += time.perf_counter() - t0
             # The pool grows only at a capture (replays allocate nothing).
             self._graph_pool_bytes = sum(
@@ -1420,6 +1541,11 @@ class InferenceEngine(object):
                     tokens=len(req.tokens))
             if not active[slot]:
                 self._complete(req, done)
+        if self._handoff_enabled:
+            # Prefill role: every request still decoding after this step's
+            # harvest (its prompt just finished; the tokens it emitted this
+            # step are part of its stream) leaves for the handoff outbox.
+            self._capture_handoffs()
         self.recompile_detector.observe()
         return done
 
@@ -1518,6 +1644,255 @@ class InferenceEngine(object):
         the engine is dropped."""
         self._watchdog.stop()
 
+    # ------------------------------------------------------- preemption
+
+    def preempt(self, req):
+        """Park a DECODING request in the ``swapped`` phase (the capacity
+        policy's swap-out, so it resumes where it paused) and HOLD it
+        there: resume-first swap-in skips it until
+        ``release_preempted()``. Needs host offload and room in the swap
+        store; False when the request is not parkable now (wrong phase, no
+        offload, store full). A held session replays like any swapped one
+        after a recovery, which clears the holds. (The JAX engine's; the
+        front door, which calls it, is the next slice.)"""
+        hier = self._hier
+        if hier is None or not hier.spec.offload:
+            return False
+        if req.phase != "decoding" or req.slot is None:
+            return False
+        if not hier.swap_capacity_left():
+            return False
+        t0 = time.time()
+        slot = req.slot
+        with self._on_stream():
+            hier.swap_store.put(req.rid, self._capture_slot_record(slot))
+            self._pool["active"][slot] = False
+        if self._pager is not None:
+            self._pager.free_slot(slot)
+            self._pager.release_reservation(req.rid)
+        self._scheduler.swap_out(req)
+        self.counters["swap_outs"] += 1
+        self.counters["preemptions"] += 1
+        self._preempt_hold.add(req.rid)
+        self._preempted_rids.add(req.rid)
+        self._last_swap_out_s = time.time() - t0
+        self._swap_out_hist.observe(self._last_swap_out_s)
+        self.tracer.instant("request/preempted", tid=req.trace.tid,
+                            rid=req.rid, hop=req.trace.hop(),
+                            tokens=len(req.tokens))
+        return True
+
+    def release_preempted(self, req=None):
+        """Lift the hold on ``req`` (None: on every held session): the next
+        swap-in round may resume it, counted as a ``preempt_resumes``.
+        Idempotent."""
+        if req is None:
+            self._preempt_hold.clear()
+        elif req.rid in self._preempt_hold:
+            self._preempt_hold.discard(req.rid)
+            self.tracer.instant("request/preempt_released",
+                                tid=req.trace.tid, rid=req.rid,
+                                hop=req.trace.hop())
+
+    def preempted_held(self):
+        """rids parked by preempt() and not yet released."""
+        return frozenset(self._preempt_hold)
+
+    # ------------------------------------------ cross-replica adoption
+
+    def _capture_prefix_pages(self, row, depth):
+        """DONOR half, paged: the pages of store row ``row`` as a record in
+        the dense row layout (``kv_hierarchy.capture_prefix_pages``), so
+        the transport and a dense acceptor never see the layout. Returns
+        (span, record), or None when the row has no page payload."""
+        payload = self._hier.store.payload.get(row)
+        if payload is None:
+            return None
+        pages, span = payload
+        span = min(int(span), int(depth))
+        if span <= 0:
+            return None
+        n = -(-span // self._pager.page_len)
+        return span, capture_prefix_pages(self._pool, pages[:n], span)
+
+    def _restore_prefix_pages(self, row, record):
+        """ACCEPTOR half, paged: claim fresh pages for a shipped record,
+        write it into them and hang them on store row ``row`` as its
+        payload (the store's pin), so the next admission shares them like
+        pages prefilled here. False when the arena cannot spare them
+        without eating promised capacity (the row then stays payload-less
+        and probes miss it)."""
+        span = int(record["pk"].shape[2])
+        pages = self._pager.alloc_pages(self._pager.pages_for(span))
+        if pages is None:
+            return False
+        restore_prefix_pages(self._pool, pages, record)
+        self._hier.store.payload[row] = (tuple(pages), span)
+        return True
+
+    def export_prefix(self, tokens):
+        """The DONOR half of cross-replica prefix adoption: this engine's
+        stored planes for ``tokens`` (or its longest stored prefix of
+        them), captured to host memory on its stream. Returns
+        ``(matched_tokens, record)``, or None when the store holds no
+        usable span. int8 codes and scales ship as stored. The caller
+        serializes calls into this engine (the fleet's replica lock)."""
+        if self._hier is None or self._hier.store is None:
+            return None
+        toks = [int(t) for t in tokens]
+        row, depth = self._hier.store.lookup(toks)
+        if row is None or depth < self._hier.spec.min_prefix_len:
+            return None
+        with self._on_stream():
+            if self._pager is not None:
+                out = self._capture_prefix_pages(row, depth)
+                if out is None or out[0] < self._hier.spec.min_prefix_len:
+                    return None
+                span, record = out
+                return tuple(toks[:span]), record
+            return tuple(toks[:depth]), capture_prefix_row(self._pool, row,
+                                                           depth)
+
+    def adopt_prefix(self, tokens, record):
+        """The ACCEPTOR half: write a peer's prefix record into a local
+        store row, in place on this engine's stream, and index it: the
+        next admission's probe hits as if this engine had prefilled
+        ``tokens``. The record is held until the next step's harvest,
+        past the copies. True on adoption; False when the store already
+        covers the span, every row is pinned, or (paged) the arena has no
+        pages to spare."""
+        if self._hier is None or self._hier.store is None:
+            return False
+        store = self._hier.store
+        toks = tuple(int(t) for t in tokens)
+        _, depth = store.lookup(list(toks))
+        if depth >= len(toks):
+            return False
+        before = store.evictions
+        row = store.insert(toks)
+        self.counters["prefix_evictions"] += store.evictions - before
+        if row is None:
+            return False
+        self._restored.append(record)
+        with self._on_stream():
+            if self._pager is not None:
+                if not self._restore_prefix_pages(row, record):
+                    return False
+            else:
+                restore_prefix_row(self._pool, row, record)
+        self.counters["prefix_adoptions"] += 1
+        self.counters["prefix_bytes_shipped"] += record_nbytes(record)
+        return True
+
+    # -------------------------------------------- disaggregated handoff
+
+    def _capture_handoffs(self):
+        """Prefill-role step epilogue: every request whose prompt just
+        finished (still decoding) leaves the slot pool for the handoff
+        outbox, ALL of them in one synchronization of the engine's stream
+        (``capture_slots``). A record is the slot's whole device state:
+        its planes as stored (a copied prefix span included; int8 codes
+        with their scales) and every per-slot field, ``pos`` and the ring
+        too, so the acceptor continues the stream where it stands. The
+        slots deactivate in place and free for the next prompts."""
+        pending = [r for r in self._scheduler.running.values()
+                   if r.phase == "decoding"]
+        if not pending:
+            return
+        slots = [r.slot for r in pending]
+        t0 = time.time()
+        if self._pager is not None:
+            records = capture_slots_paged(
+                self._pool, slots, [self._pager.row_pages(s) for s in slots])
+        else:
+            records = capture_slots(self._pool, slots)
+        for slot in slots:
+            self._pool["active"][slot] = False
+        for req, slot, record in zip(pending, slots, records):
+            if self._pager is not None:
+                # The record IS the session now: its pages free (shared
+                # prefix pages live on under their other references).
+                self._pager.free_slot(slot)
+                self._pager.release_reservation(req.rid)
+            self._scheduler.begin_handoff(req)
+            self._handoff_outbox.append((req, record, t0))
+            self.counters["handoff_bytes_shipped"] += record_nbytes(record)
+        self.counters["handoffs"] += len(pending)
+
+    def take_handoffs(self):
+        """Drain the handoff outbox: (Request, record, capture time)
+        triples for the fleet's pump. The caller serializes calls into
+        this engine."""
+        out, self._handoff_outbox = self._handoff_outbox, []
+        return out
+
+    def finish_handoff(self, req):
+        """Donor-side epilogue once a migration settled (adopted, or
+        fallen back to a replay elsewhere): forget the scheduler record
+        and unpin any prefix row the request held here. Idempotent
+        against a concurrent cancel."""
+        self._scheduler.finish_handoff(req)
+        if self._hier is not None:
+            self._hier.on_release(req)
+
+    def adopt_handoff(self, spec, record):
+        """The ACCEPTOR half of a handoff: install a request captured on a
+        prefill-role peer straight into a free slot in the ``decoding``
+        phase (no queue, no prefill lane: the restored record IS the
+        prefill), in place on this engine's stream. ``spec`` carries the
+        donor's request (``scheduler.Scheduler.adopt``'s arguments: the
+        prompt and budget as submitted, the delivered tokens, the replay
+        bookkeeping, the sampling parameters, the stamps); ``record`` the
+        captured slot. Returns the new Request, or None when this engine
+        cannot take it now (dead, no free slot, a record of the other
+        layout, or, paged, too few pages for it and its residual
+        reservation). The record carries any aliased prefix span by value,
+        so no prefix row is needed here (``kv_hierarchy`` docstring)."""
+        if self._health.state == "dead":
+            return None
+        free = self._scheduler.free_slot_ids()
+        if not free:
+            return None
+        if record["k"].dim() != (5 if self._pager is not None else 4):
+            return None
+        if self._pager is not None:
+            n_pages = int(record["k"].shape[1])
+            extra = max(0, self._pages_required(
+                len(spec["prompt"]), spec["max_new_tokens"]) - n_pages)
+            if self._pager.available() < n_pages + extra:
+                return None
+        slot = free[0]
+        req = self._scheduler.adopt(slot=slot, **spec)
+        with self._on_stream():
+            # Pre-checked above on a paged pool, so this cannot refuse.
+            self._restore_slot_record(slot, req, record)
+        self.counters["handoffs_in"] += 1
+        return req
+
+    def resubmit(self, spec):
+        """Queue a request re-homed from another engine (a failover, a
+        handoff's fallback) straight into this scheduler's queue, past
+        admission health and shape checks (it passed them where it was
+        first submitted; accepted is a promise).
+        ``spec`` is the request as it stood there: prompt and budget as
+        submitted, the ``tokens`` it delivered, ``folded``, the sampling
+        parameters, the trace and the first-token stamp. Its prompt is
+        prefilled again and its decode lane re-derives the delivered
+        tokens (checked, not delivered twice, ``_take``) before it emits
+        new ones, as after a recovery. Raises QueueFull when the queue is
+        full."""
+        req = self._scheduler.submit(
+            spec["prompt"], spec["max_new_tokens"], spec["temperature"],
+            spec["top_k"], spec["eos_token_id"], spec["seed"],
+            spec=spec["spec"], deadline=spec["deadline"],
+            priority=spec.get("priority"), tenant=spec.get("tenant"),
+            trace=spec.get("trace"))
+        req.tokens = list(spec["tokens"])
+        req.folded = spec["folded"]
+        req.first_token_time = spec.get("first_token_time")
+        self._replay_requests([req])
+        return req
+
     def generate(self, prompts, **kw):
         """Submit every prompt, run to completion, return token lists in
         submission order."""
@@ -1613,6 +1988,15 @@ class InferenceEngine(object):
             "requests_replayed": c.window("requests_replayed"),
             "deadline_sheds": c.window("deadline_sheds"),
             "step_stalls": c.window("step_stalls"),
+            # Preemption and disaggregated serving (inference/fleet.py):
+            # zero on a standalone or all-mixed engine.
+            "preemptions": c.window("preemptions"),
+            "preempt_resumes": c.window("preempt_resumes"),
+            "role": self.role,
+            "handoffs": c.window("handoffs"),
+            "handoffs_in": c.window("handoffs_in"),
+            "handoff_fallbacks": c.window("handoff_fallbacks"),
+            "handoff_bytes_shipped": c.window("handoff_bytes_shipped"),
         }
         if self._hier is not None:
             h = self._hier
@@ -1633,7 +2017,11 @@ class InferenceEngine(object):
                 effective_slots=h.effective_slots(),
                 swap_outs=c.window("swap_outs"),
                 swap_ins=c.window("swap_ins"),
-                slots_swapped=len(self._scheduler.swapped))
+                slots_swapped=len(self._scheduler.swapped),
+                # Fleet prefix traffic (zero outside a fleet).
+                prefix_adoptions=c.window("prefix_adoptions"),
+                prefix_bytes_shipped=c.window("prefix_bytes_shipped"),
+                affinity_routed=c.window("affinity_routed"))
         if self._pager is not None:
             pg = self._pager
             m.update(kv_page_len=pg.page_len, kv_pages_total=pg.total_pages,
@@ -1697,14 +2085,17 @@ class InferenceEngine(object):
 
     def trace_recorders(self):
         """This engine's span recorders as the label -> recorder map
-        ``telemetry.merged_trace`` takes: one ring."""
-        return {"engine": self.tracer}
+        ``telemetry.merged_trace`` takes: one ring, ``replica<id>`` in a
+        fleet."""
+        label = "engine" if self.config.replica_id is None \
+            else "replica{}".format(self.config.replica_id)
+        return {label: self.tracer}
 
     def find_request(self, rid):
-        """The Request for ``rid`` wherever it lives (queued, running or
-        completed); None when unknown."""
+        """The Request for ``rid`` wherever it lives (queued, running,
+        swapped, mid-handoff or completed); None when unknown."""
         s = self._scheduler
-        req = s.completed.get(rid)
+        req = s.completed.get(rid) or s.handoff.get(rid)
         if req is not None:
             return req
         for r in (list(s.running.values()) + list(s.swapped.values()) +

@@ -24,8 +24,16 @@ contract ``init_pool`` consumes), ``spec_from_config`` and the
 ``KVHierarchy`` the engine drives (on_admit / on_prefill_done /
 on_release / reset, the swap store, the byte accounting). Everything
 host-side here is derived state: ``reset()`` drops it all and the request
-records rebuild the streams. The fleet's pieces (prefix-row transport,
-the prefix directory, handoff adoption) come with the fleet slice.
+records rebuild the streams.
+
+The serving fleet's pieces: ``prefix_directory.py`` (which replica holds
+which shared prefix: the router's affinity and the adoption path) and
+offload.py's transports (a step's handoff captures in one
+synchronization, prefix rows shipped between replicas). A handoff record
+carries the slot's aliased prefix span by value (a dense slot holds its
+copied span, a paged record every live page), so the acceptor needs no
+prefix row of its own: the JAX package's ``on_handoff_in`` pin and the
+prefix ship ahead of a handoff have no counterpart here.
 """
 
 from deepspeed_tpu_torch.inference.kv_hierarchy.hierarchy import (  # noqa: F401
@@ -35,16 +43,25 @@ from deepspeed_tpu_torch.inference.kv_hierarchy.hierarchy import (  # noqa: F401
 )
 from deepspeed_tpu_torch.inference.kv_hierarchy.offload import (  # noqa: F401
     HostSwapStore,
+    capture_prefix_pages,
+    capture_prefix_row,
     capture_slot,
     capture_slot_paged,
+    capture_slots,
+    capture_slots_paged,
     pick_swap_victim,
     record_nbytes,
+    restore_prefix_pages,
+    restore_prefix_row,
     restore_slot,
     restore_slot_paged,
 )
 from deepspeed_tpu_torch.inference.kv_hierarchy.prefix_cache import (  # noqa: F401,E501
     PrefixStore,
     RadixTrie,
+)
+from deepspeed_tpu_torch.inference.kv_hierarchy.prefix_directory import (  # noqa: F401,E501
+    PrefixDirectory,
 )
 from deepspeed_tpu_torch.inference.kv_hierarchy.quant import (  # noqa: F401
     dequantize_kv,

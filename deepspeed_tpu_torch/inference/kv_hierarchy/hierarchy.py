@@ -40,14 +40,11 @@ same across configurations and orders of magnitude smaller):
 
 import dataclasses
 
-from deepspeed_tpu_torch.inference.kv_hierarchy.offload import (HostSwapStore,
+from deepspeed_tpu_torch.inference.kv_hierarchy.offload import (_PREFIX_OF,
+                                                                HostSwapStore,
                                                                 to_device)
 from deepspeed_tpu_torch.inference.kv_hierarchy.prefix_cache import \
     PrefixStore
-
-# Slot plane -> prefix-row plane, for the dense copies.
-_PREFIX_OF = (("k", "pk"), ("v", "pv"), ("k_scale", "pk_scale"),
-              ("v_scale", "pv_scale"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,9 +22,15 @@ stream has passed them (the engine holds it until the step's harvest).
 A restored plane is the captured one, byte for byte, so the resumed
 stream continues where it paused.
 
-The fleet's transports (``capture_slots``, ``capture_slots_paged``,
-``capture_prefix_row``, ``restore_prefix_row``) come with the fleet
-slice.
+The serving fleet's transports (``inference/fleet.py``) are the same
+moves: ``capture_slots`` / ``capture_slots_paged`` take every slot a
+prefill-role step hands off in one synchronization (one gather per pool
+entry, split on the host), and ``capture_prefix_row`` /
+``restore_prefix_row`` (dense) and ``capture_prefix_pages`` /
+``restore_prefix_pages`` (paged) ship a shared-prefix row between
+replicas. int8 codes and their scales ship as stored. On one card a
+record goes device -> host -> device: it is captured on the donor
+engine's stream and restored on the acceptor's.
 """
 
 import time
@@ -73,7 +79,8 @@ def to_device(values, device):
 
 def _wait(pool):
     """The one synchronization of a capture: wait for the copies issued
-    on the current stream of the pool's device."""
+    on the current stream of the pool's device (the engine makes its own
+    stream current around every hierarchy call)."""
     dev = pool["pos"].device
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
@@ -102,6 +109,22 @@ def restore_slot(pool, slot, record):
         dst.copy_(val, non_blocking=True)
 
 
+def capture_slots(pool, slots):
+    """Snapshot SEVERAL slots of a dense pool in one synchronization: one
+    gather along the slot axis per pool entry, then the per-slot split on
+    the host. Returns one ``restore_slot``-compatible record per slot."""
+    idx = to_device([int(s) for s in slots], pool["pos"].device)
+    host = {}
+    for name, t in pool.items():
+        if name in _RESIDENT_KEYS:
+            continue
+        host[name] = host_copy(t.index_select(
+            1 if name in _PLANE_KEYS else 0, idx))
+    _wait(pool)
+    return [{name: (val[:, i] if name in _PLANE_KEYS else val[i])
+             for name, val in host.items()} for i in range(len(slots))]
+
+
 # ------------------------------------------------------- paged variants
 #
 # A PAGED pool keeps k/v as page arenas [L, P, H, page_len, D]: a slot's
@@ -126,6 +149,31 @@ def capture_slot_paged(pool, slot, pages):
                                  if name in _PLANE_KEYS else t[slot])
     _wait(pool)
     return record
+
+
+def capture_slots_paged(pool, slots, page_lists):
+    """Snapshot several paged slots in one synchronization: every slot's
+    pages in one gather, the per-slot fields in another, split on the
+    host (``capture_slots``' paged twin)."""
+    counts = [len(p) for p in page_lists]
+    dev = pool["k"].device
+    pidx = to_device([int(p) for lst in page_lists for p in lst], dev)
+    sidx = to_device([int(s) for s in slots], dev)
+    host = {}
+    for name, t in pool.items():
+        if name in _RESIDENT_KEYS:
+            continue
+        host[name] = host_copy(t.index_select(1, pidx)
+                               if name in _PLANE_KEYS
+                               else t.index_select(0, sidx))
+    _wait(pool)
+    records, off = [], 0
+    for i, n in enumerate(counts):
+        records.append({name: (val[:, off:off + n] if name in _PLANE_KEYS
+                               else val[i])
+                        for name, val in host.items()})
+        off += n
+    return records
 
 
 def restore_slot_paged(pool, slot, record, pages):
@@ -174,6 +222,78 @@ def pick_swap_victim(candidates, now=None,
         return (reclaim + idle_weight * age, -r.rid)
 
     return max(candidates, key=_key)
+
+
+# ----------------------------------------------- prefix-row transports
+#
+# A record holds a prefix row's first ``span`` positions in the dense
+# row layout, planes [L, H, span, D] and scales [L, H, span], under the
+# prefix-row names, whichever layout the donor and the acceptor pool
+# have.
+
+# Slot plane -> prefix-row plane (the hierarchy's dense copies use it too).
+_PREFIX_OF = (("k", "pk"), ("v", "pv"), ("k_scale", "pk_scale"),
+              ("v_scale", "pv_scale"))
+
+
+def capture_prefix_row(pool, row, span):
+    """Snapshot dense prefix row ``row``'s first ``span`` positions to
+    host memory after one synchronization."""
+    row, span = int(row), int(span)
+    record = {prefix: host_copy(pool[prefix][:, row, :, :span])
+              for _, prefix in _PREFIX_OF if prefix in pool}
+    _wait(pool)
+    return record
+
+
+def restore_prefix_row(pool, row, record):
+    """Write a prefix record into dense row ``row``, in place, on the
+    current stream, without waiting (the caller holds the record until
+    the stream has passed the copies). Positions past the record's span
+    keep what the row held: a hit reads only its matched span."""
+    row = int(row)
+    dev = pool["pos"].device
+    for name, val in record.items():
+        span = val.shape[2]
+        pool[name][:, row, :, :span].copy_(to_device(val, dev),
+                                           non_blocking=True)
+
+
+def capture_prefix_pages(pool, pages, span):
+    """Snapshot the prefix held by arena ``pages`` (logical order) to host
+    memory in the dense row layout, after one synchronization: gather the
+    pages, lay them out [L, H, n * page_len, ...] and cut at ``span``."""
+    dev = pool["k"].device
+    idx = to_device([int(p) for p in pages], dev)
+    record = {}
+    for plane, prefix in _PREFIX_OF:
+        if plane not in pool:
+            continue
+        g = pool[plane].index_select(1, idx).movedim(2, 1)
+        g = g.reshape(g.shape[:2] + (-1,) + g.shape[4:])
+        record[prefix] = host_copy(g[:, :, :int(span)])
+    _wait(pool)
+    return record
+
+
+def restore_prefix_pages(pool, pages, record):
+    """Write a prefix record (dense row layout) into the arena ``pages``
+    (as many as its span needs), in place, without waiting; positions
+    past the span in the last page are zero."""
+    dev = pool["k"].device
+    idx = to_device([int(p) for p in pages], dev)
+    for plane, prefix in _PREFIX_OF:
+        if prefix not in record:
+            continue
+        arena = pool[plane]
+        page_len = arena.shape[3]
+        val = to_device(record[prefix], dev)
+        L, H, span = val.shape[:3]
+        buf = torch.zeros((L, H, len(pages) * page_len) + val.shape[3:],
+                          dtype=arena.dtype, device=dev)
+        buf[:, :, :span] = val
+        buf = buf.reshape((L, H, len(pages), page_len) + val.shape[3:])
+        arena.index_copy_(1, idx, buf.movedim(2, 1))
 
 
 def record_nbytes(record):

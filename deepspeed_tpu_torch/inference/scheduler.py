@@ -11,8 +11,11 @@ from any live phase, or ``expired`` from ``queued`` when a request's
 deadline passes before admission. Host offload (the KV hierarchy) adds
 ``decoding -> swapped -> decoding``: a swapped session holds no slot (its
 device state is a host record the engine keeps) and resumes ahead of
-fresh admissions. Disaggregated handoff and adoption come with the fleet
-slice; the entry points that would start them raise NotImplementedError.
+fresh admissions. Disaggregated serving (``inference/fleet.py``) adds
+``decoding -> handoff``: a prefill-role replica captured the slot of a
+finished prompt and the stream is migrating to a decode-role peer, whose
+scheduler ``adopt``s it straight into ``decoding``; ``finish_handoff``
+then drops the donor's record.
 
 Recovery (``inference/engine.py``, ``InferenceEngine._recover``) adds one
 move: after a fatal step error the engine calls ``requeue_running()``:
@@ -75,11 +78,17 @@ class Request(object):
                  "eos_token_id", "seed", "spec", "tokens", "slot", "phase",
                  "cursor", "submit_time", "admit_time", "first_token_time",
                  "finish_time", "deadline", "replays", "resync", "folded",
-                 "last_touch", "trace")
+                 "last_touch", "priority", "tenant", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, temperature, top_k,
-                 eos_token_id, seed, spec=False, deadline=None, trace=None):
+                 eos_token_id, seed, spec=False, deadline=None, priority=None,
+                 tenant=None, trace=None):
         self.rid = rid
+        # The submission's priority class and tenant (None for untagged
+        # traffic); carried across failovers and handoffs for the front
+        # door, which is not ported yet.
+        self.priority = priority
+        self.tenant = tenant
         # Propagated trace identity: the Chrome tid every lifecycle event
         # rides and the hop counter (telemetry/distributed.py). A bare
         # engine mints a local one, so tid == rid.
@@ -146,6 +155,10 @@ class Scheduler(object):
         # swap-out order, so next_swap_in() resumes the longest-waiting
         # session first.
         self.swapped = {}
+        # rid -> Request in the ``handoff`` phase: prefill finished, slot
+        # captured and freed, stream migrating to another replica. Still
+        # this scheduler's (``idle`` counts it) until finish_handoff.
+        self.handoff = {}
         self.completed = {}         # rid -> Request
         self._ids = itertools.count()
         # Telemetry is additive (module docstring): without a tracer or a
@@ -192,11 +205,15 @@ class Scheduler(object):
                          tenant=tenant, reason=cause or "queue_full")
 
     def submit(self, prompt, max_new_tokens, temperature, top_k,
-               eos_token_id, seed, spec=False, deadline=None):
+               eos_token_id, seed, spec=False, deadline=None, priority=None,
+               tenant=None, trace=None):
+        """Queue one request; ``trace``: the TraceContext a fleet minted
+        (None: a local one, tid == rid)."""
         if len(self.queue) >= self.max_queue:
-            raise self.queue_full_error()
+            raise self.queue_full_error(priority=priority, tenant=tenant)
         req = Request(next(self._ids), prompt, max_new_tokens, temperature,
-                      top_k, eos_token_id, seed, spec, deadline=deadline)
+                      top_k, eos_token_id, seed, spec, deadline=deadline,
+                      priority=priority, tenant=tenant, trace=trace)
         if deadline is not None:
             self._has_deadlines = True
         self.queue.append(req)
@@ -332,6 +349,11 @@ class Scheduler(object):
         elif req.phase == "swapped":
             # Slotless; the host record is the engine's to drop.
             self.swapped.pop(req.rid)
+        elif req.phase == "handoff":
+            # Slotless and off the device already (captured at
+            # begin_handoff): host bookkeeping only. pop() tolerates a
+            # record the fleet's pump settled meanwhile.
+            self.handoff.pop(req.rid, None)
         else:
             self.running.pop(req.slot)
             req.slot = None
@@ -424,19 +446,79 @@ class Scheduler(object):
                                 rid=req.rid, hop=req.trace.hop(), slot=slot,
                                 tokens=len(req.tokens))
 
-    def begin_handoff(self, req):
-        raise NotImplementedError("disaggregated handoff comes with the "
-                                  "reliability and fleet slice (ROADMAP "
-                                  "Queue 1)")
+    # ------------------------------------------- disaggregated handoff
 
-    def adopt(self, *args, **kwargs):
-        raise NotImplementedError("disaggregated handoff comes with the "
-                                  "reliability and fleet slice (ROADMAP "
-                                  "Queue 1)")
+    def begin_handoff(self, req):
+        """Move a DECODING request out of its slot into the ``handoff``
+        phase: the prompt finished on this prefill-role replica, the
+        engine captured the slot to a host record, and the stream is
+        migrating to a decode replica. Slotless like ``swapped``, but
+        bound for ANOTHER scheduler: the fleet's pump places the record
+        or falls back to a replay, and calls finish_handoff either way.
+        ``requeue_running`` leaves it alone: its record survives a pool
+        reset."""
+        assert req.phase == "decoding", req.phase
+        self.running.pop(req.slot)
+        req.slot = None
+        req.phase = "handoff"
+        self.handoff[req.rid] = req
+        if self.tracer is not None:
+            self.tracer.instant("request/handoff", tid=req.trace.tid,
+                                rid=req.rid, hop=req.trace.hop(),
+                                tokens=len(req.tokens))
+
+    def finish_handoff(self, req):
+        """The migration settled (adopted by a peer, or fallen back to a
+        replay elsewhere): drop the record from this scheduler's books
+        (not ``completed``: the new owner's record is the truth now)."""
+        self.handoff.pop(req.rid, None)
+
+    def adopt(self, prompt, max_new_tokens, temperature, top_k,
+              eos_token_id, seed, slot, spec=False, deadline=None,
+              submit_time=None, admit_time=None, first_token_time=None,
+              priority=None, tenant=None, trace=None, flow=None, tokens=(),
+              resync=None, folded=0):
+        """ACCEPTOR side: install a request migrated from a prefill-role
+        peer straight into ``slot`` in the ``decoding`` phase; it never
+        queues here and never rides the prefill lane (the restored record
+        IS its prefill). The port carries the donor's record whole:
+        ``prompt`` and ``max_new_tokens`` as submitted, the ``tokens``
+        already delivered, and the replay bookkeeping (``resync``,
+        ``folded``), so a later recovery here replays the stream as the
+        donor would have. The donor's submit/admit/first-token stamps
+        carry over: queue wait and TTFT are observed once, where they
+        happened."""
+        assert slot not in self.running, slot
+        req = Request(next(self._ids), prompt, max_new_tokens, temperature,
+                      top_k, eos_token_id, seed, spec, deadline=deadline,
+                      priority=priority, tenant=tenant, trace=trace)
+        if submit_time is not None:
+            req.submit_time = submit_time
+            req.last_touch = submit_time
+        req.admit_time = admit_time if admit_time is not None \
+            else req.submit_time
+        req.first_token_time = first_token_time
+        req.tokens = list(tokens)
+        req.resync = resync
+        req.folded = folded
+        req.cursor = int(prompt.size)
+        req.slot = slot
+        req.phase = "decoding"
+        self.running[slot] = req
+        if self.tracer is not None:
+            args = {"rid": req.rid, "slot": slot,
+                    "prompt_tokens": int(prompt.size),
+                    "hop": req.trace.hop()}
+            if flow is not None:
+                args["flow_in"] = flow
+            self.tracer.instant("request/handoff_in", tid=req.trace.tid,
+                                **args)
+        return req
 
     @property
     def idle(self):
-        return not self.queue and not self.running and not self.swapped
+        return (not self.queue and not self.running and not self.swapped
+                and not self.handoff)
 
     def occupancy(self):
         return len(self.running) / float(self.num_slots)

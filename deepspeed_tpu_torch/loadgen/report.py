@@ -2,10 +2,11 @@
 noise-aware regression gate.
 
 Counterpart of ``deepspeed_tpu/loadgen/report.py``: the same report for
-the same run result. Sections whose features the port lacks (chaos,
-prefix, disagg, front door, MoE or long-context adapters) come out at
-their zero/empty values, as they do on a JAX engine without those
-features. The gate's cost-model arm (reports carrying ``perf_xray``)
+the same run result. The ``prefix`` and ``disagg`` sections fill from a
+``ServingFleet``'s summed counters (adoptions, bytes shipped, affinity
+routes; handoffs, fallbacks, handoff bytes); sections whose features the
+port lacks (front door, MoE or long-context adapters) come out at their
+zero/empty values, as they do on a JAX engine without those features. The gate's cost-model arm (reports carrying ``perf_xray``)
 waits for the perf x-ray port and raises.
 
 The report is the harness's one artifact — a plain-JSON document that

@@ -1,9 +1,8 @@
 """Open-loop sustained-load driver.
 
 Counterpart of ``deepspeed_tpu/loadgen/runner.py``, driving the port's
-``InferenceEngine`` through ``submit`` / ``step`` / ``idle``. ``alerts``
-raises NotImplementedError (the SLO alert manager comes with a later
-slice), and so does ``chaos_replica`` (replica chaos needs the fleet).
+``InferenceEngine`` or ``ServingFleet`` through ``submit`` / ``step`` /
+``idle``.
 
 OPEN loop means arrivals follow the workload's schedule, not the
 engine's pace: ``run()`` calls ``engine.submit()`` the moment each
@@ -31,7 +30,12 @@ The run then records the engine's recoveries in run-relative seconds
 ``requests_lost``: accepted requests that reached no terminal phase by
 the run's end, which the recovery invariant demands be 0 (reported on
 every run). Chaos runs use the real clock: the engine stamps its
-recoveries with ``time.time()``.
+recoveries with ``time.time()``. ``chaos_replica`` arms the plan on one
+replica of a ``ServingFleet`` (kill a replica mid-run).
+
+ALERTS (``alerts``, a ``telemetry.alerts.AlertManager``): evaluated once
+per loop iteration, right after the collector's tick, and at the end;
+its rising edges land in ``RunResult.alerts_fired``.
 """
 
 import dataclasses
@@ -82,8 +86,9 @@ class RunResult:
     # latency budget, and their later bit-identical resumes.
     preemptions: int = 0
     preempt_resumes: int = 0
-    # SLO alerting facts: every rising-edge alert record of the run, in
-    # firing order (empty until the alerts slice is ported).
+    # SLO alerting facts (empty without an ``alerts`` manager): every
+    # rising-edge record of the run, in firing order (alerts.py's
+    # ``fired()`` schema).
     alerts_fired: list = dataclasses.field(default_factory=list)
     # Adapter facts (schema v6, zero/empty on plain GPT-2): which
     # ModelAdapter served the run, per-expert dispatch totals summed
@@ -171,18 +176,10 @@ class SustainedRunner(object):
         self._clock = clock
         self._sleep = sleep
         self.max_steps = max_steps
-        # Chaos mode (module docstring): arm ``chaos_plan`` once
-        # ``chaos_after_s`` run seconds pass. The JAX runner's
-        # ``chaos_replica`` (one replica of a fleet) and ``alerts`` stay
-        # in the signature; both wait for their slices.
-        if chaos_replica is not None:
-            raise NotImplementedError(
-                "SustainedRunner(chaos_replica=...): replica chaos needs "
-                "the fleet slice (ROADMAP Queue 1 item 6)")
-        if alerts is not None:
-            raise NotImplementedError(
-                "SustainedRunner(alerts=...): SLO alerting comes with the "
-                "alerts slice (ROADMAP Queue 1 item 7)")
+        # Alerts and chaos mode (module docstring). Fault steps count from
+        # arming; ``chaos_replica`` targets one replica of a fleet.
+        self.alerts = alerts
+        self.chaos_replica = chaos_replica
         self.chaos_plan = chaos_plan
         self.chaos_after_s = chaos_after_s
         self.collector = collector or TimeseriesCollector(
@@ -221,7 +218,11 @@ class SustainedRunner(object):
             now = self._clock() - t0
             if (self.chaos_plan is not None and injector is None
                     and now >= self.chaos_after_s):
-                injector = self.engine.inject_faults(self.chaos_plan)
+                if self.chaos_replica is not None:
+                    injector = self.engine.inject_faults(
+                        self.chaos_plan, replica=self.chaos_replica)
+                else:
+                    injector = self.engine.inject_faults(self.chaos_plan)
             # Submit everything whose arrival time has passed — open
             # loop: the schedule, not the backlog, decides.
             while i < len(pending) and pending[i].arrival_s <= now:
@@ -269,7 +270,11 @@ class SustainedRunner(object):
                             sum(1 for _, r, _ in handles
                                 if r is not None and not r.done)))
             self.collector.tick()
+            if self.alerts is not None:
+                self.alerts.evaluate()
         self.collector.sample()   # flush the tail window
+        if self.alerts is not None:
+            self.alerts.evaluate()
         wall = self._clock() - t0
         samples = [_sample_row(lr, req, reason)
                    for lr, req, reason in handles]
@@ -318,6 +323,8 @@ class SustainedRunner(object):
             tokens_out=sum(s["tokens_out"] for s in samples),
             recovery=recovery,
             requests_lost=lost,
+            alerts_fired=([] if self.alerts is None
+                          else self.alerts.fired()),
             faults_injected=(0 if counters is None or
                              "faults_injected" not in counters else
                              counters["faults_injected"] - faults_at_start),

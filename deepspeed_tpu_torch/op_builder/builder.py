@@ -24,6 +24,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED = {}
+# Guards _LOADED: serving replicas on their own threads may meet a kernel
+# first at the same moment, and each library must be built and loaded
+# once.
+_LOAD_LOCK = threading.Lock()
 
 
 def sources():
@@ -112,8 +117,12 @@ def build_log(name):
 
 def load(name):
     """The ctypes library built from ``csrc/<name>.cu``, building it first
-    when needed. Cached for the life of the process."""
+    when needed. Cached for the life of the process; safe to call from
+    several threads at once (one build, one load)."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(_build(name)[0])
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                lib = _LOADED[name] = ctypes.CDLL(_build(name)[0])
     return lib

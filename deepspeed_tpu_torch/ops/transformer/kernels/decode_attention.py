@@ -57,7 +57,9 @@ as the TPU kernel does, where the plain version dequantizes it to q's dtype
 first: in bf16 the two differ by k's rounding.
 """
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -75,12 +77,17 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _Q8_EPS = 1e-8
 
 # Kernel launches since the last reset, per kernel (K3 "decode", K4 "q8",
-# K5 "paged", K6 "paged_q8"); chip_smoke.py reads them to show the serving
-# path went through the kernel. A wrapper called while a CUDA graph is
-# captured counts the launch it records; the serving engine hands such
-# counts back after the capture and adds them again at every replay
-# (inference/engine.py), so the counts stay kernels run.
+# K5 "paged", K6 "paged_q8"), over every thread of the process;
+# chip_smoke.py reads them to show the serving path went through the
+# kernel. They count kernels RUN: a launch recorded inside a CUDA graph
+# capture (``recording``) counts only in the capture's own tally, and a
+# replay adds the tally (``add_launches``). A thread may also count into a
+# dict of its own (``counting_into``): each serving engine steps under
+# one, so its counts stay exact while other replicas step on other
+# threads. Every update holds ``_count_lock``.
 launches = {"decode": 0, "q8": 0, "paged": 0, "paged_q8": 0}
+_count_lock = threading.Lock()
+_local = threading.local()
 
 # C entry point, its pointer arguments and the ints after them, per kernel.
 _ENTRIES = {
@@ -93,8 +100,54 @@ _fns = {}
 
 
 def reset_launches():
-    for key in launches:
-        launches[key] = 0
+    with _count_lock:
+        for key in launches:
+            launches[key] = 0
+
+
+def add_launches(counts):
+    """Launches that ran (a replayed graph's tally): add ``counts`` to the
+    process's launches and to this thread's sink, if it has one."""
+    sink = getattr(_local, "sink", None)
+    with _count_lock:
+        for kind, n in counts.items():
+            launches[kind] += n
+            if sink is not None:
+                sink[kind] += n
+
+
+def _count(kind):
+    """One launch of ``kind`` on this thread: into the tally of the
+    capture in progress here, else run (``add_launches``)."""
+    tally = getattr(_local, "tally", None)
+    if tally is not None:
+        tally[kind] += 1
+    else:
+        add_launches({kind: 1})
+
+
+@contextlib.contextmanager
+def counting_into(sink):
+    """Also count this thread's launches (and replays) into ``sink``, a
+    dict with the keys of ``launches``, until the block ends."""
+    prev = getattr(_local, "sink", None)
+    _local.sink = sink
+    try:
+        yield sink
+    finally:
+        _local.sink = prev
+
+
+@contextlib.contextmanager
+def recording():
+    """A CUDA graph capture on this thread: its launches are recorded, not
+    run, so they go to the tally this yields and nowhere else."""
+    prev = getattr(_local, "tally", None)
+    _local.tally = dict.fromkeys(launches, 0)
+    try:
+        yield _local.tally
+    finally:
+        _local.tally = prev
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +455,7 @@ def _launch(kind, q, ptrs, ints, T, scale):
     if err != 0:
         raise RuntimeError("decode_attention {} kernel launch failed: CUDA "
                            "error {}".format(kind, err))
-    launches[kind] += 1
+    _count(kind)
     return out
 
 

@@ -19,11 +19,25 @@ signatures.
   ``TensorBoardScalarWriter`` (exporters.py): the read side. The
   tensorboard extra is imported lazily.
 - ``TraceContext`` / ``merged_trace`` / ``validate_trace``
-  (distributed.py): propagated trace context and the trace schema gate.
+  (distributed.py): propagated trace context, the fleet-wide merge that
+  binds cross-replica hops with flow arrows, and the trace schema gate.
+- ``build_autopsy`` / ``worst_requests`` (autopsy.py): the structured
+  "why was this request slow?" answer assembled from the rings.
+- ``AlertRule`` / ``AlertManager`` / ``default_rules`` (alerts.py):
+  declarative SLO burn-rate alerting over the collector's windows.
 
-Alerts, the request autopsy and the perf x-ray of the JAX package are
-not ported yet.
+The perf x-ray of the JAX package is not ported yet (ROADMAP Queue 1).
 """
+
+from deepspeed_tpu_torch.telemetry.alerts import (
+    AlertManager,
+    AlertRule,
+    default_rules,
+)
+from deepspeed_tpu_torch.telemetry.autopsy import (
+    build_autopsy,
+    worst_requests,
+)
 
 from deepspeed_tpu_torch.telemetry.distributed import (
     TraceContext,
@@ -78,4 +92,9 @@ __all__ = [
     "merged_trace",
     "validate_trace",
     "write_merged_trace",
+    "build_autopsy",
+    "worst_requests",
+    "AlertRule",
+    "AlertManager",
+    "default_rules",
 ]

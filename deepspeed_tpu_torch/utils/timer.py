@@ -32,24 +32,25 @@ class _Interval:
     method: every completed start/stop interval is observed into it, so
     a registry-backed timer gets p50/p99 per phase."""
 
-    __slots__ = ("name", "_acc", "_t0", "histogram")
+    __slots__ = ("name", "_acc", "_t0", "histogram", "_sync")
 
-    def __init__(self, name, histogram=None):
+    def __init__(self, name, histogram=None, sync=None):
         self.name = name
         self._acc = 0.0
         self._t0 = None  # None <=> not running
         self.histogram = histogram
+        self._sync = sync or _device_synchronize
 
     def start(self):
         if self._t0 is not None:
             raise RuntimeError("timer {!r} already started".format(self.name))
-        _device_synchronize()
+        self._sync()
         self._t0 = time.time()
 
     def stop(self, reset=False):
         if self._t0 is None:
             raise RuntimeError("timer {!r} not started".format(self.name))
-        _device_synchronize()
+        self._sync()
         dt = time.time() - self._t0
         self._acc = dt if reset else self._acc + dt
         self._t0 = None
@@ -84,13 +85,17 @@ class SynchronizedWallClockTimer:
     interval then observes its completed durations into the registry's
     ``timer_seconds`` histogram labeled ``timer=<timer name>``, which is
     how the training and serving phase timers reach Prometheus and
-    TensorBoard."""
+    TensorBoard. ``sync`` (optional): what an interval's edges wait on
+    instead of the whole device (a serving engine passes its own
+    stream's ``synchronize``, so one replica's timer neither waits for
+    nor disturbs another replica's work on the same card)."""
 
     Timer = _Interval
 
-    def __init__(self, registry=None):
+    def __init__(self, registry=None, sync=None):
         self.timers = {}
         self.registry = registry
+        self._sync = sync
 
     def __call__(self, name):
         t = self.timers.get(name)
@@ -98,7 +103,8 @@ class SynchronizedWallClockTimer:
             hist = None
             if self.registry is not None:
                 hist = self.registry.histogram("timer_seconds", timer=name)
-            t = self.timers[name] = _Interval(name, histogram=hist)
+            t = self.timers[name] = _Interval(name, histogram=hist,
+                                              sync=self._sync)
         return t
 
     @staticmethod

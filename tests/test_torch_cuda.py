@@ -14,7 +14,11 @@ programs, a ``profile_window`` trace holding a decode kernel, and a
 timer that covers queued device work; then the KV hierarchy's prefix
 cache and host offload on the card: the tiers on against off, paged int8
 against dense int8, the capture/restore round trip on a live pool and a
-raise while sessions are swapped out.
+raise while sessions are swapped out; then several engines on one card,
+as the serving fleet runs them: two engines capturing at once on two
+threads, a capture beside another engine's swaps and recovery, exact
+per-engine launch counts, and the fleet's handoff and prefix-row records
+round-tripping on live pools.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -1367,6 +1371,211 @@ def test_raise_while_swapped_replays_the_streams(cuda):
     assert len(engine.recovery_log) == 1 and m["recoveries"] == 1
     assert engine.compile_count == programs and m["recompiles"] == 0
     assert engine.health == "healthy"
+
+
+# Several engines on one card (the serving fleet's replicas): each steps
+# on its own thread and its own stream, captures under the process-wide
+# lock, and counts its own decode-kernel launches.
+
+
+def _serve_on_thread(engine, prompts, barrier=None, out=None, key=None):
+    """Serve ``prompts`` on ``engine`` (greedy, one sampled) to idle after
+    ``barrier``; record the harvest of every step and the streams."""
+    reqs = [engine.submit(p, max_new_tokens=24, **(
+        {"temperature": 0.8, "seed": 4} if i == 1 else {}))
+        for i, p in enumerate(prompts)]
+    if barrier is not None:
+        barrier.wait()
+    snaps = []
+    while not engine.idle:
+        engine.step()
+        snaps.append(engine._last_snap)
+    result = (snaps, [r.tokens for r in reqs])
+    if out is not None:
+        out[key] = result
+    return result
+
+
+def _run_threads(targets):
+    import threading
+    threads = [threading.Thread(target=t) for t in targets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300.0)
+    assert not any(t.is_alive() for t in threads)
+
+
+@pytest.mark.parametrize("extra", [
+    {}, {"paged_kv": True, "kv_page_len": 32, "int8_kv": True}],
+    ids=["dense", "paged_int8"])
+def test_two_engines_capture_at_once_on_two_threads(cuda, extra):
+    """Two fresh engines step on two threads from one barrier, so their
+    first steps (eager runs and captures of each key) meet: each captures
+    on its own stream under the capture lock, and each engine's every
+    step's harvest equals the same program run eagerly, bit for bit; each
+    engine's own launch counts equal the eager run's, and the process
+    counts their sum."""
+    import threading
+    model = _small_gpt2(cuda)
+    config = dict(SMALL_SERVE, **extra)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 1024, size=n) for n in (5, 40, 17, 70)]
+    eager = _EagerEngine(model, config=config)
+    want, want_tokens = _serve_on_thread(eager, prompts)
+    engines = [InferenceEngine(model, config=config) for _ in range(2)]
+    assert engines[0]._stream != engines[1]._stream
+    barrier, out = threading.Barrier(2), {}
+    da.reset_launches()
+    _run_threads([lambda e=e, i=i: _serve_on_thread(
+        e, prompts, barrier, out, i) for i, e in enumerate(engines)])
+    torch.cuda.synchronize()
+    for i, eng in enumerate(engines):
+        got, tokens = out[i]
+        assert tokens == want_tokens and len(got) == len(want)
+        for a, b in zip(got, want):
+            for name in a:
+                assert np.array_equal(a[name], b[name]), (i, name)
+        assert eng.launches == eager.launches
+        m = eng.metrics()
+        assert 0 < m["compile_count"] <= 8
+        assert m["graph_replays"] == len(got) - m["compile_count"]
+    assert da.launches == {k: 2 * n for k, n in eager.launches.items()}
+
+
+def test_capture_beside_swap_out_and_recovery(cuda):
+    """One engine captures its keys for the first time on one thread while
+    another, on a second thread, swaps sessions out and in and recovers
+    from a raise once one is swapped: both engines' streams equal their
+    lone runs, the recovering engine captures nothing new, and no pool
+    tensor of either moves."""
+    import threading
+    from deepspeed_tpu_torch.inference import Fault, FaultPlan
+    model = _small_gpt2(cuda)
+    hier_cfg = dict(SMALL_SERVE, **HIER, fault_injection=True)
+    lone_hier, _ = _hier_serve(InferenceEngine(model, config=hier_cfg))
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, 1024, size=n) for n in (9, 33, 60)]
+    _, lone = _serve_on_thread(InferenceEngine(model, config=SMALL_SERVE),
+                               prompts)
+    hier = InferenceEngine(model, config=hier_cfg)
+    _hier_serve(hier)  # warm: every key met and captured
+    hier.recompile_detector.mark_warm()
+    programs = hier.compile_count
+    fresh = InferenceEngine(model, config=SMALL_SERVE)
+    addrs = [{n: t.data_ptr() for n, t in e._pool.items()}
+             for e in (hier, fresh)]
+    barrier, out = threading.Barrier(2), {}
+
+    def recovering():
+        reqs = [hier.submit(p, max_new_tokens=24, **(
+            {"temperature": 0.8, "seed": i, "top_k": 20} if i % 5 == 4
+            else {})) for i, p in enumerate(_hier_prompts())]
+        barrier.wait()
+        armed = False
+        while not hier.idle:
+            if hier._scheduler.swapped and not armed:
+                hier.inject_faults(FaultPlan(faults=(Fault("raise",
+                                                           step=0),)))
+                armed = True
+            hier.step()
+        out["hier"] = ([r.tokens for r in reqs], armed)
+
+    _run_threads([recovering, lambda: _serve_on_thread(
+        fresh, prompts, barrier, out, "fresh")])
+    tokens, armed = out["hier"]
+    assert armed and tokens == lone_hier
+    assert out["fresh"][1] == lone
+    m = hier.metrics()
+    assert m["recoveries"] == 1 and m["recompiles"] == 0
+    assert hier.compile_count == programs and hier.health == "healthy"
+    assert fresh.compile_count > 0
+    assert [{n: t.data_ptr() for n, t in e._pool.items()}
+            for e in (hier, fresh)] == addrs
+
+
+@pytest.mark.parametrize("layout", ["dense_bf16", "paged_int8"])
+def test_handoff_and_prefix_records_round_trip_on_the_card(cuda, layout):
+    """A step's handoff capture (every decoding slot in one
+    ``capture_slots`` call, pinned host records), scribbled over and
+    restored in place, and a prefix row (dense) or its pages (paged)
+    captured and written back: the live pool byte for byte. Then a
+    prefill replica hands its streams to a decode replica on the same
+    card: the streams equal a lone engine's."""
+    from deepspeed_tpu_torch.inference import ServingFleet
+    from deepspeed_tpu_torch.inference.kv_hierarchy import (
+        capture_prefix_pages, capture_prefix_row, capture_slots,
+        capture_slots_paged, restore_prefix_pages, restore_prefix_row,
+        restore_slot, restore_slot_paged)
+    model = _small_gpt2(cuda)
+    extra = {} if layout == "dense_bf16" else {
+        "paged_kv": True, "kv_page_len": 32, "int8_kv": True}
+    config = dict(SMALL_SERVE, **HIER, **extra)
+    checked = []
+
+    def roundtrip(engine):
+        pool, pager = engine._pool, engine._pager
+        slots = [r.slot for r in engine._scheduler.running.values()
+                 if r.phase == "decoding"]
+        before = {n: t.clone() for n, t in pool.items()}
+        recs = capture_slots(pool, slots) if pager is None else \
+            capture_slots_paged(pool, slots,
+                                [pager.row_pages(s) for s in slots])
+        assert all(not v.is_cuda and v.is_pinned()
+                   for rec in recs for v in rec.values())
+        for slot in slots:
+            at = slot if pager is None else pager.row_pages(slot)
+            for name in ("k", "v", "k_scale", "v_scale"):
+                if name in pool:
+                    pool[name][:, at] = 3
+            for name in ("pos", "last_tok", "active", "remaining"):
+                pool[name][slot] = 0
+        for slot, rec in zip(slots, recs):
+            if pager is None:
+                restore_slot(pool, slot, rec)
+            else:
+                restore_slot_paged(pool, slot, rec, pager.row_pages(slot))
+        store = engine._hier.store
+        row = next(iter(store.tokens))
+        if pager is None:
+            prec = capture_prefix_row(pool, row, 24)
+            pool["pk"][:, row, :, :24] = 3
+            restore_prefix_row(pool, row, prec)
+        else:
+            pages, span = store.payload[row]
+            n = -(-span // pager.page_len)
+            # The whole of the row's pages, so the restore rewrites each
+            # position it scribbled over.
+            prec = capture_prefix_pages(pool, pages[:n],
+                                        n * pager.page_len)
+            assert prec["pk"].dtype == torch.int8
+            for name in ("k", "v", "k_scale", "v_scale"):
+                pool[name][:, list(pages[:n])] = 3
+            restore_prefix_pages(pool, pages[:n], prec)
+        torch.cuda.synchronize()
+        checked.append([n for n, t in pool.items()
+                        if not torch.equal(t, before[n])])
+
+    got, _ = _hier_serve(InferenceEngine(model, config=config),
+                         roundtrip=roundtrip)
+    assert checked == [[]]
+    want, _ = _hier_serve(InferenceEngine(model, config=config))
+    assert got == want
+    # The handoff itself, prefill replica -> decode replica.
+    fleet = ServingFleet(model, n_replicas=2, config=config,
+                         roles=("prefill", "decode"), start=False)
+    try:
+        frs = [fleet.submit(p, max_new_tokens=24, **(
+            {"temperature": 0.8, "seed": i, "top_k": 20} if i % 5 == 4
+            else {})) for i, p in enumerate(_hier_prompts())]
+        assert fleet.wait_idle(timeout_s=120.0)
+        assert [fr.tokens for fr in frs] == want
+        m = fleet.metrics()["fleet"]
+        assert m["handoffs"] == m["handoffs_in"] > 0
+        assert m["handoff_fallbacks"] == 0
+        assert fleet.replicas[1].engine.metrics()["prefill_lanes"] == 0
+    finally:
+        fleet.close()
 
 
 def test_a_failed_capture_raises(cuda):

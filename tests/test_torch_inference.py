@@ -9,7 +9,7 @@ package's, on the CPU.
 - a sampled request's stream depends only on its seed and positions, not
   on its slot or its neighbours; top_k=1 sampling is greedy;
 - every setting the port does not implement yet raises (the perf x-ray,
-  the fleet, the legacy bucket path); the KV hierarchy's settings (prefix
+  the MoE adapter, the legacy bucket path); the KV hierarchy's settings (prefix
   cache, host offload, the capacity budget) build engines that report
   them.
 """
@@ -153,8 +153,8 @@ def test_top_k_one_sampling_is_greedy():
 
 @pytest.mark.parametrize("setting", [
     {"spec_decode": True, "chunked_prefill": False},
-    {"role": "prefill"},
-    {"chunked_prefill": False}, {"replica_id": 1},
+    {"expert_parallel": False},
+    {"chunked_prefill": False}, {"xray_sample_every": 0},
     {"use_flash_decode": False}, {"sparse_decode": False},
     {"telemetry": True, "trace_ring": 16, "xray_sample_every": 16},
     {"prefill_buckets": [16, 64]}])

@@ -97,13 +97,14 @@ def test_entry_points_raise_without_cuda():
                                    "bert_params_from_jax",
                                    "transformer_layer", "sparse_bert",
                                    "bert_sparse_self_attention",
-                                   "sparse_attention_layers"])
+                                   "sparse_attention_layers",
+                                   "serving_fleet"])
 def test_state_builders_default_to_cuda(entry):
     """Every public builder of device state defaults to the GPU: without
     one it raises, and with ``device="cpu"`` it builds on the host."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
-    from deepspeed_tpu_torch.inference import kv_pool
+    from deepspeed_tpu_torch.inference import ServingFleet, kv_pool
     from deepspeed_tpu_torch.models import (BertConfig, BertForPreTraining,
                                             BertModel, GPT2Config,
                                             GPT2LMHeadModel, bert, generation,
@@ -140,6 +141,10 @@ def test_state_builders_default_to_cuda(entry):
         "sparse_attention_layers": lambda **kw: SparseAttentionUtils
         .replace_self_attention_layer_with_sparse_self_attention_layer(
             bcfg, [None], **kw)[0].value.kernel,
+        "serving_fleet": lambda **kw: ServingFleet(
+            cfg, _nest(tree), n_replicas=2, start=False,
+            config={"max_len": 64, "max_slots": 2},
+            **kw).replicas[1].engine._pool["k"],
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()

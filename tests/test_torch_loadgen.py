@@ -11,9 +11,10 @@
   under an injected clock: every accepted request completes, sheds are
   sample rows, the windows carry the engine's registry, and the report
   over the run equals the JAX ``build_report`` of the same result.
-  ``alerts`` and ``chaos_replica`` raise: alerting needs the alerts
-  slice, replica chaos the fleet. Chaos mode on one engine is held in
-  ``tests/test_torch_resilience.py``.
+  ``alerts`` is evaluated as windows close and its rising edges land in
+  the result; ``chaos_replica`` arms a plan on one replica of a fleet.
+  Chaos mode on one engine is held in ``tests/test_torch_resilience.py``,
+  replica chaos with a kill in ``tests/test_torch_fleet.py``.
 
 No test here asserts a wall-clock bound: the clock is injected.
 """
@@ -26,8 +27,11 @@ import pytest
 import torch
 
 import deepspeed_tpu.loadgen as jl
+import deepspeed_tpu_torch.inference as ti
 import deepspeed_tpu_torch.loadgen as tl
-from tests.test_torch_inference import port_engine, prompts
+import deepspeed_tpu_torch.telemetry as tt
+from deepspeed_tpu_torch.models import GPT2Config
+from tests.test_torch_inference import SERVE, models, port_engine, prompts
 
 torch.set_num_threads(1)
 
@@ -276,16 +280,49 @@ def test_runner_records_queuefull_as_shed_samples_and_pages():
 
 
 def test_runner_refuses_alerts():
-    engine = port_engine()
-    with pytest.raises(NotImplementedError, match="alerts"):
-        tl.SustainedRunner(engine, PRESETS["poisson"](tl), alerts=object())
+    """``alerts`` (refused until the alert manager was ported): an
+    AlertManager over the runner's collector is evaluated as windows
+    close, and its rising edges land in ``alerts_fired`` in alerts.py's
+    schema. A burst of 8 into 2 slots saturates the queue."""
+    engine = port_engine(max_slots=2, max_queue=64)
+    _warm(engine)
+    spec = tl.WorkloadSpec(**_small(arrival="burst", n_requests=8,
+                                    burst_size=8, seed=4))
+    clock = _Clock()
+    collector = tt.TimeseriesCollector(engine.telemetry,
+                                       window_seconds=0.002, clock=clock)
+    alerts = tt.AlertManager(collector, [tt.AlertRule(
+        "queue", "saturation", "queue_depth", 1, windows=1)], clock=clock)
+    res = tl.SustainedRunner(engine, spec, collector=collector,
+                             max_steps=10_000, clock=clock,
+                             sleep=clock.sleep, alerts=alerts).run()
+    assert res.completed == 8 and res.requests_lost == 0
+    assert res.alerts_fired == alerts.fired()
+    assert res.alerts_fired[0]["rule"] == "queue"
+    assert res.alerts_fired[0]["kind"] == "saturation"
 
 
 def test_runner_refuses_replica_chaos():
-    engine = port_engine(fault_injection=True)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        tl.SustainedRunner(engine, PRESETS["poisson"](tl),
-                           chaos_plan=object(), chaos_replica=0)
+    """``chaos_replica`` (refused until the fleet was ported): the plan
+    arms on that replica of a ServingFleet, and only there."""
+    fleet = ti.ServingFleet(GPT2Config.tiny(dtype=torch.float32),
+                            models()[2], n_replicas=2, start=False,
+                            config=dict(SERVE, fault_injection=True),
+                            device="cpu")
+    try:
+        plan = ti.FaultPlan(faults=(ti.Fault("stall", step=0,
+                                             stall_s=0.0),))
+        clock = _Clock()
+        spec = tl.WorkloadSpec(**_small(n_requests=4, seed=3))
+        res = tl.SustainedRunner(fleet, spec, window_seconds=0.05,
+                                 max_steps=10_000, clock=clock,
+                                 sleep=clock.sleep, chaos_plan=plan,
+                                 chaos_replica=1).run()
+        assert res.completed == 4 and res.requests_lost == 0
+        assert fleet.replicas[1].engine._injector is not None
+        assert fleet.replicas[0].engine._injector is None
+    finally:
+        fleet.close()
 
 
 def test_run_result_fields_equal_jax():

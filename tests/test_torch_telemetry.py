@@ -527,14 +527,9 @@ KV_HIERARCHY_GAUGES = {"prefix_hit_rate", "kv_bytes_aliased",
                        "slots_swapped", "swap_out_seconds",
                        "swap_in_seconds"}
 # Prometheus families only the JAX engine exports, by the slice that
-# brings them (ROADMAP Queue 1): the fleet, disaggregated handoff and the
-# front door (item 6).
-JAX_ONLY = {
-    "fleet": {"prefix_adoptions", "prefix_bytes_shipped", "affinity_routed",
-              "handoffs", "handoffs_in", "handoff_fallbacks",
-              "handoff_bytes_shipped", "handoff_latency_seconds",
-              "preemptions", "preempt_resumes"},
-}
+# brings them (ROADMAP Queue 1): none since the fleet's (prefix adoption,
+# disaggregated handoff, preemption) came.
+JAX_ONLY = {}
 
 
 def _staggered(eng):
