@@ -184,6 +184,35 @@ of which exits non-zero on failure:
    on a decode replica, no capture after warm-up, launches exact per
    replica, every greedy stream held to one engine's by phase 5's rule;
    the ITL and TTFT A/B is reported, not gated; one ``disagg`` line;
+4i. the SLO front door (phase_frontdoor): the JAX ``bench.py
+   --frontdoor-smoke`` TPU setting (FRONTDOOR_SERVE, FRONTDOOR_LOAD: two
+   tenants, interactive at 4/s and batch ramping 4 to 24/s, 144 requests),
+   a warm engine driven open loop with and without a FrontDoor (an
+   interactive class with a 1500 ms budget and weight 4, a preemptible
+   batch class, batch headroom 0.25): none lost, no capture after
+   mark_warm(), batch completing, K3/K5 launches n_layer x the decode
+   steps and prefill lanes; interactive TTFT/ITL p50/p99 and attainment,
+   batch TTFT p99, sheds by reason, preemptions per side, reported;
+4j. the front door's resilience (phase_frontdoor_resilience): a decoding
+   request preempted, held and released on one engine, and one preempted
+   on replica 0 of a warm two-replica fleet behind a FrontDoor before
+   replica 0 is killed, its streams consumed round-robin through the
+   kill: every stream bit-equal to its undisturbed run, none lost, no
+   capture on the survivor;
+4k. the adapters (phase_adapters) at GPT-2 medium's widths: MoE
+   (MOE_CFG, 8 experts of d_ff 4096 made on the card) and long context
+   (LONG_CFG over the model): graph-served equals eager bit for bit;
+   MoE routes n_layer x the tokens its programs touched and drops none,
+   launches no K3-K6 and agrees with the CPU at 2 layers in fp32; long
+   context below its threshold equals the dense einsum bit for bit and is
+   reported against GPT-2's K3 streams, serves prompts across it, and
+   with sparse_decode=False equals the dense einsum; tokens/s and mean
+   step of each, and GPT-2 on the MoE's stream;
+4l. the perf x-ray (phase_xray): the dense serve stream on an engine
+   with perf_xray on and one with it off: every key met has a record
+   with flops > 0, bytes and graph-pool bytes, MFU and MBU of sampled
+   records in (0, 1], no recompile after mark_warm(); the median step on
+   and off in turns; a two-replica fleet's sections;
 5. greedy consistency: fp32, full width, 4 layers: the engine's greedy
    streams must equal the port's own generate() token for token; the paged
    engine's must equal the dense engine's exactly, and the paged int8
@@ -290,6 +319,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import types
 import threading
 import time
 import urllib.request
@@ -302,8 +332,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from deepspeed_tpu_torch import init_inference, initialize  # noqa: E402
 from deepspeed_tpu_torch.inference import (  # noqa: E402
-    EngineDeadError, EngineDraining, Fault, FaultPlan, InferenceEngine,
-    InjectedFault, ServingFleet)
+    EngineDeadError, EngineDraining, Fault, FaultPlan, FrontDoor,
+    FrontDoorConfig, InferenceEngine, InjectedFault, PriorityClass,
+    ServingFleet, TenantPolicy)
+from deepspeed_tpu_torch.inference.adapters import (  # noqa: E402
+    LongContextAdapter, MoEAdapter)
 from deepspeed_tpu_torch.inference.kv_hierarchy import (  # noqa: E402
     HierarchySpec, capture_slot, capture_slot_paged, record_nbytes,
     restore_slot, restore_slot_paged)
@@ -3790,6 +3823,850 @@ def phase_disagg(card, model):
     return line
 
 
+# --------------------------- the rest of serving: front door, adapters, x-ray
+#
+# The front door (phase_frontdoor): the JAX ``bench.py --frontdoor-smoke``
+# TPU setting (bench.py:2080-2092, 2133-2145) at full width, with and without
+# the front door on the same offered load.
+FRONTDOOR_SERVE = {"max_slots": 16, "max_len": 1024, "chunk_size": 16,
+                   "max_queue": 256, "host_offload": True}
+FRONTDOOR_LOAD = dict(tenants=("tenant_a", "tenant_b"), seed=29,
+                      interactive_rate=4.0, interactive_n=24,
+                      batch_rate=24.0, batch_ramp_from=4.0, batch_n=48,
+                      prompt_dist="lognormal", prompt_mean=64,
+                      prompt_max=256, output_dist="lognormal",
+                      output_mean=64, output_min=16, output_max=128)
+FRONTDOOR_BUDGET_MS = 1500.0
+FRONTDOOR_WINDOW_S = 2.0
+FRONTDOOR_KEYS = [(False, False, False), (True, False, False)]
+# The front door's resilience (phase_frontdoor_resilience): the fleet
+# setting with host offload (the preempted session's parking spot) and a
+# queue of FD_PREEMPT_QUEUE, so that an interactive burst one request past
+# the target queues' room meets QueueFull and the front door parks batch
+# (``FrontDoor._maybe_preempt``). One engine serves FD_PREEMPT_BATCH batch
+# streams (its slots) and a burst of FD_PREEMPT_QUEUE + 1; two replicas
+# serve 2 x FD_PREEMPT_BATCH and a burst of 2 x FD_PREEMPT_QUEUE + 1.
+FD_PREEMPT_QUEUE = 2
+FD_FLEET_SERVE = dict(FLEET_SERVE, host_offload=True, swap_slots=8,
+                      max_queue=FD_PREEMPT_QUEUE)
+FD_PREEMPT_BATCH = FLEET_SERVE["max_slots"]
+# The adapters (phase_adapters) at GPT-2 medium's widths on a dense pool
+# of 16 slots: MoE with 8 experts of d_ff 4096 (about 3.2 GB of bf16
+# expert stacks), and the long-context adapter with its block-sparse mask
+# from position 512 (blocks of 64, 4 local, 1 global).
+MOE_CFG = dict(vocab_size=50257, n_layer=24, n_head=16, n_embd=1024,
+               n_positions=1024, n_experts=8, d_ff=4096, capacity_factor=0,
+               dtype=torch.bfloat16)
+LONG_CFG = dict(threshold=512, block=64, num_local_blocks=4,
+                num_global_blocks=1)
+LONG_ATTN = generation.EinsumAttention(
+    LONG_CFG["block"], LONG_CFG["num_local_blocks"],
+    LONG_CFG["num_global_blocks"], LONG_CFG["threshold"])
+# The long-context gates in fp32 (``_longcontext_fp32``): phase 5's model
+# (4 layers at GPT-2 medium's width, seed 1) under its gap rule.
+LONG_FP32 = dict(n_embd=1024, n_layer=4, n_head=16, dtype=torch.float32)
+# bf16 at full width: the largest difference of two teacher-forced fp32
+# logit tables over the same tokens, over the largest logit (the einsum
+# path against K3, and the einsum path with the sparse mask against the
+# plain fp32 reference): 1.7x the largest reading on an H100 (0.0172, the
+# einsum against K3; K3 itself reads 0.0165 against the plain fp32
+# reference, so the difference is bf16 rounding).
+LONG_BF16_TOL = 0.03
+ADAPTER_REQUESTS = 8
+ADAPTER_NEW = 64
+# Prompts that cross position 512 (the threshold) while they prefill or
+# decode, and prompts that stay below it with their new tokens.
+LONG_LENS, SHORT_LENS = (480, 560), (64, 200)
+# The perf x-ray (phase_xray): the dense serve path's stream with every
+# fourth replayed step timed.
+XRAY_SAMPLE_EVERY = 4
+
+
+def _frontdoor_side(card, model, frontdoor):
+    """One side of the front-door A/B: a warm engine (both keys met, then
+    marked warm), driven open loop by SustainedRunner with the
+    mixed-tenant workload, through a FrontDoor or straight into the
+    engine. K3/K5 counts are reset just before the run and read just
+    after. Returns its facts."""
+    cfg = model.config
+    engine = init_inference(model, config=dict(FRONTDOOR_SERVE))
+    engine.generate([np.arange(1, 41)], max_new_tokens=40)
+    if sorted(engine._programs) != FRONTDOOR_KEYS:
+        fail("frontdoor: the warm-up met keys {}".format(
+            sorted(engine._programs)))
+    engine.recompile_detector.mark_warm()
+    engine.metrics(reset=True)
+    target = engine
+    if frontdoor:
+        target = FrontDoor(engine, FrontDoorConfig(
+            classes=(PriorityClass("interactive",
+                                   ttft_budget_ms=FRONTDOOR_BUDGET_MS,
+                                   weight=4.0, shed_on_budget=False),
+                     PriorityClass("batch", weight=1.0, preemptible=True)),
+            tenants=(TenantPolicy("tenant_a"), TenantPolicy("tenant_b")),
+            batch_headroom=0.25))
+    spec = WorkloadSpec.mixed_tenants(vocab_size=cfg.vocab_size,
+                                      **FRONTDOOR_LOAD)
+    slo = SLO(ttft_p99_ms=FRONTDOOR_BUDGET_MS, itl_p99_ms=None)
+    class_slos = {"interactive": slo,
+                  "batch": SLO(ttft_p99_ms=None, itl_p99_ms=None)}
+    # The runner's collector windows the registry, so the steps are read
+    # as differences of the cumulative counts.
+    chunks0, lanes0 = engine.counters["chunks"], engine._lane_steps.value
+    torch.cuda.synchronize()
+    da.reset_launches()
+    result = SustainedRunner(target, spec, window_seconds=FRONTDOOR_WINDOW_S,
+                             max_steps=500_000).run()
+    torch.cuda.synchronize()
+    launches = dict(da.launches)
+    m = engine.metrics()
+    m["decode_steps"] = (engine.counters["chunks"] - chunks0) * \
+        FRONTDOOR_SERVE["chunk_size"]
+    m["prefill_lanes"] = int(engine._lane_steps.value - lanes0)
+    report = build_report(spec, result, slo, platform="cuda",
+                          class_slos=class_slos)
+    fd = report["frontdoor"]
+    inter, batch = fd["classes"]["interactive"], fd["classes"]["batch"]
+    side = "frontdoor" if frontdoor else "no frontdoor"
+    want = dict.fromkeys(launches, 0)
+    want["decode"] = cfg.n_layer * m["decode_steps"]
+    want["paged"] = cfg.n_layer * m["prefill_lanes"]
+    facts = {
+        "requests": result.submitted, "completed": result.completed,
+        "requests_lost": result.requests_lost, "wall_s": result.wall_s,
+        "tokens_out": result.tokens_out,
+        "interactive_ttft_p50_ms": inter["ttft_p50_ms"],
+        "interactive_ttft_p99_ms": inter["ttft_p99_ms"],
+        "interactive_itl_p50_ms": inter["itl_p50_ms"],
+        "interactive_itl_p99_ms": inter["itl_p99_ms"],
+        "interactive_attainment": inter["slo_attainment"],
+        "batch_ttft_p99_ms": batch["ttft_p99_ms"],
+        "batch_completed": batch["completed"],
+        "sheds_by_reason": fd["sheds_by_reason"],
+        "preemptions": fd["preemptions"],
+        "preempt_resumes": fd["preempt_resumes"],
+        "recompiles": m["recompiles"], "compile_count": m["compile_count"],
+        "decode_steps": m["decode_steps"],
+        "prefill_lanes": m["prefill_lanes"], "launches": launches}
+    if frontdoor:
+        facts["frontdoor_stats"] = target.metrics()["frontdoor"]["stats"]
+    if result.requests_lost:
+        fail("frontdoor ({}): {} requests lost".format(
+            side, result.requests_lost))
+    if m["recompiles"]:
+        fail("frontdoor ({}): {} captures after mark_warm()".format(
+            side, m["recompiles"]))
+    if not batch["completed"]:
+        fail("frontdoor ({}): the batch class never completed".format(side))
+    if launches != want:
+        fail("frontdoor ({}): decode kernel launches {} != {} (n_layer x "
+             "the decode steps and prefill lanes the counters report)"
+             .format(side, launches, want))
+    del target, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return facts
+
+
+def phase_frontdoor(card, model):
+    """The front-door A/B (FRONTDOOR_SERVE, FRONTDOOR_LOAD): the same
+    offered load with and without the front door. Fails on a lost
+    request, a capture after mark_warm(), a batch class that never
+    completes, or K3/K5 counts off the steps; the interactive budget is
+    reported as attainment, not gated. One ``frontdoor`` line."""
+    line = {"frontdoor": "gpt2-medium bf16, mixed tenants, one engine",
+            "serve_cfg": FRONTDOOR_SERVE, "card": card,
+            "budget_ms": FRONTDOOR_BUDGET_MS,
+            "workload": {k: v for k, v in FRONTDOOR_LOAD.items()
+                         if k != "tenants"}}
+    line["with"] = _frontdoor_side(card, model, True)
+    line["without"] = _frontdoor_side(card, model, False)
+    w, wo = line["with"], line["without"]
+    line["interactive_ttft_p99_ratio_with_over_without"] = (
+        w["interactive_ttft_p99_ms"] / wo["interactive_ttft_p99_ms"]
+        if wo["interactive_ttft_p99_ms"] else None)
+    print("frontdoor " + json.dumps(line))
+    return line
+
+
+def _fd_config():
+    return FrontDoorConfig(classes=(
+        PriorityClass("interactive", ttft_budget_ms=60_000.0, weight=4.0),
+        PriorityClass("batch", weight=1.0, preemptible=True)))
+
+
+def _drain_streams(streams, got):
+    """Consume every stream round-robin into ``got`` (the harshest order
+    for a cursor)."""
+    live = set(range(len(streams)))
+    while live:
+        for i in sorted(live):
+            try:
+                got[i].append(int(next(streams[i])))
+            except StopIteration:
+                live.discard(i)
+    return got
+
+
+def _bit_equal(reqs, got, ref, what):
+    """Every stream equal to its undisturbed run, outright."""
+    bad = [i for i, (g, w) in enumerate(zip(got, ref)) if list(g) != list(w)]
+    if bad:
+        fail("{}: streams {} differ from the undisturbed run".format(
+            what, bad))
+    return len(reqs)
+
+
+def _fd_streams(fd, reqs, priority):
+    return [fd.stream(r["prompt"], priority=priority,
+                      max_new_tokens=r["max_new_tokens"],
+                      temperature=r["temperature"], seed=r["seed"],
+                      spec_decode=r["spec_decode"]) for r in reqs]
+
+
+def _fd_burst(fd, batch, burst):
+    """Step ``fd`` until two of the ``batch`` streams decode, then stream
+    ``burst`` as interactive: its dispatch meets QueueFull and the front
+    door parks batch itself (``_maybe_preempt``). Returns the burst's
+    streams and the handles parked."""
+    for _ in range(400):
+        if sum(s.handle.phase == "decoding" and len(s.handle.tokens) > 0
+               for s in batch) >= 2:
+            break
+        fd.step()
+    else:
+        fail("frontdoor_resilience: the batch streams never decoded")
+    streams = _fd_streams(fd, burst, "interactive")
+    parked = list(fd._preempted)
+    if not parked or any(h.phase != "swapped" for h in parked):
+        fail("frontdoor_resilience: the interactive burst parked no batch "
+             "request ({} held)".format(len(parked)))
+    return streams, parked
+
+
+def _fd_reference(model, reqs):
+    """One engine's undisturbed streams of ``reqs`` (warm, no front door,
+    a queue that takes them all)."""
+    eng = InferenceEngine(model, config=dict(
+        FD_FLEET_SERVE, max_queue=FLEET_SERVE["max_queue"]))
+    _warm_keys(eng, model.config.vocab_size)
+    hs = _fleet_submit(eng, reqs)
+    eng.run()
+    ref = [list(map(int, h.tokens)) for h in hs]
+    del eng, hs
+    return ref
+
+
+def phase_frontdoor_resilience(card, model):
+    """The front door's own preemption, held to bit-equal resumption. (i)
+    One engine (FD_FLEET_SERVE), warm, behind a FrontDoor: FD_PREEMPT_BATCH
+    batch streams, then an interactive burst one past the queue's room;
+    the front door parks batch (``_maybe_preempt``), holds it while the
+    burst is served (the parked streams do not move), releases it
+    (``_maybe_release``) and it resumes; every stream equals the
+    undisturbed run's bit for bit, and nothing is captured after warm-up.
+    (ii) Two replicas behind a FrontDoor, warm: the same on twice the
+    streams; while a request the front door parked is held, its replica
+    is killed; the streams, consumed round-robin through the kill, equal
+    one engine's undisturbed streams bit for bit (no token twice, none
+    dropped), the parked request is re-homed, nothing is lost and the warm
+    survivor captures nothing. One ``frontdoor_resilience`` line."""
+    vocab = model.config.vocab_size
+    reqs = _fleet_requests(vocab)
+    line = {"frontdoor_resilience": "gpt2-medium bf16",
+            "serve_cfg": FD_FLEET_SERVE, "card": card}
+    # (i) one engine: the front door parks, holds and releases.
+    n_b, n_i = FD_PREEMPT_BATCH, FD_PREEMPT_QUEUE + 1
+    sub = reqs[:n_b + n_i]
+    ref = _fd_reference(model, sub)
+    eng = InferenceEngine(model, config=dict(FD_FLEET_SERVE))
+    _warm_keys(eng, vocab)
+    fd = FrontDoor(eng, _fd_config())
+    streams = _fd_streams(fd, sub[:n_b], "batch")
+    burst, parked = _fd_burst(fd, streams, sub[n_b:])
+    streams += burst
+    held = [len(h.tokens) for h in parked]
+    steps_held = 0
+    while fd._preempted:
+        if steps_held == 400 or [len(h.tokens) for h in parked] != held \
+                or any(h.phase != "swapped" for h in parked):
+            fail("frontdoor_resilience: a parked stream moved while held, "
+                 "or the hold never lifted")
+        fd.step()
+        steps_held += 1
+    got = _drain_streams(streams, [[] for _ in streams])
+    stats = fd.metrics()["frontdoor"]["stats"]
+    line["preempt_release"] = {
+        "requests": len(sub), "batch": n_b, "burst": n_i,
+        "parked_by_the_burst": len(parked), "held_at_tokens": held,
+        "steps_held": steps_held,
+        "frontdoor_preemptions": stats["preemptions"],
+        "frontdoor_preempt_releases": stats["preempt_releases"],
+        "engine_preemptions": eng.counters["preemptions"],
+        "engine_preempt_resumes": eng.counters["preempt_resumes"],
+        "recompiles": eng.recompile_detector.recompiles.value,
+        "streams_bit_equal": _bit_equal(sub, got, ref,
+                                        "frontdoor_resilience preempt")}
+    if not (stats["preemptions"] == stats["preempt_releases"] ==
+            eng.counters["preemptions"] ==
+            eng.counters["preempt_resumes"] >= len(parked)) or \
+            line["preempt_release"]["recompiles"]:
+        print("frontdoor_resilience " + json.dumps(line))
+        fail("frontdoor_resilience: preemptions, releases and resumes "
+             "disagree, or a capture after warm-up")
+    del fd, eng, streams
+    # (ii) two replicas: the front door parks; the parked request's
+    # replica is killed while it is held.
+    n_b, n_i = 2 * FD_PREEMPT_BATCH, 2 * FD_PREEMPT_QUEUE + 1
+    sub = reqs[:n_b + n_i]
+    ref = _fd_reference(model, sub)
+    fleet = ServingFleet(model, n_replicas=2, config=dict(
+        FD_FLEET_SERVE, **FLEET_CHAOS), start=False, window_seconds=2.0)
+    try:
+        for rep in fleet.replicas:
+            _warm_keys(rep.engine, vocab)
+        fd = FrontDoor(fleet, _fd_config())
+        streams = _fd_streams(fd, sub[:n_b], "batch")
+        burst, parked = _fd_burst(fd, streams, sub[n_b:])
+        streams += burst
+        victim = parked[0]
+        dead = victim._req.replica_id
+        survivor = fleet.replicas[1 - dead].engine
+        programs = survivor.compile_count
+        # Consume what every stream already holds: the kill lands mid-way
+        # through streams being read.
+        got = [[] for _ in streams]
+        for i, s in enumerate(streams):
+            for _ in range(len(s.handle.tokens)):
+                got[i].append(int(next(s)))
+        fleet.inject_faults(FaultPlan(faults=(Fault("raise", step=0),)),
+                            replica=dead)
+        _drain_streams(streams, got)
+        frs = [s.handle._req for s in streams]
+        lost = _fleet_lost(frs, FLEET_NEW)
+        facts = {"requests": len(sub), "batch": n_b, "burst": n_i,
+                 "parked_by_the_burst": len(parked), "killed_replica": dead,
+                 "requests_lost": len(lost),
+                 "parked_failovers": victim._req.failovers,
+                 "failovers": fleet.failovers,
+                 "dead_replicas": [r.rid for r in fleet.replicas
+                                   if not r.alive],
+                 "survivor_recompiles":
+                     survivor.recompile_detector.recompiles.value,
+                 "survivor_compile_count": survivor.compile_count,
+                 "frontdoor_stats": fd.metrics()["frontdoor"]["stats"]}
+        if lost or victim._req.failovers < 1 or \
+                facts["dead_replicas"] != [dead] or \
+                survivor.compile_count != programs or \
+                facts["survivor_recompiles"] or \
+                facts["frontdoor_stats"]["preemptions"] < 1:
+            print("frontdoor_resilience " + json.dumps(facts))
+            fail("frontdoor_resilience: the request the front door parked "
+                 "did not survive the kill cleanly")
+        facts["streams_bit_equal"] = _bit_equal(
+            sub, got, ref, "frontdoor_resilience kill")
+        line["preempt_kill"] = facts
+    finally:
+        fleet.close()
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("frontdoor_resilience " + json.dumps(line))
+    return line
+
+
+def _graph_vs_eager_adapter(label, build, prompts, new):
+    """A graph-served engine against the same program run eagerly
+    (``build(eager)`` makes either): every harvest (``aux_`` counters too)
+    and the pool after GRAPH_CHECK_STEPS steps, bit for bit."""
+    runs = []
+    for eager in (False, True):
+        engine = build(eager)
+        for i, p in enumerate(prompts):
+            kw = {"temperature": 0.8, "seed": i} if i % 3 == 2 else {}
+            engine.submit(p, max_new_tokens=new, **kw)
+        snaps = []
+        for _ in range(GRAPH_CHECK_STEPS):
+            engine.step()
+            snaps.append(engine._last_snap)
+        torch.cuda.synchronize()
+        runs.append((engine, snaps))
+    (graphed, got), (eager, want) = runs
+    for step, (a, b) in enumerate(zip(got, want)):
+        for name in a:
+            if not np.array_equal(a[name], b[name]):
+                fail("adapters {}: graph vs eager: step {}: {} differs"
+                     .format(label, step, name))
+    _pool_diffs(graphed, eager, False, "adapters " + label)
+    return {"steps": GRAPH_CHECK_STEPS,
+            "compile_count": graphed.compile_count,
+            "graph_replays": graphed.graph_replays,
+            "harvests_and_pool_identical": True}
+
+
+def _timed_serve(engine, prompts, new):
+    """Serve ``prompts`` (greedy) to the end; K3-K6 counts reset just
+    before and read just after. Returns (streams, facts)."""
+    torch.cuda.synchronize()
+    da.reset_launches()
+    hs = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = engine.metrics()
+    return [list(map(int, h.tokens)) for h in hs], {
+        "wall_s": wall, "tokens_out": m["tokens_out"],
+        "tokens_per_s": m["tokens_out"] / wall,
+        "steps": m["chunks"], "mean_step_ms": wall / m["chunks"] * 1e3,
+        "compile_count": m["compile_count"], "launches": dict(da.launches)}
+
+
+def _moe_consistency():
+    """A 2-layer fp32 MoE forward (append, then decode steps) on the card
+    against the same on the CPU from the same weights: logits within
+    GRAD_TOL of their max-abs, as the *_consistency phases hold
+    gradients."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = MoEAdapter.from_config(**dict(MOE_CFG, n_layer=2,
+                                      dtype=torch.float32))
+    cpu = a.init_params(seed=5, device="cpu")
+    card = a.prepare_params(_to_device(cpu, "cuda"), "cuda")
+    ids = np.random.RandomState(7).randint(0, MOE_CFG["vocab_size"],
+                                           size=(2, 96))
+    worst = 0.0
+    outs = []
+    for params, dev in ((card, "cuda"), (cpu, "cpu")):
+        cache = a.init_cache(2, 128, device=dev)
+        logits, cache = a.prefill_append(
+            params, torch.as_tensor(ids, device=dev), cache)
+        seq = [logits[:, -1].float().cpu()]
+        tok = torch.as_tensor(ids[:, -1], device=dev)
+        for _ in range(4):
+            logits, cache = a.decode_step(params, tok, cache)
+            seq.append(logits.float().cpu())
+        outs.append(seq)
+    for c, h in zip(*outs):
+        worst = max(worst, float((c - h).abs().max())
+                    / (GRAD_TOL * float(h.abs().max())))
+    if worst > 1.0:
+        fail("adapters moe: card vs CPU logits off by {:.3g} of the "
+             "limit".format(worst))
+    return {"what": "fp32 MoE, 2 layers, B2 T96 + 4 decode steps",
+            "max_err_over_limit": worst}
+
+
+def _to_device(ns, device):
+    """A copy of an MoE weights namespace on ``device``."""
+    if torch.is_tensor(ns):
+        return ns.to(device)
+    if isinstance(ns, list):
+        return [_to_device(v, device) for v in ns]
+    if isinstance(ns, types.SimpleNamespace):
+        return types.SimpleNamespace(**{k: _to_device(v, device)
+                                        for k, v in vars(ns).items()})
+    return ns
+
+
+def _teacher_logits(model, ids, attn):
+    """fp32 logits at every position of ``ids`` through GPT-2's forward,
+    the decode kernels (``attn`` None) or the einsum path, in slices of
+    the kernels' query-row limit."""
+    dev = model.wte.device
+    ids = torch.as_tensor(ids, device=dev)[None]
+    cache = generation.init_cache(generation.as_gencfg(model.config), 1,
+                                  ids.shape[1], device=dev)
+    out = []
+    for s in range(0, ids.shape[1], da.MAX_QUERY_ROWS):
+        logits, cache = generation._forward(
+            model, ids[:, s:s + da.MAX_QUERY_ROWS], cache, attn=attn)
+        out.append(logits[0].float())
+    return torch.cat(out)
+
+
+def _plain_logits(model, ids, sparse=False):
+    """fp32 logits at every position of ``ids`` (one sequence) by a plain
+    full-sequence GPT-2 forward, written apart from models/generation.py:
+    the weights taken to fp32, one [T, T] mask (causal; with ``sparse``,
+    query positions from LONG_CFG's threshold on see only the key blocks
+    that FixedSparsityConfig's unidirectional layout shows their block),
+    softmax attention in fp32."""
+    cfg = model.config
+    T, C = len(ids), cfg.n_embd
+    nh, hd = cfg.n_head, C // cfg.n_head
+    mask = np.tril(np.ones((T, T), dtype=bool))
+    if sparse:
+        blk, thr = LONG_CFG["block"], LONG_CFG["threshold"]
+        layout = np.asarray(FixedSparsityConfig(
+            num_heads=1, block=blk,
+            num_local_blocks=LONG_CFG["num_local_blocks"],
+            num_global_blocks=LONG_CFG["num_global_blocks"],
+            attention="unidirectional").make_layout(-(-T // blk) * blk)[0],
+            dtype=bool)
+        b = np.arange(T) // blk
+        mask[thr:] &= layout[b[thr:, None], b[None, :]]
+    dev = model.wte.device
+    mask = torch.as_tensor(mask, device=dev)
+
+    def lin(h, p):
+        return h @ p.kernel.float() + p.bias.float()
+
+    def norm(h, p):
+        return F.layer_norm(h, (C,), p.scale.float(), p.bias.float(),
+                            cfg.layer_norm_epsilon)
+
+    idx = torch.as_tensor(np.asarray(ids), device=dev, dtype=torch.int64)
+    x = model.wte[idx].float() + model.wpe[:T].float()
+    for blk in model.blocks():
+        q, k, v = lin(norm(x, blk.ln_1), blk.attn.c_attn).split(C, dim=-1)
+        q, k, v = (t.reshape(T, nh, hd).transpose(0, 1) for t in (q, k, v))
+        att = (q @ k.transpose(1, 2)) / float(hd) ** 0.5
+        att = torch.softmax(att.masked_fill(~mask, float("-inf")), dim=-1)
+        y = (att @ v).transpose(0, 1).reshape(T, C)
+        x = x + lin(y, blk.attn.c_proj)
+        h = F.gelu(lin(norm(x, blk.ln_2), blk.mlp.c_fc), approximate="tanh")
+        x = x + lin(h, blk.mlp.c_proj)
+    return norm(x, model.ln_f) @ model.wte.float().t()
+
+
+def _rel_diff(a, b):
+    return float((a - b).abs().max() / a.abs().max())
+
+
+def _held_plain(model, prompt, got, sparse, what):
+    """A greedy stream held teacher-forced to ``_plain_logits``: at every
+    new position the token taken is the reference's argmax, or scores
+    within NEAR_TIE of it (printed; a clear choice fails). Returns
+    (positions at a near tie, the einsum path's teacher-forced logits over
+    the reference's, largest difference over the largest)."""
+    ids = np.concatenate([prompt, got])
+    ref = _plain_logits(model, ids, sparse)
+    n = len(prompt)
+    tok = torch.as_tensor(np.asarray(got), device=ref.device,
+                          dtype=torch.int64)
+    rows = ref[n - 1:n - 1 + len(got)]
+    short = rows.max(dim=-1).values - rows.gather(1, tok[:, None])[:, 0]
+    worst = float(short.max())
+    if worst >= NEAR_TIE:
+        j = int(short.argmax())
+        fail("{}: token {} scores {:.3e} below the plain reference's "
+             "argmax (a clear choice)".format(what, j, worst))
+    ties = int((short > 0).sum())
+    if ties:
+        print("{}: {} tokens at a near tie of the plain reference "
+              "(largest shortfall {:.3e})".format(what, ties, worst))
+    attn = LONG_ATTN if sparse else generation.EinsumAttention(0, 0, 0, 0)
+    return ties, _rel_diff(ref, _teacher_logits(model, ids, attn))
+
+
+def _einsum_vs_k3(model, prompts, got, ref):
+    """bf16, full width: the long-context streams below the threshold
+    (einsum attention) against GPT2Adapter's (K3): how many are
+    bit-equal, where each other first parts and K3's top-1/top-2 gap
+    there, and over each K3 stream (prompt and tokens teacher-forced) the
+    einsum path's fp32 logits against K3's, and K3's against the plain
+    fp32 reference, each as the largest difference over the largest
+    logit. The first is gated at LONG_BF16_TOL: the kernels and the einsum
+    round the probabilities to bf16 at different scales (K3 per 128-key
+    split, the einsum after the softmax), so the streams may part where
+    the logits are that close; ``_longcontext_fp32`` holds the two paths
+    to each other in fp32."""
+    attn = generation.EinsumAttention(0, 0, 0, 0)
+    parts, worst, k3_plain = [], 0.0, 0.0
+    for i, (p, g, w) in enumerate(zip(prompts, got, ref)):
+        ids = np.concatenate([p, w])
+        a = _teacher_logits(model, ids, None)
+        b = _teacher_logits(model, ids, attn)
+        worst = max(worst, _rel_diff(a, b))
+        k3_plain = max(k3_plain, _rel_diff(_plain_logits(model, ids), a))
+        if g != w:
+            j = next((k for k, (x, y) in enumerate(zip(g, w)) if x != y),
+                     min(len(g), len(w)))
+            row = a[len(p) - 1 + j]
+            top = torch.topk(row, 2).values
+            parts.append({"request": i, "token": j,
+                          "k3_gap": float(top[0] - top[1]),
+                          "logit_diff_there": float(
+                              (row - b[len(p) - 1 + j]).abs().max())})
+    out = {"bit_equal": len(prompts) - len(parts), "parted": parts,
+           "teacher_forced_max_logit_diff_over_max": worst,
+           "k3_vs_plain_fp32_over_max": k3_plain, "limit": LONG_BF16_TOL}
+    if worst > LONG_BF16_TOL:
+        print("adapters longcontext " + json.dumps(out))
+        fail("adapters longcontext: the einsum path's logits {:.4g} of the "
+             "largest from K3's (limit {})".format(worst, LONG_BF16_TOL))
+    return out
+
+
+def _crossing_vs_plain(model, prompts, got):
+    """bf16, full width: over each crossing stream (prompt and tokens
+    teacher-forced) the einsum path with the sparse mask against the plain
+    fp32 reference with the same block layout, largest difference over
+    the largest logit, gated at LONG_BF16_TOL."""
+    worst = 0.0
+    for p, g in zip(prompts, got):
+        ids = np.concatenate([p, g])
+        worst = max(worst, _rel_diff(_plain_logits(model, ids, True),
+                                     _teacher_logits(model, ids, LONG_ATTN)))
+    if worst > LONG_BF16_TOL:
+        fail("adapters longcontext: across the threshold the sparse einsum "
+             "path's logits {:.4g} of the largest from the plain "
+             "reference's (limit {})".format(worst, LONG_BF16_TOL))
+    return {"teacher_forced_max_logit_diff_over_max": worst,
+            "limit": LONG_BF16_TOL}
+
+
+def _longcontext_fp32(shorts, longs):
+    """fp32, phase 5's model (LONG_FP32, seed 1), the long-context
+    adapter (LONG_CFG) on SERVE: below the threshold its greedy streams
+    equal GPT2Adapter's (K3) under phase 5's gap rule (``_held_to``);
+    every stream, below and across the threshold, is held teacher-forced
+    to the plain reference (``_held_plain``: dense below, the block
+    layout across) under the same rule; the einsum path's teacher-forced
+    logits are within GRAD_TOL of the largest of K3's and of the plain
+    reference's."""
+    model = GPT2LMHeadModel(GPT2Config(**LONG_FP32), device="cuda", seed=1)
+    adapter = LongContextAdapter.from_model(model, **LONG_CFG)
+    got_s = InferenceEngine(model, config=dict(SERVE), adapter=adapter) \
+        .generate(shorts, max_new_tokens=ADAPTER_NEW)
+    got_l = InferenceEngine(model, config=dict(SERVE), adapter=adapter) \
+        .generate(longs, max_new_tokens=ADAPTER_NEW)
+    ref = init_inference(model, config=dict(SERVE)).generate(
+        shorts, max_new_tokens=ADAPTER_NEW)
+    attn = generation.EinsumAttention(0, 0, 0, 0)
+    vs_k3 = ties = 0
+    diffs = {"vs_k3": 0.0, "vs_plain_below": 0.0, "vs_plain_across": 0.0}
+    for i, (p, g, w) in enumerate(zip(shorts, got_s, ref)):
+        vs_k3 += _held_to(model, p, g, w,
+                          "adapters longcontext fp32 request {}".format(i))
+        ids = np.concatenate([p, w])
+        diffs["vs_k3"] = max(diffs["vs_k3"], _rel_diff(
+            _teacher_logits(model, ids, None),
+            _teacher_logits(model, ids, attn)))
+        n, d = _held_plain(model, p, g, False,
+                           "adapters longcontext fp32 below, request "
+                           "{}".format(i))
+        ties += n
+        diffs["vs_plain_below"] = max(diffs["vs_plain_below"], d)
+    for i, (p, g) in enumerate(zip(longs, got_l)):
+        n, d = _held_plain(model, p, g, True,
+                           "adapters longcontext fp32 across, request "
+                           "{}".format(i))
+        ties += n
+        diffs["vs_plain_across"] = max(diffs["vs_plain_across"], d)
+    if max(diffs.values()) > GRAD_TOL:
+        fail("adapters longcontext fp32: teacher-forced logits {} of the "
+             "largest (limit {})".format(diffs, GRAD_TOL))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"what": "fp32, 4 layers at width 1024, seed 1",
+            "streams_below": len(shorts), "streams_across": len(longs),
+            "below_equal_to_k3": vs_k3, "near_ties_vs_plain": ties,
+            "teacher_forced_max_logit_diff_over_max": diffs,
+            "limit": GRAD_TOL}
+
+
+def phase_adapters(card, model):
+    """The MoE and long-context adapters at GPT-2 medium's widths, dense
+    pools of SERVE's 16 slots. MoE (MOE_CFG, weights made on the card from
+    seed 0): graph-served equals eager bit for bit (harvests, the aux
+    counters, the pool after GRAPH_CHECK_STEPS steps); a greedy serve
+    drops no token, routes n_layer x the tokens its programs touched
+    (every slot of every decode step, every prefill column), launches no
+    K3-K6; a 2-layer fp32 forward agrees with the CPU's. Long context
+    (LONG_CFG over ``model``): graph equals eager; below the threshold
+    its teacher-forced logits are held to GPT2Adapter's (K3) and across
+    it to the plain reference with the same block layout, both within
+    LONG_BF16_TOL (``_einsum_vs_k3``, ``_crossing_vs_plain``); in fp32 at
+    4 layers its streams are held to K3's and to the plain reference under
+    phase 5's gap rule (``_longcontext_fp32``); ``sparse_decode=False``
+    equals the dense einsum bit for bit. Each adapter's tokens/s and mean
+    step. One ``adapters`` line."""
+    cfg = model.config
+    rng = np.random.RandomState(13)
+    line = {"adapters": "gpt2-medium widths bf16, dense pool",
+            "serve_cfg": SERVE, "card": card}
+    # MoE.
+    moe_adapter = MoEAdapter.from_config(**MOE_CFG)
+    weights = moe_adapter.init_params(seed=0, device="cuda")
+    prompts = [rng.randint(0, cfg.vocab_size, size=PROMPT_LENS[i % 2])
+               for i in range(ADAPTER_REQUESTS)]
+
+    def build_moe(eager):
+        cls = _EagerEngine if eager else InferenceEngine
+        return cls(None, weights, config=dict(SERVE), adapter=moe_adapter)
+
+    moe = {"cfg": {k: v for k, v in MOE_CFG.items() if k != "dtype"},
+           "expert_bytes": sum(
+               b.experts.w1.numel() + b.experts.w2.numel()
+               for b in weights.blocks) * 2,
+           "graph_vs_eager": _graph_vs_eager_adapter(
+               "moe", build_moe, prompts[:4], ADAPTER_NEW)}
+    engine = build_moe(False)
+    _, facts = _timed_serve(engine, prompts, ADAPTER_NEW)
+    m = engine.metrics()
+    reg = engine.telemetry
+    routed = reg.gauge("moe_tokens_routed").value
+    dropped = reg.gauge("moe_tokens_dropped").value
+    touched = m["chunks"] * SERVE["chunk_size"] * SERVE["max_slots"] + \
+        m["prefill_lanes"] * SERVE["prefill_chunk"]
+    facts.update(routed=routed, dropped=dropped,
+                 routed_want=cfg.n_layer * touched,
+                 expert_load=[reg.gauge("moe_expert_load",
+                                        expert=str(i)).value
+                              for i in range(MOE_CFG["n_experts"])],
+                 load_imbalance=reg.gauge(
+                     "moe_expert_load_imbalance").value)
+    moe["serve"] = facts
+    if dropped != 0 or routed != cfg.n_layer * touched:
+        fail("adapters moe: routed {} (want {}), dropped {}".format(
+            routed, cfg.n_layer * touched, dropped))
+    if any(facts["launches"].values()):
+        fail("adapters moe: K3-K6 launched {}".format(facts["launches"]))
+    del engine, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    # GPT-2 medium (K3, lane K5) on the same stream: the dense step the
+    # MoE step is compared with.
+    _, moe["gpt2_same_stream"] = _timed_serve(
+        init_inference(model, config=dict(SERVE)), prompts, ADAPTER_NEW)
+    moe["consistency"] = _moe_consistency()
+    line["moe"] = moe
+    # Long context.
+    long_adapter = LongContextAdapter.from_model(model, **LONG_CFG)
+    longs = [rng.randint(0, cfg.vocab_size, size=LONG_LENS[i % 2])
+             for i in range(ADAPTER_REQUESTS)]
+    shorts = [rng.randint(0, cfg.vocab_size, size=SHORT_LENS[i % 2])
+              for i in range(ADAPTER_REQUESTS)]
+
+    def build_long(eager, adapter=long_adapter, **extra):
+        cls = _EagerEngine if eager else InferenceEngine
+        return cls(model, config=dict(SERVE, **extra), adapter=adapter)
+
+    lc = {"cfg": LONG_CFG, "graph_vs_eager": _graph_vs_eager_adapter(
+        "longcontext", build_long, longs[:4], ADAPTER_NEW)}
+    got_long, lc["serve_crossing"] = _timed_serve(build_long(False), longs,
+                                                  ADAPTER_NEW)
+    got, lc["serve_below"] = _timed_serve(build_long(False), shorts,
+                                          ADAPTER_NEW)
+    ref, lc["gpt2_below"] = _timed_serve(
+        init_inference(model, config=dict(SERVE)), shorts, ADAPTER_NEW)
+    lc["against_gpt2_k3"] = _einsum_vs_k3(model, shorts, got, ref)
+    for name in ("serve_crossing", "serve_below"):
+        if any(lc[name]["launches"].values()):
+            fail("adapters longcontext: K3-K6 launched {}".format(
+                lc[name]["launches"]))
+    if any(len(t) != ADAPTER_NEW for t in got_long):
+        fail("adapters longcontext: a crossing stream is short")
+    lc["crossing_against_plain"] = _crossing_vs_plain(model, longs, got_long)
+    lc["fp32"] = _longcontext_fp32(shorts, longs)
+    dense_einsum = LongContextAdapter.from_model(
+        model, **dict(LONG_CFG, threshold=10 ** 6))
+    off, _ = _timed_serve(build_long(False, sparse_decode=False),
+                          longs[:4], ADAPTER_NEW)
+    want, _ = _timed_serve(build_long(False, dense_einsum), longs[:4],
+                           ADAPTER_NEW)
+    lc["sparse_decode_off_bit_equal"] = _bit_equal(
+        longs[:4], off, want, "adapters longcontext sparse_decode=False")
+    line["longcontext"] = lc
+    print("adapters " + json.dumps(line))
+    return line
+
+
+def _step_ms(engine, prompts, new):
+    """Serve ``prompts`` stepping by hand; the median step in ms (device
+    work included: each step ends in its harvest read)."""
+    for i, p in enumerate(prompts):
+        sampled = i % 6 == 5
+        engine.submit(p, max_new_tokens=new,
+                      temperature=0.8 if sampled else 0.0,
+                      top_k=50 if sampled else None, seed=i)
+    times = []
+    while not engine.idle:
+        t0 = time.perf_counter()
+        engine.step()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_xray(card, model):
+    """The perf x-ray on the dense GPT-2 medium engine (SERVE,
+    ``perf_xray`` on, 1 in XRAY_SAMPLE_EVERY steps timed): the serve
+    path's stream once (its keys met and measured on their eager first
+    runs), mark_warm(), the stream again; every key met has a record with
+    flops > 0, bytes and graph-pool bytes; MFU and MBU of every sampled
+    record lie in (0, 1]; no recompile; the median step with the x-ray on
+    against an engine with it off, on the same stream. Then two replicas
+    (FLEET_SERVE, warm) give one section per replica. One ``xray``
+    line."""
+    cfg = model.config
+    prompts = _prompts(N_REQUESTS, cfg.vocab_size, seed=0)
+    on = init_inference(model, config=dict(SERVE, perf_xray=True,
+                                           xray_sample_every=XRAY_SAMPLE_EVERY))
+    off = init_inference(model, config=dict(SERVE))
+    for engine in (on, off):
+        _step_ms(engine, prompts, NEW_TOKENS)
+        engine.recompile_detector.mark_warm()
+    ms = {"off_1": _step_ms(off, prompts, NEW_TOKENS),
+          "on_1": _step_ms(on, prompts, NEW_TOKENS),
+          "on_2": _step_ms(on, prompts, NEW_TOKENS),
+          "off_2": _step_ms(off, prompts, NEW_TOKENS)}
+    sec = on.perf_xray()
+    keys = sorted(on._programs)
+    recs = sec["programs"]
+    rows = [{"key": r["input_shapes"][:3], "calls": r["calls"],
+             "tokens": r["tokens"], "flops": r["flops"],
+             "kernel_flops": r["kernel_flops"],
+             "bytes_accessed": r["bytes_accessed"],
+             "kernel_bytes": r["kernel_bytes"],
+             "graph_pool_bytes": r["graph_pool_bytes"],
+             "sampled_step_ms": _ms(r["sampled_step_seconds"]),
+             "mfu": r["mfu"], "mbu": r["mbu"]} for r in recs]
+    line = {"xray": "gpt2-medium bf16 dense", "serve_cfg": SERVE,
+            "card": card, "keys": [list(k) for k in keys],
+            "records": rows, "totals": sec["totals"], "hbm": sec["hbm"],
+            "decomposition": sec["decomposition"],
+            "recompiles": on.metrics()["recompiles"],
+            "median_step_ms": ms,
+            "xray_cost_share": (ms["on_1"] + ms["on_2"]) /
+            (ms["off_1"] + ms["off_2"]) - 1.0}
+    sampled = [r for r in recs if r["mfu"] is not None]
+    if len(recs) != len(keys) or any(
+            r["flops"] <= 0 or r["bytes_accessed"] <= 0 or
+            r["graph_pool_bytes"] <= 0 for r in recs):
+        print("xray " + json.dumps(line))
+        fail("xray: a key met has no full record")
+    if not sampled or any(not (0 < r["mfu"] <= 1 and 0 < r["mbu"] <= 1)
+                          for r in sampled):
+        print("xray " + json.dumps(line))
+        fail("xray: MFU/MBU outside (0, 1]")
+    if line["recompiles"]:
+        fail("xray: {} recompiles with the x-ray on".format(
+            line["recompiles"]))
+    del on, off
+    fleet = ServingFleet(model, n_replicas=2, config=dict(
+        FLEET_SERVE, perf_xray=True), start=False)
+    try:
+        for rep in fleet.replicas:
+            _warm_keys(rep.engine, cfg.vocab_size)
+        per = fleet.perf_xray()
+        line["fleet"] = {str(rid): len(s["programs"])
+                         for rid, s in per.items()}
+        if sorted(per) != [0, 1] or any(
+                len(s["programs"]) != len(FLEET_KEYS) or
+                any(p["flops"] <= 0 for p in s["programs"])
+                for s in per.values()):
+            fail("xray: the fleet's sections {}".format(line["fleet"]))
+    finally:
+        fleet.close()
+        del fleet
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("xray " + json.dumps(line))
+    return line
+
+
 def _breakdown_run(cfg, ids, extra):
     """BREAKDOWN_STEPS forward/backward/step of phase_train's setting from
     seed 0 with ``extra`` in the ds_config: the losses, the registry
@@ -5425,6 +6302,10 @@ def main():
     phase_sustained_hier(card, model)
     fleet = phase_fleet(card, model)
     disagg = phase_disagg(card, model)
+    phase_frontdoor(card, model)
+    phase_frontdoor_resilience(card, model)
+    phase_adapters(card, model)
+    phase_xray(card, model)
     n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill

@@ -7,8 +7,11 @@ inside ``inference/`` that imports ``models.generation``.
 import dataclasses
 from typing import ClassVar
 
+import numpy as np
+
 from deepspeed_tpu_torch.inference.adapters.protocol import ModelAdapter
 from deepspeed_tpu_torch.models import generation
+from deepspeed_tpu_torch.models.gpt2 import GPT2Config, params_from_jax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,16 +22,28 @@ class GPT2Adapter(ModelAdapter):
     name: ClassVar[str] = "gpt2"
 
     @classmethod
-    def from_model(cls, model):
-        """Adapter from a GPT2LMHeadModel or GPT2Config."""
+    def from_model(cls, model, use_flash_decode=None):
+        """Adapter from a GPT2LMHeadModel or GPT2Config. Its attention is
+        the decode kernels K3-K6 (``use_flash_decode`` None or True); the
+        einsum path is the long-context adapter's alone."""
+        if use_flash_decode is not None and not use_flash_decode:
+            raise NotImplementedError(
+                "GPT2Adapter: use_flash_decode=False is not ported: the "
+                "stock adapter's one attention path is K3-K6 (the einsum "
+                "path serves LongContextAdapter)")
         return cls(generation.as_gencfg(getattr(model, "config", model)))
+
+    @property
+    def _attn(self):
+        return generation.einsum_attention_of(self.gcfg)
 
     def cache_spec(self):
         return self.gcfg
 
-    def bind(self, config):
+    def bind(self, config, mesh=None):
         """Stamp the page length of a paged pool (``inference.paged_kv``)
         into the cache spec; 0 for a dense pool."""
+        ModelAdapter.bind(self, config, mesh)
         if config is None:
             return self
         page_len = int(config.kv_page_len) if config.paged_kv else 0
@@ -37,17 +52,29 @@ class GPT2Adapter(ModelAdapter):
         return dataclasses.replace(
             self, gcfg=self.gcfg._replace(kv_page_len=page_len))
 
+    def prepare_params(self, params, device):
+        """A flax GPT-2 tree of numpy arrays as the serving weights (the
+        config from the cache spec and the tree's vocabulary)."""
+        g = self.gcfg
+        cfg = GPT2Config(vocab_size=int(np.shape(params["wte"])[0]),
+                         n_positions=g.n_positions, n_embd=g.n_embd,
+                         n_layer=g.n_layer, n_head=g.n_head,
+                         layer_norm_epsilon=g.layer_norm_epsilon,
+                         dtype=g.dtype)
+        return generation.ServingWeights(params_from_jax(params, cfg, device))
+
     def init_cache(self, batch, max_len, dtype=None, device=None):
         return generation.init_cache(self.gcfg, batch, max_len, dtype, device)
 
     def prefill_append(self, params, ids, cache, n_valid=None):
-        return generation.append_forward(params, ids, cache, n_valid=n_valid)
+        return generation.append_forward(params, ids, cache, n_valid=n_valid,
+                                         attn=self._attn)
 
     def decode_step(self, params, tok, cache):
-        return generation.decode_step(params, tok, cache)
+        return generation.decode_step(params, tok, cache, attn=self._attn)
 
     def verify_forward(self, params, ids, cache):
-        return generation.verify_forward(params, ids, cache)
+        return generation.verify_forward(params, ids, cache, attn=self._attn)
 
     def ngram_draft(self, toks, pos, n, k):
         return generation.ngram_draft(toks, pos, n, k)

@@ -14,7 +14,13 @@ frontier reaches them; and row b's logits depend only on row b's tokens and
 frontier.
 
 ``observe`` publishes an adapter's own gauges after each step's harvest
-(a no-op for GPT-2, as in the JAX package).
+(a no-op for GPT-2, as in the JAX package). ``aux_state`` names extra
+pool-resident state under ``aux_`` keys (the MoE adapter's expert-load
+counters): global, not per slot, threaded through every step program in
+the cache dict, copied into the step's one harvest read and excluded from
+slot records (``inference/kv_pool.py``). ``prepare_params`` turns the
+parameter tree an engine is given without a model into what the forward
+reads.
 
 Speculation adds three methods: ``verify_forward`` scores a slot's frontier
 token and its drafts in one forward without moving the frontier,
@@ -67,10 +73,36 @@ class ModelAdapter:
         model's choices [B, K+1]; ``ok`` vetoes agreement."""
         raise NotImplementedError
 
-    def bind(self, config):
+    def bind(self, config, mesh=None):
         """The adapter specialised to an engine's InferenceConfig; ``self``
-        when nothing changes."""
+        when nothing changes. ``mesh``: the JAX package binds to a device
+        mesh; the port serves on one card and takes none."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "{}: serving over a device mesh is not ported (ROADMAP "
+                "Queue 1 item 6)".format(type(self).__name__))
         return self
+
+    def aux_state(self):
+        """Extra pool-resident state: {``aux_``-prefixed name: (shape,
+        torch dtype)}, allocated zeroed beside the pool (module
+        docstring)."""
+        return {}
+
+    def prepare_params(self, params, device):
+        """What the forward reads, from a parameter tree of numpy arrays
+        (an engine built with ``model=None``)."""
+        raise NotImplementedError(
+            "{} serves a model's own weights: pass the model".format(
+                type(self).__name__))
+
+    def param_shardings(self, mesh, params):
+        """Parameter placement over a device mesh: None (one card)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "{}: sharding parameters over a device mesh is not ported "
+                "(ROADMAP Queue 1 item 6)".format(type(self).__name__))
+        return None
 
     def observe(self, snap, registry):
         """Publish adapter gauges from a step's harvest (the host copy of

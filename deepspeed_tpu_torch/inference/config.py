@@ -9,7 +9,9 @@ rest of the KV hierarchy (``prefix_cache``, ``prefix_slots``,
 budget of the ``effective_slots`` gauge), speculative decoding (``spec_decode``, ``spec_k``, ``spec_ngram``; see
 ``resolved_spec_decode``), telemetry (``telemetry``: trace spans and
 profiler scopes on top of the always-on metrics registry; ``trace_ring``:
-the span ring's capacity), and crash-only resilience
+the span ring's capacity), the perf x-ray (``perf_xray``, ``xray_sample_every``), the adapters'
+switches (``sparse_decode``, ``expert_parallel``), and crash-only
+resilience
 (``fault_injection``: the switch that lets ``engine.inject_faults`` arm a
 plan; ``step_budget_s``: the step watchdog's budget, None for none;
 ``recovery_max_retries``: consecutive fatal steps recovered before the
@@ -36,8 +38,6 @@ import dataclasses
 import os
 from typing import Optional
 
-_XRAY = "the perf x-ray slice (ROADMAP Queue 1 item 7)"
-
 # JAX-package key -> (values the port accepts, the slice that ports the
 # rest). The first accepted value is the JAX default.
 _UNPORTED = {
@@ -45,15 +45,10 @@ _UNPORTED = {
                         "chunked mixed step"),
     "chunked_prefill": ((True,), "no slice: the port serves only the "
                         "chunked mixed step"),
-    "use_flash_decode": ((None, True), "no slice: the port's one attention "
-                         "path is kernel K3 on the GPU and its plain version "
-                         "on the CPU"),
-    # The port has no perf x-ray: switching it off asks for what it does.
-    "perf_xray": ((True, False), _XRAY),
-    "xray_sample_every": ((64,), _XRAY),
-    "sparse_decode": ((True,), "the long-context adapter slice "
-                      "(ROADMAP Queue 1)"),
-    "expert_parallel": ((True,), "the MoE adapter slice (ROADMAP Queue 1)"),
+    "use_flash_decode": ((None, True), "no slice: the stock GPT-2 adapter's "
+                         "one attention path is kernel K3 on the GPU and its "
+                         "plain version on the CPU (the einsum path serves "
+                         "LongContextAdapter)"),
 }
 
 
@@ -120,6 +115,18 @@ class InferenceConfig:
     # programs.
     replica_id: Optional[int] = None
     role: str = "mixed"
+    # The perf x-ray (telemetry/xray.py): per-program cost records made on
+    # each key's eager first run, the HBM ledger and the roofline gauges;
+    # 1 in xray_sample_every steps is timed to the stream's end (0: none).
+    # Off by default in the port (the JAX default is on): a record costs
+    # the key's first run a FlopCounterMode pass on the host.
+    perf_xray: bool = False
+    xray_sample_every: int = 64
+    # The long-context adapter's block-sparse mask (False: a dense einsum,
+    # the A/B switch), and the MoE adapter's expert parallelism (accepted,
+    # no effect on one card: the experts all live on the card).
+    sparse_decode: bool = True
+    expert_parallel: bool = True
 
     def __post_init__(self):
         for name in ("max_slots", "chunk_size", "max_queue", "prefill_chunk",
@@ -128,6 +135,10 @@ class InferenceConfig:
             if getattr(self, name) < 1:
                 raise ValueError("inference.{} must be >= 1, got {}".format(
                     name, getattr(self, name)))
+        if self.xray_sample_every < 0:
+            raise ValueError("inference.xray_sample_every must be >= 0 "
+                             "(0 disables step-decomposition sampling), "
+                             "got {}".format(self.xray_sample_every))
         if self.kv_pages is not None and self.kv_pages < 1:
             raise ValueError("inference.kv_pages must be >= 1 (or None for "
                              "dense-parity capacity), got "

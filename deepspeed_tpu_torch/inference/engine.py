@@ -180,7 +180,22 @@ another engine (a failover, a handoff's fallback) arrives with its
 original prompt and budget and the tokens it delivered, and replays as
 after a recovery (``_take``).
 
-Perf x-ray and tensor parallelism are later slices.
+THE PERF X-RAY (``inference.perf_xray``; ``telemetry/xray.py``): each
+program key's EAGER FIRST RUN (never the capture) runs under the x-ray's
+cost modes and leaves a record under the label ``mixed_step``: the key
+and the pool's shapes as its signature and fingerprint, the flops
+(``FlopCounterMode``, plus the decode kernels' formula: they are ctypes
+launches torch cannot see), the bytes, and the graph pool's bytes after
+its capture. A key met for the first time after ``mark_warm()`` is a
+recompile event the detector's warning names by the x-ray's identity.
+Every step stashes its key (a signature compare) and notes its tokens; 1
+in ``xray_sample_every`` replayed steps waits for the engine's stream to
+time the step (the MFU/MBU denominator). ``perf_xray()`` returns the
+section with the HBM ledger (weights, KV pool and graph pool against the
+caching allocator's live bytes); None with the x-ray off. An MoE or
+long-context adapter (``adapter=``) serves through the same programs.
+
+Tensor parallelism is a later slice.
 """
 
 import contextlib
@@ -200,7 +215,7 @@ from deepspeed_tpu_torch.inference.kv_hierarchy import (
     restore_slot_paged, spec_from_config)
 from deepspeed_tpu_torch.inference.faults import FaultInjector
 from deepspeed_tpu_torch.inference.kv_pool import (
-    HARVEST_FIELDS, cache_view, clear_step_inputs, init_pool,
+    cache_view, clear_step_inputs, harvest_names, init_pool,
     max_active_frontier, paged_plane_len, plane_len_for, pool_nbytes,
     reset_pool, slot_cache_view, step_harvest, step_inputs)
 from deepspeed_tpu_torch.inference.paging import PageAllocator
@@ -216,9 +231,11 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.ops.sampling import sample_rows as _sample_rows
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
-from deepspeed_tpu_torch.telemetry import (MetricsRegistry, NullRecorder,
+from deepspeed_tpu_torch.telemetry import (HBMLedger, MetricsRegistry,
+                                           NullRecorder, ProgramRegistry,
                                            RecompileDetector, SpanRecorder,
-                                           annotate, prometheus_digest,
+                                           annotate, build_autopsy,
+                                           prometheus_digest,
                                            prometheus_text)
 from deepspeed_tpu_torch.telemetry.registry import Counter
 from deepspeed_tpu_torch.utils.logging import logger
@@ -302,6 +319,28 @@ class _ProgramCache(dict):
 
 def _no_sync():
     """A CPU engine's timer edge: there is no queue to wait for."""
+
+
+def _tensor_bytes(obj, seen=None):
+    """Bytes of the distinct tensors reachable from ``obj`` (weights held
+    in namespaces, lists, dicts, modules), each storage counted once."""
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        key = (obj.untyped_storage().data_ptr(), obj.device)
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.untyped_storage().nbytes()
+    if isinstance(obj, torch.nn.Module):
+        return sum(_tensor_bytes(t, seen) for t in
+                   list(obj.parameters()) + list(obj.buffers()))
+    if isinstance(obj, dict):
+        return sum(_tensor_bytes(v, seen) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(v, seen) for v in obj)
+    if hasattr(obj, "__dict__"):
+        return sum(_tensor_bytes(v, seen) for v in vars(obj).values())
+    return 0
 
 
 def _live_tokens(scheduler):
@@ -498,7 +537,7 @@ def _mixed_step_program(params, adapter, chunk, spec, pool, inp, harvest,
     else:
         _spec_decode_chunk_program(params, adapter, chunk, spec[0], spec[1],
                                    pool, harvest, any_sample, any_top_k)
-    for name in HARVEST_FIELDS:
+    for name in harvest_names(pool):
         harvest[name].copy_(pool[name])
 
 
@@ -547,10 +586,15 @@ class InferenceEngine(object):
     ``InferenceConfig``, a dict, or None. ``device`` defaults to ``cuda``;
     without a GPU the engine raises unless ``device="cpu"`` is passed.
     ``weights``: the ``ServingWeights`` of ``model`` to serve from (the
-    fleet's replicas on one card share one; None builds them)."""
+    fleet's replicas on one card share one; None builds them).
+    ``adapter``: the ``ModelAdapter`` to serve (None: ``GPT2Adapter`` over
+    ``model``). A GPT-2-weight adapter (``LongContextAdapter``) serves
+    ``model`` as above; with ``model=None`` the adapter's own parameter
+    tree is ``params`` (``MoEAdapter``: the JAX layout of numpy arrays,
+    or its ``init_params``), read through ``adapter.prepare_params``."""
 
     def __init__(self, model, params=None, config=None, device=None,
-                 weights=None):
+                 weights=None, adapter=None):
         if config is None:
             config = InferenceConfig()
         elif isinstance(config, dict):
@@ -568,10 +612,19 @@ class InferenceEngine(object):
             self._stream = torch.cuda.Stream(self.device)
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with self._on_stream():
-            self._build(model, params, config, weights)
+            self._build(model, params, config, weights, adapter)
 
-    def _build(self, model, params, config, weights):
+    def _build(self, model, params, config, weights, adapter):
         """The rest of construction, on the engine's stream."""
+        if model is None:
+            if adapter is None:
+                raise ValueError("model=None needs an adapter that brings "
+                                 "its own weights (MoEAdapter)")
+            self._adapter = adapter.bind(config)
+            self._params = weights if weights is not None \
+                else self._adapter.prepare_params(params, self.device)
+            self._build_serving(config)
+            return
         if isinstance(model, GPT2LMHeadModel):
             if params is not None:
                 raise ValueError("pass params only with a GPT2Config: a "
@@ -588,7 +641,12 @@ class InferenceEngine(object):
         # The dense weights cast to the serving dtype once, here.
         self._params = weights if weights is not None \
             else ServingWeights(model)
-        self._adapter = GPT2Adapter.from_model(model).bind(config)
+        self._adapter = (adapter if adapter is not None
+                         else GPT2Adapter.from_model(model)).bind(config)
+        self._build_serving(config)
+
+    def _build_serving(self, config):
+        """Everything past the weights and the adapter."""
         self._gcfg = self._adapter.cache_spec()
         config.validate_against_model(self._gcfg.n_positions)
         # Telemetry (module docstring): the registry is always real, the
@@ -645,12 +703,13 @@ class InferenceEngine(object):
             device=self.device, hier=hspec if hspec.enabled else None,
             page_len=config.kv_page_len if self._pager else 0,
             num_pages=self._pager.total_pages if self._pager else None,
-            ring=self._spec is not None)
+            ring=self._spec is not None, aux=self._adapter.aux_state())
         self._inputs = step_inputs(config.max_slots, config.prefill_chunk,
                                    self.device)
         lanes = config.spec_k + 1 if self._spec is not None else 1
         self._harvest = step_harvest(config.max_slots, config.chunk_size,
-                                     self.device, lanes=lanes)
+                                     self.device, lanes=lanes,
+                                     aux=self._adapter.aux_state())
         # The pinned host snapshot the device block table is copied from.
         self._table = None
         if self._pager is not None:
@@ -668,8 +727,29 @@ class InferenceEngine(object):
         # The last step's harvest (host arrays): gauges and metrics()
         # read it rather than the device.
         self._last_snap = None
+        # The perf x-ray (module docstring): None when off.
+        self._xray = None
+        self._ledger = None
+        if config.perf_xray:
+            self._xray = ProgramRegistry(
+                self.telemetry, platform=self.device.type,
+                sample_every=config.xray_sample_every)
+            # The pool's layout, part of every record's signature.
+            self._xray_spec = tuple(
+                (name, tuple(t.shape), str(t.dtype))
+                for name, t in self._pool.items())
+            self._ledger = HBMLedger(
+                self.telemetry, capacity_bytes=config.hbm_budget_bytes,
+                device=self.device)
+            self._ledger.set_component("weights",
+                                       _tensor_bytes(self._params))
+            self._ledger.set_component("kv_arena", pool_nbytes(self._pool))
+            self._ledger.set_component("graph_pool",
+                                       self._xray.max_temp_bytes)
         self.recompile_detector = RecompileDetector(
-            self.telemetry, describe=self._programs.describe)
+            self.telemetry,
+            describe=(self._xray.identity if self._xray is not None
+                      else self._programs.describe))
         self.recompile_detector.watch("mixed_step", self._programs)
         # The timers' edges wait on this engine's stream alone.
         self.timers = SynchronizedWallClockTimer(
@@ -1417,11 +1497,11 @@ class InferenceEngine(object):
             self.graph_replays += 1
             return
         if self.device.type != "cuda":
-            self._program(*key)
+            self._first_run(key)
             self._programs[key] = None
             return
         with _CAPTURE_LOCK:
-            self._program(*key)
+            self._first_run(key)
             t0 = time.perf_counter()
             graph = _StepGraph(lambda: self._program(*key), self._graph_pool,
                                self._stream)
@@ -1431,7 +1511,18 @@ class InferenceEngine(object):
             self._graph_pool_bytes = sum(
                 seg["total_size"] for seg in torch.cuda.memory_snapshot()
                 if tuple(seg["segment_pool_id"]) == tuple(self._graph_pool))
+            if self._xray is not None:
+                self._xray.set_pool_bytes("mixed_step",
+                                          self._graph_pool_bytes)
         self._programs[key] = graph
+
+    def _first_run(self, key):
+        """A key's eager first run: under the x-ray's cost modes when it
+        is on (its record; module docstring), else plain."""
+        if self._xray is None:
+            self._program(*key)
+        else:
+            self._xray.measure("mixed_step", lambda: self._program(*key))
 
     def _step_chunked(self):
         done = []
@@ -1474,11 +1565,22 @@ class InferenceEngine(object):
         decode_timer = self.timers("inference/decode")
         decode_timer.start()
         self._inputs.upload()
-        captures = key not in self._programs and self.device.type == "cuda"
+        first = key not in self._programs
+        captures = first and self.device.type == "cuda"
+        xray = self._xray
+        if xray is not None:
+            xray.stash("mixed_step", self._program, key, self._xray_spec,
+                       track_change=self.recompile_detector.warm)
+            tokens0 = self.counters["tokens_out"]
+        t_dispatch0 = time.perf_counter()
         with self.tracer.timed("step/mixed", prefill_tokens=n,
                                captured=captures), \
                 self._annotate("inference/mixed_step"):
             self._run_program(key)
+        if xray is not None and xray.due() and not first:
+            # The sanctioned sync (telemetry/xray.py): 1 in N steps.
+            xray.sample_step("mixed_step", self._sync,
+                             time.perf_counter() - t_dispatch0)
         with self.tracer.timed("step/harvest"), \
                 self._annotate("inference/harvest"):
             snap = self._harvest.read()  # the one D2H copy
@@ -1546,6 +1648,9 @@ class InferenceEngine(object):
             # harvest (its prompt just finished; the tokens it emitted this
             # step are part of its stream) leaves for the handoff outbox.
             self._capture_handoffs()
+        if xray is not None:
+            xray.note("mixed_step",
+                      tokens=self.counters["tokens_out"] - tokens0)
         self.recompile_detector.observe()
         return done
 
@@ -1654,7 +1759,7 @@ class InferenceEngine(object):
         store; False when the request is not parkable now (wrong phase, no
         offload, store full). A held session replays like any swapped one
         after a recovery, which clears the holds. (The JAX engine's; the
-        front door, which calls it, is the next slice.)"""
+        front door, ``inference/frontdoor``, calls it.)"""
         hier = self._hier
         if hier is None or not hier.spec.offload:
             return False
@@ -2064,8 +2169,8 @@ class InferenceEngine(object):
         """The compact observability fingerprint: the Prometheus text's
         sha256 and sample-line count, exact span counts per name (they
         survive the ring's wraparound), and the cumulative compile and
-        recompile facts. ``xray_programs`` is 0: the port has no perf
-        x-ray yet."""
+        recompile facts. ``xray_programs``: the x-ray's program records,
+        one per key met (0 with the x-ray off)."""
         sha, lines = prometheus_digest(self.telemetry)
         return {
             "prometheus_sha256": sha,
@@ -2074,8 +2179,23 @@ class InferenceEngine(object):
             "spans_dropped": self.tracer.dropped,
             "compile_count": self.compile_count,
             "recompiles": int(self.recompile_detector.recompiles.value),
-            "xray_programs": 0,
+            "xray_programs": (self._xray.record_count()
+                              if self._xray is not None else 0),
         }
+
+    def perf_xray(self):
+        """The schema-versioned ``perf_xray`` section
+        (``telemetry/xray.py``): one record per program key met (its
+        fingerprint and shapes, flops, bytes, graph-pool bytes, calls,
+        tokens, sampled step time and, on the card, MFU and MBU against
+        the H100 row), the totals per token, post-warm recompile events,
+        the step decomposition and the HBM ledger. None when
+        ``inference.perf_xray`` is off. Reads host state only."""
+        if self._xray is None:
+            return None
+        out = self._xray.to_json()
+        out["hbm"] = self._ledger.to_json()
+        return out
 
     def write_trace(self, path):
         """Dump the span ring as a Chrome trace-event JSON file (Perfetto
@@ -2103,3 +2223,19 @@ class InferenceEngine(object):
             if r.rid == rid:
                 return r
         return None
+
+    def explain(self, rid):
+        """Structured autopsy of one request (``telemetry/autopsy.py``):
+        its hop-ordered timeline, admission evidence and terminal cause,
+        with the x-ray's post-warm recompile events by the identity the
+        detector's warning used. Raises KeyError for an unknown rid and
+        RuntimeError with telemetry off."""
+        if not self.config.telemetry:
+            raise RuntimeError("telemetry is disabled: no trace to explain")
+        req = self.find_request(rid)
+        if req is None:
+            raise KeyError("unknown rid {}".format(rid))
+        out = build_autopsy(self.trace_recorders(), req.trace.tid)
+        if self._xray is not None and self._xray.recompile_events:
+            out["recompiled_programs"] = self._xray.recompile_dicts()
+        return out

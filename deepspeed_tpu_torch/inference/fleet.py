@@ -97,8 +97,8 @@ Telemetry: the merged registry (every replica's series under a
 alerts (``telemetry/alerts.py``) evaluated as windows close, the fleet's
 own span ring (routing, failover, prefix shipments), ``write_trace``
 (one merged Perfetto trace with flow arrows across replicas) and
-``explain`` (``telemetry/autopsy.py``). The perf x-ray is a later slice
-(``perf_xray`` raises).
+``explain`` (``telemetry/autopsy.py``) and ``perf_xray`` (every
+replica's program records under its replica label).
 """
 
 import copy
@@ -381,13 +381,20 @@ class HandoffPump(object):
             return len(self.pending)
 
 
-def _replica_models(model, params, devices):
+def _replica_models(model, params, devices, adapter=None):
     """device -> (GPT2LMHeadModel on it, its ServingWeights): one model and
     one set of serving weights per distinct device, shared by every
-    replica placed there."""
+    replica placed there. With ``model=None`` the adapter brings its own
+    weights (``adapter.prepare_params``): (None, those weights)."""
     out = {}
     for dev in devices:
         if dev in out:
+            continue
+        if model is None:
+            if adapter is None:
+                raise ValueError("model=None needs an adapter that brings "
+                                 "its own weights (MoEAdapter)")
+            out[dev] = (None, adapter.prepare_params(params, dev))
             continue
         if isinstance(model, GPT2Config):
             if params is None:
@@ -410,7 +417,8 @@ def _replica_models(model, params, devices):
 class ServingFleet(object):
     """N replicas, one submit()/harvest()/cancel()/drain() surface.
 
-    ``model`` / ``params``: as ``InferenceEngine`` takes them.
+    ``model`` / ``params`` / ``adapter``: as ``InferenceEngine`` takes
+    them (every replica serves the same adapter and shares its weights).
     ``device``: None places the replicas on the visible CUDA devices
     (round-robin), ``"cpu"`` on the host. ``start=True`` (default)
     launches one daemon stepping thread per replica; ``start=False``
@@ -428,7 +436,7 @@ class ServingFleet(object):
                  breaker_factory=None, idle_wait_s=0.01, poll_s=0.002,
                  prefix_affinity=None, roles=None,
                  latency_classes=("interactive",), alert_rules=None,
-                 dump_dir=None, device=None):
+                 dump_dir=None, device=None, adapter=None):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1, got "
                              "{}".format(n_replicas))
@@ -457,13 +465,13 @@ class ServingFleet(object):
         if breaker_factory is None:
             breaker_factory = CircuitBreaker
         devices = mesh_lib.replica_devices(n_replicas, device=device)
-        models = _replica_models(model, params, devices)
+        models = _replica_models(model, params, devices, adapter)
         self.replicas = []
         for i in range(n_replicas):
             cfg = dataclasses.replace(config, replica_id=i, role=roles[i])
             m, weights = models[devices[i]]
             eng = InferenceEngine(m, config=cfg, device=devices[i],
-                                  weights=weights)
+                                  weights=weights, adapter=adapter)
             self.replicas.append(
                 _Replica(i, eng, devices[i], breaker_factory()))
         self.adapter = self.replicas[0].engine.adapter
@@ -1331,10 +1339,13 @@ class ServingFleet(object):
         return {"fleet": agg, "replicas": per_replica}
 
     def perf_xray(self):
-        """Refused: the perf x-ray is a later slice of the port."""
-        raise NotImplementedError(
-            "ServingFleet.perf_xray: the perf x-ray is not ported yet "
-            "(the perf x-ray slice, ROADMAP Queue 1 item 7)")
+        """Every replica's ``perf_xray`` section (``InferenceEngine
+        .perf_xray``) under its replica label, the rid: the artifact the
+        regression gate reads. A replica with the x-ray off, or dead,
+        contributes None. The roofline and HBM gauges already flow
+        through the merged registry with ``replica`` labels."""
+        return {rep.rid: (rep.engine.perf_xray() if rep.alive else None)
+                for rep in self.replicas}
 
     def prefix_hit_rate(self):
         """Fleet-wide prefix hit rate (hits / probes; 0.0 with no

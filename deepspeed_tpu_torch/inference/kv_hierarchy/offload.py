@@ -45,6 +45,12 @@ _PLANE_KEYS = ("k", "v", "k_scale", "v_scale")
 # resident, and a paged row's table is rebuilt by the allocator.
 _RESIDENT_KEYS = ("pk", "pv", "pk_scale", "pv_scale", "block_tbl")
 
+
+def _resident(name):
+    """Pool entries no slot record carries: the prefix rows, the block
+    table and an adapter's ``aux_`` state (global, not per slot)."""
+    return name in _RESIDENT_KEYS or name.startswith("aux_")
+
 # Swap-victim blend: one second since a session's last emitted token
 # counts like this many tokens of remaining budget. An idle session
 # (a stalled client, a long think-time gap) becomes the preferred
@@ -92,7 +98,7 @@ def capture_slot(pool, slot):
     slot = int(slot)
     record = {}
     for name, t in pool.items():
-        if name in _RESIDENT_KEYS:
+        if _resident(name):
             continue
         record[name] = host_copy(t[:, slot] if name in _PLANE_KEYS
                                  else t[slot])
@@ -116,7 +122,7 @@ def capture_slots(pool, slots):
     idx = to_device([int(s) for s in slots], pool["pos"].device)
     host = {}
     for name, t in pool.items():
-        if name in _RESIDENT_KEYS:
+        if _resident(name):
             continue
         host[name] = host_copy(t.index_select(
             1 if name in _PLANE_KEYS else 0, idx))
@@ -143,7 +149,7 @@ def capture_slot_paged(pool, slot, pages):
     idx = to_device([int(p) for p in pages], pool["k"].device)
     record = {}
     for name, t in pool.items():
-        if name in _RESIDENT_KEYS:
+        if _resident(name):
             continue
         record[name] = host_copy(t.index_select(1, idx)
                                  if name in _PLANE_KEYS else t[slot])
@@ -161,7 +167,7 @@ def capture_slots_paged(pool, slots, page_lists):
     sidx = to_device([int(s) for s in slots], dev)
     host = {}
     for name, t in pool.items():
-        if name in _RESIDENT_KEYS:
+        if _resident(name):
             continue
         host[name] = host_copy(t.index_select(1, pidx)
                                if name in _PLANE_KEYS

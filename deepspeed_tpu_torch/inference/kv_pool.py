@@ -34,6 +34,13 @@ int8 codes and the pool gains fp32 ``k_scale``/``v_scale`` planes of the
 same shape without the head dimension, written by the same frontier writes
 as the codes.
 
+An adapter's own state (``ModelAdapter.aux_state``: the MoE adapter's
+expert-load counters) joins the pool under ``aux_`` keys: global, not per
+slot, so no slot record carries it (``kv_hierarchy.offload``), threaded
+through every step program (``cache_view``, ``slot_cache_view``), copied
+into the step's one harvest read (``step_harvest``) and zeroed in place
+by ``reset_pool``.
+
 Under the shared-prefix tier (``hier.prefix``) a dense pool also holds
 the prefix rows ``pk``/``pv`` (and their scales under int8): at a prefix
 hit the hierarchy copies a row's span into the admitted slot's own plane,
@@ -90,6 +97,17 @@ _FILLS = {name: fill for name, _, fill in _SLOT_FIELDS}
 HARVEST_FIELDS = ("pos", "active", "last_tok")
 
 
+def aux_names(pool):
+    """The pool's adapter-state keys (``aux_`` prefix), in order."""
+    return tuple(name for name in pool if name.startswith("aux_"))
+
+
+def harvest_names(pool):
+    """The pool entries the step program copies into the harvest: the
+    per-slot ``HARVEST_FIELDS`` and the adapter's ``aux_`` state."""
+    return HARVEST_FIELDS + aux_names(pool)
+
+
 def plane_len_for(max_len, slack=0):
     """Cache-plane length serving ``max_len`` positions with ``slack``
     inert positions past the last admissible frontier."""
@@ -106,7 +124,7 @@ def paged_plane_len(max_len, slack, page_len):
 
 
 def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
-              hier=None, page_len=0, num_pages=None, ring=False):
+              hier=None, page_len=0, num_pages=None, ring=False, aux=None):
     """Zeroed pool dict for ``num_slots`` sequences of up to ``max_len``
     positions under generation config ``gcfg``
     (``models.generation.as_gencfg``), on ``device`` (default ``cuda``;
@@ -123,7 +141,8 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
     ``num_slots`` full rows need) plus the trash page, and a zeroed
     ``block_tbl`` (every row on the trash page). ``ring`` adds the token
     ring ``toks`` of a speculating engine, as long as a row's plane (the
-    logical plane when paged)."""
+    logical plane when paged). ``aux``: an adapter's ``aux_state()``
+    ({name: (shape, dtype)}), allocated on ``device`` and zeroed."""
     dtype = dtype or gcfg.dtype
     device = resolve_device(device)
     hd = gcfg.n_embd // gcfg.n_head
@@ -164,6 +183,11 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
             dtype=torch.int64, device=device)
     for name, dt, _ in _SLOT_FIELDS:
         pool[name] = torch.empty((num_slots,), dtype=dt, device=device)
+    for name, (shape, dt) in (aux or {}).items():
+        if not name.startswith("aux_"):
+            raise ValueError("adapter state {!r} must carry the aux_ "
+                             "prefix".format(name))
+        pool[name] = torch.empty(shape, dtype=dt, device=device)
     reset_pool(pool, hier)
     return pool
 
@@ -260,7 +284,7 @@ def clear_step_inputs(buf):
     buf.host["pin"][:] = -1
 
 
-def step_harvest(num_slots, chunk, device, lanes=1):
+def step_harvest(num_slots, chunk, device, lanes=1, aux=None):
     """What the host reads after a step, as a ``PackedBuffer`` the step
     program fills and the host copies back in ONE device-to-host transfer:
     the per-slot ``pos`` / ``active`` / ``last_tok`` [slots] (the pool
@@ -269,9 +293,12 @@ def step_harvest(num_slots, chunk, device, lanes=1):
     emission of slot s at step t, so row-major (step, lane) order is
     emission order; lanes is 1 for the plain lane, spec_k + 1 on a
     speculating engine) and the prefill lane's ``first`` token [1] (-1
-    unless the lane finished a prompt)."""
+    unless the lane finished a prompt), and the adapter's ``aux`` state
+    ({name: (shape, dtype)}, as ``init_pool`` takes it)."""
     fields = [(name, dt, (num_slots,)) for name, dt, _ in _SLOT_FIELDS
               if name in HARVEST_FIELDS]
+    fields += [(name, dt, shape) for name, (shape, dt) in
+               (aux or {}).items()]
     emit = (chunk, num_slots, lanes)
     fields += [("toks", torch.int64, emit), ("valid", torch.bool, emit),
                ("first", torch.int64, (1,))]
@@ -304,7 +331,7 @@ def cache_view(pool):
     batch row. ``k``/``v`` (and the scale planes) are the pool's own
     tensors; a paged pool passes its arenas whole with the block table."""
     cache = {"k": pool["k"], "v": pool["v"], "pos": pool["pos"]}
-    for name in _SCALES + ("block_tbl",):
+    for name in _SCALES + ("block_tbl",) + aux_names(pool):
         if name in pool:
             cache[name] = pool[name]
     return cache
@@ -328,7 +355,7 @@ def slot_cache_view(pool, slot, pos):
     else:
         tbl = slot.to(torch.int32).view(1, 1)
     cache = {"k": pool["k"], "v": pool["v"], "pos": pos, "block_tbl": tbl}
-    for name in _SCALES:
+    for name in _SCALES + aux_names(pool):
         if name in pool:
             cache[name] = pool[name]
     return cache

@@ -169,20 +169,37 @@ class Scheduler(object):
         self._deadline_sheds = (registry.counter("deadline_sheds")
                                 if registry is not None else None)
         self._finish_times = collections.deque(maxlen=32)
+        # The same evidence split by priority class (retry_after_s).
+        self._finish_by_class = {}
         # True once any queued request carries a deadline: admissions()
         # skips the expiry scan entirely on deadline-free workloads.
         self._has_deadlines = False
 
-    def retry_after_s(self):
-        """Seconds until one queue position plausibly frees, from the
-        recent completions rate; None below two completions. (The JAX
-        scheduler can read a priority class's own completions first; the
-        port has no classes until the front door.)"""
-        times = self._finish_times
-        if len(times) < 2 or times[-1] <= times[0]:
+    @staticmethod
+    def _rate_hint(times):
+        """1/rate over a completion-timestamp deque, clamped to
+        [0, RETRY_AFTER_CAP_S]; None below two observations (no rate,
+        no guess)."""
+        if times is None or len(times) < 2:
             return None
-        rate = (len(times) - 1) / (times[-1] - times[0])
+        span = times[-1] - times[0]
+        if span <= 0:
+            return None
+        rate = (len(times) - 1) / span
         return round(min(max(1.0 / rate, 0.0), RETRY_AFTER_CAP_S), 4)
+
+    def retry_after_s(self, priority=None):
+        """Seconds until one queue position plausibly frees, from the
+        recent completions rate; None below two completions. With
+        ``priority`` the estimate comes from that class's own completions
+        first (a batch-dominated window must not inflate the interactive
+        hint), falling back to every completion until the class has two
+        of its own."""
+        if priority is not None:
+            hint = self._rate_hint(self._finish_by_class.get(priority))
+            if hint is not None:
+                return hint
+        return self._rate_hint(self._finish_times)
 
     def queue_full_error(self, reason=None, priority=None, tenant=None,
                          cause=None, retry_after_s=None):
@@ -195,7 +212,7 @@ class Scheduler(object):
         the completions-rate hint."""
         depth = len(self.queue)
         hint = retry_after_s if retry_after_s is not None \
-            else self.retry_after_s()
+            else self.retry_after_s(priority)
         msg = reason or ("inference queue is full ({} pending); retry "
                          "later or raise inference.max_queue".format(depth))
         if hint is not None:
@@ -322,6 +339,10 @@ class Scheduler(object):
         req.slot = None
         self.completed[req.rid] = req
         self._finish_times.append(req.finish_time)
+        if req.priority is not None:
+            self._finish_by_class.setdefault(
+                req.priority,
+                collections.deque(maxlen=32)).append(req.finish_time)
         if self.tracer is not None:
             if req.first_token_time is not None:
                 self.tracer.span("request/decode", req.first_token_time,

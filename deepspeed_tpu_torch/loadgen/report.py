@@ -4,10 +4,10 @@ noise-aware regression gate.
 Counterpart of ``deepspeed_tpu/loadgen/report.py``: the same report for
 the same run result. The ``prefix`` and ``disagg`` sections fill from a
 ``ServingFleet``'s summed counters (adoptions, bytes shipped, affinity
-routes; handoffs, fallbacks, handoff bytes); sections whose features the
-port lacks (front door, MoE or long-context adapters) come out at their
-zero/empty values, as they do on a JAX engine without those features. The gate's cost-model arm (reports carrying ``perf_xray``)
-waits for the perf x-ray port and raises.
+routes; handoffs, fallbacks, handoff bytes), the ``frontdoor`` section
+from a ``FrontDoor`` target and the ``adapter`` section from an MoE or
+long-context engine. The gate's cost-model arm compares two reports'
+``perf_xray`` sections (``telemetry/xray.cost_model_gate``).
 
 The report is the harness's one artifact — a plain-JSON document that
 carries (a) the per-window curves (TTFT/ITL p50/p99, queue depth, slot
@@ -475,12 +475,17 @@ def regression_gate(baseline, candidate, metrics=None, rel_tol=0.10,
         "metrics": rows,
         "caveats": caveats,
     }
-    # The cost-model arm compares two reports' perf_xray sections; the
-    # port has no perf x-ray yet, so such reports are refused, not
-    # half-compared.
-    if baseline.get("perf_xray") is not None and \
-            candidate.get("perf_xray") is not None:
-        raise NotImplementedError(
-            "regression_gate over perf_xray sections: the perf x-ray "
-            "comes with a later slice (ROADMAP Queue 1 item 7)")
+    # Cost-model arm (telemetry/xray.py): when both reports carry a
+    # perf_xray section, compare the programs' cost records too (flops,
+    # bytes, the graph pool's bytes per program, bytes per token). Each is
+    # computed from the programs' shapes and one recorded run, not timed,
+    # so an A/B catches a "2x bytes per token" regression no timing series
+    # could resolve. A/A passes by construction.
+    xa, xb = baseline.get("perf_xray"), candidate.get("perf_xray")
+    if xa is not None and xb is not None:
+        from deepspeed_tpu_torch.telemetry.xray import cost_model_gate
+
+        xgate = cost_model_gate(xa, xb)
+        out["perf_xray"] = xgate
+        out["pass"] = out["pass"] and bool(xgate.get("pass", True))
     return out

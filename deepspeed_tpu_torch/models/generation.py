@@ -35,7 +35,13 @@ Contracts kept from the JAX package:
   ``prefill_chunk`` slack keeps every admissible write in bounds);
 - attention is one of the four flash-decode kernels, by layout (K3 dense,
   K4 int8, K5 paged, K6 paged int8): the hand-written kernel on a CUDA
-  tensor, its plain version on a CPU tensor;
+  tensor, its plain version on a CPU tensor. Only an adapter that asks
+  for it (``attn``, an ``EinsumAttention``: the long-context adapter)
+  takes the JAX package's einsum path instead: the planes gathered through
+  the table and dequantized where they are paged or int8, a masked fp32
+  softmax between two einsums, and, with ``threshold > 0``, the fixed
+  block-sparse layout (``FixedSparsityConfig``, unidirectional) for query
+  positions at or past the threshold. No kernel runs on that path;
 - GELU is tanh-approximate; the LM head is an fp32 product against
   ``wte``.
 
@@ -48,7 +54,10 @@ program holds them. The shared-prefix cache layout waits for a later slice.
 """
 
 import collections
+import functools
 import types
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -56,16 +65,76 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm
 from deepspeed_tpu_torch.ops.sampling import sample_rows
+from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
+    FixedSparsityConfig
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
 
 # Shape/dtype view of a GPT2Config: what the cache and the pool are sized
 # from (and what an adapter's ``cache_spec`` returns). ``kv_page_len`` > 0
 # names the page length of a paged pool (the adapter stamps it from the
-# engine's config); 0 is the dense pool.
+# engine's config); 0 is the dense pool. ``use_flash_decode`` False names
+# the einsum attention path (the long-context adapter's), and the sparse_*
+# tail its block-sparse mask (``sparse_threshold`` 0: a dense causal mask).
 _GenCfg = collections.namedtuple(
     "_GenCfg",
-    "n_layer n_head n_embd n_positions dtype layer_norm_epsilon kv_page_len",
-    defaults=(0,))
+    "n_layer n_head n_embd n_positions dtype layer_norm_epsilon kv_page_len "
+    "use_flash_decode sparse_block sparse_num_local sparse_num_global "
+    "sparse_threshold", defaults=(0, True, 0, 0, 0, 0))
+
+# The einsum attention path's geometry (``_forward``'s ``attn``): the
+# FixedSparsityConfig block side, local and global blocks, and the query
+# position from which the sparse mask applies (0: never, a dense mask).
+EinsumAttention = collections.namedtuple(
+    "EinsumAttention", "block num_local num_global threshold")
+
+
+def einsum_attention_of(cfg):
+    """``_forward``'s ``attn`` for a ``_GenCfg``: None (the kernels) unless
+    ``use_flash_decode`` is False."""
+    if cfg.use_flash_decode:
+        return None
+    return EinsumAttention(cfg.sparse_block, cfg.sparse_num_local,
+                           cfg.sparse_num_global, cfg.sparse_threshold)
+
+
+@functools.lru_cache(maxsize=None)
+def _sparse_layout(block, num_local, num_global, num_blocks, device):
+    """[num_blocks, num_blocks] bool block visibility of the fixed
+    (local + stride) unidirectional layout on ``device`` (the JAX
+    ``generation._sparse_layout``): built once per geometry and device, on
+    a program's eager first run, so a CUDA graph capture finds it and
+    copies nothing."""
+    layout = FixedSparsityConfig(
+        num_heads=1, block=block, num_local_blocks=num_local,
+        num_global_blocks=num_global,
+        attention="unidirectional").make_layout(num_blocks * block)
+    return torch.from_numpy(np.asarray(layout[0], dtype=bool)).to(device)
+
+
+def einsum_attention(q, k, v, q_pos, attn, dtype):
+    """The JAX einsum path: q [B, H, S, D] against logical planes k, v [B,
+    H, T, D] in ``dtype``; key t is visible to query position p iff t <= p
+    and, past ``attn.threshold``, the sparse layout shows t's block to p's
+    block. Scores (from q and k in fp32, as the decode kernels' plain
+    versions take them: the JAX einsum rounds bf16 scores to bf16, which
+    parts greedy streams from K3's) and softmax in fp32, probabilities
+    cast to ``dtype`` for the value product."""
+    T = k.shape[2]
+    k_pos = torch.arange(T, device=q.device)
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]          # [B, S, T]
+    if attn.threshold:
+        blk = attn.block
+        nb = -(-T // blk)
+        layout = _sparse_layout(blk, attn.num_local, attn.num_global, nb,
+                                q.device)
+        q_blk = torch.clamp(q_pos // blk, max=nb - 1)
+        visible = layout[q_blk[:, :, None], (k_pos // blk)[None, None, :]]
+        mask = mask & ((q_pos < attn.threshold)[:, :, None] | visible)
+    att = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / \
+        float(q.shape[3]) ** 0.5
+    att = torch.where(mask[:, None], att, torch.finfo(torch.float32).min)
+    att = torch.softmax(att, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", att, v)
 
 
 def as_gencfg(cfg):
@@ -117,10 +186,12 @@ class ServingWeights:
         return self._blocks
 
 
-def _forward(model, ids, cache, last_only=False):
+def _forward(model, ids, cache, last_only=False, attn=None):
     """ids [B, S], row b starting at ``cache['pos'][b]``; returns (fp32
     logits [B, S, V], cache with the planes written and ``pos + S``).
-    ``last_only`` evaluates the LM head on the final position only."""
+    ``last_only`` evaluates the LM head on the final position only.
+    ``attn``: None for the decode kernels, an ``EinsumAttention`` for the
+    einsum path (module docstring)."""
     extra = set(cache) - {"k", "v", "pos", "k_scale", "v_scale", "block_tbl"}
     if extra:
         raise NotImplementedError(
@@ -172,7 +243,23 @@ def _forward(model, ids, cache, last_only=False):
         else:
             k_cache[i][at] = k
             v_cache[i][at] = v
-        if paged and int8:
+        if attn is not None:
+            k_eff, v_eff = k_cache[i], v_cache[i]
+            ks_eff, vs_eff = (ks_cache[i], vs_cache[i]) if int8 \
+                else (None, None)
+            if paged:
+                k_eff = decode_attention.gather_pages(k_eff, tbl)
+                v_eff = decode_attention.gather_pages(v_eff, tbl)
+                if int8:
+                    ks_eff = decode_attention.gather_pages(ks_eff, tbl)
+                    vs_eff = decode_attention.gather_pages(vs_eff, tbl)
+            if int8:
+                k_eff = decode_attention.dequantize_kv(k_eff, ks_eff,
+                                                       cfg.dtype)
+                v_eff = decode_attention.dequantize_kv(v_eff, vs_eff,
+                                                       cfg.dtype)
+            y = einsum_attention(q, k_eff, v_eff, q_pos, attn, cfg.dtype)
+        elif paged and int8:
             y = decode_attention.flash_decode_attention_paged_q8(
                 q, k_cache[i], v_cache[i], ks_cache[i], vs_cache[i], tbl,
                 pos, scale=scale)
@@ -212,7 +299,7 @@ def prefill_forward(model, ids, cache):
     return logits, cache
 
 
-def append_forward(model, ids, cache, n_valid=None):
+def append_forward(model, ids, cache, n_valid=None, attn=None):
     """Append ``ids`` [B, S] at each row's frontier: the chunked-prefill
     primitive. ``n_valid`` [B] marks how many leading columns per row are
     real; the frontier advances by ``n_valid`` (default S). Pad columns
@@ -220,21 +307,21 @@ def append_forward(model, ids, cache, n_valid=None):
     later write lands on top; their logits are garbage. Returns (fp32
     logits [B, S, V], advanced cache)."""
     pos0 = cache["pos"]
-    logits, cache = _forward(model, ids, cache)
+    logits, cache = _forward(model, ids, cache, attn=attn)
     if n_valid is not None:
         cache = dict(cache, pos=pos0 + n_valid.to(pos0.dtype))
     return logits, cache
 
 
-def decode_step(model, tok, cache):
+def decode_step(model, tok, cache, attn=None):
     """Feed ``tok`` [B] (the token at each row's frontier), write its k/v
     there, and return (fp32 logits [B, V] for the next position, advanced
     cache)."""
-    logits, cache = _forward(model, tok[:, None], cache)
+    logits, cache = _forward(model, tok[:, None], cache, attn=attn)
     return logits[:, 0], cache
 
 
-def verify_forward(model, ids, cache):
+def verify_forward(model, ids, cache, attn=None):
     """Score ``ids`` [B, S] at each row's frontier WITHOUT advancing it:
     the speculative verify. Row b's ids are [last_tok, draft_0 ..
     draft_{S-2}], so ``logits[b, i]`` is the model's distribution for
@@ -246,7 +333,7 @@ def verify_forward(model, ids, cache):
     or overwritten before it reaches them. The plane needs S - 1 positions
     of slack past the last admissible frontier (the write never clamps)."""
     pos0 = cache["pos"]
-    logits, cache = _forward(model, ids, cache)
+    logits, cache = _forward(model, ids, cache, attn=attn)
     return logits, dict(cache, pos=pos0)
 
 

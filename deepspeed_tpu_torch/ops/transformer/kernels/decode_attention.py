@@ -150,6 +150,38 @@ def recording():
         _local.tally = prev
 
 
+@contextlib.contextmanager
+def costing():
+    """The perf x-ray's measurement of one eager program run
+    (``telemetry/xray.py``): a kernel launched on this thread until the
+    block ends adds its flops and bytes (``_kernel_cost``) to the dict
+    this yields. The kernels are ctypes launches, invisible to torch's
+    dispatch modes, hence the formula."""
+    prev = getattr(_local, "cost", None)
+    _local.cost = {"flops": 0.0, "bytes": 0.0}
+    try:
+        yield _local.cost
+    finally:
+        _local.cost = prev
+
+
+def _kernel_cost(q, k, pos, T, int8, block_tbl):
+    """(flops, bytes) of one decode-kernel call, the formula behind
+    PERF.md's bound column: 4*D flops per visible key per query row; q and
+    out, the k and v (int8: codes and fp32 scales) of each cached key up
+    to its row's frontier, the frontiers and the block table read once.
+    Reads the frontiers back: the x-ray calls it outside every capture."""
+    B, H, S, D = q.shape
+    p = pos.to("cpu", torch.int64)
+    keys = torch.clamp(p + S, max=T).sum().item()
+    vis = torch.clamp(p[:, None] + torch.arange(S)[None] + 1,
+                      max=T).sum().item()
+    key_bytes = 2 * (D + 4) if int8 else 2 * D * k.element_size()
+    nbytes = 2 * B * H * S * D * q.element_size() + keys * H * key_bytes \
+        + 4 * B + (block_tbl.numel() * 4 if block_tbl is not None else 0)
+    return 4.0 * D * H * vis, float(nbytes)
+
+
 # ---------------------------------------------------------------------------
 # int8 storage
 # ---------------------------------------------------------------------------
@@ -456,6 +488,14 @@ def _launch(kind, q, ptrs, ints, T, scale):
         raise RuntimeError("decode_attention {} kernel launch failed: CUDA "
                            "error {}".format(kind, err))
     _count(kind)
+    cost = getattr(_local, "cost", None)
+    if cost is not None:
+        paged = kind in ("paged", "paged_q8")
+        flops, nbytes = _kernel_cost(
+            q, ptrs[0], ptrs[-1], T, kind in ("q8", "paged_q8"),
+            ptrs[-2] if paged else None)
+        cost["flops"] += flops
+        cost["bytes"] += nbytes
     return out
 
 

@@ -35,6 +35,13 @@ checkpoints in the JAX package's layout and format.
   timer synchronizes only when its timing begins and at each
   ``steps_per_print`` report, not at every step as the JAX (and the
   reference's) timer does (``utils/timer.ThroughputTimer``).
+- The perf x-ray (``telemetry/xray.py``): ``train_batch`` stashes its
+  step under ``train_step`` with the batch's shapes as the signature; a
+  signature's first step runs under the x-ray's cost modes (the torch
+  operators' flops and bytes of forward, backward and step; the ctypes
+  training kernels are not counted) and ``perf_xray()`` returns the
+  section. No step is sampled (``sample_every`` 0, as in the JAX engine).
+  The flops profiler is ROADMAP Queue 1 item 13.
 
 Not on this path yet (ROADMAP Queue 1): the dataloader (``training_data``),
 ZeRO and offload, Lamb and 1-bit Adam, pipeline.
@@ -60,7 +67,7 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_,
                                                ensure_directory_exists,
                                                flax_tree, has_overflow,
                                                load_flax_tree)
-from deepspeed_tpu_torch.telemetry import (MetricsRegistry,
+from deepspeed_tpu_torch.telemetry import (MetricsRegistry, ProgramRegistry,
                                            TensorBoardScalarWriter)
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -119,6 +126,10 @@ class DeepSpeedEngine(object):
         # registry, and the gauges read the engine's state at scrape time.
         self.telemetry = MetricsRegistry(engine="training")
         self.timers = SynchronizedWallClockTimer(registry=self.telemetry)
+        # The perf x-ray of train_batch's step (module docstring).
+        self.xray = ProgramRegistry(self.telemetry,
+                                    platform=self.device.type,
+                                    sample_every=0)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_micro_batch_size_per_gpu(), num_workers=1,
             steps_per_output=self.steps_per_print(), monitor_memory=False,
@@ -481,11 +492,25 @@ class DeepSpeedEngine(object):
             if data_iter is None:
                 raise ValueError("train_batch needs a batch or a data_iter")
             batch = next(data_iter)
-        loss = self.forward(*batch) if isinstance(batch, (tuple, list)) \
-            else self.forward(batch)
-        self.backward(loss)
-        self.step()
+        args = tuple(batch) if isinstance(batch, (tuple, list)) \
+            else (batch,)
+        self.xray.stash("train_step", None, *args)
+
+        def run():
+            loss = self.forward(*args)
+            self.backward(loss)
+            self.step()
+            return loss
+
+        loss = self.xray.measure("train_step", run)
+        self.xray.note("train_step", tokens=self.train_batch_size())
         return loss.detach()
+
+    def perf_xray(self):
+        """The schema-versioned ``perf_xray`` section of the training
+        side: one record per batch signature ``train_batch`` met, with its
+        measured flops and bytes (``telemetry/xray.py``)."""
+        return self.xray.to_json()
 
     # --------------------------------------------------------- checkpoint
 

@@ -26,7 +26,11 @@ signatures.
 - ``AlertRule`` / ``AlertManager`` / ``default_rules`` (alerts.py):
   declarative SLO burn-rate alerting over the collector's windows.
 
-The perf x-ray of the JAX package is not ported yet (ROADMAP Queue 1).
+- ``ProgramRegistry`` / ``HBMLedger`` / ``cost_model_gate`` (xray.py):
+  the per-program cost and memory observatory (flops and bytes measured
+  on each program's eager first run, the graph pool's bytes, roofline
+  gauges against ``PLATFORM_PEAKS``), the predicted-vs-live device memory
+  ledger, and the regression gate's cost arm.
 """
 
 from deepspeed_tpu_torch.telemetry.alerts import (
@@ -68,6 +72,9 @@ from deepspeed_tpu_torch.telemetry.registry import (
 )
 from deepspeed_tpu_torch.telemetry.timeseries import TimeseriesCollector
 from deepspeed_tpu_torch.telemetry.tracing import NullRecorder, SpanRecorder
+from deepspeed_tpu_torch.telemetry.xray import (PLATFORM_PEAKS, HBMLedger,
+                                                ProgramRegistry,
+                                                cost_model_gate)
 
 __all__ = [
     "TimeseriesCollector",
@@ -97,4 +104,8 @@ __all__ = [
     "AlertRule",
     "AlertManager",
     "default_rules",
+    "PLATFORM_PEAKS",
+    "HBMLedger",
+    "ProgramRegistry",
+    "cost_model_gate",
 ]

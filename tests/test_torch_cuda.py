@@ -1604,3 +1604,118 @@ def test_a_failed_capture_raises(cuda):
     # recovery_max_retries is 2 by default; a capture error the drain
     # cannot clear ends the engine before the retries are spent.
     assert len(eng.recovery_log) <= 2
+
+
+# -------------------------------------- the front door, adapters, x-ray
+
+
+def _small_moe(cuda):
+    from deepspeed_tpu_torch.inference.adapters import MoEAdapter
+    a = MoEAdapter.from_config(vocab_size=1024, n_layer=2, n_head=4,
+                               n_embd=256, n_positions=256, n_experts=4,
+                               d_ff=512, dtype=torch.bfloat16)
+    return a, a.init_params(seed=0, device=cuda)
+
+
+def _adapter_engines(cuda, kind):
+    """(graph-served, eager) engines of ``kind`` on SMALL_SERVE."""
+    from deepspeed_tpu_torch.inference.adapters import LongContextAdapter
+    if kind == "moe":
+        adapter, weights = _small_moe(cuda)
+        return [cls(None, weights, config=dict(SMALL_SERVE), adapter=adapter)
+                for cls in (InferenceEngine, _EagerEngine)]
+    model = _small_gpt2(cuda)
+    adapter = LongContextAdapter.from_model(model, threshold=64, block=16,
+                                            num_local_blocks=2)
+    return [cls(model, config=dict(SMALL_SERVE), adapter=adapter)
+            for cls in (InferenceEngine, _EagerEngine)]
+
+
+@pytest.mark.parametrize("kind", ["moe", "longcontext"])
+def test_adapter_engine_graph_equals_eager(cuda, kind):
+    """The MoE and long-context engines served from captured graphs equal
+    their eager programs: every harvest (the MoE counters too) and the
+    whole pool, bit for bit; neither launches K3-K6."""
+    graphed, eager = _adapter_engines(cuda, kind)
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(0, 1024, size=n) for n in (5, 40, 17, 70, 9, 33)]
+    got, got_launches = _serve(graphed, prompts)
+    want, want_launches = _serve(eager, prompts)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for name in a:
+            assert np.array_equal(a[name], b[name]), name
+    for name, t in graphed._pool.items():
+        assert torch.equal(t, eager._pool[name]), name
+    assert sum(got_launches.values()) == sum(want_launches.values()) == 0
+    assert graphed.metrics()["graph_replays"] > 0
+    if kind == "moe":
+        reg = graphed.telemetry
+        assert reg.gauge("moe_tokens_dropped").value == 0.0
+        assert reg.gauge("moe_tokens_routed").value > 0
+
+
+def test_frontdoor_over_a_fleet_captures_nothing_after_warmup(cuda):
+    """Two warm replicas behind a FrontDoor: a mixed interactive/batch
+    load completes, every stream equals one engine's, and no replica
+    captures a program after mark_warm()."""
+    from deepspeed_tpu_torch.inference import (FrontDoor, FrontDoorConfig,
+                                               PriorityClass, ServingFleet)
+    model = _small_gpt2(cuda)
+    config = dict(SMALL_SERVE, host_offload=True, swap_slots=4)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 1024, size=n) for n in (5, 40, 17, 70, 9, 33)]
+    single = InferenceEngine(model, config=config)
+    want = [single.submit(p, max_new_tokens=24) for p in prompts]
+    single.run()
+    fleet = ServingFleet(model, n_replicas=2, config=config, start=False)
+    try:
+        for rep in fleet.replicas:
+            rep.engine.generate([prompts[1]], max_new_tokens=24)
+            rep.engine.recompile_detector.mark_warm()
+        keys = [sorted(rep.engine._programs) for rep in fleet.replicas]
+        fd = FrontDoor(fleet, FrontDoorConfig(classes=(
+            PriorityClass("interactive", ttft_budget_ms=60_000.0),
+            PriorityClass("batch", preemptible=True))))
+        hs = [fd.submit(p, max_new_tokens=24,
+                        priority=("interactive", "batch")[i % 2])
+              for i, p in enumerate(prompts)]
+        assert fd.wait_idle(timeout_s=120.0)
+        assert [h.tokens for h in hs] == [r.tokens for r in want]
+        assert [sorted(rep.engine._programs)
+                for rep in fleet.replicas] == keys
+        assert all(rep.engine.recompile_detector.recompiles.value == 0
+                   for rep in fleet.replicas)
+    finally:
+        fleet.close()
+
+
+def test_perf_xray_on_a_small_engine(cuda):
+    """perf_xray() on the card: a record per key met with flops > 0 (the
+    decode kernels' formula included), bytes and graph-pool bytes; MFU and
+    MBU of sampled records in (0, 1]; streams equal an x-ray-off engine's;
+    no recompile after mark_warm()."""
+    model = _small_gpt2(cuda)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, 1024, size=n) for n in (5, 40, 17, 70)]
+    on = InferenceEngine(model, config=dict(SMALL_SERVE, perf_xray=True,
+                                            xray_sample_every=2))
+    off = InferenceEngine(model, config=dict(SMALL_SERVE))
+    got, _ = _serve(on, prompts)
+    want, _ = _serve(off, prompts)
+    for a, b in zip(got, want):
+        for name in a:
+            assert np.array_equal(a[name], b[name]), name
+    on.recompile_detector.mark_warm()
+    _serve(on, prompts)
+    sec = on.perf_xray()
+    assert len(sec["programs"]) == on.compile_count
+    for p in sec["programs"]:
+        assert p["flops"] > 0 and p["kernel_flops"] > 0
+        assert p["bytes_accessed"] > 0 and p["graph_pool_bytes"] > 0
+        if p["mfu"] is not None:
+            assert 0 < p["mfu"] <= 1 and 0 < p["mbu"] <= 1
+    assert any(p["mfu"] is not None for p in sec["programs"])
+    assert sec["platform"] == "cuda" and sec["hbm"]["live_bytes"] > 0
+    assert on.metrics()["recompiles"] == 0
+    assert off.perf_xray() is None

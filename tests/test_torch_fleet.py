@@ -685,8 +685,8 @@ def test_close_joins_threads_and_stops_watchdogs():
     with pytest.raises(ValueError):
         ti.ServingFleet(GPT2Config.tiny(dtype=torch.float32), models()[2],
                         n_replicas=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="x-ray"):
-        fleet.perf_xray()
+    # The x-ray is off in FLEET's config: every replica's section is None.
+    assert fleet.perf_xray() == {0: None, 1: None}
 
 
 def test_runner_chaos_kills_replica_mid_run_zero_lost():

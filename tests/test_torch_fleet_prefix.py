@@ -336,8 +336,19 @@ def test_fleet_prometheus_exports_prefix_counters():
         routed = {dict(k[1])["replica"]: v for k, v in samples.items()
                   if k[0] == "ds_tpu_affinity_routed_total"}
         assert sum(routed.values()) == fleet.counters["affinity_routed"]
-        m = fleet.metrics()["replicas"]
-        assert any(r.get("affinity_routed", 0) >= 1 for r in m.values())
+        # Per replica: the collector's closed windows plus the open one
+        # hold every affinity route, whenever the 0.05 s window clock
+        # closed a window (nothing steps now, so no window closes between
+        # the two reads).
+        per_rep = {rid: r.get("affinity_routed", 0)
+                   for rid, r in fleet.metrics()["replicas"].items()}
+        for rec in fleet.collector.windows():
+            for rid in per_rep:
+                per_rep[rid] += rec["metrics"].get(
+                    "affinity_routed{{replica={}}}".format(rid), 0.0)
+        assert fleet.collector.dropped == 0
+        assert sum(per_rep.values()) == fleet.counters["affinity_routed"]
+        assert any(v >= 1 for v in per_rep.values())
     finally:
         fleet.close()
 

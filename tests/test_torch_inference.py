@@ -153,14 +153,30 @@ def test_top_k_one_sampling_is_greedy():
 
 @pytest.mark.parametrize("setting", [
     {"spec_decode": True, "chunked_prefill": False},
-    {"expert_parallel": False},
-    {"chunked_prefill": False}, {"xray_sample_every": 0},
-    {"use_flash_decode": False}, {"sparse_decode": False},
-    {"telemetry": True, "trace_ring": 16, "xray_sample_every": 16},
+    {"expert_parallel": False, "use_flash_decode": False},
+    {"chunked_prefill": False}, {"perf_xray": True, "prefill_buckets": [32]},
+    {"use_flash_decode": False}, {"sparse_decode": False,
+                                  "chunked_prefill": False},
+    {"telemetry": True, "trace_ring": 16, "use_flash_decode": False},
     {"prefill_buckets": [16, 64]}])
 def test_unported_settings_raise(setting):
     with pytest.raises(NotImplementedError):
         InferenceConfig.from_dict(setting)
+
+
+@pytest.mark.parametrize("setting", [
+    {"expert_parallel": False}, {"xray_sample_every": 0},
+    {"sparse_decode": False}, {"perf_xray": True, "xray_sample_every": 16},
+    {"telemetry": True, "trace_ring": 16, "xray_sample_every": 16}])
+def test_lifted_settings_parse(setting):
+    """The x-ray's and the adapters' keys are real fields now (they were
+    refused until those slices): each parses to its value, and a negative
+    sampling period is refused as in the JAX config."""
+    cfg = InferenceConfig.from_dict(setting)
+    for k, v in setting.items():
+        assert getattr(cfg, k) == v
+    with pytest.raises(ValueError, match="xray_sample_every"):
+        InferenceConfig.from_dict({"xray_sample_every": -1})
 
 
 @pytest.mark.parametrize("setting", [

@@ -98,13 +98,18 @@ def test_entry_points_raise_without_cuda():
                                    "transformer_layer", "sparse_bert",
                                    "bert_sparse_self_attention",
                                    "sparse_attention_layers",
-                                   "serving_fleet"])
+                                   "serving_fleet", "moe_init_params",
+                                   "moe_params_from_jax", "moe_engine",
+                                   "longcontext_engine"])
 def test_state_builders_default_to_cuda(entry):
     """Every public builder of device state defaults to the GPU: without
     one it raises, and with ``device="cpu"`` it builds on the host."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: nothing to refuse")
-    from deepspeed_tpu_torch.inference import ServingFleet, kv_pool
+    from deepspeed_tpu_torch.inference import (InferenceEngine,
+                                               ServingFleet, kv_pool)
+    from deepspeed_tpu_torch.inference.adapters import (LongContextAdapter,
+                                                        MoEAdapter, moe)
     from deepspeed_tpu_torch.models import (BertConfig, BertForPreTraining,
                                             BertModel, GPT2Config,
                                             GPT2LMHeadModel, bert, generation,
@@ -119,6 +124,17 @@ def test_state_builders_default_to_cuda(entry):
             GPT2LMHeadModel(cfg, device="cpu").named_parameters()}
     btree = {name: p.numpy() for name, p in
              BertForPreTraining(bcfg, device="cpu").named_parameters()}
+    moe_adapter = MoEAdapter.from_config(vocab_size=64, n_positions=64)
+    cpu_moe = moe_adapter.init_params(device="cpu")
+    moe_tree = {"wte": cpu_moe.wte.numpy(), "wpe": cpu_moe.wpe.numpy(),
+                "ln_f": {"scale": cpu_moe.ln_f.scale.numpy(),
+                         "bias": cpu_moe.ln_f.bias.numpy()}}
+    for i, b in enumerate(cpu_moe.blocks):
+        moe_tree["h_{}".format(i)] = {
+            "ln_1": vars(b.ln_1), "ln_2": vars(b.ln_2),
+            "attn": {n: vars(getattr(b.attn, n))
+                     for n in ("c_attn", "c_proj")},
+            "router": vars(b.router), "experts": vars(b.experts)}
     build = {
         "model": lambda **kw: GPT2LMHeadModel(cfg, **kw).wte,
         "params_from_jax": lambda **kw: params_from_jax(
@@ -145,6 +161,16 @@ def test_state_builders_default_to_cuda(entry):
             cfg, _nest(tree), n_replicas=2, start=False,
             config={"max_len": 64, "max_slots": 2},
             **kw).replicas[1].engine._pool["k"],
+        "moe_init_params": lambda **kw: moe_adapter.init_params(**kw).wte,
+        "moe_params_from_jax": lambda **kw: moe.params_from_jax(
+            moe_tree, moe_adapter.gcfg, **kw).blocks[0].experts.w1,
+        "moe_engine": lambda **kw: InferenceEngine(
+            None, moe_tree, config={"max_len": 64, "max_slots": 2},
+            adapter=moe_adapter, **kw)._pool["aux_moe_load"],
+        "longcontext_engine": lambda **kw: InferenceEngine(
+            cfg, _nest(tree), config={"max_len": 64, "max_slots": 2},
+            adapter=LongContextAdapter.from_model(cfg, threshold=32,
+                                                  block=8), **kw)._pool["k"],
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()

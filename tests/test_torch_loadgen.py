@@ -192,10 +192,24 @@ def test_build_report_gate_and_sweep_equal_jax():
 
 
 def test_gate_refuses_perf_xray_sections():
+    """The gate's cost-model arm (it refused perf_xray sections until the
+    x-ray slice): A/A passes, a doubled bytes-per-token fails, with the
+    same verdicts as the JAX gate on the same reports."""
     rep = tl.build_report(PRESETS["poisson"](tl), _result(tl), tl.SLO())
-    rep["perf_xray"] = {"programs": {}}
-    with pytest.raises(NotImplementedError, match="x-ray"):
-        tl.regression_gate(rep, rep)
+    rep["perf_xray"] = {"schema_version": 1, "platform": "cpu",
+                        "programs": [{"program": "mixed_step",
+                                      "flops": 1e6, "bytes_accessed": 4e6,
+                                      "peak_hbm_bytes": 0,
+                                      "superseded": False}],
+                        "totals": {"flops_per_token": 1e5,
+                                   "bytes_per_token": 4e5}}
+    worse = copy.deepcopy(rep)
+    worse["perf_xray"]["totals"]["bytes_per_token"] = 8e5
+    for a, b, ok in ((rep, rep, True), (rep, worse, False)):
+        got = tl.regression_gate(a, b)
+        want = jl.regression_gate(a, b)
+        assert got["perf_xray"] == want["perf_xray"]
+        assert got["perf_xray"]["pass"] is ok and got["pass"] == want["pass"]
 
 
 # ---------------------------------------------------------------- runner
