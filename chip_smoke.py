@@ -350,6 +350,10 @@ from deepspeed_tpu_torch.models import (  # noqa: E402
 from deepspeed_tpu_torch.models import generation  # noqa: E402
 from deepspeed_tpu_torch.op_builder import (  # noqa: E402
     build_all, build_log, sources)
+from deepspeed_tpu_torch.ops.adam.cpu_adam import (  # noqa: E402
+    DeepSpeedCPUAdam)
+from deepspeed_tpu_torch.ops.lamb.cpu_lamb import (  # noqa: E402
+    DeepSpeedCPULamb)
 from deepspeed_tpu_torch.ops.sampling import (  # noqa: E402
     positional_uniform)
 from deepspeed_tpu_torch.ops.sparse_attention import (  # noqa: E402
@@ -368,6 +372,8 @@ from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     layer_norm as ln)
 from deepspeed_tpu_torch.ops.transformer.kernels import (  # noqa: E402
     softmax as sm)
+from deepspeed_tpu_torch.runtime.dataloader import (  # noqa: E402
+    RepeatingLoader)
 from deepspeed_tpu_torch.telemetry import (  # noqa: E402
     PROFILE_DIR_ENV, PrometheusEndpoint, TensorBoardScalarWriter,
     profile_window, validate_trace)
@@ -4980,10 +4986,10 @@ def _eos_case(model, eng):
             "cuts_the_accepted_prefix": True, "tokens": len(req.tokens)}
 
 
-def _flash_inputs(B, T, dtype, masked, seed):
+def _flash_inputs(B, T, dtype, masked, seed, H=16):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    q, k, v, do = (torch.randn(B, 16, T, 64, device="cuda", generator=g)
+    q, k, v, do = (torch.randn(B, H, T, 64, device="cuda", generator=g)
                    .to(dtype) for _ in range(4))
     mask = None
     if masked == "padding":  # the BERT batches' (_bert_batch): every
@@ -5028,10 +5034,10 @@ def _err(out, ref, limit):
     return float(diff.max()), float(ratio.max())
 
 
-def _flash_case(name, B, T, dtype, causal, masked, seed, timed=False):
+def _flash_case(name, B, T, dtype, causal, masked, seed, timed=False, H=16):
     """K1, K2a and K2b on one input against their plain versions; returns
     the case's row (errors, and with ``timed`` the times)."""
-    q, k, v, do, mask = _flash_inputs(B, T, dtype, masked, seed)
+    q, k, v, do, mask = _flash_inputs(B, T, dtype, masked, seed, H=H)
     o, lse = at.flash_fwd(q, k, v, mask, causal)
     delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
     fused = at.flash_bwd(q, k, v, mask, lse, delta, do, causal, mode="fused")
@@ -5042,7 +5048,7 @@ def _flash_case(name, B, T, dtype, causal, masked, seed, timed=False):
     torch.cuda.synchronize()
     rtol = FLASH_RTOL[dtype]
     row = {"case": name, "dtype": str(dtype).split(".")[-1], "B": B,
-           "H": 16, "T": T, "causal": causal, "mask": masked}
+           "H": H, "T": T, "causal": causal, "mask": masked}
     outs = {"K1": [(o, ro, rtol * ro.float().abs() + FLASH_ACC * mags[0]),
                    (lse, rlse, 1e-5 * (1 + rlse.abs()))]}
     for kernel, grads in (("K2a", fused), ("K2b", split)):
@@ -5125,7 +5131,8 @@ def _flash_times(q, k, v, do, mask, lse, delta, causal):
 def phase_flash():
     """K1/K2a/K2b against their plain versions; returns the case rows, the
     first two being the timed shapes (bf16) of GPT-2 training and of
-    BERT-large pretraining."""
+    BERT-large pretraining, the last GPT-2 XL's (the offload cell, timed),
+    and flash_attention_with_lse's rows (phase_flash_lse)."""
     cases = [("train", 8, 1024, torch.bfloat16, True, False),
              ("bert", BERT_B, BERT_T, torch.bfloat16, False, "padding"),
              ("train", 8, 1024, torch.float16, True, False),
@@ -5134,8 +5141,11 @@ def phase_flash():
              ("ragged", 2, 1000, torch.bfloat16, True, False),
              ("ragged_fp32_mask", 2, 1000, torch.float32, True, True),
              ("one_tile", 8, 64, torch.bfloat16, True, False)]
-    return [_flash_case(*case, seed=i, timed=i < 2)
+    rows = [_flash_case(*case, seed=i, timed=i < 2)
             for i, case in enumerate(cases)]
+    rows.append(_flash_case("gpt2_xl", 2, 1024, torch.bfloat16, True, False,
+                            seed=len(cases), timed=True, H=25))
+    return rows, phase_flash_lse()
 
 
 def phase_train(card):
@@ -6128,12 +6138,459 @@ def _sparse_kernel_rows(rows, launches, split_rows):
     return out
 
 
-def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows):
+# ------------------------------------------------- ZeRO-Offload (slice 14)
+
+# The offload cell: the JAX package's capacity run (bench.py main_xl): GPT-2
+# XL (48 x 1600, 25 heads), remat, dropout 0, bf16, B2 x T1024, Adam 1e-4,
+# ZeRO stage 2 + cpu_offload; fed by the engine's dataloader over random
+# token rows (numpy, seed 0). wall_clock_breakdown times forward, backward
+# and step (each bracketed by a synchronize); steps_per_print is out of
+# reach so no report resets the timers.
+OFFLOAD_CONFIG = {"train_batch_size": 2,
+                  "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+                  "bf16": {"enabled": True},
+                  "zero_optimization": {"stage": 2, "cpu_offload": True},
+                  "wall_clock_breakdown": True, "steps_per_print": 10 ** 9}
+OFFLOAD_B, OFFLOAD_T, OFFLOAD_ROWS = 2, 1024, 16
+OFFLOAD_WARM, OFFLOAD_TIMED = 1, 3
+DEVICE_ADAM_WARM, DEVICE_ADAM_TIMED = 1, 2
+# Each arm's first train_batch is a warm step: a batch signature's first
+# train_batch runs under the x-ray's cost modes (telemetry/xray.py), which
+# hold more device memory than a plain step.
+STREAM_WARM, STREAM_TIMED = 1, 2
+# Host bytes per parameter the offload arms hold at once: master, m, v
+# (fp32), the bf16 copy-out and staging (pinned), the streaming arm's bf16
+# buffer (the first step's fp32 staging is freed with that step); GPT-2
+# large when the host has less (GPT-2 large, 774 M parameters, also has
+# head width 64).
+OFFLOAD_HOST_BYTES_PER_PARAM = 4 * 3 + 2 * 2 + 2
+# Host-op rates: elements per buffer for the cpu_adam / cpu_lamb timings
+# (256 MB fp32 buffers, 1 GB for the four: past the host's caches).
+HOST_OP_ELEMS = 2 ** 26
+# Bytes each host op moves per element: Adam reads p, g, m, v and writes p,
+# m, v (28), the fused copy adds a bf16 write (30); LAMB's two passes read
+# p, g, m, v and write m, v, the update, then read p and the update and
+# write p (40), with the copy 42.
+HOST_OP_BYTES = {"cpu_adam": 28, "cpu_adam_copy_bf16": 30, "cpu_lamb": 40,
+                 "cpu_lamb_copy_bf16": 42}
+
+
+def _host_cpu():
+    """The host CPU's model name (lscpu), its logical CPUs, torch's intra-op
+    threads and OMP_NUM_THREADS (the OpenMP ops' default is every logical
+    CPU)."""
+    fields = {}
+    lscpu = shutil.which("lscpu")
+    if lscpu:
+        for line in subprocess.run([lscpu], capture_output=True,
+                                   text=True).stdout.splitlines():
+            key, _, val = line.partition(":")
+            fields[key.strip()] = val.strip()
+    model = fields.get("Model name", "not reported")
+    if model in ("unknown", "not reported"):
+        # A virtual machine may hide the name: vendor, family and model.
+        model = "{} family {} model {} ({})".format(
+            fields.get("Vendor ID"), fields.get("CPU family"),
+            fields.get("Model"), "lscpu gives no model name")
+    return {"cpu": model, "logical_cpus": os.cpu_count(),
+            "torch_threads": torch.get_num_threads(),
+            "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS")}
+
+
+def _proc_kb(path, key):
+    with open(path) as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    return 0
+
+
+def _host_gb():
+    """The process's resident set now (VmRSS) and its peak so far
+    (getrusage's ru_maxrss), GB."""
+    import resource
+    return {"rss_gb": _proc_kb("/proc/self/status", "VmRSS") / 2 ** 20,
+            "rss_peak_gb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}
+
+
+def _offload_rows(vocab):
+    ids = np.random.RandomState(0).randint(0, vocab,
+                                           size=(OFFLOAD_ROWS, OFFLOAD_T))
+    return [(row, row) for row in ids]
+
+
+def _offload_arm(cfg, label, zero, warm, timed, card, main_path=False):
+    """Train ``cfg`` (seed 0) through initialize(training_data=...) and
+    train_batch(data_iter=RepeatingLoader(loader)): ``warm`` steps, then
+    ``timed`` each ending in a synchronize. Returns the arm's line. On the
+    main path the kernels' launch counts are reset just before the timed
+    steps and read just after them. A streamed arm then runs one more
+    step by hand (forward, backward, step: its first with the streamed
+    backward) and fails if any .grad is left after the backward."""
+    t_arm = time.perf_counter()
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=0)
+    config = dict(OFFLOAD_CONFIG, zero_optimization=zero)
+    engine, _, loader, _ = initialize(model=model, config_params=config,
+                                      training_data=_offload_rows(
+                                          cfg.vocab_size))
+    it = RepeatingLoader(loader)
+    losses = [engine.train_batch(data_iter=it) for _ in range(warm)]
+    if zero.get("stream_gradients"):
+        ids, labels = next(it)
+        loss = engine(ids, labels)
+        engine.backward(loss)
+        left = [n for n, p in zip(engine._names, engine._params)
+                if p.grad is not None]
+        if left:
+            fail("{}: {} gradients left on the card after a streamed "
+                 "backward ({} ...)".format(label, len(left), left[:3]))
+        engine.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("forward", "backward", "step"):
+        engine.timers(name).elapsed(reset=True)
+    if main_path:
+        at.reset_launches()
+    steps, timings = [], []
+    per_step = {name: [] for name in ("forward", "backward", "step")}
+    # The collector's passes inside the timed steps (generation, seconds,
+    # step): the earlier phases leave a large heap, whose full passes show
+    # up as host time in whatever phase they interrupt.
+    gc_passes, gc_t0 = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[:] = [time.perf_counter()]
+        elif gc_t0:
+            gc_passes.append({"gen": info["generation"], "step": len(steps),
+                              "s": time.perf_counter() - gc_t0[0]})
+
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            losses.append(engine.train_batch(data_iter=it))
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            timings.append(engine.offload_timing())
+            for name, ms in per_step.items():
+                ms.append(engine.timers(name).elapsed(reset=True) * 1e3)
+    finally:
+        gc.callbacks.remove(on_gc)
+    launches = dict(at.launches)
+    phases = {name: float(np.mean(ms)) for name, ms in per_step.items()}
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        fail("{}: non-finite loss {}".format(label, losses))
+    mean_s = float(np.mean(steps))
+    line = {
+        "arm": label, "model": "gpt2 {} x {}, {} heads, remat".format(
+            cfg.n_layer, cfg.n_embd, cfg.n_head),
+        "params": cfg.num_params(), "batch": OFFLOAD_B, "seq": OFFLOAD_T,
+        "zero": zero, "optimizer": type(engine.optimizer).__name__,
+        "timed_steps": timed, "step_s": steps, "mean_step_s": mean_s,
+        "tokens_per_s": OFFLOAD_B * OFFLOAD_T / mean_s,
+        "phase_ms": phases, "phase_ms_per_step": per_step,
+        "gc_passes_timed": gc_passes,
+        "gc_full_pass_s": sum(g["s"] for g in gc_passes if g["gen"] == 2),
+        "peak_device_bytes":
+            torch.cuda.max_memory_allocated(), "losses": losses,
+        "offload_timing": timings, "host": _host_gb(),
+        "arm_s": time.perf_counter() - t_arm, "card": card}
+    if main_path:
+        line["launches"] = launches
+    del engine, model, it, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def _host_op_rates():
+    """cpu_adam and cpu_lamb over HOST_OP_ELEMS-element fp32 buffers
+    (median of 3 after one warm call; LAMB as one tensor), beside the
+    host's copy rate (torch's copy of a 4 x HOST_OP_ELEMS fp32 buffer:
+    read + write);
+    GB/s = HOST_OP_BYTES per element over the time."""
+    n = HOST_OP_ELEMS
+    p, g, m, v = (torch.randn(n) for _ in range(4))
+    out16 = torch.empty(n, dtype=torch.bfloat16)
+    adam, lamb = DeepSpeedCPUAdam(lr=1e-4), DeepSpeedCPULamb(lr=1e-4)
+    runs = {
+        "cpu_adam": lambda: adam.step_flat(p, g, m, v, step=1),
+        "cpu_adam_copy_bf16": lambda: adam.step_flat(p, g, m, v, step=1,
+                                                     bf16_out=out16),
+        "cpu_lamb": lambda: lamb.step_flat(p, g, m, v, step=1),
+        "cpu_lamb_copy_bf16": lambda: lamb.step_flat(p, g, m, v, step=1,
+                                                     bf16_out=out16)}
+    rows = {}
+    for name, fn in runs.items():
+        fn()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        s = float(np.median(times))
+        rows[name] = {"ms": s * 1e3, "gb_s": HOST_OP_BYTES[name] * n / s /
+                      1e9}
+    src, dst = torch.randn(4 * n), torch.empty(4 * n)
+    dst.copy_(src)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        times.append(time.perf_counter() - t0)
+    rows["host_copy_gb_s"] = 2 * src.numel() * 4 / float(np.median(
+        times)) / 1e9
+    rows["elements"] = n
+    return rows
+
+
+def phase_offload(card):
+    """ZeRO-Offload training at full width (the slice's main path): GPT-2
+    XL (or GPT-2 large where the host lacks the memory, said in the line)
+    with the fp32 master and Adam's moments in host memory, updated by the
+    host C++ Adam chunk by chunk (OFFLOAD_WARM + OFFLOAD_TIMED steps; K1
+    twice per layer and step under remat, K2a once); the same model on the
+    device's FusedAdam (no offload) and with stream_gradients beside it.
+    Fails unless every loss is finite, the launches are exact, the offload
+    arm's peak device memory is below the device-Adam arm's and the
+    streamed arm's below the offload arm's, and no gradient stays on the
+    card after a streamed backward. Returns the main path's launches."""
+    avail_gb = _proc_kb("/proc/meminfo", "MemAvailable") / 2 ** 20
+    need_gb = GPT2Config.gpt2_xl().num_params() * \
+        OFFLOAD_HOST_BYTES_PER_PARAM / 2 ** 30
+    kw = dict(dtype=torch.bfloat16, dropout=0.0, remat=True)
+    cfg, why = GPT2Config.gpt2_xl(**kw), None
+    if avail_gb < 1.25 * need_gb:
+        cfg = GPT2Config.gpt2_large(**kw)
+        why = "host MemAvailable {:.1f} GB < 1.25 x {:.1f} GB".format(
+            avail_gb, need_gb)
+    host = dict(_host_cpu(), mem_available_gb=avail_gb,
+                host_bytes_needed_gb=need_gb, reduced_to_large=why)
+    print("offload_host " + json.dumps(host))
+    torch.cuda.empty_cache()
+    main = _offload_arm(cfg, "offload", OFFLOAD_CONFIG["zero_optimization"],
+                        OFFLOAD_WARM, OFFLOAD_TIMED, card, main_path=True)
+    launches = main.pop("launches")
+    want = {"flash_fwd": 2 * cfg.n_layer * OFFLOAD_TIMED,
+            "flash_bwd_fused": cfg.n_layer * OFFLOAD_TIMED,
+            "flash_bwd_split": 0}
+    main["launches"] = launches
+    main["launches_expected"] = want
+    print("offload " + json.dumps(main))
+    if launches != want:
+        fail("offload: kernel launches {} != {} (K1 twice per layer and "
+             "step under remat, K2a once)".format(launches, want))
+    device = _offload_arm(cfg, "device_adam", {"stage": 2}, DEVICE_ADAM_WARM,
+                          DEVICE_ADAM_TIMED, card)
+    print("offload_device_adam " + json.dumps(device))
+    streamed = _offload_arm(cfg, "stream_gradients", dict(
+        OFFLOAD_CONFIG["zero_optimization"], stream_gradients=True),
+        STREAM_WARM, STREAM_TIMED, card)
+    print("offload_stream " + json.dumps(streamed))
+    rates = _host_op_rates()
+    print("host_ops " + json.dumps(dict(rates, host=host["cpu"],
+                                        logical_cpus=host["logical_cpus"],
+                                        card=card)))
+    peaks = [a["peak_device_bytes"] for a in (device, main, streamed)]
+    if not peaks[1] < peaks[0]:
+        fail("offload: peak device memory {} not below the device-Adam "
+             "run's {}".format(peaks[1], peaks[0]))
+    if not peaks[2] < peaks[1]:
+        fail("offload: stream_gradients' peak device memory {} not below "
+             "plain offload's {}".format(peaks[2], peaks[1]))
+    return launches
+
+
+def _offload_step_pair(config, cfg, ids, steps):
+    """The same run on the card and on the CPU from the same fp32 weights:
+    (loss, fp32 masters by name, skipped steps) per device; the masters are
+    read from the host state (or from the module where nothing is
+    offloaded). The card runs until its first applied step, at most
+    ``steps``; the CPU then runs as many."""
+    cpu_model = GPT2LMHeadModel(cfg, device="cpu", seed=2)
+    state = cpu_model.state_dict()
+    out = []
+    for device in ("cuda", "cpu"):
+        model = cpu_model if device == "cpu" else \
+            GPT2LMHeadModel(cfg, device="cuda", seed=None)
+        if device == "cuda":
+            model.load_state_dict(state)
+        engine, _, _, _ = initialize(model=model, config_params=config,
+                                     device=device)
+        for _ in range(steps):
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            if config["zero_optimization"].get("stream_gradients") and \
+                    any(p.grad is not None for p in engine._params):
+                fail("a streamed backward left a gradient on {}".format(
+                    device))
+            engine.step()
+            if device == "cuda" and engine.skipped_steps < \
+                    engine.global_steps:
+                steps = engine.global_steps
+                break
+        if engine._offload is not None:
+            masters = dict(zip(engine._names, engine._offload.views(
+                engine._offload.master)))
+        else:
+            masters = dict(zip(engine._names, engine._params))
+        out.append((float(loss.detach()), {
+            n: t.detach().float().cpu().clone() for n, t in masters.items()},
+            engine.skipped_steps))
+    return out
+
+
+def _update_ratio(got, want, noisy, lr):
+    """The worst |got - want| over the training rule's limit (GRAD_TOL):
+    1e-3 lr where the gradient is clear of 0, 2 lr where it is within
+    noise of 0, plus two fp32 ulps of the parameter (``lr``: the rate
+    times the applied steps)."""
+    worst = 0.0
+    for n in want:
+        limit = torch.where(noisy[n], 2.0 * lr, 1e-3 * lr) + \
+            2.0 ** -22 * want[n].abs()
+        worst = max(worst, float(((got[n] - want[n]).abs() / limit).max()))
+    return worst
+
+
+def phase_offload_consistency():
+    """One offload step card vs CPU at GPT-2 medium widths (4 layers, fp32
+    compute, B2 T256): offload Adam, offload LAMB, stream_gradients (fp32
+    masters, so stage 0 with cpu_offload, which the JAX config accepts
+    without fp16/bf16), and fp16 (stage 2 + cpu_offload) from a loss scale
+    of 2**20 until its first applied step; the loss within 1e-5 relative,
+    the masters under the training rule (GRAD_TOL), equal skip counts. On
+    the card, offload Adam against the device FusedAdam under the same
+    rule."""
+    cfg = GPT2Config(n_embd=1024, n_layer=4, n_head=16, dtype=torch.float32,
+                     dropout=0.0)
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(2, 256))
+    lr = 1e-4
+    ref = GPT2LMHeadModel(cfg, device="cpu", seed=2).requires_grad_(True)
+    t_ids = torch.from_numpy(ids)
+    ref(t_ids, labels=t_ids).backward()
+    largest = max(float(p.grad.abs().max()) for p in ref.parameters())
+    noisy = {}
+    for n, p in ref.named_parameters():
+        scale = max(float(p.grad.abs().max()), GRAD_TOL * largest)
+        noisy[n] = p.grad.abs() <= 10 * GRAD_TOL * scale
+    del ref
+
+    def config(opt, zero, fp16=False):
+        c = {"train_batch_size": 2,
+             "optimizer": {"type": opt, "params": {"lr": lr}},
+             "zero_optimization": zero}
+        if fp16:
+            c["fp16"] = {"enabled": True, "initial_scale_power": 20}
+        return c
+
+    offload0 = {"stage": 0, "cpu_offload": True}
+    arms = [("offload_adam", config("Adam", offload0), 1),
+            ("offload_lamb", config("Lamb", offload0), 1),
+            ("stream_gradients", config("Adam", dict(
+                offload0, stream_gradients=True)), 1),
+            ("fp16_overflow_skip", config("Adam", {
+                "stage": 2, "cpu_offload": True}, fp16=True), 10)]
+    rows = {}
+    for label, c, steps in arms:
+        (lc, mc, sc), (lh, mh, sh) = _offload_step_pair(c, cfg, ids, steps)
+        rows[label] = {"loss_card": lc, "loss_cpu": lh,
+                       "loss_rel_err": abs(lc - lh) / abs(lh),
+                       "skipped": [sc, sh],
+                       "param_max_err_over_limit": _update_ratio(
+                           mc, mh, noisy, lr)}
+        if label == "fp16_overflow_skip" and not 1 <= sc < steps:
+            fail("offload fp16: {} skipped steps of at most {} (want at "
+                 "least one skip, then an applied step)".format(sc, steps))
+        if label == "offload_adam":
+            device = _offload_step_pair(config("Adam", {"stage": 0}), cfg,
+                                        ids, 1)[0]
+            rows["offload_vs_device_adam_card"] = {
+                "loss_rel_err": abs(lc - device[0]) / abs(device[0]),
+                "param_max_err_over_limit": _update_ratio(
+                    mc, device[1], noisy, lr)}
+    print("offload_consistency " + json.dumps(rows))
+    for label, row in rows.items():
+        if row["loss_rel_err"] > 1e-5 or \
+                row["param_max_err_over_limit"] > 1.0 or \
+                len(set(row.get("skipped", [0]))) != 1:
+            fail("offload_consistency: {} disagrees: {}".format(label, row))
+
+
+def _lse_case(name, B, H, T, dtype, seed):
+    """flash_attention_with_lse (K1, then K2 with delta = rowsum(dO * O) -
+    dlse) against its plain version on the same inputs: o and the
+    gradients under FLASH_TOL's limits (the magnitudes take |delta|, which
+    covers dlse), the lse within 1e-5 of (1 + |lse|); fp32 also against
+    autograd through mha_reference with return_lse."""
+    q, k, v, do, _ = _flash_inputs(B, T, dtype, False, seed, H=H)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    dlse = torch.randn(B, H, T, 1, device="cuda", generator=g)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = at.launches["flash_fwd"]
+    o, lse = at.flash_attention_with_lse(*leaves, causal=True)
+    launched = at.launches["flash_fwd"] - before
+    grads = torch.autograd.grad((o, lse), leaves, (do, dlse))
+    ro, rlse = at.mha_reference(q, k, v, None, True, return_lse=True)
+    delta = (do.float() * o.detach().float()).sum(dim=-1, keepdim=True) - \
+        dlse
+    refs = at.flash_bwd_reference(q, k, v, None, lse.detach(), delta, do,
+                                  True)
+    mags = at.accumulated_magnitudes(q, k, v, None, lse.detach(), delta, do,
+                                     True)
+    rtol = FLASH_RTOL[dtype]
+    triples = [(o, ro, rtol * ro.float().abs() + FLASH_ACC * mags[0]),
+               (lse, rlse, 1e-5 * (1 + rlse.abs()))] + [
+        (x, r, rtol * r.float().abs() + FLASH_ACC * m)
+        for x, r, m in zip(grads, refs, mags[1:])]
+    errs = [_err(x.detach(), r, lim) for x, r, lim in triples]
+    row = {"case": name, "dtype": str(dtype).split(".")[-1], "B": B, "H": H,
+           "T": T, "seed": seed, "K1_with_lse_launches": launched,
+           "max_abs_err": max(e[0] for e in errs),
+           "max_err_over_limit": max(e[1] for e in errs),
+           "err_over_limit": dict(zip(("o", "lse", "dq", "dk", "dv"),
+                                      (e[1] for e in errs)))}
+    if dtype == torch.float32:
+        ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ro2, rl2 = at.mha_reference(*ref_leaves, causal=True,
+                                    return_lse=True)
+        want = torch.autograd.grad((ro2, rl2), ref_leaves, (do, dlse))
+        row["autograd_max_err_over_limit"] = max(
+            _err(x, w, FLASH_AUTOGRAD_TOL * w.abs().max())[1]
+            for x, w in zip(grads, want))
+    print("flash_lse " + json.dumps(row))
+    if launched != 1 or row["max_err_over_limit"] > 1.0 or \
+            row.get("autograd_max_err_over_limit", 0.0) > 1.0:
+        fail("flash_attention_with_lse disagrees with its plain version "
+             "at {}: {}".format(name, row))
+    return row
+
+
+def phase_flash_lse(bf16_seeds=(11,), repeats=1):
+    """flash_attention_with_lse at GPT-2 medium's training shape (B8 H16
+    T1024, bf16, causal) and in fp32 (B2), both against their plain
+    versions; the bf16 case on each of ``bf16_seeds``, ``repeats`` times
+    (K2a adds dq by atomics, so a repeat sums in another order)."""
+    rows = [_lse_case("gpt2_medium", 8, 16, 1024, torch.bfloat16, seed)
+            for seed in bf16_seeds for _ in range(repeats)]
+    return rows + [_lse_case("fp32", 2, 16, 1024, torch.float32, 12)]
+
+
+def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
+                       offload_launches, lse_rows):
     """K1/K2a/K2b: times at GPT-2 training's shape, launches from its run;
     under "bert" the times at BERT-large's shape and the launches from the
-    BERT run; K2b's entry also gives its two kernels' own times (dkdv_ms,
-    dq_ms) and the split-default shape's under "split_default"."""
-    timed, bert = flash_rows[0], flash_rows[1]
+    BERT run; under "offload" GPT-2 XL's shape and the offload run's
+    launches (the slice's main path); K2b's entry also gives its two
+    kernels' own times (dkdv_ms, dq_ms) and the split-default shape's under
+    "split_default"; K1's, flash_attention_with_lse's check under
+    "with_lse" (no main path calls it)."""
+    timed, bert, xl = flash_rows[0], flash_rows[1], flash_rows[-1]
     shape = "B8 H16 T1024 D64 bf16 causal"
     common = {"route": "cuda",
               "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
@@ -6160,6 +6617,12 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows):
                   "plain_ms": bert[plain], "library_ms": bert[lib],
                   "bound_ms": bert["bound_{}_ms".format(way)],
                   "bound_by": bert["bound_{}_by".format(way)]},
+            offload={"shape": "B2 H25 T1024 D64 bf16 causal (GPT-2 XL, "
+                              "remat: K1 twice per layer and step)",
+                     "launches": offload_launches[counter], "ms": xl[ms],
+                     "plain_ms": xl[plain], "library_ms": xl[lib],
+                     "bound_ms": xl["bound_{}_ms".format(way)],
+                     "bound_by": xl["bound_{}_by".format(way)]},
             max_abs_err=max(r[kernel]["max_abs_err"] for r in flash_rows),
             max_err_over_limit=max(r[kernel]["max_err_over_limit"]
                                    for r in flash_rows),
@@ -6167,6 +6630,11 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows):
             bound_ms=timed["bound_{}_ms".format(way)],
             bound_by=timed["bound_{}_by".format(way)],
             library_ms=timed[lib]))
+    rows[0]["with_lse"] = {
+        "check_launches": sum(r["K1_with_lse_launches"] for r in lse_rows),
+        "max_err_over_limit": max(r["max_err_over_limit"]
+                                  for r in lse_rows),
+        "cases": lse_rows}
     k2b = rows[2]
     k2b.update(dkdv_ms=timed["K2b_dkdv_ms"], dq_ms=timed["K2b_dq_ms"],
                split_default=split_rows["K2b"])
@@ -6274,38 +6742,48 @@ def _decode_variant_rows(rows, launches, verify_launches):
 
 
 def main():
-    card = phase_env()
-    phase_build()
-    rows = phase_kernels()
-    variant_rows = phase_decode_variants()
-    phase_stress()
-    flash_rows = phase_flash()
-    row_rows = phase_rows()
-    softmax_rows, softmax_launches = phase_softmax()
+    seconds = collections.OrderedDict()
+
+    def timed(phase, *args, **kwargs):
+        """Run a phase and add its wall-clock seconds to ``seconds``."""
+        t0 = time.perf_counter()
+        out = phase(*args, **kwargs)
+        seconds[phase.__name__] = seconds.get(phase.__name__, 0.0) + \
+            time.perf_counter() - t0
+        return out
+
+    card = timed(phase_env)
+    timed(phase_build)
+    rows = timed(phase_kernels)
+    variant_rows = timed(phase_decode_variants)
+    timed(phase_stress)
+    flash_rows, lse_rows = timed(phase_flash)
+    row_rows = timed(phase_rows)
+    softmax_rows, softmax_launches = timed(phase_softmax)
     model = GPT2LMHeadModel(GPT2Config.gpt2_medium(dtype=torch.bfloat16),
                             device="cuda", seed=0)
-    serve = {path[0]: phase_serve(card, model, *path)[0]
+    serve = {path[0]: timed(phase_serve, card, model, *path)[0]
              for path in SERVE_PATHS}
-    spec = {path[0]: phase_serve(card, model, *path, tiled=True)
+    spec = {path[0]: timed(phase_serve, card, model, *path, tiled=True)
             for path in SPEC_PATHS}
     on, off = spec["serve_spec"][1], spec["serve_spec_off"][1]
     if on["program_keys"] != off["program_keys"]:
         fail("serve_spec met the keys {} and serve_spec_off {}: speculation "
              "must not add a program".format(on["program_keys"],
                                              off["program_keys"]))
-    phase_graph_vs_eager(model)
-    phase_telemetry(card, model)
-    phase_sustained(card, model)
-    phase_resilience(card, model)
-    phase_chaos(card, model)
-    hier = phase_hierarchy(card, model)
-    phase_sustained_hier(card, model)
-    fleet = phase_fleet(card, model)
-    disagg = phase_disagg(card, model)
-    phase_frontdoor(card, model)
-    phase_frontdoor_resilience(card, model)
-    phase_adapters(card, model)
-    phase_xray(card, model)
+    timed(phase_graph_vs_eager, model)
+    timed(phase_telemetry, card, model)
+    timed(phase_sustained, card, model)
+    timed(phase_resilience, card, model)
+    timed(phase_chaos, card, model)
+    hier = timed(phase_hierarchy, card, model)
+    timed(phase_sustained_hier, card, model)
+    fleet = timed(phase_fleet, card, model)
+    disagg = timed(phase_disagg, card, model)
+    timed(phase_frontdoor, card, model)
+    timed(phase_frontdoor_resilience, card, model)
+    timed(phase_adapters, card, model)
+    timed(phase_xray, card, model)
     n_layer = model.config.n_layer
     del model
     # Each decode kernel's launches on its own path's decode and prefill
@@ -6317,16 +6795,18 @@ def main():
                                                n_layer)
                        for path in SPEC_PATHS if path[1]}
     launches = serve_launches["decode"]
-    phase_greedy()
-    train_launches = phase_train(card)
-    phase_train_breakdown(card)
-    phase_train_consistency()
-    bert_launches = phase_bert(card)
-    phase_bert_consistency()
-    sparse_rows = phase_sparse()
-    split_rows = phase_split_default()
-    sparse_launches = phase_bert_sparse(card)
-    phase_bert_sparse_consistency()
+    timed(phase_greedy)
+    train_launches = timed(phase_train, card)
+    timed(phase_train_breakdown, card)
+    timed(phase_train_consistency)
+    bert_launches = timed(phase_bert, card)
+    timed(phase_bert_consistency)
+    sparse_rows = timed(phase_sparse)
+    split_rows = timed(phase_split_default)
+    sparse_launches = timed(phase_bert_sparse, card)
+    timed(phase_bert_sparse_consistency)
+    offload_launches = timed(phase_offload, card)
+    timed(phase_offload_consistency)
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -6371,10 +6851,12 @@ def main():
                     "bound_by", "max_abs_err", "max_err_over_limit")}
                 for r in variant_rows["fleet_shapes"][kind]]
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
-                                  split_rows)
+                                  split_rows, offload_launches, lse_rows)
     kernels += _row_kernel_rows(row_rows, bert_launches)
     kernels.append(_softmax_kernel_row(softmax_rows, softmax_launches))
     kernels += _sparse_kernel_rows(sparse_rows, sparse_launches, split_rows)
+    print("phase_seconds " + json.dumps(dict(seconds, total=sum(
+        seconds.values()))))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@ flash-attention kernels K1/K2. Slice 3 is BERT pretraining on the fused
 transformer layer (K8, K10a/K10b, K11). Slice 4 serves from a paged and/or
 int8 KV pool (``inference.paged_kv`` / ``int8_kv``) through the decode
 kernels K4-K6. Slice 5 pretrains BERT on block-sparse attention
-(``ops.sparse_attention``, kernels K7a/K7b) at long sequences.
+(``ops.sparse_attention``, kernels K7a/K7b) at long sequences. Slices 6-13
+bring the rest of serving. Slice 14 trains with ZeRO-Offload: the fp32
+masters and optimizer moments in host memory, updated by the host C++ ops
+(``ops.adam.cpu_adam``, ``ops.lamb.cpu_lamb``), with the dataloader, Lamb,
+the fp16 optimizer wrappers and the remat XE head.
 """
 
 from deepspeed_tpu_torch.device import resolve_device
@@ -42,18 +46,20 @@ def init_inference(model, params=None, config=None, device=None):
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config_params=None,
-               device=None):
+               device=None, collate_fn=None):
     """Build the training engine (mirrors ``deepspeed_tpu.initialize``).
 
     ``model`` is a ``torch.nn.Module`` whose forward returns the loss (the
-    port's ``GPT2LMHeadModel`` with labels); ``model_parameters`` may be a
-    flax parameter tree of numpy arrays to load into it. The ds_config comes
-    from ``config_params`` (a dict) or ``args.deepspeed_config`` (a JSON
-    file). ``device`` defaults to ``cuda``; without a GPU the call raises
-    unless ``device="cpu"`` is passed. ``training_data`` must be None until
-    the dataloader is ported.
+    port's ``GPT2LMHeadModel`` with labels, ``models.simple.SimpleModel``);
+    ``model_parameters`` may be a flax parameter tree of numpy arrays to
+    load into it. The ds_config comes from ``config_params`` (a dict) or
+    ``args.deepspeed_config`` (a JSON file). ``training_data``, an indexable
+    dataset, becomes the engine's ``DeepSpeedDataLoader`` (``collate_fn``
+    stacks its samples; default: numpy stacking). ``device`` defaults to
+    ``cuda``; without a GPU the call raises unless ``device="cpu"`` is
+    passed.
 
-    Returns ``(engine, optimizer, None, lr_scheduler)``.
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -63,7 +69,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              model_parameters=model_parameters,
                              training_data=training_data,
                              lr_scheduler=lr_scheduler,
-                             config_params=config_params, device=device)
+                             config_params=config_params, device=device,
+                             collate_fn=collate_fn)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler
 

@@ -12,8 +12,13 @@ The GEMMs are plain products (``torch.mm``) with fp32 results, as the JAX
 package leaves them to XLA with ``preferred_element_type=float32``. The
 vocabulary is padded to a multiple of 8 for them (pad logits -inf).
 
-The JAX package's remat variant (``impl="remat"``, ``DS_TPU_XE_HEAD``) is
-not ported yet (ROADMAP Queue 1).
+The remat variant (``impl="remat"`` or ``DS_TPU_XE_HEAD=remat``, JAX
+``_chunked_xe_total_remat``) keeps no gradient from the forward: each
+chunk is its own autograd node that saves its inputs only and recomputes
+its logits in the backward, so a chunk costs four logit-sized GEMMs
+(forward, recompute, dx, dW) and no fp32 ``[V, C]`` dW accumulator lives
+through the forward. Autograd sums the chunks' dW in the model dtype, as
+the JAX scan's transpose does.
 """
 
 import os
@@ -28,6 +33,63 @@ def _mm_f32(a, b):
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
+
+
+def _chunk_logits(xi, w, bias_f):
+    logits = _mm_f32(xi, w.t())  # [chunk, V] fp32
+    if bias_f is not None:
+        logits = logits + bias_f
+    return logits
+
+
+class _RematChunkXE(torch.autograd.Function):
+    """One chunk's summed supervised-token cross-entropy; the backward
+    recomputes the chunk's logits from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, xi, w, bias_f, li, vi, dtype):
+        xd = xi.to(dtype)
+        logits = _chunk_logits(xd, w, bias_f)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(1, li[:, None])[:, 0]
+        ctx.save_for_backward(xi, w, bias_f, li, vi)
+        ctx.dtype = dtype
+        return ((lse - gold) * vi).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        xi, w, bias_f, li, vi = ctx.saved_tensors
+        dtype = ctx.dtype
+        xd = xi.to(dtype)
+        logits = _chunk_logits(xd, w, bias_f)
+        lse = torch.logsumexp(logits, dim=-1)
+        # g * (softmax - onehot(label)) on supervised rows, in place.
+        gv = g * vi
+        dl = logits.sub_(lse[:, None]).exp_().mul_(gv[:, None])
+        dl.index_put_((torch.arange(xi.shape[0], device=dl.device), li),
+                      -gv, accumulate=True)
+        dl_cast = dl.to(dtype)
+        d_x = d_w = d_b = None
+        if ctx.needs_input_grad[0]:
+            d_x = (torch.mm(dl_cast, w) if xi.dtype == dtype else
+                   _mm_f32(dl_cast, w)).to(xi.dtype)
+        if ctx.needs_input_grad[1]:
+            d_w = _mm_f32(dl_cast.t(), xd).to(w.dtype)
+        if bias_f is not None and ctx.needs_input_grad[2]:
+            d_b = dl.sum(dim=0)
+        return d_x, d_w, d_b, None, None, None
+
+
+def _chunked_xe_total_remat(xf, w, bias_f, labels, valid, dtype, chunk):
+    """Summed supervised-token XE, chunk by chunk, each chunk recomputed in
+    the backward (module docstring)."""
+    total = torch.zeros((), dtype=torch.float32, device=xf.device)
+    for s0 in range(0, xf.shape[0], chunk):
+        s1 = min(s0 + chunk, xf.shape[0])
+        total = total + _RematChunkXE.apply(xf[s0:s1], w, bias_f,
+                                            labels[s0:s1], valid[s0:s1],
+                                            dtype)
+    return total
 
 
 class _ChunkedXE(torch.autograd.Function):
@@ -48,9 +110,7 @@ class _ChunkedXE(torch.autograd.Function):
             s1 = min(s0 + chunk, n)
             xi = xf[s0:s1].to(dtype)
             li, vi = labels[s0:s1], valid[s0:s1]
-            logits = _mm_f32(xi, w.t())  # [chunk, V] fp32
-            if bias_f is not None:
-                logits = logits + bias_f
+            logits = _chunk_logits(xi, w, bias_f)
             lse = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(1, li[:, None])[:, 0]
             total = total + ((lse - gold) * vi).sum()
@@ -92,14 +152,11 @@ def chunked_tied_softmax_xent(x, wte, labels, dtype, chunk=2048, bias=None,
     excluded from the sum and the count; dtype: the GEMM input dtype (fp32
     accumulation regardless); bias: optional ``[V]`` decoder bias.
     ``reduction="mean"`` returns the scalar mean over supervised tokens,
-    ``"sum_count"`` returns (sum, count). ``impl`` (or ``DS_TPU_XE_HEAD``)
-    may only be "eager" here."""
+    ``"sum_count"`` returns (sum, count). ``impl``: "eager" (3 GEMMs a
+    chunk, the default) or "remat" (4; module docstring); None reads
+    ``DS_TPU_XE_HEAD``."""
     impl = impl or os.environ.get("DS_TPU_XE_HEAD", "eager")
-    if impl == "remat":
-        raise NotImplementedError(
-            "the remat XE head (DS_TPU_XE_HEAD=remat) is not ported yet "
-            "(ROADMAP Queue 1); use the default eager head")
-    if impl != "eager":
+    if impl not in ("eager", "remat"):
         raise ValueError("unknown XE head impl {!r} (eager|remat)".format(impl))
     if reduction not in ("mean", "sum_count"):
         raise ValueError("unknown reduction {!r} (mean|sum_count)".format(
@@ -126,8 +183,8 @@ def chunked_tied_softmax_xent(x, wte, labels, dtype, chunk=2048, bias=None,
                                  device=w.device)
         bias_f = torch.cat([bias_f, torch.full(
             (pad,), float("-inf"), dtype=torch.float32, device=w.device)])
-    total = _ChunkedXE.apply(xf, w, bias_f, lf.clamp(min=0), valid, dtype,
-                             int(chunk))
+    head = _chunked_xe_total_remat if impl == "remat" else _ChunkedXE.apply
+    total = head(xf, w, bias_f, lf.clamp(min=0), valid, dtype, int(chunk))
     count = valid.sum()
     if reduction == "sum_count":
         return total, count

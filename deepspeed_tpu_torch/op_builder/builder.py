@@ -1,5 +1,5 @@
-"""Kernel build: ``nvcc`` over ``deepspeed_tpu_torch/csrc/*.cu``, loaded with
-ctypes.
+"""Kernel and host-op build: ``nvcc`` over ``deepspeed_tpu_torch/csrc/*.cu``
+and ``g++`` over ``deepspeed_tpu_torch/csrc/host/*.cpp``, loaded with ctypes.
 
 Counterpart of ``deepspeed_tpu/op_builder/builder.py``. Each CUDA source is
 compiled on its own into a shared library with a plain C interface (no
@@ -15,17 +15,31 @@ and an unchanged one loads at once. ``build_all`` builds every source, all
 ``load`` builds.
 The compiler's ``-Xptxas=-v`` report (registers, shared memory, spills) is
 kept beside each library as ``<name>.log``.
+
+The host route builds the ZeRO-Offload tier's C++ ops (``cpu_adam``,
+``cpu_lamb``, ``flatten_unflatten``) from the port's own copies under
+``csrc/host/``, with the JAX package's flags::
+
+    g++ -O3 -std=c++17 -shared -fPIC -fopenmp -march=native -Wall \
+        csrc/host/<name>.cpp -o lib<name>.so
+
+into the same hashed directory, at first use (``load_host``), with each
+op's ``argtypes``/``restype`` bound as the JAX builder binds them. A failed
+build raises: there is no fallback to a Python loop.
 """
 
 import concurrent.futures
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,6 +48,10 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build",
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+HOST_CSRC = os.path.join(CSRC, "host")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
+             "-march=native", "-Wall")
 
 _LOADED = {}
 # Guards _LOADED: serving replicas on their own threads may meet a kernel
@@ -126,3 +144,177 @@ def load(name):
             if lib is None:
                 lib = _LOADED[name] = ctypes.CDLL(_build(name)[0])
     return lib
+
+
+# ------------------------------------------------------------ host route
+
+_c_float_p = ctypes.POINTER(ctypes.c_float)
+_c_u16_p = ctypes.POINTER(ctypes.c_uint16)
+_c_long_p = ctypes.POINTER(ctypes.c_long)
+
+
+def _bind_cpu_adam(lib):
+    scalar = [ctypes.c_long, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+              ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+              ctypes.c_long]
+    lib.ds_adam_step.argtypes = scalar + [_c_float_p] * 4
+    lib.ds_adam_step.restype = None
+    lib.ds_adam_step_copy_bf16.argtypes = scalar + [_c_float_p] * 4 + \
+        [_c_u16_p]
+    lib.ds_adam_step_copy_bf16.restype = None
+    lib.ds_l2_norm_sq.argtypes = [ctypes.c_long, _c_float_p]
+    lib.ds_l2_norm_sq.restype = ctypes.c_double
+    lib.ds_scale.argtypes = [ctypes.c_long, ctypes.c_float, _c_float_p]
+    lib.ds_scale.restype = None
+
+
+def _bind_cpu_lamb(lib):
+    lib.ds_lamb_step.argtypes = [
+        ctypes.c_long, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_long] + [_c_float_p] * 5 + [_c_u16_p]
+    lib.ds_lamb_step.restype = ctypes.c_float
+
+
+def _bind_flatten_unflatten(lib):
+    pp = ctypes.POINTER(_c_float_p)
+    for fn in (lib.ds_flatten, lib.ds_unflatten):
+        fn.argtypes = [pp, _c_long_p, ctypes.c_int, _c_float_p]
+        fn.restype = None
+
+
+_HOST_BINDINGS = {"cpu_adam": _bind_cpu_adam, "cpu_lamb": _bind_cpu_lamb,
+                  "flatten_unflatten": _bind_flatten_unflatten}
+
+
+def host_sources():
+    """Absolute paths of every C++ source the host route compiles: the
+    port's own copies under ``csrc/host/``."""
+    return [os.path.join(HOST_CSRC, name + ".cpp")
+            for name in sorted(_HOST_BINDINGS)]
+
+
+def gxx_path():
+    """The ``g++`` to build with. Raises RuntimeError when there is none."""
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the host ops (cpu_adam, cpu_lamb, "
+                           "flatten_unflatten) build only where a C++ "
+                           "compiler is installed")
+    return path
+
+
+def host_cpu_identity():
+    """What ``-march=native`` compiles for: the machine, and the CPU's
+    model name and feature flags from ``/proc/cpuinfo`` where it exists. A
+    library built on one host must not load on another with other
+    instructions."""
+    ident = [platform.machine()]
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block is enough
+                if line.split(":", 1)[0].strip() in ("model name", "flags",
+                                                     "Features"):
+                    ident.append(line.strip())
+    return "\n".join(ident)
+
+
+def _host_paths(name):
+    src = os.path.join(HOST_CSRC, name + ".cpp")
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(host_cpu_identity().encode())
+    out_dir = os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+    return src, os.path.join(out_dir, "lib{}.so".format(name))
+
+
+def _build_host(name):
+    """Compile ``csrc/host/<name>.cpp`` unless its library exists; returns
+    the library's path. Raises RuntimeError with the compiler's output when
+    g++ fails."""
+    src, lib = _host_paths(name)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(lib))
+    os.close(fd)
+    proc = subprocess.run([gxx_path()] + list(GXX_FLAGS) + [src, "-o", tmp],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("g++ failed for host/{}.cpp (exit {}):\n{}".format(
+            name, proc.returncode, proc.stdout))
+    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+def load_host(name):
+    """The ctypes library built from ``csrc/host/<name>.cpp`` with its
+    functions' ``argtypes``/``restype`` bound, building it first when
+    needed. Cached for the life of the process; thread-safe as ``load``."""
+    key = "host/" + name
+    lib = _LOADED.get(key)
+    if lib is None:
+        if name not in _HOST_BINDINGS:
+            raise ValueError("unknown host op {!r} ({})".format(
+                name, ", ".join(sorted(_HOST_BINDINGS))))
+        with _LOAD_LOCK:
+            lib = _LOADED.get(key)
+            if lib is None:
+                lib = ctypes.CDLL(_build_host(name))
+                _HOST_BINDINGS[name](lib)
+                _LOADED[key] = lib
+    return lib
+
+
+def float_ptr(t):
+    """C ``float*`` to a contiguous fp32 CPU tensor's data."""
+    _check_host(t, (torch.float32,))
+    return ctypes.cast(t.data_ptr(), _c_float_p)
+
+
+def u16_ptr(t):
+    """C ``uint16_t*`` to a contiguous 16-bit CPU tensor's data (the bf16
+    bits), or NULL for None."""
+    if t is None:
+        return _c_u16_p()
+    _check_host(t, (torch.bfloat16, torch.int16, torch.uint16))
+    return ctypes.cast(t.data_ptr(), _c_u16_p)
+
+
+def _check_host(t, dtypes):
+    if t.device.type != "cpu" or t.dtype not in dtypes or \
+            not t.is_contiguous():
+        raise ValueError("host op: expected a contiguous CPU tensor of {}, "
+                         "got {} {} on {}".format(
+                             "/".join(str(d) for d in dtypes), t.dtype,
+                             "contiguous" if t.is_contiguous() else "strided",
+                             t.device))
+
+
+def flatten_into(lib, dst, tensors):
+    """Pack contiguous fp32 CPU ``tensors`` back to back into ``dst`` with
+    one OpenMP ``ds_flatten`` call."""
+    n = len(tensors)
+    if sum(t.numel() for t in tensors) > dst.numel():
+        raise ValueError("flatten_into: {} elements do not fit {}".format(
+            sum(t.numel() for t in tensors), dst.numel()))
+    srcs = (_c_float_p * n)(*[float_ptr(t) for t in tensors])
+    sizes = (ctypes.c_long * n)(*[t.numel() for t in tensors])
+    lib.ds_flatten(srcs, sizes, n, float_ptr(dst))
+
+
+def unflatten_into(lib, dsts, src):
+    """Scatter ``src`` back into contiguous fp32 CPU ``dsts`` spans."""
+    n = len(dsts)
+    if sum(t.numel() for t in dsts) > src.numel():
+        raise ValueError("unflatten_into: {} elements exceed {}".format(
+            sum(t.numel() for t in dsts), src.numel()))
+    ptrs = (_c_float_p * n)(*[float_ptr(t) for t in dsts])
+    sizes = (ctypes.c_long * n)(*[t.numel() for t in dsts])
+    lib.ds_unflatten(ptrs, sizes, n, float_ptr(src))

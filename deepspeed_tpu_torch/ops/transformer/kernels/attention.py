@@ -14,14 +14,18 @@ causal switch that keeps key ``j`` for query ``i`` iff ``j <= i``.
 - ``flash_fwd`` / ``flash_bwd``: the kernel wrappers. On CPU tensors they
   compute the plain versions; on CUDA tensors they launch the hand-written
   kernels of ``csrc/flash_attention.cu`` or raise. They never fall back.
-- ``flash_attention``: the ``torch.autograd.Function`` the model calls. Its
-  forward is K1; its backward computes ``delta`` as a plain tensor op, then
-  runs K2a (one launch, dq by atomics) or K2b (two launches, no atomics), as
-  ``_bwd_mode`` chooses.
+- ``flash_attention_with_lse``: the ``torch.autograd.Function``, returning
+  (o, lse), both differentiable (ring attention merges partial results
+  through the lse). Its forward is K1; its backward computes ``delta =
+  rowsum(dO * O) - dlse`` as a plain tensor op, then runs K2a (one launch,
+  dq by atomics) or K2b (two launches, no atomics), as ``_bwd_mode``
+  chooses. Since ``d lse / d s = P``, the lse's gradient enters ds = P (dP
+  - delta) exactly as delta does, so no kernel changes.
+- ``flash_attention``: its o alone, which the model calls (no lse gradient
+  then).
 
 The kernels take any T (they guard the ragged last tile), so the port sends
-no shape to the dense path on the card. ``flash_attention_with_lse`` (ring
-attention's entry point) waits for the sequence-parallel slice.
+no shape to the dense path on the card.
 """
 
 import ctypes
@@ -302,19 +306,27 @@ def _raise_on(err, what):
 
 
 class _FlashAttention(torch.autograd.Function):
+    """K1 forward returning (o, lse); K2 backward with delta = rowsum(dO *
+    O) - dlse. ``flash_attention`` takes o only, and then dlse is None."""
+
     @staticmethod
     def forward(ctx, q, k, v, mask, causal, scale):
+        ctx.set_materialize_grads(False)
         o, lse = flash_fwd(q, k, v, mask, causal, scale)
         ctx.save_for_backward(q, k, v, mask, o, lse)
         ctx.causal, ctx.scale = causal, scale
-        return o
+        return o, lse
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, dlse):
         q, k, v, mask, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
         delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-        dq, dk, dv = flash_bwd(q, k, v, mask, lse, delta, do.contiguous(),
-                               ctx.causal, ctx.scale)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dq, dk, dv = flash_bwd(q, k, v, mask, lse, delta.contiguous(),
+                               do.contiguous(), ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None
 
 
@@ -325,5 +337,13 @@ def flash_attention(q, k, v, mask=None, causal=False, scale=None):
     -1e9 drop); causal: key j visible to query i iff j <= i; scale: default
     1/sqrt(D). Returns ``[B, H, T, D]`` in q's dtype. K1 forward, K2a or K2b
     backward on CUDA tensors; their plain versions on CPU tensors."""
+    return flash_attention_with_lse(q, k, v, mask, causal, scale)[0]
+
+
+def flash_attention_with_lse(q, k, v, mask=None, causal=False, scale=None):
+    """``flash_attention`` returning ``(o, lse)``, lse ``[B, H, T, 1]``
+    fp32; both outputs are differentiable (module docstring). K1 forward,
+    K2a or K2b backward on CUDA tensors; their plain versions on CPU
+    tensors."""
     return _FlashAttention.apply(q, k, v, mask, bool(causal),
                                  float(_scale(q, scale)))

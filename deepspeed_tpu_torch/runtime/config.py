@@ -13,8 +13,14 @@ package.
 A ds_config written for the JAX package parses unchanged. A key that
 switches on a subsystem the port does not have yet parses only at its
 default (``_check_ported``); any other value raises NotImplementedError
-naming the slice that brings it, never a quiet run without it. The world
-size is 1: the port trains on one card.
+naming the ROADMAP item that brings it, never a quiet run without it.
+
+ZeRO (``zero_optimization``: every stage the JAX config accepts, with
+``cpu_offload`` and ``stream_gradients``) is accepted at world size 1,
+where a stage partitions nothing, as on the JAX package's one-device mesh;
+the JAX package's checks hold (ZeRO needs fp16 or bf16, stage at most 3,
+cpu_offload only at stage 2). The world size is 1: the port trains on one
+card; another world size is ROADMAP item 6.
 """
 
 import json
@@ -59,6 +65,8 @@ from deepspeed_tpu_torch.runtime.constants import (
     TRAIN_MICRO_BATCH_SIZE_PER_GPU, TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
     TYPE, ValidationMode)
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.runtime.zero.constants import (
+    MAX_STAGE_ZERO_OPTIMIZATION, ZERO_OPTIMIZATION_GRADIENTS)
 
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
@@ -67,9 +75,10 @@ ONEBIT_ADAM_OPTIMIZER = "onebitadam"
 DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
                         ONEBIT_ADAM_OPTIMIZER]
 
-_ZERO = "ZeRO (ROADMAP Queue 1)"
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
 _TOOLING = "the tooling slice (ROADMAP Queue 1)"
+_DATA_PARALLEL = "ZeRO over several ranks (ROADMAP Queue 1 item 6)"
+_ONEBIT = "1-bit Adam (ROADMAP Queue 1 item 9)"
 
 # Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
 _UNPORTED_BLOCKS = {
@@ -214,16 +223,12 @@ def _refuse(what, where):
         what, where))
 
 
-def _check_ported(param_dict, zero):
+def _check_ported(param_dict):
     """Raise NotImplementedError for any key that switches on a subsystem
     the port does not have (module docstring)."""
     for block, where in _UNPORTED_BLOCKS.items():
         if _read(param_dict, (block, "enabled"), False):
             _refuse("'{}.enabled': true".format(block), where)
-    if zero.stage:
-        _refuse("zero_optimization stage {}".format(zero.stage), _ZERO)
-    if zero.cpu_offload:
-        _refuse("zero_optimization.cpu_offload", _ZERO)
     pipeline = param_dict.get("pipeline", {})
     if dict(_PIPELINE_DEFAULTS, **pipeline) != _PIPELINE_DEFAULTS:
         _refuse("'pipeline': {!r}".format(pipeline), _RUNTIME)
@@ -242,10 +247,12 @@ class DeepSpeedConfig(object):
         if world_size != 1:
             raise NotImplementedError(
                 "world_size {}: the port trains on one card; data "
-                "parallelism comes with {}".format(world_size, _ZERO))
+                "parallelism is not ported yet: {}".format(world_size,
+                                                          _DATA_PARALLEL))
         self.world_size = world_size
         self._initialize_params(param_dict)
         self._configure_train_batch_size()
+        self._check_zero()
 
     def _initialize_params(self, param_dict):
         for row in _SCHEMA:
@@ -274,15 +281,15 @@ class DeepSpeedConfig(object):
         if self.optimizer_name is not None and \
                 self.optimizer_name.lower() in DEEPSPEED_OPTIMIZERS:
             self.optimizer_name = self.optimizer_name.lower()
-        if self.optimizer_name in (LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER):
-            _refuse("optimizer '{}'".format(self.optimizer_name), _RUNTIME)
+        if self.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
+            _refuse("optimizer '{}'".format(self.optimizer_name), _ONEBIT)
         self.scheduler_name, self.scheduler_params = _named_block(
             param_dict, SCHEDULER, SCHEDULER_TYPE_DEFAULT, SCHEDULER_PARAMS)
 
         self.zero_config = DeepSpeedZeroConfig(param_dict)
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
-        _check_ported(param_dict, self.zero_config)
+        _check_ported(param_dict)
         self.inference = self._parse_inference(param_dict)
         self.sparse_attention = parse_sparse_attention(param_dict)
 
@@ -345,6 +352,23 @@ class DeepSpeedConfig(object):
             raise ValueError("Either train_batch_size or "
                              "train_micro_batch_size_per_gpu needs to be "
                              "provided")
+
+    def _check_zero(self):
+        """The JAX config's ZeRO checks (its ``_do_error_check``), raised as
+        ValueError."""
+        if not self.zero_enabled:
+            return
+        if not (self.fp16_enabled or self.bfloat16_enabled):
+            raise ValueError("DeepSpeedConfig: ZeRO is only supported if "
+                             "fp16 or bf16 is enabled")
+        if self.zero_optimization_stage > MAX_STAGE_ZERO_OPTIMIZATION:
+            raise ValueError("DeepSpeedConfig: Maximum supported ZeRO stage "
+                             "is {}".format(MAX_STAGE_ZERO_OPTIMIZATION))
+        if self.zero_config.cpu_offload is True and \
+                self.zero_optimization_stage != ZERO_OPTIMIZATION_GRADIENTS:
+            raise ValueError("DeepSpeedConfig: cpu-offload supported ZeRO "
+                             "stage is {}".format(
+                                 ZERO_OPTIMIZATION_GRADIENTS))
 
     def _configure_train_batch_size(self):
         self._set_batch_related_parameters()

@@ -43,8 +43,28 @@ checkpoints in the JAX package's layout and format.
   section. No step is sampled (``sample_every`` 0, as in the JAX engine).
   The flops profiler is ROADMAP Queue 1 item 13.
 
-Not on this path yet (ROADMAP Queue 1): the dataloader (``training_data``),
-ZeRO and offload, Lamb and 1-bit Adam, pipeline.
+- The optimizer table (JAX ``_configure_basic_optimizer``): Adam or AdamW
+  -> ``FusedAdam``, Lamb -> ``FusedLamb`` on the device; under
+  ``zero_optimization.cpu_offload`` -> ``DeepSpeedCPUAdam`` /
+  ``DeepSpeedCPULamb``, the host C++ ops.
+- ZeRO at world size 1: a stage partitions nothing (the JAX package's
+  one-device mesh), so stages 1-3 train as stage 0, bit for bit; a
+  checkpoint's optimizer state goes to the zero file, as in JAX.
+- ZeRO-Offload (``runtime/zero/offload.py``): at the first offload step
+  the fp32 master moves to host memory (flat buffers in JAX's leaf order)
+  and the device parameters drop to the compute dtype; each step unscales
+  and clips on the card, then runs the pipelined host step (downloads on a
+  side stream, the C++ optimizer chunk by chunk, uploads on another
+  stream). ``offload_timing()`` reports its phases.
+- ``stream_gradients``: each gradient is copied to pinned host memory by a
+  post-accumulate hook as the backward produces it, and freed; only the
+  squared norms stay on the card. Needs gradient_accumulation_steps 1.
+- ``training_data``: ``deepspeed_io`` builds the ``DeepSpeedDataLoader``
+  (``initialize`` returns it), and ``train_batch(data_iter=...)`` draws
+  from it.
+
+Not on this path yet (ROADMAP Queue 1): ZeRO over several ranks, 1-bit
+Adam, pipeline.
 """
 
 import inspect
@@ -57,16 +77,22 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.lamb.cpu_lamb import DeepSpeedCPULamb
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.config import (ADAM_OPTIMIZER,
                                                 ADAMW_OPTIMIZER,
+                                                LAMB_OPTIMIZER,
                                                 DeepSpeedConfig)
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_,
                                                ensure_directory_exists,
-                                               flax_tree, has_overflow,
-                                               load_flax_tree)
+                                               flax_tree, global_norm,
+                                               has_overflow, load_flax_tree)
+from deepspeed_tpu_torch.runtime.zero.offload import HostOffload
 from deepspeed_tpu_torch.telemetry import (MetricsRegistry, ProgramRegistry,
                                            TensorBoardScalarWriter)
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -98,6 +124,17 @@ def _leaf(tree, name):
     return np.asarray(tree)
 
 
+def _host_leaf(tree, name):
+    """A saved leaf as a contiguous fp32 CPU tensor."""
+    return torch.from_numpy(np.ascontiguousarray(
+        _leaf(tree, name).astype(np.float32)))
+
+
+# Host-LAMB keys (the JAX table's): others are device-only and ignored.
+_HOST_LAMB_KEYS = ("lr", "bias_correction", "betas", "eps", "weight_decay",
+                   "max_coeff", "min_coeff", "amsgrad")
+
+
 class DeepSpeedEngine(object):
     """The training engine (module docstring). ``model`` is a
     ``torch.nn.Module`` whose forward returns the loss (or a tuple whose
@@ -106,19 +143,14 @@ class DeepSpeedEngine(object):
 
     def __init__(self, args, model, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, config_params=None,
-                 device=None, seed=1234):
-        if training_data is not None:
-            raise NotImplementedError(
-                "training_data: the dataloader (deepspeed_io) comes with a "
-                "later slice (ROADMAP Queue 1); pass batches to train_batch "
-                "or forward")
+                 device=None, seed=1234, collate_fn=None):
         self.device = resolve_device(device)
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
         self.skipped_steps = 0
         self.training = True
-        self.training_dataloader = None
+        self.collate_fn = collate_fn
         self._config = self._configure_with_arguments(args, config_params)
         self._tb_writer = None
         self._last_loss = None
@@ -177,8 +209,13 @@ class DeepSpeedEngine(object):
                 dynamic_scaling=self._config.loss_scale == 0,
                 static_loss_scale=self._config.loss_scale or 1.0,
                 dynamic_loss_args=self._config.dynamic_loss_scale_args)
+        self._offload = None  # the ZeRO-Offload tier's host state
+        self._streamed = None  # the streamed backward's squared norms
+        self._stream_token = None
         self._configure_optimizer(optimizer)
         self._configure_lr_scheduler(lr_scheduler)
+        self.training_dataloader = self.deepspeed_io(training_data) \
+            if training_data is not None else None
 
     # ------------------------------------------------------------- config
 
@@ -216,6 +253,27 @@ class DeepSpeedEngine(object):
 
     def gradient_clipping(self):
         return self._config.gradient_clipping
+
+    def zero_optimization(self):
+        return self._config.zero_enabled
+
+    def zero_optimization_stage(self):
+        return self._config.zero_optimization_stage
+
+    def zero_cpu_offload(self):
+        return bool(self._config.zero_config.cpu_offload)
+
+    def offload_timing(self):
+        """The last offload step's phases on the host clock: queue_s
+        (scaling the gradients and queueing their downloads, before the
+        pipeline), stage_s (waits for the downloads and their widening to
+        fp32, on the worker), adam_s (the C++ optimizer), upload_s
+        (queueing the parameter uploads), wall_s (the pipeline), chunks,
+        and overlap_ratio = (stage_s + adam_s + upload_s) / wall_s (1.0
+        serial, above 1 overlapped); on the card also download_s and
+        upload_device_s, the transfers' CUDA-event time. None before an
+        offload step has run."""
+        return None if self._offload is None else self._offload.timing
 
     def sparse_attention(self):
         return self._config.sparse_attention
@@ -305,23 +363,76 @@ class DeepSpeedEngine(object):
 
     def _configure_optimizer(self, client_optimizer):
         self.optimizer = client_optimizer
-        if client_optimizer is None and \
-                self._config.optimizer_name is not None:
-            params = dict(self._config.optimizer_params or {})
-            params.pop("torch_adam", None)
-            adam_w_mode = params.pop(
-                "adam_w_mode", self._config.optimizer_name == ADAMW_OPTIMIZER)
-            if self._config.optimizer_name not in (ADAM_OPTIMIZER,
-                                                   ADAMW_OPTIMIZER):
-                raise ValueError("Unknown optimizer: {}".format(
-                    self._config.optimizer_name))
-            self.optimizer = FusedAdam(
-                params=self._params,
-                adam_w_mode=adam_w_mode or
-                self._config.optimizer_name == ADAMW_OPTIMIZER, **params)
+        if client_optimizer is not None:
+            if self.zero_cpu_offload() and not self._offload_mode():
+                logger.warning(
+                    "zero_optimization.cpu_offload is set but the client "
+                    "optimizer is not DeepSpeedCPUAdam or DeepSpeedCPULamb: "
+                    "its state stays on the device (no offload)")
+        elif self._config.optimizer_name is not None:
+            self.optimizer = self._configure_basic_optimizer()
         self.opt_state = None
-        if self.optimizer is not None:
+        if self.optimizer is not None and not self._offload_mode():
             self.opt_state = self.optimizer.init_state(self._params)
+        self._check_streaming()
+
+    def _configure_basic_optimizer(self):
+        """The optimizer table (JAX ``_configure_basic_optimizer``)."""
+        params = dict(self._config.optimizer_params or {})
+        params.pop("torch_adam", None)
+        name = self._config.optimizer_name
+        adam_w_mode = params.pop("adam_w_mode", name == ADAMW_OPTIMIZER) or \
+            name == ADAMW_OPTIMIZER
+        if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+            if self.zero_cpu_offload():
+                return DeepSpeedCPUAdam(model_params=self._params,
+                                        adamw_mode=adam_w_mode, **params)
+            return FusedAdam(params=self._params, adam_w_mode=adam_w_mode,
+                             **params)
+        if name == LAMB_OPTIMIZER:
+            if self.zero_cpu_offload():
+                dropped = [k for k in params if k not in _HOST_LAMB_KEYS]
+                if dropped:
+                    logger.warning("Lamb params %s are not supported by the "
+                                   "host (cpu_offload) tier and are ignored",
+                                   dropped)
+                return DeepSpeedCPULamb(
+                    model_params=self._params,
+                    **{k: v for k, v in params.items()
+                       if k in _HOST_LAMB_KEYS})
+            return FusedLamb(params=self._params, **params)
+        raise ValueError("Unknown optimizer: {}".format(name))
+
+    def _offload_mode(self):
+        return isinstance(self.optimizer, (DeepSpeedCPUAdam,
+                                           DeepSpeedCPULamb))
+
+    def _stream_grads_active(self):
+        return self._offload_mode() and \
+            bool(self._config.zero_config.stream_gradients)
+
+    def _check_streaming(self):
+        """The JAX engine's conditions for stream_gradients (it asserts
+        them at the forward)."""
+        if self._stream_grads_active() and \
+                self.gradient_accumulation_steps() != 1:
+            raise ValueError("stream_gradients requires "
+                             "gradient_accumulation_steps=1 (each backward "
+                             "streams its gradients to the host)")
+
+    def deepspeed_io(self, dataset, batch_size=None, route="train",
+                     pin_memory=True, data_sampler=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """The ``DeepSpeedDataLoader`` over ``dataset`` at the micro-batch
+        size, handing batches to the engine's device (pinned and
+        ``non_blocking`` on the card)."""
+        if batch_size is None:
+            batch_size = self.train_micro_batch_size_per_gpu()
+        return DeepSpeedDataLoader(
+            dataset=dataset, batch_size=batch_size,
+            collate_fn=collate_fn or self.collate_fn,
+            num_local_io_workers=num_local_io_workers,
+            data_sampler=data_sampler, device=self.device)
 
     def _configure_lr_scheduler(self, client_lr_scheduler):
         name = self._config.scheduler_name
@@ -372,6 +483,8 @@ class DeepSpeedEngine(object):
             self.timers("forward").start()
         inputs = tuple(self._to_device(x) for x in inputs)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
+        if self.training and self._stream_grads_active():
+            self._begin_streaming()
         if not self.training:
             with torch.no_grad():
                 out = self._run_module(inputs, kwargs)
@@ -403,11 +516,100 @@ class DeepSpeedEngine(object):
             self.timers("backward_inner").start()
         scale = self.loss_scaler.loss_scale if self.loss_scaler else 1.0
         (loss * (scale / self.gradient_accumulation_steps())).backward()
+        if self._streamed is not None:
+            # Every streamed copy is behind this event; the step waits on it
+            # before it reads the host buffer.
+            self._stream_token = self._offload.streamed_token()
         if breakdown:
             self.timers("backward_inner").stop()
             self.timers("backward").stop()
             self.timers("backward_microstep").stop()
         return loss
+
+    # ----------------------------------------------------- ZeRO-Offload tier
+
+    def _init_offload(self):
+        """Build the host state (``runtime/zero/offload.py``): the fp32
+        master, m and v in host memory, per-parameter views of the moments
+        as ``opt_state``, the device parameters in the compute dtype."""
+        if self._offload is not None:
+            self._offload.close()
+        self._offload = HostOffload(self._names, self._params,
+                                    self.compute_dtype)
+        self._offload.drop_device_params()
+        self.opt_state = {"step": 0,
+                          "exp_avg": self._offload.views(self._offload.m),
+                          "exp_avg_sq": self._offload.views(self._offload.v)}
+        if self._stream_grads_active():
+            self._register_stream_hooks()
+
+    def _register_stream_hooks(self):
+        """One post-accumulate hook per parameter: stream its gradient to
+        the host and free it (JAX ``_stream_sink`` under io_callback)."""
+        if getattr(self, "_stream_hooks", None):
+            return
+        ref = weakref.ref(self)
+
+        def make(i):
+            def hook(p):
+                eng = ref()
+                if eng is None or eng._streamed is None:
+                    return
+                eng._streamed[i] = eng._offload.stream_sink(i, p.grad)
+                p.grad = None
+            return hook
+
+        self._stream_hooks = [p.register_post_accumulate_grad_hook(make(i))
+                              for i, p in enumerate(self._params)]
+
+    def _begin_streaming(self):
+        if self._offload is None:
+            self._init_offload()
+        self._offload.begin_streamed_backward()
+        self._streamed = [None] * len(self._params)
+        self._stream_token = None
+
+    def _streamed_sq(self):
+        """The streamed backward's per-parameter squared norms (device
+        fp32); a parameter that got no gradient streams zeros."""
+        for i, sq in enumerate(self._streamed):
+            if sq is None:
+                self._offload.zero_span(i)
+                self._streamed[i] = torch.zeros(
+                    (), dtype=torch.float32, device=self.device)
+        return torch.stack(self._streamed)
+
+    def _offload_step(self, grads, inv_scale, lr):
+        """The host step: unscale and global-norm clip on the card (JAX
+        ``_get_offload_pre_fn``), then the pipelined host step. Streamed:
+        the same factor from the squared norms, applied on the host."""
+        clip = self.gradient_clipping()
+        if grads is None:  # streamed
+            total_sq = float(self._streamed_sq().double().sum())
+            host_scale = float(inv_scale)
+            if clip > 0.0:
+                norm = total_sq ** 0.5 * float(inv_scale)
+                host_scale *= min(clip / (norm + 1e-6), 1.0)
+            self._offload.step(self.optimizer, lr, host_scale=host_scale,
+                               token=self._stream_token)
+        else:
+            if self._offload is None:
+                self._init_offload()
+            scale = None
+            if clip > 0.0:
+                norm = global_norm(grads)
+                scale = inv_scale * torch.clamp(
+                    clip / (norm * inv_scale + 1e-6), max=1.0)
+            elif inv_scale != 1.0:
+                scale = torch.tensor(inv_scale, dtype=torch.float32,
+                                     device=self.device)
+            self._offload.step(self.optimizer, lr, grads=grads, scale=scale)
+        self.opt_state["step"] = self._offload.step_count
+
+    def _offload_restore_params(self):
+        """Device parameters again from the host master (after a skipped
+        streamed step, as the JAX engine must)."""
+        self._offload.restore_params()
 
     # --------------------------------------------------------------- step
 
@@ -432,28 +634,43 @@ class DeepSpeedEngine(object):
 
     @torch.no_grad()
     def _take_model_step(self, lr_kwargs=None):
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._params]
+        streamed = self._streamed is not None
+        grads = None
+        if not streamed:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self._params]
         overflow = False
         cur_scale = 1.0
         if self.loss_scaler is not None:
             cur_scale = self.loss_scaler.loss_scale
-            overflow = bool(has_overflow(grads))
+            if streamed:
+                # inf/nan in any gradient reaches its squared norm.
+                overflow = not bool(torch.isfinite(
+                    self._streamed_sq().sum()))
+            else:
+                overflow = bool(has_overflow(grads))
             self.loss_scaler.update_scale(overflow)
         if overflow:
             self.skipped_steps += 1
+            if streamed:
+                self._offload_restore_params()
             logger.info("OVERFLOW! Skipping step. Attempted loss scale: {}, "
                         "reducing to {}".format(cur_scale,
                                                 self.loss_scaler.loss_scale))
         else:
-            if cur_scale != 1.0:
-                torch._foreach_mul_(grads, 1.0 / cur_scale)
-            if self.gradient_clipping() > 0.0:
-                clip_grad_norm_(grads, self.gradient_clipping())
             group = self.optimizer.param_groups[0]
-            self.optimizer.update(self._params, grads, self.opt_state,
-                                  lr=group["lr"],
-                                  betas=group.get("betas", (0.9, 0.999)))
+            if self._offload_mode():
+                # The gradients leave .grad: the host step consumes them.
+                self.zero_grad()
+                self._offload_step(grads, 1.0 / cur_scale, group["lr"])
+            else:
+                if cur_scale != 1.0:
+                    torch._foreach_mul_(grads, 1.0 / cur_scale)
+                if self.gradient_clipping() > 0.0:
+                    clip_grad_norm_(grads, self.gradient_clipping())
+                self.optimizer.update(self._params, grads, self.opt_state,
+                                      lr=group["lr"],
+                                      betas=group.get("betas", (0.9, 0.999)))
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step(**(lr_kwargs or {}))
             if (self.global_steps + 1) % self.steps_per_print() == 0:
@@ -461,6 +678,8 @@ class DeepSpeedEngine(object):
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.zero_grad()
+        self._streamed = None
+        self._stream_token = None
         self._tensorboard_step_events()
 
     def step(self, lr_kwargs=None):
@@ -518,6 +737,29 @@ class DeepSpeedEngine(object):
         return os.path.join(checkpoints_path, str(tag),
                             "mp_rank_00_model_states.pt")
 
+    def _get_zero_ckpt_name(self, checkpoints_path, tag):
+        return os.path.join(checkpoints_path, str(tag),
+                            "zero_pp_rank_0_mp_rank_00optim_states.pt")
+
+    def _optimizer_state_for_save(self):
+        """{"state": step and moments as flax trees of numpy arrays (None
+        before an offload step built them), the optimizer's param_groups,
+        and under offload "fp32_master", the flat host master in JAX's
+        leaf order}."""
+        sd = {"state": None}
+        if self.opt_state is not None:
+            sd["state"] = {
+                "step": np.asarray(self.opt_state["step"], np.int32),
+                "exp_avg": _nest(self._names, self.opt_state["exp_avg"]),
+                "exp_avg_sq": _nest(self._names,
+                                    self.opt_state["exp_avg_sq"])}
+        if self._offload is not None:
+            # Resuming keeps full master precision (the bf16 module
+            # parameters would drift the trajectory).
+            sd["fp32_master"] = self._offload.master.numpy().copy()
+        sd.update(self.optimizer.state_dict())
+        return sd
+
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
         """Write ``<save_dir>/<tag>/mp_rank_00_model_states.pt`` (a pickle of
@@ -529,15 +771,11 @@ class DeepSpeedEngine(object):
         ensure_directory_exists(save_path)
         optimizer = None
         if self.optimizer is not None:
-            optimizer = {"state": {
-                "step": np.asarray(self.opt_state["step"], np.int32),
-                "exp_avg": _nest(self._names, self.opt_state["exp_avg"]),
-                "exp_avg_sq": _nest(self._names,
-                                    self.opt_state["exp_avg_sq"])}}
-            optimizer.update(self.optimizer.state_dict())
+            optimizer = self._optimizer_state_for_save()
+        zero = self.zero_optimization()
         state = {
             "module": flax_tree(self.module),
-            "optimizer": optimizer,
+            "optimizer": None if zero else optimizer,
             "lr_scheduler": self.lr_scheduler.state_dict()
             if self.lr_scheduler is not None else None,
             "csr_tensor_module_names": [],
@@ -553,6 +791,9 @@ class DeepSpeedEngine(object):
             state.update(client_state)
         with open(save_path, "wb") as f:
             pickle.dump(state, f)
+        if zero:
+            with open(self._get_zero_ckpt_name(save_dir, tag), "wb") as f:
+                pickle.dump({"optimizer_state_dict": optimizer}, f)
         if save_latest:
             with open(os.path.join(save_dir, "latest"), "w") as fd:
                 fd.write(str(tag))
@@ -582,14 +823,28 @@ class DeepSpeedEngine(object):
             checkpoint = pickle.load(f)
 
         load_flax_tree(self.module, checkpoint["module"])
+        if self._offload_mode():
+            self._init_offload()
         opt_sd = checkpoint.get("optimizer")
+        zero_path = self._get_zero_ckpt_name(load_dir, tag)
+        if self.zero_optimization() and os.path.exists(zero_path):
+            with open(zero_path, "rb") as f:
+                opt_sd = pickle.load(f)["optimizer_state_dict"]
         if load_optimizer_states and self.optimizer is not None and \
                 opt_sd is not None and opt_sd.get("state") is not None:
             saved = opt_sd["state"]
-            for key in ("exp_avg", "exp_avg_sq"):
-                for name, t in zip(self._names, self.opt_state[key]):
-                    t.copy_(torch.from_numpy(
-                        _leaf(saved[key], name).astype(np.float32)))
+            if self._offload is not None:
+                master = opt_sd.get("fp32_master")
+                self._offload.load_moments(
+                    [_host_leaf(saved["exp_avg"], n) for n in self._names],
+                    [_host_leaf(saved["exp_avg_sq"], n) for n in self._names],
+                    None if master is None else torch.from_numpy(
+                        np.asarray(master, np.float32)))
+                self._offload.step_count = int(np.asarray(saved["step"]))
+            else:
+                for key in ("exp_avg", "exp_avg_sq"):
+                    for name, t in zip(self._names, self.opt_state[key]):
+                        t.copy_(_host_leaf(saved[key], name))
             self.opt_state["step"] = int(np.asarray(saved["step"]))
             self.optimizer.load_state_dict(opt_sd)
         if load_lr_scheduler_states and self.lr_scheduler is not None and \

@@ -1,7 +1,7 @@
 """ZeRO sub-config object (counterpart of
 ``deepspeed_tpu/runtime/zero/config.py``): the dict form and the deprecated
 boolean form (``"zero_optimization": true`` -> stage 1). The port parses
-every key; ``DeepSpeedConfig`` refuses a stage above 0 and cpu_offload.
+every key; ``DeepSpeedConfig`` applies the JAX package's checks.
 """
 
 from deepspeed_tpu_torch.runtime.config_utils import get_scalar_param

@@ -82,7 +82,8 @@ try:
         # Explicit one-level globs: recursive '**' needs setuptools>=62.3.
         package_data={"deepspeed_tpu": ["csrc/*/*.cpp", "csrc/*/*.h",
                                         "csrc/*.cpp", "csrc/*.h"],
-                      "deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                      "deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                              "csrc/host/*.cpp"]},
         install_requires=["jax", "flax", "numpy"],
         extras_require={"dev": ["pytest"]},
         scripts=["bin/deepspeed", "bin/ds_report", "bin/ds_elastic"],

@@ -122,3 +122,66 @@ def test_wrapper_counts_no_launch_on_cpu_and_checks_shapes():
         tat.flash_attention(q, k, v, mask=mask[:, :5])
     with pytest.raises(TypeError):
         tat.flash_attention(q, k.double(), v)
+
+
+def _lse_cotangent(T, seed=9):
+    return np.random.RandomState(seed).randn(B, H, T, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
+@pytest.mark.parametrize("name,T,causal,masked,tile", CASES)
+def test_flash_attention_with_lse_matches_jax(monkeypatch, mode, name, T,
+                                              causal, masked, tile):
+    """(o, lse) and the gradients of sum(o * g) + sum(lse * gl) through
+    both outputs, against the JAX ``flash_attention_with_lse``."""
+    monkeypatch.setenv("DS_TPU_FLASH_BWD", mode)
+    q, k, v, g, mask = _inputs(T, masked)
+    gl = _lse_cotangent(T)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def jloss(a, b, c):
+        o, lse = jat.flash_attention_with_lse(a, b, c, mask=jm,
+                                              causal=causal, block_q=tile,
+                                              block_k=tile)
+        return jnp.sum(o * g) + jnp.sum(lse * gl), (o, lse)
+
+    (_, (jo, jlse)), jgrads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    o, lse = tat.flash_attention_with_lse(
+        *leaves, mask=None if mask is None else torch.from_numpy(mask),
+        causal=causal)
+    grads = torch.autograd.grad((o, lse), leaves, (torch.from_numpy(g),
+                                                   torch.from_numpy(gl)))
+    got = [o.detach(), lse.detach()] + list(grads)
+    want = [jo, jlse] + list(jgrads)
+    for label, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, label
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
+                                   rtol=0, err_msg=label)
+
+
+@pytest.mark.parametrize("outputs", ["both", "o_only", "lse_only"])
+def test_flash_attention_with_lse_grads_match_autograd(outputs):
+    """The lse's gradient enters K2 through delta alone: against autograd
+    through the dense reference, with a cotangent on either output or
+    both (an unused output's gradient arrives as None)."""
+    q, k, v, g, mask = (None if a is None else torch.from_numpy(a)
+                        for a in _inputs(48, True, seed=4))
+    gl = torch.from_numpy(_lse_cotangent(48))
+    runs = []
+    for fn in (tat.flash_attention_with_lse,
+               lambda *a, **kw: tat.mha_reference(*a, return_lse=True,
+                                                  **kw)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = fn(*leaves, mask=mask, causal=True)
+        loss = {"both": (o * g).sum() + (lse * gl).sum(),
+                "o_only": (o * g).sum(),
+                "lse_only": (lse * gl).sum()}[outputs]
+        # The lse does not depend on v: autograd gives None, K2 zeros.
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        runs.append([torch.zeros_like(x) if d is None else d
+                     for x, d in zip(leaves, grads)])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)

@@ -18,7 +18,10 @@ raise while sessions are swapped out; then several engines on one card,
 as the serving fleet runs them: two engines capturing at once on two
 threads, a capture beside another engine's swaps and recovery, exact
 per-engine launch counts, and the fleet's handoff and prefix-row records
-round-tripping on live pools.
+round-tripping on live pools; then ZeRO-Offload: an offload step (also
+with stream_gradients) on the card against the same on the CPU, the bf16
+parameters as the host op's rounded master, and flash_attention_with_lse's
+backward through its lse.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -1719,3 +1722,107 @@ def test_perf_xray_on_a_small_engine(cuda):
     assert sec["platform"] == "cuda" and sec["hbm"]["live_bytes"] > 0
     assert on.metrics()["recompiles"] == 0
     assert off.perf_xray() is None
+
+
+# ------------------------------------------------- ZeRO-Offload (slice 14)
+
+def _offload_pair(cuda, config, steps=1):
+    """A 2-layer fp32 GPT-2 (width 256) trained ``steps`` steps on the card
+    and on the CPU from the same weights: (loss, masters) per device, the
+    fp32 masters read from the host state."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    cfg = GPT2Config(n_embd=256, n_layer=2, n_head=4, vocab_size=512,
+                     n_positions=128, dtype=torch.float32, dropout=0.0)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, size=(2, 128)))
+    cpu_model = GPT2LMHeadModel(cfg, device="cpu", seed=1)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        model = cpu_model if device.type == "cpu" else \
+            GPT2LMHeadModel(cfg, device=device, seed=None)
+        if device.type == "cuda":
+            model.load_state_dict(cpu_model.state_dict())
+        engine = initialize(model=model, config_params=config,
+                            device=device)[0]
+        for _ in range(steps):
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            if config["zero_optimization"].get("stream_gradients"):
+                assert all(p.grad is None for p in engine._params)
+            engine.step()
+        assert engine.offload_timing()["chunks"] >= 1
+        out.append((float(loss), engine._offload.master.clone(),
+                    [p.detach().cpu() for p in engine._params],
+                    engine._offload.views(engine._offload.master)))
+    return out
+
+
+def _offload_config(**zero):
+    return {"train_batch_size": 2,
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3,
+                                                     "eps": 1e-3}},
+            "zero_optimization": dict({"stage": 0, "cpu_offload": True},
+                                      **zero)}
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_offload_step_card_vs_cpu(cuda, stream):
+    """Two offload steps (fp32 masters; eps 1e-3 keeps Adam's update
+    Lipschitz in the gradient): losses within 1e-5 relative, masters within
+    1e-3 lr per step of each other; the card's parameters are its master.
+    Streamed: no gradient stays on the card after a backward."""
+    (lc, mc, pc, vc), (lh, mh, _, _) = _offload_pair(
+        cuda, _offload_config(stream_gradients=stream), steps=2)
+    assert abs(lc - lh) <= 1e-5 * abs(lh)
+    assert float((mc - mh).abs().max()) <= 2 * 1e-3 * 1e-3 + \
+        2.0 ** -22 * float(mh.abs().max())
+    for p, v in zip(pc, vc):
+        assert torch.equal(p, v)
+
+
+def test_offload_bf16_parameters_are_the_rounded_master(cuda):
+    """bf16: the device parameters after a step are the C++ op's fused
+    bf16 copy of the master, equal to torch's rounding of it."""
+    cfg = dict(_offload_config(stage=2), bf16={"enabled": True})
+    (lc, mc, pc, vc), (lh, _, ph, _) = _offload_pair(cuda, cfg, steps=2)
+    assert abs(lc - lh) <= 2.0 ** -8 * abs(lh)
+    for p, v in zip(pc, vc):
+        assert p.dtype == torch.bfloat16
+        assert torch.equal(p, v.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_attention_with_lse_backward(cuda, dtype):
+    """The lse's gradient through K2 (delta = rowsum(dO * O) - dlse)
+    against the plain backward with the same lse and delta, and in fp32
+    against autograd through the dense reference."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 256, 64, device=cuda, generator=g)
+                   .to(dtype) for _ in range(4))
+    dlse = torch.randn(2, 4, 256, 1, device=cuda, generator=g)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(at.launches)
+    o, lse = at.flash_attention_with_lse(*leaves, causal=True)
+    grads = torch.autograd.grad((o, lse), leaves, (do, dlse))
+    assert at.launches["flash_fwd"] == before["flash_fwd"] + 1
+    assert at.launches["flash_bwd_fused"] + at.launches["flash_bwd_split"] \
+        > before["flash_bwd_fused"] + before["flash_bwd_split"]
+    delta = (do.float() * o.detach().float()).sum(-1, keepdim=True) - dlse
+    refs = at.flash_bwd_reference(q, k, v, None, lse.detach(), delta, do,
+                                  True)
+    mags = at.accumulated_magnitudes(q, k, v, None, lse.detach(), delta, do,
+                                     True)
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    for got, ref, mag in zip(grads, refs, mags[1:]):
+        limit = rtol * ref.float().abs() + 2.0 ** -14 * mag
+        assert bool(((got.float() - ref.float()).abs() <= limit).all())
+    if dtype == torch.float32:
+        ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ro, rl = at.mha_reference(*ref_leaves, causal=True, return_lse=True)
+        want = torch.autograd.grad((ro, rl), ref_leaves, (do, dlse))
+        for got, w in zip(grads, want):
+            torch.testing.assert_close(got, w, rtol=0,
+                                       atol=1e-4 * float(w.abs().max()))

@@ -1,11 +1,12 @@
 """The port's ds_config parser against the JAX package's, on the CPU.
 
 A config written for the JAX package parses to the same batch triangle,
-precision, clipping, optimizer, scheduler, loss-scale arguments, timer and
-tensorboard switches and sparse-attention block. A key
-that switches on a subsystem the port does not have yet raises
-NotImplementedError (its default still parses), and the training entry
-point refuses the CPU unless asked for it.
+precision, clipping, optimizer, scheduler, loss-scale arguments, ZeRO stage
+and offload switches, timer and tensorboard switches and sparse-attention
+block. A key that switches on a subsystem the port does not have yet
+raises NotImplementedError (its default still parses), as does a world
+size other than 1, and the training entry point refuses the CPU unless
+asked for it.
 """
 
 import pytest
@@ -27,7 +28,8 @@ FIELDS = ("train_batch_size", "train_micro_batch_size_per_gpu",
           "checkpoint_tag_validation_enabled",
           "checkpoint_tag_validation_fail", "wall_clock_breakdown",
           "memory_breakdown", "tensorboard_enabled",
-          "tensorboard_output_path", "tensorboard_job_name")
+          "tensorboard_output_path", "tensorboard_job_name",
+          "zero_optimization_stage")
 
 CONFIGS = [
     {"train_batch_size": 8},
@@ -53,6 +55,21 @@ CONFIGS = [
      "memory_breakdown": True, "steps_per_print": 1,
      "tensorboard": {"enabled": True, "output_path": "runs",
                      "job_name": "gpt2"}},
+    # ZeRO at world size 1 (ZeRO needs fp16 or bf16 in both packages).
+    {"train_batch_size": 8, "bf16": {"enabled": True},
+     "zero_optimization": {"stage": 1}},
+    {"train_batch_size": 8,
+     "zero_optimization": {"stage": 0, "cpu_offload": True}},
+    {"train_batch_size": 8, "fp16": {"enabled": True},
+     "zero_optimization": True},
+    {"train_batch_size": 8, "bf16": {"enabled": True},
+     "zero_optimization": {"stage": 2, "cpu_offload": True,
+                           "stream_gradients": True}},
+    {"train_batch_size": 8, "bf16": {"enabled": True},
+     "zero_optimization": {"stage": 3}},
+    {"train_batch_size": 8,
+     "optimizer": {"type": "Lamb", "params": {"lr": 1e-3,
+                                              "max_coeff": 5.0}}},
 ]
 
 
@@ -62,22 +79,19 @@ def test_parses_as_the_jax_package_does(i):
     got = TConfig(None, param_dict=dict(CONFIGS[i]))
     for name in FIELDS:
         assert getattr(got, name) == getattr(want, name), name
+    for name in ("cpu_offload", "stream_gradients", "stage"):
+        assert getattr(got.zero_config, name) == \
+            getattr(want.zero_config, name), name
 
 
 @pytest.mark.parametrize("extra", [
-    {"zero_optimization": {"stage": 1}},
-    {"zero_optimization": {"stage": 0, "cpu_offload": True}},
-    {"zero_optimization": True},
     {"amp": {"enabled": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"sequence_parallel": {"enabled": True, "size": 2}},
-    {"zero_optimization": {"stage": 2}},
-    {"zero_optimization": {"stage": 3}},
     {"flops_profiler": {"enabled": True}},
     {"elasticity": {"enabled": True}},
     {"activation_checkpointing": {"partition_activations": True}},
     {"pipeline": {"stages": 2}},
-    {"optimizer": {"type": "Lamb", "params": {"lr": 1e-3}}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
     {"activation_checkpointing": {"contiguous_memory_optimization": True}},
 ])
@@ -85,6 +99,36 @@ def test_unported_subsystems_raise(extra):
     cfg = dict({"train_batch_size": 8}, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):
         TConfig(None, param_dict=cfg)
+
+
+@pytest.mark.parametrize("zero", [
+    {"stage": 1}, {"stage": 2, "cpu_offload": True}, {"stage": 0}])
+def test_world_size_other_than_one_raises(zero):
+    """ZeRO over several ranks is ROADMAP item 6: the JAX config takes a
+    world size of 2, the port refuses it, naming the item."""
+    cfg = {"train_batch_size": 8, "bf16": {"enabled": True},
+           "zero_optimization": zero}
+    JConfig(None, param_dict=dict(cfg), world_size=2)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TConfig(None, param_dict=dict(cfg), world_size=2)
+
+
+@pytest.mark.parametrize("cfg", [
+    {"train_batch_size": 8, "zero_optimization": {"stage": 1}},
+    {"train_batch_size": 8, "bf16": {"enabled": True},
+     "zero_optimization": {"stage": 4}},
+    {"train_batch_size": 8, "bf16": {"enabled": True},
+     "zero_optimization": {"stage": 1, "cpu_offload": True}},
+])
+def test_zero_checks_refuse_like_the_jax_package(cfg):
+    """ZeRO without fp16/bf16, a stage above 3, cpu_offload off stage 2:
+    the JAX config asserts, the port raises ValueError with the same
+    text."""
+    with pytest.raises(AssertionError) as want:
+        JConfig(None, param_dict=dict(cfg), world_size=1)
+    with pytest.raises(ValueError) as got:
+        TConfig(None, param_dict=dict(cfg))
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("block", [
@@ -149,9 +193,9 @@ def test_initialize_defaults_to_cuda_and_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tds.initialize(model=model, config_params=cfg)
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        tds.initialize(model=model, config_params=cfg, device="cpu",
-                       training_data=[1, 2])
+    _, _, loader, _ = tds.initialize(model=model, config_params=cfg,
+                                     device="cpu", training_data=[1, 2])
+    assert len(loader) == 1 and list(loader)[0].tolist() == [1, 2]
     with pytest.raises(ValueError, match="Unknown optimizer"):
         tds.initialize(model=model, device="cpu", config_params=dict(
             cfg, optimizer={"type": "SGD", "params": {"lr": 1e-3}}))

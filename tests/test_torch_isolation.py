@@ -1,6 +1,6 @@
 """The port stands alone: deepspeed_tpu_torch and chip_smoke.py never import
-JAX or the JAX package, and the port's entry points never fall back to the
-CPU on their own."""
+JAX or the JAX package, the host C++ it builds is its own copy, and the
+port's entry points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -51,6 +51,25 @@ def test_import_loads_no_jax_module():
         "telemetry.instrumentation", "loadgen.workload", "loadgen.slo",
         "loadgen.report", "loadgen.runner", "utils.logging",
         "utils.timer")} <= set(names)
+    # ... and of the ZeRO-Offload slice
+    assert {"deepspeed_tpu_torch." + m for m in (
+        "ops.adam.cpu_adam", "ops.lamb.cpu_lamb", "ops.lamb.fused_lamb",
+        "runtime.zero.offload", "runtime.dataloader", "models.simple",
+        "runtime.fp16.fused_optimizer", "runtime.fp16.unfused_optimizer"
+    )} <= set(names)
+
+
+def test_host_sources_are_the_ports_own():
+    """Every C++ source the host route compiles lies under
+    deepspeed_tpu_torch/csrc/, none under the JAX package's tree."""
+    from deepspeed_tpu_torch.op_builder import host_sources
+    csrc = os.path.join(PKG, "csrc") + os.sep
+    srcs = host_sources()
+    assert len(srcs) == 3
+    for src in srcs:
+        real = os.path.realpath(src)
+        assert real.startswith(csrc) and os.path.isfile(real), src
+        assert os.sep + "deepspeed_tpu" + os.sep not in real
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
@@ -100,7 +119,8 @@ def test_entry_points_raise_without_cuda():
                                    "sparse_attention_layers",
                                    "serving_fleet", "moe_init_params",
                                    "moe_params_from_jax", "moe_engine",
-                                   "longcontext_engine"])
+                                   "longcontext_engine", "simple_model",
+                                   "linear_stack"])
 def test_state_builders_default_to_cuda(entry):
     """Every public builder of device state defaults to the GPU: without
     one it raises, and with ``device="cpu"`` it builds on the host."""
@@ -116,6 +136,7 @@ def test_state_builders_default_to_cuda(entry):
                                             params_from_jax)
     from deepspeed_tpu_torch.ops.sparse_attention import (
         BertSparseSelfAttention, FixedSparsityConfig, SparseAttentionUtils)
+    from deepspeed_tpu_torch.models.simple import LinearStack, SimpleModel
     from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
     cfg = GPT2Config.tiny(dtype=torch.float32)
     gcfg = generation.as_gencfg(cfg)
@@ -171,6 +192,9 @@ def test_state_builders_default_to_cuda(entry):
             cfg, _nest(tree), config={"max_len": 64, "max_slots": 2},
             adapter=LongContextAdapter.from_model(cfg, threshold=32,
                                                   block=8), **kw)._pool["k"],
+        "simple_model": lambda **kw: SimpleModel(8, **kw).linear.kernel,
+        "linear_stack": lambda **kw: LinearStack(4, 4, 4, 1, **kw)
+        .serial_0.kernel,
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()

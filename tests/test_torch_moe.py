@@ -208,7 +208,11 @@ def test_moe_forward_shapes_and_aux():
 
 
 def test_identical_experts_match_single_expert():
-    layer = _layer(num_experts=4, k=1, capacity_factor=4.0).eval()
+    # Capacity for every token in eval too (deterministic=True reads
+    # eval_capacity_factor): a dropped token would not be the single
+    # expert's output, whatever the gate's random weights route.
+    layer = _layer(num_experts=4, k=1, capacity_factor=4.0,
+                   eval_capacity_factor=4.0).eval()
     x = torch.from_numpy(np.random.RandomState(1).randn(2, 8, 16)
                          .astype(np.float32))
     stacked = layer.experts.stacked_params()

@@ -18,6 +18,7 @@ import deepspeed_tpu as jds
 import deepspeed_tpu_torch as tds
 from deepspeed_tpu.models.gpt2 import GPT2Config as JConfig
 from deepspeed_tpu.models.gpt2 import GPT2LMHeadModel as JModel
+from deepspeed_tpu.models import simple as jsimple
 from deepspeed_tpu.ops.adam import fused_adam as jadam
 from deepspeed_tpu.parallel import mesh as mesh_lib
 from deepspeed_tpu.runtime import lr_schedules as jlr
@@ -25,6 +26,7 @@ from deepspeed_tpu.runtime import utils as jutils
 from deepspeed_tpu.runtime.fp16 import loss_scaler as jscaler
 from deepspeed_tpu_torch.models import (GPT2Config, GPT2LMHeadModel,
                                         params_from_jax)
+from deepspeed_tpu_torch.models import simple as tsimple
 from deepspeed_tpu_torch.ops.adam import fused_adam as tadam
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime import utils as tutils
@@ -343,3 +345,49 @@ def test_checkpoint_loads_across_packages(tmp_path, direction):
     want = [_micro(src, i) for i in range(4, 6)]
     got = [_micro(dst, i) for i in range(4, 6)]
     np.testing.assert_allclose(got, want, rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["SimpleModel", "LinearStack",
+                                  "PLD_SimpleModel", "DenseRelu",
+                                  "DenseOut"])
+def test_simple_models_forward_and_grads_match_jax(name):
+    """The runtime tests' models: the same flax weights (through the
+    engine's loader, ``load_flax_tree``) and numpy inputs give the JAX
+    module's output, and the loss models' gradients, within TOL."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(4, 8).astype(np.float32)
+    y = rng.randint(0, 8, size=(4,))
+    jmod, tmod, args, kwargs = {
+        "SimpleModel": (jsimple.SimpleModel(hidden_dim=8),
+                        tsimple.SimpleModel(8, device="cpu"), (x, y), {}),
+        "LinearStack": (jsimple.LinearStack(8, 6, 8, 2),
+                        tsimple.LinearStack(8, 6, 8, 2, device="cpu"),
+                        (x, y), {}),
+        "PLD_SimpleModel": (jsimple.PLD_SimpleModel(hidden_dim=8),
+                            tsimple.PLD_SimpleModel(8, device="cpu"),
+                            (x, y), {"progressive_layer_drop": True,
+                                     "pld_theta": 0.5}),
+        "DenseRelu": (jsimple.DenseRelu(6), tsimple.DenseRelu(
+            6, in_features=8, device="cpu"), (x,), {}),
+        "DenseOut": (jsimple.DenseOut(5), tsimple.DenseOut(
+            5, in_features=8, device="cpu"), (x,), {}),
+    }[name]
+    params = _tree(jmod.init(jax.random.PRNGKey(1), *args, **kwargs)[
+        "params"])
+    tutils.load_flax_tree(tmod, params)
+    tmod.requires_grad_(True)
+    want = jmod.apply({"params": params}, *args, **kwargs)
+    got = tmod(*(torch.from_numpy(np.asarray(a)) for a in args), **kwargs)
+    _close(got.detach().numpy(), want)
+    if want.ndim:
+        return
+    jgrads = jax.grad(lambda p: jmod.apply({"params": p}, *args,
+                                           **kwargs))(params)
+    got.backward()
+    flat = _flat(_tree(jgrads))
+    assert set(flat) == {n for n, _ in tmod.named_parameters()}
+    for n, p in tmod.named_parameters():
+        _close(p.grad.numpy(), flat[n])
+    assert tsimple.ce_loss(torch.from_numpy(x), torch.from_numpy(y)).item() \
+        == pytest.approx(float(jsimple.ce_loss(jnp.asarray(x),
+                                               jnp.asarray(y))), rel=TOL)
