@@ -132,7 +132,7 @@ of which exits non-zero on failure:
    outside recovery), TTFT p50/p99 and tokens/s;
 4e. the KV hierarchy (phase_hierarchy), GPT-2 medium bf16 on SERVE with
    the prefix cache (8 rows of 64, matches of at least 8) and host
-   offload (8 swap slots): 48 requests over 4 shared 48-token system
+   offload (8 swap slots): 32 requests over 4 shared 48-token system
    prompts with tails of 16-208 tokens, 96 new tokens, every sixth
    sampled (more requests than slots, so sessions swap): (i) dense bf16
    with the tiers on and off: every stream held to the other by phase 5's
@@ -303,10 +303,32 @@ of which exits non-zero on failure:
 14. sparse BERT consistency: fp32, full width, 2 layers, B=2, T=512, block
    64, dropout 0.1: one step on the card (kernels) against the port on
    the CPU (plain versions);
-15. the kernels line (each decode kernel's entry also carries its
+15. data-parallel ZeRO (phase_data_parallel): DP_RANKS rank processes on
+   cuda:0, started with the launcher's environment contract (RANK,
+   WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and joined over gloo
+   (NCCL refuses two ranks on one device), each with a DP_TIMEOUT_S
+   rendezvous and collective timeout and waited for as long: GPT-2 medium
+   bf16 at full width and depth, AdamW 1e-4, dropout 0, 4 x 1024 tokens
+   per rank (the global 8 x 1024 of phase 7), ZeRO stages 0-3, each
+   DP_WARM steps then DP_TIMED timed ones through train_batch; a
+   ``data_parallel`` line per rank and stage (tokens/s, mean step ms,
+   peak device memory, K1/K2a/K2b launches per step read over the timed
+   steps, stage-3 gathers and collective bytes per step); fails unless
+   each rank launches K1 and K2a n_layer times a step, stage 3 gathers
+   1 + 2 n_layer times a step, the ranks' mean losses agree and the peak
+   memory at stages 1 and 3 is below stage 0's; then the fp32 arm (4
+   layers, width 1024, B4 T256 over the ranks, compute dtype fp32): each
+   stage's step against one process on the whole batch (the loss within
+   1e-5 relative, the masters under the training rule), and a stage-2
+   elastic checkpoint saved by the ranks, loaded by one process, the next
+   step of each held the same way (``data_parallel_check``); then one
+   ZeRO-2 step as a one-rank NCCL group against the same step without a
+   group, and the NCCL reduce-scatter and all-gather on CUDA tensors
+   (``data_parallel_nccl``);
+16. the kernels line (each decode kernel's entry also carries its
    launches in the hierarchy phase's runs, per replica in the fleet
-   phases' runs, and its rows at the fleet's shapes), then the result
-   line.
+   phases' runs, and its rows at the fleet's shapes; K1/K2a/K2b theirs
+   per rank and stage in the data-parallel run), then the result line.
 """
 
 import collections
@@ -669,7 +691,7 @@ SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 16
 # back in.
 HIER = {"prefix_cache": True, "prefix_slots": 8, "prefix_len": 64,
         "min_prefix_len": 8, "host_offload": True, "swap_slots": 8}
-HIER_REQUESTS, HIER_PROMPTS, HIER_SYSTEM, HIER_TAILS = 48, 4, 48, (16, 208)
+HIER_REQUESTS, HIER_PROMPTS, HIER_SYSTEM, HIER_TAILS = 32, 4, 48, (16, 208)
 HIER_GRAPH_REQUESTS, HIER_GRAPH_STEPS = 17, 24
 # The sustained run with the whole JAX TPU setting (bench.py:1350-1352):
 # SUSTAINED_SERVE with the prefix cache and host offload.
@@ -721,7 +743,7 @@ FLEET_PAGED_REQUESTS = 8
 # One engine and the fault-free fleet each serve the stream this many times
 # back to back (each wave drained before the next), so their tokens/s is
 # read over some seconds and its spread over the waves shows.
-FLEET_WAVES = 6
+FLEET_WAVES = 3
 # Prefix rows shipped one replica to the other, timed (phase_fleet (ii)).
 FLEET_SHIPMENTS = 8
 FLEET_KEYS = [(False, False, False), (False, True, False),
@@ -3878,7 +3900,7 @@ LONG_FP32 = dict(n_embd=1024, n_layer=4, n_head=16, dtype=torch.float32)
 # einsum against K3; K3 itself reads 0.0165 against the plain fp32
 # reference, so the difference is bf16 rounding).
 LONG_BF16_TOL = 0.03
-ADAPTER_REQUESTS = 8
+ADAPTER_REQUESTS = 4
 ADAPTER_NEW = 64
 # Prompts that cross position 512 (the threshold) while they prefill or
 # decode, and prompts that stay below it with their new tokens.
@@ -6521,6 +6543,421 @@ def phase_offload_consistency():
             fail("offload_consistency: {} disagrees: {}".format(label, row))
 
 
+# ------------------------------------------------- data parallelism
+
+# Data-parallel ZeRO (phase_data_parallel): GPT-2 medium bf16 at full width
+# and depth, AdamW 1e-4, dropout 0, DP_B x DP_T tokens per rank: over
+# DP_RANKS ranks the global 8 x 1024 of phase_train and of the JAX
+# bench.py:767-789 config (which turns on stage 2 over more than one
+# device). The ranks share cuda:0 over gloo (NCCL refuses two ranks on one
+# device: "Duplicate GPU detected"), so the collectives go through the
+# host and the tokens/s measure the plumbing, not ZeRO's communication.
+DP_RANKS, DP_B, DP_T = 2, 4, 1024
+DP_WARM, DP_TIMED = 1, 2
+DP_STAGES = (0, 1, 2, 3)
+# The rendezvous and every collective of a rank, and the wait for a rank.
+DP_TIMEOUT_S = 300
+# The fp32 arm: phase 5's reduced depth (4 layers, width 1024), a global
+# batch of DP_CHECK_B x DP_CHECK_T over the ranks, one step per stage
+# against one process; then an elastic stage-2 checkpoint saved by the
+# ranks, loaded by one process, and the next step of each.
+DP_CHECK_B, DP_CHECK_T = 4, 256
+
+
+def _dp_config(stage, micro, extra=None):
+    cfg = {"train_micro_batch_size_per_gpu": micro, "steps_per_print": 1000,
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+           "bf16": {"enabled": True},
+           "zero_optimization": {"stage": stage}}
+    cfg.update(extra or {})
+    return cfg
+
+
+def _dp_ids(B, T, vocab, seed):
+    return np.random.RandomState(seed).randint(0, vocab, size=(B, T))
+
+
+def _dp_full_masters(engine):
+    """Every leaf's fp32 master by name (an all-gather when partitioned)."""
+    fulls = engine._zero.full_masters() if engine._zero is not None else \
+        [p.detach().float() for p in engine._params]
+    return {n: f.detach().float().cpu() for n, f in zip(engine._names,
+                                                        fulls)}
+
+
+def _dp_timed_stage(cfg, stage, rank, world, device):
+    """One stage at full width on this rank: DP_WARM steps (the x-ray's
+    first-signature step among them), then DP_TIMED timed steps with the
+    launch counts, gathers and collective bytes reset just before and read
+    just after, and the peak device memory over them."""
+    from deepspeed_tpu_torch.parallel import comm
+
+    t_build = time.perf_counter()
+    model = GPT2LMHeadModel(cfg, device=device, seed=0)
+    engine, _, _, _ = initialize(
+        model=model, config_params=_dp_config(stage, DP_B), device=device,
+        dist_init_required=False)
+    ids = _dp_ids(DP_B * world, DP_T, cfg.vocab_size, 0)
+    mine = torch.from_numpy(ids[rank * DP_B:(rank + 1) * DP_B]).to(device)
+    t_warm = time.perf_counter()
+    losses = [float(engine.train_batch((mine, mine)))
+              for _ in range(DP_WARM)]
+    warm_s = time.perf_counter() - t_warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    at.reset_launches()
+    comm.reset_stats()
+    gathers = engine.zero_gathers()
+    t0 = time.perf_counter()
+    losses += [engine.train_batch((mine, mine)) for _ in range(DP_TIMED)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = {"stage": stage, "rank": rank,
+           "tokens_per_s": DP_B * DP_T * DP_TIMED / wall,
+           "global_tokens_per_s": DP_B * DP_T * world * DP_TIMED / wall,
+           "mean_step_ms": wall / DP_TIMED * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": {k: v / DP_TIMED
+                                 for k, v in at.launches.items()},
+           "gathers_per_step": (engine.zero_gathers() - gathers) / DP_TIMED,
+           "collective_bytes_per_step": comm.stats["bytes"] / DP_TIMED,
+           "collective_calls_per_step": comm.stats["calls"] / DP_TIMED,
+           "losses": [float(x) for x in losses],
+           "memory": _dp_memory_phases(engine, mine),
+           "build_s": t_warm - t_build, "warm_s": warm_s}
+    row["stage_s"] = time.perf_counter() - t_build
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _dp_memory_phases(engine, ids):
+    """One more step after the timed ones, taken apart: the device bytes
+    allocated before it (the training state), and the peak and what stays
+    allocated over its forward, backward and step."""
+    mem = torch.cuda
+    out = {"state_bytes": mem.memory_allocated()}
+    loss = None
+    for name in ("forward", "backward", "step"):
+        mem.reset_peak_memory_stats()
+        if name == "forward":
+            loss = engine(ids, ids)
+        elif name == "backward":
+            engine.backward(loss)
+        else:
+            engine.step()
+        mem.synchronize()
+        out[name + "_peak_bytes"] = mem.max_memory_allocated()
+        out["after_" + name + "_bytes"] = mem.memory_allocated()
+    return out
+
+
+def _dp_check(cfg, stage, rank, world, device, ckpt=None):
+    """The fp32 arm at one stage: one step at dp ``world`` against one
+    process on the whole global batch (rank 0 runs it, on the same card),
+    the loss within 1e-5 relative and the masters under the training rule
+    (``_update_ratio``, the reference's gradients deciding what is noise);
+    with ``ckpt``, the ranks save an elastic checkpoint after the step, one
+    process loads it, and the next step of each is held to the same rule.
+    Both engines compute in fp32 (ZeRO's config needs bf16; as the JAX
+    pg_correctness_test reference, the engine's compute dtype is set to
+    fp32 before its first forward)."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+
+    micro = DP_CHECK_B // world
+    batches = [_dp_ids(DP_CHECK_B, DP_CHECK_T, cfg.vocab_size, 3 + i)
+               for i in range(2)]
+    engine, _, _, _ = initialize(
+        model=GPT2LMHeadModel(cfg, device=device, seed=2),
+        config_params=_dp_config(stage, micro), device=device,
+        dist_init_required=False)
+    engine.compute_dtype = torch.float32
+
+    def step(eng, ids, lo, hi):
+        part = torch.from_numpy(ids[lo:hi]).to(device)
+        loss = eng(part, part)
+        eng.backward(loss)
+        grads = None
+        if eng._zero is None:
+            grads = {n: p.grad.detach().float().cpu().clone()
+                     for n, p in zip(eng._names, eng._params)}
+        eng.step()
+        return loss.detach().float(), grads
+
+    def mean(loss):
+        """The group's mean of a rank's loss (a host tensor: gloo)."""
+        t = loss.cpu().reshape(1).clone()
+        dist.all_reduce(t)
+        return float(t) / world
+
+    lo, hi = rank * micro, (rank + 1) * micro
+    losses = [mean(step(engine, batches[0], lo, hi)[0])]
+    got = [_dp_full_masters(engine)]
+    if ckpt is not None:
+        engine.save_checkpoint(ckpt, tag="dp")
+        losses.append(mean(step(engine, batches[1], lo, hi)[0]))
+        got.append(_dp_full_masters(engine))
+    row = None
+    if rank == 0:
+        # One process on the whole batch: a grid without a process group.
+        solo = mesh_lib.Mesh((1, 1, 1, 1), 0, None)
+        ref, _, _, _ = initialize(
+            model=GPT2LMHeadModel(cfg, device=device, seed=2),
+            config_params=_dp_config(stage, DP_CHECK_B), device=device,
+            dist_init_required=False, mesh=solo)
+        ref.compute_dtype = torch.float32
+        loss, grads = step(ref, batches[0], 0, DP_CHECK_B)
+        row = _dp_rule_row(stage, losses[0], float(loss), got[0],
+                           _dp_full_masters(ref), grads, 1e-4)
+        del ref
+        if ckpt is not None:
+            loaded, _, _, _ = initialize(
+                model=GPT2LMHeadModel(cfg, device=device, seed=None),
+                config_params=_dp_config(stage, DP_CHECK_B), device=device,
+                dist_init_required=False, mesh=solo)
+            loaded.compute_dtype = torch.float32
+            path, _ = loaded.load_checkpoint(ckpt, tag="dp")
+            if path is None or loaded.global_steps != 1:
+                fail("data_parallel: the elastic checkpoint did not load at "
+                     "dp 1")
+            loss, grads = step(loaded, batches[1], 0, DP_CHECK_B)
+            row["checkpoint"] = _dp_rule_row(
+                stage, losses[1], float(loss), got[1],
+                _dp_full_masters(loaded), grads, 2e-4)
+            del loaded
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _dp_rule_row(stage, loss_dp, loss_one, got, want, grads, lr):
+    largest = max(float(g.abs().max()) for g in grads.values())
+    noisy = {}
+    for n, g in grads.items():
+        scale = max(float(g.abs().max()), GRAD_TOL * largest)
+        noisy[n] = g.abs() <= 10 * GRAD_TOL * scale
+    return {"stage": stage, "loss_dp": loss_dp, "loss_one": loss_one,
+            "loss_rel_err": abs(loss_dp - loss_one) / abs(loss_one),
+            "param_max_err_over_limit": _update_ratio(got, want, noisy, lr)}
+
+
+def dp_rank(workdir):
+    """One rank of phase_data_parallel: started by it with the launcher's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT);
+    joins the gloo group, runs the full-width stages and the fp32 arm and
+    writes its rows to ``<workdir>/rank_<r>.json``."""
+    from deepspeed_tpu_torch.utils.distributed import init_distributed
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    init_distributed(dist_backend="gloo", timeout=DP_TIMEOUT_S,
+                     device=device, verbose=False)
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if device.startswith("cuda"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT2Config(dtype=torch.bfloat16, dropout=0.0, **spec["width"])
+    rows = [_dp_timed_stage(cfg, s, rank, world, device)
+            for s in spec["stages"]]
+    check_cfg = GPT2Config(dtype=torch.float32, dropout=0.0,
+                           **spec["check_width"])
+    t0 = time.perf_counter()
+    checks = [_dp_check(check_cfg, s, rank, world, device,
+                        ckpt=os.path.join(workdir, "ckpt") if s == 2
+                        else None) for s in spec["stages"]]
+    if checks[0] is not None:
+        checks[0]["arm_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, "rank_{}.json".format(rank)), "w") as f:
+        json.dump({"rows": rows, "checks": checks}, f)
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_launch(spec, workdir):
+    """Start DP_RANKS rank processes of ``dp_rank`` with the launcher's
+    environment contract (every rank on the one card) and wait for them,
+    each within DP_TIMEOUT_S; a rank that fails or times out fails the
+    phase (the others are killed)."""
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    procs = []
+    for r in range(DP_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_RANKS),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             "c.dp_rank({!r})".format(workdir)], cwd=here, env=env))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    failed = None
+    for r, p in enumerate(procs):
+        try:
+            rc = p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        if rc != 0 and failed is None:
+            failed = (r, rc)
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+    for p in procs:
+        p.wait()
+    if failed is not None:
+        fail("data_parallel: rank {} ended with {}".format(*failed))
+    out = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(workdir, "rank_{}.json".format(r))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _nccl_arm(device, backend="nccl"):
+    """One ZeRO-2 step of a 2-layer fp32 GPT-2 at width 1024 as a one-rank
+    NCCL group (partitioned over one rank: the reduce-scatter, all-gather
+    and all-reduce run as NCCL calls on CUDA tensors), against the same
+    step without a process group (no partition, no collective)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
+
+    # init_distributed starts no group for one rank (as the JAX package):
+    # the one-rank group is made here.
+    store = tempfile.mkdtemp()
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(store, "store"),
+        rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    cfg = GPT2Config(n_embd=1024, n_layer=2, n_head=16, dtype=torch.float32,
+                     dropout=0.0)
+    ids = torch.from_numpy(_dp_ids(2, 256, cfg.vocab_size, 5)).to(device)
+    out = []
+    try:
+        for grouped in (True, False):
+            mesh = None if grouped else Mesh((1, 1, 1, 1), 0, None)
+            engine, _, _, _ = initialize(
+                model=GPT2LMHeadModel(cfg, device=device, seed=4),
+                config_params=_dp_config(2, 2), device=device,
+                dist_init_required=False, mesh=mesh)
+            engine.compute_dtype = torch.float32
+            comm.reset_stats()
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            out.append((float(loss.detach()), dict(comm.stats),
+                        engine.dp_group is not None,
+                        _dp_full_masters(engine)))
+            del engine
+        # Over one rank no leaf is partitioned (the JAX rule at dp 1), so
+        # the step's collective is the all-reduce: the reduce-scatter and
+        # all-gather the partitioned steps call run here on CUDA tensors.
+        flat = torch.randn(3 * 2 ** 20, device=device)
+        group = dist.group.WORLD
+        comm.reset_stats()
+        same = bool(torch.equal(comm.reduce_scatter(flat, group), flat)) and \
+            bool(torch.equal(comm.all_gather(flat, group), flat))
+        direct = {k: comm.stats[k] for k in comm.KINDS}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    (l_nccl, stats, grouped, m_nccl), (l_one, _, _, m_one) = out
+    worst = max(float((m_nccl[n] - m_one[n]).abs().max() /
+                      (1e-3 * 1e-4 + 2.0 ** -22 * m_one[n].abs().max()))
+                for n in m_one)
+    row = {"backend": backend, "world": 1, "grouped": grouped,
+           "step_collectives": {k: stats[k] for k in comm.KINDS},
+           "step_collective_bytes": stats["bytes"],
+           "direct_collectives": direct, "direct_equal": same,
+           "loss": l_nccl, "loss_rel_err": abs(l_nccl - l_one) / abs(l_one),
+           "param_max_err_over_1e-3_lr": worst}
+    if not grouped or stats["all_reduce"] < 1 or not same or \
+            direct["reduce_scatter"] != 1 or direct["all_gather"] != 1:
+        fail("data_parallel: the NCCL arm's collectives did not run or "
+             "disagree: {}".format(row))
+    if row["loss_rel_err"] > 1e-5 or worst > 1.0:
+        fail("data_parallel: the NCCL step disagrees with one process: "
+             "{}".format(row))
+    return row
+
+
+def phase_data_parallel(card):
+    """ZeRO stages 0-3 over DP_RANKS gloo ranks on the card (module
+    docstring, phase 15); returns each stage's per-rank K1/K2a/K2b
+    launches per step."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    workdir = tempfile.mkdtemp()
+    try:
+        ranks = _dp_launch({
+            "device": "cuda:0", "stages": list(DP_STAGES),
+            "width": {"n_embd": 1024, "n_layer": 24, "n_head": 16},
+            "check_width": {"n_embd": 1024, "n_layer": 4, "n_head": 16}},
+            workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    n_layer = 24
+    rows = [row for r in ranks for row in r["rows"]]
+    by = {(row["stage"], row["rank"]): row for row in rows}
+    for row in rows:
+        print("data_parallel " + json.dumps(dict(row, card=card)))
+        per = row["launches_per_step"]
+        if per["flash_fwd"] != n_layer or per["flash_bwd_fused"] != n_layer \
+                or per["flash_bwd_split"] != 0:
+            fail("data_parallel: rank {} stage {} launched {} per step "
+                 "(want K1 and K2a {} each)".format(
+                     row["rank"], row["stage"], per, n_layer))
+        if not np.isfinite(row["losses"]).all():
+            fail("data_parallel: non-finite loss {}".format(row))
+        want = 1 + 2 * n_layer if row["stage"] == 3 else 0
+        if row["gathers_per_step"] != want:
+            fail("data_parallel: stage {} gathered {} times a step (want "
+                 "{})".format(row["stage"], row["gathers_per_step"], want))
+    for r in range(DP_RANKS):
+        if by[(0, r)]["losses"] != by[(0, 0)]["losses"]:
+            fail("data_parallel: the ranks' mean losses differ")
+        for s in (1, 3):
+            if not by[(s, r)]["peak_mem_bytes"] < by[(0, r)][
+                    "peak_mem_bytes"]:
+                fail("data_parallel: rank {} stage {} peak {} is not below "
+                     "stage 0's {}".format(r, s, by[(s, r)]["peak_mem_bytes"],
+                                           by[(0, r)]["peak_mem_bytes"]))
+    checks = [c for c in ranks[0]["checks"] if c is not None]
+    print("data_parallel_check " + json.dumps(
+        {"fp32": "width 1024, 4 layers, B{} T{} over {} ranks vs one "
+                 "process".format(DP_CHECK_B, DP_CHECK_T, DP_RANKS),
+         "stages": checks, "card": card}))
+    for c in checks + [c["checkpoint"] for c in checks
+                       if "checkpoint" in c]:
+        if c["loss_rel_err"] > 1e-5 or c["param_max_err_over_limit"] > 1.0:
+            fail("data_parallel: dp {} disagrees with one process at stage "
+                 "{}: {}".format(DP_RANKS, c["stage"], c))
+    if not any("checkpoint" in c for c in checks):
+        fail("data_parallel: no elastic checkpoint was checked")
+    nccl = _nccl_arm("cuda:0")
+    print("data_parallel_nccl " + json.dumps(dict(nccl, card=card)))
+    return {s: [by[(s, r)]["launches_per_step"] for r in range(DP_RANKS)]
+            for s in DP_STAGES}
+
+
 def _lse_case(name, B, H, T, dtype, seed):
     """flash_attention_with_lse (K1, then K2 with delta = rowsum(dO * O) -
     dlse) against its plain version on the same inputs: o and the
@@ -6582,11 +7019,13 @@ def phase_flash_lse(bf16_seeds=(11,), repeats=1):
 
 
 def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
-                       offload_launches, lse_rows):
+                       offload_launches, lse_rows, dp_launches):
     """K1/K2a/K2b: times at GPT-2 training's shape, launches from its run;
     under "bert" the times at BERT-large's shape and the launches from the
     BERT run; under "offload" GPT-2 XL's shape and the offload run's
-    launches (the slice's main path); K2b's entry also gives its two
+    launches; under "data_parallel" each ZeRO stage's launches per step of
+    each rank (the data-parallel run, this slice's main path: the times
+    are the GPT-2 shape's, B4 per rank halving B8); K2b's entry also gives its two
     kernels' own times (dkdv_ms, dq_ms) and the split-default shape's under
     "split_default"; K1's, flash_attention_with_lse's check under
     "with_lse" (no main path calls it)."""
@@ -6623,6 +7062,12 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
                      "plain_ms": xl[plain], "library_ms": xl[lib],
                      "bound_ms": xl["bound_{}_ms".format(way)],
                      "bound_by": xl["bound_{}_by".format(way)]},
+            data_parallel={
+                "shape": "B4 H16 T1024 D64 bf16 causal per rank (GPT-2 "
+                         "medium, {} ranks on one card)".format(DP_RANKS),
+                "launches_per_step": {
+                    "stage{}".format(stage): [r[counter] for r in ranks]
+                    for stage, ranks in dp_launches.items()}},
             max_abs_err=max(r[kernel]["max_abs_err"] for r in flash_rows),
             max_err_over_limit=max(r[kernel]["max_err_over_limit"]
                                    for r in flash_rows),
@@ -6807,6 +7252,7 @@ def main():
     timed(phase_bert_sparse_consistency)
     offload_launches = timed(phase_offload, card)
     timed(phase_offload_consistency)
+    dp_launches = timed(phase_data_parallel, card)
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -6851,7 +7297,8 @@ def main():
                     "bound_by", "max_abs_err", "max_err_over_limit")}
                 for r in variant_rows["fleet_shapes"][kind]]
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
-                                  split_rows, offload_launches, lse_rows)
+                                  split_rows, offload_launches, lse_rows,
+                                  dp_launches)
     kernels += _row_kernel_rows(row_rows, bert_launches)
     kernels.append(_softmax_kernel_row(softmax_rows, softmax_launches))
     kernels += _sparse_kernel_rows(sparse_rows, sparse_launches, split_rows)

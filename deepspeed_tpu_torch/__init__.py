@@ -19,7 +19,12 @@ kernels K4-K6. Slice 5 pretrains BERT on block-sparse attention
 bring the rest of serving. Slice 14 trains with ZeRO-Offload: the fp32
 masters and optimizer moments in host memory, updated by the host C++ ops
 (``ops.adam.cpu_adam``, ``ops.lamb.cpu_lamb``), with the dataloader, Lamb,
-the fp16 optimizer wrappers and the remat XE head.
+the fp16 optimizer wrappers and the remat XE head. Slice 15 trains over
+several ``torch.distributed`` ranks: the process groups
+(``parallel.mesh``, ``utils.distributed``), ZeRO stages 1-3 partitioned
+over the data group (``runtime.zero.partition``), sparse (CSR) embedding
+gradients, elastic checkpoints, ``elasticity`` and the launcher
+(``launcher.runner``, ``launcher.launch``).
 """
 
 from deepspeed_tpu_torch.device import resolve_device
@@ -46,7 +51,8 @@ def init_inference(model, params=None, config=None, device=None):
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                training_data=None, lr_scheduler=None, config_params=None,
-               device=None, collate_fn=None):
+               device=None, collate_fn=None, mesh=None,
+               dist_init_required=None):
     """Build the training engine (mirrors ``deepspeed_tpu.initialize``).
 
     ``model`` is a ``torch.nn.Module`` whose forward returns the loss (the
@@ -59,6 +65,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     ``cuda``; without a GPU the call raises unless ``device="cpu"`` is
     passed.
 
+    Over several ranks (the launcher's ``RANK``/``WORLD_SIZE``/
+    ``MASTER_ADDR``/``MASTER_PORT``/``LOCAL_RANK``), the engine starts the
+    default process group (``utils.distributed.init_distributed``; nccl on
+    CUDA, gloo on the CPU) unless one exists or ``dist_init_required`` is
+    False, and trains data-parallel over ``mesh`` (default
+    ``parallel.mesh.build_mesh()``: every rank on the data axis), each rank
+    on its own micro-batch; ZeRO stages 1-3 partition as the JAX engine
+    shards. ``device`` defaults to ``cuda:<LOCAL_RANK>`` there.
+
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
@@ -70,7 +85,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                              training_data=training_data,
                              lr_scheduler=lr_scheduler,
                              config_params=config_params, device=device,
-                             collate_fn=collate_fn)
+                             collate_fn=collate_fn, mesh=mesh,
+                             dist_init_required=dist_init_required)
     return engine, engine.optimizer, engine.training_dataloader, \
         engine.lr_scheduler
 

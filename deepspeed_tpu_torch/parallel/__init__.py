@@ -1,3 +1,5 @@
-"""deepspeed_tpu_torch.parallel: device placement (counterpart of
-``deepspeed_tpu/parallel``). Only the serving fleet's
-``mesh.replica_devices`` is ported so far."""
+"""deepspeed_tpu_torch.parallel: the rank grid and process groups
+(``mesh``: the JAX layout's axes, one group per data line, the ZeRO
+partition rule, the serving fleet's ``replica_devices``) and the
+collectives ZeRO runs over them (``comm``). Counterpart of
+``deepspeed_tpu/parallel``."""

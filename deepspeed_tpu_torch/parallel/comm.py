@@ -1,0 +1,122 @@
+"""The collectives ZeRO runs over a data group.
+
+Three calls over ``torch.distributed``: ``all_reduce`` (sum or mean),
+``reduce_scatter`` (sum or mean of a flat buffer laid out as dp equal
+chunks, rank r keeps chunk r) and ``all_gather`` (every rank's equal flat
+chunk, concatenated in rank order). Each takes and returns flat
+contiguous tensors; ``runtime/zero/partition.py`` packs the leaves.
+
+The backend decides the route, by name, never by a caught failure:
+
+- ``nccl``: the native collectives on the tensors where they lie.
+- ``gloo``: the tensors are staged through host memory by an explicit
+  copy (gloo's collectives are host algorithms; the card runs two ranks on
+  one device over gloo, since NCCL refuses two ranks on one device), and
+  reduce-scatter is composed: an all-reduce of the whole buffer, then the
+  rank's slice. All-gather uses gloo's list form.
+
+``stats`` counts the calls (in all and by kind) and the bytes each rank
+hands to them (the smoke's collective bytes per step).
+"""
+
+import torch
+import torch.distributed as dist
+
+KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+stats = {}
+
+
+def reset_stats():
+    stats.update(calls=0, bytes=0, **{k: 0 for k in KINDS})
+
+
+reset_stats()
+
+
+def _note(t, kind):
+    stats["calls"] += 1
+    stats[kind] += 1
+    stats["bytes"] += t.numel() * t.element_size()
+
+
+def buckets(sizes, cap):
+    """Consecutive (start, end) runs over ``sizes`` (elements per item),
+    each closed once it holds at least ``cap`` elements (and never empty):
+    the flat buffers of ``reduce_bucket_size`` / ``allgather_bucket_size``
+    / the engine's all-reduce bucket."""
+    start = 0
+    while start < len(sizes):
+        end, total = start, 0
+        while end < len(sizes) and (end == start or total < cap):
+            total += sizes[end]
+            end += 1
+        yield start, end
+        start = end
+
+
+def _host(group, t):
+    """True when ``t`` must be staged through the host for ``group``."""
+    return dist.get_backend(group) == "gloo" and t.device.type != "cpu"
+
+
+def _staged(t):
+    """A copy of device tensor ``t`` in pinned host memory (PyTorch's
+    caching host allocator keeps the buffers from call to call)."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def all_reduce(t, group, mean=False):
+    """Sum (or mean) ``t`` over ``group`` in place; returns ``t``."""
+    _note(t, "all_reduce")
+    if _host(group, t):
+        h = _staged(t)
+        dist.all_reduce(h, group=group)
+        t.copy_(h)
+    else:
+        dist.all_reduce(t, group=group)
+    if mean:
+        t.div_(dist.get_world_size(group))
+    return t
+
+
+def reduce_scatter(flat, group, mean=False):
+    """Chunk ``rank`` of the sum (or mean) of ``flat`` over ``group``;
+    ``flat`` holds ``world`` equal chunks in rank order."""
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    per = flat.numel() // world
+    _note(flat, "reduce_scatter")
+    if dist.get_backend(group) == "gloo":
+        h = _staged(flat) if flat.device.type != "cpu" else flat.clone()
+        dist.all_reduce(h, group=group)
+        out = h[rank * per:(rank + 1) * per].to(flat.device)
+    else:
+        out = torch.empty(per, dtype=flat.dtype, device=flat.device)
+        dist.reduce_scatter_tensor(out, flat, group=group)
+    if mean:
+        out.div_(world)
+    return out
+
+
+def all_gather(chunk, group):
+    """Every rank's ``chunk`` (equal sizes), concatenated in rank order."""
+    world = dist.get_world_size(group)
+    _note(chunk, "all_gather")
+    if dist.get_backend(group) == "gloo":
+        h = _staged(chunk) if chunk.device.type != "cpu" else chunk
+        parts = [torch.empty_like(h) for _ in range(world)]
+        dist.all_gather(parts, h, group=group)
+        return torch.cat(parts).to(chunk.device)
+    out = torch.empty(world * chunk.numel(), dtype=chunk.dtype,
+                      device=chunk.device)
+    dist.all_gather_into_tensor(out, chunk, group=group)
+    return out
+
+
+def all_gather_object(obj, group):
+    """Every rank's picklable ``obj``, in rank order."""
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out

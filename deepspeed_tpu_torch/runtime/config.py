@@ -15,16 +15,28 @@ switches on a subsystem the port does not have yet parses only at its
 default (``_check_ported``); any other value raises NotImplementedError
 naming the ROADMAP item that brings it, never a quiet run without it.
 
-ZeRO (``zero_optimization``: every stage the JAX config accepts, with
-``cpu_offload`` and ``stream_gradients``) is accepted at world size 1,
-where a stage partitions nothing, as on the JAX package's one-device mesh;
-the JAX package's checks hold (ZeRO needs fp16 or bf16, stage at most 3,
-cpu_offload only at stage 2). The world size is 1: the port trains on one
-card; another world size is ROADMAP item 6.
+ZeRO (``zero_optimization``: every stage the JAX config accepts) holds
+the JAX package's checks (ZeRO needs fp16 or bf16, stage at most 3,
+cpu_offload only at stage 2). ``world_size`` is the data-parallel size:
+the batch triangle is train = micro x accumulation x world_size. Over
+several ranks ``cpu_offload`` and ``stream_gradients`` are refused (offload
+over ranks is ROADMAP Queue 1 item 6), as 1-bit Adam is everywhere (item
+9).
+
+``elasticity`` (``enabled: true``) overwrites the batch triangle with the
+elastic schedule for this world size before it is parsed, as the JAX
+config's ``_apply_elasticity`` does.
 """
 
 import json
 
+from deepspeed_tpu_torch.elasticity import (ElasticityConfigError,
+                                            compute_elastic_config,
+                                            elasticity_enabled,
+                                            ensure_immutable_elastic_config)
+from deepspeed_tpu_torch.elasticity.constants import (
+    ELASTICITY, IGNORE_NON_ELASTIC_BATCH_INFO,
+    IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT)
 from deepspeed_tpu_torch.runtime.config_utils import (
     dict_raise_error_on_duplicate_keys, get_scalar_param)
 from deepspeed_tpu_torch.runtime.constants import (
@@ -55,6 +67,7 @@ from deepspeed_tpu_torch.runtime.constants import (
     SPARSE_NUM_LOCAL_BLOCKS_DEFAULT, SPARSE_NUM_RANDOM_BLOCKS,
     SPARSE_NUM_RANDOM_BLOCKS_DEFAULT, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
     SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT, SPARSE_VARIABLE_MODE,
+    SPARSE_GRADIENTS, SPARSE_GRADIENTS_DEFAULT,
     MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT, STEPS_PER_PRINT,
     STEPS_PER_PRINT_DEFAULT, TENSORBOARD, TENSORBOARD_ENABLED,
     TENSORBOARD_ENABLED_DEFAULT, TENSORBOARD_JOB_NAME,
@@ -65,6 +78,8 @@ from deepspeed_tpu_torch.runtime.constants import (
     TRAIN_MICRO_BATCH_SIZE_PER_GPU, TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
     TYPE, ValidationMode)
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.version import version as __version__
 from deepspeed_tpu_torch.runtime.zero.constants import (
     MAX_STAGE_ZERO_OPTIMIZATION, ZERO_OPTIMIZATION_GRADIENTS)
 
@@ -77,7 +92,7 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
 _TOOLING = "the tooling slice (ROADMAP Queue 1)"
-_DATA_PARALLEL = "ZeRO over several ranks (ROADMAP Queue 1 item 6)"
+_DP_OFFLOAD = "ZeRO-Offload over several ranks (ROADMAP Queue 1 item 6)"
 _ONEBIT = "1-bit Adam (ROADMAP Queue 1 item 9)"
 
 # Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
@@ -87,7 +102,6 @@ _UNPORTED_BLOCKS = {
     "progressive_layer_drop": _RUNTIME,
     "sequence_parallel": "the sequence-parallel slice (ROADMAP Queue 1)",
     "flops_profiler": _TOOLING,
-    "elasticity": _TOOLING,
 }
 
 
@@ -116,6 +130,8 @@ _SCHEMA = (
      GRADIENT_ACCUMULATION_STEPS_DEFAULT),
     ("steps_per_print", (STEPS_PER_PRINT,), STEPS_PER_PRINT_DEFAULT),
     ("gradient_clipping", (GRADIENT_CLIPPING,), GRADIENT_CLIPPING_DEFAULT),
+    ("sparse_gradients_enabled", (SPARSE_GRADIENTS,),
+     SPARSE_GRADIENTS_DEFAULT),
     ("fp16_enabled", (FP16, FP16_ENABLED), FP16_ENABLED_DEFAULT),
     ("bfloat16_enabled", (BFLOAT16, BFLOAT16_ENABLED),
      BFLOAT16_ENABLED_DEFAULT),
@@ -244,15 +260,48 @@ class DeepSpeedConfig(object):
                 param_dict = json.load(
                     f, object_pairs_hook=dict_raise_error_on_duplicate_keys)
         self._param_dict = param_dict
-        if world_size != 1:
-            raise NotImplementedError(
-                "world_size {}: the port trains on one card; data "
-                "parallelism is not ported yet: {}".format(world_size,
-                                                          _DATA_PARALLEL))
         self.world_size = world_size
+        self.elasticity_enabled = elasticity_enabled(param_dict)
+        if self.elasticity_enabled:
+            self._apply_elasticity()
         self._initialize_params(param_dict)
         self._configure_train_batch_size()
         self._check_zero()
+        self._check_data_parallel()
+
+    def _apply_elasticity(self):
+        """Overwrite the batch triangle with the elastic schedule (the JAX
+        config's ``_apply_elasticity``)."""
+        logger.info("DeepSpeed elasticity support enabled")
+        final_batch_size, valid_gpus, micro_batch_size = \
+            compute_elastic_config(ds_config=self._param_dict,
+                                   target_deepspeed_version=__version__,
+                                   world_size=self.world_size)
+        elastic_dict = self._param_dict[ELASTICITY]
+        ensure_immutable_elastic_config(
+            runtime_elastic_config_dict=elastic_dict)
+        if not elastic_dict.get(IGNORE_NON_ELASTIC_BATCH_INFO,
+                                IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT):
+            batch_params = [TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                            GRADIENT_ACCUMULATION_STEPS]
+            if any(t in self._param_dict for t in batch_params):
+                raise ElasticityConfigError(
+                    "One or more batch related parameters were found in your "
+                    "ds_config ({}, {}, and/or {}). These parameters *will "
+                    "not be used* since elastic training is enabled, which "
+                    "takes control of these parameters. If you want to "
+                    "suppress this error (the parameters will be silently "
+                    "ignored) please set {}':true in your elasticity "
+                    "config.".format(TRAIN_BATCH_SIZE,
+                                     TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                                     GRADIENT_ACCUMULATION_STEPS,
+                                     IGNORE_NON_ELASTIC_BATCH_INFO))
+        gradient_accu_steps = final_batch_size // (micro_batch_size *
+                                                   self.world_size)
+        logger.info("[Elasticity] valid GPU counts: %s", valid_gpus)
+        self._param_dict[TRAIN_BATCH_SIZE] = final_batch_size
+        self._param_dict[TRAIN_MICRO_BATCH_SIZE_PER_GPU] = micro_batch_size
+        self._param_dict[GRADIENT_ACCUMULATION_STEPS] = gradient_accu_steps
 
     def _initialize_params(self, param_dict):
         for row in _SCHEMA:
@@ -369,6 +418,15 @@ class DeepSpeedConfig(object):
             raise ValueError("DeepSpeedConfig: cpu-offload supported ZeRO "
                              "stage is {}".format(
                                  ZERO_OPTIMIZATION_GRADIENTS))
+
+    def _check_data_parallel(self):
+        """Over several ranks: what the port does not partition yet."""
+        if self.world_size <= 1:
+            return
+        for key in ("cpu_offload", "stream_gradients"):
+            if getattr(self.zero_config, key):
+                _refuse("'zero_optimization.{}' at data-parallel size {}"
+                        .format(key, self.world_size), _DP_OFFLOAD)
 
     def _configure_train_batch_size(self):
         self._set_batch_related_parameters()

@@ -109,3 +109,6 @@ SPARSE_GLOBAL_BLOCK_END_INDICES = "global_block_end_indices"
 SPARSE_GLOBAL_BLOCK_END_INDICES_DEFAULT = None
 SPARSE_NUM_SLIDING_WINDOW_BLOCKS = "num_sliding_window_blocks"
 SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT = 3
+
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False

@@ -1,4 +1,4 @@
-"""DeepSpeedEngine: the training engine on one card.
+"""DeepSpeedEngine: the training engine, on one card or over several ranks.
 
 Counterpart of ``deepspeed_tpu/runtime/engine.py`` on the path a GPT-2
 run takes: ``forward`` / ``backward`` / ``step`` driven by an unchanged
@@ -47,9 +47,32 @@ checkpoints in the JAX package's layout and format.
   -> ``FusedAdam``, Lamb -> ``FusedLamb`` on the device; under
   ``zero_optimization.cpu_offload`` -> ``DeepSpeedCPUAdam`` /
   ``DeepSpeedCPULamb``, the host C++ ops.
-- ZeRO at world size 1: a stage partitions nothing (the JAX package's
-  one-device mesh), so stages 1-3 train as stage 0, bit for bit; a
-  checkpoint's optimizer state goes to the zero file, as in JAX.
+- ZeRO in one process without a process group: a stage partitions
+  nothing (the JAX package's one-device mesh), so stages 1-3 train as
+  stage 0, bit for bit; a checkpoint's optimizer state goes to the zero
+  file, as in JAX. (With a process group, even of one rank, stages 1-3
+  take the partitioned path below, its collectives over the group.)
+- Data parallelism over ``torch.distributed`` ranks (``parallel/mesh.py``:
+  the JAX layout's data axis, one process group per data line; the
+  default process group comes from the launcher's environment through
+  ``utils/distributed.init_distributed``). Each rank runs its own
+  micro-batch. Stage 0 (or ZeRO off) averages the gradients over the data
+  group at the accumulation boundary only (``allreduce_gradients``);
+  stages 1-3 partition the masters, moments, gradients and parameters as
+  the JAX engine shards them over its data axis
+  (``runtime/zero/partition.py``), built at the first forward (or load),
+  so ``compute_dtype`` may still be set before it. The global gradient norm
+  counts each replicated leaf once, the fp16 overflow flag is agreed over
+  the group (every rank skips the same step), ``train_batch`` returns the
+  group's mean loss, and dropout seeds are folded with the data rank.
+  ``sparse_gradients`` exchanges the embedding tables' gradients as
+  (row, value) pairs (``runtime/csr_tensor.py``). ``pg_correctness_test``
+  (module flag) checks each step's reduced gradients against an fp32,
+  unpartitioned program over the whole global batch. Checkpoints: the
+  model file holds the full fp32 masters (rank 0 writes it); with
+  ``elastic_checkpoint`` each rank writes its own
+  ``zero_pp_rank_<r>_mp_rank_00optim_states.pt`` in the JAX layout, and a
+  load at another data-parallel size reassembles and repartitions.
 - ZeRO-Offload (``runtime/zero/offload.py``): at the first offload step
   the fp32 master moves to host memory (flat buffers in JAX's leaf order)
   and the device parameters drop to the compute dtype; each step unscales
@@ -63,8 +86,8 @@ checkpoints in the JAX package's layout and format.
   (``initialize`` returns it), and ``train_batch(data_iter=...)`` draws
   from it.
 
-Not on this path yet (ROADMAP Queue 1): ZeRO over several ranks, 1-bit
-Adam, pipeline.
+Not on this path yet (ROADMAP Queue 1): tensor parallelism, ZeRO-Offload
+and Lamb over partitioned ranks, 1-bit Adam, the pipeline.
 """
 
 import inspect
@@ -81,11 +104,16 @@ from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.lamb.cpu_lamb import DeepSpeedCPULamb
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.parallel import comm
+from deepspeed_tpu_torch.parallel import mesh as mesh_lib
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.config import (ADAM_OPTIMIZER,
                                                 ADAMW_OPTIMIZER,
                                                 LAMB_OPTIMIZER,
                                                 DeepSpeedConfig)
+from deepspeed_tpu_torch.runtime.csr_tensor import (  # noqa: F401
+    CSRTensor, csr_allreduce, pad_csr, sparse_grad_exchange,
+    split_half_float_double_csr)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_,
@@ -93,12 +121,28 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_,
                                                flax_tree, global_norm,
                                                has_overflow, load_flax_tree)
 from deepspeed_tpu_torch.runtime.zero.offload import HostOffload
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry import (MetricsRegistry, ProgramRegistry,
                                            TensorBoardScalarWriter)
+from deepspeed_tpu_torch.utils import distributed as dist_utils
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
 
 logger = logging.getLogger(__name__)
+
+MEMORY_OPT_ALLREDUCE_SIZE = 500000000
+
+# Debug cross-check (the reference's stage2.py pg_correctness_test, the JAX
+# engine's flag): with it on, every step checks the data group's reduced
+# gradients against an fp32 program over the whole global batch with
+# unpartitioned, replicated parameters, and raises on a mismatch. The
+# reference program runs without dropout: turn it on for models whose
+# dropout is off.
+pg_correctness_test = False
+
+# Flax names of embedding tables (the JAX engine's _embedding_grad_paths):
+# their gradients take the sparse exchange under sparse_gradients.
+_EMBED_NAMES = ("embedding", "wte", "word_embeddings")
 
 _DEEPSPEED_STATES = (
     "module", "optimizer", "lr_scheduler", "csr_tensor_module_names",
@@ -143,8 +187,27 @@ class DeepSpeedEngine(object):
 
     def __init__(self, args, model, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, config_params=None,
-                 device=None, seed=1234, collate_fn=None):
+                 device=None, seed=1234, collate_fn=None, mesh=None,
+                 dist_init_required=None):
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if device is None and world > 1 and "LOCAL_RANK" in os.environ:
+            device = "cuda:{}".format(os.environ["LOCAL_RANK"])
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+        if dist_init_required is None:
+            dist_init_required = mesh is None and world > 1 and \
+                not dist_utils.is_initialized()
+        if dist_init_required:
+            dist_utils.init_distributed(device=self.device)
+        # The rank grid (parallel/mesh.py): this rank's data coordinate and
+        # the process group of its data line.
+        self.mesh = mesh if mesh is not None else mesh_lib.build_mesh()
+        self.dp_world_size = mesh_lib.dp_size(self.mesh)
+        self.mp_world_size = mesh_lib.mp_size(self.mesh)
+        self.dp_rank = self.mesh.dp_rank
+        self.global_rank = self.mesh.rank
+        self.dp_group = self.mesh.dp_group
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -163,7 +226,8 @@ class DeepSpeedEngine(object):
                                     platform=self.device.type,
                                     sample_every=0)
         self.tput_timer = ThroughputTimer(
-            batch_size=self.train_micro_batch_size_per_gpu(), num_workers=1,
+            batch_size=self.train_micro_batch_size_per_gpu(),
+            num_workers=self.dp_world_size,
             steps_per_output=self.steps_per_print(), monitor_memory=False,
             registry=self.telemetry)
         # Through a weak reference: a dropped engine (its parameters and
@@ -199,9 +263,11 @@ class DeepSpeedEngine(object):
         self._takes_deterministic = "deterministic" in accepted
         self._takes_generator = "generator" in accepted
         # Dropout seeds come from here (a CPU generator: drawing a seed
-        # never waits for the card).
+        # never waits for the card), folded with the data rank (as the JAX
+        # engine folds its key with the data axis index).
         self._generator = torch.Generator()
-        self._generator.manual_seed(seed)
+        self._generator.manual_seed(_fold_seed(seed, self.dp_rank)
+                                    if self.dp_world_size > 1 else seed)
 
         self.loss_scaler = None
         if self.fp16_enabled():
@@ -212,7 +278,23 @@ class DeepSpeedEngine(object):
         self._offload = None  # the ZeRO-Offload tier's host state
         self._streamed = None  # the streamed backward's squared norms
         self._stream_token = None
+        # ZeRO stages 1-3 over several ranks (runtime/zero/partition.py),
+        # built at the first forward, load or save.
+        self._zero = None
+        self._partitioned = self.zero_optimization() and \
+            self.zero_optimization_stage() >= 1 and \
+            self.dp_group is not None
+        self._sparse = frozenset(
+            i for i, (n, p) in enumerate(zip(self._names, self._params))
+            if p.dim() >= 2 and any(k in _EMBED_NAMES or
+                                    k.endswith("_embeddings")
+                                    for k in n.split("."))) \
+            if self.sparse_gradients_enabled() and self.dp_world_size > 1 \
+            else frozenset()
+        self._sparse_k = 0
+        self._pg_inputs = []
         self._configure_optimizer(optimizer)
+        self._check_partitioned()
         self._configure_lr_scheduler(lr_scheduler)
         self.training_dataloader = self.deepspeed_io(training_data) \
             if training_data is not None else None
@@ -231,7 +313,8 @@ class DeepSpeedEngine(object):
         if config_file is not None and not os.path.isfile(config_file):
             raise FileNotFoundError("DeepSpeed config file not found: "
                                     "{}".format(config_file))
-        return DeepSpeedConfig(config_file, param_dict=config_params)
+        return DeepSpeedConfig(config_file, param_dict=config_params,
+                               world_size=self.dp_world_size)
 
     def train_batch_size(self):
         return self._config.train_batch_size
@@ -262,6 +345,17 @@ class DeepSpeedEngine(object):
 
     def zero_cpu_offload(self):
         return bool(self._config.zero_config.cpu_offload)
+
+    def zero_elastic_checkpoint(self):
+        return self._config.zero_config.elastic_checkpoint
+
+    def sparse_gradients_enabled(self):
+        return self._config.sparse_gradients_enabled
+
+    def zero_gathers(self):
+        """Stage-3 parameter gathers so far (0 before the partition is
+        built or below stage 3)."""
+        return 0 if self._zero is None else self._zero.gathers
 
     def offload_timing(self):
         """The last offload step's phases on the host clock: queue_s
@@ -372,9 +466,42 @@ class DeepSpeedEngine(object):
         elif self._config.optimizer_name is not None:
             self.optimizer = self._configure_basic_optimizer()
         self.opt_state = None
-        if self.optimizer is not None and not self._offload_mode():
+        if self.optimizer is not None and not self._offload_mode() and \
+                not self._partitioned:
             self.opt_state = self.optimizer.init_state(self._params)
         self._check_streaming()
+
+    def _check_partitioned(self):
+        """What ZeRO over several ranks does not partition yet."""
+        if not self._partitioned:
+            return
+        if not isinstance(self.optimizer, FusedAdam):
+            raise NotImplementedError(
+                "ZeRO stage {} over {} ranks partitions Adam/AdamW state "
+                "only; {} over partitioned ranks is not ported yet (ROADMAP "
+                "Queue 1 item 6)".format(self.zero_optimization_stage(),
+                                         self.dp_world_size,
+                                         type(self.optimizer).__name__))
+        if self.zero_optimization_stage() >= 3 and getattr(
+                getattr(self.module, "config", None), "remat", False):
+            raise NotImplementedError(
+                "ZeRO stage 3 over several ranks with per-block remat is not "
+                "ported yet: the recomputed forward would free its gathered "
+                "parameters (ROADMAP Queue 1 item 7)")
+
+    def _ensure_zero(self):
+        """Build the partition (masters, moments as shards, the module's
+        parameters in the compute dtype) on first use."""
+        if not self._partitioned or self._zero is not None:
+            return
+        zc = self._config.zero_config
+        self._zero = ZeroPartition(
+            self.module, self._params,
+            self.zero_optimization_stage(), self.dp_group,
+            self.compute_dtype, zc.reduce_bucket_size,
+            zc.allgather_bucket_size, sparse=self._sparse)
+        if self.optimizer is not None:
+            self.opt_state = self.optimizer.init_state(self._zero.master)
 
     def _configure_basic_optimizer(self):
         """The optimizer table (JAX ``_configure_basic_optimizer``)."""
@@ -430,6 +557,8 @@ class DeepSpeedEngine(object):
             batch_size = self.train_micro_batch_size_per_gpu()
         return DeepSpeedDataLoader(
             dataset=dataset, batch_size=batch_size,
+            data_parallel_world_size=self.dp_world_size,
+            data_parallel_rank=self.dp_rank,
             collate_fn=collate_fn or self.collate_fn,
             num_local_io_workers=num_local_io_workers,
             data_sampler=data_sampler, device=self.device)
@@ -468,7 +597,9 @@ class DeepSpeedEngine(object):
         return x
 
     def _run_module(self, inputs, kwargs):
-        if self.compute_dtype == torch.float32:
+        if self.compute_dtype == torch.float32 or self._zero is not None:
+            # fp32, or partitioned: the module's parameters already hold
+            # the compute dtype.
             return self.module(*inputs, **kwargs)
         cast = {n: p.to(self.compute_dtype) if p.is_floating_point() else p
                 for n, p in zip(self._names, self._params)}
@@ -483,8 +614,18 @@ class DeepSpeedEngine(object):
             self.timers("forward").start()
         inputs = tuple(self._to_device(x) for x in inputs)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
+        self._ensure_zero()
         if self.training and self._stream_grads_active():
             self._begin_streaming()
+        if self.training and self._sparse:
+            # The exchange budget: one touched row per integer input
+            # element (the JAX engine's k).
+            self._sparse_k += sum(
+                x.numel() for x in list(inputs) + list(kwargs.values())
+                if isinstance(x, torch.Tensor) and
+                not x.is_floating_point() and x.dtype != torch.bool)
+        if self.training and pg_correctness_test:
+            self._pg_inputs.append(tuple(x.detach().cpu() for x in inputs))
         if not self.training:
             with torch.no_grad():
                 out = self._run_module(inputs, kwargs)
@@ -515,7 +656,11 @@ class DeepSpeedEngine(object):
             self.timers("backward").start()
             self.timers("backward_inner").start()
         scale = self.loss_scaler.loss_scale if self.loss_scaler else 1.0
+        if self._zero is not None:
+            self._zero.boundary = self.is_gradient_accumulation_boundary()
         (loss * (scale / self.gradient_accumulation_steps())).backward()
+        if self._zero is not None:
+            self._zero.end_backward()
         if self._streamed is not None:
             # Every streamed copy is behind this event; the step waits on it
             # before it reads the host buffer.
@@ -620,6 +765,8 @@ class DeepSpeedEngine(object):
     def zero_grad(self):
         for p in self._params:
             p.grad = None
+        if self._zero is not None:
+            self._zero.clear_grads()
 
     def get_lr(self):
         return [g["lr"] for g in self.optimizer.param_groups]
@@ -632,23 +779,184 @@ class DeepSpeedEngine(object):
         return [g.get("betas", (0.0, 0.0))[0]
                 for g in self.optimizer.param_groups]
 
+    # ------------------------------------------- data-parallel reduction
+
+    def _agreed(self, flag):
+        """``flag`` (a 0-d bool tensor) OR-ed over the data group."""
+        if self.dp_world_size <= 1:
+            return bool(flag)
+        t = flag.reshape(1).to(torch.int32)
+        return int(comm.all_reduce(t, self.dp_group)) > 0
+
+    @torch.no_grad()
+    def allreduce_gradients(self, bucket_size=MEMORY_OPT_ALLREDUCE_SIZE):
+        """Average every ``.grad`` over the data group (stage 0 / ZeRO off,
+        at the accumulation boundary): dense leaves in flat buckets of
+        ``bucket_size`` elements, embedding tables under
+        ``sparse_gradients`` through the (row, value) exchange."""
+        if self.dp_world_size <= 1:
+            return
+        for p in self._params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        dense = [p for i, p in enumerate(self._params)
+                 if i not in self._sparse]
+        for start, end in comm.buckets([p.numel() for p in dense],
+                                       bucket_size):
+            chunk = dense[start:end]
+            flat = comm.all_reduce(torch.cat(
+                [p.grad.reshape(-1).float() for p in chunk]), self.dp_group,
+                mean=True)
+            off = 0
+            for p in chunk:
+                p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+                off += p.numel()
+        for i in sorted(self._sparse):
+            p = self._params[i]
+            p.grad = sparse_grad_exchange(p.grad, self.dp_group,
+                                          self._sparse_k)
+        self._sparse_k = 0
+
+    def csr_allreduce_no_retain(self, csr_list):
+        """Average a list of CSRTensors over the data group: each rank's
+        (index, value) rows padded to the group's largest count and
+        all-gathered (duplicates kept; ``to_dense`` sums them). At one rank,
+        copies."""
+        out = []
+        for c in csr_list:
+            if self.dp_world_size <= 1:
+                out.append(CSRTensor(indices=c.indices, values=c.values,
+                                     dense_size=c.dense_size))
+                continue
+            rows = torch.tensor([c.indices.shape[0]], dtype=torch.int64,
+                                device=c.values.device)
+            rows = int(max(comm.all_gather(rows, self.dp_group)))
+            idx, val = pad_csr(c.indices, c.values, rows)
+            idx, val = csr_allreduce(idx, val, self.dp_group, average=True)
+            out.append(CSRTensor(indices=idx, values=val,
+                                 dense_size=c.dense_size))
+        return out
+
+    def sparse_allreduce_bucket(self, bucket):
+        return self.csr_allreduce_no_retain(bucket)
+
+    def _partitioned_norm(self, grads):
+        """The global 2-norm of the partitioned gradients: the shards'
+        squares summed over the group, each replicated leaf once."""
+        z = self._zero
+        sq_shard = torch.zeros((), dtype=torch.float32, device=self.device)
+        sq_whole = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i, g in enumerate(grads):
+            sq = g.float().square().sum()
+            if z.owned(i):
+                sq_shard += sq
+            else:
+                sq_whole += sq
+        comm.all_reduce(sq_shard.reshape(1), self.dp_group)
+        return (sq_shard + sq_whole).sqrt()
+
+    def _reduce_partitioned(self):
+        """The boundary's reduction of the partitioned gradients: the
+        sparse tables' exchange, and at stage 1 the all-reduce of the
+        accumulated gradients (stages 2-3 reduced them in the backward).
+        Returns the rank's gradient shards."""
+        z = self._zero
+        for i in sorted(self._sparse):
+            z.set_reduced(i, sparse_grad_exchange(
+                z.take_sparse(i), self.dp_group, self._sparse_k))
+        self._sparse_k = 0
+        if z.stage == 1:
+            z.reduce_all()
+        return z.grad_shards()
+
+    def _pg_correctness_check(self, grads, scale):
+        """``pg_correctness_test``: the reduced gradients (each rank's
+        shards, or whole) against an fp32 program over the global batch
+        (every rank's recorded micro-batches, concatenated in rank order)
+        with unpartitioned parameters; raises RuntimeError on a mismatch.
+        Skipped on an fp16 overflow step (its gradients are non-finite by
+        design)."""
+        records, self._pg_inputs = self._pg_inputs, []
+        if self.loss_scaler is not None and \
+                self._agreed(has_overflow(grads)):
+            return
+        every = comm.all_gather_object(records, self.dp_group) \
+            if self.dp_world_size > 1 else [records]
+        fulls = self._zero.full_masters() if self._zero is not None else \
+            [p.detach().float() for p in self._params]
+        ref = {n: f.detach().clone().requires_grad_(True)
+               for n, f in zip(self._names, fulls)}
+        gas = self.gradient_accumulation_steps()
+        if self._zero is not None:
+            self._zero.suspended = True
+        try:
+            with torch.enable_grad():
+                for step in range(len(records)):
+                    args = tuple(torch.cat([r[step][j] for r in every]).to(
+                        self.device) for j in range(len(records[step])))
+                    kwargs = {"deterministic": True} \
+                        if self._takes_deterministic else {}
+                    out = torch.func.functional_call(self.module, ref, args,
+                                                     kwargs)
+                    loss = out[0] if isinstance(out, tuple) else out
+                    (loss * (scale / gas)).backward()
+        finally:
+            if self._zero is not None:
+                self._zero.suspended = False
+        tol = 1e-4 if self.compute_dtype == torch.float32 else 2e-2
+        for i, (name, g) in enumerate(zip(self._names, grads)):
+            want = ref[name].grad
+            want = torch.zeros_like(fulls[i]) if want is None else want
+            if tuple(g.shape) != tuple(want.shape):
+                want = mesh_lib.shard_slice(want, self._zero.dims[i],
+                                            self._zero.rank, self._zero.dp)
+            a = g.detach().float().cpu().numpy()
+            b = want.detach().float().cpu().numpy()
+            if not np.allclose(a, b, rtol=tol, atol=tol):
+                raise RuntimeError(
+                    "pg_correctness_test: reduced gradient for {} diverges "
+                    "from the fp32 replicated reference (max abs diff "
+                    "{})".format(name, np.abs(a - b).max()))
+
+    @torch.no_grad()
+    def _partitioned_update(self, grads, inv_scale, lr, betas):
+        """Unscale and clip the gradient shards, update the rank's master
+        and moment shards, publish the parameters."""
+        if inv_scale != 1.0:
+            torch._foreach_mul_(grads, inv_scale)
+        clip = self.gradient_clipping()
+        if clip > 0.0:
+            norm = self._partitioned_norm(grads)
+            torch._foreach_mul_(grads, torch.clamp(clip / (norm + 1e-6),
+                                                   max=1.0))
+        self.optimizer.update(self._zero.master, grads, self.opt_state,
+                              lr=lr, betas=betas)
+        self._zero.publish()
+
     @torch.no_grad()
     def _take_model_step(self, lr_kwargs=None):
         streamed = self._streamed is not None
         grads = None
-        if not streamed:
+        if self._zero is not None:
+            grads = self._reduce_partitioned()
+        elif not streamed:
+            self.allreduce_gradients()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in self._params]
         overflow = False
         cur_scale = 1.0
         if self.loss_scaler is not None:
             cur_scale = self.loss_scaler.loss_scale
+        if pg_correctness_test and grads is not None:
+            self._pg_correctness_check(grads, cur_scale)
+        if self.loss_scaler is not None:
             if streamed:
                 # inf/nan in any gradient reaches its squared norm.
                 overflow = not bool(torch.isfinite(
                     self._streamed_sq().sum()))
             else:
-                overflow = bool(has_overflow(grads))
+                # Agreed over the group: every rank skips the same step.
+                overflow = self._agreed(has_overflow(grads))
             self.loss_scaler.update_scale(overflow)
         if overflow:
             self.skipped_steps += 1
@@ -659,7 +967,10 @@ class DeepSpeedEngine(object):
                                                 self.loss_scaler.loss_scale))
         else:
             group = self.optimizer.param_groups[0]
-            if self._offload_mode():
+            if self._zero is not None:
+                self._partitioned_update(grads, 1.0 / cur_scale, group["lr"],
+                                         group.get("betas", (0.9, 0.999)))
+            elif self._offload_mode():
                 # The gradients leave .grad: the host step consumes them.
                 self.zero_grad()
                 self._offload_step(grads, 1.0 / cur_scale, group["lr"])
@@ -673,7 +984,8 @@ class DeepSpeedEngine(object):
                                       betas=group.get("betas", (0.9, 0.999)))
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step(**(lr_kwargs or {}))
-            if (self.global_steps + 1) % self.steps_per_print() == 0:
+            if self.global_rank == 0 and \
+                    (self.global_steps + 1) % self.steps_per_print() == 0:
                 self._report_progress(self.global_steps + 1)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -723,7 +1035,12 @@ class DeepSpeedEngine(object):
 
         loss = self.xray.measure("train_step", run)
         self.xray.note("train_step", tokens=self.train_batch_size())
-        return loss.detach()
+        loss = loss.detach()
+        if self.dp_world_size > 1:
+            # The data group's mean (the JAX step's pmean).
+            loss = comm.all_reduce(loss.float().clone(), self.dp_group,
+                                   mean=True)
+        return loss
 
     def perf_xray(self):
         """The schema-versioned ``perf_xray`` section of the training
@@ -737,17 +1054,82 @@ class DeepSpeedEngine(object):
         return os.path.join(checkpoints_path, str(tag),
                             "mp_rank_00_model_states.pt")
 
-    def _get_zero_ckpt_name(self, checkpoints_path, tag):
+    def _get_zero_ckpt_name(self, checkpoints_path, tag, dp_rank=0):
         return os.path.join(checkpoints_path, str(tag),
-                            "zero_pp_rank_0_mp_rank_00optim_states.pt")
+                            "zero_pp_rank_{}_mp_rank_00optim_states.pt"
+                            .format(dp_rank))
 
-    def _optimizer_state_for_save(self):
+    def _state_shards(self, state):
+        """This rank's elastic shard tree of the partitioned optimizer
+        state (the JAX ``_partition_state_for_rank`` layout): ("shard", dim,
+        array) for a partitioned leaf, ("full", array) for a replicated one
+        and the step in rank 0's file, ("ref",) in the others'."""
+        z = self._zero
+        first = self.dp_rank == 0
+
+        def leaves(tensors):
+            tree = {}
+            for i, (name, t) in enumerate(zip(self._names, tensors)):
+                node = tree
+                *path, leaf = name.split(".")
+                for key in path:
+                    node = node.setdefault(key, {})
+                arr = t.detach().float().cpu().numpy()
+                node[leaf] = ("shard", z.dims[i], arr) if z.owned(i) else \
+                    (("full", arr) if first else ("ref",))
+            return tree
+
+        return {"step": ("full", np.asarray(state["step"], np.int32))
+                if first else ("ref",),
+                "exp_avg": leaves(state["exp_avg"]),
+                "exp_avg_sq": leaves(state["exp_avg_sq"])}
+
+    def _load_zero_state(self, load_dir, tag):
+        """The optimizer state dict of the zero file(s), the full logical
+        state: an elastic checkpoint's shard files are all read and merged
+        (the JAX ``_load_zero_state``), whatever data-parallel size saved
+        them. None without a zero file."""
+        zero_path = self._get_zero_ckpt_name(load_dir, tag)
+        if not os.path.exists(zero_path):
+            return None
+        with open(zero_path, "rb") as f:
+            head = pickle.load(f)
+        if "state_shards" not in head:
+            return head["optimizer_state_dict"]
+        saved_world = head["zero_dp_world_size"]
+        shard_trees = [head["state_shards"]]
+        for r in range(1, saved_world):
+            path_r = self._get_zero_ckpt_name(load_dir, tag, dp_rank=r)
+            if not os.path.exists(path_r):
+                raise FileNotFoundError(
+                    "elastic zero checkpoint saved at dp={} is missing shard "
+                    "file {}".format(saved_world, path_r))
+            with open(path_r, "rb") as f:
+                shard_trees.append(pickle.load(f)["state_shards"])
+        opt_sd = dict(head["optimizer_state_dict"])
+        opt_sd["state"] = _merge_state_shards(shard_trees)
+        if saved_world != self.dp_world_size:
+            logger.info("elastic zero checkpoint: re-partitioning optimizer "
+                        "state saved at dp=%d onto dp=%d", saved_world,
+                        self.dp_world_size)
+        return opt_sd
+
+    def _optimizer_state_for_save(self, shards=False):
         """{"state": step and moments as flax trees of numpy arrays (None
         before an offload step built them), the optimizer's param_groups,
         and under offload "fp32_master", the flat host master in JAX's
-        leaf order}."""
+        leaf order}. Partitioned: with ``shards`` the state is this rank's
+        elastic shard tree (``_state_shards``); without, the moments are
+        all-gathered whole (every rank must call it)."""
         sd = {"state": None}
-        if self.opt_state is not None:
+        if self.opt_state is not None and self._zero is not None:
+            sd["state"] = self._state_shards(self.opt_state) if shards else {
+                "step": np.asarray(self.opt_state["step"], np.int32),
+                "exp_avg": _nest(self._names, self._zero.gather_states(
+                    self.opt_state["exp_avg"])),
+                "exp_avg_sq": _nest(self._names, self._zero.gather_states(
+                    self.opt_state["exp_avg_sq"]))}
+        elif self.opt_state is not None:
             sd["state"] = {
                 "step": np.asarray(self.opt_state["step"], np.int32),
                 "exp_avg": _nest(self._names, self.opt_state["exp_avg"]),
@@ -769,34 +1151,53 @@ class DeepSpeedEngine(object):
             tag = "global_step{}".format(self.global_steps)
         save_path = self._get_ckpt_name(save_dir, tag)
         ensure_directory_exists(save_path)
-        optimizer = None
-        if self.optimizer is not None:
-            optimizer = self._optimizer_state_for_save()
+        self._ensure_zero()
+        first = self.dp_rank == 0
         zero = self.zero_optimization()
-        state = {
-            "module": flax_tree(self.module),
-            "optimizer": None if zero else optimizer,
-            "lr_scheduler": self.lr_scheduler.state_dict()
-            if self.lr_scheduler is not None else None,
-            "csr_tensor_module_names": [],
-            "skipped_steps": self.skipped_steps,
-            "global_steps": self.global_steps,
-            "global_samples": self.global_samples,
-            "dp_world_size": 1,
-            "mp_world_size": 1,
-            "loss_scaler": self.loss_scaler.__dict__.copy()
-            if self.loss_scaler is not None else None,
-        }
-        if client_state is not None:
-            state.update(client_state)
-        with open(save_path, "wb") as f:
-            pickle.dump(state, f)
-        if zero:
+        elastic = self._zero is not None and self.zero_elastic_checkpoint()
+        optimizer = None
+        if self.optimizer is not None and (first or elastic):
+            optimizer = self._optimizer_state_for_save(shards=elastic)
+        elif self._zero is not None and self.optimizer is not None:
+            self._optimizer_state_for_save(shards=False)  # collective
+        # The full fp32 masters (an all-gather when partitioned).
+        module = _nest(self._names, self._zero.full_masters()) \
+            if self._zero is not None else flax_tree(self.module)
+        if first:
+            state = {
+                "module": module,
+                "optimizer": None if zero else optimizer,
+                "lr_scheduler": self.lr_scheduler.state_dict()
+                if self.lr_scheduler is not None else None,
+                "csr_tensor_module_names": [],
+                "skipped_steps": self.skipped_steps,
+                "global_steps": self.global_steps,
+                "global_samples": self.global_samples,
+                "dp_world_size": self.dp_world_size,
+                "mp_world_size": self.mp_world_size,
+                "loss_scaler": self.loss_scaler.__dict__.copy()
+                if self.loss_scaler is not None else None,
+            }
+            if client_state is not None:
+                state.update(client_state)
+            with open(save_path, "wb") as f:
+                pickle.dump(state, f)
+        if zero and elastic:
+            # One file per rank, each written by its rank.
+            shards = optimizer.pop("state")
+            with open(self._get_zero_ckpt_name(save_dir, tag, self.dp_rank),
+                      "wb") as f:
+                pickle.dump({"optimizer_state_dict": optimizer,
+                             "state_shards": shards,
+                             "zero_dp_world_size": self.dp_world_size}, f)
+        elif zero and first:
             with open(self._get_zero_ckpt_name(save_dir, tag), "wb") as f:
                 pickle.dump({"optimizer_state_dict": optimizer}, f)
-        if save_latest:
+        if save_latest and first:
             with open(os.path.join(save_dir, "latest"), "w") as fd:
                 fd.write(str(tag))
+        if self.dp_world_size > 1:
+            torch.distributed.barrier(group=self.dp_group)
         return True
 
     @torch.no_grad()
@@ -822,18 +1223,28 @@ class DeepSpeedEngine(object):
         with open(load_path, "rb") as f:
             checkpoint = pickle.load(f)
 
-        load_flax_tree(self.module, checkpoint["module"])
+        self._ensure_zero()
+        if self._zero is not None:
+            self._zero.load_full([_host_leaf(checkpoint["module"], n)
+                                  for n in self._names])
+        else:
+            load_flax_tree(self.module, checkpoint["module"])
         if self._offload_mode():
             self._init_offload()
         opt_sd = checkpoint.get("optimizer")
-        zero_path = self._get_zero_ckpt_name(load_dir, tag)
-        if self.zero_optimization() and os.path.exists(zero_path):
-            with open(zero_path, "rb") as f:
-                opt_sd = pickle.load(f)["optimizer_state_dict"]
+        if self.zero_optimization():
+            opt_sd = self._load_zero_state(load_dir, tag) or opt_sd
         if load_optimizer_states and self.optimizer is not None and \
                 opt_sd is not None and opt_sd.get("state") is not None:
             saved = opt_sd["state"]
-            if self._offload is not None:
+            if self._zero is not None:
+                # The full logical state, sliced to this rank's shards.
+                for key in ("exp_avg", "exp_avg_sq"):
+                    for i, (name, t) in enumerate(zip(self._names,
+                                                      self.opt_state[key])):
+                        t.copy_(self._zero.shard_of(
+                            i, _host_leaf(saved[key], name)))
+            elif self._offload is not None:
                 master = opt_sd.get("fp32_master")
                 self._offload.load_moments(
                     [_host_leaf(saved["exp_avg"], n) for n in self._names],
@@ -861,3 +1272,22 @@ class DeepSpeedEngine(object):
         client_state = {k: v for k, v in checkpoint.items()
                         if k not in _DEEPSPEED_STATES}
         return load_path, client_state
+
+
+def _fold_seed(seed, rank):
+    """A seed for data rank ``rank`` derived from ``seed`` (distinct per
+    rank, the same on every run)."""
+    return (seed * 0x9E3779B1 + 0x85EBCA6B * (rank + 1)) % (2 ** 63)
+
+
+def _merge_state_shards(shard_trees):
+    """The full logical state from every saved rank's shard tree (the JAX
+    ``_merge_state_shards``): a replicated leaf from rank 0's ("full", ...)
+    entry, a partitioned one concatenated along its dim."""
+    first = shard_trees[0]
+    if isinstance(first, dict):
+        return {k: _merge_state_shards([t[k] for t in shard_trees])
+                for k in first}
+    if first[0] in ("full", "ref"):
+        return next(e for e in shard_trees if e[0] == "full")[1]
+    return np.concatenate([e[2] for e in shard_trees], axis=first[1])

@@ -1,1 +1,2 @@
-"""ZeRO config (only stage 0 is ported)."""
+"""ZeRO: the config, the host offload tier (``offload``) and the stages
+partitioned over a data group (``partition``)."""

@@ -1,2 +1,3 @@
-"""Host utilities of the port: the package logger and the wall-clock
-and throughput timers (counterparts of ``deepspeed_tpu/utils``)."""
+"""Host utilities of the port: the package logger, the wall-clock and
+throughput timers and the process-group bootstrap (counterparts of
+``deepspeed_tpu/utils``)."""

@@ -87,6 +87,9 @@ try:
         install_requires=["jax", "flax", "numpy"],
         extras_require={"dev": ["pytest"]},
         scripts=["bin/deepspeed", "bin/ds_report", "bin/ds_elastic"],
+        # The PyTorch port's runner (one process per GPU).
+        entry_points={"console_scripts": [
+            "deepspeed-torch=deepspeed_tpu_torch.launcher.runner:main"]},
         python_requires=">=3.9",
     )
 finally:

@@ -1826,3 +1826,63 @@ def test_flash_attention_with_lse_backward(cuda, dtype):
         for got, w in zip(grads, want):
             torch.testing.assert_close(got, w, rtol=0,
                                        atol=1e-4 * float(w.abs().max()))
+
+
+# ------------------------------------------------ data-parallel ZeRO
+
+
+@pytest.mark.parametrize("stage", [0, 2, 3])
+def test_two_rank_gloo_zero_step_on_the_card(cuda, tmp_path, stage):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device), started by the port's launcher (tests/torch_dist_worker.py),
+    a 2-layer GPT-2 of width 128 (head width 64, the kernels') at fp32
+    compute, gas 2: every micro-step's group-mean loss
+    within 1e-5 relative of one process on the whole batch on the card,
+    the masters within 1e-5 of each tensor's max-abs, K1 and K2a launched
+    n_layer times per micro-step on each rank."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    from tests.torch_dist_worker import run_ranks
+
+    cfg = {"train_batch_size": 8, "gradient_accumulation_steps": 2,
+           "steps_per_print": 1000, "bf16": {"enabled": True},
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-2,
+                                                     "eps": 1e-3}},
+           "zero_optimization": {"stage": stage}}
+    width = dict(n_embd=128, n_layer=2, n_head=2, vocab_size=1024,
+                 n_positions=128, dropout=0.0)
+    model = GPT2LMHeadModel(GPT2Config(dtype=torch.float32, **width),
+                            device="cpu", seed=0)
+    params = {}
+    for name, p in model.named_parameters():
+        node = params
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().numpy().copy()
+    batches = [(b, b) for b in (np.random.RandomState(s).randint(
+        0, 1024, size=(4, 32)) for s in range(4))]
+    ranks = run_ranks(2, [dict(name="dp", kind="train", model="gpt2",
+                               gpt2_cfg=width, device="cuda:0",
+                               params=params, config=cfg, fp32_compute=True,
+                               batches=batches)], str(tmp_path / "w"))
+    engine = tds.initialize(model=GPT2LMHeadModel(
+        GPT2Config(dtype=torch.float32, **width), device=cuda, seed=None),
+        model_parameters=params, config_params=cfg, device=cuda)[0]
+    engine.compute_dtype = torch.float32
+    want = []
+    for ids, _ in batches:
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        want.append(float(loss.detach()))
+    for r in ranks:
+        got = r["dp"]
+        np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+        assert got["launches"]["flash_fwd"] == 2 * len(batches)
+        assert got["launches"]["flash_bwd_fused"] == 2 * len(batches)
+        for name, p in zip(engine._names, engine._params):
+            w = p.detach().float().cpu().numpy()
+            np.testing.assert_allclose(got["masters"][name], w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=name)

@@ -145,3 +145,31 @@ def test_initialize_with_training_data_trains_like_jax():
     tl = [float(teng.train_batch(data_iter=tit)) for _ in range(6)]
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
     assert teng.global_steps == 6
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2])
+def test_engine_loader_reads_its_data_rank_share(rank):
+    """Over several ranks ``initialize(training_data=...)`` hands the
+    loader the engine's data-parallel size and rank: each rank reads its
+    round-robin share, as the JAX loader at the same size and rank. (A
+    three-rank grid with a stand-in group: nothing here runs a
+    collective.)"""
+    from deepspeed_tpu_torch.models.simple import SimpleModel
+    from deepspeed_tpu_torch.parallel.mesh import Mesh
+
+    rows = [(np.full(4, i, np.float32), np.int64(i % 4)) for i in range(18)]
+    engine, _, loader, _ = tds.initialize(
+        model=SimpleModel(4, device="cpu"), training_data=rows,
+        config_params={"train_micro_batch_size_per_gpu": 2,
+                       "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}},
+        device="cpu", mesh=Mesh((1, 3, 1, 1), rank, object()))
+    assert (loader.dp_world_size, loader.dp_rank) == (3, rank)
+    assert engine.train_batch_size() == 6
+    want = jdl.DeepSpeedDataLoader(rows, batch_size=2,
+                                   data_parallel_world_size=3,
+                                   data_parallel_rank=rank)
+    got = list(loader)
+    assert len(got) == len(want) == 3
+    for batch, jbatch in zip(got, want):
+        _equal(batch, jbatch)
+        assert {int(v) % 3 for v in batch[0][:, 0]} == {rank}

@@ -89,7 +89,7 @@ def test_parses_as_the_jax_package_does(i):
     {"progressive_layer_drop": {"enabled": True}},
     {"sequence_parallel": {"enabled": True, "size": 2}},
     {"flops_profiler": {"enabled": True}},
-    {"elasticity": {"enabled": True}},
+    {"pipeline": {"partition": "uniform"}},
     {"activation_checkpointing": {"partition_activations": True}},
     {"pipeline": {"stages": 2}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
@@ -102,15 +102,52 @@ def test_unported_subsystems_raise(extra):
 
 
 @pytest.mark.parametrize("zero", [
-    {"stage": 1}, {"stage": 2, "cpu_offload": True}, {"stage": 0}])
+    {"stage": 2, "cpu_offload": True, "stream_gradients": True},
+    {"stage": 2, "cpu_offload": True}, {"stage": 0, "cpu_offload": True}])
 def test_world_size_other_than_one_raises(zero):
-    """ZeRO over several ranks is ROADMAP item 6: the JAX config takes a
-    world size of 2, the port refuses it, naming the item."""
+    """ZeRO-Offload over several ranks is ROADMAP item 6: the JAX config
+    takes it at a world size of 2, the port refuses it, naming the item
+    (ZeRO itself over several ranks is ported: see the next test)."""
     cfg = {"train_batch_size": 8, "bf16": {"enabled": True},
            "zero_optimization": zero}
     JConfig(None, param_dict=dict(cfg), world_size=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         TConfig(None, param_dict=dict(cfg), world_size=2)
+
+
+@pytest.mark.parametrize("world_size", [2, 4])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_world_sizes_parse_as_the_jax_package_does(stage, world_size):
+    """Stages 0-3 at a world size of 2 and 4: the batch triangle
+    (train = micro x accumulation x world size) and the ZeRO fields equal
+    the JAX config's, and sparse_gradients is read."""
+    for batch in ({"train_batch_size": 16},
+                  {"train_batch_size": 16, "gradient_accumulation_steps": 2},
+                  {"train_micro_batch_size_per_gpu": 2,
+                   "gradient_accumulation_steps": 2}):
+        cfg = dict(batch, bf16={"enabled": True}, sparse_gradients=True,
+                   zero_optimization={"stage": stage,
+                                      "reduce_bucket_size": 1000,
+                                      "allgather_bucket_size": 2000,
+                                      "overlap_comm": True,
+                                      "contiguous_gradients": True,
+                                      "elastic_checkpoint": False,
+                                      "load_from_fp32_weights": False})
+        want = JConfig(None, param_dict=dict(cfg), world_size=world_size)
+        got = TConfig(None, param_dict=dict(cfg), world_size=world_size)
+        for name in FIELDS + ("sparse_gradients_enabled", "world_size"):
+            assert getattr(got, name) == getattr(want, name), name
+        for name in ("stage", "reduce_bucket_size", "allgather_bucket_size",
+                     "overlap_comm", "contiguous_gradients",
+                     "elastic_checkpoint", "load_from_fp32_weights"):
+            assert getattr(got.zero_config, name) == \
+                getattr(want.zero_config, name), name
+    with pytest.raises(ValueError) as err:
+        TConfig(None, param_dict={"train_batch_size": 6,
+                                  "train_micro_batch_size_per_gpu": 2,
+                                  "gradient_accumulation_steps": 2},
+                world_size=world_size)
+    assert "world_size" in str(err.value)
 
 
 @pytest.mark.parametrize("cfg", [

@@ -57,6 +57,35 @@ def test_import_loads_no_jax_module():
         "runtime.zero.offload", "runtime.dataloader", "models.simple",
         "runtime.fp16.fused_optimizer", "runtime.fp16.unfused_optimizer"
     )} <= set(names)
+    # ... and of the data-parallel slice
+    assert set(DATA_PARALLEL_MODULES) <= set(names)
+
+
+# The data-parallel slice's modules: none may import JAX or the JAX package.
+DATA_PARALLEL_MODULES = tuple("deepspeed_tpu_torch." + m for m in (
+    "launcher.launch", "launcher.runner", "launcher.multinode_runner",
+    "elasticity", "elasticity.config", "elasticity.constants",
+    "elasticity.elasticity", "utils.distributed", "runtime.csr_tensor",
+    "parallel.mesh", "parallel.comm", "runtime.zero.partition", "version"))
+
+
+@pytest.mark.parametrize("module", DATA_PARALLEL_MODULES)
+def test_data_parallel_modules_import_no_jax(module):
+    """Each module's own source imports neither JAX nor the JAX package,
+    at its top or inside a function (``test_import_loads_no_jax_module``
+    imports them all in a fresh interpreter)."""
+    import importlib
+
+    path = importlib.import_module(module).__file__
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
 
 
 def test_host_sources_are_the_ports_own():

@@ -1,0 +1,328 @@
+"""Rank process of the port's multi-process tests (gloo on the CPU).
+
+Started once per rank by ``deepspeed_tpu_torch.launcher.launch``, which
+sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT:
+
+    python -m deepspeed_tpu_torch.launcher.launch --world_info=<b64> \\
+        tests/torch_dist_worker.py <dir>
+
+``<dir>/spec.pkl`` lists the tasks; the rendezvous is a FileStore in
+``<dir>`` (each test its own, so parallel test files never share a port),
+and every process group has a 60 s timeout. Each rank writes
+``<dir>/result_<rank>.pkl``: {task name: result}. It imports torch and the
+port only (no JAX).
+
+``run_ranks`` (or ``start_ranks`` and ``wait_ranks``, for the tests)
+writes the spec, starts the launcher and returns every rank's results,
+killing the launch at its timeout.
+"""
+
+import base64
+import json
+import os
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT_S = 60
+
+
+def start_ranks(n, tasks, workdir):
+    """Start ``n`` ranks through the port's launcher on ``tasks`` (a list
+    of dicts with "name" and "kind"); returns the launcher's process for
+    ``wait_ranks``."""
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "spec.pkl"), "wb") as f:
+        pickle.dump({"tasks": tasks}, f)
+    info = base64.urlsafe_b64encode(json.dumps(
+        {"localhost": list(range(n))}).encode()).decode()
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--world_info={}".format(info), "--master_port=1",
+         os.path.join(REPO, "tests", "torch_dist_worker.py"), workdir],
+        cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    proc.n, proc.workdir = n, workdir
+    return proc
+
+
+def wait_ranks(proc, timeout=150):
+    """Every rank's results of a ``start_ranks`` launch, in rank order.
+    Raises on a failed rank; kills the launch and raises at ``timeout``
+    seconds."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError("ranks failed ({}):\n{}".format(
+            proc.returncode, err[-6000:]))
+    out = []
+    n, workdir = proc.n, proc.workdir
+    for r in range(n):
+        with open(os.path.join(workdir, "result_{}.pkl".format(r)),
+                  "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def run_ranks(n, tasks, workdir, timeout=150):
+    """``start_ranks`` then ``wait_ranks``."""
+    return wait_ranks(start_ranks(n, tasks, workdir), timeout=timeout)
+
+
+# ----------------------------------------------------------- rank side
+
+
+def _model(task):
+    import torch
+
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.models.simple import LinearStack, SimpleModel
+
+    kind = task["model"]
+    device = task.get("device", "cpu")
+    if kind == "linear":
+        return LinearStack(device=device, **task["dims"])
+    if kind == "gpt2":
+        cfg = GPT2Config(dtype=torch.float32, **task["gpt2_cfg"]) \
+            if "gpt2_cfg" in task else \
+            GPT2Config.tiny(dtype=torch.float32, **task.get("cfg", {}))
+        return GPT2LMHeadModel(cfg, device=device, seed=None)
+    if kind == "embed":
+        return EmbedModel()
+    if kind == "simple":
+        return SimpleModel(task["hidden"], device="cpu")
+    raise ValueError(kind)
+
+
+class EmbedModel(object):
+    """Built lazily (torch is imported in the rank only)."""
+
+    def __new__(cls, vocab=64, dim=16):
+        import torch
+        import torch.nn.functional as F
+        from torch import nn
+
+        from deepspeed_tpu_torch.models.simple import Dense
+
+        class _Embed(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.embedding = nn.Parameter(torch.zeros(vocab, dim),
+                                              requires_grad=False)
+
+        class _EmbedModel(nn.Module):
+            """The JAX CSR test's EmbedModel under the flax names: an
+            embedding table ("embed"), the tokens' mean, a Dense head
+            ("Dense_0") and the cross-entropy loss."""
+
+            def __init__(self):
+                super().__init__()
+                self.embed = _Embed()
+                self.Dense_0 = Dense(dim, vocab, device="cpu",
+                                     generator=torch.Generator())
+
+            def forward(self, ids, y):
+                h = self.embed.embedding[ids.long()].mean(dim=1)
+                logp = F.log_softmax(self.Dense_0(h), dim=-1)
+                return -logp.gather(-1, y.long()[:, None])[:, 0].mean()
+
+        return _EmbedModel()
+
+
+def _local(batch, rank, world):
+    """Rank ``rank``'s rows of a global micro-batch."""
+    n = batch[0].shape[0] // world
+    return tuple(x[rank * n:(rank + 1) * n] for x in batch)
+
+
+def _held_grads(z):
+    """The shapes of the gradients a rank holds after its boundary
+    backward: the reduced shard (stages 2-3) or the whole accumulated
+    gradient (stage 1)."""
+    return [tuple((g if g is not None else a).shape)
+            for g, a in zip(z.grad, z.acc)]
+
+
+def task_train(task, rank, world):
+    """Train ``task["model"]`` from the flax tree ``task["params"]`` on the
+    global micro-batches ``task["batches"]`` (each rank its rows): the
+    data group's mean loss per micro-step, the shard shapes (gradients
+    at the first boundary backward, moments and parameter shards after
+    the first step), the stage-3 gathers per micro-step, the full fp32
+    masters at the end, and an optional checkpoint save/load."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+
+    device = task.get("device", "cpu")
+    engine, _, _, _ = tds.initialize(
+        model=_model(task), model_parameters=task["params"],
+        config_params=task["config"], device=device)
+    at.reset_launches()
+    if task.get("fp32_compute"):
+        engine.compute_dtype = torch.float32
+    out = {"losses": [], "gathers": [], "names": list(engine._names)}
+    if task.get("load"):
+        engine.load_checkpoint(task["load"])
+    engine_mod.pg_correctness_test = bool(task.get("pg"))
+    if task.get("pg_corrupt"):
+        # A partitioner fault: one leaf's reduced gradient doubled.
+        real = engine._reduce_partitioned
+
+        def corrupt():
+            grads = real()
+            grads[0].mul_(2.0)
+            return grads
+
+        engine._reduce_partitioned = corrupt
+    try:
+        for i, batch in enumerate(task["batches"]):
+            if task.get("save") and i == task["save_after"]:
+                engine.save_checkpoint(task["save"], tag="ck")
+                out["saved_at"] = engine.global_steps
+            local = tuple(torch.from_numpy(np.asarray(x)).to(device)
+                          for x in _local(batch, rank, world))
+            before = engine.zero_gathers()
+            boundary = engine.is_gradient_accumulation_boundary()
+            comm.reset_stats()
+            loss = engine(*local)
+            engine.backward(loss)
+            reduced = comm.stats["all_reduce"] + comm.stats["reduce_scatter"]
+            if boundary and engine._zero is not None and "grad" not in out:
+                out["grad"] = _held_grads(engine._zero)
+            engine.step()
+            out.setdefault("reductions", []).append(
+                comm.stats["all_reduce"] + comm.stats["reduce_scatter"])
+            out.setdefault("backward_reductions", []).append(reduced)
+            out.setdefault("all_gathers", []).append(
+                comm.stats["all_gather"])
+            out["gathers"].append(engine.zero_gathers() - before)
+            mean = comm.all_reduce(loss.detach().float().reshape(1).clone(),
+                                   engine.dp_group, mean=True)
+            out["losses"].append(float(mean))
+            if boundary and engine._zero is not None and "moment" not in out:
+                out["moment"] = [tuple(m.shape)
+                                 for m in engine.opt_state["exp_avg"]]
+                if engine._zero.param_shards is not None:
+                    out["param"] = [tuple(s.shape)
+                                    for s in engine._zero.param_shards]
+    except RuntimeError as e:
+        if not task.get("pg_corrupt"):
+            raise
+        out["error"] = str(e)
+        return out
+    finally:
+        engine_mod.pg_correctness_test = False
+    fulls = engine._zero.full_masters() if engine._zero is not None else \
+        [p.detach().float() for p in engine._params]
+    out["masters"] = {n: f.cpu().numpy().copy()
+                      for n, f in zip(engine._names, fulls)}
+    out["launches"] = dict(at.launches)
+    out["skipped"] = engine.skipped_steps
+    out["dp_rank"] = engine.dp_rank
+    dist.barrier()
+    return out
+
+
+def task_env(task, rank, world):
+    """The launcher's environment contract and a real all-reduce."""
+    import torch
+    import torch.distributed as dist
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+            "CUDA_VISIBLE_DEVICES")
+    t = torch.tensor([float(rank + 1)])
+    dist.all_reduce(t)
+    return {"env": {k: os.environ.get(k) for k in keys},
+            "argv": sys.argv[1:], "sum": float(t), "backend":
+            dist.get_backend()}
+
+
+def task_collectives(task, rank, world):
+    """parallel/comm.py's reduce-scatter and all-gather on this rank's
+    numbers, and the sparse exchange on both of its paths."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.csr_tensor import (CSRTensor,
+                                                        csr_allreduce,
+                                                        pad_csr,
+                                                        sparse_grad_exchange)
+
+    group = dist.group.WORLD
+    flat = torch.arange(world * 3, dtype=torch.float32) * (rank + 1)
+    rs = comm.reduce_scatter(flat.clone(), group, mean=True)
+    ag = comm.all_gather(torch.full((2,), float(rank)), group)
+    g = torch.from_numpy(task["grads"][rank])
+    csr = CSRTensor(g)
+    idx, val = pad_csr(csr.indices, csr.values, task["k"])
+    idx, val = csr_allreduce(idx, val, group)
+    merged = CSRTensor(indices=idx, values=val, dense_size=g.shape)
+    return {"rs": rs.numpy(), "ag": ag.numpy(),
+            "sparse": sparse_grad_exchange(g, group, task["k"]).numpy(),
+            "dense_k": sparse_grad_exchange(g, group, 1).numpy(),
+            "csr": merged.to_dense().numpy()}
+
+
+def task_freed(task, rank, world):
+    """A dropped stage-3 engine (and its partition, whose gradient hooks
+    live on the parameters) is freed by the cycle collector."""
+    import gc
+    import weakref
+
+    import torch
+
+    import deepspeed_tpu_torch as tds
+
+    engine, _, _, _ = tds.initialize(
+        model=_model(task), model_parameters=task["params"],
+        config_params=task["config"], device="cpu")
+    ids = torch.from_numpy(task["batches"][0][0][rank::world])
+    engine.train_batch((ids, ids))
+    refs = [weakref.ref(engine), weakref.ref(engine._zero)]
+    del engine
+    gc.collect()
+    return [r() is None for r in refs]
+
+
+TASKS = {"train": task_train, "env": task_env,
+         "collectives": task_collectives, "freed": task_freed}
+
+
+def main(workdir):
+    import torch
+
+    from deepspeed_tpu_torch.utils.distributed import init_distributed
+
+    torch.set_num_threads(1)
+    with open(os.path.join(workdir, "spec.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    init_distributed(init_method="file://" + os.path.join(workdir, "store"),
+                     timeout=TIMEOUT_S, device="cpu", verbose=False)
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    results = {t["name"]: TASKS[t["kind"]](t, rank, world)
+               for t in spec["tasks"]}
+    with open(os.path.join(workdir, "result_{}.pkl".format(rank)),
+              "wb") as f:
+        pickle.dump(results, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main([a for a in sys.argv[1:] if not a.startswith("--local_rank")][0])
