@@ -48,7 +48,8 @@ of which exits non-zero on failure:
    tile past the frontier set to 1e4 and every later tile to NaN, the last
    POISON_CONCURRENT repeats beside K3 launches on a second stream;
 4. serving at full width: GPT-2 medium, bf16, seeded weights, through
-   init_inference; 24 requests of 64/256 prompt tokens and 96 new tokens;
+   init_inference; N_REQUESTS (20) requests of 64/256 prompt tokens and
+   96 new tokens;
    each step is its key's program (prefill lane present, any row samples,
    any row filters top-k), captured as a CUDA graph at the key's first
    step and replayed at every later one; each serving path's kernel launch
@@ -229,10 +230,13 @@ of which exits non-zero on failure:
    autograd through the dense reference), the BERT-large shape (B=16,
    H=16, T=512, D=64, bf16, non-causal, every other row padded as the BERT
    batches are), a non-causal case with a random additive mask, a ragged
-   T=1000 and T=64; each element held to its own limit (see FLASH_TOL);
-   times the kernels (K2b's two kernels also apart), the plain versions and
-   torch's scaled_dot_product_attention (a yardstick only) beside the
-   bound, at the training and the BERT shapes;
+   T=1000 and T=64, the model-parallel arms' shapes (phase 16: B=8 H=8
+   on each tensor-parallel rank, B=2 H=16 a pipeline micro-batch, T=1024,
+   bf16, causal) and GPT-2 XL's (B=2 H=25); each element held to its own
+   limit (see FLASH_TOL); times the kernels (K2b's two kernels also
+   apart), the plain versions and torch's scaled_dot_product_attention (a
+   yardstick only) beside the bound, at the training, the BERT, the
+   model-parallel and GPT-2 XL's shapes;
 7. training at full width: GPT-2 medium, bf16, seeded weights, through
    initialize / train_batch on batches of 8 x 1024; the loss must be finite
    and fall; the kernels' launch counts are reset just before the counted
@@ -325,10 +329,28 @@ of which exits non-zero on failure:
    ZeRO-2 step as a one-rank NCCL group against the same step without a
    group, and the NCCL reduce-scatter and all-gather on CUDA tensors
    (``data_parallel_nccl``);
-16. the kernels line (each decode kernel's entry also carries its
+16. model parallelism (phase_model_parallel): MP_RANKS rank processes of
+   this script on cuda:0, started by the port's launcher
+   (``deepspeed_tpu_torch.launcher.launch``) and joined over gloo, each
+   with an MP_TIMEOUT_S rendezvous and collective timeout; GPT-2 medium
+   bf16 at full width and depth, AdamW 1e-4, dropout 0, the global 8 x
+   1024: tensor parallelism (mp 2, each rank 8 of the 16 heads and half of
+   every c_attn, c_fc and c_proj kernel) through ``train_batch``, then the
+   1F1B pipeline (2 stages of 12 blocks, 4 micro-batches of 2 x 1024, the
+   tied embedding) through ``train_batch(data_iter=...)``, each MP_WARM
+   steps then MP_TIMED timed ones; a ``model_parallel`` line per rank and
+   arm (tokens/s, mean step ms, peak device memory, K1/K2a launches,
+   all-reduce, p2p and tied-gradient bytes per step); fails unless K1 and
+   K2a run 24 times a step on each TP rank and 12 x 4 on each stage, and
+   the ranks' losses agree; then the fp32 arm (4 layers, width 1024, B4
+   T256): a TP step and a PP step (2 micro-batches) each against one
+   process on the same card, the loss within 1e-5 relative, the masters
+   under the training rule (``model_parallel_check``);
+17. the kernels line (each decode kernel's entry also carries its
    launches in the hierarchy phase's runs, per replica in the fleet
    phases' runs, and its rows at the fleet's shapes; K1/K2a/K2b theirs
-   per rank and stage in the data-parallel run), then the result line.
+   per rank and stage in the data-parallel run, and per rank in the
+   model-parallel arms), then the result line.
 """
 
 import collections
@@ -411,7 +433,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 # (bench.py: max_slots=16, max_len=1024, chunk_size=16).
 SERVE = {"max_slots": 16, "max_len": 1024, "chunk_size": 16,
          "prefill_chunk": 32}
-N_REQUESTS, NEW_TOKENS, PROMPT_LENS = 24, 96, (64, 256)
+# N_REQUESTS is more than SERVE's 16 slots, so every serving path queues
+# requests and refills the slots (and pages) that finished ones free; the
+# serving paths' depth, kept so the whole smoke stays inside its limit.
+N_REQUESTS, NEW_TOKENS, PROMPT_LENS = 20, 96, (64, 256)
 
 # Kernel-vs-plain tolerances, (atol, rtol): each element must satisfy
 # |out - ref| <= atol + rtol * (|ref| + spread), spread = sqrt(sum_t p_t^2
@@ -5153,8 +5178,9 @@ def _flash_times(q, k, v, do, mask, lse, delta, causal):
 def phase_flash():
     """K1/K2a/K2b against their plain versions; returns the case rows, the
     first two being the timed shapes (bf16) of GPT-2 training and of
-    BERT-large pretraining, the last GPT-2 XL's (the offload cell, timed),
-    and flash_attention_with_lse's rows (phase_flash_lse)."""
+    BERT-large pretraining, then the model-parallel arms' (MP_FLASH_CASES,
+    timed), the last GPT-2 XL's (the offload cell, timed), and
+    flash_attention_with_lse's rows (phase_flash_lse)."""
     cases = [("train", 8, 1024, torch.bfloat16, True, False),
              ("bert", BERT_B, BERT_T, torch.bfloat16, False, "padding"),
              ("train", 8, 1024, torch.float16, True, False),
@@ -5165,6 +5191,9 @@ def phase_flash():
              ("one_tile", 8, 64, torch.bfloat16, True, False)]
     rows = [_flash_case(*case, seed=i, timed=i < 2)
             for i, case in enumerate(cases)]
+    rows += [_flash_case(name, B, MP_T, torch.bfloat16, True, False,
+                         seed=len(cases) + 1 + j, timed=True, H=H)
+             for j, (name, B, H) in enumerate(MP_FLASH_CASES)]
     rows.append(_flash_case("gpt2_xl", 2, 1024, torch.bfloat16, True, False,
                             seed=len(cases), timed=True, H=25))
     return rows, phase_flash_lse()
@@ -6174,7 +6203,9 @@ OFFLOAD_CONFIG = {"train_batch_size": 2,
                   "zero_optimization": {"stage": 2, "cpu_offload": True},
                   "wall_clock_breakdown": True, "steps_per_print": 10 ** 9}
 OFFLOAD_B, OFFLOAD_T, OFFLOAD_ROWS = 2, 1024, 16
-OFFLOAD_WARM, OFFLOAD_TIMED = 1, 3
+# Two timed steps: the host-bound arms' depth, kept so the whole smoke
+# stays well inside its time limit on a loaded host.
+OFFLOAD_WARM, OFFLOAD_TIMED = 1, 2
 DEVICE_ADAM_WARM, DEVICE_ADAM_TIMED = 1, 2
 # Each arm's first train_batch is a warm step: a batch signature's first
 # train_batch runs under the x-ray's cost modes (telemetry/xray.py), which
@@ -6553,7 +6584,10 @@ def phase_offload_consistency():
 # device: "Duplicate GPU detected"), so the collectives go through the
 # host and the tokens/s measure the plumbing, not ZeRO's communication.
 DP_RANKS, DP_B, DP_T = 2, 4, 1024
-DP_WARM, DP_TIMED = 1, 2
+# One timed step a stage (and the memory breakdown's one more): the
+# host-staged steps' depth, kept so the whole smoke stays well inside its
+# time limit on a loaded host.
+DP_WARM, DP_TIMED = 1, 1
 DP_STAGES = (0, 1, 2, 3)
 # The rendezvous and every collective of a rank, and the wait for a rank.
 DP_TIMEOUT_S = 300
@@ -6958,6 +6992,354 @@ def phase_data_parallel(card):
             for s in DP_STAGES}
 
 
+# ------------------------------------------------- model parallelism
+
+# Model parallelism (phase_model_parallel): GPT-2 medium bf16 at full width
+# and depth, AdamW 1e-4, dropout 0, the training cell's global 8 x 1024
+# (JAX bench.py:767-789), over MP_RANKS gloo ranks on cuda:0 started by
+# the port's launcher: tensor parallelism (mp 2, each rank the whole
+# batch) and the 1F1B pipeline (2 stages, MP_GAS micro-batches of
+# MP_B / MP_GAS, the tied embedding). Collectives and p2p go through the
+# host: their times measure the plumbing, not NVLink.
+MP_RANKS, MP_B, MP_T, MP_GAS = 2, 8, 1024, 4
+# K1/K2a's inputs in those arms (phase_flash holds them there): (case, B,
+# H) of a TP rank (the batch, half of GPT-2 medium's 16 heads) and of a PP
+# micro-batch.
+MP_FLASH_CASES = (("mp_tp_rank", MP_B, 16 // MP_RANKS),
+                  ("mp_pp_micro", MP_B // MP_GAS, 16))
+MP_WARM, MP_TIMED = 1, 2
+MP_TIMEOUT_S = 300
+# The fp32 arm: 4 layers at width 1024, a global batch of MP_CHECK_B x
+# MP_CHECK_T; TP one step, PP one step of 2 micro-batches, each against
+# one process on the same card.
+MP_CHECK_B, MP_CHECK_T, MP_CHECK_GAS = 4, 256, 2
+
+
+def _mp_config(micro, gas=1):
+    return {"train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": gas, "steps_per_print": 1000,
+            "gradient_clipping": 1.0, "bf16": {"enabled": True},
+            "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+
+
+def _mp_counters():
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.pipe import engine as pe
+    from deepspeed_tpu_torch.runtime.pipe import p2p
+
+    at.reset_launches()
+    comm.reset_stats()
+    p2p.reset_stats()
+    pe.reset_stats()
+
+
+def _mp_read(steps):
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.pipe import engine as pe
+    from deepspeed_tpu_torch.runtime.pipe import p2p
+
+    return {"launches_per_step": {k: v / steps
+                                  for k, v in at.launches.items()},
+            "all_reduce_bytes_per_step": comm.stats["all_reduce_bytes"] /
+            steps,
+            "all_reduce_calls_per_step": comm.stats["all_reduce"] / steps,
+            "broadcast_bytes_per_step": comm.stats["broadcast_bytes"] / steps,
+            "p2p_bytes_per_step": (p2p.stats["send_bytes"] +
+                                   p2p.stats["recv_bytes"]) / steps,
+            "p2p_calls_per_step": (p2p.stats["sends"] + p2p.stats["recvs"]) /
+            steps,
+            "tied_bytes_per_step": pe.stats["tied_bytes"] / steps}
+
+
+def _mp_timed(run, cfg, rank, world, device):
+    """One arm at full width on this rank: MP_WARM steps (the x-ray's
+    first-signature step among them), then MP_TIMED timed ones with the
+    launch counts, collective, p2p and tied bytes reset just before and
+    read just after, and the peak device memory over them."""
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_pipeline
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    t_build = time.perf_counter()
+    ids = torch.from_numpy(_dp_ids(MP_B, MP_T, cfg.vocab_size, 0)).to(device)
+    if run == "tp":
+        engine, _, _, _ = initialize(
+            model=GPT2LMHeadModel(cfg, device=device, seed=0),
+            config_params=_mp_config(MP_B), device=device,
+            mesh=build_mesh(num_mp=world), dist_init_required=False)
+
+        def step():
+            return float(engine.train_batch((ids, ids)))
+    else:
+        engine, _, _, _ = initialize(
+            model=gpt2_pipeline(cfg, num_stages=world),
+            config_params=_mp_config(MP_B // MP_GAS, MP_GAS), device=device,
+            mesh=build_mesh(num_pp=world), dist_init_required=False)
+        mb = MP_B // MP_GAS
+        micro = [(ids[i * mb:(i + 1) * mb],) * 2 for i in range(MP_GAS)]
+
+        def step():
+            return engine.train_batch(data_iter=iter(micro))
+    held = sum(p.numel() for p in engine._params)
+    t_warm = time.perf_counter()
+    losses = [step() for _ in range(MP_WARM)]
+    warm_s = time.perf_counter() - t_warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _mp_counters()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(MP_TIMED)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = {"run": run, "rank": rank, "params_held": held,
+           "tokens_per_s": MP_B * MP_T * MP_TIMED / wall,
+           "mean_step_ms": wall / MP_TIMED * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": torch.cuda.memory_allocated(),
+           "losses": losses, "build_s": t_warm - t_build, "warm_s": warm_s}
+    row.update(_mp_read(MP_TIMED))
+    row["arm_s"] = time.perf_counter() - t_build
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mp_rule_row(run, loss, loss_one, got, want, grads, lr):
+    largest = max(float(g.abs().max()) for g in grads.values())
+    noisy = {}
+    for n in want:
+        scale = max(float(grads[n].abs().max()), GRAD_TOL * largest)
+        noisy[n] = grads[n].abs() <= 10 * GRAD_TOL * scale
+    return {"run": run, "loss": loss, "loss_one": loss_one,
+            "loss_rel_err": abs(loss - loss_one) / abs(loss_one),
+            "leaves": len(want),
+            "param_max_err_over_limit": _update_ratio(got, want, noisy, lr)}
+
+
+def _mp_reference(cfg, params, batches, device):
+    """One process on the card (a grid without a process group): one step
+    over ``batches`` (gradient accumulation over them); its mean loss, the
+    fp32 masters and the step's gradients by name."""
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+
+    solo = mesh_lib.Mesh((1, 1, 1, 1), 0, None)
+    ref, _, _, _ = initialize(
+        model=GPT2LMHeadModel(cfg, device=device, seed=None),
+        model_parameters=params, device=device, mesh=solo,
+        config_params=_mp_config(batches[0].shape[0], len(batches)),
+        dist_init_required=False)
+    ref.compute_dtype = torch.float32
+    losses = []
+    for i, ids in enumerate(batches):
+        loss = ref(ids, ids)
+        ref.backward(loss)
+        if i == len(batches) - 1:
+            grads = {n: p.grad.detach().float().cpu().clone()
+                     for n, p in zip(ref._names, ref._params)}
+        ref.step()
+        losses.append(float(loss.detach()))
+    want = {n: p.detach().float().cpu() for n, p in zip(ref._names,
+                                                         ref._params)}
+    del ref
+    return float(np.mean(losses)), want, grads
+
+
+def _pipe_flat(engine, cfg):
+    """This stage's layers' full fp32 weights under GPT2LMHeadModel's
+    names (the tied head's copy as ``wte``/``wpe``)."""
+    out = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + k + ".")
+            else:
+                out[path + k] = torch.from_numpy(v)
+
+    for idx in sorted(engine._layer_params):
+        if not engine._layer_params[idx]:
+            continue
+        tree = engine._layer_full(idx, engine._params)
+        if 1 <= idx <= cfg.n_layer:
+            walk(tree["Block_0"], "h_{}.".format(idx - 1))
+        else:
+            walk(tree, "")
+    return out
+
+
+def _mp_check(run, cfg, rank, world, device):
+    """The fp32 arm of ``run``: one step over the ranks against one process
+    on the same card, from the same weights (phase 5's training rule;
+    TP's masters gathered, the reference on rank 0; PP's each stage's
+    layers, the reference on each rank)."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.models.gpt2 import (gpt2_layer_params,
+                                                 gpt2_pipeline)
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.runtime.utils import flax_tree
+
+    params = flax_tree(GPT2LMHeadModel(cfg, device="cpu", seed=2))
+    ids = torch.from_numpy(_dp_ids(MP_CHECK_B, MP_CHECK_T, cfg.vocab_size,
+                                   3)).to(device)
+    if run == "tp":
+        engine, _, _, _ = initialize(
+            model=GPT2LMHeadModel(cfg, device=device, seed=None),
+            model_parameters=params, config_params=_mp_config(MP_CHECK_B),
+            device=device, mesh=build_mesh(num_mp=world),
+            dist_init_required=False)
+        engine.compute_dtype = torch.float32
+        loss = engine(ids, ids)
+        engine.backward(loss)
+        engine.step()
+        loss = float(loss.detach())
+        got = {n: f.cpu() for n, f in zip(engine._names,
+                                          engine._full_masters())}
+        batches = [ids]
+    else:
+        mb = MP_CHECK_B // MP_CHECK_GAS
+        batches = [ids[i * mb:(i + 1) * mb] for i in range(MP_CHECK_GAS)]
+        engine, _, _, _ = initialize(
+            model=gpt2_pipeline(cfg, num_stages=world),
+            model_parameters=gpt2_layer_params(params, cfg),
+            config_params=_mp_config(mb, MP_CHECK_GAS), device=device,
+            mesh=build_mesh(num_pp=world), dist_init_required=False)
+        loss = engine.train_batch(data_iter=iter([(b, b) for b in batches]))
+        got = _pipe_flat(engine, cfg)
+    del engine
+    row = None
+    if rank == 0 or run == "pp":
+        loss_one, want, grads = _mp_reference(cfg, params, batches, device)
+        want = {n: want[n] for n in got}
+        row = _mp_rule_row(run, loss, loss_one, got, want, grads, 1e-4)
+        row["rank"] = rank
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def mp_rank(workdir):
+    """One rank of phase_model_parallel, started by the port's launcher
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): joins the
+    gloo group, runs the TP and PP arms at full width and their fp32
+    checks, and writes its rows to ``<workdir>/rank_<r>.json``."""
+    from deepspeed_tpu_torch.utils.distributed import init_distributed
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    init_distributed(dist_backend="gloo", timeout=MP_TIMEOUT_S,
+                     device=device, verbose=False)
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT2Config(dtype=torch.bfloat16, dropout=0.0, **spec["width"])
+    rows = [_mp_timed(run, cfg, rank, world, device)
+            for run in ("tp", "pp")]
+    check_cfg = GPT2Config(dtype=torch.float32, dropout=0.0,
+                           **spec["check_width"])
+    t0 = time.perf_counter()
+    checks = [_mp_check(run, check_cfg, rank, world, device)
+              for run in ("tp", "pp")]
+    with open(os.path.join(workdir, "rank_{}.json".format(rank)), "w") as f:
+        json.dump({"rows": rows, "checks": checks,
+                   "check_s": time.perf_counter() - t0}, f)
+    dist.destroy_process_group()
+
+
+def _mp_launch(spec, workdir):
+    """MP_RANKS rank processes of ``mp_rank`` through the port's launcher
+    (``deepspeed_tpu_torch.launcher.launch``: one process per entry of
+    world_info, every rank told to use cuda:0), waited for within
+    MP_TIMEOUT_S; a failed rank fails the launch, and the phase (at the
+    timeout the launcher's process group is killed)."""
+    import base64
+    import signal
+
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    info = base64.urlsafe_b64encode(json.dumps(
+        {"localhost": list(range(MP_RANKS))}).encode()).decode()
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--world_info={}".format(info),
+         "--master_port={}".format(_free_port()),
+         os.path.abspath(__file__), "--model-parallel-rank=" + workdir],
+        cwd=here, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=MP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        fail("model_parallel: the launch ended with {}".format(rc))
+    out = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(workdir, "rank_{}.json".format(r))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_model_parallel(card):
+    """Tensor parallelism and the pipeline over MP_RANKS gloo ranks on the
+    card (module docstring, phase 16); returns each arm's per-rank
+    K1/K2a/K2b launches per step."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    workdir = tempfile.mkdtemp()
+    n_layer = 24
+    try:
+        ranks = _mp_launch({
+            "device": "cuda:0",
+            "width": {"n_embd": 1024, "n_layer": n_layer, "n_head": 16},
+            "check_width": {"n_embd": 1024, "n_layer": 4, "n_head": 16}},
+            workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = {"tp": n_layer, "pp": n_layer // MP_RANKS * MP_GAS}
+    by = {}
+    for r in ranks:
+        for row in r["rows"]:
+            by[(row["run"], row["rank"])] = row
+            print("model_parallel " + json.dumps(dict(row, card=card)))
+            per = row["launches_per_step"]
+            if per["flash_fwd"] != want[row["run"]] or \
+                    per["flash_bwd_fused"] != want[row["run"]] or \
+                    per["flash_bwd_split"] != 0:
+                fail("model_parallel: rank {} {} launched {} per step (want "
+                     "K1 and K2a {} each)".format(row["rank"], row["run"],
+                                                  per, want[row["run"]]))
+            if not np.isfinite(row["losses"]).all():
+                fail("model_parallel: non-finite loss {}".format(row))
+    for run in ("tp", "pp"):
+        if len({tuple(by[(run, r)]["losses"]) for r in range(MP_RANKS)}) != 1:
+            fail("model_parallel: the ranks' {} losses differ".format(run))
+    checks = [c for r in ranks for c in r["checks"] if c is not None]
+    print("model_parallel_check " + json.dumps(
+        {"fp32": "width 1024, 4 layers, B{} T{}: TP mp {} and PP {} stages "
+                 "(gas {}) vs one process".format(
+                     MP_CHECK_B, MP_CHECK_T, MP_RANKS, MP_RANKS,
+                     MP_CHECK_GAS),
+         "runs": checks, "check_s": [r["check_s"] for r in ranks],
+         "card": card}))
+    if sorted({c["run"] for c in checks}) != ["pp", "tp"]:
+        fail("model_parallel: a check did not run: {}".format(checks))
+    for c in checks:
+        if c["loss_rel_err"] > 1e-5 or c["param_max_err_over_limit"] > 1.0:
+            fail("model_parallel: {} disagrees with one process: {}".format(
+                c["run"], c))
+    return {run: [by[(run, r)]["launches_per_step"]
+                  for r in range(MP_RANKS)] for run in ("tp", "pp")}
+
+
 def _lse_case(name, B, H, T, dtype, seed):
     """flash_attention_with_lse (K1, then K2 with delta = rowsum(dO * O) -
     dlse) against its plain version on the same inputs: o and the
@@ -7019,17 +7401,23 @@ def phase_flash_lse(bf16_seeds=(11,), repeats=1):
 
 
 def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
-                       offload_launches, lse_rows, dp_launches):
+                       offload_launches, lse_rows, dp_launches, mp_launches):
     """K1/K2a/K2b: times at GPT-2 training's shape, launches from its run;
     under "bert" the times at BERT-large's shape and the launches from the
     BERT run; under "offload" GPT-2 XL's shape and the offload run's
     launches; under "data_parallel" each ZeRO stage's launches per step of
-    each rank (the data-parallel run, this slice's main path: the times
-    are the GPT-2 shape's, B4 per rank halving B8); K2b's entry also gives its two
+    each rank (the data-parallel run: the times are the GPT-2 shape's, B4
+    per rank halving B8); under "model_parallel" each arm's launches per
+    step of each rank (TP runs H8 per rank at B8, PP B2 micro-batches) and
+    under "cases" the errors and times at those two shapes (for K2b, which
+    those arms do not run, its errors and times there too); K2b's entry
+    also gives its two
     kernels' own times (dkdv_ms, dq_ms) and the split-default shape's under
     "split_default"; K1's, flash_attention_with_lse's check under
     "with_lse" (no main path calls it)."""
     timed, bert, xl = flash_rows[0], flash_rows[1], flash_rows[-1]
+    mp_rows = {r["case"]: r for r in flash_rows
+               if r["case"] in {c[0] for c in MP_FLASH_CASES}}
     shape = "B8 H16 T1024 D64 bf16 causal"
     common = {"route": "cuda",
               "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
@@ -7068,6 +7456,25 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
                 "launches_per_step": {
                     "stage{}".format(stage): [r[counter] for r in ranks]
                     for stage, ranks in dp_launches.items()}},
+            model_parallel={
+                "shape": "TP: B8 H8 T1024 D64 bf16 causal per rank (mp "
+                         "2); PP: B2 H16 T1024 per micro-batch, 12 blocks "
+                         "a stage, 4 micro-batches (GPT-2 medium, {} "
+                         "ranks on one card)".format(MP_RANKS),
+                "launches_per_step": {
+                    run: [r[counter] for r in ranks]
+                    for run, ranks in mp_launches.items()},
+                "cases": {
+                    case: {"shape": "B{} H{} T{} D64 bf16 causal".format(
+                               r["B"], r["H"], r["T"]),
+                           "max_abs_err": r[kernel]["max_abs_err"],
+                           "max_err_over_limit":
+                               r[kernel]["max_err_over_limit"],
+                           "ms": r[ms], "plain_ms": r[plain],
+                           "library_ms": r[lib],
+                           "bound_ms": r["bound_{}_ms".format(way)],
+                           "bound_by": r["bound_{}_by".format(way)]}
+                    for case, r in mp_rows.items()}},
             max_abs_err=max(r[kernel]["max_abs_err"] for r in flash_rows),
             max_err_over_limit=max(r[kernel]["max_err_over_limit"]
                                    for r in flash_rows),
@@ -7253,6 +7660,7 @@ def main():
     offload_launches = timed(phase_offload, card)
     timed(phase_offload_consistency)
     dp_launches = timed(phase_data_parallel, card)
+    mp_launches = timed(phase_model_parallel, card)
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -7298,7 +7706,7 @@ def main():
                 for r in variant_rows["fleet_shapes"][kind]]
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
                                   split_rows, offload_launches, lse_rows,
-                                  dp_launches)
+                                  dp_launches, mp_launches)
     kernels += _row_kernel_rows(row_rows, bert_launches)
     kernels.append(_softmax_kernel_row(softmax_rows, softmax_launches))
     kernels += _sparse_kernel_rows(sparse_rows, sparse_launches, split_rows)
@@ -7312,4 +7720,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    _rank_dir = [a.split("=", 1)[1] for a in sys.argv[1:]
+                 if a.startswith("--model-parallel-rank=")]
+    if _rank_dir:
+        mp_rank(_rank_dir[0])
+    else:
+        main()

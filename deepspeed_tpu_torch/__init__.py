@@ -24,7 +24,12 @@ several ``torch.distributed`` ranks: the process groups
 (``parallel.mesh``, ``utils.distributed``), ZeRO stages 1-3 partitioned
 over the data group (``runtime.zero.partition``), sparse (CSR) embedding
 gradients, elastic checkpoints, ``elasticity`` and the launcher
-(``launcher.runner``, ``launcher.launch``).
+(``launcher.runner``, ``launcher.launch``). Slice 16 is model
+parallelism over ranks: tensor parallelism on the grid's 'model' axis
+(``parallel.tensor_parallel``, GPT-2's Megatron split) and the 1F1B
+pipeline (``runtime.pipe``: topology, schedules, ``PipelineModule``, p2p,
+tied layers, per-layer checkpoints), ``initialize`` picking the
+``PipelineEngine`` for a ``PipelineModule``.
 """
 
 from deepspeed_tpu_torch.device import resolve_device
@@ -72,15 +77,27 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     False, and trains data-parallel over ``mesh`` (default
     ``parallel.mesh.build_mesh()``: every rank on the data axis), each rank
     on its own micro-batch; ZeRO stages 1-3 partition as the JAX engine
-    shards. ``device`` defaults to ``cuda:<LOCAL_RANK>`` there.
+    shards. ``device`` defaults to ``cuda:<LOCAL_RANK>`` there. A mesh
+    with a 'model' axis wider than 1 shards the model over it (tensor
+    parallelism).
+
+    A ``runtime.pipe.PipelineModule`` model selects the ``PipelineEngine``
+    (``train_batch`` / ``eval_batch`` over the 1F1B schedule; the mesh's
+    'pipe' axis is its stage count); ``model_parameters`` may then be the
+    per-layer trees of the JAX ``PipelineEngine``'s ``layer_params``.
+    ``PipelineModule(compiled=True)`` raises NotImplementedError.
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+    from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize requires a model")
-    engine = DeepSpeedEngine(args, model, optimizer=optimizer,
+    cls = PipelineEngine if isinstance(model, PipelineModule) else \
+        DeepSpeedEngine
+    engine = cls(args, model, optimizer=optimizer,
                              model_parameters=model_parameters,
                              training_data=training_data,
                              lr_scheduler=lr_scheduler,

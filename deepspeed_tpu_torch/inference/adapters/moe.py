@@ -35,7 +35,7 @@ load, not per-request token counts.
 Plain fp KV planes only: int8 planes, the prefix tier and the paged pool
 are refused, as in the JAX package. ``expert_parallel`` is accepted and
 has no effect on one card: sharding the expert stacks over a 'model' mesh
-axis waits for tensor parallelism (ROADMAP Queue 1 item 6).
+axis is ROADMAP Queue 1 item 16.
 """
 
 import collections
@@ -259,7 +259,7 @@ class MoEAdapter(GPT2Adapter):
         if mesh is not None:
             raise NotImplementedError(
                 "MoEAdapter: sharding the expert stacks over a 'model' mesh "
-                "axis is not ported (ROADMAP Queue 1 item 6)")
+                "axis is not ported (ROADMAP Queue 1 item 16)")
         if config is not None:
             if getattr(config, "paged_kv", False):
                 raise ValueError(

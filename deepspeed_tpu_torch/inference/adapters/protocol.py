@@ -80,7 +80,7 @@ class ModelAdapter:
         if mesh is not None:
             raise NotImplementedError(
                 "{}: serving over a device mesh is not ported (ROADMAP "
-                "Queue 1 item 6)".format(type(self).__name__))
+                "Queue 1 item 16)".format(type(self).__name__))
         return self
 
     def aux_state(self):
@@ -101,7 +101,7 @@ class ModelAdapter:
         if mesh is not None:
             raise NotImplementedError(
                 "{}: sharding parameters over a device mesh is not ported "
-                "(ROADMAP Queue 1 item 6)".format(type(self).__name__))
+                "(ROADMAP Queue 1 item 16)".format(type(self).__name__))
         return None
 
     def observe(self, snap, registry):

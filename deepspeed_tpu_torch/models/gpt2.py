@@ -21,11 +21,27 @@ flax; the training engine switches gradients on for what it trains.
 attention is ``flash_attention`` (kernels K1/K2 on the card) or, with
 ``use_flash_attention=False``, the dense einsum path. Serving goes through
 ``models.generation``.
+
+Tensor parallelism (``parallel/tensor_parallel.py``): under the JAX
+package's ``DEFAULT_TP_RULES`` a block computes Megatron's split. The
+attention's ``c_attn`` is column-parallel by heads (rank r holds heads
+r H/mp ... of q, k and v, so ``flash_attention`` runs on its H/mp local
+heads) and its ``c_proj`` row-parallel (the output all-reduced, the
+replicated bias added after the reduction); the MLP's ``c_fc`` is
+column-parallel (GELU on the local columns) and its ``c_proj``
+row-parallel. Two all-reduces a block forward, two backward; the
+embeddings, LayerNorms and the tied head stay replicated.
+
+The pipeline variant (``gpt2_pipeline``, JAX ``models/gpt2.py``): an
+embedding layer, one layer per block, the final LayerNorm and the tied
+head (a ``TiedLayerSpec`` reusing the embedding) or an untied head, with
+``gpt2_lm_loss`` (the chunked tied-decoder loss) on the last stage.
 """
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,6 +51,8 @@ from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.heads import chunked_tied_softmax_xent
 from deepspeed_tpu_torch.ops.transformer.kernels.attention import (
     flash_attention)
+from deepspeed_tpu_torch.parallel.tensor_parallel import (copy_to_model,
+                                                          reduce_from_model)
 from deepspeed_tpu_torch.runtime.utils import load_flax_tree
 
 
@@ -135,16 +153,56 @@ def dropout(x, rate, generator):
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def _row_parallel(x, p, tp):
+    """A row-parallel dense layer: the local product all-reduced over the
+    model group, then the replicated bias."""
+    y = torch.matmul(x, p.kernel.to(x.dtype))
+    return reduce_from_model(y, tp) + p.bias.to(x.dtype)
+
+
+def qkv_order(n_embd):
+    """(rank, mp) -> the ``c_attn`` columns rank holds: its heads' columns
+    of q, then of k, then of v."""
+    def order(rank, mp):
+        per = n_embd // mp
+        return torch.cat([torch.arange(part * n_embd + rank * per,
+                                       part * n_embd + (rank + 1) * per)
+                          for part in range(3)])
+    return order
+
+
 class _Attention(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
         C = cfg.n_embd
+        self.n_head = cfg.n_head
         self.c_attn = Dense(C, 3 * C, device)
         self.c_proj = Dense(C, C, device)
+        self.tp = None
+
+    def tensor_parallel_leaves(self, mp):
+        """The leaves the attention computes split over ``mp`` ranks (the
+        tensor-parallel protocol, ``parallel/tensor_parallel.py``)."""
+        if self.n_head % mp:
+            raise ValueError(
+                "tensor parallelism over {} ranks splits the attention by "
+                "heads: n_head={} is not divisible by {}".format(
+                    mp, self.n_head, mp))
+        order = qkv_order(self.c_proj.kernel.shape[0])
+        return {"c_attn.kernel": (1, order), "c_attn.bias": (0, order),
+                "c_proj.kernel": (0, None)}
+
+    def set_tensor_parallel(self, tp):
+        self.tp = tp
 
     def forward(self, x, cfg, gen):
-        B, T, C = x.shape
-        nh, hd = cfg.n_head, C // cfg.n_head
+        B, T, _ = x.shape
+        tp = self.tp
+        nh = cfg.n_head // tp.size if tp is not None else cfg.n_head
+        hd = cfg.n_embd // cfg.n_head
+        C = nh * hd
+        if tp is not None:
+            x = copy_to_model(x, tp)
         q, k, v = dense(x, self.c_attn).split(C, dim=-1)
         q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2).contiguous()
                    for t in (q, k, v))
@@ -162,7 +220,9 @@ class _Attention(nn.Module):
             att = torch.softmax(att.float(), dim=-1).to(x.dtype)
             y = torch.matmul(dropout(att, cfg.dropout, gen), v)
         y = y.transpose(1, 2).reshape(B, T, C)
-        return dropout(dense(y, self.c_proj), cfg.dropout, gen)
+        out = _row_parallel(y, self.c_proj, tp) if tp is not None else \
+            dense(y, self.c_proj)
+        return dropout(out, cfg.dropout, gen)
 
 
 class _MLP(nn.Module):
@@ -171,10 +231,23 @@ class _MLP(nn.Module):
         C = cfg.n_embd
         self.c_fc = Dense(C, 4 * C, device)
         self.c_proj = Dense(4 * C, C, device)
+        self.tp = None
+
+    def tensor_parallel_leaves(self, mp):
+        return {"c_fc.kernel": (1, None), "c_fc.bias": (0, None),
+                "c_proj.kernel": (0, None)}
+
+    def set_tensor_parallel(self, tp):
+        self.tp = tp
 
     def forward(self, x, cfg, gen):
+        tp = self.tp
+        if tp is not None:
+            x = copy_to_model(x, tp)
         h = F.gelu(dense(x, self.c_fc), approximate="tanh")
-        return dropout(dense(h, self.c_proj), cfg.dropout, gen)
+        out = _row_parallel(h, self.c_proj, tp) if tp is not None else \
+            dense(h, self.c_proj)
+        return dropout(out, cfg.dropout, gen)
 
 
 class Block(nn.Module):
@@ -184,6 +257,10 @@ class Block(nn.Module):
         self.attn = _Attention(cfg, device)
         self.ln_2 = LayerNorm(cfg.n_embd, device)
         self.mlp = _MLP(cfg, device)
+
+    def kernels(self):
+        return (self.attn.c_attn.kernel, self.attn.c_proj.kernel,
+                self.mlp.c_fc.kernel, self.mlp.c_proj.kernel)
 
     def forward(self, x, cfg, seed):
         """Pre-LN block. ``seed`` (an int, or None for no dropout) seeds
@@ -231,8 +308,7 @@ class GPT2LMHeadModel(nn.Module):
         g.manual_seed(seed)
         for p, std in [(self.wte, 0.02), (self.wpe, 0.01)] + \
                 [(blk_p, 0.02) for blk in self.blocks()
-                 for blk_p in (blk.attn.c_attn.kernel, blk.attn.c_proj.kernel,
-                               blk.mlp.c_fc.kernel, blk.mlp.c_proj.kernel)]:
+                 for blk_p in blk.kernels()]:
             p.normal_(0.0, std, generator=g)
 
     def forward(self, input_ids, labels=None, deterministic=True,
@@ -282,7 +358,190 @@ def params_from_jax(tree, config, device=None):
     Names and layouts carry over unchanged (flax ``Dense`` kernels stay
     ``[in, out]``); every parameter is fp32 on ``device`` (default ``cuda``,
     as for ``GPT2LMHeadModel``). Raises KeyError for a missing or unexpected
-    parameter and ValueError for a shape that disagrees."""
+    parameter and ValueError for a shape that disagrees.
+
+    Given the JAX ``PipelineEngine``'s ``layer_params`` list instead (one
+    tree or None per layer of ``gpt2_pipeline``), returns the list as fp32
+    numpy trees, each checked against its layer's names and shapes: the
+    ``model_parameters`` of ``initialize`` with the port's
+    ``gpt2_pipeline`` (tied or untied, as the list is)."""
+    if isinstance(tree, (list, tuple)):
+        return _layer_params_from_jax(list(tree), config)
     model = GPT2LMHeadModel(config, device=device, seed=None)
     load_flax_tree(model, tree)
     return model
+
+
+def _layer_params_from_jax(layers, config):
+    tied = layers[-1] is not None and "wte" in layers[-1]
+    if len(layers) != config.n_layer + (3 if tied else 2):
+        raise ValueError("{} layer trees for a GPT-2 pipeline of {} blocks"
+                         .format(len(layers), config.n_layer))
+    specs = gpt2_pipeline(config, num_stages=1, tied=tied).layer_specs
+    out = []
+    for spec, t in zip(specs, layers):
+        if t is None:
+            out.append(None)
+            continue
+        t = _numpy_tree(t)
+        load_flax_tree(spec.build(device="cpu", seed=None), t)
+        out.append(t)
+    return out
+
+
+def _numpy_tree(tree):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else
+            np.asarray(v, dtype=np.float32) for k, v in tree.items()}
+
+
+# ------------------------------------------------------- pipeline variant
+
+
+def _init_block(blk, seed, device):
+    if seed is None:
+        return
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for p in blk.kernels():
+            p.normal_(0.0, 0.02, generator=g)
+
+
+def _train_gen(seed, device):
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+class GPT2PipeEmbed(nn.Module):
+    """Pipeline layer 0: token and position embedding (``wte``, ``wpe``),
+    the embeddings' dropout while training (``seed`` given). A
+    ``TiedLayerSpec`` reuses its ``wte`` as the LM head."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        cfg = self.config = config
+        device = resolve_device(device)
+        self.wte = _param(cfg.vocab_size, cfg.n_embd, device=device)
+        self.wpe = _param(cfg.n_positions, cfg.n_embd, device=device)
+        if seed is not None:
+            g = torch.Generator(device=device)
+            g.manual_seed(seed)
+            with torch.no_grad():
+                self.wte.normal_(0.0, 0.02, generator=g)
+                self.wpe.normal_(0.0, 0.01, generator=g)
+
+    def forward(self, input_ids, seed=None):
+        cfg = self.config
+        T = input_ids.shape[1]
+        ids = input_ids.to(self.wte.device, torch.int64)
+        x = self.wte[ids].to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)[None]
+        return dropout(x, cfg.dropout, _train_gen(seed, x.device))
+
+
+class GPT2PipeBlock(nn.Module):
+    """One transformer block as a pipeline layer (``Block_0``, as flax
+    names the block inside the JAX layer)."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        self.config = config
+        device = resolve_device(device)
+        self.Block_0 = Block(config, device)
+        _init_block(self.Block_0, seed, device)
+
+    def forward(self, x, seed=None):
+        return self.Block_0(x, self.config, seed)
+
+
+class GPT2PipeLN(nn.Module):
+    """The final LayerNorm as a pipeline layer (``ln_f``)."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        self.config = config
+        self.ln_f = LayerNorm(config.n_embd, resolve_device(device))
+
+    def forward(self, x):
+        return layer_norm(x, self.ln_f, self.config.layer_norm_epsilon)
+
+
+class GPT2PipeFinal(nn.Module):
+    """The final LayerNorm and an untied LM head (``lm_head [V, C]``):
+    returns (hidden, head) for ``gpt2_lm_loss``."""
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        cfg = self.config = config
+        device = resolve_device(device)
+        self.ln_f = LayerNorm(cfg.n_embd, device)
+        self.lm_head = _param(cfg.vocab_size, cfg.n_embd, device=device)
+        if seed is not None:
+            g = torch.Generator(device=device)
+            g.manual_seed(seed)
+            with torch.no_grad():
+                self.lm_head.normal_(0.0, 0.02, generator=g)
+
+    def forward(self, x):
+        x = layer_norm(x, self.ln_f, self.config.layer_norm_epsilon)
+        return x, self.lm_head
+
+
+def _gpt2_tied_head(layer, x):
+    """``TiedLayerSpec.forward_fn`` of the tied head: the final LayerNorm
+    ran in the layer before; hand the embedding's ``wte`` to the loss."""
+    return x, layer.wte
+
+
+def gpt2_lm_loss(out, labels):
+    """The pipeline's loss: the shifted chunked tied-decoder loss of the
+    last stage's (hidden, head), or the shifted softmax cross-entropy of
+    plain logits."""
+    labels = labels.to(torch.int64)
+    if isinstance(out, (tuple, list)):
+        x, head = out
+        return chunked_tied_softmax_xent(x[:, :-1], head,
+                                         labels.to(x.device)[:, 1:], x.dtype)
+    v = out.shape[-1]
+    lg = out[:, :-1].reshape(-1, v).float()
+    return F.cross_entropy(lg, labels.to(out.device)[:, 1:].reshape(-1))
+
+
+def gpt2_pipeline(config=None, num_stages=2, tied=None, compiled=False,
+                  partition_method="uniform", topology=None, **kw):
+    """GPT-2 as a ``PipelineModule``: the embedding, ``n_layer`` blocks,
+    then the final LayerNorm and the tied head (``tied``, the default)
+    or the untied ``GPT2PipeFinal``; ``gpt2_lm_loss`` on the last stage,
+    layers seeded by index. ``compiled=True`` (the JAX one-program engine)
+    raises NotImplementedError."""
+    from deepspeed_tpu_torch.runtime.pipe.module import (LayerSpec,
+                                                         PipelineModule,
+                                                         TiedLayerSpec)
+    cfg = config or GPT2Config(**kw)
+    if tied is None:
+        tied = not compiled
+    blocks = [LayerSpec(GPT2PipeBlock, cfg) for _ in range(cfg.n_layer)]
+    if tied:
+        layers = ([TiedLayerSpec("embed", GPT2PipeEmbed, cfg)] + blocks +
+                  [LayerSpec(GPT2PipeLN, cfg),
+                   TiedLayerSpec("embed", GPT2PipeEmbed, cfg,
+                                 forward_fn=_gpt2_tied_head)])
+    else:
+        layers = ([LayerSpec(GPT2PipeEmbed, cfg)] + blocks +
+                  [LayerSpec(GPT2PipeFinal, cfg)])
+    return PipelineModule(layers=layers, num_stages=num_stages,
+                          topology=topology, loss_fn=gpt2_lm_loss,
+                          seed_layers=True, partition_method=partition_method,
+                          compiled=compiled)
+
+
+def gpt2_layer_params(tree, config):
+    """The tied ``gpt2_pipeline``'s layer trees (its head reuses ``wte``)
+    from a flat GPT-2 flax tree, to train the same weights as a
+    pipeline."""
+    embed = {"wte": tree["wte"], "wpe": tree["wpe"]}
+    blocks = [{"Block_0": tree["h_{}".format(i)]}
+              for i in range(config.n_layer)]
+    return [embed] + blocks + [{"ln_f": tree["ln_f"]}, dict(embed)]

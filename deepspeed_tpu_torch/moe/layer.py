@@ -12,8 +12,7 @@ states, get ``(output, l_aux, exp_counts)``):
   (``sharded_moe``): no host sync, no data-dependent shape.
 
 Expert parallelism (the experts' axis sharded over a mesh's 'model' axis)
-waits for tensor parallelism, ROADMAP Queue 1 item 6: on one card every
-expert lives on the card.
+is ROADMAP Queue 1 item 16: on one card every expert lives on the card.
 """
 
 import copy

@@ -1,10 +1,13 @@
 """The collectives ZeRO runs over a data group.
 
-Three calls over ``torch.distributed``: ``all_reduce`` (sum or mean),
+Calls over ``torch.distributed``: ``all_reduce`` (sum or mean),
 ``reduce_scatter`` (sum or mean of a flat buffer laid out as dp equal
-chunks, rank r keeps chunk r) and ``all_gather`` (every rank's equal flat
-chunk, concatenated in rank order). Each takes and returns flat
-contiguous tensors; ``runtime/zero/partition.py`` packs the leaves.
+chunks, rank r keeps chunk r), ``all_gather`` (every rank's equal flat
+chunk, concatenated in rank order) and ``broadcast`` (from one rank, in
+place). Each takes and returns contiguous tensors;
+``runtime/zero/partition.py`` packs the leaves. The tensor-parallel and
+pipeline collectives (``parallel/tensor_parallel.py``,
+``runtime/pipe/engine.py``) run over the same calls.
 
 The backend decides the route, by name, never by a caught failure:
 
@@ -16,27 +19,31 @@ The backend decides the route, by name, never by a caught failure:
   rank's slice. All-gather uses gloo's list form.
 
 ``stats`` counts the calls (in all and by kind) and the bytes each rank
-hands to them (the smoke's collective bytes per step).
+hands to them, in all and by kind (the smoke's collective bytes per
+step).
 """
 
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_reduce", "reduce_scatter", "all_gather")
+KINDS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
 stats = {}
 
 
 def reset_stats():
     stats.update(calls=0, bytes=0, **{k: 0 for k in KINDS})
+    stats.update({k + "_bytes": 0 for k in KINDS})
 
 
 reset_stats()
 
 
 def _note(t, kind):
+    n = t.numel() * t.element_size()
     stats["calls"] += 1
     stats[kind] += 1
-    stats["bytes"] += t.numel() * t.element_size()
+    stats["bytes"] += n
+    stats[kind + "_bytes"] += n
 
 
 def buckets(sizes, cap):
@@ -113,6 +120,19 @@ def all_gather(chunk, group):
                       device=chunk.device)
     dist.all_gather_into_tensor(out, chunk, group=group)
     return out
+
+
+def broadcast(t, src, group):
+    """``t`` on every rank of ``group`` from global rank ``src``, in place;
+    returns ``t``."""
+    _note(t, "broadcast")
+    if _host(group, t):
+        h = _staged(t)
+        dist.broadcast(h, src, group=group)
+        t.copy_(h)
+    else:
+        dist.broadcast(t, src, group=group)
+    return t
 
 
 def all_gather_object(obj, group):

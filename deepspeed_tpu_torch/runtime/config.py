@@ -20,8 +20,13 @@ the JAX package's checks (ZeRO needs fp16 or bf16, stage at most 3,
 cpu_offload only at stage 2). ``world_size`` is the data-parallel size:
 the batch triangle is train = micro x accumulation x world_size. Over
 several ranks ``cpu_offload`` and ``stream_gradients`` are refused (offload
-over ranks is ROADMAP Queue 1 item 6), as 1-bit Adam is everywhere (item
+over ranks is ROADMAP Queue 1 item 17), as 1-bit Adam is everywhere (item
 9).
+
+The ``pipeline`` block: ``stages`` and ``activation_checkpoint_interval``
+are read (``self.pipeline``) and honoured by the pipeline engine
+(``runtime/pipe/engine.py``); ``partition`` and ``seed_layers`` belong to
+the ``PipelineModule`` and parse only at their defaults.
 
 ``elasticity`` (``enabled: true``) overwrites the batch triangle with the
 elastic schedule for this world size before it is parsed, as the JAX
@@ -92,7 +97,7 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
 _TOOLING = "the tooling slice (ROADMAP Queue 1)"
-_DP_OFFLOAD = "ZeRO-Offload over several ranks (ROADMAP Queue 1 item 6)"
+_DP_OFFLOAD = "ZeRO-Offload over several ranks (ROADMAP Queue 1 item 17)"
 _ONEBIT = "1-bit Adam (ROADMAP Queue 1 item 9)"
 
 # Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
@@ -219,6 +224,9 @@ def parse_sparse_attention(param_dict):
     return parsed
 
 
+# The pipeline engine reads these (runtime/pipe/engine.py); the rest of
+# the block must stay at its defaults.
+_PIPELINE_ENGINE_KEYS = ("stages", "activation_checkpoint_interval")
 _PIPELINE_DEFAULTS = {"stages": "auto", "partition": "best",
                       "seed_layers": False,
                       "activation_checkpoint_interval": 0}
@@ -246,8 +254,13 @@ def _check_ported(param_dict):
         if _read(param_dict, (block, "enabled"), False):
             _refuse("'{}.enabled': true".format(block), where)
     pipeline = param_dict.get("pipeline", {})
-    if dict(_PIPELINE_DEFAULTS, **pipeline) != _PIPELINE_DEFAULTS:
-        _refuse("'pipeline': {!r}".format(pipeline), _RUNTIME)
+    for key in sorted(pipeline):
+        if key in _PIPELINE_ENGINE_KEYS:
+            continue
+        if key not in _PIPELINE_DEFAULTS or \
+                pipeline[key] != _PIPELINE_DEFAULTS[key]:
+            _refuse("'pipeline.{}': {!r} (set it on the PipelineModule)"
+                    .format(key, pipeline[key]), _RUNTIME)
     if param_dict.get("activation_checkpointing"):
         _refuse("'activation_checkpointing' (use GPT2Config(remat=True) for "
                 "per-block checkpointing)", _RUNTIME)
@@ -325,6 +338,8 @@ class DeepSpeedConfig(object):
                 args["INITIAL_LOSS_SCALE"] = 2 ** args["INITIAL_LOSS_SCALE"]
                 self.dynamic_loss_scale_args = args
 
+        self.pipeline = dict(_PIPELINE_DEFAULTS,
+                             **param_dict.get("pipeline", {}))
         self.optimizer_name, self.optimizer_params = _named_block(
             param_dict, OPTIMIZER, OPTIMIZER_TYPE_DEFAULT, OPTIMIZER_PARAMS)
         if self.optimizer_name is not None and \

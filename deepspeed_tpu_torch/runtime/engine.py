@@ -86,8 +86,22 @@ checkpoints in the JAX package's layout and format.
   (``initialize`` returns it), and ``train_batch(data_iter=...)`` draws
   from it.
 
-Not on this path yet (ROADMAP Queue 1): tensor parallelism, ZeRO-Offload
-and Lamb over partitioned ranks, 1-bit Adam, the pipeline.
+- Tensor parallelism over the mesh's 'model' axis
+  (``parallel/tensor_parallel.py``): the module's parameters are cut to
+  the rank's shards by ``DEFAULT_TP_RULES`` (or the module's ``tp_rules``)
+  after ``model_parameters`` load; a GPT-2 block computes Megatron's split,
+  any other leaf a rule shards is stored sharded and all-gathered for use.
+  Gradients are reduced over the data group only; the global norm sums
+  each model-sharded leaf's squares over the model group once (a
+  replicated leaf once in all); the fp16 overflow flag is agreed over the
+  whole world. ZeRO partitions a TP leaf on its first other dim that dp
+  divides (JAX ``zero_shardings``). Checkpoints hold the JAX full layout:
+  each leaf gathered over the model group, its columns put back in order,
+  so a checkpoint loads in either package at another mp/dp.
+- The pipeline: ``runtime/pipe/engine.PipelineEngine`` subclasses this.
+
+Not on this path yet (ROADMAP Queue 1): ZeRO-Offload and Lamb over
+partitioned ranks (item 17), 1-bit Adam (item 9).
 """
 
 import inspect
@@ -106,6 +120,7 @@ from deepspeed_tpu_torch.ops.lamb.cpu_lamb import DeepSpeedCPULamb
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.parallel import comm
 from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+from deepspeed_tpu_torch.parallel import tensor_parallel
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.config import (ADAM_OPTIMIZER,
                                                 ADAMW_OPTIMIZER,
@@ -116,10 +131,9 @@ from deepspeed_tpu_torch.runtime.csr_tensor import (  # noqa: F401
     split_half_float_double_csr)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler
-from deepspeed_tpu_torch.runtime.utils import (clip_grad_norm_,
-                                               ensure_directory_exists,
-                                               flax_tree, global_norm,
-                                               has_overflow, load_flax_tree)
+from deepspeed_tpu_torch.runtime.utils import (ensure_directory_exists,
+                                               global_norm, has_overflow,
+                                               load_flax_tree)
 from deepspeed_tpu_torch.runtime.zero.offload import HostOffload
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry import (MetricsRegistry, ProgramRegistry,
@@ -178,6 +192,30 @@ def _host_leaf(tree, name):
 _HOST_LAMB_KEYS = ("lr", "bias_correction", "betas", "eps", "weight_decay",
                    "max_coeff", "min_coeff", "amsgrad")
 
+_OFFLOAD_ITEM = "ROADMAP Queue 1 item 17"
+
+
+def setup_placement(device=None, mesh=None, dist_init_required=None,
+                    **mesh_kw):
+    """(device, mesh) of a training engine: the device (``cuda:<LOCAL_RANK>``
+    under the launcher), the default process group from the launcher's
+    environment (unless one exists, ``mesh`` is given or
+    ``dist_init_required`` is False), and the rank grid (``build_mesh``
+    with ``mesh_kw`` unless ``mesh`` is given)."""
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if device is None and world > 1 and "LOCAL_RANK" in os.environ:
+        device = "cuda:{}".format(os.environ["LOCAL_RANK"])
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    if dist_init_required is None:
+        dist_init_required = mesh is None and world > 1 and \
+            not dist_utils.is_initialized()
+    if dist_init_required:
+        dist_utils.init_distributed(device=device)
+    return device, mesh if mesh is not None else \
+        mesh_lib.build_mesh(**mesh_kw)
+
 
 class DeepSpeedEngine(object):
     """The training engine (module docstring). ``model`` is a
@@ -185,29 +223,30 @@ class DeepSpeedEngine(object):
     first element is the loss); ``model_parameters`` may be a flax
     parameter tree of numpy arrays to load into it."""
 
+    _pipelined = False  # PipelineEngine: the one engine over a 'pipe' axis
+
     def __init__(self, args, model, optimizer=None, model_parameters=None,
                  training_data=None, lr_scheduler=None, config_params=None,
                  device=None, seed=1234, collate_fn=None, mesh=None,
                  dist_init_required=None):
-        world = int(os.environ.get("WORLD_SIZE", 1))
-        if device is None and world > 1 and "LOCAL_RANK" in os.environ:
-            device = "cuda:{}".format(os.environ["LOCAL_RANK"])
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is not None:
-            torch.cuda.set_device(self.device)
-        if dist_init_required is None:
-            dist_init_required = mesh is None and world > 1 and \
-                not dist_utils.is_initialized()
-        if dist_init_required:
-            dist_utils.init_distributed(device=self.device)
-        # The rank grid (parallel/mesh.py): this rank's data coordinate and
-        # the process group of its data line.
-        self.mesh = mesh if mesh is not None else mesh_lib.build_mesh()
+        # The rank grid (parallel/mesh.py): this rank's coordinates and the
+        # process groups of its data, model and pipe lines.
+        self.device, self.mesh = setup_placement(device, mesh,
+                                                 dist_init_required)
+        if mesh_lib.pp_size(self.mesh) > 1 and not self._pipelined:
+            raise ValueError(
+                "a 'pipe' axis {} wide needs a PipelineModule (the "
+                "PipelineEngine splits the model into stages); this engine "
+                "would train a full replica on each stage".format(
+                    mesh_lib.pp_size(self.mesh)))
         self.dp_world_size = mesh_lib.dp_size(self.mesh)
         self.mp_world_size = mesh_lib.mp_size(self.mesh)
         self.dp_rank = self.mesh.dp_rank
+        self.mp_rank = self.mesh.mp_rank
         self.global_rank = self.mesh.rank
         self.dp_group = self.mesh.dp_group
+        self.mp_group = self.mesh.mp_group
+        self.pp_group = self.mesh.pp_group
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -254,6 +293,13 @@ class DeepSpeedEngine(object):
             if set(model_parameters) == {"params"}:
                 model_parameters = model_parameters["params"]
             load_flax_tree(self.module, model_parameters)
+        # Tensor parallelism: the full parameters cut to this rank's shards.
+        self._tp = None
+        tp = tensor_parallel.model_context(self.mesh)
+        if tp is not None:
+            self._tp = tensor_parallel.apply_rules(
+                self.module, tp, getattr(self.module, "tp_rules", None),
+                getattr(self.module, "rule_path", None))
         named = [(n, p) for n, p in self.module.named_parameters()]
         self._names = [n for n, _ in named]
         self._params = [p for _, p in named]
@@ -472,16 +518,28 @@ class DeepSpeedEngine(object):
         self._check_streaming()
 
     def _check_partitioned(self):
-        """What ZeRO over several ranks does not partition yet."""
+        """What ZeRO over several ranks, and tensor parallelism, do not
+        cover yet."""
+        if self._tp is not None and self.zero_cpu_offload():
+            raise NotImplementedError(
+                "ZeRO-Offload over {} tensor-parallel ranks is not ported "
+                "yet ({})".format(self.mp_world_size, _OFFLOAD_ITEM))
         if not self._partitioned:
             return
         if not isinstance(self.optimizer, FusedAdam):
             raise NotImplementedError(
                 "ZeRO stage {} over {} ranks partitions Adam/AdamW state "
-                "only; {} over partitioned ranks is not ported yet (ROADMAP "
-                "Queue 1 item 6)".format(self.zero_optimization_stage(),
-                                         self.dp_world_size,
-                                         type(self.optimizer).__name__))
+                "only; {} over partitioned ranks is not ported yet ({})"
+                .format(self.zero_optimization_stage(), self.dp_world_size,
+                        type(self.optimizer).__name__, _OFFLOAD_ITEM))
+        if self._tp is not None and self._tp.stored and \
+                self.zero_optimization_stage() >= 3:
+            raise NotImplementedError(
+                "ZeRO stage 3 with tensor-parallel leaves the model does not "
+                "compute split ({}) is not ported yet: stage 3 gathers a "
+                "block's parameters inside its forward, after the engine "
+                "gathers the stored shards (ROADMAP Queue 1 item 6)".format(
+                    [self._names[i] for i in self._tp.stored][:3]))
         if self.zero_optimization_stage() >= 3 and getattr(
                 getattr(self.module, "config", None), "remat", False):
             raise NotImplementedError(
@@ -499,7 +557,8 @@ class DeepSpeedEngine(object):
             self.module, self._params,
             self.zero_optimization_stage(), self.dp_group,
             self.compute_dtype, zc.reduce_bucket_size,
-            zc.allgather_bucket_size, sparse=self._sparse)
+            zc.allgather_bucket_size, sparse=self._sparse,
+            skip_dims=self._tp.dims if self._tp is not None else None)
         if self.optimizer is not None:
             self.opt_state = self.optimizer.init_state(self._zero.master)
 
@@ -597,12 +656,20 @@ class DeepSpeedEngine(object):
         return x
 
     def _run_module(self, inputs, kwargs):
+        # Stored tensor-parallel shards are gathered for use.
+        stored = self._tp.stored if self._tp is not None else []
+        gathered = {self._names[i]: self._tp.gathered(
+            i, self._params[i].to(self.compute_dtype)) for i in stored}
         if self.compute_dtype == torch.float32 or self._zero is not None:
             # fp32, or partitioned: the module's parameters already hold
             # the compute dtype.
-            return self.module(*inputs, **kwargs)
+            if not gathered:
+                return self.module(*inputs, **kwargs)
+            return torch.func.functional_call(self.module, gathered, inputs,
+                                              kwargs)
         cast = {n: p.to(self.compute_dtype) if p.is_floating_point() else p
                 for n, p in zip(self._names, self._params)}
+        cast.update(gathered)
         return torch.func.functional_call(self.module, cast, inputs, kwargs)
 
     def forward(self, *inputs, **kwargs):
@@ -782,11 +849,14 @@ class DeepSpeedEngine(object):
     # ------------------------------------------- data-parallel reduction
 
     def _agreed(self, flag):
-        """``flag`` (a 0-d bool tensor) OR-ed over the data group."""
-        if self.dp_world_size <= 1:
+        """``flag`` (a 0-d bool tensor) OR-ed over the data group, or over
+        the whole world when the grid has model or pipe ranks."""
+        if self.mesh.size <= 1:
             return bool(flag)
+        group = self.dp_group if self.mesh.size == self.dp_world_size \
+            else None
         t = flag.reshape(1).to(torch.int32)
-        return int(comm.all_reduce(t, self.dp_group)) > 0
+        return int(comm.all_reduce(t, group)) > 0
 
     @torch.no_grad()
     def allreduce_gradients(self, bucket_size=MEMORY_OPT_ALLREDUCE_SIZE):
@@ -840,20 +910,32 @@ class DeepSpeedEngine(object):
     def sparse_allreduce_bucket(self, bucket):
         return self.csr_allreduce_no_retain(bucket)
 
-    def _partitioned_norm(self, grads):
-        """The global 2-norm of the partitioned gradients: the shards'
-        squares summed over the group, each replicated leaf once."""
+    def _global_norm(self, grads, skip=()):
+        """The global 2-norm of ``grads`` (this rank's: ZeRO shards,
+        tensor-parallel shards or whole leaves): the squares of a leaf
+        partitioned over the data group summed over it, of a leaf sharded
+        over the model group summed over that, each replicated leaf
+        counted once; over the pipe group the stages' sums (``skip``: the
+        leaves another stage counts)."""
         z = self._zero
-        sq_shard = torch.zeros((), dtype=torch.float32, device=self.device)
-        sq_whole = torch.zeros((), dtype=torch.float32, device=self.device)
+        buckets = [[], [], [], []]  # none, data, model, both
         for i, g in enumerate(grads):
-            sq = g.float().square().sum()
-            if z.owned(i):
-                sq_shard += sq
-            else:
-                sq_whole += sq
-        comm.all_reduce(sq_shard.reshape(1), self.dp_group)
-        return (sq_shard + sq_whole).sqrt()
+            if i in skip:
+                continue
+            k = (1 if z is not None and z.owned(i) else 0) + \
+                (2 if self._tp is not None and self._tp.sharded(i) else 0)
+            buckets[k].append(g)
+        sq = [global_norm(b).to(self.device).square() for b in buckets]
+        if z is not None:
+            t = comm.all_reduce(torch.stack([sq[1], sq[3]]), self.dp_group)
+            sq[1], sq[3] = t[0], t[1]
+        if self._tp is not None:
+            t = comm.all_reduce(torch.stack([sq[2], sq[3]]), self.mp_group)
+            sq[2], sq[3] = t[0], t[1]
+        total = sq[0] + sq[1] + sq[2] + sq[3]
+        if self.pp_group is not None:
+            total = comm.all_reduce(total.reshape(1), self.pp_group)[0]
+        return total.sqrt()
 
     def _reduce_partitioned(self):
         """The boundary's reduction of the partitioned gradients: the
@@ -876,6 +958,9 @@ class DeepSpeedEngine(object):
         with unpartitioned parameters; raises RuntimeError on a mismatch.
         Skipped on an fp16 overflow step (its gradients are non-finite by
         design)."""
+        if self._tp is not None:
+            raise NotImplementedError("pg_correctness_test under tensor "
+                                      "parallelism is not ported")
         records, self._pg_inputs = self._pg_inputs, []
         if self.loss_scaler is not None and \
                 self._agreed(has_overflow(grads)):
@@ -919,19 +1004,25 @@ class DeepSpeedEngine(object):
                     "{})".format(name, np.abs(a - b).max()))
 
     @torch.no_grad()
-    def _partitioned_update(self, grads, inv_scale, lr, betas):
-        """Unscale and clip the gradient shards, update the rank's master
-        and moment shards, publish the parameters."""
+    def _update(self, grads, inv_scale, skip=()):
+        """Unscale and clip ``grads`` (this rank's shards or whole leaves;
+        ``skip`` as for ``_global_norm``), then the optimizer's update: of
+        the rank's master shards, published, under ZeRO; of the parameters
+        otherwise."""
         if inv_scale != 1.0:
             torch._foreach_mul_(grads, inv_scale)
         clip = self.gradient_clipping()
         if clip > 0.0:
-            norm = self._partitioned_norm(grads)
+            norm = self._global_norm(grads, skip)
             torch._foreach_mul_(grads, torch.clamp(clip / (norm + 1e-6),
                                                    max=1.0))
-        self.optimizer.update(self._zero.master, grads, self.opt_state,
-                              lr=lr, betas=betas)
-        self._zero.publish()
+        group = self.optimizer.param_groups[0]
+        params = self._zero.master if self._zero is not None else \
+            self._params
+        self.optimizer.update(params, grads, self.opt_state, lr=group["lr"],
+                              betas=group.get("betas", (0.9, 0.999)))
+        if self._zero is not None:
+            self._zero.publish()
 
     @torch.no_grad()
     def _take_model_step(self, lr_kwargs=None):
@@ -966,22 +1057,13 @@ class DeepSpeedEngine(object):
                         "reducing to {}".format(cur_scale,
                                                 self.loss_scaler.loss_scale))
         else:
-            group = self.optimizer.param_groups[0]
-            if self._zero is not None:
-                self._partitioned_update(grads, 1.0 / cur_scale, group["lr"],
-                                         group.get("betas", (0.9, 0.999)))
-            elif self._offload_mode():
+            if self._offload_mode():
                 # The gradients leave .grad: the host step consumes them.
                 self.zero_grad()
-                self._offload_step(grads, 1.0 / cur_scale, group["lr"])
+                self._offload_step(grads, 1.0 / cur_scale,
+                                   self.optimizer.param_groups[0]["lr"])
             else:
-                if cur_scale != 1.0:
-                    torch._foreach_mul_(grads, 1.0 / cur_scale)
-                if self.gradient_clipping() > 0.0:
-                    clip_grad_norm_(grads, self.gradient_clipping())
-                self.optimizer.update(self._params, grads, self.opt_state,
-                                      lr=group["lr"],
-                                      betas=group.get("betas", (0.9, 0.999)))
+                self._update(grads, 1.0 / cur_scale)
             if self.lr_scheduler is not None:
                 self.lr_scheduler.step(**(lr_kwargs or {}))
             if self.global_rank == 0 and \
@@ -1114,6 +1196,32 @@ class DeepSpeedEngine(object):
                         self.dp_world_size)
         return opt_sd
 
+    def _full(self, tensors):
+        """Full fp32 leaves from this rank's ``tensors`` (one per
+        parameter): gathered over the data group where ZeRO partitions
+        them, then over the model group where tensor parallelism shards
+        them (collective: every rank calls it)."""
+        if self._zero is not None:
+            tensors = self._zero.gather_states(tensors)
+        tensors = [t.detach().float() for t in tensors]
+        if self._tp is not None:
+            tensors = [self._tp.full(i, t) for i, t in enumerate(tensors)]
+        return tensors
+
+    def _full_masters(self):
+        """Every leaf's full fp32 master (collective)."""
+        return self._full(self._zero.master if self._zero is not None
+                          else self._params)
+
+    def _local(self, i, full):
+        """This rank's leaf ``i`` (its tensor-parallel shard, then its ZeRO
+        shard) of a full saved leaf."""
+        if self._tp is not None:
+            full = self._tp.local(i, full)
+        if self._zero is not None:
+            return self._zero.shard_of(i, full)
+        return full
+
     def _optimizer_state_for_save(self, shards=False):
         """{"state": step and moments as flax trees of numpy arrays (None
         before an offload step built them), the optimizer's param_groups,
@@ -1122,19 +1230,15 @@ class DeepSpeedEngine(object):
         elastic shard tree (``_state_shards``); without, the moments are
         all-gathered whole (every rank must call it)."""
         sd = {"state": None}
-        if self.opt_state is not None and self._zero is not None:
-            sd["state"] = self._state_shards(self.opt_state) if shards else {
-                "step": np.asarray(self.opt_state["step"], np.int32),
-                "exp_avg": _nest(self._names, self._zero.gather_states(
-                    self.opt_state["exp_avg"])),
-                "exp_avg_sq": _nest(self._names, self._zero.gather_states(
-                    self.opt_state["exp_avg_sq"]))}
+        if self.opt_state is not None and shards:
+            sd["state"] = self._state_shards(self.opt_state)
         elif self.opt_state is not None:
             sd["state"] = {
                 "step": np.asarray(self.opt_state["step"], np.int32),
-                "exp_avg": _nest(self._names, self.opt_state["exp_avg"]),
+                "exp_avg": _nest(self._names,
+                                 self._full(self.opt_state["exp_avg"])),
                 "exp_avg_sq": _nest(self._names,
-                                    self.opt_state["exp_avg_sq"])}
+                                    self._full(self.opt_state["exp_avg_sq"]))}
         if self._offload is not None:
             # Resuming keeps full master precision (the bf16 module
             # parameters would drift the trajectory).
@@ -1152,17 +1256,21 @@ class DeepSpeedEngine(object):
         save_path = self._get_ckpt_name(save_dir, tag)
         ensure_directory_exists(save_path)
         self._ensure_zero()
-        first = self.dp_rank == 0
+        # Rank 0 of the data and model lines writes the shared files.
+        first = self.dp_rank == 0 and self.mp_rank == 0
         zero = self.zero_optimization()
-        elastic = self._zero is not None and self.zero_elastic_checkpoint()
+        # Elastic per-rank files at mp 1; over a model axis the zero file
+        # holds the full state.
+        elastic = self._zero is not None and self.zero_elastic_checkpoint() \
+            and self._tp is None
         optimizer = None
         if self.optimizer is not None and (first or elastic):
             optimizer = self._optimizer_state_for_save(shards=elastic)
-        elif self._zero is not None and self.optimizer is not None:
+        elif (self._zero is not None or self._tp is not None) and \
+                self.optimizer is not None:
             self._optimizer_state_for_save(shards=False)  # collective
-        # The full fp32 masters (an all-gather when partitioned).
-        module = _nest(self._names, self._zero.full_masters()) \
-            if self._zero is not None else flax_tree(self.module)
+        # The full fp32 masters (all-gathers when partitioned or sharded).
+        module = _nest(self._names, self._full_masters())
         if first:
             state = {
                 "module": module,
@@ -1196,8 +1304,8 @@ class DeepSpeedEngine(object):
         if save_latest and first:
             with open(os.path.join(save_dir, "latest"), "w") as fd:
                 fd.write(str(tag))
-        if self.dp_world_size > 1:
-            torch.distributed.barrier(group=self.dp_group)
+        if self.mesh.size > 1:
+            torch.distributed.barrier()
         return True
 
     @torch.no_grad()
@@ -1225,8 +1333,14 @@ class DeepSpeedEngine(object):
 
         self._ensure_zero()
         if self._zero is not None:
-            self._zero.load_full([_host_leaf(checkpoint["module"], n)
-                                  for n in self._names])
+            fulls = [_host_leaf(checkpoint["module"], n) for n in self._names]
+            if self._tp is not None:
+                fulls = [self._tp.local(i, f) for i, f in enumerate(fulls)]
+            self._zero.load_full(fulls)
+        elif self._tp is not None:
+            for i, (n, p) in enumerate(zip(self._names, self._params)):
+                p.data.copy_(self._tp.local(
+                    i, _host_leaf(checkpoint["module"], n)))
         else:
             load_flax_tree(self.module, checkpoint["module"])
         if self._offload_mode():
@@ -1237,13 +1351,12 @@ class DeepSpeedEngine(object):
         if load_optimizer_states and self.optimizer is not None and \
                 opt_sd is not None and opt_sd.get("state") is not None:
             saved = opt_sd["state"]
-            if self._zero is not None:
+            if self._zero is not None or self._tp is not None:
                 # The full logical state, sliced to this rank's shards.
                 for key in ("exp_avg", "exp_avg_sq"):
                     for i, (name, t) in enumerate(zip(self._names,
                                                       self.opt_state[key])):
-                        t.copy_(self._zero.shard_of(
-                            i, _host_leaf(saved[key], name)))
+                        t.copy_(self._local(i, _host_leaf(saved[key], name)))
             elif self._offload is not None:
                 master = opt_sd.get("fp32_master")
                 self._offload.load_moments(

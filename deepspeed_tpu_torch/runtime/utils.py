@@ -1,5 +1,5 @@
-"""Runtime helpers: gradient norms, clipping, the overflow check, and the
-flax-tree bridge for parameters.
+"""Runtime helpers: gradient norms, clipping, the overflow check, the
+flax-tree bridge for parameters, and the pipeline's layer partitions.
 
 Counterpart of ``deepspeed_tpu/runtime/utils.py`` for what the training
 path uses. The JAX functions take pytrees and return new ones; these take
@@ -7,6 +7,7 @@ a list of tensors, and ``clip_grad_norm_`` scales them in place (torch's
 convention for a trailing underscore).
 """
 
+import bisect
 import os
 
 import numpy as np
@@ -87,3 +88,76 @@ def ensure_directory_exists(filename):
     dirname = os.path.dirname(filename)
     if dirname:
         os.makedirs(dirname, exist_ok=True)
+
+
+# ------------------------------------------------ pipeline partitions
+# The pipeline module's stage boundaries (the JAX package's
+# ``runtime/utils.py`` partition functions, pure Python).
+
+
+def prefix_sum_inc(weights):
+    """The inclusive prefix sum of ``weights``."""
+    out = list(weights)
+    for i in range(1, len(out)):
+        out[i] += out[i - 1]
+    return out
+
+
+def partition_uniform(num_items, num_parts):
+    """``num_parts + 1`` evenly spaced boundaries over ``num_items`` (the
+    last part takes the remainder)."""
+    parts = [0] * (num_parts + 1)
+    chunksize = num_items // num_parts
+    for p in range(num_parts):
+        parts[p] = min(chunksize * p, num_items)
+    parts[num_parts] = num_items
+    return parts
+
+
+def _lprobe(weights, num_parts, bottleneck):
+    """Greedy boundaries over the prefix sums ``weights`` with no part
+    heavier than ``bottleneck``; (parts, whether they cover every item)."""
+    num_items = len(weights)
+    total_weight = weights[-1]
+    parts = [0] * (num_parts + 1)
+    for p in range(1, num_parts + 1):
+        parts[p] = num_items
+    bsum = bottleneck
+    chunksize = num_items // num_parts
+    step = chunksize
+    for p in range(1, num_parts):
+        while step < num_items and weights[step] < bsum:
+            step += chunksize
+        parts[p] = bisect.bisect_left(weights, bsum, step - chunksize,
+                                      min(step, num_items))
+        if parts[p] == num_items:
+            part_size = weights[-1] - weights[parts[p - 1]]
+            return parts, part_size < bottleneck
+        bsum = weights[parts[p] - 1] + bottleneck
+    return parts, bsum >= total_weight
+
+
+def _rb_partition_balanced(weights, num_parts, eps):
+    """The smallest heaviest-part weight, by binary search."""
+    lower = weights[-1] / num_parts
+    upper = weights[-1]
+    while upper > lower + eps:
+        mid = lower + ((upper - lower) / 2)
+        _, success = _lprobe(weights, num_parts, mid)
+        if success:
+            upper = mid
+        else:
+            lower = mid + eps
+    return upper
+
+
+def partition_balanced(weights, num_parts, eps=1e-3):
+    """``num_parts + 1`` boundaries over ``weights`` (one per item) that
+    make the heaviest part as light as possible."""
+    if len(weights) <= num_parts:
+        return partition_uniform(len(weights), num_parts)
+    weights_ = prefix_sum_inc(weights)
+    bottleneck = _rb_partition_balanced(weights_, num_parts, eps=eps)
+    parts, success = _lprobe(weights_, num_parts, bottleneck)
+    assert success
+    return parts

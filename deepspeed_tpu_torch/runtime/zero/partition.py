@@ -30,6 +30,11 @@ and the collectives are explicit (``parallel/comm.py``):
   unit stays gathered from the forward to the end of the backward.
   ``gathers`` counts the unit gathers.
 
+Under tensor parallelism the leaves are the rank's model shards, and a
+leaf's ZeRO dim skips the dim a rule put on 'model' (``skip_dims``; the
+JAX ``zero_shardings`` composition): ZeRO-3 x TP leaves each rank
+1/(mp dp) of a sharded leaf.
+
 Replicated leaves are all-reduced whole, kept whole on every rank and
 updated alike everywhere. A partitioned leaf's shard on a dim other than
 0 is strided: it is moved to dim 0 (a copy) before it enters a flat
@@ -77,10 +82,12 @@ class _Regather(torch.autograd.Function):
 class ZeroPartition(object):
     """The partitioned state of one engine (module docstring). ``params``
     are the module's parameters (fp32 on entry); ``sparse`` the indices of
-    the leaves the engine exchanges as (row, value) pairs."""
+    the leaves the engine exchanges as (row, value) pairs; ``skip_dims``
+    per leaf the dim its ZeRO partition must not take (or None)."""
 
     def __init__(self, module, params, stage, group, compute_dtype,
-                 reduce_bucket_size, allgather_bucket_size, sparse=()):
+                 reduce_bucket_size, allgather_bucket_size, sparse=(),
+                 skip_dims=None):
         self.module = module
         self.params = list(params)
         self.stage = stage
@@ -92,7 +99,9 @@ class ZeroPartition(object):
         self.gather_bucket = int(allgather_bucket_size)
         self.sparse = set(sparse)
         self.shapes = [tuple(p.shape) for p in self.params]
-        self.dims = [zero_partition_dim(s, self.dp) for s in self.shapes]
+        skip_dims = skip_dims or [None] * len(self.params)
+        self.dims = [zero_partition_dim(s, self.dp, skip)
+                     for s, skip in zip(self.shapes, skip_dims)]
         self.master = [shard_slice(p.detach().float(), d, self.rank,
                                    self.dp).clone()
                        for p, d in zip(self.params, self.dims)]

@@ -11,7 +11,9 @@ package's environment contract: the launcher (``launcher/launch.py``) sets
 ``gloo`` when it is the CPU; an explicit backend always wins (the card's
 two-ranks-on-one-device runs pass ``"gloo"``: NCCL refuses two ranks on
 one device). Nothing here switches backend on its own or catches a failed
-rendezvous.
+rendezvous. ``group_timeout()`` is the timeout the default group was
+started with, which every group the port makes takes too (the grid's,
+the pipeline's), so a hang fails at the same bound.
 """
 
 import datetime
@@ -23,6 +25,13 @@ import torch.distributed as dist
 from deepspeed_tpu_torch.utils.logging import logger
 
 DEFAULT_TIMEOUT_S = 1800
+_timeout = None
+
+
+def group_timeout():
+    """The default group's timeout (a timedelta) when ``init_distributed``
+    started it, else None (``new_group``'s own default)."""
+    return _timeout
 
 
 def is_initialized():
@@ -66,9 +75,11 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=True,
                     "env://" else "{}:{}".format(os.environ["MASTER_ADDR"],
                                                   os.environ["MASTER_PORT"]),
                     rank, world_size)
+    global _timeout
+    _timeout = datetime.timedelta(seconds=timeout or DEFAULT_TIMEOUT_S)
     dist.init_process_group(
         backend, init_method=init_method, rank=rank, world_size=world_size,
-        timeout=datetime.timedelta(seconds=timeout or DEFAULT_TIMEOUT_S))
+        timeout=_timeout)
     return True
 
 

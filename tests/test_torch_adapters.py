@@ -118,7 +118,7 @@ def test_protocol_required_surface_raises_unimplemented():
     assert base.aux_state() == {}
     assert base.param_shardings(None, None) is None
     assert base.observe(None, None) is None
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         base.bind(None, object())
 
 

@@ -1886,3 +1886,120 @@ def test_two_rank_gloo_zero_step_on_the_card(cuda, tmp_path, stage):
             np.testing.assert_allclose(got["masters"][name], w, rtol=0,
                                        atol=1e-5 * np.abs(w).max(),
                                        err_msg=name)
+
+
+# ------------------------------------------------ model parallelism
+
+
+_MP_WIDTH = dict(n_embd=128, n_layer=2, n_head=2, vocab_size=1024,
+                 n_positions=128, dropout=0.0)
+_MP_CONFIG = {"train_batch_size": 4, "steps_per_print": 1000,
+              "gradient_clipping": 0.1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-2,
+                                                        "eps": 1e-3}}}
+
+
+def _mp_params():
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.runtime.utils import flax_tree
+
+    return flax_tree(GPT2LMHeadModel(GPT2Config(dtype=torch.float32,
+                                                **_MP_WIDTH),
+                                     device="cpu", seed=0))
+
+
+def _mp_reference(cuda, params, batches, gas):
+    """One process on the card: a step per ``gas`` micro-batches; the
+    steps' mean losses and the fp32 masters by name."""
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+
+    engine = tds.initialize(model=GPT2LMHeadModel(
+        GPT2Config(dtype=torch.float32, **_MP_WIDTH), device=cuda,
+        seed=None), model_parameters=params, device=cuda,
+        config_params=dict(_MP_CONFIG, gradient_accumulation_steps=gas))[0]
+    losses = []
+    for i in range(0, len(batches), gas):
+        micro = []
+        for ids, _ in batches[i:i + gas]:
+            loss = engine(ids, ids)
+            engine.backward(loss)
+            engine.step()
+            micro.append(float(loss.detach()))
+        losses.append(float(np.mean(micro)))
+    return losses, {n: p.detach().float().cpu().numpy()
+                    for n, p in zip(engine._names, engine._params)}
+
+
+def _masters_held(got, want):
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_two_rank_gloo_tensor_parallel_step_on_the_card(cuda, tmp_path):
+    """Tensor parallelism over two ranks on cuda:0 over gloo (mp 2: one of
+    the 2 heads per rank, K1/K2a on the local head), started by the port's
+    launcher: every step's loss within 1e-5 relative of one process on the
+    card, the gathered masters within 1e-5 of each tensor's max-abs, K1
+    and K2a n_layer times a step on each rank."""
+    from tests.torch_dist_worker import run_ranks
+
+    params = _mp_params()
+    batches = [(b, b) for b in (np.random.RandomState(s).randint(
+        0, 1024, size=(4, 32)) for s in range(4))]
+    ranks = run_ranks(2, [dict(name="tp", kind="tp", mp=2,
+                               gpt2_cfg=_MP_WIDTH, device="cuda:0",
+                               params=params, config=_MP_CONFIG,
+                               batches=batches)], str(tmp_path / "w"))
+    want, masters = _mp_reference(cuda, params, batches, 1)
+    for r in ranks:
+        got = r["tp"]
+        np.testing.assert_allclose(got["losses"], want, rtol=1e-5)
+        assert got["launches"]["flash_fwd"] == 2 * len(batches)
+        assert got["launches"]["flash_bwd_fused"] == 2 * len(batches)
+        _masters_held(got["masters"], masters)
+
+
+def test_two_rank_gloo_pipeline_step_on_the_card(cuda, tmp_path):
+    """The 1F1B pipeline over two ranks on cuda:0 over gloo (2 stages of
+    the tied ``gpt2_pipeline``, gas 2, p2p staged through the host):
+    every step's loss within 1e-5 relative of one process training the
+    same weights on the card, every layer's weights within 1e-5 of each
+    tensor's max-abs (the tied head's copy equal to the embedding's), K1
+    and K2a once per block and micro-batch on each stage."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, \
+        gpt2_layer_params
+    from tests.torch_dist_worker import run_ranks
+
+    params = _mp_params()
+    cfg = GPT2Config(dtype=torch.float32, **_MP_WIDTH)
+    batches = [(b, b) for b in (np.random.RandomState(s).randint(
+        0, 1024, size=(2, 32)) for s in range(4))]
+    ranks = run_ranks(2, [dict(
+        name="pp", kind="pipe", layers="gpt2", gpt2_cfg=_MP_WIDTH,
+        stages=2, device="cuda:0", steps=2,
+        params=gpt2_layer_params(params, cfg),
+        config=dict(_MP_CONFIG, gradient_accumulation_steps=2),
+        batches=batches)], str(tmp_path / "w"))
+    want, masters = _mp_reference(cuda, params, batches, 2)
+    layers = {}
+    for r in ranks:
+        np.testing.assert_allclose(r["pp"]["losses"], want, rtol=1e-5)
+        assert r["pp"]["launches"]["flash_fwd"] == 1 * len(batches)
+        assert r["pp"]["launches"]["flash_bwd_fused"] == 1 * len(batches)
+        layers.update(r["pp"]["layers"])
+    got = {"wte": layers[0]["wte"], "wpe": layers[0]["wpe"],
+           "ln_f.scale": layers[3]["ln_f"]["scale"],
+           "ln_f.bias": layers[3]["ln_f"]["bias"]}
+    for i in range(2):
+        blk = layers[1 + i]["Block_0"]
+        for a in ("ln_1", "ln_2"):
+            for k in ("scale", "bias"):
+                got["h_{}.{}.{}".format(i, a, k)] = blk[a][k]
+        for a, b in (("attn", "c_attn"), ("attn", "c_proj"),
+                     ("mlp", "c_fc"), ("mlp", "c_proj")):
+            for k in ("kernel", "bias"):
+                got["h_{}.{}.{}.{}".format(i, a, b, k)] = blk[a][b][k]
+    np.testing.assert_array_equal(layers[4]["wte"], layers[0]["wte"])
+    _masters_held(got, masters)

@@ -91,7 +91,7 @@ def test_parses_as_the_jax_package_does(i):
     {"flops_profiler": {"enabled": True}},
     {"pipeline": {"partition": "uniform"}},
     {"activation_checkpointing": {"partition_activations": True}},
-    {"pipeline": {"stages": 2}},
+    {"pipeline": {"seed_layers": True}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
     {"activation_checkpointing": {"contiguous_memory_optimization": True}},
 ])
@@ -101,17 +101,29 @@ def test_unported_subsystems_raise(extra):
         TConfig(None, param_dict=cfg)
 
 
+def test_pipeline_engine_keys_parse():
+    """``pipeline.stages`` and ``pipeline.activation_checkpoint_interval``
+    are the pipeline engine's and parse (``runtime/pipe/engine.py`` honours
+    them); the block's other keys stay refused above."""
+    cfg = TConfig(None, param_dict={
+        "train_batch_size": 8,
+        "pipeline": {"stages": 2, "activation_checkpoint_interval": 1}})
+    assert cfg.pipeline["stages"] == 2
+    assert cfg.pipeline["activation_checkpoint_interval"] == 1
+    assert cfg.pipeline["partition"] == "best"
+
+
 @pytest.mark.parametrize("zero", [
     {"stage": 2, "cpu_offload": True, "stream_gradients": True},
     {"stage": 2, "cpu_offload": True}, {"stage": 0, "cpu_offload": True}])
 def test_world_size_other_than_one_raises(zero):
-    """ZeRO-Offload over several ranks is ROADMAP item 6: the JAX config
+    """ZeRO-Offload over several ranks is ROADMAP item 17: the JAX config
     takes it at a world size of 2, the port refuses it, naming the item
     (ZeRO itself over several ranks is ported: see the next test)."""
     cfg = {"train_batch_size": 8, "bf16": {"enabled": True},
            "zero_optimization": zero}
     JConfig(None, param_dict=dict(cfg), world_size=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 17"):
         TConfig(None, param_dict=dict(cfg), world_size=2)
 
 

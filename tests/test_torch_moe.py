@@ -17,7 +17,7 @@ The contracts are those of the JAX package's ``test_moe.py``:
 - UTILITIES: expert parameters by path, and the dense / expert split.
 
 The JAX tests that shard experts over a 'model' mesh axis become
-refusals here (tensor parallelism, ROADMAP Queue 1 item 6); the one that
+refusals here (experts over 'model', ROADMAP Queue 1 item 16); the one that
 trains an MoE model through the engine waits for the MoE training path
 (ROADMAP Queue 1 item 11).
 """
@@ -280,9 +280,9 @@ def test_expert_sharding_over_a_mesh_is_refused():
     refuses a mesh, naming the ROADMAP item."""
     a = MoEAdapter.from_config()
     mesh = object()
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         a.bind(InferenceConfig(), mesh)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         a.param_shardings(mesh, None)
     assert a.param_shardings(None, None) is None
     # expert_parallel is accepted and has no effect on one card.

@@ -299,8 +299,229 @@ def task_freed(task, rank, world):
     return [r() is None for r in refs]
 
 
+def _tied_embed(vocab=16, dim=8, device="cpu", seed=0):
+    """The JAX pipeline test's TiedEmbed under the flax name: token ids
+    look up ``embedding`` rows, float inputs project onto them."""
+    import torch
+    from torch import nn
+
+    class TiedEmbed(nn.Module):
+        def __init__(self):
+            super().__init__()
+            g = torch.Generator()
+            g.manual_seed(seed)
+            self.embedding = nn.Parameter(
+                torch.randn(vocab, dim, generator=g) * 0.1,
+                requires_grad=False)
+
+        def forward(self, x):
+            if not x.is_floating_point():
+                return self.embedding[x.long()]
+            return x @ self.embedding.t()
+
+    return TiedEmbed()
+
+
+def _project(layer, x):
+    return x @ layer.embedding.t()
+
+
+def pipe_module(task, num_stages):
+    """The port's PipelineModule of ``task["layers"]``: the JAX pipeline
+    tests' DenseRelu stack, its tied-embedding stack, or tiny GPT-2's
+    ``gpt2_pipeline``."""
+    import torch
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, gpt2_pipeline
+    from deepspeed_tpu_torch.models.simple import DenseOut, DenseRelu, \
+        ce_loss
+    from deepspeed_tpu_torch.pipe import (LayerSpec, PipelineModule,
+                                          TiedLayerSpec)
+
+    kind = task["layers"]
+    if kind == "gpt2":
+        cfg = GPT2Config(dtype=torch.float32, **task["gpt2_cfg"]) \
+            if "gpt2_cfg" in task else \
+            GPT2Config.tiny(dtype=torch.float32, use_flash_attention=True)
+        return gpt2_pipeline(cfg, num_stages=num_stages,
+                             tied=task.get("tied", True))
+    if kind == "tied":
+        fn = _project if task.get("forward_fn") else None
+        layers = [TiedLayerSpec("embed", _tied_embed),
+                  LayerSpec(DenseRelu, 8, in_features=8),
+                  TiedLayerSpec("embed", _tied_embed, forward_fn=fn)]
+    else:
+        layers = [LayerSpec(DenseRelu, 32, in_features=16),
+                  LayerSpec(DenseRelu, 32), LayerSpec(DenseRelu, 32),
+                  LayerSpec(DenseOut, 8, in_features=32)]
+    module = PipelineModule(
+        layers=layers, num_stages=num_stages, loss_fn=ce_loss,
+        seed_layers=True, base_seed=42, partition_method="uniform",
+        activation_checkpoint_interval=task.get("remat", 0))
+    module.tp_rules = task.get("tp_rules")
+    return module
+
+
+def _mine(batch, rank, world):
+    return tuple(np.asarray(x)[rank * (len(x) // world):
+                               (rank + 1) * (len(x) // world)]
+                 for x in batch)
+
+
+def task_pipe(task, rank, world):
+    """Train ``pipe_module(task)`` over ``task["stages"]`` stages (x
+    ``task.get("mp", 1)`` model ranks, the rest data ranks) from the
+    per-layer trees ``task["params"]``: the loss of each step (each step
+    ``gas`` global micro-batches of ``task["batches"]``, each data rank
+    its rows), then optionally an eval loss with the parameters checked
+    unchanged, an injected overflow step, a checkpoint saved or loaded,
+    and each layer's full fp32 parameters."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    stages, mp = task["stages"], task.get("mp", 1)
+    mesh = build_mesh(num_pp=stages, num_mp=mp)
+    engine, _, _, _ = tds.initialize(
+        model=pipe_module(task, stages), model_parameters=task["params"],
+        config_params=task["config"], device=task.get("device", "cpu"),
+        mesh=mesh)
+    at.reset_launches()
+    dp, dp_rank = engine.dp_world_size, engine.dp_rank
+    gas = engine.micro_batches
+    out = {"losses": [], "stage": engine.stage_id}
+    if task.get("load"):
+        path, _ = engine.load_checkpoint(task["load"])
+        out["loaded"] = path is not None
+        out["loaded_steps"] = engine.global_steps
+    batches = [_mine(b, dp_rank, dp) for b in task["batches"]]
+    for step in range(task["steps"]):
+        if task.get("save") and step == task["save_after"]:
+            engine.save_checkpoint(task["save"], tag="ck")
+        chunk = batches[step * gas:(step + 1) * gas]
+        out["losses"].append(engine.train_batch(data_iter=iter(chunk)))
+    if task.get("eval"):
+        before = [p.detach().clone() for p in engine._params]
+        out["eval"] = engine.eval_batch(iter(batches[:gas]))
+        out["eval_unchanged"] = all(torch.equal(a, p) for a, p in
+                                    zip(before, engine._params))
+    if task.get("overflow"):
+        before = [p.detach().clone() for p in engine._params]
+        scale, skipped = engine.loss_scaler.loss_scale, engine.skipped_steps
+        if engine.stage_id == 0:
+            for p in engine._params:
+                p.grad = torch.full_like(p, float("inf"))
+        engine._exec_optimizer_step(None)
+        out["overflow"] = {
+            "skipped": engine.skipped_steps - skipped,
+            "scale_down": engine.loss_scaler.loss_scale < scale,
+            "unchanged": all(torch.equal(a, p) for a, p in
+                             zip(before, engine._params)),
+            "grads_cleared": all(p.grad is None for p in engine._params)}
+    if task.get("save_end"):
+        engine.save_checkpoint(task["save_end"], tag="end")
+    layers = {}
+    for idx in sorted(engine._layer_params):
+        if engine._layer_params[idx]:
+            layers[idx] = engine._layer_full(idx, engine._params)
+    out["layers"] = layers
+    out["shards"] = {n: tuple(p.shape) for n, p in zip(engine._names,
+                                                       engine._params)}
+    out["launches"] = dict(at.launches)
+    dist.barrier()
+    return out
+
+
+def task_tp(task, rank, world):
+    """Train tiny GPT-2 on a grid of ``task["mp"]`` model x the rest data
+    ranks from the flax tree ``task["params"]`` (each data rank its rows of
+    every global micro-batch): per-step losses (the data group's mean), the
+    shard shapes of every leaf, the full fp32 masters, the collective
+    counts of one step, and optional checkpoints."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    device = task.get("device", "cpu")
+    cfg = GPT2Config(dtype=torch.float32, **task["gpt2_cfg"]) \
+        if "gpt2_cfg" in task else GPT2Config.tiny(dtype=torch.float32)
+    mesh = build_mesh(num_mp=task["mp"])
+    engine, _, _, _ = tds.initialize(
+        model=GPT2LMHeadModel(cfg, device=device, seed=None),
+        model_parameters=task["params"], config_params=task["config"],
+        device=device, mesh=mesh)
+    engine.compute_dtype = torch.float32
+    at.reset_launches()
+    out = {"losses": [], "mp_rank": engine.mp_rank, "dp_rank": engine.dp_rank}
+    if task.get("load"):
+        path, _ = engine.load_checkpoint(task["load"])
+        out["loaded"] = path is not None
+    dp = engine.dp_world_size
+    for i, batch in enumerate(task["batches"]):
+        if task.get("save") and i == task["save_after"]:
+            engine.save_checkpoint(task["save"], tag="ck")
+        local = tuple(torch.from_numpy(x).to(device) for x in
+                      _mine(batch, engine.dp_rank, dp))
+        comm.reset_stats()
+        loss = engine(*local)
+        engine.backward(loss)
+        engine.step()
+        out.setdefault("all_reduces", []).append(comm.stats["all_reduce"])
+        mean = loss.detach().float().reshape(1).clone()
+        if dp > 1:
+            comm.all_reduce(mean, engine.dp_group, mean=True)
+        out["losses"].append(float(mean))
+    out["shards"] = {n: tuple(p.shape) for n, p in zip(engine._names,
+                                                       engine._params)}
+    if engine._zero is not None:
+        out["zero_shards"] = {n: tuple(m.shape) for n, m in zip(
+            engine._names, engine._zero.master)}
+    out["masters"] = {n: f.cpu().numpy().copy() for n, f in
+                      zip(engine._names, engine._full_masters())}
+    out["local"] = {n: p.detach().float().cpu().numpy().copy()
+                    for n, p in zip(engine._names, engine._params)} \
+        if engine._zero is None else None
+    out["launches"] = dict(at.launches)
+    dist.barrier()
+    return out
+
+
+def task_refuse_offload(task, rank, world):
+    """ZeRO-Offload over 4 model ranks: the refusal's message."""
+    import torch
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = GPT2Config.tiny(dtype=torch.float32)
+    try:
+        tds.initialize(
+            model=GPT2LMHeadModel(cfg, device="cpu", seed=None),
+            model_parameters=task["params"], device="cpu",
+            mesh=build_mesh(num_mp=world),
+            config_params={"train_batch_size": 2, "bf16": {"enabled": True},
+                           "optimizer": {"type": "Adam",
+                                         "params": {"lr": 1e-3}},
+                           "zero_optimization": {"stage": 2,
+                                                 "cpu_offload": True}})
+    except NotImplementedError as e:
+        return str(e)
+    return "not refused"
+
+
 TASKS = {"train": task_train, "env": task_env,
-         "collectives": task_collectives, "freed": task_freed}
+         "collectives": task_collectives, "freed": task_freed,
+         "pipe": task_pipe, "tp": task_tp,
+         "refuse_offload": task_refuse_offload}
 
 
 def main(workdir):
