@@ -96,8 +96,9 @@ of which exits non-zero on failure:
    queue-wait percentiles, the windows' queue depth), a saturation sweep
    and the gate's A/A self-check; fails on a lost request, a recompile
    after warm-up or a non-finite number;
-4c. crash-only resilience (phase_resilience), GPT-2 medium bf16 on SERVE
-   with fault injection on: (i) the recovery invariant: a mixed stream
+4c. crash-only resilience (phase_resilience), GPT-2 medium bf16 (its
+   width, SHORT_LAYERS of its layers, for the smoke's time) on SERVE with
+   fault injection on: (i) the recovery invariant: a mixed stream
    of 16 requests (64/256 prompt tokens, 96 new; every fourth opted out
    of speculation, every third sampled, one with top-k) on the dense
    speculating pool (K3 at S5, prefill lane K5) and the paged int8 pool
@@ -131,7 +132,8 @@ of which exits non-zero on failure:
    warm-up and exact K3/K5 launch counts; the ``chaos`` line carries
    the report's chaos section (recovery time, SLO attainment during and
    outside recovery), TTFT p50/p99 and tokens/s;
-4e. the KV hierarchy (phase_hierarchy), GPT-2 medium bf16 on SERVE with
+4e. the KV hierarchy (phase_hierarchy), GPT-2 medium bf16 (its width,
+   SHORT_LAYERS of its layers) on SERVE with
    the prefix cache (8 rows of 64, matches of at least 8) and host
    offload (8 swap slots): 32 requests over 4 shared 48-token system
    prompts with tails of 16-208 tokens, 96 new tokens, every sixth
@@ -201,7 +203,8 @@ of which exits non-zero on failure:
    kill: every stream bit-equal to its undisturbed run, none lost, no
    capture on the survivor;
 4k. the adapters (phase_adapters) at GPT-2 medium's widths: MoE
-   (MOE_CFG, 8 experts of d_ff 4096 made on the card) and long context
+   (MOE_CFG: 8 layers, for the smoke's time, of 8 experts of d_ff 4096
+   made on the card) and long context
    (LONG_CFG over the model): graph-served equals eager bit for bit;
    MoE routes n_layer x the tokens its programs touched and drops none,
    launches no K3-K6 and agrees with the CPU at 2 layers in fp32; long
@@ -312,7 +315,8 @@ of which exits non-zero on failure:
    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and joined over gloo
    (NCCL refuses two ranks on one device), each with a DP_TIMEOUT_S
    rendezvous and collective timeout and waited for as long: GPT-2 medium
-   bf16 at full width and depth, AdamW 1e-4, dropout 0, 4 x 1024 tokens
+   bf16 at full width, DP_LAYERS of its 24 layers, AdamW 1e-4, dropout 0,
+   4 x 1024 tokens
    per rank (the global 8 x 1024 of phase 7), ZeRO stages 0-3, each
    DP_WARM steps then DP_TIMED timed ones through train_batch; a
    ``data_parallel`` line per rank and stage (tokens/s, mean step ms,
@@ -333,27 +337,60 @@ of which exits non-zero on failure:
    this script on cuda:0, started by the port's launcher
    (``deepspeed_tpu_torch.launcher.launch``) and joined over gloo, each
    with an MP_TIMEOUT_S rendezvous and collective timeout; GPT-2 medium
-   bf16 at full width and depth, AdamW 1e-4, dropout 0, the global 8 x
+   bf16 at full width, MP_LAYERS of its 24 layers, AdamW 1e-4, dropout 0,
+   the global 8 x
    1024: tensor parallelism (mp 2, each rank 8 of the 16 heads and half of
    every c_attn, c_fc and c_proj kernel) through ``train_batch``, then the
-   1F1B pipeline (2 stages of 12 blocks, 4 micro-batches of 2 x 1024, the
+   1F1B pipeline (2 stages of MP_LAYERS / 2 blocks, 4 micro-batches of 2 x
+   1024, the
    tied embedding) through ``train_batch(data_iter=...)``, each MP_WARM
    steps then MP_TIMED timed ones; a ``model_parallel`` line per rank and
    arm (tokens/s, mean step ms, peak device memory, K1/K2a launches,
    all-reduce, p2p and tied-gradient bytes per step); fails unless K1 and
-   K2a run 24 times a step on each TP rank and 12 x 4 on each stage, and
+   K2a run MP_LAYERS times a step on each TP rank and MP_LAYERS / 2 x 4 on
+   each stage, and
    the ranks' losses agree; then the fp32 arm (4 layers, width 1024, B4
    T256): a TP step and a PP step (2 micro-batches) each against one
    process on the same card, the loss within 1e-5 relative, the masters
    under the training rule (``model_parallel_check``);
-17. the kernels line (each decode kernel's entry also carries its
+17. sequence parallelism and 1-bit Adam (phase_sequence_parallel):
+   SP_RANKS rank processes of this script on cuda:0, started by the port's
+   launcher and joined over gloo (SP_TIMEOUT_S): GPT-2 medium bf16 at full
+   width and depth (n_positions SP_T), AdamW 1e-4, dropout 0, one global
+   B1 x SP_T sequence split into SP_T / 2 tokens a rank through
+   ``initialize(config_params={"sequence_parallel": ...})`` and
+   ``train_batch``, the ring and then Ulysses, each one warm and one timed
+   step; a ``sequence_parallel`` line per rank and mode (tokens/s, step
+   ms, peak device memory, K1/K2a/K2b launches, ring-shift, all-to-all and
+   all-reduce calls and bytes), failing unless launches and collectives
+   equal the schedule's (``_sp_schedule``) and every loss is finite; then
+   1-bit Adam over the two as data ranks (B4 x T1024 a rank, freeze_step
+   ONEBIT_FREEZE): a warm-up step, a timed dense step and the first
+   compressed step, an ``onebit`` line per rank, failing unless the dense
+   step all-reduces the fp32 gradients, the compressed step exchanges only
+   the packed signs and scales (``_onebit_bytes``: n/8 bytes a padded leaf
+   through the all-to-all) with no gradient all-reduce, and K1 = K2a = 24
+   a step; then the fp32 arms (4 layers at width 1024): an SP step (ring,
+   Ulysses, T SP_CHECK_T) against one process (loss 1e-5 relative,
+   gradients GRAD_TOL of each tensor's max-abs), and 1-bit Adam dp 2
+   through its freeze, card against the CPU (losses 1e-5 relative, masters
+   under the training rule but for the key third's server chunks of
+   ``c_attn.bias``); then, in this process, activation checkpointing: 24
+   GPT-2 medium blocks at dropout 0.1 through
+   ``checkpointing.checkpoint``, with and without ``cpu_checkpointing``,
+   gradients bit-equal to the plain stack's (K2b), peak device memory
+   beside the plain stack's (``activation_checkpointing`` line);
+18. the kernels line (each decode kernel's entry also carries its
    launches in the hierarchy phase's runs, per replica in the fleet
    phases' runs, and its rows at the fleet's shapes; K1/K2a/K2b theirs
-   per rank and stage in the data-parallel run, and per rank in the
-   model-parallel arms), then the result line.
+   per rank and stage in the data-parallel run, per rank in the
+   model-parallel arms and in the sequence-parallel and 1-bit arms, and
+   their errors and times at the ring block's shape under global
+   statistics), then the result line.
 """
 
 import collections
+import dataclasses
 import gc
 import json
 import math
@@ -734,6 +771,8 @@ RESILIENCE_POOLS = [("dense_spec", SPEC, "decode", "paged"),
                      "paged_q8")]
 RESILIENCE_KINDS = ("raise", "nan")
 RESILIENCE_REQUESTS = 16
+# The depth of the model the resilience and hierarchy phases serve (main).
+SHORT_LAYERS = 8
 # Detection: a stall of STALL_S under a watchdog budget of STALL_BUDGET_S.
 # Bounds: a raise lasting DEAD_FAULT_STEPS steps at recovery_max_retries 1.
 STALL_S, STALL_BUDGET_S = 1.0, 0.5
@@ -2625,7 +2664,8 @@ def phase_resilience(card, model):
     pools = [_resilience_invariant(model, *pool) for pool in RESILIENCE_POOLS]
     gve = [_recovered_graph_vs_eager(model, label, extra)
            for label, extra, _, _ in RESILIENCE_POOLS]
-    line = {"resilience": "gpt2-medium bf16", "serve_cfg": SERVE,
+    line = {"resilience": "gpt2-medium bf16, {} layers".format(
+                model.config.n_layer), "serve_cfg": SERVE,
             "requests": RESILIENCE_REQUESTS, "new_tokens": NEW_TOKENS,
             "pools": pools, "graph_vs_eager_after_recovery": gve,
             "detection": _resilience_detection(model),
@@ -2949,7 +2989,8 @@ def phase_hierarchy(card, model):
     (vi)."""
     cfg = model.config
     prompts = _hier_prompts(cfg.vocab_size, seed=5)
-    line = {"hierarchy": "gpt2-medium bf16", "serve_cfg": dict(SERVE, **HIER),
+    line = {"hierarchy": "gpt2-medium bf16, {} layers".format(cfg.n_layer),
+            "serve_cfg": dict(SERVE, **HIER),
             "stream": "{} requests over {} shared {}-token system prompts, "
                       "tails {}-{}, {} new tokens, every sixth sampled"
                       .format(HIER_REQUESTS, HIER_PROMPTS, HIER_SYSTEM,
@@ -3904,10 +3945,11 @@ FD_FLEET_SERVE = dict(FLEET_SERVE, host_offload=True, swap_slots=8,
                       max_queue=FD_PREEMPT_QUEUE)
 FD_PREEMPT_BATCH = FLEET_SERVE["max_slots"]
 # The adapters (phase_adapters) at GPT-2 medium's widths on a dense pool
-# of 16 slots: MoE with 8 experts of d_ff 4096 (about 3.2 GB of bf16
-# expert stacks), and the long-context adapter with its block-sparse mask
-# from position 512 (blocks of 64, 4 local, 1 global).
-MOE_CFG = dict(vocab_size=50257, n_layer=24, n_head=16, n_embd=1024,
+# of 16 slots: MoE with 8 experts of d_ff 4096 in each of 8 layers (the
+# depth cut for the smoke's time; about 1.1 GB of bf16 expert stacks), and
+# the long-context adapter with its block-sparse mask from position 512
+# (blocks of 64, 4 local, 1 global).
+MOE_CFG = dict(vocab_size=50257, n_layer=8, n_head=16, n_embd=1024,
                n_positions=1024, n_experts=8, d_ff=4096, capacity_factor=0,
                dtype=torch.bfloat16)
 LONG_CFG = dict(threshold=512, block=64, num_local_blocks=4,
@@ -4565,16 +4607,16 @@ def phase_adapters(card, model):
     touched = m["chunks"] * SERVE["chunk_size"] * SERVE["max_slots"] + \
         m["prefill_lanes"] * SERVE["prefill_chunk"]
     facts.update(routed=routed, dropped=dropped,
-                 routed_want=cfg.n_layer * touched,
+                 routed_want=MOE_CFG["n_layer"] * touched,
                  expert_load=[reg.gauge("moe_expert_load",
                                         expert=str(i)).value
                               for i in range(MOE_CFG["n_experts"])],
                  load_imbalance=reg.gauge(
                      "moe_expert_load_imbalance").value)
     moe["serve"] = facts
-    if dropped != 0 or routed != cfg.n_layer * touched:
+    if dropped != 0 or routed != MOE_CFG["n_layer"] * touched:
         fail("adapters moe: routed {} (want {}), dropped {}".format(
-            routed, cfg.n_layer * touched, dropped))
+            routed, MOE_CFG["n_layer"] * touched, dropped))
     if any(facts["launches"].values()):
         fail("adapters moe: K3-K6 launched {}".format(facts["launches"]))
     del engine, weights
@@ -5122,6 +5164,57 @@ def _flash_case(name, B, T, dtype, causal, masked, seed, timed=False, H=16):
     return row
 
 
+def _global_stats_case(name, causal, seed):
+    """K1 and K2a/K2b as a ring block runs them (B1 H16, SP_FLASH_T
+    queries against a block of SP_FLASH_T keys, bf16): K1's o and lse of
+    the block against their plain version, then the block's backward under
+    the GLOBAL statistics of an output merged with a second block's partial
+    (lse over both, delta = rowsum(dO * O)) against its plain version with
+    the same lse and delta; timed there (``_flash_times``: SDPA's times are
+    the single-block call's)."""
+    from deepspeed_tpu_torch.ops.transformer.ring_attention import _merge
+
+    q, k, v, do, _ = _flash_inputs(1, SP_FLASH_T, torch.bfloat16, False,
+                                   seed)
+    _, k2, v2, _, _ = _flash_inputs(1, SP_FLASH_T, torch.bfloat16, False,
+                                    seed + 1)
+    o1, lse1 = at.flash_fwd(q, k, v, None, causal)
+    o2, lse2 = at.flash_fwd(q, k2, v2, None, False)
+    o, lse = _merge(o1.float(), lse1, o2.float(), lse2)
+    o = o.to(q.dtype)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    fused = at.flash_bwd(q, k, v, None, lse, delta, do, causal, mode="fused")
+    split = at.flash_bwd(q, k, v, None, lse, delta, do, causal, mode="split")
+    ro, rlse = at.mha_reference(q, k, v, None, causal, return_lse=True)
+    refs = at.flash_bwd_reference(q, k, v, None, lse, delta, do, causal)
+    mags = at.accumulated_magnitudes(q, k, v, None, lse, delta, do, causal)
+    mags1 = at.accumulated_magnitudes(q, k, v, None, lse1, delta, do,
+                                      causal)
+    torch.cuda.synchronize()
+    rtol = FLASH_RTOL[torch.bfloat16]
+    row = {"case": name, "dtype": "bfloat16", "B": 1, "H": 16,
+           "T": SP_FLASH_T, "causal": causal, "mask": False,
+           "statistics": "global (merged with a second block)"}
+    outs = {"K1": [(o1, ro, rtol * ro.float().abs() + FLASH_ACC * mags1[0]),
+                   (lse1, rlse, 1e-5 * (1 + rlse.abs()))]}
+    for kernel, grads in (("K2a", fused), ("K2b", split)):
+        outs[kernel] = [(g, r, rtol * r.float().abs() + FLASH_ACC * m)
+                        for g, r, m in zip(grads, refs, mags[1:])]
+    for kernel, triples in outs.items():
+        if not all(bool(torch.isfinite(x).all()) for x, _, _ in triples):
+            fail("{} output not finite at {}".format(kernel, name))
+        errs = [_err(*t) for t in triples]
+        row[kernel] = {"max_abs_err": max(e[0] for e in errs),
+                       "max_err_over_limit": max(e[1] for e in errs)}
+        if row[kernel]["max_err_over_limit"] > 1.0:
+            print("flash " + json.dumps(row))
+            fail("{} disagrees with its plain version under global "
+                 "statistics at {}".format(kernel, name))
+    row.update(_flash_times(q, k, v, do, None, lse, delta, causal))
+    print("flash " + json.dumps(row))
+    return row
+
+
 def _flash_vs_autograd(q, k, v, do, mask, causal, o, fused, split):
     """fp32: the kernels against autograd through mha_reference."""
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -5196,6 +5289,8 @@ def phase_flash():
              for j, (name, B, H) in enumerate(MP_FLASH_CASES)]
     rows.append(_flash_case("gpt2_xl", 2, 1024, torch.bfloat16, True, False,
                             seed=len(cases), timed=True, H=25))
+    rows += [_global_stats_case(name, causal, seed=40 + i)
+             for i, (name, causal) in enumerate(SP_FLASH_CASES)]
     return rows, phase_flash_lse()
 
 
@@ -6577,7 +6672,8 @@ def phase_offload_consistency():
 # ------------------------------------------------- data parallelism
 
 # Data-parallel ZeRO (phase_data_parallel): GPT-2 medium bf16 at full width
-# and depth, AdamW 1e-4, dropout 0, DP_B x DP_T tokens per rank: over
+# (DP_LAYERS of its layers), AdamW 1e-4, dropout 0, DP_B x DP_T tokens per
+# rank: over
 # DP_RANKS ranks the global 8 x 1024 of phase_train and of the JAX
 # bench.py:767-789 config (which turns on stage 2 over more than one
 # device). The ranks share cuda:0 over gloo (NCCL refuses two ranks on one
@@ -6589,6 +6685,11 @@ DP_RANKS, DP_B, DP_T = 2, 4, 1024
 # time limit on a loaded host.
 DP_WARM, DP_TIMED = 1, 1
 DP_STAGES = (0, 1, 2, 3)
+# GPT-2 medium's width at 8 of its 24 layers in the data- and
+# model-parallel phases: their host-staged collectives scale with the
+# parameters, and the smoke must stay inside its time limit with the
+# sequence-parallel phase beside them. Every path and kernel check stays.
+DP_LAYERS = MP_LAYERS = 8
 # The rendezvous and every collective of a rank, and the wait for a rank.
 DP_TIMEOUT_S = 300
 # The fp32 arm: phase 5's reduced depth (4 layers, width 1024), a global
@@ -6943,12 +7044,12 @@ def phase_data_parallel(card):
     try:
         ranks = _dp_launch({
             "device": "cuda:0", "stages": list(DP_STAGES),
-            "width": {"n_embd": 1024, "n_layer": 24, "n_head": 16},
+            "width": {"n_embd": 1024, "n_layer": DP_LAYERS, "n_head": 16},
             "check_width": {"n_embd": 1024, "n_layer": 4, "n_head": 16}},
             workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    n_layer = 24
+    n_layer = DP_LAYERS
     rows = [row for r in ranks for row in r["rows"]]
     by = {(row["stage"], row["rank"]): row for row in rows}
     for row in rows:
@@ -6995,7 +7096,8 @@ def phase_data_parallel(card):
 # ------------------------------------------------- model parallelism
 
 # Model parallelism (phase_model_parallel): GPT-2 medium bf16 at full width
-# and depth, AdamW 1e-4, dropout 0, the training cell's global 8 x 1024
+# (MP_LAYERS of its layers), AdamW 1e-4, dropout 0, the training cell's
+# global 8 x 1024
 # (JAX bench.py:767-789), over MP_RANKS gloo ranks on cuda:0 started by
 # the port's launcher: tensor parallelism (mp 2, each rank the whole
 # batch) and the 1F1B pipeline (2 stages, MP_GAS micro-batches of
@@ -7252,40 +7354,9 @@ def mp_rank(workdir):
 
 
 def _mp_launch(spec, workdir):
-    """MP_RANKS rank processes of ``mp_rank`` through the port's launcher
-    (``deepspeed_tpu_torch.launcher.launch``: one process per entry of
-    world_info, every rank told to use cuda:0), waited for within
-    MP_TIMEOUT_S; a failed rank fails the launch, and the phase (at the
-    timeout the launcher's process group is killed)."""
-    import base64
-    import signal
-
-    with open(os.path.join(workdir, "spec.json"), "w") as f:
-        json.dump(spec, f)
-    here = os.path.dirname(os.path.abspath(__file__))
-    info = base64.urlsafe_b64encode(json.dumps(
-        {"localhost": list(range(MP_RANKS))}).encode()).decode()
-    env = dict(os.environ, PYTHONPATH=here + os.pathsep +
-               os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
-         "--world_info={}".format(info),
-         "--master_port={}".format(_free_port()),
-         os.path.abspath(__file__), "--model-parallel-rank=" + workdir],
-        cwd=here, env=env, start_new_session=True)
-    try:
-        rc = proc.wait(timeout=MP_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-        rc = "timeout"
-    if rc != 0:
-        fail("model_parallel: the launch ended with {}".format(rc))
-    out = []
-    for r in range(MP_RANKS):
-        with open(os.path.join(workdir, "rank_{}.json".format(r))) as f:
-            out.append(json.load(f))
-    return out
+    """MP_RANKS rank processes of ``mp_rank`` (``_rank_launch``)."""
+    return _rank_launch("model-parallel-rank", spec, workdir, MP_RANKS,
+                        MP_TIMEOUT_S, "model_parallel")
 
 
 def phase_model_parallel(card):
@@ -7295,7 +7366,7 @@ def phase_model_parallel(card):
     gc.collect()
     torch.cuda.empty_cache()  # the ranks share the card with this process
     workdir = tempfile.mkdtemp()
-    n_layer = 24
+    n_layer = MP_LAYERS
     try:
         ranks = _mp_launch({
             "device": "cuda:0",
@@ -7338,6 +7409,612 @@ def phase_model_parallel(card):
                 c["run"], c))
     return {run: [by[(run, r)]["launches_per_step"]
                   for r in range(MP_RANKS)] for run in ("tp", "pp")}
+
+
+# ------------------------------------------ sequence parallelism, 1-bit Adam
+
+# Sequence parallelism and 1-bit Adam (phase_sequence_parallel): SP_RANKS
+# gloo ranks on cuda:0 started by the port's launcher. GPT-2 medium bf16 at
+# full width and depth (n_positions SP_T, so only the position table
+# grows), AdamW 1e-4, dropout 0: one global B1 x SP_T sequence, SP_T / 2
+# tokens a rank, through the ring and then Ulysses; then 1-bit Adam over
+# the two as data ranks at the data-parallel cell's B4 x T1024 a rank.
+# Collectives go through the host (gloo): their times measure the
+# plumbing, not NVLink.
+SP_RANKS, SP_T = 2, 8192
+SP_WIDTH = {"n_embd": 1024, "n_layer": 24, "n_head": 16}
+SP_CHECK_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
+SP_TIMEOUT_S = 300
+# The ring's K1/K2 inputs (phase_flash holds them there): B1 H16, a block
+# of SP_T / SP_RANKS keys, under the merged output's global lse and delta.
+SP_FLASH_T = SP_T // SP_RANKS
+SP_FLASH_CASES = (("sp_ring_causal", True), ("sp_ring_full", False))
+# 1-bit: the warm-up step (the x-ray's first-signature step among them),
+# one more dense step (timed) and the first compressed one (timed).
+ONEBIT_B, ONEBIT_T, ONEBIT_FREEZE = 4, 1024, 2
+# The fp32 arms: 4 layers at width 1024. SP: T SP_CHECK_T, ring and
+# Ulysses, one step each against one process. 1-bit: dp 2, freeze 2, 4
+# steps of B2 x T128 a rank, card against the CPU.
+SP_CHECK_T = 2048
+ONEBIT_CHECK = dict(B=2, T=128, steps=4, freeze=2, lr=1e-5, eps=1e-3)
+# The share of elements whose exchanged momentum may take the other sign on
+# the card and the CPU: those whose gradient lies within fp32 summation
+# noise of 0 (0.24% read on the card; the loss and every other element are
+# held tightly).
+ONEBIT_FLIP_SHARE = 1e-2
+# Activation checkpointing: GPT-2 medium blocks at dropout 0.1, B8 x T1024.
+ACKPT_B, ACKPT_T = 8, 1024
+
+
+def _sp_config(extra=None):
+    cfg = {"train_batch_size": 1, "steps_per_print": 1000,
+           "gradient_clipping": 1.0, "bf16": {"enabled": True},
+           "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+           "sequence_parallel": {"enabled": True, "size": SP_RANKS}}
+    cfg.update(extra or {})
+    return cfg
+
+
+def _onebit_config(micro, freeze, bf16=True, eps=1e-8, lr=1e-4):
+    cfg = {"train_micro_batch_size_per_gpu": micro, "steps_per_print": 1000,
+           "optimizer": {"type": "OneBitAdam", "params": {
+               "lr": lr, "freeze_step": freeze, "eps": eps}}}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def _sp_counters():
+    from deepspeed_tpu_torch.parallel import comm
+
+    at.reset_launches()
+    comm.reset_stats()
+
+
+def _sp_read():
+    from deepspeed_tpu_torch.parallel import comm
+
+    return {"launches": dict(at.launches),
+            "collectives": {k: v for k, v in comm.stats.items() if v}}
+
+
+def _sp_schedule(mode, rank, cfg):
+    """The schedule's K1/K2 launches and collectives of one SP training step
+    on ``rank`` (B1, SP_T / SP_RANKS tokens a rank, bf16): the causal ring
+    runs the blocks of shards 0 .. rank (K2a: a 4096-key block's fused
+    backward fits its 6 MiB), shifts k/v (stacked) once forward and once
+    backward and dk/dv (fp32) twice a layer; Ulysses runs one K1 and the
+    split K2b (two launches; 8192 keys) a layer, and four all-to-alls
+    (q, k, v stacked in, o out, and their reverses). Both shift the next
+    shard's first label once, psum the loss and its count forward and
+    backward, and take the gradients' mean over the seq line (one fp32
+    bucket)."""
+    L, H, D = cfg.n_layer, cfg.n_head, cfg.n_embd // cfg.n_head
+    plane = SP_T // SP_RANKS * H * D * 2  # one bf16 k, v or q shard
+    n = SP_RANKS
+    params = cfg.num_params()
+    common = {"all_reduce": 3, "all_reduce_bytes": 2 * 8 + 4 * params}
+    if mode == "ring":
+        blocks = rank + 1
+        launches = {"flash_fwd": L * blocks, "flash_bwd_fused": L * blocks,
+                    "flash_bwd_split": 0}
+        coll = dict(common, ring_shift=L * (2 * (n - 1) + n) + 1,
+                    ring_shift_bytes=L * (2 * (n - 1) * 2 * plane +
+                                          n * 2 * 2 * plane) + 8)
+    else:
+        launches = {"flash_fwd": L, "flash_bwd_fused": 0,
+                    "flash_bwd_split": 2 * L}
+        coll = dict(common, ring_shift=1, ring_shift_bytes=8,
+                    all_to_all=4 * L, all_to_all_bytes=L * 8 * plane)
+    coll["calls"] = sum(v for k, v in coll.items()
+                        if not k.endswith("bytes"))
+    coll["bytes"] = sum(v for k, v in coll.items() if k.endswith("_bytes"))
+    return launches, coll
+
+
+def _sp_timed(mode, cfg, rank, world, device):
+    """One SP arm at full width on this rank: a warm step (the x-ray's
+    first-signature step), then one timed step with the launch counts and
+    collectives reset just before and read just after, and the peak device
+    memory over it."""
+    t_build = time.perf_counter()
+    mcfg = dataclasses.replace(cfg, sequence_parallel_axis="seq",
+                               sequence_parallel_mode=mode)
+    engine, _, _, _ = initialize(
+        model=GPT2LMHeadModel(mcfg, device=device, seed=0),
+        config_params=_sp_config(), device=device, dist_init_required=False)
+    ids = torch.from_numpy(_dp_ids(1, SP_T, cfg.vocab_size, 5)).to(device)
+    t_warm = time.perf_counter()
+    losses = [float(engine.train_batch((ids, ids)))]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_warm
+    torch.cuda.reset_peak_memory_stats()
+    _sp_counters()
+    t0 = time.perf_counter()
+    losses.append(float(engine.train_batch((ids, ids))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row = {"arm": "sequence_parallel", "mode": mode, "rank": rank,
+           "tokens_per_s": SP_T / wall,
+           "tokens_per_s_per_rank": SP_T // SP_RANKS / wall,
+           "mean_step_ms": wall * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "build_s": t_warm - t_build, "warm_s": warm_s}
+    row.update(_sp_read())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["arm_s"] = time.perf_counter() - t_build
+    return row
+
+
+def _onebit_bytes(cfg, world):
+    """Per rank and step: the dense warm-up all-reduce (the fp32 gradient
+    bucket and the loss) and the compressed exchange: the packed signs of
+    every leaf padded by ``corrected_size`` (n/8 through the all-to-all,
+    n/(8W) through the server all-gather) and two fp32 scales a leaf."""
+    from deepspeed_tpu_torch.runtime.custom_collectives import corrected_size
+
+    sizes = _gpt2_leaf_sizes(cfg)
+    padded = [corrected_size(n, world) for n in sizes]
+    return {"dense_all_reduce_bytes": 4 * sum(sizes) + 4,
+            "all_to_all_bytes": sum(padded) // 8,
+            "all_gather_bytes": sum(padded) // (8 * world) +
+            2 * 4 * len(sizes), "all_reduce_bytes": 4,
+            "fp32_all_reduce_bytes": 4 * sum(sizes), "leaves": len(sizes)}
+
+
+def _gpt2_leaf_sizes(cfg):
+    C, L = cfg.n_embd, cfg.n_layer
+    block = [C, C, 3 * C * C, 3 * C, C * C, C, C, C, 4 * C * C, 4 * C,
+             4 * C * C, C]
+    return [cfg.vocab_size * C, cfg.n_positions * C] + block * L + [C, C]
+
+
+def _onebit_timed(cfg, rank, world, device):
+    """1-bit Adam over ``world`` data ranks at full width: the warm-up step,
+    a timed dense step, the first compressed step timed; per timed step the
+    wall clock, the launches and the collectives."""
+    t_build = time.perf_counter()
+    engine, _, _, _ = initialize(
+        model=GPT2LMHeadModel(cfg, device=device, seed=0),
+        config_params=_onebit_config(ONEBIT_B, ONEBIT_FREEZE),
+        device=device, dist_init_required=False)
+    ids = torch.from_numpy(_dp_ids(ONEBIT_B, ONEBIT_T, cfg.vocab_size,
+                                   11 + rank)).to(device)
+    losses = [float(engine.train_batch((ids, ids)))]
+    steps = {}
+    for phase in ("dense", "compressed"):
+        torch.cuda.synchronize()
+        frozen = engine.optimizer.adam_freeze_key
+        _sp_counters()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch((ids, ids))))
+        torch.cuda.synchronize()
+        steps[phase] = dict(_sp_read(), step_ms=(time.perf_counter() - t0)
+                            * 1e3, frozen_before=frozen)
+    row = {"arm": "onebit", "rank": rank, "losses": losses, "steps": steps,
+           "tokens_per_s_compressed": ONEBIT_B * ONEBIT_T * world /
+           steps["compressed"]["step_ms"] * 1e3,
+           "tokens_per_s_dense": ONEBIT_B * ONEBIT_T * world /
+           steps["dense"]["step_ms"] * 1e3,
+           "enable_backward_allreduce": engine.enable_backward_allreduce}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["arm_s"] = time.perf_counter() - t_build
+    return row
+
+
+def _grads_of_first_update(engine):
+    """A dict that gets the (unscaled) gradients the engine's first update
+    is given, by name."""
+    got = {}
+    real = engine._update
+
+    def spy(grads, inv_scale, skip=()):
+        if not got:
+            got.update({n: (g.detach().float() * inv_scale).cpu()
+                        for n, g in zip(engine._names, grads)})
+        return real(grads, inv_scale, skip)
+
+    engine._update = spy
+    return got
+
+
+def _sp_check(mode, cfg, params, rank, device):
+    """fp32: one SP step (``mode``) over the ranks against one process on
+    the card from the same weights: the loss within 1e-5 relative, the
+    gradients within GRAD_TOL of each tensor's max-abs."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+
+    ids = torch.from_numpy(_dp_ids(1, SP_CHECK_T, cfg.vocab_size, 6)).to(
+        device)
+    config = {"train_batch_size": 1, "steps_per_print": 1000,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}}}
+    mcfg = dataclasses.replace(cfg, sequence_parallel_axis="seq",
+                               sequence_parallel_mode=mode)
+    engine, _, _, _ = initialize(
+        model=GPT2LMHeadModel(mcfg, device=device, seed=None),
+        model_parameters=params, device=device, dist_init_required=False,
+        config_params=dict(config, sequence_parallel={"enabled": True,
+                                                      "size": SP_RANKS}))
+    got = _grads_of_first_update(engine)
+    loss = float(engine.train_batch((ids, ids)))
+    del engine
+    solo = mesh_lib.Mesh((1, 1, 1, 1), 0, None)
+    ref, _, _, _ = initialize(
+        model=GPT2LMHeadModel(cfg, device=device, seed=None),
+        model_parameters=params, device=device, mesh=solo,
+        config_params=config, dist_init_required=False)
+    want = _grads_of_first_update(ref)
+    loss_one = float(ref.train_batch((ids, ids)))
+    del ref
+    largest = max(float(g.abs().max()) for g in want.values())
+    ratio = max(float((got[n] - w).abs().max()) /
+                (GRAD_TOL * max(float(w.abs().max()), GRAD_TOL * largest))
+                for n, w in want.items())
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return {"arm": "sequence_parallel_check", "mode": mode, "rank": rank,
+            "loss": loss, "loss_one": loss_one,
+            "loss_rel_err": abs(loss - loss_one) / abs(loss_one),
+            "grad_max_err_over_limit": ratio, "leaves": len(want)}
+
+
+def _onebit_run(cfg, params, rank, world, device):
+    """fp32 1-bit Adam over ``world`` data ranks on ``device``: the losses,
+    the masters by name after ONEBIT_CHECK["steps"] steps, the exchanged
+    momentum of each compressed step and the frozen second moment (CPU
+    copies), and whether the run reached the compressed phase."""
+    c = ONEBIT_CHECK
+    engine, _, _, _ = initialize(
+        model=GPT2LMHeadModel(cfg, device=device, seed=None),
+        model_parameters=params, device=device, dist_init_required=False,
+        config_params=_onebit_config(c["B"], c["freeze"], bf16=False,
+                                     eps=c["eps"], lr=c["lr"]))
+    ids = torch.from_numpy(_dp_ids(c["B"], c["T"], cfg.vocab_size,
+                                   21 + rank)).to(device)
+    losses, momenta = [], []
+    for step in range(c["steps"]):
+        losses.append(float(engine.train_batch((ids, ids))))
+        if step >= c["freeze"]:
+            momenta.append({n: m.detach().cpu().clone() for n, m in zip(
+                engine._names, engine.opt_state["exp_avg"])})
+    masters = {n: p.detach().float().cpu().clone()
+               for n, p in zip(engine._names, engine._params)}
+    v = {n: t.detach().cpu().clone() for n, t in zip(
+        engine._names, engine.opt_state["exp_avg_sq"])}
+    frozen = engine.optimizer.adam_freeze_key
+    del engine
+    return {"losses": losses, "masters": masters, "momenta": momenta,
+            "v": v, "frozen": frozen}
+
+
+def _onebit_check(cfg, params, rank, world, device):
+    """The same 1-bit run on the card and on the CPU (both over the gloo
+    group): every loss within 1e-5 relative, the masters under the training
+    rule (1e-3 lr a step plus two ulps). 1-bit quantization is a sign: an
+    element whose compensated momentum lies within fp32 noise of 0 can
+    take the other sign in the two runs and so a whole step the other way.
+    Such an element (its exchanged momenta's signs differ in some
+    compressed step) is held to those steps, lr (|m_card| + |m_cpu|) /
+    (sqrt(v) + eps) each; their share of the elements (and the tensors with the most) is
+    reported and held under ONEBIT_FLIP_SHARE.
+    The server chunks of each ``c_attn.bias`` that hold its key third are
+    left out: that gradient is 0 in exact arithmetic, so those signs are
+    noise and move their chunk's server scale. The rate is low enough
+    (ONEBIT_CHECK) that the flips move the loss by less than 1e-5."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.runtime.custom_collectives import corrected_size
+
+    c = ONEBIT_CHECK
+    t0 = time.perf_counter()
+    card = _onebit_run(cfg, params, rank, world, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu = _onebit_run(cfg, params, rank, world, "cpu")
+    C = cfg.n_embd
+    chunk = corrected_size(3 * C, world) // world
+    keys = range(C // chunk, (2 * C - 1) // chunk + 1)
+    keep = torch.tensor([i for i in range(3 * C) if i // chunk not in keys],
+                        dtype=torch.int64)
+    rule = 1e-3 * c["lr"] * c["steps"]
+    worst, excluded, flipped, total, by_tensor = 0.0, 0, 0, 0, {}
+    for n, want in cpu["masters"].items():
+        got = card["masters"][n]
+        flip = torch.zeros(want.shape, dtype=torch.bool)
+        allow = torch.zeros(want.shape)
+        step = c["lr"] / (torch.minimum(card["v"][n], cpu["v"][n]).sqrt()
+                          + c["eps"])
+        for mc, mh in zip(card["momenta"], cpu["momenta"]):
+            flip |= (mc[n] >= 0) != (mh[n] >= 0)
+            allow += step * (mc[n].abs() + mh[n].abs())
+        limit = rule + 2.0 ** -22 * want.abs() + torch.where(flip, allow,
+                                                             0.0)
+        if n.endswith("attn.c_attn.bias"):
+            excluded += want.numel() - keep.numel()
+            if not keep.numel():
+                continue
+            got, want, limit, flip = got[keep], want[keep], limit[keep], \
+                flip[keep]
+        flipped += int(flip.sum())
+        by_tensor[n] = int(flip.sum())
+        total += want.numel()
+        worst = max(worst, float(((got - want).abs() / limit).max()))
+    dist.barrier()
+    return {"arm": "onebit_check", "rank": rank,
+            "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                card["losses"], cpu["losses"])),
+            "param_max_err_over_limit": worst, "flipped_elements": flipped,
+            "flipped_share": flipped / total,
+            "most_flipped": sorted(by_tensor.items(), key=lambda kv: -kv[1])[
+                :3], "excluded_elements": excluded,
+            "frozen": [card["frozen"], cpu["frozen"]],
+            "check_s": time.perf_counter() - t0}
+
+
+def sp_rank(workdir):
+    """One rank of phase_sequence_parallel, started by the port's launcher:
+    joins the gloo group, runs the SP arms (ring, Ulysses) and the 1-bit arm
+    at full width, then their fp32 checks, and writes its rows to
+    ``<workdir>/rank_<r>.json``."""
+    from deepspeed_tpu_torch.runtime.utils import flax_tree
+    from deepspeed_tpu_torch.utils.distributed import init_distributed
+
+    with open(os.path.join(workdir, "spec.json")) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    init_distributed(dist_backend="gloo", timeout=SP_TIMEOUT_S,
+                     device=device, verbose=False)
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPT2Config(dtype=torch.bfloat16, dropout=0.0, n_positions=SP_T,
+                     **spec["width"])
+    rows = [_sp_timed(mode, cfg, rank, world, device)
+            for mode in ("ring", "ulysses")]
+    rows.append(_onebit_timed(GPT2Config(dtype=torch.bfloat16, dropout=0.0,
+                                         **spec["width"]),
+                              rank, world, device))
+    t0 = time.perf_counter()
+    check_cfg = GPT2Config(dtype=torch.float32, dropout=0.0,
+                           n_positions=SP_CHECK_T, **spec["check_width"])
+    params = flax_tree(GPT2LMHeadModel(check_cfg, device="cpu", seed=2))
+    checks = [_sp_check(mode, check_cfg, params, rank, device)
+              for mode in ("ring", "ulysses")]
+    ob_cfg = GPT2Config(dtype=torch.float32, dropout=0.0,
+                        n_positions=ONEBIT_CHECK["T"],
+                        **spec["check_width"])
+    checks.append(_onebit_check(ob_cfg, flax_tree(GPT2LMHeadModel(
+        ob_cfg, device="cpu", seed=3)), rank, world, device))
+    with open(os.path.join(workdir, "rank_{}.json".format(rank)), "w") as f:
+        json.dump({"rows": rows, "checks": checks,
+                   "check_s": time.perf_counter() - t0}, f)
+    dist.destroy_process_group()
+
+
+def _rank_launch(flag, spec, workdir, n, timeout, label):
+    """``n`` rank processes of this script with ``--<flag>=<workdir>``,
+    started by the port's launcher (``deepspeed_tpu_torch.launcher.launch``:
+    one process per entry of world_info, every rank told to use cuda:0),
+    waited for within ``timeout``; a failed rank fails the launch and the
+    phase (at the timeout the launcher's process group is killed)."""
+    import base64
+    import signal
+
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    info = base64.urlsafe_b64encode(json.dumps(
+        {"localhost": list(range(n))}).encode()).decode()
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "deepspeed_tpu_torch.launcher.launch",
+         "--world_info={}".format(info),
+         "--master_port={}".format(_free_port()),
+         os.path.abspath(__file__), "--{}={}".format(flag, workdir)],
+        cwd=here, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    if rc != 0:
+        fail("{}: the launch ended with {}".format(label, rc))
+    out = []
+    for r in range(n):
+        with open(os.path.join(workdir, "rank_{}.json".format(r))) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _ackpt_stack(cfg, x0, seeds, run):
+    """The blocks on ``x0`` plain or each through ``checkpoint`` (with
+    ``cpu_checkpointing`` for run "cpu"): every gradient, and the peak
+    device memory of the forward and backward."""
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+        checkpointing)
+
+    checkpointing.configure(checkpoint_in_cpu=run == "cpu")
+    blocks = _ACKPT_MODEL.blocks()
+    for p in _ACKPT_MODEL.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    x = x0.clone().requires_grad_()
+    h = x
+    for blk, seed in zip(blocks, seeds):
+        h = blk(h, cfg, seed) if run == "plain" else \
+            checkpointing.checkpoint(blk, h, cfg, seed)
+    h.float().square().mean().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = [x.grad] + [p.grad.clone() for p in _ACKPT_MODEL.parameters()
+                        if p.grad is not None]
+    return grads, torch.cuda.max_memory_allocated() - base, ms
+
+
+_ACKPT_MODEL = None
+
+
+def _activation_checkpointing(card):
+    """GPT-2 medium's 24 blocks at dropout 0.1 (bf16, B8 x T1024) through
+    ``checkpointing.checkpoint``, with and without ``cpu_checkpointing``:
+    every gradient bit-equal to the plain stack's (K2b: K2a adds dq by
+    atomics, whose order differs run to run), peak device memory beside
+    the plain stack's."""
+    global _ACKPT_MODEL
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+        checkpointing)
+
+    cfg = GPT2Config.gpt2_medium(dtype=torch.bfloat16, dropout=0.1)
+    _ACKPT_MODEL = GPT2LMHeadModel(cfg, device="cuda", seed=0)
+    _ACKPT_MODEL.requires_grad_(True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    x0 = (torch.randn(ACKPT_B, ACKPT_T, cfg.n_embd, device="cuda",
+                      generator=g) * 0.5).to(torch.bfloat16)
+    seeds = list(range(100, 100 + cfg.n_layer))
+    saved = os.environ.get("DS_TPU_FLASH_BWD")
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        runs = {run: _ackpt_stack(cfg, x0, seeds, run)
+                for run in ("plain", "ckpt", "cpu")}
+    finally:
+        checkpointing.configure(checkpoint_in_cpu=False)
+        if saved is None:
+            os.environ.pop("DS_TPU_FLASH_BWD")
+        else:
+            os.environ["DS_TPU_FLASH_BWD"] = saved
+    plain = runs["plain"][0]
+    equal = {run: len(runs[run][0]) == len(plain) and all(
+        torch.equal(a, b) for a, b in zip(runs[run][0], plain))
+        for run in ("ckpt", "cpu")}
+    line = {"shape": "24 GPT-2 medium blocks, B{} T{} bf16, dropout 0.1"
+            .format(ACKPT_B, ACKPT_T), "grads_bit_equal": equal,
+            "tensors": len(plain),
+            "peak_bytes": {run: r[1] for run, r in runs.items()},
+            "ms": {run: r[2] for run, r in runs.items()}, "card": card}
+    print("activation_checkpointing " + json.dumps(line))
+    _ACKPT_MODEL = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(equal.values()):
+        fail("activation_checkpointing: gradients differ from the plain "
+             "stack's: {}".format(equal))
+    if not runs["ckpt"][1] < runs["plain"][1]:
+        fail("activation_checkpointing: no device memory saved")
+
+
+def phase_sequence_parallel(card):
+    """Sequence parallelism and 1-bit Adam over SP_RANKS gloo ranks on the
+    card, then activation checkpointing in this process (module docstring,
+    phase 17); returns each arm's per-rank K1/K2a/K2b launches per step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp()
+    try:
+        ranks = _rank_launch("sequence-parallel-rank", {
+            "device": "cuda:0", "width": SP_WIDTH,
+            "check_width": SP_CHECK_WIDTH}, workdir, SP_RANKS, SP_TIMEOUT_S,
+            "sequence_parallel")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    sp_cfg = GPT2Config(n_positions=SP_T, **SP_WIDTH)
+    ob_cfg = GPT2Config(**SP_WIDTH)
+    want_ob = _onebit_bytes(ob_cfg, SP_RANKS)
+    out = {}
+    for r in ranks:
+        for row in r["rows"]:
+            print("{} {}".format(row["arm"], json.dumps(dict(row,
+                                                             card=card))))
+            if not np.isfinite(row["losses"]).all():
+                fail("{}: non-finite loss {}".format(row["arm"], row))
+            if row["arm"] == "sequence_parallel":
+                launches, coll = _sp_schedule(row["mode"], row["rank"],
+                                              sp_cfg)
+                if row["launches"] != launches or row["collectives"] != coll:
+                    fail("sequence_parallel: rank {} {} ran {} and {} (the "
+                         "schedule: {} and {})".format(
+                             row["rank"], row["mode"], row["launches"],
+                             row["collectives"], launches, coll))
+                out.setdefault(row["mode"], {})[row["rank"]] = \
+                    row["launches"]
+            else:
+                _onebit_gate(row, want_ob, ob_cfg.n_layer)
+                out.setdefault("onebit", {})[row["rank"]] = \
+                    row["steps"]["compressed"]["launches"]
+    for mode in ("ring", "ulysses"):
+        if len({tuple(row["losses"]) for r in ranks for row in r["rows"]
+                if row.get("mode") == mode}) != 1:
+            fail("sequence_parallel: the ranks' {} losses differ".format(
+                mode))
+    checks = [c for r in ranks for c in r["checks"]]
+    print("sequence_parallel_check " + json.dumps(
+        {"fp32": "width 1024, 4 layers: SP {} ranks at T{} (ring, Ulysses) "
+                 "vs one process; 1-bit Adam dp {} ({} steps of B{} T{} a "
+                 "rank, freeze {}) card vs CPU".format(
+                     SP_RANKS, SP_CHECK_T, SP_RANKS, ONEBIT_CHECK["steps"],
+                     ONEBIT_CHECK["B"], ONEBIT_CHECK["T"],
+                     ONEBIT_CHECK["freeze"]),
+         "runs": checks, "check_s": [r["check_s"] for r in ranks],
+         "card": card}))
+    for c in checks:
+        if c["loss_rel_err"] > 1e-5 or \
+                c.get("grad_max_err_over_limit", 0.0) > 1.0 or \
+                c.get("param_max_err_over_limit", 0.0) > 1.0:
+            fail("{} disagrees: {}".format(c["arm"], c))
+        if c["arm"] == "onebit_check" and (
+                c["frozen"] != [True, True] or
+                c["flipped_share"] > ONEBIT_FLIP_SHARE):
+            fail("onebit_check: the runs did not reach the compressed "
+                 "phase, or too many signs differ: {}".format(c))
+    _activation_checkpointing(card)
+    return {run: [per[r] for r in range(SP_RANKS)]
+            for run, per in out.items()}
+
+
+def _onebit_gate(row, want, n_layer):
+    """The 1-bit arm's steps against the formulas: the dense step
+    all-reduces the gradients (one fp32 bucket) and the loss; the first
+    compressed step exchanges only packed signs and scales (no gradient
+    all-reduce: the one all-reduce is the 4-byte loss mean); K1 and K2a
+    n_layer times a step."""
+    dense = row["steps"]["dense"]["collectives"]
+    comp = row["steps"]["compressed"]["collectives"]
+    bad = []
+    if row["steps"]["dense"]["frozen_before"] or \
+            not row["steps"]["compressed"]["frozen_before"]:
+        bad.append("the phases")
+    if dense.get("all_reduce_bytes") != want["dense_all_reduce_bytes"] or \
+            dense.get("all_to_all", 0):
+        bad.append("dense step collectives {}".format(dense))
+    if (comp.get("all_reduce"), comp.get("all_reduce_bytes")) != (1, 4) or \
+            comp.get("all_to_all_bytes") != want["all_to_all_bytes"] or \
+            comp.get("all_gather_bytes") != want["all_gather_bytes"]:
+        bad.append("compressed step collectives {} (want {})".format(
+            comp, want))
+    for phase in ("dense", "compressed"):
+        n = row["steps"][phase]["launches"]
+        if (n["flash_fwd"], n["flash_bwd_fused"], n["flash_bwd_split"]) != \
+                (n_layer, n_layer, 0):
+            bad.append("{} launches {}".format(phase, n))
+    if bad:
+        fail("onebit: rank {}: {}".format(row["rank"], "; ".join(bad)))
 
 
 def _lse_case(name, B, H, T, dtype, seed):
@@ -7401,7 +8078,8 @@ def phase_flash_lse(bf16_seeds=(11,), repeats=1):
 
 
 def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
-                       offload_launches, lse_rows, dp_launches, mp_launches):
+                       offload_launches, lse_rows, dp_launches, mp_launches,
+                       sp_launches):
     """K1/K2a/K2b: times at GPT-2 training's shape, launches from its run;
     under "bert" the times at BERT-large's shape and the launches from the
     BERT run; under "offload" GPT-2 XL's shape and the offload run's
@@ -7414,8 +8092,12 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
     also gives its two
     kernels' own times (dkdv_ms, dq_ms) and the split-default shape's under
     "split_default"; K1's, flash_attention_with_lse's check under
-    "with_lse" (no main path calls it)."""
-    timed, bert, xl = flash_rows[0], flash_rows[1], flash_rows[-1]
+    "with_lse" (no main path calls it); under "sequence_parallel" each
+    SP arm's (ring, Ulysses) and the 1-bit arm's launches per step of each
+    rank, and the errors and times under global statistics at the ring
+    block's shape (SP_FLASH_CASES)."""
+    by_case = {r["case"]: r for r in flash_rows}
+    timed, bert, xl = flash_rows[0], flash_rows[1], by_case["gpt2_xl"]
     mp_rows = {r["case"]: r for r in flash_rows
                if r["case"] in {c[0] for c in MP_FLASH_CASES}}
     shape = "B8 H16 T1024 D64 bf16 causal"
@@ -7475,6 +8157,33 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
                            "bound_ms": r["bound_{}_ms".format(way)],
                            "bound_by": r["bound_{}_by".format(way)]}
                     for case, r in mp_rows.items()}},
+            sequence_parallel={
+                "shape": "ring: B1 H16, {} queries a rank against blocks of "
+                         "{} keys, bf16, global lse and delta; Ulysses: B1 "
+                         "H8 T{} a rank; 1-bit: B{} H16 T{} a rank (GPT-2 "
+                         "medium, {} ranks on one card)".format(
+                             SP_FLASH_T, SP_FLASH_T, SP_T, ONEBIT_B,
+                             ONEBIT_T, SP_RANKS),
+                "launches_per_step": {
+                    run: [r[counter] for r in ranks]
+                    for run, ranks in sp_launches.items()},
+                "cases": {
+                    case: {"shape": "B1 H16 T{} D64 bf16 {}".format(
+                               SP_FLASH_T,
+                               "causal" if by_case[case]["causal"]
+                               else "full"),
+                           "max_abs_err": by_case[case][kernel][
+                               "max_abs_err"],
+                           "max_err_over_limit": by_case[case][kernel][
+                               "max_err_over_limit"],
+                           "ms": by_case[case][ms],
+                           "plain_ms": by_case[case][plain],
+                           "library_ms": by_case[case][lib],
+                           "bound_ms": by_case[case][
+                               "bound_{}_ms".format(way)],
+                           "bound_by": by_case[case][
+                               "bound_{}_by".format(way)]}
+                    for case, _ in SP_FLASH_CASES}},
             max_abs_err=max(r[kernel]["max_abs_err"] for r in flash_rows),
             max_err_over_limit=max(r[kernel]["max_err_over_limit"]
                                    for r in flash_rows),
@@ -7602,6 +8311,9 @@ def main():
         out = phase(*args, **kwargs)
         seconds[phase.__name__] = seconds.get(phase.__name__, 0.0) + \
             time.perf_counter() - t0
+        print("phase_done {} {:.1f}".format(phase.__name__,
+                                            seconds[phase.__name__]),
+              flush=True)
         return out
 
     card = timed(phase_env)
@@ -7626,9 +8338,15 @@ def main():
     timed(phase_graph_vs_eager, model)
     timed(phase_telemetry, card, model)
     timed(phase_sustained, card, model)
-    timed(phase_resilience, card, model)
+    # The resilience and hierarchy phases at GPT-2 medium's width and
+    # SHORT_LAYERS of its layers: their step counts set their time, and the
+    # smoke must stay inside its limit; their checks are per layer.
+    short = GPT2LMHeadModel(dataclasses.replace(
+        model.config, n_layer=SHORT_LAYERS), device="cuda", seed=0)
+    timed(phase_resilience, card, short)
     timed(phase_chaos, card, model)
-    hier = timed(phase_hierarchy, card, model)
+    hier = timed(phase_hierarchy, card, short)
+    del short
     timed(phase_sustained_hier, card, model)
     fleet = timed(phase_fleet, card, model)
     disagg = timed(phase_disagg, card, model)
@@ -7661,6 +8379,7 @@ def main():
     timed(phase_offload_consistency)
     dp_launches = timed(phase_data_parallel, card)
     mp_launches = timed(phase_model_parallel, card)
+    sp_launches = timed(phase_sequence_parallel, card)
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
         "name": "decode_attention", "route": "cuda",
@@ -7706,7 +8425,7 @@ def main():
                 for r in variant_rows["fleet_shapes"][kind]]
     kernels += _flash_kernel_rows(flash_rows, train_launches, bert_launches,
                                   split_rows, offload_launches, lse_rows,
-                                  dp_launches, mp_launches)
+                                  dp_launches, mp_launches, sp_launches)
     kernels += _row_kernel_rows(row_rows, bert_launches)
     kernels.append(_softmax_kernel_row(softmax_rows, softmax_launches))
     kernels += _sparse_kernel_rows(sparse_rows, sparse_launches, split_rows)
@@ -7720,9 +8439,11 @@ def main():
 
 
 if __name__ == "__main__":
-    _rank_dir = [a.split("=", 1)[1] for a in sys.argv[1:]
-                 if a.startswith("--model-parallel-rank=")]
-    if _rank_dir:
-        mp_rank(_rank_dir[0])
+    _ranks = {"--model-parallel-rank=": mp_rank,
+              "--sequence-parallel-rank=": sp_rank}
+    _rank = [(fn, a.split("=", 1)[1]) for a in sys.argv[1:]
+             for flag, fn in _ranks.items() if a.startswith(flag)]
+    if _rank:
+        _rank[0][0](_rank[0][1])
     else:
         main()

@@ -29,7 +29,13 @@ parallelism over ranks: tensor parallelism on the grid's 'model' axis
 (``parallel.tensor_parallel``, GPT-2's Megatron split) and the 1F1B
 pipeline (``runtime.pipe``: topology, schedules, ``PipelineModule``, p2p,
 tied layers, per-layer checkpoints), ``initialize`` picking the
-``PipelineEngine`` for a ``PipelineModule``.
+``PipelineEngine`` for a ``PipelineModule``. Slice 17 splits a sequence
+over the grid's 'seq' axis (``ops.transformer.ring_attention``: the ring
+over K1/K2 with global statistics, and Ulysses; the ``sequence_parallel``
+block), trains with 1-bit Adam over data ranks
+(``runtime.fp16.onebit_adam``, ``runtime.custom_collectives``), and ports
+activation checkpointing (``runtime.activation_checkpointing``) and
+progressive layer drop.
 """
 
 from deepspeed_tpu_torch.device import resolve_device

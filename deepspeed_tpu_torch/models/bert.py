@@ -26,9 +26,16 @@ Sparse BERT: with ``sparse_attention_config`` (and ``use_fused_layer=False``)
 the plain layer's attention is ``sparse_self_attention`` (kernels K7a/K7b on
 the card) with the padding mask as an additive key-padding mask; the
 probabilities never exist, so the attention dropout moves to the context
-output, as in the JAX package. Not on this path yet (ROADMAP Queue 1):
-``sequence_parallel_axis`` (the sequence-parallel slice) raises
-NotImplementedError.
+output, as in the JAX package.
+
+Sequence parallelism (``sequence_parallel_axis="seq"``, the plain layer
+only; the fused layer and sparse attention refuse it, as in JAX): with a
+seq line set (``set_sequence_parallel``) each rank holds T/N tokens, the
+positions start at ``rank * T/N``, the plain layer's attention is the ring
+(or Ulysses) over K1/K2 with the padding mask beside its block (the
+probabilities' dropout on the context), [CLS] (global token 0, on shard 0)
+reaches every shard's pooler by a ``psum``, the MLM mean is the line's
+summed loss over its summed count and the NSP loss is ``psum(nsp / N)``.
 """
 
 import dataclasses
@@ -46,6 +53,9 @@ from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
 from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.ops.transformer.kernels.dropout import dropout
+from deepspeed_tpu_torch.ops.transformer.ring_attention import (
+    get_sp_attention)
+from deepspeed_tpu_torch.parallel import sequence_parallel
 from deepspeed_tpu_torch.runtime.utils import load_flax_tree
 
 
@@ -135,20 +145,23 @@ class BertEmbeddings(nn.Module):
                                           device)
         self.token_type_embeddings = _table(cfg.type_vocab_size, h, device)
         self.LayerNorm = LayerNorm(h, device)
+        self.sp = None
 
     def forward(self, input_ids, token_type_ids=None, seed=None):
         """(embeddings in ``config.dtype``, the word table for the tied
         decoder); ``seed`` None means no dropout."""
         cfg = self.config
         T = input_ids.shape[1]
-        if T > cfg.max_position_embeddings:
+        n, pos0 = (1, 0) if self.sp is None else \
+            (self.sp.size, self.sp.rank * T)
+        if n * T > cfg.max_position_embeddings:
             raise ValueError("sequence length {} exceeds "
                              "max_position_embeddings={}".format(
-                                 T, cfg.max_position_embeddings))
+                                 n * T, cfg.max_position_embeddings))
         wte = self.word_embeddings
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = wte[input_ids] + self.position_embeddings[:T][None] + \
+        x = wte[input_ids] + self.position_embeddings[pos0:pos0 + T][None] + \
             self.token_type_embeddings[token_type_ids]
         x = layer_norm(x, self.LayerNorm, cfg.layer_norm_eps)
         x = dropout(x, cfg.hidden_dropout_prob, seed, seed is None)
@@ -170,6 +183,7 @@ class PlainBertLayer(nn.Module):
         self.intermediate = Dense(h, inter, device)
         self.output = Dense(inter, h, device)
         self.out_LayerNorm = LayerNorm(h, device)
+        self.sp = None
 
     def forward(self, x, add_mask=None, deterministic=True, generator=None):
         cfg = self.config
@@ -188,6 +202,12 @@ class PlainBertLayer(nn.Module):
         if cfg.sparse_attention_config is not None:
             ctx = sparse_self_attention(q, k, v, cfg.sparse_attention_config,
                                         key_padding_mask=add_mask)
+            ctx = dropout(ctx, cfg.attention_probs_dropout_prob, seeds[0],
+                          deterministic)
+        elif self.sp is not None:
+            ctx = get_sp_attention(cfg.sequence_parallel_mode)(
+                q.contiguous(), k.contiguous(), v.contiguous(), self.sp,
+                mask=add_mask)
             ctx = dropout(ctx, cfg.attention_probs_dropout_prob, seeds[0],
                           deterministic)
         else:
@@ -229,8 +249,20 @@ class BertModel(nn.Module):
                 if cfg.use_fused_layer else PlainBertLayer(cfg, device)
             self.add_module("layer_{}".format(i), layer)
         self.pooler = Dense(cfg.hidden_size, cfg.hidden_size, device)
+        self.sp = None
         if seed is not None:
             self.init_weights(torch.Generator(device=device).manual_seed(seed))
+
+    def set_sequence_parallel(self, sp):
+        """Run token-sharded over ``sp`` (a ``SeqContext``), or serially
+        with None (module docstring)."""
+        if sp is not None and self.config.sequence_parallel_axis is None:
+            raise ValueError("set_sequence_parallel needs "
+                             "BertConfig(sequence_parallel_axis='seq')")
+        self.sp = self.embeddings.sp = sp
+        for layer in self.layers():
+            if isinstance(layer, PlainBertLayer):
+                layer.sp = sp
 
     def layers(self):
         return [getattr(self, "layer_{}".format(i))
@@ -276,11 +308,6 @@ class BertModel(nn.Module):
             raise ValueError(
                 "sparse attention x sequence parallelism is not supported "
                 "(the block-sparse layout is over the full sequence)")
-        if sp is not None:
-            raise NotImplementedError(
-                "sequence_parallel_axis={!r}: sequence-parallel BERT comes "
-                "with the sequence-parallel slice (ROADMAP Queue 1)".format(
-                    sp))
         if not deterministic and generator is None:
             generator = torch.default_generator
         x, wte = self.embeddings(
@@ -299,7 +326,13 @@ class BertModel(nn.Module):
             else:
                 x = layer(x, add_mask, deterministic=deterministic,
                           generator=gen)
-        pooled = torch.tanh(dense(x[:, 0], self.pooler))
+        cls = x[:, 0]
+        if self.sp is not None:
+            # [CLS] is global token 0, on shard 0: every shard's pooler
+            # takes it from there.
+            cls = sequence_parallel.psum(
+                cls.float() * float(self.sp.rank == 0), self.sp).to(x.dtype)
+        pooled = torch.tanh(dense(cls, self.pooler))
         return x, pooled, wte
 
 
@@ -334,6 +367,10 @@ class BertForPreTraining(nn.Module):
                 for d in (self.transform, self.seq_relationship):
                     d.kernel.normal_(0.0, cfg.initializer_range, generator=g)
 
+    def set_sequence_parallel(self, sp):
+        """The encoder's ``set_sequence_parallel``."""
+        self.bert.set_sequence_parallel(sp)
+
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 masked_lm_labels=None, next_sentence_label=None,
                 deterministic=True, generator=None):
@@ -351,15 +388,31 @@ class BertForPreTraining(nn.Module):
         if masked_lm_labels is None and next_sentence_label is None:
             logits = torch.matmul(h, wte.float().t()) + self.mlm_bias.float()
             return logits, seq_relationship
+        sp = self.bert.sp
         total = 0.0
-        if masked_lm_labels is not None:
+        if masked_lm_labels is not None and sp is not None:
+            # Shards hold different numbers of masked positions: the line's
+            # summed loss over its summed count.
+            mlm, count = chunked_tied_softmax_xent(
+                h, wte, masked_lm_labels, cfg.dtype, bias=self.mlm_bias,
+                ignore_index=-1, reduction="sum_count")
+            both = sequence_parallel.psum(torch.stack(
+                [mlm.float(), count.detach().float()]), sp)
+            total = total + both[0] / torch.clamp(both[1], min=1.0)
+        elif masked_lm_labels is not None:
             total = total + chunked_tied_softmax_xent(
                 h, wte, masked_lm_labels, cfg.dtype, bias=self.mlm_bias,
                 ignore_index=-1)
         if next_sentence_label is not None:
             logp = F.log_softmax(seq_relationship, dim=-1)
             nll = -logp.gather(-1, next_sentence_label.long()[:, None])[:, 0]
-            total = total + nll.mean()
+            nsp = nll.mean()
+            if sp is not None:
+                # Every shard computes the same NSP loss from the summed
+                # [CLS]: psum(nsp / N) counts it once.
+                nsp = sequence_parallel.psum((nsp / sp.size).reshape(1),
+                                             sp)[0]
+            total = total + nsp
         return total
 
 

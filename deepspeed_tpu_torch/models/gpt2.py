@@ -32,6 +32,16 @@ column-parallel (GELU on the local columns) and its ``c_proj``
 row-parallel. Two all-reduces a block forward, two backward; the
 embeddings, LayerNorms and the tied head stay replicated.
 
+Sequence parallelism (``GPT2Config(sequence_parallel_axis="seq")``): once
+the engine hands the model its seq line (``set_sequence_parallel``, a
+``parallel/sequence_parallel.SeqContext``), each rank holds a shard of
+T/N tokens: positions start at ``rank * T/N``, attention is
+``get_sp_attention(sequence_parallel_mode)`` (the ring or Ulysses over
+K1/K2), and the next-token loss takes the next shard's first label by one
+ring shift and is the global mean (``_sequence_parallel_xent``). Without a
+context the model runs serially, as the JAX model does outside
+``shard_map``.
+
 The pipeline variant (``gpt2_pipeline``, JAX ``models/gpt2.py``): an
 embedding layer, one layer per block, the final LayerNorm and the tied
 head (a ``TiedLayerSpec`` reusing the embedding) or an untied head, with
@@ -51,6 +61,9 @@ from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.heads import chunked_tied_softmax_xent
 from deepspeed_tpu_torch.ops.transformer.kernels.attention import (
     flash_attention)
+from deepspeed_tpu_torch.ops.transformer.ring_attention import (
+    get_sp_attention)
+from deepspeed_tpu_torch.parallel import sequence_parallel
 from deepspeed_tpu_torch.parallel.tensor_parallel import (copy_to_model,
                                                           reduce_from_model)
 from deepspeed_tpu_torch.runtime.utils import load_flax_tree
@@ -70,8 +83,10 @@ class GPT2Config:
     remat: bool = False
     # flash_attention (kernels K1/K2) or the dense einsum path.
     use_flash_attention: bool = True
-    # Sequence parallelism: only None is ported (forward raises otherwise).
+    # Sequence parallelism: "seq" makes the model sequence-shardable (module
+    # docstring); "ring" or "ulysses" picks its attention.
     sequence_parallel_axis: Any = None
+    sequence_parallel_mode: str = "ring"
 
     @classmethod
     def gpt2_small(cls, **kw):
@@ -179,6 +194,7 @@ class _Attention(nn.Module):
         self.c_attn = Dense(C, 3 * C, device)
         self.c_proj = Dense(C, C, device)
         self.tp = None
+        self.sp = None
 
     def tensor_parallel_leaves(self, mp):
         """The leaves the attention computes split over ``mp`` ranks (the
@@ -206,7 +222,12 @@ class _Attention(nn.Module):
         q, k, v = dense(x, self.c_attn).split(C, dim=-1)
         q, k, v = (t.reshape(B, T, nh, hd).transpose(1, 2).contiguous()
                    for t in (q, k, v))
-        if cfg.use_flash_attention:
+        if self.sp is not None:
+            # This shard's queries against every shard's keys (the ring or
+            # Ulysses); the probabilities' dropout on the context output.
+            y = dropout(get_sp_attention(cfg.sequence_parallel_mode)(
+                q, k, v, self.sp, causal=True), cfg.dropout, gen)
+        elif cfg.use_flash_attention:
             # Attention-probability dropout moves to the context output:
             # flash never materialises the probabilities.
             y = dropout(flash_attention(q, k, v, causal=True), cfg.dropout,
@@ -295,8 +316,20 @@ class GPT2LMHeadModel(nn.Module):
         for i in range(cfg.n_layer):
             self.add_module("h_{}".format(i), Block(cfg, device))
         self.ln_f = LayerNorm(cfg.n_embd, device)
+        self.sp = None
         if seed is not None:
             self._init_weights(seed)
+
+    def set_sequence_parallel(self, sp):
+        """Run token-sharded over ``sp`` (a ``SeqContext``), or serially
+        with None (module docstring)."""
+        if sp is not None and self.config.sequence_parallel_axis is None:
+            raise ValueError("set_sequence_parallel needs "
+                             "GPT2Config(sequence_parallel_axis='seq')")
+        get_sp_attention(self.config.sequence_parallel_mode)  # its check
+        self.sp = sp
+        for blk in self.blocks():
+            blk.attn.sp = sp
 
     def blocks(self):
         return [getattr(self, "h_{}".format(i))
@@ -319,21 +352,19 @@ class GPT2LMHeadModel(nn.Module):
         is False, its masks drawn from seeds taken from ``generator`` (a
         CPU ``torch.Generator``; the engine passes its own)."""
         cfg = self.config
-        if cfg.sequence_parallel_axis is not None:
-            raise NotImplementedError(
-                "sequence_parallel_axis={!r}: sequence parallelism comes with "
-                "the sequence-parallel slice (ROADMAP Queue 1)".format(
-                    cfg.sequence_parallel_axis))
+        sp = self.sp
         B, T = input_ids.shape
-        if T > cfg.n_positions:
+        n, pos0 = (1, 0) if sp is None else (sp.size, sp.rank * T)
+        if n * T > cfg.n_positions:
             raise ValueError("sequence length {} exceeds n_positions={}"
-                             .format(T, cfg.n_positions))
+                             .format(n * T, cfg.n_positions))
         train = not deterministic and cfg.dropout > 0.0
         n_seeds = cfg.n_layer + 1
         seeds = torch.randint(0, 2 ** 62, (n_seeds,), generator=generator
                               ).tolist() if train else [None] * n_seeds
         ids = input_ids.to(self.wte.device, torch.int64)
-        x = self.wte[ids].to(cfg.dtype) + self.wpe[:T].to(cfg.dtype)[None]
+        x = self.wte[ids].to(cfg.dtype) + \
+            self.wpe[pos0:pos0 + T].to(cfg.dtype)[None]
         if train:
             g = torch.Generator(device=x.device)
             g.manual_seed(seeds[-1])
@@ -347,8 +378,28 @@ class GPT2LMHeadModel(nn.Module):
         if labels is None:
             return torch.matmul(x.float(), self.wte.float().t())
         labels = labels.to(ids.device, torch.int64)
+        if sp is not None:
+            return _sequence_parallel_xent(x, self.wte, labels, cfg, sp)
         return chunked_tied_softmax_xent(x[:, :-1], self.wte, labels[:, 1:],
                                          cfg.dtype)
+
+
+def _sequence_parallel_xent(x, wte, labels, cfg, sp):
+    """The next-token loss of token shards (JAX ``_sequence_parallel_xent``):
+    a shard's last position predicts the next shard's first label, which
+    one ring shift of a ``[B, 1]`` slice brings (the global last token,
+    whose delivery wraps around, is ignored); the mean is the summed loss
+    over the summed count of the line, so shards with fewer supervised
+    tokens weigh less."""
+    nxt = sequence_parallel.shift(labels[:, :1], sp, -1)
+    if sp.rank == sp.size - 1:
+        nxt = torch.full_like(nxt, -1)
+    shifted = torch.cat([labels[:, 1:], nxt], dim=1)
+    total, count = chunked_tied_softmax_xent(
+        x, wte, shifted, cfg.dtype, ignore_index=-1, reduction="sum_count")
+    both = sequence_parallel.psum(torch.stack(
+        [total.float(), count.detach().float()]), sp)
+    return both[0] / torch.clamp(both[1], min=1.0)
 
 
 def params_from_jax(tree, config, device=None):

@@ -129,10 +129,10 @@ def ce_loss(logits, labels):
 
 
 class PLD_SimpleModel(nn.Module):
-    """``SimpleModel`` taking the progressive-layer-drop arguments the JAX
-    engine injects: with ``progressive_layer_drop`` the layer's output is
-    scaled by ``pld_theta``. The port's engine injects nothing yet (the
-    ``progressive_layer_drop`` block is ROADMAP Queue 1 item 7)."""
+    """``SimpleModel`` taking the progressive-layer-drop arguments the
+    engine injects under a ``progressive_layer_drop`` block: with
+    ``progressive_layer_drop`` the layer's output is scaled by
+    ``pld_theta``."""
 
     def __init__(self, hidden_dim, device=None, seed=0):
         super().__init__()

@@ -3,11 +3,17 @@
 Calls over ``torch.distributed``: ``all_reduce`` (sum or mean),
 ``reduce_scatter`` (sum or mean of a flat buffer laid out as dp equal
 chunks, rank r keeps chunk r), ``all_gather`` (every rank's equal flat
-chunk, concatenated in rank order) and ``broadcast`` (from one rank, in
-place). Each takes and returns contiguous tensors;
-``runtime/zero/partition.py`` packs the leaves. The tensor-parallel and
-pipeline collectives (``parallel/tensor_parallel.py``,
-``runtime/pipe/engine.py``) run over the same calls.
+chunk, concatenated in rank order; any dtype, the 1-bit exchange's packed
+uint8 signs among them), ``broadcast`` (from one rank, in place),
+``all_to_all`` (the tiled exchange of ``jax.lax.all_to_all(...,
+tiled=True)``: split along one dim, chunk j to rank j, the received chunks
+concatenated along another) and ``ring_shift`` (``jax.lax.ppermute`` over
+a ring: rank r's tensor to rank r + offset). Each takes and returns
+contiguous tensors; ``runtime/zero/partition.py`` packs the leaves. The
+tensor-parallel, sequence-parallel and pipeline collectives
+(``parallel/tensor_parallel.py``, ``parallel/sequence_parallel.py``,
+``runtime/pipe/engine.py``) and the 1-bit exchange
+(``runtime/custom_collectives.py``) run over the same calls.
 
 The backend decides the route, by name, never by a caught failure:
 
@@ -16,7 +22,10 @@ The backend decides the route, by name, never by a caught failure:
   copy (gloo's collectives are host algorithms; the card runs two ranks on
   one device over gloo, since NCCL refuses two ranks on one device), and
   reduce-scatter is composed: an all-reduce of the whole buffer, then the
-  rank's slice. All-gather uses gloo's list form.
+  rank's slice. All-gather uses gloo's list form. All-to-all is composed
+  of an irecv from and an isend to every other rank (gloo has no
+  all-to-all in every torch release), the ring shift of an irecv from the
+  previous rank and an isend to the next.
 
 ``stats`` counts the calls (in all and by kind) and the bytes each rank
 hands to them, in all and by kind (the smoke's collective bytes per
@@ -26,7 +35,8 @@ step).
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
+KINDS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast",
+         "all_to_all", "ring_shift")
 stats = {}
 
 
@@ -133,6 +143,62 @@ def broadcast(t, src, group):
     else:
         dist.broadcast(t, src, group=group)
     return t
+
+
+def all_to_all(t, group, split_dim, concat_dim):
+    """The tiled all-to-all over ``group``: ``t`` split into ``world``
+    equal chunks along ``split_dim``, chunk j sent to group rank j, and the
+    chunks received concatenated along ``concat_dim`` in rank order."""
+    world = dist.get_world_size(group)
+    if t.shape[split_dim] % world:
+        raise ValueError("all_to_all: dim {} of shape {} is not divisible "
+                         "by {} ranks".format(split_dim, tuple(t.shape),
+                                              world))
+    _note(t, "all_to_all")
+    host = _host(group, t)
+    sends = [_staged(c) if host else c.contiguous()
+             for c in t.chunk(world, dim=split_dim)]
+    recvs = [torch.empty_like(c) for c in sends]
+    if dist.get_backend(group) == "gloo":
+        rank = dist.get_rank(group)
+        recvs[rank] = sends[rank]
+        peers = [dist.get_global_rank(group, j) for j in range(world)]
+        works = [dist.irecv(recvs[j], peers[j], group=group)
+                 for j in range(world) if j != rank]
+        works += [dist.isend(sends[j], peers[j], group=group)
+                  for j in range(world) if j != rank]
+        for work in works:
+            work.wait()
+    else:
+        dist.all_to_all(recvs, sends, group=group)
+    return torch.cat([r.to(t.device) for r in recvs], dim=concat_dim)
+
+
+def ring_shift(t, group, offset=1):
+    """``t`` of group rank r delivered to group rank (r + offset) mod world;
+    returns what this rank receives (from rank - offset). At one rank it
+    returns ``t``."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return t
+    rank = dist.get_rank(group)
+    _note(t, "ring_shift")
+    dst = dist.get_global_rank(group, (rank + offset) % world)
+    src = dist.get_global_rank(group, (rank - offset) % world)
+    host = _host(group, t)
+    send = _staged(t) if host else t.contiguous()
+    recv = torch.empty_like(send)
+    if dist.get_backend(group) == "nccl":
+        for work in dist.batch_isend_irecv(
+                [dist.P2POp(dist.irecv, recv, src, group),
+                 dist.P2POp(dist.isend, send, dst, group)]):
+            work.wait()
+    else:
+        works = [dist.irecv(recv, src, group=group),
+                 dist.isend(send, dst, group=group)]
+        for work in works:
+            work.wait()
+    return recv.to(t.device) if host else recv
 
 
 def all_gather_object(obj, group):

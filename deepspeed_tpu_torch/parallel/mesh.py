@@ -8,12 +8,15 @@ data) * sp + seq) * mp + model, as a flat ``jax.devices()`` reshape lays
 the JAX mesh out. ``build_mesh`` makes one process group per ``data`` line
 (the ranks that differ only in their data coordinate; ZeRO's collectives
 and the gradient reduction run over it), then one per ``model`` line (the
-tensor-parallel collectives, ``parallel/tensor_parallel.py``) and one per
+tensor-parallel collectives, ``parallel/tensor_parallel.py``), one per
 ``pipe`` line (the pipeline's loss broadcast, norm and overflow, tied
-gradients: ``runtime/pipe/engine.py``).
+gradients: ``runtime/pipe/engine.py``) and one per ``seq`` line (ring and
+Ulysses attention, the sequence-parallel loss and the gradients' mean over
+the sequence shards: ``parallel/sequence_parallel.py``).
 
-A ``seq`` axis above 1 raises NotImplementedError naming the ROADMAP item
-that brings it.
+The batch split of sequence parallelism (``shard_batch``, ``seq_shard``):
+the batch over 'data', the tokens (dim 1 of every array of rank >= 2) over
+'seq', with the JAX engine's divisibility errors.
 
 The partition rule is the JAX ``zero_shardings`` leaf rule as a pure
 function over shapes (``zero_partition_dim``): ZeRO's data partition goes
@@ -41,12 +44,6 @@ MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
 SEQ_AXIS = "seq"
 AXES = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
-
-# The ROADMAP item that brings each axis wider than 1.
-_UNPORTED_AXES = {
-    SEQ_AXIS: "sequence parallelism over the 'seq' axis (ROADMAP Queue 1 "
-              "item 10)",
-}
 
 # Megatron-style tensor-parallel rules (path regex, sharded dim), the JAX
 # package's, first match wins; paths join the flax names with '/'
@@ -98,21 +95,25 @@ def shard_slice(t, dim, rank, dp):
 class Mesh(object):
     """The rank grid (module docstring). ``rank`` is this process's global
     rank, ``coords`` its (pipe, data, seq, model) coordinates, ``dp_rank``,
-    ``mp_rank`` and ``pp_rank`` its data, model and pipe coordinates,
-    ``dp_group``, ``mp_group`` and ``pp_group`` the process groups of its
-    data, model and pipe lines (None when no process group exists, and
-    the model and pipe groups also when that axis is 1 wide)."""
+    ``mp_rank``, ``pp_rank`` and ``sp_rank`` its data, model, pipe and seq
+    coordinates, ``dp_group``, ``mp_group``, ``pp_group`` and ``sp_group``
+    the process groups of its data, model, pipe and seq lines (None when no
+    process group exists, and the model, pipe and seq groups also when that
+    axis is 1 wide)."""
 
-    def __init__(self, shape, rank, dp_group, mp_group=None, pp_group=None):
+    def __init__(self, shape, rank, dp_group, mp_group=None, pp_group=None,
+                 sp_group=None):
         self.shape = dict(zip(AXES, shape))
         self.rank = rank
         self.coords = dict(zip(AXES, np.unravel_index(rank, shape)))
         self.dp_rank = int(self.coords[DATA_AXIS])
         self.mp_rank = int(self.coords[MODEL_AXIS])
         self.pp_rank = int(self.coords[PIPE_AXIS])
+        self.sp_rank = int(self.coords[SEQ_AXIS])
         self.dp_group = dp_group
         self.mp_group = mp_group
         self.pp_group = pp_group
+        self.sp_group = sp_group
 
     @property
     def size(self):
@@ -137,8 +138,8 @@ def build_mesh(num_dp=None, num_mp=1, num_pp=1, num_sp=1, world_size=None,
     """The ('pipe', 'data', 'seq', 'model') rank grid over ``world_size``
     ranks (default: the initialised process group's, else 1), with one
     process group per data line, then (where the axis is wider than 1) one
-    per model line and one per pipe line. ``num_dp`` defaults to what the
-    other axes leave. Every rank must call it, in the same order as its
+    per model line, one per pipe line and one per seq line. ``num_dp``
+    defaults to what the other axes leave. Every rank must call it, in the same order as its
     other group constructions (``torch.distributed.new_group`` is
     collective). Without an initialised process group the grid has no
     groups (one process trains alone)."""
@@ -148,11 +149,6 @@ def build_mesh(num_dp=None, num_mp=1, num_pp=1, num_sp=1, world_size=None,
         world_size = dist.get_world_size() if live else 1
     if rank is None:
         rank = dist.get_rank() if live else 0
-    for axis, n in ((SEQ_AXIS, num_sp),):
-        if n != 1:
-            raise NotImplementedError(
-                "a '{}' axis of size {} is not ported yet: {}".format(
-                    axis, n, _UNPORTED_AXES[axis]))
     if num_dp is None:
         if world_size % (num_mp * num_pp * num_sp):
             raise ValueError("{} ranks not divisible by mp={} * pp={} * sp={}"
@@ -165,7 +161,7 @@ def build_mesh(num_dp=None, num_mp=1, num_pp=1, num_sp=1, world_size=None,
     mesh = Mesh(shape, rank, None)
     if live:
         for axis, attr in ((DATA_AXIS, "dp_group"), (MODEL_AXIS, "mp_group"),
-                           (PIPE_AXIS, "pp_group")):
+                           (PIPE_AXIS, "pp_group"), (SEQ_AXIS, "sp_group")):
             if axis != DATA_AXIS and mesh.shape[axis] == 1:
                 continue
             for ranks in _lines(shape, axis):
@@ -198,6 +194,39 @@ def pp_size(mesh):
 
 def sp_size(mesh):
     return mesh.shape.get(SEQ_AXIS, 1)
+
+
+def seq_shard(x, sp, sp_rank):
+    """Rank ``sp_rank``'s token shard of one batch array: dim 1 of an array
+    of rank >= 2 cut into ``sp`` equal pieces (other arrays and non-tensors
+    as they are). A token dim that ``sp`` does not divide raises the JAX
+    engine's ValueError."""
+    shape = tuple(getattr(x, "shape", ()))
+    if sp <= 1 or len(shape) < 2:
+        return x
+    if shape[1] % sp:
+        raise ValueError(
+            "sequence_parallel: token dim {} of shape {} not divisible by "
+            "sp={} (all rank>=2 batch arrays are token-sharded on dim 1)"
+            .format(shape[1], shape, sp))
+    per = shape[1] // sp
+    return x[:, sp_rank * per:(sp_rank + 1) * per]
+
+
+def shard_batch(x, mesh):
+    """This rank's piece of a GLOBAL batch array: the batch (dim 0) over
+    'data', then the tokens (``seq_shard``) over 'seq'; the JAX engine's
+    errors for a dim the axis does not divide."""
+    dp, sp = dp_size(mesh), sp_size(mesh)
+    shape = tuple(getattr(x, "shape", ()))
+    if len(shape) >= 1 and dp > 1:
+        if shape[0] % dp:
+            raise ValueError(
+                "sequence_parallel: batch dim {} of shape {} not divisible "
+                "by dp={}".format(shape[0], shape, dp))
+        per = shape[0] // dp
+        x = x[mesh.dp_rank * per:(mesh.dp_rank + 1) * per]
+    return seq_shard(x, sp, mesh.sp_rank)
 
 
 def replica_devices(n, devices=None, device=None):

@@ -20,8 +20,12 @@ the JAX package's checks (ZeRO needs fp16 or bf16, stage at most 3,
 cpu_offload only at stage 2). ``world_size`` is the data-parallel size:
 the batch triangle is train = micro x accumulation x world_size. Over
 several ranks ``cpu_offload`` and ``stream_gradients`` are refused (offload
-over ranks is ROADMAP Queue 1 item 17), as 1-bit Adam is everywhere (item
-9).
+over ranks is ROADMAP Queue 1 item 17).
+
+``OneBitAdam`` (the optimizer type), ``sequence_parallel`` (``enabled``,
+``size``), ``progressive_layer_drop`` (``enabled``, ``theta``, ``gamma``:
+``pld_params``) and ``activation_checkpointing``
+(``activation_checkpointing_config``) parse as in the JAX config.
 
 The ``pipeline`` block: ``stages`` and ``activation_checkpoint_interval``
 are read (``self.pipeline``) and honoured by the pipeline engine
@@ -35,6 +39,8 @@ config's ``_apply_elasticity`` does.
 
 import json
 
+from deepspeed_tpu_torch.runtime.activation_checkpointing.config import (
+    DeepSpeedActivationCheckpointingConfig)
 from deepspeed_tpu_torch.elasticity import (ElasticityConfigError,
                                             compute_elastic_config,
                                             elasticity_enabled,
@@ -73,7 +79,10 @@ from deepspeed_tpu_torch.runtime.constants import (
     SPARSE_NUM_RANDOM_BLOCKS_DEFAULT, SPARSE_NUM_SLIDING_WINDOW_BLOCKS,
     SPARSE_NUM_SLIDING_WINDOW_BLOCKS_DEFAULT, SPARSE_VARIABLE_MODE,
     SPARSE_GRADIENTS, SPARSE_GRADIENTS_DEFAULT,
-    MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT, STEPS_PER_PRINT,
+    MEMORY_BREAKDOWN, MEMORY_BREAKDOWN_DEFAULT, PLD_ENABLED,
+    PLD_ENABLED_DEFAULT, PROGRESSIVE_LAYER_DROP, SEQUENCE_PARALLEL,
+    SEQUENCE_PARALLEL_ENABLED, SEQUENCE_PARALLEL_ENABLED_DEFAULT,
+    SEQUENCE_PARALLEL_SIZE, SEQUENCE_PARALLEL_SIZE_DEFAULT, STEPS_PER_PRINT,
     STEPS_PER_PRINT_DEFAULT, TENSORBOARD, TENSORBOARD_ENABLED,
     TENSORBOARD_ENABLED_DEFAULT, TENSORBOARD_JOB_NAME,
     TENSORBOARD_JOB_NAME_DEFAULT, TENSORBOARD_OUTPUT_PATH,
@@ -98,14 +107,11 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
 _TOOLING = "the tooling slice (ROADMAP Queue 1)"
 _DP_OFFLOAD = "ZeRO-Offload over several ranks (ROADMAP Queue 1 item 17)"
-_ONEBIT = "1-bit Adam (ROADMAP Queue 1 item 9)"
 
 # Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
 _UNPORTED_BLOCKS = {
     "amp": "amp (the JAX package maps it to bf16; pass a bf16 block) - "
            + _RUNTIME,
-    "progressive_layer_drop": _RUNTIME,
-    "sequence_parallel": "the sequence-parallel slice (ROADMAP Queue 1)",
     "flops_profiler": _TOOLING,
 }
 
@@ -137,6 +143,12 @@ _SCHEMA = (
     ("gradient_clipping", (GRADIENT_CLIPPING,), GRADIENT_CLIPPING_DEFAULT),
     ("sparse_gradients_enabled", (SPARSE_GRADIENTS,),
      SPARSE_GRADIENTS_DEFAULT),
+    ("sequence_parallel_enabled", (SEQUENCE_PARALLEL,
+     SEQUENCE_PARALLEL_ENABLED), SEQUENCE_PARALLEL_ENABLED_DEFAULT),
+    ("sequence_parallel_size", (SEQUENCE_PARALLEL, SEQUENCE_PARALLEL_SIZE),
+     SEQUENCE_PARALLEL_SIZE_DEFAULT),
+    ("pld_enabled", (PROGRESSIVE_LAYER_DROP, PLD_ENABLED),
+     PLD_ENABLED_DEFAULT),
     ("fp16_enabled", (FP16, FP16_ENABLED), FP16_ENABLED_DEFAULT),
     ("bfloat16_enabled", (BFLOAT16, BFLOAT16_ENABLED),
      BFLOAT16_ENABLED_DEFAULT),
@@ -207,6 +219,28 @@ _SPARSE_KEY_DEFAULTS = {
 }
 
 
+def get_sequence_parallel_enabled(param_dict):
+    """The engine reads this before the full parse (the mesh it builds
+    decides the data-parallel size of the batch triangle)."""
+    return _read(param_dict, (SEQUENCE_PARALLEL, SEQUENCE_PARALLEL_ENABLED),
+                 SEQUENCE_PARALLEL_ENABLED_DEFAULT)
+
+
+def get_sequence_parallel_size(param_dict):
+    return _read(param_dict, (SEQUENCE_PARALLEL, SEQUENCE_PARALLEL_SIZE),
+                 SEQUENCE_PARALLEL_SIZE_DEFAULT)
+
+
+def _typed_block(param_dict, section, exclude):
+    """A copy of ``param_dict[section]`` without ``exclude`` (the PLD
+    constructor's arguments), or False when the block is absent."""
+    if section not in param_dict:
+        return False
+    block = dict(param_dict[section])
+    block.pop(exclude, None)
+    return block
+
+
 def parse_sparse_attention(param_dict):
     """``sparse_attention`` block -> flat {mode, **fields} dict, or None."""
     if SPARSE_ATTENTION not in param_dict:
@@ -261,9 +295,6 @@ def _check_ported(param_dict):
                 pipeline[key] != _PIPELINE_DEFAULTS[key]:
             _refuse("'pipeline.{}': {!r} (set it on the PipelineModule)"
                     .format(key, pipeline[key]), _RUNTIME)
-    if param_dict.get("activation_checkpointing"):
-        _refuse("'activation_checkpointing' (use GPT2Config(remat=True) for "
-                "per-block checkpointing)", _RUNTIME)
 
 
 class DeepSpeedConfig(object):
@@ -345,8 +376,6 @@ class DeepSpeedConfig(object):
         if self.optimizer_name is not None and \
                 self.optimizer_name.lower() in DEEPSPEED_OPTIMIZERS:
             self.optimizer_name = self.optimizer_name.lower()
-        if self.optimizer_name == ONEBIT_ADAM_OPTIMIZER:
-            _refuse("optimizer '{}'".format(self.optimizer_name), _ONEBIT)
         self.scheduler_name, self.scheduler_params = _named_block(
             param_dict, SCHEDULER, SCHEDULER_TYPE_DEFAULT, SCHEDULER_PARAMS)
 
@@ -354,6 +383,11 @@ class DeepSpeedConfig(object):
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
         _check_ported(param_dict)
+        self.pld_params = _typed_block(param_dict, PROGRESSIVE_LAYER_DROP,
+                                       PLD_ENABLED) \
+            if self.pld_enabled else False
+        self.activation_checkpointing_config = \
+            DeepSpeedActivationCheckpointingConfig(param_dict)
         self.inference = self._parse_inference(param_dict)
         self.sparse_attention = parse_sparse_attention(param_dict)
 

@@ -100,11 +100,42 @@ checkpoints in the JAX package's layout and format.
   so a checkpoint loads in either package at another mp/dp.
 - The pipeline: ``runtime/pipe/engine.PipelineEngine`` subclasses this.
 
+- Sequence parallelism (``sequence_parallel``: ``enabled``, ``size``): the
+  grid gets a 'seq' axis of ``size`` (a user mesh must have it), one
+  process group per seq line. The model must be sequence-shardable
+  (``sequence_parallel_axis='seq'``); the engine hands it its seq line
+  (``set_sequence_parallel``). Each rank passes its data rank's
+  micro-batch and the engine keeps its token shard (dim 1 of every array
+  of rank >= 2, ``mesh.seq_shard``, with JAX's divisibility error). The
+  model's loss is the line's global mean; the gradients take the mean over
+  the seq line, then over the data group (``parallel/sequence_parallel.py``
+  says why the mean), with ZeRO before its reduce-scatter. Dropout seeds
+  are folded with ``data_rank * sp + seq_rank``. ``pg_correctness_test``
+  runs its reference serially over the full sequences.
+- 1-bit Adam (``OneBitAdam``, ``runtime/fp16/onebit_adam.py``). On a pure
+  data-parallel grid (no ZeRO, model, pipe or seq ranks, no sparse
+  gradients: ``_onebit_eligible``) the warm-up averages the gradients
+  densely and clips; past ``freeze_step`` each rank's local gradient feeds
+  its momentum, the momenta are exchanged compressed over the data group
+  and no dense gradient all-reduce runs (``enable_backward_allreduce``
+  False; clipping is skipped with a warning, once). Elsewhere the
+  gradients are averaged as usual and the compression degenerates to the
+  one-party quantization, as in JAX. Checkpoints hold the error buffers in
+  the JAX layout (each rank's row gathered into ``[W, padded]``), and the
+  phase resumes both ways. ZeRO and tensor parallelism with 1-bit Adam are
+  refused (ROADMAP Queue 1 item 9).
+- Progressive layer drop (``progressive_layer_drop``): the forward gets
+  ``progressive_layer_drop=True, pld_theta=...`` and the schedule advances
+  at each boundary. ``activation_checkpointing``: the block configures
+  ``runtime/activation_checkpointing/checkpointing.py`` (with the grid, for
+  ``partition_activations``).
+
 Not on this path yet (ROADMAP Queue 1): ZeRO-Offload and Lamb over
-partitioned ranks (item 17), 1-bit Adam (item 9).
+partitioned ranks (item 17).
 """
 
 import inspect
+import json
 import logging
 import os
 import pickle
@@ -120,17 +151,21 @@ from deepspeed_tpu_torch.ops.lamb.cpu_lamb import DeepSpeedCPULamb
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.parallel import comm
 from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+from deepspeed_tpu_torch.parallel import sequence_parallel
 from deepspeed_tpu_torch.parallel import tensor_parallel
 from deepspeed_tpu_torch.runtime import lr_schedules
-from deepspeed_tpu_torch.runtime.config import (ADAM_OPTIMIZER,
-                                                ADAMW_OPTIMIZER,
-                                                LAMB_OPTIMIZER,
-                                                DeepSpeedConfig)
+from deepspeed_tpu_torch.runtime.config import (
+    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+    DeepSpeedConfig, get_sequence_parallel_enabled,
+    get_sequence_parallel_size)
 from deepspeed_tpu_torch.runtime.csr_tensor import (  # noqa: F401
     CSRTensor, csr_allreduce, pad_csr, sparse_grad_exchange,
     split_half_float_double_csr)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler
+from deepspeed_tpu_torch.runtime.fp16.onebit_adam import OnebitAdam
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
+    ProgressiveLayerDrop)
 from deepspeed_tpu_torch.runtime.utils import (ensure_directory_exists,
                                                global_norm, has_overflow,
                                                load_flax_tree)
@@ -193,6 +228,23 @@ _HOST_LAMB_KEYS = ("lr", "bias_correction", "betas", "eps", "weight_decay",
                    "max_coeff", "min_coeff", "amsgrad")
 
 _OFFLOAD_ITEM = "ROADMAP Queue 1 item 17"
+_ONEBIT_ITEM = "ROADMAP Queue 1 item 9"
+_SEQ_ITEM = "ROADMAP Queue 1 item 10"
+
+
+def _peek_sequence_parallel(args, config_params):
+    """(enabled, size) of the ``sequence_parallel`` block, read before the
+    full parse: the grid it builds sets the data-parallel size of the batch
+    triangle."""
+    raw = config_params
+    path = getattr(args, "deepspeed_config", None) if args else None
+    if raw is None and path and os.path.isfile(path):
+        with open(path) as f:
+            raw = json.load(f)
+    if not isinstance(raw, dict):
+        return False, None
+    return get_sequence_parallel_enabled(raw), \
+        get_sequence_parallel_size(raw)
 
 
 def setup_placement(device=None, mesh=None, dist_init_required=None,
@@ -230,9 +282,16 @@ class DeepSpeedEngine(object):
                  device=None, seed=1234, collate_fn=None, mesh=None,
                  dist_init_required=None):
         # The rank grid (parallel/mesh.py): this rank's coordinates and the
-        # process groups of its data, model and pipe lines.
+        # process groups of its data, model, pipe and seq lines.
+        sp_enabled, sp_size = _peek_sequence_parallel(args, config_params)
+        mesh_kw = {}
+        if sp_enabled and mesh is None:
+            mesh_kw["num_sp"] = sp_size or int(os.environ.get("WORLD_SIZE",
+                                                              1))
         self.device, self.mesh = setup_placement(device, mesh,
-                                                 dist_init_required)
+                                                 dist_init_required,
+                                                 **mesh_kw)
+        self._check_seq_mesh(sp_enabled, sp_size, mesh is not None)
         if mesh_lib.pp_size(self.mesh) > 1 and not self._pipelined:
             raise ValueError(
                 "a 'pipe' axis {} wide needs a PipelineModule (the "
@@ -247,6 +306,12 @@ class DeepSpeedEngine(object):
         self.dp_group = self.mesh.dp_group
         self.mp_group = self.mesh.mp_group
         self.pp_group = self.mesh.pp_group
+        self.sp_world_size = mesh_lib.sp_size(self.mesh)
+        self.sp_rank = self.mesh.sp_rank
+        self.sp_group = self.mesh.sp_group
+        # 1-bit Adam clears it at its freeze (the reference's flag): no
+        # dense gradient all-reduce from then on.
+        self.enable_backward_allreduce = True
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -309,11 +374,14 @@ class DeepSpeedEngine(object):
         self._takes_deterministic = "deterministic" in accepted
         self._takes_generator = "generator" in accepted
         # Dropout seeds come from here (a CPU generator: drawing a seed
-        # never waits for the card), folded with the data rank (as the JAX
-        # engine folds its key with the data axis index).
+        # never waits for the card), folded with the data and seq ranks (as
+        # the JAX engine folds its key with the axis indices).
         self._generator = torch.Generator()
-        self._generator.manual_seed(_fold_seed(seed, self.dp_rank)
-                                    if self.dp_world_size > 1 else seed)
+        fold = self.dp_rank * self.sp_world_size + self.sp_rank
+        self._generator.manual_seed(
+            _fold_seed(seed, fold)
+            if self.dp_world_size * self.sp_world_size > 1 else seed)
+        self._sp = self._configure_sequence_parallel()
 
         self.loss_scaler = None
         if self.fp16_enabled():
@@ -340,12 +408,110 @@ class DeepSpeedEngine(object):
         self._sparse_k = 0
         self._pg_inputs = []
         self._configure_optimizer(optimizer)
+        self._check_onebit()
         self._check_partitioned()
         self._configure_lr_scheduler(lr_scheduler)
+        pld = self._config.pld_params
+        self.progressive_layer_drop = ProgressiveLayerDrop(
+            theta=pld.get("theta", 1.0), gamma=pld.get("gamma", 0.001)) \
+            if self.pld_enabled() else None
+        self._configure_checkpointing()
         self.training_dataloader = self.deepspeed_io(training_data) \
             if training_data is not None else None
 
     # ------------------------------------------------------------- config
+
+    def _check_seq_mesh(self, enabled, size, user_mesh):
+        """The grid against the ``sequence_parallel`` block (the JAX
+        engine's checks of a user mesh)."""
+        have = mesh_lib.sp_size(self.mesh)
+        if enabled and user_mesh and have <= 1:
+            raise ValueError("sequence_parallel is enabled but the provided "
+                             "mesh has no 'seq' axis (build_mesh(num_sp=...))")
+        if enabled and size is not None and size != have:
+            raise ValueError("sequence_parallel size {} != mesh 'seq' axis {}"
+                             .format(size, have))
+
+    def _configure_sequence_parallel(self):
+        """The model's seq line (module docstring), or None without a 'seq'
+        axis."""
+        if self.sp_world_size <= 1:
+            return None
+        cfg = getattr(self.module, "config", None)
+        if getattr(cfg, "sequence_parallel_axis", None) != mesh_lib.SEQ_AXIS:
+            raise ValueError(
+                "sequence_parallel is enabled but the model is not "
+                "sequence-shardable: its config must set "
+                "sequence_parallel_axis='{}' (attention must mix tokens "
+                "across shards - silently sharding a serial model would "
+                "train a different function)".format(mesh_lib.SEQ_AXIS))
+        if self.sparse_gradients_enabled():
+            raise NotImplementedError(
+                "sequence_parallel cannot be combined with sparse_gradients")
+        if self.mp_world_size > 1:
+            raise NotImplementedError(
+                "sequence parallelism with tensor parallelism is not ported "
+                "({})".format(_SEQ_ITEM))
+        sp = sequence_parallel.context(self.mesh)
+        self.module.set_sequence_parallel(sp)
+        return sp
+
+    def _check_onebit(self):
+        """1-bit Adam with ZeRO or over model ranks is not ported; on its
+        pure data-parallel path the optimizer exchanges over the data
+        group."""
+        if not isinstance(self.optimizer, OnebitAdam):
+            return
+        if self.zero_optimization():
+            raise NotImplementedError(
+                "1-bit Adam with ZeRO stage {} is not ported ({})".format(
+                    self.zero_optimization_stage(), _ONEBIT_ITEM))
+        if self.mp_world_size > 1:
+            raise NotImplementedError(
+                "1-bit Adam over {} tensor-parallel ranks is not ported ({})"
+                .format(self.mp_world_size, _ONEBIT_ITEM))
+        if self._onebit_eligible():
+            self.optimizer.group = self.dp_group
+
+    def _onebit_eligible(self):
+        """The compressed exchange (module docstring): 1-bit Adam over pure
+        data-parallel ranks."""
+        return isinstance(self.optimizer, OnebitAdam) and \
+            self.dp_world_size > 1 and self.mesh.size == self.dp_world_size \
+            and not self.zero_optimization() and \
+            not self.sparse_gradients_enabled()
+
+    def _onebit_compressed(self):
+        """Past the freeze on the compressed path: local gradients, no
+        dense all-reduce."""
+        return self._onebit_eligible() and not self.enable_backward_allreduce
+
+    def _warn_onebit_clip_once(self, clip):
+        if clip > 0.0 and not getattr(self, "_onebit_clip_warned", False):
+            self._onebit_clip_warned = True
+            logger.warning(
+                "1-bit Adam compressed phase ignores gradient_clipping=%s: "
+                "clipping applies only during warmup; the quantization "
+                "scale bounds the exchanged update instead.", clip)
+
+    def _configure_checkpointing(self):
+        """An ``activation_checkpointing`` block configures the module
+        (with the grid, for ``partition_activations``); without the block
+        a caller's own ``configure`` stands."""
+        from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+            checkpointing)
+        from deepspeed_tpu_torch.runtime.activation_checkpointing.config \
+            import ACT_CHKPT
+        if ACT_CHKPT not in self._config._param_dict:
+            return
+        cfg = self._config.activation_checkpointing_config
+        checkpointing.configure(
+            partition_activations=cfg.partition_activations,
+            contiguous_checkpointing=cfg.contiguous_memory_optimization,
+            num_checkpoints=cfg.number_checkpoints,
+            checkpoint_in_cpu=cfg.cpu_checkpointing,
+            synchronize=cfg.synchronize_checkpoint_boundary,
+            profile=cfg.profile, mesh_=self.mesh)
 
     def _configure_with_arguments(self, args, config_params):
         config_file = getattr(args, "deepspeed_config", None) if args \
@@ -397,6 +563,9 @@ class DeepSpeedEngine(object):
 
     def sparse_gradients_enabled(self):
         return self._config.sparse_gradients_enabled
+
+    def pld_enabled(self):
+        return self._config.pld_enabled
 
     def zero_gathers(self):
         """Stage-3 parameter gathers so far (0 before the partition is
@@ -558,7 +727,8 @@ class DeepSpeedEngine(object):
             self.zero_optimization_stage(), self.dp_group,
             self.compute_dtype, zc.reduce_bucket_size,
             zc.allgather_bucket_size, sparse=self._sparse,
-            skip_dims=self._tp.dims if self._tp is not None else None)
+            skip_dims=self._tp.dims if self._tp is not None else None,
+            seq_group=self.sp_group if self._sp is not None else None)
         if self.optimizer is not None:
             self.opt_state = self.optimizer.init_state(self._zero.master)
 
@@ -587,6 +757,13 @@ class DeepSpeedEngine(object):
                     **{k: v for k, v in params.items()
                        if k in _HOST_LAMB_KEYS})
             return FusedLamb(params=self._params, **params)
+        if name == ONEBIT_ADAM_OPTIMIZER:
+            if self.zero_cpu_offload():
+                raise ValueError(
+                    "zero_optimization.cpu_offload requires an Adam/AdamW "
+                    "optimizer (got {}); the host tier is DeepSpeedCPUAdam"
+                    .format(name))
+            return OnebitAdam(params=self._params, deepspeed=self, **params)
         raise ValueError("Unknown optimizer: {}".format(name))
 
     def _offload_mode(self):
@@ -681,6 +858,8 @@ class DeepSpeedEngine(object):
             self.timers("forward").start()
         inputs = tuple(self._to_device(x) for x in inputs)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
+        if self.progressive_layer_drop is not None:
+            kwargs.update(self.progressive_layer_drop.get_state())
         self._ensure_zero()
         if self.training and self._stream_grads_active():
             self._begin_streaming()
@@ -693,6 +872,12 @@ class DeepSpeedEngine(object):
                 not x.is_floating_point() and x.dtype != torch.bool)
         if self.training and pg_correctness_test:
             self._pg_inputs.append(tuple(x.detach().cpu() for x in inputs))
+        if self._sp is not None:
+            # This rank's token shard (the batch is its data rank's).
+            n, r = self._sp.size, self._sp.rank
+            inputs = tuple(mesh_lib.seq_shard(x, n, r) for x in inputs)
+            kwargs = {k: mesh_lib.seq_shard(v, n, r)
+                      for k, v in kwargs.items()}
         if not self.training:
             with torch.no_grad():
                 out = self._run_module(inputs, kwargs)
@@ -861,10 +1046,11 @@ class DeepSpeedEngine(object):
     @torch.no_grad()
     def allreduce_gradients(self, bucket_size=MEMORY_OPT_ALLREDUCE_SIZE):
         """Average every ``.grad`` over the data group (stage 0 / ZeRO off,
-        at the accumulation boundary): dense leaves in flat buckets of
-        ``bucket_size`` elements, embedding tables under
-        ``sparse_gradients`` through the (row, value) exchange."""
-        if self.dp_world_size <= 1:
+        at the accumulation boundary), under sequence parallelism over the
+        seq line first: dense leaves in flat buckets of ``bucket_size``
+        elements, embedding tables under ``sparse_gradients`` through the
+        (row, value) exchange."""
+        if self.dp_world_size <= 1 and self._sp is None:
             return
         for p in self._params:
             if p.grad is None:
@@ -874,9 +1060,11 @@ class DeepSpeedEngine(object):
         for start, end in comm.buckets([p.numel() for p in dense],
                                        bucket_size):
             chunk = dense[start:end]
-            flat = comm.all_reduce(torch.cat(
-                [p.grad.reshape(-1).float() for p in chunk]), self.dp_group,
-                mean=True)
+            flat = torch.cat([p.grad.reshape(-1).float() for p in chunk])
+            if self._sp is not None:
+                comm.all_reduce(flat, self.sp_group, mean=True)
+            if self.dp_world_size > 1:
+                comm.all_reduce(flat, self.dp_group, mean=True)
             off = 0
             for p in chunk:
                 p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
@@ -974,6 +1162,9 @@ class DeepSpeedEngine(object):
         gas = self.gradient_accumulation_steps()
         if self._zero is not None:
             self._zero.suspended = True
+        if self._sp is not None:
+            # The reference runs serially over the full sequences.
+            self.module.set_sequence_parallel(None)
         try:
             with torch.enable_grad():
                 for step in range(len(records)):
@@ -988,6 +1179,8 @@ class DeepSpeedEngine(object):
         finally:
             if self._zero is not None:
                 self._zero.suspended = False
+            if self._sp is not None:
+                self.module.set_sequence_parallel(self._sp)
         tol = 1e-4 if self.compute_dtype == torch.float32 else 2e-2
         for i, (name, g) in enumerate(zip(self._names, grads)):
             want = ref[name].grad
@@ -1012,6 +1205,10 @@ class DeepSpeedEngine(object):
         if inv_scale != 1.0:
             torch._foreach_mul_(grads, inv_scale)
         clip = self.gradient_clipping()
+        if self._onebit_compressed():
+            # The compressed phase works on unclipped local gradients.
+            self._warn_onebit_clip_once(clip)
+            clip = 0.0
         if clip > 0.0:
             norm = self._global_norm(grads, skip)
             torch._foreach_mul_(grads, torch.clamp(clip / (norm + 1e-6),
@@ -1031,7 +1228,8 @@ class DeepSpeedEngine(object):
         if self._zero is not None:
             grads = self._reduce_partitioned()
         elif not streamed:
-            self.allreduce_gradients()
+            if not self._onebit_compressed():
+                self.allreduce_gradients()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in self._params]
         overflow = False
@@ -1071,10 +1269,17 @@ class DeepSpeedEngine(object):
                 self._report_progress(self.global_steps + 1)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
+        self._notify_optimizer()
         self.zero_grad()
         self._streamed = None
         self._stream_token = None
         self._tensorboard_step_events()
+
+    def _notify_optimizer(self):
+        """1-bit Adam's freeze bookkeeping, by the updates applied (an fp16
+        overflow skip does not count)."""
+        if hasattr(self.optimizer, "notify_step"):
+            self.optimizer.notify_step(self.global_steps - self.skipped_steps)
 
     def step(self, lr_kwargs=None):
         """The weight update, at gradient-accumulation boundaries."""
@@ -1087,6 +1292,8 @@ class DeepSpeedEngine(object):
             self.timers("step").start()
         boundary = self.is_gradient_accumulation_boundary()
         if boundary:
+            if self.progressive_layer_drop is not None:
+                self.progressive_layer_drop.update_state(self.global_steps)
             self._take_model_step(lr_kwargs)
         self.tput_timer.stop()
         if breakdown:
@@ -1222,7 +1429,25 @@ class DeepSpeedEngine(object):
             return self._zero.shard_of(i, full)
         return full
 
-    def _optimizer_state_for_save(self, shards=False):
+    def _onebit_error_rows(self):
+        """1-bit Adam's error buffers in the JAX layout, {key: per leaf}: on
+        the compressed path every rank's row gathered into ``[W, ...]``
+        (collective), else the rank's own buffers; None without them."""
+        if self.opt_state is None or "worker_error" not in self.opt_state:
+            return None
+        out = {}
+        for key in ("worker_error", "server_error"):
+            bufs = self.opt_state[key]
+            if not self._onebit_eligible():
+                out[key] = bufs
+                continue
+            sizes = [b.numel() for b in bufs]
+            every = comm.all_gather(torch.cat(bufs), self.dp_group).view(
+                self.dp_world_size, -1)
+            out[key] = [part for part in torch.split(every, sizes, dim=1)]
+        return out
+
+    def _optimizer_state_for_save(self, shards=False, onebit_rows=None):
         """{"state": step and moments as flax trees of numpy arrays (None
         before an offload step built them), the optimizer's param_groups,
         and under offload "fp32_master", the flat host master in JAX's
@@ -1239,6 +1464,8 @@ class DeepSpeedEngine(object):
                                  self._full(self.opt_state["exp_avg"])),
                 "exp_avg_sq": _nest(self._names,
                                     self._full(self.opt_state["exp_avg_sq"]))}
+            for key, rows in (onebit_rows or {}).items():
+                sd["state"][key] = _nest(self._names, rows)
         if self._offload is not None:
             # Resuming keeps full master precision (the bf16 module
             # parameters would drift the trajectory).
@@ -1256,16 +1483,18 @@ class DeepSpeedEngine(object):
         save_path = self._get_ckpt_name(save_dir, tag)
         ensure_directory_exists(save_path)
         self._ensure_zero()
-        # Rank 0 of the data and model lines writes the shared files.
-        first = self.dp_rank == 0 and self.mp_rank == 0
+        # Rank 0 of the data, model and seq lines writes the shared files.
+        first = self.dp_rank == 0 and self.mp_rank == 0 and self.sp_rank == 0
         zero = self.zero_optimization()
         # Elastic per-rank files at mp 1; over a model axis the zero file
         # holds the full state.
         elastic = self._zero is not None and self.zero_elastic_checkpoint() \
             and self._tp is None
+        onebit_rows = self._onebit_error_rows()  # collective
         optimizer = None
         if self.optimizer is not None and (first or elastic):
-            optimizer = self._optimizer_state_for_save(shards=elastic)
+            optimizer = self._optimizer_state_for_save(
+                shards=elastic, onebit_rows=onebit_rows)
         elif (self._zero is not None or self._tp is not None) and \
                 self.optimizer is not None:
             self._optimizer_state_for_save(shards=False)  # collective
@@ -1290,8 +1519,8 @@ class DeepSpeedEngine(object):
                 state.update(client_state)
             with open(save_path, "wb") as f:
                 pickle.dump(state, f)
-        if zero and elastic:
-            # One file per rank, each written by its rank.
+        if zero and elastic and self.sp_rank == 0:
+            # One file per data rank, each written by its rank.
             shards = optimizer.pop("state")
             with open(self._get_zero_ckpt_name(save_dir, tag, self.dp_rank),
                       "wb") as f:
@@ -1369,6 +1598,7 @@ class DeepSpeedEngine(object):
                 for key in ("exp_avg", "exp_avg_sq"):
                     for name, t in zip(self._names, self.opt_state[key]):
                         t.copy_(_host_leaf(saved[key], name))
+            self._load_onebit_errors(saved)
             self.opt_state["step"] = int(np.asarray(saved["step"]))
             self.optimizer.load_state_dict(opt_sd)
         if load_lr_scheduler_states and self.lr_scheduler is not None and \
@@ -1382,9 +1612,27 @@ class DeepSpeedEngine(object):
         self.skipped_steps = checkpoint.get("skipped_steps", 0)
         self.micro_steps = \
             self.global_steps * self.gradient_accumulation_steps()
+        # A resume past the freeze compresses from its first step.
+        self._notify_optimizer()
         client_state = {k: v for k, v in checkpoint.items()
                         if k not in _DEEPSPEED_STATES}
         return load_path, client_state
+
+    def _load_onebit_errors(self, saved):
+        """1-bit Adam's error buffers from a saved state of either package:
+        this rank's row of a ``[W, ...]`` leaf on the compressed path (row 0
+        elsewhere, the JAX package's degenerate path), a 1-D leaf as it
+        is."""
+        if "worker_error" not in self.opt_state or \
+                "worker_error" not in saved:
+            return
+        row = self.dp_rank if self._onebit_eligible() else 0
+        for key in ("worker_error", "server_error"):
+            for name, t in zip(self._names, self.opt_state[key]):
+                leaf = _host_leaf(saved[key], name)
+                if leaf.dim() == 2:
+                    leaf = leaf[row]
+                t.copy_(leaf.view_as(t))
 
 
 def _fold_seed(seed, rank):

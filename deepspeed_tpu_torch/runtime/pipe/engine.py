@@ -23,7 +23,8 @@ interprets its own stage's stream of the same schedules
   the stages that hold a copy (the JAX engine sums the uses of one aliased
   tree). The copies start equal (broadcast from the first such stage at
   build) and get the same updates.
-- ``ReduceGrads``: the data group's mean (``allreduce_gradients``).
+- ``ReduceGrads``: the data group's mean (``allreduce_gradients``); none
+  in 1-bit Adam's compression phase.
 - ``OptimizerStep``: the fp16 overflow flag agreed over the world, the
   clipping norm over the model and pipe groups (each tied copy counted on
   its first stage only), then the stage's update.
@@ -43,8 +44,14 @@ Checkpoints have the JAX engine's per-layer layout: a
 (a tied key's file at each of its indices), the optimizer states of every
 layer as one list in ``zero_pp_rank_0_mp_rank_00optim_states.pt``, and
 the meta file ``mp_rank_00_model_states.pt``; they load at another stage
-count and in the other package. ZeRO stages 1-3 and 1-bit Adam are not
-taken with a pipeline (ROADMAP Queue 1 items 8 and 9).
+count and in the other package. ZeRO stages 1-3 are not taken with a
+pipeline (ROADMAP Queue 1 item 8).
+
+1-bit Adam over a pipeline's data ranks (JAX ``_onebit_pp_capable``: data
+ranks within the stage, no model ranks): warm-up as usual, then each stage
+exchanges its layers' momenta compressed over its data group and skips
+``ReduceGrads``; the error buffers go into the per-layer optimizer file in
+the JAX layout (``[W, padded]`` rows).
 """
 
 import inspect
@@ -61,6 +68,7 @@ from deepspeed_tpu_torch.parallel import comm
 from deepspeed_tpu_torch.parallel import mesh as mesh_lib
 from deepspeed_tpu_torch.runtime.engine import (DeepSpeedEngine, _nest,
                                                 setup_placement)
+from deepspeed_tpu_torch.runtime.fp16.onebit_adam import OnebitAdam
 from deepspeed_tpu_torch.runtime.pipe import p2p
 from deepspeed_tpu_torch.runtime.pipe import schedule as sched
 from deepspeed_tpu_torch.runtime.pipe.module import (PipelineModule,
@@ -296,6 +304,7 @@ class PipelineEngine(DeepSpeedEngine):
                                       self.stage_id), data_iter, True)
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
+        self._notify_optimizer()
         self.tput_timer.stop()
         self._last_loss = torch.tensor(self.agg_loss)
         self._tensorboard_step_events()
@@ -517,8 +526,14 @@ class PipelineEngine(DeepSpeedEngine):
                 p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
                 off += p.numel()
 
+    def _onebit_eligible(self):
+        """1-bit Adam's compressed exchange over the stage's data ranks."""
+        return isinstance(self.optimizer, OnebitAdam) and \
+            self.dp_world_size > 1 and self.mp_world_size == 1
+
     def _exec_reduce_grads(self, cmd):
-        self.allreduce_gradients()
+        if not self._onebit_compressed():
+            self.allreduce_gradients()
 
     @torch.no_grad()
     def _exec_optimizer_step(self, cmd):
@@ -569,6 +584,7 @@ class PipelineEngine(DeepSpeedEngine):
             tag = "global_step{}".format(self.global_steps)
         ckpt_dir = os.path.join(save_dir, str(tag))
         writer = self.dp_rank == 0 and self.mp_rank == 0
+        onebit_rows = self._onebit_error_rows()  # collective
         states = {}
         for idx in sorted(self._layer_params):
             if not self._layer_params[idx]:
@@ -581,6 +597,8 @@ class PipelineEngine(DeepSpeedEngine):
                     "exp_avg_sq": self._layer_full(
                         idx, self.opt_state["exp_avg_sq"]),
                     "step": np.asarray(self.opt_state["step"], np.int32)}
+                for key, rows in (onebit_rows or {}).items():
+                    states[idx][key] = self._layer_full(idx, rows)
             if writer:
                 path = self.pipe_module.ckpt_layer_path(ckpt_dir, idx)
                 ensure_directory_exists(path)
@@ -659,12 +677,23 @@ class PipelineEngine(DeepSpeedEngine):
                     for key in ("exp_avg", "exp_avg_sq"):
                         self.opt_state[key][i].copy_(
                             self._local_leaf(i, entry[key], local))
+                    for key in ("worker_error", "server_error"):
+                        if key in entry and key in self.opt_state:
+                            leaf = self._local_leaf(i, entry[key], local)
+                            if leaf.dim() == 2:
+                                leaf = leaf[self.dp_rank if
+                                            self._onebit_eligible() else 0]
+                            self.opt_state[key][i].copy_(leaf)
                 self.opt_state["step"] = int(np.asarray(entry["step"]))
         with open(os.path.join(ckpt_dir, META_FILE), "rb") as f:
             meta = pickle.load(f)
         self.global_steps = meta.get("global_steps", 0)
         self.global_samples = meta.get("global_samples", 0)
         self.skipped_steps = meta.get("skipped_steps", 0)
+        if isinstance(self.optimizer, OnebitAdam):
+            # The phase follows the loaded step count, both ways.
+            self.optimizer.load_state_dict({"adam_freeze_key": False})
+        self._notify_optimizer()
         if self.lr_scheduler and meta.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
         return ckpt_dir, {k: v for k, v in meta.items() if k not in (

@@ -83,12 +83,15 @@ class ZeroPartition(object):
     """The partitioned state of one engine (module docstring). ``params``
     are the module's parameters (fp32 on entry); ``sparse`` the indices of
     the leaves the engine exchanges as (row, value) pairs; ``skip_dims``
-    per leaf the dim its ZeRO partition must not take (or None)."""
+    per leaf the dim its ZeRO partition must not take (or None);
+    ``seq_group`` the seq line whose mean the gradients take before their
+    reduction over the data group (sequence parallelism)."""
 
     def __init__(self, module, params, stage, group, compute_dtype,
                  reduce_bucket_size, allgather_bucket_size, sparse=(),
-                 skip_dims=None):
+                 skip_dims=None, seq_group=None):
         self.module = module
+        self.seq_group = seq_group
         self.params = list(params)
         self.stage = stage
         self.group = group
@@ -220,6 +223,9 @@ class ZeroPartition(object):
                 self._rows(self.acc[i], d).reshape(rows, -1))
             self.acc[i] = None
             off += n
+        if self.seq_group is not None:
+            # Sequence parallelism: the mean over the token shards first.
+            comm.all_reduce(flat, self.seq_group, mean=True)
         return flat
 
     def _reduce_whole(self, idx):

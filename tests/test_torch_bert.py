@@ -178,10 +178,17 @@ def test_config_sizes_and_unported_paths():
             [getattr(theirs, f) for f in fields]
         assert ours.num_params() == theirs.num_params()
     ids = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        BertForPreTraining(_port_config(sequence_parallel_axis="seq",
-                                        use_fused_layer=False),
-                           device="cpu")(ids)
+    # Sequence-shardable without a seq line: serial (the JAX model outside
+    # shard_map), the plain model's logits.
+    plain = BertForPreTraining(_port_config(use_fused_layer=False),
+                               device="cpu")
+    sharded = BertForPreTraining(_port_config(sequence_parallel_axis="seq",
+                                              use_fused_layer=False),
+                                 device="cpu")
+    sharded.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(sharded(ids)[0], plain(ids)[0], rtol=0,
+                                   atol=0)
     # The JAX package's configuration errors, in its order.
     for over, match in (({"sequence_parallel_axis": "seq"}, "sequence_par"),
                         ({"sparse_attention_config": object()},

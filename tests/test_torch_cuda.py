@@ -21,7 +21,12 @@ per-engine launch counts, and the fleet's handoff and prefix-row records
 round-tripping on live pools; then ZeRO-Offload: an offload step (also
 with stream_gradients) on the card against the same on the CPU, the bf16
 parameters as the host op's rounded master, and flash_attention_with_lse's
-backward through its lse.
+backward through its lse; then sequence parallelism and 1-bit Adam over
+two gloo ranks on cuda:0: ring and Ulysses attention (K1/K2 on each block
+with the global lse) against dense attention, the compressed all-reduce
+against its numpy reference, a sequence-parallel GPT-2 step against one
+process and a 1-bit run against the CPU; and activation checkpointing's
+bit-equal gradients on the card.
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -2003,3 +2008,179 @@ def test_two_rank_gloo_pipeline_step_on_the_card(cuda, tmp_path):
                 got["h_{}.{}.{}.{}".format(i, a, b, k)] = blk[a][b][k]
     np.testing.assert_array_equal(layers[4]["wte"], layers[0]["wte"])
     _masters_held(got, masters)
+
+
+def _ring_inputs(T, seed, H=4):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(2, H, T, 64).astype(np.float32)
+                   for _ in range(4))
+    mask = np.where(rng.rand(2, T) > 0.2, 0.0, -1e9).astype(np.float32)
+    mask[:, 0] = 0.0
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 3e-2)])
+def test_two_rank_gloo_ring_and_ulysses_on_the_card(cuda, tmp_path, dtype,
+                                                    tol):
+    """Ring and Ulysses attention over two ranks on cuda:0 over gloo, their
+    blocks on K1 and K2 fed the global lse and delta: the gathered output
+    and dq, dk, dv within ``tol`` of each tensor's max-abs of autograd
+    through the plain dense attention (fp32 on the CPU, from the same
+    inputs rounded to ``dtype``), and the launches of the schedule: the
+    causal ring's rank 0 runs one block a call, rank 1 two; the full ring
+    two on each; Ulysses one."""
+    from deepspeed_tpu_torch.ops.transformer.kernels.attention import (
+        mha_reference)
+    from tests.torch_dist_worker import run_ranks
+
+    cases = []
+    for i, (mode, causal, masked, T) in enumerate((
+            ("ring", True, False, 256), ("ring", False, True, 200),
+            ("ulysses", True, False, 256), ("ulysses", False, True, 256))):
+        q, k, v, do, mask = _ring_inputs(T, i)
+        cases.append(dict(name=str(i), mode=mode, causal=causal, sp=2, q=q,
+                          k=k, v=v, do=do, mask=mask if masked else None))
+    ranks = run_ranks(2, [dict(name="r", kind="ring", cases=cases,
+                               device="cuda:0", dtype=dtype)],
+                      str(tmp_path / "w"))
+    rounded = getattr(torch, dtype)
+    for c in cases:
+        leaves = [torch.from_numpy(c[n]).to(rounded).float().requires_grad_()
+                  for n in ("q", "k", "v")]
+        mask = None if c["mask"] is None else torch.from_numpy(c["mask"])
+        ref = mha_reference(*leaves, mask=mask, causal=c["causal"])
+        want = [ref] + list(torch.autograd.grad(ref, leaves, torch.from_numpy(
+            c["do"]).to(rounded).float()))
+        T = c["q"].shape[2]
+        for r in ranks:
+            got = r["r"][c["name"]]
+            sl = slice(got["sp_rank"] * T // 2, (got["sp_rank"] + 1) * T // 2)
+            for g, w in zip([got["o"]] + got["grads"], want):
+                w = w.detach().numpy()[:, :, sl]
+                np.testing.assert_allclose(g, w, rtol=0,
+                                           atol=tol * np.abs(w).max())
+            n = got["launches"]
+            blocks = 1 if c["mode"] == "ulysses" else \
+                (got["sp_rank"] + 1 if c["causal"] else 2)
+            assert n["flash_fwd"] == blocks
+            assert n["flash_bwd_fused"] + n["flash_bwd_split"] // 2 == blocks
+
+
+def _numpy_compressed(buffers, werr, serr):
+    """The reference exchange for W workers (numpy)."""
+    w, n = buffers.shape
+    chunk = n // w
+    comp = buffers + werr
+    scales = np.linalg.norm(comp, axis=1) / np.sqrt(n)
+    signs = np.where(comp >= 0, 1.0, -1.0)
+    new_we = comp - scales[:, None] * signs
+    out, new_se = np.zeros(n), np.zeros_like(serr)
+    for r in range(w):
+        sm = np.mean(signs[:, r * chunk:(r + 1) * chunk] * scales[:, None],
+                     axis=0) + serr[r]
+        ss = np.linalg.norm(sm) / np.sqrt(chunk)
+        sign = np.where(sm >= 0, 1.0, -1.0)
+        new_se[r] = sm - ss * sign
+        out[r * chunk:(r + 1) * chunk] = ss * sign
+    return out, new_we, new_se
+
+
+def test_two_rank_gloo_compressed_allreduce_on_the_card(cuda, tmp_path):
+    """The 1-bit exchange on cuda:0 tensors over two gloo ranks: the
+    averages and both error buffers within 1e-6 of each tensor's max-abs
+    of the numpy reference."""
+    from deepspeed_tpu_torch.runtime.custom_collectives import corrected_size
+    from tests.torch_dist_worker import run_ranks
+
+    rng = np.random.RandomState(1)
+    inp = {"buffers": [], "worker_errors": [], "server_errors": []}
+    for n in (corrected_size(1000, 2), corrected_size(48, 2)):
+        inp["buffers"].append(rng.randn(2, n).astype(np.float32))
+        inp["worker_errors"].append((rng.randn(2, n) * .1).astype(np.float32))
+        inp["server_errors"].append((rng.randn(2, n // 2) * .1).astype(
+            np.float32))
+    ranks = run_ranks(2, [dict(name="c", kind="compressed", device="cuda:0",
+                               **inp)], str(tmp_path / "w"))
+    for i in range(2):
+        out, we, se = _numpy_compressed(*(inp[k][i] for k in (
+            "buffers", "worker_errors", "server_errors")))
+        for r, rank in enumerate(ranks):
+            got = rank["c"]
+            for g, w in ((got["out"][i], out), (got["we"][i], we[r]),
+                         (got["se"][i], se[r])):
+                np.testing.assert_allclose(g, w, rtol=0,
+                                           atol=1e-6 * np.abs(w).max())
+
+
+def test_two_rank_gloo_sequence_parallel_and_onebit_steps_on_the_card(
+        cuda, tmp_path):
+    """GPT-2 (width 128, 2 heads of 64) trained with its tokens split over
+    two ranks on cuda:0 (the ring over K1/K2): every step's loss within
+    1e-5 relative of one process on the card; and 1-bit Adam over two data
+    ranks through its freeze, every loss within 1e-5 relative of the same
+    two ranks on the CPU (at lr 1e-5: an element whose compensated momentum
+    is within fp32 noise of 0 may take the other sign on the card, a whole
+    step the other way, which must move the loss by less than the bound)."""
+    from tests.torch_dist_worker import run_ranks
+
+    params = _mp_params()
+    ids = np.random.RandomState(0).randint(0, 1024, size=(4, 64))
+    sp_cfg = dict(_MP_CONFIG, sequence_parallel={"enabled": True,
+                                                  "size": 2})
+    onebit = {"train_batch_size": 4, "steps_per_print": 1000,
+              "optimizer": {"type": "OneBitAdam", "params": {
+                  "lr": 1e-5, "eps": 1e-3, "freeze_step": 2}}}
+    width = {k: v for k, v in _MP_WIDTH.items()}
+    tasks = [dict(name="sp", kind="sp_train", model="gpt2", gpt2_cfg=width,
+                  cfg={"sequence_parallel_axis": "seq"}, params=params,
+                  config=sp_cfg, batches=[(ids, ids)] * 3, device="cuda:0",
+                  fp32_compute=True),
+             dict(name="ob", kind="onebit", model="gpt2", gpt2_cfg=width,
+                  params=params, config=onebit, fp32_compute=True,
+                  batches=[(ids, ids)] * 4, device="cuda:0")]
+    ranks = run_ranks(2, tasks, str(tmp_path / "w"))
+    cpu = run_ranks(2, [dict(tasks[1], device="cpu")], str(tmp_path / "c"))
+    want, _ = _mp_reference(cuda, params, [(ids, ids)] * 3, 1)
+    for r, c in zip(ranks, cpu):
+        np.testing.assert_allclose(r["sp"]["losses"], want, rtol=1e-5)
+        np.testing.assert_allclose(r["ob"]["losses"], c["ob"]["losses"],
+                                   rtol=1e-5)
+        assert r["ob"]["frozen"][-1] == (True, False)
+
+
+def test_checkpointed_gpt2_blocks_bit_equal_on_the_card(cuda, monkeypatch):
+    """Two GPT-2 blocks (width 128, dropout 0.1) through
+    ``checkpointing.checkpoint``, with and without ``cpu_checkpointing``:
+    every gradient bit-equal to the plain stack's (K2b, whose sums have a
+    fixed order; K2a adds dq by atomics)."""
+    from deepspeed_tpu_torch.models import GPT2Config, GPT2LMHeadModel
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+        checkpointing)
+
+    monkeypatch.setenv("DS_TPU_FLASH_BWD", "split")
+    cfg = GPT2Config(dtype=torch.bfloat16, **dict(_MP_WIDTH, dropout=0.1))
+    model = GPT2LMHeadModel(cfg, device=cuda).requires_grad_(True)
+    x0 = torch.randn(2, 64, cfg.n_embd, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0)).to(
+                         torch.bfloat16)
+    try:
+        grads = []
+        for run in ("plain", "ckpt", "cpu"):
+            checkpointing.configure(checkpoint_in_cpu=run == "cpu")
+            for p in model.parameters():
+                p.grad = None
+            x = x0.clone().requires_grad_()
+            h = x
+            for blk, seed in zip(model.blocks(), (3, 4)):
+                h = blk(h, cfg, seed) if run == "plain" else \
+                    checkpointing.checkpoint(blk, h, cfg, seed)
+            h.float().square().sum().backward()
+            grads.append([x.grad] + [p.grad.clone() for p in
+                                     model.parameters() if p.grad is not None])
+        for other in grads[1:]:
+            assert len(other) == len(grads[0]) > 1
+            for a, b in zip(grads[0], other):
+                assert torch.equal(a, b)
+    finally:
+        checkpointing.configure(checkpoint_in_cpu=False)

@@ -139,8 +139,8 @@ def test_zero_partition_dims_follow_jax_zero_shardings(stage):
 
 def test_rank_layout_and_refusals():
     """The grid puts every rank on the data axis by default (model
-    innermost as in JAX ``build_mesh``); a model axis above 1 is taken, a
-    seq axis above 1 names its ROADMAP item."""
+    innermost as in JAX ``build_mesh``); model and seq axes above 1 are
+    taken, in JAX's rank order."""
     grid = tmesh.build_mesh(world_size=4, rank=2)
     assert grid.shape == {"pipe": 1, "data": 4, "seq": 1, "model": 1}
     assert grid.dp_rank == 2 and grid.data_line() == [0, 1, 2, 3]
@@ -151,8 +151,9 @@ def test_rank_layout_and_refusals():
     mp_grid = tmesh.build_mesh(world_size=4, rank=3, num_mp=2)
     assert (mp_grid.dp_rank, mp_grid.mp_rank) == (1, 1)
     assert mp_grid.line("model") == [2, 3] and mp_grid.data_line() == [1, 3]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmesh.build_mesh(world_size=4, rank=0, num_sp=2)
+    sp_grid = tmesh.build_mesh(world_size=4, rank=3, num_sp=2)
+    assert (sp_grid.dp_rank, sp_grid.sp_rank) == (1, 1)
+    assert sp_grid.line("seq") == [2, 3] and sp_grid.data_line() == [1, 3]
     with pytest.raises(ValueError):
         tmesh.build_mesh(world_size=4, rank=0, num_dp=3)
 

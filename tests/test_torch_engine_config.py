@@ -3,10 +3,11 @@
 A config written for the JAX package parses to the same batch triangle,
 precision, clipping, optimizer, scheduler, loss-scale arguments, ZeRO stage
 and offload switches, timer and tensorboard switches and sparse-attention
-block. A key that switches on a subsystem the port does not have yet
-raises NotImplementedError (its default still parses), as does a world
-size other than 1, and the training entry point refuses the CPU unless
-asked for it.
+block, and the slice-17 blocks (OneBitAdam, sequence_parallel,
+progressive_layer_drop, activation_checkpointing). A key that switches on a
+subsystem the port does not have yet raises NotImplementedError (its
+default still parses), as does ZeRO-Offload over several ranks, and the
+training entry point refuses the CPU unless asked for it.
 """
 
 import pytest
@@ -86,19 +87,53 @@ def test_parses_as_the_jax_package_does(i):
 
 @pytest.mark.parametrize("extra", [
     {"amp": {"enabled": True}},
-    {"progressive_layer_drop": {"enabled": True}},
-    {"sequence_parallel": {"enabled": True, "size": 2}},
     {"flops_profiler": {"enabled": True}},
     {"pipeline": {"partition": "uniform"}},
-    {"activation_checkpointing": {"partition_activations": True}},
     {"pipeline": {"seed_layers": True}},
-    {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
-    {"activation_checkpointing": {"contiguous_memory_optimization": True}},
 ])
 def test_unported_subsystems_raise(extra):
     cfg = dict({"train_batch_size": 8}, **extra)
     with pytest.raises(NotImplementedError, match="not ported"):
         TConfig(None, param_dict=cfg)
+
+
+# The blocks this slice ports, each with the fields the JAX config reads
+# from it.
+_PORTED_BLOCKS = [
+    ({"progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                 "gamma": 0.01}},
+     ("pld_enabled", "pld_params")),
+    ({"progressive_layer_drop": {"enabled": False}},
+     ("pld_enabled", "pld_params")),
+    ({"sequence_parallel": {"enabled": True, "size": 2}},
+     ("sequence_parallel_enabled", "sequence_parallel_size")),
+    ({"sequence_parallel": {"enabled": True}},
+     ("sequence_parallel_enabled", "sequence_parallel_size")),
+    ({"activation_checkpointing": {"partition_activations": True}},
+     ("activation_checkpointing_config",)),
+    ({"activation_checkpointing": {"contiguous_memory_optimization": True,
+                                   "number_checkpoints": 4,
+                                   "cpu_checkpointing": True}},
+     ("activation_checkpointing_config",)),
+    ({"optimizer": {"type": "OneBitAdam",
+                    "params": {"lr": 1e-3, "freeze_step": 10}}},
+     ("optimizer_name", "optimizer_params")),
+]
+
+
+@pytest.mark.parametrize("i", range(len(_PORTED_BLOCKS)))
+def test_slice_blocks_parse_as_the_jax_package_does(i):
+    """OneBitAdam, sequence_parallel, progressive_layer_drop and
+    activation_checkpointing parse to the JAX config's values."""
+    extra, fields = _PORTED_BLOCKS[i]
+    cfg = dict({"train_batch_size": 8}, **extra)
+    want = JConfig(None, param_dict=dict(cfg), world_size=1)
+    got = TConfig(None, param_dict=dict(cfg))
+    for name in fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "activation_checkpointing_config":
+            a, b = a.repr(), b.repr()
+        assert a == b, name
 
 
 def test_pipeline_engine_keys_parse():

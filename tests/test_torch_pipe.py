@@ -54,6 +54,7 @@ from tests.unit.test_pipe import TiedEmbed as JTiedEmbed
 
 import deepspeed_tpu_torch as tds
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, params_from_jax
+from deepspeed_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -385,11 +386,17 @@ def test_pipe_engine_rejects_forward_backward_step():
 def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 15"):
         _local_engine(compiled=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # 1-bit Adam builds (its compressed path needs data ranks); a pipeline
+    # over a 'seq' axis stays refused.
+    onebit = tds.initialize(model=pipe_module({"layers": "dense"}, 1),
+                            device="cpu", config_params=_config(
+                                {"optimizer": {"type": "OneBitAdam",
+                                               "params": {"lr": 1e-3}}}))[0]
+    assert not onebit._onebit_eligible()
+    with pytest.raises(NotImplementedError, match="item 10"):
         tds.initialize(model=pipe_module({"layers": "dense"}, 1),
-                       device="cpu", config_params=_config(
-                           {"optimizer": {"type": "OneBitAdam",
-                                          "params": {"lr": 1e-3}}}))
+                       device="cpu", config_params=_config(),
+                       mesh=tmesh.Mesh((1, 1, 2, 1), 0, None))
     with pytest.raises(NotImplementedError, match="pipeline.partition"):
         tds.initialize(model=pipe_module({"layers": "dense"}, 1),
                        device="cpu", config_params=_config(

@@ -273,8 +273,10 @@ def test_n_head_not_divisible_by_mp_is_refused():
 
 
 def test_seq_axis_is_refused_model_and_pipe_accepted():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmesh.build_mesh(num_sp=2, world_size=2, rank=0)
+    """Every axis is taken now (the seq axis by sequence parallelism); a
+    pipeline over 'seq' stays refused (test_torch_pipe.py)."""
+    seq = tmesh.build_mesh(num_sp=2, world_size=2, rank=1)
+    assert seq.shape["seq"] == 2 and seq.sp_rank == 1
     mesh = tmesh.build_mesh(num_mp=2, num_pp=2, world_size=8, rank=5)
     assert mesh.shape == {"pipe": 2, "data": 2, "seq": 1, "model": 2}
     assert (mesh.pp_rank, mesh.dp_rank, mesh.mp_rank) == (1, 0, 1)

@@ -127,9 +127,16 @@ def test_gpt2_remat_and_sequence_parallel_switches():
     for (name, a), b in zip(model.named_parameters(), remat.parameters()):
         torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-6,
                                    msg=name)
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        GPT2LMHeadModel(GPT2Config.tiny(sequence_parallel_axis="seq"),
-                        device="cpu")(ids)
+    # A sequence-shardable model without a seq line runs serially (the JAX
+    # model outside shard_map): the same loss as the plain model.
+    sharded = GPT2LMHeadModel(GPT2Config.tiny(
+        dtype=torch.float32, sequence_parallel_axis="seq"), device="cpu")
+    sharded.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(sharded(ids, labels=ids),
+                                   model(ids, labels=ids), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="sequence_parallel_axis"):
+        model.set_sequence_parallel(object())
 
 
 @pytest.mark.parametrize("adam_w_mode", [True, False])

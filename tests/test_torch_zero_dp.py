@@ -442,25 +442,27 @@ def test_offload_over_ranks_is_refused(zero):
 
 
 def test_onebit_adam_over_ranks_is_refused():
+    """1-bit Adam parses over several ranks; with ZeRO it stays refused,
+    naming its ROADMAP item (before any collective: a stand-in group)."""
     cfg = {"train_batch_size": 8,
            "optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}
+    assert TConfig(None, param_dict=cfg, world_size=2).optimizer_name == \
+        "onebitadam"
+    grid = tmesh.Mesh((1, 2, 1, 1), 0, object())
     with pytest.raises(NotImplementedError, match="item 9"):
-        TConfig(None, param_dict=cfg, world_size=2)
+        tds.initialize(model=LinearStack(device="cpu", **DIMS),
+                       config_params=_config(1, 4, 1, {"optimizer": cfg[
+                           "optimizer"]}), device="cpu", mesh=grid)
 
 
-@pytest.mark.parametrize("axis,item", [("num_mp", None),
-                                       ("num_pp", None),
-                                       ("num_sp", "item 10")])
+@pytest.mark.parametrize("axis,item", [("num_mp", "model"),
+                                       ("num_pp", "pipe"),
+                                       ("num_sp", "seq")])
 def test_other_mesh_axes_are_refused(axis, item):
-    """The 'seq' axis is refused naming its ROADMAP item; the 'model' and
-    'pipe' axes are taken (tensor parallelism and the pipeline)."""
-    if item is None:
-        grid = tmesh.build_mesh(world_size=4, rank=0, **{axis: 2})
-        assert grid.shape["data"] == 2
-        assert grid.shape["model" if axis == "num_mp" else "pipe"] == 2
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        tmesh.build_mesh(world_size=4, rank=0, **{axis: 2})
+    """The 'model', 'pipe' and 'seq' axes are all taken now (tensor
+    parallelism, the pipeline, sequence parallelism)."""
+    grid = tmesh.build_mesh(world_size=4, rank=0, **{axis: 2})
+    assert grid.shape["data"] == 2 and grid.shape[item] == 2
 
 
 def test_lamb_and_stage3_remat_over_ranks_are_refused():

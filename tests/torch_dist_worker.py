@@ -92,10 +92,16 @@ def _model(task):
     if kind == "linear":
         return LinearStack(device=device, **task["dims"])
     if kind == "gpt2":
-        cfg = GPT2Config(dtype=torch.float32, **task["gpt2_cfg"]) \
-            if "gpt2_cfg" in task else \
+        cfg = GPT2Config(dtype=torch.float32, **task["gpt2_cfg"],
+                         **task.get("cfg", {})) if "gpt2_cfg" in task else \
             GPT2Config.tiny(dtype=torch.float32, **task.get("cfg", {}))
         return GPT2LMHeadModel(cfg, device=device, seed=None)
+    if kind == "bert":
+        from deepspeed_tpu_torch.models.bert import (BertConfig,
+                                                     BertForPreTraining)
+        return BertForPreTraining(BertConfig.tiny(dtype=torch.float32,
+                                                  **task["cfg"]),
+                                  device=device, seed=None)
     if kind == "embed":
         return EmbedModel()
     if kind == "simple":
@@ -398,11 +404,16 @@ def task_pipe(task, rank, world):
         out["loaded"] = path is not None
         out["loaded_steps"] = engine.global_steps
     batches = [_mine(b, dp_rank, dp) for b in task["batches"]]
+    if task.get("onebit_capture"):
+        out["onebit"] = _capture_frozen_update(engine.optimizer)
+    from deepspeed_tpu_torch.parallel import comm
     for step in range(task["steps"]):
         if task.get("save") and step == task["save_after"]:
             engine.save_checkpoint(task["save"], tag="ck")
         chunk = batches[step * gas:(step + 1) * gas]
+        before = dict(comm.stats)
         out["losses"].append(engine.train_batch(data_iter=iter(chunk)))
+        out.setdefault("step_stats", []).append(_stats_delta(before))
     if task.get("eval"):
         before = [p.detach().clone() for p in engine._params]
         out["eval"] = engine.eval_batch(iter(batches[:gas]))
@@ -433,6 +444,30 @@ def task_pipe(task, rank, world):
     out["launches"] = dict(at.launches)
     dist.barrier()
     return out
+
+
+def _capture_frozen_update(opt):
+    """A dict that gets, at 1-bit Adam's first compressed update, the
+    parameters, gradients and moments before it and the parameters after
+    it (numpy, in the update's parameter order)."""
+    cap = {}
+    real = opt.update
+
+    def spy(params, grads, state, **kw):
+        first = opt.adam_freeze_key and "before" not in cap
+        if first:
+            cap.update(
+                before=[p.detach().float().numpy().copy() for p in params],
+                grads=[g.detach().float().numpy().copy() for g in grads],
+                m=[m.numpy().copy() for m in state["exp_avg"]],
+                v=[v.numpy().copy() for v in state["exp_avg_sq"]])
+        real(params, grads, state, **kw)
+        if first:
+            cap["after"] = [p.detach().float().numpy().copy()
+                            for p in params]
+
+    opt.update = spy
+    return cap
 
 
 def task_tp(task, rank, world):
@@ -518,10 +553,292 @@ def task_refuse_offload(task, rank, world):
     return "not refused"
 
 
-TASKS = {"train": task_train, "env": task_env,
-         "collectives": task_collectives, "freed": task_freed,
+def _stats_delta(before):
+    from deepspeed_tpu_torch.parallel import comm
+    return {k: comm.stats[k] - before.get(k, 0) for k in comm.stats}
+
+
+def task_ring(task, rank, world):
+    """Ring or Ulysses attention on each case of ``task["cases"]`` (global
+    q, k, v, dO and an optional key mask, numpy): this rank's shard of the
+    output and of dq, dk, dv, the collectives it ran, or the error it
+    raised. A case's grid is ``sp`` seq ranks x the rest data ranks (the
+    batch split over 'data')."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import ring_attention as ra
+    from deepspeed_tpu_torch.parallel import comm, sequence_parallel
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh, shard_batch
+
+    from deepspeed_tpu_torch.ops.transformer.kernels import attention as at
+
+    device = task.get("device", "cpu")
+    dtype = getattr(torch, task.get("dtype", "float32"))
+    meshes = {}
+    out = {}
+    for case in task["cases"]:
+        sp = case["sp"]
+        if sp not in meshes:
+            meshes[sp] = build_mesh(num_sp=sp)
+        mesh = meshes[sp]
+        ctx = sequence_parallel.context(mesh)
+
+        def mine(x):  # [B, H, T, D]: batch over 'data', T over 'seq'
+            return torch.from_numpy(np.ascontiguousarray(np.swapaxes(
+                shard_batch(np.swapaxes(x, 1, 2), mesh), 1, 2))).to(
+                    device, dtype)
+
+        q, k, v, do = (mine(case[n]).requires_grad_(n != "do")
+                       for n in ("q", "k", "v", "do"))
+        mask = None if case.get("mask") is None else torch.from_numpy(
+            np.ascontiguousarray(shard_batch(case["mask"], mesh))).to(device)
+        before = dict(comm.stats)
+        at.reset_launches()
+        try:
+            fn = ra.get_sp_attention(case["mode"])
+            o = fn(q, k, v, ctx, causal=case["causal"], mask=mask)
+            fwd = _stats_delta(before)
+            grads = torch.autograd.grad(o, (q, k, v), do)
+        except ValueError as e:
+            out[case["name"]] = {"error": str(e)}
+            continue
+        out[case["name"]] = {
+            "o": o.detach().float().cpu().numpy(),
+            "grads": [g.float().cpu().numpy() for g in grads],
+            "fwd": fwd, "all": _stats_delta(before),
+            "launches": dict(at.launches),
+            "dp_rank": mesh.dp_rank, "sp_rank": mesh.sp_rank}
+    if task.get("helper"):
+        ctx = sequence_parallel.context(meshes[task["helper"]["sp"]])
+        h = task["helper"]
+        out["helper"] = ra.sequence_parallel_attention(
+            ctx, *(torch.from_numpy(h[n]) for n in ("q", "k", "v")),
+            causal=True, mode=h["mode"]).numpy()
+    return out
+
+
+def task_sp_train(task, rank, world):
+    """Train ``task["model"]`` (tiny GPT-2 or BERT, fp32) through
+    ``initialize`` with ``task["config"]`` (its sequence_parallel block
+    shapes the grid) from the flax tree ``task["params"]``: each rank passes
+    its data rank's rows of each global micro-batch of ``task["batches"]``.
+    Returns the losses (``train_batch``'s, or with ``micro`` the forward's
+    loss per micro-step), the reduced gradients of the first update, the
+    full masters, the collectives of one step, an eval loss, or the error
+    ``initialize``/the forward raised."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.runtime import engine as engine_mod
+
+    kw = {}
+    if task.get("mesh"):
+        kw["mesh"] = build_mesh(**task["mesh"])
+    out = {}
+    try:
+        engine, _, _, _ = tds.initialize(
+            model=_model(task), model_parameters=task["params"],
+            config_params=task["config"], device=task.get("device", "cpu"),
+            **kw)
+    except (ValueError, NotImplementedError) as e:
+        dist.barrier()
+        return {"error": str(e)}
+    if task.get("fp32_compute"):
+        engine.compute_dtype = torch.float32
+    real = engine._update
+
+    def spy(grads, inv_scale, skip=()):
+        if "grads" not in out:
+            out["grads"] = {n: (g.detach().float() * inv_scale).cpu()
+                            .numpy().copy()
+                            for n, g in zip(engine._names, grads)}
+        return real(grads, inv_scale, skip)
+
+    engine._update = spy
+    engine_mod.pg_correctness_test = bool(task.get("pg"))
+    dp, dp_rank = engine.dp_world_size, engine.dp_rank
+    losses = []
+    try:
+        for i, batch in enumerate(task["batches"]):
+            local = tuple(None if x is None else torch.from_numpy(
+                np.ascontiguousarray(_mine((x,), dp_rank, dp)[0]))
+                for x in batch)
+            before = dict(comm.stats)
+            if task.get("micro"):
+                loss = engine(*local)
+                engine.backward(loss)
+                engine.step()
+                losses.append(float(comm.all_reduce(
+                    loss.detach().reshape(1).clone(), engine.dp_group,
+                    mean=True)) if dp > 1 else float(loss))
+            else:
+                losses.append(float(engine.train_batch(local)))
+            if i == 0:
+                out["step_stats"] = _stats_delta(before)
+    except (ValueError, NotImplementedError) as e:
+        out["error"] = str(e)
+        dist.barrier()
+        return out
+    finally:
+        engine_mod.pg_correctness_test = False
+    out["losses"] = losses
+    out["skipped"] = engine.skipped_steps
+    out["masters"] = {n: f.cpu().numpy().copy() for n, f in
+                      zip(engine._names, engine._full_masters())}
+    out["coords"] = (engine.dp_rank, engine.sp_rank, engine.sp_world_size)
+    if task.get("eval"):
+        engine.eval()
+        e = task["eval"]
+        loss = engine(*(torch.from_numpy(_mine((x,), dp_rank, dp)[0])
+                        for x in e))
+        out["eval"] = float(loss)
+        engine.train()
+    if task.get("save"):
+        engine.save_checkpoint(task["save"], tag="sp")
+    dist.barrier()
+    return out
+
+
+def task_compressed(task, rank, world):
+    """``compressed_allreduce_many`` of this rank's rows of
+    ``task["buffers"]`` (a list of [W, n] arrays) with its error rows; the
+    averages, the new errors and the collectives it ran."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.custom_collectives import (
+        compressed_allreduce_many)
+
+    def rows(key):
+        return [torch.from_numpy(a[rank].copy()).to(task.get("device", "cpu"))
+                for a in task[key]]
+
+    before = dict(comm.stats)
+    bufs, we, se = rows("buffers"), rows("worker_errors"), \
+        rows("server_errors")
+    outs, we, se = compressed_allreduce_many(bufs, we, se, dist.group.WORLD)
+    result = {"out": [o.cpu().numpy() for o in outs],
+              "we": [w.cpu().numpy() for w in we],
+              "se": [x.cpu().numpy() for x in se],
+              "stats": _stats_delta(before)}
+    # Repeats of the same buffers with the errors fed back: the running
+    # mean of the outputs.
+    total = [o.clone() for o in outs]
+    for _ in range(task.get("repeats", 1) - 1):
+        outs, we, se = compressed_allreduce_many(bufs, we, se,
+                                                 dist.group.WORLD)
+        total = [t + o for t, o in zip(total, outs)]
+    result["mean_out"] = [(t / task.get("repeats", 1)).cpu().numpy()
+                          for t in total]
+    return result
+
+
+def task_onebit(task, rank, world):
+    """1-bit Adam through ``initialize`` over every rank as data ranks:
+    SimpleModel (``task["hidden"]``) or tiny GPT-2 from ``task["params"]``,
+    each rank its rows of each global batch; per step the loss, the phase
+    flag, and the collectives by kind; the full masters and the error
+    buffers at the end; optional save and load."""
+    import torch
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.parallel import comm
+
+    model = _model(task)
+    engine, _, _, _ = tds.initialize(
+        model=model, model_parameters=task.get("params"),
+        config_params=task["config"], device=task.get("device", "cpu"))
+    if task.get("fp32_compute"):
+        engine.compute_dtype = torch.float32
+    out = {"losses": [], "stats": [], "frozen": [],
+           "eligible": engine._onebit_eligible()}
+    if task.get("load"):
+        path, _ = engine.load_checkpoint(task["load"], tag=task.get("tag"))
+        out["loaded"] = path is not None
+        out["after_load"] = (engine.optimizer.adam_freeze_key,
+                             engine.enable_backward_allreduce)
+    dp = engine.dp_world_size
+    for i, batch in enumerate(task["batches"]):
+        if task.get("save") and i == task["save_after"]:
+            engine.save_checkpoint(task["save"], tag="ck")
+        local = tuple(torch.from_numpy(np.ascontiguousarray(x))
+                      for x in _mine(batch, engine.dp_rank, dp))
+        before = dict(comm.stats)
+        out["losses"].append(float(engine.train_batch(local)))
+        out["stats"].append(_stats_delta(before))
+        out["frozen"].append((engine.optimizer.adam_freeze_key,
+                              engine.enable_backward_allreduce))
+    if task.get("save_end"):
+        engine.save_checkpoint(task["save_end"], tag="end")
+    out["masters"] = {n: p.detach().float().cpu().numpy().copy()
+                      for n, p in zip(engine._names, engine._params)}
+    out["errors"] = {k: [t.cpu().numpy().copy() for t in engine.opt_state[k]]
+                     for k in ("worker_error", "server_error")}
+    out["step"] = engine.opt_state["step"]
+    if task.get("rollback"):
+        # Back to an earlier checkpoint under its own schedule.
+        engine.optimizer.freeze_step = task["rollback"]["freeze_step"]
+        engine.load_checkpoint(task["rollback"]["load"])
+        out["after_rollback"] = (engine.optimizer.adam_freeze_key,
+                                 engine.enable_backward_allreduce)
+    dist.barrier()
+    return out
+
+
+def task_ckpt_partition(task, rank, world):
+    """``checkpointing.checkpoint`` with ``partition_activations`` over a
+    model group of ``world`` ranks: each rank's gradients through the
+    checkpointed segment and through the plain one, the shapes the segment
+    saved, and the all-gathers its backward ran."""
+    import torch
+
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+        checkpointing)
+
+    mesh = build_mesh(num_mp=world)
+    checkpointing.configure(partition_activations=True, mesh_=mesh)
+    x, w = (torch.from_numpy(task[k]) for k in ("x", "w"))
+
+    def seg(x, w):
+        return torch.tanh(x @ w).square().sum()
+
+    saved = []
+
+    def pack(t):
+        saved.append(tuple(t.shape))
+        return t
+
+    out = {}
+    for name, fn in (("plain", seg),
+                     ("ckpt", lambda a, b: checkpointing.checkpoint(seg, a,
+                                                                    b))):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        saved.clear()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = fn(xs, ws)
+        before = dict(comm.stats)
+        loss.backward()
+        out[name] = {"grads": [xs.grad.numpy(), ws.grad.numpy()],
+                     "saved": list(saved),
+                     "gathers": comm.stats["all_gather"] -
+                     before.get("all_gather", 0)}
+    checkpointing.configure(partition_activations=False)
+    return out
+
+
+TASKS = {"ckpt_partition": task_ckpt_partition, "train": task_train,
+         "env": task_env, "collectives": task_collectives, "freed": task_freed,
          "pipe": task_pipe, "tp": task_tp,
-         "refuse_offload": task_refuse_offload}
+         "refuse_offload": task_refuse_offload, "ring": task_ring,
+         "sp_train": task_sp_train, "compressed": task_compressed,
+         "onebit": task_onebit}
 
 
 def main(workdir):
