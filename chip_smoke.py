@@ -48,7 +48,7 @@ of which exits non-zero on failure:
    tile past the frontier set to 1e4 and every later tile to NaN, the last
    POISON_CONCURRENT repeats beside K3 launches on a second stream;
 4. serving at full width: GPT-2 medium, bf16, seeded weights, through
-   init_inference; N_REQUESTS (20) requests of 64/256 prompt tokens and
+   init_inference; N_REQUESTS (18) requests of 64/256 prompt tokens and
    96 new tokens;
    each step is its key's program (prefill lane present, any row samples,
    any row filters top-k), captured as a CUDA graph at the key's first
@@ -203,7 +203,7 @@ of which exits non-zero on failure:
    kill: every stream bit-equal to its undisturbed run, none lost, no
    capture on the survivor;
 4k. the adapters (phase_adapters) at GPT-2 medium's widths: MoE
-   (MOE_CFG: 8 layers, for the smoke's time, of 8 experts of d_ff 4096
+   (MOE_CFG: 4 layers, for the smoke's time, of 8 experts of d_ff 4096
    made on the card) and long context
    (LONG_CFG over the model): graph-served equals eager bit for bit;
    MoE routes n_layer x the tokens its programs touched and drops none,
@@ -245,7 +245,9 @@ of which exits non-zero on failure:
    and fall; the kernels' launch counts are reset just before the counted
    steps and read just after, and must equal n_layer x steps (K2b: two per
    layer, in the steps run with the split backward); then a profiler
-   window of 2 steps;
+   window of 2 steps; then the ``amp`` block's step against the bf16
+   block's from the same weights (AMP_LAYERS layers, K2b): bf16 compute,
+   the loss and every master bit for bit (``train_amp``);
 7a. the training breakdown (phase_train_breakdown): the same setting for
    4 steps with wall_clock_breakdown and memory_breakdown on, off and off
    again, from one seed (K2a's dq atomics make its runs differ from step
@@ -332,7 +334,15 @@ of which exits non-zero on failure:
    step of each held the same way (``data_parallel_check``); then one
    ZeRO-2 step as a one-rank NCCL group against the same step without a
    group, and the NCCL reduce-scatter and all-gather on CUDA tensors
-   (``data_parallel_nccl``);
+   (``data_parallel_nccl``). Slice 18's arms in the same rank processes
+   (DP_ARMS, at stage 2 and DP_ARM_LAYERS, all 24 layers): ZeRO-Offload
+   with the host Adam (each rank its partition of the masters and moments
+   on the host), Lamb on the card and Lamb on the host, each a
+   ``data_parallel`` line with its host step's phases, failing unless K1
+   and K2a run 24 times a step on each rank, the ranks' losses agree and
+   each arm ran its optimizer; then each arm's fp32 step (4 layers)
+   against one process, the loss within 1e-5 relative and the masters
+   under the training rule;
 16. model parallelism (phase_model_parallel): MP_RANKS rank processes of
    this script on cuda:0, started by the port's launcher
    (``deepspeed_tpu_torch.launcher.launch``) and joined over gloo, each
@@ -352,11 +362,26 @@ of which exits non-zero on failure:
    the ranks' losses agree; then the fp32 arm (4 layers, width 1024, B4
    T256): a TP step and a PP step (2 micro-batches) each against one
    process on the same card, the loss within 1e-5 relative, the masters
-   under the training rule (``model_parallel_check``);
+   under the training rule (``model_parallel_check``). Slice 18's compiled
+   pipeline in the same rank processes: ``gpt2_pipeline(compiled=True)``
+   at all CP_LAYERS layers (12 blocks a stage, stacked), the same 4
+   micro-batches, MP_WARM then MP_TIMED steps; a ``model_parallel`` line
+   per rank (tokens/s, step ms, peak memory, launches, p2p bytes, graph
+   captures after step 1 and in all, replays a step, allocated bytes after
+   each timed step), failing unless K1 = 96 and K2a = 48 a stage and step
+   (the tick and its recompute), the tick graphs were captured twice in
+   step 1 and never again, replayed 8 times a step, with no growth of the
+   allocated bytes; then the same engine with its graphs against it run
+   eagerly, under K2b at MP_LAYERS layers and dropout CP_DROPOUT,
+   CP_GRAPH_STEPS steps: losses and every parameter bit for bit, and one
+   step at dropout 0 giving another loss (``model_parallel_graph``); then
+   its fp32 check (4 layers) against the interpreter: losses within 1e-5
+   relative, the stage's parameters under the training rule;
 17. sequence parallelism and 1-bit Adam (phase_sequence_parallel):
    SP_RANKS rank processes of this script on cuda:0, started by the port's
    launcher and joined over gloo (SP_TIMEOUT_S): GPT-2 medium bf16 at full
-   width and depth (n_positions SP_T), AdamW 1e-4, dropout 0, one global
+   width, SP_WIDTH's 12 layers (n_positions SP_T), AdamW 1e-4, dropout 0,
+   one global
    B1 x SP_T sequence split into SP_T / 2 tokens a rank through
    ``initialize(config_params={"sequence_parallel": ...})`` and
    ``train_batch``, the ring and then Ulysses, each one warm and one timed
@@ -473,7 +498,7 @@ SERVE = {"max_slots": 16, "max_len": 1024, "chunk_size": 16,
 # N_REQUESTS is more than SERVE's 16 slots, so every serving path queues
 # requests and refills the slots (and pages) that finished ones free; the
 # serving paths' depth, kept so the whole smoke stays inside its limit.
-N_REQUESTS, NEW_TOKENS, PROMPT_LENS = 20, 96, (64, 256)
+N_REQUESTS, NEW_TOKENS, PROMPT_LENS = 18, 96, (64, 256)
 
 # Kernel-vs-plain tolerances, (atol, rtol): each element must satisfy
 # |out - ref| <= atol + rtol * (|ref| + spread), spread = sqrt(sum_t p_t^2
@@ -533,6 +558,8 @@ TRAIN_CONFIG = {"train_batch_size": 8,
                 "bf16": {"enabled": True}}
 TRAIN_B, TRAIN_T = 8, 1024
 TRAIN_WARM, TRAIN_TIMED, TRAIN_SPLIT = 2, 10, 2
+# The amp block's step pair (phase_train): GPT-2 medium's width at 4 layers.
+AMP_LAYERS = 4
 
 # Card-vs-CPU training step, fp32 on both sides: losses within 1e-5
 # relative; each gradient within GRAD_TOL of its tensor's max-abs (the
@@ -677,8 +704,9 @@ SPEC_PATHS = [("serve_spec", SPEC, "decode", "paged", N_REQUESTS, True),
 # The step program's keys: (prefill lane present, any row samples, any row
 # filters top-k); an engine captures one CUDA graph per key it meets.
 MAX_PROGRAMS = 8
-# Graph-served against eager: requests and the steps compared.
-GRAPH_CHECK_REQUESTS, GRAPH_CHECK_STEPS = 8, 12
+# Graph-served against eager: requests and the steps compared (12 steps
+# until the smoke's time limit cut them to 8).
+GRAPH_CHECK_REQUESTS, GRAPH_CHECK_STEPS = 8, 8
 # Fresh seeds per decode kernel in the stress run (ROADMAP Queue 3).
 STRESS_SEEDS = 200
 # The poison run: K3's one mismatch (phase 3's first case, bf16 decode,
@@ -741,7 +769,9 @@ SUSTAINED_LOAD = dict(arrival="poisson", rate=12.0, n_requests=96,
                       seed=17)
 SUSTAINED_WINDOW_S = 2.0
 SUSTAINED_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
-SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 16
+# The saturation sweep's rates and requests a rate (16 until the smoke's
+# time limit cut them to 8: the sweep's arrivals are most of its time).
+SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 8
 # The KV hierarchy (phase_hierarchy): SERVE plus the JAX package's
 # defaults of the prefix tier (8 rows of 64 positions, matches of at least
 # 8) and host offload (8 swapped sessions); HIER_REQUESTS requests over
@@ -3945,11 +3975,12 @@ FD_FLEET_SERVE = dict(FLEET_SERVE, host_offload=True, swap_slots=8,
                       max_queue=FD_PREEMPT_QUEUE)
 FD_PREEMPT_BATCH = FLEET_SERVE["max_slots"]
 # The adapters (phase_adapters) at GPT-2 medium's widths on a dense pool
-# of 16 slots: MoE with 8 experts of d_ff 4096 in each of 8 layers (the
-# depth cut for the smoke's time; about 1.1 GB of bf16 expert stacks), and
+# of 16 slots: MoE with 8 experts of d_ff 4096 in each of 4 layers (the
+# depth cut for the smoke's time; about 0.54 GB of bf16 expert stacks),
+# and
 # the long-context adapter with its block-sparse mask from position 512
 # (blocks of 64, 4 local, 1 global).
-MOE_CFG = dict(vocab_size=50257, n_layer=8, n_head=16, n_embd=1024,
+MOE_CFG = dict(vocab_size=50257, n_layer=4, n_head=16, n_embd=1024,
                n_positions=1024, n_experts=8, d_ff=4096, capacity_factor=0,
                dtype=torch.bfloat16)
 LONG_CFG = dict(threshold=512, block=64, num_local_blocks=4,
@@ -5343,7 +5374,45 @@ def phase_train(card):
         "launches": launches, "card": card}))
     print("train_profile " + json.dumps(
         _profile(lambda: engine.train_batch(batch), 2)))
+    del engine, model
+    _amp_pair(cfg, batch, card)
     return launches
+
+
+def _amp_pair(cfg, batch, card):
+    """The ``amp`` block's step against the bf16 block's (the JAX engine's
+    mapping: bf16 compute on fp32 masters), from the same seeded weights
+    at AMP_LAYERS of the model's layers, under K2b (K2a's dq atomics make
+    two fused runs differ): the loss and every master after the step bit
+    for bit, outside the counted steps."""
+    cfg = dataclasses.replace(cfg, n_layer=AMP_LAYERS)
+    runs = []
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        for extra in ({"bf16": {"enabled": True}}, {"amp": {"enabled": True}}):
+            config = {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+            config.update(extra)
+            engine, _, _, _ = initialize(
+                model=GPT2LMHeadModel(cfg, device="cuda", seed=0),
+                config_params=config)
+            loss = engine.train_batch(batch)
+            runs.append((engine.compute_dtype, float(loss),
+                         [p.detach().clone() for p in engine._params]))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        del os.environ["DS_TPU_FLASH_BWD"]
+    (dt_b, loss_b, p_b), (dt_a, loss_a, p_a) = runs
+    equal = sum(1 for a, b in zip(p_a, p_b) if torch.equal(a, b))
+    row = {"amp": "O1 vs the bf16 block, one step, K2b, {} layers".format(
+               AMP_LAYERS), "compute_dtype":
+           str(dt_a), "loss_amp": loss_a, "loss_bf16": loss_b,
+           "masters_equal": equal, "masters": len(p_b), "card": card}
+    print("train_amp " + json.dumps(row))
+    if dt_a != torch.bfloat16 or loss_a != loss_b or equal != len(p_b):
+        fail("amp: its step is not the bf16 block's bit for bit: {}".format(
+            row))
 
 
 def _card_vs_cpu(label, what, card_model, cpu_model, config, inputs):
@@ -6685,18 +6754,39 @@ DP_RANKS, DP_B, DP_T = 2, 4, 1024
 # time limit on a loaded host.
 DP_WARM, DP_TIMED = 1, 1
 DP_STAGES = (0, 1, 2, 3)
-# GPT-2 medium's width at 8 of its 24 layers in the data- and
-# model-parallel phases: their host-staged collectives scale with the
-# parameters, and the smoke must stay inside its time limit with the
-# sequence-parallel phase beside them. Every path and kernel check stays.
-DP_LAYERS = MP_LAYERS = 8
+# GPT-2 medium's width at 4 of its 24 layers in the data- and
+# model-parallel phases' ZeRO, TP and interpreter pipeline arms: their
+# host-staged collectives scale with the parameters, and the smoke must
+# stay inside its time limit with the sequence-parallel phase and the
+# offload, Lamb and compiled-pipeline arms at full depth beside them.
+# Every path and kernel check stays.
+DP_LAYERS = MP_LAYERS = 4
 # The rendezvous and every collective of a rank, and the wait for a rank.
-DP_TIMEOUT_S = 300
+DP_TIMEOUT_S = 600
 # The fp32 arm: phase 5's reduced depth (4 layers, width 1024), a global
 # batch of DP_CHECK_B x DP_CHECK_T over the ranks, one step per stage
 # against one process; then an elastic stage-2 checkpoint saved by the
 # ranks, loaded by one process, and the next step of each.
 DP_CHECK_B, DP_CHECK_T = 4, 256
+
+
+# ZeRO-Offload and Lamb over the data ranks (their arms of
+# phase_data_parallel's launch): GPT-2 medium bf16 at full width and depth
+# (DP_ARM_LAYERS), ZeRO stage 2 over DP_RANKS ranks, 4 x 1024 tokens a rank;
+# offload Adam and host Lamb keep each rank's partition of the masters and
+# moments on the host, device Lamb on the card. Each arm DP_WARM steps and
+# DP_TIMED timed ones, then its fp32 check (DP_CHECK_B x DP_CHECK_T over the
+# ranks against one process, the loss within 1e-5 relative).
+DP_ARM_LAYERS = 24
+DP_ARMS = (("offload", "Adam", True), ("lamb", "Lamb", False),
+           ("lamb_host", "Lamb", True))
+
+
+def _dp_arm_config(arm, micro):
+    _, opt, offload = next(a for a in DP_ARMS if a[0] == arm)
+    return _dp_config(2, micro, {
+        "optimizer": {"type": opt, "params": {"lr": 1e-4}},
+        "zero_optimization": {"stage": 2, "cpu_offload": offload}})
 
 
 def _dp_config(stage, micro, extra=None):
@@ -6720,17 +6810,19 @@ def _dp_full_masters(engine):
                                                         fulls)}
 
 
-def _dp_timed_stage(cfg, stage, rank, world, device):
-    """One stage at full width on this rank: DP_WARM steps (the x-ray's
-    first-signature step among them), then DP_TIMED timed steps with the
-    launch counts, gathers and collective bytes reset just before and read
-    just after, and the peak device memory over them."""
+def _dp_timed_stage(cfg, stage, rank, world, device, arm=None):
+    """One stage (or, with ``arm``, one of DP_ARMS at stage 2) at full width
+    on this rank: DP_WARM steps (the x-ray's first-signature step among
+    them), then DP_TIMED timed steps with the launch counts, gathers and
+    collective bytes reset just before and read just after, and the peak
+    device memory over them; an offload arm adds its host step's phases."""
     from deepspeed_tpu_torch.parallel import comm
 
     t_build = time.perf_counter()
     model = GPT2LMHeadModel(cfg, device=device, seed=0)
+    config = _dp_arm_config(arm, DP_B) if arm else _dp_config(stage, DP_B)
     engine, _, _, _ = initialize(
-        model=model, config_params=_dp_config(stage, DP_B), device=device,
+        model=model, config_params=config, device=device,
         dist_init_required=False)
     ids = _dp_ids(DP_B * world, DP_T, cfg.vocab_size, 0)
     mine = torch.from_numpy(ids[rank * DP_B:(rank + 1) * DP_B]).to(device)
@@ -6758,8 +6850,15 @@ def _dp_timed_stage(cfg, stage, rank, world, device):
            "collective_bytes_per_step": comm.stats["bytes"] / DP_TIMED,
            "collective_calls_per_step": comm.stats["calls"] / DP_TIMED,
            "losses": [float(x) for x in losses],
-           "memory": _dp_memory_phases(engine, mine),
            "build_s": t_warm - t_build, "warm_s": warm_s}
+    if arm:
+        row.update(arm=arm, n_layer=cfg.n_layer,
+                   optimizer=type(engine.optimizer).__name__,
+                   host_step=engine.offload_timing(),
+                   host_state_elems=None if engine._offload is None else
+                   engine._offload.total)
+    else:
+        row["memory"] = _dp_memory_phases(engine, mine)
     row["stage_s"] = time.perf_counter() - t_build
     del engine, model
     gc.collect()
@@ -6788,7 +6887,7 @@ def _dp_memory_phases(engine, ids):
     return out
 
 
-def _dp_check(cfg, stage, rank, world, device, ckpt=None):
+def _dp_check(cfg, stage, rank, world, device, ckpt=None, arm=None):
     """The fp32 arm at one stage: one step at dp ``world`` against one
     process on the whole global batch (rank 0 runs it, on the same card),
     the loss within 1e-5 relative and the masters under the training rule
@@ -6802,12 +6901,16 @@ def _dp_check(cfg, stage, rank, world, device, ckpt=None):
 
     from deepspeed_tpu_torch.parallel import mesh as mesh_lib
 
+    def config(micro):
+        return _dp_arm_config(arm, micro) if arm else \
+            _dp_config(stage, micro)
+
     micro = DP_CHECK_B // world
     batches = [_dp_ids(DP_CHECK_B, DP_CHECK_T, cfg.vocab_size, 3 + i)
                for i in range(2)]
     engine, _, _, _ = initialize(
         model=GPT2LMHeadModel(cfg, device=device, seed=2),
-        config_params=_dp_config(stage, micro), device=device,
+        config_params=config(micro), device=device,
         dist_init_required=False)
     engine.compute_dtype = torch.float32
 
@@ -6841,12 +6944,14 @@ def _dp_check(cfg, stage, rank, world, device, ckpt=None):
         solo = mesh_lib.Mesh((1, 1, 1, 1), 0, None)
         ref, _, _, _ = initialize(
             model=GPT2LMHeadModel(cfg, device=device, seed=2),
-            config_params=_dp_config(stage, DP_CHECK_B), device=device,
+            config_params=config(DP_CHECK_B), device=device,
             dist_init_required=False, mesh=solo)
         ref.compute_dtype = torch.float32
         loss, grads = step(ref, batches[0], 0, DP_CHECK_B)
         row = _dp_rule_row(stage, losses[0], float(loss), got[0],
                            _dp_full_masters(ref), grads, 1e-4)
+        if arm:
+            row["arm"] = arm
         del ref
         if ckpt is not None:
             loaded, _, _, _ = initialize(
@@ -6902,12 +7007,17 @@ def dp_rank(workdir):
     cfg = GPT2Config(dtype=torch.bfloat16, dropout=0.0, **spec["width"])
     rows = [_dp_timed_stage(cfg, s, rank, world, device)
             for s in spec["stages"]]
+    arm_cfg = dataclasses.replace(cfg, n_layer=spec["arm_layers"])
+    rows += [_dp_timed_stage(arm_cfg, 2, rank, world, device, arm=a[0])
+             for a in DP_ARMS]
     check_cfg = GPT2Config(dtype=torch.float32, dropout=0.0,
                            **spec["check_width"])
     t0 = time.perf_counter()
     checks = [_dp_check(check_cfg, s, rank, world, device,
                         ckpt=os.path.join(workdir, "ckpt") if s == 2
                         else None) for s in spec["stages"]]
+    checks += [_dp_check(check_cfg, 2, rank, world, device, arm=a[0])
+               for a in DP_ARMS]
     if checks[0] is not None:
         checks[0]["arm_s"] = time.perf_counter() - t0
     with open(os.path.join(workdir, "rank_{}.json".format(rank)), "w") as f:
@@ -7044,22 +7154,23 @@ def phase_data_parallel(card):
     try:
         ranks = _dp_launch({
             "device": "cuda:0", "stages": list(DP_STAGES),
+            "arm_layers": DP_ARM_LAYERS,
             "width": {"n_embd": 1024, "n_layer": DP_LAYERS, "n_head": 16},
             "check_width": {"n_embd": 1024, "n_layer": 4, "n_head": 16}},
             workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    n_layer = DP_LAYERS
     rows = [row for r in ranks for row in r["rows"]]
-    by = {(row["stage"], row["rank"]): row for row in rows}
+    by = {(row.get("arm", row["stage"]), row["rank"]): row for row in rows}
     for row in rows:
         print("data_parallel " + json.dumps(dict(row, card=card)))
+        n_layer = row.get("n_layer", DP_LAYERS)
         per = row["launches_per_step"]
         if per["flash_fwd"] != n_layer or per["flash_bwd_fused"] != n_layer \
                 or per["flash_bwd_split"] != 0:
             fail("data_parallel: rank {} stage {} launched {} per step "
                  "(want K1 and K2a {} each)".format(
-                     row["rank"], row["stage"], per, n_layer))
+                     row["rank"], row.get("arm", row["stage"]), per, n_layer))
         if not np.isfinite(row["losses"]).all():
             fail("data_parallel: non-finite loss {}".format(row))
         want = 1 + 2 * n_layer if row["stage"] == 3 else 0
@@ -7067,8 +7178,17 @@ def phase_data_parallel(card):
             fail("data_parallel: stage {} gathered {} times a step (want "
                  "{})".format(row["stage"], row["gathers_per_step"], want))
     for r in range(DP_RANKS):
-        if by[(0, r)]["losses"] != by[(0, 0)]["losses"]:
-            fail("data_parallel: the ranks' mean losses differ")
+        for key in (0,) + tuple(a[0] for a in DP_ARMS):
+            if by[(key, r)]["losses"] != by[(key, 0)]["losses"]:
+                fail("data_parallel: the ranks' {} mean losses differ"
+                     .format(key))
+        for arm, opt, offload in DP_ARMS:
+            row = by[(arm, r)]
+            if (row["host_step"] is not None) != offload or \
+                    row["optimizer"] != ("DeepSpeedCPU" if offload else
+                                         "Fused") + opt:
+                fail("data_parallel: arm {} ran {} (host step {})".format(
+                    arm, row["optimizer"], row["host_step"]))
         for s in (1, 3):
             if not by[(s, r)]["peak_mem_bytes"] < by[(0, r)][
                     "peak_mem_bytes"]:
@@ -7076,9 +7196,13 @@ def phase_data_parallel(card):
                      "stage 0's {}".format(r, s, by[(s, r)]["peak_mem_bytes"],
                                            by[(0, r)]["peak_mem_bytes"]))
     checks = [c for c in ranks[0]["checks"] if c is not None]
+    if sorted(c["arm"] for c in checks if "arm" in c) != \
+            sorted(a[0] for a in DP_ARMS):
+        fail("data_parallel: an arm's check did not run: {}".format(checks))
     print("data_parallel_check " + json.dumps(
         {"fp32": "width 1024, 4 layers, B{} T{} over {} ranks vs one "
-                 "process".format(DP_CHECK_B, DP_CHECK_T, DP_RANKS),
+                 "process (stages 0-3; offload Adam, device Lamb and host "
+                 "Lamb at stage 2)".format(DP_CHECK_B, DP_CHECK_T, DP_RANKS),
          "stages": checks, "card": card}))
     for c in checks + [c["checkpoint"] for c in checks
                        if "checkpoint" in c]:
@@ -7090,7 +7214,7 @@ def phase_data_parallel(card):
     nccl = _nccl_arm("cuda:0")
     print("data_parallel_nccl " + json.dumps(dict(nccl, card=card)))
     return {s: [by[(s, r)]["launches_per_step"] for r in range(DP_RANKS)]
-            for s in DP_STAGES}
+            for s in DP_STAGES + tuple(a[0] for a in DP_ARMS)}
 
 
 # ------------------------------------------------- model parallelism
@@ -7110,11 +7234,25 @@ MP_RANKS, MP_B, MP_T, MP_GAS = 2, 8, 1024, 4
 MP_FLASH_CASES = (("mp_tp_rank", MP_B, 16 // MP_RANKS),
                   ("mp_pp_micro", MP_B // MP_GAS, 16))
 MP_WARM, MP_TIMED = 1, 2
-MP_TIMEOUT_S = 300
+MP_TIMEOUT_S = 600
 # The fp32 arm: 4 layers at width 1024, a global batch of MP_CHECK_B x
 # MP_CHECK_T; TP one step, PP one step of 2 micro-batches, each against
 # one process on the same card.
 MP_CHECK_B, MP_CHECK_T, MP_CHECK_GAS = 4, 256, 2
+
+
+# The compiled pipeline (its arm of phase_model_parallel's launch): GPT-2
+# medium bf16 at full width and depth, CP_LAYERS / MP_RANKS blocks a stage
+# stacked, the untied head, the same MP_GAS micro-batches of MP_B / MP_GAS
+# x MP_T; each stage's tick programs CUDA graphs. The graph-vs-eager pair
+# runs under K2b at MP_LAYERS layers and dropout CP_DROPOUT (GPT2Config's
+# default), CP_GRAPH_STEPS steps each; the fp32 arm is the compiled engine
+# against the interpreter under the other fp32 checks' rule (losses 1e-5
+# relative, every parameter of the stage under the training rule),
+# MP_CHECK_GAS micro-batches, CP_CHECK_STEPS steps.
+CP_LAYERS = 24
+CP_GRAPH_STEPS = CP_CHECK_STEPS = 2
+CP_DROPOUT = 0.1
 
 
 def _mp_config(micro, gas=1):
@@ -7206,6 +7344,145 @@ def _mp_timed(run, cfg, rank, world, device):
     return row
 
 
+def _cp_engine(cfg, device, world, micro, gas, compiled=True):
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_pipeline
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    engine, _, _, _ = initialize(
+        model=gpt2_pipeline(cfg, num_stages=world, tied=False,
+                            compiled=compiled),
+        config_params=_mp_config(micro, gas), device=device,
+        mesh=build_mesh(num_pp=world), dist_init_required=False)
+    return engine
+
+
+def _cp_micro(B, T, gas, vocab, seed, device):
+    ids = torch.from_numpy(_dp_ids(B, T, vocab, seed)).to(device)
+    mb = B // gas
+    return [(ids[i * mb:(i + 1) * mb],) * 2 for i in range(gas)]
+
+
+def _cp_timed(cfg, rank, world, device):
+    """The compiled pipeline at full width and depth on this rank: MP_WARM
+    steps (the tick programs' warm-up and capture), then MP_TIMED timed
+    ones with the launches, p2p bytes, graph replays and the allocated
+    bytes after each step read over them."""
+    t_build = time.perf_counter()
+    engine = _cp_engine(cfg, device, world, MP_B // MP_GAS, MP_GAS)
+    micro = _cp_micro(MP_B, MP_T, MP_GAS, cfg.vocab_size, 0, device)
+    held = sum(p.numel() for p in engine._params)
+    t_warm = time.perf_counter()
+    losses = [engine.train_batch(data_iter=iter(micro))
+              for _ in range(MP_WARM)]
+    warm_s = time.perf_counter() - t_warm
+    captures = engine.graph_captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _mp_counters()
+    replays = engine.graph_replays
+    allocated = []
+    t0 = time.perf_counter()
+    for _ in range(MP_TIMED):
+        losses.append(engine.train_batch(data_iter=iter(micro)))
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+    wall = time.perf_counter() - t0
+    row = {"run": "compiled", "rank": rank, "n_layer": cfg.n_layer,
+           "blocks_per_stage": engine._blocks_per_stage, "params_held": held,
+           "tokens_per_s": MP_B * MP_T * MP_TIMED / wall,
+           "mean_step_ms": wall / MP_TIMED * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "allocated_after_timed_steps": allocated,
+           "graph_captures_step1": captures,
+           "graph_captures": engine.graph_captures,
+           "graph_replays_per_step": (engine.graph_replays - replays) /
+           MP_TIMED, "losses": losses, "build_s": t_warm - t_build,
+           "warm_s": warm_s}
+    row.update(_mp_read(MP_TIMED))
+    row["arm_s"] = time.perf_counter() - t_build
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _cp_graph_vs_eager(cfg, rank, world, device):
+    """The compiled engine with its tick graphs against the same engine run
+    eagerly (``_graphs`` off), from the same seeded weights, under K2b, at
+    dropout CP_DROPOUT: every loss and every parameter of the stage after
+    CP_GRAPH_STEPS steps, bit for bit (each tick draws fresh seeds, so a
+    replay that redrew its capture's masks would part from eager). A third
+    run, one eager step at dropout 0, shows the masks were drawn (its loss
+    differs)."""
+    micro = _cp_micro(MP_B, MP_T, MP_GAS, cfg.vocab_size, 1, device)
+    runs = []
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        for graphs, rate, steps in ((True, CP_DROPOUT, CP_GRAPH_STEPS),
+                                    (False, CP_DROPOUT, CP_GRAPH_STEPS),
+                                    (False, 0.0, 1)):
+            engine = _cp_engine(dataclasses.replace(cfg, dropout=rate),
+                                device, world, MP_B // MP_GAS, MP_GAS)
+            engine._graphs = graphs
+            at.reset_launches()
+            losses = [engine.train_batch(data_iter=iter(micro))
+                      for _ in range(steps)]
+            runs.append((losses, [p.detach().clone() for p in
+                                  engine._params], engine.graph_captures,
+                         dict(at.launches)))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        del os.environ["DS_TPU_FLASH_BWD"]
+    (lg, pg, cg, ng), (le, pe, ce, ne), (l0, _, _, _) = runs
+    return {"rank": rank, "n_layer": cfg.n_layer, "steps": CP_GRAPH_STEPS,
+            "dropout": CP_DROPOUT, "losses_graph": lg, "losses_eager": le,
+            "loss_no_dropout": l0[0],
+            "params_equal": sum(1 for a, b in zip(pg, pe)
+                                if torch.equal(a, b)),
+            "params": len(pg), "captures": [cg, ce],
+            "launches": [ng, ne]}
+
+
+def _cp_check(cfg, rank, world, device):
+    """The fp32 arm: the compiled engine against the interpreter from the
+    same seeded layers, CP_CHECK_STEPS steps of MP_CHECK_GAS micro-batches
+    of MP_CHECK_B / MP_CHECK_GAS x MP_CHECK_T: every loss, and every
+    parameter of this stage's layers after the steps under the training
+    rule (the interpreter's first gradients mark the leaves within noise
+    of 0)."""
+    micro = _cp_micro(MP_CHECK_B, MP_CHECK_T, MP_CHECK_GAS, cfg.vocab_size,
+                      3, device)
+    losses, flat, grads = {}, {}, []
+    for compiled in (True, False):
+        engine = _cp_engine(cfg, device, world, MP_CHECK_B // MP_CHECK_GAS,
+                            MP_CHECK_GAS, compiled=compiled)
+        if not compiled:
+            real = engine._update
+
+            def spy(g, inv_scale, skip=(), real=real, engine=engine):
+                if not grads:
+                    grads.append(_pipe_flat(engine, cfg, [
+                        t.detach().float() * inv_scale for t in g]))
+                return real(g, inv_scale, skip)
+            engine._update = spy
+        losses[compiled] = [engine.train_batch(data_iter=iter(micro))
+                            for _ in range(CP_CHECK_STEPS)]
+        flat[compiled] = _pipe_flat(engine, cfg)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = _mp_rule_row("compiled", losses[True][-1], losses[False][-1],
+                       flat[True], flat[False], grads[0],
+                       1e-4 * CP_CHECK_STEPS)
+    row.update(rank=rank, losses_compiled=losses[True],
+               losses_interpreter=losses[False],
+               loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(
+                   losses[True], losses[False])))
+    return row
+
+
 def _mp_rule_row(run, loss, loss_one, got, want, grads, lr):
     largest = max(float(g.abs().max()) for g in grads.values())
     noisy = {}
@@ -7246,9 +7523,10 @@ def _mp_reference(cfg, params, batches, device):
     return float(np.mean(losses)), want, grads
 
 
-def _pipe_flat(engine, cfg):
-    """This stage's layers' full fp32 weights under GPT2LMHeadModel's
-    names (the tied head's copy as ``wte``/``wpe``)."""
+def _pipe_flat(engine, cfg, tensors=None):
+    """This stage's layers' full fp32 weights (or the per-parameter
+    ``tensors``, e.g. gradients) under GPT2LMHeadModel's names (the tied
+    head's copy as ``wte``/``wpe``)."""
     out = {}
 
     def walk(node, path):
@@ -7261,7 +7539,8 @@ def _pipe_flat(engine, cfg):
     for idx in sorted(engine._layer_params):
         if not engine._layer_params[idx]:
             continue
-        tree = engine._layer_full(idx, engine._params)
+        tree = engine._layer_full(idx, engine._params if tensors is None
+                                  else tensors)
         if 1 <= idx <= cfg.n_layer:
             walk(tree["Block_0"], "h_{}.".format(idx - 1))
         else:
@@ -7342,13 +7621,19 @@ def mp_rank(workdir):
     cfg = GPT2Config(dtype=torch.bfloat16, dropout=0.0, **spec["width"])
     rows = [_mp_timed(run, cfg, rank, world, device)
             for run in ("tp", "pp")]
+    rows.append(_cp_timed(dataclasses.replace(cfg, n_layer=CP_LAYERS), rank,
+                          world, device))
+    t0 = time.perf_counter()
+    graph = _cp_graph_vs_eager(cfg, rank, world, device)
+    graph["arm_s"] = time.perf_counter() - t0
     check_cfg = GPT2Config(dtype=torch.float32, dropout=0.0,
                            **spec["check_width"])
     t0 = time.perf_counter()
     checks = [_mp_check(run, check_cfg, rank, world, device)
               for run in ("tp", "pp")]
+    checks.append(_cp_check(check_cfg, rank, world, device))
     with open(os.path.join(workdir, "rank_{}.json".format(rank)), "w") as f:
-        json.dump({"rows": rows, "checks": checks,
+        json.dump({"rows": rows, "checks": checks, "graph": graph,
                    "check_s": time.perf_counter() - t0}, f)
     dist.destroy_process_group()
 
@@ -7375,54 +7660,87 @@ def phase_model_parallel(card):
             workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    want = {"tp": n_layer, "pp": n_layer // MP_RANKS * MP_GAS}
+    # K1 and K2a a step and rank; the compiled ticks run K1 twice a block
+    # and micro-batch (the forward tick and the backward's recompute).
+    blocks = CP_LAYERS // MP_RANKS * MP_GAS
+    want = {"tp": (n_layer, n_layer),
+            "pp": (n_layer // MP_RANKS * MP_GAS,) * 2,
+            "compiled": (2 * blocks, blocks)}
     by = {}
     for r in ranks:
         for row in r["rows"]:
             by[(row["run"], row["rank"])] = row
             print("model_parallel " + json.dumps(dict(row, card=card)))
             per = row["launches_per_step"]
-            if per["flash_fwd"] != want[row["run"]] or \
-                    per["flash_bwd_fused"] != want[row["run"]] or \
-                    per["flash_bwd_split"] != 0:
+            if (per["flash_fwd"], per["flash_bwd_fused"]) != \
+                    want[row["run"]] or per["flash_bwd_split"] != 0:
                 fail("model_parallel: rank {} {} launched {} per step (want "
-                     "K1 and K2a {} each)".format(row["rank"], row["run"],
-                                                  per, want[row["run"]]))
+                     "K1, K2a {})".format(row["rank"], row["run"], per,
+                                          want[row["run"]]))
             if not np.isfinite(row["losses"]).all():
                 fail("model_parallel: non-finite loss {}".format(row))
-    for run in ("tp", "pp"):
+    for run in ("tp", "pp", "compiled"):
         if len({tuple(by[(run, r)]["losses"]) for r in range(MP_RANKS)}) != 1:
             fail("model_parallel: the ranks' {} losses differ".format(run))
+    for r in range(MP_RANKS):
+        row = by[("compiled", r)]
+        mem = row["allocated_after_timed_steps"]
+        if row["graph_captures_step1"] != 2 or row["graph_captures"] != 2 \
+                or row["graph_replays_per_step"] != 2 * MP_GAS or \
+                len(set(mem)) != 1:
+            fail("model_parallel: rank {}'s tick graphs: captures {} after "
+                 "step 1, {} in all (want 2, no re-capture), {} replays a "
+                 "step (want {}), allocated bytes {} (want no growth)".format(
+                     r, row["graph_captures_step1"], row["graph_captures"],
+                     row["graph_replays_per_step"], 2 * MP_GAS, mem))
+    graphs = [r["graph"] for r in ranks]
+    print("model_parallel_graph " + json.dumps(
+        {"compiled": "graph vs eager, K2b, width 1024, {} layers, {} "
+                     "steps, dropout {}".format(n_layer, CP_GRAPH_STEPS,
+                                                CP_DROPOUT),
+         "ranks": graphs, "card": card}))
+    for g in graphs:
+        if g["losses_graph"] != g["losses_eager"] or \
+                g["params_equal"] != g["params"] or g["captures"] != [2, 0] \
+                or g["launches"][0] != g["launches"][1] or \
+                g["loss_no_dropout"] == g["losses_graph"][0]:
+            fail("model_parallel: the compiled pipeline's graphs are not "
+                 "eager bit for bit: {}".format(g))
     checks = [c for r in ranks for c in r["checks"] if c is not None]
     print("model_parallel_check " + json.dumps(
         {"fp32": "width 1024, 4 layers, B{} T{}: TP mp {} and PP {} stages "
                  "(gas {}) vs one process".format(
                      MP_CHECK_B, MP_CHECK_T, MP_RANKS, MP_RANKS,
                      MP_CHECK_GAS),
+         "compiled": "the compiled pipeline vs the interpreter, {} steps, "
+                     "the same rule".format(CP_CHECK_STEPS),
          "runs": checks, "check_s": [r["check_s"] for r in ranks],
          "card": card}))
-    if sorted({c["run"] for c in checks}) != ["pp", "tp"]:
+    if sorted({c["run"] for c in checks}) != ["compiled", "pp", "tp"]:
         fail("model_parallel: a check did not run: {}".format(checks))
     for c in checks:
         if c["loss_rel_err"] > 1e-5 or c["param_max_err_over_limit"] > 1.0:
-            fail("model_parallel: {} disagrees with one process: {}".format(
-                c["run"], c))
+            fail("model_parallel: {} disagrees with its reference (one "
+                 "process; the compiled pipeline: the interpreter): {}"
+                 .format(c["run"], c))
     return {run: [by[(run, r)]["launches_per_step"]
-                  for r in range(MP_RANKS)] for run in ("tp", "pp")}
+                  for r in range(MP_RANKS)]
+            for run in ("tp", "pp", "compiled")}
 
 
 # ------------------------------------------ sequence parallelism, 1-bit Adam
 
 # Sequence parallelism and 1-bit Adam (phase_sequence_parallel): SP_RANKS
 # gloo ranks on cuda:0 started by the port's launcher. GPT-2 medium bf16 at
-# full width and depth (n_positions SP_T, so only the position table
-# grows), AdamW 1e-4, dropout 0: one global B1 x SP_T sequence, SP_T / 2
+# full width, 12 of its 24 layers (the depth cut for the smoke's time;
+# n_positions SP_T, so only the position table grows), AdamW
+# 1e-4, dropout 0: one global B1 x SP_T sequence, SP_T / 2
 # tokens a rank, through the ring and then Ulysses; then 1-bit Adam over
 # the two as data ranks at the data-parallel cell's B4 x T1024 a rank.
 # Collectives go through the host (gloo): their times measure the
 # plumbing, not NVLink.
 SP_RANKS, SP_T = 2, 8192
-SP_WIDTH = {"n_embd": 1024, "n_layer": 24, "n_head": 16}
+SP_WIDTH = {"n_embd": 1024, "n_layer": 12, "n_head": 16}
 SP_CHECK_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
 SP_TIMEOUT_S = 300
 # The ring's K1/K2 inputs (phase_flash holds them there): B1 H16, a block
@@ -8134,15 +8452,23 @@ def _flash_kernel_rows(flash_rows, launches, bert_launches, split_rows,
                      "bound_by": xl["bound_{}_by".format(way)]},
             data_parallel={
                 "shape": "B4 H16 T1024 D64 bf16 causal per rank (GPT-2 "
-                         "medium, {} ranks on one card)".format(DP_RANKS),
+                         "medium, {} ranks on one card: stages 0-3 at {} "
+                         "layers; the offload Adam, device Lamb and host "
+                         "Lamb arms at stage 2 and {} layers)".format(
+                             DP_RANKS, DP_LAYERS, DP_ARM_LAYERS),
                 "launches_per_step": {
-                    "stage{}".format(stage): [r[counter] for r in ranks]
-                    for stage, ranks in dp_launches.items()}},
+                    "stage{}".format(key) if isinstance(key, int) else key:
+                    [r[counter] for r in ranks]
+                    for key, ranks in dp_launches.items()}},
             model_parallel={
                 "shape": "TP: B8 H8 T1024 D64 bf16 causal per rank (mp "
-                         "2); PP: B2 H16 T1024 per micro-batch, 12 blocks "
-                         "a stage, 4 micro-batches (GPT-2 medium, {} "
-                         "ranks on one card)".format(MP_RANKS),
+                         "2); PP: B2 H16 T1024 per micro-batch, {} blocks "
+                         "a stage, 4 micro-batches; compiled: the same "
+                         "micro-batches, {} blocks a stage, K1 twice a "
+                         "block (the tick and its recompute) (GPT-2 "
+                         "medium, {} ranks on one card)".format(
+                             MP_LAYERS // MP_RANKS, CP_LAYERS // MP_RANKS,
+                             MP_RANKS),
                 "launches_per_step": {
                     run: [r[counter] for r in ranks]
                     for run, ranks in mp_launches.items()},

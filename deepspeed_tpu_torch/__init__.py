@@ -91,18 +91,23 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
     (``train_batch`` / ``eval_batch`` over the 1F1B schedule; the mesh's
     'pipe' axis is its stage count); ``model_parameters`` may then be the
     per-layer trees of the JAX ``PipelineEngine``'s ``layer_params``.
-    ``PipelineModule(compiled=True)`` raises NotImplementedError.
+    ``PipelineModule(compiled=True)`` selects the ``CompiledPipelineEngine``
+    (``runtime/pipe/compiled.py``: the GPipe wavefront of a uniform block
+    run, its ticks CUDA graphs on the card).
 
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.compiled import (
+        CompiledPipelineEngine)
     from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
     from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize requires a model")
-    cls = PipelineEngine if isinstance(model, PipelineModule) else \
-        DeepSpeedEngine
+    cls = DeepSpeedEngine
+    if isinstance(model, PipelineModule):
+        cls = CompiledPipelineEngine if model.compiled else PipelineEngine
     engine = cls(args, model, optimizer=optimizer,
                              model_parameters=model_parameters,
                              training_data=training_data,

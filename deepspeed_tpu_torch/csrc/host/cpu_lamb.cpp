@@ -7,7 +7,10 @@
 //   2. trust_ratio = clamp(||p|| / ||update||, min_coeff, max_coeff)
 //      (1 when either norm is zero), then p -= lr * ratio * update.
 // The engine calls it once per parameter tensor of each transfer chunk:
-// the trust ratio is a per-tensor statistic.
+// the trust ratio is a per-tensor statistic. Over ranks that each hold a
+// shard of a tensor the two phases are separate calls (ds_lamb_norms, then
+// ds_lamb_apply with the ratio of the summed squares); ds_lamb_step is the
+// two in one call.
 //
 // A plain C ABI loaded with ctypes (op_builder/builder.py, the host
 // route). The arithmetic is kept identical, line for line, to the JAX
@@ -34,27 +37,24 @@ inline uint16_t float_to_bf16(float f) {
 
 extern "C" {
 
-// One LAMB step over a contiguous fp32 span. Returns the applied trust
-// ratio (DeepSpeed exposes its lamb_coeffs for introspection the same way).
-// `scratch` must hold n floats.
-// If out_bf16 is non-null the updated params are also round-to-nearest-even
-// downcast into it in the same pass (the cpu_adam copy fusion).
-float ds_lamb_step(long step,
-                   float lr,
+// Pass 1 of a LAMB step over a contiguous fp32 span: the m/v moment update
+// and the Adam-style update vector (into `scratch`, n floats), and the
+// span's sums of squares: out_sq[0] = ||p||^2, out_sq[1] = ||update||^2
+// (doubles). Over partitioned ranks the caller adds every rank's sums of a
+// tensor before pass 2.
+void ds_lamb_norms(long step,
                    float beta1,
                    float beta2,
                    float eps,
                    float weight_decay,
                    int bias_correction,
-                   float max_coeff,
-                   float min_coeff,
                    long n,
-                   float* __restrict__ p,
+                   const float* __restrict__ p,
                    const float* __restrict__ g,
                    float* __restrict__ m,
                    float* __restrict__ v,
                    float* __restrict__ scratch,
-                   uint16_t* __restrict__ out_bf16) {
+                   double* __restrict__ out_sq) {
     float bc1 = 1.0f, bc2 = 1.0f;
     if (bias_correction) {
         bc1 = 1.0f - std::pow(beta1, (float)step);
@@ -80,15 +80,33 @@ float ds_lamb_step(long step,
         w_sq += (double)p[i] * (double)p[i];
         u_sq += (double)upd * (double)upd;
     }
+    out_sq[0] = w_sq;
+    out_sq[1] = u_sq;
+}
 
+// The trust ratio of a tensor from its sums of squares: clamp(||p|| /
+// ||update||, min_coeff, max_coeff), 1 when either is zero.
+float ds_lamb_ratio(double w_sq, double u_sq, float max_coeff,
+                    float min_coeff) {
     float ratio = 1.0f;
     if (w_sq > 0.0 && u_sq > 0.0) {
         ratio = (float)(std::sqrt(w_sq) / std::sqrt(u_sq));
         if (ratio > max_coeff) ratio = max_coeff;
         if (ratio < min_coeff) ratio = min_coeff;
     }
-    const float step_size = lr * ratio;
+    return ratio;
+}
 
+// Pass 2: p -= lr * ratio * update, the update from pass 1's `scratch`.
+// If out_bf16 is non-null the updated params are also round-to-nearest-even
+// downcast into it in the same pass (the cpu_adam copy fusion).
+void ds_lamb_apply(float lr,
+                   float ratio,
+                   long n,
+                   float* __restrict__ p,
+                   const float* __restrict__ scratch,
+                   uint16_t* __restrict__ out_bf16) {
+    const float step_size = lr * ratio;
     if (out_bf16 != nullptr) {
 #pragma omp parallel for schedule(static)
         for (long i = 0; i < n; ++i) {
@@ -100,6 +118,33 @@ float ds_lamb_step(long step,
 #pragma omp parallel for schedule(static)
         for (long i = 0; i < n; ++i) p[i] -= step_size * scratch[i];
     }
+}
+
+// One LAMB step over a contiguous fp32 span, its own trust-ratio domain:
+// pass 1, the ratio, pass 2. Returns the applied trust ratio (DeepSpeed
+// exposes its lamb_coeffs for introspection the same way). `scratch` must
+// hold n floats.
+float ds_lamb_step(long step,
+                   float lr,
+                   float beta1,
+                   float beta2,
+                   float eps,
+                   float weight_decay,
+                   int bias_correction,
+                   float max_coeff,
+                   float min_coeff,
+                   long n,
+                   float* __restrict__ p,
+                   const float* __restrict__ g,
+                   float* __restrict__ m,
+                   float* __restrict__ v,
+                   float* __restrict__ scratch,
+                   uint16_t* __restrict__ out_bf16) {
+    double sq[2];
+    ds_lamb_norms(step, beta1, beta2, eps, weight_decay, bias_correction, n,
+                  p, g, m, v, scratch, sq);
+    float ratio = ds_lamb_ratio(sq[0], sq[1], max_coeff, min_coeff);
+    ds_lamb_apply(lr, ratio, n, p, scratch, out_bf16);
     return ratio;
 }
 

@@ -286,9 +286,11 @@ class Block(nn.Module):
     def forward(self, x, cfg, seed):
         """Pre-LN block. ``seed`` (an int, or None for no dropout) seeds
         this block's dropout generator, so a checkpointed block redraws the
-        same masks when it is recomputed."""
-        gen = None
-        if seed is not None:
+        same masks when it is recomputed. It may also be the generator
+        itself, seeded by the caller (a CUDA graph cannot seed one inside
+        its capture)."""
+        gen = seed if isinstance(seed, torch.Generator) else None
+        if seed is not None and gen is None:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
         eps = cfg.layer_norm_epsilon
@@ -565,14 +567,17 @@ def gpt2_pipeline(config=None, num_stages=2, tied=None, compiled=False,
     """GPT-2 as a ``PipelineModule``: the embedding, ``n_layer`` blocks,
     then the final LayerNorm and the tied head (``tied``, the default)
     or the untied ``GPT2PipeFinal``; ``gpt2_lm_loss`` on the last stage,
-    layers seeded by index. ``compiled=True`` (the JAX one-program engine)
-    raises NotImplementedError."""
+    layers seeded by index. ``compiled=True`` (the compiled engine, whose
+    stages share no layer) defaults to the untied head and refuses the
+    tied one, as the JAX function does."""
     from deepspeed_tpu_torch.runtime.pipe.module import (LayerSpec,
                                                          PipelineModule,
                                                          TiedLayerSpec)
     cfg = config or GPT2Config(**kw)
     if tied is None:
         tied = not compiled
+    if compiled and tied:
+        raise ValueError("compiled GPT-2 pipeline requires tied=False")
     blocks = [LayerSpec(GPT2PipeBlock, cfg) for _ in range(cfg.n_layer)]
     if tied:
         layers = ([TiedLayerSpec("embed", GPT2PipeEmbed, cfg)] + blocks +

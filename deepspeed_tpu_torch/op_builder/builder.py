@@ -174,6 +174,18 @@ def _bind_cpu_lamb(lib):
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
         ctypes.c_float, ctypes.c_long] + [_c_float_p] * 5 + [_c_u16_p]
     lib.ds_lamb_step.restype = ctypes.c_float
+    lib.ds_lamb_norms.argtypes = [
+        ctypes.c_long, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_int, ctypes.c_long] + [_c_float_p] * 5 + \
+        [ctypes.POINTER(ctypes.c_double)]
+    lib.ds_lamb_norms.restype = None
+    lib.ds_lamb_ratio.argtypes = [ctypes.c_double, ctypes.c_double,
+                                  ctypes.c_float, ctypes.c_float]
+    lib.ds_lamb_ratio.restype = ctypes.c_float
+    lib.ds_lamb_apply.argtypes = [ctypes.c_float, ctypes.c_float,
+                                  ctypes.c_long, _c_float_p, _c_float_p,
+                                  _c_u16_p]
+    lib.ds_lamb_apply.restype = None
 
 
 def _bind_flatten_unflatten(lib):

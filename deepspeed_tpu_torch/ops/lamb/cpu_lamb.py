@@ -10,10 +10,22 @@ tensor with its own ratio (one span over the whole buffer by default).
 ``get_lamb_coeffs()`` returns every ratio of the latest step, across the
 engine's chunked calls.
 
+Over ranks that each hold a shard of a tensor (ZeRO's partition over the
+data group, tensor parallelism's over the model group) a shard's norms are
+not the tensor's. The engine then sets ``norm_reduce`` (the sums of
+squares of every rank's shard of each tensor, added over its groups) and
+the offload step runs the op's two passes apart: ``norms_flat`` (the
+moments, the update vector into a scratch buffer, each span's sums of
+squares), one ``norm_reduce`` for the whole step, ``ratio`` per tensor,
+then ``apply_flat``. At one rank the two passes are the one-pass op, bit
+for bit.
+
 There is no fallback: where the op cannot build, constructing the
 optimizer raises. ``lamb_step_reference`` is the plain torch version of the
 op's arithmetic, for the tests.
 """
+
+import ctypes
 
 import torch
 
@@ -86,6 +98,7 @@ class DeepSpeedCPULamb(object):
         self._coeffs_step = None  # the step lamb_coeffs belong to
         self._scratch = torch.empty(0, dtype=torch.float32)
         self.ds_opt_lamb = load_host("cpu_lamb")
+        self.norm_reduce = None
 
     def step_flat(self, params, grads, exp_avg, exp_avg_sq, step=None,
                   lr=None, bf16_out=None, segments=None):
@@ -124,6 +137,42 @@ class DeepSpeedCPULamb(object):
             int(self.bias_correction), self.max_coeff, self.min_coeff, n,
             float_ptr(p), float_ptr(g), float_ptr(m), float_ptr(v),
             float_ptr(self._scratch[:n]), u16_ptr(bf16_out)))
+
+    def norms_flat(self, params, grads, exp_avg, exp_avg_sq, scratch, step,
+                   segments):
+        """Pass 1 over each (offset, size) span of ``segments``: m and v in
+        place, the update vector into ``scratch`` (``params``' length);
+        returns the spans' [||p||^2, ||update||^2] as a float64 [n, 2]
+        tensor."""
+        group = self.param_groups[0]
+        beta1, beta2 = group["betas"]
+        out = torch.zeros(len(segments), 2, dtype=torch.float64)
+        for k, (off, size) in enumerate(segments):
+            sl = slice(off, off + size)
+            self.ds_opt_lamb.ds_lamb_norms(
+                step, beta1, beta2, group["eps"], group["weight_decay"],
+                int(self.bias_correction), size, float_ptr(params[sl]),
+                float_ptr(grads[sl]), float_ptr(exp_avg[sl]),
+                float_ptr(exp_avg_sq[sl]), float_ptr(scratch[sl]),
+                ctypes.cast(out[k].data_ptr(),
+                            ctypes.POINTER(ctypes.c_double)))
+        return out
+
+    def ratio(self, w_sq, u_sq):
+        """A tensor's trust ratio from its (summed) squares: the op's own
+        rounding and clamp."""
+        return float(self.ds_opt_lamb.ds_lamb_ratio(
+            float(w_sq), float(u_sq), self.max_coeff, self.min_coeff))
+
+    def apply_flat(self, params, scratch, ratios, lr, segments,
+                   bf16_out=None):
+        """Pass 2: each span of ``segments`` moves by ``lr`` times its
+        ratio (``ratios``, one per span) times pass 1's update."""
+        for (off, size), r in zip(segments, ratios):
+            sl = slice(off, off + size)
+            self.ds_opt_lamb.ds_lamb_apply(
+                lr, r, size, float_ptr(params[sl]), float_ptr(scratch[sl]),
+                u16_ptr(None if bf16_out is None else bf16_out[sl]))
 
     def get_lamb_coeffs(self):
         return list(self.lamb_coeffs)

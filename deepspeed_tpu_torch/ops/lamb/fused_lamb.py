@@ -13,7 +13,10 @@ returns new trees):
     p -= lr r u
 
 ``FusedLamb`` has ``FusedAdam``'s interface (``param_groups``,
-``init_state``, ``update``), so the engine drives either.
+``init_state``, ``update``), so the engine drives either. Over ranks that
+each hold a shard of a tensor the engine sets ``norm_reduce``: the per
+tensor [||p||^2, ||u||^2] of the rank's shards, added over the ranks that
+share each tensor, so the ratio is the whole tensor's.
 """
 
 import torch
@@ -28,9 +31,10 @@ def init_lamb_state(params):
 
 def lamb_update(params, grads, state, lr, beta1=0.9, beta2=0.999, eps=1e-8,
                 weight_decay=0.0, bias_correction=True, max_coeff=10.0,
-                min_coeff=0.01):
+                min_coeff=0.01, norm_reduce=None):
     """One LAMB step over aligned lists ``params`` and ``grads``, updating
-    ``params`` and ``state`` in place (module docstring)."""
+    ``params`` and ``state`` in place (module docstring). ``norm_reduce``
+    maps the tensors' [n, 2] sums of squares to the whole tensors'."""
     if not params:
         return
     state["step"] += 1
@@ -59,6 +63,9 @@ def lamb_update(params, grads, state, lr, beta1=0.9, beta2=0.999, eps=1e-8,
         torch._foreach_add_(update, p32, alpha=weight_decay)
     w_norm = torch.stack(torch._foreach_norm(p32))
     u_norm = torch.stack(torch._foreach_norm(update))
+    if norm_reduce is not None:
+        sq = norm_reduce(torch.stack([w_norm, u_norm], dim=1).square())
+        w_norm, u_norm = sq[:, 0].sqrt(), sq[:, 1].sqrt()
     ratio = torch.where((w_norm > 0) & (u_norm > 0),
                         torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
                         torch.ones_like(w_norm))
@@ -88,6 +95,7 @@ class FusedLamb(object):
                               "max_grad_norm": max_grad_norm}]
         self.defaults = dict(self.param_groups[0])
         self.state = {}
+        self.norm_reduce = None
 
     def init_state(self, params):
         return init_lamb_state(params)
@@ -103,7 +111,7 @@ class FusedLamb(object):
             weight_decay=group["weight_decay"]
             if weight_decay is None else weight_decay,
             bias_correction=self.bias_correction, max_coeff=self.max_coeff,
-            min_coeff=self.min_coeff)
+            min_coeff=self.min_coeff, norm_reduce=self.norm_reduce)
 
     def state_dict(self):
         return {"param_groups": [

@@ -28,6 +28,7 @@ The kernels take any T (they guard the ragged last tile), so the port sends
 no shape to the dense path on the card.
 """
 
+import contextlib
 import ctypes
 import os
 
@@ -45,7 +46,11 @@ _FUSED_BWD_BYTES = 6 * 1024 * 1024
 
 # Kernel launches since the last reset; chip_smoke.py reads them to show
 # the training path went through the kernels. K2b counts its two kernels.
+# A launch inside a CUDA graph capture (``recording``) goes to the
+# capture's tally instead, and each replay adds the tally
+# (``add_launches``): the counts are kernels run.
 launches = {"flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_split": 0}
+_tally = None
 
 _fns = {}
 
@@ -53,6 +58,32 @@ _fns = {}
 def reset_launches():
     for name in launches:
         launches[name] = 0
+
+
+def _count(kind):
+    if _tally is not None:
+        _tally[kind] += 1
+    else:
+        launches[kind] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """A CUDA graph capture: the launches until the block ends are
+    recorded, not run, so they go to the tally this yields. Process-wide
+    (the backward of a capture runs on autograd's device thread)."""
+    global _tally
+    prev, _tally = _tally, dict.fromkeys(launches, 0)
+    try:
+        yield _tally
+    finally:
+        _tally = prev
+
+
+def add_launches(counts):
+    """Launches that ran: a replayed graph's tally."""
+    for kind, n in counts.items():
+        launches[kind] += n
 
 
 def _scale(q, scale):
@@ -229,7 +260,7 @@ def flash_fwd(q, k, v, mask=None, causal=False, scale=None):
     if err != 0:
         raise RuntimeError("flash attention forward kernel launch failed: "
                            "CUDA error {}".format(err))
-    launches["flash_fwd"] += 1
+    _count("flash_fwd")
     return o, lse
 
 
@@ -265,12 +296,12 @@ def flash_bwd(q, k, v, mask, lse, delta, do, causal=False, scale=None,
     if mode == "fused":
         dq32 = torch.zeros(B, H, Tq, D, dtype=torch.float32, device=q.device)
         dkdv(dq32)
-        launches["flash_bwd_fused"] += 1
+        _count("flash_bwd_fused")
         return dq32.to(q.dtype), dk, dv
     dkdv()
-    launches["flash_bwd_split"] += 1
+    _count("flash_bwd_split")
     dq_only()
-    launches["flash_bwd_split"] += 1
+    _count("flash_bwd_split")
     return dq, dk, dv
 
 

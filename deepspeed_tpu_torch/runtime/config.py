@@ -19,8 +19,12 @@ ZeRO (``zero_optimization``: every stage the JAX config accepts) holds
 the JAX package's checks (ZeRO needs fp16 or bf16, stage at most 3,
 cpu_offload only at stage 2). ``world_size`` is the data-parallel size:
 the batch triangle is train = micro x accumulation x world_size. Over
-several ranks ``cpu_offload`` and ``stream_gradients`` are refused (offload
-over ranks is ROADMAP Queue 1 item 17).
+several ranks ``stream_gradients`` is refused, with the JAX engine's
+reason; ``cpu_offload`` is taken.
+
+``amp`` (``amp_enabled``, ``amp_params``: the block without ``enabled``)
+parses as in the JAX config; the engine maps it to bf16 compute on fp32
+masters (``opt_level`` O0: fp32).
 
 ``OneBitAdam`` (the optimizer type), ``sequence_parallel`` (``enabled``,
 ``size``), ``progressive_layer_drop`` (``enabled``, ``theta``, ``gamma``:
@@ -51,7 +55,7 @@ from deepspeed_tpu_torch.elasticity.constants import (
 from deepspeed_tpu_torch.runtime.config_utils import (
     dict_raise_error_on_duplicate_keys, get_scalar_param)
 from deepspeed_tpu_torch.runtime.constants import (
-    BFLOAT16, BFLOAT16_ENABLED, BFLOAT16_ENABLED_DEFAULT, CHECKPOINT,
+    AMP, AMP_ENABLED, AMP_ENABLED_DEFAULT, BFLOAT16, BFLOAT16_ENABLED, BFLOAT16_ENABLED_DEFAULT, CHECKPOINT,
     CHECKPOINT_TAG_VALIDATION, CHECKPOINT_TAG_VALIDATION_DEFAULT,
     CHECKPOINT_TAG_VALIDATION_MODES, FP16, FP16_ENABLED, FP16_ENABLED_DEFAULT,
     FP16_HYSTERESIS, FP16_HYSTERESIS_DEFAULT, FP16_INITIAL_SCALE_POWER,
@@ -106,12 +110,13 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
 
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
 _TOOLING = "the tooling slice (ROADMAP Queue 1)"
-_DP_OFFLOAD = "ZeRO-Offload over several ranks (ROADMAP Queue 1 item 17)"
+# The JAX engine's reason for refusing stream_gradients on a mesh of more
+# than one device.
+STREAM_MULTI_RANK = ("stream_gradients targets single-chip offload "
+                     "capacity; use plain cpu_offload on multi-device meshes")
 
 # Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
 _UNPORTED_BLOCKS = {
-    "amp": "amp (the JAX package maps it to bf16; pass a bf16 block) - "
-           + _RUNTIME,
     "flops_profiler": _TOOLING,
 }
 
@@ -152,6 +157,7 @@ _SCHEMA = (
     ("fp16_enabled", (FP16, FP16_ENABLED), FP16_ENABLED_DEFAULT),
     ("bfloat16_enabled", (BFLOAT16, BFLOAT16_ENABLED),
      BFLOAT16_ENABLED_DEFAULT),
+    ("amp_enabled", (AMP, AMP_ENABLED), AMP_ENABLED_DEFAULT),
     ("loss_scale", (FP16, FP16_LOSS_SCALE), FP16_LOSS_SCALE_DEFAULT,
      "fp16_enabled"),
     ("wall_clock_breakdown", (WALL_CLOCK_BREAKDOWN,),
@@ -383,6 +389,7 @@ class DeepSpeedConfig(object):
         self.zero_optimization_stage = self.zero_config.stage
         self.zero_enabled = self.zero_optimization_stage > 0
         _check_ported(param_dict)
+        self.amp_params = _typed_block(param_dict, AMP, AMP_ENABLED)
         self.pld_params = _typed_block(param_dict, PROGRESSIVE_LAYER_DROP,
                                        PLD_ENABLED) \
             if self.pld_enabled else False
@@ -469,13 +476,12 @@ class DeepSpeedConfig(object):
                                  ZERO_OPTIMIZATION_GRADIENTS))
 
     def _check_data_parallel(self):
-        """Over several ranks: what the port does not partition yet."""
-        if self.world_size <= 1:
-            return
-        for key in ("cpu_offload", "stream_gradients"):
-            if getattr(self.zero_config, key):
-                _refuse("'zero_optimization.{}' at data-parallel size {}"
-                        .format(key, self.world_size), _DP_OFFLOAD)
+        """Over several ranks: ``stream_gradients`` is the one-card tier (the
+        JAX engine refuses it on a multi-device mesh)."""
+        if self.world_size > 1 and self.zero_config.stream_gradients:
+            raise ValueError("'zero_optimization.stream_gradients' at "
+                             "data-parallel size {}: {}".format(
+                                 self.world_size, STREAM_MULTI_RANK))
 
     def _configure_train_batch_size(self):
         self._set_batch_related_parameters()

@@ -120,6 +120,12 @@ SEQUENCE_PARALLEL_ENABLED_DEFAULT = False
 SEQUENCE_PARALLEL_SIZE = "size"
 SEQUENCE_PARALLEL_SIZE_DEFAULT = None
 
+# amp (mapped to the bf16 policy; opt_level O0 keeps fp32)
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+AMP_OPT_LEVELS = ("O0", "O1", "O2", "O3")
+
 # Progressive layer drop
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"

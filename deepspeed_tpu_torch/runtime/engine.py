@@ -7,10 +7,11 @@ ds_config, ``train_batch``, gradient accumulation, clipping, bf16 and fp16
 checkpoints in the JAX package's layout and format.
 
 - Precision: the module's parameters are the fp32 master weights. With
-  bf16 or fp16 enabled every floating parameter is cast to that dtype at
-  each call (``torch.func.functional_call`` over the cast copies), as the
-  JAX engine casts its parameter tree before ``apply``; gradients flow back
-  through the casts into fp32 ``.grad``.
+  bf16 or fp16 enabled (or ``amp``, which the JAX engine maps to bf16
+  compute, ``opt_level`` O0 to fp32) every floating parameter is cast to
+  that dtype at each call (``torch.func.functional_call`` over the cast
+  copies), as the JAX engine casts its parameter tree before ``apply``;
+  gradients flow back through the casts into fp32 ``.grad``.
 - ``forward`` runs the module (dropout on while training, its masks seeded
   from the engine's ``torch.Generator``) and returns the loss;
   ``backward(loss)`` backpropagates ``loss * loss_scale / gas``, adding into
@@ -78,10 +79,23 @@ checkpoints in the JAX package's layout and format.
   and the device parameters drop to the compute dtype; each step unscales
   and clips on the card, then runs the pipelined host step (downloads on a
   side stream, the C++ optimizer chunk by chunk, uploads on another
-  stream). ``offload_timing()`` reports its phases.
+  stream). ``offload_timing()`` reports its phases. Over several data
+  ranks (ZeRO stage 2 + ``cpu_offload``) each rank keeps its ZeRO
+  partition on the host (``ShardedHostOffload``): the gradients are
+  reduce-scattered (under sequence parallelism after their mean over the
+  seq line, as every gradient path takes it), the rank's shard goes down, the host step updates it,
+  the compute-dtype shard comes back and the parameters are all-gathered;
+  under tensor parallelism each model rank offloads its own shards. The
+  checkpoint's ``fp32_master`` is the full array in JAX's leaf order, so it
+  loads at any data or model size.
 - ``stream_gradients``: each gradient is copied to pinned host memory by a
   post-accumulate hook as the backward produces it, and freed; only the
-  squared norms stay on the card. Needs gradient_accumulation_steps 1.
+  squared norms stay on the card. Needs gradient_accumulation_steps 1 and
+  one rank (the JAX engine's conditions).
+- LAMB (device ``FusedLamb`` or host ``DeepSpeedCPULamb``) over ranks that
+  hold shards of a tensor (ZeRO's partition, tensor parallelism): its
+  per-tensor trust ratio takes the whole tensor's norms, each shard's sums
+  of squares added in one all-reduce a group (``_lamb_norm_reduce``).
 - ``training_data``: ``deepspeed_io`` builds the ``DeepSpeedDataLoader``
   (``initialize`` returns it), and ``train_batch(data_iter=...)`` draws
   from it.
@@ -129,9 +143,6 @@ checkpoints in the JAX package's layout and format.
   at each boundary. ``activation_checkpointing``: the block configures
   ``runtime/activation_checkpointing/checkpointing.py`` (with the grid, for
   ``partition_activations``).
-
-Not on this path yet (ROADMAP Queue 1): ZeRO-Offload and Lamb over
-partitioned ranks (item 17).
 """
 
 import inspect
@@ -156,8 +167,9 @@ from deepspeed_tpu_torch.parallel import tensor_parallel
 from deepspeed_tpu_torch.runtime import lr_schedules
 from deepspeed_tpu_torch.runtime.config import (
     ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
-    DeepSpeedConfig, get_sequence_parallel_enabled,
+    STREAM_MULTI_RANK, DeepSpeedConfig, get_sequence_parallel_enabled,
     get_sequence_parallel_size)
+from deepspeed_tpu_torch.runtime.constants import AMP_OPT_LEVELS
 from deepspeed_tpu_torch.runtime.csr_tensor import (  # noqa: F401
     CSRTensor, csr_allreduce, pad_csr, sparse_grad_exchange,
     split_half_float_double_csr)
@@ -169,7 +181,10 @@ from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
 from deepspeed_tpu_torch.runtime.utils import (ensure_directory_exists,
                                                global_norm, has_overflow,
                                                load_flax_tree)
-from deepspeed_tpu_torch.runtime.zero.offload import HostOffload
+from deepspeed_tpu_torch.runtime.zero.offload import (HostOffload,
+                                                      ShardedHostOffload,
+                                                      join_jax_flat,
+                                                      split_jax_flat)
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry import (MetricsRegistry, ProgramRegistry,
                                            TensorBoardScalarWriter)
@@ -227,7 +242,6 @@ def _host_leaf(tree, name):
 _HOST_LAMB_KEYS = ("lr", "bias_correction", "betas", "eps", "weight_decay",
                    "max_coeff", "min_coeff", "amsgrad")
 
-_OFFLOAD_ITEM = "ROADMAP Queue 1 item 17"
 _ONEBIT_ITEM = "ROADMAP Queue 1 item 9"
 _SEQ_ITEM = "ROADMAP Queue 1 item 10"
 
@@ -346,12 +360,7 @@ class DeepSpeedEngine(object):
         self.telemetry.gauge("lr").set_fn(
             lambda: (ref().get_lr() if ref().optimizer else [0.0])[0])
 
-        if self.fp16_enabled():
-            self.compute_dtype = torch.float16
-        elif self.bfloat16_enabled():
-            self.compute_dtype = torch.bfloat16
-        else:
-            self.compute_dtype = torch.float32
+        self.compute_dtype = self._configure_precision()
 
         self.module = model.to(self.device)
         if isinstance(model_parameters, dict):
@@ -408,8 +417,16 @@ class DeepSpeedEngine(object):
         self._sparse_k = 0
         self._pg_inputs = []
         self._configure_optimizer(optimizer)
+        if self._offload_mode():
+            # The offload tier partitions its own host state.
+            self._partitioned = False
         self._check_onebit()
         self._check_partitioned()
+        if hasattr(self.optimizer, "norm_reduce") and self.mesh.size > 1:
+            # LAMB's trust ratio over ranks that each hold a shard.
+            ref = weakref.ref(self)
+            self.optimizer.norm_reduce = \
+                lambda sq: ref()._lamb_norm_reduce(sq)
         self._configure_lr_scheduler(lr_scheduler)
         pld = self._config.pld_params
         self.progressive_layer_drop = ProgressiveLayerDrop(
@@ -513,6 +530,27 @@ class DeepSpeedEngine(object):
             synchronize=cfg.synchronize_checkpoint_boundary,
             profile=cfg.profile, mesh_=self.mesh)
 
+    def _configure_precision(self):
+        """The compute dtype (fp32 masters always). ``amp`` is the JAX
+        engine's mapping of the reference's apex hook: bf16 compute, no loss
+        scaling (``opt_level`` O0: fp32), exclusive with the fp16 and bf16
+        blocks."""
+        if self.amp_enabled():
+            if self.fp16_enabled() or self.bfloat16_enabled():
+                raise ValueError(
+                    "amp is mutually exclusive with the fp16/bf16 config "
+                    "blocks (reference semantics); enable exactly one")
+            opt_level = dict(self.amp_params() or {}).get("opt_level", "O1")
+            if opt_level not in AMP_OPT_LEVELS:
+                raise ValueError("unknown amp opt_level {!r}".format(
+                    opt_level))
+            return torch.float32 if opt_level == "O0" else torch.bfloat16
+        if self.fp16_enabled():
+            return torch.float16
+        if self.bfloat16_enabled():
+            return torch.bfloat16
+        return torch.float32
+
     def _configure_with_arguments(self, args, config_params):
         config_file = getattr(args, "deepspeed_config", None) if args \
             else None
@@ -545,6 +583,12 @@ class DeepSpeedEngine(object):
 
     def bfloat16_enabled(self):
         return self._config.bfloat16_enabled
+
+    def amp_enabled(self):
+        return self._config.amp_enabled
+
+    def amp_params(self):
+        return self._config.amp_params
 
     def gradient_clipping(self):
         return self._config.gradient_clipping
@@ -689,18 +733,15 @@ class DeepSpeedEngine(object):
     def _check_partitioned(self):
         """What ZeRO over several ranks, and tensor parallelism, do not
         cover yet."""
-        if self._tp is not None and self.zero_cpu_offload():
-            raise NotImplementedError(
-                "ZeRO-Offload over {} tensor-parallel ranks is not ported "
-                "yet ({})".format(self.mp_world_size, _OFFLOAD_ITEM))
         if not self._partitioned:
             return
-        if not isinstance(self.optimizer, FusedAdam):
+        if not isinstance(self.optimizer, (FusedAdam, FusedLamb)):
             raise NotImplementedError(
-                "ZeRO stage {} over {} ranks partitions Adam/AdamW state "
-                "only; {} over partitioned ranks is not ported yet ({})"
-                .format(self.zero_optimization_stage(), self.dp_world_size,
-                        type(self.optimizer).__name__, _OFFLOAD_ITEM))
+                "ZeRO stage {} over {} ranks partitions the state of the "
+                "DeepSpeed optimizers (Adam, AdamW, Lamb); a client {} is "
+                "not partitioned".format(self.zero_optimization_stage(),
+                                         self.dp_world_size,
+                                         type(self.optimizer).__name__))
         if self._tp is not None and self._tp.stored and \
                 self.zero_optimization_stage() >= 3:
             raise NotImplementedError(
@@ -777,6 +818,9 @@ class DeepSpeedEngine(object):
     def _check_streaming(self):
         """The JAX engine's conditions for stream_gradients (it asserts
         them at the forward)."""
+        if self._stream_grads_active() and self.mesh.size > 1:
+            raise ValueError("stream_gradients over {} ranks: {}".format(
+                self.mesh.size, STREAM_MULTI_RANK))
         if self._stream_grads_active() and \
                 self.gradient_accumulation_steps() != 1:
             raise ValueError("stream_gradients requires "
@@ -925,14 +969,31 @@ class DeepSpeedEngine(object):
 
     # ----------------------------------------------------- ZeRO-Offload tier
 
+    def _sharded_offload(self):
+        """ZeRO-Offload over several data ranks: each keeps its partition."""
+        return self._offload_mode() and self.zero_optimization() and \
+            self.dp_world_size > 1
+
     def _init_offload(self):
         """Build the host state (``runtime/zero/offload.py``): the fp32
-        master, m and v in host memory, per-parameter views of the moments
+        master, m and v in host memory (over several data ranks, this
+        rank's ZeRO partition of them), per-parameter views of the moments
         as ``opt_state``, the device parameters in the compute dtype."""
         if self._offload is not None:
             self._offload.close()
-        self._offload = HostOffload(self._names, self._params,
-                                    self.compute_dtype)
+        if self._sharded_offload():
+            skip = self._tp.dims if self._tp is not None else \
+                [None] * len(self._params)
+            dims = [mesh_lib.zero_partition_dim(p.shape, self.dp_world_size,
+                                                d)
+                    for p, d in zip(self._params, skip)]
+            self._offload = ShardedHostOffload(
+                self._names, self._params, self.compute_dtype, dims,
+                self.dp_group, self._config.zero_config.reduce_bucket_size,
+                seq_group=self.sp_group if self._sp is not None else None)
+        else:
+            self._offload = HostOffload(self._names, self._params,
+                                        self.compute_dtype)
         self._offload.drop_device_params()
         self.opt_state = {"step": 0,
                           "exp_avg": self._offload.views(self._offload.m),
@@ -994,7 +1055,9 @@ class DeepSpeedEngine(object):
                 self._init_offload()
             scale = None
             if clip > 0.0:
-                norm = global_norm(grads)
+                # Over ranks each holds shards: the norm over their groups.
+                norm = self._global_norm(grads) if self.mesh.size > 1 \
+                    else global_norm(grads)
                 scale = inv_scale * torch.clamp(
                     clip / (norm * inv_scale + 1e-6), max=1.0)
             elif inv_scale != 1.0:
@@ -1105,16 +1168,16 @@ class DeepSpeedEngine(object):
         over the model group summed over that, each replicated leaf
         counted once; over the pipe group the stages' sums (``skip``: the
         leaves another stage counts)."""
-        z = self._zero
+        dims = self._dp_dims()
         buckets = [[], [], [], []]  # none, data, model, both
         for i, g in enumerate(grads):
             if i in skip:
                 continue
-            k = (1 if z is not None and z.owned(i) else 0) + \
+            k = (1 if dims is not None and dims[i] is not None else 0) + \
                 (2 if self._tp is not None and self._tp.sharded(i) else 0)
             buckets[k].append(g)
         sq = [global_norm(b).to(self.device).square() for b in buckets]
-        if z is not None:
+        if dims is not None:
             t = comm.all_reduce(torch.stack([sq[1], sq[3]]), self.dp_group)
             sq[1], sq[3] = t[0], t[1]
         if self._tp is not None:
@@ -1124,6 +1187,39 @@ class DeepSpeedEngine(object):
         if self.pp_group is not None:
             total = comm.all_reduce(total.reshape(1), self.pp_group)[0]
         return total.sqrt()
+
+    def _dp_dims(self):
+        """Per leaf, the dim the data group partitions this rank's
+        gradients on (None: whole), or None without a partition."""
+        if self._zero is not None:
+            return self._zero.dims
+        if isinstance(self._offload, ShardedHostOffload):
+            return self._offload.dims
+        return None
+
+    def _update_dims(self):
+        """``_dp_dims`` of the tensors the optimizer updates."""
+        return self._dp_dims()
+
+    def _lamb_norm_reduce(self, sq):
+        """LAMB's per-tensor [||p||^2, ||u||^2] (``sq``, [n, 2], this rank's
+        shards) of the whole tensors: one all-reduce over the data group of
+        the rows of the leaves it partitions, one over the model group of
+        those tensor parallelism shards."""
+        dims = self._update_dims()
+        masks = []
+        if dims is not None:
+            masks.append(([d is not None for d in dims], self.dp_group))
+        if self._tp is not None:
+            masks.append(([self._tp.sharded(i) for i in range(len(sq))],
+                          self.mp_group))
+        for mask, group in masks:
+            if not any(mask):
+                continue
+            keep = torch.tensor(mask, device=sq.device)[:, None]
+            part = comm.all_reduce(torch.where(keep, sq, 0.0), group)
+            sq = torch.where(keep, part, sq)
+        return sq
 
     def _reduce_partitioned(self):
         """The boundary's reduction of the partitioned gradients: the
@@ -1214,10 +1310,19 @@ class DeepSpeedEngine(object):
             torch._foreach_mul_(grads, torch.clamp(clip / (norm + 1e-6),
                                                    max=1.0))
         group = self.optimizer.param_groups[0]
-        params = self._zero.master if self._zero is not None else \
-            self._params
+        params, grads = self._step_params(grads)
         self.optimizer.update(params, grads, self.opt_state, lr=group["lr"],
                               betas=group.get("betas", (0.9, 0.999)))
+        self._publish()
+
+    def _step_params(self, grads):
+        """The tensors the optimizer updates and their gradients: the
+        rank's master shards under ZeRO, else the parameters."""
+        return (self._zero.master if self._zero is not None else
+                self._params), grads
+
+    def _publish(self):
+        """The module's parameters from what the update wrote."""
         if self._zero is not None:
             self._zero.publish()
 
@@ -1227,6 +1332,15 @@ class DeepSpeedEngine(object):
         grads = None
         if self._zero is not None:
             grads = self._reduce_partitioned()
+        elif not streamed and self._sharded_offload():
+            # The data group's mean (the seq line's first), reduce-scattered
+            # to this rank's partition (the host state's).
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self._params]
+            self.zero_grad()
+            if self._offload is None:
+                self._init_offload()
+            grads = self._offload.reduce(grads)
         elif not streamed:
             if not self._onebit_compressed():
                 self.allreduce_gradients()
@@ -1403,13 +1517,16 @@ class DeepSpeedEngine(object):
                         self.dp_world_size)
         return opt_sd
 
-    def _full(self, tensors):
+    def _full(self, tensors, partitioned=True):
         """Full fp32 leaves from this rank's ``tensors`` (one per
-        parameter): gathered over the data group where ZeRO partitions
-        them, then over the model group where tensor parallelism shards
-        them (collective: every rank calls it)."""
-        if self._zero is not None:
+        parameter): gathered over the data group where ZeRO (or the offload
+        tier) partitions them (``partitioned``: they are this rank's
+        partition), then over the model group where tensor parallelism
+        shards them (collective: every rank calls it)."""
+        if self._zero is not None and partitioned:
             tensors = self._zero.gather_states(tensors)
+        elif isinstance(self._offload, ShardedHostOffload) and partitioned:
+            tensors = self._offload.gather(tensors)
         tensors = [t.detach().float() for t in tensors]
         if self._tp is not None:
             tensors = [self._tp.full(i, t) for i, t in enumerate(tensors)]
@@ -1417,8 +1534,9 @@ class DeepSpeedEngine(object):
 
     def _full_masters(self):
         """Every leaf's full fp32 master (collective)."""
-        return self._full(self._zero.master if self._zero is not None
-                          else self._params)
+        if self._zero is not None:
+            return self._full(self._zero.master)
+        return self._full(self._params, partitioned=False)
 
     def _local(self, i, full):
         """This rank's leaf ``i`` (its tensor-parallel shard, then its ZeRO
@@ -1427,6 +1545,8 @@ class DeepSpeedEngine(object):
             full = self._tp.local(i, full)
         if self._zero is not None:
             return self._zero.shard_of(i, full)
+        if isinstance(self._offload, ShardedHostOffload):
+            return self._offload.shard(i, full)
         return full
 
     def _onebit_error_rows(self):
@@ -1468,8 +1588,13 @@ class DeepSpeedEngine(object):
                 sd["state"][key] = _nest(self._names, rows)
         if self._offload is not None:
             # Resuming keeps full master precision (the bf16 module
-            # parameters would drift the trajectory).
-            sd["fp32_master"] = self._offload.master.numpy().copy()
+            # parameters would drift the trajectory): the full array in
+            # JAX's leaf order, gathered over the ranks that hold shards.
+            master = self._offload.master
+            if self.mesh.size > 1:
+                master = join_jax_flat(self._names, self._full(
+                    self._offload.views(master)))
+            sd["fp32_master"] = master.numpy().copy()
         sd.update(self.optimizer.state_dict())
         return sd
 
@@ -1495,7 +1620,8 @@ class DeepSpeedEngine(object):
         if self.optimizer is not None and (first or elastic):
             optimizer = self._optimizer_state_for_save(
                 shards=elastic, onebit_rows=onebit_rows)
-        elif (self._zero is not None or self._tp is not None) and \
+        elif (self._zero is not None or self._tp is not None or
+              isinstance(self._offload, ShardedHostOffload)) and \
                 self.optimizer is not None:
             self._optimizer_state_for_save(shards=False)  # collective
         # The full fp32 masters (all-gathers when partitioned or sharded).
@@ -1580,20 +1706,15 @@ class DeepSpeedEngine(object):
         if load_optimizer_states and self.optimizer is not None and \
                 opt_sd is not None and opt_sd.get("state") is not None:
             saved = opt_sd["state"]
-            if self._zero is not None or self._tp is not None:
+            if self._offload is not None:
+                self._load_offload_state(saved, opt_sd.get("fp32_master"),
+                                         checkpoint["module"])
+            elif self._zero is not None or self._tp is not None:
                 # The full logical state, sliced to this rank's shards.
                 for key in ("exp_avg", "exp_avg_sq"):
                     for i, (name, t) in enumerate(zip(self._names,
                                                       self.opt_state[key])):
                         t.copy_(self._local(i, _host_leaf(saved[key], name)))
-            elif self._offload is not None:
-                master = opt_sd.get("fp32_master")
-                self._offload.load_moments(
-                    [_host_leaf(saved["exp_avg"], n) for n in self._names],
-                    [_host_leaf(saved["exp_avg_sq"], n) for n in self._names],
-                    None if master is None else torch.from_numpy(
-                        np.asarray(master, np.float32)))
-                self._offload.step_count = int(np.asarray(saved["step"]))
             else:
                 for key in ("exp_avg", "exp_avg_sq"):
                     for name, t in zip(self._names, self.opt_state[key]):
@@ -1617,6 +1738,25 @@ class DeepSpeedEngine(object):
         client_state = {k: v for k, v in checkpoint.items()
                         if k not in _DEEPSPEED_STATES}
         return load_path, client_state
+
+    def _load_offload_state(self, saved, master, module):
+        """The host state from a saved optimizer state: the moments and the
+        flat ``fp32_master`` (JAX's leaf order, full leaves), each leaf cut
+        to this rank's shard."""
+        def local(leaves):
+            return [self._local(i, f).contiguous()
+                    for i, f in enumerate(leaves)]
+
+        masters = None
+        if master is not None:
+            shapes = [_leaf(module, n).shape for n in self._names]
+            masters = local(split_jax_flat(torch.from_numpy(
+                np.asarray(master, np.float32)), self._names, shapes))
+        self._offload.load_moments(
+            local([_host_leaf(saved["exp_avg"], n) for n in self._names]),
+            local([_host_leaf(saved["exp_avg_sq"], n) for n in self._names]),
+            masters)
+        self._offload.step_count = int(np.asarray(saved["step"]))
 
     def _load_onebit_errors(self, saved):
         """1-bit Adam's error buffers from a saved state of either package:

@@ -80,7 +80,6 @@ from deepspeed_tpu_torch.runtime.utils import (ensure_directory_exists,
                                                has_overflow)
 from deepspeed_tpu_torch.utils.distributed import group_timeout
 
-COMPILED_ITEM = "ROADMAP Queue 1 item 15"
 OPTIM_FILE = "zero_pp_rank_0_mp_rank_00optim_states.pt"
 META_FILE = "mp_rank_00_model_states.pt"
 
@@ -157,11 +156,6 @@ class PipelineEngine(DeepSpeedEngine):
                  dist_init_required=None):
         if not isinstance(model, PipelineModule):
             raise TypeError("model must be a PipelineModule")
-        if model.compiled:
-            raise NotImplementedError(
-                "PipelineModule(compiled=True) selects the JAX package's "
-                "one-program pipeline engine (runtime/pipe/compiled.py), "
-                "which is not ported yet ({})".format(COMPILED_ITEM))
         self.pipe_module = model
         self.num_stages = model.num_stages
         num_mp = max(model.topology().get_dim("model"), 1)
@@ -182,9 +176,7 @@ class PipelineEngine(DeepSpeedEngine):
         self.grid = PipelineParallelGrid(topology=topo, mesh=mesh,
                                          global_rank=mesh.rank)
         self.stage_id = self.grid.get_stage_id()
-        stage = _StageModule(model, self.stage_id, device)
-        if model_parameters is not None:
-            self._load_layer_trees(stage, model_parameters)
+        stage = self._build_stage(model, device, model_parameters)
         self._tied_groups = self._build_tied_groups(mesh)
         self._broadcast_tied(stage)
         super().__init__(args, stage, optimizer=optimizer,
@@ -193,10 +185,7 @@ class PipelineEngine(DeepSpeedEngine):
                          config_params=config_params, device=device,
                          seed=seed, collate_fn=collate_fn, mesh=mesh,
                          dist_init_required=False)
-        if self.zero_optimization() and self.zero_optimization_stage() >= 1:
-            raise NotImplementedError(
-                "ZeRO stage {} with a pipeline is not ported (ROADMAP Queue "
-                "1 item 8)".format(self.zero_optimization_stage()))
+        self._check_zero_stage()
         stages = self._config.pipeline["stages"]
         if stages != "auto" and int(stages) != self.num_stages:
             raise ValueError("ds_config pipeline.stages={} but the "
@@ -211,26 +200,46 @@ class PipelineEngine(DeepSpeedEngine):
         if self.num_stages > 1:
             p2p.init_process_groups(self.grid)
         # Per layer index: its parameters (engine index, name in the layer).
-        self._layer_params = {}
-        for idx, name in self.module.layer_name.items():
-            prefix = name + "."
-            self._layer_params[idx] = [
-                (i, n[len(prefix):]) for i, n in enumerate(self._names)
-                if n.startswith(prefix)]
+        self._layer_params = self._index_layers()
         # The tied copies another stage counts in the norm.
         self._tied_skip = frozenset(
             i for key, idxs in model.tied_specs.items()
             if model.tied_stages(key)[0] != self.stage_id
             for idx in idxs if idx in self._layer_params
             for i, _ in self._layer_params[idx])
-        self._seeded = {idx: _accepts_seed(getattr(
-            self.module, self.module.layer_name[idx]).forward)
-            for idx in self.module.layer_name}
+        self._seeded = {idx: _accepts_seed(self._layer(idx).forward)
+                        for idx in self.module.layer_name}
         self._meta_mode = None
         self._send_meta = self._recv_meta = None
         self.agg_loss = None
 
     # ---------------------------------------------------------- build
+
+    def _build_stage(self, model, device, model_parameters):
+        """This rank's stage module, its layers loaded from the per-layer
+        trees ``model_parameters`` where given."""
+        stage = _StageModule(model, self.stage_id, device)
+        if model_parameters is not None:
+            self._load_layer_trees(stage, model_parameters)
+        return stage
+
+    def _check_zero_stage(self):
+        if self.zero_optimization() and self.zero_optimization_stage() >= 1:
+            raise NotImplementedError(
+                "ZeRO stage {} with a pipeline is not ported (ROADMAP Queue "
+                "1 item 8)".format(self.zero_optimization_stage()))
+
+    def _index_layers(self):
+        """{layer index: [(engine parameter index, name in the layer)]}."""
+        out = {}
+        for idx, name in self.module.layer_name.items():
+            prefix = name + "."
+            out[idx] = [(i, n[len(prefix):]) for i, n in
+                        enumerate(self._names) if n.startswith(prefix)]
+        return out
+
+    def _layer(self, idx):
+        return getattr(self.module, self.module.layer_name[idx])
 
     def _load_layer_trees(self, stage, trees):
         from deepspeed_tpu_torch.runtime.utils import load_flax_tree
@@ -571,11 +580,23 @@ class PipelineEngine(DeepSpeedEngine):
         per-parameter ``tensors`` (collective over the model group)."""
         out = {}
         for i, local in self._layer_params[idx]:
-            t = tensors[i].detach().float()
-            if self._tp is not None:
-                t = self._tp.full(i, t)
-            out[local] = t
+            out[local] = self._leaf_full(idx, i, tensors)
         return _nest(list(out), list(out.values()))
+
+    def _leaf_full(self, idx, i, tensors):
+        """Layer ``idx``'s full fp32 leaf of parameter ``i`` in ``tensors``
+        (collective over the model group)."""
+        t = tensors[i].detach().float()
+        if self._tp is not None:
+            t = self._tp.full(i, t)
+        return t
+
+    def _set_leaf(self, idx, i, tensors, full):
+        """Copy a full saved leaf of layer ``idx`` into this rank's
+        ``tensors[i]``."""
+        if self._tp is not None:
+            full = self._tp.local(i, full)
+        tensors[i].copy_(full)
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True):
@@ -663,7 +684,7 @@ class PipelineEngine(DeepSpeedEngine):
             with open(path, "rb") as f:
                 tree = pickle.load(f)
             for i, local in params:
-                self._params[i].data.copy_(self._local_leaf(i, tree, local))
+                self._set_leaf(idx, i, self._params, _full_leaf(tree, local))
         opt_path = os.path.join(ckpt_dir, OPTIM_FILE)
         if load_optimizer_states and self.opt_state is not None and \
                 os.path.exists(opt_path):
@@ -675,8 +696,8 @@ class PipelineEngine(DeepSpeedEngine):
                     continue
                 for i, local in params:
                     for key in ("exp_avg", "exp_avg_sq"):
-                        self.opt_state[key][i].copy_(
-                            self._local_leaf(i, entry[key], local))
+                        self._set_leaf(idx, i, self.opt_state[key],
+                                       _full_leaf(entry[key], local))
                     for key in ("worker_error", "server_error"):
                         if key in entry and key in self.opt_state:
                             leaf = self._local_leaf(i, entry[key], local)
@@ -709,13 +730,19 @@ class PipelineEngine(DeepSpeedEngine):
         return idx
 
     def _local_leaf(self, i, tree, local):
-        for key in local.split("."):
-            tree = tree[key]
-        full = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(tree, np.float32)))
+        full = _full_leaf(tree, local)
         if self._tp is not None:
             full = self._tp.local(i, full)
         return full
+
+
+def _full_leaf(tree, local):
+    """The saved leaf ``local`` ("a.b" in the layer's tree) as an fp32
+    tensor."""
+    for key in local.split("."):
+        tree = tree[key]
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(tree,
+                                                            np.float32)))
 
 
 def _tensors(x):

@@ -24,8 +24,8 @@ build and kept equal by the engine's all-reduce of their gradients
 layer type that takes a ``seed`` argument; ``seed_fn(seed)`` is called
 first where given); the ``tp_rules`` attribute holds the tensor-parallel
 rules of a 'model' axis (``parallel/tensor_parallel.py``);
-``compiled=True`` (the JAX one-program engine) is refused by
-``initialize``.
+``compiled=True`` selects the compiled engine (``runtime/pipe/compiled.py``)
+at ``initialize``.
 """
 
 import inspect

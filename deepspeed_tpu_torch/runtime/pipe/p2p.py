@@ -12,7 +12,8 @@ staged through pinned host memory (gloo sends host buffers; the card's
 two-ranks-on-one-device runs use gloo), on ``nccl`` it is sent where it
 lies. ``send_meta`` / ``recv_meta`` carry a list of shapes and dtypes as
 one small int64 message, so the receiver can allocate its buffers.
-``stats`` counts the sends, the receives and their bytes.
+``stats`` counts the sends, the receives and their bytes, and the sends
+by edge (``edges``: {(source stage, destination stage): sends}).
 """
 
 import torch
@@ -27,7 +28,7 @@ _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
 
 
 def reset_stats():
-    stats.update(sends=0, recvs=0, send_bytes=0, recv_bytes=0)
+    stats.update(sends=0, recvs=0, send_bytes=0, recv_bytes=0, edges={})
 
 
 reset_stats()
@@ -73,6 +74,8 @@ def send(tensor, dest_stage, async_op=False):
         t = h
     stats["sends"] += 1
     stats["send_bytes"] += t.numel() * t.element_size()
+    edge = (src_stage, dest_stage)
+    stats["edges"][edge] = stats["edges"].get(edge, 0) + 1
     dist.send(t, rank, group=group)
 
 

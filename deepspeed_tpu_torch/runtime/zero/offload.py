@@ -35,15 +35,35 @@ chunk i; chunk i's updated parameters then go back to the card with
 ``non_blocking`` copies on an upload stream, overlapping the next chunk's
 update. The caller's stream waits for the upload stream before the next
 forward. On the CPU (the tests) the same loop runs with plain copies.
+
+LAMB over ranks that each hold a shard of a tensor (the optimizer's
+``norm_reduce`` is set): its trust ratio needs the whole tensor's norms, so
+the step runs the host op's two passes apart: pass 1 over every chunk (the
+moments, the update vector into a host scratch buffer, each tensor's sums
+of squares), one ``norm_reduce`` of the step's sums, then pass 2 chunk by
+chunk (the ratio-scaled update and the upload).
+
+``ShardedHostOffload`` is the tier over a data group (ZeRO with
+``cpu_offload`` over several data ranks): each rank's host state is its
+ZeRO partition only (``mesh.zero_partition_dim``, as stages 1-3 partition),
+the gradients are reduce-scattered (``reduce``: the group's fp32 mean, the
+rank's shard) before their download, the host step updates the shard, the
+compute-dtype shard goes back up and the parameters are all-gathered over
+the group (``publish``). Under tensor parallelism the leaves are the rank's
+model shards (each model rank offloads its own).
 """
 
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.distributed as dist
 
 from deepspeed_tpu_torch.op_builder.builder import (flatten_into, float_ptr,
                                                    load_host)
+from deepspeed_tpu_torch.parallel import comm
+from deepspeed_tpu_torch.parallel.mesh import shard_slice
+from deepspeed_tpu_torch.runtime.zero.partition import gather_full, reduce_mean
 
 # fp32 elements per transfer chunk (~16 MB), as in the JAX package.
 CHUNK_ELEMS = 4 * 1024 * 1024
@@ -58,7 +78,7 @@ def jax_leaf_order(names):
 class HostOffload(object):
     """Host state and pipelined step of one engine (module docstring)."""
 
-    def __init__(self, names, params, compute_dtype):
+    def __init__(self, names, params, compute_dtype, grad_dtype=None):
         self.params = params
         self.order = jax_leaf_order(names)
         self.compute_dtype = compute_dtype
@@ -84,8 +104,12 @@ class HostOffload(object):
         self.out16 = self._host(self.total, torch.bfloat16, pin=True) \
             if compute_dtype == torch.bfloat16 else None
         self.step_count = 0
-        self.staging = {compute_dtype: self._host(self.total, compute_dtype,
-                                                  pin=True)}
+        # The dtype the gradients arrive in: its staging buffer is pinned.
+        self.grad_dtype = grad_dtype or compute_dtype
+        self.staging = {self.grad_dtype: self._host(self.total,
+                                                    self.grad_dtype,
+                                                    pin=True)}
+        self._lamb_scratch = None
         self.stream_g = None
         self._chunk_bufs = None
         self.chunks = self._make_chunks()
@@ -139,7 +163,7 @@ class HostOffload(object):
         buf = self.staging.get(dtype)
         if buf is None:
             buf = self.staging[dtype] = self._host(
-                self.total, dtype, pin=dtype == self.compute_dtype)
+                self.total, dtype, pin=dtype == self.grad_dtype)
         return buf
 
     def _widen(self, ci, src):
@@ -308,6 +332,10 @@ class HostOffload(object):
             # would pay a thread start and join every step.
             self._pool = ThreadPoolExecutor(max_workers=1)
         uploaded = set()
+        two_pass = getattr(optimizer, "norm_reduce", None) is not None
+        if two_pass and self._lamb_scratch is None:
+            self._lamb_scratch = torch.empty(self.total, dtype=torch.float32)
+        sq = torch.zeros(len(self.params), 2, dtype=torch.float64)
         nxt = self._pool.submit(stage, 0) if self.chunks else None
         try:
             for ci, chunk in enumerate(self.chunks):
@@ -317,12 +345,20 @@ class HostOffload(object):
                 if ci + 1 < len(self.chunks):
                     nxt = self._pool.submit(stage, ci + 1)
                 kwargs = {"step": step, "lr": lr}
+                segments = [(self.span[i][0] - lo, self.span[i][1])
+                            for i in chunk]
                 if segmented:
-                    kwargs["segments"] = [(self.span[i][0] - lo,
-                                           self.span[i][1]) for i in chunk]
+                    kwargs["segments"] = segments
                 if self.out16 is not None:
                     kwargs["bf16_out"] = self.out16[lo:hi]
                 t0 = time.perf_counter()
+                if two_pass:
+                    sq[chunk] = optimizer.norms_flat(
+                        self.master[lo:hi], host_g, self.m[lo:hi],
+                        self.v[lo:hi], self._lamb_scratch[lo:hi], step,
+                        segments)
+                    timing["adam_s"] += time.perf_counter() - t0
+                    continue
                 optimizer.step_flat(self.master[lo:hi], host_g,
                                     self.m[lo:hi], self.v[lo:hi], **kwargs)
                 timing["adam_s"] += time.perf_counter() - t0
@@ -330,6 +366,9 @@ class HostOffload(object):
                 self._upload(chunk)
                 uploaded.update(chunk)
                 timing["upload_s"] += time.perf_counter() - t0
+            if two_pass:
+                self._lamb_apply(optimizer, optimizer.norm_reduce(sq), lr,
+                                 timing, uploaded)
         finally:
             if nxt is not None:
                 # Drain the staging future before leaving, also on error.
@@ -342,7 +381,7 @@ class HostOffload(object):
             if self.cuda:
                 # The next forward reads the uploaded parameters.
                 torch.cuda.current_stream(self.device).wait_stream(self._up)
-            if not streamed and source.dtype != self.compute_dtype:
+            if not streamed and source.dtype != self.grad_dtype:
                 # The first step's fp32 gradients: no later step copies
                 # into their buffer.
                 if self.cuda:
@@ -354,6 +393,25 @@ class HostOffload(object):
             (timing["stage_s"] + timing["adam_s"] + timing["upload_s"])
             / max(timing["wall_s"], 1e-9))
         self._timing = timing
+
+    def _lamb_apply(self, optimizer, sq, lr, timing, uploaded):
+        """LAMB's pass 2 (module docstring), chunk by chunk with the
+        uploads, from every tensor's summed squares ``sq``."""
+        ratios = [optimizer.ratio(w, u) for w, u in sq.tolist()]
+        optimizer.lamb_coeffs = [ratios[i] for i in self.order]
+        for chunk in self.chunks:
+            lo, hi = self._bounds(chunk)
+            t0 = time.perf_counter()
+            optimizer.apply_flat(
+                self.master[lo:hi], self._lamb_scratch[lo:hi],
+                [ratios[i] for i in chunk], lr,
+                [(self.span[i][0] - lo, self.span[i][1]) for i in chunk],
+                bf16_out=None if self.out16 is None else self.out16[lo:hi])
+            timing["adam_s"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self._upload(chunk)
+            uploaded.update(chunk)
+            timing["upload_s"] += time.perf_counter() - t0
 
     def _upload(self, chunk):
         """Chunk's updated parameters to the card (non_blocking, on the
@@ -387,20 +445,135 @@ class HostOffload(object):
             p = self.params[i].data.view(-1)
             p.copy_(self.master[o:o + n].to(p.device).to(p.dtype))
 
-    def load_moments(self, m_leaves, v_leaves, master=None):
-        """Fill m and v from per-parameter arrays (engine order) with one
-        ``ds_flatten`` each, and the master from a flat array."""
+    def load_moments(self, m_leaves, v_leaves, master_leaves=None):
+        """Fill m, v and (where given) the master from per-parameter fp32
+        tensors (engine order, this rank's shapes), one ``ds_flatten``
+        each."""
         lib = load_host("flatten_unflatten")
-        for buf, leaves in ((self.m, m_leaves), (self.v, v_leaves)):
+        for buf, leaves in ((self.m, m_leaves), (self.v, v_leaves),
+                            (self.master, master_leaves)):
+            if leaves is None:
+                continue
+            for i, leaf in enumerate(leaves):
+                if leaf.numel() != self.span[i][1]:
+                    raise ValueError(
+                        "saved leaf {} of {} elements, the model's has {}"
+                        .format(i, leaf.numel(), self.span[i][1]))
             flatten_into(lib, buf, [leaves[i].reshape(-1).contiguous()
                                     for i in self.order])
-        if master is not None:
-            if master.numel() != self.total:
-                raise ValueError("fp32_master of {} elements, the model has "
-                                 "{}".format(master.numel(), self.total))
-            self.master.copy_(master)
 
     def close(self):
         if self._pool is not None:
             self._pool.shutdown(wait=True)
             self._pool = None
+
+
+def split_jax_flat(flat, names, shapes):
+    """Per-parameter views (engine order) of ``flat``, the parameters of
+    ``shapes`` laid out in JAX's leaf order (a checkpoint's
+    ``fp32_master``)."""
+    order = jax_leaf_order(names)
+    sizes = [int(torch.Size(shapes[i]).numel()) for i in order]
+    if sum(sizes) != flat.numel():
+        raise ValueError("fp32_master of {} elements, the model has {}"
+                         .format(flat.numel(), sum(sizes)))
+    out, off = [None] * len(names), 0
+    for i, n in zip(order, sizes):
+        out[i] = flat[off:off + n].view(shapes[i])
+        off += n
+    return out
+
+
+def join_jax_flat(names, leaves):
+    """The inverse of ``split_jax_flat``: one flat tensor of ``leaves``
+    (engine order) in JAX's leaf order."""
+    return torch.cat([leaves[i].reshape(-1)
+                      for i in jax_leaf_order(names)])
+
+
+class ShardedHostOffload(HostOffload):
+    """The offload tier of one rank's ZeRO partition over ``group`` (module
+    docstring): ``params`` the rank's full (fp32) parameters, ``dims`` each
+    leaf's partition dim (None: replicated). The host state and the upload
+    targets are the shards: a view of its parameter where the partition is
+    on dim 0, else a device buffer of its own."""
+
+    def __init__(self, names, params, compute_dtype, dims, group, bucket,
+                 seq_group=None):
+        self.full_params = list(params)
+        self.dims = list(dims)
+        self.group = group
+        self.seq_group = seq_group
+        self.dp = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.bucket = int(bucket)
+        self.shapes = [tuple(p.shape) for p in self.full_params]
+        shards = [shard_slice(p.detach().float(), d, self.rank,
+                              self.dp).contiguous()
+                  for p, d in zip(self.full_params, self.dims)]
+        super().__init__(names, shards, compute_dtype,
+                         grad_dtype=torch.float32)
+
+    def drop_device_params(self):
+        """The full parameters drop to the compute dtype; the upload
+        targets become their shards."""
+        targets = []
+        for p, d in zip(self.full_params, self.dims):
+            if p.is_floating_point() and p.dtype != self.compute_dtype:
+                p.data = p.data.to(self.compute_dtype)
+            if d is None:
+                targets.append(p)
+            elif d == 0:
+                targets.append(shard_slice(p.data, 0, self.rank, self.dp))
+            else:
+                targets.append(torch.empty(
+                    shard_slice(p.data, d, self.rank, self.dp).shape,
+                    dtype=p.dtype, device=p.device))
+        self.params = targets
+
+    def reduce(self, grads):
+        """The rank's shards of the group's mean of ``grads`` (full
+        gradients, engine order; the list's entries are freed), under
+        sequence parallelism the mean over ``seq_group`` first
+        (``partition.reduce_mean``, one bucket of ``bucket`` elements at a
+        time)."""
+        out = [None] * len(grads)
+        idx = list(range(len(grads)))
+        for start, end in comm.buckets([g.numel() for g in grads],
+                                       self.bucket):
+            for i, g in reduce_mean(grads, idx[start:end], self.dims,
+                                    self.shapes, self.group,
+                                    self.seq_group).items():
+                out[i] = g
+        return out
+
+    def gather(self, shards):
+        """Full fp32 tensors from per-leaf ``shards`` (collective)."""
+        idx = [i for i, d in enumerate(self.dims) if d is not None]
+        full = gather_full([s.detach().float() for s in shards], idx,
+                           self.dims, self.shapes, self.group, self.bucket)
+        return [full[i].contiguous() if i in full else s.detach().float()
+                for i, s in enumerate(shards)]
+
+    def shard(self, i, full):
+        return shard_slice(full, self.dims[i], self.rank, self.dp)
+
+    @torch.no_grad()
+    def publish(self):
+        """The full parameters from every rank's uploaded shards."""
+        idx = [i for i, d in enumerate(self.dims) if d is not None]
+        full = gather_full([t.data for t in self.params], idx, self.dims,
+                           self.shapes, self.group, self.bucket)
+        for i, f in full.items():
+            self.full_params[i].data.copy_(f)
+
+    def step(self, optimizer, lr, grads=None, scale=None, host_scale=1.0,
+             token=None):
+        super().step(optimizer, lr, grads=grads, scale=scale,
+                     host_scale=host_scale, token=token)
+        self.publish()
+
+    def restore_params(self, indices=None):
+        super().restore_params(indices)
+        if indices is None:
+            self.publish()

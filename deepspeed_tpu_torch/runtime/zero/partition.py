@@ -79,6 +79,87 @@ class _Regather(torch.autograd.Function):
         return None, None, grad
 
 
+def _pack(grads, idx, dims, rows, seq_group):
+    """One fp32 buffer [rows, n] of the gradients ``grads[i]``, ``i`` in
+    ``idx`` (with ``rows`` > 1 each leaf's partition dim moved to the
+    front, rank r's shard in row r), widened by the copy; each entry of
+    ``grads`` is set to None (freed) once copied. Under sequence
+    parallelism (``seq_group``) the mean over the token shards first."""
+    sizes = [grads[i].numel() // rows for i in idx]
+    flat = torch.empty(rows, sum(sizes), dtype=torch.float32,
+                       device=grads[idx[0]].device)
+    off = 0
+    for i, n in zip(idx, sizes):
+        d = dims[i] if rows > 1 else None
+        flat[:, off:off + n].copy_(
+            ZeroPartition._rows(grads[i], d).reshape(rows, -1))
+        grads[i] = None
+        off += n
+    if seq_group is not None:
+        comm.all_reduce(flat, seq_group, mean=True)
+    return flat
+
+
+def reduce_mean(grads, idx, dims, shapes, group, seq_group=None):
+    """{i: the group's fp32 mean of ``grads[i]``} for the leaves ``idx`` of
+    full ``shapes``: one reduce-scatter of those partitioned on ``dims``
+    (their shards moved to dim 0 and packed rank by rank; the rank's shard
+    is kept), one all-reduce of those whose dim is None (kept whole).
+    ``seq_group`` and the freeing of ``grads`` as ``_pack``."""
+    dp = dist.get_world_size(group)
+    out = {}
+    shard_idx = [i for i in idx if dims[i] is not None]
+    whole_idx = [i for i in idx if dims[i] is None]
+    if shard_idx:
+        flat = _pack(grads, shard_idx, dims, dp, seq_group)
+        red = comm.reduce_scatter(flat.view(-1), group, mean=True)
+        del flat
+        off = 0
+        for i in shard_idx:
+            shape = list(shapes[i])
+            d = dims[i]
+            shape[d] //= dp
+            moved = [shape[d]] + shape[:d] + shape[d + 1:]
+            n = torch.Size(shape).numel()
+            out[i] = red[off:off + n].reshape(moved).movedim(
+                0, d).contiguous()
+            off += n
+    if whole_idx:
+        red = comm.all_reduce(
+            _pack(grads, whole_idx, dims, 1, seq_group).view(-1), group,
+            mean=True)
+        off = 0
+        for i in whole_idx:
+            n = torch.Size(shapes[i]).numel()
+            out[i] = red[off:off + n].view(shapes[i])
+            off += n
+    return out
+
+
+def gather_full(shards, idx, dims, shapes, group, bucket):
+    """{i: the full tensor of leaf i} for the partitioned leaves ``idx`` (of
+    full ``shapes``, partitioned on ``dims``) from every rank's ``shards``:
+    each shard's partition dim moved to the front, one all-gather per
+    bucket of ``bucket`` elements."""
+    dp = dist.get_world_size(group)
+    out = {}
+    for start, end in comm.buckets([shards[i].numel() * dp for i in idx],
+                                   bucket):
+        chunk = idx[start:end]
+        parts = [ZeroPartition._rows(shards[i], dims[i]).reshape(-1)
+                 for i in chunk]
+        flat = comm.all_gather(torch.cat(parts), group).view(dp, -1)
+        off = 0
+        for i, part in zip(chunk, parts):
+            n = part.numel()
+            d = dims[i]
+            shape = list(shapes[i])
+            moved = [shape[d]] + shape[:d] + shape[d + 1:]
+            out[i] = flat[:, off:off + n].reshape(moved).movedim(0, d)
+            off += n
+    return out
+
+
 class ZeroPartition(object):
     """The partitioned state of one engine (module docstring). ``params``
     are the module's parameters (fp32 on entry); ``sparse`` the indices of
@@ -184,60 +265,14 @@ class ZeroPartition(object):
         return hook
 
     def flush(self):
-        """Reduce the bucketed gradients: one reduce-scatter of the
-        partitioned leaves (their shards moved to dim 0 and packed rank by
-        rank), one all-reduce of the replicated ones; the mean over the
-        group is kept (the shard, or the whole replicated leaf)."""
+        """Reduce the bucketed gradients (``reduce_mean``): one
+        reduce-scatter of the partitioned leaves, one all-reduce of the
+        replicated ones; the mean over the group is kept (the shard, or the
+        whole replicated leaf)."""
         idx, self._bucket = self._bucket, []
-        shard_idx = [i for i in idx if self.owned(i)]
-        whole_idx = [i for i in idx if not self.owned(i)]
-        if shard_idx:
-            flat = self._pack(shard_idx, rows=self.dp)
-            out = comm.reduce_scatter(flat.view(-1), self.group, mean=True)
-            del flat
-            off = 0
-            for i in shard_idx:
-                shape = list(self.shapes[i])
-                d = self.dims[i]
-                shape[d] //= self.dp
-                moved = [shape[d]] + shape[:d] + shape[d + 1:]
-                n = self.master[i].numel()
-                self.grad[i] = out[off:off + n].reshape(moved).movedim(
-                    0, d).contiguous()
-                off += n
-        if whole_idx:
-            self._reduce_whole(whole_idx)
-
-    def _pack(self, idx, rows=1):
-        """One fp32 buffer [rows, n] of the accumulated gradients ``idx``
-        (each leaf's partition dim moved to the front, rank r's shard in
-        row r), widened by the copy; each accumulator is freed once
-        copied."""
-        sizes = [self.acc[i].numel() // rows for i in idx]
-        flat = torch.empty(rows, sum(sizes), dtype=torch.float32,
-                           device=self.acc[idx[0]].device)
-        off = 0
-        for i, n in zip(idx, sizes):
-            d = self.dims[i] if rows > 1 else None
-            flat[:, off:off + n].copy_(
-                self._rows(self.acc[i], d).reshape(rows, -1))
-            self.acc[i] = None
-            off += n
-        if self.seq_group is not None:
-            # Sequence parallelism: the mean over the token shards first.
-            comm.all_reduce(flat, self.seq_group, mean=True)
-        return flat
-
-    def _reduce_whole(self, idx):
-        """All-reduce the accumulated gradients ``idx`` whole, keeping the
-        group mean."""
-        flat = comm.all_reduce(self._pack(idx).view(-1), self.group,
-                               mean=True)
-        off = 0
-        for i in idx:
-            n = torch.Size(self.shapes[i]).numel()
-            self.grad[i] = flat[off:off + n].view(self.shapes[i])
-            off += n
+        for i, g in reduce_mean(self.acc, idx, self.dims, self.shapes,
+                                self.group, self.seq_group).items():
+            self.grad[i] = g
 
     def end_backward(self):
         """After a backward: at the boundary (stage >= 2) reduce what the
@@ -259,9 +294,13 @@ class ZeroPartition(object):
         the mean."""
         idx = [i for i in range(len(self.params))
                if i not in self.sparse and self.grad[i] is None]
+        whole = [None] * len(self.params)
         for start, end in comm.buckets([self._acc(i).numel() for i in idx],
                                        self.reduce_bucket):
-            self._reduce_whole(idx[start:end])
+            for i, g in reduce_mean(self.acc, idx[start:end], whole,
+                                    self.shapes, self.group,
+                                    self.seq_group).items():
+                self.grad[i] = g
 
     def _acc(self, i):
         """The local accumulated gradient of leaf ``i`` (zeros for a leaf
@@ -309,24 +348,8 @@ class ZeroPartition(object):
         """Full tensors of the partitioned leaves ``idx`` from every rank's
         ``shards`` (one all-gather per bucket of ``allgather_bucket_size``
         elements)."""
-        out = {}
-        for start, end in comm.buckets(
-                [shards[i].numel() * self.dp for i in idx],
-                self.gather_bucket):
-            chunk = idx[start:end]
-            parts = [self._rows(shards[i], self.dims[i]).reshape(-1)
-                     for i in chunk]
-            flat = comm.all_gather(torch.cat(parts), self.group).view(
-                self.dp, -1)
-            off = 0
-            for i, part in zip(chunk, parts):
-                n = part.numel()
-                d = self.dims[i]
-                shape = list(self.shapes[i])
-                moved = [shape[d]] + shape[:d] + shape[d + 1:]
-                out[i] = flat[:, off:off + n].reshape(moved).movedim(0, d)
-                off += n
-        return out
+        return gather_full(shards, idx, self.dims, self.shapes, self.group,
+                           self.gather_bucket)
 
     @torch.no_grad()
     def publish(self):

@@ -2010,6 +2010,76 @@ def test_two_rank_gloo_pipeline_step_on_the_card(cuda, tmp_path):
     _masters_held(got, masters)
 
 
+def test_two_rank_gloo_compiled_pipeline_on_the_card(cuda, tmp_path):
+    """The compiled pipeline over two ranks on cuda:0 over gloo (2 stages
+    of the untied ``gpt2_pipeline``, one block a stage, gas 2): its tick
+    programs captured once each (the training forward and the backward)
+    and replayed after, every step's loss within the JAX tests' rtol 2e-4
+    of the interpreter's on the same ranks, K1 twice (the tick and its
+    recompute) and K2a once per block and micro-batch."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from tests.torch_dist_worker import run_ranks
+
+    params = _mp_params()
+    cfg = GPT2Config(dtype=torch.float32, **_MP_WIDTH)
+    untied = [{"wte": params["wte"], "wpe": params["wpe"]}] + \
+        [{"Block_0": params["h_{}".format(i)]} for i in range(cfg.n_layer)] \
+        + [{"ln_f": params["ln_f"], "lm_head": params["wte"]}]
+    batches = [(b, b) for b in (np.random.RandomState(s).randint(
+        0, 1024, size=(2, 32)) for s in range(8))]
+    task = dict(kind="pipe", layers="gpt2", gpt2_cfg=_MP_WIDTH, stages=2,
+                device="cuda:0", steps=4, params=untied, tied=False,
+                config=dict(_MP_CONFIG, gradient_accumulation_steps=2),
+                batches=batches)
+    ranks = run_ranks(2, [dict(task, name="cp", compiled=True),
+                          dict(task, name="pp")], str(tmp_path / "w"))
+    for r in ranks:
+        np.testing.assert_allclose(r["cp"]["losses"], r["pp"]["losses"],
+                                   rtol=2e-4)
+        assert r["cp"]["launches"]["flash_fwd"] == 2 * len(batches)
+        assert r["cp"]["launches"]["flash_bwd_fused"] == len(batches)
+        assert r["cp"]["graphs"] == (2, 2 * len(batches) - 2)
+
+
+def test_compiled_pipeline_dropout_graphs_equal_eager_on_the_card(cuda):
+    """One stage of the untied ``gpt2_pipeline(compiled=True)`` at dropout
+    0.1 (GPT2Config's default), gas 2, under K2b: its tick graphs (two
+    captures, then replays) against the same engine run eagerly, every
+    loss and parameter bit for bit over 3 steps. Each tick draws fresh
+    seeds, so graphs that replayed their capture's masks would part from
+    eager."""
+    import os
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, gpt2_pipeline
+
+    cfg = GPT2Config(dtype=torch.float32, **dict(_MP_WIDTH, dropout=0.1))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 1024, size=(4, 32))).to(cuda)
+    micro = [(ids[:2], ids[:2]), (ids[2:], ids[2:])]
+    runs = []
+    os.environ["DS_TPU_FLASH_BWD"] = "split"
+    try:
+        for graphs in (True, False):
+            engine = tds.initialize(
+                model=gpt2_pipeline(cfg, num_stages=1, tied=False,
+                                    compiled=True),
+                device="cuda", config_params=dict(
+                    _MP_CONFIG, gradient_accumulation_steps=2))[0]
+            engine._graphs = graphs
+            losses = [engine.train_batch(data_iter=iter(micro))
+                      for _ in range(3)]
+            runs.append((losses, [p.detach().clone() for p in
+                                  engine._params],
+                         engine.graph_captures, engine.graph_replays))
+    finally:
+        del os.environ["DS_TPU_FLASH_BWD"]
+    (lg, pg, cg, rg), (le, pe, ce, re_) = runs
+    assert lg == le
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+    assert (cg, rg, ce, re_) == (2, 3 * 2 * 2 - 2, 0, 0)
+
+
 def _ring_inputs(T, seed, H=4):
     rng = np.random.RandomState(seed)
     q, k, v, do = (rng.randn(2, H, T, 64).astype(np.float32)

@@ -6,8 +6,9 @@ and offload switches, timer and tensorboard switches and sparse-attention
 block, and the slice-17 blocks (OneBitAdam, sequence_parallel,
 progressive_layer_drop, activation_checkpointing). A key that switches on a
 subsystem the port does not have yet raises NotImplementedError (its
-default still parses), as does ZeRO-Offload over several ranks, and the
-training entry point refuses the CPU unless asked for it.
+default still parses), ``stream_gradients`` over several ranks raises the
+JAX engine's ValueError, and the training entry point refuses the CPU
+unless asked for it. The ``amp`` block: ``tests/test_torch_amp.py``.
 """
 
 import pytest
@@ -86,7 +87,6 @@ def test_parses_as_the_jax_package_does(i):
 
 
 @pytest.mark.parametrize("extra", [
-    {"amp": {"enabled": True}},
     {"flops_profiler": {"enabled": True}},
     {"pipeline": {"partition": "uniform"}},
     {"pipeline": {"seed_layers": True}},
@@ -152,14 +152,23 @@ def test_pipeline_engine_keys_parse():
     {"stage": 2, "cpu_offload": True, "stream_gradients": True},
     {"stage": 2, "cpu_offload": True}, {"stage": 0, "cpu_offload": True}])
 def test_world_size_other_than_one_raises(zero):
-    """ZeRO-Offload over several ranks is ROADMAP item 17: the JAX config
-    takes it at a world size of 2, the port refuses it, naming the item
-    (ZeRO itself over several ranks is ported: see the next test)."""
+    """At a world size of 2 the JAX config takes ZeRO-Offload, and so does
+    the port's (the offload tier partitions over the data ranks); the JAX
+    engine refuses ``stream_gradients`` on a multi-device mesh, and the
+    port's config raises it, with the same reason."""
     cfg = {"train_batch_size": 8, "bf16": {"enabled": True},
            "zero_optimization": zero}
-    JConfig(None, param_dict=dict(cfg), world_size=2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TConfig(None, param_dict=dict(cfg), world_size=2)
+    want = JConfig(None, param_dict=dict(cfg), world_size=2)
+    if zero.get("stream_gradients"):
+        with pytest.raises(ValueError, match="single-chip offload"):
+            TConfig(None, param_dict=dict(cfg), world_size=2)
+        return
+    got = TConfig(None, param_dict=dict(cfg), world_size=2)
+    for name in ("cpu_offload", "stage"):
+        assert getattr(got.zero_config, name) == \
+            getattr(want.zero_config, name)
+    assert got.train_micro_batch_size_per_gpu == \
+        want.train_micro_batch_size_per_gpu
 
 
 @pytest.mark.parametrize("world_size", [2, 4])

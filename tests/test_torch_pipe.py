@@ -26,8 +26,9 @@ the packages in both directions, tiny GPT-2's ``gpt2_pipeline`` tied and
 untied (and tied over 2 stages x mp 2 against the JAX pipeline), pipe x
 tensor parallelism (the JAX composition test's setup), the partition
 methods and functions, ``train_batch(batch=...)``, dropout, and
-the refusals (``forward``/``backward``/``step``, ``compiled=True``, 1-bit
-Adam, ZeRO with a pipeline, the config's module-only keys).
+the refusals (``forward``/``backward``/``step``, 1-bit Adam, ZeRO with a
+pipeline, the config's module-only keys); ``compiled=True`` selects the
+compiled engine.
 """
 
 import os
@@ -384,8 +385,12 @@ def test_pipe_engine_rejects_forward_backward_step():
 
 
 def test_refusals_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _local_engine(compiled=True)
+    from deepspeed_tpu_torch.runtime.pipe.compiled import (
+        CompiledPipelineEngine)
+
+    # compiled=True selects the compiled engine (its own tests:
+    # tests/test_torch_pipe_compiled.py).
+    assert isinstance(_local_engine(compiled=True), CompiledPipelineEngine)
     # 1-bit Adam builds (its compressed path needs data ranks); a pipeline
     # over a 'seq' axis stays refused.
     onebit = tds.initialize(model=pipe_module({"layers": "dense"}, 1),

@@ -16,7 +16,8 @@ tensor's max-abs is floored at 1e-4 of the largest tensor's (BERT's key
 bias gets a gradient that is 0 in exact arithmetic: summation noise of
 1e-9 against 1e-13, which Adam scales to the update's size).
 
-Also as the JAX tests: Ulysses mode, ZeRO-2 (bf16 config, fp32 compute),
+Also as the JAX tests: Ulysses mode, ZeRO-2 (bf16 config, fp32 compute;
+also with ``cpu_offload``, each rank its host partition),
 fp16 with gradient accumulation, ``pg_correctness_test``, the eval loss,
 the refusals (a token dim sp does not divide, a model that is not
 sequence-shardable, a user mesh without a 'seq' axis, BERT's fused layer),
@@ -148,6 +149,9 @@ def runs(tmp_path_factory):
              config=_sp(4)),
         dict(gpt2, name="zero2", cfg=gcfg, config=_sp(2, {
             "bf16": {"enabled": True}, "zero_optimization": {"stage": 2}})),
+        dict(gpt2, name="zero2_offload", cfg=gcfg, config=_sp(2, {
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 2, "cpu_offload": True}})),
         dict(gpt2, name="fp16_gas", cfg=gcfg, fp32_compute=False,
              batches=fp16_micro, config=_sp(4, {
                  "train_micro_batch_size_per_gpu": 4,
@@ -238,6 +242,19 @@ def test_sp_composes_with_zero2(runs):
     jlosses, _, jparams = runs["jgpt2"]
     for rank in runs["ranks"]:
         r = rank["zero2"]
+        np.testing.assert_allclose(r["losses"], jlosses, rtol=LOSS_RTOL)
+        _close_tree(r["masters"], jparams, WEIGHT_TOL)
+
+
+def test_sp_composes_with_zero2_offload(runs):
+    """ZeRO-2 + cpu_offload over sp 2 x dp 2 (bf16 config, fp32 compute):
+    each rank's host partition steps on the gradients' mean over the seq
+    line and then 'data', so the losses and the full masters are the
+    serial run's (a rank stepping on its own token shard's gradient would
+    part from it, and the seq ranks' masters from each other)."""
+    jlosses, _, jparams = runs["jgpt2"]
+    for rank in runs["ranks"]:
+        r = rank["zero2_offload"]
         np.testing.assert_allclose(r["losses"], jlosses, rtol=LOSS_RTOL)
         _close_tree(r["masters"], jparams, WEIGHT_TOL)
 

@@ -435,9 +435,17 @@ def test_two_launched_ranks_match_one_process(runs):
     {"stage": 2, "cpu_offload": True, "stream_gradients": True},
     {"stage": 0, "stream_gradients": True}])
 def test_offload_over_ranks_is_refused(zero):
+    """Over two data ranks ``cpu_offload`` parses (the offload tier
+    partitions its host state); ``stream_gradients`` stays refused with the
+    JAX engine's reason (it is the one-card tier)."""
     cfg = {"train_batch_size": 8, "bf16": {"enabled": True},
            "zero_optimization": zero}
-    with pytest.raises(NotImplementedError, match="item 17"):
+    if not zero.get("stream_gradients"):
+        got = TConfig(None, param_dict=cfg, world_size=2)
+        assert got.zero_config.cpu_offload and \
+            got.train_micro_batch_size_per_gpu == 4
+        return
+    with pytest.raises(ValueError, match="single-chip offload capacity"):
         TConfig(None, param_dict=cfg, world_size=2)
 
 
@@ -466,16 +474,18 @@ def test_other_mesh_axes_are_refused(axis, item):
 
 
 def test_lamb_and_stage3_remat_over_ranks_are_refused():
-    """ZeRO partitions Adam/AdamW state only (Lamb's per-tensor trust
-    ratio over shards is item 17's), and stage 3 refuses per-block remat.
-    Both are refused while the engine is built, before any collective: a
-    two-rank grid with a stand-in group suffices."""
+    """Lamb over partitioned ranks builds (its trust ratio takes each
+    tensor's norms over the data group: ``tests/test_torch_offload_ranks.py``
+    trains it); stage 3 still refuses per-block remat. Both are decided
+    while the engine is built, before any collective: a two-rank grid with
+    a stand-in group suffices."""
     grid = tmesh.Mesh((1, 2, 1, 1), 0, object())
     lamb = _config(1, 4, 1, {"optimizer": {"type": "Lamb",
                                            "params": {"lr": 1e-3}}})
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tds.initialize(model=LinearStack(device="cpu", **DIMS),
-                       config_params=lamb, device="cpu", mesh=grid)
+    engine = tds.initialize(model=LinearStack(device="cpu", **DIMS),
+                            config_params=lamb, device="cpu", mesh=grid)[0]
+    assert type(engine.optimizer).__name__ == "FusedLamb"
+    assert engine.optimizer.norm_reduce is not None
     with pytest.raises(NotImplementedError, match="item 7"):
         tds.initialize(model=GPT2LMHeadModel(GPT2Config.tiny(
             dtype=torch.float32, remat=True), device="cpu"),

@@ -239,6 +239,9 @@ def task_train(task, rank, world):
     out["launches"] = dict(at.launches)
     out["skipped"] = engine.skipped_steps
     out["dp_rank"] = engine.dp_rank
+    if engine._offload is not None:
+        out["host_elems"] = engine._offload.total
+        out["optimizer"] = type(engine.optimizer).__name__
     dist.barrier()
     return out
 
@@ -345,13 +348,20 @@ def pipe_module(task, num_stages):
                                           TiedLayerSpec)
 
     kind = task["layers"]
+    compiled = task.get("compiled", False)
     if kind == "gpt2":
         cfg = GPT2Config(dtype=torch.float32, **task["gpt2_cfg"]) \
             if "gpt2_cfg" in task else \
             GPT2Config.tiny(dtype=torch.float32, use_flash_attention=True)
         return gpt2_pipeline(cfg, num_stages=num_stages,
-                             tied=task.get("tied", True))
-    if kind == "tied":
+                             tied=task.get("tied", not compiled),
+                             compiled=compiled)
+    if kind == "uniform":
+        # The compiled-pipeline tests' stack: n_blocks identical DenseRelu
+        # blocks and a DenseOut head.
+        layers = [LayerSpec(DenseRelu, 32) for _ in range(task["n_blocks"])]
+        layers.append(LayerSpec(DenseOut, 8, in_features=32))
+    elif kind == "tied":
         fn = _project if task.get("forward_fn") else None
         layers = [TiedLayerSpec("embed", _tied_embed),
                   LayerSpec(DenseRelu, 8, in_features=8),
@@ -363,7 +373,8 @@ def pipe_module(task, num_stages):
     module = PipelineModule(
         layers=layers, num_stages=num_stages, loss_fn=ce_loss,
         seed_layers=True, base_seed=42, partition_method="uniform",
-        activation_checkpoint_interval=task.get("remat", 0))
+        activation_checkpoint_interval=task.get("remat", 0),
+        compiled=compiled)
     module.tp_rules = task.get("tp_rules")
     return module
 
@@ -407,13 +418,18 @@ def task_pipe(task, rank, world):
     if task.get("onebit_capture"):
         out["onebit"] = _capture_frozen_update(engine.optimizer)
     from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.pipe import p2p
     for step in range(task["steps"]):
         if task.get("save") and step == task["save_after"]:
             engine.save_checkpoint(task["save"], tag="ck")
         chunk = batches[step * gas:(step + 1) * gas]
         before = dict(comm.stats)
+        p2p.reset_stats()
         out["losses"].append(engine.train_batch(data_iter=iter(chunk)))
         out.setdefault("step_stats", []).append(_stats_delta(before))
+        out.setdefault("p2p", []).append(
+            {k: (dict(v) if isinstance(v, dict) else v)
+             for k, v in p2p.stats.items()})
     if task.get("eval"):
         before = [p.detach().clone() for p in engine._params]
         out["eval"] = engine.eval_batch(iter(batches[:gas]))
@@ -441,6 +457,14 @@ def task_pipe(task, rank, world):
     out["layers"] = layers
     out["shards"] = {n: tuple(p.shape) for n, p in zip(engine._names,
                                                        engine._params)}
+    if engine.opt_state is not None:
+        out["moments"] = {n: tuple(m.shape) for n, m in zip(
+            engine._names, engine.opt_state["exp_avg"])}
+    if task.get("eval_twice"):
+        out["evals"] = [engine.eval_batch(iter(batches[:gas]))
+                        for _ in range(2)]
+    out["graphs"] = (getattr(engine, "graph_captures", None),
+                     getattr(engine, "graph_replays", None))
     out["launches"] = dict(at.launches)
     dist.barrier()
     return out
@@ -529,8 +553,9 @@ def task_tp(task, rank, world):
     return out
 
 
-def task_refuse_offload(task, rank, world):
-    """ZeRO-Offload over 4 model ranks: the refusal's message."""
+def task_tp_offload(task, rank, world):
+    """ZeRO-Offload over ``world`` model ranks: two steps' losses, the host
+    master's elements and the rank's and the full model's."""
     import torch
 
     import deepspeed_tpu_torch as tds
@@ -538,19 +563,21 @@ def task_refuse_offload(task, rank, world):
     from deepspeed_tpu_torch.parallel.mesh import build_mesh
 
     cfg = GPT2Config.tiny(dtype=torch.float32)
-    try:
-        tds.initialize(
-            model=GPT2LMHeadModel(cfg, device="cpu", seed=None),
-            model_parameters=task["params"], device="cpu",
-            mesh=build_mesh(num_mp=world),
-            config_params={"train_batch_size": 2, "bf16": {"enabled": True},
-                           "optimizer": {"type": "Adam",
-                                         "params": {"lr": 1e-3}},
-                           "zero_optimization": {"stage": 2,
-                                                 "cpu_offload": True}})
-    except NotImplementedError as e:
-        return str(e)
-    return "not refused"
+    model = GPT2LMHeadModel(cfg, device="cpu", seed=None)
+    full = sum(p.numel() for p in model.parameters())
+    engine = tds.initialize(
+        model=model, model_parameters=task["params"], device="cpu",
+        mesh=build_mesh(num_mp=world),
+        config_params={"train_batch_size": 2, "bf16": {"enabled": True},
+                       "optimizer": {"type": "Adam",
+                                     "params": {"lr": 1e-3}},
+                       "zero_optimization": {"stage": 2,
+                                             "cpu_offload": True}})[0]
+    ids = torch.from_numpy(np.asarray(task["ids"]))
+    losses = [float(engine.train_batch((ids, ids))) for _ in range(2)]
+    return {"losses": losses, "host_elems": engine._offload.total,
+            "local_elems": sum(p.numel() for p in engine._params),
+            "full_elems": full}
 
 
 def _stats_delta(before):
@@ -836,7 +863,7 @@ def task_ckpt_partition(task, rank, world):
 TASKS = {"ckpt_partition": task_ckpt_partition, "train": task_train,
          "env": task_env, "collectives": task_collectives, "freed": task_freed,
          "pipe": task_pipe, "tp": task_tp,
-         "refuse_offload": task_refuse_offload, "ring": task_ring,
+         "tp_offload": task_tp_offload, "ring": task_ring,
          "sp_train": task_sp_train, "compressed": task_compressed,
          "onebit": task_onebit}
 
