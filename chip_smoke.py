@@ -179,7 +179,7 @@ of which exits non-zero on failure:
    captured page by page, a prefix-page shipment byte-equal); one
    ``fleet`` line with each transfer's ms and GB/s;
 4h. disaggregated serving (phase_disagg): the JAX ``bench.py --disagg``
-   TPU setting (DISAGG_SERVE, DISAGG_LOAD: 64 Poisson arrivals at 12/s,
+   TPU setting (DISAGG_SERVE, DISAGG_LOAD: 32 Poisson arrivals at 12/s,
    lognormal prompts of mean 192), one prefill and two decode replicas
    against the same three all mixed, each warmed on one thread (every
    replica meets its keys) and driven open loop by SustainedRunner on
@@ -335,7 +335,7 @@ of which exits non-zero on failure:
    ZeRO-2 step as a one-rank NCCL group against the same step without a
    group, and the NCCL reduce-scatter and all-gather on CUDA tensors
    (``data_parallel_nccl``). Slice 18's arms in the same rank processes
-   (DP_ARMS, at stage 2 and DP_ARM_LAYERS, all 24 layers): ZeRO-Offload
+   (DP_ARMS, at stage 2 and DP_ARM_LAYERS, 4 of the 24 layers): ZeRO-Offload
    with the host Adam (each rank its partition of the masters and moments
    on the host), Lamb on the card and Lamb on the host, each a
    ``data_parallel`` line with its host step's phases, failing unless K1
@@ -376,11 +376,29 @@ of which exits non-zero on failure:
    CP_GRAPH_STEPS steps: losses and every parameter bit for bit, and one
    step at dropout 0 giving another loss (``model_parallel_graph``); then
    its fp32 check (4 layers) against the interpreter: losses within 1e-5
-   relative, the stage's parameters under the training rule;
+   relative, the stage's parameters under the training rule. Slice 19's
+   arms in the same rank processes: serving over the two as model ranks
+   (``init_inference(mesh=build_mesh(num_mp=2))``: GPT-2 medium bf16 at
+   full depth, 8 heads a rank, N_REQUESTS of TP_PROMPT tokens under SERVE;
+   a ``model_parallel_serve`` line per rank with tokens/s beside one
+   process's on the same rank, K3 = 24 x decode steps and K5 = 24 x prefill
+   lanes, compile_count, the captured segments, exactly one plus two a
+   layer and forward of each program met and none after the last capture,
+   the allocated bytes flat after it, the all-reduces a step and the pool's
+   bytes against one process's), failing unless the ranks' streams are
+   identical and, where one parts from one process's, the logits there
+   agree within TP_BF16_TOL; the fp32 check (4 layers) against one process
+   under phase 5's rule; the segmented programs against eager at MP_LAYERS
+   layers bit for bit; expert-parallel MoE serving of MOE_CFG (4 experts a
+   rank; bf16 timed; in fp32 with and without expert parallelism against
+   one process, the expert load gauges equal); MoE training (MOE_TRAIN:
+   mp 2 and dp 2 with global gating, each timed; the fp32 check where
+   capacity drops tokens against one process, losses 1e-5 relative, the
+   parameters under the training rule);
 17. sequence parallelism and 1-bit Adam (phase_sequence_parallel):
    SP_RANKS rank processes of this script on cuda:0, started by the port's
    launcher and joined over gloo (SP_TIMEOUT_S): GPT-2 medium bf16 at full
-   width, SP_WIDTH's 12 layers (n_positions SP_T), AdamW 1e-4, dropout 0,
+   width, SP_WIDTH's 6 layers (n_positions SP_T), AdamW 1e-4, dropout 0,
    one global
    B1 x SP_T sequence split into SP_T / 2 tokens a rank through
    ``initialize(config_params={"sequence_parallel": ...})`` and
@@ -754,6 +772,10 @@ TELEMETRY_SPANS = ("request/queued", "request/prefill", "request/decode",
                    "request", "step/mixed", "step/harvest")
 SCRAPE_EVERY_S, SCRAPE_REQUESTS = 0.005, 4
 TELEMETRY_HOST_SHARE = 0.05
+# The telemetry turns serve the serve path's first TELEMETRY_REQUESTS
+# requests (every key met; 8 since PR 22, from N_REQUESTS, for the smoke's
+# time: seven turns of the stream).
+TELEMETRY_REQUESTS = 8
 # The sustained-load run (phase_sustained): the JAX package's TPU setting
 # of ``bench.py --sustained`` (bench.py:1346-1360) less the prefix and
 # offload tiers (phase_sustained_hier runs it in full): a dense int8 pool
@@ -854,12 +876,13 @@ FLEET_LANE_POS = [0, 127, 128, 500, FLEET_PLANE - FLEET_SERVE[
     "prefill_chunk"]]
 # Disaggregated serving (phase_disagg): the JAX ``bench.py --disagg`` TPU
 # setting (bench.py:1908-1915): 1 prefill + 2 decode replicas against the
-# same 3 all mixed, 64 Poisson arrivals at 12/s, lognormal prompts (mean
-# 192, max 384), 48 new tokens, seed 23; SLO TTFT p99 2 s, ITL p99 200 ms.
+# same 3 all mixed, Poisson arrivals at 12/s (32 since PR 22, from the
+# bench's 64, for the smoke's time), lognormal prompts (mean 192, max 384),
+# 48 new tokens, seed 23; SLO TTFT p99 2 s, ITL p99 200 ms.
 DISAGG_SERVE = {"max_slots": 8, "max_len": 512, "chunk_size": 8,
                 "prefill_chunk": 16, "max_queue": 128}
 DISAGG_ROLES = ("prefill", "decode", "decode")
-DISAGG_LOAD = dict(arrival="poisson", rate=12.0, n_requests=64,
+DISAGG_LOAD = dict(arrival="poisson", rate=12.0, n_requests=32,
                    prompt_dist="lognormal", prompt_mean=192, prompt_max=384,
                    output_dist="fixed", output_mean=48, output_max=48,
                    vocab_size=50257, seed=23)
@@ -1001,12 +1024,12 @@ def _ptxas_summary(log):
     return out
 
 
-def _case(B, S, frontiers, dtype, seed, T=PLANE):
-    """q, k, v, pos on the card; positions past each row's frontier hold
-    large finite garbage."""
+def _case(B, S, frontiers, dtype, seed, T=PLANE, H=16):
+    """q, k, v, pos on the card (``H`` heads); positions past each row's
+    frontier hold large finite garbage."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    H, D = 16, 64
+    D = 64
     q = torch.randn(B, H, S, D, device="cuda", generator=g).to(dtype)
     k = torch.randn(B, H, T, D, device="cuda", generator=g)
     v = torch.randn(B, H, T, D, device="cuda", generator=g)
@@ -1205,7 +1228,7 @@ def _paged(planes, pos, S, seed, page_len=PAGE_LEN):
 
 
 def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
-             page_len=PAGE_LEN, serve=SERVE):
+             page_len=PAGE_LEN, serve=SERVE, H=16):
     """One case of decode kernel ``kind`` (a key of DECODE_KEYS) on the
     card: launches of the kernel, its plain version and its dense twin
     (K3 on the gathered plane for K5, K4 for K6), the fp32 planes its limit
@@ -1216,7 +1239,7 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
     if kind in ("decode", "q8"):
         T, extra = plane_len_for(serve["max_len"], serve["prefill_chunk"]), 0
         if kind == "decode":
-            q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
+            q, k, v, pos = _case(B, S, frontiers, dtype, seed, T, H)
             ops, kv = (k, v), (k, v)
         else:
             q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed,
@@ -1228,7 +1251,7 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
         T = paged_plane_len(serve["max_len"], serve["prefill_chunk"],
                             page_len)
         if kind == "paged":
-            q, k, v, pos = _case(B, S, frontiers, dtype, seed, T)
+            q, k, v, pos = _case(B, S, frontiers, dtype, seed, T, H)
             planes = (k, v)
         else:
             q, kc, vc, ks, vs, pos = _q8_case(B, S, frontiers, dtype, seed, T)
@@ -1262,7 +1285,7 @@ def _variant(kind, B, S, frontiers, dtype, seed, scale=1.0 / 8.0,
 
 
 def _lane_variant(kind, frontier, dtype, seed, scale=1.0 / 8.0,
-                  serve=SERVE):
+                  serve=SERVE, H=16):
     """The dense pools' prefill lane as the engine runs it: one layer of a
     pool of ``serve``'s slots (``init_pool``; int8 codes and scales for
     ``kind`` "paged_q8"), every slot's plane filled (garbage past each
@@ -1273,11 +1296,11 @@ def _lane_variant(kind, frontier, dtype, seed, scale=1.0 / 8.0,
     slots, S = serve["max_slots"], serve["prefill_chunk"]
     T = plane_len_for(serve["max_len"], S)
     q8 = kind == "paged_q8"
-    gcfg = generation.as_gencfg(GPT2Config(n_layer=1, n_head=16,
-                                           n_embd=1024, dtype=dtype))
+    gcfg = generation.as_gencfg(GPT2Config(n_layer=1, n_head=H,
+                                           n_embd=64 * H, dtype=dtype))
     pool = init_pool(gcfg, slots, serve["max_len"], slack=S, device="cuda",
                      hier=HierarchySpec(int8=q8))
-    q, k, v, pos = _case(slots, S, [frontier] * slots, dtype, seed, T)
+    q, k, v, pos = _case(slots, S, [frontier] * slots, dtype, seed, T, H)
     if q8:
         (kc, ks), (vc, vs) = da.quantize_kv(k), da.quantize_kv(v)
         for name, t in (("k", kc), ("v", vc), ("k_scale", ks),
@@ -1428,6 +1451,51 @@ def phase_decode_variants():
                 del c
     rows["fleet_shapes"] = _fleet_shape_rows()
     return rows
+
+
+def phase_tp_kernels():
+    """K3 and K5 at a tensor-parallel model rank's shapes, bf16: GPT-2
+    medium's 16 heads over MP_RANKS ranks (H8), K3 on the decode rows (B16
+    S1, DECODE_POS), K5 on B16 S1 through pages of PAGE_LEN and on the
+    dense pool's prefill lane (frontier 500); each against its plain
+    version and its dense twin, timed beside its bound and SDPA on the
+    same (gathered) planes with a bool mask. Returns {kind: rows}."""
+    H, dtype, scale = 16 // MP_RANKS, torch.bfloat16, 1.0 / 8.0
+    cases = [("decode", "K3", "tp_rank_decode",
+              lambda seed: _variant("decode", 16, 1, DECODE_POS, dtype, seed,
+                                    H=H)),
+             ("paged", "K5", "tp_rank_paged_decode",
+              lambda seed: _variant("paged", 16, 1, DECODE_POS, dtype, seed,
+                                    H=H)),
+             ("paged", "K5", "tp_rank_dense_prefill_lane",
+              lambda seed: _lane_variant("paged", 500, dtype, seed, H=H))]
+    out = {}
+    for seed, (kind, label, name, make) in enumerate(cases):
+        c = make(600 + seed)
+        q, pos = c["q"], c["pos"]
+        frontiers = pos.tolist()
+        row = dict(case=name, B=int(q.shape[0]), H=H, S=int(q.shape[2]),
+                   T=c["T"], pos=frontiers,
+                   **_decode_check(label, c, dtype, frontiers))
+        if not row["ok"]:
+            print(label + " " + json.dumps(row))
+            fail("{} disagrees with its plain version or its dense twin at "
+                 "{}".format(label, name))
+        k, v = c["kv"]
+        S, T = q.shape[2], k.shape[2]
+        mask = (torch.arange(T, device="cuda")[None, None, :] <=
+                (pos[:, None, None].long() +
+                 torch.arange(S, device="cuda")[None, :, None]))[:, None]
+        row["ms"] = cuda_ms(c["kernel"])
+        row["plain_ms"] = cuda_ms(c["plain"])
+        row["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale))
+        row["bound_ms"], row["bound_by"] = _bound(
+            q, pos, c["T"], c["key_bytes"], c["extra"])
+        out.setdefault(kind, []).append(row)
+        print(label + " " + json.dumps(row))
+        del c
+    return out
 
 
 def _fleet_shape_rows():
@@ -2099,7 +2167,8 @@ def _profile_check(engine, cfg):
 
 def phase_telemetry(card, model):
     """Telemetry on the serving path (GPT-2 medium bf16, SERVE's dense
-    pool, the 24-request stream of phase_serve; K3 and K5): two engines,
+    pool, TELEMETRY_REQUESTS of phase_serve's stream; K3 and K5): two
+    engines,
     telemetry on and off, each warmed by serving the stream once (every
     key met), then marked warm, then the stream in turns A B B A (A on).
     Checks: the four turns' streams equal; programs equal on and off;
@@ -2111,7 +2180,7 @@ def phase_telemetry(card, model):
     median step. Reports the TTFT of the warm-up (captures inside it) by
     capturing step and the rest."""
     cfg = model.config
-    prompts = _prompts(N_REQUESTS, cfg.vocab_size, seed=0)
+    prompts = _prompts(TELEMETRY_REQUESTS, cfg.vocab_size, seed=0)
     engines = {True: init_inference(model, config=dict(SERVE)),
                False: init_inference(model, config=dict(SERVE,
                                                         telemetry=False))}
@@ -4003,9 +4072,12 @@ ADAPTER_NEW = 64
 # Prompts that cross position 512 (the threshold) while they prefill or
 # decode, and prompts that stay below it with their new tokens.
 LONG_LENS, SHORT_LENS = (480, 560), (64, 200)
-# The perf x-ray (phase_xray): the dense serve path's stream with every
-# fourth replayed step timed.
+# The perf x-ray (phase_xray): the dense serve path's stream, its first
+# XRAY_REQUESTS requests (every program key still met: request 5 samples
+# with top-k; 8 since PR 22, for the smoke's time), with every fourth
+# replayed step timed.
 XRAY_SAMPLE_EVERY = 4
+XRAY_REQUESTS = 8
 
 
 def _frontdoor_side(card, model, frontdoor):
@@ -4727,7 +4799,7 @@ def phase_xray(card, model):
     (FLEET_SERVE, warm) give one section per replica. One ``xray``
     line."""
     cfg = model.config
-    prompts = _prompts(N_REQUESTS, cfg.vocab_size, seed=0)
+    prompts = _prompts(XRAY_REQUESTS, cfg.vocab_size, seed=0)
     on = init_inference(model, config=dict(SERVE, perf_xray=True,
                                            xray_sample_every=XRAY_SAMPLE_EVERY))
     off = init_inference(model, config=dict(SERVE))
@@ -6771,13 +6843,14 @@ DP_CHECK_B, DP_CHECK_T = 4, 256
 
 
 # ZeRO-Offload and Lamb over the data ranks (their arms of
-# phase_data_parallel's launch): GPT-2 medium bf16 at full width and depth
-# (DP_ARM_LAYERS), ZeRO stage 2 over DP_RANKS ranks, 4 x 1024 tokens a rank;
+# phase_data_parallel's launch): GPT-2 medium bf16 at full width and
+# DP_ARM_LAYERS of its 24 layers (the depth cut for the smoke's time), ZeRO
+# stage 2 over DP_RANKS ranks, 4 x 1024 tokens a rank;
 # offload Adam and host Lamb keep each rank's partition of the masters and
 # moments on the host, device Lamb on the card. Each arm DP_WARM steps and
 # DP_TIMED timed ones, then its fp32 check (DP_CHECK_B x DP_CHECK_T over the
 # ranks against one process, the loss within 1e-5 relative).
-DP_ARM_LAYERS = 24
+DP_ARM_LAYERS = 4
 DP_ARMS = (("offload", "Adam", True), ("lamb", "Lamb", False),
            ("lamb_host", "Lamb", True))
 
@@ -7234,7 +7307,7 @@ MP_RANKS, MP_B, MP_T, MP_GAS = 2, 8, 1024, 4
 MP_FLASH_CASES = (("mp_tp_rank", MP_B, 16 // MP_RANKS),
                   ("mp_pp_micro", MP_B // MP_GAS, 16))
 MP_WARM, MP_TIMED = 1, 2
-MP_TIMEOUT_S = 600
+MP_TIMEOUT_S = 900
 # The fp32 arm: 4 layers at width 1024, a global batch of MP_CHECK_B x
 # MP_CHECK_T; TP one step, PP one step of 2 micro-batches, each against
 # one process on the same card.
@@ -7600,6 +7673,581 @@ def _mp_check(run, cfg, rank, world, device):
     return row
 
 
+# ------------------------------------- serving and MoE over the model ranks
+
+# Tensor-parallel serving (its arm of phase_model_parallel's launch): the
+# serve path's model (GPT-2 medium bf16 at full width and depth, seed 0;
+# 8 of its 16 heads a rank) on the dense pool under SERVE, N_REQUESTS
+# requests of TP_PROMPT tokens (one prefill lane each: the host-staged
+# exchange, about 1 ms an all-reduce and 48 a forward, sets the arm's time,
+# and 64/256-token prompts would take 95 steps), TP_NEW new (for the smoke's
+# time), every sixth sampled, over MP_RANKS model ranks. Each step is a chain of captured
+# segments split at the all-reduces of the row-parallel projections, two a
+# layer and forward. Held to one process's streams on the same rank and
+# requests: where a stream first parts from it, the ranks' teacher-forced
+# fp32 logits there within TP_BF16_TOL of one process's largest (a choice
+# flips only where the gap is inside the logits' difference). The fp32
+# check at TP_CHECK_WIDTH: the ranks' streams against one process's under
+# phase 5's rule (NEAR_TIE). Graph vs eager: the same two ranks, the bf16
+# model at MP_LAYERS layers, GRAPH_CHECK_STEPS steps of
+# phase_graph_vs_eager's dense mix, bit for bit.
+TP_BF16_TOL = LONG_BF16_TOL
+TP_PROMPT, TP_NEW = 32, 48
+TP_CHECK_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
+TP_CHECK_REQUESTS, TP_CHECK_NEW = 6, 32
+# Expert-parallel MoE serving: MOE_CFG over the model ranks (4 of the 8
+# experts a rank), ADAPTER_REQUESTS x ADAPTER_NEW in bf16, timed; in fp32 at
+# EP_CHECK_LAYERS the ranks' greedy streams with and without expert
+# parallelism against one process's (phase 5's rule), and the expert load
+# gauges equal.
+EP_CHECK_NEW, EP_CHECK_LAYERS = 32, 2
+# MoE training (its arm of the launch): the JAX test's model at width 1024,
+# MOE_TRAIN["blocks"] blocks of a dense layer and an MoE of 8 experts of a
+# 1024 -> 4096 -> 1024 tanh-GELU MLP (top-1, capacity factor 1.25, the aux
+# loss at 0.01), B8 x T1024 tokens of random features, bf16 on fp32
+# masters, AdamW 1e-4: mp 2 (4 experts a rank, each rank the batch) and
+# dp 2 (each rank half, gated over the global batch). The fp32 check: one
+# of the blocks, B4 x T256 at capacity factor 0.5 (tokens drop),
+# MOE_CHECK_STEPS steps of each arm against one process on the whole
+# batch: losses 1e-5 relative, every gathered parameter under the training
+# rule.
+MOE_TRAIN = dict(width=1024, ffn=4096, experts=8, blocks=4, classes=16,
+                 capacity_factor=1.25, B=8, T=1024)
+MOE_CHECK = dict(B=4, T=256, capacity_factor=0.5, blocks=1)
+MOE_CHECK_STEPS = 2
+
+
+def _submit_mix(engine, prompts, new):
+    """phase_serve's mix: every sixth request sampled (0.8, top-k 50)."""
+    return [engine.submit(p, max_new_tokens=new,
+                          temperature=0.8 if i % 6 == 5 else 0.0,
+                          top_k=50 if i % 6 == 5 else None, seed=i)
+            for i, p in enumerate(prompts)]
+
+
+def _segments_want(engine):
+    """The segments the programs met should hold: one, plus one per
+    all-reduce (two a layer for each forward a program runs: chunk_size
+    decode iterations, and the prefill lane's where the key has it)."""
+    n_layer = engine._gcfg.n_layer
+    return sum(1 + 2 * n_layer * (engine.config.chunk_size + int(lane))
+               for lane, _, _ in engine._programs)
+
+
+def _tf_logits(weights, cfg, ids, device, tp=None):
+    """Teacher-forced fp32 logits of the token after ``ids`` (a fresh
+    one-row cache of this rank's heads)."""
+    from deepspeed_tpu_torch.parallel.mesh import kv_heads
+    heads = kv_heads(cfg.n_head, tp.size, tp.rank)[1] if tp is not None \
+        else cfg.n_head
+    shape = (cfg.n_layer, 1, heads, len(ids), cfg.n_embd // cfg.n_head)
+    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "pos": torch.zeros(1, dtype=torch.int32, device=device)}
+    logits, _ = generation.prefill_forward(
+        weights, torch.as_tensor(np.asarray(ids), device=device)[None],
+        cache)
+    return logits[0, -1].float()
+
+
+def _parted(prompts, got, ref):
+    """(request, first index where ``got`` parts from ``ref``, context)
+    for each stream that parts."""
+    out = []
+    for i, (p, g, r) in enumerate(zip(prompts, got, ref)):
+        if g != r:
+            j = next((k for k, (a, b) in enumerate(zip(g, r)) if a != b),
+                     min(len(g), len(r)))
+            out.append((i, j, np.concatenate([p, np.asarray(r[:j])])))
+    return out
+
+
+def _agree(streams, group=None):
+    """Fail-safe lockstep: every rank's ``streams`` are the same (before
+    any collective that depends on them); raises where they differ."""
+    from deepspeed_tpu_torch.parallel import comm
+    seen = comm.all_gather_object(json.dumps(streams), group)
+    if len(set(seen)) != 1:
+        raise RuntimeError("the ranks' streams differ")
+
+
+def _tp_serve(rank, world, device, spec):
+    """The tensor-parallel serving arm at full width (above): its row."""
+    from deepspeed_tpu_torch.inference.kv_pool import pool_nbytes
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    t_build = time.perf_counter()
+    cfg = GPT2Config(dtype=torch.bfloat16, **spec["tp_width"])
+    model = GPT2LMHeadModel(cfg, device=device, seed=0)
+    mesh = build_mesh(num_mp=world)
+    one_pool = init_pool(generation.as_gencfg(cfg), SERVE["max_slots"],
+                         SERVE["max_len"], slack=SERVE["prefill_chunk"],
+                         device=device)
+    one_bytes = pool_nbytes(one_pool)
+    del one_pool
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, size=spec["tp_prompt"])
+               for _ in range(spec["tp_requests"])]
+    # One process's streams on the same requests, and its step time.
+    one = init_inference(model, config=SERVE, device=device)
+    ref = _submit_mix(one, prompts, spec["tp_new"])
+    t0 = time.perf_counter()
+    one.run()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_steps = one.metrics()["chunks"]
+    ref = [r.tokens for r in ref]
+    del one
+    engine = init_inference(model, config=SERVE, device=device, mesh=mesh)
+    reqs = _submit_mix(engine, prompts, spec["tp_new"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launches()
+    comm.reset_stats()
+    steps = []
+    t0 = time.perf_counter()
+    while not engine.idle:
+        engine.step()
+        steps.append((engine.compile_count, engine.graph_segments,
+                      torch.cuda.memory_allocated()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = engine.metrics()
+    launches = dict(da.launches)
+    reduces = dict(comm.stats)
+    streams = [r.tokens for r in reqs]
+    _agree(streams)
+    # The step that captured the last program met; none after it.
+    warm = min(i for i, s in enumerate(steps) if s[0] == steps[-1][0])
+    # Where a stream parts from one process's: the logits there.
+    parted = []
+    one = generation.ServingWeights(model)
+    for i, j, ctx in _parted(prompts, streams, ref):
+        tp_l = _tf_logits(engine._params, cfg, ctx, device, engine._tp)
+        one_l = _tf_logits(one, cfg, ctx, device)
+        parted.append({"request": i, "at": j,
+                       "logit_err_over_largest": float(
+                           (tp_l - one_l).abs().max() / one_l.abs().max())})
+    ctx = np.concatenate([prompts[0], np.asarray(streams[0][:-1])])
+    tp_l = _tf_logits(engine._params, cfg, ctx, device, engine._tp)
+    one_l = _tf_logits(one, cfg, ctx, device)
+    row = {"arm": "tp_serve", "rank": rank, "mp": world,
+           "requests": len(prompts), "prompt_tokens": spec["tp_prompt"],
+           "new_tokens": spec["tp_new"],
+           "wall_s": wall, "tokens_out": m["tokens_out"],
+           "tokens_per_s": m["tokens_out"] / wall,
+           "one_process_tokens_per_s": m["tokens_out"] / one_wall,
+           "one_process_mean_step_ms": one_wall / one_steps * 1e3,
+           "streams_identical_to_one_process": len(prompts) - len(parted),
+           "steps": m["chunks"], "mean_step_ms": wall / m["chunks"] * 1e3,
+           "decode_steps": m["decode_steps"],
+           "prefill_lanes": m["prefill_lanes"],
+           "launches": launches,
+           "compile_count": m["compile_count"],
+           "graph_replays": m["graph_replays"],
+           "graph_segments": m["graph_segments"],
+           "graph_segments_want": _segments_want(engine),
+           "warm_step": warm,
+           "segments_after_warm": sorted({s[1] for s in steps[warm:]}),
+           "allocated_after_warm": sorted({s[2] for s in steps[warm + 1:]}),
+           "capture_ms": m["capture_ms"],
+           "all_reduce_calls_per_step": reduces["all_reduce"] / m["chunks"],
+           "all_reduce_bytes_per_step": reduces["all_reduce_bytes"] /
+           m["chunks"],
+           "all_reduce_calls_per_forward":
+           reduces["all_reduce"] / max(m["decode_steps"] +
+                                       m["prefill_lanes"], 1),
+           "kv_hbm_bytes": m["kv_hbm_bytes"],
+           "kv_hbm_bytes_one_process": one_bytes,
+           "kv_heads": int(engine._pool["k"].shape[2]),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "streams": streams, "parted": parted,
+           "logit_err_over_largest_request0": float(
+               (tp_l - one_l).abs().max() / one_l.abs().max()),
+           "ttft_p50_ms": m["ttft_p50_ms"]}
+    del engine, one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["arm_s"] = time.perf_counter() - t_build
+    return row
+
+
+def _tp_serve_check(rank, world, device, spec):
+    """fp32 at TP_CHECK_WIDTH: the ranks' streams and one process's (phase
+    5's rule; the gaps where they part, of one process's logits)."""
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = GPT2Config(dtype=torch.float32, **spec["tp_check_width"])
+    model = GPT2LMHeadModel(cfg, device=device, seed=1)
+    prompts = _prompts(TP_CHECK_REQUESTS, cfg.vocab_size, seed=1)
+    tp = init_inference(model, config=SERVE, device=device,
+                        mesh=build_mesh(num_mp=world))
+    got = _submit_mix(tp, prompts, TP_CHECK_NEW)
+    tp.run()
+    one = init_inference(model, config=SERVE, device=device)
+    want = _submit_mix(one, prompts, TP_CHECK_NEW)
+    one.run()
+    got, want = [r.tokens for r in got], [r.tokens for r in want]
+    _agree(got)
+    gaps = []
+    for i, j, ctx in _parted(prompts, got, want):
+        samp = (0.8, 50, i) if i % 6 == 5 else None
+        gaps.append({"request": i, "at": j,
+                     "gap": _gap(model, ctx, samp)})
+    del tp, one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arm": "tp_serve_fp32", "rank": rank,
+            "requests": len(prompts), "identical": len(prompts) - len(gaps),
+            "parted": gaps}
+
+
+def _tp_graph_vs_eager(rank, world, device, spec):
+    """The segmented programs against the same programs run eagerly, on
+    the same ranks: every step's harvest and the pool after them, bit for
+    bit."""
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    cfg = GPT2Config(dtype=torch.bfloat16, **spec["tp_graph_width"])
+    model = GPT2LMHeadModel(cfg, device=device, seed=0)
+    mesh = build_mesh(num_mp=world)
+    prompts = _prompts(GRAPH_CHECK_REQUESTS, cfg.vocab_size, seed=3)
+    runs = []
+    for engine in (init_inference(model, config=SERVE, device=device,
+                                  mesh=mesh),
+                   _EagerEngine(model, config=SERVE, device=device,
+                                mesh=mesh)):
+        for i, p in enumerate(prompts):
+            kw = {"temperature": 0.8, "seed": i,
+                  "top_k": 50 if i == 2 else None} if i % 3 == 2 else {}
+            engine.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+        snaps = []
+        for _ in range(GRAPH_CHECK_STEPS):
+            engine.step()
+            snaps.append(engine._last_snap)
+        torch.cuda.synchronize()
+        runs.append((engine, snaps))
+    (graphed, got), (eager, want) = runs
+    harvest_equal = all(np.array_equal(a[n], b[n]) for a, b in
+                        zip(got, want) for n in a)
+    pool_differs = [n for n in graphed._pool
+                    if not torch.equal(graphed._pool[n], eager._pool[n])]
+    row = {"arm": "tp_graph_vs_eager", "rank": rank,
+           "steps": GRAPH_CHECK_STEPS, "n_layer": cfg.n_layer,
+           "harvests_identical": harvest_equal, "pool_differs": pool_differs,
+           "tokens_compared": int(sum(s["valid"].sum() for s in got)),
+           "compile_count": graphed.compile_count,
+           "graph_segments": graphed.graph_segments,
+           "graph_segments_want": _segments_want(graphed),
+           "graph_replays": graphed.graph_replays}
+    del graphed, eager, runs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _moe_gauges(engine):
+    return {k: v for k, v in engine.telemetry.snapshot().items()
+            if k.startswith("moe_")}
+
+
+def _moe_streams(engine, prompts, new):
+    reqs = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    engine.run()
+    return [r.tokens for r in reqs]
+
+
+def _moe_gap(adapter, weights, ids, device):
+    cache = adapter.init_cache(1, len(ids), device=device)
+    logits, _ = adapter.prefill_append(
+        weights, torch.as_tensor(np.asarray(ids), device=device)[None],
+        cache)
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _ep_serve(rank, world, device, spec):
+    """Expert-parallel MoE serving (above): the bf16 timed row and the fp32
+    check's row."""
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(num_mp=world)
+    moe_cfg = dict(MOE_CFG, **spec["moe_width"])
+    adapter = MoEAdapter.from_config(**moe_cfg)
+    weights = adapter.init_params(seed=0, device=device)
+    prompts = _prompts(ADAPTER_REQUESTS, moe_cfg["vocab_size"], seed=2)
+    engine = InferenceEngine(None, weights, config=SERVE, device=device,
+                             adapter=adapter, mesh=mesh)
+    reqs = [engine.submit(p, max_new_tokens=spec["moe_new"])
+            for p in prompts]
+    torch.cuda.synchronize()
+    da.reset_launches()
+    comm.reset_stats()
+    t0 = time.perf_counter()
+    while not engine.idle:
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = engine.metrics()
+    launches, reduces = dict(da.launches), dict(comm.stats)
+    streams = [r.tokens for r in reqs]
+    _agree(streams)
+    timed = {"arm": "ep_serve", "rank": rank, "mp": world,
+             "requests": len(prompts), "new_tokens": spec["moe_new"],
+             "tokens_per_s": m["tokens_out"] / wall,
+             "mean_step_ms": wall / m["chunks"] * 1e3, "steps": m["chunks"],
+             "experts_held": int(engine._params.blocks[0].experts.w1
+                                 .shape[0]),
+             "kv_heads": int(engine._pool["k"].shape[2]),
+             "compile_count": m["compile_count"],
+             "graph_segments": m["graph_segments"],
+             "all_reduce_calls_per_step": reduces["all_reduce"] /
+             m["chunks"],
+             "launches": launches, "gauges": _moe_gauges(engine)}
+    del engine, weights
+    a32 = MoEAdapter.from_config(**dict(moe_cfg, dtype=torch.float32,
+                                        n_layer=min(moe_cfg["n_layer"],
+                                                    EP_CHECK_LAYERS)))
+    w32 = a32.init_params(seed=1, device=device)
+    out = {}
+    for name, config, on in (("ep", SERVE, mesh),
+                             ("no_ep", dict(SERVE, expert_parallel=False),
+                              mesh), ("one", SERVE, None)):
+        eng = InferenceEngine(None, w32, config=config, device=device,
+                              adapter=a32, mesh=on)
+        out[name] = {"streams": _moe_streams(eng, prompts, EP_CHECK_NEW),
+                     "gauges": _moe_gauges(eng),
+                     "experts_held": int(eng._params.blocks[0].experts.w1
+                                         .shape[0])}
+        del eng
+    gaps = {}
+    for name in ("ep", "no_ep"):
+        gaps[name] = [{"request": i, "at": j,
+                       "gap": _moe_gap(a32, w32, ctx, device)}
+                      for i, j, ctx in _parted(prompts, out[name]["streams"],
+                                               out["one"]["streams"])]
+    del w32
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = {"arm": "ep_serve_fp32", "rank": rank,
+             "identical": {n: len(prompts) - len(gaps[n]) for n in gaps},
+             "parted": gaps,
+             "gauges_equal": {n: out[n]["gauges"] == out["one"]["gauges"]
+                              for n in ("ep", "no_ep")},
+             "experts_held": {n: out[n]["experts_held"] for n in out}}
+    return timed, check
+
+
+def _moe_train_model(blocks, width, ffn, experts, classes, capacity_factor):
+    """The JAX ``test_moe_model_trains_with_engine`` model grown to
+    ``blocks`` blocks (flax names: ``Dense_i``, ``MoE_i``, the head
+    ``Dense_<blocks>``); x [B, T, width] features, y [B, T] labels; the
+    mean cross-entropy plus 0.01 x the blocks' aux losses."""
+    from torch import nn
+
+    from deepspeed_tpu_torch.moe import MoE
+
+    class Dense(nn.Module):
+        def __init__(self, n_in, n_out):
+            super().__init__()
+            self.kernel = nn.Parameter(torch.randn(n_in, n_out) *
+                                       n_in ** -0.5)
+            self.bias = nn.Parameter(torch.zeros(n_out))
+
+        def forward(self, x):
+            return x.to(self.kernel.dtype) @ self.kernel + self.bias
+
+    class _MLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = Dense(width, ffn)
+            self.Dense_1 = Dense(ffn, width)
+
+        def forward(self, x):
+            return self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
+
+    class Model(nn.Module):
+        def __init__(self):
+            super().__init__()
+            for i in range(blocks):
+                setattr(self, "Dense_{}".format(i), Dense(width, width))
+                setattr(self, "MoE_{}".format(i), MoE(
+                    width, _MLP, num_experts=experts, k=1,
+                    capacity_factor=capacity_factor))
+            setattr(self, "Dense_{}".format(blocks), Dense(width, classes))
+
+        def forward(self, x, y):
+            h, aux = x, 0.0
+            for i in range(blocks):
+                h = getattr(self, "Dense_{}".format(i))(h)
+                out, l_aux, _ = getattr(self, "MoE_{}".format(i))(h)
+                h, aux = h + out, aux + l_aux
+            logits = getattr(self, "Dense_{}".format(blocks))(h).float()
+            return F.cross_entropy(logits.reshape(-1, classes),
+                                   y.reshape(-1).long()) + 0.01 * aux
+
+    return Model()
+
+
+def _moe_batch(B, T, width, classes, seed, device):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(B, T, width).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, classes, size=(B, T)))
+    return x.to(device), y.to(device)
+
+
+def _moe_engine(arm, world, params, micro, device, capacity_factor, kw):
+    """The training engine of ``arm`` over the ranks: mp 2 or dp 2 on
+    ``_moe_train_model``'s model of ``kw`` (MOE_TRAIN's keys)."""
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    model = _moe_train_model(kw["blocks"], kw["width"], kw["ffn"],
+                             kw["experts"], kw["classes"], capacity_factor)
+    mesh = build_mesh(num_mp=world if arm == "mp2" else 1)
+    engine, _, _, _ = initialize(
+        model=model, model_parameters=params, config_params=_mp_config(micro),
+        device=device, mesh=mesh, dist_init_required=False)
+    return engine
+
+
+def _moe_step(engine, x, y):
+    """One step on this rank's rows; the data group's mean loss."""
+    from deepspeed_tpu_torch.parallel import comm
+    dp, r = engine.dp_world_size, engine.dp_rank
+    per = x.shape[0] // dp
+    loss = engine(x[r * per:(r + 1) * per], y[r * per:(r + 1) * per])
+    engine.backward(loss)
+    engine.step()
+    mean = loss.detach().float().reshape(1).clone()
+    if dp > 1:
+        comm.all_reduce(mean, engine.dp_group, mean=True)
+    return float(mean)
+
+
+def _moe_train(rank, world, device, spec):
+    """MoE training (above): a timed row per arm, then the fp32 check's."""
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.runtime.utils import flax_tree
+
+    kw = dict(MOE_TRAIN, **spec["moe_train"])
+    torch.manual_seed(0)
+    with torch.device(device):
+        params = flax_tree(_moe_train_model(
+            kw["blocks"], kw["width"], kw["ffn"], kw["experts"],
+            kw["classes"], kw["capacity_factor"]))
+    x, y = _moe_batch(kw["B"], kw["T"], kw["width"], kw["classes"], 4,
+                      device)
+    rows = []
+    for arm in ("mp2", "dp2"):
+        t_build = time.perf_counter()
+        micro = kw["B"] if arm == "mp2" else kw["B"] // world
+        engine = _moe_engine(arm, world, params, micro, device,
+                             kw["capacity_factor"], kw)
+        losses = [_moe_step(engine, x, y) for _ in range(MP_WARM)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        losses += [_moe_step(engine, x, y) for _ in range(MP_TIMED)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows.append({
+            "arm": "moe_train_" + arm, "rank": rank,
+            "tokens": kw["B"] * kw["T"], "losses": losses,
+            "mean_step_ms": wall / MP_TIMED * 1e3,
+            "tokens_per_s": kw["B"] * kw["T"] * MP_TIMED / wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "expert_shapes": {n: list(p.shape) for n, p in
+                              zip(engine._names, engine._params)
+                              if ".experts." in n and n.startswith("MoE_0")},
+            "all_reduce_bytes_per_step": comm.stats["all_reduce_bytes"] /
+            MP_TIMED,
+            "all_gather_bytes_per_step": comm.stats["all_gather_bytes"] /
+            MP_TIMED,
+            "arm_s": time.perf_counter() - t_build})
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows + _moe_train_check(rank, world, device, spec)
+
+
+def _moe_train_check(rank, world, device, spec):
+    """The fp32 check (above): each arm's losses and gathered parameters
+    after MOE_CHECK_STEPS steps against one process on the whole batch
+    (rank 0 holds the reference)."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+    from deepspeed_tpu_torch.runtime.utils import flax_tree
+
+    kw = dict(MOE_TRAIN, **spec["moe_train"])
+    kw["blocks"] = min(kw["blocks"], MOE_CHECK["blocks"])
+    cf = MOE_CHECK["capacity_factor"]
+    B, T = spec.get("moe_check_bt", (MOE_CHECK["B"], MOE_CHECK["T"]))
+    torch.manual_seed(1)
+    with torch.device(device):
+        params = flax_tree(_moe_train_model(
+            kw["blocks"], kw["width"], kw["ffn"], kw["experts"],
+            kw["classes"], cf))
+    x, y = _moe_batch(B, T, kw["width"], kw["classes"], 5, device)
+    got = {}
+    for arm in ("mp2", "dp2"):
+        engine = _moe_engine(arm, world, params,
+                             B if arm == "mp2" else B // world, device, cf,
+                             kw)
+        engine.compute_dtype = torch.float32
+        losses = [_moe_step(engine, x, y) for _ in range(MOE_CHECK_STEPS)]
+        got[arm] = (losses, {n: f.cpu() for n, f in
+                             zip(engine._names, engine._full_masters())})
+        del engine
+    rows = []
+    if rank == 0:
+        solo = mesh_lib.Mesh((1, 1, 1, 1), 0, None)
+        model = _moe_train_model(kw["blocks"], kw["width"], kw["ffn"],
+                                 kw["experts"], kw["classes"], cf)
+        ref, _, _, _ = initialize(
+            model=model, model_parameters=params, device=device, mesh=solo,
+            config_params=_mp_config(B), dist_init_required=False)
+        ref.compute_dtype = torch.float32
+        want_losses = []
+        for i in range(MOE_CHECK_STEPS):
+            loss = ref(x, y)
+            ref.backward(loss)
+            if i == 0:
+                # The first gradients mark the leaves within noise of 0
+                # (as _cp_check's).
+                grads = {n: p.grad.detach().float().cpu().clone()
+                         for n, p in zip(ref._names, ref._params)}
+            ref.step()
+            want_losses.append(float(loss.detach()))
+        want = {n: p.detach().float().cpu() for n, p in zip(ref._names,
+                                                             ref._params)}
+        del ref
+        # Top-1 slots a layer against the tokens it routes: fewer slots
+        # than tokens, so every layer drops.
+        slots = kw["experts"] * -(-int(B * T * cf) // kw["experts"])
+        for arm, (losses, masters) in got.items():
+            row = _mp_rule_row("moe_" + arm, losses[-1], want_losses[-1],
+                               masters, want, grads,
+                               1e-4 * MOE_CHECK_STEPS)
+            worst = max(want, key=lambda n: _mp_rule_row(
+                "", 0.0, 1.0, {n: masters[n]}, {n: want[n]}, grads,
+                1e-4 * MOE_CHECK_STEPS)["param_max_err_over_limit"])
+            row.update(worst_leaf=worst, losses=losses,
+                       losses_one=want_losses,
+                       loss_rel_err=max(abs(a - b) / abs(b) for a, b in
+                                        zip(losses, want_losses)),
+                       capacity_factor=cf, tokens=B * T,
+                       expert_slots=slots, rank=rank)
+            rows.append(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rows
+
+
 def mp_rank(workdir):
     """One rank of phase_model_parallel, started by the port's launcher
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): joins the
@@ -7632,9 +8280,23 @@ def mp_rank(workdir):
     checks = [_mp_check(run, check_cfg, rank, world, device)
               for run in ("tp", "pp")]
     checks.append(_cp_check(check_cfg, rank, world, device))
+    check_s = time.perf_counter() - t0
+    # Serving over the model ranks, expert-parallel MoE serving, MoE
+    # training.
+    t0 = time.perf_counter()
+    serving = [_tp_serve(rank, world, device, spec),
+               _tp_serve_check(rank, world, device, spec),
+               _tp_graph_vs_eager(rank, world, device, spec)]
+    serve_s = [time.perf_counter() - t0]
+    serving += _ep_serve(rank, world, device, spec)
+    serve_s.append(time.perf_counter() - t0 - serve_s[0])
+    t0 = time.perf_counter()
+    moe = _moe_train(rank, world, device, spec)
     with open(os.path.join(workdir, "rank_{}.json".format(rank)), "w") as f:
         json.dump({"rows": rows, "checks": checks, "graph": graph,
-                   "check_s": time.perf_counter() - t0}, f)
+                   "check_s": check_s, "serving": serving,
+                   "serve_s": serve_s, "moe": moe,
+                   "moe_s": time.perf_counter() - t0}, f)
     dist.destroy_process_group()
 
 
@@ -7656,7 +8318,14 @@ def phase_model_parallel(card):
         ranks = _mp_launch({
             "device": "cuda:0",
             "width": {"n_embd": 1024, "n_layer": n_layer, "n_head": 16},
-            "check_width": {"n_embd": 1024, "n_layer": 4, "n_head": 16}},
+            "check_width": {"n_embd": 1024, "n_layer": 4, "n_head": 16},
+            "tp_width": {"n_embd": 1024, "n_layer": 24, "n_head": 16},
+            "tp_requests": N_REQUESTS, "tp_new": TP_NEW,
+            "tp_prompt": TP_PROMPT,
+            "tp_check_width": TP_CHECK_WIDTH,
+            "tp_graph_width": {"n_embd": 1024, "n_layer": n_layer,
+                               "n_head": 16},
+            "moe_width": {}, "moe_new": ADAPTER_NEW, "moe_train": {}},
             workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -7723,16 +8392,131 @@ def phase_model_parallel(card):
             fail("model_parallel: {} disagrees with its reference (one "
                  "process; the compiled pipeline: the interpreter): {}"
                  .format(c["run"], c))
-    return {run: [by[(run, r)]["launches_per_step"]
-                  for r in range(MP_RANKS)]
-            for run in ("tp", "pp", "compiled")}
+    out = {run: [by[(run, r)]["launches_per_step"]
+                 for r in range(MP_RANKS)]
+           for run in ("tp", "pp", "compiled")}
+    out["serve"] = _model_parallel_serving(ranks, card)
+    _model_parallel_moe(ranks, card)
+    print("model_parallel_seconds " + json.dumps(
+        [{"rank": i, "checks_s": r["check_s"],
+          "tp_serve_and_ep_serve_s": r["serve_s"], "moe_train_s": r["moe_s"]}
+         for i, r in enumerate(ranks)]))
+    return out
+
+
+def _model_parallel_serving(ranks, card):
+    """Check and print the serving arms of phase_model_parallel's ranks;
+    returns each rank's tensor-parallel serving row (its K3/K5 launches)."""
+    rows = {(r["arm"], r["rank"]): r for k in ranks for r in k["serving"]}
+    serve = [rows[("tp_serve", r)] for r in range(MP_RANKS)]
+    for row in serve:
+        shown = {k: v for k, v in row.items() if k != "streams"}
+        print("model_parallel_serve " + json.dumps(dict(shown, card=card)))
+        n_layer = 24
+        want = dict.fromkeys(row["launches"], 0)
+        want["decode"] += n_layer * row["decode_steps"]
+        want["paged"] += n_layer * row["prefill_lanes"]
+        if row["launches"] != want:
+            fail("model_parallel serve: rank {} launched {} (want K3 = "
+                 "n_layer x decode steps, K5 = n_layer x prefill lanes: "
+                 "{})".format(row["rank"], row["launches"], want))
+        if row["compile_count"] > MAX_PROGRAMS or \
+                row["graph_replays"] != row["steps"] - row["compile_count"] \
+                or row["graph_segments"] != row["graph_segments_want"] or \
+                len(row["segments_after_warm"]) != 1 or \
+                len(row["allocated_after_warm"]) > 1:
+            fail("model_parallel serve: rank {}'s programs: compile_count {}"
+                 ", replays {} over {} steps, segments {} (want {}), "
+                 "segments after the last capture {}, allocated bytes {} "
+                 "(want no growth)".format(
+                     row["rank"], row["compile_count"], row["graph_replays"],
+                     row["steps"], row["graph_segments"],
+                     row["graph_segments_want"], row["segments_after_warm"],
+                     row["allocated_after_warm"]))
+        if row["kv_heads"] != 16 // MP_RANKS:
+            fail("model_parallel serve: rank {} holds {} heads".format(
+                row["rank"], row["kv_heads"]))
+        for p in row["parted"] + [{"logit_err_over_largest": row[
+                "logit_err_over_largest_request0"]}]:
+            if p["logit_err_over_largest"] > TP_BF16_TOL:
+                fail("model_parallel serve: rank {}'s logits off one "
+                     "process's by {} of the largest (limit {})".format(
+                         row["rank"], p, TP_BF16_TOL))
+    if serve[0]["streams"] != serve[1]["streams"]:
+        fail("model_parallel serve: the ranks' streams differ")
+    for r in range(MP_RANKS):
+        check = rows[("tp_serve_fp32", r)]
+        graph = rows[("tp_graph_vs_eager", r)]
+        timed, ep = rows[("ep_serve", r)], rows[("ep_serve_fp32", r)]
+        for what, row in (("model_parallel_serve_check", check),
+                          ("model_parallel_serve_graph", graph),
+                          ("model_parallel_moe_serve", timed),
+                          ("model_parallel_moe_serve_check", ep)):
+            print(what + " " + json.dumps(dict(row, card=card)))
+        gaps = [p["gap"] for p in check["parted"]] + \
+            [p["gap"] for n in ep["parted"] for p in ep["parted"][n]]
+        if any(g >= NEAR_TIE for g in gaps):
+            fail("model_parallel serve: a stream parts from one process's "
+                 "at a clear choice: {} {}".format(check, ep))
+        if not graph["harvests_identical"] or graph["pool_differs"] or \
+                graph["graph_segments"] != graph["graph_segments_want"]:
+            fail("model_parallel serve: the segmented programs are not "
+                 "eager bit for bit: {}".format(graph))
+        if not all(ep["gauges_equal"].values()) or ep["experts_held"] != {
+                "ep": MOE_CFG["n_experts"] // MP_RANKS,
+                "no_ep": MOE_CFG["n_experts"],
+                "one": MOE_CFG["n_experts"]}:
+            fail("model_parallel moe serve: {}".format(ep))
+        if timed["launches"] != dict.fromkeys(timed["launches"], 0):
+            fail("model_parallel moe serve: a decode kernel ran: {}".format(
+                timed["launches"]))
+    return [row["launches"] for row in serve]
+
+
+def _model_parallel_moe(ranks, card):
+    """Check and print the MoE training arms of phase_model_parallel."""
+    rows = [r for k in ranks for r in k["moe"]]
+    by = {(r.get("arm", r.get("run")), r["rank"]): r for r in rows}
+    for arm in ("moe_train_mp2", "moe_train_dp2"):
+        for r in range(MP_RANKS):
+            row = by[(arm, r)]
+            print("model_parallel_moe_train " + json.dumps(dict(row,
+                                                                card=card)))
+            if not np.isfinite(row["losses"]).all():
+                fail("model_parallel moe: non-finite loss {}".format(row))
+            held = {tuple(s)[0] for s in row["expert_shapes"].values()}
+            want = MOE_TRAIN["experts"] // (MP_RANKS if arm.endswith("mp2")
+                                            else 1)
+            if held != {want}:
+                fail("model_parallel moe: {} rank {} holds {} experts "
+                     "(want {})".format(arm, r, held, want))
+        if len({tuple(by[(arm, r)]["losses"])
+                for r in range(MP_RANKS)}) != 1:
+            fail("model_parallel moe: the ranks' {} losses differ".format(
+                arm))
+    checks = [r for r in rows if "param_max_err_over_limit" in r]
+    print("model_parallel_moe_train_check " + json.dumps(
+        {"fp32": "width {}, {} blocks, B{} T{}, capacity factor {}, {} "
+                 "steps: mp {} and dp {} vs one process".format(
+                     MOE_TRAIN["width"], MOE_CHECK["blocks"],
+                     MOE_CHECK["B"], MOE_CHECK["T"],
+                     MOE_CHECK["capacity_factor"], MOE_CHECK_STEPS,
+                     MP_RANKS, MP_RANKS),
+         "runs": checks, "card": card}))
+    if sorted(c["run"] for c in checks) != ["moe_dp2", "moe_mp2"]:
+        fail("model_parallel moe: a check did not run: {}".format(checks))
+    for c in checks:
+        if c["loss_rel_err"] > 1e-5 or c["param_max_err_over_limit"] > 1.0 \
+                or c["expert_slots"] >= c["tokens"]:
+            fail("model_parallel moe: {} disagrees with one process: {}"
+                 .format(c["run"], c))
 
 
 # ------------------------------------------ sequence parallelism, 1-bit Adam
 
 # Sequence parallelism and 1-bit Adam (phase_sequence_parallel): SP_RANKS
 # gloo ranks on cuda:0 started by the port's launcher. GPT-2 medium bf16 at
-# full width, 12 of its 24 layers (the depth cut for the smoke's time;
+# full width, 6 of its 24 layers (the depth cut for the smoke's time;
 # n_positions SP_T, so only the position table grows), AdamW
 # 1e-4, dropout 0: one global B1 x SP_T sequence, SP_T / 2
 # tokens a rank, through the ring and then Ulysses; then 1-bit Adam over
@@ -7740,7 +8524,7 @@ def phase_model_parallel(card):
 # Collectives go through the host (gloo): their times measure the
 # plumbing, not NVLink.
 SP_RANKS, SP_T = 2, 8192
-SP_WIDTH = {"n_embd": 1024, "n_layer": 12, "n_head": 16}
+SP_WIDTH = {"n_embd": 1024, "n_layer": 6, "n_head": 16}
 SP_CHECK_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
 SP_TIMEOUT_S = 300
 # The ring's K1/K2 inputs (phase_flash holds them there): B1 H16, a block
@@ -8646,6 +9430,7 @@ def main():
     timed(phase_build)
     rows = timed(phase_kernels)
     variant_rows = timed(phase_decode_variants)
+    tp_rows = timed(phase_tp_kernels)
     timed(phase_stress)
     flash_rows, lse_rows = timed(phase_flash)
     row_rows = timed(phase_rows)
@@ -8705,6 +9490,7 @@ def main():
     timed(phase_offload_consistency)
     dp_launches = timed(phase_data_parallel, card)
     mp_launches = timed(phase_model_parallel, card)
+    tp_serve_launches = mp_launches.pop("serve")
     sp_launches = timed(phase_sequence_parallel, card)
     main_row = rows[0]  # bf16 decode: the shape the decode lane runs most
     kernels = [{
@@ -8743,6 +9529,15 @@ def main():
                        disagg["disagg"]["launches"].items()},
             "mixed": {r: n[kind] for r, n in
                       disagg["mixed"]["launches"].items()}}
+        if kind in tp_rows:
+            # Tensor-parallel serving (phase_model_parallel): each model
+            # rank's launches on its 8 heads, and the kernel at that shape.
+            row["model_parallel_serve"] = {
+                "launches_per_rank": [n[kind] for n in tp_serve_launches],
+                "cases": [{key: r.get(key) for key in (
+                    "case", "B", "H", "S", "T", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err",
+                    "max_err_over_limit")} for r in tp_rows[kind]]}
         if kind in variant_rows["fleet_shapes"]:
             row["fleet_shapes"] = [
                 {key: r.get(key) for key in (

@@ -41,7 +41,7 @@ progressive layer drop.
 from deepspeed_tpu_torch.device import resolve_device
 
 
-def init_inference(model, params=None, config=None, device=None):
+def init_inference(model, params=None, config=None, device=None, mesh=None):
     """Build the serving engine (mirrors ``deepspeed_tpu.init_inference``).
 
     ``model`` is a ``models.gpt2.GPT2LMHeadModel`` holding its weights, or a
@@ -50,6 +50,9 @@ def init_inference(model, params=None, config=None, device=None):
     ``InferenceConfig``, a bare ``inference`` block dict, or a ds_config
     dict carrying an ``"inference"`` key. ``device`` defaults to ``cuda``;
     without a GPU the call raises unless ``device="cpu"`` is passed.
+    ``mesh`` (``parallel.mesh.build_mesh(num_mp=...)``): serve this rank's
+    shard of the model over the mesh's 'model' axis; every rank makes the
+    same calls (``inference/engine.py``, "serving over a mesh").
 
     Returns the ``InferenceEngine``.
     """
@@ -57,7 +60,8 @@ def init_inference(model, params=None, config=None, device=None):
 
     if isinstance(config, dict) and "inference" in config:
         config = InferenceConfig.from_dict(config["inference"])
-    return InferenceEngine(model, params, config=config, device=device)
+    return InferenceEngine(model, params, config=config, device=device,
+                           mesh=mesh)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None,

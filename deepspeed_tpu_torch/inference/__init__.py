@@ -1,5 +1,5 @@
 from deepspeed_tpu_torch.inference.config import InferenceConfig
-from deepspeed_tpu_torch.inference.engine import InferenceEngine
+from deepspeed_tpu_torch.inference.engine import InferenceEngine, MeshDivergence
 from deepspeed_tpu_torch.inference.faults import Fault, FaultPlan, InjectedFault
 from deepspeed_tpu_torch.inference.fleet import FleetRequest, ServingFleet
 from deepspeed_tpu_torch.inference.frontdoor import (FrontDoor,
@@ -20,4 +20,4 @@ __all__ = ["InferenceConfig", "InferenceEngine", "Fault", "FaultPlan",
            "FrontDoorConfig", "PriorityClass", "TenantPolicy", "TokenStream",
            "PrefixDirectory", "HEALTH_STATES", "EngineDeadError",
            "EngineDraining", "NumericsError", "CircuitBreaker", "Router",
-           "QueueFull", "Request", "Scheduler"]
+           "QueueFull", "Request", "Scheduler", "MeshDivergence"]

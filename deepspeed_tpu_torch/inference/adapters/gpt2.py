@@ -2,14 +2,20 @@
 
 Counterpart of ``deepspeed_tpu/inference/adapters/gpt2.py``: the one place
 inside ``inference/`` that imports ``models.generation``.
+
+Over a mesh's 'model' axis the adapter of a rank carries its ``tp``
+(``bind``) and serves its shard (``prepare_params``, ``param_shardings``)
+as ``generation.serving_rule`` cuts it.
 """
 
 import dataclasses
-from typing import ClassVar
+from typing import Any, ClassVar
 
 import numpy as np
 
-from deepspeed_tpu_torch.inference.adapters.protocol import ModelAdapter
+from deepspeed_tpu_torch.inference.adapters.protocol import (ModelAdapter,
+                                                             mesh_tp,
+                                                             shard_tree)
 from deepspeed_tpu_torch.models import generation
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, params_from_jax
 
@@ -19,6 +25,8 @@ class GPT2Adapter(ModelAdapter):
     """Dense GPT-2 decode: delegates to models/generation.py."""
 
     gcfg: generation._GenCfg
+    # This rank's model-group context (``bind`` over a mesh), or None.
+    tp: Any = dataclasses.field(default=None, compare=False)
     name: ClassVar[str] = "gpt2"
 
     @classmethod
@@ -42,26 +50,39 @@ class GPT2Adapter(ModelAdapter):
 
     def bind(self, config, mesh=None):
         """Stamp the page length of a paged pool (``inference.paged_kv``)
-        into the cache spec; 0 for a dense pool."""
-        ModelAdapter.bind(self, config, mesh)
+        into the cache spec (0 for a dense pool), and this rank's ``tp``
+        over ``mesh``."""
+        adapter = self
+        tp = mesh_tp(mesh)
+        if tp is not None:
+            adapter = dataclasses.replace(adapter, tp=tp)
         if config is None:
-            return self
+            return adapter
         page_len = int(config.kv_page_len) if config.paged_kv else 0
-        if page_len == self.gcfg.kv_page_len:
-            return self
+        if page_len == adapter.gcfg.kv_page_len:
+            return adapter
         return dataclasses.replace(
-            self, gcfg=self.gcfg._replace(kv_page_len=page_len))
+            adapter, gcfg=adapter.gcfg._replace(kv_page_len=page_len))
 
     def prepare_params(self, params, device):
         """A flax GPT-2 tree of numpy arrays as the serving weights (the
-        config from the cache spec and the tree's vocabulary)."""
+        config from the cache spec and the tree's vocabulary); this rank's
+        shard under ``tp``."""
         g = self.gcfg
         cfg = GPT2Config(vocab_size=int(np.shape(params["wte"])[0]),
                          n_positions=g.n_positions, n_embd=g.n_embd,
                          n_layer=g.n_layer, n_head=g.n_head,
                          layer_norm_epsilon=g.layer_norm_epsilon,
                          dtype=g.dtype)
-        return generation.ServingWeights(params_from_jax(params, cfg, device))
+        return generation.ServingWeights(params_from_jax(params, cfg, device),
+                                         self.tp)
+
+    def param_shardings(self, mesh, params):
+        tp = mesh_tp(mesh)
+        if tp is None:
+            return None
+        return shard_tree(params, generation.serving_rule(self.gcfg, tp.size),
+                          tp)
 
     def init_cache(self, batch, max_len, dtype=None, device=None):
         return generation.init_cache(self.gcfg, batch, max_len, dtype, device)

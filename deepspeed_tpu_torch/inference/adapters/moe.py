@@ -33,9 +33,19 @@ touches (idle slots decode garbage by design), so they read as program
 load, not per-request token counts.
 
 Plain fp KV planes only: int8 planes, the prefix tier and the paged pool
-are refused, as in the JAX package. ``expert_parallel`` is accepted and
-has no effect on one card: sharding the expert stacks over a 'model' mesh
-axis is ROADMAP Queue 1 item 16.
+are refused, as in the JAX package.
+
+EXPERT PARALLELISM over a mesh's 'model' axis (``bind(config, mesh)``):
+with ``expert_parallel`` (the default) model rank r holds experts ``[r
+E/mp, (r + 1) E/mp)`` (the first of ``DEFAULT_TP_RULES``); without it
+every rank holds every expert. The attention follows the GPT-2 rules
+either way (its heads split, ``c_proj`` row-parallel). The JAX layer lets
+GSPMD place the token all-to-alls; here the tokens are replicated over
+the model ranks, so none is needed: the router runs on every rank on the
+same fp32 logits (the same routing, counts and drops everywhere), a rank
+dispatches to and runs only its own experts, and their combined partial
+output is summed over the model group (``serving_reduce``). The
+``aux_moe_*`` counters stay whole-model counts on every rank.
 """
 
 import collections
@@ -49,9 +59,15 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference.adapters.gpt2 import GPT2Adapter
+from deepspeed_tpu_torch.inference.adapters.protocol import (mesh_tp,
+                                                             shard_tree)
 from deepspeed_tpu_torch.models.generation import (EinsumAttention,
-                                                   einsum_attention)
+                                                   einsum_attention,
+                                                   row_parallel,
+                                                   serving_rule)
 from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm
+from deepspeed_tpu_torch.parallel.tensor_parallel import (serving_reduce,
+                                                          shard_of)
 from deepspeed_tpu_torch.moe import sharded_moe
 from deepspeed_tpu_torch.ops.transformer.kernels.decode_attention import \
     gather_pages
@@ -80,12 +96,19 @@ def _moe_mlp(blk, h, cfg):
         logits, capacity_factor=factor, min_capacity=1, noise_rng=None)
     exp = blk.experts
     dt = h.dtype
+    if exp.tp is not None:
+        # This rank's experts only; the partial summed over the group.
+        per = cfg.n_experts // exp.tp.size
+        dispatch = dispatch[:, exp.tp.rank * per:(exp.tp.rank + 1) * per]
+        combine = combine[:, exp.tp.rank * per:(exp.tp.rank + 1) * per]
     disp = torch.einsum("tec,tm->ecm", dispatch.to(dt), tok)
     hh = torch.einsum("ecm,emf->ecf", disp, exp.w1.to(dt))
     hh = F.gelu(hh + exp.b1[:, None, :].to(dt), approximate="tanh")
     eo = torch.einsum("ecf,efm->ecm", hh, exp.w2.to(dt))
     eo = eo + exp.b2[:, None, :].to(dt)
     out = torch.einsum("tec,ecm->tm", combine.to(dt), eo)
+    if exp.tp is not None:
+        out = serving_reduce(out.contiguous(), exp.tp)
     counts = exp_counts.float()
     dropped = float(B * S) - counts.sum()
     return out.reshape(B, S, C), counts, dropped
@@ -102,7 +125,7 @@ def _moe_forward(params, cfg, ids, cache, last_only=False):
             "MoEAdapter supports plain fp KV planes only (no int8 / "
             "prefix hierarchy tiers)")
     B, S = ids.shape
-    nh, hd = cfg.n_head, cfg.n_embd // cfg.n_head
+    hd = cfg.n_embd // cfg.n_head
     dev = ids.device
     pos = cache["pos"]
     eps = cfg.layer_norm_epsilon
@@ -120,8 +143,10 @@ def _moe_forward(params, cfg, ids, cache, last_only=False):
     load, routed = cache["aux_moe_load"], cache["aux_moe_routed"]
     dropped_total = cache["aux_moe_dropped"]
     for blk in params.blocks:
+        attn_tp = blk.attn.tp
+        nh = cfg.n_head // (attn_tp.size if attn_tp is not None else 1)
         h = layer_norm(x, blk.ln_1, eps)
-        q, k, v = dense(h, blk.attn.c_attn).split(cfg.n_embd, dim=-1)
+        q, k, v = dense(h, blk.attn.c_attn).split(nh * hd, dim=-1)
         q = q.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
         k, v = k.reshape(B, S, nh, hd), v.reshape(B, S, nh, hd)
         i = blk.index
@@ -131,8 +156,8 @@ def _moe_forward(params, cfg, ids, cache, last_only=False):
         if tbl is not None:
             k_eff, v_eff = gather_pages(k_eff, tbl), gather_pages(v_eff, tbl)
         y = einsum_attention(q, k_eff, v_eff, q_pos, _DENSE_MASK, cfg.dtype)
-        y = y.transpose(1, 2).reshape(B, S, cfg.n_embd)
-        x = x + dense(y, blk.attn.c_proj)
+        y = y.transpose(1, 2).reshape(B, S, nh * hd)
+        x = x + row_parallel(y, blk.attn.c_proj, attn_tp)
         h = layer_norm(x, blk.ln_2, eps)
         m, counts, dropped = _moe_mlp(blk, h, cfg)
         x = x + m
@@ -150,11 +175,28 @@ def _ns(**kw):
     return types.SimpleNamespace(**kw)
 
 
-def _weights(tensor, cfg):
+def _weights(tensor, cfg, tp=None, expert_parallel=True):
     """The MoE weights as the forward reads them from ``tensor(path,
     shape, kind)`` (kind: 'dense' for a GEMM operand cast to the serving
     dtype once, 'fp32' otherwise): wte/wpe/LayerNorms/router in fp32, the
-    attention kernels and the expert stacks in ``cfg.dtype``."""
+    attention kernels and the expert stacks in ``cfg.dtype``. ``tp``: this
+    model rank's shard (``serving_rule``; the experts only under
+    ``expert_parallel``), each block carrying the contexts its attention
+    and experts compute under."""
+    if tp is not None:
+        rule = serving_rule(cfg, tp.size)
+        whole = tensor
+
+        def tensor(path, kind):
+            t = whole(path, kind)
+            cut = rule(path, tuple(t.shape))
+            if cut is None or ("experts" in path and not expert_parallel):
+                return t
+            return shard_of(t, cut[0], tp, cut[1]).contiguous()
+    heads_tp = tp if tp is not None and cfg.n_head % tp.size == 0 else None
+    ep_tp = tp if tp is not None and expert_parallel and \
+        cfg.n_experts % tp.size == 0 else None
+
     def ln(path):
         return _ns(scale=tensor(path + ("scale",), "fp32"),
                    bias=tensor(path + ("bias",), "fp32"))
@@ -169,20 +211,21 @@ def _weights(tensor, cfg):
         blocks.append(_ns(
             index=i, ln_1=ln(h + ("ln_1",)), ln_2=ln(h + ("ln_2",)),
             attn=_ns(c_attn=lin(h + ("attn", "c_attn")),
-                     c_proj=lin(h + ("attn", "c_proj"))),
+                     c_proj=lin(h + ("attn", "c_proj")), tp=heads_tp),
             router=_ns(kernel=tensor(h + ("router", "kernel"), "fp32"),
                        bias=tensor(h + ("router", "bias"), "fp32")),
-            experts=_ns(**{n: tensor(h + ("experts", n), "dense")
-                           for n in ("w1", "b1", "w2", "b2")})))
+            experts=_ns(tp=ep_tp, **{n: tensor(h + ("experts", n), "dense")
+                                     for n in ("w1", "b1", "w2", "b2")})))
     return _ns(wte=tensor(("wte",), "fp32"), wpe=tensor(("wpe",), "fp32"),
                ln_f=ln(("ln_f",)), blocks=blocks, config=cfg)
 
 
-def params_from_jax(tree, cfg, device=None):
+def params_from_jax(tree, cfg, device=None, tp=None, expert_parallel=True):
     """The JAX MoE parameter tree (``init_params``' layout: flax names,
     ``[in, out]`` kernels, expert stacks ``[E, ...]``, any array type
     numpy can read) as the weights ``_moe_forward`` reads, on ``device``
-    (default ``cuda``; without a GPU it raises unless ``device="cpu"``)."""
+    (default ``cuda``; without a GPU it raises unless ``device="cpu"``);
+    this model rank's shard under ``tp`` (``_weights``)."""
     device = resolve_device(device)
 
     def tensor(path, kind):
@@ -192,7 +235,20 @@ def params_from_jax(tree, cfg, device=None):
         t = torch.from_numpy(np.array(node, dtype=np.float32)).to(device)
         return t.to(cfg.dtype) if kind == "dense" else t
 
-    return _weights(tensor, cfg)
+    return _weights(tensor, cfg, tp, expert_parallel)
+
+
+def shard_weights(weights, tp, expert_parallel=True):
+    """This model rank's shard of full MoE weights (``init_params`` or
+    ``params_from_jax`` without ``tp``)."""
+    def tensor(path, kind):
+        node = weights
+        for key in path:
+            node = node.blocks[int(key[2:])] if key.startswith("h_") else \
+                getattr(node, key)
+        return node
+
+    return _weights(tensor, weights.config, tp, expert_parallel)
 
 
 def init_params(cfg, seed=0, device=None, init_scale=0.02):
@@ -250,16 +306,35 @@ class MoEAdapter(GPT2Adapter):
 
     def prepare_params(self, params, device):
         """A JAX-layout tree (numpy) is carried across; weights already
-        built (``init_params``) are taken as they are."""
+        built (``init_params``) are taken as they are; under ``tp`` this
+        rank's shard of either."""
         if isinstance(params, types.SimpleNamespace):
-            return params
-        return params_from_jax(params, self.gcfg, device)
+            if self.tp is None:
+                return params
+            return shard_weights(params, self.tp, self.expert_parallel)
+        return params_from_jax(params, self.gcfg, device, self.tp,
+                               self.expert_parallel)
+
+    def param_shardings(self, mesh, params):
+        """This rank's shard of the JAX tree: the GPT-2 attention rules,
+        and the experts' rule only under ``expert_parallel`` (JAX
+        ``MoEAdapter.param_shardings``)."""
+        tp = mesh_tp(mesh)
+        if tp is None:
+            return None
+        rule = serving_rule(self.gcfg, tp.size)
+
+        def moe_rule(path, shape):
+            if "experts" in path and not self.expert_parallel:
+                return None
+            return rule(path, shape)
+        return shard_tree(params, moe_rule, tp)
 
     def bind(self, config, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "MoEAdapter: sharding the expert stacks over a 'model' mesh "
-                "axis is not ported (ROADMAP Queue 1 item 16)")
+        adapter = self
+        tp = mesh_tp(mesh)
+        if tp is not None:
+            adapter = dataclasses.replace(adapter, tp=tp)
         if config is not None:
             if getattr(config, "paged_kv", False):
                 raise ValueError(
@@ -272,9 +347,9 @@ class MoEAdapter(GPT2Adapter):
                     "MoEAdapter supports plain fp KV planes only (no int8 / "
                     "prefix hierarchy tiers)")
             ep = bool(getattr(config, "expert_parallel", True))
-            if ep != self.expert_parallel:
-                return dataclasses.replace(self, expert_parallel=ep)
-        return self
+            if ep != adapter.expert_parallel:
+                return dataclasses.replace(adapter, expert_parallel=ep)
+        return adapter
 
     def init_cache(self, batch, max_len, dtype=None, device=None):
         cfg = self.gcfg

@@ -26,7 +26,54 @@ Speculation adds three methods: ``verify_forward`` scores a slot's frontier
 token and its drafts in one forward without moving the frontier,
 ``ngram_draft`` drafts from the slot's own tokens, and ``accept_counts``
 applies the accept rule.
+
+Over a mesh (``parallel/mesh.Mesh``) the engine runs one process per rank,
+and "sharded" means "this rank's shard": ``bind(config, mesh)`` returns
+the adapter of this rank (its ``tp``, the model group's ``TPContext``, or
+None: replicated), and ``param_shardings(mesh, params)`` cuts this rank's
+shard out of a full parameter tree of numpy arrays (``shard_tree``).
 """
+
+import numpy as np
+
+from deepspeed_tpu_torch.parallel import mesh as mesh_lib
+from deepspeed_tpu_torch.parallel.tensor_parallel import TPContext
+
+
+def mesh_tp(mesh):
+    """The ``TPContext`` of a serving rank on ``mesh``: its model group
+    (None without a process group: the context can cut shards but not
+    reduce), mp and model rank; None when the model axis is 1 wide or
+    there is no mesh."""
+    if mesh is None or mesh_lib.mp_size(mesh) <= 1:
+        return None
+    return TPContext(mesh.mp_group, mesh_lib.mp_size(mesh), mesh.mp_rank)
+
+
+def shard_tree(tree, rule, tp, path=()):
+    """This rank's shard of a nested dict of arrays: ``rule(path, shape)``
+    gives a leaf's (dim, order) on the model axis, or None (replicated);
+    ``order(rank, mp)`` the indices the rank holds, or None for the
+    contiguous block."""
+    out = {}
+    for key, val in tree.items():
+        here = path + (key,)
+        if isinstance(val, dict):
+            out[key] = shard_tree(val, rule, tp, here)
+            continue
+        arr = np.asarray(val)
+        cut = rule(here, arr.shape)
+        if cut is None:
+            out[key] = arr
+            continue
+        dim, order = cut
+        if order is not None:
+            idx = order(tp.rank, tp.size).numpy()
+        else:
+            per = arr.shape[dim] // tp.size
+            idx = np.arange(tp.rank * per, (tp.rank + 1) * per)
+        out[key] = np.take(arr, idx, axis=dim)
+    return out
 
 
 class ModelAdapter:
@@ -74,13 +121,9 @@ class ModelAdapter:
         raise NotImplementedError
 
     def bind(self, config, mesh=None):
-        """The adapter specialised to an engine's InferenceConfig; ``self``
-        when nothing changes. ``mesh``: the JAX package binds to a device
-        mesh; the port serves on one card and takes none."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "{}: serving over a device mesh is not ported (ROADMAP "
-                "Queue 1 item 16)".format(type(self).__name__))
+        """The adapter specialised to an engine's InferenceConfig and this
+        rank of ``mesh``; ``self`` when nothing changes (an adapter that
+        shards nothing serves replicated on every rank)."""
         return self
 
     def aux_state(self):
@@ -97,11 +140,8 @@ class ModelAdapter:
                 type(self).__name__))
 
     def param_shardings(self, mesh, params):
-        """Parameter placement over a device mesh: None (one card)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "{}: sharding parameters over a device mesh is not ported "
-                "(ROADMAP Queue 1 item 16)".format(type(self).__name__))
+        """This rank's shard of the full parameter tree ``params`` on
+        ``mesh``; None when the adapter shards nothing."""
         return None
 
     def observe(self, snap, registry):

@@ -123,8 +123,9 @@ class InferenceConfig:
     perf_xray: bool = False
     xray_sample_every: int = 64
     # The long-context adapter's block-sparse mask (False: a dense einsum,
-    # the A/B switch), and the MoE adapter's expert parallelism (accepted,
-    # no effect on one card: the experts all live on the card).
+    # the A/B switch), and the MoE adapter's expert parallelism (over a
+    # mesh's 'model' axis each rank holds E/mp experts; False: every
+    # expert on every rank; no effect on one card).
     sparse_decode: bool = True
     expert_parallel: bool = True
 

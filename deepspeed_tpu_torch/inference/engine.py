@@ -195,10 +195,38 @@ section with the HBM ledger (weights, KV pool and graph pool against the
 caching allocator's live bytes); None with the x-ray off. An MoE or
 long-context adapter (``adapter=``) serves through the same programs.
 
-Tensor parallelism is a later slice.
+SERVING OVER A MESH (``mesh=``, ``parallel/mesh.build_mesh``): the JAX
+engine is one controller over its devices; the port runs one engine per
+rank, SPMD. Every rank of the mesh makes the same ``submit`` / ``step`` /
+``run`` calls in the same order, and the host scheduler decides only from
+what every rank holds alike: the replicated logits, hence the tokens and
+the harvests (a sampled draw is keyed on (seed, position), the same on
+every rank). The adapter of this rank (``bind(config, mesh)``) holds its
+shard of the weights over the 'model' axis and the pool its heads
+(``kv_pool.init_pool(tp=)``); the 'data' axis replicates, as in the JAX
+programs. ``run()`` (and ``generate``) gathers a digest of the queued
+requests before it steps and one of the completed requests' tokens after
+it, over every rank of the mesh, and raises ``MeshDivergence`` on a
+difference: a rank whose requests differ fails loudly, before any step,
+rather than hanging at a collective. What would decide from a host clock
+(the step watchdog, queue deadlines, ``run(timeout_s=)``, fault injection
+and recovery replay, the KV hierarchy's swap timing) is refused under a
+mesh, as are the mesh's 'pipe' and 'seq' axes (ROADMAP Queue 1 item 19).
+
+Under a model group a step program is a CHAIN OF CAPTURED SEGMENTS split
+at the group's collectives (``_StepGraph``): the forward's row-parallel
+partials (``tensor_parallel.serving_reduce``) end a segment inside the
+capture, and each replay runs the all-reduce of that partial, in place on
+its static address, between the segments' replays on the engine's stream
+(gloo stages it through the host, which no capture can hold). One code
+path for every backend: a program of one segment is the one-card graph.
+``graph_segments`` counts the segments captured (cumulative, like
+``compile_count``).
 """
 
 import contextlib
+import hashlib
+import itertools
 import threading
 import time
 
@@ -231,6 +259,8 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.ops.sampling import sample_rows as _sample_rows
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
+from deepspeed_tpu_torch.parallel import comm, tensor_parallel
+from deepspeed_tpu_torch.parallel import mesh as mesh_lib
 from deepspeed_tpu_torch.telemetry import (HBMLedger, MetricsRegistry,
                                            NullRecorder, ProgramRegistry,
                                            RecompileDetector, SpanRecorder,
@@ -247,6 +277,40 @@ _NULL_CTX = contextlib.nullcontext()
 # Serializes CUDA graph captures (and the eager first run of a key before
 # one) across every engine of the process (module docstring).
 _CAPTURE_LOCK = threading.Lock()
+
+_MESH_ITEM = "ROADMAP Queue 1 item 19"
+
+
+class MeshDivergence(RuntimeError):
+    """The ranks of a serving mesh were given, or produced, different
+    requests or tokens (module docstring)."""
+
+
+def _check_mesh(mesh, config):
+    """Refuse what a serving mesh cannot hold (module docstring)."""
+    if mesh is None or mesh.size <= 1:
+        return
+    for axis in (mesh_lib.PIPE_AXIS, mesh_lib.SEQ_AXIS):
+        if mesh.shape[axis] > 1:
+            raise ValueError(
+                "serving over a mesh whose '{}' axis is {} wide is not "
+                "ported: the serving mesh takes 'model' and 'data' axes "
+                "({})".format(axis, mesh.shape[axis], _MESH_ITEM))
+    refused = [name for name, on in (
+        ("step_budget_s", config.step_budget_s is not None),
+        ("fault_injection", config.fault_injection),
+        ("prefix_cache", config.prefix_cache),
+        ("host_offload", config.host_offload)) if on]
+    if refused:
+        raise ValueError(
+            "inference.{} over a serving mesh: the ranks would decide "
+            "apart (a host clock, recovery replay, the KV hierarchy); not "
+            "ported ({})".format(", ".join(refused), _MESH_ITEM))
+    if mesh_lib.mp_size(mesh) > 1 and mesh.mp_group is None:
+        raise ValueError("a 'model' axis of size {} needs a process group "
+                         "(torch.distributed)".format(
+                             mesh_lib.mp_size(mesh)))
+
 
 # The JAX engine's counters that the port's features drive.
 _COUNTERS = ("tokens_out", "chunks", "prefills", "prefill_tokens",
@@ -542,38 +606,59 @@ def _mixed_step_program(params, adapter, chunk, spec, pool, inp, harvest,
 
 
 class _StepGraph(object):
-    """One step program captured as a CUDA graph on ``stream`` (the
-    engine's), with the decode-kernel launches it holds. The capture
-    records launches without running them (``decode_attention
-    .recording``: they land in this graph's tally, not in any count), and
-    every replay adds the tally: the counts are kernels run. The caller
-    holds ``_CAPTURE_LOCK``.
+    """One step program captured on ``stream`` (the engine's) as a chain of
+    CUDA graphs, one segment per stretch between the model group's
+    collectives (module docstring; one segment without a model group),
+    with the decode-kernel launches it holds. The capture records launches
+    without running them (``decode_attention.recording``: they land in
+    this program's tally, not in any count), and every replay adds the
+    tally: the counts are kernels run. The caller holds
+    ``_CAPTURE_LOCK``.
 
-    The capture is begun and ended by hand rather than through
+    Each capture is begun and ended by hand rather than through
     ``torch.cuda.graph``, whose entry synchronizes the whole device and
     empties the caching allocator: with other engines stepping on the
-    card, the wait before the capture is on ``stream`` alone. On an error
-    inside the capture, ``capture_end`` still runs (and raises the CUDA
-    error in turn when the capture was invalidated); the stream context
-    restores the caller's stream either way, the half-built graph is
-    dropped with this object, and the engine's key stays out of its
-    programs, so the key's next step captures it again."""
+    card, the wait before the capture is on ``stream`` alone. All segments
+    share ``pool`` and replay in capture order. A reduce inside the
+    capture ends the segment (``_cut``); its partial stays referenced
+    here, so its address is the next segment's input. On an error inside
+    the capture, the open segment's ``capture_end`` still runs (and raises
+    the CUDA error in turn when the capture was invalidated); the stream
+    context restores the caller's stream either way, the half-built
+    program is dropped with this object, and the engine's key stays out
+    of its programs, so the key's next step captures it again."""
 
     def __init__(self, program, pool, stream):
-        self.graph = torch.cuda.CUDAGraph()
+        self.graphs, self.cuts = [], []
+        self._pool = pool
         stream.synchronize()
         with decode_attention.recording() as tally, \
-                torch.cuda.stream(stream):
-            self.graph.capture_begin(pool=pool,
-                                     capture_error_mode="thread_local")
+                torch.cuda.stream(stream), \
+                tensor_parallel.segmented(self._cut):
+            self._begin()
             try:
                 program()
             finally:
-                self.graph.capture_end()
+                self.graphs[-1].capture_end()
         self.launches = dict(tally)
 
+    def _begin(self):
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        self.graphs.append(graph)
+
+    def _cut(self, t, tp):
+        self.graphs[-1].capture_end()
+        self.cuts.append((t, tp))
+        self._begin()
+        return t
+
     def replay(self):
-        self.graph.replay()
+        for graph, cut in itertools.zip_longest(self.graphs, self.cuts):
+            graph.replay()
+            if cut is not None:
+                tensor_parallel.serving_reduce(*cut)
         decode_attention.add_launches(self.launches)
 
 
@@ -591,15 +676,20 @@ class InferenceEngine(object):
     ``model``). A GPT-2-weight adapter (``LongContextAdapter``) serves
     ``model`` as above; with ``model=None`` the adapter's own parameter
     tree is ``params`` (``MoEAdapter``: the JAX layout of numpy arrays,
-    or its ``init_params``), read through ``adapter.prepare_params``."""
+    or its ``init_params``), read through ``adapter.prepare_params``.
+    ``mesh``: this rank's ``parallel.mesh.Mesh`` to serve over (module
+    docstring); the weights given are full, and the engine keeps this
+    rank's shard."""
 
     def __init__(self, model, params=None, config=None, device=None,
-                 weights=None, adapter=None):
+                 weights=None, adapter=None, mesh=None):
         if config is None:
             config = InferenceConfig()
         elif isinstance(config, dict):
             config = InferenceConfig.from_dict(config)
+        _check_mesh(mesh, config)
         self.config = config
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = resolve_device(device)
         # The engine's own stream (module docstring), None on the CPU. It
         # waits once for the caller's stream, where the weights were made;
@@ -620,7 +710,7 @@ class InferenceEngine(object):
             if adapter is None:
                 raise ValueError("model=None needs an adapter that brings "
                                  "its own weights (MoEAdapter)")
-            self._adapter = adapter.bind(config)
+            self._adapter = adapter.bind(config, self.mesh)
             self._params = weights if weights is not None \
                 else self._adapter.prepare_params(params, self.device)
             self._build_serving(config)
@@ -638,16 +728,20 @@ class InferenceEngine(object):
         else:
             raise TypeError("model must be a GPT2LMHeadModel or GPT2Config, "
                             "got {}".format(type(model).__name__))
-        # The dense weights cast to the serving dtype once, here.
-        self._params = weights if weights is not None \
-            else ServingWeights(model)
         self._adapter = (adapter if adapter is not None
-                         else GPT2Adapter.from_model(model)).bind(config)
+                         else GPT2Adapter.from_model(model)).bind(
+                             config, self.mesh)
+        # The dense weights cast to the serving dtype once, here (this
+        # rank's shard over a mesh).
+        self._params = weights if weights is not None \
+            else ServingWeights(model, getattr(self._adapter, "tp", None))
         self._build_serving(config)
 
     def _build_serving(self, config):
         """Everything past the weights and the adapter."""
         self._gcfg = self._adapter.cache_spec()
+        # This rank's model-group context (None: every head on the rank).
+        self._tp = getattr(self._adapter, "tp", None)
         config.validate_against_model(self._gcfg.n_positions)
         # Telemetry (module docstring): the registry is always real, the
         # spans and profiler scopes follow ``config.telemetry``.
@@ -703,7 +797,8 @@ class InferenceEngine(object):
             device=self.device, hier=hspec if hspec.enabled else None,
             page_len=config.kv_page_len if self._pager else 0,
             num_pages=self._pager.total_pages if self._pager else None,
-            ring=self._spec is not None, aux=self._adapter.aux_state())
+            ring=self._spec is not None, aux=self._adapter.aux_state(),
+            tp=self._tp)
         self._inputs = step_inputs(config.max_slots, config.prefill_chunk,
                                    self.device)
         lanes = config.spec_k + 1 if self._spec is not None else 1
@@ -722,6 +817,7 @@ class InferenceEngine(object):
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.device.type == "cuda" else None)
         self.graph_replays = 0
+        self.graph_segments = 0
         self._capture_s = 0.0
         self._graph_pool_bytes = 0
         # The last step's harvest (host arrays): gauges and metrics()
@@ -940,6 +1036,11 @@ class InferenceEngine(object):
         if eos_token_id is None:
             eos_token_id = self.config.eos_token_id
         deadline = None
+        if deadline_ms is not None and self.mesh is not None:
+            raise ValueError(
+                "submit(deadline_ms=) over a serving mesh: a host clock "
+                "would shed a request on one rank only; not ported "
+                "({})".format(_MESH_ITEM))
         if deadline_ms is not None:
             if deadline_ms <= 0:
                 raise ValueError("deadline_ms must be > 0, got "
@@ -1505,6 +1606,7 @@ class InferenceEngine(object):
             t0 = time.perf_counter()
             graph = _StepGraph(lambda: self._program(*key), self._graph_pool,
                                self._stream)
+            self.graph_segments += len(graph.graphs)
             self._sync()
             self._capture_s += time.perf_counter() - t0
             # The pool grows only at a capture (replays allocate nothing).
@@ -1698,7 +1800,16 @@ class InferenceEngine(object):
         ``timeout_s`` wall clock (checked after each step: a stalled
         device makes "N more steps" a meaningless promise). Either limit
         logs the in-flight count and returns what completed; it never
-        raises."""
+        raises, but over a mesh the ranks' digests (module docstring) must
+        agree, or it raises ``MeshDivergence``."""
+        if timeout_s is not None and self.mesh is not None:
+            raise ValueError(
+                "run(timeout_s=) over a serving mesh: a host clock would "
+                "stop one rank only; not ported ({})".format(_MESH_ITEM))
+        self._lockstep("queued", [
+            (r.rid, r.prompt.tobytes(), r.max_new_tokens, r.temperature,
+             r.top_k, r.eos_token_id, r.seed, r.spec)
+            for r in self._scheduler.queue])
         out, steps = [], 0
         t0 = time.time()
         while not self._scheduler.idle:
@@ -1717,7 +1828,22 @@ class InferenceEngine(object):
                                len(self._scheduler.running) +
                                len(self._scheduler.queue))
                 break
+        self._lockstep("completed", [(r.rid, r.tokens) for r in out])
         return out
+
+    def _lockstep(self, what, facts):
+        """Over a mesh: gather a digest of ``facts`` from every rank and
+        raise ``MeshDivergence`` where any differs (module docstring)."""
+        if self.mesh is None:
+            return
+        digest = hashlib.blake2b(repr(facts).encode(),
+                                 digest_size=16).hexdigest()
+        seen = comm.all_gather_object(digest, None)
+        if len(set(seen)) != 1:
+            raise MeshDivergence(
+                "serving mesh ranks disagree on their {} requests (digest "
+                "by rank: {}): every rank must make the same submit/step/"
+                "run calls in the same order".format(what, seen))
 
     def drain(self, max_steps=None, timeout_s=None):
         """Graceful drain: CLOSE admissions (submit() raises
@@ -2069,6 +2195,7 @@ class InferenceEngine(object):
             "compile_count": self.compile_count,
             "recompiles": int(self.recompile_detector.recompiles.value),
             "graph_replays": self.graph_replays,
+            "graph_segments": self.graph_segments,
             "capture_ms": self._capture_s * 1e3,
             "graph_pool_bytes": self._graph_pool_bytes,
             "prefill_seconds": self.timers(

@@ -34,6 +34,12 @@ int8 codes and the pool gains fp32 ``k_scale``/``v_scale`` planes of the
 same shape without the head dimension, written by the same frontier writes
 as the codes.
 
+Over a mesh's 'model' axis (``tp``) each rank's planes hold its heads
+only (``parallel/mesh.kv_heads``: H/mp of them where mp divides H, else
+all): the k/v planes or arenas, the int8 codes and their scale planes
+(which carry the heads dim here), and the prefix rows; ``pool_nbytes``
+counts this rank's bytes.
+
 An adapter's own state (``ModelAdapter.aux_state``: the MoE adapter's
 expert-load counters) joins the pool under ``aux_`` keys: global, not per
 slot, so no slot record carries it (``kv_hierarchy.offload``), threaded
@@ -75,6 +81,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.parallel.mesh import kv_heads
 
 # Per-slot fields: (name, dtype, initial value). Every other tensor of the
 # pool (planes, scales, prefix rows, block table, token ring) starts at
@@ -124,7 +131,8 @@ def paged_plane_len(max_len, slack, page_len):
 
 
 def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
-              hier=None, page_len=0, num_pages=None, ring=False, aux=None):
+              hier=None, page_len=0, num_pages=None, ring=False, aux=None,
+              tp=None):
     """Zeroed pool dict for ``num_slots`` sequences of up to ``max_len``
     positions under generation config ``gcfg``
     (``models.generation.as_gencfg``), on ``device`` (default ``cuda``;
@@ -142,21 +150,24 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
     ``block_tbl`` (every row on the trash page). ``ring`` adds the token
     ring ``toks`` of a speculating engine, as long as a row's plane (the
     logical plane when paged). ``aux``: an adapter's ``aux_state()``
-    ({name: (shape, dtype)}), allocated on ``device`` and zeroed."""
+    ({name: (shape, dtype)}), allocated on ``device`` and zeroed. ``tp``
+    (a ``TPContext``): this model rank's heads only (module docstring)."""
     dtype = dtype or gcfg.dtype
     device = resolve_device(device)
     hd = gcfg.n_embd // gcfg.n_head
+    _, heads = kv_heads(gcfg.n_head, tp.size, tp.rank) if tp is not None \
+        else (0, gcfg.n_head)
     int8 = hier is not None and hier.int8
     kv_dtype = torch.int8 if int8 else dtype
     pool = {}
     if page_len:
         n_lp = paged_plane_len(max_len, slack, page_len) // page_len
         usable = num_pages if num_pages is not None else num_slots * n_lp
-        shape = (gcfg.n_layer, usable + 1, gcfg.n_head, page_len, hd)
+        shape = (gcfg.n_layer, usable + 1, heads, page_len, hd)
         pool["block_tbl"] = torch.empty((num_slots, n_lp), dtype=torch.int32,
                                         device=device)
     else:
-        shape = (gcfg.n_layer, num_slots, gcfg.n_head,
+        shape = (gcfg.n_layer, num_slots, heads,
                  plane_len_for(max_len, slack), hd)
     pool["k"] = torch.empty(shape, dtype=kv_dtype, device=device)
     pool["v"] = torch.empty(shape, dtype=kv_dtype, device=device)
@@ -168,7 +179,7 @@ def init_pool(gcfg, num_slots, max_len, dtype=None, slack=0, device=None,
     if hier is not None and hier.prefix and not page_len:
         # The shared-prefix rows of a dense pool (the JAX layout); a paged
         # pool's prefix rows are refcounted arena pages instead.
-        p_shape = (gcfg.n_layer, hier.prefix_slots, gcfg.n_head,
+        p_shape = (gcfg.n_layer, hier.prefix_slots, heads,
                    hier.prefix_len, hd)
         pool["pk"] = torch.empty(p_shape, dtype=kv_dtype, device=device)
         pool["pv"] = torch.empty(p_shape, dtype=kv_dtype, device=device)

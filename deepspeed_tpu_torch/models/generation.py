@@ -45,6 +45,18 @@ Contracts kept from the JAX package:
 - GELU is tanh-approximate; the LM head is an fp32 product against
   ``wte``.
 
+Tensor parallelism (serving over a mesh's 'model' axis): a block whose
+``attn.tp`` / ``mlp.tp`` is a ``TPContext`` computes Megatron's split, as
+the training forward does (``models/gpt2.py``). ``c_attn`` holds the
+rank's heads of q, k and v (``qkv_order``), so the rank writes and attends
+its H/mp heads of the planes (``parallel/mesh.kv_heads``); ``mlp/c_fc``
+holds its column block. Both ``c_proj`` products are row-parallel: the
+partial is summed over the model group (``tensor_parallel
+.serving_reduce``), then the bias is added once. ``wte``, ``wpe`` and the
+LayerNorms are replicated, so every rank computes the same fp32 logits.
+Heads that mp does not divide stay whole on every rank (the attention
+then runs replicated, as the JAX planes are).
+
 In torch the planes are updated IN PLACE (JAX threads a new array through);
 the returned cache holds the same plane tensors and an advanced ``pos``.
 
@@ -63,11 +75,13 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.device import resolve_device
-from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm
+from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm, qkv_order
 from deepspeed_tpu_torch.ops.sampling import sample_rows
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import \
     FixedSparsityConfig
 from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
+from deepspeed_tpu_torch.parallel.tensor_parallel import (serving_reduce,
+                                                          shard_of)
 
 # Shape/dtype view of a GPT2Config: what the cache and the pool are sized
 # from (and what an adapter's ``cache_spec`` returns). ``kv_page_len`` > 0
@@ -158,32 +172,96 @@ def init_cache(cfg, batch, max_len, dtype=None, device=None):
             "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
 
 
+def serving_rule(cfg, mp):
+    """Where a serving rank over ``mp`` model ranks cuts a GPT-2-shaped
+    parameter: ``rule(path, shape)`` (path: the flax names) gives (dim,
+    order) or None (replicated). The JAX ``DEFAULT_TP_RULES`` with
+    ``c_attn`` cut by heads (``qkv_order``) where mp divides the heads,
+    ``mlp/c_fc`` by columns, both ``c_proj`` kernels by rows, and the
+    expert stacks (``experts``, the MoE adapter's) on their first dim."""
+    heads = cfg.n_head % mp == 0
+
+    def rule(path, shape):
+        tail = path[-3:]
+        if "experts" in path:
+            return (0, None) if shape[0] % mp == 0 else None
+        if tail[:2] == ("attn", "c_attn") and heads:
+            return (len(shape) - 1, qkv_order(cfg.n_embd))
+        if tail == ("attn", "c_proj", "kernel") and heads:
+            return (0, None)
+        if tail[:2] == ("mlp", "c_fc") and shape[-1] % mp == 0:
+            return (len(shape) - 1, None)
+        if tail == ("mlp", "c_proj", "kernel") and shape[0] % mp == 0:
+            return (0, None)
+        return None
+    return rule
+
+
 class ServingWeights:
     """A GPT-2 model's weights as the serving path reads them: the dense
     kernels and biases cast to ``config.dtype`` once (the model holds them
     in fp32 and would cast them at every call), ``wte``, ``wpe`` and the
     LayerNorm parameters shared with the model. ``_forward`` reads this and
-    a ``GPT2LMHeadModel`` alike, with the same numbers."""
+    a ``GPT2LMHeadModel`` alike, with the same numbers.
 
-    def __init__(self, model):
+    ``tp`` (a ``TPContext``): keep this model rank's shard of a full
+    model's weights (``serving_rule``; module docstring). A model already
+    cut by ``tensor_parallel.apply_rules`` keeps its own shards and
+    contexts."""
+
+    def __init__(self, model, tp=None):
         self.config = model.config
         self.wte, self.wpe, self.ln_f = model.wte, model.wpe, model.ln_f
         dt = model.config.dtype
+        if any(getattr(blk.attn, "tp", None) is not None
+               for blk in model.blocks()):
+            tp = None
+        rule = serving_rule(model.config, tp.size) if tp is not None \
+            else None
 
-        def cast(p):
-            return types.SimpleNamespace(kernel=p.kernel.detach().to(dt),
-                                         bias=p.bias.detach().to(dt))
+        def cast(path, p):
+            leaves = {}
+            for leaf in ("kernel", "bias"):
+                t = getattr(p, leaf).detach()
+                cut = rule(path + (leaf,), tuple(t.shape)) if rule else None
+                if cut is not None:
+                    t = shard_of(t, cut[0], tp, cut[1])
+                leaves[leaf] = t.to(dt).contiguous()
+            return types.SimpleNamespace(**leaves)
 
-        self._blocks = [types.SimpleNamespace(
-            ln_1=blk.ln_1, ln_2=blk.ln_2,
-            attn=types.SimpleNamespace(c_attn=cast(blk.attn.c_attn),
-                                       c_proj=cast(blk.attn.c_proj)),
-            mlp=types.SimpleNamespace(c_fc=cast(blk.mlp.c_fc),
-                                      c_proj=cast(blk.mlp.c_proj)))
-            for blk in model.blocks()]
+        # Each half of a block computes split where the rule cuts it.
+        C = model.config.n_embd
+        attn_tp, mlp_tp = (
+            tp if rule is not None and rule(path, shape) is not None
+            else None for path, shape in (
+                (("attn", "c_proj", "kernel"), (C, C)),
+                (("mlp", "c_proj", "kernel"), (4 * C, C))))
+        self._blocks = []
+        for i, blk in enumerate(model.blocks()):
+            h = ("h_{}".format(i),)
+            self._blocks.append(types.SimpleNamespace(
+                ln_1=blk.ln_1, ln_2=blk.ln_2,
+                attn=types.SimpleNamespace(
+                    c_attn=cast(h + ("attn", "c_attn"), blk.attn.c_attn),
+                    c_proj=cast(h + ("attn", "c_proj"), blk.attn.c_proj),
+                    tp=attn_tp if rule is not None else blk.attn.tp),
+                mlp=types.SimpleNamespace(
+                    c_fc=cast(h + ("mlp", "c_fc"), blk.mlp.c_fc),
+                    c_proj=cast(h + ("mlp", "c_proj"), blk.mlp.c_proj),
+                    tp=mlp_tp if rule is not None else blk.mlp.tp)))
 
     def blocks(self):
         return self._blocks
+
+
+def row_parallel(y, p, tp):
+    """``y @ kernel + bias`` of a row-parallel layer (``tp`` a
+    ``TPContext``): the local product summed over the model group, then
+    the replicated bias; ``dense`` when ``tp`` is None."""
+    if tp is None:
+        return dense(y, p)
+    part = torch.matmul(y, p.kernel.to(y.dtype))
+    return serving_reduce(part, tp) + p.bias.to(y.dtype)
 
 
 def _forward(model, ids, cache, last_only=False, attn=None):
@@ -203,7 +281,7 @@ def _forward(model, ids, cache, last_only=False, attn=None):
     paged = "block_tbl" in cache
     cfg = model.config
     B, S = ids.shape
-    nh, hd = cfg.n_head, cfg.n_embd // cfg.n_head
+    hd = cfg.n_embd // cfg.n_head
     dev = ids.device
     pos = cache["pos"]
     q_pos = pos.to(torch.int64)[:, None] + torch.arange(S, device=dev)
@@ -227,8 +305,10 @@ def _forward(model, ids, cache, last_only=False, attn=None):
     k_cache, v_cache = cache["k"], cache["v"]
     ks_cache, vs_cache = cache.get("k_scale"), cache.get("v_scale")
     for i, blk in enumerate(model.blocks()):
+        attn_tp = getattr(blk.attn, "tp", None)
+        nh = cfg.n_head // (attn_tp.size if attn_tp is not None else 1)
         h = layer_norm(x, blk.ln_1, cfg.layer_norm_epsilon)
-        q, k, v = dense(h, blk.attn.c_attn).split(cfg.n_embd, dim=-1)
+        q, k, v = dense(h, blk.attn.c_attn).split(nh * hd, dim=-1)
         q = q.reshape(B, S, nh, hd).transpose(1, 2).contiguous()
         k, v = k.reshape(B, S, nh, hd), v.reshape(B, S, nh, hd)
         # Frontier write: plane[b, :, pos[b] + s, :] = new[b, s] (through
@@ -273,11 +353,11 @@ def _forward(model, ids, cache, last_only=False, attn=None):
         else:
             y = decode_attention.flash_decode_attention(
                 q, k_cache[i], v_cache[i], pos, scale=scale)
-        y = y.transpose(1, 2).reshape(B, S, cfg.n_embd)
-        x = x + dense(y, blk.attn.c_proj)
+        y = y.transpose(1, 2).reshape(B, S, nh * hd)
+        x = x + row_parallel(y, blk.attn.c_proj, attn_tp)
         h = layer_norm(x, blk.ln_2, cfg.layer_norm_epsilon)
         h = F.gelu(dense(h, blk.mlp.c_fc), approximate="tanh")
-        x = x + dense(h, blk.mlp.c_proj)
+        x = x + row_parallel(h, blk.mlp.c_proj, getattr(blk.mlp, "tp", None))
     if last_only:
         x = x[:, -1:]
     x = layer_norm(x, model.ln_f, cfg.layer_norm_epsilon)

@@ -64,7 +64,8 @@ from deepspeed_tpu_torch.ops.transformer.kernels.attention import (
 from deepspeed_tpu_torch.ops.transformer.ring_attention import (
     get_sp_attention)
 from deepspeed_tpu_torch.parallel import sequence_parallel
-from deepspeed_tpu_torch.parallel.tensor_parallel import (copy_to_model,
+from deepspeed_tpu_torch.parallel.tensor_parallel import (apply_rules,
+                                                          copy_to_model,
                                                           reduce_from_model)
 from deepspeed_tpu_torch.runtime.utils import load_flax_tree
 
@@ -404,14 +405,16 @@ def _sequence_parallel_xent(x, wte, labels, cfg, sp):
     return both[0] / torch.clamp(both[1], min=1.0)
 
 
-def params_from_jax(tree, config, device=None):
+def params_from_jax(tree, config, device=None, tp=None):
     """The port's ``GPT2LMHeadModel`` from a flax GPT-2 parameter tree whose
     leaves are numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``).
 
     Names and layouts carry over unchanged (flax ``Dense`` kernels stay
     ``[in, out]``); every parameter is fp32 on ``device`` (default ``cuda``,
     as for ``GPT2LMHeadModel``). Raises KeyError for a missing or unexpected
-    parameter and ValueError for a shape that disagrees.
+    parameter and ValueError for a shape that disagrees. ``tp`` (a
+    ``TPContext``): the model keeps this model rank's shards of the full
+    tree and computes the split (``tensor_parallel.apply_rules``).
 
     Given the JAX ``PipelineEngine``'s ``layer_params`` list instead (one
     tree or None per layer of ``gpt2_pipeline``), returns the list as fp32
@@ -422,6 +425,8 @@ def params_from_jax(tree, config, device=None):
         return _layer_params_from_jax(list(tree), config)
     model = GPT2LMHeadModel(config, device=device, seed=None)
     load_flax_tree(model, tree)
+    if tp is not None:
+        apply_rules(model, tp)
     return model
 
 

@@ -9,9 +9,42 @@ shape, and a CUDA graph captures it. Capacity is a host int from shapes.
 The JAX ``noise_rng`` (a PRNG key) is a ``torch.Generator`` here: the
 jitter and the Gumbel draws come from it, on the logits' device. Ties in
 the argmax go to the lowest expert index, as in JAX.
+
+Gating is over the GLOBAL batch, as in the JAX program over its 'data'
+axis: the capacity counts every data rank's tokens, the cumsum position
+race runs over them in rank order and ``l_aux`` takes the global means.
+A data rank gathers the router logits of its data line
+(``gather_rows``, in rank order), gates them whole and keeps its own
+rows. The gather's backward sums the ranks' gradients before it keeps the
+rank's rows (a reduce-scatter), so each rank's ``l_aux`` is the global one
+and the engine's mean over 'data' gives its gradient once.
 """
 
 import torch
+
+from deepspeed_tpu_torch.parallel import comm
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.rank = torch.distributed.get_rank(group)
+        ctx.rows = x.shape[0]
+        flat = comm.all_gather(x.contiguous().reshape(-1), group)
+        return flat.view(-1, *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = comm.all_reduce(grad.contiguous().clone(), ctx.group)
+        return total[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def gather_rows(x, group):
+    """Every rank's ``x`` (equal rows) of ``group`` concatenated along dim
+    0 in rank order; the backward sums the ranks' gradients and keeps this
+    rank's rows (module docstring)."""
+    return _GatherRows.apply(x, group)
 
 
 def _one_hot(x, n):

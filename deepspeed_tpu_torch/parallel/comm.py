@@ -27,6 +27,9 @@ The backend decides the route, by name, never by a caught failure:
   all-to-all in every torch release), the ring shift of an irecv from the
   previous rank and an isend to the next.
 
+``all_reduce_exchange`` sums a small tensor by point-to-point exchange
+on gloo (counted as an all-reduce): the serving mesh's partials.
+
 ``stats`` counts the calls (in all and by kind) and the bytes each rank
 hands to them, in all and by kind (the smoke's collective bytes per
 step).
@@ -95,6 +98,39 @@ def all_reduce(t, group, mean=False):
         dist.all_reduce(t, group=group)
     if mean:
         t.div_(dist.get_world_size(group))
+    return t
+
+
+def all_reduce_exchange(t, group):
+    """Sum ``t`` over ``group`` in place by point-to-point exchange; returns
+    ``t``. On gloo every rank sends its tensor to every other and adds what
+    it holds in group-rank order, so every rank holds the same bits; the
+    result goes back to a device tensor without a second wait (its staging
+    buffer is pinned). For the latency-bound sums of serving over a model
+    group: gloo's all-reduce of a small tensor costs several times one
+    exchange. On nccl it is ``all_reduce``."""
+    if dist.get_backend(group) != "gloo":
+        return all_reduce(t, group)
+    _note(t, "all_reduce")
+    world = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    host = _host(group, t)
+    mine = _staged(t) if host else t
+    parts = [mine if j == rank else torch.empty_like(mine)
+             for j in range(world)]
+    peers = [dist.get_global_rank(group, j) if group is not None else j
+             for j in range(world)]
+    works = [dist.irecv(parts[j], peers[j], group=group)
+             for j in range(world) if j != rank]
+    works += [dist.isend(mine, peers[j], group=group)
+              for j in range(world) if j != rank]
+    for work in works:
+        work.wait()
+    total = torch.empty(mine.shape, dtype=mine.dtype, pin_memory=host)
+    total.copy_(parts[0])
+    for part in parts[1:]:
+        total.add_(part)
+    t.copy_(total, non_blocking=host)
     return t
 
 

@@ -28,6 +28,9 @@ tensor-parallel rule shards is skipped (the JAX ``zero_shardings``
 composition). ``DEFAULT_TP_RULES`` and ``_tp_dim`` are the JAX
 tensor-parallel rules, applied by ``parallel/tensor_parallel.py``.
 
+``kv_heads`` is the JAX ``kv_cache_spec`` policy for a serving rank: the
+k/v planes' heads over 'model' when mp divides them, else replicated.
+
 ``replica_devices`` places the serving fleet's replicas.
 """
 
@@ -67,6 +70,18 @@ def _tp_dim(path_str, shape, rules, mp):
                 return dim
             return None
     return None
+
+
+def kv_heads(n_head, mp=1, mp_rank=0):
+    """(first head, head count) of the k/v planes a serving rank holds:
+    heads ``[r H/mp, (r + 1) H/mp)`` on model rank r when mp divides
+    ``n_head`` (the JAX ``kv_cache_spec``: the planes' heads dim over
+    'model', aligned with the column-parallel qkv split), else every head
+    (replicated: correct, without the memory saving)."""
+    if mp > 1 and n_head % mp == 0:
+        per = n_head // mp
+        return mp_rank * per, per
+    return 0, n_head
 
 
 def zero_partition_dim(shape, dp, skip=None):

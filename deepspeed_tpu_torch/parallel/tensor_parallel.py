@@ -32,7 +32,17 @@ A submodule's column order lets a split shard be non-contiguous: GPT-2's
 contiguous block of [q|k|v] columns). ``TPLayout.local`` cuts a rank's
 shard from a full leaf, ``TPLayout.full`` gathers the leaf and puts its
 columns back, so checkpoints keep the JAX full layout.
+
+Serving over the model group (``models/generation.py``, the MoE adapter)
+runs no autograd: a row-parallel partial is summed in place by
+``serving_reduce``. Inside ``segmented(cut)`` (the serving engine's
+capture of a step program as a chain of CUDA graphs) the reduce is not
+run but handed to ``cut``, which ends the captured segment there; the
+engine runs the all-reduce between the segments' replays.
 """
+
+import contextlib
+import threading
 
 import torch
 
@@ -98,6 +108,42 @@ def gather_from_model(shard, dim, tp):
     return _GatherFromModel.apply(shard, dim, tp)
 
 
+_SEGMENT = threading.local()
+
+
+@contextlib.contextmanager
+def segmented(cut):
+    """Within the block, ``serving_reduce(t, tp)`` calls ``cut(t, tp)``
+    instead of reducing (this thread only)."""
+    prev = getattr(_SEGMENT, "cut", None)
+    _SEGMENT.cut = cut
+    try:
+        yield
+    finally:
+        _SEGMENT.cut = prev
+
+
+def serving_reduce(t, tp):
+    """The sum of the contiguous partial ``t`` over the model group of
+    ``tp``, in place (no autograd; ``comm.all_reduce_exchange``); returns
+    ``t``. Under ``segmented`` the cut takes it instead."""
+    cut = getattr(_SEGMENT, "cut", None)
+    if cut is not None:
+        return cut(t, tp)
+    return comm.all_reduce_exchange(t, tp.group)
+
+
+def shard_of(full, dim, tp, order=None):
+    """Rank ``tp.rank``'s shard of ``full`` along ``dim``: the indices
+    ``order(rank, mp)`` when given (GPT-2's ``qkv_order``), else the
+    contiguous block (a view)."""
+    if order is not None:
+        return full.index_select(dim, order(tp.rank, tp.size).to(
+            full.device))
+    per = full.shape[dim] // tp.size
+    return full.narrow(dim, tp.rank * per, per)
+
+
 def _gather(shard, dim, tp):
     """Rank-ordered concatenation of ``shard`` along ``dim`` (no grad)."""
     moved = shard.movedim(dim, 0).contiguous()
@@ -143,11 +189,7 @@ class TPLayout(object):
         d = self.dims[i]
         if d is None:
             return full
-        order = self._order(i, self.tp.rank)
-        if order is not None:
-            return full.index_select(d, order.to(full.device)).contiguous()
-        per = full.shape[d] // self.tp.size
-        return full.narrow(d, self.tp.rank * per, per).contiguous()
+        return shard_of(full, d, self.tp, self.order_fns.get(i)).contiguous()
 
     def full(self, i, local):
         """Leaf ``i``'s full tensor from every model rank's ``local``
@@ -225,4 +267,5 @@ def model_context(mesh):
 
 
 __all__ = ["TPContext", "TPLayout", "apply_rules", "copy_to_model",
-           "reduce_from_model", "gather_from_model", "model_context"]
+           "reduce_from_model", "gather_from_model", "model_context",
+           "segmented", "serving_reduce", "shard_of"]

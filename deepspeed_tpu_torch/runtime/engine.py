@@ -112,6 +112,15 @@ checkpoints in the JAX package's layout and format.
   divides (JAX ``zero_shardings``). Checkpoints hold the JAX full layout:
   each leaf gathered over the model group, its columns put back in order,
   so a checkpoint loads in either package at another mp/dp.
+- Mixture of experts (``moe.MoE`` layers anywhere in the module, the aux
+  loss added by the model as in JAX): each layer gates over its data
+  line's global batch and draws its Jitter noise from one generator seeded
+  alike on every data rank (``_configure_moe``), so dp ranks train the
+  JAX program's function; the expert stacks split over 'model' by the
+  experts' rule (expert parallelism, ``moe/layer.py``), under ZeRO 1-2
+  partitioned over 'data' on another dim. ZeRO-3, 1-bit Adam, sequence
+  parallelism and the pipeline with an MoE model raise (ROADMAP Queue 1
+  item 20).
 - The pipeline: ``runtime/pipe/engine.PipelineEngine`` subclasses this.
 
 - Sequence parallelism (``sequence_parallel``: ``enabled``, ``size``): the
@@ -156,6 +165,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.device import resolve_device
+from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.ops.adam.cpu_adam import DeepSpeedCPUAdam
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.lamb.cpu_lamb import DeepSpeedCPULamb
@@ -243,6 +253,7 @@ _HOST_LAMB_KEYS = ("lr", "bias_correction", "betas", "eps", "weight_decay",
                    "max_coeff", "min_coeff", "amsgrad")
 
 _ONEBIT_ITEM = "ROADMAP Queue 1 item 9"
+_MOE_ITEM = "ROADMAP Queue 1 item 20"
 _SEQ_ITEM = "ROADMAP Queue 1 item 10"
 
 
@@ -390,6 +401,7 @@ class DeepSpeedEngine(object):
         self._generator.manual_seed(
             _fold_seed(seed, fold)
             if self.dp_world_size * self.sp_world_size > 1 else seed)
+        self._moe = self._configure_moe(seed)
         self._sp = self._configure_sequence_parallel()
 
         self.loss_scaler = None
@@ -422,6 +434,7 @@ class DeepSpeedEngine(object):
             self._partitioned = False
         self._check_onebit()
         self._check_partitioned()
+        self._check_moe()
         if hasattr(self.optimizer, "norm_reduce") and self.mesh.size > 1:
             # LAMB's trust ratio over ranks that each hold a shard.
             ref = weakref.ref(self)
@@ -472,6 +485,35 @@ class DeepSpeedEngine(object):
         sp = sequence_parallel.context(self.mesh)
         self.module.set_sequence_parallel(sp)
         return sp
+
+    def _configure_moe(self, seed):
+        """The module's ``moe.MoE`` layers (module docstring): each gates
+        over its data line's global batch and draws its Jitter noise from
+        one generator seeded alike on every data rank."""
+        layers = [m for m in self.module.modules() if isinstance(m, MoE)]
+        if layers:
+            self._refuse_moe(("sequence parallelism", self.sp_world_size > 1),
+                             ("the pipeline", self._pipelined))
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            group = self.dp_group if self.dp_world_size > 1 else None
+            for m in layers:
+                m.set_data_parallel(group, gen)
+        return layers
+
+    def _check_moe(self):
+        """The optimizer compositions an MoE model does not train in yet."""
+        if self._moe:
+            self._refuse_moe(("ZeRO stage 3", self.zero_optimization() and
+                              self.zero_optimization_stage() >= 3),
+                             ("1-bit Adam", isinstance(self.optimizer,
+                                                       OnebitAdam)))
+
+    @staticmethod
+    def _refuse_moe(*cases):
+        refused = [what for what, on in cases if on]
+        if refused:
+            raise ValueError("an MoE model with {} is not ported ({})".format(
+                " and ".join(refused), _MOE_ITEM))
 
     def _check_onebit(self):
         """1-bit Adam with ZeRO or over model ranks is not ported; on its

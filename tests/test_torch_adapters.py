@@ -46,6 +46,7 @@ from deepspeed_tpu_torch.inference.kv_hierarchy import offload
 from deepspeed_tpu_torch.inference.kv_pool import reset_pool
 from deepspeed_tpu_torch.models import GPT2Config, params_from_jax
 from deepspeed_tpu_torch.models.generation import ServingWeights
+from deepspeed_tpu_torch.parallel.mesh import build_mesh
 from tests.test_torch_inference import models
 
 torch.set_num_threads(1)
@@ -118,8 +119,11 @@ def test_protocol_required_surface_raises_unimplemented():
     assert base.aux_state() == {}
     assert base.param_shardings(None, None) is None
     assert base.observe(None, None) is None
-    with pytest.raises(NotImplementedError, match="item 16"):
-        base.bind(None, object())
+    # Over a mesh an adapter that shards nothing serves replicated: this
+    # rank's adapter is itself and its shard is the whole tree.
+    mesh = build_mesh(num_mp=2, world_size=2, rank=1)
+    assert base.bind(None, mesh) is base
+    assert base.param_shardings(mesh, {"w": np.zeros(4)}) is None
 
 
 @pytest.mark.parametrize("kind", KINDS)

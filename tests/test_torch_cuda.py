@@ -119,6 +119,60 @@ def test_decode_kernel_at_the_serving_shape(cuda, dtype, tol):
                                         + _spread(q, k, v, p))).all())
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 0.0)),
+                                       (torch.bfloat16, (2e-3, 2.0 ** -7))],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["k3_decode", "k5_paged", "k5_lane"])
+def test_decode_kernels_at_a_tensor_parallel_rank_shape(cuda, case, dtype,
+                                                        tol):
+    """K3 and K5 at the shapes a model rank of GPT-2 medium serving over
+    mp 2 gives them (8 of the 16 heads): K3 on 16 decode rows at the
+    serving plane; K5 on 16 rows through pages of 128, and on the dense
+    pool's prefill lane (16 slots' planes as pages of the plane's length,
+    the table [[5]], 32 query rows at frontier 500)."""
+    from deepspeed_tpu_torch.inference.kv_pool import plane_len_for
+    T = plane_len_for(1024, 32)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    H = 8
+    if case == "k5_lane":
+        B, S, pos = 1, 32, [500]
+    else:
+        B, S = 16, 1
+        pos = [0, 1, 31, 32, 33, 63, 64, 127, 128, 500, 511, 700, 1000,
+               1023, T - 2, T - 1]
+    q = torch.randn(B, H, S, 64, device=cuda, generator=g).to(dtype)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    if case == "k3_decode":
+        k, v = (torch.randn(B, H, T, 64, device=cuda, generator=g).to(dtype)
+                for _ in range(2))
+        out = da.flash_decode_attention(q, k, v, p)
+        ref = da.decode_attention_reference(q, k, v, p)
+        kind, dense = "decode", (k, v)
+    else:
+        if case == "k5_paged":
+            page, n_lp = 128, -(-T // 128)
+            arena = 1 + B * n_lp
+            tbl = (1 + torch.randperm(B * n_lp, device=cuda, generator=g)
+                   ).view(B, n_lp).to(torch.int32)
+        else:
+            page, arena = T, 16
+            tbl = torch.tensor([[5]], dtype=torch.int32, device=cuda)
+        k, v = (torch.randn(arena, H, page, 64, device=cuda,
+                            generator=g).to(dtype) for _ in range(2))
+        out = da.flash_decode_attention_paged(q, k, v, tbl, p)
+        ref = da.decode_attention_paged_reference(q, k, v, tbl, p)
+        kind = "paged"
+        dense = (da.gather_pages(k, tbl), da.gather_pages(v, tbl))
+        assert torch.equal(out, da.flash_decode_attention(q, *dense, p))
+    torch.cuda.synchronize()
+    assert da.launches[kind] > 0
+    atol, rtol = tol
+    diff = (out.float() - ref.float()).abs()
+    limit = atol + rtol * (ref.float().abs() + _spread(q, *dense, p))
+    assert bool((diff <= limit).all())
+
+
 def _spread(q, k, v, pos):
     """sqrt(sum_t p_t^2 v_t^2) over each row's visible keys, fp32
     probabilities at the default scale."""

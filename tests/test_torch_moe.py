@@ -16,10 +16,10 @@ The contracts are those of the JAX package's ``test_moe.py``:
   inference).
 - UTILITIES: expert parameters by path, and the dense / expert split.
 
-The JAX tests that shard experts over a 'model' mesh axis become
-refusals here (experts over 'model', ROADMAP Queue 1 item 16); the one that
-trains an MoE model through the engine waits for the MoE training path
-(ROADMAP Queue 1 item 11).
+The JAX tests that shard experts over a 'model' mesh axis, and the one
+that trains an MoE model through the engine, run over gloo ranks in
+``test_torch_moe_mesh.py`` and ``test_torch_moe_training.py``; here, a
+rank's adapter and its shard of the tree, cut without a process group.
 """
 
 import jax
@@ -33,6 +33,7 @@ import torch.nn.functional as F
 import deepspeed_tpu.moe as jm
 from deepspeed_tpu_torch.inference import InferenceConfig
 from deepspeed_tpu_torch.inference.adapters import MoEAdapter
+from deepspeed_tpu_torch.parallel.mesh import build_mesh
 from deepspeed_tpu_torch.moe import (MoE, is_moe_param_path,
                                      split_moe_param_groups, top1gating,
                                      top2gating)
@@ -166,7 +167,7 @@ def _load_jax(layer, params):
     """The JAX layer's parameters into the port's (same names, same
     layouts)."""
     with torch.no_grad():
-        layer.gate_kernel.copy_(torch.from_numpy(
+        layer.gate.kernel.copy_(torch.from_numpy(
             np.asarray(params["gate"]["kernel"])))
         mlp = params["experts"]["_MLP_0"]
         for name, t in layer.experts.stacked_params().items():
@@ -226,7 +227,7 @@ def test_identical_experts_match_single_expert():
             mod, leaf = name.split(".")
             getattr(getattr(single, mod), leaf).copy_(t[0])
         flat = x.reshape(-1, 16)
-        gate1 = torch.softmax(flat @ layer.gate_kernel, dim=-1).max(-1)[0]
+        gate1 = torch.softmax(flat @ layer.gate.kernel, dim=-1).max(-1)[0]
         ref = (single(flat) * gate1[:, None]).reshape(x.shape)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-4,
                                atol=1e-5)
@@ -240,7 +241,7 @@ def test_moe_backward_finite_and_router_learns():
     (out.pow(2).sum() + 0.01 * l_aux).backward()
     grads = [p.grad for p in layer.parameters()]
     assert all(g is not None and torch.isfinite(g).all() for g in grads)
-    assert float(layer.gate_kernel.grad.abs().max()) > 0
+    assert float(layer.gate.kernel.grad.abs().max()) > 0
 
 
 def test_moe_infers_training_from_module_mode():
@@ -265,7 +266,7 @@ def test_moe_infers_training_from_module_mode():
 def test_split_moe_param_groups():
     layer = _layer()
     dense, expert = split_moe_param_groups(layer)
-    assert set(dense) == {"gate_kernel"}
+    assert set(dense) == {"gate.kernel"}
     assert expert and all(is_moe_param_path(n) for n in expert)
     assert len(dense) + len(expert) == len(list(layer.parameters()))
     d2, e2 = split_moe_param_groups(dict(layer.named_parameters()))
@@ -275,16 +276,38 @@ def test_split_moe_param_groups():
 
 
 def test_expert_sharding_over_a_mesh_is_refused():
-    """The JAX mesh tests (experts sharded over 'model', the experts rule
-    beside the Megatron rules) wait for tensor parallelism: the adapter
-    refuses a mesh, naming the ROADMAP item."""
+    """Over a mesh the adapter is this rank's: ``bind`` carries its model
+    context, ``param_shardings`` cuts its shard of the JAX tree (experts
+    ``[r E/mp, (r + 1) E/mp)`` on model rank r, every expert without
+    expert parallelism; the attention's heads either way). No mesh (or a
+    1-wide model axis): nothing is cut."""
     a = MoEAdapter.from_config()
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        a.bind(InferenceConfig(), mesh)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        a.param_shardings(mesh, None)
-    assert a.param_shardings(None, None) is None
-    # expert_parallel is accepted and has no effect on one card.
-    off = a.bind(InferenceConfig(expert_parallel=False))
-    assert not off.expert_parallel and off.gcfg == a.gcfg
+    tree = a.init_params(device="cpu")
+    full = {"h_0": {"experts": {"w1": tree.blocks[0].experts.w1.numpy()},
+                    "attn": {"c_attn": {
+                        "kernel": tree.blocks[0].attn.c_attn.kernel.numpy()}},
+                    "router": {"kernel":
+                               tree.blocks[0].router.kernel.numpy()}}}
+    assert a.param_shardings(None, full) is None
+    for rank in range(2):
+        mesh = build_mesh(num_mp=2, world_size=2, rank=rank)
+        bound = a.bind(InferenceConfig(), mesh)
+        assert bound.tp.size == 2 and bound.tp.rank == rank
+        assert bound.gcfg == a.gcfg
+        got = bound.param_shardings(mesh, full)["h_0"]
+        np.testing.assert_array_equal(
+            got["experts"]["w1"], full["h_0"]["experts"]["w1"][
+                2 * rank:2 * rank + 2])
+        assert got["attn"]["c_attn"]["kernel"].shape == (32, 48)
+        np.testing.assert_array_equal(got["router"]["kernel"],
+                                      full["h_0"]["router"]["kernel"])
+        off = a.bind(InferenceConfig(expert_parallel=False), mesh)
+        assert not off.expert_parallel and off.gcfg == a.gcfg
+        np.testing.assert_array_equal(
+            off.param_shardings(mesh, full)["h_0"]["experts"]["w1"],
+            full["h_0"]["experts"]["w1"])
+        weights = bound.prepare_params(tree, "cpu")
+        assert tuple(weights.blocks[0].experts.w1.shape) == (2, 32, 128)
+        assert weights.blocks[0].experts.tp.rank == rank
+    assert a.bind(InferenceConfig(), build_mesh(world_size=2, rank=0)) \
+        .tp is None

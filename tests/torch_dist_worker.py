@@ -860,7 +860,170 @@ def task_ckpt_partition(task, rank, world):
     return out
 
 
-TASKS = {"ckpt_partition": task_ckpt_partition, "train": task_train,
+def _serve_engine(task, case, mesh):
+    """This rank's serving engine of ``case`` (a dict: ``config`` and,
+    for MoE, ``moe``) over ``mesh``."""
+    import torch
+
+    from deepspeed_tpu_torch import init_inference
+    from deepspeed_tpu_torch.inference import InferenceEngine
+    from deepspeed_tpu_torch.inference.adapters import MoEAdapter
+    from deepspeed_tpu_torch.models import GPT2Config
+
+    if "moe" in case:
+        adapter = MoEAdapter.from_config(**case["moe"])
+        return InferenceEngine(None, task["params"], config=case["config"],
+                               device="cpu", adapter=adapter, mesh=mesh)
+    return init_inference(GPT2Config.tiny(dtype=torch.float32),
+                          task["params"], config=case["config"],
+                          device="cpu", mesh=mesh)
+
+
+def task_serve(task, rank, world):
+    """Serve every case of ``task["cases"]`` on a grid of ``task["mp"]``
+    model x the rest data ranks: each request's tokens, the pool's k/v
+    plane shape, ``kv_hbm_bytes``, ``compile_count`` and the MoE gauges;
+    a case with ``diverge`` gives rank 1 another prompt and records the
+    ``MeshDivergence`` every rank raises; ``refuse`` cases record the
+    ValueError each refused composition raises."""
+    from deepspeed_tpu_torch.inference import MeshDivergence
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(num_mp=task["mp"])
+    out = {"mp_rank": mesh.mp_rank, "dp_rank": mesh.dp_rank}
+    for case in task["cases"]:
+        if case.get("refuse"):
+            try:
+                eng = _serve_engine(task, case, mesh)
+                if "submit" in case:
+                    eng.submit(task["prompts"][0], max_new_tokens=2,
+                               **case["submit"])
+                if "run" in case:
+                    eng.run(**case["run"])
+                out[case["name"]] = None
+            except ValueError as exc:
+                out[case["name"]] = str(exc)
+            continue
+        eng = _serve_engine(task, case, mesh)
+        prompts = list(task["prompts"])
+        if case.get("diverge") and rank == 1:
+            prompts[0] = prompts[0][::-1].copy()
+        reqs = [eng.submit(p, max_new_tokens=task["max_new"],
+                           **case.get("submit", {})) for p in prompts]
+        try:
+            eng.run()
+            raised = None
+        except MeshDivergence as exc:
+            raised = str(exc)
+        m = eng.metrics()
+        out[case["name"]] = {
+            "tokens": [r.tokens for r in reqs], "raised": raised,
+            "k_shape": tuple(eng._pool["k"].shape),
+            "scale_shape": tuple(eng._pool["k_scale"].shape)
+            if "k_scale" in eng._pool else None,
+            "kv_hbm_bytes": m["kv_hbm_bytes"],
+            "compile_count": eng.compile_count,
+            "moe": {k: v for k, v in eng.telemetry.snapshot().items()
+                    if "moe" in k} if "moe" in case else None,
+            "expert_shape": tuple(eng._params.blocks[0].experts.w1.shape)
+            if "moe" in case else None,
+            "xray_keys": len(eng.perf_xray()["programs"])
+            if eng.perf_xray() is not None else None}
+    return out
+
+
+def moe_model(width=16, classes=8, **moe_kw):
+    """The JAX ``test_moe_model_trains_with_engine`` model in torch, under
+    its flax names: ``Dense_0``, an ``MoE_0`` over [B, 1, width] tokens
+    (experts Dense(2 width) -> tanh GELU -> Dense(width), ``_MLP``),
+    the residual, ``Dense_1`` to ``classes`` logits; the loss is the mean
+    cross-entropy plus 0.01 x the aux loss."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    from deepspeed_tpu_torch.moe import MoE
+
+    class Dense(nn.Module):
+        def __init__(self, n_in, n_out):
+            super().__init__()
+            self.kernel = nn.Parameter(torch.randn(n_in, n_out) * 0.1)
+            self.bias = nn.Parameter(torch.zeros(n_out))
+
+        def forward(self, x):
+            return x.to(self.kernel.dtype) @ self.kernel + self.bias
+
+    class _MLP(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = Dense(width, 2 * width)
+            self.Dense_1 = Dense(2 * width, width)
+
+        def forward(self, x):
+            return self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
+
+    class MoEModel(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = Dense(width, width)
+            self.MoE_0 = MoE(width, _MLP, **moe_kw)
+            self.Dense_1 = Dense(width, classes)
+
+        def forward(self, x, y):
+            h = self.Dense_0(x)
+            out, l_aux, _ = self.MoE_0(h[:, None, :])
+            logits = self.Dense_1(h + out[:, 0])
+            gold = logits.gather(1, y.long()[:, None])[:, 0]
+            return (torch.logsumexp(logits, dim=-1) - gold).mean() + \
+                0.01 * l_aux
+
+    return MoEModel()
+
+
+def task_moe_train(task, rank, world):
+    """Train ``moe_model(**task["moe"])`` from the flax tree
+    ``task["params"]`` on a grid of ``task["mp"]`` model x the rest data
+    ranks (each data rank its rows of every global batch), after an
+    optional checkpoint load: per-step losses (the data group's mean), each
+    leaf's shard shape, the full fp32 masters, and an optional checkpoint
+    after the last step."""
+    import torch
+
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.parallel import comm
+    from deepspeed_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(num_mp=task["mp"])
+    engine, _, _, _ = tds.initialize(
+        model=moe_model(**task["moe"]), model_parameters=task["params"],
+        config_params=task["config"], device="cpu", mesh=mesh)
+    dp = engine.dp_world_size
+    out = {"losses": [], "mp_rank": engine.mp_rank,
+           "dp_rank": engine.dp_rank}
+    if task.get("load"):
+        path, _ = engine.load_checkpoint(task["load"], tag="ck")
+        out["loaded"] = path is not None
+    for batch in task["batches"]:
+        x, y = (torch.from_numpy(a) for a in _mine(batch, engine.dp_rank,
+                                                   dp))
+        loss = engine(x, y)
+        engine.backward(loss)
+        engine.step()
+        mean = loss.detach().float().reshape(1).clone()
+        if dp > 1:
+            comm.all_reduce(mean, engine.dp_group, mean=True)
+        out["losses"].append(float(mean))
+    out["shards"] = {n: tuple(p.shape) for n, p in zip(engine._names,
+                                                       engine._params)}
+    out["masters"] = {n: f.cpu().numpy().copy() for n, f in
+                      zip(engine._names, engine._full_masters())}
+    if task.get("save"):
+        engine.save_checkpoint(task["save"], tag="ck")
+    return out
+
+
+TASKS = {"ckpt_partition": task_ckpt_partition, "serve": task_serve,
+         "moe_train": task_moe_train, "train": task_train,
          "env": task_env, "collectives": task_collectives, "freed": task_freed,
          "pipe": task_pipe, "tp": task_tp,
          "tp_offload": task_tp_offload, "ring": task_ring,
