@@ -7,7 +7,8 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases, each
 of which exits non-zero on failure:
 
 1. environment: card name and power limit (nvidia-smi), torch and CUDA
-   versions; no CUDA device means exit 1 with no result;
+   versions, then ``deepspeed_tpu_torch.env_report``; no CUDA device means
+   exit 1 with no result;
 2. build: every kernel in deepspeed_tpu_torch/csrc with nvcc, one process
    per source, started together; the ptxas report of each kernel;
 3. kernel vs plain: K3 (flash-decode attention: a split kernel per
@@ -312,6 +313,32 @@ of which exits non-zero on failure:
 14. sparse BERT consistency: fp32, full width, 2 layers, B=2, T=512, block
    64, dropout 0.1: one step on the card (kernels) against the port on
    the CPU (plain versions);
+14a. module injection and the tooling (phase_tooling): the host C++ LUT
+   op's tables equal the numpy lowering's for sparse BERT's layout and a
+   BigBird one (phases 12 and 13 ran on the op's tables), both timed at 16
+   heads and 512 blocks a side (``lut_op``); BERT-large's 24 layers in the
+   HF flax layout from a seed through ``replace_transformer_layer``, one
+   bf16 training step of the injected fused layers at 16 x 512 and
+   dropout 0.1 (K1 = 24, K2 24 fused or 48 split by the autotuner's
+   choice, K8 48, K10a/K10b 72 each, K11 24), their fp32 forward of 2
+   sequences within INJECT_TOL of the HF-style plain forward, and the
+   revert equal to the HF tree bit for bit (``module_inject``); a dense
+   plain-layer BERT-large swapped by
+   ``replace_model_self_attention_with_sparse_self_attention`` gives the
+   first training loss of the BERT built with ``sparse_attention_config``
+   bit for bit at 2 x 4096, launching K7a 24 and K7b 24 (``sparse_swap``);
+   GPT-2 medium saved with ``torch.save`` in the reference's names under
+   ``<dir>/latest`` and loaded by ``import_reference_checkpoint`` gives
+   the greedy tokens of the model it came from (``checkpoint_import``);
+   the flops profiler on one GPT-2 medium training step (8 x 1024 bf16),
+   its total beside the model-flops formula and its printed profile
+   (``flops_profile``, ``flops_profile_text``), then at 4 layers and fp32
+   the profiled step's flops and bytes and the x-ray's train_step record
+   on the card equal to the CPU's for GPT-2 and for the fused BERT at
+   dropout 0.1 (``profiler_card_vs_cpu``); ``DS_TPU_AUTOTUNE=force`` sweeps K2a
+   against K2b at the autotune table's four signatures, the rows pass
+   ``validate_table``, and a graph captured under ``DS_TPU_AUTOTUNE=1``
+   at a signature no table holds sweeps nothing (``autotune``);
 15. data-parallel ZeRO (phase_data_parallel): DP_RANKS rank processes on
    cuda:0, started with the launcher's environment contract (RANK,
    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and joined over gloo
@@ -398,7 +425,7 @@ of which exits non-zero on failure:
 17. sequence parallelism and 1-bit Adam (phase_sequence_parallel):
    SP_RANKS rank processes of this script on cuda:0, started by the port's
    launcher and joined over gloo (SP_TIMEOUT_S): GPT-2 medium bf16 at full
-   width, SP_WIDTH's 6 layers (n_positions SP_T), AdamW 1e-4, dropout 0,
+   width, SP_WIDTH's 4 layers (n_positions SP_T), AdamW 1e-4, dropout 0,
    one global
    B1 x SP_T sequence split into SP_T / 2 tokens a rank through
    ``initialize(config_params={"sequence_parallel": ...})`` and
@@ -792,8 +819,9 @@ SUSTAINED_LOAD = dict(arrival="poisson", rate=12.0, n_requests=96,
 SUSTAINED_WINDOW_S = 2.0
 SUSTAINED_SLO = SLO(ttft_p99_ms=1500.0, itl_p99_ms=150.0)
 # The saturation sweep's rates and requests a rate (16 until the smoke's
-# time limit cut them to 8: the sweep's arrivals are most of its time).
-SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 8
+# time limit cut them to 8, and to 4 since: the sweep's arrivals are most
+# of its time).
+SWEEP_RATES, SWEEP_REQUESTS = (1.0, 2.0, 4.0), 4
 # The KV hierarchy (phase_hierarchy): SERVE plus the JAX package's
 # defaults of the prefix tier (8 rows of 64 positions, matches of at least
 # 8) and host offload (8 swapped sessions); HIER_REQUESTS requests over
@@ -947,6 +975,8 @@ def phase_env():
     card = card_line()
     print("card: {} | torch {} | cuda {}".format(
         card, torch.__version__, torch.version.cuda))
+    from deepspeed_tpu_torch import env_report
+    env_report.main()
     # fp32 products stay fp32 (the LM head and the fp32 reference).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4078,6 +4108,10 @@ LONG_LENS, SHORT_LENS = (480, 560), (64, 200)
 # replayed step timed.
 XRAY_SAMPLE_EVERY = 4
 XRAY_REQUESTS = 8
+# ... each NEW_TOKENS / 2 new tokens (NEW_TOKENS until the smoke's time
+# limit cut them: the turns still meet every key, and a 1-in-4 sample
+# still times a dozen steps).
+XRAY_NEW = NEW_TOKENS // 2
 
 
 def _frontdoor_side(card, model, frontdoor):
@@ -4804,12 +4838,12 @@ def phase_xray(card, model):
                                            xray_sample_every=XRAY_SAMPLE_EVERY))
     off = init_inference(model, config=dict(SERVE))
     for engine in (on, off):
-        _step_ms(engine, prompts, NEW_TOKENS)
+        _step_ms(engine, prompts, XRAY_NEW)
         engine.recompile_detector.mark_warm()
-    ms = {"off_1": _step_ms(off, prompts, NEW_TOKENS),
-          "on_1": _step_ms(on, prompts, NEW_TOKENS),
-          "on_2": _step_ms(on, prompts, NEW_TOKENS),
-          "off_2": _step_ms(off, prompts, NEW_TOKENS)}
+    ms = {"off_1": _step_ms(off, prompts, XRAY_NEW),
+          "on_1": _step_ms(on, prompts, XRAY_NEW),
+          "on_2": _step_ms(on, prompts, XRAY_NEW),
+          "off_2": _step_ms(off, prompts, XRAY_NEW)}
     sec = on.perf_xray()
     keys = sorted(on._programs)
     recs = sec["programs"]
@@ -6442,11 +6476,14 @@ OFFLOAD_B, OFFLOAD_T, OFFLOAD_ROWS = 2, 1024, 16
 # Two timed steps: the host-bound arms' depth, kept so the whole smoke
 # stays well inside its time limit on a loaded host.
 OFFLOAD_WARM, OFFLOAD_TIMED = 1, 2
-DEVICE_ADAM_WARM, DEVICE_ADAM_TIMED = 1, 2
+# The arms beside it (device Adam, stream_gradients) time one step: they
+# are there for their peak device memory, which the warm step already
+# reaches.
+DEVICE_ADAM_WARM, DEVICE_ADAM_TIMED = 1, 1
 # Each arm's first train_batch is a warm step: a batch signature's first
 # train_batch runs under the x-ray's cost modes (telemetry/xray.py), which
 # hold more device memory than a plain step.
-STREAM_WARM, STREAM_TIMED = 1, 2
+STREAM_WARM, STREAM_TIMED = 1, 1
 # Host bytes per parameter the offload arms hold at once: master, m, v
 # (fp32), the bf16 copy-out and staging (pinned), the streaming arm's bf16
 # buffer (the first step's fp32 staging is freed with that step); GPT-2
@@ -7692,7 +7729,7 @@ def _mp_check(run, cfg, rank, world, device):
 # model at MP_LAYERS layers, GRAPH_CHECK_STEPS steps of
 # phase_graph_vs_eager's dense mix, bit for bit.
 TP_BF16_TOL = LONG_BF16_TOL
-TP_PROMPT, TP_NEW = 32, 48
+TP_PROMPT, TP_NEW = 32, 32
 TP_CHECK_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
 TP_CHECK_REQUESTS, TP_CHECK_NEW = 6, 32
 # Expert-parallel MoE serving: MOE_CFG over the model ranks (4 of the 8
@@ -8516,7 +8553,7 @@ def _model_parallel_moe(ranks, card):
 
 # Sequence parallelism and 1-bit Adam (phase_sequence_parallel): SP_RANKS
 # gloo ranks on cuda:0 started by the port's launcher. GPT-2 medium bf16 at
-# full width, 6 of its 24 layers (the depth cut for the smoke's time;
+# full width, 4 of its 24 layers (the depth cut for the smoke's time;
 # n_positions SP_T, so only the position table grows), AdamW
 # 1e-4, dropout 0: one global B1 x SP_T sequence, SP_T / 2
 # tokens a rank, through the ring and then Ulysses; then 1-bit Adam over
@@ -8524,7 +8561,7 @@ def _model_parallel_moe(ranks, card):
 # Collectives go through the host (gloo): their times measure the
 # plumbing, not NVLink.
 SP_RANKS, SP_T = 2, 8192
-SP_WIDTH = {"n_embd": 1024, "n_layer": 6, "n_head": 16}
+SP_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
 SP_CHECK_WIDTH = {"n_embd": 1024, "n_layer": 4, "n_head": 16}
 SP_TIMEOUT_S = 300
 # The ring's K1/K2 inputs (phase_flash holds them there): B1 H16, a block
@@ -9412,6 +9449,549 @@ def _decode_variant_rows(rows, launches, verify_launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The module-injection and tooling slice (phase_tooling)
+# ---------------------------------------------------------------------------
+
+# The LUT op's timing: the sparse BERT layout's pattern (Fixed, block 64) at
+# 16 heads and 512 blocks a side (T 32768), against the numpy lowering.
+LUT_TIMING_T = 32768
+LUT_TIMING_REPEATS = 5
+# The injected BERT-large: its HF layer trees made from this seed; one bf16
+# training step at the BERT cell's shape and dropout; the fp32 forward of
+# INJECT_CHECK_B sequences held to the HF-style plain forward within
+# INJECT_TOL of the output's max-abs (24 layers of the same fp32 products
+# summed in another order: K1's online softmax, the fused epilogues).
+INJECT_SEED = 5
+INJECT_CHECK_B = 2
+INJECT_TOL = 1e-4
+# The checkpoint import: greedy tokens of the imported GPT-2 medium.
+CKPT_PROMPTS, CKPT_PROMPT_T, CKPT_NEW = 2, 32, 16
+# The profiler's card-vs-CPU count: 4 layers at full width, fp32.
+PROFILE_CHECK_LAYERS = 4
+PROFILE_CHECK = {"gpt2": (2, 256), "bert": (2, 128)}
+# The autotuner's table signatures, (name, B, H, T, causal), bf16 D64: the
+# JAX table's three (GPT-2 XL's B2 H25 T1024, B4 H16 T2048, GPT-2 medium's
+# B8 H16 T1024, causal) and the BERT cell's B16 H16 T512 (not causal).
+AUTOTUNE_SIGS = (("gpt2_xl", 2, 25, 1024, True),
+                 ("b4_t2048", 4, 16, 2048, True),
+                 ("gpt2_medium", 8, 16, 1024, True),
+                 ("bert", 16, 16, 512, False))
+AUTOTUNE_REPEATS = 20
+AUTOTUNE_CAPTURE_SIG = (1, 16, 256, True)  # a signature no table holds
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _lut_op_check():
+    """The host C++ LUT op against the numpy lowering: sparse BERT's
+    layout (SPARSE_T, block SPARSE_BLOCK) and phase_sparse's BigBird,
+    exactly; both timed on this host at LUT_TIMING_T."""
+    layouts = {
+        "sparse_bert": _sparse_bert_config().sparse_attention_config
+        .make_layout(SPARSE_T),
+        "bigbird": BigBirdSparsityConfig(
+            num_heads=16, block=SPARSE_BLOCK, num_random_blocks=2,
+            num_global_blocks=2, seed=3).make_layout(SPARSE_T)}
+    for name, layout in layouts.items():
+        for got, want in zip(sk.build_luts(layout),
+                             sk.build_luts_reference(layout)):
+            if got.dtype != want.dtype or got.shape != want.shape or \
+                    not np.array_equal(got, want):
+                fail("lut op: {} tables differ from the numpy lowering"
+                     .format(name))
+    big = FixedSparsityConfig(num_heads=16, block=SPARSE_BLOCK,
+                              attention="bidirectional").make_layout(
+                                  LUT_TIMING_T)
+    op_s = []
+    for _ in range(LUT_TIMING_REPEATS):
+        t0 = time.perf_counter()
+        got = sk.build_luts(big)
+        op_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = sk.build_luts_reference(big)
+    numpy_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("lut op: the timed layout's tables differ")
+    row = {"layout": "Fixed block {} H16 nb {}".format(
+        SPARSE_BLOCK, big.shape[1]), "cells": int(big.size),
+        "op_ms": float(np.median(op_s)) * 1e3, "numpy_ms": numpy_s * 1e3,
+        "speedup": numpy_s / float(np.median(op_s)),
+        "checked": sorted(layouts), "host_cpus": os.cpu_count()}
+    print("lut_op " + json.dumps(row))
+    return row
+
+
+def _hf_bert_tree(cfg, seed):
+    """BERT layers in the HF flax layout (``kernel [in, out]``) as CPU
+    tensors, drawn on the card from a seeded generator (the host's
+    single-threaded draw of 300 M values takes seconds): kernels N(0,
+    0.02), biases N(0, 0.01), LayerNorm scales 1 + N(0, 0.1), shifts N(0,
+    0.1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).cpu()
+
+    def dense(i, o):
+        return {"kernel": randn(i, o) * 0.02, "bias": randn(o) * 0.01}
+
+    def ln():
+        return {"scale": 1.0 + 0.1 * randn(h), "bias": 0.1 * randn(h)}
+
+    return {"encoder": {"layer_{}".format(i): {
+        "attention": {"self": {"query": dense(h, h), "key": dense(h, h),
+                               "value": dense(h, h)},
+                      "output": {"dense": dense(h, h), "LayerNorm": ln()}},
+        "intermediate": {"dense": dense(h, inter)},
+        "output": {"dense": dense(inter, h), "LayerNorm": ln()}}
+        for i in range(cfg.num_hidden_layers)}}
+
+
+class _InjectedEncoder(torch.nn.Module):
+    """The injected fused layers in a stack, with a regression loss (the
+    engine's module returns its loss)."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(layers)
+
+    def forward(self, x, mask, target, deterministic=True, generator=None):
+        for layer in self.layers:
+            x = layer(x, mask, deterministic=deterministic,
+                      generator=generator)
+        return F.mse_loss(x.float(), target)
+
+
+def _hf_plain_forward(tree, cfg, x, mask):
+    """The HF BERT layers' post-LN forward in plain fp32 torch from the HF
+    tree, with the fused layer's tanh GELU (HF's ``gelu_new``)."""
+    B, T, H = x.shape
+    nh = cfg.num_attention_heads
+    eps = cfg.layer_norm_eps
+
+    def d(p, v):
+        return v @ p["kernel"].cuda() + p["bias"].cuda()
+
+    def lnorm(z, p):
+        return F.layer_norm(z, (H,), p["scale"].cuda(), p["bias"].cuda(),
+                            eps)
+
+    for i in range(cfg.num_hidden_layers):
+        lp = tree["encoder"]["layer_{}".format(i)]
+        sa = lp["attention"]["self"]
+        q, k, v = (d(sa[n], x).reshape(B, T, nh, H // nh).transpose(1, 2)
+                   for n in ("query", "key", "value"))
+        s = q @ k.transpose(-1, -2) / (H // nh) ** 0.5 + mask[:, None, None]
+        ctx = (torch.softmax(s, -1) @ v).transpose(1, 2).reshape(B, T, H)
+        a = lnorm(d(lp["attention"]["output"]["dense"], ctx) + x,
+                  lp["attention"]["output"]["LayerNorm"])
+        f = F.gelu(d(lp["intermediate"]["dense"], a), approximate="tanh")
+        x = lnorm(d(lp["output"]["dense"], f) + a, lp["output"]["LayerNorm"])
+    return x
+
+
+def _inject_bert(card):
+    """BERT-large's layers in the HF layout through
+    ``replace_transformer_layer``: one bf16 training step of the injected
+    fused layers on the card (K1, K2, K8, K10a/K10b, K11 counted), their
+    fp32 forward against the HF-style plain forward, and the revert bit
+    for bit."""
+    from deepspeed_tpu_torch.module_inject import (
+        replace_transformer_layer, revert_transformer_layer)
+    from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
+    from deepspeed_tpu_torch.runtime.utils import load_flax_tree
+    cfg = BertConfig.bert_large()
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    tree = _hf_bert_tree(cfg, INJECT_SEED)
+    t0 = time.perf_counter()
+    proto, packed = replace_transformer_layer(
+        params=tree, bert_config=cfg, fp16=False, dtype=torch.bfloat16,
+        training=True, device="cuda")
+    pack_s = time.perf_counter() - t0
+    layers = []
+    for i in range(L):
+        layer = DeepSpeedTransformerLayer(proto.config, "cuda", seed=None)
+        load_flax_tree(layer, packed["encoder"]["layer_{}".format(i)])
+        layers.append(layer)
+    reverted = revert_transformer_layer(params=packed)
+    pairs = []
+
+    def walk(a, b, path):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                fail("revert_transformer_layer: keys differ at " + path)
+            for k in a:
+                walk(a[k], b[k], path + "." + k)
+        else:
+            pairs.append((path, a, b))
+
+    walk(tree, reverted, "")
+    bad = [p for p, a, b in pairs if not torch.equal(a, b)]
+    if bad:
+        fail("revert_transformer_layer is not bit for bit: {}".format(
+            bad[:3]))
+    engine, _, _, _ = initialize(model=_InjectedEncoder(layers),
+                                 config_params=BERT_CONFIG, device="cuda")
+    ids, mask01 = _bert_batch(cfg, BERT_B, BERT_T, seed=INJECT_SEED,
+                              min_len=BERT_T // 4)[:2]
+    add_mask = (1.0 - mask01.float()) * -1e9
+    g = torch.Generator(device="cuda").manual_seed(INJECT_SEED)
+    x = torch.randn(BERT_B, BERT_T, H, device="cuda", generator=g)
+    target = torch.randn(BERT_B, BERT_T, H, device="cuda", generator=g)
+    mode = at._flash_bwd_mode(*(torch.empty(BERT_B, cfg.num_attention_heads,
+                                            BERT_T, 64, device="cuda",
+                                            dtype=torch.bfloat16)
+                                for _ in range(3)),
+                              None, None, None, None, False, 0.125)
+    for mod in (at, ln, dr, ge, sk):
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = engine(x, add_mask, target)
+    engine.backward(loss)
+    engine.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=L, layer_norm_plain=2 * L, dropout_fwd=3 * L,
+                dropout_bwd=3 * L, bias_gelu=L)
+    want["flash_bwd_" + mode] = L if mode == "fused" else 2 * L
+    if launches != want:
+        fail("injected BERT launches {} != {}".format(launches, want))
+    loss = float(loss.detach())
+    if not math.isfinite(loss):
+        fail("injected BERT: non-finite loss {}".format(loss))
+    del engine
+    # The fp32 forward of the same weights against the plain one.
+    cfg32 = dataclasses.replace(proto.config, dtype=torch.float32,
+                                training=False)
+    layers32 = []
+    for i in range(L):
+        layer = DeepSpeedTransformerLayer(cfg32, "cuda", seed=None)
+        load_flax_tree(layer, packed["encoder"]["layer_{}".format(i)])
+        layers32.append(layer)
+    xs, ms = x[:INJECT_CHECK_B], add_mask[:INJECT_CHECK_B]
+    with torch.no_grad():
+        h = xs
+        for layer in layers32:
+            h = layer(h, ms, deterministic=True)
+        ref = _hf_plain_forward(tree, cfg, xs, ms)
+    err = float((h - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= INJECT_TOL * scale:
+        fail("injected BERT fp32 forward {} from the HF-style plain forward "
+             "(limit {})".format(err, INJECT_TOL * scale))
+    row = {"layers": L, "batch": BERT_B, "seq": BERT_T, "dtype": "bf16",
+           "dropout": cfg.hidden_dropout_prob, "pack_s": pack_s,
+           "step_ms": step_s * 1e3, "loss": loss,
+           "launches": launches, "bwd_mode": mode,
+           "fp32_forward_max_abs_err": err, "fp32_forward_max_abs": scale,
+           "revert_leaves_equal": len(pairs), "card": card}
+    print("module_inject " + json.dumps(row))
+    del layers, layers32
+    return launches
+
+
+def _sparse_swap(card):
+    """A dense plain-layer BERT-large swapped by
+    ``replace_model_self_attention_with_sparse_self_attention`` against the
+    BERT built with ``sparse_attention_config``, from one seed: the first
+    training loss (dropout 0.1, one generator seed) bit for bit, K7a and
+    K7b launched by the swapped model."""
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils
+    cfg = _sparse_bert_config(max_position_embeddings=SPARSE_T,
+                              dtype=torch.bfloat16)
+    dense_cfg = dataclasses.replace(cfg, sparse_attention_config=None)
+    batch = _bert_batch(cfg, SPARSE_B, SPARSE_T, seed=1,
+                        min_len=SPARSE_T // 4)
+    out = {}
+    for name in ("built", "swapped"):
+        if name == "built":
+            model = BertForPreTraining(cfg, device="cuda", seed=0)
+        else:
+            model = BertForPreTraining(dense_cfg, device="cuda", seed=0)
+            SparseAttentionUtils \
+                .replace_model_self_attention_with_sparse_self_attention(
+                    model, SPARSE_T, cfg.sparse_attention_config)
+        model.requires_grad_(True)
+        for mod in (at, ln, dr, ge, sk):
+            mod.reset_launches()
+        loss = model(*batch, deterministic=False,
+                     generator=torch.Generator().manual_seed(0))
+        loss.backward()
+        torch.cuda.synchronize()
+        out[name] = (loss.detach(), _launch_counts())
+        del model, loss
+    (l0, _), (l1, launches) = out["built"], out["swapped"]
+    if not torch.equal(l0, l1):
+        fail("sparse swap: loss {} != the config-built model's {}".format(
+            float(l1), float(l0)))
+    L = cfg.num_hidden_layers
+    mode = at._bwd_mode(SPARSE_T, 64, torch.bfloat16)
+    if launches["sparse_fwd"] != L or \
+            launches["sparse_bwd_" + mode] != (L if mode == "fused" else 2 * L):
+        fail("sparse swap: K7 launches {}".format(launches))
+    row = {"layers": L, "batch": SPARSE_B, "seq": SPARSE_T,
+           "loss": float(l1), "loss_bits_equal": True,
+           "launches": {k: v for k, v in launches.items() if v},
+           "card": card}
+    print("sparse_swap " + json.dumps(row))
+    return launches
+
+
+def _hf_gpt2_state_dict(tree):
+    """The reference's GPT-2 names (HF Conv1D weights are flax's [in,
+    out]) as CPU tensors, the tied lm_head beside them."""
+    sd = {"transformer.wte.weight": tree["wte"],
+          "transformer.wpe.weight": tree["wpe"],
+          "transformer.ln_f.weight": tree["ln_f"]["scale"],
+          "transformer.ln_f.bias": tree["ln_f"]["bias"],
+          "lm_head.weight": tree["wte"]}
+    i = 0
+    while "h_{}".format(i) in tree:
+        b, pre = tree["h_{}".format(i)], "transformer.h.{}.".format(i)
+        for n in ("ln_1", "ln_2"):
+            sd[pre + n + ".weight"] = b[n]["scale"]
+            sd[pre + n + ".bias"] = b[n]["bias"]
+        for blk, names in (("attn", ("c_attn", "c_proj")),
+                           ("mlp", ("c_fc", "c_proj"))):
+            for n in names:
+                sd[pre + blk + "." + n + ".weight"] = b[blk][n]["kernel"]
+                sd[pre + blk + "." + n + ".bias"] = b[blk][n]["bias"]
+        i += 1
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+def _checkpoint_import(card):
+    """GPT-2 medium saved with torch.save in the reference's names under
+    <dir>/latest, loaded by ``import_reference_checkpoint``: its greedy
+    tokens equal the model it came from."""
+    from deepspeed_tpu_torch.module_inject import import_reference_checkpoint
+    from deepspeed_tpu_torch.models.gpt2 import params_from_jax
+    from deepspeed_tpu_torch.runtime.utils import flax_tree
+    cfg = GPT2Config.gpt2_medium(dtype=torch.bfloat16)
+    model = GPT2LMHeadModel(cfg, device="cuda", seed=0)
+    os.makedirs(os.path.join(REPO_ROOT, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ckpt_import_",
+                         dir=os.path.join(REPO_ROOT, "build"))
+    try:
+        tag = "global_step7"
+        os.makedirs(os.path.join(d, tag))
+        t0 = time.perf_counter()
+        torch.save({"module": _hf_gpt2_state_dict(flax_tree(model)),
+                    "global_steps": 7},
+                   os.path.join(d, tag, "mp_rank_00_model_states.pt"))
+        with open(os.path.join(d, "latest"), "w") as f:
+            f.write(tag)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, client = import_reference_checkpoint(d)
+        imported = params_from_jax(params, cfg, device="cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if client.get("global_steps") != 7:
+        fail("checkpoint import: client state {}".format(client))
+    prompts = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, size=(CKPT_PROMPTS, CKPT_PROMPT_T)))
+    want = generation.generate(model, prompts, CKPT_NEW, temperature=0.0)
+    got = generation.generate(imported, prompts, CKPT_NEW, temperature=0.0)
+    if not torch.equal(got, want):
+        fail("checkpoint import: greedy tokens differ")
+    print("checkpoint_import " + json.dumps({
+        "model": "gpt2-medium", "save_s": save_s, "load_s": load_s,
+        "prompts": CKPT_PROMPTS, "new_tokens": CKPT_NEW,
+        "tokens_equal": True, "card": card}))
+
+
+def _profiled(model, config, batch, device):
+    engine, _, _, _ = initialize(model=model, config_params=config,
+                                 device=device)
+    engine.train_batch(batch)
+    prof = engine.flops_profile
+    rec = [r for r in engine.perf_xray()["programs"]
+           if r["program"] == "train_step"][0]
+    return prof, rec
+
+
+def _profiler_check(card):
+    """The flops profiler on GPT-2 medium's training step (bf16, the
+    training cell's batch), one profiled step outside any timed window;
+    then, at PROFILE_CHECK_LAYERS layers and fp32, the profiled step's
+    flops and bytes and the x-ray's train_step record on the card equal
+    the CPU's, for GPT-2 (K1/K2) and the fused BERT at dropout 0.1 (K1/K2,
+    K8, K10, K11). Each batch is on its device before the step: an upload
+    inside the step would count on the card's side only."""
+    prof_cfg = {"flops_profiler": {"enabled": True, "start_step": 0,
+                                   "end_step": 0, "module_depth": 2,
+                                   "top_modules": 3}}
+    cfg = GPT2Config.gpt2_medium(dtype=torch.bfloat16, dropout=0.0)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(TRAIN_B, TRAIN_T))).to("cuda")
+    t0 = time.perf_counter()
+    prof, rec = _profiled(GPT2LMHeadModel(cfg, device="cuda", seed=0),
+                          dict(TRAIN_CONFIG, **prof_cfg), (ids, ids), "cuda")
+    step_s = time.perf_counter() - t0
+    h, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
+    weights = L * 12 * h * h + V * h
+    formula = 3 * TRAIN_B * TRAIN_T * (2 * weights + 4 * L * TRAIN_T * h)
+    if not prof["flops"] > 0 or prof["steps"] != 1:
+        fail("flops profiler: {}".format({k: prof[k] for k in (
+            "flops", "steps")}))
+    if abs(sum(f for _, f, _ in prof["modules"]) - prof["flops"]) > 0:
+        fail("flops profiler: the module rows do not sum to the total")
+    print("flops_profile " + json.dumps({
+        "model": "gpt2-medium bf16", "batch": TRAIN_B, "seq": TRAIN_T,
+        "flops": prof["flops"], "bytes_accessed": prof["bytes_accessed"],
+        "model_flops_formula": formula,
+        "flops_over_formula": prof["flops"] / formula,
+        "xray_train_step_flops": rec["flops"], "params": prof["params"],
+        "profiled_step_s": step_s, "modules_depth2": len(prof["modules"]),
+        "card": card}))
+    print("flops_profile_text " + json.dumps(prof["text"]))
+    rows = {}
+    for name, (B, T) in PROFILE_CHECK.items():
+        counts = {}
+        for device in ("cuda", "cpu"):
+            if name == "gpt2":
+                c = dataclasses.replace(GPT2Config.gpt2_medium(
+                    dtype=torch.float32, dropout=0.0),
+                    n_layer=PROFILE_CHECK_LAYERS)
+                x = torch.from_numpy(np.random.RandomState(1).randint(
+                    0, c.vocab_size, size=(B, T))).to(device)
+                model, batch = GPT2LMHeadModel(c, device=device, seed=0), \
+                    (x, x)
+                config = {"train_batch_size": B, "optimizer": {
+                    "type": "AdamW", "params": {"lr": 1e-4}}}
+            else:
+                c = BertConfig.bert_large(dtype=torch.float32,
+                                          num_hidden_layers=
+                                          PROFILE_CHECK_LAYERS)
+                model = BertForPreTraining(c, device=device, seed=0)
+                batch = tuple(t.to(device) for t in _bert_batch(
+                    c, B, T, seed=2, min_len=T // 4))
+                config = {"train_batch_size": B, "optimizer": {
+                    "type": "AdamW", "params": {"lr": 1e-4}}}
+            for mod in (at, ln, dr, ge, sk):
+                mod.reset_launches()
+            p, r = _profiled(model, dict(config, **prof_cfg), batch, device)
+            counts[device] = {"profiler_flops": p["flops"],
+                              "profiler_bytes": p["bytes_accessed"],
+                              "xray_flops": r["flops"],
+                              "xray_bytes": r["bytes_accessed"],
+                              "launches": {k: v for k, v in
+                                           _launch_counts().items() if v}}
+            del model
+        card_c, cpu_c = counts["cuda"], counts["cpu"]
+        if not card_c["launches"]:
+            fail("profiler check {}: no kernel ran on the card".format(name))
+        for key in ("profiler_flops", "xray_flops", "profiler_bytes",
+                    "xray_bytes"):
+            if card_c[key] != cpu_c[key]:
+                fail("profiler check {}: {} on the card {} != the CPU's {}"
+                     .format(name, key, card_c[key], cpu_c[key]))
+        rows[name] = dict(card=card_c, cpu=cpu_c, batch=B, seq=T)
+    print("profiler_card_vs_cpu " + json.dumps(rows))
+
+
+def _autotune_sweep():
+    """``DS_TPU_AUTOTUNE=force`` sweeps K2a/K2b at AUTOTUNE_SIGS into a
+    fresh user cache; ``validate_table`` accepts the rows, which are
+    written under chiprun_out/ beside the bundled rows. Then a graph
+    capture that runs the flash backward at a signature no table holds,
+    under ``DS_TPU_AUTOTUNE=1``: the capture completes and no sweep ran
+    (no row, no memo)."""
+    from deepspeed_tpu_torch.ops import autotuner
+    os.makedirs(os.path.join(REPO_ROOT, "build"), exist_ok=True)
+    cache = tempfile.mkdtemp(prefix="autotune_",
+                             dir=os.path.join(REPO_ROOT, "build"))
+    saved = {k: os.environ.get(k) for k in ("DS_TPU_AUTOTUNE",
+                                            "XDG_CACHE_HOME")}
+    os.environ["XDG_CACHE_HOME"] = cache
+    autotuner._MEMO.clear()
+    autotuner._USER = None
+    rows = {}
+    try:
+        os.environ["DS_TPU_AUTOTUNE"] = "force"
+        for name, B, H, T, causal in AUTOTUNE_SIGS:
+            q, k, v, do, mask = _flash_inputs(B, T, torch.bfloat16, False,
+                                              seed=7, H=H)
+            o, lse = at.flash_fwd(q, k, v, None, causal)
+            delta = (do.float() * o.float()).sum(-1, keepdim=True)
+            sig = at.flash_signature(B, H, T, T, 64, q.dtype, causal)
+            chosen = at._flash_bwd_mode(q, k, v, None, lse, delta, do, causal,
+                                        0.125)
+            rows[name] = (sig, chosen)
+            del q, k, v, do, o, lse, delta
+        with open(autotuner._user_cache_path()) as f:
+            table = json.load(f)
+        autotuner.validate_table(table, source="the sweep's rows")
+        if len(table) != len(AUTOTUNE_SIGS):
+            fail("autotune: {} rows for {} signatures".format(
+                len(table), len(AUTOTUNE_SIGS)))
+        os.environ["DS_TPU_AUTOTUNE"] = "1"
+        B, H, T, causal = AUTOTUNE_CAPTURE_SIG
+        q, k, v, do, _ = _flash_inputs(B, T, torch.bfloat16, False, seed=8,
+                                       H=H)
+        o, lse = at.flash_fwd(q, k, v, None, causal)
+        delta = (do.float() * o.float()).sum(-1, keepdim=True)
+        key = autotuner.table_key("flash_attention", at.flash_signature(
+            B, H, T, T, 64, q.dtype, causal))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            at.flash_bwd(q, k, v, None, lse, delta, do, causal)
+        graph.replay()
+        torch.cuda.synchronize()
+        with open(autotuner._user_cache_path()) as f:
+            after = json.load(f)
+        if key in after or key in autotuner._MEMO:
+            fail("autotune: a capture-time call swept ({})".format(key))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotuner._MEMO.clear()
+        autotuner._USER = None
+        shutil.rmtree(cache, ignore_errors=True)
+    bundled = autotuner._load(autotuner._BUNDLED_PATH)
+    out = {}
+    for name, (sig, chosen) in rows.items():
+        key = autotuner.table_key("flash_attention", sig)
+        out[name] = dict(table[key], key=key,
+                         bundled=bundled.get(key, {}).get("choice"))
+        if chosen != table[key]["choice"]:
+            fail("autotune: {} chose {} but wrote {}".format(
+                name, chosen, table[key]["choice"]))
+    os.makedirs(os.path.join(REPO_ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO_ROOT, "chiprun_out",
+                           "autotune_rows.json"), "w") as f:
+        json.dump(table, f, indent=1, sort_keys=True)
+    print("autotune " + json.dumps({"rows": out, "capture_swept": False}))
+    return out
+
+
+def phase_tooling(card):
+    """The module-injection and tooling slice at full width (module
+    docstring, phase 14a); prints each part's seconds."""
+    seconds, out = {}, {}
+    for part, fn in (("lut_op", _lut_op_check),
+                     ("inject", lambda: _inject_bert(card)),
+                     ("swap", lambda: _sparse_swap(card)),
+                     ("checkpoint_import", lambda: _checkpoint_import(card)),
+                     ("profiler", lambda: _profiler_check(card)),
+                     ("autotune", _autotune_sweep)):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        seconds[part] = time.perf_counter() - t0
+    print("tooling_seconds " + json.dumps(seconds))
+    return out
+
+
 def main():
     seconds = collections.OrderedDict()
 
@@ -9486,6 +10066,7 @@ def main():
     split_rows = timed(phase_split_default)
     sparse_launches = timed(phase_bert_sparse, card)
     timed(phase_bert_sparse_consistency)
+    timed(phase_tooling, card)
     offload_launches = timed(phase_offload, card)
     timed(phase_offload_consistency)
     dp_launches = timed(phase_data_parallel, card)

@@ -1,7 +1,8 @@
 """GPT2Adapter: ``models/generation.py`` behind the adapter protocol.
 
 Counterpart of ``deepspeed_tpu/inference/adapters/gpt2.py``: the one place
-inside ``inference/`` that imports ``models.generation``.
+inside ``inference/`` that imports ``models.generation``; the engine, the
+fleet and the MoE adapter take the names they need from here.
 
 Over a mesh's 'model' axis the adapter of a rank carries its ``tp``
 (``bind``) and serves its shard (``prepare_params``, ``param_shardings``)
@@ -13,11 +14,20 @@ from typing import Any, ClassVar
 
 import numpy as np
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
 from deepspeed_tpu_torch.inference.adapters.protocol import (ModelAdapter,
                                                              mesh_tp,
                                                              shard_tree)
 from deepspeed_tpu_torch.models import generation
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, params_from_jax
+
+# The model source's names the rest of inference/ uses, re-exported from
+# the one module that imports it (graftlint's ADAPTER rule).
+ServingWeights = generation.ServingWeights
+EinsumAttention = generation.EinsumAttention
+einsum_attention = generation.einsum_attention
+row_parallel = generation.row_parallel
+serving_rule = generation.serving_rule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,18 +97,23 @@ class GPT2Adapter(ModelAdapter):
     def init_cache(self, batch, max_len, dtype=None, device=None):
         return generation.init_cache(self.gcfg, batch, max_len, dtype, device)
 
+    @hot_path
     def prefill_append(self, params, ids, cache, n_valid=None):
         return generation.append_forward(params, ids, cache, n_valid=n_valid,
                                          attn=self._attn)
 
+    @hot_path
     def decode_step(self, params, tok, cache):
         return generation.decode_step(params, tok, cache, attn=self._attn)
 
+    @hot_path
     def verify_forward(self, params, ids, cache):
         return generation.verify_forward(params, ids, cache, attn=self._attn)
 
+    @hot_path
     def ngram_draft(self, toks, pos, n, k):
         return generation.ngram_draft(toks, pos, n, k)
 
+    @hot_path
     def accept_counts(self, draft, choices, ok=None):
         return generation.accept_counts(draft, choices, ok=ok)

@@ -57,14 +57,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
 from deepspeed_tpu_torch.device import resolve_device
-from deepspeed_tpu_torch.inference.adapters.gpt2 import GPT2Adapter
 from deepspeed_tpu_torch.inference.adapters.protocol import (mesh_tp,
                                                              shard_tree)
-from deepspeed_tpu_torch.models.generation import (EinsumAttention,
-                                                   einsum_attention,
-                                                   row_parallel,
-                                                   serving_rule)
+from deepspeed_tpu_torch.inference.adapters.gpt2 import (EinsumAttention,
+                                                         GPT2Adapter,
+                                                         einsum_attention,
+                                                         row_parallel,
+                                                         serving_rule)
 from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm
 from deepspeed_tpu_torch.parallel.tensor_parallel import (serving_reduce,
                                                           shard_of)
@@ -114,6 +115,7 @@ def _moe_mlp(blk, h, cfg):
     return out.reshape(B, S, C), counts, dropped
 
 
+@hot_path
 def _moe_forward(params, cfg, ids, cache, last_only=False):
     """ids [B, S], row b starting at ``cache['pos'][b]``; returns (fp32
     logits [B, S, V], cache with the planes written, the ``aux_moe_*``
@@ -370,6 +372,7 @@ class MoEAdapter(GPT2Adapter):
                 "aux_moe_routed": ((), torch.float32),
                 "aux_moe_dropped": ((), torch.float32)}
 
+    @hot_path
     def prefill_append(self, params, ids, cache, n_valid=None):
         pos0 = cache["pos"]
         logits, cache = _moe_forward(params, self.gcfg, ids, cache)
@@ -377,10 +380,12 @@ class MoEAdapter(GPT2Adapter):
             cache = dict(cache, pos=pos0 + n_valid.to(pos0.dtype))
         return logits, cache
 
+    @hot_path
     def decode_step(self, params, tok, cache):
         logits, cache = _moe_forward(params, self.gcfg, tok[:, None], cache)
         return logits[:, 0], cache
 
+    @hot_path
     def verify_forward(self, params, ids, cache):
         pos0 = cache["pos"]
         logits, cache = _moe_forward(params, self.gcfg, ids, cache)

@@ -233,6 +233,7 @@ import time
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.inference.adapters import GPT2Adapter
 from deepspeed_tpu_torch.inference.config import InferenceConfig
@@ -254,7 +255,7 @@ from deepspeed_tpu_torch.inference.resilience import (EngineDeadError,
                                                       StepWatchdog,
                                                       fatal_step_errors)
 from deepspeed_tpu_torch.inference.scheduler import QueueFull, Scheduler
-from deepspeed_tpu_torch.models.generation import ServingWeights
+from deepspeed_tpu_torch.inference.adapters.gpt2 import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.ops.sampling import sample_rows as _sample_rows
@@ -438,6 +439,7 @@ def _on_stall(counters, health, scheduler):
     return trip
 
 
+@hot_path
 def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
                           any_top_k):
     """Advance every ACTIVE slot ``chunk`` tokens, in place. Writes
@@ -468,6 +470,7 @@ def _decode_chunk_program(params, adapter, chunk, pool, harvest, any_sample,
         active.copy_(new_active)
 
 
+@hot_path
 def _spec_decode_chunk_program(params, adapter, chunk, spec_k, spec_ngram,
                                pool, harvest, any_sample, any_top_k):
     """The decode lane with speculation (module docstring): ``chunk``
@@ -533,6 +536,7 @@ def _spec_decode_chunk_program(params, adapter, chunk, spec_k, spec_ngram,
         active.copy_(new_active)
 
 
+@hot_path
 def _prefill_lane(params, adapter, pool, inp, any_sample, any_top_k):
     """The JAX lane: append ``inp['ids']`` [1, C] (``inp['n_valid']``
     leading columns real) into slot ``inp['slot']`` at ``inp['frontier']``
@@ -576,6 +580,7 @@ def _prefill_lane(params, adapter, pool, inp, any_sample, any_top_k):
     return torch.where(done, first, -1)
 
 
+@hot_path
 def _mixed_step_program(params, adapter, chunk, spec, pool, inp, harvest,
                         lane, any_sample, any_top_k, pin=False):
     """One serving step on the pool in place: pin the frontiers of slots
@@ -680,6 +685,24 @@ class InferenceEngine(object):
     ``mesh``: this rank's ``parallel.mesh.Mesh`` to serve over (module
     docstring); the weights given are full, and the engine keeps this
     rank's shard."""
+
+    # graftlint THREADRACE manifest (as the JAX engine's). The engine is
+    # single-threaded by contract: every entry into it is serialized from
+    # outside (the fleet wraps each engine call in the replica's lock;
+    # standalone use is one caller thread), so its mutable serving state
+    # is owned by whichever thread holds that outer lock. A new attribute
+    # written outside construction joins this set, with the same
+    # argument, or takes a lock.
+    _THREAD_OWNED = frozenset({
+        "_last_snap",       # last harvest snapshot, the stepper's
+        "_injector",        # fault plan, swapped between steps
+        "_recovery_streak", "_last_swap_out_s",
+        "_accept_hist", "_accept_base", "_window_t0",
+        "graph_replays",    # the stepper's replay count
+        # The disaggregated handoff's outbox the fleet pump drains, under
+        # the same outer serialization as step().
+        "_handoff_outbox",
+    })
 
     def __init__(self, model, params=None, config=None, device=None,
                  weights=None, adapter=None, mesh=None):

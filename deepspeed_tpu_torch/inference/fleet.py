@@ -119,7 +119,7 @@ from deepspeed_tpu_torch.inference.resilience import (EngineDeadError,
 from deepspeed_tpu_torch.inference.router import CircuitBreaker, Router
 from deepspeed_tpu_torch.inference.scheduler import (RETRY_AFTER_CAP_S,
                                                      QueueFull)
-from deepspeed_tpu_torch.models.generation import ServingWeights
+from deepspeed_tpu_torch.inference.adapters.gpt2 import ServingWeights
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2LMHeadModel,
                                              params_from_jax)
 from deepspeed_tpu_torch.parallel import mesh as mesh_lib

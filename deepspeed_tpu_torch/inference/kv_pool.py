@@ -80,6 +80,7 @@ their own fixed addresses (``step_inputs``, ``step_harvest``).
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.parallel.mesh import kv_heads
 
@@ -337,6 +338,7 @@ def pool_nbytes(pool):
 _SCALES = ("k_scale", "v_scale")
 
 
+@hot_path
 def cache_view(pool):
     """The pool as a ``models.generation`` cache dict: every slot is a
     batch row. ``k``/``v`` (and the scale planes) are the pool's own
@@ -348,6 +350,7 @@ def cache_view(pool):
     return cache
 
 
+@hot_path
 def slot_cache_view(pool, slot, pos):
     """One slot as a batch-1 cache dict for the prefill lane, as the JAX
     ``slot_cache_view(pool, p_slot, pos)``. ``slot`` is a [1] (or 0-d)

@@ -49,7 +49,7 @@ from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.gpt2 import Dense, LayerNorm, dense, layer_norm
 from deepspeed_tpu_torch.models.heads import chunked_tied_softmax_xent
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
-    sparse_self_attention)
+    SparseSelfAttention)
 from deepspeed_tpu_torch.ops.transformer import (DeepSpeedTransformerConfig,
                                                  DeepSpeedTransformerLayer)
 from deepspeed_tpu_torch.ops.transformer.kernels.dropout import dropout
@@ -171,7 +171,10 @@ class BertEmbeddings(nn.Module):
 class PlainBertLayer(nn.Module):
     """The stock post-LN BERT layer in plain torch (erf GELU, dense
     attention, or block-sparse with ``sparse_attention_config``): the
-    ``use_fused_layer=False`` opt-out."""
+    ``use_fused_layer=False`` opt-out. ``attention_module`` is the layer's
+    attention choice: None (dense, or the ring under sequence parallelism)
+    or a ``SparseSelfAttention`` (``module_inject.replace_attn_with_sparse``
+    swaps it in place)."""
 
     def __init__(self, config, device):
         super().__init__()
@@ -183,6 +186,10 @@ class PlainBertLayer(nn.Module):
         self.intermediate = Dense(h, inter, device)
         self.output = Dense(inter, h, device)
         self.out_LayerNorm = LayerNorm(h, device)
+        self.attention_module = None
+        if cfg.sparse_attention_config is not None:
+            self.attention_module = SparseSelfAttention(
+                cfg.sparse_attention_config)
         self.sp = None
 
     def forward(self, x, add_mask=None, deterministic=True, generator=None):
@@ -199,9 +206,8 @@ class PlainBertLayer(nn.Module):
 
         q, k, v = (heads(dense(x, getattr(self, n)))
                    for n in ("query", "key", "value"))
-        if cfg.sparse_attention_config is not None:
-            ctx = sparse_self_attention(q, k, v, cfg.sparse_attention_config,
-                                        key_padding_mask=add_mask)
+        if self.attention_module is not None:
+            ctx = self.attention_module(q, k, v, key_padding_mask=add_mask)
             ctx = dropout(ctx, cfg.attention_probs_dropout_prob, seeds[0],
                           deterministic)
         elif self.sp is not None:

@@ -74,6 +74,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
 from deepspeed_tpu_torch.device import resolve_device
 from deepspeed_tpu_torch.models.gpt2 import dense, layer_norm, qkv_order
 from deepspeed_tpu_torch.ops.sampling import sample_rows
@@ -264,6 +265,7 @@ def row_parallel(y, p, tp):
     return serving_reduce(part, tp) + p.bias.to(y.dtype)
 
 
+@hot_path
 def _forward(model, ids, cache, last_only=False, attn=None):
     """ids [B, S], row b starting at ``cache['pos'][b]``; returns (fp32
     logits [B, S, V], cache with the planes written and ``pos + S``).
@@ -379,6 +381,7 @@ def prefill_forward(model, ids, cache):
     return logits, cache
 
 
+@hot_path
 def append_forward(model, ids, cache, n_valid=None, attn=None):
     """Append ``ids`` [B, S] at each row's frontier: the chunked-prefill
     primitive. ``n_valid`` [B] marks how many leading columns per row are
@@ -393,6 +396,7 @@ def append_forward(model, ids, cache, n_valid=None, attn=None):
     return logits, cache
 
 
+@hot_path
 def decode_step(model, tok, cache, attn=None):
     """Feed ``tok`` [B] (the token at each row's frontier), write its k/v
     there, and return (fp32 logits [B, V] for the next position, advanced
@@ -401,6 +405,7 @@ def decode_step(model, tok, cache, attn=None):
     return logits[:, 0], cache
 
 
+@hot_path
 def verify_forward(model, ids, cache, attn=None):
     """Score ``ids`` [B, S] at each row's frontier WITHOUT advancing it:
     the speculative verify. Row b's ids are [last_tok, draft_0 ..
@@ -417,6 +422,7 @@ def verify_forward(model, ids, cache, attn=None):
     return logits, dict(cache, pos=pos0)
 
 
+@hot_path
 def ngram_draft(toks, pos, n, k):
     """Prompt-lookup drafting: for each row, the ``k`` tokens that followed
     the MOST RECENT earlier occurrence of the row's trailing ``n``-gram in
@@ -445,6 +451,7 @@ def ngram_draft(toks, pos, n, k):
     return torch.where(j >= 0, toks.gather(1, cont), last).to(torch.int64)
 
 
+@hot_path
 def accept_counts(draft, choices, ok=None):
     """The speculative accept rule: drafts [B, K] against the model's own
     choices [B, K+1] from a verify (``choices[:, i]`` is its pick at

@@ -17,8 +17,9 @@ The compiler's ``-Xptxas=-v`` report (registers, shared memory, spills) is
 kept beside each library as ``<name>.log``.
 
 The host route builds the ZeRO-Offload tier's C++ ops (``cpu_adam``,
-``cpu_lamb``, ``flatten_unflatten``) from the port's own copies under
-``csrc/host/``, with the JAX package's flags::
+``cpu_lamb``, ``flatten_unflatten``) and the block-sparse layout lowering
+(``lut``) from the port's own copies under ``csrc/host/``, with the JAX
+package's flags::
 
     g++ -O3 -std=c++17 -shared -fPIC -fopenmp -march=native -Wall \
         csrc/host/<name>.cpp -o lib<name>.so
@@ -195,8 +196,19 @@ def _bind_flatten_unflatten(lib):
         fn.restype = None
 
 
+def _bind_lut(lib):
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.ds_lut_max_degree.argtypes = [ctypes.c_long] * 3 + [i32p,
+                                                            ctypes.c_int]
+    lib.ds_lut_max_degree.restype = ctypes.c_long
+    lib.ds_build_lut.argtypes = [ctypes.c_long] * 3 + [
+        i32p, ctypes.c_int, ctypes.c_long, i32p]
+    lib.ds_build_lut.restype = None
+
+
 _HOST_BINDINGS = {"cpu_adam": _bind_cpu_adam, "cpu_lamb": _bind_cpu_lamb,
-                  "flatten_unflatten": _bind_flatten_unflatten}
+                  "flatten_unflatten": _bind_flatten_unflatten,
+                  "lut": _bind_lut}
 
 
 def host_sources():
@@ -211,7 +223,7 @@ def gxx_path():
     path = shutil.which("g++")
     if path is None:
         raise RuntimeError("g++ not found: the host ops (cpu_adam, cpu_lamb, "
-                           "flatten_unflatten) build only where a C++ "
+                           "flatten_unflatten, lut) build only where a C++ "
                            "compiler is installed")
     return path
 

@@ -13,6 +13,8 @@ overflows, so CPU and GPU draw identical numbers.
 
 import torch
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
+
 _M32 = 0xFFFFFFFF
 
 
@@ -38,6 +40,7 @@ def positional_uniform(seed, position, n):
     return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
+@hot_path
 def sample_rows(logits, temp, top_k, seed, position, any_sample=True,
                 any_top_k=True):
     """Per-row sampling over [R, V] fp32 logits with per-row parameters.

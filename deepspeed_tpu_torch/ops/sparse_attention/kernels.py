@@ -8,8 +8,11 @@ that attend to it, -1 padded. The kernels of ``csrc/sparse_attention.cu``
 walk those tables, so only listed blocks are loaded and computed and the
 ``[T, T]`` scores never exist.
 
-- ``build_luts``: the numpy lowering (the JAX package's fallback path; its
-  C++ OpenMP op waits, ROADMAP Queue 1).
+- ``build_luts``: the lowering, in the host C++ OpenMP op
+  (``csrc/host/lut.cpp``, built and loaded by ``op_builder.load_host``):
+  one parallel pass per direction. A failed build raises; there is no
+  numpy fallback. ``build_luts_reference`` is the same function in numpy
+  loops, which the tests hold the op to.
 - ``build_schedule``: the order in which K7b's bf16 dk/dv kernel takes the
   transposed LUT's rows, largest first (the port's own; the TPU walks its
   grid in order and needs none).
@@ -34,7 +37,9 @@ walk those tables, so only listed blocks are loaded and computed and the
   mask, and the bias gradient rebuilt densely one head at a time.
 
 Each lowered layout is cached with its LUTs and schedules on each device, so
-a training step uploads no table.
+a training step uploads no table. Inside ``transformer/kernels/costing.
+costing()`` a launch on the card charges the dispatch modes with its plain
+version, as K1/K2 do.
 """
 
 import ctypes
@@ -44,6 +49,8 @@ import torch
 
 from deepspeed_tpu_torch.ops.transformer.kernels.attention import (
     _bwd_mode, _ptr, _scale, _stream)
+from deepspeed_tpu_torch.ops.transformer.kernels.costing import (charge,
+                                                                hidden)
 
 NEG_INF = -1e30
 HEAD_DIM = 64  # the head width the CUDA kernels take
@@ -67,7 +74,27 @@ def build_luts(layout):
     """Lower a ``[H, nb, nb]`` 0/1 layout to (fwd_lut ``[H, nb, max_deg]``,
     bwd_lut ``[H, nb, max_deg_t]``) int32 numpy arrays padded with -1:
     fwd_lut[h, i] lists the active key blocks of query block i, bwd_lut[h,
-    j] the query blocks that attend to key block j, in increasing order."""
+    j] the query blocks that attend to key block j, in increasing order.
+    Runs in the host C++ op; raises when it does not build."""
+    from deepspeed_tpu_torch.op_builder import load_host
+    op = load_host("lut")
+    lay32 = np.ascontiguousarray(np.asarray(layout) != 0, dtype=np.int32)
+    h, rows, cols = lay32.shape
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    src = lay32.ctypes.data_as(i32p)
+
+    def lower(transpose):
+        deg = int(op.ds_lut_max_degree(h, rows, cols, src, transpose))
+        lut = np.empty((h, cols if transpose else rows, deg), np.int32)
+        op.ds_build_lut(h, rows, cols, src, transpose, deg,
+                        lut.ctypes.data_as(i32p))
+        return lut
+
+    return lower(0), lower(1)
+
+
+def build_luts_reference(layout):
+    """``build_luts`` in numpy loops: the same tables."""
     layout = np.asarray(layout, dtype=bool)
     h = layout.shape[0]
 
@@ -155,7 +182,8 @@ class LoweredLayout:
 
     def element_mask(self, t, device):
         """``[H, T, T]`` bool: key j visible to query i by the layout."""
-        blocks = torch.from_numpy(self.layout != 0).to(device)
+        with hidden():  # the layout's upload is not the op's work
+            blocks = torch.as_tensor(self.layout != 0, device=device)
         return blocks.repeat_interleave(self.block, 1) \
             .repeat_interleave(self.block, 2)[:, :t, :t]
 
@@ -386,23 +414,27 @@ def sparse_fwd(q, k, v, lowered, scale=None, causal=False, kpm=None,
     kernel (bf16 at block 64: one CTA per item of ``fwd_schedule``), or an
     error for what it does not take (dtype other than fp32/bf16/fp16, D !=
     64, block not 16/32/64, non-contiguous tensors, mixed devices)."""
-    kpm32, bias32 = _check(q, k, v, lowered, kpm, bias)
+    with hidden():
+        kpm32, bias32 = _check(q, k, v, lowered, kpm, bias)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return sparse_fwd_reference(q, k, v, lowered, scale, causal, kpm,
                                     kpm_mode, bias, bias_mode)
     B, H, T, _ = q.shape
-    lut, _, _, sched = lowered.luts(q.device)
-    o = torch.empty_like(q)
-    lse = torch.empty(B, H, T, 1, dtype=torch.float32, device=q.device)
-    err = _kernel("ds_sparse_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
-        lut.shape[2], sched.data_ptr(), sched.shape[0], _ptr(kpm32),
-        _ptr(bias32), o.data_ptr(),
-        lse.data_ptr(), *_flags(q, lowered, scale, causal, kpm_mode,
-                                bias_mode), _stream(q))
+    with hidden():
+        lut, _, _, sched = lowered.luts(q.device)
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, T, 1, dtype=torch.float32, device=q.device)
+        err = _kernel("ds_sparse_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
+            lut.shape[2], sched.data_ptr(), sched.shape[0], _ptr(kpm32),
+            _ptr(bias32), o.data_ptr(),
+            lse.data_ptr(), *_flags(q, lowered, scale, causal, kpm_mode,
+                                    bias_mode), _stream(q))
     _raise_on(err, "forward")
     launches["sparse_fwd"] += 1
+    charge(sparse_fwd_reference, q, k, v, lowered, scale, causal, kpm,
+           kpm_mode, bias, bias_mode)
     return o, lse
 
 
@@ -413,8 +445,9 @@ def sparse_bwd(q, k, v, lowered, lse, delta, do, scale=None, causal=False,
     ``delta = rowsum(dO * O)`` (both ``[B, H, T, 1]`` fp32). ``mode`` is
     'fused' or 'split'; None asks ``_bwd_mode``. On CPU tensors the plain
     version (the same function either way)."""
-    kpm32, bias32 = _check(q, k, v, lowered, kpm, bias,
-                           (("lse", lse), ("delta", delta), ("do", do)))
+    with hidden():
+        kpm32, bias32 = _check(q, k, v, lowered, kpm, bias,
+                               (("lse", lse), ("delta", delta), ("do", do)))
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return sparse_bwd_reference(q, k, v, lowered, lse, delta, do, scale,
@@ -433,6 +466,19 @@ def sparse_bwd(q, k, v, lowered, lse, delta, do, scale=None, causal=False,
     if mode not in ("fused", "split"):
         raise ValueError("block-sparse attention: mode must be 'fused' or "
                          "'split', got {!r}".format(mode))
+    with hidden():
+        out = _sparse_bwd_launch(q, k, v, lowered, lse, delta, do, scale,
+                                 causal, kpm32, kpm_mode, bias32, bias_mode,
+                                 mode)
+    charge(sparse_bwd_reference, q, k, v, lowered, lse, delta, do, scale,
+           causal, kpm, kpm_mode, bias, bias_mode)
+    return out
+
+
+def _sparse_bwd_launch(q, k, v, lowered, lse, delta, do, scale, causal,
+                       kpm32, kpm_mode, bias32, bias_mode, mode):
+    """K7b's launches on the card: (dq, dk, dv)."""
+    B, H, T, D = q.shape
     fwd_lut, bwd_lut, sched, _ = lowered.luts(q.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -47,13 +47,11 @@ class SparseAttentionUtils:
     @staticmethod
     def replace_model_self_attention_with_sparse_self_attention(
             model, max_position, sparsity_config=None):
-        """The JAX package swaps a model's attention in place through
-        ``module_inject``; the port has no ``module_inject`` yet."""
-        raise NotImplementedError(
-            "replace_model_self_attention_with_sparse_self_attention comes "
-            "with the module_inject slice (ROADMAP Queue 1); build sparse "
-            "BERT with BertConfig(sparse_attention_config=...) or use "
-            "replace_self_attention_layer_with_sparse_self_attention_layer")
+        """Swap the model's attention for the block-sparse one, in place
+        (``module_inject.replace_attn_with_sparse``, where the contract
+        is); returns the model."""
+        from deepspeed_tpu_torch.module_inject import replace_attn_with_sparse
+        return replace_attn_with_sparse(model, max_position, sparsity_config)
 
     @staticmethod
     def replace_self_attention_layer_with_sparse_self_attention_layer(

@@ -18,14 +18,21 @@ causal switch that keeps key ``j`` for query ``i`` iff ``j <= i``.
   (o, lse), both differentiable (ring attention merges partial results
   through the lse). Its forward is K1; its backward computes ``delta =
   rowsum(dO * O) - dlse`` as a plain tensor op, then runs K2a (one launch,
-  dq by atomics) or K2b (two launches, no atomics), as ``_bwd_mode``
-  chooses. Since ``d lse / d s = P``, the lse's gradient enters ds = P (dP
-  - delta) exactly as delta does, so no kernel changes.
+  dq by atomics) or K2b (two launches, no atomics), as ``_flash_bwd_mode``
+  chooses (``DS_TPU_FLASH_BWD``, else the autotuner's table of modes
+  measured on the card, else ``_bwd_mode``'s 6 MiB rule). Since ``d lse /
+  d s = P``, the lse's gradient enters ds = P (dP - delta) exactly as
+  delta does, so no kernel changes.
 - ``flash_attention``: its o alone, which the model calls (no lse gradient
   then).
 
 The kernels take any T (they guard the ragged last tile), so the port sends
 no shape to the dense path on the card.
+
+Inside ``kernels/costing.costing()`` (the perf x-ray's and the flops
+profiler's measured runs) a launch on the card charges the dispatch modes with its plain
+version's operators (``kernels/costing.py``), so a step counts the same
+flops and bytes on the card as on the CPU.
 """
 
 import contextlib
@@ -33,6 +40,9 @@ import ctypes
 import os
 
 import torch
+
+from deepspeed_tpu_torch.ops.transformer.kernels.costing import (charge,
+                                                                hidden)
 
 NEG_INF = -1e30
 HEAD_DIM = 64  # the head width the CUDA kernels take
@@ -169,6 +179,46 @@ def _bwd_mode(t_kv, d, dtype):
     return "split" if resident > _FUSED_BWD_BYTES else "fused"
 
 
+def flash_signature(b, h, t_q, t_kv, d, dtype, causal):
+    """The autotune signature of a flash-attention shape, the JAX
+    package's format (``b8_h16_tq1024_tkv1024_d64_bfloat16_c1``)."""
+    return "b{}_h{}_tq{}_tkv{}_d{}_{}_c{}".format(
+        b, h, t_q, t_kv, d, str(dtype).replace("torch.", ""),
+        int(bool(causal)))
+
+
+def _flash_bwd_mode(q, k, v, mask, lse, delta, do, causal, scale):
+    """K2's mode on the card: ``DS_TPU_FLASH_BWD`` when set, else the
+    ``flash_attention`` family's choice for this signature
+    (``ops/autotuner.py``: the bundled table of modes measured on the card,
+    the user cache, a sweep of both under ``DS_TPU_AUTOTUNE=1``), the 6 MiB
+    rule (``_bwd_mode``) where no row exists. No sweep runs during a graph
+    capture."""
+    mode = os.environ.get("DS_TPU_FLASH_BWD", "auto")
+    if mode in ("fused", "split"):
+        return mode
+    from deepspeed_tpu_torch.ops import autotuner
+    B, H, Tq, D = q.shape
+    sig = flash_signature(B, H, Tq, k.shape[2], D, q.dtype, causal)
+
+    def make_run(cand):
+        def run():
+            dkdv, dq_only, _ = _bwd_kernels(q, k, v, mask, lse, delta, do,
+                                            causal, scale)
+            if cand == "fused":
+                dkdv(torch.zeros(B, H, Tq, D, dtype=torch.float32,
+                                 device=q.device))
+            else:
+                dkdv()
+                dq_only()
+        return run
+
+    cands = [] if autotuner.capturing() else ["fused", "split"]
+    return autotuner.autotune("flash_attention", sig, cands, make_run,
+                              default=_bwd_mode(k.shape[2], D, q.dtype),
+                              repeats=20, device=q.device)
+
+
 def _kernel(name):
     fn = _fns.get(name)
     if fn is None:
@@ -246,21 +296,25 @@ def flash_fwd(q, k, v, mask=None, causal=False, scale=None):
     plain version; on CUDA tensors the kernel, or an error for what it does
     not take (dtype other than fp32/bf16/fp16, D != 64, non-contiguous
     tensors, mixed devices)."""
-    mask = _check(q, k, v, mask)
+    with hidden():
+        mask32 = _check(q, k, v, mask)
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return mha_reference(q, k, v, mask, causal, scale, return_lse=True)
-    B, H, Tq, D = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty(B, H, Tq, 1, dtype=torch.float32, device=q.device)
-    err = _kernel("ds_flash_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), o.data_ptr(),
-        lse.data_ptr(), B, H, Tq, k.shape[2], D, _DTYPE_CODE[q.dtype],
-        float(scale), int(bool(causal)), _stream(q))
+    with hidden():
+        B, H, Tq, D = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, Tq, 1, dtype=torch.float32, device=q.device)
+        err = _kernel("ds_flash_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask32),
+            o.data_ptr(), lse.data_ptr(), B, H, Tq, k.shape[2], D,
+            _DTYPE_CODE[q.dtype], float(scale), int(bool(causal)),
+            _stream(q))
     if err != 0:
         raise RuntimeError("flash attention forward kernel launch failed: "
                            "CUDA error {}".format(err))
     _count("flash_fwd")
+    charge(mha_reference, q, k, v, mask, causal, scale, return_lse=True)
     return o, lse
 
 
@@ -268,10 +322,11 @@ def flash_bwd(q, k, v, mask, lse, delta, do, causal=False, scale=None,
               mode=None):
     """K2: (dq, dk, dv) in the inputs' dtype from the forward's lse and
     ``delta = rowsum(dO * O)`` (both ``[B, H, T, 1]`` fp32). ``mode`` is
-    'fused' (K2a) or 'split' (K2b); None asks ``_bwd_mode``. On CPU tensors
-    the plain version (the same function either way)."""
-    mask = _check(q, k, v, mask, (("lse", lse), ("delta", delta),
-                                  ("do", do)))
+    'fused' (K2a) or 'split' (K2b); None asks ``_flash_bwd_mode``. On CPU
+    tensors the plain version (the same function either way)."""
+    with hidden():
+        mask32 = _check(q, k, v, mask, (("lse", lse), ("delta", delta),
+                                        ("do", do)))
     scale = _scale(q, scale)
     if q.device.type == "cpu":
         return flash_bwd_reference(q, k, v, mask, lse, delta, do, causal,
@@ -287,21 +342,28 @@ def flash_bwd(q, k, v, mask, lse, delta, do, causal=False, scale=None,
             raise ValueError("flash attention: {} must be [B, H, T, 1] "
                              "float32, got {} {}".format(
                                  name, tuple(t.shape), t.dtype))
-    mode = mode or _bwd_mode(Tk, D, q.dtype)
+    if mode is None:
+        with hidden():  # a sweep's launches are not the step's work
+            mode = _flash_bwd_mode(q, k, v, mask32, lse, delta, do, causal,
+                                   scale)
     if mode not in ("fused", "split"):
         raise ValueError("flash attention: mode must be 'fused' or 'split', "
                          "got {!r}".format(mode))
-    dkdv, dq_only, (dq, dk, dv) = _bwd_kernels(q, k, v, mask, lse, delta,
-                                               do, causal, scale)
-    if mode == "fused":
-        dq32 = torch.zeros(B, H, Tq, D, dtype=torch.float32, device=q.device)
-        dkdv(dq32)
-        _count("flash_bwd_fused")
-        return dq32.to(q.dtype), dk, dv
-    dkdv()
-    _count("flash_bwd_split")
-    dq_only()
-    _count("flash_bwd_split")
+    with hidden():
+        dkdv, dq_only, (dq, dk, dv) = _bwd_kernels(
+            q, k, v, mask32, lse, delta, do, causal, scale)
+        if mode == "fused":
+            dq32 = torch.zeros(B, H, Tq, D, dtype=torch.float32,
+                               device=q.device)
+            dkdv(dq32)
+            _count("flash_bwd_fused")
+            dq = dq32.to(q.dtype)
+        else:
+            dkdv()
+            _count("flash_bwd_split")
+            dq_only()
+            _count("flash_bwd_split")
+    charge(flash_bwd_reference, q, k, v, mask, lse, delta, do, causal, scale)
     return dq, dk, dv
 
 

@@ -63,6 +63,8 @@ import threading
 
 import torch
 
+from deepspeed_tpu_torch.analysis.annotations import hot_path
+
 # Query rows and head width the CUDA kernels take (csrc/decode_attention.cu).
 MAX_QUERY_ROWS = 64
 HEAD_DIM = 64
@@ -187,6 +189,7 @@ def _kernel_cost(q, k, pos, T, int8, block_tbl):
 # ---------------------------------------------------------------------------
 
 
+@hot_path
 def quantize_kv(x):
     """Quantize ``[..., D]`` k/v rows to int8 with per-row symmetric scales.
     Returns ``(codes int8 [..., D], scale fp32 [...])``: the scale is
@@ -200,6 +203,7 @@ def quantize_kv(x):
     return codes.to(torch.int8), scale
 
 
+@hot_path
 def dequantize_kv(codes, scale, dtype=torch.float32):
     """Inverse of ``quantize_kv``: ``codes [..., D]`` int8 with per-row
     ``scale [...]`` back to ``dtype`` (the product in fp32, then cast)."""
@@ -211,6 +215,7 @@ def dequantize_kv(codes, scale, dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 
+@hot_path
 def decode_attention_reference(q, k, v, pos, scale=None):
     """q: [B, H, S, D] query rows, row b starting at global position
     ``pos[b]`` (its k/v already written at ``pos[b] .. pos[b]+S-1``);
@@ -231,6 +236,7 @@ def decode_attention_reference(q, k, v, pos, scale=None):
     return torch.matmul(att, v)
 
 
+@hot_path
 def decode_attention_q8_reference(q, k, v, k_scale, v_scale, pos,
                                   scale=None):
     """int8 plane: dequantize k and v to q's dtype, then the dense
@@ -253,6 +259,7 @@ def gather_pages(arena, block_tbl):
                      + tuple(arena.shape[3:]))
 
 
+@hot_path
 def decode_attention_paged_reference(q, k, v, block_tbl, pos, scale=None):
     """Paged arena: gather each row's pages into its logical plane, then the
     dense reference. k, v: [P, H, page_len, D]; block_tbl: [B, n_lp]."""
@@ -261,6 +268,7 @@ def decode_attention_paged_reference(q, k, v, block_tbl, pos, scale=None):
                                       scale=scale)
 
 
+@hot_path
 def decode_attention_paged_q8_reference(q, k, v, k_scale, v_scale,
                                         block_tbl, pos, scale=None):
     """Paged int8 arena: gather codes and scales through the table,
@@ -509,6 +517,7 @@ def _on_cpu(name, q, *tensors):
     return True
 
 
+@hot_path
 def flash_decode_attention(q, k, v, pos, scale=None):
     """Kernel K3: length-aware fused cache attention over a dense plane.
 
@@ -529,6 +538,7 @@ def flash_decode_attention(q, k, v, pos, scale=None):
                    scale)
 
 
+@hot_path
 def flash_decode_attention_q8(q, k, v, k_scale, v_scale, pos, scale=None):
     """Kernel K4: ``flash_decode_attention`` over int8 codes ``[B, H, T,
     D]`` with fp32 per-(head, position) scales ``[B, H, T]``, dequantized
@@ -546,6 +556,7 @@ def flash_decode_attention_q8(q, k, v, k_scale, v_scale, pos, scale=None):
                    k.shape[2], scale)
 
 
+@hot_path
 def flash_decode_attention_paged(q, k, v, block_tbl, pos, scale=None):
     """Kernel K5: block-table flash decode over a page arena ``[P, H,
     page_len, D]``; row b's logical page j is arena page
@@ -564,6 +575,7 @@ def flash_decode_attention_paged(q, k, v, block_tbl, pos, scale=None):
                    block_tbl.shape[1] * k.shape[2], scale)
 
 
+@hot_path
 def flash_decode_attention_paged_q8(q, k, v, k_scale, v_scale, block_tbl,
                                     pos, scale=None):
     """Kernel K6: ``flash_decode_attention_paged`` over int8 code arenas

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.kernels.row_kernels import (
-    DTYPE_CODE, cuda_operands, fp32_vector, launch, ptr)
+    DTYPE_CODE, charge, cuda_operands, fp32_vector, hidden, launch, ptr)
 
 # Kernel launches since the last reset.
 launches = {"dropout_fwd": 0, "dropout_bwd": 0}
@@ -126,14 +126,16 @@ def dropout_fwd(x, bias, residual, rate, seed):
     _check_rate(rate)
     if not cuda_operands("dropout", x, (residual,), (bias,)):
         return dropout_reference(x, rate, seed, bias, residual)
-    out = torch.empty_like(x)
-    bias = fp32_vector(bias)
-    k0, k1 = _key(seed)
-    launch("ds_dropout_fwd", "dropout forward", x, x.data_ptr(),
-           ptr(bias), ptr(residual), out.data_ptr(), x.numel(),
-           x.shape[-1], DTYPE_CODE[x.dtype], threshold(rate),
-           keep_scale(rate), k0, k1)
+    with hidden():
+        out = torch.empty_like(x)
+        bias32 = fp32_vector(bias)
+        k0, k1 = _key(seed)
+        launch("ds_dropout_fwd", "dropout forward", x, x.data_ptr(),
+               ptr(bias32), ptr(residual), out.data_ptr(), x.numel(),
+               x.shape[-1], DTYPE_CODE[x.dtype], threshold(rate),
+               keep_scale(rate), k0, k1)
     launches["dropout_fwd"] += 1
+    charge(dropout_reference, x, rate, seed, bias, residual)
     return out
 
 
@@ -143,12 +145,14 @@ def dropout_bwd(g, rate, seed):
     _check_rate(rate)
     if not cuda_operands("dropout backward", g):
         return dropout_bwd_reference(g, rate, seed)
-    dx = torch.empty_like(g)
-    k0, k1 = _key(seed)
-    launch("ds_dropout_bwd", "dropout backward", g, g.data_ptr(),
-           dx.data_ptr(), g.numel(), DTYPE_CODE[g.dtype], threshold(rate),
-           keep_scale(rate), k0, k1)
+    with hidden():
+        dx = torch.empty_like(g)
+        k0, k1 = _key(seed)
+        launch("ds_dropout_bwd", "dropout backward", g, g.data_ptr(),
+               dx.data_ptr(), g.numel(), DTYPE_CODE[g.dtype], threshold(rate),
+               keep_scale(rate), k0, k1)
     launches["dropout_bwd"] += 1
+    charge(dropout_bwd_reference, g, rate, seed)
     return dx
 
 

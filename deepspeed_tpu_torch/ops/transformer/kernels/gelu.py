@@ -16,7 +16,7 @@ Counterpart of ``deepspeed_tpu/ops/transformer/kernels/gelu.py``.
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.kernels.row_kernels import (
-    DTYPE_CODE, cuda_operands, fp32_vector, launch)
+    DTYPE_CODE, charge, cuda_operands, fp32_vector, hidden, launch)
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 
@@ -50,13 +50,15 @@ def bias_gelu_fwd(x, bias):
     or an error for what it does not take."""
     if not cuda_operands("bias_gelu", x, vectors=(bias,)):
         return bias_gelu_reference(x, bias)
-    out = torch.empty_like(x)
-    bias = fp32_vector(bias)
-    launch("ds_bias_gelu_fwd", "bias_gelu", x, x.data_ptr(),
-           bias.data_ptr(), out.data_ptr(), x.numel(),
-           x.shape[-1], DTYPE_CODE[x.dtype])
+    with hidden():
+        out = torch.empty_like(x)
+        bias32 = fp32_vector(bias)
+        launch("ds_bias_gelu_fwd", "bias_gelu", x, x.data_ptr(),
+               bias32.data_ptr(), out.data_ptr(), x.numel(),
+               x.shape[-1], DTYPE_CODE[x.dtype])
     global launches
     launches += 1
+    charge(bias_gelu_reference, x, bias)
     return out
 
 

@@ -20,7 +20,9 @@ Counterpart of ``deepspeed_tpu/ops/transformer/kernels/layer_norm.py``.
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.kernels.row_kernels import (
-    DTYPE_CODE, cuda_operands, fp32_vector, launch, ptr)
+    DTYPE_CODE, charge, cuda_operands, fp32_vector, launch, ptr)
+from deepspeed_tpu_torch.ops.transformer.kernels.row_kernels import \
+    hidden as hidden_ops
 
 # Kernel launches since the last reset, by variant: "plain" (LN of x) and
 # "bias_residual" (LN of x with a bias, a residual or both).
@@ -70,16 +72,18 @@ def ln_fwd(x, gamma, beta, bias=None, residual=None, eps=1e-12):
                          "bytes, got {} x {}".format(
                              MAX_ROW_BYTES, hidden, x.dtype))
     rows = x.numel() // hidden
-    out = torch.empty_like(x)
-    mu = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mu)
-    gamma, beta, bias = (fp32_vector(t) for t in (gamma, beta, bias))
-    launch("ds_layer_norm_fwd", "layer_norm", x, x.data_ptr(), ptr(residual),
-           ptr(bias), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-           mu.data_ptr(), rstd.data_ptr(), rows, hidden, DTYPE_CODE[x.dtype],
-           float(eps))
+    with hidden_ops():
+        out = torch.empty_like(x)
+        mu = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mu)
+        g32, b32, bias32 = (fp32_vector(t) for t in (gamma, beta, bias))
+        launch("ds_layer_norm_fwd", "layer_norm", x, x.data_ptr(),
+               ptr(residual), ptr(bias32), g32.data_ptr(), b32.data_ptr(),
+               out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows, hidden,
+               DTYPE_CODE[x.dtype], float(eps))
     launches["plain" if bias is None and residual is None
              else "bias_residual"] += 1
+    charge(ln_fwd_reference, x, gamma, beta, bias, residual, eps)
     return out, mu, rstd
 
 

@@ -5,12 +5,17 @@ The library is built and loaded at the first launch (``op_builder.load``),
 never at import. ``cuda_operands`` decides, from the tensors alone, whether
 a wrapper computes its plain version (CPU tensors) or launches its kernel
 (CUDA tensors, after checking what the kernel takes); any other device
-raises.
+raises. Each wrapper's work on the card runs under ``costing.hidden()``
+and then ``costing.charge``s its plain version (``kernels/costing.py``),
+so the perf x-ray counts a step alike on the card and on the CPU.
 """
 
 import ctypes
 
 import torch
+
+from deepspeed_tpu_torch.ops.transformer.kernels.costing import (  # noqa: F401
+    charge, hidden)
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 

@@ -19,7 +19,7 @@ port's attention runs through the flash kernels, which subsume it).
 import torch
 
 from deepspeed_tpu_torch.ops.transformer.kernels.row_kernels import (
-    DTYPE_CODE, cuda_operands, launch, ptr)
+    DTYPE_CODE, charge, cuda_operands, hidden, launch, ptr)
 
 NEG_INF = -1e30
 
@@ -83,14 +83,15 @@ def softmax_fwd(scores, mask=None, scale=1.0, causal=False):
     if t_k > MAX_KEYS:
         raise ValueError("attn_softmax: the kernel takes at most {} keys, "
                          "got {}".format(MAX_KEYS, t_k))
-    if mask is not None:
-        mask = mask.float().contiguous()
-    out = torch.empty_like(scores)
-    launch("ds_attn_softmax_fwd", "attn_softmax", scores, scores.data_ptr(),
-           ptr(mask), out.data_ptr(), B, H, t_q, t_k,
-           DTYPE_CODE[scores.dtype], float(scale), int(bool(causal)))
+    with hidden():
+        mask32 = None if mask is None else mask.float().contiguous()
+        out = torch.empty_like(scores)
+        launch("ds_attn_softmax_fwd", "attn_softmax", scores,
+               scores.data_ptr(), ptr(mask32), out.data_ptr(), B, H, t_q,
+               t_k, DTYPE_CODE[scores.dtype], float(scale), int(bool(causal)))
     global launches
     launches += 1
+    charge(attn_softmax_reference, scores, mask, scale, causal)
     return out
 
 

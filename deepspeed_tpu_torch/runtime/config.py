@@ -36,6 +36,11 @@ are read (``self.pipeline``) and honoured by the pipeline engine
 (``runtime/pipe/engine.py``); ``partition`` and ``seed_layers`` belong to
 the ``PipelineModule`` and parse only at their defaults.
 
+``flops_profiler`` (``flops_profiler_config``: ``enabled``, ``start_step``,
+``end_step``, ``module_depth``, ``top_modules``) parses as in the JAX
+config; the engine runs ``profiling.flops_profiler.FlopsProfiler`` over
+the steps it names.
+
 ``elasticity`` (``enabled: true``) overwrites the batch triangle with the
 elastic schedule for this world size before it is parsed, as the JAX
 config's ``_apply_elasticity`` does.
@@ -95,6 +100,7 @@ from deepspeed_tpu_torch.runtime.constants import (
     WALL_CLOCK_BREAKDOWN_DEFAULT,
     TRAIN_MICRO_BATCH_SIZE_PER_GPU, TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT,
     TYPE, ValidationMode)
+from deepspeed_tpu_torch.profiling.config import DeepSpeedFlopsProfilerConfig
 from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.version import version as __version__
@@ -109,17 +115,10 @@ DEEPSPEED_OPTIMIZERS = [ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER,
                         ONEBIT_ADAM_OPTIMIZER]
 
 _RUNTIME = "the remaining training runtime (ROADMAP Queue 1)"
-_TOOLING = "the tooling slice (ROADMAP Queue 1)"
 # The JAX engine's reason for refusing stream_gradients on a mesh of more
 # than one device.
 STREAM_MULTI_RANK = ("stream_gradients targets single-chip offload "
                      "capacity; use plain cpu_offload on multi-device meshes")
-
-# Sub-blocks whose "enabled": true switches on a subsystem the port lacks.
-_UNPORTED_BLOCKS = {
-    "flops_profiler": _TOOLING,
-}
-
 
 def _read(param_dict, path, default):
     """Scalar at ``path`` (a key tuple into sub-dicts), or ``default`` when
@@ -290,9 +289,6 @@ def _refuse(what, where):
 def _check_ported(param_dict):
     """Raise NotImplementedError for any key that switches on a subsystem
     the port does not have (module docstring)."""
-    for block, where in _UNPORTED_BLOCKS.items():
-        if _read(param_dict, (block, "enabled"), False):
-            _refuse("'{}.enabled': true".format(block), where)
     pipeline = param_dict.get("pipeline", {})
     for key in sorted(pipeline):
         if key in _PIPELINE_ENGINE_KEYS:
@@ -397,6 +393,7 @@ class DeepSpeedConfig(object):
             DeepSpeedActivationCheckpointingConfig(param_dict)
         self.inference = self._parse_inference(param_dict)
         self.sparse_attention = parse_sparse_attention(param_dict)
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig(param_dict)
 
         tag_mode = str(_read(param_dict, (CHECKPOINT,
                                           CHECKPOINT_TAG_VALIDATION),

@@ -39,10 +39,17 @@ checkpoints in the JAX package's layout and format.
 - The perf x-ray (``telemetry/xray.py``): ``train_batch`` stashes its
   step under ``train_step`` with the batch's shapes as the signature; a
   signature's first step runs under the x-ray's cost modes (the torch
-  operators' flops and bytes of forward, backward and step; the ctypes
-  training kernels are not counted) and ``perf_xray()`` returns the
+  operators' flops and bytes of forward, backward and step; each training
+  kernel on the card charges its plain version's, so the record is the
+  same on the card as on the CPU) and ``perf_xray()`` returns the
   section. No step is sampled (``sample_every`` 0, as in the JAX engine).
-  The flops profiler is ROADMAP Queue 1 item 13.
+- The flops profiler (``profiling/flops_profiler``), as in the JAX engine:
+  with the ``flops_profiler`` block enabled, rank 0 starts a
+  ``FlopsProfiler`` at the forward of step ``start_step``; each step until
+  it stops is measured under the x-ray's cost modes from its forward to the
+  end of its backward (the JAX profiler's fused program) and added to it;
+  after the backward of step ``end_step`` it stops, prints the profile,
+  keeps it in ``flops_profile`` and ends.
 
 - The optimizer table (JAX ``_configure_basic_optimizer``): Adam or AdamW
   -> ``FusedAdam``, Lamb -> ``FusedLamb`` on the device; under
@@ -354,6 +361,12 @@ class DeepSpeedEngine(object):
         self.xray = ProgramRegistry(self.telemetry,
                                     platform=self.device.type,
                                     sample_every=0)
+        # The flops profiler (module docstring): the profiler while it
+        # runs, the open window of the step it is measuring, and the last
+        # profile it printed.
+        self.flops_profiler = None
+        self._profile_window = None
+        self.flops_profile = None
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_micro_batch_size_per_gpu(),
             num_workers=self.dp_world_size,
@@ -673,6 +686,53 @@ class DeepSpeedEngine(object):
     def sparse_attention(self):
         return self._config.sparse_attention
 
+    def flops_profiler_enabled(self):
+        return self._config.flops_profiler_config.enabled
+
+    def flops_profiler_start_step(self):
+        return self._config.flops_profiler_config.start_step
+
+    def flops_profiler_end_step(self):
+        return self._config.flops_profiler_config.end_step
+
+    def _start_flops_profiler(self):
+        from deepspeed_tpu_torch.profiling.flops_profiler import FlopsProfiler
+        self.flops_profiler = FlopsProfiler(self.module, xray=self.xray)
+        self.flops_profiler.start_profile()
+
+    def _stop_flops_profiler(self):
+        """Stop, print and end the profile; its totals and text stay in
+        ``flops_profile``."""
+        prof = self.flops_profiler
+        prof.stop_profile()
+        text = prof.print_model_profile(
+            profile_step=self.global_steps,
+            module_depth=self._config.flops_profiler_config.module_depth,
+            top_modules=self._config.flops_profiler_config.top_modules)
+        self.flops_profile = {
+            "flops": prof.get_total_flops(),
+            "bytes_accessed": prof.get_total_bytes(),
+            "params": prof.get_total_params(),
+            "steps": prof.get_total_steps(),
+            "duration_s": prof.get_total_duration(),
+            "modules": prof.module_breakdown(
+                self._config.flops_profiler_config.module_depth),
+            "text": text}
+        prof.end_profile()
+
+    def _close_profile_window(self):
+        window, self._profile_window = self._profile_window, None
+        if window is not None:
+            window.__exit__(None, None, None)
+
+    def _profiler_step_end(self):
+        """Close the step's profiling window; stop at ``end_step``."""
+        self._close_profile_window()
+        if self.flops_profiler is not None and \
+                self.flops_profiler.started and \
+                self.global_steps == self.flops_profiler_end_step():
+            self._stop_flops_profiler()
+
     def wall_clock_breakdown(self):
         return self._config.wall_clock_breakdown
 
@@ -939,6 +999,11 @@ class DeepSpeedEngine(object):
         """Run the module on ``inputs`` (numpy arrays or tensors, moved to
         the engine's device) and return its loss. While training, dropout
         is on and the graph is kept for ``backward``."""
+        if self.flops_profiler_enabled() and \
+                self.global_steps == self.flops_profiler_start_step() and \
+                self.global_rank == 0 and (self.flops_profiler is None or
+                                           not self.flops_profiler.started):
+            self._start_flops_profiler()
         if self.wall_clock_breakdown():
             self.timers("forward_microstep").start()
             self.timers("forward").start()
@@ -964,16 +1029,27 @@ class DeepSpeedEngine(object):
             inputs = tuple(mesh_lib.seq_shard(x, n, r) for x in inputs)
             kwargs = {k: mesh_lib.seq_shard(v, n, r)
                       for k, v in kwargs.items()}
-        if not self.training:
-            with torch.no_grad():
+        if self.flops_profiler is not None and self.flops_profiler.started:
+            # Closed after this step's backward (or below, in eval): the
+            # step's forward and backward in one measurement.
+            self._close_profile_window()
+            self._profile_window = self.flops_profiler.window().__enter__()
+        try:
+            if not self.training:
+                with torch.no_grad():
+                    out = self._run_module(inputs, kwargs)
+            else:
+                self.tput_timer.start()
+                if self._takes_deterministic:
+                    kwargs.setdefault("deterministic", False)
+                if self._takes_generator:
+                    kwargs.setdefault("generator", self._generator)
                 out = self._run_module(inputs, kwargs)
-        else:
-            self.tput_timer.start()
-            if self._takes_deterministic:
-                kwargs.setdefault("deterministic", False)
-            if self._takes_generator:
-                kwargs.setdefault("generator", self._generator)
-            out = self._run_module(inputs, kwargs)
+        except BaseException:
+            self._profiler_step_end()
+            raise
+        if not self.training:
+            self._profiler_step_end()
         if self.wall_clock_breakdown():
             self.timers("forward").stop()
             self.timers("forward_microstep").stop()
@@ -996,7 +1072,10 @@ class DeepSpeedEngine(object):
         scale = self.loss_scaler.loss_scale if self.loss_scaler else 1.0
         if self._zero is not None:
             self._zero.boundary = self.is_gradient_accumulation_boundary()
-        (loss * (scale / self.gradient_accumulation_steps())).backward()
+        try:
+            (loss * (scale / self.gradient_accumulation_steps())).backward()
+        finally:
+            self._profiler_step_end()
         if self._zero is not None:
             self._zero.end_backward()
         if self._streamed is not None:

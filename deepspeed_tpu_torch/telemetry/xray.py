@@ -17,8 +17,11 @@ MEASURES one run instead:
   behind PERF.md's bound column (``decode_attention.costing``: 4*D flops
   per visible key per query row; q and out, each cached key up to its
   row's frontier and the frontiers read once, plus a block table), from
-  the frontiers of that run. The training kernels (K1/K2, K8-K11) have no
-  such formula here: a training step's record counts its torch operators;
+  the frontiers of that run. The training kernels (K1/K2, K7, K8-K11)
+  charge the two modes with their plain versions' operators, run on meta
+  tensors of the same shapes (``kernels/costing.py``), so a training
+  step's record counts the same flops and bytes on the card as on the
+  CPU;
 - the graph pool's bytes after the program's capture (the shared pool of
   the engine's graphs; 0 on the CPU, which captures nothing).
 
@@ -49,6 +52,7 @@ Three pieces, as in the JAX module:
   two ``perf_xray`` sections so the regression gate flags cost deltas.
 """
 
+import contextlib
 import hashlib
 import threading
 import time
@@ -59,7 +63,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import FlopCounterMode
 
-from deepspeed_tpu_torch.ops.transformer.kernels import decode_attention
+from deepspeed_tpu_torch.ops.transformer.kernels import (costing,
+                                                        decode_attention)
 from deepspeed_tpu_torch.utils.logging import logger
 
 # Version stamp of the ``perf_xray`` section. Bump on any field rename or
@@ -168,19 +173,55 @@ class _ByteMode(TorchDispatchMode):
         return out
 
 
+class CostWindow(object):
+    """The cost modes over a span of work that may begin in one call and
+    end in another (the flops profiler's forward-to-backward window):
+    ``__enter__`` opens them, ``__exit__`` closes them and fills ``cost``
+    ({"flops", "bytes_accessed", "kernel_flops", "kernel_bytes"}: the torch
+    operators' flops and bytes, the training kernels' plain versions among
+    them, plus the decode kernels' formula) and ``modules`` (flops by
+    module path, as ``FlopCounterMode``'s hierarchy names them: the root
+    module's class name, then attribute names; every flop counts in each
+    enclosing module and in ``Global``). Windows nest."""
+
+    def __init__(self):
+        self.cost = None
+        self.modules = None
+        self._stack = None
+        self._counter = None
+        self._bytes = None
+        self._kernels = None
+
+    def __enter__(self):
+        stack = contextlib.ExitStack()
+        self._counter = stack.enter_context(FlopCounterMode(display=False))
+        self._bytes = stack.enter_context(_ByteMode())
+        stack.enter_context(costing.costing())
+        self._kernels = stack.enter_context(decode_attention.costing())
+        self._stack = stack
+        return self
+
+    def __exit__(self, *exc):
+        stack, self._stack = self._stack, None
+        stack.close()
+        kernels = self._kernels
+        flops = float(self._counter.get_total_flops()) + kernels["flops"]
+        self.cost = {"flops": flops,
+                     "bytes_accessed": float(self._bytes.bytes) +
+                     kernels["bytes"],
+                     "kernel_flops": float(kernels["flops"]),
+                     "kernel_bytes": float(kernels["bytes"])}
+        self.modules = {name: float(sum(ops.values())) for name, ops in
+                        self._counter.get_flop_counts().items()}
+        return False
+
+
 def measure_cost(run):
-    """Run ``run()`` once under the cost modes; returns (its result,
-    {"flops", "bytes_accessed", "kernel_flops", "kernel_bytes"}): the
-    torch operators' flops and bytes plus the decode kernels' formula."""
-    counter = FlopCounterMode(display=False)
-    with counter, _ByteMode() as bm, \
-            decode_attention.costing() as kernels:
+    """Run ``run()`` once under the cost modes (``CostWindow``); returns
+    (its result, the window's ``cost``)."""
+    with CostWindow() as window:
         out = run()
-    flops = float(counter.get_total_flops()) + kernels["flops"]
-    return out, {"flops": flops,
-                 "bytes_accessed": float(bm.bytes) + kernels["bytes"],
-                 "kernel_flops": float(kernels["flops"]),
-                 "kernel_bytes": float(kernels["bytes"])}
+    return out, window.cost
 
 
 class _Stash(object):

@@ -36,8 +36,8 @@ def _t(*arrays):
 def test_host_ops_build_from_the_ports_own_sources():
     srcs = builder.host_sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "cpu_adam.cpp", "cpu_lamb.cpp", "flatten_unflatten.cpp"]
-    for name in ("cpu_adam", "cpu_lamb", "flatten_unflatten"):
+        "cpu_adam.cpp", "cpu_lamb.cpp", "flatten_unflatten.cpp", "lut.cpp"]
+    for name in ("cpu_adam", "cpu_lamb", "flatten_unflatten", "lut"):
         lib = builder.load_host(name)
         assert builder.load_host(name) is lib  # cached
     lib = builder.load_host("cpu_adam")

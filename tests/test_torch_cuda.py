@@ -25,8 +25,12 @@ backward through its lse; then sequence parallelism and 1-bit Adam over
 two gloo ranks on cuda:0: ring and Ulysses attention (K1/K2 on each block
 with the global lse) against dense attention, the compressed all-reduce
 against its numpy reference, a sequence-parallel GPT-2 step against one
-process and a 1-bit run against the CPU; and activation checkpointing's
-bit-equal gradients on the card.
+process and a 1-bit run against the CPU; activation checkpointing's
+bit-equal gradients on the card; and the tooling: the host LUT op's tables
+driving K7a/K7b, each training kernel's cost on the card equal to its plain
+version's count on the CPU, the x-ray's and the flops profiler's training
+step counted alike on the card and the CPU, and the autotuner's sweep (none
+inside a graph capture).
 
 Marked ``cuda``: they skip where there is no GPU. On a machine with one,
 run ``python -m pytest tests/test_torch_cuda.py -m cuda``. This file
@@ -2308,3 +2312,176 @@ def test_checkpointed_gpt2_blocks_bit_equal_on_the_card(cuda, monkeypatch):
                 assert torch.equal(a, b)
     finally:
         checkpointing.configure(checkpoint_in_cpu=False)
+
+
+# ---------------------------------------------------------------------------
+# Module injection and the tooling (the LUT op, costing, the autotuner)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["fixed", "bigbird"])
+def test_lut_op_tables_drive_k7(cuda, kind):
+    """The host C++ op's tables equal the numpy lowering's, and K7a/K7b
+    over them equal their plain versions (the sparse cases' limits)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig)
+    cfg = FixedSparsityConfig(num_heads=4, block=64) if kind == "fixed" \
+        else BigBirdSparsityConfig(num_heads=4, block=64, seed=3)
+    layout = cfg.make_layout(1024)
+    lowered = sk.LoweredLayout(layout, 64)
+    for got, want in zip((lowered.fwd_lut, lowered.bwd_lut),
+                         sk.build_luts_reference(layout)):
+        np.testing.assert_array_equal(got, want)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(2, 4, 1024, 64, device=cuda, generator=g)
+                   for _ in range(4))
+    sk.reset_launches()
+    o, lse = sk.sparse_fwd(q, k, v, lowered)
+    ro, rlse = sk.sparse_fwd_reference(q, k, v, lowered)
+    torch.testing.assert_close(o, ro, rtol=0, atol=1e-4)
+    delta = (do * o).sum(-1, keepdim=True)
+    for mode in ("fused", "split"):
+        got = sk.sparse_bwd(q, k, v, lowered, lse, delta, do, mode=mode)
+        want = sk.sparse_bwd_reference(q, k, v, lowered, lse, delta, do)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+    assert sk.launches == {"sparse_fwd": 1, "sparse_bwd_fused": 1,
+                           "sparse_bwd_split": 2}
+
+
+def _costing_cases(device):
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=g).to(device)
+
+    q, k, v, do = (r(2, 4, 128, 64) for _ in range(4))
+    lse, delta = r(2, 4, 128, 1), r(2, 4, 128, 1)
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    lowered = sk.lower(FixedSparsityConfig(num_heads=4, block=32)
+                       .make_layout(128), 32)
+    x, res, b = r(64, 256), r(64, 256), r(256)
+    return [
+        (lambda: at.flash_fwd(q, k, v, None, True),
+         lambda: at.mha_reference(q, k, v, None, True, return_lse=True)),
+        (lambda: at.flash_bwd(q, k, v, None, lse, delta, do, True),
+         lambda: at.flash_bwd_reference(q, k, v, None, lse, delta, do, True)),
+        (lambda: sk.sparse_fwd(q, k, v, lowered),
+         lambda: sk.sparse_fwd_reference(q, k, v, lowered)),
+        (lambda: sk.sparse_bwd(q, k, v, lowered, lse, delta, do),
+         lambda: sk.sparse_bwd_reference(q, k, v, lowered, lse, delta, do)),
+        (lambda: ln.ln_fwd(x, b, b, b, res),
+         lambda: ln.ln_fwd_reference(x, b, b, b, res)),
+        (lambda: sm.softmax_fwd(r(2, 4, 16, 64), None, 0.5, True),
+         lambda: sm.attn_softmax_reference(r(2, 4, 16, 64), None, 0.5,
+                                           True)),
+        (lambda: dr.dropout_fwd(x, b, res, 0.1, 7),
+         lambda: dr.dropout_reference(x, 0.1, 7, b, res)),
+        (lambda: dr.dropout_bwd(x, 0.1, 7),
+         lambda: dr.dropout_bwd_reference(x, 0.1, 7)),
+        (lambda: ge.bias_gelu_fwd(x, b),
+         lambda: ge.bias_gelu_reference(x, b)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_costing_on_the_card_equals_the_plain_count(cuda, case):
+    """Under the x-ray's cost modes a kernel launched on the card counts
+    exactly the flops and bytes its plain version counts on the CPU, on
+    copies of the same tensors (the CPU is what the card is held to: CUDA
+    decomposes some composite operators otherwise, e.g. a
+    repeat_interleave)."""
+    from deepspeed_tpu_torch.telemetry.xray import CostWindow
+    kernel, _ = _costing_cases(cuda)[case]
+    _, plain = _costing_cases(torch.device("cpu"))[case]
+    with CostWindow() as launched:
+        kernel()
+    with CostWindow() as counted:
+        plain()
+    assert launched.cost == counted.cost
+    assert counted.cost["bytes_accessed"] > 0
+
+
+@pytest.mark.parametrize("model", ["gpt2", "bert"])
+def test_xray_train_record_on_the_card_equals_the_cpu(cuda, model):
+    """The x-ray's train_step record and the flops profiler's step, at 4
+    layers of full width in fp32: the card (kernels) counts what the CPU
+    (plain versions) counts, flops and bytes (the batch on its device
+    first: an upload inside the step counts on the card's side only)."""
+    import dataclasses
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models import (BertConfig, BertForPreTraining,
+                                            GPT2Config, GPT2LMHeadModel)
+    config = {"train_batch_size": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+              "flops_profiler": {"enabled": True, "start_step": 0,
+                                 "end_step": 0}}
+    rng = np.random.RandomState(0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        if model == "gpt2":
+            cfg = dataclasses.replace(GPT2Config.gpt2_medium(
+                dtype=torch.float32), n_layer=4)
+            ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+            m, batch = GPT2LMHeadModel(cfg, device=device), (ids, ids)
+        else:
+            cfg = BertConfig.bert_large(dtype=torch.float32,
+                                        num_hidden_layers=4)
+            ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+            mask = torch.ones(2, 128, dtype=torch.long)
+            mask[0, 100:] = 0
+            labels = torch.where(torch.from_numpy(rng.rand(2, 128) < 0.15),
+                                 ids, -1)
+            batch = (ids, mask, torch.zeros_like(ids), labels,
+                     torch.tensor([0, 1]))
+            m = BertForPreTraining(cfg, device=device)
+        engine = tds.initialize(model=m, config_params=config,
+                                device=device)[0]
+        engine.train_batch(tuple(t.to(device) for t in batch))
+        rec = [r for r in engine.perf_xray()["programs"]
+               if r["program"] == "train_step"][0]
+        out[device] = (rec["flops"], rec["bytes_accessed"],
+                       engine.flops_profile["flops"],
+                       engine.flops_profile["bytes_accessed"])
+    assert out["cuda"] == out["cpu"]
+
+
+def test_autotune_sweep_and_no_sweep_in_a_capture(cuda, monkeypatch,
+                                                  tmp_path):
+    """Under DS_TPU_AUTOTUNE=force a flash backward sweeps K2a against
+    K2b and writes a valid row; inside a graph capture, under
+    DS_TPU_AUTOTUNE=1, a new signature is only looked up."""
+    import json
+    from deepspeed_tpu_torch.ops import autotuner
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    monkeypatch.setattr(autotuner, "_MEMO", {})
+    monkeypatch.setattr(autotuner, "_USER", None)
+    monkeypatch.setenv("DS_TPU_AUTOTUNE", "force")
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def inputs(B, T):
+        q, k, v, do = (torch.randn(B, 8, T, 64, device=cuda, generator=g)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = at.flash_fwd(q, k, v, None, True)
+        return q, k, v, do, lse, (do.float() * o.float()).sum(-1, True)
+
+    q, k, v, do, lse, delta = inputs(2, 512)
+    at.flash_bwd(q, k, v, None, lse, delta, do, True)
+    with open(autotuner._user_cache_path()) as f:
+        table = json.load(f)
+    assert autotuner.validate_table(table) == 1
+    (key, row), = table.items()
+    assert key == autotuner.table_key("flash_attention", at.flash_signature(
+        2, 8, 512, 512, 64, torch.bfloat16, True))
+    assert set(row["timings"]) == {"fused", "split"}
+    monkeypatch.setenv("DS_TPU_AUTOTUNE", "1")
+    q, k, v, do, lse, delta = inputs(1, 256)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        at.flash_bwd(q, k, v, None, lse, delta, do, True)
+    graph.replay()
+    torch.cuda.synchronize()
+    with open(autotuner._user_cache_path()) as f:
+        assert len(json.load(f)) == 1
+    assert not [k for k in autotuner._MEMO if "b1_h8_tq256" in k]

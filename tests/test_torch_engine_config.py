@@ -4,7 +4,8 @@ A config written for the JAX package parses to the same batch triangle,
 precision, clipping, optimizer, scheduler, loss-scale arguments, ZeRO stage
 and offload switches, timer and tensorboard switches and sparse-attention
 block, and the slice-17 blocks (OneBitAdam, sequence_parallel,
-progressive_layer_drop, activation_checkpointing). A key that switches on a
+progressive_layer_drop, activation_checkpointing) and the flops_profiler
+block. A key that switches on a
 subsystem the port does not have yet raises NotImplementedError (its
 default still parses), ``stream_gradients`` over several ranks raises the
 JAX engine's ValueError, and the training entry point refuses the CPU
@@ -87,7 +88,6 @@ def test_parses_as_the_jax_package_does(i):
 
 
 @pytest.mark.parametrize("extra", [
-    {"flops_profiler": {"enabled": True}},
     {"pipeline": {"partition": "uniform"}},
     {"pipeline": {"seed_layers": True}},
 ])
@@ -118,20 +118,26 @@ _PORTED_BLOCKS = [
     ({"optimizer": {"type": "OneBitAdam",
                     "params": {"lr": 1e-3, "freeze_step": 10}}},
      ("optimizer_name", "optimizer_params")),
+    ({"flops_profiler": {"enabled": True}}, ("flops_profiler_config",)),
+    ({"flops_profiler": {"enabled": True, "start_step": 2, "end_step": 4,
+                         "module_depth": 2, "top_modules": 5}},
+     ("flops_profiler_config",)),
 ]
 
 
 @pytest.mark.parametrize("i", range(len(_PORTED_BLOCKS)))
 def test_slice_blocks_parse_as_the_jax_package_does(i):
-    """OneBitAdam, sequence_parallel, progressive_layer_drop and
-    activation_checkpointing parse to the JAX config's values."""
+    """OneBitAdam, sequence_parallel, progressive_layer_drop,
+    activation_checkpointing and flops_profiler parse to the JAX config's
+    values."""
     extra, fields = _PORTED_BLOCKS[i]
     cfg = dict({"train_batch_size": 8}, **extra)
     want = JConfig(None, param_dict=dict(cfg), world_size=1)
     got = TConfig(None, param_dict=dict(cfg))
     for name in fields:
         a, b = getattr(got, name), getattr(want, name)
-        if name == "activation_checkpointing_config":
+        if name in ("activation_checkpointing_config",
+                    "flops_profiler_config"):
             a, b = a.repr(), b.repr()
         assert a == b, name
 

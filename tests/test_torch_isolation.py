@@ -59,6 +59,8 @@ def test_import_loads_no_jax_module():
     )} <= set(names)
     # ... and of the data-parallel slice
     assert set(DATA_PARALLEL_MODULES) <= set(names)
+    # ... and of the module-injection and tooling slice
+    assert set(TOOLING_MODULES) <= set(names)
 
 
 # The data-parallel slice's modules: none may import JAX or the JAX package.
@@ -69,7 +71,19 @@ DATA_PARALLEL_MODULES = tuple("deepspeed_tpu_torch." + m for m in (
     "parallel.mesh", "parallel.comm", "runtime.zero.partition", "version"))
 
 
-@pytest.mark.parametrize("module", DATA_PARALLEL_MODULES)
+# The module-injection and tooling slice's modules.
+TOOLING_MODULES = tuple("deepspeed_tpu_torch." + m for m in (
+    "module_inject", "module_inject.replace_module",
+    "module_inject.torch_checkpoint", "profiling", "profiling.config",
+    "profiling.flops_profiler", "profiling.flops_profiler.profiler",
+    "ops.autotuner", "env_report", "analysis", "analysis.__main__",
+    "analysis.annotations", "analysis.core", "analysis.rules",
+    "analysis.rules.hostsync", "analysis.rules.recompile",
+    "analysis.rules.donation", "analysis.rules.determinism",
+    "analysis.rules.threadrace", "analysis.rules.adapter"))
+
+
+@pytest.mark.parametrize("module", DATA_PARALLEL_MODULES + TOOLING_MODULES)
 def test_data_parallel_modules_import_no_jax(module):
     """Each module's own source imports neither JAX nor the JAX package,
     at its top or inside a function (``test_import_loads_no_jax_module``
@@ -94,7 +108,9 @@ def test_host_sources_are_the_ports_own():
     from deepspeed_tpu_torch.op_builder import host_sources
     csrc = os.path.join(PKG, "csrc") + os.sep
     srcs = host_sources()
-    assert len(srcs) == 3
+    assert len(srcs) == 4
+    assert sorted(os.path.basename(s) for s in srcs) == [
+        "cpu_adam.cpp", "cpu_lamb.cpp", "flatten_unflatten.cpp", "lut.cpp"]
     for src in srcs:
         real = os.path.realpath(src)
         assert real.startswith(csrc) and os.path.isfile(real), src
@@ -149,7 +165,8 @@ def test_entry_points_raise_without_cuda():
                                    "serving_fleet", "moe_init_params",
                                    "moe_params_from_jax", "moe_engine",
                                    "longcontext_engine", "simple_model",
-                                   "linear_stack"])
+                                   "linear_stack",
+                                   "replace_transformer_layer"])
 def test_state_builders_default_to_cuda(entry):
     """Every public builder of device state defaults to the GPU: without
     one it raises, and with ``device="cpu"`` it builds on the host."""
@@ -167,6 +184,7 @@ def test_state_builders_default_to_cuda(entry):
         BertSparseSelfAttention, FixedSparsityConfig, SparseAttentionUtils)
     from deepspeed_tpu_torch.models.simple import LinearStack, SimpleModel
     from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
+    from deepspeed_tpu_torch.module_inject import replace_transformer_layer
     cfg = GPT2Config.tiny(dtype=torch.float32)
     gcfg = generation.as_gencfg(cfg)
     bcfg = BertConfig.tiny(dtype=torch.float32)
@@ -222,6 +240,8 @@ def test_state_builders_default_to_cuda(entry):
             adapter=LongContextAdapter.from_model(cfg, threshold=32,
                                                   block=8), **kw)._pool["k"],
         "simple_model": lambda **kw: SimpleModel(8, **kw).linear.kernel,
+        "replace_transformer_layer": lambda **kw: replace_transformer_layer(
+            params={}, bert_config=bcfg, **kw)[0].attn_qkvw,
         "linear_stack": lambda **kw: LinearStack(4, 4, 4, 1, **kw)
         .serial_0.kernel,
     }[entry]

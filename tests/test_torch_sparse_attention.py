@@ -577,7 +577,19 @@ def test_tokenizer_length_and_unported_model_swap():
                                                                    4096)
     assert tok.model_max_length == 4096
     assert tok.init_kwargs["model_max_length"] == 4096
-    with pytest.raises(NotImplementedError, match="module_inject"):
+    # The swap is module_inject's: a plain-layer BERT takes it in place,
+    # a model that does not expose its attention raises TypeError.
+    from deepspeed_tpu_torch.models import BertConfig, BertForPreTraining
+    model = BertForPreTraining(BertConfig.tiny(
+        dtype=torch.float32, use_fused_layer=False), device="cpu")
+    sc = T.FixedSparsityConfig(num_heads=4, block=16)
+    assert T.SparseAttentionUtils \
+        .replace_model_self_attention_with_sparse_self_attention(
+            model, 4096, sc) is model
+    assert isinstance(model.bert.layer_0.attention_module,
+                      T.SparseSelfAttention)
+    assert model.bert.layer_1.attention_module.sparsity_config is sc
+    with pytest.raises(TypeError, match="attention_module"):
         T.SparseAttentionUtils \
             .replace_model_self_attention_with_sparse_self_attention(
                 object(), 4096)
